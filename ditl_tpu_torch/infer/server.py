@@ -1,0 +1,431 @@
+"""OpenAI-compatible HTTP server over the port's lock-step Generator.
+
+Counterpart of the JAX package's ``infer/server.py``, lock-step engine only:
+``GET /health``, ``GET /v1/models``, ``GET /v1/stats``, and non-streaming
+``POST /v1/completions`` and ``POST /v1/chat/completions`` with ``stop``,
+``max_tokens``, ``temperature``, ``top_p`` and ``seed``. A lock serialises
+device work; ``--max-pending`` answers 429 beyond that many requests in
+flight. Streaming, the continuous engine, adapters, telemetry and pod serving
+are later slices (ROADMAP.md).
+
+Weights are drawn from a seed (no checkpoint loading yet), on the card unless
+``--device cpu`` is given:
+
+    python -m ditl_tpu_torch.infer.server --preset llama3-8b \\
+        --override attention_impl=flash [--device cuda] [--port 8300]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import random
+import socket
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ditl_tpu_torch.infer.engine import GenerateConfig, Generator
+from ditl_tpu_torch.utils.http11 import KeepAliveHandlerMixin
+from ditl_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
+
+__all__ = ["DrainableHTTPServer", "make_server", "create_server", "serve"]
+
+
+class DrainableHTTPServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` with in-flight accounting and a graceful drain:
+    ``drain()`` flips /health to draining and makes new completions answer
+    503; ``close(drain=True)`` waits for in-flight work, then stops."""
+
+    daemon_threads = True
+
+    def __init__(self, *args, **kwargs):
+        self.draining = False
+        self._inflight = 0
+        self._idle = threading.Condition()
+        self._parked: set = set()
+        self._conn_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def shutdown_request(self, request):
+        with self._conn_lock:
+            self._parked.discard(request)
+        super().shutdown_request(request)
+
+    def note_parked(self, request, parked: bool) -> None:
+        with self._conn_lock:
+            if parked:
+                self._parked.add(request)
+            else:
+                self._parked.discard(request)
+
+    def handle_error(self, request, client_address):
+        import sys
+
+        if isinstance(sys.exc_info()[1], OSError):  # client went away
+            logger.debug("connection error from %s", client_address)
+            return
+        super().handle_error(request, client_address)
+
+    def _enter_request(self) -> int:
+        with self._idle:
+            self._inflight += 1
+            return self._inflight
+
+    def _exit_request(self) -> None:
+        with self._idle:
+            self._inflight -= 1
+            self._idle.notify_all()
+
+    @property
+    def inflight(self) -> int:
+        return self._inflight
+
+    def drain(self) -> None:
+        """New completions get 503; idle kept-alive connections are severed."""
+        self.draining = True
+        with self._conn_lock:
+            parked = list(self._parked)
+        for s in parked:
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    def close(self, drain: bool = True, timeout: float = 30.0) -> None:
+        """Drain, wait (bounded) for in-flight work, stop the serve loop and
+        close the socket. Call from a thread other than ``serve_forever``'s."""
+        if drain:
+            self.drain()
+            with self._idle:
+                if not self._idle.wait_for(lambda: self._inflight == 0, timeout):
+                    logger.warning("drain timed out with %d request(s) in flight",
+                                   self._inflight)
+        self.shutdown()
+        self.server_close()
+
+
+def _stop_list(stop) -> list[str]:
+    """OpenAI's ``stop`` (str | list | None) as at most 4 sequences."""
+    if not stop:
+        return []
+    if isinstance(stop, str):
+        stop = [stop]
+    if not isinstance(stop, list) or any(not isinstance(s, str) for s in stop):
+        raise ValueError("stop must be a string or an array of strings")
+    return [s for s in stop if s][:4]
+
+
+def _apply_stop(text: str, stops: list[str]) -> tuple[str, bool]:
+    """Cut at the earliest stop sequence (excluded, per OpenAI)."""
+    cut = None
+    for s in stops:
+        i = text.find(s)
+        if i >= 0 and (cut is None or i < cut):
+            cut = i
+    return (text, False) if cut is None else (text[:cut], True)
+
+
+def _chat_prompt(messages: list[dict]) -> str:
+    """Chat messages -> prompt as plain-text role turns (the byte tokenizer's
+    rendering; chat templates come with Hugging Face tokenizers)."""
+    parts = [f"{m.get('role', 'user')}: {m.get('content', '')}" for m in messages]
+    return "\n".join(parts) + "\nassistant:"
+
+
+class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
+    generator: Generator = None  # bound by make_server
+    model_name: str = "ditl-tpu-torch"
+    device_lock: threading.Lock = None
+    default_max_tokens: int = 64
+    max_pending: int | None = None
+    stats: dict = None  # served requests and tokens, guarded by device_lock
+
+    def log_message(self, *args):
+        logger.debug("http: " + args[0], *args[1:])
+
+    def _send_json(self, status: int, payload: dict, headers: dict | None = None) -> None:
+        body = json.dumps(payload).encode("utf-8")
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        for key, value in (headers or {}).items():
+            self.send_header(key, value)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _load(self) -> dict:
+        inflight = int(self.server.inflight)
+        return {"queue_depth": max(0, inflight - 1),
+                "active_slots": min(1, inflight), "n_slots": 1}
+
+    def do_GET(self):
+        path = self.path.rstrip("/")
+        draining = bool(self.server.draining)
+        if path in ("/health", "/v1/health"):
+            self._send_json(200, {"status": "draining" if draining else "ok",
+                                  "model": self.model_name,
+                                  "draining": draining, **self._load()})
+        elif path in ("/v1/stats", "/stats"):
+            with self.device_lock:
+                served = dict(self.stats)
+            self._send_json(200, {"model": self.model_name, "engine": "lockstep",
+                                  "device": str(self.generator.device),
+                                  "draining": draining,
+                                  "inflight": int(self.server.inflight),
+                                  **self._load(), **served})
+        elif path in ("/v1/models", "/models"):
+            self._send_json(200, {"object": "list", "data": [
+                {"id": self.model_name, "object": "model"}]})
+        else:
+            self._send_json(404, {"error": {"message": f"no route {self.path}"}})
+
+    def do_POST(self):
+        try:
+            raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+        except (ValueError, OSError) as e:
+            # Unread body bytes would desync the kept-alive connection.
+            self.close_connection = True
+            self._send_json(400, {"error": {"message": f"bad request: {e}"}})
+            return
+        path = self.path.rstrip("/")
+        try:
+            payload = json.loads(raw or b"{}")
+        except ValueError as e:
+            self._send_json(400, {"error": {"message": f"bad request: {e}"}})
+            return
+        if not isinstance(payload, dict):
+            self._send_json(400, {"error": {"message": "body must be a JSON object"}})
+        elif path.endswith(("/chat/completions", "/completions")):
+            self._device_work(payload, chat=path.endswith("/chat/completions"))
+        else:
+            self._send_json(404, {"error": {"message": f"no route {self.path}"}})
+
+    def _device_work(self, payload: dict, *, chat: bool) -> None:
+        """Admission: 503 while draining, 429 beyond ``max_pending`` in flight."""
+        srv = self.server
+        if srv.draining:
+            self._send_json(503, {"error": {
+                "message": "server is draining; retry on another replica",
+                "type": "unavailable_error"}})
+            return
+        n = srv._enter_request()
+        try:
+            if self.max_pending is not None and n > self.max_pending:
+                self._send_json(429, {"error": {
+                    "message": f"server at capacity ({self.max_pending} requests "
+                               "in flight)",
+                    "type": "rate_limit_error"}}, headers={"Retry-After": "1"})
+                return
+            self._complete(payload, chat=chat)
+        finally:
+            srv._exit_request()
+
+    def _complete(self, payload: dict, *, chat: bool) -> None:
+        tok = self.generator.tokenizer
+        try:
+            if payload.get("stream"):
+                raise ValueError("streaming is not ported to PyTorch yet")
+            if chat:
+                prompt = _chat_prompt(payload.get("messages") or [])
+            else:
+                prompt = payload.get("prompt") or ""
+                if isinstance(prompt, list):
+                    prompt = prompt[0] if prompt else ""
+                if not isinstance(prompt, str):
+                    raise ValueError("prompt must be a string")
+            seed = payload.get("seed")
+            if seed is None:  # fresh draws unless the client pins a seed
+                seed = random.getrandbits(31)
+            gen = GenerateConfig(
+                max_new_tokens=int(payload.get("max_tokens") or self.default_max_tokens),
+                temperature=float(payload.get("temperature") or 0.0),
+                top_p=float(payload.get("top_p") or 1.0),
+                seed=int(seed),
+            )
+            if gen.max_new_tokens < 1:
+                raise ValueError("max_tokens must be >= 1")
+            stops = _stop_list(payload.get("stop"))
+            # OpenAI logprobs: completions' `logprobs: N` (0 is a real
+            # request, so test presence), chat's `logprobs: true` with
+            # `top_logprobs: N`. N is clamped to 20.
+            lp_req = payload.get("logprobs")
+            n_top = None
+            if lp_req is not None and lp_req is not False:
+                top = payload.get("top_logprobs") if chat else lp_req
+                n_top = max(0, min(int(top) if top is not None else 1, 20))
+        except (TypeError, ValueError) as e:
+            self._send_json(400, {"error": {"message": str(e)}})
+            return
+        t0 = time.time()
+        prompt_ids = [tok.bos_id] + tok.encode(prompt)
+        lp = None
+        try:
+            with self.device_lock:
+                if n_top is None:
+                    out = self.generator.generate_tokens([prompt_ids], gen)[0]
+                else:
+                    # The engine's top-k needs k >= 1; N = 0 computes one
+                    # alternative and emits none.
+                    outs, lps = self.generator.generate_tokens_with_logprobs(
+                        [prompt_ids], dataclasses.replace(gen, logprobs=max(1, n_top)))
+                    out, lp = outs[0], lps[0]
+                self.stats["requests"] += 1
+                self.stats["prompt_tokens"] += len(prompt_ids)
+                self.stats["completion_tokens"] += len(out)
+        except ValueError as e:  # prompt + max_tokens beyond the context
+            self._send_json(400, {"error": {"message": str(e)}})
+            return
+        except Exception as e:  # noqa: BLE001 - the server keeps serving
+            logger.exception("completion failed")
+            self._send_json(500, {"error": {"message": str(e)}})
+            return
+        n_gen = len(out)
+        text, hit_stop = _apply_stop(tok.decode(out), stops)
+        # "length" = the generated token count hit the budget.
+        finish = "stop" if hit_stop or n_gen < gen.max_new_tokens else "length"
+        if chat:
+            choice = {"index": 0, "message": {"role": "assistant", "content": text},
+                      "finish_reason": finish}
+        else:
+            choice = {"index": 0, "text": text, "finish_reason": finish}
+        if lp is not None:
+            choice["logprobs"] = _logprobs_json(tok, out, lp, text, hit_stop,
+                                                n_top, chat, len(prompt))
+        self._send_json(200, {
+            "id": f"cmpl-{uuid.uuid4().hex[:24]}",
+            "object": "chat.completion" if chat else "text_completion",
+            "created": int(t0),
+            "model": payload.get("model") or self.model_name,
+            "choices": [choice],
+            "usage": {"prompt_tokens": len(prompt_ids),
+                      "completion_tokens": n_gen,
+                      "total_tokens": len(prompt_ids) + n_gen},
+        })
+        logger.info("served %d prompt + %d completion tokens in %.2fs",
+                    len(prompt_ids), n_gen, time.time() - t0)
+
+
+def _logprobs_json(tok, ids: list[int], lp: dict, text: str, hit_stop: bool,
+                   n_top: int, chat: bool, text_offset: int) -> dict:
+    """OpenAI logprobs for the returned tokens. With a stop hit, only the
+    whole tokens inside the cut text are kept, so entries stay aligned with
+    the text."""
+    if hit_stop:
+        keep, acc = 0, ""
+        for t in ids:
+            piece = tok.decode([t])
+            if len(acc) + len(piece) > len(text):
+                break
+            acc += piece
+            keep += 1
+        ids = ids[:keep]
+    strs = [tok.decode([t]) for t in ids]
+    chosen = lp["token_logprobs"][:len(ids)]
+    tops = [list(zip(lp["top_ids"][i][:n_top], lp["top_logprobs"][i][:n_top]))
+            for i in range(len(ids))]
+    if chat:
+        return {"content": [
+            {"token": s, "logprob": chosen[i],
+             "top_logprobs": [{"token": tok.decode([tid]), "logprob": tlp}
+                              for tid, tlp in tops[i]]}
+            for i, s in enumerate(strs)]}
+    offsets, pos = [], text_offset
+    for s in strs:
+        offsets.append(pos)
+        pos += len(s)
+    return {"tokens": strs, "token_logprobs": chosen,
+            "top_logprobs": [{tok.decode([tid]): tlp for tid, tlp in top}
+                             for top in tops],
+            "text_offset": offsets}
+
+
+def make_server(
+    generator: Generator,
+    *,
+    host: str = "127.0.0.1",
+    port: int = 8300,
+    model_name: str = "ditl-tpu-torch",
+    default_max_tokens: int = 64,
+    max_pending: int | None = None,
+) -> DrainableHTTPServer:
+    """Build (not start) the HTTP server; ``port=0`` picks a free port."""
+    handler = type("BoundHandler", (_Handler,), {
+        "generator": generator,
+        "model_name": model_name,
+        "device_lock": threading.Lock(),
+        "default_max_tokens": default_max_tokens,
+        "max_pending": max_pending,
+        "stats": {"requests": 0, "prompt_tokens": 0, "completion_tokens": 0},
+    })
+    return DrainableHTTPServer((host, port), handler)
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="ditl_tpu_torch.infer.server")
+    p.add_argument("--preset", default=None)
+    p.add_argument("--override", action="append", default=[],
+                   help="ModelConfig FIELD=VALUE (repeatable), e.g. "
+                   "attention_impl=flash")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--seed", type=int, default=0, help="weight-init seed")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8300)
+    p.add_argument("--max-tokens", type=int, default=64)
+    p.add_argument("--max-pending", type=int, default=0,
+                   help="cap on in-flight completions (429 beyond); 0 = none")
+    return p
+
+
+def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
+    """Parse the CLI, build the model and the server (not started)."""
+    from ditl_tpu_torch.config import ModelConfig, parse_model_overrides
+    from ditl_tpu_torch.data.tokenizer import get_tokenizer
+    from ditl_tpu_torch.models import llama
+    from ditl_tpu_torch.models.presets import get_preset
+
+    args = _parser().parse_args(argv)
+    cfg = get_preset(args.preset) if args.preset else ModelConfig()
+    cfg = parse_model_overrides(cfg, args.override)
+    params = llama.init_params(cfg, seed=args.seed, device=args.device)
+    generator = Generator(params, cfg, get_tokenizer("byte"), device=args.device)
+    server = make_server(generator, host=args.host, port=args.port,
+                         model_name=cfg.name, default_max_tokens=args.max_tokens,
+                         max_pending=args.max_pending or None)
+    logger.info("serving %s (attention_impl=%s) on %s:%d, device %s", cfg.name,
+                cfg.attention_impl, args.host, server.server_address[1],
+                generator.device)
+    return server
+
+
+def serve(argv: list[str] | None = None) -> int:
+    server = create_server(argv)
+    import signal
+
+    def _on_sigterm(signum, frame):
+        threading.Thread(target=server.close, daemon=True).start()
+
+    try:
+        signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:
+        pass  # not the main thread
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    from ditl_tpu_torch.utils.logging import setup_logging
+
+    setup_logging()
+    sys.exit(serve())

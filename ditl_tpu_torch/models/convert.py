@@ -1,0 +1,60 @@
+"""Weight bridge from the JAX package's parameter tree to the port's state.
+
+``params_from_jax`` takes the JAX ``init_params`` layout as nested dicts of
+numpy arrays (layers stacked on axis 0) — what ``jax.device_get`` of the JAX
+tree returns — and produces the port's tensors with the storage rules of
+``models/llama.py``. This is the bridge the parity tests run through; the
+Hugging Face import and export wait for a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from ditl_tpu_torch.config import ModelConfig
+from ditl_tpu_torch.models.llama import Params, check_supported, torch_dtype
+from ditl_tpu_torch.utils.device import resolve_device
+
+__all__ = ["params_from_jax"]
+
+_F32_KEYS = ("attn_norm", "mlp_norm", "final_norm")  # read in f32 by the forward
+
+
+def _tensor(x: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    if isinstance(x, Mapping):
+        raise NotImplementedError(
+            "quantized weight leaves are not ported to PyTorch yet "
+            "(see ROADMAP.md)"
+        )
+    # Go through f32 so the rounding to bf16 is PyTorch's round-to-nearest-
+    # even of the f32 master, exactly the reference's astype.
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device).to(dtype)
+
+
+def params_from_jax(tree: Mapping, cfg: ModelConfig,
+                    device: str | torch.device = "cuda") -> Params:
+    """JAX parameter tree (numpy leaves) -> the port's parameter dict."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    cd = torch_dtype(cfg.dtype)
+    layers = tree["layers"]
+    if "lora" in layers or "moe" in layers:
+        raise NotImplementedError(
+            "LoRA and MoE trees are not ported to PyTorch yet (see ROADMAP.md)"
+        )
+    out: Params = {"embed": {"embedding": _tensor(tree["embed"]["embedding"], cd, dev)},
+                   "layers": {}}
+    for group, leaves in layers.items():
+        dtype = torch.float32 if group in _F32_KEYS else cd
+        out["layers"][group] = {k: _tensor(w, dtype, dev) for k, w in leaves.items()}
+    out["final_norm"] = {"scale": _tensor(tree["final_norm"]["scale"], torch.float32, dev)}
+    # The head holds compute-dtype values in f32 storage (models/llama.py).
+    if cfg.tie_embeddings:
+        head = out["embed"]["embedding"].float().T.contiguous()
+    else:
+        head = _tensor(tree["lm_head"]["kernel"], cd, dev).float()
+    out["lm_head"] = {"kernel": head}
+    return out

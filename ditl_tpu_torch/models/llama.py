@@ -1,0 +1,291 @@
+"""Llama-3.1-family decoder (inference forward) in PyTorch.
+
+Counterpart of the JAX package's ``models/llama.py``. Parameters are a nested
+dict of tensors in the JAX package's ``init_params`` layout: layers stacked on
+axis 0, projections stored (d_in, d_out) so ``x @ w`` is the reference's
+``einsum("bsd,df->bsf")``. ``models/convert.py`` builds it from a JAX tree;
+``init_params`` builds one from a seed.
+
+Storage and arithmetic follow the reference, which keeps f32 masters and
+casts them to the compute dtype at every use:
+- projection weights, biases and the embedding table are stored in
+  ``cfg.dtype`` (the cast done once);
+- RMSNorm scales stay f32, because the reference reads them in f32;
+- the lm head is stored in f32 holding the compute-dtype values. The
+  reference takes bf16 x bf16 products with f32 output for the logits;
+  ``x.float() @ head`` gives the same exact products and f32 sums, where a
+  bf16 ``matmul`` would round the logits to bf16 and could flip greedy ties.
+  It needs full-f32 GEMMs on the card (``torch.backends.cuda.matmul.
+  allow_tf32 = False``, PyTorch's default).
+
+Only the inference forward is ported; it runs under ``torch.no_grad`` (remat,
+which only shapes a backward, comes with the training slice). MoE, LoRA,
+int8 caches and quantized weights raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ditl_tpu_torch.config import ModelConfig
+from ditl_tpu_torch.ops.attention import dot_product_attention
+
+Params = dict[str, Any]
+
+__all__ = ["init_params", "forward", "logits_from_hidden", "rms_norm",
+           "rope_frequencies", "apply_rope", "check_supported", "torch_dtype"]
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the model features this slice of the port does not run."""
+    missing = []
+    if cfg.num_experts > 0:
+        missing.append(f"MoE (num_experts={cfg.num_experts})")
+    if cfg.lora_rank > 0:
+        missing.append(f"LoRA (lora_rank={cfg.lora_rank})")
+    if cfg.kv_cache_dtype not in ("", "model"):
+        missing.append(f"kv_cache_dtype={cfg.kv_cache_dtype!r}")
+    if missing:
+        raise NotImplementedError(
+            "not ported to PyTorch yet: " + ", ".join(missing)
+            + " (see ROADMAP.md)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device: str | torch.device = "cuda") -> Params:
+    """Seed-initialised weights in the port's layout (the JAX ``init_params``
+    distributions; a torch generator cannot draw the JAX numbers). Drawn on
+    ``device`` one layer at a time, so an 8B model never holds an f32 copy of
+    more than one layer."""
+    from ditl_tpu_torch.utils.device import resolve_device
+
+    check_supported(cfg)
+    dev = resolve_device(device)
+    cd = torch_dtype(cfg.dtype)
+    d, hd = cfg.hidden_size, cfg.head_dim
+    nh, nkv, f, n_layers = (cfg.num_heads, cfg.num_kv_heads,
+                            cfg.intermediate_size, cfg.num_layers)
+    if nh % nkv:
+        raise ValueError(f"num_heads {nh} must be divisible by num_kv_heads {nkv}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, std, dtype=cd):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def stacked(shape, fan_in):
+        out = torch.empty((n_layers, *shape), dtype=cd, device=dev)
+        for i in range(n_layers):
+            out[i] = normal(shape, 1.0 / math.sqrt(fan_in))
+        return out
+
+    if cfg.fused_qkv:
+        attn = {"w_qkv": stacked((d, (nh + 2 * nkv) * hd), d)}
+    else:
+        attn = {"wq": stacked((d, nh * hd), d),
+                "wk": stacked((d, nkv * hd), d),
+                "wv": stacked((d, nkv * hd), d)}
+    attn["wo"] = stacked((nh * hd, d), nh * hd)
+    if cfg.attention_bias:
+        attn.update({
+            "bq": torch.zeros((n_layers, nh * hd), dtype=cd, device=dev),
+            "bk": torch.zeros((n_layers, nkv * hd), dtype=cd, device=dev),
+            "bv": torch.zeros((n_layers, nkv * hd), dtype=cd, device=dev),
+        })
+    if cfg.fused_gate_up:
+        mlp = {"w_gu": stacked((d, 2 * f), d), "w_down": stacked((f, d), f)}
+    else:
+        mlp = {"w_gate": stacked((d, f), d), "w_up": stacked((d, f), d),
+               "w_down": stacked((f, d), f)}
+    ones = torch.ones((n_layers, d), dtype=torch.float32, device=dev)
+    embedding = normal((cfg.vocab_size, d), 0.02)
+    if cfg.tie_embeddings:
+        head = embedding.float().T.contiguous()
+    else:
+        head = normal((d, cfg.vocab_size), 1.0 / math.sqrt(d)).float()
+    return {
+        "embed": {"embedding": embedding},
+        "layers": {
+            "attn_norm": {"scale": ones},
+            "attn": attn,
+            "mlp_norm": {"scale": ones.clone()},
+            "mlp": mlp,
+        },
+        "final_norm": {"scale": torch.ones((d,), dtype=torch.float32, device=dev)},
+        "lm_head": {"kernel": head},
+    }
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in f32, returned in x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, cfg: ModelConfig,
+                     device: torch.device | str = "cpu") -> torch.Tensor:
+    """Inverse RoPE frequencies (f32) with Llama-3.1 "llama3" scaling when
+    ``cfg.rope_scaling_factor > 0``."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** exponent)
+    if cfg.rope_scaling_factor <= 0:
+        return inv_freq
+    factor = cfg.rope_scaling_factor
+    low_f, high_f = cfg.rope_scaling_low_freq_factor, cfg.rope_scaling_high_freq_factor
+    old_len = cfg.rope_scaling_original_max_len
+    wavelen = 2.0 * math.pi / inv_freq
+    scaled = torch.where(wavelen > old_len / low_f, inv_freq / factor, inv_freq)
+    smooth = (old_len / wavelen - low_f) / (high_f - low_f)
+    smoothed = (1.0 - smooth) * scaled / factor + smooth * scaled
+    medium = (wavelen >= old_len / high_f) & (wavelen <= old_len / low_f)
+    return torch.where(medium, smoothed, scaled)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Rotary embedding on split halves. x (B, S, H, D); positions (B, S)."""
+    freqs = rope_frequencies(x.shape[-1], cfg, x.device)
+    angles = positions[..., None].float() * freqs  # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _decoder_layer(
+    lp: Params,
+    x: torch.Tensor,
+    *,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    segment_ids: torch.Tensor | None,
+    layer_cache: dict | None,
+    cache_index: int,
+    attn_mask: torch.Tensor | None,
+    prefill_causal: bool,
+) -> torch.Tensor:
+    b, s, _ = x.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = lp["attn"]
+
+    h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
+    if "w_qkv" in attn:
+        q, k, v = (h @ attn["w_qkv"]).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+    else:
+        q, k, v = h @ attn["wq"], h @ attn["wk"], h @ attn["wv"]
+    if "bq" in attn:  # Qwen2-family q/k/v bias
+        q, k, v = q + attn["bq"], k + attn["bk"], v + attn["bv"]
+    q = apply_rope(q.reshape(b, s, nh, hd), positions, cfg)
+    k = apply_rope(k.reshape(b, s, nkv, hd), positions, cfg)
+    v = v.reshape(b, s, nkv, hd).contiguous()
+
+    if layer_cache is not None:
+        from ditl_tpu_torch.infer.cache import read_kv, write_kv
+
+        write_kv(layer_cache, k, v, cache_index)
+    if layer_cache is not None and not prefill_causal:
+        # Decode: attend the whole cache under the per-slot mask.
+        k_full, v_full = read_kv(layer_cache, x.dtype)
+        attn_out = dot_product_attention(
+            q, k_full, v_full, causal=False, mask=attn_mask,
+            impl=cfg.attention_impl,
+        )
+    else:
+        # No cache, or a prefill from an empty cache at offset 0: causal
+        # self-attention over the chunk, validity via segment ids — the
+        # flash kernel's path.
+        attn_out = dot_product_attention(
+            q, k, v, causal=True, segment_ids=segment_ids,
+            impl=cfg.attention_impl,
+        )
+    x = x + attn_out.reshape(b, s, nh * hd) @ attn["wo"]
+
+    h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
+    mlp = lp["mlp"]
+    if "w_gu" in mlp:
+        gate, up = (h @ mlp["w_gu"]).chunk(2, dim=-1)
+    else:
+        gate, up = h @ mlp["w_gate"], h @ mlp["w_up"]
+    return x + (F.silu(gate) * up) @ mlp["w_down"]
+
+
+@torch.no_grad()
+def forward(
+    params: Params,
+    input_ids: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor | None = None,
+    segment_ids: torch.Tensor | None = None,
+    cache: dict[str, torch.Tensor] | None = None,
+    cache_index: int = 0,
+    attn_mask: torch.Tensor | None = None,
+    prefill_causal: bool = False,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """Token ids (B, S) -> f32 logits (B, S, V), or the final-normed hidden
+    states (B, S, D) with ``return_hidden=True``.
+
+    ``cache`` (``{"k", "v"}`` of shape (L, B, Smax, K, D), infer/cache.py)
+    makes this the incremental forward: the chunk's K/V are written into the
+    cache at slot ``cache_index`` **in place** (the reference returns a new
+    cache; in PyTorch an in-place write saves a copy of the cache per step),
+    and attention reads the whole cache under ``attn_mask`` (B, S, Smax).
+    ``prefill_causal=True`` with a cache: the chunk fills an empty cache from
+    slot 0, so attention is causal over the chunk with validity from
+    ``segment_ids`` — the serving prefill, which runs the flash kernel when
+    ``cfg.attention_impl == "flash"``."""
+    check_supported(cfg)
+    cd = torch_dtype(cfg.dtype)
+    b, s = input_ids.shape
+    if positions is None:
+        positions = torch.arange(s, device=input_ids.device).expand(b, s)
+    if cache is not None and not prefill_causal and attn_mask is None:
+        raise ValueError("a cached decode step needs attn_mask")
+    x = params["embed"]["embedding"][input_ids].to(cd)
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = {name: {key: w[i] for key, w in group.items()}
+              for name, group in layers.items()}
+        layer_cache = None
+        if cache is not None:
+            layer_cache = {key: c[i] for key, c in cache.items()}
+        x = _decoder_layer(
+            lp, x, cfg=cfg, positions=positions, segment_ids=segment_ids,
+            layer_cache=layer_cache, cache_index=cache_index,
+            attn_mask=attn_mask, prefill_causal=prefill_causal,
+        )
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
+    if return_hidden:
+        return x
+    return logits_from_hidden(params, x)
+
+
+def logits_from_hidden(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits from final-normed hidden states: exact products of the
+    compute-dtype values, summed in f32 (see the module note)."""
+    return x.float() @ params["lm_head"]["kernel"]

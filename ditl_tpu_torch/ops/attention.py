@@ -1,0 +1,87 @@
+"""Attention: the plain implementation and the ``impl`` dispatch.
+
+Counterpart of the JAX package's ``ops/attention.py``. All paths take the GQA
+layout q (B, S, H, D), k/v (B, S, K, D) with H % K == 0; scores and softmax
+are f32 whatever the input dtype.
+
+- ``"xla"``: ``_xla_attention``, plain PyTorch (the name is kept so a reader
+  finds the counterpart).
+- ``"flash"``: the CUDA flash-attention kernel (``ops/flash_attention.py``).
+  The port's kernel takes every shape, so there is no shape fallback.
+- The explicit-mask path (KV-cache decode) is ``_xla_attention`` for every
+  impl, as in the reference.
+- ``"ring"`` and ``"ulysses"`` wait for the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["dot_product_attention", "NEG_INF"]
+
+NEG_INF = -2.3819763e38  # most negative bf16-representable; avoids bf16 NaNs
+
+
+def _xla_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    segment_ids: torch.Tensor | None,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain GQA attention. ``mask`` is an explicit (B, Sq, Skv) boolean
+    (True = attend). The score product accumulates in f32; the probabilities
+    are cast to v's dtype before the second product, which returns v's
+    dtype."""
+    b, s_q, h, d = q.shape
+    _, s_kv, kv_heads, _ = k.shape
+    groups = h // kv_heads
+    qg = q.reshape(b, s_q, kv_heads, groups, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * d**-0.5
+    if causal:
+        causal_mask = torch.ones(s_q, s_kv, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~causal_mask[None, None, None], NEG_INF)
+    if segment_ids is not None:
+        seg_mask = segment_ids[:, :, None] == segment_ids[:, None, :]
+        scores = scores.masked_fill(~seg_mask[:, None, None], NEG_INF)
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, s_q, h, d)
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    segment_ids: torch.Tensor | None = None,
+    mask: torch.Tensor | None = None,
+    impl: str = "xla",
+) -> torch.Tensor:
+    """Grouped-query attention. ``segment_ids`` (B, S) int32 restricts
+    attention to tokens of the same segment; ``mask`` (B, Sq, Skv) is the
+    KV-cache decode path's explicit per-slot validity."""
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"q heads {q.shape[2]} not divisible by kv heads {k.shape[2]}")
+    if mask is not None:
+        # Decode: one query per row against the cache, bandwidth-bound;
+        # the reference leaves it outside any kernel too.
+        return _xla_attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                              mask=mask)
+    if impl == "xla":
+        return _xla_attention(q, k, v, causal=causal, segment_ids=segment_ids)
+    if impl == "flash":
+        from ditl_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal, segment_ids=segment_ids)
+    if impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention impl {impl!r} needs the multi-GPU slice of the port "
+            "(see ROADMAP.md)"
+        )
+    raise ValueError(f"unknown attention impl {impl!r}")

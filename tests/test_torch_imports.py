@@ -1,0 +1,172 @@
+"""The port stands alone: ``ditl_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package, and the copies the port keeps of
+jax-free modules (``ModelConfig``, the presets, the byte tokenizer, the
+keep-alive mixin) match their originals."""
+
+import ast
+import dataclasses
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import ditl_tpu_torch  # noqa: E402
+from ditl_tpu import config as jconfig  # noqa: E402
+from ditl_tpu.data import tokenizer as jtokenizer  # noqa: E402
+from ditl_tpu.models import presets as jpresets  # noqa: E402
+from ditl_tpu.utils import http11 as jhttp11  # noqa: E402
+from ditl_tpu_torch import config as tconfig  # noqa: E402
+from ditl_tpu_torch.data import tokenizer as ttokenizer  # noqa: E402
+from ditl_tpu_torch.models import presets as tpresets  # noqa: E402
+from ditl_tpu_torch.utils import http11 as thttp11  # noqa: E402
+from ditl_tpu_torch.utils import logging as tlogging  # noqa: E402
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "ditl_tpu_torch"
+SMOKE = ROOT / "chip_smoke.py"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ditl_tpu"}
+
+
+def _port_modules() -> list[str]:
+    return sorted(m.name for m in pkgutil.walk_packages([str(PORT)], "ditl_tpu_torch."))
+
+
+def _imported_names(path: Path) -> set[str]:
+    """Every module an ``import`` statement in ``path`` names, at any depth
+    (imports inside functions included)."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return names
+
+
+def _sources() -> list[Path]:
+    return sorted(PORT.rglob("*.py")) + [SMOKE]
+
+
+def test_port_package_has_modules():
+    mods = _port_modules()
+    for name in ("config", "models.llama", "models.convert", "models.presets",
+                 "ops.attention", "ops.flash_attention", "ops.cuda_build",
+                 "infer.cache", "infer.sampling", "infer.engine", "infer.server",
+                 "data.tokenizer", "utils.logging", "utils.http11"):
+        assert f"ditl_tpu_torch.{name}" in mods
+    assert (PORT / "csrc" / "flash_fwd.cu").is_file()
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    bad = {n for n in _imported_names(path) if n.split(".")[0] in FORBIDDEN}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_importing_port_and_smoke_closure_loads_no_jax():
+    """A fresh interpreter imports every port module, chip_smoke.py and
+    everything chip_smoke.py imports anywhere; neither jax nor a
+    ``ditl_tpu`` module may then be loaded."""
+    closure = sorted(n for n in _imported_names(SMOKE) if n != "__future__")
+    code = f"""
+import importlib, json, sys
+sys.path.insert(0, {str(ROOT)!r})
+for name in {_port_modules() + closure + ['chip_smoke']!r}:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r})
+print(json.dumps(bad))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def _fields(cls) -> dict:
+    return {f.name: (f.default, str(f.type)) for f in dataclasses.fields(cls)}
+
+
+def test_model_config_matches_jax_field_for_field():
+    """Every field of the port's copy is the JAX field of that name, with its
+    type and default, in the same order; the copy leaves out only what the
+    port's forward and serving never read."""
+    jf, tf = _fields(jconfig.ModelConfig), _fields(tconfig.ModelConfig)
+    assert {name: jf.get(name) for name in tf} == tf
+    assert list(tf) == [name for name in jf if name in tf]
+    assert set(jf) - set(tf) == {
+        "param_dtype", "num_experts_per_tok", "router_aux_coef", "lora_alpha",
+        "lora_dropout", "flash_block_q", "flash_block_kv", "flash_block_q_bwd",
+        "flash_block_kv_bwd", "remat", "scan_unroll", "mlp_custom_vjp",
+        "mlp_bwd_impl", "mlp_bwd_block_n", "mlp_bwd_block_f", "mlp_bwd_block_d",
+        "proj_bwd_impl", "proj_bwd_block_n", "proj_bwd_block_d", "loss_impl",
+        "loss_block_tokens", "pipeline_microbatches"}
+
+
+def test_model_config_rejects_unported_attention():
+    for impl in ("xla", "flash"):
+        assert tconfig.ModelConfig(attention_impl=impl).attention_impl == impl
+    for impl in ("ring", "ulysses", "splash"):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            tconfig.ModelConfig(attention_impl=impl)
+
+
+def test_overrides_are_typed_by_field():
+    cfg = tconfig.parse_model_overrides(
+        tconfig.ModelConfig(), ["attention_impl=flash", "model.num_layers=3",
+                                "rope_theta=10000", "fused_qkv=true"])
+    assert (cfg.attention_impl, cfg.num_layers, cfg.rope_theta, cfg.fused_qkv) == (
+        "flash", 3, 10000.0, True)
+    with pytest.raises(ValueError, match="bad override"):
+        tconfig.parse_model_overrides(tconfig.ModelConfig(), ["num_layers"])
+
+
+@pytest.mark.parametrize("name", sorted(jpresets.PRESETS))
+def test_presets_match_jax(name):
+    """Same values on the port's fields; every field the port leaves out is
+    at its JAX default in the JAX preset, so no preset loses a setting."""
+    ours = dataclasses.asdict(tpresets.get_preset(name))
+    ref = dataclasses.asdict(jpresets.get_preset(name))
+    assert ours == {k: ref[k] for k in ours}
+    defaults = dataclasses.asdict(jconfig.ModelConfig())
+    assert {k: v for k, v in ref.items() if k not in ours} == {
+        k: defaults[k] for k in ref if k not in ours}
+
+
+def test_byte_tokenizer_and_vocab_check_match_jax():
+    jt, tt = jtokenizer.ByteTokenizer(), ttokenizer.ByteTokenizer()
+    text = "héllo, wörld ✓"
+    assert tt.encode(text) == jt.encode(text)
+    ids = tt.encode(text) + [0, 1, 2, 259, 5000]
+    assert tt.decode(ids) == jt.decode(ids)
+    assert (tt.pad_id, tt.bos_id, tt.eos_id, tt.vocab_size) == (
+        jt.pad_id, jt.bos_id, jt.eos_id, jt.vocab_size)
+    with pytest.raises(ValueError, match="exceeds"):
+        ttokenizer.check_vocab(tt, 100, "test")
+    ttokenizer.check_vocab(tt, 512, "test")
+    assert isinstance(ttokenizer.get_tokenizer("byte"), ttokenizer.ByteTokenizer)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttokenizer.get_tokenizer("meta-llama/Meta-Llama-3-8B")
+
+
+def test_http11_mixin_matches_jax():
+    for attr in ("protocol_version", "disable_nagle_algorithm", "timeout"):
+        assert getattr(thttp11.KeepAliveHandlerMixin, attr) == getattr(
+            jhttp11.KeepAliveHandlerMixin, attr)
+
+
+def test_logging_rank_without_process_group():
+    assert tlogging._process_index() == 0
+    tlogging.setup_logging("DEBUG")
+    tlogging.setup_logging("INFO")  # re-entrant: one handler of its own
+    import logging
+
+    ours = [h for h in logging.getLogger().handlers if h is tlogging._handler]
+    assert len(ours) == 1
+    assert ditl_tpu_torch.__version__

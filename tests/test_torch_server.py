@@ -1,0 +1,209 @@
+"""The port's OpenAI-compatible server on ``device="cpu"`` at tiny size:
+every route answers, and its greedy completion text equals the JAX package's
+``Generator`` output for the same weights (f32 compute, so greedy argmax
+cannot flip on rounding)."""
+
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ditl_tpu.config import ModelConfig as JaxModelConfig  # noqa: E402
+from ditl_tpu.data.tokenizer import ByteTokenizer as JaxByteTokenizer  # noqa: E402
+from ditl_tpu.infer.engine import GenerateConfig as JaxGenerateConfig  # noqa: E402
+from ditl_tpu.infer.engine import Generator as JaxGenerator  # noqa: E402
+from ditl_tpu.models import llama as jllama  # noqa: E402
+from ditl_tpu_torch.config import ModelConfig  # noqa: E402
+from ditl_tpu_torch.data.tokenizer import ByteTokenizer  # noqa: E402
+from ditl_tpu_torch.infer import server as tserver  # noqa: E402
+from ditl_tpu_torch.infer.engine import Generator  # noqa: E402
+from ditl_tpu_torch.models.convert import params_from_jax  # noqa: E402
+
+torch.set_num_threads(1)
+
+TINY = dict(vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
+            num_heads=4, num_kv_heads=2, head_dim=16, max_seq_len=128,
+            dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def served():
+    jcfg, cfg = JaxModelConfig(**TINY), ModelConfig(**TINY)
+    params = jllama.init_params(jax.random.key(0), jcfg)
+    gen = Generator(params_from_jax(jax.device_get(params), cfg, "cpu"), cfg,
+                    ByteTokenizer(), device="cpu")
+    srv = tserver.make_server(gen, port=0, model_name="tiny", default_max_tokens=8,
+                              max_pending=4)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        yield url, JaxGenerator(params, jcfg, JaxByteTokenizer()), srv
+    finally:
+        srv.close(drain=False)
+        thread.join(timeout=10)
+        assert not thread.is_alive()
+
+
+def _get(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def _post(url, payload):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _jax_text(jgen, prompt, max_tokens):
+    tok = JaxByteTokenizer()
+    out = jgen.generate_tokens([[tok.bos_id] + tok.encode(prompt)],
+                               JaxGenerateConfig(max_new_tokens=max_tokens))[0]
+    return tok.decode(out), len(out)
+
+
+def test_get_routes(served):
+    url, _, _ = served
+    status, health = _get(url + "/health")
+    assert status == 200 and health["status"] == "ok" and health["model"] == "tiny"
+    status, models = _get(url + "/v1/models")
+    assert status == 200 and models["data"][0]["id"] == "tiny"
+    status, stats = _get(url + "/v1/stats")
+    assert status == 200 and stats["engine"] == "lockstep" and stats["device"] == "cpu"
+    with pytest.raises(urllib.error.HTTPError) as err:
+        _get(url + "/nope")
+    assert err.value.code == 404
+
+
+def test_completion_text_matches_jax_generator(served):
+    url, jgen, _ = served
+    prompt = "The quick brown fox"
+    status, body = _post(url + "/v1/completions",
+                         {"prompt": prompt, "max_tokens": 10, "temperature": 0})
+    assert status == 200
+    text, n = _jax_text(jgen, prompt, 10)
+    choice = body["choices"][0]
+    assert choice["text"] == text
+    assert body["usage"]["completion_tokens"] == n
+    assert choice["finish_reason"] == ("length" if n == 10 else "stop")
+
+
+def test_chat_completion_matches_jax_generator(served):
+    url, jgen, _ = served
+    messages = [{"role": "system", "content": "be brief"},
+                {"role": "user", "content": "hello there"}]
+    status, body = _post(url + "/v1/chat/completions",
+                         {"messages": messages, "max_tokens": 6})
+    assert status == 200
+    text, _ = _jax_text(jgen, tserver._chat_prompt(messages), 6)
+    assert body["object"] == "chat.completion"
+    assert body["choices"][0]["message"]["content"] == text
+
+
+@pytest.mark.parametrize("chat", [False, True])
+def test_logprobs_match_jax_generator(served, chat):
+    """OpenAI logprobs on both routes: the chosen tokens' logprobs equal the
+    JAX Generator's (f32 log-softmax of the same logits: 1e-4)."""
+    url, jgen, _ = served
+    tok = JaxByteTokenizer()
+    if chat:
+        messages = [{"role": "user", "content": "logprob probe"}]
+        payload = {"messages": messages, "max_tokens": 5, "logprobs": True,
+                   "top_logprobs": 2}
+        prompt = tserver._chat_prompt(messages)
+    else:
+        prompt = "logprob probe"
+        payload = {"prompt": prompt, "max_tokens": 5, "logprobs": 2}
+    status, body = _post(url + ("/v1/chat/completions" if chat else "/v1/completions"),
+                         payload)
+    assert status == 200
+    ids, lps = jgen.generate_tokens_with_logprobs(
+        [[tok.bos_id] + tok.encode(prompt)], JaxGenerateConfig(max_new_tokens=5, logprobs=2))
+    lp = body["choices"][0]["logprobs"]
+    if chat:
+        tokens = [e["token"] for e in lp["content"]]
+        chosen = [e["logprob"] for e in lp["content"]]
+        assert all(len(e["top_logprobs"]) == 2 for e in lp["content"])
+    else:
+        tokens, chosen = lp["tokens"], lp["token_logprobs"]
+        assert lp["text_offset"][0] == len(prompt)
+    assert tokens == [tok.decode([t]) for t in ids[0]]
+    np.testing.assert_allclose(chosen, lps[0]["token_logprobs"], atol=1e-4, rtol=1e-4)
+
+
+def test_stop_sequence_and_seeded_sampling(served):
+    url, jgen, _ = served
+    full, _ = _jax_text(jgen, "abc", 12)
+    stop = full[3:5] if len(full) >= 5 else None
+    if stop:
+        status, body = _post(url + "/v1/completions",
+                             {"prompt": "abc", "max_tokens": 12, "stop": stop})
+        assert status == 200
+        assert body["choices"][0]["text"] == full[:full.find(stop)]
+        assert body["choices"][0]["finish_reason"] == "stop"
+    req = {"prompt": "abc", "max_tokens": 8, "temperature": 1.0, "top_p": 0.9, "seed": 5}
+    a = _post(url + "/v1/completions", req)[1]["choices"][0]["text"]
+    b = _post(url + "/v1/completions", req)[1]["choices"][0]["text"]
+    assert a == b
+
+
+def test_bad_requests_and_overload(served):
+    url, _, srv = served
+    assert _post(url + "/v1/completions", {"prompt": "x", "stop": [3]})[0] == 400
+    assert _post(url + "/v1/completions", {"prompt": "x", "stream": True})[0] == 400
+    assert _post(url + "/v1/completions", {"prompt": "x", "max_tokens": 1000})[0] == 400
+    assert _post(url + "/v1/nope", {})[0] == 404
+    # Hold the device lock so requests pile up: beyond max_pending (4) in
+    # flight the server answers 429.
+    handler = srv.RequestHandlerClass
+    results = []
+    with handler.device_lock:
+        threads = [threading.Thread(target=lambda: results.append(
+            _post(url + "/v1/completions", {"prompt": "y", "max_tokens": 2})[0]))
+            for _ in range(6)]
+        for t in threads:
+            t.start()
+        for _ in range(200):
+            if results.count(429) >= 2:
+                break
+            threading.Event().wait(0.05)
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert sorted(results) == [200] * 4 + [429] * 2
+
+
+def test_drain_answers_503(served):
+    url, _, srv = served
+    srv.draining = True
+    try:
+        assert _post(url + "/v1/completions", {"prompt": "x"})[0] == 503
+        assert _get(url + "/health")[1]["status"] == "draining"
+    finally:
+        srv.draining = False
+
+
+def test_cli_builds_a_cpu_server():
+    srv = tserver.create_server([
+        "--device", "cpu", "--port", "0", "--host", "127.0.0.1",
+        "--override", "num_layers=1", "--override", "vocab_size=300",
+        "--override", "attention_impl=flash"])
+    try:
+        gen = srv.RequestHandlerClass.generator
+        assert gen.cfg.attention_impl == "flash" and gen.cfg.num_layers == 1
+        assert gen.generate_tokens([[1, 5, 6]])
+    finally:
+        srv.server_close()
+    with pytest.raises(ValueError, match="bad override"):
+        tserver.create_server(["--device", "cpu", "--override", "nope=1"])
