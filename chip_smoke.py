@@ -9,16 +9,24 @@ no result line. It imports nothing of JAX or of the JAX package.
 1. Card: CUDA must be present; prints ``nvidia-smi`` name and power limit.
 2. Build: every ``ditl_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one nvcc
    per source, all started together; prints ptxas' register/spill lines.
-3. Kernels against their plain PyTorch versions on the card, at the serving
-   prefill shapes and at ragged ones (tolerances at ``O_TOL``/``LSE_TOL``).
+3. Kernels against their plain PyTorch versions on the card: K1 (flash
+   forward) at the serving prefill shapes and ragged ones, K3 (paged decode
+   with the tail) and K4 (without) at the decode tick's shape and ragged
+   ones (tolerances at ``O_TOL``/``LSE_TOL``). K4 has no serving path: its
+   launches are this phase's direct calls.
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
    card's bound for the same work from this run's inputs.
-5. Main path: the lock-step OpenAI server, ``llama3-8b`` at full width and
+5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
-   run in-process on a thread so the kernel's launch counter can be read.
-   Launch counts are zeroed just before the requests and read just after.
-6. The kernels line, then the result line, last.
+   run in-process on a thread so the kernels' launch counters can be read.
+6. Main path 2: the continuous engine over the paged KV cache behind the
+   same server code, over the same weights object (8 slots, page 256,
+   context 2048, decode_chunk 16), answering 12 concurrent requests; K3 on
+   every decode step, K1 on every cold prefill.
+   Each path's launch counts are zeroed just before its requests and read
+   just after.
+7. The kernels line, then the result line, last.
 
 f32 matrix products run in full f32 here (TF32 off, set below): the port's
 lm head takes f32 products of bf16 values, as the JAX package's logits do.
@@ -26,6 +34,7 @@ lm head takes f32 products of bf16 values, as the JAX package's logits do.
 
 from __future__ import annotations
 
+import functools
 import json
 import random
 import subprocess
@@ -55,8 +64,29 @@ KERNELS = {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:127",
+        "path": "both serving paths' cold prefills",
+    },
+    "paged_tail": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235",
+        "path": "continuous paged decode ticks",
+    },
+    "paged": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:191",
+        "path": "direct call",
     },
 }
+# The decode tick's paged-attention shape on the main path: 8 slots, 32
+# query / 8 KV heads, head_dim 128, page 256, a 16-column tail.
+PAGED_MAIN = dict(b=8, h=32, kv=8, d=128, ps=256, tail_len=16)
+# K3/K4 timings rotate through this many copies of their inputs: on the
+# serving path each layer reads other pools, so no call may find its keys in
+# the 50 MB L2 (6 x 17.8 MB of live K/V between two uses of one copy).
+PAGED_COPIES = 6
+SMI = ""  # nvidia-smi's name and power limit, set by phase_card
 
 WORDS = ("tensor card kernel shard token layer cache batch prompt decode "
          "prefill attention memory stream warp block tile scale norm head "
@@ -82,8 +112,10 @@ def _text(seed: int, n_chars: int) -> str:
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time per call over back-to-back calls (CUDA events; L2 not
-    flushed: a prefill's q/k/v were just written by its projections)."""
+    """Time per call over back-to-back eager calls, host issue included
+    (CUDA events). L2 is not flushed: K1's callers pass one input, as a
+    prefill's q/k/v were just written by its projections; K3/K4's rotate
+    input copies through ``_cycle``."""
     import torch
 
     for _ in range(warmup):
@@ -97,6 +129,45 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _cycle(fns):
+    """One callable that calls ``fns`` in turn, one per call."""
+    state = {"i": 0}
+
+    def call():
+        fns[state["i"] % len(fns)]()
+        state["i"] += 1
+
+    return call
+
+
+def _graph_ms(fns, rounds: int = 4, replays: int = 3) -> float:
+    """Device time per call without host issue: ``rounds`` passes over
+    ``fns`` captured in one CUDA graph, timed with CUDA events over
+    ``replays`` replays."""
+    import torch
+
+    for fn in fns:  # first calls: lazy set-up and allocations
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * rounds * len(fns))
+    del graph
+    return ms
 
 
 def _attn_inputs(b, s_q, s_kv, h, kv, d, *, seed, lengths=None, packed=False):
@@ -152,6 +223,8 @@ def phase_card() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
+    global SMI
+    SMI = smi[0]
     log(smi[0])  # the card's name and power limit, as nvidia-smi gives them
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()} ({torch.cuda.get_device_name(0)})")
@@ -243,6 +316,173 @@ def phase_timings(flash) -> dict:
     return out
 
 
+def _paged_inputs(b, h, kv, d, ps, tail_len, lengths, starts, *, seed, n_pool=65,
+                  share=True):
+    """q, pools, tails and a table giving each slot its own pages for
+    ceil(max(starts, lengths) / ps) blocks; with ``share``, rows 1 and 2
+    share their first physical page."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    q, kp, vp = rnd(b, h, d), rnd(n_pool, kv, ps, d), rnd(n_pool, kv, ps, d)
+    tk, tv = rnd(b, kv, tail_len, d), rnd(b, kv, tail_len, d)
+    maxp = max(1, max(-(-max(x, y) // ps) for x, y in zip(lengths, starts)))
+    table = torch.zeros((b, maxp), dtype=torch.int32)
+    pid = 1
+    for row in range(b):
+        for i in range(-(-max(lengths[row], starts[row]) // ps)):
+            table[row, i] = pid
+            pid += 1
+    require(pid <= n_pool, (pid, n_pool))
+    if share:
+        table[2, 0] = table[1, 0]
+
+    def ints(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    return q, kp, vp, table.cuda(), ints(lengths), ints(starts), tk, tv
+
+
+def _paged_main_case():
+    """The main path's decode-tick shape with the ragged state of a busy
+    tick: each slot's tokens [0, starts) in pages, [starts, lengths) in the
+    tail; a dead slot, a partial page, an exact page boundary (512), a
+    shared page, and starts == lengths (no live tail)."""
+    starts = [0, 700, 512, 1490, 9, 256, 1030, 300]
+    lengths = [0, 710, 512, 1500, 10, 256, 1046, 309]
+    return starts, lengths
+
+
+def _paged_bound(q, kp, table, lengths, starts, tail: bool):
+    """Least time on an H100 SXM for one call: the live keys' K and V (read
+    once per slot that reads them), q and o, the table and the lengths over
+    HBM bandwidth, against 4*D flops per (query head, live key) at bf16
+    peak. Live keys: positions [0, min(starts, lengths)) from pages plus
+    [starts, lengths) from the tail, or [0, lengths) from pages for K4."""
+    b, h, d = q.shape
+    kv = kp.shape[1]
+    lengths = [int(x) for x in lengths.tolist()]
+    starts = [int(x) for x in starts.tolist()]
+    live = sum(lengths) if not tail else sum(
+        min(s, n) + max(0, n - s) for s, n in zip(starts, lengths))
+    nbytes = 2 * live * kv * d * 2 + 2 * (2 * b * h * d) + 4 * (table.numel() + 2 * b)
+    flops = 4 * d * h * live
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_paged_kernels(paged) -> dict:
+    """K3 and K4 against the plain version; returns the max abs errors and
+    K4's direct-call launches."""
+    import torch
+
+    main = PAGED_MAIN
+    starts, lengths = _paged_main_case()
+    cases = [  # (b, h, kv, d, ps, tail_len, lengths, starts)
+        (main["b"], main["h"], main["kv"], main["d"], main["ps"], main["tail_len"],
+         lengths, starts),
+        (4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 32, 45]),  # head_dim 64, page 16
+        (3, 8, 8, 128, 16, 16, [17, 40, 33], [16, 33, 33]),  # MHA, page 16
+    ]
+    worst = {"paged_tail": 0.0, "paged": 0.0}
+    paged.reset_launches()
+    for i, (b, h, kv, d, ps, tl, lens, sts) in enumerate(cases):
+        q, kp, vp, table, ln, st, tk, tv = _paged_inputs(b, h, kv, d, ps, tl, lens, sts,
+                                                         seed=200 + i)
+        o3 = paged.paged_attention(q, kp, vp, table, ln, tail_k=tk, tail_v=tv, starts=st)
+        r3 = paged.paged_attention_plain(q, kp, vp, table, ln, tk, tv, st)
+        o4 = paged.paged_attention(q, kp, vp, table, ln)
+        r4 = paged.paged_attention_plain(q, kp, vp, table, ln)
+        torch.cuda.synchronize()
+        for name, o, r in (("paged_tail", o3, r3), ("paged", o4, r4)):
+            require(bool(torch.isfinite(o.float()).all()), f"{name} case {i}: non-finite")
+            torch.testing.assert_close(o.float(), r.float(), atol=O_TOL, rtol=O_TOL)
+            err = float((o.float() - r.float()).abs().max())
+            worst[name] = max(worst[name], err)
+            dead = [j for j, n in enumerate(lens) if n == 0]
+            require(all(bool((o[j] == 0).all()) for j in dead), f"{name}: dead slot")
+            log(f"[kernels] {name} B={b} H={h} K={kv} D={d} ps={ps} T={tl} "
+                f"lengths={lens} starts={sts if name == 'paged_tail' else '-'}: "
+                f"max|o-plain|={err:.3e} ok")
+    direct = paged.launches
+    require((direct, paged.launches_tail) == (len(cases), len(cases)),
+            (direct, paged.launches_tail))
+    return {**worst, "paged_direct_launches": direct}
+
+
+def phase_paged_timings(paged) -> dict:
+    """K3 and K4 at the main path's decode-tick shape: kernel, plain, SDPA
+    over the same slots' keys gathered beforehand (with the length mask),
+    and the bound. Every call reads one of ``PAGED_COPIES`` input copies in
+    turn, so none finds its keys in L2. The kernels line takes device times
+    from CUDA-graph replays (host issue taken out); the eager times, issue
+    included, are logged beside them."""
+    import torch
+    import torch.nn.functional as F
+
+    m = PAGED_MAIN
+    starts, lengths = _paged_main_case()
+    copies = [_paged_inputs(m["b"], m["h"], m["kv"], m["d"], m["ps"], m["tail_len"],
+                            lengths, starts, seed=300 + c, share=False)
+              for c in range(PAGED_COPIES)]
+    q, kp, _, table, ln, st, _, _ = copies[0]  # table, lengths, starts: shared
+    b, h, d = q.shape
+    kv, ps = kp.shape[1], kp.shape[2]
+    maxp = table.shape[1]
+    cols = torch.arange(maxp * ps, device="cuda")
+    tail_cols = torch.arange(m["tail_len"], device="cuda")
+    out = {}
+    for name, tail in (("paged_tail", True), ("paged", False)):
+        kernel, plain, library = [], [], []
+        for q, kp, vp, table, ln, st, tk, tv in copies:
+            # Library yardstick inputs, built outside the timed call: every
+            # slot's page keys, then its tail, at the KV heads' count (SDPA
+            # groups the query heads), and a boolean validity mask.
+            k_all = kp[table.long()].transpose(2, 3).reshape(b, maxp * ps, kv, d)
+            v_all = vp[table.long()].transpose(2, 3).reshape(b, maxp * ps, kv, d)
+            if tail:
+                k_all = torch.cat([k_all, tk.transpose(1, 2)], dim=1)
+                v_all = torch.cat([v_all, tv.transpose(1, 2)], dim=1)
+                valid = torch.cat([cols[None] < torch.minimum(st, ln)[:, None],
+                                   st[:, None] + tail_cols[None] < ln[:, None]], dim=1)
+                kw = dict(tail_k=tk, tail_v=tv, starts=st)
+            else:
+                valid = cols[None] < ln[:, None]
+                kw = {}
+            qt = q[:, :, None]  # (B, H, 1, D)
+            kt = k_all.transpose(1, 2).contiguous()  # (B, K, S, D)
+            vt = v_all.transpose(1, 2).contiguous()
+            mask = valid[:, None, None, :]
+            kernel.append(functools.partial(paged.paged_attention, q, kp, vp, table,
+                                            ln, **kw))
+            plain.append(functools.partial(paged.paged_attention_plain, q, kp, vp,
+                                           table, ln, *kw.values()))
+            library.append(functools.partial(F.scaled_dot_product_attention, qt, kt,
+                                             vt, attn_mask=mask, enable_gqa=True))
+        ms = _graph_ms(kernel)
+        plain_ms = _graph_ms(plain, rounds=1)
+        lib_ms = _graph_ms(library)
+        ms2 = _graph_ms(kernel)
+        eager_ms = _time_ms(_cycle(kernel), iters=4 * PAGED_COPIES)
+        eager_lib_ms = _time_ms(_cycle(library), iters=4 * PAGED_COPIES)
+        bound_ms, bound_by = _paged_bound(q, kp, table, ln, st, tail)
+        sdpa_mb = 2 * kt.numel() * 2 / 1e6
+        log(f"[timing] {name} B={b} H={h} K={kv} D={d} ps={ps} T={m['tail_len']} "
+            f"lengths={lengths} starts={starts if tail else '-'}, {PAGED_COPIES} input "
+            f"copies in turn: device (CUDA graph) kernel {ms:.4f}/{ms2:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (enable_gqa, reads {sdpa_mb:.1f} MB "
+            f"of padded K/V); eager, host issue included: kernel {eager_ms:.4f} ms, "
+            f"sdpa {eager_lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / min(ms, ms2):.1%} of bound ({SMI})")
+        out[name] = {"ms": min(ms, ms2), "eager_ms": eager_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    return out
+
+
 def _http(method: str, url: str, payload: dict | None = None):
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(url, data=data, method=method,
@@ -276,7 +516,9 @@ def _prefill_logits(gen, cfg, ids: list[int]):
     return llama.logits_from_hidden(gen.params, hidden[:, len(ids) - 1])[0]
 
 
-def phase_serve(flash) -> dict:
+def phase_serve(flash, paged):
+    """Main path 1, the lock-step server; returns its Generator (whose
+    weights path 2 reuses) and the path's launch counts."""
     import dataclasses
 
     import torch
@@ -336,7 +578,8 @@ def phase_serve(flash) -> dict:
     require(min(buckets) >= 128 and 512 in buckets, buckets)
 
     try:
-        flash.reset_launches()  # the main path's count starts here
+        flash.reset_launches()  # the main path's counts start here
+        paged.reset_launches()
         status, health = _http("GET", url + "/health")
         require(status == 200 and health["status"] == "ok", health)
         bodies, walls = [], []
@@ -351,7 +594,8 @@ def phase_serve(flash) -> dict:
                 f"{usage['completion_tokens']} completion tokens in {wall:.3f}s "
                 f"(finish {body['choices'][0]['finish_reason']})")
             bodies.append(body)
-        launches = {"flash_fwd": flash.launches}  # read right after the run
+        launches = {"flash_fwd": flash.launches,  # read right after the run
+                    "paged_tail": paged.launches_tail, "paged": paged.launches}
         status, stats = _http("GET", url + "/v1/stats")
         require(status == 200 and stats["requests"] == len(requests), stats)
     finally:
@@ -412,7 +656,193 @@ def phase_serve(flash) -> dict:
             first_lp = a["logprobs"]["token_logprobs"][0]
             want_lp = float(torch.log_softmax(lf, -1).max())
             require(abs(first_lp - want_lp) < 1e-4, (first_lp, want_lp))
+    require(launches["paged_tail"] == launches["paged"] == 0, launches)
     log(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return gen, launches
+
+
+def _decode_step_logits(engine, slot: int):
+    """One paged decode step's f32 logits for ``slot`` from the engine's
+    current pools, table and slot state, with a fresh tail (column 0)."""
+    import torch
+
+    from ditl_tpu_torch.models import llama
+
+    c = engine.cfg
+    shape = (c.num_layers, engine.n_slots, c.num_kv_heads, engine.decode_chunk,
+             c.head_dim)
+    alive = torch.zeros(engine.n_slots, dtype=torch.bool, device="cuda")
+    alive[slot] = True
+    cache = {**engine.cache,
+             "tk": torch.zeros(shape, dtype=torch.bfloat16, device="cuda"),
+             "tv": torch.zeros(shape, dtype=torch.bfloat16, device="cuda")}
+    paged = {"table": engine._table_device(), "starts": engine.pos, "t": 0,
+             "lengths": torch.where(alive, engine.pos + 1, 0).to(torch.int32)}
+    return llama.forward(engine.params, engine.cur[:, None], c,
+                         positions=engine.pos[:, None], cache=cache, paged=paged)[slot, 0]
+
+
+def phase_serve_continuous(gen, flash, paged) -> dict:
+    """Main path 2: the continuous engine over the paged KV cache, over
+    ``gen``'s weights (no second 8B copy), serving 12 concurrent requests
+    through the HTTP server. Returns the path's launch counts."""
+    import torch
+
+    from ditl_tpu_torch.infer import server as server_mod
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine, ThreadedEngine
+
+    class RecordingEngine(ThreadedEngine):
+        """Keeps the token ids each completion returned: the byte tokenizer
+        decodes only ids 3..258 of the 128256-way head to text."""
+
+        def __init__(self, engine):
+            super().__init__(engine)
+            self.outputs: dict[tuple, list] = {}
+            self._lock = threading.Lock()
+
+        def generate_one(self, prompt_tokens, **kw):
+            out = super().generate_one(prompt_tokens, **kw)
+            with self._lock:
+                self.outputs.setdefault((tuple(prompt_tokens), kw["max_new_tokens"]),
+                                        []).append(list(out))
+            return out
+
+    cfg = gen.cfg
+    tok = gen.tokenizer
+    t0 = time.perf_counter()
+    engine = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
+                              max_cache_len=2048, cache_mode="paged", page_size=256,
+                              device="cuda")
+    threaded = RecordingEngine(engine)
+    server = server_mod.make_server(gen, threaded_engine=threaded, host="127.0.0.1",
+                                    port=0, model_name=cfg.name)
+    pool_gib = 2 * engine.cache["kp"].numel() * 2 / 2**30
+    log(f"[continuous] engine built in {time.perf_counter() - t0:.1f}s: "
+        f"{engine.n_pages} pages of {engine.page_size} tokens, {pool_gib:.2f} GiB "
+        f"of pools, 8 slots, decode_chunk 16, context 2048")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    prefix = _text(30, 600)  # two full 256-token pages with BOS, and 89 more
+    shared = [  # (payload, prompt text): sent first
+        ({"prompt": prefix + " " + _text(31 + i, n), "max_tokens": m},
+         prefix + " " + _text(31 + i, n))
+        for i, (n, m) in enumerate([(100, 32), (180, 48), (250, 16), (140, 64)])]
+    repeated = _text(40, 150)
+    others = [
+        ({"prompt": _text(41, 1500), "max_tokens": 32}, None),
+        ({"prompt": _text(42, 1200), "max_tokens": 48}, None),
+        ({"prompt": _text(43, 1000), "max_tokens": 32, "temperature": 0.8,
+          "top_p": 0.9, "seed": 7}, None),
+        ({"prompt": _text(44, 450), "max_tokens": 40, "temperature": 1.0,
+          "seed": 11}, None),
+        ({"prompt": repeated, "max_tokens": 24}, None),
+        ({"prompt": repeated, "max_tokens": 24}, None),
+        ({"prompt": _text(45, 100), "max_tokens": 16}, None),
+        ({"prompt": _text(46, 300), "max_tokens": 20}, None),
+    ]
+    requests = [p for p, _ in shared] + [p for p, _ in others]
+    results: dict[int, tuple] = {}
+
+    def one(i):
+        t = time.perf_counter()
+        status, body = _http("POST", url + "/v1/completions", requests[i])
+        results[i] = (status, body, time.perf_counter() - t)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(requests))]
+    try:
+        flash.reset_launches()  # this path's counts start here
+        paged.reset_launches()
+        t_start = time.perf_counter()
+        for th in threads[:4]:
+            th.start()
+        # The shared-prefix requests go first: queued or admitted before the
+        # others arrive, so pool pressure cannot evict their pages first.
+        for _ in range(600):
+            st = engine.stats()
+            if st["slots_busy"] + st["queue_depth"] + len(results) >= 4:
+                break
+            time.sleep(0.01)
+        for th in threads[4:]:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t_start
+        launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail,
+                    "paged": paged.launches}  # read right after the run
+        st = engine.stats()
+        status, http_stats = _http("GET", url + "/v1/stats")
+        require(status == 200 and http_stats["engine"] == "continuous", http_stats)
+    finally:
+        server.close(drain=True)
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "server thread did not stop")
+    require(not threaded._thread.is_alive(), "engine driver thread did not stop")
+
+    n_tokens = 0
+    for i, payload in enumerate(requests):
+        require(i in results, f"request {i} did not answer")
+        status, body, w = results[i]
+        require(status == 200, (i, status, body))
+        n = body["usage"]["completion_tokens"]
+        n_tokens += n
+        require(n >= 1, body)
+        if not payload.get("temperature"):
+            require(n == payload["max_tokens"], (i, body))  # greedy: to budget
+        log(f"[continuous] request {i}: {body['usage']['prompt_tokens']} prompt + {n} "
+            f"completion tokens in {w:.3f}s wall "
+            f"({'sampled' if payload.get('temperature') else 'greedy'})")
+    rep = threaded.outputs[(tuple([tok.bos_id] + tok.encode(repeated)), 24)]
+    require(len(rep) == 2 and rep[0] == rep[1], rep)
+    log("[continuous] repeated greedy request: identical tokens")
+    hit = st["prefix_cache"]["hit_tokens"]
+    require(hit >= 512 * 3, st["prefix_cache"])
+    require(st["pages_free"] + st["pages_cached_evictable"] == st["pages_total"], st)
+    require(st["slots_busy"] == 0 and st["queue_depth"] == 0, st)
+    want_k3 = cfg.num_layers * st["decode_steps"]
+    want_k1 = cfg.num_layers * st["prefills_cold"]
+    require(launches["paged_tail"] == want_k3, (launches, st["decode_steps"]))
+    require(launches["flash_fwd"] == want_k1, (launches, st["prefills_cold"]))
+    require(launches["paged"] == 0, launches)
+    log(f"[continuous] K3 launches {launches['paged_tail']} = {cfg.num_layers} layers x "
+        f"{st['decode_steps']} decode steps ({st['decode_ticks']} ticks); K1 launches "
+        f"{launches['flash_fwd']} = {cfg.num_layers} x {st['prefills_cold']} cold "
+        f"prefills ({st['prefills_prefix_hit']} prefix-hit prefills, masked plain "
+        f"path); prefix cache {st['prefix_cache']}; pages total {st['pages_total']}, "
+        f"free {st['pages_free']}, cached {st['pages_cached_evictable']}")
+    tick_ms = st["decode_seconds"] / st["decode_ticks"] * 1e3
+    log(f"[continuous] {len(requests)} concurrent requests in {wall:.3f}s wall: "
+        f"{n_tokens} generated tokens, {n_tokens / wall:.1f} tokens/s aggregate; "
+        f"decode {tick_ms:.1f} ms per tick, {tick_ms / engine.decode_chunk:.2f} ms "
+        f"per step (host clock, each tick ends in a device-to-host copy; {SMI})")
+
+    # One paged decode step through K3 against the same step through the
+    # plain version, from a fresh cold prefill (the server has stopped, so
+    # this thread owns the engine).
+    prompt = [tok.bos_id] + tok.encode(_text(50, 700))
+    rid = engine.submit(prompt, max_new_tokens=4)
+    engine._admit()
+    slot = next(i for i, r in enumerate(engine._slots) if r is not None and r.req_id == rid)
+    wrapper = paged.paged_attention
+    with torch.no_grad():
+        lk = _decode_step_logits(engine, slot)
+        # The forward looks the wrapper up at call time: rebinding it to the
+        # plain version swaps it for this one forward only.
+        paged.paged_attention = paged.paged_attention_plain
+        try:
+            lx = _decode_step_logits(engine, slot)
+        finally:
+            paged.paged_attention = wrapper
+    engine.cancel(rid)
+    require(lk.shape == (cfg.vocab_size,) and bool(torch.isfinite(lk).all()))
+    rel = float((lk - lx).norm() / lx.norm())
+    same_top = int(lk.argmax()) == int(lx.argmax())
+    log(f"[continuous] decode-step logits K3 vs plain paged attention (701-token "
+        f"context): rel L2 {rel:.3e}, max abs {float((lk - lx).abs().max()):.3e}, "
+        f"same argmax {same_top}")
+    require(rel <= LOGITS_REL_TOL and same_top, (rel, same_top))
+    log(f"[continuous] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return launches
 
 
@@ -424,6 +854,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from ditl_tpu_torch.ops import flash_attention as flash
+    from ditl_tpu_torch.ops import paged_attention as paged
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -431,14 +862,26 @@ def main() -> int:
     phase_card()
     phase_build()
     errors = phase_kernels(flash)
+    errors.update(phase_paged_kernels(paged))
     timings = phase_timings(flash)
-    launches = phase_serve(flash)
+    timings.update(phase_paged_timings(paged))
+    gen, lockstep = phase_serve(flash, paged)
+    continuous = phase_serve_continuous(gen, flash, paged)
+    # Launches per kernel: K1 on both serving paths, K3 on the continuous
+    # path; K4 has no serving path, so its count is the kernels phase's
+    # direct calls.
+    launches = {"flash_fwd": lockstep["flash_fwd"] + continuous["flash_fwd"],
+                "paged_tail": continuous["paged_tail"],
+                "paged": errors.pop("paged_direct_launches")}
+    require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
+            (lockstep, continuous))
     kernels = []
     for name, meta in KERNELS.items():
         if launches.get(name, 0) < 1:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+            raise AssertionError(f"kernel {name} was not launched on its path")
         kernels.append({"name": name, **meta, "launches": launches[name],
                         "max_abs_err": errors[name], **timings[name]})
+    log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,28 @@
-"""OpenAI-compatible HTTP server over the port's lock-step Generator.
+"""OpenAI-compatible HTTP server over the port's engines.
 
-Counterpart of the JAX package's ``infer/server.py``, lock-step engine only:
-``GET /health``, ``GET /v1/models``, ``GET /v1/stats``, and non-streaming
+Counterpart of the JAX package's ``infer/server.py``: ``GET /health``,
+``GET /v1/models``, ``GET /v1/stats``, and non-streaming
 ``POST /v1/completions`` and ``POST /v1/chat/completions`` with ``stop``,
-``max_tokens``, ``temperature``, ``top_p`` and ``seed``. A lock serialises
-device work; ``--max-pending`` answers 429 beyond that many requests in
-flight. Streaming, the continuous engine, adapters, telemetry and pod serving
-are later slices (ROADMAP.md).
+``max_tokens``, ``temperature``, ``top_p`` and ``seed``.
 
-Weights are drawn from a seed (no checkpoint loading yet), on the card unless
-``--device cpu`` is given:
+- ``--engine lockstep`` (default): the lock-step ``Generator``; a lock
+  serialises device work.
+- ``--engine continuous --cache-mode paged``: the continuous engine over the
+  paged KV cache (``infer/continuous.py``) behind ``ThreadedEngine``, so
+  concurrent requests share decode ticks. Logprob requests fall back to the
+  lock-step ``Generator`` over the same weights, as the JAX server does with
+  ``logprobs_k=0``. A full admission queue (``--max-queue``) answers 429, an
+  invalid request 400; ``/v1/stats`` and ``/health`` report the engine's
+  slots, queue and pages. ``--cache-mode contiguous`` raises (ROADMAP.md).
+
+``--max-pending`` answers 429 beyond that many requests in flight.
+Streaming, adapters, telemetry and pod serving are later slices
+(ROADMAP.md). Weights are drawn from a seed (no checkpoint loading yet), on
+the card unless ``--device cpu`` is given:
 
     python -m ditl_tpu_torch.infer.server --preset llama3-8b \\
-        --override attention_impl=flash [--device cuda] [--port 8300]
+        --override attention_impl=flash [--device cuda] [--port 8300] \\
+        [--engine continuous --cache-mode paged]
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ditl_tpu_torch.infer.continuous import QueueFullError, ThreadedEngine
 from ditl_tpu_torch.infer.engine import GenerateConfig, Generator
 from ditl_tpu_torch.utils.http11 import KeepAliveHandlerMixin
 from ditl_tpu_torch.utils.logging import get_logger
@@ -45,6 +56,7 @@ class DrainableHTTPServer(ThreadingHTTPServer):
 
     def __init__(self, *args, **kwargs):
         self.draining = False
+        self.engine: ThreadedEngine | None = None  # stopped by close()
         self._inflight = 0
         self._idle = threading.Condition()
         self._parked: set = set()
@@ -97,8 +109,9 @@ class DrainableHTTPServer(ThreadingHTTPServer):
                 pass
 
     def close(self, drain: bool = True, timeout: float = 30.0) -> None:
-        """Drain, wait (bounded) for in-flight work, stop the serve loop and
-        close the socket. Call from a thread other than ``serve_forever``'s."""
+        """Drain, wait (bounded) for in-flight work, stop the serve loop,
+        close the socket and stop the continuous engine's driver thread.
+        Call from a thread other than ``serve_forever``'s."""
         if drain:
             self.drain()
             with self._idle:
@@ -107,6 +120,8 @@ class DrainableHTTPServer(ThreadingHTTPServer):
                                    self._inflight)
         self.shutdown()
         self.server_close()
+        if self.engine is not None:
+            self.engine.close()
 
 
 def _stop_list(stop) -> list[str]:
@@ -139,11 +154,13 @@ def _chat_prompt(messages: list[dict]) -> str:
 
 class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
     generator: Generator = None  # bound by make_server
+    threaded_engine: ThreadedEngine | None = None  # --engine continuous
     model_name: str = "ditl-tpu-torch"
-    device_lock: threading.Lock = None
+    device_lock: threading.Lock = None  # serialises the lock-step Generator
     default_max_tokens: int = 64
     max_pending: int | None = None
-    stats: dict = None  # served requests and tokens, guarded by device_lock
+    stats: dict = None  # served requests and tokens, guarded by stats_lock
+    stats_lock: threading.Lock = None
 
     def log_message(self, *args):
         logger.debug("http: " + args[0], *args[1:])
@@ -159,6 +176,12 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def _load(self) -> dict:
+        if self.threaded_engine is not None:
+            st = self.threaded_engine.stats()
+            return {"queue_depth": st["queue_depth"], "active_slots": st["slots_busy"],
+                    "n_slots": st["n_slots"], "pages_free": st["pages_free"],
+                    "pages_cached_evictable": st["pages_cached_evictable"],
+                    "pages_total": st["pages_total"]}
         inflight = int(self.server.inflight)
         return {"queue_depth": max(0, inflight - 1),
                 "active_slots": min(1, inflight), "n_slots": 1}
@@ -171,9 +194,11 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                                   "model": self.model_name,
                                   "draining": draining, **self._load()})
         elif path in ("/v1/stats", "/stats"):
-            with self.device_lock:
+            with self.stats_lock:
                 served = dict(self.stats)
-            self._send_json(200, {"model": self.model_name, "engine": "lockstep",
+            engine = ({"engine": "lockstep"} if self.threaded_engine is None
+                      else self.threaded_engine.stats())
+            self._send_json(200, {"model": self.model_name, **engine,
                                   "device": str(self.generator.device),
                                   "draining": draining,
                                   "inflight": int(self.server.inflight),
@@ -265,19 +290,34 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         prompt_ids = [tok.bos_id] + tok.encode(prompt)
         lp = None
         try:
-            with self.device_lock:
-                if n_top is None:
-                    out = self.generator.generate_tokens([prompt_ids], gen)[0]
-                else:
-                    # The engine's top-k needs k >= 1; N = 0 computes one
-                    # alternative and emits none.
-                    outs, lps = self.generator.generate_tokens_with_logprobs(
-                        [prompt_ids], dataclasses.replace(gen, logprobs=max(1, n_top)))
-                    out, lp = outs[0], lps[0]
+            if self.threaded_engine is not None and n_top is None:
+                # Continuous engine: the request shares decode ticks.
+                out = self.threaded_engine.generate_one(
+                    prompt_ids, max_new_tokens=gen.max_new_tokens,
+                    temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed,
+                )
+            else:
+                # Lock-step Generator: the lock-step engine, and the
+                # continuous engine's fallback for logprob requests.
+                with self.device_lock:
+                    if n_top is None:
+                        out = self.generator.generate_tokens([prompt_ids], gen)[0]
+                    else:
+                        # The engine's top-k needs k >= 1; N = 0 computes one
+                        # alternative and emits none.
+                        outs, lps = self.generator.generate_tokens_with_logprobs(
+                            [prompt_ids], dataclasses.replace(gen, logprobs=max(1, n_top)))
+                        out, lp = outs[0], lps[0]
+            with self.stats_lock:
                 self.stats["requests"] += 1
                 self.stats["prompt_tokens"] += len(prompt_ids)
                 self.stats["completion_tokens"] += len(out)
-        except ValueError as e:  # prompt + max_tokens beyond the context
+        except QueueFullError as e:
+            self._send_json(429, {"error": {"message": str(e), "type": "rate_limit_error"}},
+                            headers={"Retry-After": "1"})
+            return
+        except ValueError as e:  # BadRequestError: prompt + max_tokens beyond
+            # the context, or a pool too small for the request
             self._send_json(400, {"error": {"message": str(e)}})
             return
         except Exception as e:  # noqa: BLE001 - the server keeps serving
@@ -347,22 +387,30 @@ def _logprobs_json(tok, ids: list[int], lp: dict, text: str, hit_stop: bool,
 def make_server(
     generator: Generator,
     *,
+    threaded_engine: ThreadedEngine | None = None,
     host: str = "127.0.0.1",
     port: int = 8300,
     model_name: str = "ditl-tpu-torch",
     default_max_tokens: int = 64,
     max_pending: int | None = None,
 ) -> DrainableHTTPServer:
-    """Build (not start) the HTTP server; ``port=0`` picks a free port."""
+    """Build (not start) the HTTP server; ``port=0`` picks a free port.
+    ``threaded_engine`` (already built, over ``generator``'s weights) serves
+    completions through the continuous engine; ``generator`` then serves
+    only logprob requests. Closing the server stops the engine."""
     handler = type("BoundHandler", (_Handler,), {
         "generator": generator,
+        "threaded_engine": threaded_engine,
         "model_name": model_name,
         "device_lock": threading.Lock(),
         "default_max_tokens": default_max_tokens,
         "max_pending": max_pending,
         "stats": {"requests": 0, "prompt_tokens": 0, "completion_tokens": 0},
+        "stats_lock": threading.Lock(),
     })
-    return DrainableHTTPServer((host, port), handler)
+    server = DrainableHTTPServer((host, port), handler)
+    server.engine = threaded_engine
+    return server
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -378,6 +426,23 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--max-tokens", type=int, default=64)
     p.add_argument("--max-pending", type=int, default=0,
                    help="cap on in-flight completions (429 beyond); 0 = none")
+    p.add_argument("--engine", choices=("lockstep", "continuous"), default="lockstep")
+    p.add_argument("--cache-mode", choices=("contiguous", "paged"), default="contiguous",
+                   help="KV cache layout for --engine continuous; only 'paged' is "
+                   "ported (contiguous raises)")
+    p.add_argument("--slots", type=int, default=8,
+                   help="decode slots for --engine continuous")
+    p.add_argument("--page-size", type=int, default=256,
+                   help="tokens per KV page for --cache-mode paged")
+    p.add_argument("--pages", type=int, default=0,
+                   help="page-pool size for --cache-mode paged; 0 = the contiguous "
+                   "equivalent (slots x max context)")
+    p.add_argument("--max-cache-len", type=int, default=0,
+                   help="per-slot context cap for --engine continuous; 0 = model "
+                   "max_seq_len")
+    p.add_argument("--max-queue", type=int, default=0,
+                   help="admission-queue depth cap for --engine continuous; beyond "
+                   "it requests get HTTP 429 (0 = unbounded)")
     return p
 
 
@@ -392,13 +457,25 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
     cfg = get_preset(args.preset) if args.preset else ModelConfig()
     cfg = parse_model_overrides(cfg, args.override)
     params = llama.init_params(cfg, seed=args.seed, device=args.device)
-    generator = Generator(params, cfg, get_tokenizer("byte"), device=args.device)
-    server = make_server(generator, host=args.host, port=args.port,
-                         model_name=cfg.name, default_max_tokens=args.max_tokens,
+    tokenizer = get_tokenizer("byte")
+    generator = Generator(params, cfg, tokenizer, device=args.device)
+    threaded = None
+    if args.engine == "continuous":
+        from ditl_tpu_torch.infer.continuous import ContinuousEngine
+
+        threaded = ThreadedEngine(ContinuousEngine(
+            params, cfg, tokenizer, n_slots=args.slots,
+            max_cache_len=args.max_cache_len or None, cache_mode=args.cache_mode,
+            page_size=args.page_size, n_pages=args.pages or None,
+            max_queue=args.max_queue or None, device=args.device,
+        ))
+    server = make_server(generator, threaded_engine=threaded, host=args.host,
+                         port=args.port, model_name=cfg.name,
+                         default_max_tokens=args.max_tokens,
                          max_pending=args.max_pending or None)
-    logger.info("serving %s (attention_impl=%s) on %s:%d, device %s", cfg.name,
-                cfg.attention_impl, args.host, server.server_address[1],
-                generator.device)
+    logger.info("serving %s (attention_impl=%s, engine %s) on %s:%d, device %s",
+                cfg.name, cfg.attention_impl, args.engine, args.host,
+                server.server_address[1], generator.device)
     return server
 
 

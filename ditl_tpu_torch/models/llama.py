@@ -176,6 +176,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _paged_decode_attention(q, k, v, layer_cache: dict, paged: dict,
+                            cfg: ModelConfig) -> torch.Tensor:
+    """The paged decode tick's attention, one token per slot. The token's
+    K/V go into tail column ``paged["t"]`` in place (the reference returns new
+    tails); the pools are read-only here, and the engine flushes the tail
+    into pages once per tick. Attention reads pages + tail through
+    ``paged_attention`` whatever ``attention_impl`` is, as in the reference:
+    the CUDA kernel (K3) on the card."""
+    from ditl_tpu_torch.ops.paged_attention import paged_attention
+
+    if q.shape[1] != 1:
+        raise NotImplementedError(
+            "multi-token paged forward (the speculative verify) is not ported "
+            "to PyTorch yet (see ROADMAP.md)"
+        )
+    tk, tv = layer_cache["tk"], layer_cache["tv"]
+    tk[:, :, paged["t"]] = k[:, 0]
+    tv[:, :, paged["t"]] = v[:, 0]
+    return paged_attention(
+        q[:, 0].contiguous(), layer_cache["kp"], layer_cache["vp"],
+        paged["table"], paged["lengths"], tail_k=tk, tail_v=tv,
+        starts=paged["starts"],
+    )[:, None]
+
+
 def _decoder_layer(
     lp: Params,
     x: torch.Tensor,
@@ -187,6 +212,7 @@ def _decoder_layer(
     cache_index: int,
     attn_mask: torch.Tensor | None,
     prefill_causal: bool,
+    paged: dict | None,
 ) -> torch.Tensor:
     b, s, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -203,11 +229,13 @@ def _decoder_layer(
     k = apply_rope(k.reshape(b, s, nkv, hd), positions, cfg)
     v = v.reshape(b, s, nkv, hd).contiguous()
 
-    if layer_cache is not None:
+    if layer_cache is not None and paged is None:
         from ditl_tpu_torch.infer.cache import read_kv, write_kv
 
         write_kv(layer_cache, k, v, cache_index)
-    if layer_cache is not None and not prefill_causal:
+    if paged is not None:
+        attn_out = _paged_decode_attention(q, k, v, layer_cache, paged, cfg)
+    elif layer_cache is not None and not prefill_causal:
         # Decode: attend the whole cache under the per-slot mask.
         k_full, v_full = read_kv(layer_cache, x.dtype)
         attn_out = dot_product_attention(
@@ -245,6 +273,7 @@ def forward(
     cache_index: int = 0,
     attn_mask: torch.Tensor | None = None,
     prefill_causal: bool = False,
+    paged: dict | None = None,
     return_hidden: bool = False,
 ) -> torch.Tensor:
     """Token ids (B, S) -> f32 logits (B, S, V), or the final-normed hidden
@@ -258,13 +287,21 @@ def forward(
     ``prefill_causal=True`` with a cache: the chunk fills an empty cache from
     slot 0, so attention is causal over the chunk with validity from
     ``segment_ids`` — the serving prefill, which runs the flash kernel when
-    ``cfg.attention_impl == "flash"``."""
+    ``cfg.attention_impl == "flash"``.
+
+    ``paged`` (``{"table", "lengths", "starts", "t"}``) with a cache of
+    ``{"kp", "vp", "tk", "tv"}`` (pools (L, P, K, ps, D), tails
+    (L, B, K, T, D)) is the paged decode tick's step: one token per slot,
+    whose K/V are written into tail column ``t`` in place, attending the
+    pages through ``table`` plus the tail (``ops/paged_attention.py``)."""
     check_supported(cfg)
     cd = torch_dtype(cfg.dtype)
     b, s = input_ids.shape
     if positions is None:
         positions = torch.arange(s, device=input_ids.device).expand(b, s)
-    if cache is not None and not prefill_causal and attn_mask is None:
+    if paged is not None and (cache is None or "kp" not in cache):
+        raise ValueError("a paged step needs the pools and tails as its cache")
+    if cache is not None and not prefill_causal and attn_mask is None and paged is None:
         raise ValueError("a cached decode step needs attn_mask")
     x = params["embed"]["embedding"][input_ids].to(cd)
     layers = params["layers"]
@@ -277,7 +314,7 @@ def forward(
         x = _decoder_layer(
             lp, x, cfg=cfg, positions=positions, segment_ids=segment_ids,
             layer_cache=layer_cache, cache_index=cache_index,
-            attn_mask=attn_mask, prefill_causal=prefill_causal,
+            attn_mask=attn_mask, prefill_causal=prefill_causal, paged=paged,
         )
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
     if return_hidden:

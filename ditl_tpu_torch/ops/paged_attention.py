@@ -1,0 +1,236 @@
+"""Paged decode attention: the hand-written CUDA kernels and their plain version.
+
+Counterpart of the JAX package's ``ops/paged_attention.py``. KV lives in a
+shared pool of pages; per-slot page tables map logical block -> physical
+page. ``csrc/paged_attention.cu`` holds two kernels, one per Pallas kernel:
+
+- **K3** (``ditl_paged_tail_bf16``, replaces ``_paged_tail_kernel``): the
+  decode tick's kernel. Positions [0, min(starts, lengths)) come from the
+  pages, [starts, lengths) from the tick's contiguous tail buffer.
+- **K4** (``ditl_paged_bf16``, replaces ``_paged_kernel``): the same without
+  a tail, positions [0, lengths) from the pages. No serving path calls it
+  (as in the JAX package, where only its tests do).
+
+- ``paged_attention`` is the wrapper, with the JAX signature: it checks its
+  inputs and, for CUDA tensors, launches K3 (with a tail) or K4 (without) or
+  raises. Only for CPU tensors does it run ``paged_attention_plain``.
+  ``launches_tail`` and ``launches`` count K3 and K4 launches.
+- ``paged_attention_plain`` computes what ``paged_attention_xla`` computes:
+  gather the pages, append the tail, mask with the finite ``NEG_INF``, f32
+  scores and softmax, p cast to v's dtype before the p.v product (f32
+  accumulation), zeros for dead slots (length 0). 3-D q only.
+
+Layouts are the JAX package's: q (B, H, D); pools (P, K, ps, D); page table
+(B, maxp) int32; lengths and starts (B,) int32; tails (B, K, T, D); output
+(B, H, D).
+
+Not ported yet (ROADMAP.md): int8 pools with scales, the multi-query
+speculative verify (4-D q), and the mesh-sharded form.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ditl_tpu_torch.ops.attention import NEG_INF
+
+__all__ = ["paged_attention", "paged_attention_plain", "HEAD_DIMS", "MAX_GROUPS",
+           "launches", "launches_tail", "reset_launches"]
+
+HEAD_DIMS = (64, 128)  # the kernels' template instances
+MAX_GROUPS = 8  # query heads per KV head the kernels take
+
+# Kernel launches since the last reset_launches(); counted where each kernel
+# is launched and nowhere else. ``launches_tail`` is K3, ``launches`` K4.
+launches = 0
+launches_tail = 0
+
+_fns: dict[str, ctypes._CFuncPtr] = {}
+
+
+def reset_launches() -> None:
+    global launches, launches_tail
+    launches = 0
+    launches_tail = 0
+
+
+def _kernel(tail: bool):
+    name = "ditl_paged_tail_bf16" if tail else "ditl_paged_bf16"
+    fn = _fns.get(name)
+    if fn is None:
+        from ditl_tpu_torch.ops.cuda_build import load_library
+
+        fn = getattr(load_library("paged_attention.cu"), name)
+        n_ptr = 9 if tail else 6
+        n_int = 8 if tail else 7
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def paged_attention_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    tail_k: torch.Tensor | None = None,
+    tail_v: torch.Tensor | None = None,
+    starts: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of both kernels (the JAX package's
+    ``paged_attention_xla`` for 3-D q): returns (B, H, D) in q's dtype."""
+    b, h, d = q.shape
+    _, kv_heads, ps, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    groups = h // kv_heads
+    table = page_table.long()
+    # (B, maxp, K, ps, D) -> (B, maxp * ps, K, D)
+    k = k_pages[table].transpose(2, 3).reshape(b, maxp * ps, kv_heads, d)
+    v = v_pages[table].transpose(2, 3).reshape(b, maxp * ps, kv_heads, d)
+    page_limit = lengths if starts is None else torch.minimum(starts, lengths)
+    cols = torch.arange(maxp * ps, device=q.device)
+    valid = cols[None, :] < page_limit[:, None]  # (B, S)
+    if tail_k is not None:
+        t = tail_k.shape[2]
+        k = torch.cat([k, tail_k.transpose(1, 2)], dim=1)
+        v = torch.cat([v, tail_v.transpose(1, 2)], dim=1)
+        tail_cols = torch.arange(t, device=q.device)
+        tail_valid = starts[:, None] + tail_cols[None, :] < lengths[:, None]
+        valid = torch.cat([valid, tail_valid], dim=1)
+    qg = q.reshape(b, kv_heads, groups, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * d**-0.5
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    # Dead slots (length 0) have an all-masked row: zeros, not a uniform mix.
+    probs = torch.where((lengths > 0)[:, None, None, None], probs, 0.0)
+    out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype).float(), v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def _check(q, k_pages, v_pages, page_table, lengths, tail_k, tail_v, starts) -> None:
+    if q.dim() == 4:
+        raise NotImplementedError(
+            "multi-query paged attention (the speculative verify, 4-D q) is "
+            "not ported to PyTorch yet (see ROADMAP.md)"
+        )
+    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError("paged_attention wants q (B,H,D) and pools (P,K,ps,D)")
+    b, h, d = q.shape
+    kv_heads = k_pages.shape[1]
+    if k_pages.shape[3] != d:
+        raise ValueError(f"head_dim mismatch q {tuple(q.shape)} pools "
+                         f"{tuple(k_pages.shape)}")
+    if h % kv_heads:
+        raise ValueError(f"q heads {h} not divisible by kv heads {kv_heads}")
+    if page_table.dim() != 2 or page_table.shape[0] != b or lengths.shape != (b,):
+        raise ValueError(f"page_table {tuple(page_table.shape)} must be (B, maxp) "
+                         f"and lengths {tuple(lengths.shape)} (B,) for B={b}")
+    has_tail = (tail_k is not None, tail_v is not None, starts is not None)
+    if any(has_tail) and not all(has_tail):
+        raise ValueError("tail_k, tail_v and starts go together")
+    if tail_k is not None:
+        if (tail_k.dim() != 4 or tail_k.shape != tail_v.shape
+                or tail_k.shape[:2] != (b, kv_heads) or tail_k.shape[3] != d):
+            raise ValueError(f"tails {tuple(tail_k.shape)} must be (B, K, T, D)")
+        if starts.shape != (b,):
+            raise ValueError(f"starts {tuple(starts.shape)} must be (B,)")
+    tensors = [q, k_pages, v_pages, page_table, lengths]
+    tensors += [] if tail_k is None else [tail_k, tail_v, starts]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("paged_attention's tensors must be on one device")
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    tail_k: torch.Tensor | None = None,
+    tail_v: torch.Tensor | None = None,
+    starts: torch.Tensor | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    mesh=None,
+) -> torch.Tensor:
+    """Paged GQA decode attention (see the module note). CUDA tensors launch
+    K3 (with a tail) or K4 (without): bf16 q/pools/tails, int32 table,
+    lengths and starts, all contiguous, head_dim in ``HEAD_DIMS``, at most
+    ``MAX_GROUPS`` query heads per KV head; anything else raises. CPU
+    tensors run the plain version."""
+    global launches, launches_tail
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "paged attention over int8 pools (k_scale/v_scale) is not ported "
+            "to PyTorch yet (see ROADMAP.md)"
+        )
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded paged attention is not ported to PyTorch yet "
+            "(see ROADMAP.md)"
+        )
+    _check(q, k_pages, v_pages, page_table, lengths, tail_k, tail_v, starts)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, page_table, lengths,
+                                     tail_k, tail_v, starts)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
+    b, h, d = q.shape
+    n_pool, kv_heads, ps, _ = k_pages.shape
+    tail = tail_k is not None
+    floats = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages)]
+    ints = [("page_table", page_table), ("lengths", lengths)]
+    if tail:
+        floats += [("tail_k", tail_k), ("tail_v", tail_v)]
+        ints += [("starts", starts)]
+    for name, t in floats:
+        if t.dtype != torch.bfloat16:
+            raise ValueError(
+                f"the CUDA paged-attention kernels take bfloat16, got {name} "
+                f"{t.dtype} (see ROADMAP.md for other dtypes)"
+            )
+    for name, t in ints:
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    for name, t in floats:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    for name, t in ints:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the CUDA paged-attention kernels take head_dim in "
+                         f"{HEAD_DIMS}, got {d} (see ROADMAP.md)")
+    if h // kv_heads > MAX_GROUPS:
+        raise ValueError(f"the CUDA paged-attention kernels take at most "
+                         f"{MAX_GROUPS} query heads per KV head, got {h // kv_heads}")
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if tail:
+            err = _kernel(True)(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                page_table.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
+                tail_k.data_ptr(), tail_v.data_ptr(), o.data_ptr(), b, h,
+                kv_heads, d, ps, page_table.shape[1], n_pool, tail_k.shape[2],
+                d**-0.5, stream,
+            )
+        else:
+            err = _kernel(False)(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(), b, h,
+                kv_heads, d, ps, page_table.shape[1], n_pool, d**-0.5, stream,
+            )
+    if err != 0:
+        raise RuntimeError(f"paged attention kernel launch failed: CUDA error {err}")
+    if tail:
+        launches_tail += 1
+    else:
+        launches += 1
+    return o

@@ -3,12 +3,12 @@
 These need a CUDA device and nvcc (a CUDA kernel has no CPU mode), so they
 carry the ``torch_port`` marker and skip without a card. The file imports
 neither JAX nor the JAX package, so it runs where only the port is
-installed:
+installed (``--noconftest``: ``tests/conftest.py`` imports jax):
 
-    python -m pytest tests/test_torch_cuda_kernels.py -m torch_port -q
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m torch_port -q
 
-Tolerances: bf16 outputs at 2e-2 (the kernel rounds p to bf16 against its
-running row max, the plain version against the final max; a few bf16 ulps),
+Tolerances: bf16 outputs at 2e-2 (the kernels round p to bf16 against their
+running row max, the plain versions against the final max; a few bf16 ulps),
 f32 log-sum-exp at 1e-3 (scaling before or after the q.k product, and the
 sums' order).
 """
@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ditl_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+from ditl_tpu_torch.ops import paged_attention as tpa  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -71,3 +72,72 @@ def test_flash_fwd_kernel_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     assert tfa.launches == 0
+
+
+def _paged_inputs(cuda, b, h, kv, d, ps, n_pool, tail_len, lengths, starts, seed=0):
+    """Pools, tails and a table giving each slot its own pages for
+    ceil(min(starts, lengths) / ps) blocks; rows 1 and 2 share their first
+    physical page."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).bfloat16()
+
+    q, kp, vp = rnd(b, h, d), rnd(n_pool, kv, ps, d), rnd(n_pool, kv, ps, d)
+    tk, tv = rnd(b, kv, tail_len, d), rnd(b, kv, tail_len, d)
+    maxp = max(1, max(-(-max(x, y) // ps) for x, y in zip(lengths, starts)))
+    table = torch.zeros((b, maxp), dtype=torch.int32)
+    pid = 1
+    for row in range(b):
+        for i in range(-(-min(lengths[row], starts[row]) // ps)):
+            table[row, i] = pid
+            pid += 1
+    table[2, 0] = table[1, 0]
+    assert pid <= n_pool
+    as_int = lambda x: torch.tensor(x, dtype=torch.int32, device=cuda)  # noqa: E731
+    return q, kp, vp, table.to(cuda), as_int(lengths), as_int(starts), tk, tv
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("b,h,kv,d,ps,tail_len,lengths,starts", [
+    # the serving tick: dead slot, partial page, exact boundary, no tail
+    (8, 32, 8, 128, 256, 16, [0, 700, 512, 1500, 9, 256, 1030, 300],
+     [0, 690, 512, 1490, 0, 256, 1030, 300]),
+    (4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 32, 45]),  # head_dim 64, page 16
+    (3, 8, 8, 64, 16, 8, [17, 40, 33], [16, 33, 33]),  # MHA
+])
+def test_paged_kernels_match_plain(cuda, b, h, kv, d, ps, tail_len, lengths, starts):
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        cuda, b, h, kv, d, ps, 64, tail_len, lengths, starts)
+    tpa.reset_launches()
+    o3 = tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st)
+    o4 = tpa.paged_attention(q, kp, vp, table, torch.minimum(st, lens).contiguous())
+    r3 = tpa.paged_attention_plain(q, kp, vp, table, lens, tk, tv, st)
+    r4 = tpa.paged_attention_plain(q, kp, vp, table, torch.minimum(st, lens))
+    torch.cuda.synchronize()
+    assert (tpa.launches_tail, tpa.launches) == (1, 1)
+    torch.testing.assert_close(o3.float(), r3.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o4.float(), r4.float(), atol=2e-2, rtol=2e-2)
+    dead = [i for i, n in enumerate(lengths) if n == 0]
+    assert all(bool((o3[i] == 0).all()) for i in dead)
+
+
+@pytest.mark.torch_port
+def test_paged_kernels_raise_instead_of_falling_back(cuda):
+    """On CUDA tensors the wrapper launches a kernel or raises: no plain
+    fallback for dtypes, shapes or variants the kernels do not take."""
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        cuda, 4, 8, 4, 64, 16, 64, 8, [0, 5, 38, 50], [0, 0, 32, 45])
+    tpa.reset_launches()
+    with pytest.raises(ValueError, match="bfloat16"):
+        tpa.paged_attention(q.float(), kp.float(), vp.float(), table, lens)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpa.paged_attention(q[:, None], kp, vp, table, lens, tail_k=tk, tail_v=tv,
+                            starts=st)
+    scale = torch.ones((64, 4, 1, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st,
+                            k_scale=scale, v_scale=scale)
+    with pytest.raises(ValueError, match="int32"):
+        tpa.paged_attention(q, kp, vp, table.long(), lens)
+    assert (tpa.launches, tpa.launches_tail) == (0, 0)

@@ -57,11 +57,13 @@ def _sources() -> list[Path]:
 def test_port_package_has_modules():
     mods = _port_modules()
     for name in ("config", "models.llama", "models.convert", "models.presets",
-                 "ops.attention", "ops.flash_attention", "ops.cuda_build",
-                 "infer.cache", "infer.sampling", "infer.engine", "infer.server",
-                 "data.tokenizer", "utils.logging", "utils.http11"):
+                 "ops.attention", "ops.flash_attention", "ops.paged_attention",
+                 "ops.cuda_build", "infer.cache", "infer.paged_cache",
+                 "infer.sampling", "infer.engine", "infer.continuous",
+                 "infer.server", "data.tokenizer", "utils.logging", "utils.http11"):
         assert f"ditl_tpu_torch.{name}" in mods
-    assert (PORT / "csrc" / "flash_fwd.cu").is_file()
+    for source in ("flash_fwd.cu", "paged_attention.cu"):
+        assert (PORT / "csrc" / source).is_file()
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -207,3 +207,143 @@ def test_cli_builds_a_cpu_server():
         srv.server_close()
     with pytest.raises(ValueError, match="bad override"):
         tserver.create_server(["--device", "cpu", "--override", "nope=1"])
+
+
+# -- the continuous engine -------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def served_continuous():
+    """``--engine continuous --cache-mode paged`` on the CPU: 2 slots, page
+    16, at most 4 queued requests; the lock-step Generator over the same
+    weights serves logprob requests."""
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine, ThreadedEngine
+
+    jcfg, cfg = JaxModelConfig(**TINY), ModelConfig(**TINY)
+    params = jllama.init_params(jax.random.key(0), jcfg)
+    tparams = params_from_jax(jax.device_get(params), cfg, "cpu")
+    gen = Generator(tparams, cfg, ByteTokenizer(), device="cpu")
+    engine = ContinuousEngine(tparams, cfg, ByteTokenizer(), cache_mode="paged",
+                              n_slots=2, page_size=16, decode_chunk=4, max_queue=4,
+                              device="cpu")
+    srv = tserver.make_server(gen, threaded_engine=ThreadedEngine(engine), port=0,
+                              model_name="tiny", default_max_tokens=8)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        yield url, JaxGenerator(params, jcfg, JaxByteTokenizer()), srv, engine
+    finally:
+        srv.close(drain=True)
+        thread.join(timeout=10)
+        assert not thread.is_alive()
+        assert not srv.engine._thread.is_alive(), "close() stops the driver thread"
+
+
+def test_continuous_serves_concurrent_requests(served_continuous):
+    """Four concurrent greedy completions (two slots, the rest queued) share
+    decode ticks; each text is the JAX Generator's greedy text for its
+    prompt."""
+    url, jgen, _, engine = served_continuous
+    prompts = [f"request {i} " * (i + 1) for i in range(4)]
+    results = {}
+
+    def one(i):
+        results[i] = _post(url + "/v1/completions",
+                           {"prompt": prompts[i], "max_tokens": 7})
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+    ticks0 = engine.decode_ticks
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    for i, p in enumerate(prompts):
+        status, body = results[i]
+        assert status == 200
+        text, n = _jax_text(jgen, p, 7)
+        assert body["choices"][0]["text"] == text
+        assert body["usage"]["completion_tokens"] == n
+    assert engine.decode_ticks > ticks0
+
+
+def test_continuous_full_queue_429_and_oversize_400(served_continuous):
+    url, _, _, engine = served_continuous
+    gate = threading.Event()
+    step = engine.step
+
+    def gated_step():  # the driver waits here: submissions pile up
+        gate.wait(timeout=60)
+        step()
+
+    engine.step = gated_step
+    results = []
+    threads = [threading.Thread(target=lambda: results.append(
+        _post(url + "/v1/completions", {"prompt": "queue", "max_tokens": 2})[0]))
+        for _ in range(6)]
+    try:
+        for t in threads:
+            t.start()
+        for _ in range(400):
+            if results.count(429) >= 1:
+                break
+            threading.Event().wait(0.05)
+    finally:
+        gate.set()
+        for t in threads:
+            t.join(timeout=120)
+        engine.step = step
+    assert 429 in results and 200 in results and set(results) <= {200, 429}
+    status, body = _post(url + "/v1/completions", {"prompt": "x" * 200, "max_tokens": 64})
+    assert status == 400 and "exceeds" in body["error"]["message"]
+
+
+def test_continuous_stats_and_health_carry_pages(served_continuous):
+    url, _, _, _ = served_continuous
+    _post(url + "/v1/completions", {"prompt": "x" * 40, "max_tokens": 3})
+    status, stats = _get(url + "/v1/stats")
+    assert status == 200 and stats["engine"] == "continuous"
+    assert stats["cache_mode"] == "paged" and stats["page_size"] == 16
+    assert stats["pages_total"] == 2 * 8
+    assert stats["pages_free"] + stats["pages_cached_evictable"] == stats["pages_total"]
+    assert stats["prefix_cache"]["miss_tokens"] > 0 and stats["decode_steps"] > 0
+    status, health = _get(url + "/health")
+    assert status == 200 and health["status"] == "ok"
+    assert (health["n_slots"], health["pages_total"]) == (2, 16)
+    assert health["queue_depth"] == 0 and "pages_free" in health
+
+
+def test_continuous_logprobs_served_by_lockstep_fallback(served_continuous):
+    """A logprob request runs on the lock-step Generator (no decode tick of
+    the continuous engine), with the JAX Generator's logprobs."""
+    url, jgen, _, engine = served_continuous
+    tok = JaxByteTokenizer()
+    ticks0 = engine.decode_ticks
+    status, body = _post(url + "/v1/completions",
+                         {"prompt": "logprob probe", "max_tokens": 5, "logprobs": 2})
+    assert status == 200 and engine.decode_ticks == ticks0
+    ids, lps = jgen.generate_tokens_with_logprobs(
+        [[tok.bos_id] + tok.encode("logprob probe")],
+        JaxGenerateConfig(max_new_tokens=5, logprobs=2))
+    lp = body["choices"][0]["logprobs"]
+    assert lp["tokens"] == [tok.decode([t]) for t in ids[0]]
+    np.testing.assert_allclose(lp["token_logprobs"], lps[0]["token_logprobs"],
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_cli_continuous_server_and_contiguous_raises():
+    base = ["--device", "cpu", "--port", "0", "--host", "127.0.0.1",
+            "--override", "num_layers=1", "--override", "vocab_size=300",
+            "--override", "max_seq_len=128", "--engine", "continuous"]
+    srv = tserver.create_server(base + ["--cache-mode", "paged", "--page-size", "16",
+                                        "--slots", "2", "--max-queue", "3"])
+    try:
+        st = srv.RequestHandlerClass.threaded_engine.stats()
+        assert (st["n_slots"], st["page_size"], st["max_queue"]) == (2, 16, 3)
+        assert st["pages_total"] == 2 * 8
+    finally:
+        srv.server_close()  # never served: no serve loop to shut down
+        srv.engine.close()
+    assert not srv.engine._thread.is_alive()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserver.create_server(base + ["--cache-mode", "contiguous"])
