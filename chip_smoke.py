@@ -10,13 +10,16 @@ no result line. It imports nothing of JAX or of the JAX package.
 2. Build: every ``ditl_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one nvcc
    per source, all started together; prints ptxas' register/spill lines.
 3. Kernels against their plain PyTorch versions on the card: K1 (flash
-   forward) at the serving prefill shapes and ragged ones, K3 (paged decode
-   with the tail) and K4 (without) at the decode tick's shape and ragged
-   ones (tolerances at ``O_TOL``/``LSE_TOL``). K4 has no serving path: its
-   launches are this phase's direct calls.
+   forward) at the serving prefill shapes and ragged ones, K2a/K2b (flash
+   backward) at the training shape (B=4, S=2048, 32/8 heads, D=128, the
+   pipeline's packed rows) and ragged ones, K3 (paged decode with the
+   tail) and K4 (without) at the decode tick's shape and ragged ones
+   (tolerances at ``O_TOL``/``LSE_TOL``/``BWD_TOL``). K4 has no serving
+   path: its launches are this phase's direct calls.
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
-   card's bound for the same work from this run's inputs.
+   card's bound for the same work from this run's inputs; K1, K2a and K2b
+   also at the training shape.
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -24,9 +27,22 @@ no result line. It imports nothing of JAX or of the JAX package.
    same server code, over the same weights object (8 slots, page 256,
    context 2048, decode_chunk 16), answering 12 concurrent requests; K3 on
    every decode step, K1 on every cold prefill.
-   Each path's launch counts are zeroed just before its requests and read
-   just after.
-7. The kernels line, then the result line, last.
+7. Main path 3: training. The serving weights and pools are freed first;
+   then ``train()`` runs in-process with the launcher's arguments
+   (``TRAIN_ARGS``: ``llama3-8b`` at full width and depth, bf16 masters,
+   adafactor, flash attention, fused loss, full remat, B=4, S=2048, 6
+   steps). Every loss must be finite and the last below the first; K2a and
+   K2b launch once per layer per step, K1 twice (the forward and its remat
+   recompute in the backward).
+8. Training parity: one train step at full width, depth 2, B=1, through
+   the kernels and again with ``flash_attention`` rebound to the plain
+   versions, from the same parameters and batch: loss and grad_norm within
+   ``STEP_LOSS_TOL``/``STEP_GNORM_TOL``.
+9. The kernels line, then the result line, last.
+
+Each main path's launch counts are zeroed just before it runs and read just
+after. The paths run at full depth: the whole script takes about 80 s on an
+H100, the build included.
 
 f32 matrix products run in full f32 here (TF32 off, set below): the port's
 lm head takes f32 products of bf16 values, as the JAX package's logits do.
@@ -55,6 +71,27 @@ LSE_TOL = 1e-3
 # bf16 layers: both round every activation to bf16, at different places in
 # the attention, and the residual stream is bf16; relative L2 of the logits.
 LOGITS_REL_TOL = 5e-2
+# dq/dk/dv of K2a/K2b against the plain backward, relative to each
+# gradient's largest magnitude: the kernels round p and ds to bf16 for the
+# three second products (p.do, ds.k, ds.q) that the plain version computes
+# in f32 (2^-9 relative per term, averaging out over the sums), and round
+# the outputs to bf16.
+BWD_TOL = 2e-2
+# One 2-layer train step through K1/K2a/K2b against the same step through
+# the plain versions: relative difference of the loss and of the gradient's
+# global norm. Every activation is bf16 on both sides; K1 rounds p to bf16
+# against its running max, and K2a/K2b round p and ds to bf16 for their
+# second products, which moves each attention gradient by up to BWD_TOL of
+# its scale, a small share of the whole model's gradient.
+STEP_LOSS_TOL = 1e-3
+STEP_GNORM_TOL = 1e-2
+TRAIN_STEPS = 6
+TRAIN_ARGS = [
+    "--preset", "llama3-8b", "model.param_dtype=bfloat16", "model.attention_impl=flash",
+    "model.loss_impl=fused", "model.loss_block_tokens=4096", "model.remat=full",
+    "train.optimizer=adafactor", "train.warmup_steps=1", f"train.total_steps={TRAIN_STEPS}",
+    "train.log_every=1", "data.synthetic=true", "data.batch_size=4", "data.seq_len=2048",
+]
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, SXM data sheet
@@ -64,7 +101,19 @@ KERNELS = {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:127",
-        "path": "both serving paths' cold prefills",
+        "path": "both serving paths' cold prefills; training forward and remat",
+    },
+    "flash_dq": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "ditl_tpu/ops/flash_attention.py:300",
+        "path": "training backward, every layer",
+    },
+    "flash_dkv": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "ditl_tpu/ops/flash_attention.py:362",
+        "path": "training backward, every layer",
     },
     "paged_tail": {
         "route": "cuda",
@@ -314,6 +363,290 @@ def phase_timings(flash) -> dict:
             "bound_by": bound_by, "library_ms": lib_ms,
         })
     return out
+
+
+def _train_segments(b: int = 4, s: int = 2048):
+    """The training main path's first batch's packed-document segment ids
+    (the pipeline's own rows: several documents per row)."""
+    import torch
+
+    from ditl_tpu_torch.config import DataConfig
+    from ditl_tpu_torch.data.dataset import synthetic_dataset
+    from ditl_tpu_torch.data.loader import DataPipeline
+    from ditl_tpu_torch.data.tokenizer import ByteTokenizer
+
+    cfg = DataConfig(batch_size=b, seq_len=s, synthetic=True)
+    pipe = DataPipeline(synthetic_dataset(cfg.synthetic_examples, cfg.seed),
+                        ByteTokenizer(), cfg, "cuda")
+    batch = next(pipe._host_batches(0))
+    return torch.from_numpy(batch["segment_ids"]).cuda().contiguous()
+
+
+def _bwd_inputs(b, s_q, s_kv, h, kv, d, causal, seg, *, seed, flash):
+    """q, k, v, the forward's o and lse through K1, and an upstream
+    gradient."""
+    import torch
+
+    q, k, v, _ = _attn_inputs(b, s_q, s_kv, h, kv, d, seed=seed)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    do = torch.randn(o.shape, generator=g, device="cuda").to(torch.bfloat16)
+    return q, k, v, o, lse, do
+
+
+def _bwd_bound(q, k, seg, causal, kernel: str):
+    """Least time on an H100 SXM for K2a (``dq``) or K2b (``dkv``): q, k, v,
+    do read once (bf16), lse and delta once (f32), segment ids once, the
+    outputs written once, over HBM bandwidth; against 2*D flops per
+    attended (query, key) pair and head for each of the kernel's products
+    (three for dq: q.k, do.v, ds.k; four for dkv: q.k, do.v, p.do, ds.q)
+    at bf16 peak."""
+    b, s_q, h, d = q.shape
+    s_kv, kv = k.shape[1], k.shape[2]
+    q_bytes, kv_bytes = 2 * b * s_q * h * d, 2 * b * s_kv * kv * d
+    nbytes = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * h * s_q
+    nbytes += q_bytes if kernel == "dq" else 2 * kv_bytes
+    if seg is not None:
+        nbytes += 4 * seg.numel()
+    products = 3 if kernel == "dq" else 4
+    flops = products * 2 * d * h * _attended_pairs(b, s_q, s_kv, causal, seg)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_bwd_kernels(flash, train_seg) -> dict:
+    """K2a and K2b against the plain backward; returns the max abs errors."""
+    import torch
+
+    cases = [  # (b, s_q, s_kv, h, kv, d, causal, seg)
+        (4, 2048, 2048, 32, 8, 128, True, train_seg),  # the training shape
+        (2, 333, 333, 8, 2, 64, True, "packed"),  # S % 64 != 0, head_dim 64
+        (2, 200, 333, 8, 8, 128, False, None),  # MHA, non-causal, Sq != Skv
+        (1, 130, 130, 4, 4, 32, True, None),  # head_dim 32
+    ]
+    worst = {"flash_dq": 0.0, "flash_dkv": 0.0}
+    for i, (b, sq, skv, h, kv, d, causal, seg) in enumerate(cases):
+        if isinstance(seg, str):  # three packed documents per row
+            seg = torch.ones(b, sq, dtype=torch.int32, device="cuda")
+            seg[:, sq // 3:] += 1
+            seg[:, 2 * sq // 3 + 5:] += 1
+            seg = seg.contiguous()
+        q, k, v, o, lse, do = _bwd_inputs(b, sq, skv, h, kv, d, causal, seg,
+                                          seed=400 + i, flash=flash)
+        got = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                        segment_ids=seg)
+        want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                               segment_ids=seg)
+        torch.cuda.synchronize()
+        errs = []
+        for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+            require(bool(torch.isfinite(x.float()).all()), f"{name} case {i}: non-finite")
+            scale = float(ref.float().abs().max())
+            err = float((x.float() - ref.float()).abs().max())
+            torch.testing.assert_close(x.float(), ref.float(), rtol=0,
+                                       atol=BWD_TOL * scale, msg=f"{name} case {i}")
+            errs.append((name, err, scale))
+        worst["flash_dq"] = max(worst["flash_dq"], errs[0][1])
+        worst["flash_dkv"] = max(worst["flash_dkv"], errs[1][1], errs[2][1])
+        log(f"[kernels] flash_bwd B={b} Sq={sq} Skv={skv} H={h} K={kv} D={d} "
+            f"causal={causal} seg={'yes' if seg is not None else 'no'}: "
+            + ", ".join(f"max|{n}-plain|={e:.3e} (max|{n}| {sc:.3e})" for n, e, sc in errs)
+            + " ok")
+        del q, k, v, o, lse, do, got, want
+    return worst
+
+
+def _bwd_launchers(flash, q, k, v, o, lse, do, seg, causal):
+    """K2a and K2b as bare launches on preallocated outputs (the wrapper's
+    arguments; delta computed once), for timing each kernel alone."""
+    import torch
+
+    dq_fn, dkv_fn = flash._bwd_kernels()
+    b, s_q, h, d = q.shape
+    s_kv, kv = k.shape[1], k.shape[2]
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), None if seg is None else seg.data_ptr())
+
+    def sizes():
+        return (b, s_q, s_kv, h, kv, d, int(causal), d**-0.5,
+                torch.cuda.current_stream().cuda_stream)
+
+    def run_dq():
+        require(dq_fn(*common, dq.data_ptr(), *sizes()) == 0, "K2a launch")
+
+    def run_dkv():
+        require(dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes()) == 0, "K2b launch")
+
+    return run_dq, run_dkv, (delta, dq, dk, dv)
+
+
+def phase_train_timings(flash, train_seg) -> dict:
+    """K1, K2a and K2b at the training shape (B=4, S=2048, 32/8 heads,
+    D=128, the pipeline's packed rows): CUDA events over back-to-back
+    calls, the better of two runs; the plain versions; one
+    scaled_dot_product_attention (causal, enable_gqa, one document per row)
+    forward, and the backward of one such call (autograd.grad of its output,
+    graph kept) as the library yardsticks; the bounds from these inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    causal = True
+    q, k, v, o, lse, do = _bwd_inputs(4, 2048, 2048, 32, 8, 128, causal, train_seg,
+                                      seed=500, flash=flash)
+    run_dq, run_dkv, keep = _bwd_launchers(flash, q, k, v, o, lse, do, train_seg, causal)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    do_t = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_bwd():
+        torch.autograd.grad(out_t, (qt, kt, vt), grad_outputs=do_t, retain_graph=True)
+
+    def fwd():
+        flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=train_seg)
+
+    def plain_fwd():
+        flash.flash_attention_plain(q, k, v, causal=causal, segment_ids=train_seg)
+
+    def plain_bwd():
+        flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        segment_ids=train_seg)
+
+    out = {}
+    plain_bwd_ms = _time_ms(plain_bwd, iters=3, warmup=1)
+    lib_bwd_ms = _time_ms(sdpa_bwd, iters=10)
+    for name, run, plain_ms, lib, bound in (
+            ("flash_fwd", fwd, _time_ms(plain_fwd, iters=3, warmup=1), _time_ms(sdpa_fwd),
+             _flash_bound(q, k, train_seg, causal)),
+            ("flash_dq", run_dq, plain_bwd_ms, lib_bwd_ms,
+             _bwd_bound(q, k, train_seg, causal, "dq")),
+            ("flash_dkv", run_dkv, plain_bwd_ms, lib_bwd_ms,
+             _bwd_bound(q, k, train_seg, causal, "dkv"))):
+        ms = min(_time_ms(run, iters=10), _time_ms(run, iters=10))
+        bound_ms, bound_by = bound
+        log(f"[timing] {name} training shape B=4 S=2048 H=32 K=8 D=128 causal, "
+            f"packed rows ({int(train_seg.max())} segments max): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms{' (dq, dk, dv together)' if name != 'flash_fwd' else ''}, "
+            f"sdpa {'backward ' if name != 'flash_fwd' else ''}{lib:.4f} ms (one document "
+            f"per row), bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of bound ({SMI})")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib}
+    del keep, out_t
+    return out
+
+
+def _model_flops_per_token(cfg, seq: int) -> float:
+    """Matmul FLOPs per token of one forward (``bench.py``'s count: the
+    projections, causal attention at average context (S+1)/2, the MLP and
+    the lm head; 2 FLOPs per multiply-add)."""
+    d, hd = cfg.hidden_size, cfg.head_dim
+    nh, nkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+    qkvo = 2 * d * (nh * hd) * 2 + 2 * d * (nkv * hd) * 2
+    attn = 4 * ((seq + 1) / 2) * (nh * hd)
+    mlp = 3 * 2 * d * f
+    return cfg.num_layers * (qkvo + attn + mlp) + 2 * d * cfg.vocab_size
+
+
+def phase_train(flash) -> dict:
+    """Main path 3: ``train()`` over the launcher's arguments; returns the
+    path's launch counts."""
+    from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.train.trainer import train
+
+    config, device = build_config(TRAIN_ARGS)
+    cfg = config.model
+    require((cfg.name, cfg.num_layers, cfg.hidden_size, cfg.vocab_size, cfg.param_dtype,
+             cfg.attention_impl, cfg.loss_impl, cfg.remat, config.train.optimizer,
+             device) == ("llama3-8b", 32, 4096, 128256, "bfloat16", "flash", "fused",
+                         "full", "adafactor", "cuda"), config)
+    flash.reset_launches()  # this path's counts start here
+    summary = train(config, device=device)
+    launches = {"flash_fwd": flash.launches, "flash_dq": flash.launches_dq,
+                "flash_dkv": flash.launches_dkv}  # read right after the run
+    losses = summary["losses"]
+    require(summary["steps"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS, summary)
+    require(all(x == x and abs(x) != float("inf") for x in losses), losses)
+    require(losses[-1] < losses[0], losses)
+    layers = cfg.num_layers
+    require(launches["flash_dq"] == launches["flash_dkv"] == layers * TRAIN_STEPS,
+            launches)
+    # K1 runs in each layer's forward and again in its remat recompute.
+    require(launches["flash_fwd"] == 2 * layers * TRAIN_STEPS, launches)
+    step_s = summary["step_time_p50_s"]
+    tps = summary["tokens_per_sec_per_chip_p50"]
+    mfu = _model_flops_per_token(cfg, config.data.seq_len) * 3 * tps / H100_BF16_FLOPS
+    log(f"[train] llama3-8b ({summary['params_m'] / 1e3:.3f}B parameters, bf16 masters, "
+        f"adafactor, flash, fused loss, full remat) B=4 S=2048, {TRAIN_STEPS} steps: "
+        f"losses {[round(x, 4) for x in losses]}")
+    log(f"[train] step time p50 {step_s:.3f} s, {tps:.1f} tokens/s, MFU {mfu:.1%} "
+        f"(bench.py's flops per token x 3 over 989 TFLOP/s, remat not counted), "
+        f"peak device memory {summary['peak_device_memory_gib']:.1f} GiB, wall "
+        f"{summary['wall_s']:.1f} s ({SMI})")
+    log(f"[train] launches: K1 {launches['flash_fwd']} = 2 x {layers} layers x "
+        f"{TRAIN_STEPS} steps (forward + remat recompute), K2a {launches['flash_dq']} "
+        f"and K2b {launches['flash_dkv']} = {layers} x {TRAIN_STEPS}")
+    return launches
+
+
+def phase_train_parity(flash) -> None:
+    """One train step at full width, depth 2, B=1 through K1/K2a/K2b and
+    again with ``flash_attention`` rebound to the plain versions, from the
+    same parameters and batch."""
+    import dataclasses
+
+    from ditl_tpu_torch.config import DataConfig, TrainConfig
+    from ditl_tpu_torch.data.dataset import synthetic_dataset
+    from ditl_tpu_torch.data.loader import DataPipeline
+    from ditl_tpu_torch.data.tokenizer import ByteTokenizer
+    from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.models import llama
+    from ditl_tpu_torch.train.state import TrainState, make_optimizer
+    from ditl_tpu_torch.train.step import train_step
+
+    config, _ = build_config(TRAIN_ARGS)
+    cfg = dataclasses.replace(config.model, num_layers=2)
+    tcfg = TrainConfig(optimizer="adafactor", warmup_steps=1, total_steps=6)
+    dcfg = DataConfig(batch_size=1, seq_len=2048, synthetic=True)
+    batch = next(iter(DataPipeline(synthetic_dataset(256, 0), ByteTokenizer(), dcfg,
+                                   "cuda").epoch(0)))
+    base = llama.init_train_params(cfg, seed=1, device="cuda")
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        return tree.clone()
+
+    results = []
+    fwd, bwd = flash.flash_attention_fwd, flash.flash_attention_bwd
+    for plain in (False, True):
+        params = clone(base)
+        opt = make_optimizer(tcfg, params)
+        state = TrainState.create(params, opt)
+        if plain:  # looked up at call time: swapped for this step only
+            flash.flash_attention_fwd = flash.flash_attention_plain
+            flash.flash_attention_bwd = flash.flash_attention_bwd_plain
+        try:
+            flash.reset_launches()
+            m = train_step(state, batch, cfg, opt)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            counts = (flash.launches, flash.launches_dq, flash.launches_dkv)
+        finally:
+            flash.flash_attention_fwd, flash.flash_attention_bwd = fwd, bwd
+        require(counts == ((0, 0, 0) if plain else (4, 2, 2)), counts)
+        results.append((loss, gnorm))
+        del params, opt, state, m
+    (lk, gk), (lp, gp) = results
+    rel_l, rel_g = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+    log(f"[train] parity, one step at full width, 2 layers, B=1, S=2048: kernels loss "
+        f"{lk:.6f} grad_norm {gk:.6f}; plain loss {lp:.6f} grad_norm {gp:.6f}; relative "
+        f"differences {rel_l:.3e}, {rel_g:.3e}")
+    require(rel_l <= STEP_LOSS_TOL and rel_g <= STEP_GNORM_TOL, (rel_l, rel_g))
 
 
 def _paged_inputs(b, h, kv, d, ps, tail_len, lengths, starts, *, seed, n_pool=65,
@@ -847,6 +1180,8 @@ def phase_serve_continuous(gen, flash, paged) -> dict:
 
 
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -861,16 +1196,32 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_card()
     phase_build()
+    train_seg = _train_segments()
     errors = phase_kernels(flash)
+    errors.update(phase_bwd_kernels(flash, train_seg))
     errors.update(phase_paged_kernels(paged))
     timings = phase_timings(flash)
+    train_timings = phase_train_timings(flash, train_seg)
+    timings.update({k: v for k, v in train_timings.items() if k != "flash_fwd"})
     timings.update(phase_paged_timings(paged))
     gen, lockstep = phase_serve(flash, paged)
     continuous = phase_serve_continuous(gen, flash, paged)
-    # Launches per kernel: K1 on both serving paths, K3 on the continuous
-    # path; K4 has no serving path, so its count is the kernels phase's
-    # direct calls.
-    launches = {"flash_fwd": lockstep["flash_fwd"] + continuous["flash_fwd"],
+    # Free the serving weights and pools before the 8B training state.
+    del gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] after freeing the serving state: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    training = phase_train(flash)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_parity(flash)
+    # Launches per kernel: K1 on both serving paths and the training path,
+    # K2a/K2b on the training path, K3 on the continuous path; K4 has no
+    # serving path, so its count is the kernels phase's direct calls.
+    launches = {"flash_fwd": lockstep["flash_fwd"] + continuous["flash_fwd"]
+                + training["flash_fwd"],
+                "flash_dq": training["flash_dq"], "flash_dkv": training["flash_dkv"],
                 "paged_tail": continuous["paged_tail"],
                 "paged": errors.pop("paged_direct_launches")}
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
@@ -881,7 +1232,8 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched on its path")
         kernels.append({"name": name, **meta, "launches": launches[name],
                         "max_abs_err": errors[name], **timings[name]})
-    log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}")
+    log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}, "
+        f"training {training}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,25 +1,36 @@
-"""Model configuration for the PyTorch port.
+"""Configuration for the PyTorch port.
 
-A copy of ``ModelConfig`` from the JAX package's ``config.py``, cut to the
-fields the port's forward and serving read, with the same names and
-defaults, so a preset or an ``--override`` means the same model in both
-packages. The port never imports the JAX package, so it keeps its own copy
-(``tests/test_torch_imports.py`` holds the two together). The training-only
-fields (remat, backward-kernel knobs, loss head, pipeline) come with the
-training slice. ``num_experts``, ``lora_rank`` and ``kv_cache_dtype`` are
-kept so the features this slice does not run (MoE, LoRA, int8 caches) raise
-where they would be used.
+Copies of ``ModelConfig``, ``DataConfig`` and ``TrainConfig`` from the JAX
+package's ``config.py``, cut to the fields the port reads, with the same
+names, types and defaults, so a preset or an override means the same run in
+both packages. The port never imports the JAX package, so it keeps its own
+copies (``tests/test_torch_imports.py`` holds them to the originals field for
+field). ``Config`` groups the three sections the training launcher reads and
+``parse_overrides`` applies ``section.field=value`` overrides as the JAX
+launcher does.
+
+Fields whose features are not ported yet are kept so that setting them
+raises where the JAX package would act on them: MoE, LoRA and int8 caches in
+the model code; the MLP and projection backward kernels (K5, K6), the remat
+policies other than ``"none"``/``"full"``, checkpointing, validation, API
+eval, multi-step calls, HF import, telemetry, profiling and the fault drills
+here, at construction.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import json
+from dataclasses import dataclass, field, fields, replace
+from typing import Any, Sequence
 
-__all__ = ["ModelConfig", "parse_model_overrides"]
+__all__ = ["ModelConfig", "DataConfig", "TrainConfig", "Config",
+           "parse_model_overrides", "parse_overrides"]
 
 # attention_impl values the port runs; the others wait for later slices.
 PORTED_ATTENTION_IMPLS = ("xla", "flash")
+PORTED_REMAT = ("none", "full")
+_NOT_PORTED = " is not ported to PyTorch yet (see ROADMAP.md)"
 
 
 @dataclass(frozen=True)
@@ -46,15 +57,29 @@ class ModelConfig:
     tie_embeddings: bool = False
     # Qwen2-style bias on the q/k/v projections.
     attention_bias: bool = False
-    dtype: str = "bfloat16"  # compute dtype; the port also stores weights in it
+    dtype: str = "bfloat16"  # compute dtype (serving also stores weights in it)
+    param_dtype: str = "float32"  # training masters' dtype
     num_experts: int = 0  # MoE: > 0 raises (not ported)
     lora_rank: int = 0  # LoRA: > 0 raises (not ported)
-    # "xla" (plain PyTorch attention) | "flash" (the hand-written CUDA kernel
-    # for causal prefill, ops/flash_attention.py).
+    # "xla" (plain PyTorch attention) | "flash" (the hand-written CUDA
+    # kernels, ops/flash_attention.py: K1 forward, K2a/K2b backward).
     attention_impl: str = "xla"
     kv_cache_dtype: str = ""  # "" / "model"; "int8" raises (not ported)
+    # Rematerialization of the training forward: "none" | "full" (each
+    # decoder layer under torch.utils.checkpoint). "dots", "dots_inputs" and
+    # "attn" raise (not ported).
+    remat: str = "full"
     fused_gate_up: bool = False  # gate|up stored as one (D, 2F) matrix
     fused_qkv: bool = False  # q|k|v stored as one (D, (H + 2K) * hd) matrix
+    # The hand-written MLP backward (K5a/K5b) and projection backward (K6):
+    # only the defaults run; the others raise (not ported).
+    mlp_custom_vjp: bool = False
+    mlp_bwd_impl: str = "xla"
+    proj_bwd_impl: str = "xla"
+    # Loss head: "naive" materializes (B, S, V) f32 logits; "fused" computes
+    # the lm head + cross-entropy blockwise (ops/fused_ce.py).
+    loss_impl: str = "naive"
+    loss_block_tokens: int = 1024
 
     def __post_init__(self):
         if self.attention_impl not in PORTED_ATTENTION_IMPLS:
@@ -63,27 +88,183 @@ class ModelConfig:
                 f"PyTorch yet (ported: {', '.join(PORTED_ATTENTION_IMPLS)}); "
                 "see ROADMAP.md for the slice that brings it"
             )
+        if self.remat not in PORTED_REMAT + ("dots", "dots_inputs", "attn"):
+            raise ValueError(f"unknown remat policy {self.remat!r}")
+        if self.remat not in PORTED_REMAT:
+            raise NotImplementedError(f"remat={self.remat!r}" + _NOT_PORTED)
+        for knob, allowed in (("mlp_bwd_impl", ("xla", "pallas")),
+                              ("proj_bwd_impl", ("xla", "pallas")),
+                              ("loss_impl", ("naive", "fused"))):
+            if getattr(self, knob) not in allowed:
+                raise ValueError(f"unknown {knob} {getattr(self, knob)!r} "
+                                 f"({'|'.join(allowed)})")
+        if self.mlp_bwd_impl == "pallas" or self.mlp_custom_vjp:
+            raise NotImplementedError(
+                "the hand-written MLP backward (mlp_bwd_impl='pallas', "
+                "mlp_custom_vjp; K5a/K5b)" + _NOT_PORTED)
+        if self.proj_bwd_impl == "pallas":
+            raise NotImplementedError(
+                "the hand-written projection backward (proj_bwd_impl="
+                "'pallas'; K6)" + _NOT_PORTED)
+        if self.loss_block_tokens < 1:
+            raise ValueError("loss_block_tokens must be >= 1")
 
 
-def _coerce(field: dataclasses.Field, raw: str):
-    kind = field.type if isinstance(field.type, str) else field.type.__name__
-    if kind == "bool":
-        if raw.lower() in ("1", "true", "yes", "on"):
+@dataclass(frozen=True)
+class DataConfig:
+    """Data pipeline (the JAX package's ``DataConfig``, every field)."""
+
+    dataset_name: str = "imdb"
+    dataset_split: str = "train[:1%]"
+    text_column: str = "text"
+    label_column: str = "label"
+    batch_size: int = 4  # global batch size
+    seq_len: int = 512
+    shuffle: bool = True
+    seed: int = 0
+    drop_last: bool = False
+    # Held-out fraction for validation: > 0 raises (validation not ported).
+    eval_fraction: float = 0.0
+    num_epochs: int = 3
+    tokenizer: str = "byte"  # "byte" | HF tokenizer name (raises)
+    pack_sequences: bool = True
+    prefetch: int = 2  # batches the producer thread keeps ready
+    synthetic: bool = False  # True => generated data, no HF hub
+    synthetic_examples: int = 256
+    # Max seconds the step loop may wait for one batch: > 0 raises (the
+    # data-wait timeout is not ported; the port waits).
+    data_wait_timeout_s: float = 0.0
+
+    def __post_init__(self):
+        if self.eval_fraction > 0:
+            raise NotImplementedError("data.eval_fraction (validation)" + _NOT_PORTED)
+        if self.data_wait_timeout_s > 0:
+            raise NotImplementedError("data.data_wait_timeout_s" + _NOT_PORTED)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training loop (the JAX package's ``TrainConfig``, cut to the fields
+    the port reads or rejects)."""
+
+    # "adamw" | "adafactor"; "lion" and "sgd" raise (not ported).
+    optimizer: str = "adamw"
+    learning_rate: float = 3e-4
+    warmup_steps: int = 10
+    total_steps: int = 100
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip_norm: float = 1.0
+    grad_accum_steps: int = 1
+    adam_mu_dtype: str = "float32"  # Adam first-moment storage dtype
+    steps_per_call: int = 1  # > 1 raises (multi-step calls not ported)
+    log_every: int = 10
+    metrics_file: str = ""  # "" => no JSONL scalar stream
+    eval_every: int = 0  # > 0 raises (API eval not ported)
+    val_every: int = 0  # > 0 raises (validation not ported)
+    checkpoint_dir: str = ""  # set raises (checkpointing not ported)
+    # Fault drills: non-zero raises (not ported).
+    fault_inject_step: int = 0
+    fault_kill_step: int = 0
+    fault_nan_step: int = 0
+    telemetry_dir: str = ""  # set raises (event journal not ported)
+    init_from_hf: str = ""  # set raises (HF import not ported)
+    seed: int = 42
+    profile_dir: str = ""  # set raises (profiling not ported)
+
+    def __post_init__(self):
+        unported = {
+            "checkpoint_dir": "checkpointing", "val_every": "validation",
+            "eval_every": "API eval", "init_from_hf": "HF checkpoint import",
+            "telemetry_dir": "the event journal", "profile_dir": "profiling",
+            "fault_inject_step": "the fault drills",
+            "fault_kill_step": "the fault drills",
+            "fault_nan_step": "the fault drills",
+        }
+        for name, what in unported.items():
+            if getattr(self, name):
+                raise NotImplementedError(f"train.{name} ({what})" + _NOT_PORTED)
+        if self.steps_per_call > 1:
+            raise NotImplementedError(
+                "train.steps_per_call > 1 (multi-step calls)" + _NOT_PORTED)
+        if self.optimizer not in ("adamw", "adafactor", "lion", "sgd"):
+            raise ValueError(f"unknown optimizer {self.optimizer!r} "
+                             "(adamw|adafactor|lion|sgd)")
+        if self.grad_accum_steps < 1:
+            raise ValueError("grad_accum_steps must be >= 1")
+
+
+@dataclass(frozen=True)
+class Config:
+    """The sections the training launcher reads."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+
+def _coerce(value: str, target_type: Any) -> Any:
+    """Coerce a CLI string to the dataclass field's type (the JAX
+    launcher's rules)."""
+    if target_type in ("bool", bool):
+        if value.lower() in ("1", "true", "yes", "on"):
             return True
-        if raw.lower() in ("0", "false", "no", "off"):
+        if value.lower() in ("0", "false", "no", "off"):
             return False
-        raise ValueError(f"{field.name} wants a boolean, got {raw!r}")
-    if kind == "int":
-        return int(raw)
-    if kind == "float":
-        return float(raw)
-    return raw
+        raise ValueError(f"not a bool: {value!r}")
+    for caster in (int, float):
+        if target_type in (caster.__name__, caster):
+            return caster(value)
+    if value.lower() == "none":
+        return None
+    return value
+
+
+# Sections of the JAX package's Config the port has no copy of yet.
+_UNPORTED_SECTIONS = ("runtime", "mesh", "api", "gateway", "autoscale", "kvtier",
+                      "usage", "adapter", "chaos", "bulk", "telemetry")
+
+
+def parse_overrides(config: Config, overrides: Sequence[str]) -> Config:
+    """Apply ``section.key=value`` overrides, staged and applied once per
+    section so validation sees only the final combination."""
+    staged: dict[str, dict[str, Any]] = {}
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override must be section.key=value, got {item!r}")
+        path, value = item.split("=", 1)
+        parts = path.split(".")
+        if len(parts) != 2:
+            raise ValueError(f"override path must be section.key, got {path!r}")
+        section_name, key = parts
+        if section_name in _UNPORTED_SECTIONS:
+            raise NotImplementedError(f"config section {section_name!r}" + _NOT_PORTED)
+        if not hasattr(config, section_name):
+            raise ValueError(f"unknown config section {section_name!r}")
+        section = getattr(config, section_name)
+        matching = [f for f in fields(section) if f.name == key]
+        if not matching:
+            raise ValueError(f"unknown key {key!r} in section {section_name!r} "
+                             "(or not ported to PyTorch yet, see ROADMAP.md)")
+        staged.setdefault(section_name, {})[key] = _coerce(value, matching[0].type)
+    for section_name, kv in staged.items():
+        config = replace(
+            config, **{section_name: replace(getattr(config, section_name), **kv)}
+        )
+    return config
 
 
 def parse_model_overrides(cfg: ModelConfig, overrides: list[str]) -> ModelConfig:
     """Apply ``key=value`` overrides (the server's ``--override``), typed by
-    the field they name."""
-    by_name = {f.name: f for f in dataclasses.fields(ModelConfig)}
+    the field they name; ``model.`` prefixes are accepted."""
+    by_name = {f.name: f for f in fields(ModelConfig)}
     changes = {}
     for item in overrides:
         key, sep, raw = item.partition("=")
@@ -95,5 +276,5 @@ def parse_model_overrides(cfg: ModelConfig, overrides: list[str]) -> ModelConfig
                 f"bad override {item!r}: want FIELD=VALUE with FIELD one of "
                 f"ModelConfig's fields"
             )
-        changes[key] = _coerce(by_name[key], raw.strip())
-    return dataclasses.replace(cfg, **changes)
+        changes[key] = _coerce(raw.strip(), by_name[key].type)
+    return replace(cfg, **changes)

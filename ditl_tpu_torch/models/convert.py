@@ -2,9 +2,14 @@
 
 ``params_from_jax`` takes the JAX ``init_params`` layout as nested dicts of
 numpy arrays (layers stacked on axis 0) — what ``jax.device_get`` of the JAX
-tree returns — and produces the port's tensors with the storage rules of
-``models/llama.py``. This is the bridge the parity tests run through; the
-Hugging Face import and export wait for a later slice.
+tree returns — and produces the port's serving tensors with the storage rules of
+``models/llama.py``. ``train_params_from_jax`` turns the same tree into the
+port's training masters, leaf for leaf in ``cfg.param_dtype`` (the JAX tree's
+own storage), and ``params_to_numpy`` goes the other way, so the tests can
+hold updated parameters leaf by leaf. Optimizer state is never converted:
+both packages' optimizers start from a fresh state. This is the bridge the
+parity tests run through; the Hugging Face import and export wait for a
+later slice.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from ditl_tpu_torch.config import ModelConfig
 from ditl_tpu_torch.models.llama import Params, check_supported, torch_dtype
 from ditl_tpu_torch.utils.device import resolve_device
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "train_params_from_jax", "params_to_numpy"]
 
 _F32_KEYS = ("attn_norm", "mlp_norm", "final_norm")  # read in f32 by the forward
 
@@ -58,3 +63,30 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
         head = _tensor(tree["lm_head"]["kernel"], cd, dev).float()
     out["lm_head"] = {"kernel": head}
     return out
+
+
+def train_params_from_jax(tree: Mapping, cfg: ModelConfig,
+                          device: str | torch.device = "cuda") -> Params:
+    """JAX parameter tree (numpy leaves) -> training masters: the same tree,
+    every leaf in ``cfg.param_dtype`` (no separate head when tied)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    pd = torch_dtype(cfg.param_dtype)
+    if "lora" in tree["layers"] or "moe" in tree["layers"]:
+        raise NotImplementedError(
+            "LoRA and MoE trees are not ported to PyTorch yet (see ROADMAP.md)"
+        )
+
+    def convert(node):
+        if isinstance(node, Mapping) and not ("q" in node and "scale" in node):
+            return {k: convert(v) for k, v in node.items()}
+        return _tensor(node, pd, dev)
+
+    return convert(tree)
+
+
+def params_to_numpy(params: Mapping) -> dict:
+    """The port's parameter tree -> nested dicts of f32 numpy arrays."""
+    if isinstance(params, Mapping):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    return params.detach().float().cpu().numpy()

@@ -1,4 +1,4 @@
-"""Llama-3.1-family decoder (inference forward) in PyTorch.
+"""Llama-3.1-family decoder (inference and training forwards) in PyTorch.
 
 Counterpart of the JAX package's ``models/llama.py``. Parameters are a nested
 dict of tensors in the JAX package's ``init_params`` layout: layers stacked on
@@ -18,9 +18,15 @@ casts them to the compute dtype at every use:
   It needs full-f32 GEMMs on the card (``torch.backends.cuda.matmul.
   allow_tf32 = False``, PyTorch's default).
 
-Only the inference forward is ported; it runs under ``torch.no_grad`` (remat,
-which only shapes a backward, comes with the training slice). MoE, LoRA,
-int8 caches and quantized weights raise.
+The inference ``forward`` runs under ``torch.no_grad``. ``train_forward`` is
+the differentiable forward the training loss runs (``train/step.py``): it
+takes the layers' weights one dict per layer (each layer's slices of the
+stacked masters, so the backward writes each layer's gradients into that
+layer's own tensors instead of a zero-filled copy of the whole stack) and
+wraps each decoder layer in ``torch.utils.checkpoint`` under
+``cfg.remat == "full"``. Training masters keep the JAX tree exactly
+(``init_train_params``, every leaf in ``cfg.param_dtype``, no separate f32
+head). MoE, LoRA, int8 caches and quantized weights raise.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ from ditl_tpu_torch.ops.attention import dot_product_attention
 
 Params = dict[str, Any]
 
-__all__ = ["init_params", "forward", "logits_from_hidden", "rms_norm",
-           "rope_frequencies", "apply_rope", "check_supported", "torch_dtype"]
+__all__ = ["init_params", "init_train_params", "forward", "train_forward",
+           "head_weights", "logits_from_hidden", "rms_norm", "rope_frequencies",
+           "apply_rope", "check_supported", "torch_dtype"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -68,17 +75,15 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device: str | torch.device = "cuda") -> Params:
-    """Seed-initialised weights in the port's layout (the JAX ``init_params``
-    distributions; a torch generator cannot draw the JAX numbers). Drawn on
-    ``device`` one layer at a time, so an 8B model never holds an f32 copy of
-    more than one layer."""
+def _init_tree(cfg: ModelConfig, seed: int, device, weight_dtype: torch.dtype,
+               norm_dtype: torch.dtype) -> Params:
+    """The JAX ``init_params`` tree (no ``lm_head`` when tied), drawn with a
+    torch generator one layer at a time, so an 8B model never holds an f32
+    copy of more than one layer."""
     from ditl_tpu_torch.utils.device import resolve_device
 
     check_supported(cfg)
     dev = resolve_device(device)
-    cd = torch_dtype(cfg.dtype)
     d, hd = cfg.hidden_size, cfg.head_dim
     nh, nkv, f, n_layers = (cfg.num_heads, cfg.num_kv_heads,
                             cfg.intermediate_size, cfg.num_layers)
@@ -86,11 +91,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         raise ValueError(f"num_heads {nh} must be divisible by num_kv_heads {nkv}")
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def normal(shape, std, dtype=cd):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(weight_dtype)
 
     def stacked(shape, fan_in):
-        out = torch.empty((n_layers, *shape), dtype=cd, device=dev)
+        out = torch.empty((n_layers, *shape), dtype=weight_dtype, device=dev)
         for i in range(n_layers):
             out[i] = normal(shape, 1.0 / math.sqrt(fan_in))
         return out
@@ -104,32 +109,52 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     attn["wo"] = stacked((nh * hd, d), nh * hd)
     if cfg.attention_bias:
         attn.update({
-            "bq": torch.zeros((n_layers, nh * hd), dtype=cd, device=dev),
-            "bk": torch.zeros((n_layers, nkv * hd), dtype=cd, device=dev),
-            "bv": torch.zeros((n_layers, nkv * hd), dtype=cd, device=dev),
+            "bq": torch.zeros((n_layers, nh * hd), dtype=weight_dtype, device=dev),
+            "bk": torch.zeros((n_layers, nkv * hd), dtype=weight_dtype, device=dev),
+            "bv": torch.zeros((n_layers, nkv * hd), dtype=weight_dtype, device=dev),
         })
     if cfg.fused_gate_up:
         mlp = {"w_gu": stacked((d, 2 * f), d), "w_down": stacked((f, d), f)}
     else:
         mlp = {"w_gate": stacked((d, f), d), "w_up": stacked((d, f), d),
                "w_down": stacked((f, d), f)}
-    ones = torch.ones((n_layers, d), dtype=torch.float32, device=dev)
-    embedding = normal((cfg.vocab_size, d), 0.02)
-    if cfg.tie_embeddings:
-        head = embedding.float().T.contiguous()
-    else:
-        head = normal((d, cfg.vocab_size), 1.0 / math.sqrt(d)).float()
-    return {
-        "embed": {"embedding": embedding},
+    ones = torch.ones((n_layers, d), dtype=norm_dtype, device=dev)
+    tree: Params = {
+        "embed": {"embedding": normal((cfg.vocab_size, d), 0.02)},
         "layers": {
             "attn_norm": {"scale": ones},
             "attn": attn,
             "mlp_norm": {"scale": ones.clone()},
             "mlp": mlp,
         },
-        "final_norm": {"scale": torch.ones((d,), dtype=torch.float32, device=dev)},
-        "lm_head": {"kernel": head},
+        "final_norm": {"scale": torch.ones((d,), dtype=norm_dtype, device=dev)},
     }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"kernel": normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))}
+    return tree
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device: str | torch.device = "cuda") -> Params:
+    """Seed-initialised serving weights in the port's layout (the JAX
+    ``init_params`` distributions; a torch generator cannot draw the JAX
+    numbers): weights in ``cfg.dtype``, norms and the head in f32."""
+    tree = _init_tree(cfg, seed, device, torch_dtype(cfg.dtype), torch.float32)
+    emb = tree["embed"]["embedding"]
+    if cfg.tie_embeddings:
+        head = emb.float().T.contiguous()
+    else:
+        head = tree.pop("lm_head")["kernel"].float()
+    tree["lm_head"] = {"kernel": head}
+    return tree
+
+
+def init_train_params(cfg: ModelConfig, *, seed: int = 0,
+                      device: str | torch.device = "cuda") -> Params:
+    """Seed-initialised training masters: the JAX ``init_params`` tree with
+    every leaf in ``cfg.param_dtype``."""
+    pd = torch_dtype(cfg.param_dtype)
+    return _init_tree(cfg, seed, device, pd, pd)
 
 
 # ---------------------------------------------------------------------------
@@ -326,3 +351,60 @@ def logits_from_hidden(params: Params, x: torch.Tensor) -> torch.Tensor:
     """f32 logits from final-normed hidden states: exact products of the
     compute-dtype values, summed in f32 (see the module note)."""
     return x.float() @ params["lm_head"]["kernel"]
+
+
+def head_weights(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The (D, V) lm-head matrix of a training tree (the transposed
+    embedding when tied)."""
+    if cfg.tie_embeddings:
+        return params["embed"]["embedding"].t()
+    return params["lm_head"]["kernel"]
+
+
+def _train_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, segment_ids: torch.Tensor | None
+                 ) -> torch.Tensor:
+    return _decoder_layer(
+        lp, x, cfg=cfg, positions=positions, segment_ids=segment_ids,
+        layer_cache=None, cache_index=0, attn_mask=None, prefill_causal=False,
+        paged=None,
+    )
+
+
+def train_forward(
+    layers: list[Params],
+    top: Params,
+    input_ids: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor | None = None,
+    segment_ids: torch.Tensor | None = None,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """Differentiable forward: token ids (B, S) -> f32 logits (B, S, V), or
+    the final-normed hidden states with ``return_hidden=True`` (the fused
+    loss applies the head itself). ``layers`` holds one dict per decoder
+    layer (``{"attn_norm": {"scale"}, "attn": {...}, ...}`` without the
+    layer axis); ``top`` holds ``embed``, ``final_norm`` and, untied,
+    ``lm_head``. Weights arrive already in the compute dtype (the step casts
+    f32 masters once, as the reference's step does)."""
+    check_supported(cfg)
+    cd = torch_dtype(cfg.dtype)
+    b, s = input_ids.shape
+    if positions is None:
+        positions = torch.arange(s, device=input_ids.device).expand(b, s)
+    x = top["embed"]["embedding"].to(cd)[input_ids.long()]
+    for lp in layers:
+        if cfg.remat == "full":
+            from torch.utils.checkpoint import checkpoint
+
+            x = checkpoint(_train_layer, lp, x, cfg, positions, segment_ids,
+                           use_reentrant=False)
+        else:
+            x = _train_layer(lp, x, cfg, positions, segment_ids)
+    x = rms_norm(x, top["final_norm"]["scale"], cfg.rms_norm_eps)
+    if return_hidden:
+        return x
+    # Exact products of the compute-dtype values, summed in f32, as the
+    # reference's f32-output logits (autograd rounds the gradients back).
+    return x.float() @ head_weights(top, cfg).to(cd).float()

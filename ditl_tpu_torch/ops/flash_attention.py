@@ -1,16 +1,31 @@
-"""FlashAttention forward: the hand-written CUDA kernel and its plain version.
+"""FlashAttention: the hand-written CUDA kernels and their plain versions.
 
-Counterpart of the JAX package's ``ops/flash_attention.py`` (forward only).
-The kernel (``csrc/flash_fwd.cu``) replaces the Pallas ``_fwd_kernel``; its
-header says how it is laid out for Hopper.
+Counterpart of the JAX package's ``ops/flash_attention.py``. The kernels
+replace the Pallas ones; each source's header says how it is laid out for
+Hopper:
 
-- ``flash_attention_fwd`` is the wrapper: it checks its inputs and, for CUDA
-  tensors, launches the kernel or raises. Only for CPU tensors does it run
-  ``flash_attention_plain``. ``launches`` counts kernel launches.
+- K1 ``csrc/flash_fwd.cu`` replaces ``_fwd_kernel``;
+- K2a (``ditl_flash_bwd_dq_bf16``) and K2b (``ditl_flash_bwd_dkv_bf16``) in
+  ``csrc/flash_bwd.cu`` replace ``_dq_kernel`` and ``_dkv_kernel``.
+
+- ``flash_attention_fwd`` / ``flash_attention_bwd`` are the wrappers: they
+  check their inputs and, for CUDA tensors, launch the kernels or raise.
+  Only for CPU tensors do they run ``flash_attention_plain`` /
+  ``flash_attention_bwd_plain``. ``launches``, ``launches_dq`` and
+  ``launches_dkv`` count kernel launches.
 - ``flash_attention_plain`` computes what ``_fwd_kernel`` computes, in one
   pass instead of blockwise: q pre-scaled in f32, the q.k product in f32, the
   finite ``NEG_INF`` mask, p cast to v's dtype before the p.v product (f32
   accumulation), rows with a zero normaliser give 0, lse = m + log(l).
+- ``flash_attention_bwd_plain`` computes the reference backward's formulas
+  (``_bwd_impl``) in one pass, in f32: p = exp(s - lse) from the saved lse,
+  delta = rowsum(do * o), ds = p (do.v^T - delta), dq = scale ds.k,
+  dk = ds^T.(scale q), dv = p^T.do, GQA summed over the group. It is not
+  autograd of the plain forward.
+- ``flash_attention`` is differentiable: a ``torch.autograd.Function`` saves
+  q, k, v, o and lse from the forward and calls ``flash_attention_bwd``.
+  Forward and backward look the wrappers up at call time, so one forward
+  launches K1 once and one backward K2a and K2b once each.
 
 Layouts are the JAX package's: q (B, Sq, H, D), k/v (B, Skv, K, D),
 segment ids (B, S) int32, o like q, lse (B, H, Sq) f32 (the TPU kernel's
@@ -26,20 +41,24 @@ import torch
 from ditl_tpu_torch.ops.attention import NEG_INF
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
-           "HEAD_DIMS", "launches", "reset_launches"]
+           "flash_attention_bwd", "flash_attention_bwd_plain", "HEAD_DIMS",
+           "launches", "launches_dq", "launches_dkv", "reset_launches"]
 
 HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
 
-# Kernel launches since the last reset_launches(); counted where the kernel
-# is launched and nowhere else.
+# Kernel launches since the last reset_launches(); counted where each kernel
+# is launched and nowhere else: K1, K2a, K2b.
 launches = 0
+launches_dq = 0
+launches_dkv = 0
 
 _fn = None
+_bwd_fns = None
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_dq, launches_dkv
+    launches = launches_dq = launches_dkv = 0
 
 
 def _kernel():
@@ -53,6 +72,22 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _bwd_kernels():
+    global _bwd_fns
+    if _bwd_fns is None:
+        from ditl_tpu_torch.ops.cuda_build import load_library
+
+        lib = load_library("flash_bwd.cu")
+        dq_fn, dkv_fn = lib.ditl_flash_bwd_dq_bf16, lib.ditl_flash_bwd_dkv_bf16
+        dq_fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p]
+        dkv_fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p]
+        dq_fn.restype = dkv_fn.restype = ctypes.c_int
+        _bwd_fns = (dq_fn, dkv_fn)
+    return _bwd_fns
 
 
 def _check(q, k, v, segment_ids) -> None:
@@ -80,6 +115,45 @@ def _check(q, k, v, segment_ids) -> None:
             raise ValueError("segment_ids must be on q's device")
 
 
+def _check_cuda(segment_ids, **tensors) -> int | None:
+    """What the CUDA kernels take: bf16, contiguous, 16-byte aligned,
+    head_dim in ``HEAD_DIMS``, int32 segment ids. Returns the segment ids'
+    pointer (None without them)."""
+    q = tensors["q"]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(
+            f"the CUDA flash kernel takes bfloat16, got {q.dtype} (use "
+            "attention_impl='xla' for other dtypes)"
+        )
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"the CUDA flash kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {q.shape[3]}")
+    for name, t in tensors.items():
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if segment_ids is None:
+        return None
+    if segment_ids.dtype != torch.int32 or not segment_ids.is_contiguous():
+        raise ValueError("segment_ids must be contiguous int32")
+    return segment_ids.data_ptr()
+
+
+def _mask(s_q, s_kv, causal, segment_ids, device):
+    """(B or 1, 1, 1, Sq, Skv) boolean mask (True = attend), or None."""
+    mask = None
+    if causal:
+        mask = torch.ones(s_q, s_kv, dtype=torch.bool, device=device).tril()
+        mask = mask[None, None, None]
+    if segment_ids is not None:
+        seg = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None, None]
+        mask = seg if mask is None else mask & seg
+    return mask
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -94,13 +168,7 @@ def flash_attention_plain(
     groups = h // kv_heads
     qf = q.float().reshape(b, s_q, kv_heads, groups, d) * d**-0.5
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
-    mask = None
-    if causal:
-        mask = torch.ones(s_q, s_kv, dtype=torch.bool, device=q.device).tril()
-        mask = mask[None, None, None]
-    if segment_ids is not None:
-        seg = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None, None]
-        mask = seg if mask is None else mask & seg
+    mask = _mask(s_q, s_kv, causal, segment_ids, q.device)
     if mask is not None:
         s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
@@ -128,26 +196,9 @@ def flash_attention_fwd(
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      segment_ids=segment_ids)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    seg_ptr = _check_cuda(segment_ids, q=q, k=k, v=v)
     b, s_q, h, d = q.shape
     s_kv, kv_heads = k.shape[1], k.shape[2]
-    if q.dtype != torch.bfloat16:
-        raise ValueError(
-            f"the CUDA flash kernel takes bfloat16, got {q.dtype} (use "
-            "attention_impl='xla' for other dtypes)"
-        )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    seg_ptr = None
-    if segment_ids is not None:
-        if segment_ids.dtype != torch.int32 or not segment_ids.is_contiguous():
-            raise ValueError("segment_ids must be contiguous int32")
-        seg_ptr = segment_ids.data_ptr()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -163,6 +214,109 @@ def flash_attention_fwd(
     return o, lse
 
 
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    segment_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2a and K2b: returns (dq, dk, dv)."""
+    b, s_q, h, d = q.shape
+    s_kv, kv_heads = k.shape[1], k.shape[2]
+    groups = h // kv_heads
+    scale = d**-0.5
+    qs = q.float().reshape(b, s_q, kv_heads, groups, d) * scale
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, s_q, kv_heads, groups, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qs, kf)
+    mask = _mask(s_q, s_kv, causal, segment_ids, q.device)
+    if mask is not None:
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - lse.float().reshape(b, kv_heads, groups, s_q)[..., None])
+    delta = (dof * o.float().reshape(b, s_q, kv_heads, groups, d)).sum(-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = scale * torch.einsum("bkgqs,bskd->bqkgd", ds, kf)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qs)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return dq.reshape(b, s_q, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    segment_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the forward's inputs, its o and lse, and the
+    output's gradient ``do``. CUDA tensors launch K2a then K2b (bf16,
+    contiguous, head_dim in ``HEAD_DIMS``) or raise; CPU tensors run the
+    plain version."""
+    global launches_dq, launches_dkv
+    _check(q, k, v, segment_ids)
+    b, s_q, h, d = q.shape
+    s_kv, kv_heads = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s_q):
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must be "
+                         f"like q {tuple(q.shape)}, lse {tuple(lse.shape)} "
+                         f"(B, H, Sq)")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         segment_ids=segment_ids)
+    seg_ptr = _check_cuda(segment_ids, q=q, k=k, v=v, o=o, do=do)
+    if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError("lse must be contiguous float32 on q's device")
+    # delta = rowsum(do * o) in f32, outside the kernels as in the reference.
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dq_fn, dkv_fn = _bwd_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), seg_ptr)
+        sizes = (b, s_q, s_kv, h, kv_heads, d, int(causal), d**-0.5, stream)
+        err = dq_fn(*common, dq.data_ptr(), *sizes)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd dq kernel launch failed: CUDA error {err}")
+        launches_dq += 1
+        err = dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd dkv kernel launch failed: CUDA error {err}")
+        launches_dkv += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2a + K2b backward (the reference's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     segment_ids=segment_ids)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse, segment_ids)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, segment_ids = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         causal=ctx.causal, segment_ids=segment_ids)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -171,5 +325,6 @@ def flash_attention(
     causal: bool = True,
     segment_ids: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """FlashAttention with GQA and segment masks on the (B, S, H, D) layout."""
-    return flash_attention_fwd(q, k, v, causal=causal, segment_ids=segment_ids)[0]
+    """Differentiable FlashAttention with GQA and segment masks on the
+    (B, S, H, D) layout."""
+    return _FlashAttention.apply(q, k, v, segment_ids, causal)

@@ -1,0 +1,156 @@
+"""Where one training step's time goes on the card.
+
+    python -m ditl_tpu_torch.tools.profile_train [launcher arguments ...]
+
+Takes the launcher's arguments (default: ``chip_smoke.py``'s training path,
+``llama3-8b`` at full width and depth, B=4, S=2048), builds the train state,
+runs ``--warmup`` steps, then:
+
+1. times ``--steps`` steps with the host clock after ``synchronize``, split
+   into forward + backward and the optimizer (global norm, clip, update);
+2. traces ``--steps`` more steps with ``torch.profiler`` and sums the
+   device time of every kernel by category (the flash kernels K1/K2a/K2b,
+   GEMMs, the rest), against the traced wall time: the device's idle share
+   is what the kernels leave of it.
+
+Prints one JSON object as its last line. Needs the card; it does not fall
+back to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+__all__ = ["main"]
+
+DEFAULT_ARGS = [
+    "--preset", "llama3-8b", "model.param_dtype=bfloat16", "model.attention_impl=flash",
+    "model.loss_impl=fused", "model.loss_block_tokens=4096", "model.remat=full",
+    "train.optimizer=adafactor", "train.warmup_steps=1", "train.total_steps=20",
+    "data.synthetic=true", "data.batch_size=4", "data.seq_len=2048",
+]
+CATEGORIES = (  # (category, substrings of kernel names), first match wins
+    ("K1 flash_fwd", ("flash_fwd_kernel",)),
+    ("K2a flash_dq", ("flash_bwd_dq_kernel",)),
+    ("K2b flash_dkv", ("flash_bwd_dkv_kernel",)),
+    ("GEMM", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")),
+    ("elementwise/reduce", ("elementwise", "reduce", "vectorized", "unrolled",
+                            "index", "scatter", "gather", "softmax", "cat", "copy",
+                            "fill", "where", "pow", "norm")),
+)
+
+
+def _category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(prog="ditl_tpu_torch.tools.profile_train")
+    parser.add_argument("--warmup", type=int, default=2)
+    parser.add_argument("--steps", type=int, default=3)
+    args, rest = parser.parse_known_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: needs a CUDA device", file=sys.stderr)
+        return 1
+    from ditl_tpu_torch.data.dataset import load_text_dataset
+    from ditl_tpu_torch.data.loader import DataPipeline
+    from ditl_tpu_torch.data.tokenizer import get_tokenizer
+    from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.models import llama
+    from ditl_tpu_torch.train.state import TrainState, global_norm, make_optimizer
+    from ditl_tpu_torch.train.step import cast_for_compute, loss_fn, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config, device = build_config(rest or DEFAULT_ARGS)
+    cfg = config.model
+    pipe = DataPipeline(load_text_dataset(config.data), get_tokenizer(config.data.tokenizer),
+                        config.data, device)
+    batches = iter(pipe)
+    params = llama.init_train_params(cfg, seed=config.train.seed, device=device)
+    opt = make_optimizer(config.train, params)
+    state = TrainState.create(params, opt)
+    for _ in range(args.warmup):
+        train_step(state, next(batches), cfg, opt)
+    torch.cuda.synchronize()
+
+    # 1. Host clock around each phase, synchronised.
+    fb, upd = [], []
+    cast = cast_for_compute(cfg)
+    for _ in range(args.steps):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        layers, top = state.model_views(cast)
+        loss, _ = loss_fn(layers, top, batch, cfg)
+        loss.backward()
+        del layers, top, loss
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            global_norm(state.leaves)
+            opt.step(state.leaves, state.opt_state)
+            for leaf in state.leaves:
+                for p in leaf.parts:
+                    p.grad = None
+        torch.cuda.synchronize()
+        fb.append(t1 - t0)
+        upd.append(time.perf_counter() - t1)
+
+    # 2. Kernel time by category under torch.profiler.
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = [next(batches) for _ in range(args.steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in steps:
+            train_step(state, batch, cfg, opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_cat: dict[str, float] = {}
+    top: list[tuple[float, str, int]] = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / 1e3 / args.steps  # us -> ms per step
+        if ms <= 0:
+            continue
+        by_cat[_category(evt.key)] = by_cat.get(_category(evt.key), 0.0) + ms
+        top.append((ms, evt.key, evt.count // args.steps))
+    busy = sum(by_cat.values())
+    step_ms = wall / args.steps * 1e3
+    import subprocess
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    print(smi)
+    print(f"phases (host clock, synchronised): forward+backward "
+          f"{[round(x, 4) for x in fb]} s, optimizer {[round(x, 4) for x in upd]} s")
+    print(f"traced: {step_ms:.1f} ms per step, kernels {busy:.1f} ms per step, "
+          f"device idle {1 - busy / step_ms:.1%}")
+    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        print(f"  {cat:20s} {ms:9.2f} ms per step ({ms / step_ms:.1%} of the step)")
+    for ms, name, n in sorted(top, reverse=True)[:25]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {name[:110]}")
+    print(json.dumps({
+        "device": smi, "config": {"model": cfg.name, "layers": cfg.num_layers,
+                                  "batch": config.data.batch_size,
+                                  "seq": config.data.seq_len},
+        "forward_backward_s": fb, "optimizer_s": upd, "traced_step_ms": step_ms,
+        "kernel_ms_per_step": by_cat, "device_idle_share": 1 - busy / step_ms,
+        "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

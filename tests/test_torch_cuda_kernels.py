@@ -10,7 +10,11 @@ installed (``--noconftest``: ``tests/conftest.py`` imports jax):
 Tolerances: bf16 outputs at 2e-2 (the kernels round p to bf16 against their
 running row max, the plain versions against the final max; a few bf16 ulps),
 f32 log-sum-exp at 1e-3 (scaling before or after the q.k product, and the
-sums' order).
+sums' order). The backward kernels (K2a, K2b) against the plain backward:
+each gradient within ``BWD_TOL`` of its own largest magnitude, because they
+round p and ds to bf16 for the three second products (p.do, ds.k, ds.q)
+that the plain version computes in f32 (about 2^-9 relative per term,
+averaging out over the sums), and round the outputs to bf16.
 """
 
 import pytest
@@ -21,6 +25,8 @@ from ditl_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from ditl_tpu_torch.ops import paged_attention as tpa  # noqa: E402
 
 torch.set_num_threads(1)
+
+BWD_TOL = 2e-2
 
 
 @pytest.fixture
@@ -141,3 +147,80 @@ def test_paged_kernels_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="int32"):
         tpa.paged_attention(q, kp, vp, table.long(), lens)
     assert (tpa.launches, tpa.launches_tail) == (0, 0)
+
+
+def _bwd_inputs(cuda, b, s_q, s_kv, h, kv, d, causal, seg, seed=0):
+    """Forward through K1 (its o and lse), then a random upstream gradient."""
+    q, k, v, _ = _inputs(cuda, b, s_q, s_kv, h, kv, d, seed=seed)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    do = torch.randn(o.shape, generator=g, device=cuda).bfloat16()
+    return q, k, v, o, lse, do
+
+
+def _packed_segments(cuda, b, s, n_docs):
+    """Rows of ``n_docs`` packed documents of uneven lengths, 1-based."""
+    seg = torch.ones(b, s, dtype=torch.int32)
+    for row in range(b):
+        cuts = torch.linspace(0, s, n_docs + 1)[1:-1].long() + 7 * row
+        for c in cuts:
+            seg[row, int(c):] += 1
+    return seg.to(cuda).contiguous()
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("b,s_q,s_kv,h,kv,d,causal,docs", [
+    (1, 2048, 2048, 32, 8, 128, True, 4),  # a training row, packed documents
+    (2, 333, 333, 8, 2, 64, True, 3),  # S not a multiple of 64, head_dim 64
+    (2, 200, 333, 8, 8, 128, False, 0),  # MHA, non-causal, Sq != Skv
+    (1, 130, 130, 4, 4, 32, True, 0),  # head_dim 32
+])
+def test_flash_bwd_kernels_match_plain(cuda, b, s_q, s_kv, h, kv, d, causal, docs):
+    seg = _packed_segments(cuda, b, s_q, docs) if docs else None
+    q, k, v, o, lse, do = _bwd_inputs(cuda, b, s_q, s_kv, h, kv, d, causal, seg)
+    tfa.reset_launches()
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=seg)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         segment_ids=seg)
+    torch.cuda.synchronize()
+    assert (tfa.launches_dq, tfa.launches_dkv, tfa.launches) == (1, 1, 0)
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == ref.shape and x.dtype == torch.bfloat16
+        assert bool(torch.isfinite(x.float()).all()), name
+        scale = float(ref.float().abs().max())
+        torch.testing.assert_close(x.float(), ref.float(), rtol=0, atol=BWD_TOL * scale,
+                                   msg=name)
+
+
+@pytest.mark.torch_port
+def test_flash_attention_autograd_launches_k1_k2(cuda):
+    """One forward and backward through ``flash_attention``: one K1, one K2a,
+    one K2b, and the gradients of the plain attention's autograd."""
+    q, k, v, _ = _inputs(cuda, 2, 256, 256, 8, 2, 64)
+    seg = _packed_segments(cuda, 2, 256, 2)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    tfa.reset_launches()
+    out = tfa.flash_attention(*leaves, causal=True, segment_ids=seg)
+    grads = torch.autograd.grad(out.float().square().sum(), leaves)
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.launches_dq, tfa.launches_dkv) == (1, 1, 1)
+    ref_leaves = [t.clone().float().requires_grad_() for t in (q, k, v)]
+    ref_out, _ = tfa.flash_attention_plain(*ref_leaves, causal=True, segment_ids=seg)
+    ref = torch.autograd.grad(ref_out.square().sum(), ref_leaves)
+    for name, x, r in zip(("dq", "dk", "dv"), grads, ref):
+        scale = float(r.abs().max())
+        torch.testing.assert_close(x.float(), r, rtol=0, atol=3 * BWD_TOL * scale, msg=name)
+
+
+@pytest.mark.torch_port
+def test_flash_bwd_raises_instead_of_falling_back(cuda):
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 1, 64, 64, 4, 2, 128, True, None)
+    tfa.reset_launches()
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa.flash_attention_bwd(q.float(), k.float(), v.float(), o.float(), lse,
+                                do.float())
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_attention_bwd(q, k, v, o, lse.bfloat16(), do)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_bwd(q, k, v, o, lse, do.transpose(1, 2).contiguous().transpose(1, 2))
+    assert (tfa.launches_dq, tfa.launches_dkv) == (0, 0)

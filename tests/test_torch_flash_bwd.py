@@ -1,0 +1,118 @@
+"""Port parity for the flash-attention backward: the plain PyTorch version of
+K2a/K2b (``flash_attention_bwd_plain``) and the autograd path through the
+port's ``flash_attention`` against ``jax.vjp`` of the JAX package's
+``flash_attention`` with its Pallas kernels in interpret mode.
+
+Shapes keep S=256, head_dim 64 and 128-blocks so that the JAX side really
+runs ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` over 2 x 2 tiles
+(its ``supports()`` sends smaller shapes to XLA attention). Tolerances,
+relative to each gradient's largest magnitude: f32 at 1e-4 (the same
+formulas, whole-tensor here and tiled there, summed in other orders); bf16
+at 2e-2 (both round the outputs to bf16, and the port recomputes delta from
+its own forward's bf16 ``o``, which can sit a bf16 ulp from the kernel's).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ditl_tpu.ops import flash_attention as jfa  # noqa: E402
+from ditl_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+
+torch.set_num_threads(1)
+
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LAYOUTS = {  # name: (heads, kv heads, packed segments)
+    "gqa": (8, 2, False),
+    "gqa-packed": (8, 2, True),
+    "mha-packed": (4, 4, True),
+}
+
+
+def _inputs(seed, b, s, h, kv, d, packed):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, s, kv, d)).astype(np.float32) for _ in range(2))
+    seg = None
+    if packed:  # three documents per row at uneven cuts, then right padding
+        seg = np.ones((b, s), np.int32)
+        for row in range(b):
+            seg[row, 70 + 9 * row:] = 2
+            seg[row, 190 - 13 * row:] = 3
+            seg[row, s - 11:] = 0
+    return q, k, v, do, seg
+
+
+def _jax_grads(q, k, v, do, seg, causal, dtype):
+    def f(q_, k_, v_):
+        return jfa.flash_attention(
+            q_, k_, v_, causal=causal,
+            segment_ids=None if seg is None else jnp.asarray(seg),
+            block_q=128, block_kv=128, interpret=True)
+
+    args = [jnp.asarray(x, dtype=dtype) for x in (q, k, v)]
+    _, vjp = jax.vjp(f, *args)
+    return [np.asarray(g, np.float32) for g in vjp(jnp.asarray(do, dtype=dtype))]
+
+
+def _close(got, want, tol, name):
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol * scale,
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_and_autograd_match_jax_kernels(dtype, causal, layout):
+    h, kv, packed = LAYOUTS[layout]
+    q, k, v, do, seg = _inputs(len(layout) + causal, 2, 256, h, kv, 64, packed)
+    want = _jax_grads(q, k, v, do, seg, causal, dtype)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
+    tseg = None if seg is None else torch.from_numpy(seg)
+
+    # The plain backward from the plain forward's o and lse.
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, causal=causal, segment_ids=tseg)
+    got = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, causal=causal,
+                                        segment_ids=tseg)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tdt
+        _close(g, w, TOL[dtype], name)
+
+    # torch.autograd through the port's flash_attention (CPU: plain versions).
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    tfa.reset_launches()
+    out = tfa.flash_attention(*leaves, causal=causal, segment_ids=tseg)
+    grads = torch.autograd.grad(out, leaves, grad_outputs=tdo)
+    assert (tfa.launches, tfa.launches_dq, tfa.launches_dkv) == (0, 0, 0)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        _close(g, w, TOL[dtype], name)
+
+
+def test_cpu_wrapper_runs_plain_and_counts_no_launch():
+    q, k, v, do, seg = _inputs(3, 1, 100, 4, 2, 48, False)
+    tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, causal=True)
+    tfa.reset_launches()
+    got = tfa.flash_attention_bwd(tq, tk, tv, o, lse, tdo, causal=True)
+    want = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, causal=True)
+    assert (tfa.launches_dq, tfa.launches_dkv) == (0, 0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_backward_wrapper_rejects_bad_inputs():
+    q, k, v, do, _ = _inputs(4, 1, 32, 4, 2, 16, False)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = tfa.flash_attention_plain(tq, tk, tv)
+    with pytest.raises(ValueError, match="like q"):
+        tfa.flash_attention_bwd(tq, tk, tv, o[:, :16], lse, tdo)
+    with pytest.raises(ValueError, match=r"\(B, H, Sq\)"):
+        tfa.flash_attention_bwd(tq, tk, tv, o, lse[:, :2], tdo)
+    with pytest.raises(ValueError, match="divisible"):
+        tfa.flash_attention_bwd(tq[:, :, :3], tk, tv, o[:, :, :3], lse[:, :3], tdo[:, :, :3])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfa.flash_attention_bwd(*(x.to("meta") for x in (tq, tk, tv, o, lse, tdo)))

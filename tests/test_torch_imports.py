@@ -1,7 +1,8 @@
 """The port stands alone: ``ditl_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of the JAX package, and the copies the port keeps of
-jax-free modules (``ModelConfig``, the presets, the byte tokenizer, the
-keep-alive mixin) match their originals."""
+jax-free modules (``ModelConfig``, ``DataConfig``, ``TrainConfig``, the
+presets, the byte tokenizer, the keep-alive mixin, the dataset and sampler)
+match their originals."""
 
 import ast
 import dataclasses
@@ -60,9 +61,12 @@ def test_port_package_has_modules():
                  "ops.attention", "ops.flash_attention", "ops.paged_attention",
                  "ops.cuda_build", "infer.cache", "infer.paged_cache",
                  "infer.sampling", "infer.engine", "infer.continuous",
-                 "infer.server", "data.tokenizer", "utils.logging", "utils.http11"):
+                 "infer.server", "data.tokenizer", "utils.logging", "utils.http11",
+                 "data.dataset", "data.sampler", "data.loader", "ops.fused_ce",
+                 "train.state", "train.step", "train.metrics", "train.trainer",
+                 "launch"):
         assert f"ditl_tpu_torch.{name}" in mods
-    for source in ("flash_fwd.cu", "paged_attention.cu"):
+    for source in ("flash_fwd.cu", "paged_attention.cu", "flash_bwd.cu"):
         assert (PORT / "csrc" / source).is_file()
 
 
@@ -103,12 +107,42 @@ def test_model_config_matches_jax_field_for_field():
     assert {name: jf.get(name) for name in tf} == tf
     assert list(tf) == [name for name in jf if name in tf]
     assert set(jf) - set(tf) == {
-        "param_dtype", "num_experts_per_tok", "router_aux_coef", "lora_alpha",
-        "lora_dropout", "flash_block_q", "flash_block_kv", "flash_block_q_bwd",
-        "flash_block_kv_bwd", "remat", "scan_unroll", "mlp_custom_vjp",
-        "mlp_bwd_impl", "mlp_bwd_block_n", "mlp_bwd_block_f", "mlp_bwd_block_d",
-        "proj_bwd_impl", "proj_bwd_block_n", "proj_bwd_block_d", "loss_impl",
-        "loss_block_tokens", "pipeline_microbatches"}
+        "num_experts_per_tok", "router_aux_coef", "lora_alpha", "lora_dropout",
+        "flash_block_q", "flash_block_kv", "flash_block_q_bwd", "flash_block_kv_bwd",
+        "scan_unroll", "mlp_bwd_block_n", "mlp_bwd_block_f", "mlp_bwd_block_d",
+        "proj_bwd_block_n", "proj_bwd_block_d", "pipeline_microbatches"}
+
+
+@pytest.mark.parametrize("name,left_out", [
+    ("DataConfig", set()),
+    ("TrainConfig", {"eval_samples", "val_batches", "checkpoint_every",
+                     "keep_checkpoints", "resume", "max_restarts", "fault_kill_process",
+                     "heartbeat_dir", "heartbeat_timeout_s", "straggler_lag_steps",
+                     "straggler_relaunch", "profile_start_step", "profile_num_steps"}),
+])
+def test_data_and_train_config_match_jax_field_for_field(name, left_out):
+    """The port's copies keep the JAX fields of their names, types and
+    defaults, in the same order, leaving out only the listed knobs of
+    features the port does not run (checkpoint retention, restarts,
+    heartbeats, profiling windows)."""
+    jf, tf = _fields(getattr(jconfig, name)), _fields(getattr(tconfig, name))
+    assert {n: jf.get(n) for n in tf} == tf
+    assert list(tf) == [n for n in jf if n in tf]
+    assert set(jf) - set(tf) == left_out
+
+
+def test_config_sections_and_override_coercion_match_jax():
+    """``parse_overrides`` types values as the JAX launcher does, over the
+    sections both packages have."""
+    items = ["model.num_layers=3", "model.rope_theta=10000", "model.tie_embeddings=yes",
+             "data.seq_len=64", "data.synthetic=on", "train.learning_rate=1e-2",
+             "train.optimizer=adafactor", "train.metrics_file=none"]
+    ours = tconfig.parse_overrides(tconfig.Config(), items)
+    ref = jconfig.parse_overrides(jconfig.Config(), items)
+    for section in ("model", "data", "train"):
+        mine = dataclasses.asdict(getattr(ours, section))
+        theirs = dataclasses.asdict(getattr(ref, section))
+        assert mine == {k: theirs[k] for k in mine}, section
 
 
 def test_model_config_rejects_unported_attention():
@@ -139,6 +173,24 @@ def test_presets_match_jax(name):
     defaults = dataclasses.asdict(jconfig.ModelConfig())
     assert {k: v for k, v in ref.items() if k not in ours} == {
         k: defaults[k] for k in ref if k not in ours}
+
+
+def test_dataset_and_sampler_match_jax():
+    from ditl_tpu.data import dataset as jdataset
+    from ditl_tpu.data import sampler as jsampler
+    from ditl_tpu_torch.data import dataset as tdataset
+    from ditl_tpu_torch.data import sampler as tsampler
+
+    a, b = tdataset.synthetic_dataset(37, 5), jdataset.synthetic_dataset(37, 5)
+    assert (a.texts, a.labels) == (b.texts, b.labels) and a[3] == b[3]
+    for kw in (dict(shuffle=True, seed=3), dict(shuffle=False, drop_last=True)):
+        for n, replicas, rank in ((37, 1, 0), (37, 4, 3), (5, 8, 6)):
+            ours = tsampler.ShardedSampler(n, replicas, rank, **kw)
+            ref = jsampler.ShardedSampler(n, replicas, rank, **kw)
+            for epoch in (0, 2):
+                ours.set_epoch(epoch)
+                ref.set_epoch(epoch)
+                assert list(ours) == list(ref) and len(ours) == len(ref)
 
 
 def test_byte_tokenizer_and_vocab_check_match_jax():
