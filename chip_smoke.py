@@ -38,11 +38,27 @@ no result line. It imports nothing of JAX or of the JAX package.
    the kernels and again with ``flash_attention`` rebound to the plain
    versions, from the same parameters and batch: loss and grad_norm within
    ``STEP_LOSS_TOL``/``STEP_GNORM_TOL``.
-9. The kernels line, then the result line, last.
+9. The MLP and projection backward kernels against their plain versions
+   (K5a/K5b at the training shape N=8192, D=4096, F=14336 and a ragged
+   one; K6 at the wq/wo, wk/wv and a ragged, strided shape; ``MM_TOL``),
+   and their timings: kernel, plain, a library yardstick (autograd of the
+   plain MLP forward for K5a + K5b together, of ``x @ w`` for K6) and the
+   bound from this run's shapes.
+10. Main path 4: ``train()`` with ``TRAIN_ARGS`` plus ``KERNEL_FLAGS``
+   (``fused_gate_up``, ``mlp_bwd_impl=pallas``, ``proj_bwd_impl=pallas``),
+   full width and depth, ``TRAIN4_STEPS`` steps: falling finite losses, K5a
+   and K5b once per layer per step, K6 four times (wq, wk, wv, wo), K1, K2a
+   and K2b as on path 3.
+11. Training parity 2: the forward and backward of one train step at full
+   width, depth 2, B=1, with ``KERNEL_FLAGS``, through the kernels and again
+   with ``fused_mlp_bwd`` and ``projection_bwd`` rebound to their plain
+   versions: loss, grad norm and every leaf's gradient
+   (``STEP2_LOSS_TOL``/``STEP_GNORM_TOL``/``STEP2_LEAF_TOL``).
+12. The kernels line, then the result line, last.
 
 Each main path's launch counts are zeroed just before it runs and read just
-after. The paths run at full depth: the whole script takes about 80 s on an
-H100, the build included.
+after. The paths run at full depth: the whole script takes about two minutes
+on an H100, the build included.
 
 f32 matrix products run in full f32 here (TF32 off, set below): the port's
 lm head takes f32 products of bf16 values, as the JAX package's logits do.
@@ -85,7 +101,21 @@ BWD_TOL = 2e-2
 # its scale, a small share of the whole model's gradient.
 STEP_LOSS_TOL = 1e-3
 STEP_GNORM_TOL = 1e-2
+# K5a/K5b/K6 against their plain versions, relative to each output's largest
+# magnitude: the same bf16 operands with f32 sums in another order, dgate,
+# dup and inner rounded to bf16 at the same places (a rounding can land one
+# bf16 ulp, 2^-8, apart), and SwiGLU's exponent from the fast intrinsic.
+MM_TOL = 1e-2
+# Training parity 2 swaps only backward kernels: the forward is the same
+# code, so the loss agrees to f32 round-off; each leaf's gradient within
+# STEP2_LEAF_TOL of its largest magnitude (bf16 gradients, the kernels'
+# sums in another order, a few ulps through two layers' backward).
+STEP2_LOSS_TOL = 1e-6
+STEP2_LEAF_TOL = 2e-2
 TRAIN_STEPS = 6
+TRAIN4_STEPS = 4
+KERNEL_FLAGS = ["model.fused_gate_up=true", "model.mlp_bwd_impl=pallas",
+                "model.proj_bwd_impl=pallas"]
 TRAIN_ARGS = [
     "--preset", "llama3-8b", "model.param_dtype=bfloat16", "model.attention_impl=flash",
     "model.loss_impl=fused", "model.loss_block_tokens=4096", "model.remat=full",
@@ -126,6 +156,24 @@ KERNELS = {
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:191",
         "path": "direct call",
+    },
+    "mlp_dgu_dwdown": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/mlp_bwd.cu",
+        "replaces": "ditl_tpu/ops/mlp_bwd.py:102",
+        "path": "training backward with mlp_bwd_impl=pallas, every layer",
+    },
+    "mlp_dh_dwgu": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/mlp_bwd.cu",
+        "replaces": "ditl_tpu/ops/mlp_bwd.py:153",
+        "path": "training backward with mlp_bwd_impl=pallas, every layer",
+    },
+    "proj_bwd": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/projection_bwd.cu",
+        "replaces": "ditl_tpu/ops/projection.py:79",
+        "path": "training backward with proj_bwd_impl=pallas: wq, wk, wv, wo of every layer",
     },
 }
 # The decode tick's paged-attention shape on the main path: 8 slots, 32
@@ -647,6 +695,296 @@ def phase_train_parity(flash) -> None:
         f"{lk:.6f} grad_norm {gk:.6f}; plain loss {lp:.6f} grad_norm {gp:.6f}; relative "
         f"differences {rel_l:.3e}, {rel_g:.3e}")
     require(rel_l <= STEP_LOSS_TOL and rel_g <= STEP_GNORM_TOL, (rel_l, rel_g))
+
+
+# ---------------------------------------------------------------------------
+# K5a/K5b (MLP backward), K6 (projection backward), main path 4
+# ---------------------------------------------------------------------------
+
+# (label, N, D, F) of the llama3-8b training step (N = B*S = 4 x 2048) and
+# a ragged one (N = 16 x 129).
+MLP_CASES = [("training shape", 8192, 4096, 14336), ("ragged", 2064, 256, 384)]
+# (label, N, D, F, row stride of g or 0, the reference's blocks that admit N)
+PROJ_CASES = [("wq/wo", 8192, 4096, 4096, 0, None), ("wk/wv", 8192, 4096, 1024, 0, None),
+              ("ragged, strided g", 2064, 256, 384, 512, (16, 128))]
+
+
+def _mm_bound(flops: float, nbytes: float):
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _mlp_bounds(n: int, d: int, f: int) -> dict:
+    """Least time on an H100 SXM for K5a and K5b (bf16 in and out): each
+    input read once and each output written once over HBM bandwidth (K5a: g,
+    w_down, gate|up in, dgu and d_w_down out; K5b: h, dgu, w_gu in, dh and
+    d_w_gu out), against the kernel's two products at bf16 peak (K5a:
+    dinner and d_w_down, 2*N*D*F flops each; K5b: dh and d_w_gu, 2*N*D*2F)."""
+    k5a_bytes = 2 * (n * d + f * d + 2 * n * f) + 2 * (2 * n * f + f * d)
+    k5b_bytes = 2 * (n * d + 2 * n * f + 2 * d * f) + 2 * (n * d + 2 * d * f)
+    return {"mlp_dgu_dwdown": _mm_bound(4.0 * n * d * f, k5a_bytes),
+            "mlp_dh_dwgu": _mm_bound(8.0 * n * d * f, k5b_bytes)}
+
+
+def _proj_bound(n: int, d: int, f: int):
+    """K6: x, w, g read once and dx, dw written once (bf16), against dx =
+    g.w^T and dw = x^T.g, 2*N*D*F flops each."""
+    return _mm_bound(4.0 * n * d * f, 2 * (2 * n * d + 2 * d * f + n * f))
+
+
+def _bf16(shape, seed: int, scale: float = 1.0):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+
+def _mlp_case(n: int, d: int, f: int, seed: int):
+    """h, w_gu, w_down, the forward's gu (gate | up) and an upstream g at the
+    scales of a layer's inputs (unit activations, fan-in weights)."""
+    h = _bf16((n, d), seed)
+    w_gu = _bf16((d, 2 * f), seed + 1, d**-0.5)
+    w_down = _bf16((f, d), seed + 2, f**-0.5)
+    return h, w_gu, w_down, h @ w_gu, _bf16((n, d), seed + 3, 0.1)
+
+
+def _proj_case(n: int, d: int, f: int, ld: int, seed: int):
+    """x (1, N, D), w (D, F) and g (1, N, F); with ``ld``, g is the first F
+    columns of an (N, ld) gradient (a fused projection's split)."""
+    x = _bf16((1, n, d), seed)
+    w = _bf16((d, f), seed + 1, d**-0.5)
+    g = _bf16((1, n, ld or f), seed + 2, 0.1)[..., :f]
+    return x, w, g
+
+
+def _check_scaled(label: str, named) -> float:
+    """``named``: (name, kernel output, plain output); each within MM_TOL of
+    the plain output's largest magnitude. Returns the largest error."""
+    import torch
+
+    worst, parts = 0.0, []
+    for name, x, r in named:
+        require(x.shape == r.shape and x.dtype == r.dtype, (label, name, x.shape, r.shape))
+        require(bool(torch.isfinite(x.float()).all()), f"{label} {name}: non-finite")
+        scale = float(r.float().abs().max())
+        err = float((x.float() - r.float()).abs().max())
+        torch.testing.assert_close(x.float(), r.float(), rtol=0, atol=MM_TOL * scale,
+                                   msg=f"{label} {name}")
+        worst = max(worst, err)
+        parts.append(f"max|{name}-plain|={err:.3e} (max|{name}| {scale:.3e})")
+    log(f"[kernels] {label}: " + ", ".join(parts) + " ok")
+    return worst
+
+
+def phase_mm_kernels(mlp_bwd, proj) -> dict:
+    """K5a and K5b (K5b fed the kernel's own dgu, and its plain version the
+    same buffer) and K6 against their plain versions; returns the largest
+    absolute errors."""
+    import torch
+
+    worst = {"mlp_dgu_dwdown": 0.0, "mlp_dh_dwgu": 0.0, "proj_bwd": 0.0}
+    for i, (label, n, d, f) in enumerate(MLP_CASES):
+        h, w_gu, w_down, gu, g = _mlp_case(n, d, f, seed=600 + 10 * i)
+        gate, up = gu.chunk(2, dim=-1)  # views of gu, as the op saves them
+        dgu, d_w_down = mlp_bwd.dgu_dwdown(g, w_down, gate, up)
+        dgu_ref, d_w_down_ref = mlp_bwd.dgu_dwdown_plain(g, w_down, gate, up)
+        dh, d_w_gu = mlp_bwd.dh_dwgu(h, dgu, w_gu)
+        dh_ref, d_w_gu_ref = mlp_bwd.dh_dwgu_plain(h, dgu, w_gu)
+        torch.cuda.synchronize()
+        shape = f"N={n} D={d} F={f} ({label})"
+        worst["mlp_dgu_dwdown"] = max(worst["mlp_dgu_dwdown"], _check_scaled(
+            f"mlp_dgu_dwdown {shape}", [("dgu", dgu, dgu_ref),
+                                        ("d_w_down", d_w_down, d_w_down_ref)]))
+        worst["mlp_dh_dwgu"] = max(worst["mlp_dh_dwgu"], _check_scaled(
+            f"mlp_dh_dwgu {shape}", [("dh", dh, dh_ref), ("d_w_gu", d_w_gu, d_w_gu_ref)]))
+        del h, w_gu, w_down, gu, g, gate, up, dgu, dgu_ref, dh, dh_ref
+    for i, (label, n, d, f, ld, blocks) in enumerate(PROJ_CASES):
+        x, w, g = _proj_case(n, d, f, ld, seed=700 + 10 * i)
+        dx, dw = proj.projection_bwd(x, w, g, blocks=blocks)
+        dx_ref, dw_ref = proj.projection_bwd_plain(x, w, g)
+        torch.cuda.synchronize()
+        worst["proj_bwd"] = max(worst["proj_bwd"], _check_scaled(
+            f"proj_bwd N={n} D={d} F={f} ({label})", [("dx", dx, dx_ref), ("dw", dw, dw_ref)]))
+    return worst
+
+
+def phase_mm_timings(mlp_bwd, proj) -> dict:
+    """K5a, K5b and K6 at the training step's shapes: CUDA events over 10
+    back-to-back calls, the better of two runs; the plain versions; one
+    library yardstick each (the port never calls it): ``torch.autograd.grad``
+    of the plain MLP forward with respect to (h, w_gu, w_down) for K5a and
+    K5b together, and of ``x @ w`` with respect to (x, w) for K6; the
+    bounds from these shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    out = {}
+    _, n, d, f = MLP_CASES[0]
+    h, w_gu, w_down, gu, g = _mlp_case(n, d, f, seed=800)
+    gate, up = gu.chunk(2, dim=-1)
+    dgu, _ = mlp_bwd.dgu_dwdown(g, w_down, gate, up)
+    leaves = [t.detach().clone().requires_grad_() for t in (h, w_gu, w_down)]
+    gate_l, up_l = (leaves[0] @ leaves[1]).chunk(2, dim=-1)
+    mlp_out = (F.silu(gate_l) * up_l) @ leaves[2]
+
+    def library():
+        torch.autograd.grad(mlp_out, leaves, grad_outputs=g, retain_graph=True)
+
+    lib_ms = min(_time_ms(library, iters=10), _time_ms(library, iters=10))
+    bounds = _mlp_bounds(n, d, f)
+    for name, run, plain in (
+            ("mlp_dgu_dwdown", lambda: mlp_bwd.dgu_dwdown(g, w_down, gate, up),
+             lambda: mlp_bwd.dgu_dwdown_plain(g, w_down, gate, up)),
+            ("mlp_dh_dwgu", lambda: mlp_bwd.dh_dwgu(h, dgu, w_gu),
+             lambda: mlp_bwd.dh_dwgu_plain(h, dgu, w_gu))):
+        ms = min(_time_ms(run, iters=10), _time_ms(run, iters=10))
+        plain_ms = _time_ms(plain, iters=3, warmup=1)
+        bound_ms, bound_by = bounds[name]
+        log(f"[timing] {name} N={n} D={d} F={f}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library (autograd of the plain MLP forward, dh, "
+            f"d_w_gu and d_w_down together) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), {bound_ms / ms:.1%} of bound ({SMI})")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+    del h, w_gu, w_down, gu, g, gate, up, dgu, leaves, gate_l, up_l, mlp_out
+    for label, n, d, f, ld, blocks in PROJ_CASES[:2]:
+        x, w, g = _proj_case(n, d, f, ld, seed=900)
+        xl, wl = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+        y = xl @ wl
+        ms = min(_time_ms(lambda: proj.projection_bwd(x, w, g), iters=10),
+                 _time_ms(lambda: proj.projection_bwd(x, w, g), iters=10))
+        plain_ms = _time_ms(lambda: proj.projection_bwd_plain(x, w, g), iters=3, warmup=1)
+        lib_ms = min(_time_ms(lambda: torch.autograd.grad(y, (xl, wl), grad_outputs=g,
+                                                          retain_graph=True), iters=10)
+                     for _ in range(2))
+        bound_ms, bound_by = _proj_bound(n, d, f)
+        log(f"[timing] proj_bwd {label} N={n} D={d} F={f}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library (autograd.grad of x @ w) {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound ({SMI})")
+        # The kernels line carries the wq/wo shape; wk/wv is logged beside it.
+        out.setdefault("proj_bwd", {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                    "bound_by": bound_by, "library_ms": lib_ms})
+    return out
+
+
+def phase_train_kernels(flash, mlp_bwd, proj) -> dict:
+    """Main path 4: ``train()`` with ``TRAIN_ARGS`` + ``KERNEL_FLAGS``;
+    returns the path's launch counts."""
+    from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.train.trainer import train
+
+    config, device = build_config(TRAIN_ARGS + KERNEL_FLAGS
+                                  + [f"train.total_steps={TRAIN4_STEPS}"])
+    cfg = config.model
+    require((cfg.name, cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
+             cfg.fused_gate_up, cfg.mlp_bwd_impl, cfg.proj_bwd_impl, cfg.attention_impl,
+             cfg.remat, config.train.total_steps, device)
+            == ("llama3-8b", 32, 4096, 14336, True, "pallas", "pallas", "flash", "full",
+                TRAIN4_STEPS, "cuda"), config)
+    flash.reset_launches()  # this path's counts start here
+    mlp_bwd.reset_launches()
+    proj.reset_launches()
+    summary = train(config, device=device)
+    launches = {"flash_fwd": flash.launches, "flash_dq": flash.launches_dq,
+                "flash_dkv": flash.launches_dkv, "mlp_dgu_dwdown": mlp_bwd.launches_dgu,
+                "mlp_dh_dwgu": mlp_bwd.launches_dh,
+                "proj_bwd": proj.launches}  # read right after the run
+    losses = summary["losses"]
+    require(summary["steps"] == TRAIN4_STEPS and len(losses) == TRAIN4_STEPS, summary)
+    require(all(x == x and abs(x) != float("inf") for x in losses), losses)
+    require(losses[-1] < losses[0], losses)
+    layers, steps = cfg.num_layers, TRAIN4_STEPS
+    require(launches["mlp_dgu_dwdown"] == launches["mlp_dh_dwgu"] == layers * steps,
+            launches)
+    require(launches["proj_bwd"] == 4 * layers * steps, launches)  # wq, wk, wv, wo
+    require(launches["flash_dq"] == launches["flash_dkv"] == layers * steps, launches)
+    require(launches["flash_fwd"] == 2 * layers * steps, launches)
+    step_s = summary["step_time_p50_s"]
+    tps = summary["tokens_per_sec_per_chip_p50"]
+    mfu = _model_flops_per_token(cfg, config.data.seq_len) * 3 * tps / H100_BF16_FLOPS
+    log(f"[train4] llama3-8b, path 3's recipe + fused_gate_up, mlp_bwd_impl=pallas, "
+        f"proj_bwd_impl=pallas, B=4 S=2048, {steps} steps: losses "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"[train4] step time p50 {step_s:.3f} s, {tps:.1f} tokens/s, MFU {mfu:.1%} "
+        f"(bench.py's flops per token x 3 over 989 TFLOP/s, remat not counted), "
+        f"peak device memory {summary['peak_device_memory_gib']:.1f} GiB, wall "
+        f"{summary['wall_s']:.1f} s ({SMI})")
+    log(f"[train4] launches: K5a {launches['mlp_dgu_dwdown']} and K5b "
+        f"{launches['mlp_dh_dwgu']} = {layers} layers x {steps} steps, K6 "
+        f"{launches['proj_bwd']} = 4 x {layers} x {steps}; K1 {launches['flash_fwd']}, "
+        f"K2a {launches['flash_dq']}, K2b {launches['flash_dkv']}")
+    return launches
+
+
+def phase_train_parity2(mlp_bwd, proj) -> None:
+    """Training parity 2: the forward and backward of one train step at full
+    width, depth 2, B=1, S=2048 with ``KERNEL_FLAGS``, through K5a/K5b/K6 and
+    again with their wrappers rebound to the plain versions, from the same
+    parameters and batch."""
+    import dataclasses
+
+    import torch
+
+    from ditl_tpu_torch.config import DataConfig
+    from ditl_tpu_torch.data.dataset import synthetic_dataset
+    from ditl_tpu_torch.data.loader import DataPipeline
+    from ditl_tpu_torch.data.tokenizer import ByteTokenizer
+    from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.models import llama
+    from ditl_tpu_torch.train.state import TrainState, global_norm, make_leaves
+    from ditl_tpu_torch.train.step import cast_for_compute, loss_fn
+
+    config, _ = build_config(TRAIN_ARGS + KERNEL_FLAGS)
+    cfg = dataclasses.replace(config.model, num_layers=2)
+    dcfg = DataConfig(batch_size=1, seq_len=2048, synthetic=True)
+    batch = next(iter(DataPipeline(synthetic_dataset(256, 0), ByteTokenizer(), dcfg,
+                                   "cuda").epoch(0)))
+    base = llama.init_train_params(cfg, seed=2, device="cuda")
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        return tree.clone()
+
+    results = []
+    fused, proj_bwd = mlp_bwd.fused_mlp_bwd, proj.projection_bwd
+    for plain in (False, True):
+        params = clone(base)
+        state = TrainState(params, make_leaves(params))
+        if plain:  # looked up at call time: swapped for this step only
+            mlp_bwd.fused_mlp_bwd = lambda *a, blocks=None: mlp_bwd.fused_mlp_bwd_plain(*a)
+            proj.projection_bwd = lambda x, w, g, blocks=None: proj.projection_bwd_plain(
+                x, w, g)
+        try:
+            mlp_bwd.reset_launches()
+            proj.reset_launches()
+            layers, top = state.model_views(cast_for_compute(cfg))
+            loss, _ = loss_fn(layers, top, batch, cfg)
+            loss.backward()
+            gnorm = float(global_norm(state.leaves))
+            counts = (mlp_bwd.launches_dgu, mlp_bwd.launches_dh, proj.launches)
+        finally:
+            mlp_bwd.fused_mlp_bwd, proj.projection_bwd = fused, proj_bwd
+        require(counts == ((0, 0, 0) if plain else (2, 2, 8)), counts)
+        grads = {"/".join(leaf.path): [p.grad for p in leaf.parts] for leaf in state.leaves}
+        results.append((float(loss), gnorm, grads))
+        del params, state, layers, top, loss
+    (lk, gk, grads_k), (lp, gp, grads_p) = results
+    rel_l, rel_g = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+    worst_leaf, worst = "", 0.0
+    for path, parts in grads_p.items():
+        for i, (x, r) in enumerate(zip(grads_k[path], parts)):
+            scale = float(r.float().abs().max())
+            rel = float((x.float() - r.float()).abs().max()) / max(scale, 1e-30)
+            require(rel <= STEP2_LEAF_TOL, (path, i, rel, scale))
+            if rel > worst:
+                worst_leaf, worst = f"{path}[{i}]", rel
+    log(f"[train4] parity, one step's forward and backward at full width, 2 layers, B=1, "
+        f"S=2048, kernel flags: kernels loss {lk:.6f} grad_norm {gk:.6f}; plain loss "
+        f"{lp:.6f} grad_norm {gp:.6f}; relative differences {rel_l:.3e}, {rel_g:.3e}; "
+        f"worst leaf {worst_leaf} at {worst:.3e} of its largest magnitude; launches "
+        f"(K5a, K5b, K6) (2, 2, 8) through the kernels, (0, 0, 0) plain")
+    require(rel_l <= STEP2_LOSS_TOL and rel_g <= STEP_GNORM_TOL, (rel_l, rel_g))
 
 
 def _paged_inputs(b, h, kv, d, ps, tail_len, lengths, starts, *, seed, n_pool=65,
@@ -1189,7 +1527,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from ditl_tpu_torch.ops import flash_attention as flash
+    from ditl_tpu_torch.ops import mlp_bwd
     from ditl_tpu_torch.ops import paged_attention as paged
+    from ditl_tpu_torch.ops import projection as proj
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1204,6 +1544,10 @@ def main() -> int:
     train_timings = phase_train_timings(flash, train_seg)
     timings.update({k: v for k, v in train_timings.items() if k != "flash_fwd"})
     timings.update(phase_paged_timings(paged))
+    errors.update(phase_mm_kernels(mlp_bwd, proj))
+    timings.update(phase_mm_timings(mlp_bwd, proj))
+    gc.collect()
+    torch.cuda.empty_cache()
     gen, lockstep = phase_serve(flash, paged)
     continuous = phase_serve_continuous(gen, flash, paged)
     # Free the serving weights and pools before the 8B training state.
@@ -1216,14 +1560,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_parity(flash)
-    # Launches per kernel: K1 on both serving paths and the training path,
-    # K2a/K2b on the training path, K3 on the continuous path; K4 has no
-    # serving path, so its count is the kernels phase's direct calls.
+    gc.collect()
+    torch.cuda.empty_cache()
+    training4 = phase_train_kernels(flash, mlp_bwd, proj)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_parity2(mlp_bwd, proj)
+    # Launches per kernel: K1 on both serving paths and both training paths,
+    # K2a/K2b on both training paths, K3 on the continuous path, K5a/K5b/K6
+    # on training path 4; K4 has no serving path, so its count is the
+    # kernels phase's direct calls.
     launches = {"flash_fwd": lockstep["flash_fwd"] + continuous["flash_fwd"]
-                + training["flash_fwd"],
-                "flash_dq": training["flash_dq"], "flash_dkv": training["flash_dkv"],
+                + training["flash_fwd"] + training4["flash_fwd"],
+                "flash_dq": training["flash_dq"] + training4["flash_dq"],
+                "flash_dkv": training["flash_dkv"] + training4["flash_dkv"],
                 "paged_tail": continuous["paged_tail"],
-                "paged": errors.pop("paged_direct_launches")}
+                "paged": errors.pop("paged_direct_launches"),
+                **{k: training4[k] for k in ("mlp_dgu_dwdown", "mlp_dh_dwgu", "proj_bwd")}}
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
             (lockstep, continuous))
     kernels = []
@@ -1233,7 +1586,7 @@ def main() -> int:
         kernels.append({"name": name, **meta, "launches": launches[name],
                         "max_abs_err": errors[name], **timings[name]})
     log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}, "
-        f"training {training}")
+        f"training {training}, training with the MLP and projection kernels {training4}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

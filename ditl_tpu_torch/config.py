@@ -11,10 +11,12 @@ launcher does.
 
 Fields whose features are not ported yet are kept so that setting them
 raises where the JAX package would act on them: MoE, LoRA and int8 caches in
-the model code; the MLP and projection backward kernels (K5, K6), the remat
-policies other than ``"none"``/``"full"``, checkpointing, validation, API
-eval, multi-step calls, HF import, telemetry, profiling and the fault drills
-here, at construction.
+the model code; the remat policies other than ``"none"``/``"full"``,
+checkpointing, validation, API eval, multi-step calls, HF import, telemetry,
+profiling and the fault drills here, at construction. The backward kernels
+of the MLP block and of the attention projections (``mlp_bwd_impl``,
+``mlp_custom_vjp``, ``proj_bwd_impl`` and their block fields) are validated
+as the JAX package validates them.
 """
 
 from __future__ import annotations
@@ -71,17 +73,42 @@ class ModelConfig:
     remat: str = "full"
     fused_gate_up: bool = False  # gate|up stored as one (D, 2F) matrix
     fused_qkv: bool = False  # q|k|v stored as one (D, (H + 2K) * hd) matrix
-    # The hand-written MLP backward (K5a/K5b) and projection backward (K6):
-    # only the defaults run; the others raise (not ported).
+    # Hand-written VJP for the fused-gate|up MLP block (ops/mlp.py; needs
+    # fused_gate_up): the block's backward as one function, einsum spelling.
     mlp_custom_vjp: bool = False
+    # MLP backward behind that seam: "xla" (the einsum spelling) | "pallas"
+    # (the hand-written CUDA kernels K5a/K5b, ops/mlp_bwd.py; needs
+    # fused_gate_up and routes through the seam even when mlp_custom_vjp is
+    # off). Shapes ops/mlp_bwd.supports rejects take the einsum spelling.
     mlp_bwd_impl: str = "xla"
+    # The reference's Pallas tile sizes (0 = its defaults). They decide which
+    # shapes ops/mlp_bwd.supports admits, as in the reference; the CUDA
+    # kernels' tiles are their own constants.
+    mlp_bwd_block_n: int = 0
+    mlp_bwd_block_f: int = 0
+    mlp_bwd_block_d: int = 0
+    # Attention-projection backward: "xla" | "pallas" (the hand-written CUDA
+    # kernel K6, ops/projection.py: dx and dw from one launch).
     proj_bwd_impl: str = "xla"
+    proj_bwd_block_n: int = 0
+    proj_bwd_block_d: int = 0
     # Loss head: "naive" materializes (B, S, V) f32 logits; "fused" computes
     # the lm head + cross-entropy blockwise (ops/fused_ce.py).
     loss_impl: str = "naive"
     loss_block_tokens: int = 1024
 
     def __post_init__(self):
+        # The reference's checks first, in its order and with its errors.
+        if self.num_experts > 0 and (
+            self.fused_gate_up or self.mlp_custom_vjp
+            or self.mlp_bwd_impl != "xla"
+        ):
+            raise ValueError(
+                "fused_gate_up/mlp_custom_vjp/mlp_bwd_impl target the dense "
+                f"MLP path and do not apply to MoE models (num_experts="
+                f"{self.num_experts}); unset them rather than measuring a "
+                "silently unfused program"
+            )
         if self.attention_impl not in PORTED_ATTENTION_IMPLS:
             raise ValueError(
                 f"attention_impl {self.attention_impl!r} is not ported to "
@@ -98,14 +125,16 @@ class ModelConfig:
             if getattr(self, knob) not in allowed:
                 raise ValueError(f"unknown {knob} {getattr(self, knob)!r} "
                                  f"({'|'.join(allowed)})")
-        if self.mlp_bwd_impl == "pallas" or self.mlp_custom_vjp:
-            raise NotImplementedError(
-                "the hand-written MLP backward (mlp_bwd_impl='pallas', "
-                "mlp_custom_vjp; K5a/K5b)" + _NOT_PORTED)
-        if self.proj_bwd_impl == "pallas":
-            raise NotImplementedError(
-                "the hand-written projection backward (proj_bwd_impl="
-                "'pallas'; K6)" + _NOT_PORTED)
+        for blk in ("mlp_bwd_block_n", "mlp_bwd_block_f", "mlp_bwd_block_d",
+                    "proj_bwd_block_n", "proj_bwd_block_d"):
+            if getattr(self, blk) < 0:
+                raise ValueError(f"{blk} must be >= 0 (0 = kernel default), "
+                                 f"got {getattr(self, blk)}")
+        if self.mlp_bwd_impl == "pallas" and not self.fused_gate_up:
+            raise ValueError(
+                "mlp_bwd_impl='pallas' requires fused_gate_up=True (the "
+                "kernels target the fused w_gu layout)"
+            )
         if self.loss_block_tokens < 1:
             raise ValueError("loss_block_tokens must be >= 1")
 

@@ -27,6 +27,13 @@ wraps each decoder layer in ``torch.utils.checkpoint`` under
 ``cfg.remat == "full"``. Training masters keep the JAX tree exactly
 (``init_train_params``, every leaf in ``cfg.param_dtype``, no separate f32
 head). MoE, LoRA, int8 caches and quantized weights raise.
+
+The hand-written backward kernels sit behind the reference's seams: under
+``proj_bwd_impl="pallas"`` every attention projection (``wq``, ``wk``,
+``wv``, ``wo``, or ``w_qkv``) goes through ``ops/projection.projection`` (K6),
+and under ``mlp_bwd_impl="pallas"`` or ``mlp_custom_vjp`` the MLP block goes
+through ``ops/mlp.mlp_block`` (K5a/K5b). Their forwards are the same
+products, so serving with these flags set gives the same outputs.
 """
 
 from __future__ import annotations
@@ -243,11 +250,22 @@ def _decoder_layer(
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn = lp["attn"]
 
+    def proj(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The attention projections' product: the ``proj_bwd_impl`` seam.
+        ``"pallas"`` keeps the forward bit-identical and swaps the backward
+        for the kernel K6 (ops/projection.py)."""
+        if cfg.proj_bwd_impl == "pallas":
+            from ditl_tpu_torch.ops.projection import projection
+
+            return projection(t, w, bwd_impl="pallas",
+                              blocks=(cfg.proj_bwd_block_n, cfg.proj_bwd_block_d))
+        return t @ w
+
     h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
     if "w_qkv" in attn:
-        q, k, v = (h @ attn["w_qkv"]).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+        q, k, v = proj(h, attn["w_qkv"]).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
     else:
-        q, k, v = h @ attn["wq"], h @ attn["wk"], h @ attn["wv"]
+        q, k, v = proj(h, attn["wq"]), proj(h, attn["wk"]), proj(h, attn["wv"])
     if "bq" in attn:  # Qwen2-family q/k/v bias
         q, k, v = q + attn["bq"], k + attn["bk"], v + attn["bv"]
     q = apply_rope(q.reshape(b, s, nh, hd), positions, cfg)
@@ -275,10 +293,24 @@ def _decoder_layer(
             q, k, v, causal=True, segment_ids=segment_ids,
             impl=cfg.attention_impl,
         )
-    x = x + attn_out.reshape(b, s, nh * hd) @ attn["wo"]
+    x = x + proj(attn_out.reshape(b, s, nh * hd), attn["wo"])
 
     h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
     mlp = lp["mlp"]
+    if cfg.mlp_custom_vjp or cfg.mlp_bwd_impl == "pallas":
+        # The hand-written backward (ops/mlp.py): the kernels K5a/K5b under
+        # "pallas", the einsum spelling otherwise.
+        if "w_gu" not in mlp:
+            raise ValueError(
+                "mlp_custom_vjp/mlp_bwd_impl='pallas' require fused_gate_up=True "
+                "(the hand-written backward targets the fused w_gu layout)"
+            )
+        from ditl_tpu_torch.ops.mlp import mlp_block
+
+        return x + mlp_block(
+            h, mlp["w_gu"], mlp["w_down"], bwd_impl=cfg.mlp_bwd_impl,
+            bwd_blocks=(cfg.mlp_bwd_block_n, cfg.mlp_bwd_block_f, cfg.mlp_bwd_block_d),
+        )
     if "w_gu" in mlp:
         gate, up = (h @ mlp["w_gu"]).chunk(2, dim=-1)
     else:

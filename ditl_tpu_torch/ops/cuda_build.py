@@ -3,7 +3,8 @@
 Each library is one ``nvcc`` call for ``sm_90a`` into a shared object with a
 plain C interface, loaded with ``ctypes``. Builds land in
 ``ditl_tpu_torch/_build/`` (git-ignored), keyed by a hash of the source, the
-flags and the compiler, and are re-used while that hash is unchanged. A
+shared headers (``csrc/*.cuh``), the flags and the compiler, and are re-used
+while that hash is unchanged. A
 failed build raises with the compiler's output.
 """
 
@@ -54,6 +55,8 @@ def build_library(source: str) -> Path:
     nvcc = find_nvcc()
     key = hashlib.sha256()
     key.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
     key.update(" ".join(NVCC_FLAGS).encode())
     key.update(nvcc.encode())
     out = BUILD_DIR / f"{src.stem}-{key.hexdigest()[:16]}.so"

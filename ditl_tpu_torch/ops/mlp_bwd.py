@@ -1,0 +1,254 @@
+"""Backward of the fused-gate|up SwiGLU MLP block: the hand-written CUDA
+kernels and their plain versions.
+
+Counterpart of the JAX package's ``ops/mlp_bwd.py``. Two kernels in
+``csrc/mlp_bwd.cu`` replace its two Pallas passes; the source's header says
+how they are laid out for Hopper:
+
+- K5a (``ditl_mlp_bwd_dgu_dwdown_bf16``) replaces ``_dgu_dwdown_kernel``:
+  ``dinner = g . w_down^T``, SwiGLU recomputed from ``gate``/``up``, ``dgate``
+  and ``dup`` written into the two halves of one (N, 2F) ``dgu`` buffer, and
+  ``d_w_down = inner^T . g``;
+- K5b (``ditl_mlp_bwd_dh_dwgu_bf16``) replaces ``_dh_dwgu_kernel``:
+  ``dh = dgu . w_gu^T`` and ``d_w_gu = h^T . dgu`` from that buffer.
+
+``fused_mlp_bwd`` is the wrapper: for CUDA tensors it launches K5a then K5b
+(``dgu_dwdown`` and ``dh_dwgu``, one launch each) or raises; only for CPU
+tensors does it run ``fused_mlp_bwd_plain``. ``launches_dgu`` and
+``launches_dh`` count the launches.
+
+``BlockSizes``, ``DEFAULT_BLOCKS``, ``_pick_blocks`` and ``supports`` are the
+reference's, copied: they decide which shapes take this backward
+(``ops/mlp.py`` takes the einsum spelling for the others), exactly as in the
+reference, so both packages run the same implementation for a given
+configuration. The CUDA kernels' tiles are their own constants (128 x 128
+output tiles): they take any N and D, F multiples of 128, which every shape
+``supports`` admits satisfies.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["fused_mlp_bwd", "fused_mlp_bwd_plain", "dgu_dwdown", "dgu_dwdown_plain",
+           "dh_dwgu", "dh_dwgu_plain", "supports", "BlockSizes", "DEFAULT_BLOCKS",
+           "launches_dgu", "launches_dh", "reset_launches"]
+
+NUM_LANES = 128
+NUM_SUBLANES = 16  # bf16-safe sublane multiple (f32 needs only 8)
+
+
+class BlockSizes(NamedTuple):
+    block_n: int  # token tile (sublane dim of activation tiles)
+    block_f: int  # intermediate-dim tile (pass 1)
+    block_d: int  # hidden-dim tile (pass 2)
+
+
+DEFAULT_BLOCKS = BlockSizes(256, 512, 128)
+
+# Kernel launches since the last reset_launches(); counted where each kernel
+# is launched and nowhere else: K5a, K5b.
+launches_dgu = 0
+launches_dh = 0
+
+_fns = None
+
+
+def reset_launches() -> None:
+    global launches_dgu, launches_dh
+    launches_dgu = launches_dh = 0
+
+
+def _pick_blocks(n: int, d: int, f: int, blocks) -> BlockSizes:
+    bn, bf, bd = blocks or (0, 0, 0)
+    bn, bf, bd = (bn or DEFAULT_BLOCKS.block_n, bf or DEFAULT_BLOCKS.block_f,
+                  bd or DEFAULT_BLOCKS.block_d)
+    return BlockSizes(min(bn, n), min(bf, f), min(bd, d))
+
+
+def supports(n: int, d: int, f: int, blocks=None) -> bool:
+    """True if the backward takes (N=B*S tokens, D hidden, F intermediate)
+    with these reference blocks; callers (ops/mlp.py) take the einsum
+    spelling otherwise."""
+    bn, bf, bd = _pick_blocks(n, d, f, blocks)
+    return (
+        n % bn == 0
+        and f % bf == 0
+        and d % bd == 0
+        and bn % NUM_SUBLANES == 0
+        and d % NUM_LANES == 0
+        and bf % NUM_LANES == 0
+        and bd % NUM_LANES == 0
+    )
+
+
+def _kernels():
+    global _fns
+    if _fns is None:
+        from ditl_tpu_torch.ops.cuda_build import load_library
+
+        lib = load_library("mlp_bwd.cu")
+        dgu_fn, dh_fn = lib.ditl_mlp_bwd_dgu_dwdown_bf16, lib.ditl_mlp_bwd_dh_dwgu_bf16
+        dgu_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_long] * 3 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        dh_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_long] + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        dgu_fn.restype = dh_fn.restype = ctypes.c_int
+        _fns = (dgu_fn, dh_fn)
+    return _fns
+
+
+def _cuda_rows(name: str, t: torch.Tensor, device) -> int:
+    """What the kernels take of a 2-D operand: bf16 on ``device``, unit
+    column stride, 16-byte aligned rows. Returns the row stride."""
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device}, not {t.device}")
+    if t.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the CUDA MLP and projection backward kernels take bfloat16, got "
+            f"{name} {t.dtype} (f32 kernels are queued in ROADMAP.md)")
+    if t.dim() != 2 or t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 2-D with unit column stride and 16-byte "
+                         f"aligned rows, got strides {t.stride()}")
+    return t.stride(0)
+
+
+def _as_rows(t: torch.Tensor, n: int, cols: int) -> torch.Tensor:
+    """(..., cols) -> (n, cols): a view where the strides allow it (gate and
+    up stay views of gu), else a contiguous copy."""
+    t2 = t.reshape(n, cols)
+    if t2.stride(1) != 1 or t2.stride(0) % 8 or t2.data_ptr() % 16:
+        t2 = t2.contiguous()
+    return t2
+
+
+def dgu_dwdown_plain(g: torch.Tensor, w_down: torch.Tensor, gate: torch.Tensor,
+                     up: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5a on (N, D) g, (F, D) w_down, (N, F) gate/up:
+    returns (dgu (N, 2F) in g's dtype, d_w_down in w_down's dtype)."""
+    dinner = g.float() @ w_down.float().T
+    gate, up = gate.float(), up.float()
+    sg = torch.sigmoid(gate)
+    silu = gate * sg
+    dgate = dinner * up * (sg * (1.0 + gate * (1.0 - sg)))
+    dup = dinner * silu
+    dgu = torch.cat([dgate.to(g.dtype), dup.to(g.dtype)], dim=-1)
+    inner = (silu * up).to(g.dtype)
+    d_w_down = (inner.float().T @ g.float()).to(w_down.dtype)
+    return dgu, d_w_down
+
+
+def dh_dwgu_plain(h: torch.Tensor, dgu: torch.Tensor, w_gu: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5b on (N, D) h, (N, 2F) dgu, (D, 2F) w_gu: returns
+    (dh in h's dtype, d_w_gu in w_gu's dtype)."""
+    dh = (dgu.float() @ w_gu.float().T).to(h.dtype)
+    d_w_gu = (h.float().T @ dgu.float()).to(w_gu.dtype)
+    return dh, d_w_gu
+
+
+def fused_mlp_bwd_plain(h, w_gu, w_down, gate, up, g):
+    """What the two Pallas passes compute, in one pass: ``dinner = g .
+    w_down^T`` in f32; SwiGLU recomputed from gate/up in f32; ``dgate``,
+    ``dup`` and ``inner`` rounded to g's dtype; ``d_w_down = inner^T . g``,
+    ``dh = dgu . w_gu^T`` and ``d_w_gu = h^T . dgu`` with f32 sums, in the
+    reference's output dtypes. Returns (dh, d_w_gu, d_w_down)."""
+    b, s, d = h.shape
+    f = w_down.shape[0]
+    n = b * s
+    dgu, d_w_down = dgu_dwdown_plain(g.reshape(n, d), w_down, gate.reshape(n, f),
+                                     up.reshape(n, f))
+    dh, d_w_gu = dh_dwgu_plain(h.reshape(n, d), dgu, w_gu)
+    return dh.reshape(b, s, d), d_w_gu, d_w_down
+
+
+def dgu_dwdown(g: torch.Tensor, w_down: torch.Tensor, gate: torch.Tensor,
+               up: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5a on CUDA tensors: (N, D) g, (F, D) w_down, (N, F) gate and up, up
+    at a fixed offset from gate with gate's row stride (the halves of the
+    forward's gu). Returns (dgu (N, 2F), d_w_down (F, D))."""
+    global launches_dgu
+    n, d = g.shape
+    f = w_down.shape[0]
+    dev = g.device
+    ld_g = _cuda_rows("g", g, dev)
+    ld_gu = _cuda_rows("gate", gate, dev)
+    if (_cuda_rows("up", up, dev) != ld_gu or gate.shape != (n, f) or up.shape != (n, f)
+            or (up.data_ptr() - gate.data_ptr()) % 16):
+        raise ValueError("gate and up must be (N, F) with one row stride and "
+                         "16-byte aligned")
+    w_down = w_down.contiguous()
+    _cuda_rows("w_down", w_down, dev)
+    if w_down.shape[1] != d or d % NUM_LANES or f % NUM_LANES:
+        raise ValueError(f"w_down {tuple(w_down.shape)} must be (F, D), both "
+                         "multiples of 128")
+    dgu = torch.empty((n, 2 * f), dtype=g.dtype, device=dev)
+    d_w_down = torch.empty((f, d), dtype=w_down.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernels()[0](g.data_ptr(), w_down.data_ptr(), gate.data_ptr(),
+                            dgu.data_ptr(), d_w_down.data_ptr(), ld_g, ld_gu,
+                            (up.data_ptr() - gate.data_ptr()) // 2, n, d, f, stream)
+    if err != 0:
+        raise RuntimeError(f"mlp_bwd dgu kernel launch failed: CUDA error {err}")
+    launches_dgu += 1
+    return dgu, d_w_down
+
+
+def dh_dwgu(h: torch.Tensor, dgu: torch.Tensor, w_gu: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5b on CUDA tensors: (N, D) h, (N, 2F) dgu, (D, 2F) w_gu. Returns
+    (dh (N, D), d_w_gu (D, 2F))."""
+    global launches_dh
+    n, d = h.shape
+    f2 = w_gu.shape[1]
+    dev = h.device
+    ld_h = _cuda_rows("h", h, dev)
+    dgu, w_gu = dgu.contiguous(), w_gu.contiguous()
+    _cuda_rows("dgu", dgu, dev)
+    _cuda_rows("w_gu", w_gu, dev)
+    if dgu.shape != (n, f2) or w_gu.shape != (d, f2) or d % NUM_LANES or f2 % (2 * NUM_LANES):
+        raise ValueError(f"dgu {tuple(dgu.shape)} and w_gu {tuple(w_gu.shape)} must be "
+                         "(N, 2F) and (D, 2F), D and F multiples of 128")
+    dh = torch.empty((n, d), dtype=h.dtype, device=dev)
+    d_w_gu = torch.empty((d, f2), dtype=w_gu.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernels()[1](h.data_ptr(), dgu.data_ptr(), w_gu.data_ptr(), dh.data_ptr(),
+                            d_w_gu.data_ptr(), ld_h, n, d, f2 // 2, stream)
+    if err != 0:
+        raise RuntimeError(f"mlp_bwd dh kernel launch failed: CUDA error {err}")
+    launches_dh += 1
+    return dh, d_w_gu
+
+
+def fused_mlp_bwd(
+    h: torch.Tensor,       # (B, S, D)
+    w_gu: torch.Tensor,    # (D, 2F)
+    w_down: torch.Tensor,  # (F, D)
+    gate: torch.Tensor,    # (B, S, F) forward residual
+    up: torch.Tensor,      # (B, S, F) forward residual
+    g: torch.Tensor,       # (B, S, D) output cotangent
+    *,
+    blocks=None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused-gate|up MLP block backward: ``(dh, d_w_gu, d_w_down)``.
+    Raises ``ValueError`` on shapes ``supports`` rejects, as the reference
+    does. CUDA tensors launch K5a then K5b (bf16; other dtypes raise); CPU
+    tensors run the plain version."""
+    b, s, d = h.shape
+    f = w_down.shape[0]
+    n = b * s
+    if not supports(n, d, f, blocks):
+        raise ValueError(f"fused_mlp_bwd cannot tile N={n} D={d} F={f} (blocks={blocks})")
+    if h.device.type == "cpu":
+        return fused_mlp_bwd_plain(h, w_gu, w_down, gate, up, g)
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_mlp_bwd runs on cuda or cpu, not {h.device}")
+    dgu, d_w_down = dgu_dwdown(_as_rows(g, n, d), w_down, _as_rows(gate, n, f),
+                               _as_rows(up, n, f))
+    dh, d_w_gu = dh_dwgu(_as_rows(h, n, d), dgu, w_gu)
+    return dh.reshape(b, s, d), d_w_gu, d_w_down

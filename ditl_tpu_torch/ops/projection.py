@@ -1,0 +1,175 @@
+"""Dense projection with a hand-written backward: the CUDA kernel K6 and its
+plain version.
+
+Counterpart of the JAX package's ``ops/projection.py``. ``projection(x, w)``
+is ``x @ w`` (the inline path's product, bit-identical) whose backward is
+chosen by ``bwd_impl``:
+
+- ``"pallas"``: ``projection_bwd``, the wrapper of K6
+  (``csrc/projection_bwd.cu``, ``ditl_proj_bwd_bf16``, replacing
+  ``_bwd_kernel``), which emits ``dx = g . w^T`` and ``dw = x^T . g`` from one
+  launch. For CUDA tensors it launches the kernel or raises; only for CPU
+  tensors does it run ``projection_bwd_plain``. ``launches`` counts launches.
+- ``"xla"``, or a shape ``supports`` rejects: the einsum spelling
+  (``projection.py:164-165`` of the reference).
+
+``BlockSizes``, ``DEFAULT_BLOCKS``, ``_pick_blocks`` and ``supports`` are the
+reference's, copied, so both packages take the kernel for the same shapes;
+the CUDA kernel's tiles are its own constants. Meshes belong to the multi-GPU
+slice and raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ditl_tpu_torch.ops.mlp_bwd import _as_rows, _cuda_rows
+
+__all__ = ["projection", "projection_bwd", "projection_bwd_plain", "supports",
+           "effective_bwd_impl", "BlockSizes", "DEFAULT_BLOCKS", "launches",
+           "reset_launches"]
+
+NUM_LANES = 128
+NUM_SUBLANES = 16
+
+
+class BlockSizes(NamedTuple):
+    block_n: int  # token tile
+    block_d: int  # input-feature tile
+
+
+DEFAULT_BLOCKS = BlockSizes(256, 256)
+
+# K6 launches since the last reset_launches(), counted where it is launched.
+launches = 0
+
+_fn = None
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _pick_blocks(n: int, d: int, blocks) -> BlockSizes:
+    bn, bd = blocks or (0, 0)
+    bn, bd = bn or DEFAULT_BLOCKS.block_n, bd or DEFAULT_BLOCKS.block_d
+    return BlockSizes(min(bn, n), min(bd, d))
+
+
+def supports(n: int, d: int, f: int, blocks=None) -> bool:
+    """True if the backward kernel takes x (N=B*S, D) @ w (D, F)."""
+    bn, bd = _pick_blocks(n, d, blocks)
+    return (
+        n % bn == 0
+        and d % bd == 0
+        and bn % NUM_SUBLANES == 0
+        and bd % NUM_LANES == 0
+        and f % NUM_LANES == 0
+    )
+
+
+def effective_bwd_impl(bwd_impl: str, b: int, s: int, d: int, f: int,
+                       blocks=(), mesh=None) -> str:
+    """The backward ``projection`` actually runs for a (B, S, d) @ (d, f)
+    projection on one device (the reference's ``pallas_bwd_effective`` with
+    ``mesh=None``)."""
+    if mesh is not None:
+        raise NotImplementedError("projection under a mesh belongs to the multi-GPU "
+                                  "slice, not ported to PyTorch yet (see ROADMAP.md)")
+    if bwd_impl != "pallas":
+        return bwd_impl
+    return "pallas" if supports(b * s, d, f, tuple(blocks or ())) else "xla"
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from ditl_tpu_torch.ops.cuda_build import load_library
+
+        fn = load_library("projection_bwd.cu").ditl_proj_bwd_bf16
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_long] * 2 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def projection_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6 on x (..., D), w (D, F), g (..., F): ``dx = g .
+    w^T`` and ``dw = x^T . g`` with f32 sums, in x's and w's dtypes."""
+    d, f = w.shape
+    x2, g2 = x.reshape(-1, d).float(), g.reshape(-1, f).float()
+    dx = (g2 @ w.float().T).to(x.dtype).reshape(x.shape)
+    dw = (x2.T @ g2).to(w.dtype)
+    return dx, dw
+
+
+def projection_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
+                   blocks=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of ``x @ w`` for x (B, S, D), w (D, F) and the output's
+    gradient g (B, S, F). Raises ``ValueError`` on shapes ``supports``
+    rejects. CUDA tensors launch K6 (bf16; other dtypes raise); CPU tensors
+    run the plain version."""
+    global launches
+    b, s, d = x.shape
+    f = w.shape[1]
+    n = b * s
+    if g.shape != (b, s, f) or w.shape[0] != d:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)} and g "
+                         f"{tuple(g.shape)} must be (B, S, D), (D, F), (B, S, F)")
+    if not supports(n, d, f, blocks):
+        raise ValueError(f"projection_bwd cannot tile N={n} D={d} F={f} (blocks={blocks})")
+    if x.device.type == "cpu":
+        return projection_bwd_plain(x, w, g)
+    if x.device.type != "cuda":
+        raise ValueError(f"projection_bwd runs on cuda or cpu, not {x.device}")
+    x2, g2, w = _as_rows(x, n, d), _as_rows(g, n, f), w.contiguous()
+    ld_x, ld_g = _cuda_rows("x", x2, x.device), _cuda_rows("g", g2, x.device)
+    _cuda_rows("w", w, x.device)
+    dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
+    dw = torch.empty((d, f), dtype=w.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _kernel()(x2.data_ptr(), w.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+                        dw.data_ptr(), ld_x, ld_g, n, d, f, stream)
+    if err != 0:
+        raise RuntimeError(f"projection_bwd kernel launch failed: CUDA error {err}")
+    launches += 1
+    return dx.reshape(b, s, d), dw
+
+
+class _Projection(torch.autograd.Function):
+    """``x @ w`` forward; K6 or the einsum spelling backward (the
+    reference's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bwd_impl, blocks):
+        ctx.bwd_impl, ctx.blocks = bwd_impl, blocks
+        ctx.save_for_backward(x, w)
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if ctx.bwd_impl == "pallas" and supports(
+                x.shape[0] * x.shape[1], x.shape[2], w.shape[1], ctx.blocks):
+            # Looked up at call time, so a caller may rebind the wrapper.
+            dx, dw = projection_bwd(x, w, g, blocks=ctx.blocks)
+        else:
+            dx = torch.einsum("bsf,df->bsd", g, w).to(x.dtype)
+            dw = torch.einsum("bsd,bsf->df", x, g).to(w.dtype)
+        return dx, dw, None, None
+
+
+def projection(x: torch.Tensor, w: torch.Tensor, *, bwd_impl: str = "xla",
+               blocks=None, mesh=None) -> torch.Tensor:
+    """``x @ w`` for x (B, S, D), w (D, F) plain float, whose backward is
+    dispatched per ``bwd_impl`` (``effective_bwd_impl``)."""
+    b, s, d = x.shape
+    eff = effective_bwd_impl(bwd_impl, b, s, d, w.shape[1], blocks, mesh)
+    return _Projection.apply(x, w, eff, tuple(blocks or ()))

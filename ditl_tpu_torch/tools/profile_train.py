@@ -1,17 +1,24 @@
 """Where one training step's time goes on the card.
 
-    python -m ditl_tpu_torch.tools.profile_train [launcher arguments ...]
+    python -m ditl_tpu_torch.tools.profile_train [section.field=value ...]
 
-Takes the launcher's arguments (default: ``chip_smoke.py``'s training path,
-``llama3-8b`` at full width and depth, B=4, S=2048), builds the train state,
-runs ``--warmup`` steps, then:
+Starts from ``chip_smoke.py``'s training path (``DEFAULT_ARGS``: ``llama3-8b``
+at full width and depth, B=4, S=2048) and applies the launcher's arguments
+given on the command line on top of it, so that, for example,
+
+    python -m ditl_tpu_torch.tools.profile_train model.fused_gate_up=true \
+        model.mlp_bwd_impl=pallas model.proj_bwd_impl=pallas
+
+breaks down a step of training path 4 (the MLP and projection backward
+kernels). It builds the train state, runs ``--warmup`` steps, then:
 
 1. times ``--steps`` steps with the host clock after ``synchronize``, split
    into forward + backward and the optimizer (global norm, clip, update);
 2. traces ``--steps`` more steps with ``torch.profiler`` and sums the
    device time of every kernel by category (the flash kernels K1/K2a/K2b,
-   GEMMs, the rest), against the traced wall time: the device's idle share
-   is what the kernels leave of it.
+   the MLP and projection backward kernels K5a/K5b/K6, GEMMs, the rest),
+   against the traced wall time: the device's idle share is what the
+   kernels leave of it.
 
 Prints one JSON object as its last line. Needs the card; it does not fall
 back to the CPU.
@@ -38,6 +45,9 @@ CATEGORIES = (  # (category, substrings of kernel names), first match wins
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K2a flash_dq", ("flash_bwd_dq_kernel",)),
     ("K2b flash_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K5a mlp_dgu_dwdown", ("mlp_dgu_dwdown_kernel",)),
+    ("K5b mlp_dh_dwgu", ("mlp_dh_dwgu_kernel",)),
+    ("K6 proj_bwd", ("proj_bwd_kernel",)),
     ("GEMM", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")),
     ("elementwise/reduce", ("elementwise", "reduce", "vectorized", "unrolled",
                             "index", "scatter", "gather", "softmax", "cat", "copy",
@@ -70,7 +80,7 @@ def main(argv: list[str] | None = None) -> int:
     from ditl_tpu_torch.train.step import cast_for_compute, loss_fn, train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    config, device = build_config(rest or DEFAULT_ARGS)
+    config, device = build_config(DEFAULT_ARGS + rest)
     cfg = config.model
     pipe = DataPipeline(load_text_dataset(config.data), get_tokenizer(config.data.tokenizer),
                         config.data, device)
@@ -144,7 +154,7 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({
         "device": smi, "config": {"model": cfg.name, "layers": cfg.num_layers,
                                   "batch": config.data.batch_size,
-                                  "seq": config.data.seq_len},
+                                  "seq": config.data.seq_len, "overrides": rest},
         "forward_backward_s": fb, "optimizer_s": upd, "traced_step_ms": step_ms,
         "kernel_ms_per_step": by_cat, "device_idle_share": 1 - busy / step_ms,
         "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2**30,

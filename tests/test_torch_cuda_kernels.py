@@ -224,3 +224,124 @@ def test_flash_bwd_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_bwd(q, k, v, o, lse, do.transpose(1, 2).contiguous().transpose(1, 2))
     assert (tfa.launches_dq, tfa.launches_dkv) == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# K5a/K5b (MLP backward) and K6 (projection backward)
+# ---------------------------------------------------------------------------
+
+# Each output within MM_TOL of its own largest magnitude: the kernels and the
+# plain versions take the same bf16 operands with f32 sums in other orders,
+# and round dgate, dup and inner to bf16 at the same places; a sum rounded
+# to bf16 on one side can land one ulp off (2^-8 relative) on the other.
+MM_TOL = 1e-2
+
+
+def _rnd(cuda, *shape, seed, scale=1.0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=cuda) * scale).bfloat16()
+
+
+def _assert_scaled(name, got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    assert bool(torch.isfinite(got.float()).all()), name
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=MM_TOL * scale,
+                               msg=name)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("n,d,f", [(1024, 512, 768), (2064, 256, 384)])
+def test_mlp_bwd_kernels_match_plain(cuda, n, d, f):
+    """K5a and K5b against their plain versions, gate/up as the halves of
+    one gu buffer and K5b fed the same dgu as its plain version; the second
+    shape has a ragged token edge (N = 2064 = 16 x 129)."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+
+    h = _rnd(cuda, n, d, seed=1)
+    w_gu = _rnd(cuda, d, 2 * f, seed=2, scale=d**-0.5)
+    w_down = _rnd(cuda, f, d, seed=3, scale=f**-0.5)
+    g = _rnd(cuda, n, d, seed=4)
+    gu = (h.float() @ w_gu.float()).bfloat16()
+    gate, up = gu.chunk(2, dim=-1)
+    tmb.reset_launches()
+    dgu, d_w_down = tmb.dgu_dwdown(g, w_down, gate, up)
+    dgu_ref, d_w_down_ref = tmb.dgu_dwdown_plain(g, w_down, gate, up)
+    dh, d_w_gu = tmb.dh_dwgu(h, dgu, w_gu)
+    dh_ref, d_w_gu_ref = tmb.dh_dwgu_plain(h, dgu, w_gu)
+    torch.cuda.synchronize()
+    assert (tmb.launches_dgu, tmb.launches_dh) == (1, 1)
+    for name, x, r in (("dgu", dgu, dgu_ref), ("d_w_down", d_w_down, d_w_down_ref),
+                       ("dh", dh, dh_ref), ("d_w_gu", d_w_gu, d_w_gu_ref)):
+        _assert_scaled(name, x, r)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("n,d,f,strided", [(1024, 512, 256, False), (2064, 256, 384, True)])
+def test_proj_bwd_kernel_matches_plain(cuda, n, d, f, strided):
+    """K6 against its plain version; with ``strided`` the incoming gradient
+    is a column slice of a wider one (row stride > F), as the grad of a fused
+    projection's split."""
+    from ditl_tpu_torch.ops import projection as tpr
+
+    x = _rnd(cuda, 1, n, d, seed=5)
+    w = _rnd(cuda, d, f, seed=6, scale=d**-0.5)
+    g = _rnd(cuda, 1, n, f + 128 if strided else f, seed=7)[..., :f]
+    tpr.reset_launches()
+    dx, dw = tpr.projection_bwd(x, w, g, blocks=(16, 128))  # admits N = 2064
+    dx_ref, dw_ref = tpr.projection_bwd_plain(x, w, g)
+    torch.cuda.synchronize()
+    assert tpr.launches == 1
+    _assert_scaled("dx", dx, dx_ref)
+    _assert_scaled("dw", dw, dw_ref)
+
+
+@pytest.mark.torch_port
+def test_mlp_and_projection_autograd_launch_k5_k6(cuda):
+    """One forward and backward through ``mlp_gu`` and ``projection`` with
+    ``"pallas"``: one K5a, one K5b and one K6 launch, and the gradients of the
+    einsum spelling."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+    from ditl_tpu_torch.ops import projection as tpr
+    from ditl_tpu_torch.ops.mlp import mlp_gu
+
+    h = _rnd(cuda, 2, 256, 256, seed=8)
+    w_gu = _rnd(cuda, 256, 512, seed=9, scale=1 / 16)
+    w_down = _rnd(cuda, 256, 256, seed=10, scale=1 / 16)
+    w = _rnd(cuda, 256, 256, seed=11, scale=1 / 16)
+    grads = {}
+    for impl in ("pallas", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (h, w_gu, w_down, w)]
+        tmb.reset_launches()
+        tpr.reset_launches()
+        out = mlp_gu(*leaves[:3], impl, (64, 128, 128))
+        out = tpr.projection(out, leaves[3], bwd_impl=impl, blocks=(64, 128))
+        grads[impl] = torch.autograd.grad(out.float().square().sum(), leaves)
+        torch.cuda.synchronize()
+        want = (1, 1, 1) if impl == "pallas" else (0, 0, 0)
+        assert (tmb.launches_dgu, tmb.launches_dh, tpr.launches) == want
+    for name, x, r in zip(("dh", "d_w_gu", "d_w_down", "dw"), grads["pallas"],
+                          grads["xla"]):
+        scale = float(r.float().abs().max())
+        torch.testing.assert_close(x.float(), r.float(), rtol=0, atol=3 * MM_TOL * scale,
+                                   msg=name)
+
+
+@pytest.mark.torch_port
+def test_mlp_and_projection_bwd_raise_instead_of_falling_back(cuda):
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+    from ditl_tpu_torch.ops import projection as tpr
+
+    h = _rnd(cuda, 1, 64, 256, seed=12)
+    w_gu, w_down = _rnd(cuda, 256, 256, seed=13), _rnd(cuda, 128, 256, seed=14)
+    gate, up = _rnd(cuda, 1, 64, 256, seed=15).chunk(2, dim=-1)
+    tmb.reset_launches()
+    tpr.reset_launches()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmb.fused_mlp_bwd(h.float(), w_gu.float(), w_down.float(), gate.float(),
+                          up.float(), h.float())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpr.projection_bwd(h.float(), w_gu.float(), h.float())
+    with pytest.raises(ValueError, match="tile"):
+        tpr.projection_bwd(h[:, :50], w_gu, h[:, :50])
+    assert (tmb.launches_dgu, tmb.launches_dh, tpr.launches) == (0, 0, 0)

@@ -64,9 +64,11 @@ def test_port_package_has_modules():
                  "infer.server", "data.tokenizer", "utils.logging", "utils.http11",
                  "data.dataset", "data.sampler", "data.loader", "ops.fused_ce",
                  "train.state", "train.step", "train.metrics", "train.trainer",
-                 "launch"):
+                 "launch", "ops.mlp", "ops.mlp_bwd", "ops.projection",
+                 "tools.profile_train"):
         assert f"ditl_tpu_torch.{name}" in mods
-    for source in ("flash_fwd.cu", "paged_attention.cu", "flash_bwd.cu"):
+    for source in ("flash_fwd.cu", "paged_attention.cu", "flash_bwd.cu", "mlp_bwd.cu",
+                   "projection_bwd.cu", "gemm_tile.cuh"):
         assert (PORT / "csrc" / source).is_file()
 
 
@@ -109,8 +111,7 @@ def test_model_config_matches_jax_field_for_field():
     assert set(jf) - set(tf) == {
         "num_experts_per_tok", "router_aux_coef", "lora_alpha", "lora_dropout",
         "flash_block_q", "flash_block_kv", "flash_block_q_bwd", "flash_block_kv_bwd",
-        "scan_unroll", "mlp_bwd_block_n", "mlp_bwd_block_f", "mlp_bwd_block_d",
-        "proj_bwd_block_n", "proj_bwd_block_d", "pipeline_microbatches"}
+        "scan_unroll", "pipeline_microbatches"}
 
 
 @pytest.mark.parametrize("name,left_out", [

@@ -273,6 +273,16 @@ STEP_CASES = {  # id: (model overrides, train overrides)
         dict(attention_impl="flash", remat="full", loss_impl="fused",
              loss_block_tokens=256, dtype="bfloat16"),
         dict(optimizer="adafactor", grad_accum_steps=1)),
+    # The MLP and projection backward kernels (K5a/K5b, K6) on both sides.
+    # The blocks admit TINY's shapes in both packages' supports (asserted in
+    # the test); fused_qkv, because TINY's unfused wk/wv (64 columns) are
+    # not lane-tileable and would take the einsum backward.
+    "flash-adafactor-remat_full-mlp_proj_kernels": (
+        dict(attention_impl="flash", remat="full", fused_gate_up=True, fused_qkv=True,
+             mlp_bwd_impl="pallas", proj_bwd_impl="pallas", mlp_bwd_block_n=64,
+             mlp_bwd_block_f=128, mlp_bwd_block_d=128, proj_bwd_block_n=64,
+             proj_bwd_block_d=128),
+        dict(optimizer="adafactor", grad_accum_steps=1)),
 }
 
 
@@ -283,6 +293,22 @@ def test_train_steps_match_jax(case):
     model_kw, train_kw = (dict(kw) for kw in STEP_CASES[case])
     dtype = model_kw.pop("dtype", "float32")
     jcfg, cfg = _configs(dtype, **model_kw)
+    if cfg.mlp_bwd_impl == "pallas":  # both sides run the kernel path
+        from ditl_tpu.ops import mlp as jmlp
+        from ditl_tpu.ops import projection as jproj
+        from ditl_tpu_torch.ops import mlp as tmlp
+        from ditl_tpu_torch.ops import projection as tproj
+
+        b, s, d, hd = 4, 128, cfg.hidden_size, cfg.head_dim
+        mlp_blocks = (cfg.mlp_bwd_block_n, cfg.mlp_bwd_block_f, cfg.mlp_bwd_block_d)
+        proj_blocks = (cfg.proj_bwd_block_n, cfg.proj_bwd_block_d)
+        for mod, pmod in ((jmlp, jproj), (tmlp, tproj)):
+            assert mod.effective_bwd_impl("pallas", b, s, d, cfg.intermediate_size,
+                                          mlp_blocks) == "pallas"
+            for d_in, d_out in ((d, (cfg.num_heads + 2 * cfg.num_kv_heads) * hd),
+                                (cfg.num_heads * hd, d)):
+                assert pmod.effective_bwd_impl("pallas", b, s, d_in, d_out,
+                                               proj_blocks) == "pallas"
     kw = dict(learning_rate=1e-2, warmup_steps=1, total_steps=5, **train_kw)
     jtcfg, tcfg = JTrainConfig(**kw), TrainConfig(**kw)
     params = _jax_params(jcfg)
@@ -395,9 +421,7 @@ def test_config_overrides_and_unported_knobs():
             config.data.seq_len, device) == ("llama3-8b", 32, "bfloat16", 2048, "cuda")
     config, _ = build_config(["model.name=llama3-8b", "model.num_layers=2"])
     assert (config.model.hidden_size, config.model.num_layers) == (4096, 2)
-    for bad in (["model.remat=dots"], ["model.remat=attn"], ["model.mlp_bwd_impl=pallas"],
-                ["model.proj_bwd_impl=pallas"], ["model.mlp_custom_vjp=true"],
-                ["train.checkpoint_dir=/x"], ["train.val_every=2"], ["train.eval_every=2"],
+    for bad in (["model.remat=dots"], ["model.remat=attn"], ["train.checkpoint_dir=/x"], ["train.val_every=2"], ["train.eval_every=2"],
                 ["train.steps_per_call=2"], ["train.init_from_hf=/x"],
                 ["train.telemetry_dir=/x"], ["train.profile_dir=/x"],
                 ["train.fault_nan_step=3"], ["mesh.fsdp=2"], ["chaos.rules=x"],
