@@ -10,7 +10,9 @@ no result line. It imports nothing of JAX or of the JAX package.
 2. Build: every ``ditl_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one nvcc
    per source, all started together; prints ptxas' register/spill lines.
 3. Kernels against their plain PyTorch versions on the card: K1 (flash
-   forward) at the serving prefill shapes and ragged ones, K2a/K2b (flash
+   forward) at the serving prefill shapes, the training batch, ragged
+   lengths (S = 129, 300, 2064), every head dim with and without causal
+   masking, non-monotone ids and a boundary one row past a tile edge, K2a/K2b (flash
    backward) at the training shape (B=4, S=2048, 32/8 heads, D=128, the
    pipeline's packed rows) and ragged ones, K3 (paged decode with the
    tail) and K4 (without) at the decode tick's shape and ragged ones
@@ -19,7 +21,9 @@ no result line. It imports nothing of JAX or of the JAX package.
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
    card's bound for the same work from this run's inputs; K1, K2a and K2b
-   also at the training shape.
+   also at the training shape, on one document per row (SDPA on the same
+   inputs) and on the pipeline's packed rows (K1 against SDPA with the same
+   packed causal mask), with K1's visited tiles.
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -340,11 +344,35 @@ def phase_build() -> None:
                 log(f"[build] {name}: {line.strip()}")
 
 
-def phase_kernels(flash) -> dict:
+def _segment_ids(kind, b, s, train_seg):
+    """(B, S) int32 ids for a K1 case: ``"train"`` the training pipeline's
+    first batch, ``"nonmono"`` runs of random length (seeded) with ids that
+    go up and down, ``"edge1"`` a boundary one row past a tile edge (ids 1
+    up to position 129, then 2)."""
+    import torch
+
+    if kind == "train":
+        return train_seg
+    if kind == "edge1":
+        ids = torch.ones(b, s, dtype=torch.int32)
+        ids[:, 129:] = 2
+    else:
+        rng = random.Random(s)
+        rows = []
+        for _ in range(b):
+            row: list[int] = []
+            while len(row) < s:
+                row += [rng.randrange(4)] * rng.randrange(1, 97)
+            rows.append(row[:s])
+        ids = torch.tensor(rows, dtype=torch.int32)
+    return ids.cuda().contiguous()
+
+
+def phase_kernels(flash, train_seg) -> dict:
     """Each kernel against its plain version; returns the max abs error."""
     import torch
 
-    cases = [  # (b, s_q, s_kv, h, kv, d, causal, lengths, packed)
+    cases = [  # (b, s_q, s_kv, h, kv, d, causal, lengths or segment kind, packed)
         (4, 512, 512, 32, 8, 128, True, [512, 401, 230, 97], False),  # batched prefill
         (1, 512, 512, 32, 8, 128, True, [401], False),  # one request, 512 bucket
         (1, 256, 256, 32, 8, 128, True, [227], False),  # one request, 256 bucket
@@ -352,11 +380,25 @@ def phase_kernels(flash) -> dict:
         (2, 200, 333, 16, 4, 128, False, None, False),  # ragged, non-causal
         (2, 300, 300, 8, 2, 64, True, [300, 170], True),  # head_dim 64, packed
         (1, 130, 130, 4, 4, 32, True, None, False),  # head_dim 32, MHA
+        (4, 2048, 2048, 32, 8, 128, True, "train", False),  # the training batch
+        (2, 300, 300, 8, 2, 128, True, "nonmono", False),  # ids up and down
+        (1, 257, 257, 4, 2, 128, True, "edge1", False),  # boundary past a tile edge
+        (1, 129, 129, 4, 1, 128, True, None, False),
+        (1, 2064, 2064, 8, 2, 128, True, "nonmono", False),
+        (2, 300, 300, 4, 2, 32, True, "nonmono", False),  # every head dim, both masks
+        (2, 300, 300, 4, 2, 32, False, "nonmono", False),
+        (2, 300, 300, 4, 2, 64, True, "nonmono", False),
+        (2, 300, 300, 4, 2, 64, False, "edge1", False),
+        (2, 300, 300, 4, 2, 128, False, "nonmono", False),
+        (2, 300, 300, 4, 2, 128, False, None, False),
     ]
     worst = 0.0
     for i, (b, sq, skv, h, kv, d, causal, lengths, packed) in enumerate(cases):
-        q, k, v, seg = _attn_inputs(b, sq, skv, h, kv, d, seed=i, lengths=lengths,
-                                    packed=packed)
+        kind = lengths if isinstance(lengths, str) else None
+        q, k, v, seg = _attn_inputs(b, sq, skv, h, kv, d, seed=i,
+                                    lengths=None if kind else lengths, packed=packed)
+        if kind:
+            seg = _segment_ids(kind, b, sq, train_seg)
         o, lse = flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
         o_ref, lse_ref = flash.flash_attention_plain(q, k, v, causal=causal,
                                                      segment_ids=seg)
@@ -369,8 +411,9 @@ def phase_kernels(flash) -> dict:
         torch.testing.assert_close(lse, lse_ref, atol=LSE_TOL, rtol=LSE_TOL)
         worst = max(worst, err)
         log(f"[kernels] flash_fwd B={b} Sq={sq} Skv={skv} H={h} K={kv} D={d} "
-            f"causal={causal} seg={'yes' if seg is not None else 'no'}: "
+            f"causal={causal} seg={kind or ('yes' if seg is not None else 'no')}: "
             f"max|o-plain|={err:.3e} max|lse-plain|={lse_err:.3e} ok")
+        del q, k, v, o, lse, o_ref, lse_ref
     return {"flash_fwd": worst}
 
 
@@ -382,6 +425,10 @@ def phase_timings(flash) -> dict:
     shapes = [  # (label, b, s, lengths): the first goes into the kernels line
         ("B=4 S=512", 4, 512, [512, 401, 230, 97]),
         ("B=1 S=512", 1, 512, [401]),
+        # the continuous engine's cold prefills: one request, 128 to 2048
+        # positions (at S=128, K1 launches 32 blocks for the 132 SMs)
+        ("B=1 S=128", 1, 128, [101]),
+        ("B=1 S=2048", 1, 2048, [1501]),
     ]
     for label, b, s, lengths in shapes:
         q, k, v, seg = _attn_inputs(b, s, s, 32, 8, 128, seed=100, lengths=lengths)
@@ -530,62 +577,109 @@ def _bwd_launchers(flash, q, k, v, o, lse, do, seg, causal):
     return run_dq, run_dkv, (delta, dq, dk, dv)
 
 
+def _k1_tiles(flash, seg, causal, s) -> str:
+    """K1's visited tiles at the training tiling (``tile_schedule``): the
+    key tiles its blocks load and those its warpgroups compute, against the
+    causal tiles of one document per row."""
+    b = 4 if seg is None else seg.shape[0]
+    block_kv = flash.fwd_block_kv(128)
+    counts = []
+    for block_q in (flash.FWD_BLOCK_Q, flash.FWD_WARPGROUP_ROWS):
+        visit = int(flash.tile_schedule(seg, causal, s, s, block_q, block_kv).sum())
+        every = int(flash.tile_schedule(None, causal, s, s, block_q, block_kv).sum())
+        counts.append(f"{visit * (b if seg is None else 1)}/{every * b}")
+    return (f"K1 tiles visited: {counts[0]} block tiles loaded, {counts[1]} warpgroup "
+            f"tiles computed, of the causal tiles")
+
+
 def phase_train_timings(flash, train_seg) -> dict:
     """K1, K2a and K2b at the training shape (B=4, S=2048, 32/8 heads,
-    D=128, the pipeline's packed rows): CUDA events over back-to-back
-    calls, the better of two runs; the plain versions; one
-    scaled_dot_product_attention (causal, enable_gqa, one document per row)
-    forward, and the backward of one such call (autograd.grad of its output,
-    graph kept) as the library yardsticks; the bounds from these inputs."""
+    D=128, causal) on two inputs: one document per row, the same q/k/v as
+    one scaled_dot_product_attention call (causal, enable_gqa), whose
+    forward and backward (autograd.grad of its output, graph kept) are the
+    library yardsticks; and the pipeline's packed rows, where K1's yardstick
+    is SDPA given the same packed causal mask as a boolean ``attn_mask`` (KV
+    heads expanded outside the timed call): the same function on the same
+    inputs (K2a/K2b there keep the one-document SDPA backward beside them,
+    as in earlier runs). CUDA events over back-to-back calls, the better of
+    two runs; the plain versions; the bounds from these inputs. Returns the
+    one-document figures of K2a and K2b (like-for-like library times)."""
     import torch
     import torch.nn.functional as F
 
-    causal = True
-    q, k, v, o, lse, do = _bwd_inputs(4, 2048, 2048, 32, 8, 128, causal, train_seg,
-                                      seed=500, flash=flash)
-    run_dq, run_dkv, keep = _bwd_launchers(flash, q, k, v, o, lse, do, train_seg, causal)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    do_t = do.transpose(1, 2)
+    causal, s = True, 2048
+    out: dict = {}
+    lib_bwd_ms = None
+    for rows, seg in (("one document per row", None), ("packed rows", train_seg)):
+        q, k, v, o, lse, do = _bwd_inputs(4, s, s, 32, 8, 128, causal, seg,
+                                          seed=500, flash=flash)
+        run_dq, run_dkv, keep = _bwd_launchers(flash, q, k, v, o, lse, do, seg, causal)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        if seg is None:
+            out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True)
+            do_t = do.transpose(1, 2)
 
-    def sdpa_fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            def sdpa_fwd():
+                with torch.no_grad():
+                    F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True)
 
-    def sdpa_bwd():
-        torch.autograd.grad(out_t, (qt, kt, vt), grad_outputs=do_t, retain_graph=True)
+            def sdpa_bwd():
+                torch.autograd.grad(out_t, (qt, kt, vt), grad_outputs=do_t,
+                                    retain_graph=True)
 
-    def fwd():
-        flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=train_seg)
+            lib_bwd_ms = _time_ms(sdpa_bwd, iters=10)
+        else:
+            mask = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()[None]
+            mask = (mask & (seg[:, :, None] == seg[:, None, :]))[:, None]
+            groups = q.shape[2] // k.shape[2]
+            kx = k.repeat_interleave(groups, dim=2).transpose(1, 2)
+            vx = v.repeat_interleave(groups, dim=2).transpose(1, 2)
+            qx = q.transpose(1, 2)
 
-    def plain_fwd():
-        flash.flash_attention_plain(q, k, v, causal=causal, segment_ids=train_seg)
+            def sdpa_fwd():
+                F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask)
 
-    def plain_bwd():
-        flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                        segment_ids=train_seg)
+        def fwd():
+            flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
 
-    out = {}
-    plain_bwd_ms = _time_ms(plain_bwd, iters=3, warmup=1)
-    lib_bwd_ms = _time_ms(sdpa_bwd, iters=10)
-    for name, run, plain_ms, lib, bound in (
-            ("flash_fwd", fwd, _time_ms(plain_fwd, iters=3, warmup=1), _time_ms(sdpa_fwd),
-             _flash_bound(q, k, train_seg, causal)),
-            ("flash_dq", run_dq, plain_bwd_ms, lib_bwd_ms,
-             _bwd_bound(q, k, train_seg, causal, "dq")),
-            ("flash_dkv", run_dkv, plain_bwd_ms, lib_bwd_ms,
-             _bwd_bound(q, k, train_seg, causal, "dkv"))):
-        ms = min(_time_ms(run, iters=10), _time_ms(run, iters=10))
-        bound_ms, bound_by = bound
-        log(f"[timing] {name} training shape B=4 S=2048 H=32 K=8 D=128 causal, "
-            f"packed rows ({int(train_seg.max())} segments max): kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms{' (dq, dk, dv together)' if name != 'flash_fwd' else ''}, "
-            f"sdpa {'backward ' if name != 'flash_fwd' else ''}{lib:.4f} ms (one document "
-            f"per row), bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{bound_ms / ms:.1%} of bound ({SMI})")
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib}
-    del keep, out_t
+        def plain_fwd():
+            flash.flash_attention_plain(q, k, v, causal=causal, segment_ids=seg)
+
+        def plain_bwd():
+            flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                            segment_ids=seg)
+
+        plain_bwd_ms = _time_ms(plain_bwd, iters=3, warmup=1)
+        fwd_lib = ("sdpa (causal, enable_gqa)" if seg is None else
+                   "sdpa (the same packed causal mask as attn_mask)")
+        bwd_lib = "sdpa backward" + ("" if seg is None else " (one document per row)")
+        segs = "" if seg is None else f" ({int(seg.max())} segments max)"
+        for name, run, plain_ms, lib, bound in (
+                ("flash_fwd", fwd, _time_ms(plain_fwd, iters=3, warmup=1),
+                 _time_ms(sdpa_fwd), _flash_bound(q, k, seg, causal)),
+                ("flash_dq", run_dq, plain_bwd_ms, lib_bwd_ms,
+                 _bwd_bound(q, k, seg, causal, "dq")),
+                ("flash_dkv", run_dkv, plain_bwd_ms, lib_bwd_ms,
+                 _bwd_bound(q, k, seg, causal, "dkv"))):
+            ms = min(_time_ms(run, iters=10), _time_ms(run, iters=10))
+            bound_ms, bound_by = bound
+            is_fwd = name == "flash_fwd"
+            log(f"[timing] {name} training shape B=4 S={s} H=32 K=8 D=128 causal, "
+                f"{rows}{segs}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                f"{'' if is_fwd else ' (dq, dk, dv together)'}, "
+                f"{fwd_lib if is_fwd else bwd_lib} {lib:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {bound_ms / ms:.1%} of bound"
+                f"{', ' + _k1_tiles(flash, seg, causal, s) if is_fwd else ''} ({SMI})")
+            if seg is None:
+                out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": lib}
+        del keep, q, k, v, o, lse, do, qt, kt, vt
+        if seg is None:
+            del out_t
+        else:
+            del mask, kx, vx
     return out
 
 
@@ -1537,7 +1631,7 @@ def main() -> int:
     phase_card()
     phase_build()
     train_seg = _train_segments()
-    errors = phase_kernels(flash)
+    errors = phase_kernels(flash, train_seg)
     errors.update(phase_bwd_kernels(flash, train_seg))
     errors.update(phase_paged_kernels(paged))
     timings = phase_timings(flash)

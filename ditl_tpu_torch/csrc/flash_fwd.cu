@@ -1,66 +1,305 @@
-// FlashAttention forward for Hopper (sm_90a), bf16 in, f32 accumulation.
+// FlashAttention forward (K1) for Hopper (sm_90a): bf16 in, f32 sums.
 //
 // Replaces: ditl_tpu/ops/flash_attention.py::_fwd_kernel (the Pallas TPU
 // kernel driven by _fwd and the public flash_attention). It computes the same
 // function: grouped-query attention with an online softmax, a causal mask and
 // a segment-id mask, writing o and the per-row log-sum-exp.
 //
-// Bound on the card: at the serving prefill shape (B=4, S=512, H=32, K=8,
-// D=128, causal) the kernel must move ~42 MB (q, k, v read once, o written
-// once) -> 12.6 us at 3.35 TB/s, against ~8.6 GFLOP -> 8.7 us at 989 TFLOP/s
-// bf16. So it sits near the ridge: bytes bound at short sequences, tensor-core
-// bound as S grows (the work grows as S^2, the bytes as S).
+// Bound on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16), each computed
+// by chip_smoke.py from its run's inputs (q, k, v and ids read once, o and
+// lse written once; 4 D flops per attended pair and head):
+// - serving prefill, B=4, S=512, 32/8 heads, D=128, right-padded ids:
+//   0.0126 ms, bytes;
+// - training, B=4, S=2048, one document per row, causal: 0.139 ms,
+//   operations (1.37e11 flops);
+// - training, the pipeline's packed rows (5-7 documents a row): 0.0504 ms,
+//   bytes (the attended pairs are a fifth of the causal ones).
+// Long rows need the tensor cores near their rate; packed rows need the work
+// that the mask removes not to be done at all.
 //
-// What this design does about it:
-// - Every input byte is read from device memory about once per query tile:
-//   each block owns 64 query rows of one head, keeps their Q fragments in
-//   registers for the whole KV loop, and streams 64-key K/V tiles through
-//   shared memory. The (S, S) score matrix never leaves registers.
-// - Both products run on the tensor cores (mma.sync m16n8k16, bf16 operands,
-//   f32 accumulators); the softmax runs on the accumulator fragments in
-//   registers, and P is re-packed to bf16 A fragments in place, as the
-//   reference feeds p in v's dtype to its second product.
-// - Causal: the KV loop ends at the diagonal, so no block above it is read
-//   or computed (the TPU kernel's grid still visits and predicates them off).
-// - GQA: query head h reads KV head h / (H / K); KV tiles are shared by the
-//   group through L2.
-// - Ragged edges (any Sq, Skv) are masked in the kernel: rows past Sq are
-//   neither loaded nor stored, keys past Skv are zero-filled and get weight 0.
-// - Shared-memory rows are padded by 8 bf16 so the fragment loads of both
-//   products are free of bank conflicts.
-// A later PR makes it fast: TMA loads, wgmma, a producer warp and double
-// buffering of the K/V tiles.
+// Design, and what each point does about that bound:
+// - wgmma. A block owns 128 query rows of one head: two consumer
+//   warpgroups of 64. S = Q.K^T is wgmma m64nNk16 with Q and K in shared
+//   memory; P stays in registers as the A operand of O += P.V (the m64
+//   accumulator layout is the A fragment layout), V read as an MN-major B.
+// - Key tiles of N = 64 at D >= 64 and 128 at D = 32. A consumer thread
+//   holds N/2 scores, D/2 output sums and N/4 bf16 P registers: 112 at
+//   D = 128, 80 at D = 64, 112 at D = 32. ptxas gives a 288-thread block 168
+//   registers a thread: N = 128 at D = 64 (128 of them, plus addresses and
+//   the mask's indices) spilled, and N = 128 at D = 128 (160) cannot fit.
+//   N = 64 also keeps the skipping fine-grained at the D the presets train
+//   with.
+// - An asynchronous ring of 4 K/V stages in dynamic shared memory, filled by
+//   TMA (cp.async.bulk.tensor on 4-D tensor maps (d, head, position, batch)
+//   encoded on the host) from a producer warp under full/empty mbarriers: the
+//   consumers work on the tile that has arrived while the next three load.
+//   Rows are stored with the 128-byte swizzle (64 bf16) at D >= 64, the
+//   64-byte one (32 bf16) at D = 32; the descriptors use the same mode. Shared
+//   memory per block: 166,024 bytes at D = 128, 84,104 at 64, 76,936 at 32
+//   (one block per SM: the registers allow one).
+// - Tile skipping. The producer loads a key tile only if it is not wholly
+//   above the causal diagonal and its segment-id range [min, max] overlaps
+//   the block's: disjoint ranges share no id, so this is exact for any ids,
+//   sorted or not, and a skipped tile would have added p = 0 under a finite
+//   running max. Each tile goes to the consumers with its start and range
+//   (and its ids if it holds more than one); each warpgroup applies the same
+//   test to its own 64 rows and skips the loaded tiles they do not reach.
+//   ditl_tpu_torch/ops/flash_attention.py::tile_schedule is this rule.
+// - Masking only where a mask can bite: element by element only on tiles
+//   across the diagonal, a document boundary or the ragged key edge;
+//   interior tiles go from the product straight to the exponent.
+// - Longest causal rows first: blockIdx.z walks the query tiles from the
+//   last; heads in blockIdx.x keep the heads of one KV group side by side,
+//   sharing K/V tiles through L2.
+// - Ragged edges: TMA zero-fills rows past Sq and Skv; keys past Skv get
+//   weight exactly 0 (-inf), rows past Sq are not stored.
 //
 // Semantics kept from the reference: the mask value is the finite
-// -2.3819763e38 (never -inf, so a fully masked tile cannot give inf - inf);
-// q.k is accumulated in f32 and scaled in f32; rows whose normaliser is 0
-// write 0 and lse = m + log(1).
+// -2.3819763e38 (the softmax runs in base 2 on scores times scale * log2 e,
+// and masked scores take the finite value itself, so a tile fully masked for
+// a row gives p = 1 that the next real key's rescale zeroes, never inf - inf);
+// q.k is summed in f32 and scaled in f32; p is rounded to bf16 for P.V with
+// f32 sums; rows whose normaliser is 0 write 0; lse = m + log(l) per row.
+//
+// ptxas -v (CUDA 12.9, sm_90a): 139 registers at D = 128, 106 at D = 64,
+// 153 at D = 32; no spills, no stack.
+//
+// Tried on the card and dropped (PERF.md, Findings): a persistent grid (one
+// block per SM, two Q buffers, the ring running on across work items), the
+// two warpgroups taking turns at the tensor cores through named barriers,
+// and P.V deferred to issue with the next tile's Q.K^T. Each was slower at
+// one document per row; the deferred P.V also spilled at D = 32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
-// -fPIC (ditl_tpu_torch/ops/cuda_build.py). C interface, bound with ctypes.
+// -fPIC (ditl_tpu_torch/ops/cuda_build.py). C interface, bound with ctypes;
+// the tensor maps are encoded on the host through cudaGetDriverEntryPoint, so
+// the library links against nothing but the CUDA runtime.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per block, 16 per warp
-constexpr int kBlockN = 64;  // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -2.3819763e38f;  // ops/attention.py NEG_INF
+constexpr int kBlockM = 128;                     // query rows per block
+constexpr int kConsumers = 256;                  // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 32;        // + the producer warp
+constexpr int kEmptyArrivals = kConsumers / 32;  // one per consumer warp
+constexpr float kNegInf = -2.3819763e38f;        // ops/attention.py NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// D = A(16x16, row-major) * B(16x8, col-major) + D, bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
+// Per head dim: the key-tile width, the swizzled row ("panel") the TMA box and
+// the wgmma descriptors share, and the shared-memory map. Every tile starts
+// on a 1024-byte boundary, the period of the 128-byte swizzle.
+template <int D>
+struct Cfg {
+  static constexpr int kBlockN = D == 32 ? 128 : 64;  // keys per K/V tile
+  static constexpr int kStages = 4;                     // K/V ring depth
+  static constexpr int kPanel = D >= 64 ? 64 : 32;      // bf16 per swizzled row
+  static constexpr int kPanelBytes = 2 * kPanel;        // = the swizzle width
+  static constexpr int kPanels = D / kPanel;
+  static constexpr uint64_t kLayout = kPanelBytes == 128 ? 1 : 2;  // B128 / B64
+  static constexpr int kQBytes = kBlockM * D * 2;
+  static constexpr int kTileBytes = kBlockN * D * 2;  // one K or one V tile
+  static constexpr int kKOff = kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kTileBytes;
+  static constexpr int kSlotInts = 4 + kBlockN;  // k0, min id, max id, -, ids
+  static constexpr int kSlotOff = kVOff + kStages * kTileBytes;
+  static constexpr int kBarOff = kSlotOff + kStages * kSlotInts * 4;
+  static constexpr int kSmem = kBarOff + (2 * kStages + 1) * 8;
+  static constexpr int kSmemAlloc = kSmem + 1024;  // room to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA box of a 4-D tensor map (d, head, position, batch) into shared
+// memory; completion is counted in bytes on `bar`. Rows past the tensor's
+// edge arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle mode.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving register reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// m64nNk16 products, f32 accumulators d[N / 2] per thread. _ss: A (64 x 16)
+// and B (N x 16) both K-major in shared memory; scale_d = 0 overwrites d.
+// _rs: A from registers (the mma.m16n8k16 A fragment of each warp's 16 rows),
+// B (16 x N) MN-major ("transposed") in shared memory, accumulating.
+
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33,"
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33,"
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int scale_d) {
+  static_assert(N == 64 || N == 128, "Q.K^T tile width");
+  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
+  else wgmma_ss_n128(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
+  static_assert(N == 32 || N == 64 || N == 128, "head dim");
+  if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
 }
 
 // Two floats -> one register of two bf16, the first in the low half.
@@ -69,221 +308,404 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void warp_min_max(int& lo, int& hi) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
 }
 
-// Fragment layouts of mma.m16n8k16 (PTX ISA), g = lane / 4, t = lane % 4:
-//   A: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B: b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8..2t+9, n = g)
-//   C: c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
+// Segment-id range [lo, hi] of positions [begin, end) of one row, reduced
+// over the warp (empty: lo > hi).
+__device__ __forceinline__ void id_range(const int* ids, int begin, int end, int lane, int& lo,
+                                         int& hi) {
+  lo = INT_MAX;
+  hi = INT_MIN;
+  for (int i = begin + lane; i < end; i += 32) {
+    const int x = ids[i];
+    lo = min(lo, x);
+    hi = max(hi, x);
+  }
+  warp_min_max(lo, hi);
+}
+
+// Grid (heads, batch, q tiles); block: warps 0-7 are two consumer warpgroups
+// of 64 query rows each, warp 8 the producer. Accumulator layout of an
+// m64nN product, per warp w of a warpgroup, g = lane / 4, t = lane % 4:
+// d[4i + 0, 1] at row 16w + g, columns 8i + 2t, +1; d[4i + 2, 3] at row
+// 16w + g + 8.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                 const uint16_t* __restrict__ v, const int* __restrict__ seg,
-                 uint16_t* __restrict__ o, float* __restrict__ lse, int sq,
-                 int skv, int heads, int kv_heads, int causal, float scale) {
-  constexpr int kLd = D + 8;           // padded shared-memory row, in bf16
-  constexpr int kKSteps = D / 16;      // k-steps of Q.K^T
-  constexpr int kDTiles = D / 8;       // n-tiles of P.V
-  constexpr int kNTiles = kBlockN / 8; // n-tiles of Q.K^T
-  constexpr int kPSteps = kBlockN / 16;
-  constexpr int kChunksPerRow = D / 8; // 16-byte chunks per K/V row
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
+                 uint16_t* __restrict__ o, float* __restrict__ lse, int sq, int skv,
+                 int heads, int kv_heads, int causal, float scale) {
+  using C = Cfg<D>;
+  constexpr int N = C::kBlockN;
+  constexpr int S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  int* slots = reinterpret_cast<int*>(smem_raw + (base - raw) + C::kSlotOff);
+  const uint32_t full_bar = base + C::kBarOff;  // full[s] at + 8 s
+  const uint32_t empty_bar = full_bar + 8 * S;  // empty[s] at + 8 s
+  const uint32_t q_bar = empty_bar + 8 * S;
 
-  __shared__ __align__(16) uint16_t k_s[kBlockN * kLd];
-  __shared__ __align__(16) uint16_t v_s[kBlockN * kLd];
-  __shared__ int seg_s[kBlockN];
-
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockM;  // longest causal rows first
   const int kh = h / (heads / kv_heads);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int row1 = row0 + 8;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int* ids = seg != nullptr ? seg + static_cast<long>(b) * skv : nullptr;  // Sq == Skv
 
-  const long q_stride = (long)heads * D;      // between sequence positions
-  const long kv_stride = (long)kv_heads * D;
-  const uint16_t* qb = q + (long)b * sq * q_stride + (long)h * D;
-  const uint16_t* kb = k + (long)b * skv * kv_stride + (long)kh * D;
-  const uint16_t* vb = v + (long)b * skv * kv_stride + (long)kh * D;
-
-  // Q as A fragments, held in registers for the whole KV loop.
-  uint32_t qf[kKSteps][4];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    qf[ks][0] = row0 < sq ? ld32(qb + row0 * q_stride + c) : 0u;
-    qf[ks][1] = row1 < sq ? ld32(qb + row1 * q_stride + c) : 0u;
-    qf[ks][2] = row0 < sq ? ld32(qb + row0 * q_stride + c + 8) : 0u;
-    qf[ks][3] = row1 < sq ? ld32(qb + row1 * q_stride + c + 8) : 0u;
-  }
-  int seg0 = 0, seg1 = 0;
-  if (seg != nullptr) {
-    seg0 = row0 < sq ? seg[(long)b * sq + row0] : 0;
-    seg1 = row1 < sq ? seg[(long)b * sq + row1] : 0;
-  }
-
-  float m[2] = {kNegInf, kNegInf};  // running row max
-  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int i = 0; i < kDTiles; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
-
-  // Causal: keys past the tile's last query row contribute nothing.
-  const int kv_end = causal ? min(skv, q0 + kBlockM) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockN) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < kBlockN * kChunksPerRow; i += kThreads) {
-      const int r = i / kChunksPerRow;
-      const int c = (i % kChunksPerRow) * 8;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vx = kx;
-      if (k0 + r < skv) {
-        kx = *reinterpret_cast<const uint4*>(kb + (long)(k0 + r) * kv_stride + c);
-        vx = *reinterpret_cast<const uint4*>(vb + (long)(k0 + r) * kv_stride + c);
-      }
-      *reinterpret_cast<uint4*>(&k_s[r * kLd + c]) = kx;
-      *reinterpret_cast<uint4*>(&v_s[r * kLd + c]) = vx;
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, kEmptyArrivals);
     }
-    if (seg != nullptr && tid < kBlockN) {
-      seg_s[tid] = k0 + tid < skv ? seg[(long)b * skv + k0 + tid] : 0;
-    }
-    __syncthreads();
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T: 16 rows x 64 keys per warp.
-    float s[kNTiles][4];
+  if (warp == kConsumers / 32) {
+    // ---- Producer: pick the key tiles, fill the ring by TMA. ----
+    const int q_last = min(sq, q0 + kBlockM) - 1;
+    const int kv_end = causal ? min(skv, q_last + 1) : skv;  // causal: keys <= q_last
+    const int n_kv = (kv_end + N - 1) / N;
+    int q_lo = 0, q_hi = 0;
+    if (ids != nullptr) id_range(ids, q0, q_last + 1, lane, q_lo, q_hi);
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, C::kQBytes);
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
-        const uint16_t* kp = &k_s[(nt * 8 + g) * kLd + ks * 16 + 2 * t];
-        mma_16816(s[nt], qf[ks], ld32(kp), ld32(kp + 8));
+      for (int p = 0; p < C::kPanels; ++p) {
+        tma_load(base + p * kBlockM * C::kPanelBytes, &tm_q, q_bar, p * C::kPanel, h, q0, b);
       }
     }
-
-    // Scale, mask, and the tile's row max.
-    float tmax[2] = {-INFINITY, -INFINITY};
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t0 = 0; t0 < n_kv; t0 += 32) {
+      // Lane l tests tile t0 + l: visited unless its id range misses the
+      // block's (disjoint ranges share no id, so no pair of it is admitted).
+      const int t = t0 + lane;
+      int k_lo = 0, k_hi = 0;
+      bool visit = t < n_kv;
+      if (visit && ids != nullptr) {
+        k_lo = INT_MAX;
+        k_hi = INT_MIN;
+        const int* tile = ids + t * N;
+        if ((t + 1) * N <= skv && (reinterpret_cast<uintptr_t>(tile) & 15) == 0) {
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row0 : row1;
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        float x = s[nt][e] * scale;
-        if (col >= skv) {
-          x = -INFINITY;  // not a key at all: weight exactly 0
-        } else if ((causal && col > row) ||
-                   (seg != nullptr && seg_s[col - k0] != (e < 2 ? seg0 : seg1))) {
-          x = kNegInf;
+          for (int i = 0; i < N; i += 4) {  // all loads in flight at once
+            const int4 x = *reinterpret_cast<const int4*>(tile + i);
+            k_lo = min(k_lo, min(min(x.x, x.y), min(x.z, x.w)));
+            k_hi = max(k_hi, max(max(x.x, x.y), max(x.z, x.w)));
+          }
+        } else {
+          const int n = min(N, skv - t * N);
+#pragma unroll 8
+          for (int i = 0; i < n; ++i) {
+            k_lo = min(k_lo, tile[i]);
+            k_hi = max(k_hi, tile[i]);
+          }
         }
-        s[nt][e] = x;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+        visit = k_lo <= q_hi && k_hi >= q_lo;
+      }
+      for (uint32_t todo = __ballot_sync(0xffffffffu, visit); todo != 0; todo &= todo - 1) {
+        const int src = __ffs(todo) - 1;
+        const int k0 = (t0 + src) * N;
+        const int lo = __shfl_sync(0xffffffffu, k_lo, src);
+        const int hi = __shfl_sync(0xffffffffu, k_hi, src);
+        // A tile of one id needs no copy of its ids: the consumers take lo.
+        const bool copy_ids = ids != nullptr && lo != hi;
+        int tile_ids[N / 32];
+        if (copy_ids) {
+#pragma unroll
+          for (int j = 0; j < N / 32; ++j) {
+            const int i = k0 + j * 32 + lane;
+            tile_ids[j] = i < skv ? ids[i] : 0;
+          }
+        }
+        mbar_wait(empty_bar + 8 * stage, phase ^ 1);
+        int* slot = slots + stage * C::kSlotInts;
+        if (lane == 0) {
+          slot[0] = k0;
+          slot[1] = lo;
+          slot[2] = hi;
+        }
+        if (copy_ids) {
+#pragma unroll
+          for (int j = 0; j < N / 32; ++j) slot[4 + j * 32 + lane] = tile_ids[j];
+        }
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) {
+          const uint32_t bar = full_bar + 8 * stage;
+          mbar_expect_tx(bar, 2 * C::kTileBytes);
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p) {
+            const uint32_t off = stage * C::kTileBytes + p * N * C::kPanelBytes;
+            tma_load(base + C::kKOff + off, &tm_k, bar, p * C::kPanel, kh, k0, b);
+            tma_load(base + C::kVOff + off, &tm_v, bar, p * C::kPanel, kh, k0, b);
+          }
+        }
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float x = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-      const float m_new = fmaxf(m[i], x);
-      alpha[i] = exp2f((m[i] - m_new) * kLog2e);
-      m[i] = m_new;
+    // End of the ring: a slot with k0 = -1.
+    mbar_wait(empty_bar + 8 * stage, phase ^ 1);
+    if (lane == 0) {
+      slots[stage * C::kSlotInts] = -1;
+      __threadfence_block();
+      mbar_arrive(full_bar + 8 * stage);
     }
+  } else {
+    // ---- Consumers: S = Q.K^T, online softmax, O += P.V per tile. ----
+    const int wg = warp >> 2;
+    const int wq0 = q0 + 64 * wg;              // the warpgroup's first row
+    const int w_last = min(sq, wq0 + 64) - 1;  // its last real row (< wq0: none)
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row0 = wq0 + 16 * (warp & 3) + g;  // this thread's rows: row0, row0 + 8
+    const int row1 = row0 + 8;
+    int w_lo = 0, w_hi = 0, seg0 = 0, seg1 = 0;
+    if (ids != nullptr) {
+      id_range(ids, wq0, w_last + 1, lane, w_lo, w_hi);
+      seg0 = row0 < sq ? ids[row0] : 0;
+      seg1 = row1 < sq ? ids[row1] : 0;
+    }
+    // Softmax in base 2 on scores scaled by scale * log2(e) (the finite mask
+    // value stands as it is): m is the running row max, l this thread's
+    // share of the row sum.
+    const float scale_log2 = scale * kLog2e;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-    // P = exp(S - m) in f32 for the row sums, packed to bf16 A fragments.
-    uint32_t pf[kPSteps][4];
-    float rs[2] = {0.f, 0.f};
+    const uint32_t q_s = base + wg * 64 * C::kPanelBytes;
+    mbar_wait(q_bar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (;;) {
+      mbar_wait(full_bar + 8 * stage, phase);
+      const int* slot = slots + stage * C::kSlotInts;
+      const int k0 = slot[0];
+      if (k0 < 0) break;
+      const int k_lo = slot[1], k_hi = slot[2];
+      // The warpgroup's own test: the block's tile may miss its 64 rows.
+      const bool visit = w_last >= wq0 && (!causal || k0 <= w_last) &&
+                         (ids == nullptr || (k_lo <= w_hi && k_hi >= w_lo));
+      if (visit) {
+        const uint32_t k_s = base + C::kKOff + stage * C::kTileBytes;
+        const uint32_t v_s = base + C::kVOff + stage * C::kTileBytes;
+        float s[N / 2];
+        wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      const float p0 = exp2f((s[nt][0] - m[0]) * kLog2e);
-      const float p1 = exp2f((s[nt][1] - m[0]) * kLog2e);
-      const float p2 = exp2f((s[nt][2] - m[1]) * kLog2e);
-      const float p3 = exp2f((s[nt][3] - m[1]) * kLog2e);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      const int half = (nt & 1) * 2;
-      pf[nt >> 1][half + 0] = pack_bf16(p0, p1);
-      pf[nt >> 1][half + 1] = pack_bf16(p2, p3);
-    }
-    l[0] = alpha[0] * l[0] + rs[0];
-    l[1] = alpha[1] * l[1] + rs[1];
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t off = (ks * 16 % C::kPanel) * 2;  // within the panel
+          const int p = ks * 16 / C::kPanel;
+          const uint64_t da = make_desc(q_s + p * kBlockM * C::kPanelBytes + off, 16,
+                                        8 * C::kPanelBytes, C::kLayout);
+          const uint64_t db = make_desc(k_s + p * N * C::kPanelBytes + off, 16,
+                                        8 * C::kPanelBytes, C::kLayout);
+          wgmma_ss<N>(s, da, db, ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<N / 2>(s);
 
-    // O += P V.
+        // Scale; mask only where a mask can bite: a tile across the causal
+        // diagonal, a document boundary or the ragged key edge.
+        const bool edge = k0 + N > skv;
+        const bool cross = causal && k0 + N - 1 > wq0;
+        const bool mixed = ids != nullptr && !(k_lo == k_hi && w_lo == w_hi && k_lo == w_lo);
+        if (edge || cross || mixed) {
 #pragma unroll
-    for (int kk = 0; kk < kPSteps; ++kk) {
-      const int kr = kk * 16 + 2 * t;
+          for (int i = 0; i < N / 8; ++i) {
+            const int c = k0 + 8 * i + 2 * t;  // this thread's columns c, c + 1
+            int2 key = make_int2(k_lo, k_lo);
+            if (k_lo != k_hi) key = *reinterpret_cast<const int2*>(slot + 4 + 8 * i + 2 * t);
 #pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        const int n = dt * 8 + g;
-        const uint32_t b0 = (uint32_t)v_s[kr * kLd + n] |
-                            ((uint32_t)v_s[(kr + 1) * kLd + n] << 16);
-        const uint32_t b1 = (uint32_t)v_s[(kr + 8) * kLd + n] |
-                            ((uint32_t)v_s[(kr + 9) * kLd + n] << 16);
-        mma_16816(acc[dt], pf[kk], b0, b1);
+            for (int e = 0; e < 4; ++e) {
+              const int col = c + (e & 1);
+              float x = s[4 * i + e] * scale_log2;
+              if (col >= skv) {
+                x = -INFINITY;  // not a key at all: weight exactly 0
+              } else if ((causal && col > (e < 2 ? row0 : row1)) ||
+                         (ids != nullptr && ((e & 1) ? key.y : key.x) != (e < 2 ? seg0 : seg1))) {
+                x = kNegInf;
+              }
+              s[4 * i + e] = x;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < N / 2; ++j) s[j] *= scale_log2;
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < N / 2; j += 4) x = fmaxf(x, fmaxf(s[j + 2 * r], s[j + 2 * r + 1]));
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+          const float m_new = fmaxf(m[r], x);
+          alpha[r] = exp2f(m[r] - m_new);
+          m[r] = m_new;
+        }
+
+        // P = 2^(S - m): f32 for the row sums, bf16 A fragments for P.V.
+        // K-step kk covers keys 16 kk .. 16 kk + 15, s[8 kk .. 8 kk + 7]; its
+        // fragment pf[4 kk ..] is (g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8,
+        // 2t + 8), as the accumulator lays out two n8 column groups.
+        uint32_t pf[N / 4];
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < N / 2; j += 4) {
+          const float p0 = exp2f(s[j] - m[0]);
+          const float p1 = exp2f(s[j + 1] - m[0]);
+          const float p2 = exp2f(s[j + 2] - m[1]);
+          const float p3 = exp2f(s[j + 3] - m[1]);
+          rs[0] += p0 + p1;
+          rs[1] += p2 + p3;
+          pf[(j >> 1) + 0] = pack_bf16(p0, p1);
+          pf[(j >> 1) + 1] = pack_bf16(p2, p3);
+        }
+        l[0] = alpha[0] * l[0] + rs[0];
+        l[1] = alpha[1] * l[1] + rs[1];
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk) {
+          const uint64_t dv = make_desc(v_s + kk * 16 * C::kPanelBytes, N * C::kPanelBytes,
+                                        8 * C::kPanelBytes, C::kLayout);
+          wgmma_rs<D>(acc, pf + 4 * kk, dv);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<D / 2>(acc);
+        fence_regs<N / 4>(pf);  // the A fragments stay live until here
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-  }
 
-  // Row sums across the four threads that share a row, then normalise.
+    // Row sums across the four threads that share a row, then normalise.
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-  const float l0 = l[0] == 0.f ? 1.f : l[0];
-  const float l1 = l[1] == 0.f ? 1.f : l[1];
-  uint16_t* ob = o + (long)b * sq * q_stride + (long)h * D;
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (l[r] == 0.f) l[r] = 1.f;  // a row with no weight writes 0
+    }
+    const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+    const long q_stride = static_cast<long>(heads) * D;
+    uint16_t* ob = o + static_cast<long>(b) * sq * q_stride + static_cast<long>(h) * D;
 #pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (row0 < sq) {
-      *reinterpret_cast<uint32_t*>(ob + row0 * q_stride + c) =
-          pack_bf16(acc[dt][0] / l0, acc[dt][1] / l0);
+    for (int i = 0; i < D / 8; ++i) {
+      const int c = 8 * i + 2 * t;
+      if (row0 < sq) {
+        *reinterpret_cast<uint32_t*>(ob + row0 * q_stride + c) =
+            pack_bf16(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+      }
+      if (row1 < sq) {
+        *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + c) =
+            pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
+      }
     }
-    if (row1 < sq) {
-      *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + c) =
-          pack_bf16(acc[dt][2] / l1, acc[dt][3] / l1);
+    if (t == 0) {
+      float* lb = lse + (static_cast<long>(b) * heads + h) * sq;
+      if (row0 < sq) lb[row0] = m[0] * kLn2 + logf(l[0]);
+      if (row1 < sq) lb[row1] = m[1] * kLn2 + logf(l[1]);
     }
-  }
-  if (t == 0) {
-    float* lb = lse + ((long)b * heads + h) * sq;
-    if (row0 < sq) lb[row0] = m[0] + logf(l0);
-    if (row1 < sq) lb[row1] = m[1] + logf(l1);
   }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (batch, rows, heads, d) bf16, contiguous, as a 4-D tensor map (d, head,
+// row, batch) with boxes of (panel, 1, box_rows, 1) and the panel's swizzle.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d, int heads, int rows,
+              int batch, int panel, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {2ull * d, 2ull * d * heads, 2ull * d * heads * rows};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(panel), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                panel == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
-void launch(const void* q, const void* k, const void* v, const void* seg,
-            void* o, void* lse, int batch, int sq, int skv, int heads,
-            int kv_heads, int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((sq + kBlockM - 1) / kBlockM, heads, batch);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const int*>(seg),
-      static_cast<uint16_t*>(o), static_cast<float*>(lse), sq, skv, heads,
-      kv_heads, causal, scale);
+int launch(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
+           int batch, int sq, int skv, int heads, int kv_heads, int causal, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_map(encode, &tm_q, q, D, heads, sq, batch, C::kPanel, kBlockM) ||
+      !make_map(encode, &tm_k, k, D, kv_heads, skv, batch, C::kPanel, C::kBlockN) ||
+      !make_map(encode, &tm_v, v, D, kv_heads, skv, batch, C::kPanel, C::kBlockN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemAlloc);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const dim3 grid(heads, batch, (sq + kBlockM - 1) / kBlockM);
+  flash_fwd_kernel<D><<<grid, kThreads, C::kSmemAlloc, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<const int*>(seg), static_cast<uint16_t*>(o),
+      static_cast<float*>(lse), sq, skv, heads, kv_heads, causal, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q (B, Sq, H, D), k/v (B, Skv, K, D) bf16 contiguous; seg (B, S) int32 or
-// null; o like q; lse (B, H, Sq) f32. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// q (B, Sq, H, D), k/v (B, Skv, K, D) bf16 contiguous and 16-byte aligned;
+// seg (B, S) int32 or null; o like q; lse (B, H, Sq) f32. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int ditl_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                    const void* seg, void* o, void* lse,
                                    int batch, int sq, int skv, int heads,
@@ -292,16 +714,12 @@ extern "C" int ditl_flash_fwd_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
-      launch<32>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale, s);
-      break;
+      return launch<32>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale, s);
     case 64:
-      launch<64>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale, s);
-      break;
+      return launch<64>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale, s);
     case 128:
-      launch<128>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale, s);
-      break;
+      return launch<128>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return (int)cudaGetLastError();
 }

@@ -22,6 +22,9 @@ Hopper:
   delta = rowsum(do * o), ds = p (do.v^T - delta), dq = scale ds.k,
   dk = ds^T.(scale q), dv = p^T.do, GQA summed over the group. It is not
   autograd of the plain forward.
+- ``tile_schedule`` is K1's rule for which (query tile, key tile) pairs it
+  visits (causal diagonal and segment-id ranges), as a boolean map; the
+  CPU tests hold that it covers every admitted pair.
 - ``flash_attention`` is differentiable: a ``torch.autograd.Function`` saves
   q, k, v, o and lse from the forward and calls ``flash_attention_bwd``.
   Forward and backward look the wrappers up at call time, so one forward
@@ -41,10 +44,21 @@ import torch
 from ditl_tpu_torch.ops.attention import NEG_INF
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
-           "flash_attention_bwd", "flash_attention_bwd_plain", "HEAD_DIMS",
+           "flash_attention_bwd", "flash_attention_bwd_plain", "tile_schedule",
+           "fwd_block_kv", "FWD_BLOCK_Q", "FWD_WARPGROUP_ROWS", "HEAD_DIMS",
            "launches", "launches_dq", "launches_dkv", "reset_launches"]
 
 HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
+# K1's tiles (csrc/flash_fwd.cu): a block owns FWD_BLOCK_Q query rows, each
+# of its two consumer warpgroups FWD_WARPGROUP_ROWS of them, and walks the
+# keys in tiles of fwd_block_kv(head_dim).
+FWD_BLOCK_Q = 128
+FWD_WARPGROUP_ROWS = 64
+
+
+def fwd_block_kv(head_dim: int) -> int:
+    """K1's key-tile width at ``head_dim`` (``Cfg<D>::kBlockN``)."""
+    return 128 if head_dim == 32 else 64
 
 # Kernel launches since the last reset_launches(); counted where each kernel
 # is launched and nowhere else: K1, K2a, K2b.
@@ -152,6 +166,50 @@ def _mask(s_q, s_kv, causal, segment_ids, device):
         seg = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None, None]
         mask = seg if mask is None else mask & seg
     return mask
+
+
+def _id_ranges(ids: torch.Tensor, block: int, n: int):
+    """Per tile of ``block`` positions: (min, max) of the ids of its real
+    positions, each (B, n)."""
+    pad = n * block - ids.shape[1]
+    info = torch.iinfo(torch.int32)
+    lo = torch.nn.functional.pad(ids, (0, pad), value=info.max).view(-1, n, block)
+    hi = torch.nn.functional.pad(ids, (0, pad), value=info.min).view(-1, n, block)
+    return lo.amin(-1), hi.amax(-1)
+
+
+def tile_schedule(
+    segment_ids: torch.Tensor | None,
+    causal: bool,
+    s_q: int,
+    s_kv: int,
+    block_q: int,
+    block_kv: int,
+) -> torch.Tensor:
+    """(B, n_q_tiles, n_kv_tiles) boolean map of the (query tile, key tile)
+    pairs K1 visits (B = 1 without segment ids), under the kernel's rule: a
+    pair is visited unless (a) causal and the key tile starts past the query
+    tile's last row, or (b) the two tiles' segment-id ranges [min, max] are
+    disjoint (then they share no id, so no pair in them is admitted, for
+    any ids, sorted or not). Only real positions (< s_q, < s_kv) count.
+
+    ``block_q=FWD_BLOCK_Q`` gives the tiles K1's producer loads;
+    ``block_q=FWD_WARPGROUP_ROWS`` the tiles each consumer warpgroup
+    computes (it skips the loaded tiles its own rows do not reach)."""
+    n_q, n_kv = -(-s_q // block_q), -(-s_kv // block_kv)
+    device = segment_ids.device if segment_ids is not None else None
+    q_last = (torch.arange(n_q, device=device) * block_q + block_q).clamp(max=s_q) - 1
+    k_first = torch.arange(n_kv, device=device) * block_kv
+    visit = torch.ones(1, n_q, n_kv, dtype=torch.bool, device=device)
+    if causal:
+        visit = visit & (k_first[None, :] <= q_last[:, None])[None]
+    if segment_ids is not None:
+        ids = segment_ids.to(torch.int32)
+        q_lo, q_hi = _id_ranges(ids[:, :s_q], block_q, n_q)
+        k_lo, k_hi = _id_ranges(ids[:, :s_kv], block_kv, n_kv)
+        visit = visit & (k_lo[:, None, :] <= q_hi[:, :, None]) \
+            & (k_hi[:, None, :] >= q_lo[:, :, None])
+    return visit
 
 
 def flash_attention_plain(

@@ -47,17 +47,63 @@ def _inputs(cuda, b, s_q, s_kv, h, kv, d, lengths=None, seed=0):
     return q, k, v, seg
 
 
+def _segment_ids(cuda, kind, b, s, seed=0):
+    """(B, S) int32 ids of one kind: ``"train"`` the training pipeline's
+    first batch (packed documents), ``"nonmono"`` runs of random length with
+    ids that go up and down, ``"edge1"`` a boundary one row past a tile
+    edge (ids 1 up to position 129, then 2)."""
+    if kind == "train":
+        from ditl_tpu_torch.config import DataConfig
+        from ditl_tpu_torch.data.dataset import synthetic_dataset
+        from ditl_tpu_torch.data.loader import DataPipeline
+        from ditl_tpu_torch.data.tokenizer import ByteTokenizer
+
+        cfg = DataConfig(batch_size=b, seq_len=s, synthetic=True)
+        pipe = DataPipeline(synthetic_dataset(cfg.synthetic_examples, cfg.seed),
+                            ByteTokenizer(), cfg, "cpu")
+        ids = torch.from_numpy(next(pipe._host_batches(0))["segment_ids"])
+    elif kind == "nonmono":
+        g = torch.Generator().manual_seed(seed)
+        rows = []
+        for _ in range(b):
+            row = []
+            while len(row) < s:
+                n = int(torch.randint(1, 97, (1,), generator=g))
+                row += [int(torch.randint(0, 4, (1,), generator=g))] * n
+            rows.append(row[:s])
+        ids = torch.tensor(rows)
+    else:
+        assert kind == "edge1", kind
+        ids = torch.ones(b, s, dtype=torch.int32)
+        ids[:, 129:] = 2
+    return ids.to(device=cuda, dtype=torch.int32).contiguous()
+
+
 @pytest.mark.torch_port
-@pytest.mark.parametrize("b,s_q,s_kv,h,kv,d,causal,lengths", [
+@pytest.mark.parametrize("b,s_q,s_kv,h,kv,d,causal,seg", [
     (4, 512, 512, 32, 8, 128, True, [512, 401, 230, 97]),  # serving prefill
     (2, 200, 333, 8, 2, 64, False, None),  # ragged, non-causal
     (1, 130, 130, 4, 4, 32, True, None),  # head_dim 32, MHA
+    (4, 2048, 2048, 32, 8, 128, True, "train"),  # the training pipeline's batch
+    (2, 300, 300, 8, 2, 128, True, "nonmono"),
+    (1, 257, 257, 4, 2, 128, True, "edge1"),
+    (1, 129, 129, 4, 1, 128, True, None),
+    (1, 2064, 2064, 8, 2, 128, True, "nonmono"),
+    (2, 300, 300, 4, 2, 32, True, "nonmono"),
+    (2, 300, 300, 4, 2, 32, False, "nonmono"),
+    (2, 300, 300, 4, 2, 64, True, "nonmono"),
+    (2, 300, 300, 4, 2, 64, False, "edge1"),
+    (2, 300, 300, 4, 2, 128, False, "nonmono"),
+    (2, 300, 300, 4, 2, 128, False, None),
 ])
-def test_flash_fwd_kernel_matches_plain(cuda, b, s_q, s_kv, h, kv, d, causal, lengths):
-    q, k, v, seg = _inputs(cuda, b, s_q, s_kv, h, kv, d, lengths)
+def test_flash_fwd_kernel_matches_plain(cuda, b, s_q, s_kv, h, kv, d, causal, seg):
+    lengths = seg if isinstance(seg, list) else None
+    q, k, v, ids = _inputs(cuda, b, s_q, s_kv, h, kv, d, lengths)
+    if isinstance(seg, str):
+        ids = _segment_ids(cuda, seg, b, s_q)
     tfa.reset_launches()
-    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
-    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, causal=causal, segment_ids=seg)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=ids)
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, causal=causal, segment_ids=ids)
     torch.cuda.synchronize()
     assert tfa.launches == 1
     torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=2e-2)

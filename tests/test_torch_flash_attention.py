@@ -13,6 +13,8 @@ outputs are rounded to bf16: a few bf16 ulps).
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -167,3 +169,171 @@ def test_wrapper_rejects_bad_inputs():
             tattn.dot_product_attention(q, k, v, impl=impl)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# K1's tile schedule (which (query tile, key tile) pairs the kernel visits)
+# ---------------------------------------------------------------------------
+
+# (block_q, block_kv): the kernel's block and warpgroup rows against its key
+# tiles at D = 128 (64) and D <= 64 (128).
+SCHEDULE_BLOCKS = [(128, 64), (64, 64), (128, 128), (64, 128)]
+
+
+def _schedule_ids(kind, b, s, seed=0):
+    """(B, S) int32 segment ids: ``sorted`` packed documents of uneven
+    lengths, ``padded`` right padding (1...1 0...0, the serving prefill),
+    ``nonmono`` runs with ids that go up and down, ``mid`` boundaries in the
+    middle of 64-row tiles."""
+    rng = np.random.default_rng(seed)
+    seg = np.empty((b, s), np.int32)
+    for i in range(b):
+        if kind == "sorted":
+            cuts = np.sort(rng.choice(np.arange(1, s), size=min(5, s - 1), replace=False))
+            seg[i] = np.searchsorted(cuts, np.arange(s), side="right") + 1
+        elif kind == "padded":
+            seg[i] = (np.arange(s) < rng.integers(1, s + 1)).astype(np.int32)
+        elif kind == "nonmono":
+            row = []
+            while len(row) < s:
+                row += [int(rng.integers(0, 4))] * int(rng.integers(1, 90))
+            seg[i] = row[:s]
+        else:
+            assert kind == "mid", kind
+            seg[i] = (np.arange(s) + 32 + 7 * i) // 64
+    return seg
+
+
+def _admitted(seg, causal, s_q, s_kv):
+    """(B, Sq, Skv) boolean: the pairs the causal and segment masks admit."""
+    ok = np.ones((1 if seg is None else seg.shape[0], s_q, s_kv), bool)
+    if causal:
+        ok &= np.tril(np.ones((s_q, s_kv), bool))[None]
+    if seg is not None:
+        ok &= seg[:, :, None] == seg[:, None, :]
+    return ok
+
+
+def _expand(visit, block_q, block_kv, s_q, s_kv):
+    """The tile map at element resolution: (B, Sq, Skv)."""
+    v = np.asarray(visit).repeat(block_q, axis=1).repeat(block_kv, axis=2)
+    return v[:, :s_q, :s_kv]
+
+
+def _assert_covers(seg, causal, s_q, s_kv, block_q, block_kv):
+    visit = tfa.tile_schedule(None if seg is None else torch.from_numpy(seg), causal,
+                              s_q, s_kv, block_q, block_kv)
+    n_q, n_kv = -(-s_q // block_q), -(-s_kv // block_kv)
+    assert visit.dtype == torch.bool and visit.shape[1:] == (n_q, n_kv)
+    admitted = _admitted(seg, causal, s_q, s_kv)
+    assert not (admitted & ~_expand(visit.numpy(), block_q, block_kv, s_q, s_kv)).any()
+    return visit
+
+
+@pytest.mark.parametrize("block_q,block_kv", SCHEDULE_BLOCKS)
+@pytest.mark.parametrize("kind,causal,s", [
+    ("sorted", True, 300), ("padded", True, 512), ("nonmono", True, 300),
+    ("mid", True, 257), ("nonmono", False, 300), ("padded", False, 200),
+])
+def test_tile_schedule_covers_admitted_pairs(kind, causal, s, block_q, block_kv):
+    seg = _schedule_ids(kind, 3, s, seed=s)
+    visit = _assert_covers(seg, causal, s, s, block_q, block_kv)
+    assert visit.shape[0] == 3
+
+
+@pytest.mark.parametrize("block_q,block_kv", SCHEDULE_BLOCKS)
+@pytest.mark.parametrize("causal,s_q,s_kv", [(True, 200, 333), (True, 333, 200),
+                                             (False, 129, 300)])
+def test_tile_schedule_without_ids(causal, s_q, s_kv, block_q, block_kv):
+    """Sq != Skv: causal skips only key tiles past the query tile's last
+    row; non-causal visits every tile."""
+    visit = _assert_covers(None, causal, s_q, s_kv, block_q, block_kv)
+    if not causal:
+        assert bool(visit.all())
+    else:  # the first key tile past the diagonal is skipped
+        assert not bool(visit[0, 0, -(-min(block_q, s_q) // block_kv):].any())
+
+
+def test_tile_schedule_skips_disjoint_tiles():
+    """Right-padded rows: a tile of pad queries skips the tiles of real keys
+    and a tile of one document skips those of the others."""
+    seg = np.repeat(np.array([[1, 2, 3, 0]], np.int32), 128, axis=1)  # S = 512
+    visit = tfa.tile_schedule(torch.from_numpy(seg), True, 512, 512, 128, 128)
+    assert torch.equal(visit[0], torch.eye(4, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("block_q,block_kv", SCHEDULE_BLOCKS)
+@settings(max_examples=25, deadline=None)
+@given(data=st.data())
+def test_tile_schedule_covers_admitted_pairs_hypothesis(block_q, block_kv, data):
+    b = data.draw(st.integers(1, 2))
+    s = data.draw(st.integers(1, 300))
+    causal = data.draw(st.booleans())
+    runs = data.draw(st.lists(st.tuples(st.integers(0, 5), st.integers(1, 120)),
+                              min_size=1, max_size=12))
+    row = [i for i, n in runs for _ in range(n)]
+    row = (row * (s // len(row) + 1))[:s]
+    seg = np.array([row, row[::-1]][:b], np.int32)
+    _assert_covers(seg, causal, s, s, block_q, block_kv)
+    _assert_covers(None, causal, s, data.draw(st.integers(1, 300)), block_q, block_kv)
+
+
+def _plain_on_schedule(q, k, v, causal, seg, block_q, block_kv):
+    """``flash_attention_plain``'s arithmetic with every pair outside the
+    visited tiles masked as well."""
+    b, s_q, h, d = q.shape
+    s_kv, kv_heads = k.shape[1], k.shape[2]
+    visit = tfa.tile_schedule(seg, causal, s_q, s_kv, block_q, block_kv)
+    mask = torch.from_numpy(_expand(visit.numpy(), block_q, block_kv, s_q, s_kv))
+    mask = mask & torch.from_numpy(_admitted(None if seg is None else seg.numpy(),
+                                             causal, s_q, s_kv))
+    qf = q.float().reshape(b, s_q, kv_heads, h // kv_heads, d) * d**-0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    s = s.masked_fill(~mask[:, None, None], tattn.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v.float())
+    o = (pv / torch.where(l == 0.0, torch.ones_like(l), l)).permute(0, 3, 1, 2, 4)
+    return o.reshape(b, s_q, h, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("block_q,block_kv", [(128, 64), (64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["sorted", "padded", "nonmono", "mid"])
+def test_schedule_masked_plain_matches_jax_kernel(kind, dtype, block_q, block_kv):
+    """Masking everything outside K1's visited tiles changes nothing: the
+    result equals the plain version and the JAX kernel in interpret mode
+    (as ``test_segment_ids_match_jax_kernel`` runs it, same tolerances)."""
+    q, k, v = _qkv(8, 2, 256, 4, 2, 64)
+    seg = _schedule_ids(kind, 2, 256, seed=3)
+    tq, tk, tv, tseg = (_to_torch(q, dtype), _to_torch(k, dtype), _to_torch(v, dtype),
+                        torch.from_numpy(seg))
+    out = _plain_on_schedule(tq, tk, tv, True, tseg, block_q, block_kv)
+    plain, _ = tfa.flash_attention_plain(tq, tk, tv, causal=True, segment_ids=tseg)
+    np.testing.assert_allclose(out.float().numpy(), plain.float().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    ref = jfa.flash_attention(_to_jax(q, dtype), _to_jax(k, dtype), _to_jax(v, dtype),
+                              causal=True, segment_ids=jnp.asarray(seg),
+                              block_q=128, block_kv=128, interpret=True)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_training_batch_visits_under_half_the_causal_tiles():
+    """The training pipeline's first batch (packed documents): K1 visits
+    fewer than half of the causal tiles at its D = 128 tiling."""
+    from ditl_tpu_torch.config import DataConfig
+    from ditl_tpu_torch.data.dataset import synthetic_dataset
+    from ditl_tpu_torch.data.loader import DataPipeline
+    from ditl_tpu_torch.data.tokenizer import ByteTokenizer
+
+    cfg = DataConfig(batch_size=4, seq_len=2048, synthetic=True)
+    pipe = DataPipeline(synthetic_dataset(cfg.synthetic_examples, cfg.seed),
+                        ByteTokenizer(), cfg, "cpu")
+    seg = torch.from_numpy(next(pipe._host_batches(0))["segment_ids"])
+    blocks = (tfa.FWD_BLOCK_Q, tfa.fwd_block_kv(128))
+    visited = int(tfa.tile_schedule(seg, True, 2048, 2048, *blocks).sum())
+    causal = 4 * int(tfa.tile_schedule(None, True, 2048, 2048, *blocks).sum())
+    assert int(seg.max()) >= 2 and visited < causal / 2, (visited, causal)
+    _assert_covers(seg.numpy(), True, 2048, 2048, *blocks)
