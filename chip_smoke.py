@@ -13,17 +13,20 @@ no result line. It imports nothing of JAX or of the JAX package.
    forward) at the serving prefill shapes, the training batch, ragged
    lengths (S = 129, 300, 2064), every head dim with and without causal
    masking, non-monotone ids and a boundary one row past a tile edge, K2a/K2b (flash
-   backward) at the training shape (B=4, S=2048, 32/8 heads, D=128, the
-   pipeline's packed rows) and ragged ones, K3 (paged decode with the
+   backward) on the same kinds of cases, the training shape (B=4, S=2048,
+   32/8 heads, D=128, the pipeline's packed rows) first, where two calls
+   must give the same bits, K3 (paged decode with the
    tail) and K4 (without) at the decode tick's shape and ragged ones
    (tolerances at ``O_TOL``/``LSE_TOL``/``BWD_TOL``). K4 has no serving
    path: its launches are this phase's direct calls.
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
    card's bound for the same work from this run's inputs; K1, K2a and K2b
-   also at the training shape, on one document per row (SDPA on the same
-   inputs) and on the pipeline's packed rows (K1 against SDPA with the same
-   packed causal mask), with K1's visited tiles.
+   also at the training shape, on one document per row (SDPA and its
+   backward on the same inputs) and on the pipeline's packed rows (SDPA and
+   its backward given the same packed causal mask), with the tiles each
+   visits, and the whole backward wrapper (delta, K2a, K2b) against SDPA's
+   backward on both inputs.
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -73,6 +76,7 @@ from __future__ import annotations
 import functools
 import json
 import random
+import re
 import subprocess
 import sys
 import threading
@@ -339,9 +343,13 @@ def phase_build() -> None:
     log(f"[build] {sorted(built)} in {time.perf_counter() - t0:.1f}s")
     for name, path in built.items():
         ptxas = path.with_suffix(".log")
+        kernel = ""
         for line in (ptxas.read_text().splitlines() if ptxas.is_file() else []):
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function .*?([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
+            if entry:  # the mangled name's kernel and its template argument
+                kernel = entry.group(1) + (f"<{entry.group(2)}>" if entry.group(2) else "")
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name} {kernel}: {line.strip()}")
 
 
 def _segment_ids(kind, b, s, train_seg):
@@ -490,42 +498,75 @@ def _bwd_inputs(b, s_q, s_kv, h, kv, d, causal, seg, *, seed, flash):
 
 
 def _bwd_bound(q, k, seg, causal, kernel: str):
-    """Least time on an H100 SXM for K2a (``dq``) or K2b (``dkv``): q, k, v,
-    do read once (bf16), lse and delta once (f32), segment ids once, the
-    outputs written once, over HBM bandwidth; against 2*D flops per
-    attended (query, key) pair and head for each of the kernel's products
-    (three for dq: q.k, do.v, ds.k; four for dkv: q.k, do.v, p.do, ds.q)
-    at bf16 peak."""
+    """Least time on an H100 SXM for K2a (``dq``), K2b (``dkv``) or the whole
+    backward (``all``: dq, dk, dv from q, k, v, o, lse and do): q, k, v, do
+    read once (bf16), lse and delta once (f32; ``all`` reads o instead of
+    delta), segment ids once, the outputs written once, over HBM bandwidth;
+    against 2*D flops per attended (query, key) pair and head for each
+    product (three for dq: q.k, do.v, ds.k; four for dkv: q.k, do.v, p.do,
+    ds.q; five for all three gradients) at bf16 peak."""
     b, s_q, h, d = q.shape
     s_kv, kv = k.shape[1], k.shape[2]
     q_bytes, kv_bytes = 2 * b * s_q * h * d, 2 * b * s_kv * kv * d
-    nbytes = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * h * s_q
-    nbytes += q_bytes if kernel == "dq" else 2 * kv_bytes
+    nbytes = 2 * q_bytes + 2 * kv_bytes + 4 * b * h * s_q
+    nbytes += {"dq": q_bytes + 4 * b * h * s_q, "dkv": 2 * kv_bytes + 4 * b * h * s_q,
+               "all": 2 * q_bytes + 2 * kv_bytes}[kernel]
     if seg is not None:
         nbytes += 4 * seg.numel()
-    products = 3 if kernel == "dq" else 4
+    products = {"dq": 3, "dkv": 4, "all": 5}[kernel]
     flops = products * 2 * d * h * _attended_pairs(b, s_q, s_kv, causal, seg)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_bwd_kernels(flash, train_seg) -> dict:
-    """K2a and K2b against the plain backward; returns the max abs errors."""
+def _bwd_segment_ids(spec, b, s, train_seg):
+    """A backward case's ids: None, right-padded real ``lengths`` (a list),
+    ``"packed"`` three documents a row, or a kind of ``_segment_ids``."""
     import torch
 
-    cases = [  # (b, s_q, s_kv, h, kv, d, causal, seg)
-        (4, 2048, 2048, 32, 8, 128, True, train_seg),  # the training shape
+    if spec is None:
+        return None
+    if isinstance(spec, list):
+        pos = torch.arange(s, device="cuda")
+        lengths = torch.tensor(spec, device="cuda")
+        return (pos[None, :] < lengths[:, None]).to(torch.int32).contiguous()
+    if spec == "packed":
+        seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+        seg[:, s // 3:] += 1
+        seg[:, 2 * s // 3 + 5:] += 1
+        return seg.contiguous()
+    return _segment_ids(spec, b, s, train_seg)
+
+
+def phase_bwd_kernels(flash, train_seg) -> dict:
+    """K2a and K2b against the plain backward, on K1's cases (every head
+    dim causal and not, the training batch, ids that go up and down, a
+    boundary one row past a tile edge, right padding, ragged lengths, Sq !=
+    Skv both ways), and two calls on the training batch bitwise equal (no
+    atomics); returns the max abs errors."""
+    import torch
+
+    cases = [  # (b, s_q, s_kv, h, kv, d, causal, ids)
+        (4, 2048, 2048, 32, 8, 128, True, "train"),  # the training shape
         (2, 333, 333, 8, 2, 64, True, "packed"),  # S % 64 != 0, head_dim 64
         (2, 200, 333, 8, 8, 128, False, None),  # MHA, non-causal, Sq != Skv
         (1, 130, 130, 4, 4, 32, True, None),  # head_dim 32
+        (2, 300, 300, 8, 2, 128, True, "nonmono"),  # ids up and down
+        (1, 257, 257, 4, 2, 128, True, "edge1"),  # boundary past a tile edge
+        (4, 512, 512, 32, 8, 128, True, [512, 401, 230, 97]),  # right padding
+        (1, 2064, 2064, 8, 2, 128, True, "nonmono"),
+        (2, 300, 300, 4, 2, 32, True, "nonmono"),  # every head dim, both masks
+        (2, 300, 300, 4, 2, 32, False, "nonmono"),
+        (2, 300, 300, 4, 2, 64, True, "nonmono"),
+        (2, 300, 300, 4, 2, 64, False, "edge1"),
+        (2, 300, 300, 4, 2, 128, False, "nonmono"),
+        (1, 129, 129, 4, 1, 128, True, None),
+        (2, 200, 333, 8, 2, 64, True, None),  # causal, Sq < Skv
+        (2, 333, 200, 8, 2, 128, True, None),  # causal, Sq > Skv
     ]
     worst = {"flash_dq": 0.0, "flash_dkv": 0.0}
-    for i, (b, sq, skv, h, kv, d, causal, seg) in enumerate(cases):
-        if isinstance(seg, str):  # three packed documents per row
-            seg = torch.ones(b, sq, dtype=torch.int32, device="cuda")
-            seg[:, sq // 3:] += 1
-            seg[:, 2 * sq // 3 + 5:] += 1
-            seg = seg.contiguous()
+    for i, (b, sq, skv, h, kv, d, causal, spec) in enumerate(cases):
+        seg = _bwd_segment_ids(spec, b, sq, train_seg)
         q, k, v, o, lse, do = _bwd_inputs(b, sq, skv, h, kv, d, causal, seg,
                                           seed=400 + i, flash=flash)
         got = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
@@ -543,10 +584,19 @@ def phase_bwd_kernels(flash, train_seg) -> dict:
             errs.append((name, err, scale))
         worst["flash_dq"] = max(worst["flash_dq"], errs[0][1])
         worst["flash_dkv"] = max(worst["flash_dkv"], errs[1][1], errs[2][1])
+        kind = spec if isinstance(spec, str) else ("padded" if spec else "no")
         log(f"[kernels] flash_bwd B={b} Sq={sq} Skv={skv} H={h} K={kv} D={d} "
-            f"causal={causal} seg={'yes' if seg is not None else 'no'}: "
+            f"causal={causal} seg={kind}: "
             + ", ".join(f"max|{n}-plain|={e:.3e} (max|{n}| {sc:.3e})" for n, e, sc in errs)
             + " ok")
+        if i == 0:  # K2a owns query rows, K2b keys: no atomics, one order of sums
+            again = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                              segment_ids=seg)
+            torch.cuda.synchronize()
+            require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                    "flash_bwd: two calls differ")
+            log("[kernels] flash_bwd training batch: two calls bitwise equal (dq, dk, dv) ok")
+            del again
         del q, k, v, o, lse, do, got, want
     return worst
 
@@ -577,72 +627,79 @@ def _bwd_launchers(flash, q, k, v, o, lse, do, seg, causal):
     return run_dq, run_dkv, (delta, dq, dk, dv)
 
 
-def _k1_tiles(flash, seg, causal, s) -> str:
-    """K1's visited tiles at the training tiling (``tile_schedule``): the
-    key tiles its blocks load and those its warpgroups compute, against the
-    causal tiles of one document per row."""
+def _tiles(flash, name, seg, causal, s) -> str:
+    """A flash kernel's visited tiles at the training tiling
+    (``tile_schedule``, per row and head): the tiles its blocks load and
+    those its warpgroups compute, against the causal tiles of one document
+    per row. K1 and K2a walk key tiles for blocks of query rows, K2b query
+    tiles for blocks of keys."""
     b = 4 if seg is None else seg.shape[0]
-    block_kv = flash.fwd_block_kv(128)
+    tilings = {  # (block tiling, warpgroup tiling) as (block_q, block_kv)
+        "flash_fwd": ((flash.FWD_BLOCK_Q, flash.fwd_block_kv(128)),
+                      (flash.FWD_WARPGROUP_ROWS, flash.fwd_block_kv(128))),
+        "flash_dq": ((flash.BWD_DQ_BLOCK_Q, flash.fwd_block_kv(128)),
+                     (flash.FWD_WARPGROUP_ROWS, flash.fwd_block_kv(128))),
+        "flash_dkv": ((flash.BWD_DKV_BLOCK_Q, flash.BWD_DKV_BLOCK_KV),
+                      (flash.BWD_DKV_BLOCK_Q, flash.BWD_DKV_WARPGROUP_KEYS)),
+    }[name]
     counts = []
-    for block_q in (flash.FWD_BLOCK_Q, flash.FWD_WARPGROUP_ROWS):
+    for block_q, block_kv in tilings:
         visit = int(flash.tile_schedule(seg, causal, s, s, block_q, block_kv).sum())
         every = int(flash.tile_schedule(None, causal, s, s, block_q, block_kv).sum())
         counts.append(f"{visit * (b if seg is None else 1)}/{every * b}")
-    return (f"K1 tiles visited: {counts[0]} block tiles loaded, {counts[1]} warpgroup "
-            f"tiles computed, of the causal tiles")
+    label = {"flash_fwd": "K1", "flash_dq": "K2a", "flash_dkv": "K2b"}[name]
+    return (f"{label} tiles visited: {counts[0]} block tiles loaded, {counts[1]} "
+            f"warpgroup tiles computed, of the causal tiles")
 
 
 def phase_train_timings(flash, train_seg) -> dict:
     """K1, K2a and K2b at the training shape (B=4, S=2048, 32/8 heads,
-    D=128, causal) on two inputs: one document per row, the same q/k/v as
-    one scaled_dot_product_attention call (causal, enable_gqa), whose
-    forward and backward (autograd.grad of its output, graph kept) are the
-    library yardsticks; and the pipeline's packed rows, where K1's yardstick
-    is SDPA given the same packed causal mask as a boolean ``attn_mask`` (KV
-    heads expanded outside the timed call): the same function on the same
-    inputs (K2a/K2b there keep the one-document SDPA backward beside them,
-    as in earlier runs). CUDA events over back-to-back calls, the better of
-    two runs; the plain versions; the bounds from these inputs. Returns the
-    one-document figures of K2a and K2b (like-for-like library times)."""
+    D=128, causal) on two inputs, each against one PyTorch call computing
+    the same function on the same inputs: one document per row, where the
+    yardsticks are one scaled_dot_product_attention call (causal,
+    enable_gqa) and ``autograd.grad`` of its output (graph kept); and the
+    pipeline's packed rows, where they are SDPA given the same packed causal
+    mask as a boolean ``attn_mask`` and the grad of that call (KV heads
+    expanded outside the timed calls). Each kernel alone (CUDA events over
+    back-to-back calls, the better of two runs), then the whole backward
+    wrapper (delta, K2a, K2b and the output allocations) against the SDPA
+    backward; the plain versions; the bounds from these inputs; the tiles
+    each kernel visits. Returns the one-document figures of K2a and K2b."""
     import torch
     import torch.nn.functional as F
 
     causal, s = True, 2048
     out: dict = {}
-    lib_bwd_ms = None
     for rows, seg in (("one document per row", None), ("packed rows", train_seg)):
         q, k, v, o, lse, do = _bwd_inputs(4, s, s, 32, 8, 128, causal, seg,
                                           seed=500, flash=flash)
         run_dq, run_dkv, keep = _bwd_launchers(flash, q, k, v, o, lse, do, seg, causal)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        do_t = do.transpose(1, 2)
         if seg is None:
-            out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=True)
-            do_t = do.transpose(1, 2)
-
-            def sdpa_fwd():
-                with torch.no_grad():
-                    F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=True)
-
-            def sdpa_bwd():
-                torch.autograd.grad(out_t, (qt, kt, vt), grad_outputs=do_t,
-                                    retain_graph=True)
-
-            lib_bwd_ms = _time_ms(sdpa_bwd, iters=10)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            sdpa_kw = {"is_causal": True, "enable_gqa": True}
         else:
+            groups = q.shape[2] // k.shape[2]
             mask = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()[None]
             mask = (mask & (seg[:, :, None] == seg[:, None, :]))[:, None]
-            groups = q.shape[2] // k.shape[2]
-            kx = k.repeat_interleave(groups, dim=2).transpose(1, 2)
-            vx = v.repeat_interleave(groups, dim=2).transpose(1, 2)
-            qx = q.transpose(1, 2)
+            qt = q.transpose(1, 2).detach().requires_grad_()
+            kt, vt = (x.repeat_interleave(groups, dim=2).transpose(1, 2).detach()
+                      .requires_grad_() for x in (k, v))
+            sdpa_kw = {"attn_mask": mask}
+        out_t = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
 
-            def sdpa_fwd():
-                F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask)
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+
+        def sdpa_bwd():
+            torch.autograd.grad(out_t, (qt, kt, vt), grad_outputs=do_t, retain_graph=True)
 
         def fwd():
             flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+
+        def bwd():
+            flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=seg)
 
         def plain_fwd():
             flash.flash_attention_plain(q, k, v, causal=causal, segment_ids=seg)
@@ -652,9 +709,11 @@ def phase_train_timings(flash, train_seg) -> dict:
                                             segment_ids=seg)
 
         plain_bwd_ms = _time_ms(plain_bwd, iters=3, warmup=1)
+        lib_bwd_ms = min(_time_ms(sdpa_bwd, iters=10), _time_ms(sdpa_bwd, iters=10))
         fwd_lib = ("sdpa (causal, enable_gqa)" if seg is None else
                    "sdpa (the same packed causal mask as attn_mask)")
-        bwd_lib = "sdpa backward" + ("" if seg is None else " (one document per row)")
+        bwd_lib = ("sdpa backward" if seg is None else
+                   "sdpa backward (the same packed causal mask as attn_mask)")
         segs = "" if seg is None else f" ({int(seg.max())} segments max)"
         for name, run, plain_ms, lib, bound in (
                 ("flash_fwd", fwd, _time_ms(plain_fwd, iters=3, warmup=1),
@@ -662,24 +721,27 @@ def phase_train_timings(flash, train_seg) -> dict:
                 ("flash_dq", run_dq, plain_bwd_ms, lib_bwd_ms,
                  _bwd_bound(q, k, seg, causal, "dq")),
                 ("flash_dkv", run_dkv, plain_bwd_ms, lib_bwd_ms,
-                 _bwd_bound(q, k, seg, causal, "dkv"))):
+                 _bwd_bound(q, k, seg, causal, "dkv")),
+                ("flash_bwd", bwd, plain_bwd_ms, lib_bwd_ms,
+                 _bwd_bound(q, k, seg, causal, "all"))):
             ms = min(_time_ms(run, iters=10), _time_ms(run, iters=10))
             bound_ms, bound_by = bound
             is_fwd = name == "flash_fwd"
+            what = {"flash_fwd": "kernel", "flash_dq": "kernel", "flash_dkv": "kernel",
+                    "flash_bwd": "wrapper (delta + K2a + K2b)"}[name]
+            tiles = "" if name == "flash_bwd" else ", " + _tiles(flash, name, seg, causal, s)
             log(f"[timing] {name} training shape B=4 S={s} H=32 K=8 D=128 causal, "
-                f"{rows}{segs}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                f"{rows}{segs}: {what} {ms:.4f} ms, plain {plain_ms:.4f} ms"
                 f"{'' if is_fwd else ' (dq, dk, dv together)'}, "
-                f"{fwd_lib if is_fwd else bwd_lib} {lib:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}), {bound_ms / ms:.1%} of bound"
-                f"{', ' + _k1_tiles(flash, seg, causal, s) if is_fwd else ''} ({SMI})")
-            if seg is None:
+                f"{fwd_lib if is_fwd else bwd_lib} {lib:.4f} ms "
+                f"({ms / lib:.2f}x), bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{bound_ms / ms:.1%} of bound{tiles} ({SMI})")
+            if seg is None and name in ("flash_dq", "flash_dkv"):
                 out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by, "library_ms": lib}
-        del keep, q, k, v, o, lse, do, qt, kt, vt
-        if seg is None:
-            del out_t
-        else:
-            del mask, kx, vx
+        del keep, q, k, v, o, lse, do, do_t, qt, kt, vt, out_t
+        if seg is not None:
+            del mask
     return out
 
 
@@ -1636,7 +1698,7 @@ def main() -> int:
     errors.update(phase_paged_kernels(paged))
     timings = phase_timings(flash)
     train_timings = phase_train_timings(flash, train_seg)
-    timings.update({k: v for k, v in train_timings.items() if k != "flash_fwd"})
+    timings.update(train_timings)
     timings.update(phase_paged_timings(paged))
     errors.update(phase_mm_kernels(mlp_bwd, proj))
     timings.update(phase_mm_timings(mlp_bwd, proj))

@@ -1,5 +1,5 @@
 // FlashAttention backward for Hopper (sm_90a): two kernels, bf16 in, f32
-// accumulation.
+// sums, on K1's skeleton (flash_fwd.cu) and its helpers (hopper.cuh).
 //
 // Replaces:
 // - K2a ditl_tpu/ops/flash_attention.py::_dq_kernel (pallas_call in
@@ -7,279 +7,493 @@
 //   of query rows.
 // - K2b ditl_tpu/ops/flash_attention.py::_dkv_kernel: dv = sum p^T . do and
 //   dk = scale * sum ds^T . q, summed over the GQA group's query heads and the
-//   query tiles, race-free: each block owns its keys (the reference's
-//   (B, K, n_kv, groups * n_q) grid with the group folded into the serial
-//   dimension).
-// Both recompute p = exp(s - lse) from the forward's log-sum-exp, as the
-// reference does, with s = scale * (q . k) in the convention K1
-// (flash_fwd.cu) writes lse in: the scale is applied after the product.
-// delta = rowsum(do * o) is an input (computed by PyTorch, as the reference
-// computes it outside its kernels).
+//   query tiles. The reference folds the group into its sequential grid
+//   dimension; here a loop inside the block takes that place, and each block
+//   owns its keys, so there are no atomics and two calls give the same bits.
+// Both recompute p = exp(s - lse) from the forward's log-sum-exp in K1's
+// convention (natural log, the scale applied after the q.k product), with
+// s = scale * (q . k), dp = do . v^T and ds = p * (dp - delta); delta =
+// rowsum(do * o) is an input (computed by PyTorch, as the reference computes
+// it outside its kernels).
 //
-// Bound on the card at the training shape (B=4, S=2048, H=32, K=8, D=128,
-// causal): K2a must read q, k, v, do, lse, delta once and write dq, 237 MB
-// -> 71 us at 3.35 TB/s, against three causal products (q.k^T, do.v^T,
-// ds.k), 2.06e11 FLOP -> 0.208 ms at 989 TFLOP/s bf16. K2b moves 204 MB
-// (61 us) against four causal products (q.k^T, do.v^T, p^T.do, ds^T.q),
-// 2.75e11 FLOP -> 0.278 ms. So both are tensor-core bound at S=2048.
+// Bound on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16), computed by
+// chip_smoke.py from its run's inputs (q, k, v, do, lse, delta and ids read
+// once, the gradients written once; 2 D flops per attended pair and head for
+// each product: three for K2a, four for K2b), at B=4, S=2048, 32/8 heads,
+// D=128, causal:
+// - one document per row: K2a 0.2086 ms, K2b 0.2781 ms, both operations;
+// - the training pipeline's packed rows (5-7 documents a row): K2a 0.0707 ms,
+//   K2b 0.0607 ms, both bytes (the attended pairs are a fifth of the causal
+//   ones).
+// So long rows need the tensor cores near their rate, and packed rows need
+// the work the mask removes not to be done at all.
 //
-// What this design does about it:
-// - Every product runs on the tensor cores (mma.sync m16n8k16, bf16
-//   operands, f32 accumulators); p, dp and ds live only in the
-//   accumulator fragments of registers and are never written to memory.
-// - Causal: K2a's key loop ends at the diagonal of its query block; K2b's
-//   query loop starts at its key block, so no tile above the diagonal is read
-//   or computed (the TPU kernels' grids visit and predicate them off).
-//   Blocks are ordered so the longest loops start first.
-// - K2a: one block (4 warps, 16 rows each) per 64 query rows of one head;
-//   q and do stay in registers as A fragments for the whole key loop, 32-key
-//   K/V tiles stream through shared memory, dq accumulates in registers.
-//   32-key tiles keep s and dp to 16 registers each next to the 64 of dq.
-// - K2b: one block (4 warps, 16 keys each) per 64 keys of one KV head; the
-//   K/V tile stays in shared memory for the whole block and feeds the
-//   A fragments of s^T = k.q^T and dp^T = v.do^T; 32-row q/do tiles of every
-//   query head of the group stream through shared memory; dk and dv
-//   accumulate in registers (128 f32 per thread). K/V stay in shared memory
-//   rather than registers to keep the thread under 255 registers.
-// - Precision: q.k^T and do.v^T take bf16 operands exactly as the reference
-//   feeds them (f32 of bf16 values), so those products are exact with f32
-//   sums. p and ds are rounded to bf16 to feed the second products (p^T.do,
-//   ds.k, ds^T.q), which the reference computes in f32; chip_smoke.py
-//   states the tolerance this costs.
-// - Ragged edges (any Sq, Skv) are masked in the kernels: rows past Sq and
-//   keys past Skv are zero-filled, get p = 0, and are never stored.
-// A later PR makes them fast: ldmatrix/TMA loads, double buffering, wgmma.
+// Design. Every product is wgmma m64nNk16 with K1's descriptors, on tiles
+// that TMA stores with the 128-byte swizzle (64 bf16 a row) at D >= 64 and
+// the 64-byte one at D = 32, through a ring of 4 stages under full/empty
+// mbarriers; two consumer warpgroups of 64 rows (K2a) or keys (K2b) a block.
+// - K2a (dq), K1's skeleton: a block owns 128 query rows of one head, plus a
+//   producer warpgroup (384 threads) whose first warp loads Q and dO once
+//   and streams K/V tiles of K1's width (64 keys at D >= 64, 128 at D = 32).
+//   setmaxnreg gives the producer 40 registers a thread and the consumers
+//   232. Per 64 keys: S = Q.K^T and dP = dO.V^T (SS, both K-major; the
+//   exponent of S runs while dP is in flight), P = 2^(S scale log2 e - lse
+//   log2 e), dS = P (dP - delta) rounded to bf16 A fragments in registers
+//   (the m64 accumulator layout is the A layout), and dQ += dS.K (RS, K read
+//   MN-major as K1 reads V); a 128-key tile at D = 32 is two such steps, so
+//   S and dP stay at 32 registers each. dQ is scaled and stored once. Shared
+//   memory at D = 128: Q 32 KB + dO 32 KB + 4 x 32 KB of K/V.
+// - K2b (dk, dv): a block owns 128 keys of one KV head, whose K and V tiles
+//   stay in shared memory for the whole block. The ring streams (Q tile, dO
+//   tile, ids, lse, delta) for 64 query rows at a time, over every query head
+//   of the group and the query tiles the block reaches (FlashAttention-3's
+//   transposed form, everything in registers): S^T = K.Q^T and dP^T = V.dO^T
+//   (SS), P^T from the per-column lse, dV += P^T.dO and dK += dS^T.Q (RS, dO
+//   and Q read MN-major); dK is scaled at the end and both are stored. A
+//   consumer holds dK and dV (128 registers at D = 128) beside S^T and dP^T
+//   (64): about 230 in all. Under setmaxnreg ptxas allocated no more than
+//   188 a thread in the consumers' branch, whatever count they asked for,
+//   spilled 1 KB and serialised the wgmmas (C7512), and the kernel took
+//   1.7 ms at the training shape on an H100, 3x this design's time. So K2b
+//   is a 256-thread block with no producer warpgroup, which its launch
+//   bounds give 255 registers: warp 0 also produces. Between its tiles it
+//   fills every stage the block has freed (a non-blocking test of
+//   the empty barrier; it waits only for the tile it is about to consume),
+//   copying lse, delta and ids into the stage's slot by cp.async, whose
+//   completion the full barrier counts beside the TMA bytes, so the warp
+//   never waits on a load. Shared memory at D = 128: K/V 64 KB + 4 x 32.8
+//   KB. Blocks with the longest loops start first: under causal masking,
+//   the first key blocks.
+// - Tile skipping, K1's rule: a tile is loaded only if it is not wholly on
+//   the masked side of the causal diagonal and its segment-id range
+//   [min, max] overlaps the block's; each warpgroup skips the loaded tiles
+//   its own 64 rows (K2a) or keys (K2b) do not reach. A skipped pair has
+//   s = NEG_INF, so p = exp(NEG_INF - lse) = 0 and ds = 0: it adds nothing,
+//   since with ids Sq == Skv and every row admits its own key (a finite
+//   lse). ditl_tpu_torch/ops/flash_attention.py::tile_schedule is this rule
+//   at (BWD_DQ_BLOCK_Q, fwd_block_kv(D)) for K2a and (BWD_DKV_BLOCK_Q,
+//   BWD_DKV_BLOCK_KV) for K2b. Element masks apply only on tiles across the
+//   diagonal, a document edge or (K2a) the ragged key edge.
+// - Ragged edges: TMA zero-fills rows past Sq and Skv. In K2a rows past Sq
+//   take lse = +inf (p = 0) and keys past Skv are masked to -inf (p = 0); in
+//   K2b rows past Sq have zero Q and dO (so ds = 0 and p meets zero dO rows)
+//   and keys past Skv only fill rows that are never stored.
 //
-// Semantics kept from the reference: masked scores are the finite
-// -2.3819763e38 before exp(s - lse) (never -inf), so a fully masked row
-// reproduces the reference's uniform p; pad queries (segment 0) attend pad
-// keys like any other segment.
+// Precision, as the reference feeds the products: q.k^T and do.v^T take bf16
+// operands with f32 sums; p and ds are rounded to bf16 for the second
+// products (p^T.do, ds.k, ds^T.q) with f32 sums; the outputs are rounded to
+// bf16. Masked scores are the finite -2.3819763e38, set after the scale (as
+// K1 does), so p = 2^(NEG_INF - lse log2 e) = 0.
 //
-// ptxas (sm_90a, nvcc 12.8, -O3), no spills in any instance: K2a 230 / 160 /
-// 96 registers at D = 128 / 64 / 32 (17.5 KB of static shared memory at
-// D = 128), K2b 238 / 128 / 96 (52.6 KB of dynamic shared memory at D =
-// 128). At D = 128 that is two blocks per SM for either kernel.
-// chip_smoke.py's build phase prints these lines on every run.
+// ptxas -v (CUDA 12.9, sm_90a), no spills and no stack in any instance: K2a
+// 168 registers at D = 128, 64 and 32 (the 384-thread block's allocation,
+// which setmaxnreg splits 40 / 232); K2b 250 / 192 / 158. chip_smoke.py's
+// build phase prints the lines on every run.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (ditl_tpu_torch/ops/cuda_build.py). C interface, bound with ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"  // smem/mbarrier/TMA/wgmma helpers, make_map
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kDqRows = 64;   // K2a: query rows per block, 16 per warp
-constexpr int kDqKeys = 32;   // K2a: keys per K/V tile
-constexpr int kDkvKeys = 64;  // K2b: keys per block, 16 per warp
-constexpr int kDkvRows = 32;  // K2b: query rows per q/do tile
-constexpr float kNegInf = -2.3819763e38f;  // ops/attention.py NEG_INF
+constexpr int kConsumers = 256;                  // two warpgroups: K2b's block
+constexpr int kThreads = kConsumers + 128;       // K2a's: + a producer warpgroup
+constexpr int kProducerWarp = kConsumers / 32;   // K2a's one producer warp that works
+constexpr int kEmptyArrivals = kConsumers / 32;  // one per consumer warp
+constexpr int kStages = 4;                       // ring depth, both kernels
+constexpr float kNegInf = -2.3819763e38f;        // ops/attention.py NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
-// D = A(16x16, row-major) * B(16x8, col-major) + D, bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// K2a's registers a thread after setmaxnreg: 128 x 40 + 256 x 232 = 384 x
+// 168, the 384-thread block's allocation at launch.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-// Two floats -> one register of two bf16, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// B fragment of a product whose k index runs down the rows of a row-major
-// shared tile (row stride ld) and whose n index runs along them: rows kr,
-// kr+1 (b0) and kr+8, kr+9 (b1) at column n.
-__device__ __forceinline__ void b_frag_rows(const uint16_t* s, int ld, int kr,
-                                            int n, uint32_t& b0, uint32_t& b1) {
-  b0 = (uint32_t)s[kr * ld + n] | ((uint32_t)s[(kr + 1) * ld + n] << 16);
-  b1 = (uint32_t)s[(kr + 8) * ld + n] | ((uint32_t)s[(kr + 9) * ld + n] << 16);
-}
-
-// Copy `rows` rows of D bf16 from global (row stride `stride` elements,
-// rows past `limit` zero-filled) into a shared tile of row stride ld.
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t* dst, int ld,
-                                          const uint16_t* src, long stride,
-                                          int row0, int rows, int limit) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit) {
-      x = *reinterpret_cast<const uint4*>(src + (long)(row0 + r) * stride + c);
-    }
-    *reinterpret_cast<uint4*>(&dst[r * ld + c]) = x;
+// mbar_wait that traps instead of spinning for ever: every wait here lasts
+// microseconds, so 2^22 failed polls mean a broken ring, and the launch then
+// fails with an error instead of holding the card.
+__device__ __forceinline__ void ring_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 22)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-// Fragment layouts of mma.m16n8k16 (PTX ISA), g = lane / 4, t = lane % 4:
-//   A: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B: b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8..2t+9, n = g)
-//   C: c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-// A C fragment pair (n-tiles 2j, 2j+1) re-packs in place into the A fragment
-// of k-step j: n-tile 2j gives a0/a1, n-tile 2j+1 gives a2/a3.
+// Waits until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Panel geometry shared by both kernels: a swizzled row of 64 bf16 (128
+// bytes) at D >= 64, 32 bf16 (64 bytes) at D = 32.
+template <int D>
+struct Panels {
+  static constexpr int kPanel = D >= 64 ? 64 : 32;
+  static constexpr int kBytes = 2 * kPanel;  // = the swizzle width
+  static constexpr int kCount = D / kPanel;
+  static constexpr uint64_t kLayout = kBytes == 128 ? 1 : 2;  // B128 / B64
+};
+
+// K-major descriptor of k-step ks of a tile of `rows` rows stored in panels
+// (A of Q.K^T, or B read K-major).
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int ks) {
+  using P = Panels<D>;
+  const uint32_t off = (ks * 16 % P::kPanel) * 2;
+  const int p = ks * 16 / P::kPanel;
+  return make_desc(tile + p * rows * P::kBytes + off, 16, 8 * P::kBytes, P::kLayout);
+}
+
+// MN-major descriptor of rows 16 kk .. 16 kk + 15 of a tile of `rows` rows
+// (B of P.V-like products: k runs down the rows, n along d).
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
+  using P = Panels<D>;
+  return make_desc(tile + kk * 16 * P::kBytes, rows * P::kBytes, 8 * P::kBytes, P::kLayout);
+}
+
+// Segment-id range [lo, hi] of positions [t N, min((t + 1) N, len)) of one
+// row (empty: lo > hi); a lane per tile, four 16-byte loads in flight.
+template <int N>
+__device__ __forceinline__ void tile_range(const int* ids, int t, int len, int& lo, int& hi) {
+  lo = INT_MAX;
+  hi = INT_MIN;
+  const int* tile = ids + static_cast<long>(t) * N;
+  if ((t + 1) * N <= len && (reinterpret_cast<uintptr_t>(tile) & 15) == 0) {
+#pragma unroll 4
+    for (int i = 0; i < N; i += 4) {
+      const int4 x = *reinterpret_cast<const int4*>(tile + i);
+      lo = min(lo, min(min(x.x, x.y), min(x.z, x.w)));
+      hi = max(hi, max(max(x.x, x.y), max(x.z, x.w)));
+    }
+  } else {
+    const int n = min(N, len - t * N);
+    for (int i = 0; i < n; ++i) {
+      lo = min(lo, tile[i]);
+      hi = max(hi, tile[i]);
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // K2a: dq
 // ---------------------------------------------------------------------------
 
+// Shared memory of K2a; every tile starts on a 1024-byte boundary.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    const int* __restrict__ seg, uint16_t* __restrict__ dq, int sq,
-                    int skv, int heads, int kv_heads, int causal, float scale) {
-  constexpr int kLd = D + 8;             // padded shared row, in bf16
-  constexpr int kKSteps = D / 16;        // k-steps of q.k^T and do.v^T
-  constexpr int kDTiles = D / 8;         // n-tiles of ds.k
-  constexpr int kNTiles = kDqKeys / 8;   // n-tiles of q.k^T
-  constexpr int kPSteps = kDqKeys / 16;  // k-steps of ds.k
+struct DqCfg {
+  static constexpr int kBlockM = 128;                   // query rows per block
+  static constexpr int kBlockN = D == 32 ? 128 : 64;    // keys per K/V tile (K1's)
+  static constexpr int kSubN = 64;                      // keys per product (S, dP)
+  static constexpr int kQBytes = kBlockM * D * 2;       // Q or dO
+  static constexpr int kTileBytes = kBlockN * D * 2;    // one K or one V tile
+  static constexpr int kDoOff = kQBytes;
+  static constexpr int kKOff = 2 * kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kTileBytes;
+  static constexpr int kSlotInts = 4 + kBlockN;  // k0, min id, max id, -, ids
+  static constexpr int kSlotOff = kVOff + kStages * kTileBytes;
+  static constexpr int kBarOff = kSlotOff + kStages * kSlotInts * 4;
+  static constexpr int kSmem = kBarOff + (2 * kStages + 1) * 8;
+  static constexpr int kSmemAlloc = kSmem + 1024;  // room to align the base
+};
 
-  __shared__ __align__(16) uint16_t k_s[kDqKeys * kLd];
-  __shared__ __align__(16) uint16_t v_s[kDqKeys * kLd];
-  __shared__ int seg_s[kDqKeys];
+// Grid (heads, batch, q tiles); warps 0-7 are two consumer warpgroups of 64
+// query rows each, warps 8-11 the producer warpgroup (warp 8 works).
+// Accumulator layout of an m64nN product, per warp w of a warpgroup, g =
+// lane / 4, t = lane % 4: d[4i + 0, 1] at row 16w + g, columns 8i + 2t, +1;
+// d[4i + 2, 3] at row 16w + g + 8.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const int* __restrict__ seg,
+                    uint16_t* __restrict__ dq, int sq, int skv, int heads, int kv_heads,
+                    int causal, float scale) {
+  using C = DqCfg<D>;
+  using P = Panels<D>;
+  constexpr int M = C::kBlockM;
+  constexpr int N = C::kBlockN;
+  constexpr int KH = C::kSubN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  int* slots = reinterpret_cast<int*>(smem_raw + (base - raw) + C::kSlotOff);
+  const uint32_t full_bar = base + C::kBarOff;        // full[s] at + 8 s
+  const uint32_t empty_bar = full_bar + 8 * kStages;  // empty[s] at + 8 s
+  const uint32_t q_bar = empty_bar + 8 * kStages;
 
-  // Last query block first: under causal masking it has the most keys.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * M;  // longest causal rows first
   const int kh = h / (heads / kv_heads);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int row1 = row0 + 8;
+  // Warp-uniform for the compiler (a broadcast), so the role branch below
+  // can move registers with setmaxnreg.
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
+  const int lane = threadIdx.x & 31;
+  const int* ids = seg != nullptr ? seg + static_cast<long>(b) * skv : nullptr;  // Sq == Skv
 
-  const long q_stride = (long)heads * D;
-  const long kv_stride = (long)kv_heads * D;
-  const uint16_t* qb = q + (long)b * sq * q_stride + (long)h * D;
-  const uint16_t* dob = dout + (long)b * sq * q_stride + (long)h * D;
-  const uint16_t* kb = k + (long)b * skv * kv_stride + (long)kh * D;
-  const uint16_t* vb = v + (long)b * skv * kv_stride + (long)kh * D;
-
-  // q and do as A fragments, in registers for the whole key loop.
-  uint32_t qf[kKSteps][4], df[kKSteps][4];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    qf[ks][0] = row0 < sq ? ld32(qb + row0 * q_stride + c) : 0u;
-    qf[ks][1] = row1 < sq ? ld32(qb + row1 * q_stride + c) : 0u;
-    qf[ks][2] = row0 < sq ? ld32(qb + row0 * q_stride + c + 8) : 0u;
-    qf[ks][3] = row1 < sq ? ld32(qb + row1 * q_stride + c + 8) : 0u;
-    df[ks][0] = row0 < sq ? ld32(dob + row0 * q_stride + c) : 0u;
-    df[ks][1] = row1 < sq ? ld32(dob + row1 * q_stride + c) : 0u;
-    df[ks][2] = row0 < sq ? ld32(dob + row0 * q_stride + c + 8) : 0u;
-    df[ks][3] = row1 < sq ? ld32(dob + row1 * q_stride + c + 8) : 0u;
-  }
-  const float* lb = lse + ((long)b * heads + h) * sq;
-  const float* db = delta + ((long)b * heads + h) * sq;
-  const float lse0 = row0 < sq ? lb[row0] : 0.f;
-  const float lse1 = row1 < sq ? lb[row1] : 0.f;
-  const float dl0 = row0 < sq ? db[row0] : 0.f;
-  const float dl1 = row1 < sq ? db[row1] : 0.f;
-  int seg0 = 0, seg1 = 0;
-  if (seg != nullptr) {
-    seg0 = row0 < sq ? seg[(long)b * sq + row0] : 0;
-    seg1 = row1 < sq ? seg[(long)b * sq + row1] : 0;
-  }
-
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int i = 0; i < kDTiles; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
-
-  const int kv_end = causal ? min(skv, q0 + kDqRows) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kDqKeys) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D>(k_s, kLd, kb, kv_stride, k0, kDqKeys, skv);
-    load_tile<D>(v_s, kLd, vb, kv_stride, k0, kDqKeys, skv);
-    if (seg != nullptr && tid < kDqKeys) {
-      seg_s[tid] = k0 + tid < skv ? seg[(long)b * skv + k0 + tid] : 0;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, kEmptyArrivals);
     }
-    __syncthreads();
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // s = q k^T and dp = do v^T: 16 rows x 32 keys per warp.
-    float s[kNTiles][4], dp[kNTiles][4];
+  if (warp >= kProducerWarp) {
+    // ---- Producer: Q and dO once, then the key tiles the block reaches. ----
+    reg_dealloc<kProducerRegs>();
+    if (warp == kProducerWarp) {
+      const int q_last = min(sq, q0 + M) - 1;
+      const int kv_end = causal ? min(skv, q_last + 1) : skv;  // causal: keys <= q_last
+      const int n_kv = (kv_end + N - 1) / N;
+      int q_lo = 0, q_hi = 0;
+      if (ids != nullptr) id_range(ids, q0, q_last + 1, lane, q_lo, q_hi);
+      if (lane == 0) {
+        mbar_expect_tx(q_bar, 2 * C::kQBytes);
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
-        const uint16_t* kp = &k_s[(nt * 8 + g) * kLd + ks * 16 + 2 * t];
-        mma_16816(s[nt], qf[ks], ld32(kp), ld32(kp + 8));
-        const uint16_t* vp = &v_s[(nt * 8 + g) * kLd + ks * 16 + 2 * t];
-        mma_16816(dp[nt], df[ks], ld32(vp), ld32(vp + 8));
-      }
-    }
-
-    // p = exp(s - lse), ds = p (dp - delta), packed to bf16 A fragments.
-    uint32_t dsf[kPSteps][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row0 : row1;
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        float p = 0.f;
-        if (col < skv && row < sq) {
-          float x = s[nt][e] * scale;
-          if ((causal && col > row) ||
-              (seg != nullptr && seg_s[col - k0] != (e < 2 ? seg0 : seg1))) {
-            x = kNegInf;
-          }
-          p = exp2f((x - (e < 2 ? lse0 : lse1)) * kLog2e);
+        for (int p = 0; p < P::kCount; ++p) {
+          tma_load(base + p * M * P::kBytes, &tm_q, q_bar, p * P::kPanel, h, q0, b);
+          tma_load(base + C::kDoOff + p * M * P::kBytes, &tm_do, q_bar, p * P::kPanel, h, q0,
+                   b);
         }
-        ds[e] = p * (dp[nt][e] - (e < 2 ? dl0 : dl1));
       }
-      const int half = (nt & 1) * 2;
-      dsf[nt >> 1][half + 0] = pack_bf16(ds[0], ds[1]);
-      dsf[nt >> 1][half + 1] = pack_bf16(ds[2], ds[3]);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t0 = 0; t0 < n_kv; t0 += 32) {
+        // Lane l tests tile t0 + l: visited unless its id range misses the
+        // block's (disjoint ranges share no id, so no pair of it is admitted).
+        const int t = t0 + lane;
+        int k_lo = 0, k_hi = 0;
+        bool visit = t < n_kv;
+        if (visit && ids != nullptr) {
+          tile_range<N>(ids, t, skv, k_lo, k_hi);
+          visit = k_lo <= q_hi && k_hi >= q_lo;
+        }
+        for (uint32_t todo = __ballot_sync(0xffffffffu, visit); todo != 0; todo &= todo - 1) {
+          const int src = __ffs(todo) - 1;
+          const int k0 = (t0 + src) * N;
+          const int lo = __shfl_sync(0xffffffffu, k_lo, src);
+          const int hi = __shfl_sync(0xffffffffu, k_hi, src);
+          // A tile of one id needs no copy of its ids: the consumers take lo.
+          const bool copy_ids = ids != nullptr && lo != hi;
+          int tile_ids[N / 32];
+          if (copy_ids) {
+#pragma unroll
+            for (int j = 0; j < N / 32; ++j) {
+              const int i = k0 + j * 32 + lane;
+              tile_ids[j] = i < skv ? ids[i] : 0;
+            }
+          }
+          ring_wait(empty_bar + 8 * stage, phase ^ 1);
+          int* slot = slots + stage * C::kSlotInts;
+          if (lane == 0) {
+            slot[0] = k0;
+            slot[1] = lo;
+            slot[2] = hi;
+          }
+          if (copy_ids) {
+#pragma unroll
+            for (int j = 0; j < N / 32; ++j) slot[4 + j * 32 + lane] = tile_ids[j];
+          }
+          __threadfence_block();
+          __syncwarp();
+          if (lane == 0) {
+            const uint32_t bar = full_bar + 8 * stage;
+            mbar_expect_tx(bar, 2 * C::kTileBytes);
+#pragma unroll
+            for (int p = 0; p < P::kCount; ++p) {
+              const uint32_t off = stage * C::kTileBytes + p * N * P::kBytes;
+              tma_load(base + C::kKOff + off, &tm_k, bar, p * P::kPanel, kh, k0, b);
+              tma_load(base + C::kVOff + off, &tm_v, bar, p * P::kPanel, kh, k0, b);
+            }
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      // End of the ring: a slot with k0 = -1.
+      ring_wait(empty_bar + 8 * stage, phase ^ 1);
+      if (lane == 0) {
+        slots[stage * C::kSlotInts] = -1;
+        __threadfence_block();
+        mbar_arrive(full_bar + 8 * stage);
+      }
+    }
+  } else {
+    // ---- Consumers: S, dP, P, dS and dQ += dS.K per tile. ----
+    reg_alloc<kConsumerRegs>();
+    const int wg = warp >> 2;
+    const int wq0 = q0 + 64 * wg;              // the warpgroup's first row
+    const int w_last = min(sq, wq0 + 64) - 1;  // its last real row (< wq0: none)
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row0 = wq0 + 16 * (warp & 3) + g;  // this thread's rows: row0, row0 + 8
+    const int row1 = row0 + 8;
+    int w_lo = 0, w_hi = 0, seg0 = 0, seg1 = 0;
+    if (ids != nullptr) {
+      id_range(ids, wq0, w_last + 1, lane, w_lo, w_hi);
+      seg0 = row0 < sq ? ids[row0] : 0;
+      seg1 = row1 < sq ? ids[row1] : 0;
+    }
+    // lse in base 2 (+inf past Sq, so p = 0 there) and delta of the rows.
+    const float* lb = lse + (static_cast<long>(b) * heads + h) * sq;
+    const float* db = delta + (static_cast<long>(b) * heads + h) * sq;
+    const float lse0 = row0 < sq ? lb[row0] * kLog2e : INFINITY;
+    const float lse1 = row1 < sq ? lb[row1] * kLog2e : INFINITY;
+    const float dl0 = row0 < sq ? db[row0] : 0.f;
+    const float dl1 = row1 < sq ? db[row1] : 0.f;
+    const float scale_log2 = scale * kLog2e;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    const uint32_t q_s = base + wg * 64 * P::kBytes;
+    const uint32_t do_s = base + C::kDoOff + wg * 64 * P::kBytes;
+    ring_wait(q_bar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (;;) {
+      ring_wait(full_bar + 8 * stage, phase);
+      const int* slot = slots + stage * C::kSlotInts;
+      const int k0 = slot[0];
+      if (k0 < 0) break;
+      const int k_lo = slot[1], k_hi = slot[2];
+      // The warpgroup's own test: the block's tile may miss its 64 rows.
+      const bool visit = w_last >= wq0 && (!causal || k0 <= w_last) &&
+                         (ids == nullptr || (k_lo <= w_hi && k_hi >= w_lo));
+      if (visit) {
+        const uint32_t k_s = base + C::kKOff + stage * C::kTileBytes;
+        const uint32_t v_s = base + C::kVOff + stage * C::kTileBytes;
+        const bool mixed = ids != nullptr && !(k_lo == k_hi && w_lo == w_hi && k_lo == w_lo);
+#pragma unroll
+        for (int half = 0; half < N / KH; ++half) {
+          const int kb = k0 + half * KH;  // the sub-tile's first key
+          if (kb >= skv || (causal && kb > w_last)) continue;
+          const uint32_t ks_s = k_s + half * KH * P::kBytes;  // its K and V rows
+          const uint32_t vs_s = v_s + half * KH * P::kBytes;
+          float s[KH / 2], dp[KH / 2];
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks) {
+            wgmma_ss<KH>(s, desc_k<D>(q_s, M, ks), desc_k<D>(ks_s, N, ks), ks > 0);
+          }
+          wgmma_commit();
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks) {
+            wgmma_ss<KH>(dp, desc_k<D>(do_s, M, ks), desc_k<D>(vs_s, N, ks), ks > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // S is in; dP still runs
+          fence_regs<KH / 2>(s);
+
+          // P = 2^(S scale log2 e - lse log2 e), in place; mask only where a
+          // mask can bite: keys across the causal diagonal, a document
+          // boundary or the ragged key edge.
+          const bool edge = kb + KH > skv;
+          const bool cross = causal && kb + KH - 1 > wq0;
+          if (edge || cross || mixed) {
+#pragma unroll
+            for (int i = 0; i < KH / 8; ++i) {
+              const int c = kb + 8 * i + 2 * t;  // this thread's columns c, c + 1
+              int2 key = make_int2(k_lo, k_lo);
+              if (k_lo != k_hi) key = *reinterpret_cast<const int2*>(slot + 4 + c - k0);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int col = c + (e & 1);
+                float x = s[4 * i + e] * scale_log2;
+                if (col >= skv) {
+                  x = -INFINITY;  // not a key at all: weight exactly 0
+                } else if ((causal && col > (e < 2 ? row0 : row1)) ||
+                           (ids != nullptr &&
+                            ((e & 1) ? key.y : key.x) != (e < 2 ? seg0 : seg1))) {
+                  x = kNegInf;
+                }
+                s[4 * i + e] = exp2f(x - (e < 2 ? lse0 : lse1));
+              }
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < KH / 2; j += 4) {
+              s[j] = exp2f(s[j] * scale_log2 - lse0);
+              s[j + 1] = exp2f(s[j + 1] * scale_log2 - lse0);
+              s[j + 2] = exp2f(s[j + 2] * scale_log2 - lse1);
+              s[j + 3] = exp2f(s[j + 3] * scale_log2 - lse1);
+            }
+          }
+          wgmma_wait<0>();
+          fence_regs<KH / 2>(dp);
+
+          // dS = P (dP - delta) as bf16 A fragments: K-step kk covers keys
+          // 16 kk .. 16 kk + 15 of the sub-tile, s[8 kk ..], dsf[4 kk ..] (the
+          // accumulator's two n8 column groups are the A fragment's halves).
+          uint32_t dsf[KH / 4];
+#pragma unroll
+          for (int j = 0; j < KH / 2; j += 4) {
+            dsf[(j >> 1) + 0] = pack_bf16(s[j] * (dp[j] - dl0), s[j + 1] * (dp[j + 1] - dl0));
+            dsf[(j >> 1) + 1] = pack_bf16(s[j + 2] * (dp[j + 2] - dl1),
+                                          s[j + 3] * (dp[j + 3] - dl1));
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KH / 16; ++kk) {
+            wgmma_rs<D>(acc, dsf + 4 * kk, desc_mn<D>(k_s, N, half * KH / 16 + kk));
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<D / 2>(acc);
+          fence_regs<KH / 4>(dsf);  // the A fragments stay live until here
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
 
-    // dq += ds k.
+    const long q_stride = static_cast<long>(heads) * D;
+    uint16_t* out = dq + static_cast<long>(b) * sq * q_stride + static_cast<long>(h) * D;
 #pragma unroll
-    for (int kk = 0; kk < kPSteps; ++kk) {
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        uint32_t b0, b1;
-        b_frag_rows(k_s, kLd, kk * 16 + 2 * t, dt * 8 + g, b0, b1);
-        mma_16816(acc[dt], dsf[kk], b0, b1);
+    for (int i = 0; i < D / 8; ++i) {
+      const int c = 8 * i + 2 * t;
+      if (row0 < sq) {
+        *reinterpret_cast<uint32_t*>(out + row0 * q_stride + c) =
+            pack_bf16(acc[4 * i] * scale, acc[4 * i + 1] * scale);
       }
-    }
-  }
-
-  uint16_t* out = dq + (long)b * sq * q_stride + (long)h * D;
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (row0 < sq) {
-      *reinterpret_cast<uint32_t*>(out + row0 * q_stride + c) =
-          pack_bf16(acc[dt][0] * scale, acc[dt][1] * scale);
-    }
-    if (row1 < sq) {
-      *reinterpret_cast<uint32_t*>(out + row1 * q_stride + c) =
-          pack_bf16(acc[dt][2] * scale, acc[dt][3] * scale);
+      if (row1 < sq) {
+        *reinterpret_cast<uint32_t*>(out + row1 * q_stride + c) =
+            pack_bf16(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale);
+      }
     }
   }
 }
@@ -288,174 +502,367 @@ flash_bwd_dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
 // K2b: dk, dv
 // ---------------------------------------------------------------------------
 
+// Shared memory of K2b; every tile starts on a 1024-byte boundary.
 template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * kDkvKeys + 2 * kDkvRows) * (D + 8) * 2 + 3 * kDkvRows * 4;
+struct DkvCfg {
+  static constexpr int kBlockN = 128;                 // keys per block
+  static constexpr int kBlockM = 64;                  // query rows per Q/dO tile
+  static constexpr int kKBytes = kBlockN * D * 2;     // K or V of the block
+  static constexpr int kTileBytes = kBlockM * D * 2;  // one Q or one dO tile
+  static constexpr int kVOff = kKBytes;
+  static constexpr int kQOff = 2 * kKBytes;
+  static constexpr int kDoOff = kQOff + kStages * kTileBytes;
+  // Slot: q0, min id, max id, -, ids[64], lse[64], delta[64].
+  static constexpr int kSlotInts = 4 + 3 * kBlockM;
+  static constexpr int kLseAt = 4 + kBlockM;
+  static constexpr int kDeltaAt = 4 + 2 * kBlockM;
+  static constexpr int kSlotOff = kDoOff + kStages * kTileBytes;
+  static constexpr int kBarOff = kSlotOff + kStages * kSlotInts * 4;
+  static constexpr int kSmem = kBarOff + (2 * kStages + 1) * 8;
+  static constexpr int kSmemAlloc = kSmem + 1024;  // room to align the base
+};
+
+// One phase test, no wait.
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
+// 4 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// The barrier's phase counts one arrival of this thread once its earlier
+// cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// K2b's producer, run by warp 0 between its tiles: the (query head, query
+// tile) items the block visits, in order, into the ring. Lane l holds the
+// id range of tile t0 + l of the current batch of 32 tiles.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                     const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const int* __restrict__ seg, uint16_t* __restrict__ dk,
-                     uint16_t* __restrict__ dv, int sq, int skv, int heads,
-                     int kv_heads, int causal, float scale) {
-  constexpr int kLd = D + 8;
-  constexpr int kKSteps = D / 16;         // k-steps of k.q^T and v.do^T
-  constexpr int kDTiles = D / 8;          // n-tiles of p^T.do and ds^T.q
-  constexpr int kNTiles = kDkvRows / 8;   // n-tiles of k.q^T (queries)
-  constexpr int kPSteps = kDkvRows / 16;  // k-steps of p^T.do (queries)
+struct DkvProducer {
+  using C = DkvCfg<D>;
+  static constexpr int M = C::kBlockM;
+  int t0, hg, n_q, stage, produced;
+  uint32_t tiles, todo, phase;
+  int lo, hi;  // this lane's tile's id range
+  bool ended;
 
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* k_s = smem;                      // kDkvKeys x kLd
-  uint16_t* v_s = k_s + kDkvKeys * kLd;      // kDkvKeys x kLd
-  uint16_t* q_s = v_s + kDkvKeys * kLd;      // kDkvRows x kLd
-  uint16_t* do_s = q_s + kDkvRows * kLd;     // kDkvRows x kLd
-  float* lse_s = reinterpret_cast<float*>(do_s + kDkvRows * kLd);
-  float* dl_s = lse_s + kDkvRows;
-  int* seg_s = reinterpret_cast<int*>(dl_s + kDkvRows);
+  // The batch of 32 query tiles from t0: the ballot of those the block
+  // reaches (causal: t0 starts at the block's first key; ids: range overlap).
+  __device__ __forceinline__ void scan(const int* ids, int sq, int k_lo, int k_hi, int lane) {
+    const int t = t0 + lane;
+    bool visit = t < n_q;
+    if (visit && ids != nullptr) {
+      tile_range<M>(ids, t, sq, lo, hi);
+      visit = lo <= k_hi && hi >= k_lo;
+    }
+    tiles = todo = __ballot_sync(0xffffffffu, visit);
+    hg = 0;
+  }
 
-  const int k0 = blockIdx.x * kDkvKeys;  // first key tile has the most queries
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
+  // Moves to the next item; false once every item has been produced.
+  __device__ __forceinline__ bool next(const int* ids, int sq, int k_lo, int k_hi, int groups,
+                                       int lane) {
+    while (todo == 0) {
+      if (++hg < groups) {
+        todo = tiles;
+      } else {
+        t0 += 32;
+        if (t0 >= n_q) return false;
+        scan(ids, sq, k_lo, k_hi, lane);
+      }
+    }
+    return true;
+  }
+};
+
+// Grid (KV heads, batch, key blocks); two warpgroups of 64 keys each, warp 0
+// also the producer. In the transposed products a thread's accumulator rows
+// are keys and its columns query rows of the tile.
+template <int D>
+__global__ void __launch_bounds__(kConsumers, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                     const float* __restrict__ delta, const int* __restrict__ seg,
+                     uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int sq, int skv,
+                     int heads, int kv_heads, int causal, float scale) {
+  using C = DkvCfg<D>;
+  using P = Panels<D>;
+  constexpr int M = C::kBlockM;
+  constexpr int KN = C::kBlockN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  int* slots = reinterpret_cast<int*>(smem_raw + (base - raw) + C::kSlotOff);
+  const uint32_t slots_s = base + C::kSlotOff;
+  const uint32_t full_bar = base + C::kBarOff;        // full[s] at + 8 s
+  const uint32_t empty_bar = full_bar + 8 * kStages;  // empty[s] at + 8 s
+  const uint32_t kv_bar = empty_bar + 8 * kStages;
+
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * KN;  // the first key blocks have the longest causal loops
   const int groups = heads / kv_heads;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int* ids = seg != nullptr ? seg + static_cast<long>(b) * skv : nullptr;  // Sq == Skv
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 33);  // warp 0's 32 copies + the TMA bytes' arrival
+      mbar_init(empty_bar + 8 * s, kEmptyArrivals);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(kv_bar, 2 * C::kKBytes);
+#pragma unroll
+    for (int p = 0; p < P::kCount; ++p) {
+      tma_load(base + p * KN * P::kBytes, &tm_k, kv_bar, p * P::kPanel, kh, k0, b);
+      tma_load(base + C::kVOff + p * KN * P::kBytes, &tm_v, kv_bar, p * P::kPanel, kh, k0, b);
+    }
+  }
+  __syncthreads();
+
+  const int wg = warp >> 2;
+  const int wk0 = k0 + 64 * wg;               // the warpgroup's first key
+  const int w_last = min(skv, wk0 + 64) - 1;  // its last real key (< wk0: none)
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int wrow = warp * 16;             // this warp's keys in the tile
-  const int key0 = k0 + wrow + g;         // this thread's keys: key0, key0 + 8
+  const int key0 = wk0 + 16 * (warp & 3) + g;  // this thread's keys: key0, key0 + 8
   const int key1 = key0 + 8;
-
-  const long q_stride = (long)heads * D;
-  const long kv_stride = (long)kv_heads * D;
-  load_tile<D>(k_s, kLd, k + (long)b * skv * kv_stride + (long)kh * D, kv_stride,
-               k0, kDkvKeys, skv);
-  load_tile<D>(v_s, kLd, v + (long)b * skv * kv_stride + (long)kh * D, kv_stride,
-               k0, kDkvKeys, skv);
-  int kseg0 = 0, kseg1 = 0;
-  if (seg != nullptr) {
-    kseg0 = key0 < skv ? seg[(long)b * skv + key0] : 0;
-    kseg1 = key1 < skv ? seg[(long)b * skv + key1] : 0;
+  int w_lo = 0, w_hi = 0, kseg0 = 0, kseg1 = 0;
+  if (ids != nullptr) {
+    id_range(ids, wk0, w_last + 1, lane, w_lo, w_hi);
+    kseg0 = key0 < skv ? ids[key0] : 0;
+    kseg1 = key1 < skv ? ids[key1] : 0;
   }
 
-  float dkacc[kDTiles][4], dvacc[kDTiles][4];
-#pragma unroll
-  for (int i = 0; i < kDTiles; ++i) {
-    dkacc[i][0] = dkacc[i][1] = dkacc[i][2] = dkacc[i][3] = 0.f;
-    dvacc[i][0] = dvacc[i][1] = dvacc[i][2] = dvacc[i][3] = 0.f;
-  }
-
-  // Causal: queries before the tile's first key see none of its keys.
-  const int q_begin = causal ? (k0 / kDkvRows) * kDkvRows : 0;
-  for (int hg = 0; hg < groups; ++hg) {
-    const int h = kh * groups + hg;
-    const uint16_t* qb = q + (long)b * sq * q_stride + (long)h * D;
-    const uint16_t* dob = dout + (long)b * sq * q_stride + (long)h * D;
-    const float* lb = lse + ((long)b * heads + h) * sq;
-    const float* db = delta + ((long)b * heads + h) * sq;
-    for (int q0 = q_begin; q0 < sq; q0 += kDkvRows) {
-      __syncthreads();  // the previous q/do tile is consumed
-      load_tile<D>(q_s, kLd, qb, q_stride, q0, kDkvRows, sq);
-      load_tile<D>(do_s, kLd, dob, q_stride, q0, kDkvRows, sq);
-      if (tid < kDkvRows) {
-        const bool in = q0 + tid < sq;
-        lse_s[tid] = in ? lb[q0 + tid] : 0.f;
-        dl_s[tid] = in ? db[q0 + tid] : 0.f;
-        seg_s[tid] = (in && seg != nullptr) ? seg[(long)b * sq + q0 + tid] : 0;
-      }
-      __syncthreads();
-
-      // s^T = k q^T and dp^T = v do^T: 16 keys x 32 queries per warp.
-      float s[kNTiles][4], dp[kNTiles][4];
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
-        const int c = ks * 16 + 2 * t;
-        uint32_t ka[4], va[4];
-        ka[0] = ld32(&k_s[(wrow + g) * kLd + c]);
-        ka[1] = ld32(&k_s[(wrow + g + 8) * kLd + c]);
-        ka[2] = ld32(&k_s[(wrow + g) * kLd + c + 8]);
-        ka[3] = ld32(&k_s[(wrow + g + 8) * kLd + c + 8]);
-        va[0] = ld32(&v_s[(wrow + g) * kLd + c]);
-        va[1] = ld32(&v_s[(wrow + g + 8) * kLd + c]);
-        va[2] = ld32(&v_s[(wrow + g) * kLd + c + 8]);
-        va[3] = ld32(&v_s[(wrow + g + 8) * kLd + c + 8]);
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt) {
-          const uint16_t* qp = &q_s[(nt * 8 + g) * kLd + c];
-          mma_16816(s[nt], ka, ld32(qp), ld32(qp + 8));
-          const uint16_t* dp_ = &do_s[(nt * 8 + g) * kLd + c];
-          mma_16816(dp[nt], va, ld32(dp_), ld32(dp_ + 8));
-        }
-      }
-
-      // p^T and ds^T, packed to bf16 A fragments (rows = keys, k = queries).
-      uint32_t pf[kPSteps][4], dsf[kPSteps][4];
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = e < 2 ? key0 : key1;
-          const int qc = nt * 8 + 2 * t + (e & 1);  // query within the tile
-          const int col = q0 + qc;
-          float pe = 0.f;
-          if (col < sq && key < skv) {
-            float x = s[nt][e] * scale;
-            if ((causal && key > col) ||
-                (seg != nullptr && seg_s[qc] != (e < 2 ? kseg0 : kseg1))) {
-              x = kNegInf;
-            }
-            pe = exp2f((x - lse_s[qc]) * kLog2e);
-          }
-          p[e] = pe;
-          ds[e] = pe * (dp[nt][e] - dl_s[qc]);
-        }
-        const int half = (nt & 1) * 2;
-        pf[nt >> 1][half + 0] = pack_bf16(p[0], p[1]);
-        pf[nt >> 1][half + 1] = pack_bf16(p[2], p[3]);
-        dsf[nt >> 1][half + 0] = pack_bf16(ds[0], ds[1]);
-        dsf[nt >> 1][half + 1] = pack_bf16(ds[2], ds[3]);
-      }
-
-      // dv += p^T do and dk += ds^T q.
-#pragma unroll
-      for (int kk = 0; kk < kPSteps; ++kk) {
-#pragma unroll
-        for (int dt = 0; dt < kDTiles; ++dt) {
-          uint32_t b0, b1;
-          b_frag_rows(do_s, kLd, kk * 16 + 2 * t, dt * 8 + g, b0, b1);
-          mma_16816(dvacc[dt], pf[kk], b0, b1);
-          b_frag_rows(q_s, kLd, kk * 16 + 2 * t, dt * 8 + g, b0, b1);
-          mma_16816(dkacc[dt], dsf[kk], b0, b1);
-        }
-      }
+  // Warp 0's producer state: the block's key id range and the item stream.
+  DkvProducer<D> pr;
+  int b_lo = 0, b_hi = 0;
+  if (warp == 0) {
+    if (ids != nullptr) id_range(ids, k0, min(skv, k0 + KN), lane, b_lo, b_hi);
+    pr.n_q = (sq + M - 1) / M;
+    // Causal: a query tile whose last row is before k0 sees none of the
+    // block's keys, and k0 is a multiple of M.
+    pr.t0 = causal ? k0 / M : 0;
+    pr.stage = pr.produced = 0;
+    pr.phase = 0;
+    pr.ended = false;
+    pr.lo = pr.hi = 0;
+    if (pr.t0 < pr.n_q) {
+      pr.scan(ids, sq, b_lo, b_hi, lane);
+    } else {
+      pr.tiles = pr.todo = 0;
+      pr.hg = groups;
     }
   }
 
-  uint16_t* dkb = dk + (long)b * skv * kv_stride + (long)kh * D;
-  uint16_t* dvb = dv + (long)b * skv * kv_stride + (long)kh * D;
+  const float scale_log2 = scale * kLog2e;
+  float dka[D / 2], dva[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  const uint32_t k_s = base + wg * 64 * P::kBytes;
+  const uint32_t v_s = base + C::kVOff + wg * 64 * P::kBytes;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0;; ++it) {
+    if (warp == 0) {
+      // Keep up to kStages items in flight: fill every freed stage, and wait
+      // for one only when item `it` itself is still missing.
+      while (!pr.ended && pr.produced < it + kStages) {
+        const uint32_t empty = empty_bar + 8 * pr.stage;
+        if (pr.produced == it) {
+          ring_wait(empty, pr.phase ^ 1);
+        } else if (!__shfl_sync(0xffffffffu, mbar_test(empty, pr.phase ^ 1), 0)) {
+          break;
+        }
+        int* slot = slots + pr.stage * C::kSlotInts;
+        const uint32_t full = full_bar + 8 * pr.stage;
+        if (!pr.next(ids, sq, b_lo, b_hi, groups, lane)) {
+          // End of the ring: a slot with q0 = -1.
+          if (lane == 0) slot[0] = -1;
+          mbar_arrive(full);
+          if (lane == 0) mbar_arrive(full);
+          pr.ended = true;
+        } else {
+          const int src = __ffs(pr.todo) - 1;
+          pr.todo &= pr.todo - 1;
+          const int q0 = (pr.t0 + src) * M;
+          const int lo = __shfl_sync(0xffffffffu, pr.lo, src);
+          const int hi = __shfl_sync(0xffffffffu, pr.hi, src);
+          const int h = kh * groups + pr.hg;
+          const long row = (static_cast<long>(b) * heads + h) * sq;
+          const uint32_t slot_s = slots_s + pr.stage * C::kSlotInts * 4;
+#pragma unroll
+          for (int j = 0; j < M / 32; ++j) {
+            const int i = q0 + j * 32 + lane;
+            const int in = i < sq ? 4 : 0;  // rows past Sq: zeros (their Q and dO are 0)
+            const int ic = i < sq ? i : sq - 1;
+            cp_async4(slot_s + 4 * (C::kLseAt + j * 32 + lane), lse + row + ic, in);
+            cp_async4(slot_s + 4 * (C::kDeltaAt + j * 32 + lane), delta + row + ic, in);
+            // A tile of one id needs no copy of its ids: the consumers take lo.
+            if (ids != nullptr && lo != hi) cp_async4(slot_s + 4 * (4 + j * 32 + lane), ids + ic, in);
+          }
+          cp_async_arrive(full);
+          if (lane == 0) {
+            slot[0] = q0;
+            slot[1] = lo;
+            slot[2] = hi;
+            mbar_expect_tx(full, 2 * C::kTileBytes);
+#pragma unroll
+            for (int p = 0; p < P::kCount; ++p) {
+              const uint32_t off = pr.stage * C::kTileBytes + p * M * P::kBytes;
+              tma_load(base + C::kQOff + off, &tm_q, full, p * P::kPanel, h, q0, b);
+              tma_load(base + C::kDoOff + off, &tm_do, full, p * P::kPanel, h, q0, b);
+            }
+          }
+        }
+        ++pr.produced;
+        if (++pr.stage == kStages) {
+          pr.stage = 0;
+          pr.phase ^= 1;
+        }
+      }
+    }
+
+    // ---- S^T, dP^T, P^T, dS^T; dV += P^T.dO, dK += dS^T.Q. ----
+    if (it == 0) ring_wait(kv_bar, 0);
+    ring_wait(full_bar + 8 * stage, phase);
+    const int* slot = slots + stage * C::kSlotInts;
+    const int q0 = slot[0];
+    if (q0 < 0) break;
+    const int q_lo = slot[1], q_hi = slot[2];
+    const int q_last = min(sq, q0 + M) - 1;
+    // The warpgroup's own test: the block's tile may miss its 64 keys.
+    const bool visit = w_last >= wk0 && (!causal || q_last >= wk0) &&
+                       (ids == nullptr || (q_lo <= w_hi && q_hi >= w_lo));
+    if (visit) {
+      const uint32_t q_s = base + C::kQOff + stage * C::kTileBytes;
+      const uint32_t do_s = base + C::kDoOff + stage * C::kTileBytes;
+      const float* lses = reinterpret_cast<const float*>(slot) + C::kLseAt;
+      const float* dls = reinterpret_cast<const float*>(slot) + C::kDeltaAt;
+      const bool mixed = ids != nullptr && !(q_lo == q_hi && w_lo == w_hi && q_lo == w_lo);
+      float s[M / 2], dp[M / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        wgmma_ss<M>(s, desc_k<D>(k_s, KN, ks), desc_k<D>(q_s, M, ks), ks > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        wgmma_ss<M>(dp, desc_k<D>(v_s, KN, ks), desc_k<D>(do_s, M, ks), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T is in; dP^T still runs
+      fence_regs<M / 2>(s);
+
+      // P^T = 2^(S^T scale log2 e - lse log2 e) with lse per column, in
+      // place; masks only across the diagonal or a document edge (rows
+      // past Sq have zero Q and dO, keys past Skv are never stored).
+      const bool cross = causal && w_last > q0;
+      if (cross || mixed) {
+#pragma unroll
+        for (int i = 0; i < M / 8; ++i) {
+          const int c = 8 * i + 2 * t;  // this thread's columns c, c + 1 of the tile
+          const float2 l = *reinterpret_cast<const float2*>(lses + c);
+          int2 qid = make_int2(q_lo, q_lo);
+          if (q_lo != q_hi) qid = *reinterpret_cast<const int2*>(slot + 4 + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = q0 + c + (e & 1);
+            float x = s[4 * i + e] * scale_log2;
+            if ((causal && (e < 2 ? key0 : key1) > col) ||
+                (ids != nullptr && ((e & 1) ? qid.y : qid.x) != (e < 2 ? kseg0 : kseg1))) {
+              x = kNegInf;
+            }
+            s[4 * i + e] = exp2f(x - ((e & 1) ? l.y : l.x) * kLog2e);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < M / 8; ++i) {
+          const float2 l = *reinterpret_cast<const float2*>(lses + 8 * i + 2 * t);
+          const float l0 = l.x * kLog2e, l1 = l.y * kLog2e;
+          s[4 * i] = exp2f(s[4 * i] * scale_log2 - l0);
+          s[4 * i + 1] = exp2f(s[4 * i + 1] * scale_log2 - l1);
+          s[4 * i + 2] = exp2f(s[4 * i + 2] * scale_log2 - l0);
+          s[4 * i + 3] = exp2f(s[4 * i + 3] * scale_log2 - l1);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs<M / 2>(dp);
+
+      // P^T and dS^T = P^T (dP^T - delta) as bf16 A fragments: K-step kk
+      // covers rows 16 kk .. 16 kk + 15 of the tile.
+      uint32_t pf[M / 4], dsf[M / 4];
+#pragma unroll
+      for (int i = 0; i < M / 8; ++i) {
+        const float2 dl = *reinterpret_cast<const float2*>(dls + 8 * i + 2 * t);
+        pf[2 * i] = pack_bf16(s[4 * i], s[4 * i + 1]);
+        pf[2 * i + 1] = pack_bf16(s[4 * i + 2], s[4 * i + 3]);
+        dsf[2 * i] = pack_bf16(s[4 * i] * (dp[4 * i] - dl.x),
+                               s[4 * i + 1] * (dp[4 * i + 1] - dl.y));
+        dsf[2 * i + 1] = pack_bf16(s[4 * i + 2] * (dp[4 * i + 2] - dl.x),
+                                   s[4 * i + 3] * (dp[4 * i + 3] - dl.y));
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < M / 16; ++kk) {
+        wgmma_rs<D>(dva, pf + 4 * kk, desc_mn<D>(do_s, M, kk));
+        wgmma_rs<D>(dka, dsf + 4 * kk, desc_mn<D>(q_s, M, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(dva);
+      fence_regs<D / 2>(dka);
+      fence_regs<M / 4>(pf);  // the A fragments stay live until here
+      fence_regs<M / 4>(dsf);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  const long kv_stride = static_cast<long>(kv_heads) * D;
+  const long off = static_cast<long>(b) * skv * kv_stride + static_cast<long>(kh) * D;
+  uint16_t* dkb = dk + off;
+  uint16_t* dvb = dv + off;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int c = 8 * i + 2 * t;
     if (key0 < skv) {
       *reinterpret_cast<uint32_t*>(dkb + key0 * kv_stride + c) =
-          pack_bf16(dkacc[dt][0] * scale, dkacc[dt][1] * scale);
+          pack_bf16(dka[4 * i] * scale, dka[4 * i + 1] * scale);
       *reinterpret_cast<uint32_t*>(dvb + key0 * kv_stride + c) =
-          pack_bf16(dvacc[dt][0], dvacc[dt][1]);
+          pack_bf16(dva[4 * i], dva[4 * i + 1]);
     }
     if (key1 < skv) {
       *reinterpret_cast<uint32_t*>(dkb + key1 * kv_stride + c) =
-          pack_bf16(dkacc[dt][2] * scale, dkacc[dt][3] * scale);
+          pack_bf16(dka[4 * i + 2] * scale, dka[4 * i + 3] * scale);
       *reinterpret_cast<uint32_t*>(dvb + key1 * kv_stride + c) =
-          pack_bf16(dvacc[dt][2], dvacc[dt][3]);
+          pack_bf16(dva[4 * i + 2], dva[4 * i + 3]);
     }
   }
 }
@@ -467,41 +874,82 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The four tensor maps: q and do with boxes of q_rows rows, k and v of
+// kv_rows.
+template <int D>
+int make_maps(const Args& a, int q_rows, int kv_rows, CUtensorMap* maps) {
+  using P = Panels<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const bool ok =
+      make_map(encode, &maps[0], a.q, D, a.heads, a.sq, a.batch, P::kPanel, q_rows) &&
+      make_map(encode, &maps[1], a.k, D, a.kv_heads, a.skv, a.batch, P::kPanel, kv_rows) &&
+      make_map(encode, &maps[2], a.v, D, a.kv_heads, a.skv, a.batch, P::kPanel, kv_rows) &&
+      make_map(encode, &maps[3], a.dout, D, a.heads, a.sq, a.batch, P::kPanel, q_rows);
+  return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// setmaxnreg moves registers within the block's allocation at launch: a
+// build that allocated fewer than 168 a thread would never leave reg_alloc,
+// so it is refused.
+template <typename Kernel>
+int check_regs(Kernel kernel) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs * kThreads < 128 * kProducerRegs + kConsumers * kConsumerRegs) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  return 0;
+}
+
 template <int D>
 int launch_dq(const Args& a, void* dq) {
-  const dim3 grid((a.sq + kDqRows - 1) / kDqRows, a.heads, a.batch);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
-      static_cast<const uint16_t*>(a.v), static_cast<const uint16_t*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const int*>(a.seg), static_cast<uint16_t*>(dq), a.sq, a.skv,
-      a.heads, a.kv_heads, a.causal, a.scale);
-  return (int)cudaGetLastError();
+  using C = DqCfg<D>;
+  CUtensorMap m[4];
+  if (const int err = make_maps<D>(a, C::kBlockM, C::kBlockN, m)) return err;
+  static bool smem_set = false;
+  if (!smem_set) {
+    if (const int bad = check_regs(flash_bwd_dq_kernel<D>)) return bad;
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemAlloc);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const dim3 grid(a.heads, a.batch, (a.sq + C::kBlockM - 1) / C::kBlockM);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, C::kSmemAlloc, a.stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const int*>(a.seg),
+      static_cast<uint16_t*>(dq), a.sq, a.skv, a.heads, a.kv_heads, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dkv(const Args& a, void* dk, void* dv) {
-  constexpr int bytes = dkv_smem_bytes<D>();
-  // Above 48 KB a block's shared memory must be granted explicitly.
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.skv + kDkvKeys - 1) / kDkvKeys, a.kv_heads, a.batch);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
-      static_cast<const uint16_t*>(a.v), static_cast<const uint16_t*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const int*>(a.seg), static_cast<uint16_t*>(dk),
-      static_cast<uint16_t*>(dv), a.sq, a.skv, a.heads, a.kv_heads, a.causal,
-      a.scale);
-  return (int)cudaGetLastError();
+  using C = DkvCfg<D>;
+  CUtensorMap m[4];
+  if (const int err = make_maps<D>(a, C::kBlockM, C::kBlockN, m)) return err;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemAlloc);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const dim3 grid(a.kv_heads, a.batch, (a.skv + C::kBlockN - 1) / C::kBlockN);
+  flash_bwd_dkv_kernel<D><<<grid, kConsumers, C::kSmemAlloc, a.stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const int*>(a.seg),
+      static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), a.sq, a.skv, a.heads,
+      a.kv_heads, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q/do (B, Sq, H, D), k/v (B, Skv, K, D) bf16 contiguous; lse/delta
-// (B, H, Sq) f32; seg (B, S) int32 or null; dq like q. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// q/do (B, Sq, H, D), k/v (B, Skv, K, D) bf16 contiguous and 16-byte
+// aligned; lse/delta (B, H, Sq) f32; seg (B, S) int32 or null; dq like q.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int ditl_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse,
                                       const void* delta, const void* seg, void* dq,
@@ -514,7 +962,7 @@ extern "C" int ditl_flash_bwd_dq_bf16(const void* q, const void* k, const void* 
     case 32: return launch_dq<32>(a, dq);
     case 64: return launch_dq<64>(a, dq);
     case 128: return launch_dq<128>(a, dq);
-    default: return (int)cudaErrorInvalidValue;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -531,6 +979,6 @@ extern "C" int ditl_flash_bwd_dkv_bf16(const void* q, const void* k, const void*
     case 32: return launch_dkv<32>(a, dk, dv);
     case 64: return launch_dkv<64>(a, dk, dv);
     case 128: return launch_dkv<128>(a, dk, dv);
-    default: return (int)cudaErrorInvalidValue;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

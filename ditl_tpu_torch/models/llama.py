@@ -425,7 +425,11 @@ def train_forward(
     b, s = input_ids.shape
     if positions is None:
         positions = torch.arange(s, device=input_ids.device).expand(b, s)
-    x = top["embed"]["embedding"].to(cd)[input_ids.long()]
+    # F.embedding rather than indexing: on CUDA its backward sums each token's
+    # rows in f32 and rounds once, where indexing's adds them into the bf16
+    # gradient one occurrence at a time (a frequent token's row then carries
+    # hundreds of roundings).
+    x = torch.nn.functional.embedding(input_ids.long(), top["embed"]["embedding"].to(cd))
     for lp in layers:
         if cfg.remat == "full":
             from torch.utils.checkpoint import checkpoint

@@ -22,9 +22,10 @@ Hopper:
   delta = rowsum(do * o), ds = p (do.v^T - delta), dq = scale ds.k,
   dk = ds^T.(scale q), dv = p^T.do, GQA summed over the group. It is not
   autograd of the plain forward.
-- ``tile_schedule`` is K1's rule for which (query tile, key tile) pairs it
-  visits (causal diagonal and segment-id ranges), as a boolean map; the
-  CPU tests hold that it covers every admitted pair.
+- ``tile_schedule`` is the kernels' rule for which (query tile, key tile)
+  pairs they visit (causal diagonal and segment-id ranges), as a boolean
+  map, at K1's, K2a's or K2b's tiling; the CPU tests hold that it covers
+  every admitted pair and that masking the rest changes nothing.
 - ``flash_attention`` is differentiable: a ``torch.autograd.Function`` saves
   q, k, v, o and lse from the forward and calls ``flash_attention_bwd``.
   Forward and backward look the wrappers up at call time, so one forward
@@ -45,7 +46,8 @@ from ditl_tpu_torch.ops.attention import NEG_INF
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain", "tile_schedule",
-           "fwd_block_kv", "FWD_BLOCK_Q", "FWD_WARPGROUP_ROWS", "HEAD_DIMS",
+           "fwd_block_kv", "FWD_BLOCK_Q", "FWD_WARPGROUP_ROWS", "BWD_DQ_BLOCK_Q",
+           "BWD_DKV_BLOCK_KV", "BWD_DKV_BLOCK_Q", "BWD_DKV_WARPGROUP_KEYS", "HEAD_DIMS",
            "launches", "launches_dq", "launches_dkv", "reset_launches"]
 
 HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
@@ -54,10 +56,21 @@ HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
 # keys in tiles of fwd_block_kv(head_dim).
 FWD_BLOCK_Q = 128
 FWD_WARPGROUP_ROWS = 64
+# K2a's tiles (csrc/flash_bwd.cu) are K1's: BWD_DQ_BLOCK_Q query rows a
+# block, FWD_WARPGROUP_ROWS a warpgroup, key tiles of fwd_block_kv(head_dim).
+# K2b's block owns BWD_DKV_BLOCK_KV keys, BWD_DKV_WARPGROUP_KEYS a warpgroup,
+# and walks the query rows in tiles of BWD_DKV_BLOCK_Q:
+# ``tile_schedule(ids, causal, s, s, BWD_DKV_BLOCK_Q, BWD_DKV_BLOCK_KV)`` is
+# its map, read by columns.
+BWD_DQ_BLOCK_Q = 128
+BWD_DKV_BLOCK_KV = 128
+BWD_DKV_WARPGROUP_KEYS = 64
+BWD_DKV_BLOCK_Q = 64
 
 
 def fwd_block_kv(head_dim: int) -> int:
-    """K1's key-tile width at ``head_dim`` (``Cfg<D>::kBlockN``)."""
+    """K1's and K2a's key-tile width at ``head_dim``
+    (``Cfg<D>::kBlockN``, ``DqCfg<D>::kBlockN``)."""
     return 128 if head_dim == 32 else 64
 
 # Kernel launches since the last reset_launches(); counted where each kernel
@@ -132,18 +145,20 @@ def _check(q, k, v, segment_ids) -> None:
 def _check_cuda(segment_ids, **tensors) -> int | None:
     """What the CUDA kernels take: bf16, contiguous, 16-byte aligned,
     head_dim in ``HEAD_DIMS``, int32 segment ids. Returns the segment ids'
-    pointer (None without them)."""
+    pointer (None without them). Other dtypes and head dims, which the
+    reference computes, raise ``NotImplementedError`` (ROADMAP.md §2 D)."""
     q = tensors["q"]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if q.dtype != torch.bfloat16:
-        raise ValueError(
-            f"the CUDA flash kernel takes bfloat16, got {q.dtype} (use "
-            "attention_impl='xla' for other dtypes)"
+        raise NotImplementedError(
+            f"the CUDA flash kernels take bfloat16, got {q.dtype}: other dtypes "
+            "are not ported yet (ROADMAP.md §2 D; attention_impl='xla' runs them)"
         )
     if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {q.shape[3]}")
+        raise NotImplementedError(
+            f"the CUDA flash kernels take head_dim in {HEAD_DIMS}, got "
+            f"{q.shape[3]}: not ported yet (ROADMAP.md §2 D)")
     for name, t in tensors.items():
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} must be {q.dtype} on {q.device}")
@@ -334,8 +349,9 @@ def flash_attention_bwd(
     seg_ptr = _check_cuda(segment_ids, q=q, k=k, v=v, o=o, do=do)
     if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError("lse must be contiguous float32 on q's device")
-    # delta = rowsum(do * o) in f32, outside the kernels as in the reference.
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    # delta = rowsum(do * o) in f32, outside the kernels as in the reference
+    # (the product upcasts o itself: one f32 copy fewer, the same values).
+    delta = (do.float() * o).sum(-1).transpose(1, 2).contiguous()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

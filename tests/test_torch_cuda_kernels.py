@@ -113,13 +113,15 @@ def test_flash_fwd_kernel_matches_plain(cuda, b, s_q, s_kv, h, kv, d, causal, se
 @pytest.mark.torch_port
 def test_flash_fwd_kernel_raises_instead_of_falling_back(cuda):
     """On CUDA tensors the wrapper launches the kernel or raises: no plain
-    fallback for shapes or dtypes the kernel does not take."""
+    fallback for shapes or dtypes the kernel does not take. Dtypes and head
+    dims that the reference computes raise NotImplementedError naming
+    ROADMAP.md."""
     q, k, v, _ = _inputs(cuda, 1, 64, 64, 4, 2, 128)
     tfa.reset_launches()
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(NotImplementedError, match="bfloat16.*ROADMAP"):
         tfa.flash_attention(q.float(), k.float(), v.float())
     q48, k48, v48, _ = _inputs(cuda, 1, 64, 64, 4, 2, 48)
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(NotImplementedError, match="head_dim.*ROADMAP"):
         tfa.flash_attention(q48, k48, v48)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
@@ -214,20 +216,49 @@ def _packed_segments(cuda, b, s, n_docs):
     return seg.to(cuda).contiguous()
 
 
-@pytest.mark.torch_port
-@pytest.mark.parametrize("b,s_q,s_kv,h,kv,d,causal,docs", [
+def _bwd_segments(cuda, seg, b, s):
+    """A backward case's ids: ``n`` documents packed per row (0: none),
+    K1's id kinds by name, or right-padded real lengths."""
+    if isinstance(seg, str):
+        return _segment_ids(cuda, seg, b, s)
+    if isinstance(seg, list):
+        return _inputs(cuda, b, s, s, 1, 1, 32, seg)[3]
+    return _packed_segments(cuda, b, s, seg) if seg else None
+
+
+# K1's cases for the backward: every head dim causal and not, the training
+# batch, ids that go up and down, a boundary one row past a tile edge, right
+# padding, ragged lengths (S = 129, 333, 2064) and Sq != Skv both ways.
+BWD_CASES = [
     (1, 2048, 2048, 32, 8, 128, True, 4),  # a training row, packed documents
     (2, 333, 333, 8, 2, 64, True, 3),  # S not a multiple of 64, head_dim 64
     (2, 200, 333, 8, 8, 128, False, 0),  # MHA, non-causal, Sq != Skv
     (1, 130, 130, 4, 4, 32, True, 0),  # head_dim 32
-])
-def test_flash_bwd_kernels_match_plain(cuda, b, s_q, s_kv, h, kv, d, causal, docs):
-    seg = _packed_segments(cuda, b, s_q, docs) if docs else None
-    q, k, v, o, lse, do = _bwd_inputs(cuda, b, s_q, s_kv, h, kv, d, causal, seg)
+    (4, 2048, 2048, 32, 8, 128, True, "train"),  # the training pipeline's batch
+    (2, 300, 300, 8, 2, 128, True, "nonmono"),
+    (1, 257, 257, 4, 2, 128, True, "edge1"),
+    (4, 512, 512, 32, 8, 128, True, [512, 401, 230, 97]),  # right padding
+    (1, 2064, 2064, 8, 2, 128, True, "nonmono"),
+    (2, 300, 300, 4, 2, 32, True, "nonmono"),
+    (2, 300, 300, 4, 2, 32, False, "nonmono"),
+    (2, 300, 300, 4, 2, 64, True, "nonmono"),
+    (2, 300, 300, 4, 2, 64, False, "edge1"),
+    (2, 300, 300, 4, 2, 128, False, "nonmono"),
+    (1, 129, 129, 4, 1, 128, True, 0),
+    (2, 200, 333, 8, 2, 64, True, 0),  # causal, Sq < Skv
+    (2, 333, 200, 8, 2, 128, True, 0),  # causal, Sq > Skv
+]
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("b,s_q,s_kv,h,kv,d,causal,seg", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(cuda, b, s_q, s_kv, h, kv, d, causal, seg):
+    ids = _bwd_segments(cuda, seg, b, s_q)
+    q, k, v, o, lse, do = _bwd_inputs(cuda, b, s_q, s_kv, h, kv, d, causal, ids)
     tfa.reset_launches()
-    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=seg)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=ids)
     want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                         segment_ids=seg)
+                                         segment_ids=ids)
     torch.cuda.synchronize()
     assert (tfa.launches_dq, tfa.launches_dkv, tfa.launches) == (1, 1, 0)
     for name, x, ref in zip(("dq", "dk", "dv"), got, want):
@@ -236,6 +267,20 @@ def test_flash_bwd_kernels_match_plain(cuda, b, s_q, s_kv, h, kv, d, causal, doc
         scale = float(ref.float().abs().max())
         torch.testing.assert_close(x.float(), ref.float(), rtol=0, atol=BWD_TOL * scale,
                                    msg=name)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("seg", ["train", None])
+def test_flash_bwd_kernels_are_bitwise_repeatable(cuda, seg):
+    """K2a owns query rows and K2b owns keys: no atomics, every sum in one
+    fixed order, so two calls give the same bits."""
+    ids = _bwd_segments(cuda, seg, 4, 2048) if seg else None
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 4, 2048, 2048, 32, 8, 128, True, ids)
+    first = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, segment_ids=ids)
+    second = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, segment_ids=ids)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.torch_port
@@ -262,7 +307,7 @@ def test_flash_attention_autograd_launches_k1_k2(cuda):
 def test_flash_bwd_raises_instead_of_falling_back(cuda):
     q, k, v, o, lse, do = _bwd_inputs(cuda, 1, 64, 64, 4, 2, 128, True, None)
     tfa.reset_launches()
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(NotImplementedError, match="bfloat16.*ROADMAP"):
         tfa.flash_attention_bwd(q.float(), k.float(), v.float(), o.float(), lse,
                                 do.float())
     with pytest.raises(ValueError, match="lse"):

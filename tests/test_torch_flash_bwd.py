@@ -12,6 +12,8 @@ at 2e-2 (both round the outputs to bf16, and the port recomputes delta from
 its own forward's bf16 ``o``, which can sit a bf16 ulp from the kernel's).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,3 +118,95 @@ def test_backward_wrapper_rejects_bad_inputs():
         tfa.flash_attention_bwd(tq[:, :, :3], tk, tv, o[:, :, :3], lse[:, :3], tdo[:, :, :3])
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfa.flash_attention_bwd(*(x.to("meta") for x in (tq, tk, tv, o, lse, tdo)))
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels' tile skipping (``tile_schedule`` at their tilings)
+# ---------------------------------------------------------------------------
+
+from test_torch_flash_attention import _admitted, _expand, _schedule_ids  # noqa: E402
+
+# (block_q, block_kv) of each kernel at head_dim 64: K2a walks K1's tiles
+# (BWD_DQ_BLOCK_Q rows, fwd_block_kv keys), K2b BWD_DKV_BLOCK_Q rows against
+# its BWD_DKV_BLOCK_KV keys.
+BWD_TILINGS = {
+    "dq": (tfa.BWD_DQ_BLOCK_Q, tfa.fwd_block_kv(64)),
+    "dkv": (tfa.BWD_DKV_BLOCK_Q, tfa.BWD_DKV_BLOCK_KV),
+}
+
+
+def _plain_bwd_on_schedule(q, k, v, o, lse, do, causal, seg, block_q, block_kv):
+    """``flash_attention_bwd_plain``'s arithmetic with every pair outside the
+    visited tiles masked as well: (dq, dk, dv)."""
+    b, s_q, h, d = q.shape
+    s_kv, kv_heads = k.shape[1], k.shape[2]
+    groups = h // kv_heads
+    scale = d**-0.5
+    visit = tfa.tile_schedule(seg, causal, s_q, s_kv, block_q, block_kv)
+    mask = torch.from_numpy(_expand(visit.numpy(), block_q, block_kv, s_q, s_kv))
+    mask = mask & torch.from_numpy(_admitted(None if seg is None else seg.numpy(),
+                                             causal, s_q, s_kv))
+    qs = q.float().reshape(b, s_q, kv_heads, groups, d) * scale
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, s_q, kv_heads, groups, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qs, kf)
+    s = s.masked_fill(~mask[:, None, None], tfa.NEG_INF)
+    p = torch.exp(s - lse.float().reshape(b, kv_heads, groups, s_q)[..., None])
+    delta = (dof * o.float().reshape(b, s_q, kv_heads, groups, d)).sum(-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = scale * torch.einsum("bkgqs,bskd->bqkgd", ds, kf)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qs)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return dq.reshape(b, s_q, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule_case(kind, dtype):
+    """Inputs with ``kind`` ids (B=2, S=256, 4/2 heads, D=64) and the JAX
+    package's gradients for them, computed once per (kind, dtype)."""
+    q, k, v, do, _ = _inputs(11, 2, 256, 4, 2, 64, False)
+    seg = _schedule_ids(kind, 2, 256, seed=5)
+    return (q, k, v, do, seg), _jax_grads(q, k, v, do, seg, True, dtype)
+
+
+@pytest.mark.parametrize("kernel", sorted(BWD_TILINGS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["sorted", "padded", "nonmono", "mid"])
+def test_schedule_masked_plain_backward_matches_jax_kernels(kind, dtype, kernel):
+    """Masking everything outside K2a's or K2b's visited tiles changes no
+    gradient: the result equals the plain backward and ``jax.vjp`` of the
+    JAX package's kernels in interpret mode, at this file's tolerances."""
+    (q, k, v, do, seg), want = _schedule_case(kind, dtype)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
+    tseg = torch.from_numpy(seg)
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, causal=True, segment_ids=tseg)
+    got = _plain_bwd_on_schedule(tq, tk, tv, o, lse, tdo, True, tseg, *BWD_TILINGS[kernel])
+    plain = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, causal=True,
+                                          segment_ids=tseg)
+    for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+        _close(g, p.float().numpy(), TOL[dtype], name)
+        _close(g, w, TOL[dtype], name)
+
+
+@pytest.mark.parametrize("kernel", sorted(BWD_TILINGS))
+def test_training_batch_backward_visits_under_half_the_causal_tiles(kernel):
+    """The training pipeline's first batch (packed documents): K2a's and
+    K2b's tilings at D = 128 visit fewer than half of the causal tiles."""
+    from ditl_tpu_torch.config import DataConfig
+    from ditl_tpu_torch.data.dataset import synthetic_dataset
+    from ditl_tpu_torch.data.loader import DataPipeline
+    from ditl_tpu_torch.data.tokenizer import ByteTokenizer
+
+    cfg = DataConfig(batch_size=4, seq_len=2048, synthetic=True)
+    pipe = DataPipeline(synthetic_dataset(cfg.synthetic_examples, cfg.seed),
+                        ByteTokenizer(), cfg, "cpu")
+    seg = torch.from_numpy(next(pipe._host_batches(0))["segment_ids"])
+    blocks = {"dq": (tfa.BWD_DQ_BLOCK_Q, tfa.fwd_block_kv(128)),
+              "dkv": (tfa.BWD_DKV_BLOCK_Q, tfa.BWD_DKV_BLOCK_KV)}[kernel]
+    visit = tfa.tile_schedule(seg, True, 2048, 2048, *blocks)
+    causal = 4 * int(tfa.tile_schedule(None, True, 2048, 2048, *blocks).sum())
+    assert int(seg.max()) >= 2 and int(visit.sum()) < causal / 2, (int(visit.sum()), causal)
+    admitted = _admitted(seg.numpy(), True, 2048, 2048)
+    assert not (admitted & ~_expand(visit.numpy(), *blocks, 2048, 2048)).any()
