@@ -46,11 +46,15 @@ no result line. It imports nothing of JAX or of the JAX package.
    versions, from the same parameters and batch: loss and grad_norm within
    ``STEP_LOSS_TOL``/``STEP_GNORM_TOL``.
 9. The MLP and projection backward kernels against their plain versions
-   (K5a/K5b at the training shape N=8192, D=4096, F=14336 and a ragged
-   one; K6 at the wq/wo, wk/wv and a ragged, strided shape; ``MM_TOL``),
-   and their timings: kernel, plain, a library yardstick (autograd of the
-   plain MLP forward for K5a + K5b together, of ``x @ w`` for K6) and the
-   bound from this run's shapes.
+   (the K5 kernels' GEMM core alone in its four operand layouts; K5a/K5b
+   at the training shape N=8192, D=4096, F=14336, where a second call must
+   give the same bits, and at ragged ones: N = 2064 and 16, D and F = 384;
+   K6 at the wq/wo, wk/wv and a ragged, strided shape; ``MM_TOL``), and
+   their timings: kernel, plain, a library yardstick (autograd of the
+   plain MLP forward for K5a + K5b together, of ``x @ w`` for K6), the
+   bound from this run's shapes and the rate in TFLOP/s; cuBLAS on each K5
+   kernel's own two products, and the K5 GEMM core alone on each of the
+   four products beside cuBLAS on it.
 10. Main path 4: ``train()`` with ``TRAIN_ARGS`` plus ``KERNEL_FLAGS``
    (``fused_gate_up``, ``mlp_bwd_impl=pallas``, ``proj_bwd_impl=pallas``),
    full width and depth, ``TRAIN4_STEPS`` steps: falling finite losses, K5a
@@ -335,6 +339,21 @@ def phase_card() -> None:
         f"devices {torch.cuda.device_count()} ({torch.cuda.get_device_name(0)})")
 
 
+def _kernel_name(line: str) -> str:
+    """The kernel and its template arguments from ptxas' mangled entry name:
+    a length-prefixed name that ends in ``_kernel``, then ``I...E``."""
+    for m in re.finditer(r"\d+(?=[a-z])", line):
+        start = m.end()
+        names = [line[start:start + int(m.group()[i:])] for i in range(len(m.group()))]
+        name = next((x for x in names if x.endswith("_kernel")), None)
+        if name:
+            args = re.match(r"I((?:L[ib]\d+E)+)E", line[start + len(name):])
+            if args:
+                return f"{name}<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
+            return name
+    return "?"
+
+
 def phase_build() -> None:
     from ditl_tpu_torch.ops.cuda_build import build_libraries
 
@@ -345,9 +364,8 @@ def phase_build() -> None:
         ptxas = path.with_suffix(".log")
         kernel = ""
         for line in (ptxas.read_text().splitlines() if ptxas.is_file() else []):
-            entry = re.search(r"Compiling entry function .*?([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
-            if entry:  # the mangled name's kernel and its template argument
-                kernel = entry.group(1) + (f"<{entry.group(2)}>" if entry.group(2) else "")
+            if "Compiling entry function" in line:
+                kernel = _kernel_name(line)
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name} {kernel}: {line.strip()}")
 
@@ -858,8 +876,13 @@ def phase_train_parity(flash) -> None:
 # ---------------------------------------------------------------------------
 
 # (label, N, D, F) of the llama3-8b training step (N = B*S = 4 x 2048) and
-# a ragged one (N = 16 x 129).
-MLP_CASES = [("training shape", 8192, 4096, 14336), ("ragged", 2064, 256, 384)]
+# ragged ones: N = 16 x 129, D and F odd multiples of 128 (256-wide tiles
+# overhang them), the least N.
+MLP_CASES = [("training shape", 8192, 4096, 14336), ("ragged", 2064, 256, 384),
+             ("ragged, D = F = 384", 2064, 384, 384), ("N = 16", 16, 384, 384)]
+# (M, N, K) of the GEMM core's own check: M and N overhang its 128 x 256
+# tiles, K = 16 x 129 its 64-deep k-tiles.
+CORE_CASE = (320, 384, 2064)
 # (label, N, D, F, row stride of g or 0, the reference's blocks that admit N)
 PROJ_CASES = [("wq/wo", 8192, 4096, 4096, 0, None), ("wk/wv", 8192, 4096, 1024, 0, None),
               ("ragged, strided g", 2064, 256, 384, 512, (16, 128))]
@@ -933,12 +956,23 @@ def _check_scaled(label: str, named) -> float:
 
 
 def phase_mm_kernels(mlp_bwd, proj) -> dict:
-    """K5a and K5b (K5b fed the kernel's own dgu, and its plain version the
-    same buffer) and K6 against their plain versions; returns the largest
+    """The K5 kernels' GEMM core alone in its four operand layouts; K5a and
+    K5b (K5b fed the kernel's own dgu, and its plain version the same
+    buffer), at the training shape also called twice, which must give the
+    same bits; and K6 against their plain versions. Returns the largest
     absolute errors."""
     import torch
 
     worst = {"mlp_dgu_dwdown": 0.0, "mlp_dh_dwgu": 0.0, "proj_bwd": 0.0}
+    m, n, k = CORE_CASE
+    for a_mn in (False, True):
+        for b_mn in (False, True):
+            a = _bf16((k, m) if a_mn else (m, k), 580)
+            b = _bf16((k, n) if b_mn else (n, k), 581)
+            _check_scaled(f"gemm core M={m} N={n} K={k}, A {'MN' if a_mn else 'K'}-major, "
+                          f"B {'MN' if b_mn else 'K'}-major",
+                          [("c", mlp_bwd.gemm_core(a, b, a_mn, b_mn),
+                            mlp_bwd.gemm_core_plain(a, b, a_mn, b_mn))])
     for i, (label, n, d, f) in enumerate(MLP_CASES):
         h, w_gu, w_down, gu, g = _mlp_case(n, d, f, seed=600 + 10 * i)
         gate, up = gu.chunk(2, dim=-1)  # views of gu, as the op saves them
@@ -953,6 +987,17 @@ def phase_mm_kernels(mlp_bwd, proj) -> dict:
                                         ("d_w_down", d_w_down, d_w_down_ref)]))
         worst["mlp_dh_dwgu"] = max(worst["mlp_dh_dwgu"], _check_scaled(
             f"mlp_dh_dwgu {shape}", [("dh", dh, dh_ref), ("d_w_gu", d_w_gu, d_w_gu_ref)]))
+        if i == 0:  # a second call: the same bits (no atomics in the sums; inner
+            # read back only once it is complete)
+            dgu2, d_w_down2 = mlp_bwd.dgu_dwdown(g, w_down, gate, up)
+            dh2, d_w_gu2 = mlp_bwd.dh_dwgu(h, dgu2, w_gu)
+            torch.cuda.synchronize()
+            same = [torch.equal(x, y) for x, y in ((dgu, dgu2), (d_w_down, d_w_down2),
+                                                   (dh, dh2), (d_w_gu, d_w_gu2))]
+            require(all(same), f"K5 {shape}: a second call gave other bits {same}")
+            log(f"[kernels] mlp_dgu_dwdown, mlp_dh_dwgu {shape}: a second call gives the "
+                f"same bits (dgu, d_w_down, dh, d_w_gu)")
+            del dgu2, d_w_down2, dh2, d_w_gu2
         del h, w_gu, w_down, gu, g, gate, up, dgu, dgu_ref, dh, dh_ref
     for i, (label, n, d, f, ld, blocks) in enumerate(PROJ_CASES):
         x, w, g = _proj_case(n, d, f, ld, seed=700 + 10 * i)
@@ -988,6 +1033,14 @@ def phase_mm_timings(mlp_bwd, proj) -> dict:
 
     lib_ms = min(_time_ms(library, iters=10), _time_ms(library, iters=10))
     bounds = _mlp_bounds(n, d, f)
+    flops = {"mlp_dgu_dwdown": 4.0 * n * d * f, "mlp_dh_dwgu": 8.0 * n * d * f}
+    gf = gate.float()
+    inner = (gf * torch.sigmoid(gf) * up.float()).to(torch.bfloat16)
+    del gf
+    # cuBLAS on each kernel's own two products (a yardstick of the GEMM core
+    # alone, without K5a's SwiGLU epilogue; the port never calls it).
+    cublas = {"mlp_dgu_dwdown": lambda: (g @ w_down.T, inner.T @ g),
+              "mlp_dh_dwgu": lambda: (dgu @ w_gu.T, h.T @ dgu)}
     for name, run, plain in (
             ("mlp_dgu_dwdown", lambda: mlp_bwd.dgu_dwdown(g, w_down, gate, up),
              lambda: mlp_bwd.dgu_dwdown_plain(g, w_down, gate, up)),
@@ -995,14 +1048,37 @@ def phase_mm_timings(mlp_bwd, proj) -> dict:
              lambda: mlp_bwd.dh_dwgu_plain(h, dgu, w_gu))):
         ms = min(_time_ms(run, iters=10), _time_ms(run, iters=10))
         plain_ms = _time_ms(plain, iters=3, warmup=1)
+        cublas_ms = min(_time_ms(cublas[name], iters=10), _time_ms(cublas[name], iters=10))
         bound_ms, bound_by = bounds[name]
-        log(f"[timing] {name} N={n} D={d} F={f}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library (autograd of the plain MLP forward, dh, "
-            f"d_w_gu and d_w_down together) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), {bound_ms / ms:.1%} of bound ({SMI})")
+        log(f"[timing] {name} N={n} D={d} F={f}: kernel {ms:.4f} ms "
+            f"({flops[name] / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
+            f"(autograd of the plain MLP forward, dh, d_w_gu and d_w_down together) "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of bound ({SMI})")
+        log(f"[timing] {name}: cuBLAS on the kernel's own two products "
+            f"({'g @ w_down.T, inner.T @ g' if name == 'mlp_dgu_dwdown' else 'dgu @ w_gu.T, h.T @ dgu'}"
+            f") {cublas_ms:.4f} ms ({flops[name] / cublas_ms / 1e9:.1f} TFLOP/s), a "
+            f"yardstick the port never calls ({SMI})")
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms}
-    del h, w_gu, w_down, gu, g, gate, up, dgu, leaves, gate_l, up_l, mlp_out
+    log(f"[timing] K5a + K5b {out['mlp_dgu_dwdown']['ms'] + out['mlp_dh_dwgu']['ms']:.4f} ms "
+        f"against the library call's {lib_ms:.4f} ms ({SMI})")
+    # The GEMM core alone on each of the four products, operands in the
+    # layouts the kernels read them, beside cuBLAS on the same product: what
+    # K5a's SwiGLU epilogue and each role's schedule add.
+    for name, a, b, a_mn, b_mn in (("dinner", g, w_down, False, False),
+                                   ("d_w_down", inner, g, True, True),
+                                   ("dh", dgu, w_gu, False, False),
+                                   ("d_w_gu", h, dgu, True, True)):
+        fl = (2.0 if name in ("dinner", "d_w_down") else 4.0) * n * d * f
+        ms = min(_time_ms(lambda: mlp_bwd.gemm_core(a, b, a_mn, b_mn), iters=10)
+                 for _ in range(2))
+        cms = min(_time_ms(lambda: (a.T if a_mn else a) @ (b if b_mn else b.T), iters=10)
+                  for _ in range(2))
+        log(f"[timing] GEMM core alone, {name} (A {'MN' if a_mn else 'K'}-major, B "
+            f"{'MN' if b_mn else 'K'}-major): {ms:.4f} ms ({fl / ms / 1e9:.1f} TFLOP/s); "
+            f"cuBLAS on the same product {cms:.4f} ms ({fl / cms / 1e9:.1f} TFLOP/s) ({SMI})")
+    del h, w_gu, w_down, gu, g, gate, up, dgu, leaves, gate_l, up_l, mlp_out, inner
     for label, n, d, f, ld, blocks in PROJ_CASES[:2]:
         x, w, g = _proj_case(n, d, f, ld, seed=900)
         xl, wl = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()

@@ -1,5 +1,6 @@
-// Tile GEMM building blocks shared by the MLP backward (mlp_bwd.cu, K5a/K5b)
-// and the projection backward (projection_bwd.cu, K6), for Hopper (sm_90a).
+// Tile GEMM building blocks of the projection backward (projection_bwd.cu,
+// K6), for Hopper (sm_90a). The MLP backward (K5a/K5b) moved to the wgmma
+// core of gemm_sm90.cuh, which K6 can take up in its own redesign.
 //
 // One thread block (8 warps, 256 threads) computes one 128 x 128 output tile
 // C with f32 accumulators in registers: each warp owns 64 rows x 32 columns,
@@ -11,20 +12,15 @@
 // shared memory through ldmatrix (x4; .trans where the operand's contraction
 // axis is its strided one).
 //
-// Two operand layouts cover every product of these kernels:
+// Two operand layouts cover every product of K6:
 // - gemm_nt: C[m][n] = sum_k A[m][k] * B[n][k], both operands row-major with
-//   the contraction axis contiguous (activation gradients: g . w^T). Rows of
-//   A at or past `a_rows` read as zero; k_len is a multiple of 32.
+//   the contraction axis contiguous (the activation gradient: g . w^T). Rows
+//   of A at or past `a_rows` read as zero; k_len is a multiple of 32.
 // - gemm_tn: C[m][n] = sum_k A[k][m] * B[k][n], the contraction running down
-//   the rows of both (weight gradients: x^T . g over the tokens). Rows at or
-//   past k_len (the ragged token edge) read as zero. With kSwiglu, A is not
-//   read as it is: A[k][m] = bf16(silu(gate) * up), gate at `a` and up at
-//   `a + a_up`, recomputed in f32 as the tile is staged (K5a's d_w_down).
+//   the rows of both (the weight gradient: x^T . g over the tokens). Rows at
+//   or past k_len (the ragged token edge) read as zero.
 // M and N tile edges are multiples of 128 in every caller except the token
 // axis of an activation gradient, which store_tile masks by rows.
-//
-// Later PRs make this fast: cp.async/TMA multi-stage pipelines, wgmma and
-// warp specialisation.
 
 #pragma once
 
@@ -88,31 +84,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
-
 __device__ __forceinline__ uint4 ld16(const uint16_t* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
 __device__ __forceinline__ void st16(uint16_t* p, uint4 v) {
   *reinterpret_cast<uint4*>(p) = v;
-}
-
-// sigmoid in f32. Fast exponent and an exact reciprocal: inputs that are
-// bf16 values, outputs rounded to bf16 by every caller.
-__device__ __forceinline__ float sigmoidf_(float x) { return __frcp_rn(1.f + __expf(-x)); }
-
-// Two bf16 pairs of gate and up -> the pair bf16(silu(gate) * up).
-__device__ __forceinline__ uint32_t swiglu2(uint32_t gate, uint32_t up) {
-  const float g0 = bf16_lo(gate), g1 = bf16_hi(gate);
-  const float s0 = g0 * sigmoidf_(g0), s1 = g1 * sigmoidf_(g1);
-  return pack_bf16(s0 * bf16_lo(up), s1 * bf16_hi(up));
-}
-
-__device__ __forceinline__ uint4 swiglu8(uint4 gate, uint4 up) {
-  return make_uint4(swiglu2(gate.x, up.x), swiglu2(gate.y, up.y), swiglu2(gate.z, up.z),
-                    swiglu2(gate.w, up.w));
 }
 
 // Warp coordinates within the block tile.
@@ -237,16 +214,15 @@ __device__ __forceinline__ void mma_stage_tn(Acc acc, const uint16_t* as, const 
   }
 }
 
-// a: columns m0.. of a (k_len, *) operand with row stride lda (with
-// kSwiglu, gate columns; up at a + a_up); b: columns n0.. of a (k_len, *)
-// operand with row stride ldb. Rows at or past k_len read as zero.
-template <bool kSwiglu>
+// a: columns m0.. of a (k_len, *) operand with row stride lda; b: columns
+// n0.. of a (k_len, *) operand with row stride ldb. Rows at or past k_len
+// read as zero.
 __device__ __forceinline__ void gemm_tn(Acc acc, uint16_t* smem, const uint16_t* a, long lda,
-                                        long a_up, const uint16_t* b, long ldb, int m0,
-                                        int n0, int k_len) {
+                                        const uint16_t* b, long ldb, int m0, int n0,
+                                        int k_len) {
   const Lane l;
   const int tid = threadIdx.x;
-  uint4 ra[2], ru[2], rb[2];
+  uint4 ra[2], rb[2];
   const uint4 z = make_uint4(0u, 0u, 0u, 0u);
   const int nk = (k_len + kBK - 1) / kBK;
   auto load = [&](int k0) {
@@ -256,10 +232,9 @@ __device__ __forceinline__ void gemm_tn(Acc acc, uint16_t* smem, const uint16_t*
       const int k = k0 + row;
       if (k < k_len) {
         ra[j] = ld16(a + (long)k * lda + m0 + col);
-        if (kSwiglu) ru[j] = ld16(a + a_up + (long)k * lda + m0 + col);
         rb[j] = ld16(b + (long)k * ldb + n0 + col);
       } else {
-        ra[j] = ru[j] = rb[j] = z;
+        ra[j] = rb[j] = z;
       }
     }
   };
@@ -267,7 +242,7 @@ __device__ __forceinline__ void gemm_tn(Acc acc, uint16_t* smem, const uint16_t*
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int c = tid + j * kThreads, row = c >> 4, col = (c & 15) * 8;
-      st16(&st[row * kLdMN + col], kSwiglu ? swiglu8(ra[j], ru[j]) : ra[j]);
+      st16(&st[row * kLdMN + col], ra[j]);
       st16(&st[kBK * kLdMN + row * kLdMN + col], rb[j]);
     }
   };

@@ -66,7 +66,7 @@ __global__ void __launch_bounds__(kThreads, 2) proj_bwd_kernel(ProjArgs p) {
     // dw tile: input features m0.., output features n0.., over the tokens
     const int tiles_n = p.f / kBN;
     const int m0 = (role.tile / tiles_n) * kBM, n0 = (role.tile % tiles_n) * kBN;
-    gemm_tn<false>(acc, smem, p.x, p.ld_x, 0, p.g, p.ld_g, m0, n0, p.n);
+    gemm_tn(acc, smem, p.x, p.ld_x, p.g, p.ld_g, m0, n0, p.n);
     store_tile(acc, p.dw, p.f, m0, n0, p.d);
   }
 }

@@ -3,27 +3,32 @@ kernels and their plain versions.
 
 Counterpart of the JAX package's ``ops/mlp_bwd.py``. Two kernels in
 ``csrc/mlp_bwd.cu`` replace its two Pallas passes; the source's header says
-how they are laid out for Hopper:
+how they are laid out for Hopper (persistent grids of 128 x 256 wgmma tiles
+fed by TMA, ``csrc/gemm_sm90.cuh``):
 
 - K5a (``ditl_mlp_bwd_dgu_dwdown_bf16``) replaces ``_dgu_dwdown_kernel``:
-  ``dinner = g . w_down^T``, SwiGLU recomputed from ``gate``/``up``, ``dgate``
-  and ``dup`` written into the two halves of one (N, 2F) ``dgu`` buffer, and
-  ``d_w_down = inner^T . g``;
+  ``dinner = g . w_down^T``, SwiGLU computed once from ``gate``/``up``,
+  ``dgate`` and ``dup`` written into the two halves of one (N, 2F) ``dgu``
+  buffer and ``inner`` into an (N, F) scratch, then ``d_w_down = inner^T .
+  g`` from that scratch, in the same launch;
 - K5b (``ditl_mlp_bwd_dh_dwgu_bf16``) replaces ``_dh_dwgu_kernel``:
   ``dh = dgu . w_gu^T`` and ``d_w_gu = h^T . dgu`` from that buffer.
 
 ``fused_mlp_bwd`` is the wrapper: for CUDA tensors it launches K5a then K5b
 (``dgu_dwdown`` and ``dh_dwgu``, one launch each) or raises; only for CPU
 tensors does it run ``fused_mlp_bwd_plain``. ``launches_dgu`` and
-``launches_dh`` count the launches.
+``launches_dh`` count the launches. ``k5_tile_order`` lists the tiles in the
+order the kernels' scheduler hands them out; ``gemm_core`` runs the GEMM core
+alone (its card tests).
 
 ``BlockSizes``, ``DEFAULT_BLOCKS``, ``_pick_blocks`` and ``supports`` are the
 reference's, copied: they decide which shapes take this backward
 (``ops/mlp.py`` takes the einsum spelling for the others), exactly as in the
 reference, so both packages run the same implementation for a given
-configuration. The CUDA kernels' tiles are their own constants (128 x 128
-output tiles): they take any N and D, F multiples of 128, which every shape
-``supports`` admits satisfies.
+configuration. The CUDA kernels' tiles are their own constants
+(``K5_BLOCK_M`` x ``K5_BLOCK_N`` output tiles, k-tiles of ``K5_BLOCK_K``):
+they take any N that is a multiple of 16 and D, F multiples of 128, which
+every shape ``supports`` admits satisfies.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ import torch
 
 __all__ = ["fused_mlp_bwd", "fused_mlp_bwd_plain", "dgu_dwdown", "dgu_dwdown_plain",
            "dh_dwgu", "dh_dwgu_plain", "supports", "BlockSizes", "DEFAULT_BLOCKS",
-           "launches_dgu", "launches_dh", "reset_launches"]
+           "launches_dgu", "launches_dh", "reset_launches", "K5_BLOCK_M", "K5_BLOCK_N",
+           "K5_BLOCK_K", "K5_GROUP", "k5_tile_order", "gemm_core", "gemm_core_plain"]
 
 NUM_LANES = 128
 NUM_SUBLANES = 16  # bf16-safe sublane multiple (f32 needs only 8)
@@ -48,6 +54,14 @@ class BlockSizes(NamedTuple):
 
 
 DEFAULT_BLOCKS = BlockSizes(256, 512, 128)
+
+# The kernels' tiles (csrc/gemm_sm90.cuh): output tiles of K5_BLOCK_M rows x
+# K5_BLOCK_N columns, k-tiles of K5_BLOCK_K, and column tiles taken
+# K5_GROUP at a time by the grouped (L2-friendly) raster.
+K5_BLOCK_M = 128
+K5_BLOCK_N = 256
+K5_BLOCK_K = 64
+K5_GROUP = 8
 
 # Kernel launches since the last reset_launches(); counted where each kernel
 # is launched and nowhere else: K5a, K5b.
@@ -85,6 +99,44 @@ def supports(n: int, d: int, f: int, blocks=None) -> bool:
     )
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _raster(tiles_m: int, tiles_n: int) -> list[tuple[int, int]]:
+    """(tm, tn) of every tile of a tiles_m x tiles_n grid in the kernels'
+    grouped order: K5_GROUP columns at a time, the column index fastest
+    within the group (``csrc/gemm_sm90.cuh::raster``)."""
+    out = []
+    for i in range(tiles_m * tiles_n):
+        group, j = divmod(i, K5_GROUP * tiles_m)
+        first = group * K5_GROUP
+        width = min(K5_GROUP, tiles_n - first)
+        out.append((j // width, first + j % width))
+    return out
+
+
+def k5_tile_order(n: int, d: int, f: int, kernel: str) -> list[tuple[str, int, int]]:
+    """The tiles of K5a (``kernel="K5a"``) or K5b (``"K5b"``) at (N, D, F) in
+    the order the scheduler hands them out: ``(output, row0, col0)`` with
+    ``output`` one of ``"dinner"`` (K5a's activation-gradient tiles, rows
+    tokens, columns F, whose epilogue writes dgu and inner), ``"d_w_down"``
+    (rows F, columns D), ``"dh"`` (rows tokens, columns D) and ``"d_w_gu"``
+    (rows D, columns 2F). Each tile is K5_BLOCK_M x K5_BLOCK_N; rows or
+    columns past the output's edge are masked. K5a hands out every dinner
+    tile first (its d_w_down tiles wait for inner); K5b every dh tile
+    first."""
+    bm, bn = K5_BLOCK_M, K5_BLOCK_N
+    if kernel == "K5a":
+        roles = [("dinner", _cdiv(n, bm), _cdiv(f, bn)), ("d_w_down", f // bm, _cdiv(d, bn))]
+    elif kernel == "K5b":
+        roles = [("dh", _cdiv(n, bm), _cdiv(d, bn)), ("d_w_gu", d // bm, 2 * f // bn)]
+    else:
+        raise ValueError(f"kernel must be 'K5a' or 'K5b', not {kernel!r}")
+    return [(name, tm * bm, tn * bn) for name, tiles_m, tiles_n in roles
+            for tm, tn in _raster(tiles_m, tiles_n)]
+
+
 def _kernels():
     global _fns
     if _fns is None:
@@ -92,12 +144,15 @@ def _kernels():
 
         lib = load_library("mlp_bwd.cu")
         dgu_fn, dh_fn = lib.ditl_mlp_bwd_dgu_dwdown_bf16, lib.ditl_mlp_bwd_dh_dwgu_bf16
-        dgu_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_long] * 3 + [
+        gemm_fn = lib.ditl_gemm_sm90_bf16
+        dgu_fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_long] * 3 + [
             ctypes.c_int] * 3 + [ctypes.c_void_p]
-        dh_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_long] + [
+        dh_fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_long] + [
             ctypes.c_int] * 3 + [ctypes.c_void_p]
-        dgu_fn.restype = dh_fn.restype = ctypes.c_int
-        _fns = (dgu_fn, dh_fn)
+        gemm_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long] * 2 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        dgu_fn.restype = dh_fn.restype = gemm_fn.restype = ctypes.c_int
+        _fns = (dgu_fn, dh_fn, gemm_fn)
     return _fns
 
 
@@ -187,10 +242,14 @@ def dgu_dwdown(g: torch.Tensor, w_down: torch.Tensor, gate: torch.Tensor,
                          "multiples of 128")
     dgu = torch.empty((n, 2 * f), dtype=g.dtype, device=dev)
     d_w_down = torch.empty((f, d), dtype=w_down.dtype, device=dev)
+    inner = torch.empty((n, f), dtype=g.dtype, device=dev)
+    # [0] the tile counter, [1 + s] the ready count of 256-column strip s
+    sched = torch.zeros(1 + _cdiv(f, K5_BLOCK_N), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernels()[0](g.data_ptr(), w_down.data_ptr(), gate.data_ptr(),
-                            dgu.data_ptr(), d_w_down.data_ptr(), ld_g, ld_gu,
+                            dgu.data_ptr(), d_w_down.data_ptr(), inner.data_ptr(),
+                            sched.data_ptr(), ld_g, ld_gu,
                             (up.data_ptr() - gate.data_ptr()) // 2, n, d, f, stream)
     if err != 0:
         raise RuntimeError(f"mlp_bwd dgu kernel launch failed: CUDA error {err}")
@@ -215,14 +274,52 @@ def dh_dwgu(h: torch.Tensor, dgu: torch.Tensor, w_gu: torch.Tensor
                          "(N, 2F) and (D, 2F), D and F multiples of 128")
     dh = torch.empty((n, d), dtype=h.dtype, device=dev)
     d_w_gu = torch.empty((d, f2), dtype=w_gu.dtype, device=dev)
+    sched = torch.zeros(1, dtype=torch.int32, device=dev)  # the tile counter
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernels()[1](h.data_ptr(), dgu.data_ptr(), w_gu.data_ptr(), dh.data_ptr(),
-                            d_w_gu.data_ptr(), ld_h, n, d, f2 // 2, stream)
+                            d_w_gu.data_ptr(), sched.data_ptr(), ld_h, n, d, f2 // 2,
+                            stream)
     if err != 0:
         raise RuntimeError(f"mlp_bwd dh kernel launch failed: CUDA error {err}")
     launches_dh += 1
     return dh, d_w_gu
+
+
+def gemm_core_plain(a: torch.Tensor, b: torch.Tensor, a_mn: bool, b_mn: bool
+                    ) -> torch.Tensor:
+    """Plain version of ``gemm_core``: C = A . B in f32, rounded to a's
+    dtype, with A = a (M, K) or a^T if ``a_mn`` (a is (K, M)), and B = b^T
+    (b is (N, K)) or b if ``b_mn`` (b is (K, N))."""
+    am = a.float().T if a_mn else a.float()
+    bm = b.float() if b_mn else b.float().T
+    return (am @ bm).to(a.dtype)
+
+
+def gemm_core(a: torch.Tensor, b: torch.Tensor, a_mn: bool, b_mn: bool) -> torch.Tensor:
+    """The kernels' GEMM core alone on CUDA tensors (bf16, row strides
+    multiples of 8): C (M, N) = A . B with operands as in
+    ``gemm_core_plain``, each K-major (``False``) or MN-major (``True``) in
+    shared memory. Not on any model path: the card tests hold its four
+    operand layouts against ``gemm_core_plain``."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"gemm_core runs on CUDA tensors, not {dev}; "
+                         "gemm_core_plain is its plain version")
+    lda, ldb = _cuda_rows("a", a, dev), _cuda_rows("b", b, dev)
+    k, m = a.shape if a_mn else a.shape[::-1]
+    kb, n = b.shape if b_mn else b.shape[::-1]
+    if k != kb:
+        raise ValueError(f"contractions differ: a {tuple(a.shape)}, b {tuple(b.shape)}")
+    c = torch.empty((m, n), dtype=a.dtype, device=dev)
+    sched = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernels()[2](a.data_ptr(), b.data_ptr(), c.data_ptr(), sched.data_ptr(),
+                            lda, ldb, m, n, k, int(a_mn), int(b_mn), stream)
+    if err != 0:
+        raise RuntimeError(f"gemm core launch failed: CUDA error {err}")
+    return c
 
 
 def fused_mlp_bwd(

@@ -342,19 +342,46 @@ def _assert_scaled(name, got, want):
 
 
 @pytest.mark.torch_port
-@pytest.mark.parametrize("n,d,f", [(1024, 512, 768), (2064, 256, 384)])
-def test_mlp_bwd_kernels_match_plain(cuda, n, d, f):
-    """K5a and K5b against their plain versions, gate/up as the halves of
-    one gu buffer and K5b fed the same dgu as its plain version; the second
-    shape has a ragged token edge (N = 2064 = 16 x 129)."""
+@pytest.mark.parametrize("a_mn,b_mn", [(False, False), (False, True), (True, False),
+                                       (True, True)], ids=["KK", "KM", "MK", "MM"])
+def test_gemm_core_layouts_match_plain(cuda, a_mn, b_mn):
+    """The K5 kernels' GEMM core alone (csrc/gemm_sm90.cuh) in its four
+    operand layouts, each operand K-major or MN-major, against the plain
+    product: M = 320 and N = 384 overhang the 128 x 256 tiles, K = 2064 = 16
+    x 129 the 64-deep k-tiles (TMA fills the rest with zeros)."""
     from ditl_tpu_torch.ops import mlp_bwd as tmb
 
-    h = _rnd(cuda, n, d, seed=1)
-    w_gu = _rnd(cuda, d, 2 * f, seed=2, scale=d**-0.5)
-    w_down = _rnd(cuda, f, d, seed=3, scale=f**-0.5)
-    g = _rnd(cuda, n, d, seed=4)
+    m, n, k = 320, 384, 2064
+    a = _rnd(cuda, *((k, m) if a_mn else (m, k)), seed=20)
+    b = _rnd(cuda, *((k, n) if b_mn else (n, k)), seed=21)
+    c = tmb.gemm_core(a, b, a_mn, b_mn)
+    torch.cuda.synchronize()
+    _assert_scaled("c", c, tmb.gemm_core_plain(a, b, a_mn, b_mn))
+
+
+def _mlp_inputs(cuda, n, d, f, seed=1):
+    """h, w_gu, w_down, g and the forward's gate/up as the halves of one gu
+    buffer (row stride 2F), as the op saves them."""
+    h = _rnd(cuda, n, d, seed=seed)
+    w_gu = _rnd(cuda, d, 2 * f, seed=seed + 1, scale=d**-0.5)
+    w_down = _rnd(cuda, f, d, seed=seed + 2, scale=f**-0.5)
+    g = _rnd(cuda, n, d, seed=seed + 3)
     gu = (h.float() @ w_gu.float()).bfloat16()
     gate, up = gu.chunk(2, dim=-1)
+    return h, w_gu, w_down, g, gate, up
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("n,d,f", [(1024, 512, 768), (2064, 256, 384), (2064, 384, 384),
+                                   (16, 384, 384), (16, 256, 128)])
+def test_mlp_bwd_kernels_match_plain(cuda, n, d, f):
+    """K5a and K5b against their plain versions, gate/up as the strided
+    halves of one gu buffer and K5b fed the same dgu as its plain version:
+    a ragged token edge (N = 2064 = 16 x 129), the least N (16), and D or F
+    odd multiples of 128 (384), which 256-wide tiles overhang."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+
+    h, w_gu, w_down, g, gate, up = _mlp_inputs(cuda, n, d, f)
     tmb.reset_launches()
     dgu, d_w_down = tmb.dgu_dwdown(g, w_down, gate, up)
     dgu_ref, d_w_down_ref = tmb.dgu_dwdown_plain(g, w_down, gate, up)
@@ -365,6 +392,27 @@ def test_mlp_bwd_kernels_match_plain(cuda, n, d, f):
     for name, x, r in (("dgu", dgu, dgu_ref), ("d_w_down", d_w_down, d_w_down_ref),
                        ("dh", dh, dh_ref), ("d_w_gu", d_w_gu, d_w_gu_ref)):
         _assert_scaled(name, x, r)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("n,d,f", [(2064, 384, 384), (4096, 1024, 2816)])
+def test_mlp_bwd_kernels_are_bitwise_repeatable(cuda, n, d, f):
+    """Three calls of K5a and K5b give the same bits: no atomics in any sum,
+    and K5a's d_w_down tiles read the inner that its dinner tiles wrote in
+    the same launch only after it is complete (a missing proxy fence or
+    acquire would show as a stale tile in some call)."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+
+    h, w_gu, w_down, g, gate, up = _mlp_inputs(cuda, n, d, f, seed=30)
+    runs = []
+    for _ in range(3):
+        dgu, d_w_down = tmb.dgu_dwdown(g, w_down, gate, up)
+        runs.append((dgu, d_w_down, *tmb.dh_dwgu(h, dgu, w_gu)))
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for name, x, r in zip(("dgu", "d_w_down", "dh", "d_w_gu"), run, runs[0]):
+            assert torch.equal(x, r), name
+    _assert_scaled("d_w_down", runs[0][1], tmb.dgu_dwdown_plain(g, w_down, gate, up)[1])
 
 
 @pytest.mark.torch_port

@@ -233,6 +233,173 @@ def test_config_validation_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# The kernels' tile schedule and data flow (K5a writes inner once, then
+# reads it back for d_w_down)
+# ---------------------------------------------------------------------------
+
+# (N, D, F): the training shape, chip_smoke.py's ragged MLP case (F = 384,
+# an odd multiple of 128, overhung by 256-wide tiles) and the least N.
+K5_SHAPES = [(8192, 4096, 14336), (2064, 256, 384), (16, 384, 384)]
+
+
+def _k5_extents(n, d, f):
+    return {"dinner": (n, f), "d_w_down": (f, d), "dh": (n, d), "d_w_gu": (d, 2 * f)}
+
+
+@pytest.mark.parametrize("n,d,f", K5_SHAPES, ids=str)
+def test_k5_tile_order_covers_every_output_tile_once(n, d, f):
+    """Every output tile of every role appears once in ``k5_tile_order``,
+    the tiles' grid covers the output, and what overhangs its edge (256-wide
+    tiles over F = 384 or D = 384, 128-row tiles over a ragged N) is only
+    the masked remainder of the last row or column of tiles."""
+    bm, bn = tmlp_bwd.K5_BLOCK_M, tmlp_bwd.K5_BLOCK_N
+    extents = _k5_extents(n, d, f)
+    for kernel, roles in (("K5a", ("dinner", "d_w_down")), ("K5b", ("dh", "d_w_gu"))):
+        order = tmlp_bwd.k5_tile_order(n, d, f, kernel)
+        assert len(order) == len(set(order)), kernel
+        assert {name for name, _, _ in order} == set(roles)
+        for role in roles:
+            rows, cols = extents[role]
+            tiles = {(r, c) for name, r, c in order if name == role}
+            assert tiles == set(itertools.product(range(0, rows, bm), range(0, cols, bn))), role
+            # the masked overhang: past the edge only in the last tile row/column
+            assert max(r for r, _ in tiles) + bm - rows in range(bm)
+            assert max(c for _, c in tiles) + bn - cols in range(bn)
+    if f == 384:  # the dinner tiles of columns 256..511 store only 256..383
+        assert ("dinner", 0, 256) in tmlp_bwd.k5_tile_order(n, d, f, "K5a")
+
+
+@pytest.mark.parametrize("n,d,f", K5_SHAPES, ids=str)
+def test_k5_tile_order_hands_out_activation_tiles_first(n, d, f):
+    """K5a hands out every dinner tile before any d_w_down tile (a d_w_down
+    tile waits for the inner its strip's dinner tiles write, so it may only
+    wait on tiles already held by running blocks); K5b every dh tile before
+    any d_w_gu tile. Within a role, the grouped raster walks K5_GROUP
+    column tiles at a time."""
+    for kernel, first in (("K5a", "dinner"), ("K5b", "dh")):
+        names = [name for name, _, _ in tmlp_bwd.k5_tile_order(n, d, f, kernel)]
+        n_first = names.count(first)
+        assert n_first > 0 and set(names[:n_first]) == {first}, kernel
+        assert first not in names[n_first:], kernel
+    order = [t for t in tmlp_bwd.k5_tile_order(n, d, f, "K5a") if t[0] == "dinner"]
+    cols = sorted({c for _, _, c in order})
+    group = cols[:tmlp_bwd.K5_GROUP]
+    rows_first = len({r for _, r, _ in order})
+    assert [c for _, _, c in order[:len(group)]] == group
+    assert {c for _, _, c in order[:len(group) * rows_first]} == set(group)
+
+
+def _k5_emulated(g, w_down, gate, up, h, w_gu):
+    """K5a then K5b as their tiles run, in ``k5_tile_order``: each tile's
+    product over its block of zero-padded operands (TMA's fill past an
+    edge) with f32 sums, stores masked to the output's edge. K5a's dinner
+    tiles write dgu and inner; its d_w_down tiles read inner only, and only
+    once every dinner tile of their 256-column strip has run. Outputs start
+    as NaN, so a tile that is never stored shows."""
+    bm, bn = tmlp_bwd.K5_BLOCK_M, tmlp_bwd.K5_BLOCK_N
+    n, d = g.shape
+    f = w_down.shape[0]
+    dt = g.dtype
+
+    def pad(x, rows, cols):
+        out = torch.zeros(rows, cols, dtype=torch.float32)
+        out[: x.shape[0], : x.shape[1]] = x.float()
+        return out
+
+    rows_n = -(-n // bm) * bm
+    gp, hp = pad(g, rows_n, -(-d // bn) * bn), pad(h, rows_n, -(-d // bn) * bn)
+    wdp = pad(w_down, -(-f // bn) * bn, d)
+    dgu = torch.full((n, 2 * f), float("nan"), dtype=dt)
+    inner = torch.full((n, f), float("nan"), dtype=dt)
+    d_w_down = torch.full((f, d), float("nan"), dtype=w_down.dtype)
+    done = {}  # strip -> dinner tiles run
+    for name, r, c in tmlp_bwd.k5_tile_order(n, d, f, "K5a"):
+        if name == "dinner":
+            dinner = gp[r:r + bm] @ wdp[c:c + bn].T
+            rr, cc = slice(r, min(r + bm, n)), slice(c, min(c + bn, f))
+            dinner = dinner[: rr.stop - r, : cc.stop - c]
+            gt, ut = gate[rr, cc].float(), up[rr, cc].float()
+            sg = torch.sigmoid(gt)
+            silu = gt * sg
+            dgu[rr, cc] = (dinner * ut * (sg * (1.0 + gt * (1.0 - sg)))).to(dt)
+            dgu[rr, f + cc.start:f + cc.stop] = (dinner * silu).to(dt)
+            inner[rr, cc] = (silu * ut).to(dt)
+            done[c // bn] = done.get(c // bn, 0) + 1
+        else:
+            assert done.get(r // bn) == -(-n // bm), (name, r, c)  # the strip is ready
+            ip = pad(inner, rows_n, f)
+            d_w_down[r:r + bm, c:c + bn] = (ip[:, r:r + bm].T @ gp[:, c:c + bn])[
+                :, : min(bn, d - c)].to(w_down.dtype)
+    dgup = pad(dgu, rows_n, 2 * f)
+    wgup = pad(w_gu, -(-d // bn) * bn, 2 * f)
+    dh = torch.full((n, d), float("nan"), dtype=h.dtype)
+    d_w_gu = torch.full((d, 2 * f), float("nan"), dtype=w_gu.dtype)
+    for name, r, c in tmlp_bwd.k5_tile_order(n, d, f, "K5b"):
+        if name == "dh":
+            tile = dgup[r:r + bm] @ wgup[c:c + bn].T
+            dh[r:min(r + bm, n), c:min(c + bn, d)] = tile[: min(bm, n - r),
+                                                          : min(bn, d - c)].to(h.dtype)
+        else:
+            d_w_gu[r:r + bm, c:c + bn] = (hp[:, r:r + bm].T @ dgup[:, c:c + bn]).to(w_gu.dtype)
+    return dgu, d_w_down, dh, d_w_gu
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5_tile_data_flow_matches_plain_and_jax_kernels(dtype):
+    """The kernels' data flow, tile by tile in the scheduler's order (inner
+    materialised by the dinner tiles and read back by the d_w_down tiles,
+    256-wide tiles overhanging F = 384, a ragged N = 272), against the plain
+    versions and the reference's two Pallas passes in interpret mode: every
+    output stored, within the file's tolerance for sums in other orders in
+    f32 (1e-4) and one bf16 ulp of each output's scale in bf16."""
+    b, s, d, f = 1, 272, 256, 384
+    blocks = (16, 128, 128)
+    assert jmlp_bwd.supports(b * s, d, f, blocks) and tmlp_bwd.supports(b * s, d, f, blocks)
+    (h, w_gu, w_down, g, gate, up), ours = _cast(_inputs(b, s, d, f, seed=5), dtype)
+    th, tw_gu, tw_down, tg, tgate, tup = (t.reshape(-1, t.shape[-1]) for t in ours)
+    dgu, d_w_down, dh, d_w_gu = _k5_emulated(tg, tw_down, tgate, tup, th, tw_gu)
+    dgu_ref, d_w_down_ref = tmlp_bwd.dgu_dwdown_plain(tg, tw_down, tgate, tup)
+    dh_ref, d_w_gu_ref = tmlp_bwd.dh_dwgu_plain(th, dgu_ref, tw_gu)
+    want = jmlp_bwd.fused_mlp_bwd(h, w_gu, w_down, gate, up, g, blocks=blocks,
+                                  interpret=True)
+    for name, x, r, j in (("dgu", dgu, dgu_ref, None), ("d_w_down", d_w_down, d_w_down_ref,
+                                                        want[2]),
+                          ("dh", dh.reshape(b, s, d), dh_ref.reshape(b, s, d), want[0]),
+                          ("d_w_gu", d_w_gu, d_w_gu_ref, want[1])):
+        assert not bool(torch.isnan(x.float()).any()), name  # every element stored
+        refs = [r] + ([] if j is None else [j])
+        for ref in refs:
+            if dtype == "float32":
+                np.testing.assert_allclose(x.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5,
+                                           err_msg=name)
+            else:
+                _close_to_scale(x, jnp.asarray(np.asarray(torch.as_tensor(ref).float())),
+                                BF16_ULP, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_d_w_down_from_materialised_inner_is_plain_bits(dtype):
+    """d_w_down from a materialised inner = (silu(gate) * up) rounded to the
+    dtype once, as K5a's dinner tiles store it, is bit for bit the plain
+    version's, and within the file's tolerance of the reference's pass 1 in
+    interpret mode."""
+    b, s, d, f = 2, 32, 256, 384
+    (h, w_gu, w_down, g, gate, up), ours = _cast(_inputs(b, s, d, f, seed=6), dtype)
+    tg, tgate, tup = (t.reshape(b * s, -1) for t in (ours[3], ours[4], ours[5]))
+    gt = tgate.float()
+    inner = (gt * torch.sigmoid(gt) * tup.float()).to(tg.dtype)  # the scratch
+    d_w_down = (inner.float().T @ tg.float()).to(ours[2].dtype)
+    _, d_w_down_ref = tmlp_bwd.dgu_dwdown_plain(tg, ours[2], tgate, tup)
+    assert torch.equal(d_w_down, d_w_down_ref)
+    want = jmlp_bwd.fused_mlp_bwd(h, w_gu, w_down, gate, up, g, blocks=MLP_BLOCKS,
+                                  interpret=True)[2]
+    if dtype == "float32":
+        np.testing.assert_allclose(d_w_down.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    else:
+        _close_to_scale(d_w_down, want, BF16_ULP)
+
+
+# ---------------------------------------------------------------------------
 # The model: loss gradients with the three flags
 # ---------------------------------------------------------------------------
 
