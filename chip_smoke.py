@@ -16,8 +16,9 @@ no result line. It imports nothing of JAX or of the JAX package.
    backward) on the same kinds of cases, the training shape (B=4, S=2048,
    32/8 heads, D=128, the pipeline's packed rows) first, where two calls
    must give the same bits, K3 (paged decode with the
-   tail) and K4 (without) at the decode tick's shape and ragged ones
-   (tolerances at ``O_TOL``/``LSE_TOL``/``BWD_TOL``). K4 has no serving
+   tail) and K4 (without) at the decode tick's shape, ragged ones and the
+   edges of their key splits, each also against the plain twin of the split
+   rule and called twice, which must give the same bits (tolerances at ``O_TOL``/``LSE_TOL``/``BWD_TOL``). K4 has no serving
    path: its launches are this phase's direct calls.
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
@@ -26,7 +27,8 @@ no result line. It imports nothing of JAX or of the JAX package.
    backward on the same inputs) and on the pipeline's packed rows (SDPA and
    its backward given the same packed causal mask), with the tiles each
    visits, and the whole backward wrapper (delta, K2a, K2b) against SDPA's
-   backward on both inputs.
+   backward on both inputs; K3 and K4 also at splits of 128, 256 and 512
+   keys.
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -49,10 +51,13 @@ no result line. It imports nothing of JAX or of the JAX package.
    (the K5 kernels' GEMM core alone in its four operand layouts; K5a/K5b
    at the training shape N=8192, D=4096, F=14336, where a second call must
    give the same bits, and at ragged ones: N = 2064 and 16, D and F = 384;
-   K6 at the wq/wo, wk/wv and a ragged, strided shape; ``MM_TOL``), and
-   their timings: kernel, plain, a library yardstick (autograd of the
-   plain MLP forward for K5a + K5b together, of ``x @ w`` for K6), the
-   bound from this run's shapes and the rate in TFLOP/s; cuBLAS on each K5
+   K6 at the wq/wo, wk/wv and a ragged, strided shape, where both tile
+   orders must give the same bits; ``MM_TOL``), K5a and K5b on fixed
+   integer-made inputs against the digests of the build before K5b moved
+   onto the kernel it shares with K6 (``K5_DIGESTS``), and their timings:
+   kernel, plain, a library yardstick (autograd of the plain MLP forward for
+   K5a + K5b together, of ``x @ w`` for K6), the bound from this run's
+   shapes and the rate in TFLOP/s; K6 in both tile orders; cuBLAS on each K5
    kernel's own two products, and the K5 GEMM core alone on each of the
    four products beside cuBLAS on it.
 10. Main path 4: ``train()`` with ``TRAIN_ARGS`` plus ``KERNEL_FLAGS``
@@ -955,12 +960,67 @@ def _check_scaled(label: str, named) -> float:
     return worst
 
 
+# SHA-256 (first 16 hex digits) of the K5 kernels' outputs on the inputs of
+# ``_k5_digests``, as the kernels built from commit 7db4668 (K5b a kernel of
+# its own, before it and K6 shared the core's projection backward) gave them
+# on an H100: K5a and K5b must keep these bits.
+K5_DIGESTS = {
+    "N=8192 D=4096 F=14336 dgu": "141a6da8c68aebce",
+    "N=8192 D=4096 F=14336 d_w_down": "84ef8e9296991907",
+    "N=8192 D=4096 F=14336 dh": "9ae98d5b6fc85a12",
+    "N=8192 D=4096 F=14336 d_w_gu": "5da4fb3c9f38d9c3",
+    "N=2064 D=384 F=384 dgu": "5ef53d8a3f547fb0",
+    "N=2064 D=384 F=384 d_w_down": "6034a93c33c5a33f",
+    "N=2064 D=384 F=384 dh": "2e65493b65f108e7",
+    "N=2064 D=384 F=384 d_w_gu": "4a0382e58d9dd71c",
+}
+
+
+def _det_bf16(shape, salt: int, shift: int):
+    """bf16 values made on the card by integer arithmetic alone (integers in
+    [-1000, 1000] times 2**-shift, hashed from the position and ``salt``):
+    the same bits whatever card, CUDA version or torch makes them."""
+    import torch
+
+    n = 1
+    for x in shape:
+        n *= x
+    i = torch.arange(n, device="cuda", dtype=torch.int64)
+    h = (i * 2654435761 + salt * 40503) % 4294967296
+    h = (h ^ (h >> 15)) * 1274126177 % 4294967296
+    return ((h % 2001 - 1000).float() * 2.0**-shift).reshape(shape).to(torch.bfloat16)
+
+
+def _k5_digests(mlp_bwd) -> dict:
+    """K5a's (dgu, d_w_down) and K5b's (dh, d_w_gu) at the training shape and
+    a ragged one, each kernel on fixed integer-made inputs (K5b's dgu one of
+    them, not K5a's output), as SHA-256 digests of their bytes."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for n, d, f in ((8192, 4096, 14336), (2064, 384, 384)):
+        g, w_down = _det_bf16((n, d), 1, 12), _det_bf16((f, d), 2, 16)
+        gate, up = _det_bf16((n, 2 * f), 3, 9).chunk(2, dim=-1)
+        h, dgu_in = _det_bf16((n, d), 4, 10), _det_bf16((n, 2 * f), 5, 12)
+        w_gu = _det_bf16((d, 2 * f), 6, 16)
+        outs = (*mlp_bwd.dgu_dwdown(g, w_down, gate, up), *mlp_bwd.dh_dwgu(h, dgu_in, w_gu))
+        torch.cuda.synchronize()
+        for name, t in zip(("dgu", "d_w_down", "dh", "d_w_gu"), outs):
+            raw = t.contiguous().view(torch.int16).cpu().numpy().tobytes()
+            out[f"N={n} D={d} F={f} {name}"] = hashlib.sha256(raw).hexdigest()[:16]
+        del g, w_down, gate, up, h, dgu_in, w_gu, outs
+    return out
+
+
 def phase_mm_kernels(mlp_bwd, proj) -> dict:
     """The K5 kernels' GEMM core alone in its four operand layouts; K5a and
     K5b (K5b fed the kernel's own dgu, and its plain version the same
     buffer), at the training shape also called twice, which must give the
-    same bits; and K6 against their plain versions. Returns the largest
-    absolute errors."""
+    same bits; and K6, in both tile orders, against their plain versions.
+    Then K5a and K5b on integer-made inputs against ``K5_DIGESTS``. Returns
+    the largest absolute errors."""
     import torch
 
     worst = {"mlp_dgu_dwdown": 0.0, "mlp_dh_dwgu": 0.0, "proj_bwd": 0.0}
@@ -1003,9 +1063,24 @@ def phase_mm_kernels(mlp_bwd, proj) -> dict:
         x, w, g = _proj_case(n, d, f, ld, seed=700 + 10 * i)
         dx, dw = proj.projection_bwd(x, w, g, blocks=blocks)
         dx_ref, dw_ref = proj.projection_bwd_plain(x, w, g)
+        # both tile orders, one of them the default: the same bits
+        again = [proj.projection_bwd(x, w, g, blocks=blocks, dx_first=o) for o in (True, False)]
         torch.cuda.synchronize()
         worst["proj_bwd"] = max(worst["proj_bwd"], _check_scaled(
             f"proj_bwd N={n} D={d} F={f} ({label})", [("dx", dx, dx_ref), ("dw", dw, dw_ref)]))
+        require(all(torch.equal(dx, a) and torch.equal(dw, b) for a, b in again),
+                f"proj_bwd {label}: another call or tile order gave other bits")
+        log(f"[kernels] proj_bwd N={n} D={d} F={f} ({label}): dx tiles first, dw tiles "
+            f"first and the default order give the same bits")
+        del x, w, g, dx, dw, dx_ref, dw_ref, again
+    # K5a and K5b keep their bits: the moved K5b against the digests of the
+    # kernels built before the move, on the same integer-made inputs.
+    digests = _k5_digests(mlp_bwd)
+    for key, value in digests.items():
+        log(f"[kernels] K5 digest {key}: {value} (expected {K5_DIGESTS.get(key)})")
+    require(digests == K5_DIGESTS, "K5a/K5b outputs differ from the earlier build's bits")
+    log("[kernels] K5a and K5b: the same bits as the build before K5b moved onto the "
+        "shared projection-backward kernel (training shape and N=2064 D=F=384)")
     return worst
 
 
@@ -1089,10 +1164,22 @@ def phase_mm_timings(mlp_bwd, proj) -> dict:
         lib_ms = min(_time_ms(lambda: torch.autograd.grad(y, (xl, wl), grad_outputs=g,
                                                           retain_graph=True), iters=10)
                      for _ in range(2))
+        # Both tile orders, in turns (dx first, dw first, dw first, dx first).
+        order_ms = {True: [], False: []}
+        for order in (True, False, False, True):
+            order_ms[order].append(_time_ms(
+                lambda: proj.projection_bwd(x, w, g, dx_first=order), iters=10))
         bound_ms, bound_by = _proj_bound(n, d, f)
-        log(f"[timing] proj_bwd {label} N={n} D={d} F={f}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library (autograd.grad of x @ w) {lib_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound ({SMI})")
+        flops = 4.0 * n * d * f
+        log(f"[timing] proj_bwd {label} N={n} D={d} F={f}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
+            f"(autograd.grad of x @ w) {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
+            f"kernel / library {ms / lib_ms:.2f}x, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of bound ({SMI})")
+        log(f"[timing] proj_bwd {label}: dx tiles first "
+            f"{'/'.join(f'{t:.4f}' for t in order_ms[True])} ms, dw tiles first "
+            f"{'/'.join(f'{t:.4f}' for t in order_ms[False])} ms (default: "
+            f"{'dx' if proj.k6_dx_first(n, f) else 'dw'} first) ({SMI})")
         # The kernels line carries the wq/wo shape; wk/wv is logged beside it.
         out.setdefault("proj_bwd", {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                                     "bound_by": bound_by, "library_ms": lib_ms})
@@ -1290,31 +1377,68 @@ def phase_paged_kernels(paged) -> dict:
          lengths, starts),
         (4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 32, 45]),  # head_dim 64, page 16
         (3, 8, 8, 128, 16, 16, [17, 40, 33], [16, 33, 33]),  # MHA, page 16
+        # split edges (splits of SPLIT_KEYS): keys one past a split, ending on
+        # a split boundary, a tile across the last page and the tail
+        (4, 32, 8, 128, 16, 16, [257, 256, 513, 140], [257, 250, 500, 128]),
+        (3, 16, 2, 64, 48, 8, [300, 1, 40], [297, 0, 33]),
     ]
     worst = {"paged_tail": 0.0, "paged": 0.0}
     paged.reset_launches()
     for i, (b, h, kv, d, ps, tl, lens, sts) in enumerate(cases):
         q, kp, vp, table, ln, st, tk, tv = _paged_inputs(b, h, kv, d, ps, tl, lens, sts,
-                                                         seed=200 + i)
+                                                         seed=200 + i, n_pool=128)
         o3 = paged.paged_attention(q, kp, vp, table, ln, tail_k=tk, tail_v=tv, starts=st)
         r3 = paged.paged_attention_plain(q, kp, vp, table, ln, tk, tv, st)
+        s3 = paged.paged_attention_split_plain(q, kp, vp, table, ln, tk, tv, st)
         o4 = paged.paged_attention(q, kp, vp, table, ln)
         r4 = paged.paged_attention_plain(q, kp, vp, table, ln)
+        s4 = paged.paged_attention_split_plain(q, kp, vp, table, ln)
+        # a second call: the same bits
+        again = (paged.paged_attention(q, kp, vp, table, ln, tail_k=tk, tail_v=tv, starts=st),
+                 paged.paged_attention(q, kp, vp, table, ln))
         torch.cuda.synchronize()
-        for name, o, r in (("paged_tail", o3, r3), ("paged", o4, r4)):
+        for name, o, r, sp, o2 in (("paged_tail", o3, r3, s3, again[0]),
+                                   ("paged", o4, r4, s4, again[1])):
             require(bool(torch.isfinite(o.float()).all()), f"{name} case {i}: non-finite")
             torch.testing.assert_close(o.float(), r.float(), atol=O_TOL, rtol=O_TOL)
+            torch.testing.assert_close(o.float(), sp.float(), atol=O_TOL, rtol=O_TOL)
+            require(torch.equal(o, o2), f"{name} case {i}: a second call gave other bits")
             err = float((o.float() - r.float()).abs().max())
+            err_split = float((o.float() - sp.float()).abs().max())
             worst[name] = max(worst[name], err)
             dead = [j for j, n in enumerate(lens) if n == 0]
             require(all(bool((o[j] == 0).all()) for j in dead), f"{name}: dead slot")
             log(f"[kernels] {name} B={b} H={h} K={kv} D={d} ps={ps} T={tl} "
                 f"lengths={lens} starts={sts if name == 'paged_tail' else '-'}: "
-                f"max|o-plain|={err:.3e} ok")
+                f"max|o-plain|={err:.3e}, max|o-split plain|={err_split:.3e}, a second call "
+                f"the same bits ok")
     direct = paged.launches
-    require((direct, paged.launches_tail) == (len(cases), len(cases)),
+    require((direct, paged.launches_tail) == (2 * len(cases), 2 * len(cases)),
             (direct, paged.launches_tail))
     return {**worst, "paged_direct_launches": direct}
+
+
+def _device_us_by_kernel(fn, calls: int) -> dict:
+    """Device time per call of each kernel ``fn`` launches: torch.profiler's
+    CUDA activity over ``calls`` calls after one warm-up, by kernel name
+    (template arguments kept, namespaces and parameters dropped)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.self_device_time_total <= 0:
+            continue
+        m = re.search(r"\w+_kernel(?:<[^()]*>)?", evt.key)
+        name = m.group(0) if m else evt.key[:40]
+        out[name] = out.get(name, 0.0) + evt.self_device_time_total / calls
+    return out
 
 
 def phase_paged_timings(paged) -> dict:
@@ -1370,15 +1494,32 @@ def phase_paged_timings(paged) -> dict:
         plain_ms = _graph_ms(plain, rounds=1)
         lib_ms = _graph_ms(library)
         ms2 = _graph_ms(kernel)
+        # The split length, each timed in the same way (the kernels line keeps
+        # the default).
+        default, variants = paged.SPLIT_KEYS, []
+        try:
+            for split in (128, 256, 512):
+                paged.SPLIT_KEYS = split
+                variants.append(f"split {split} {_graph_ms(kernel):.4f}")
+        finally:
+            paged.SPLIT_KEYS = default
+        log(f"[timing] {name} split lengths, device (CUDA graph) ms: {', '.join(variants)} "
+            f"(default {default}) ({SMI})")
         eager_ms = _time_ms(_cycle(kernel), iters=4 * PAGED_COPIES)
         eager_lib_ms = _time_ms(_cycle(library), iters=4 * PAGED_COPIES)
+        # Where a call's device time goes: the split kernel, then the merge.
+        by_kernel = _device_us_by_kernel(_cycle(kernel), 4 * PAGED_COPIES)
+        log(f"[timing] {name} device time per call by kernel (torch.profiler, eager calls): "
+            + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(by_kernel.items()))
+            + f" ({SMI})")
         bound_ms, bound_by = _paged_bound(q, kp, table, ln, st, tail)
         sdpa_mb = 2 * kt.numel() * 2 / 1e6
         log(f"[timing] {name} B={b} H={h} K={kv} D={d} ps={ps} T={m['tail_len']} "
             f"lengths={lengths} starts={starts if tail else '-'}, {PAGED_COPIES} input "
             f"copies in turn: device (CUDA graph) kernel {ms:.4f}/{ms2:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (enable_gqa, reads {sdpa_mb:.1f} MB "
-            f"of padded K/V); eager, host issue included: kernel {eager_ms:.4f} ms, "
+            f"of padded K/V), kernel / sdpa {min(ms, ms2) / lib_ms:.2f}x; eager, host "
+            f"launches included: kernel {eager_ms:.4f} ms, "
             f"sdpa {eager_lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
             f"{bound_ms / min(ms, ms2):.1%} of bound ({SMI})")
         out[name] = {"ms": min(ms, ms2), "eager_ms": eager_ms, "plain_ms": plain_ms,

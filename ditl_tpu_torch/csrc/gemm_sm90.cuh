@@ -1,7 +1,8 @@
 // Persistent, warp-specialised GEMM core for Hopper (sm_90a), on the
 // helpers of hopper.cuh (mbarriers, wgmma descriptors, the driver-entry-point
-// tensor-map encoder). The MLP backward's kernels (mlp_bwd.cu: K5a, K5b) are
-// built on it; K6 (projection_bwd.cu) still runs on gemm_tile.cuh.
+// tensor-map encoder). The MLP backward's kernels (mlp_bwd.cu: K5a, K5b) and
+// the projection backward (projection_bwd.cu: K6) are built on it; K5b and K6
+// are one kernel, proj_bwd_kernel below, the backward of a product x . w.
 //
 // A block is 384 threads: two consumer warpgroups (warps 0-7) and a producer
 // warpgroup (warps 8-11) of which one thread works. setmaxnreg gives the
@@ -43,6 +44,8 @@
 // helpers sit in an anonymous namespace.
 
 #pragma once
+
+#include <algorithm>
 
 #include "hopper.cuh"
 
@@ -478,6 +481,117 @@ int prepare_kernel(Kernel kernel) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              sm90::kSmemAlloc);
   return static_cast<int>(err);
+}
+
+// prepare_kernel once per kernel (the caller's flag), then the SM count.
+template <typename Kernel>
+int launch_prepare(Kernel kernel, bool& prepared) {
+  if (!prepared) {
+    if (const int err = prepare_kernel(kernel)) return err;
+    prepared = true;
+  }
+  return num_sms() > 0 ? 0 : static_cast<int>(cudaErrorNoDevice);
+}
+
+// ---------------------------------------------------------------------------
+// The backward of a product out = x . w, x (N, D), w (D, F), g = d out (N, F):
+// dx = g . w^T (role 0: tiles of 128 tokens x 256 of D, contracting F, g and
+// w K-major) and dw = x^T . g (role 1: tiles of 128 of D x 256 of F,
+// contracting the N tokens, x and g MN-major). Every output tile is owned by
+// one block and summed in one fixed order, so two calls give the same bits.
+// The roles share nothing; dx_first says which is handed out first. K5b is
+// this with g = dgu, w = w_gu and F = 2F; K6 the attention projections'. kTag
+// only names the instance (5 in mlp_bwd.cu, 6 in projection_bwd.cu), so that
+// a profile tells K5b's launches from K6's.
+// ---------------------------------------------------------------------------
+
+namespace sm90 {
+
+struct ProjMaps {
+  CUtensorMap x, g, w, dx, dw;
+};
+
+struct ProjArgs {
+  int* sched;  // [0] tile counter
+  int n, d, f, tiles, dx_first;
+};
+
+__device__ __forceinline__ Tile proj_tile(const ProjArgs& p, int t) {
+  const int tiles_tok = cdiv(p.n, kBM), tiles_d = cdiv(p.d, kBN);
+  const int dx_tiles = tiles_tok * tiles_d, dw_tiles = p.tiles - dx_tiles;
+  const bool dx = p.dx_first ? t < dx_tiles : t >= dw_tiles;
+  int tm, tn;
+  if (dx) {
+    raster(p.dx_first ? t : t - dw_tiles, tiles_tok, tiles_d, tm, tn);
+    return Tile{0, tm * kBM, tn * kBN, cdiv(p.f, kBK)};
+  }
+  raster(p.dx_first ? t - dx_tiles : t, p.d / kBM, cdiv(p.f, kBN), tm, tn);
+  return Tile{1, tm * kBM, tn * kBN, cdiv(p.n, kBK)};
+}
+
+template <int kTag>
+__global__ void __launch_bounds__(kThreads, 1)
+proj_bwd_kernel(const __grid_constant__ ProjMaps m, const ProjArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  Ring ring = ring_init(smem_raw);
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
+  if (warp >= kConsumers / 32) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      for (;;) {
+        const int t = atomicAdd(p.sched, 1);
+        if (t >= p.tiles) break;
+        const Tile tile = proj_tile(p, t);
+        if (tile.role == 0) produce<false, false>(ring, &m.g, &m.w, tile, t);
+        else produce<true, true>(ring, &m.x, &m.g, tile, t);
+      }
+      produce_end(ring);
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int wg = warp >> 2;
+    float acc[128];
+    for (;;) {
+      const int t = next_tile(ring);
+      if (t < 0) break;
+      const Tile tile = proj_tile(p, t);
+      if (tile.role == 0) {
+        consume<false, false>(ring, wg, tile.nk, acc);
+        store_acc(acc, ring, &m.dx, tile, wg);
+      } else {
+        consume<true, true>(ring, wg, tile.nk, acc);
+        store_acc(acc, ring, &m.dw, tile, wg);
+      }
+    }
+  }
+}
+
+}  // namespace sm90
+
+// dx (N, D) and dw (D, F), contiguous, from x (N, D) at row stride ld_x, w
+// (D, F) contiguous and g (N, F) at row stride ld_g; sched one zeroed int.
+// D and F multiples of 128, N > 0, every row 16-byte aligned. Returns
+// cudaGetLastError() after the launch (0 = launched).
+template <int kTag>
+int proj_bwd_launch(const void* x, const void* w, const void* g, void* dx, void* dw, void* sched,
+                    long ld_x, long ld_g, int n, int d, int f, bool dx_first,
+                    cudaStream_t stream) {
+  using namespace sm90;
+  if (n <= 0 || d % kBM || f % kBM) return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  ProjMaps m;
+  if (!make_map_2d(encode, &m.x, x, n, d, ld_x) || !make_map_2d(encode, &m.g, g, n, f, ld_g) ||
+      !make_map_2d(encode, &m.w, w, d, f, f) || !make_map_2d(encode, &m.dx, dx, n, d, d) ||
+      !make_map_2d(encode, &m.dw, dw, d, f, f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const ProjArgs a{static_cast<int*>(sched), n, d, f,
+                   cdiv(n, kBM) * cdiv(d, kBN) + (d / kBM) * cdiv(f, kBN), dx_first ? 1 : 0};
+  static bool prepared = false;
+  if (const int err = launch_prepare(proj_bwd_kernel<kTag>, prepared)) return err;
+  proj_bwd_kernel<kTag><<<std::min(a.tiles, num_sms()), kThreads, kSmemAlloc, stream>>>(m, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -51,7 +51,10 @@
 //   contracting N, h and dgu MN-major), no dependency between them; the dh
 //   tiles, whose contraction is the longer at the training shape (2F =
 //   28672 against N = 8192), are handed out first. Every output tile goes
-//   out by TMA from the consumers' epilogue boxes.
+//   out by TMA from the consumers' epilogue boxes. This is the projection
+//   backward's kernel of gemm_sm90.cuh (proj_bwd_kernel, K6's too) with x =
+//   h, g = dgu and w = w_gu; its tiles, their k-order and so its bits are
+//   the ones K5b had as a kernel of its own.
 // - Numerics are the first design's: the same f32 expressions (the fast
 //   exponent and an exact reciprocal in the sigmoid), inner rounded to bf16
 //   once, every sum in f32 by one block, no atomics in any sum, so two calls
@@ -64,7 +67,7 @@
 //
 // ptxas -v (sm_90a): 168 registers a thread (the 384-thread
 // block's allocation, which setmaxnreg splits 40 / 232), no spills and no
-// stack, for both kernels and the core's four instances. ptxas allocated
+// stack, for K5a, K5b and the core's four instances. ptxas allocated
 // within 168 in the consumers' branch all the same: K5a's epilogue spilled
 // until its swizzled addresses were kept from being hoisted out of the
 // stage loop (swiglu_epilogue).
@@ -274,68 +277,6 @@ mlp_dgu_dwdown_kernel(const __grid_constant__ DguMaps m, const DguArgs p) {
 }
 
 // ---------------------------------------------------------------------------
-// K5b: dh and d_w_gu
-// ---------------------------------------------------------------------------
-
-struct DhMaps {
-  CUtensorMap h, dgu, w_gu, dh, d_w_gu;
-};
-
-struct DhArgs {
-  int* sched;  // [0] tile counter
-  int n, d, f2, tiles;
-};
-
-// Tile t of K5b: dh tiles (role 0, contracting 2F) first, then d_w_gu
-// tiles (role 1, contracting N).
-__device__ __forceinline__ Tile dh_tile(const DhArgs& p, int t) {
-  const int tiles_tok = cdiv(p.n, kBM), tiles_d = cdiv(p.d, kBN);
-  int tm, tn;
-  if (t < tiles_tok * tiles_d) {
-    raster(t, tiles_tok, tiles_d, tm, tn);
-    return Tile{0, tm * kBM, tn * kBN, p.f2 / kBK};
-  }
-  raster(t - tiles_tok * tiles_d, p.d / kBM, p.f2 / kBN, tm, tn);
-  return Tile{1, tm * kBM, tn * kBN, cdiv(p.n, kBK)};
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-mlp_dh_dwgu_kernel(const __grid_constant__ DhMaps m, const DhArgs p) {
-  extern __shared__ uint8_t smem_raw[];
-  Ring ring = ring_init(smem_raw);
-  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
-  if (warp >= kConsumers / 32) {
-    reg_dealloc<kProducerRegs>();
-    if (threadIdx.x == kConsumers) {
-      for (;;) {
-        const int t = atomicAdd(p.sched, 1);
-        if (t >= p.tiles) break;
-        const Tile tile = dh_tile(p, t);
-        if (tile.role == 0) produce<false, false>(ring, &m.dgu, &m.w_gu, tile, t);
-        else produce<true, true>(ring, &m.h, &m.dgu, tile, t);
-      }
-      produce_end(ring);
-    }
-  } else {
-    reg_alloc<kConsumerRegs>();
-    const int wg = warp >> 2;
-    float acc[128];
-    for (;;) {
-      const int t = next_tile(ring);
-      if (t < 0) break;
-      const Tile tile = dh_tile(p, t);
-      if (tile.role == 0) {
-        consume<false, false>(ring, wg, tile.nk, acc);
-        store_acc(acc, ring, &m.dh, tile, wg);
-      } else {
-        consume<true, true>(ring, wg, tile.nk, acc);
-        store_acc(acc, ring, &m.d_w_gu, tile, wg);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // The core alone: C = A . B
 // ---------------------------------------------------------------------------
 
@@ -381,15 +322,6 @@ gemm_sm90_kernel(const __grid_constant__ GemmMaps m, const GemmArgs p) {
       store_acc(acc, ring, &m.c, tile, wg);
     }
   }
-}
-
-template <typename Kernel>
-int launch_prepare(Kernel kernel, bool& prepared) {
-  if (!prepared) {
-    if (const int err = prepare_kernel(kernel)) return err;
-    prepared = true;
-  }
-  return num_sms() > 0 ? 0 : static_cast<int>(cudaErrorNoDevice);
 }
 
 template <bool kMNA, bool kMNB>
@@ -440,28 +372,13 @@ extern "C" int ditl_mlp_bwd_dgu_dwdown_bf16(const void* g, const void* w_down,
 
 // K5b. h (N, D) row stride ld_h; dgu (N, 2F) and w_gu (D, 2F) contiguous;
 // dh (N, D) and d_w_gu (D, 2F) contiguous outputs; sched one zeroed int.
-// Returns cudaGetLastError().
+// The projection backward's kernel (gemm_sm90.cuh) with x = h, g = dgu, w =
+// w_gu, the dh tiles first. Returns cudaGetLastError().
 extern "C" int ditl_mlp_bwd_dh_dwgu_bf16(const void* h, const void* dgu, const void* w_gu,
                                          void* dh, void* d_w_gu, void* sched, long ld_h, int n,
                                          int d, int f, void* stream) {
-  if (n <= 0 || d % kBM || f % kBM) return static_cast<int>(cudaErrorInvalidValue);
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  DhMaps m;
-  if (!make_map_2d(encode, &m.h, h, n, d, ld_h) ||
-      !make_map_2d(encode, &m.dgu, dgu, n, 2L * f, 2L * f) ||
-      !make_map_2d(encode, &m.w_gu, w_gu, d, 2L * f, 2L * f) ||
-      !make_map_2d(encode, &m.dh, dh, n, d, d) ||
-      !make_map_2d(encode, &m.d_w_gu, d_w_gu, d, 2L * f, 2L * f)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const DhArgs a{static_cast<int*>(sched), n, d, 2 * f,
-                 cdiv(n, kBM) * cdiv(d, kBN) + (d / kBM) * (2 * f / kBN)};
-  static bool prepared = false;
-  if (const int err = launch_prepare(mlp_dh_dwgu_kernel, prepared)) return err;
-  mlp_dh_dwgu_kernel<<<std::min(a.tiles, num_sms()), kThreads, kSmemAlloc,
-                       static_cast<cudaStream_t>(stream)>>>(m, a);
-  return static_cast<int>(cudaGetLastError());
+  return proj_bwd_launch<5>(h, w_gu, dgu, dh, d_w_gu, sched, ld_h, 2L * f, n, d, 2 * f, true,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // The GEMM core alone: C (M, N) = A . B with f32 sums, C contiguous bf16.

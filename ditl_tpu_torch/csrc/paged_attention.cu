@@ -1,4 +1,5 @@
-// Paged decode attention for Hopper (sm_90a), bf16 in, f32 softmax.
+// Paged decode attention for Hopper (sm_90a), bf16 in, f32 softmax, as
+// split-key flash-decoding.
 //
 // Replaces two Pallas TPU kernels of ditl_tpu/ops/paged_attention.py:
 // - K3 _paged_tail_kernel (with _accumulate_block and _finalize_out), the
@@ -14,34 +15,60 @@
 // K and V once per slot that reads it (2 * K * D * 2 bytes per key), the live
 // tail, q and o; it does 4 * D flops per (query head, key). At the serving
 // shape (8 slots, 32 query / 8 KV heads, D = 128, a few hundred to ~1500 live
-// keys per slot) that is a few MB per call: a few microseconds at 3.35 TB/s,
-// against well under a microsecond of tensor-core time.
+// keys per slot) that is a few MB per call: about 5 us at 3.35 TB/s, against
+// well under a microsecond of tensor-core time. So the time goes to latency:
+// how many blocks are in flight and how long each one's chain of dependent
+// loads is.
 //
-// What this design does about it (a first, simple design):
-// - No sequential grid. The TPU kernel walks a sequential (slot, page) grid
-//   and carries m, l and acc in VMEM. Here one block owns one slot x one KV
-//   head, i.e. its G = H / K query rows, and loops itself over the slot's live
-//   keys in 64-key tiles, then over the tail. m and l live in shared memory,
-//   the output accumulator in registers.
-// - Only live keys are read: the loop stops at the last live position, so a
-//   reserved but unwritten page costs nothing. The TPU's redirect of dead
-//   pages to page 0 is not copied. A tile spans several pages when the page
-//   is smaller than 64 tokens; each key row finds its page in the table.
-// - K/V tiles are read with 16-byte loads, neighbouring threads on
-//   neighbouring addresses, into shared memory rows padded by 8 bf16. Each
-//   (query row, key) score is one thread's f32 dot product over D; the p.V
-//   product gives each thread one output column.
-// - The G query rows of a KV head share every K/V tile (GQA).
-// Under-filling is expected: B x K blocks (64 at 8 slots x 8 KV heads) do
-// not fill 132 SMs. Splitting a slot's keys over blocks (flash-decoding),
-// cp.async / TMA double buffering and tensor-core products are later work.
+// Design:
+// - Split keys. A slot's keys lie on one axis of max_pages * page_size page
+//   positions followed by tail_len tail positions (K4: no tail). The grid is
+//   (split, KV head, slot), a split being a fixed run of `split` positions
+//   (ops/paged_attention.py SPLIT_KEYS, a multiple of the 64-key tile), so
+//   the grid is sized from shapes the host knows, never from lengths or
+//   starts: the wrapper reads nothing back from the card, and a decode step
+//   can be captured in a CUDA graph. A block whose split holds no live key
+//   stops at once and writes nothing; the merge, applying the same rule to
+//   the same lengths, gives that split no weight.
+// - Inside a split, one 128-thread block walks its live 64-key tiles
+//   (skipping tiles with no live column) with the next tile's K and V in
+//   flight by cp.async while the current one is computed (two stages, 34 KB
+//   each at D = 128, rows padded by 16 bytes, dead rows zero-filled by the
+//   copy itself).
+// - Both products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//   sums), the G = H / K query rows of a KV head (at most 8) as rows 0-7 of
+//   the 16-row A operand, so every K and V tile serves the whole GQA group.
+//   q.k: each warp takes 16 keys of a tile, q's fragments in registers, K's
+//   read from shared memory. p.V: each warp takes D / 4 output columns, p
+//   (bf16) from shared memory, V's fragments by ldmatrix.trans. A thread per
+//   (row, key) dot and per output column (the first form of this design)
+//   ran at about 6 us a tile: chains of dependent shared loads, FMAs and
+//   shuffles that four warps a block could not hide.
+// - Online softmax per tile, one warp per query row, in f32.
+// - Each block writes its partial (m and l per query row, f32 acc) to a
+//   workspace the wrapper allocates. A second small kernel, one block per
+//   (query row, KV head, slot), merges the partials in split order, so two
+//   calls give the same bits. Its loads are issued in batches before their
+//   values are used, so it costs a few L2 round trips. Merging in the last
+//   block of a (slot, KV head) to finish instead (an atomic count after a
+//   GPU-scope fence, on counts zeroed each call) measured slower on the card
+//   (PERF.md).
+// The first design (one block per slot x KV head, a serial loop over 64-key
+// tiles with plain loads, a thread per (row, key) dot) gave 64 blocks for
+// 132 SMs and ran at 6% of the bound, paced by the longest slot.
 //
-// Semantics kept from the reference: q is scaled in f32 before the f32 q.k
-// product; masked columns of a processed tile get the finite -2.3819763e38
-// (never -inf); only tiles with a live column are processed; tail column j is
-// live when starts + j < lengths; p is rounded to bf16 (v's type) before the
-// p.v product, which accumulates in f32, while the row sum l adds the f32 p;
-// a row with l == 0 (a dead slot, length 0) writes 0; o is bf16.
+// Semantics kept from the reference: the q.k scores are f32 and scaled in
+// f32 (here the scale multiplies the f32 sums of the exact bf16 products,
+// which differs from scaling q first by f32 rounding alone); masked columns
+// of a processed tile get the finite -2.3819763e38 (never -inf); only tiles
+// with a live column are processed; tail column j is live when starts + j <
+// lengths; out-of-range page ids clamp into the pool; p is rounded to bf16
+// (v's type) before the p.v product, which accumulates in f32, while the row
+// sum l adds the f32 p; a row with l == 0 (a dead slot, length 0) writes 0;
+// o is bf16. Within a split p is relative to the split's running max; the
+// combine rescales each split's l and acc by exp(m_s - max_s m_s) in f32,
+// with no second rounding to bf16. ops/paged_attention.py::
+// paged_attention_split_plain computes the same in the same order.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (ditl_tpu_torch/ops/cuda_build.py). C interface, bound with ctypes.
@@ -53,19 +80,46 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;  // keys per tile; two per lane in the softmax
+constexpr int kTile = 64;      // keys per tile; two per lane in the softmax
 constexpr int kMaxGroups = 8;  // query heads per KV head
+constexpr int kPLd = kTile + 8;  // bf16 p row, padded: 144 bytes
+constexpr int kMergeBatch = 32;  // merge: splits whose acc values are loaded at once
+constexpr int kMaxSplits = 6144;  // the merge's m and l: 48 KB of shared memory
 constexpr float kNegInf = -2.3819763e38f;  // ops/attention.py NEG_INF
 
-__device__ __forceinline__ float bf16_to_f32(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
+struct Params {
+  const uint16_t* q;        // (B, H, D)
+  const uint16_t* k_pages;  // (P, K, ps, D)
+  const uint16_t* v_pages;
+  const int* table;         // (B, max_pages)
+  const int* lengths;       // (B,)
+  const int* starts;        // (B,), K3 only
+  const uint16_t* tail_k;   // (B, K, T, D), K3 only
+  const uint16_t* tail_v;
+  uint16_t* o;              // (B, H, D)
+  float* part_acc;          // (B, K, n_split, G, D)
+  float* part_ml;           // (B, K, n_split, G, 2): m, l
+  int kv_heads, groups, page_size, max_pages, n_pool, tail_len, split, n_split;
+  float scale;
+};
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+// Shared memory of a split block: two stages of (K, V) tiles with rows
+// padded by 16 bytes (so that 8 rows at one column reach 32 banks), then the
+// f32 scores, the bf16 p rows, m, l and alpha.
+template <int D>
+struct Layout {
+  static constexpr int kLd = D * 2 + 16;  // bytes of one padded key row
+  static constexpr int kTileBytes = kTile * kLd;
+  static constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
+  static constexpr int kS = 2 * kStageBytes;
+  static constexpr int kP = kS + kMaxGroups * kTile * 4;
+  static constexpr int kM = kP + kMaxGroups * kPLd * 2;
+  static constexpr int kL = kM + kMaxGroups * 4;
+  static constexpr int kAlpha = kL + kMaxGroups * 4;
+  static constexpr int kBytes = kAlpha + kMaxGroups * 4;
+};
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -79,223 +133,356 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
-struct Smem {
-  static constexpr int kLd = D + 8;  // padded row, in bf16
-  uint16_t k[kTile * kLd];
-  uint16_t v[kTile * kLd];
-  float q[kMaxGroups * D];  // q * scale, f32
-  float p[kMaxGroups * kTile];  // scores, then p rounded to bf16
-  float m[kMaxGroups];
-  float l[kMaxGroups];
-  float alpha[kMaxGroups];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// 16 bytes global -> shared, in flight until cp_wait; with valid == false
+// the 16 bytes are zero-filled and src is not read.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// c += a . b on the tensor cores, m16n8k16, bf16 in, f32 sums. a: rows
+// lane / 4 (a[0], k 2 (lane % 4)..; a[1], k + 8) of the 16; rows 8-15, which
+// no query head fills, are zero. b: k 2 (lane % 4).. and k + 8, column lane /
+// 4. c: row lane / 4, columns 2 (lane % 4), + 1 (c[2], c[3]: rows 8-15).
+__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(0u), "r"(a1), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices, transposed: the B fragments of two n8 column
+// blocks of a row-major (key, dim) tile; each lane gives one row's address.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Where a slot's live keys lie on its axis of page positions, then tail
+// positions: [0, page_limit) and [tail0, tail_end); the axis ends at end.
+struct Live {
+  int page_limit, tail0, tail_end, end;
+
+  __device__ __forceinline__ bool key(int v) const {
+    return v < page_limit || (v >= tail0 && v < tail_end);
+  }
+  __device__ __forceinline__ bool tile(int t0) const {
+    return t0 < page_limit || max(t0, tail0) < min(t0 + kTile, tail_end);
+  }
+  // The first tile at or after t0 and before t1 with a live key, or -1.
+  __device__ __forceinline__ int next(int t0, int t1) const {
+    for (; t0 < t1; t0 += kTile) {
+      if (tile(t0)) return t0;
+    }
+    return -1;
+  }
+  // Whether split s (of `split` positions) holds a live key.
+  __device__ __forceinline__ bool split_live(int s, int split) const {
+    return next(s * split, min(s * split + split, end)) >= 0;
+  }
 };
 
-// One 64-key tile: columns [base, base + 64) of the slot's sequence, live
-// below `limit`; live row r of the tile sits at `src + row_offset(r)`
-// (elements), and rows at or past `limit` are neither read nor weighted.
-template <int D, typename RowOffset>
-__device__ __forceinline__ void accumulate_tile(
-    Smem<D>& sm, float* acc, const uint16_t* __restrict__ k_src,
-    const uint16_t* __restrict__ v_src, RowOffset row_offset, int base,
-    int limit, int groups) {
-  constexpr int kLd = Smem<D>::kLd;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kLoads = kTile * kChunks / kThreads;
-  constexpr int kRowStep = kThreads / D;
-  constexpr int kAcc = (kMaxGroups + kRowStep - 1) / kRowStep;
-  const int tid = threadIdx.x;
+// Slot b's live keys, from its length (and start: K3).
+template <bool kTail>
+__device__ __forceinline__ Live slot_live(const Params& p, int b) {
+  const int length = p.lengths[b];
+  const int start = kTail ? p.starts[b] : length;
+  Live live;
+  live.tail0 = p.max_pages * p.page_size;
+  // Keys past the table's last page are absent, as in the reference.
+  live.page_limit = min(min(start, length), live.tail0);
+  live.tail_end = live.tail0 + (kTail ? max(0, min(length, start + p.tail_len) - start) : 0);
+  live.end = live.tail0 + (kTail ? p.tail_len : 0);
+  return live;
+}
 
-  __syncthreads();  // the previous tile is consumed
-  uint4 kx[kLoads], vx[kLoads];
+// K and V of the tile at t0 into stage buffers kb / vb (shared addresses),
+// 16 bytes a copy; dead rows arrive as zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(const Params& p, const Live& live, int b, int kh,
+                                          int t0, uint32_t kb, uint32_t vb) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+  const int* trow = p.table + (long)b * p.max_pages;
 #pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + i * kThreads;
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    kx[i] = vx[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (base + r < limit) {
-      const long off = row_offset(r);
-      kx[i] = *reinterpret_cast<const uint4*>(k_src + off + c);
-      vx[i] = *reinterpret_cast<const uint4*>(v_src + off + c);
+  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int v = t0 + r;
+    const bool ok = live.key(v);
+    const uint16_t* ks = p.k_pages;
+    const uint16_t* vs = p.v_pages;
+    long off = 0;
+    if (ok) {
+      if (v < live.tail0) {
+        // Out-of-range page ids clamp into the pool, as JAX's gather does.
+        const long pid = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
+        off = ((pid * p.kv_heads + kh) * p.page_size + v % p.page_size) * D;
+      } else {
+        ks = p.tail_k;
+        vs = p.tail_v;
+        off = (((long)b * p.kv_heads + kh) * p.tail_len + (v - live.tail0)) * D;
+      }
     }
+    const uint32_t at = r * Layout<D>::kLd + c * 16;
+    cp_async16(kb + at, ks + off + 8 * c, ok);
+    cp_async16(vb + at, vs + off + 8 * c, ok);
   }
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + i * kThreads;
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    *reinterpret_cast<uint4*>(&sm.k[r * kLd + c]) = kx[i];
-    *reinterpret_cast<uint4*>(&sm.v[r * kLd + c]) = vx[i];
+  cp_commit();
+}
+
+// Merge: one block of D threads per (query row g, KV head kh, slot b); thread
+// d writes o[g, d]. The partials of every split with a live key (the others
+// wrote none and weigh 0; a dead slot's o is 0) are summed in split order:
+// two calls give the same bits. All m and l come in one round trip, then the
+// column's acc values kMergeBatch splits at a time, so at the decode tick
+// (17 splits) the merge waits on three loads in a row: lengths, m and l,
+// acc.
+template <int D, bool kTail>
+__global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
+  extern __shared__ float sml[];  // m, then l, of each split
+  const int g = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
+  const int groups = p.groups, n = p.n_split;
+  const long bk = (long)b * p.kv_heads + kh;
+  const Live live = slot_live<kTail>(p, b);
+  const float2* ml = reinterpret_cast<const float2*>(p.part_ml) + bk * n * groups + g;
+  for (int s = d; s < n; s += D) {
+    const float2 v = live.split_live(s, p.split) ? __ldcg(ml + s * groups)
+                                                 : make_float2(kNegInf, 0.f);
+    sml[s] = v.x;
+    sml[n + s] = v.y;
   }
   __syncthreads();
+  float m_max = kNegInf;
+  for (int s = 0; s < n; ++s) m_max = fmaxf(m_max, sml[s]);
+  // A split's weight exp(m_s - max), 0 for a split without a live key (its m
+  // stays the mask value); a weight of 0 skips the split's loads.
+  auto weight = [&](int s) { return sml[s] == kNegInf ? 0.f : expf(sml[s] - m_max); };
+  float l = 0.f;
+  for (int s = 0; s < n; ++s) l += weight(s) * sml[n + s];
+  const float* acc = p.part_acc + (bk * n * groups + g) * D + d;
+  float o = 0.f;
+  for (int s0 = 0; s0 < n; s0 += kMergeBatch) {
+    float av[kMergeBatch];
+#pragma unroll
+    for (int j = 0; j < kMergeBatch; ++j) {
+      const int s = s0 + j;
+      av[j] = s < n && sml[s] != kNegInf ? __ldcg(acc + (long)s * groups * D) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kMergeBatch; ++j) {
+      if (s0 + j < n) o += weight(s0 + j) * av[j];
+    }
+  }
+  o /= (l == 0.f ? 1.f : l);
+  p.o[(bk * groups + g) * D + d] = __bfloat16_as_ushort(__float2bfloat16_rn(o));
+}
 
-  // Scores: one (query row, key) pair per thread and step, f32 dot over D.
-  for (int i = tid; i < kTile * groups; i += kThreads) {
-    const int r = i % kTile;
-    const int g = i / kTile;
-    float s = kNegInf;
-    if (base + r < limit) {
-      const float* qg = &sm.q[g * D];
-      const uint16_t* kr = &sm.k[r * kLd];
-      float a = 0.f;
+template <int D, bool kTail>
+__global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
+  using L = Layout<D>;
+  constexpr int kKSteps = D / 16;       // q.k: 16 dimensions a product
+  constexpr int kNTiles = D / 8 / kWarps;  // p.V: n8 column blocks a warp
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* ss = reinterpret_cast<float*>(smem + L::kS);
+  uint16_t* sp = reinterpret_cast<uint16_t*>(smem + L::kP);
+  float* sm = reinterpret_cast<float*>(smem + L::kM);
+  float* sl = reinterpret_cast<float*>(smem + L::kL);
+  float* salpha = reinterpret_cast<float*>(smem + L::kAlpha);
+  const uint32_t base = smem_addr(smem);
+
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row = lane >> 2, quad = lane & 3;  // fragment row (query head) and pair
+  const int groups = p.groups;
+  const long row0 = ((long)b * p.kv_heads + kh) * groups;  // q/o row of group 0
+  const Live live = slot_live<kTail>(p, b);
+  const int v0 = split * p.split, v1 = min(v0 + p.split, live.end);
+  int cur = live.next(v0, v1);
+  if (cur < 0) return;  // no live key: no partial (the merge weighs this split 0)
+
+  // q as the A fragments of every 16-dimension step (bf16 as stored; the
+  // f32 scale multiplies the f32 sums), rows past the group count zero.
+  uint32_t qa[kKSteps][2];
 #pragma unroll
-      for (int c = 0; c < D; c += 8) {
-        const uint4 w = *reinterpret_cast<const uint4*>(kr + c);
-        const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+  for (int ks = 0; ks < kKSteps; ++ks) {
+    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(p.q + (row0 + row) * D);
+    qa[ks][0] = row < groups ? qrow[ks * 8 + quad] : 0u;
+    qa[ks][1] = row < groups ? qrow[ks * 8 + 4 + quad] : 0u;
+  }
+  if (tid < kMaxGroups) {
+    sm[tid] = kNegInf;
+    sl[tid] = 0.f;
+  }
+  float acc[kNTiles][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          a += qg[c + 2 * e] * __uint_as_float(u[e] << 16);
-          a += qg[c + 2 * e + 1] * __uint_as_float(u[e] & 0xffff0000u);
+  for (int j = 0; j < kNTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  load_tile<D>(p, live, b, kh, cur, base, base + L::kTileBytes);
+  __syncthreads();  // m and l initialised
+  for (int stage = 0; cur >= 0; stage ^= 1) {
+    const int nxt = live.next(cur + kTile, v1);
+    const uint32_t kb = base + stage * L::kStageBytes, vb = kb + L::kTileBytes;
+    if (nxt >= 0) {
+      const uint32_t nb = base + (stage ^ 1) * L::kStageBytes;
+      load_tile<D>(p, live, b, kh, nxt, nb, nb + L::kTileBytes);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // the tile's K and V are in shared memory
+
+    // Scores of warp w's 16 keys (two n8 blocks), times the scale in f32;
+    // dead keys get the finite mask value.
+    {
+      float c[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t at = kb + (16 * warp + 8 * j + row) * L::kLd + ks * 32 + quad * 4;
+          mma16816(c[j], qa[ks][0], qa[ks][1], lds32(at), lds32(at + 16));
         }
       }
-      s = a;
-    }
-    sm.p[g * kTile + r] = s;
-  }
-  __syncthreads();
-
-  // Online softmax, one warp per query row.
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  for (int g = warp; g < groups; g += kWarps) {
-    const float s0 = sm.p[g * kTile + lane];
-    const float s1 = sm.p[g * kTile + lane + 32];
-    const float m_prev = sm.m[g];
-    const float m_next = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-    const float p0 = expf(s0 - m_next);
-    const float p1 = expf(s1 - m_next);
-    const float rs = warp_sum(p0 + p1);
-    sm.p[g * kTile + lane] = round_bf16(p0);
-    sm.p[g * kTile + lane + 32] = round_bf16(p1);
-    if (lane == 0) {
-      const float alpha = expf(m_prev - m_next);
-      sm.alpha[g] = alpha;
-      sm.l[g] = alpha * sm.l[g] + rs;
-      sm.m[g] = m_next;
-    }
-  }
-  __syncthreads();
-
-  // acc = acc * alpha + p.V over the tile's live rows (the rest have p = 0).
-  const int n_live = min(kTile, limit - base);
-  const int d = tid % D;
+      if (row < groups) {
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int g = tid / D + i * kRowStep;
-    if (g < groups) {
-      const float* pg = &sm.p[g * kTile];
-      float a = acc[i] * sm.alpha[g];
-      for (int r = 0; r < n_live; ++r) a += pg[r] * bf16_to_f32(sm.v[r * kLd + d]);
-      acc[i] = a;
+        for (int j = 0; j < 2; ++j) {
+          const int r = 16 * warp + 8 * j + 2 * quad;
+          float2 sc;
+          sc.x = live.key(cur + r) ? c[j][0] * p.scale : kNegInf;
+          sc.y = live.key(cur + r + 1) ? c[j][1] * p.scale : kNegInf;
+          *reinterpret_cast<float2*>(ss + row * kTile + r) = sc;
+        }
+      }
     }
+    __syncthreads();
+
+    // Online softmax, one warp per query row; p to bf16 for the product.
+    for (int g = warp; g < groups; g += kWarps) {
+      const float s0 = ss[g * kTile + lane];
+      const float s1 = ss[g * kTile + lane + 32];
+      const float m_prev = sm[g];
+      const float m_next = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+      const float p0 = expf(s0 - m_next);
+      const float p1 = expf(s1 - m_next);
+      const float rs = warp_sum(p0 + p1);
+      sp[g * kPLd + lane] = __bfloat16_as_ushort(__float2bfloat16_rn(p0));
+      sp[g * kPLd + lane + 32] = __bfloat16_as_ushort(__float2bfloat16_rn(p1));
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_next);
+        salpha[g] = alpha;
+        sl[g] = alpha * sl[g] + rs;
+        sm[g] = m_next;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + p.V for warp w's columns (dead keys: p = 0 and V
+    // zero-filled).
+    {
+      const float alpha = row < groups ? salpha[row] : 0.f;
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+        acc[j][0] *= alpha;
+        acc[j][1] *= alpha;
+      }
+      const uint32_t pa = base + L::kP + row * kPLd * 2 + quad * 4;
+#pragma unroll
+      for (int ks = 0; ks < kTile / 16; ++ks) {
+        const uint32_t a0 = row < groups ? lds32(pa + ks * 32) : 0u;
+        const uint32_t a1 = row < groups ? lds32(pa + ks * 32 + 16) : 0u;
+        // lane l: row (key) 16 ks + 8 ((l / 8) % 2) + l % 8, columns + 8 (l / 16)
+        const uint32_t va = vb + (16 * ks + (lane & 15)) * L::kLd +
+                            (warp * kNTiles * 8 + 8 * (lane >> 4)) * 2;
+#pragma unroll
+        for (int j = 0; j < kNTiles; j += 2) {
+          uint32_t bf[4];
+          ldsm_x4_trans(va + j * 16, bf);
+          mma16816(acc[j], a0, a1, bf[0], bf[1]);
+          mma16816(acc[j + 1], a0, a1, bf[2], bf[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage's buffers, the scores and p are free again
+    cur = nxt;
   }
-}
 
-template <int D, bool kTail>
-__global__ void __launch_bounds__(kThreads)
-paged_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k_pages,
-             const uint16_t* __restrict__ v_pages, const int* __restrict__ table,
-             const int* __restrict__ lengths, const int* __restrict__ starts,
-             const uint16_t* __restrict__ tail_k, const uint16_t* __restrict__ tail_v,
-             uint16_t* __restrict__ o, int kv_heads, int groups, int page_size,
-             int max_pages, int n_pool, int tail_len, float scale) {
-  constexpr int kRowStep = kThreads / D;
-  constexpr int kAcc = (kMaxGroups + kRowStep - 1) / kRowStep;
-  __shared__ __align__(16) Smem<D> sm;
-
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const long row0 = (long)b * kv_heads * groups + (long)kh * groups;  // q row
-  const int length = lengths[b];
-  const int start = kTail ? starts[b] : length;
-  // Keys past the table's last page are absent, as in the reference.
-  const int page_limit = min(min(start, length), max_pages * page_size);
-
-  for (int i = tid; i < groups * D; i += kThreads) {
-    sm.q[i] = bf16_to_f32(q[row0 * D + i]) * scale;
+  // The split's partial: m and l per row, acc.
+  const long part = ((long)b * p.kv_heads + kh) * p.n_split + split;
+  if (row < groups) {
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+      const int col = warp * kNTiles * 8 + 8 * j + 2 * quad;
+      *reinterpret_cast<float2*>(p.part_acc + (part * groups + row) * D + col) =
+          make_float2(acc[j][0], acc[j][1]);
+    }
   }
   if (tid < groups) {
-    sm.m[tid] = kNegInf;
-    sm.l[tid] = 0.f;
-  }
-  float acc[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-
-  // Pages: positions [0, page_limit), each row through the table.
-  const int* trow = table + (long)b * max_pages;
-  for (int t0 = 0; t0 < page_limit; t0 += kTile) {
-    auto page_row = [&](int r) -> long {
-      const int pos = t0 + r;
-      // Out-of-range page ids clamp into the pool, as JAX's gather does.
-      const long pid = min(max(trow[pos / page_size], 0), n_pool - 1);
-      return ((pid * kv_heads + kh) * page_size + pos % page_size) * D;
-    };
-    accumulate_tile<D>(sm, acc, k_pages, v_pages, page_row, t0, page_limit, groups);
-  }
-  // Tail: positions [start, length), column j = position - start.
-  if (kTail) {
-    const long tail0 = ((long)b * kv_heads + kh) * tail_len * D;
-    const int tail_limit = min(length, start + tail_len);
-    for (int j0 = 0; start + j0 < tail_limit; j0 += kTile) {
-      auto tail_row = [&](int r) -> long { return tail0 + (long)(j0 + r) * D; };
-      accumulate_tile<D>(sm, acc, tail_k, tail_v, tail_row, start + j0, tail_limit,
-                         groups);
-    }
-  }
-
-  __syncthreads();
-  const int d = tid % D;
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int g = tid / D + i * kRowStep;
-    if (g < groups) {
-      const float l = sm.l[g];
-      const float out = acc[i] / (l == 0.f ? 1.f : l);
-      o[(row0 + g) * D + d] = __bfloat16_as_ushort(__float2bfloat16_rn(out));
-    }
+    p.part_ml[(part * groups + tid) * 2] = sm[tid];
+    p.part_ml[(part * groups + tid) * 2 + 1] = sl[tid];
   }
 }
 
 template <int D, bool kTail>
-int launch(const void* q, const void* kp, const void* vp, const void* table,
-           const void* lengths, const void* starts, const void* tk, const void* tv,
-           void* o, int batch, int heads, int kv_heads, int page_size,
-           int max_pages, int n_pool, int tail_len, float scale, cudaStream_t stream) {
-  paged_kernel<D, kTail><<<dim3(kv_heads, batch), kThreads, 0, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(kp),
-      static_cast<const uint16_t*>(vp), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<const int*>(starts),
-      static_cast<const uint16_t*>(tk), static_cast<const uint16_t*>(tv),
-      static_cast<uint16_t*>(o), kv_heads, heads / kv_heads, page_size, max_pages,
-      n_pool, tail_len, scale);
-  return (int)cudaGetLastError();
+int launch(const Params& p, int batch, cudaStream_t stream) {
+  static bool prepared = false;
+  auto kernel = paged_split_kernel<D, kTail>;
+  if (!prepared) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    prepared = true;
+  }
+  kernel<<<dim3(p.n_split, p.kv_heads, batch), kThreads, Layout<D>::kBytes, stream>>>(p);
+  if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  paged_merge_kernel<D, kTail><<<dim3(p.groups, p.kv_heads, batch), D,
+                                 2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kTail>
-int dispatch(const void* q, const void* kp, const void* vp, const void* table,
-             const void* lengths, const void* starts, const void* tk,
-             const void* tv, void* o, int batch, int heads, int kv_heads,
-             int head_dim, int page_size, int max_pages, int n_pool, int tail_len,
-             float scale, void* stream) {
-  if (batch < 1 || kv_heads < 1 || heads % kv_heads || heads / kv_heads > kMaxGroups ||
-      page_size < 1 || max_pages < 1 || n_pool < 1 || (kTail && tail_len < 1)) {
-    return (int)cudaErrorInvalidValue;
+int dispatch(Params p, int batch, int heads, int head_dim, void* stream) {
+  if (batch < 1 || p.kv_heads < 1 || heads % p.kv_heads || heads / p.kv_heads > kMaxGroups ||
+      p.page_size < 1 || p.max_pages < 1 || p.n_pool < 1 || (kTail && p.tail_len < 1) ||
+      p.split < kTile || p.split % kTile) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  p.groups = heads / p.kv_heads;
+  const long keys = (long)p.max_pages * p.page_size + (kTail ? p.tail_len : 0);
+  const long n_split = (keys + p.split - 1) / p.split;
+  if (n_split > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
+  p.n_split = static_cast<int>(n_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch<64, kTail>(q, kp, vp, table, lengths, starts, tk, tv, o, batch,
-                               heads, kv_heads, page_size, max_pages, n_pool, tail_len,
-                               scale, s);
+      return launch<64, kTail>(p, batch, s);
     case 128:
-      return launch<128, kTail>(q, kp, vp, table, lengths, starts, tk, tv, o, batch,
-                                heads, kv_heads, page_size, max_pages, n_pool, tail_len,
-                                scale, s);
+      return launch<128, kTail>(p, batch, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -303,27 +490,39 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* table,
 
 // K3. q (B, H, D); pools (P, K, ps, D) with P = n_pool; table (B, maxp)
 // int32; lengths and starts (B,) int32; tails (B, K, T, D); o (B, H, D). bf16
-// tensors, all contiguous. Returns cudaGetLastError() after the launch
-// (0 = launched).
-extern "C" int ditl_paged_tail_bf16(const void* q, const void* k_pages,
-                                    const void* v_pages, const void* table,
-                                    const void* lengths, const void* starts,
+// tensors, all contiguous. Workspace: part_acc f32 (B, K, n_split, H / K, D)
+// and part_ml f32 (B, K, n_split, H / K, 2) with n_split = ceil((maxp * ps +
+// T) / split), split a multiple of 64. Returns cudaGetLastError() after the
+// two launches (0 = launched).
+extern "C" int ditl_paged_tail_bf16(const void* q, const void* k_pages, const void* v_pages,
+                                    const void* table, const void* lengths, const void* starts,
                                     const void* tail_k, const void* tail_v, void* o,
-                                    int batch, int heads, int kv_heads, int head_dim,
-                                    int page_size, int max_pages, int n_pool,
-                                    int tail_len, float scale, void* stream) {
-  return dispatch<true>(q, k_pages, v_pages, table, lengths, starts, tail_k, tail_v,
-                        o, batch, heads, kv_heads, head_dim, page_size, max_pages,
-                        n_pool, tail_len, scale, stream);
+                                    void* part_acc, void* part_ml, int batch, int heads,
+                                    int kv_heads, int head_dim, int page_size, int max_pages,
+                                    int n_pool, int tail_len, int split, float scale,
+                                    void* stream) {
+  const Params p{static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k_pages),
+                 static_cast<const uint16_t*>(v_pages), static_cast<const int*>(table),
+                 static_cast<const int*>(lengths), static_cast<const int*>(starts),
+                 static_cast<const uint16_t*>(tail_k), static_cast<const uint16_t*>(tail_v),
+                 static_cast<uint16_t*>(o), static_cast<float*>(part_acc),
+                 static_cast<float*>(part_ml), kv_heads, 0, page_size, max_pages, n_pool,
+                 tail_len, split, 0, scale};
+  return dispatch<true>(p, batch, heads, head_dim, stream);
 }
 
-// K4: the same without a tail; pages up to lengths.
+// K4: the same without a tail; pages up to lengths; n_split = ceil(maxp * ps
+// / split).
 extern "C" int ditl_paged_bf16(const void* q, const void* k_pages, const void* v_pages,
-                               const void* table, const void* lengths, void* o,
-                               int batch, int heads, int kv_heads, int head_dim,
-                               int page_size, int max_pages, int n_pool, float scale,
+                               const void* table, const void* lengths, void* o, void* part_acc,
+                               void* part_ml, int batch, int heads, int kv_heads, int head_dim,
+                               int page_size, int max_pages, int n_pool, int split, float scale,
                                void* stream) {
-  return dispatch<false>(q, k_pages, v_pages, table, lengths, nullptr, nullptr,
-                         nullptr, o, batch, heads, kv_heads, head_dim, page_size,
-                         max_pages, n_pool, 0, scale, stream);
+  const Params p{static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k_pages),
+                 static_cast<const uint16_t*>(v_pages), static_cast<const int*>(table),
+                 static_cast<const int*>(lengths), nullptr, nullptr, nullptr,
+                 static_cast<uint16_t*>(o), static_cast<float*>(part_acc),
+                 static_cast<float*>(part_ml), kv_heads, 0, page_size, max_pages, n_pool, 0,
+                 split, 0, scale};
+  return dispatch<false>(p, batch, heads, head_dim, stream);
 }

@@ -11,6 +11,14 @@ page. ``csrc/paged_attention.cu`` holds two kernels, one per Pallas kernel:
   a tail, positions [0, lengths) from the pages. No serving path calls it
   (as in the JAX package, where only its tests do).
 
+Both run as split-key flash-decoding: a slot's keys lie on one axis, its
+``max_pages * page_size`` page positions then (K3) its ``T`` tail positions,
+cut into splits of ``SPLIT_KEYS`` positions; one block per (split, KV head,
+slot) walks its split's live ``TILE_KEYS``-key tiles with an online softmax
+and writes a partial (m, l, acc), and a second kernel merges the partials
+in split order. The grid comes from shapes alone, so the wrapper never
+reads ``lengths`` or ``starts`` back from the card.
+
 - ``paged_attention`` is the wrapper, with the JAX signature: it checks its
   inputs and, for CUDA tensors, launches K3 (with a tail) or K4 (without) or
   raises. Only for CPU tensors does it run ``paged_attention_plain``.
@@ -19,6 +27,9 @@ page. ``csrc/paged_attention.cu`` holds two kernels, one per Pallas kernel:
   gather the pages, append the tail, mask with the finite ``NEG_INF``, f32
   scores and softmax, p cast to v's dtype before the p.v product (f32
   accumulation), zeros for dead slots (length 0). 3-D q only.
+- ``paged_attention_split_plain`` computes the same in the kernels' order:
+  each split's partial tile by tile, then the combine (the tests hold it to
+  the JAX package; it is on no serving path).
 
 Layouts are the JAX package's: q (B, H, D); pools (P, K, ps, D); page table
 (B, maxp) int32; lengths and starts (B,) int32; tails (B, K, T, D); output
@@ -36,11 +47,16 @@ import torch
 
 from ditl_tpu_torch.ops.attention import NEG_INF
 
-__all__ = ["paged_attention", "paged_attention_plain", "HEAD_DIMS", "MAX_GROUPS",
-           "launches", "launches_tail", "reset_launches"]
+__all__ = ["paged_attention", "paged_attention_plain", "paged_attention_split_plain",
+           "split_count", "HEAD_DIMS", "MAX_GROUPS", "SPLIT_KEYS", "TILE_KEYS", "launches",
+           "launches_tail", "reset_launches"]
 
 HEAD_DIMS = (64, 128)  # the kernels' template instances
 MAX_GROUPS = 8  # query heads per KV head the kernels take
+TILE_KEYS = 64  # keys per tile inside a split (csrc kTile)
+# Positions per split, a multiple of TILE_KEYS: 128 was the fastest of 128,
+# 256 and 512 at the decode tick on the card (PERF.md).
+SPLIT_KEYS = 128
 
 # Kernel launches since the last reset_launches(); counted where each kernel
 # is launched and nowhere else. ``launches_tail`` is K3, ``launches`` K4.
@@ -63,8 +79,8 @@ def _kernel(tail: bool):
         from ditl_tpu_torch.ops.cuda_build import load_library
 
         fn = getattr(load_library("paged_attention.cu"), name)
-        n_ptr = 9 if tail else 6
-        n_int = 8 if tail else 7
+        n_ptr = 11 if tail else 8
+        n_int = 9 if tail else 8
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -109,6 +125,89 @@ def paged_attention_plain(
     # Dead slots (length 0) have an all-masked row: zeros, not a uniform mix.
     probs = torch.where((lengths > 0)[:, None, None, None], probs, 0.0)
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype).float(), v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def split_count(max_pages: int, page_size: int, tail_len: int, split: int) -> int:
+    """Splits per (slot, KV head): ``max_pages * page_size + tail_len``
+    positions (``tail_len`` 0 for K4) in runs of ``split``. Shapes only:
+    never lengths or starts."""
+    return -(-(max_pages * page_size + tail_len) // split)
+
+
+def paged_attention_split_plain(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    tail_k: torch.Tensor | None = None,
+    tail_v: torch.Tensor | None = None,
+    starts: torch.Tensor | None = None,
+    *,
+    split: int = SPLIT_KEYS,
+) -> torch.Tensor:
+    """What K3 (with a tail) and K4 (without) compute, in their order: each
+    ``split``-position run of a slot's axis (pages, then the tail) gives a
+    partial from its live ``TILE_KEYS``-key tiles, each an online-softmax
+    step (f32 q.k sums scaled in f32, the finite mask value, p relative to the
+    split's running max and cast to v's dtype before p.v, l adding the f32
+    p; tiles without a live key skipped), and the partials merge in split
+    order, rescaled by exp(m_s - max m) in f32. Page ids clamp into the
+    pool. Returns (B, H, D) in q's dtype; a dead slot gives zeros."""
+    if split % TILE_KEYS or split < TILE_KEYS:
+        raise ValueError(f"split must be a positive multiple of {TILE_KEYS}, got {split}")
+    b, h, d = q.shape
+    n_pool, kv, ps, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    groups = h // kv
+    table = page_table.long().clamp(0, n_pool - 1)
+    n_page = maxp * ps
+    k = k_pages[table].transpose(2, 3).reshape(b, n_page, kv, d)
+    v = v_pages[table].transpose(2, 3).reshape(b, n_page, kv, d)
+    pos = torch.arange(n_page + (0 if tail_k is None else tail_k.shape[2]), device=q.device)
+    page_limit = lengths if starts is None else torch.minimum(starts, lengths)
+    # Keys past the table's last page are absent, as in the reference.
+    live = pos[None, :] < page_limit.clamp(max=n_page)[:, None]
+    if tail_k is not None:
+        k = torch.cat([k, tail_k.transpose(1, 2)], dim=1)
+        v = torch.cat([v, tail_v.transpose(1, 2)], dim=1)
+        live |= (pos[None, :] >= n_page) & (starts[:, None] + pos[None, :] - n_page
+                                            < lengths[:, None])
+    n_split = split_count(maxp, ps, pos.numel() - n_page, split)
+    pad = n_split * split - pos.numel()
+    k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+    live = torch.nn.functional.pad(live, (0, pad))
+    tiles = split // TILE_KEYS
+    # (B, K, G, split, tile, key) scores; (B, split, tile, key, K, D) values
+    qg = q.float().reshape(b, kv, groups, d)
+    kt = k.float().reshape(b, n_split, tiles, TILE_KEYS, kv, d)
+    vt = v.reshape(b, n_split, tiles, TILE_KEYS, kv, d)
+    scores = torch.einsum("bkgd,bstjkd->bkgstj", qg, kt) * d**-0.5
+    live = live.reshape(b, 1, 1, n_split, tiles, TILE_KEYS)
+    scores = scores.masked_fill(~live, NEG_INF)
+    m = torch.full((b, kv, groups, n_split), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kv, groups, n_split, d), device=q.device)
+    for t in range(tiles):
+        s_t = scores[:, :, :, :, t]
+        m_new = torch.maximum(m, s_t.amax(-1))
+        p = torch.exp(s_t - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        pv = torch.einsum("bkgsj,bsjkd->bkgsd", p.to(v.dtype).float(),
+                          vt[:, :, t].float())
+        step = live[:, :, :, :, t].any(-1)  # the tile holds a live key
+        m = torch.where(step, m_new, m)
+        l = torch.where(step, alpha * l + p.sum(-1), l)
+        acc = torch.where(step[..., None], alpha[..., None] * acc + pv, acc)
+    m_max = m.amax(-1)
+    l_all = torch.zeros_like(m_max)
+    out = torch.zeros((b, kv, groups, d), device=q.device)
+    for s_i in range(n_split):  # split order, as the kernels merge
+        w = torch.exp(m[..., s_i] - m_max)
+        l_all = l_all + w * l[..., s_i]
+        out = out + w[..., None] * acc[..., s_i, :]
+    out = out / torch.where(l_all == 0, 1.0, l_all)[..., None]
     return out.reshape(b, h, d).to(q.dtype)
 
 
@@ -210,22 +309,31 @@ def paged_attention(
     if h // kv_heads > MAX_GROUPS:
         raise ValueError(f"the CUDA paged-attention kernels take at most "
                          f"{MAX_GROUPS} query heads per KV head, got {h // kv_heads}")
+    t_len = tail_k.shape[2] if tail else 0
+    n_split = split_count(page_table.shape[1], ps, t_len, SPLIT_KEYS)
     o = torch.empty_like(q)
+    # The split partials (f32 acc; m and l per query row): allocated, never
+    # read on the host.
+    part_acc = torch.empty((b, kv_heads, n_split, h // kv_heads, d), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b, kv_heads, n_split, h // kv_heads, 2), dtype=torch.float32,
+                          device=q.device)
+    work = [part_acc.data_ptr(), part_ml.data_ptr()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if tail:
             err = _kernel(True)(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 page_table.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
-                tail_k.data_ptr(), tail_v.data_ptr(), o.data_ptr(), b, h,
-                kv_heads, d, ps, page_table.shape[1], n_pool, tail_k.shape[2],
-                d**-0.5, stream,
+                tail_k.data_ptr(), tail_v.data_ptr(), o.data_ptr(), *work, b, h,
+                kv_heads, d, ps, page_table.shape[1], n_pool, t_len, SPLIT_KEYS, d**-0.5,
+                stream,
             )
         else:
             err = _kernel(False)(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(), b, h,
-                kv_heads, d, ps, page_table.shape[1], n_pool, d**-0.5, stream,
+                page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(), *work, b, h,
+                kv_heads, d, ps, page_table.shape[1], n_pool, SPLIT_KEYS, d**-0.5, stream,
             )
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA error {err}")

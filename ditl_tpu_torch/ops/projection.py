@@ -8,8 +8,11 @@ chosen by ``bwd_impl``:
 - ``"pallas"``: ``projection_bwd``, the wrapper of K6
   (``csrc/projection_bwd.cu``, ``ditl_proj_bwd_bf16``, replacing
   ``_bwd_kernel``), which emits ``dx = g . w^T`` and ``dw = x^T . g`` from one
-  launch. For CUDA tensors it launches the kernel or raises; only for CPU
-  tensors does it run ``projection_bwd_plain``. ``launches`` counts launches.
+  launch of the persistent GEMM core that K5b runs too
+  (``csrc/gemm_sm90.cuh``). For CUDA tensors it launches the kernel or
+  raises; only for CPU tensors does it run ``projection_bwd_plain``.
+  ``launches`` counts launches; ``k6_tile_order`` lists the tiles in the
+  order the kernel's scheduler hands them out.
 - ``"xla"``, or a shape ``supports`` rejects: the einsum spelling
   (``projection.py:164-165`` of the reference).
 
@@ -26,11 +29,12 @@ from typing import NamedTuple
 
 import torch
 
-from ditl_tpu_torch.ops.mlp_bwd import _as_rows, _cuda_rows
+from ditl_tpu_torch.ops.mlp_bwd import (K5_BLOCK_K, K5_BLOCK_M, K5_BLOCK_N, _as_rows,
+                                        _cdiv, _cuda_rows, _raster)
 
 __all__ = ["projection", "projection_bwd", "projection_bwd_plain", "supports",
            "effective_bwd_impl", "BlockSizes", "DEFAULT_BLOCKS", "launches",
-           "reset_launches"]
+           "reset_launches", "k6_dx_first", "k6_tile_order"]
 
 NUM_LANES = 128
 NUM_SUBLANES = 16
@@ -91,11 +95,36 @@ def _kernel():
         from ditl_tpu_torch.ops.cuda_build import load_library
 
         fn = load_library("projection_bwd.cu").ditl_proj_bwd_bf16
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_long] * 2 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_long] * 2 + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def k6_dx_first(n: int, f: int) -> bool:
+    """K6's order rule: the role with the longer contraction goes first, dx
+    (over F) when F >= N, else dw (over the N tokens)."""
+    return f >= n
+
+
+def k6_tile_order(n: int, d: int, f: int, dx_first: bool | None = None
+                  ) -> list[tuple[str, int, int, int]]:
+    """K6's tiles at (N, D, F) in the order its scheduler hands them out
+    (``csrc/gemm_sm90.cuh::proj_tile``): ``(output, row0, col0, k_tiles)``
+    with ``output`` ``"dx"`` (rows tokens, columns D, contracting F) or
+    ``"dw"`` (rows D, columns F, contracting N), each tile K5_BLOCK_M x
+    K5_BLOCK_N (rows or columns past the output's edge masked), k-tiles of
+    K5_BLOCK_K. ``dx_first`` defaults to ``k6_dx_first``."""
+    bm, bn = K5_BLOCK_M, K5_BLOCK_N
+    if dx_first is None:
+        dx_first = k6_dx_first(n, f)
+    roles = [("dx", _cdiv(n, bm), _cdiv(d, bn), _cdiv(f, K5_BLOCK_K)),
+             ("dw", d // bm, _cdiv(f, bn), _cdiv(n, K5_BLOCK_K))]
+    if not dx_first:
+        roles.reverse()
+    return [(name, tm * bm, tn * bn, nk) for name, tiles_m, tiles_n, nk in roles
+            for tm, tn in _raster(tiles_m, tiles_n)]
 
 
 def projection_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
@@ -110,11 +139,13 @@ def projection_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
 
 
 def projection_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
-                   blocks=None) -> tuple[torch.Tensor, torch.Tensor]:
+                   blocks=None, dx_first: bool | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx, dw) of ``x @ w`` for x (B, S, D), w (D, F) and the output's
     gradient g (B, S, F). Raises ``ValueError`` on shapes ``supports``
-    rejects. CUDA tensors launch K6 (bf16; other dtypes raise); CPU tensors
-    run the plain version."""
+    rejects. CUDA tensors launch K6 (bf16; other dtypes raise), its tiles in
+    the order ``dx_first`` gives (default ``k6_dx_first``; the results are
+    the same bits either way); CPU tensors run the plain version."""
     global launches
     b, s, d = x.shape
     f = w.shape[1]
@@ -131,12 +162,16 @@ def projection_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
     x2, g2, w = _as_rows(x, n, d), _as_rows(g, n, f), w.contiguous()
     ld_x, ld_g = _cuda_rows("x", x2, x.device), _cuda_rows("g", g2, x.device)
     _cuda_rows("w", w, x.device)
+    if dx_first is None:
+        dx_first = k6_dx_first(n, f)
     dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
     dw = torch.empty((d, f), dtype=w.dtype, device=x.device)
+    sched = torch.zeros(1, dtype=torch.int32, device=x.device)  # the tile counter
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel()(x2.data_ptr(), w.data_ptr(), g2.data_ptr(), dx.data_ptr(),
-                        dw.data_ptr(), ld_x, ld_g, n, d, f, stream)
+                        dw.data_ptr(), sched.data_ptr(), ld_x, ld_g, n, d, f,
+                        int(dx_first), stream)
     if err != 0:
         raise RuntimeError(f"projection_bwd kernel launch failed: CUDA error {err}")
     launches += 1

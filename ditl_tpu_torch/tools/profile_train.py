@@ -46,8 +46,10 @@ CATEGORIES = (  # (category, substrings of kernel names), first match wins
     ("K2a flash_dq", ("flash_bwd_dq_kernel",)),
     ("K2b flash_dkv", ("flash_bwd_dkv_kernel",)),
     ("K5a mlp_dgu_dwdown", ("mlp_dgu_dwdown_kernel",)),
-    ("K5b mlp_dh_dwgu", ("mlp_dh_dwgu_kernel",)),
-    ("K6 proj_bwd", ("proj_bwd_kernel",)),
+    # K5b and K6 are instances of one kernel, tagged 5 and 6 (demangled or
+    # mangled; names are matched lower-cased)
+    ("K5b mlp_dh_dwgu", ("proj_bwd_kernel<5>", "proj_bwd_kernelili5e")),
+    ("K6 proj_bwd", ("proj_bwd_kernel<6>", "proj_bwd_kernelili6e")),
     ("GEMM", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")),
     ("elementwise/reduce", ("elementwise", "reduce", "vectorized", "unrolled",
                             "index", "scatter", "gather", "softmax", "cat", "copy",

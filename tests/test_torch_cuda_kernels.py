@@ -152,28 +152,81 @@ def _paged_inputs(cuda, b, h, kv, d, ps, n_pool, tail_len, lengths, starts, seed
     return q, kp, vp, table.to(cuda), as_int(lengths), as_int(starts), tk, tv
 
 
-@pytest.mark.torch_port
-@pytest.mark.parametrize("b,h,kv,d,ps,tail_len,lengths,starts", [
+# K3/K4 cases: (b, h, kv, d, ps, tail_len, lengths, starts)
+PAGED_CASES = [
     # the serving tick: dead slot, partial page, exact boundary, no tail
     (8, 32, 8, 128, 256, 16, [0, 700, 512, 1500, 9, 256, 1030, 300],
      [0, 690, 512, 1490, 0, 256, 1030, 300]),
     (4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 32, 45]),  # head_dim 64, page 16
     (3, 8, 8, 64, 16, 8, [17, 40, 33], [16, 33, 33]),  # MHA
-])
+    # split edges (splits of 128 or 256 keys): keys ending one past a split,
+    # on a split boundary, a tile across the last page and the tail
+    (4, 32, 8, 128, 16, 16, [257, 256, 513, 140], [257, 250, 500, 128]),
+    (3, 16, 2, 64, 48, 8, [300, 1, 40], [297, 0, 33]),
+]
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("b,h,kv,d,ps,tail_len,lengths,starts", PAGED_CASES)
 def test_paged_kernels_match_plain(cuda, b, h, kv, d, ps, tail_len, lengths, starts):
+    """K3 and K4 against the plain version, and against the plain twin of
+    their split rule (``paged_attention_split_plain``), which rounds p at
+    the same running max; a dead slot gives zeros."""
     q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
-        cuda, b, h, kv, d, ps, 64, tail_len, lengths, starts)
+        cuda, b, h, kv, d, ps, 128, tail_len, lengths, starts)
     tpa.reset_launches()
     o3 = tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st)
     o4 = tpa.paged_attention(q, kp, vp, table, torch.minimum(st, lens).contiguous())
     r3 = tpa.paged_attention_plain(q, kp, vp, table, lens, tk, tv, st)
     r4 = tpa.paged_attention_plain(q, kp, vp, table, torch.minimum(st, lens))
+    s3 = tpa.paged_attention_split_plain(q, kp, vp, table, lens, tk, tv, st)
+    s4 = tpa.paged_attention_split_plain(q, kp, vp, table, torch.minimum(st, lens))
     torch.cuda.synchronize()
     assert (tpa.launches_tail, tpa.launches) == (1, 1)
-    torch.testing.assert_close(o3.float(), r3.float(), atol=2e-2, rtol=2e-2)
-    torch.testing.assert_close(o4.float(), r4.float(), atol=2e-2, rtol=2e-2)
+    for o, r, s_ in ((o3, r3, s3), (o4, r4, s4)):
+        torch.testing.assert_close(o.float(), r.float(), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(o.float(), s_.float(), atol=2e-2, rtol=2e-2)
     dead = [i for i, n in enumerate(lengths) if n == 0]
     assert all(bool((o3[i] == 0).all()) for i in dead)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("case", [0, 3, 4])
+def test_paged_kernels_are_bitwise_repeatable(cuda, case):
+    """The merge kernel sums a slot's partials in split order: three calls
+    give the same bits."""
+    b, h, kv, d, ps, tail_len, lengths, starts = PAGED_CASES[case]
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        cuda, b, h, kv, d, ps, 128, tail_len, lengths, starts)
+    runs = [(tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st),
+             tpa.paged_attention(q, kp, vp, table, lens)) for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert torch.equal(run[0], runs[0][0]) and torch.equal(run[1], runs[0][1])
+
+
+@pytest.mark.torch_port
+def test_paged_wrapper_never_syncs(cuda):
+    """The grid comes from shapes alone: under ``set_sync_debug_mode("error")``
+    (which raises on a device-to-host sync) K3 and K4 launch, and a CUDA
+    graph captures them."""
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(cuda, *PAGED_CASES[0][:4], 256, 128,
+                                                       *PAGED_CASES[0][5:])
+    tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st)
+    torch.cuda.synchronize()  # built and loaded
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st)
+        tpa.paged_attention(q, kp, vp, table, lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o = tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st)
+    assert torch.equal(o, want)
 
 
 @pytest.mark.torch_port
@@ -433,6 +486,44 @@ def test_proj_bwd_kernel_matches_plain(cuda, n, d, f, strided):
     assert tpr.launches == 1
     _assert_scaled("dx", dx, dx_ref)
     _assert_scaled("dw", dw, dw_ref)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("n,d,f,ld", [(4096, 1024, 256, 0), (2064, 256, 384, 512)],
+                         ids=["wk/wv-like", "strided g"])
+def test_proj_bwd_kernel_is_bitwise_repeatable_in_both_orders(cuda, n, d, f, ld):
+    """K6 with dx tiles first, dw tiles first and the default order: each
+    output tile is summed by one block in one order, so every call gives the
+    same bits, within MM_TOL of the plain version."""
+    from ditl_tpu_torch.ops import projection as tpr
+
+    x = _rnd(cuda, 1, n, d, seed=40)
+    w = _rnd(cuda, d, f, seed=41, scale=d**-0.5)
+    g = _rnd(cuda, 1, n, ld or f, seed=42)[..., :f]
+    runs = [tpr.projection_bwd(x, w, g, blocks=(16, 128), dx_first=order)
+            for order in (None, True, False, None)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert torch.equal(run[0], runs[0][0]) and torch.equal(run[1], runs[0][1])
+    dx_ref, dw_ref = tpr.projection_bwd_plain(x, w, g)
+    _assert_scaled("dx", runs[0][0], dx_ref)
+    _assert_scaled("dw", runs[0][1], dw_ref)
+
+
+@pytest.mark.torch_port
+def test_k5_kernels_keep_the_bits_of_their_first_core_build(cuda):
+    """K5a and K5b on fixed integer-made inputs give the bytes the kernels
+    built from commit 7db4668 gave (``chip_smoke.K5_DIGESTS``): moving K5b
+    onto the kernel it shares with K6 changed no bit."""
+    import pathlib
+    import sys
+
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    assert chip_smoke._k5_digests(tmb) == chip_smoke.K5_DIGESTS
 
 
 @pytest.mark.torch_port

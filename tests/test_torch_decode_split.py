@@ -1,0 +1,150 @@
+"""Port parity for the split rule of the paged decode kernels (K3, K4).
+
+``paged_attention_split_plain`` computes what the split-key CUDA kernels
+compute, in their order: partials over runs of ``split`` positions of a
+slot's axis (pages, then the tail), tile by tile with an online softmax,
+merged in split order. It is held here to the JAX package's gather reference
+``paged_attention_xla`` and to its Pallas kernels in interpret mode
+(``_paged_tail_kernel`` with a tail, ``_paged_kernel`` without), on the same
+numpy inputs in f32, at atol 2e-5, the reference's own tolerance
+(``tests/test_paged.py``): in f32 the split form only reorders f32 sums.
+
+Cases: the ragged decode tick of ``chip_smoke.py::_paged_main_case`` at
+narrow heads (a dead slot, a partial page, an exact page boundary, a shared
+page, starts == lengths), page 256 with splits of 64 (boundaries inside
+pages) and 256 (the last split holds only the tail); and page 16 with a
+tail, where a split's tile straddles the last page and the tail.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ditl_tpu.ops import paged_attention as jpa  # noqa: E402
+from ditl_tpu_torch.ops import paged_attention as tpa  # noqa: E402
+
+torch.set_num_threads(1)
+
+ATOL = 2e-5
+# bf16 against the plain version: both round p to bf16, against the split's
+# running max or the final max, and round o to bf16: a few bf16 ulps.
+O_TOL = 2e-2
+
+# name: (page_size, tail_len, lengths, starts)
+CASES = {
+    # chip_smoke.py::_paged_main_case
+    "tick": (256, 16, [0, 710, 512, 1500, 10, 256, 1046, 309],
+             [0, 700, 512, 1490, 9, 256, 1030, 300]),
+    # page 16: 6 pages (96 positions), then an 8-column tail
+    "small": (16, 8, [0, 5, 38, 50, 90, 33], [0, 0, 32, 45, 88, 33]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name: str, d: int, tail: bool):
+    """f32 inputs with 2 KV heads of 4 query heads each; each slot owns
+    pages for ceil(max(lengths, starts) / ps) blocks, rows 1 and 2 share
+    their first page. Without a tail (K4) the lengths are min(starts,
+    lengths)."""
+    ps, t, lengths, starts = CASES[name]
+    rng = np.random.default_rng(d)
+    b, kv, groups = len(lengths), 2, 4
+    maxp = max(-(-max(x, y) // ps) for x, y in zip(lengths, starts))
+    table = np.zeros((b, maxp), np.int32)
+    pid = 1
+    for row in range(b):
+        for i in range(-(-max(lengths[row], starts[row]) // ps)):
+            table[row, i] = pid
+            pid += 1
+    table[2, 0] = table[1, 0]
+    q = rng.normal(size=(b, kv * groups, d)).astype(np.float32)
+    kp = rng.normal(size=(pid, kv, ps, d)).astype(np.float32)
+    vp = rng.normal(size=(pid, kv, ps, d)).astype(np.float32)
+    lengths, starts = np.asarray(lengths, np.int32), np.asarray(starts, np.int32)
+    if not tail:
+        return {"q": q, "k_pages": kp, "v_pages": vp, "page_table": table,
+                "lengths": np.minimum(lengths, starts)}
+    return {"q": q, "k_pages": kp, "v_pages": vp, "page_table": table, "lengths": lengths,
+            "tail_k": rng.normal(size=(b, kv, t, d)).astype(np.float32),
+            "tail_v": rng.normal(size=(b, kv, t, d)).astype(np.float32), "starts": starts}
+
+
+POSITIONAL = ("q", "k_pages", "v_pages", "page_table", "lengths")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_out(name: str, d: int, tail: bool, impl: str) -> np.ndarray:
+    a = {k: jnp.asarray(v) for k, v in _case(name, d, tail).items()}
+    pos = [a.pop(k) for k in POSITIONAL]
+    if impl == "xla":
+        return np.asarray(jpa.paged_attention_xla(*pos, **a))
+    return np.asarray(jpa.paged_attention(*pos, **a, interpret=True))
+
+
+def _split(name: str, d: int, tail: bool, split: int) -> torch.Tensor:
+    a = {k: torch.from_numpy(v) for k, v in _case(name, d, tail).items()}
+    pos = [a.pop(k) for k in POSITIONAL]
+    return tpa.paged_attention_split_plain(*pos, **a, split=split)
+
+
+@pytest.mark.parametrize("tail", [True, False], ids=["K3", "K4"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("name,split", [("tick", 64), ("tick", tpa.SPLIT_KEYS),
+                                        ("small", 64)])
+def test_split_plain_matches_jax_xla_reference(name, split, d, tail):
+    out = _split(name, d, tail, split).numpy()
+    np.testing.assert_allclose(out, _jax_out(name, d, tail, "xla"), atol=ATOL)
+    dead = np.flatnonzero(_case(name, d, tail)["lengths"] == 0)
+    assert dead.size and np.all(out[dead] == 0), "a dead slot must give zeros"
+
+
+@pytest.mark.parametrize("tail", [True, False], ids=["K3", "K4"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_plain_matches_jax_pallas_interpret(d, tail):
+    """At the kernels' own split length, against the Pallas kernel the JAX
+    package runs for the same call (K3 with a tail, K4 without)."""
+    out = _split("tick", d, tail, tpa.SPLIT_KEYS).numpy()
+    np.testing.assert_allclose(out, _jax_out("tick", d, tail, "pallas"), atol=ATOL)
+
+
+def test_split_cases_reach_the_edges():
+    """The tick case has what the kernels' split rule must get right: a
+    split whose only keys are the tail, splits past every live key (empty
+    partials), a split boundary inside a page, and slots with starts ==
+    lengths; the small case a tile across the last page and the tail."""
+    ps, t, lengths, starts = CASES["tick"]
+    maxp = _case("tick", 64, True)["page_table"].shape[1]
+    n_page = maxp * ps
+    assert n_page % tpa.SPLIT_KEYS == 0 and t <= tpa.SPLIT_KEYS  # last split: tail only
+    assert tpa.split_count(maxp, ps, t, tpa.SPLIT_KEYS) == n_page // tpa.SPLIT_KEYS + 1
+    assert ps % 64 == 0 and ps > 64  # splits of 64 cut pages
+    assert any(min(s, n) < n_page - tpa.SPLIT_KEYS for s, n in zip(starts, lengths))
+    assert any(s == n for s, n in zip(starts, lengths))
+    ps, t, _, _ = CASES["small"]
+    n_page = _case("small", 64, True)["page_table"].shape[1] * ps
+    assert n_page % 64 != 0  # the tile at 64 holds pages and tail
+
+
+@pytest.mark.parametrize("tail", [True, False], ids=["K3", "K4"])
+def test_split_plain_bf16_matches_plain(tail):
+    """bf16, as the kernels run: within O_TOL of ``paged_attention_plain``
+    (p rounded to bf16 against the split's running max, not the final
+    max)."""
+    a = {k: torch.from_numpy(v).to(torch.bfloat16) if v.dtype == np.float32
+         else torch.from_numpy(v) for k, v in _case("tick", 128, tail).items()}
+    pos = [a.pop(k) for k in POSITIONAL]
+    want = tpa.paged_attention_plain(*pos, *(a[k] for k in ("tail_k", "tail_v", "starts")
+                                             if k in a))
+    got = tpa.paged_attention_split_plain(*pos, **a)
+    torch.testing.assert_close(got.float(), want.float(), atol=O_TOL, rtol=O_TOL)
+
+
+def test_split_plain_rejects_ragged_split():
+    a = {k: torch.from_numpy(v) for k, v in _case("small", 64, True).items()}
+    pos = [a.pop(k) for k in POSITIONAL]
+    with pytest.raises(ValueError, match="multiple"):
+        tpa.paged_attention_split_plain(*pos, **a, split=96)

@@ -68,7 +68,7 @@ def test_port_package_has_modules():
                  "tools.profile_train"):
         assert f"ditl_tpu_torch.{name}" in mods
     for source in ("flash_fwd.cu", "paged_attention.cu", "flash_bwd.cu", "mlp_bwd.cu",
-                   "projection_bwd.cu", "gemm_tile.cuh"):
+                   "projection_bwd.cu"):
         assert (PORT / "csrc" / source).is_file()
 
 

@@ -10,6 +10,10 @@ Tolerances: f32 at 1e-4 relative and 1e-5 absolute (the reference's own test
 against autodiff); bf16 within 8e-3 of each gradient's largest magnitude,
 one bf16 ulp (the same bf16 operands, f32 sums in another order, one
 rounding each).
+
+K6's tile order (``k6_tile_order``, the plain list of what the kernel's
+scheduler hands out) is checked for coverage and for the rule that the role
+with the longer contraction goes first.
 """
 
 import jax
@@ -110,3 +114,52 @@ def test_projection_forward_is_the_inline_product(dtype):
     _, (x, w, _) = _inputs(2, 16, 128, 256, dtype, seed=3)
     for impl in ("pallas", "xla"):
         assert torch.equal(tproj.projection(x, w, bwd_impl=impl, blocks=BLOCKS), x @ w)
+
+
+# (N, D, F) of wq/wo and wk/wv at the training step (N = B*S = 4 x 2048), a
+# ragged N with F an odd multiple of 128, and F > N (dx first).
+K6_SHAPES = [(8192, 4096, 4096), (8192, 4096, 1024), (2064, 256, 384), (16, 384, 384)]
+
+
+@pytest.mark.parametrize("n,d,f", K6_SHAPES)
+@pytest.mark.parametrize("dx_first", [None, True, False])
+def test_k6_tile_order_covers_every_output_tile_once(n, d, f, dx_first):
+    order = tproj.k6_tile_order(n, d, f, dx_first)
+    bm, bn = tproj.K5_BLOCK_M, tproj.K5_BLOCK_N
+    for name, rows, cols, nk in (("dx", n, d, -(-f // 64)), ("dw", d, f, -(-n // 64))):
+        tiles = [(r, c) for o, r, c, k in order if o == name]
+        assert len(tiles) == len(set(tiles)), name
+        assert set(tiles) == {(r, c) for r in range(0, rows, bm) for c in range(0, cols, bn)}
+        assert {k for o, _, _, k in order if o == name} == {nk}, name
+
+
+@pytest.mark.parametrize("n,d,f", K6_SHAPES)
+def test_k6_tile_order_hands_out_the_longer_role_first(n, d, f):
+    """By default every tile of the role with the longer contraction comes
+    before any of the other: dw (over N) at wq/wo and wk/wv, where at wk/wv
+    its 128 tiles of 128 k-tiles would otherwise be a ragged tail behind
+    1024 dx tiles of 16."""
+    order = tproj.k6_tile_order(n, d, f)
+    roles = [o for o, _, _, _ in order]
+    first = roles[0]
+    assert roles == sorted(roles, key=lambda o: o != first)
+    nk = {o: k for o, _, _, k in order}
+    assert nk[first] == max(nk.values())
+    assert tproj.k6_dx_first(n, f) == (first == "dx")
+    if (n, d, f) == (8192, 4096, 1024):
+        counts = {o: roles.count(o) for o in nk}
+        assert (counts, nk) == ({"dw": 128, "dx": 1024}, {"dw": 128, "dx": 16})
+
+
+def test_profile_tells_k5b_from_k6():
+    """K5b and K6 launch two instances of one CUDA kernel, tagged 5 and 6:
+    the training profile's categories keep them apart, demangled or not."""
+    from ditl_tpu_torch.tools.profile_train import _category
+
+    for tag, cat in ((5, "K5b mlp_dh_dwgu"), (6, "K6 proj_bwd")):
+        assert _category(f"void (anonymous namespace)::sm90::proj_bwd_kernel<{tag}>("
+                         "(anonymous namespace)::sm90::ProjMaps, "
+                         "(anonymous namespace)::sm90::ProjArgs)") == cat
+        assert _category(f"_ZN50_GLOBAL__N__cb170ab1_17_projection_bwd_cu_781a32314sm90"
+                         f"15proj_bwd_kernelILi{tag}EEEvNS0_8ProjMapsENS0_8ProjArgsE") == cat
+    assert _category("mlp_dgu_dwdown_kernel") == "K5a mlp_dgu_dwdown"
