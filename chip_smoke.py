@@ -70,11 +70,34 @@ no result line. It imports nothing of JAX or of the JAX package.
    with ``fused_mlp_bwd`` and ``projection_bwd`` rebound to their plain
    versions: loss, grad norm and every leaf's gradient
    (``STEP2_LOSS_TOL``/``STEP_GNORM_TOL``/``STEP2_LEAF_TOL``).
-12. The kernels line, then the result line, last.
+12. Main path 5, the JAX package's one-chip recipe: ``train()`` with
+   ``TRAIN_ARGS`` + ``KERNEL_FLAGS`` + ``remat=dots_inputs`` at full width
+   and depth, then ``remat=dots`` and ``remat=attn`` on the same
+   configuration (``RECIPE_RUNS``), each from the same seed: falling finite
+   losses; per policy step p50, tokens/s, MFU, peak device memory beside
+   its reckoning from the kept outputs' shapes, and launches per step (K1
+   64: the forward and its recompute, which no policy can skip, since a
+   ctypes launch is not a dispatcher op; K2a, K2b, K5a, K5b 32; K6 128);
+   peaks must order full (path 4) <= attn < dots < dots_inputs.
+13. Remat parity: one train step at full width, depth 2, B=1 through the
+   recipe's kernels under every policy and under ``remat=none``, from the
+   same masters and batch: loss, grad norm and every updated master the
+   same bits.
+14. Checkpoint, resume and serve: the recipe at full width, depth 2,
+   ``train()`` for 4 steps saving at 2 and 4 and validating on a held-out
+   fifth of the corpus, then a run resumed from that step-2 checkpoint
+   alone: losses, ``val_loss``, masters and optimizer state the same bits;
+   save and restore seconds and a step's bytes. Then the continuous
+   paged server with ``--checkpoint-dir`` (K1 on prefill, K3 on decode):
+   greedy tokens equal the lock-step ``Generator``'s over the trained tree
+   and differ from the run's starting weights'. The checkpoints live in the
+   git-ignored ``_ckpt_smoke/`` of the checkout and are removed.
+15. The kernels line, then the result line, last.
 
 Each main path's launch counts are zeroed just before it runs and read just
-after. The paths run at full depth: the whole script takes about two minutes
-on an H100, the build included.
+after (path 5: before and after each policy's run). The paths run at full
+depth: the whole script takes about two and a half minutes on an H100, the
+build included.
 
 f32 matrix products run in full f32 here (TF32 off, set below): the port's
 lm head takes f32 products of bf16 values, as the JAX package's logits do.
@@ -131,6 +154,10 @@ STEP2_LOSS_TOL = 1e-6
 STEP2_LEAF_TOL = 2e-2
 TRAIN_STEPS = 6
 TRAIN4_STEPS = 4
+# Path 5, the JAX package's one-chip recipe (bench.py: remat="dots_inputs",
+# fused_gate_up), then the other selective policies on the same config:
+# (policy, steps).
+RECIPE_RUNS = [("dots_inputs", 4), ("dots", 3), ("attn", 3)]
 KERNEL_FLAGS = ["model.fused_gate_up=true", "model.mlp_bwd_impl=pallas",
                 "model.proj_bwd_impl=pallas"]
 TRAIN_ARGS = [
@@ -148,25 +175,26 @@ KERNELS = {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:127",
-        "path": "both serving paths' cold prefills; training forward and remat",
+        "path": "both serving paths' cold prefills (and the served checkpoint's); "
+                "training forward and remat recompute, paths 3-5",
     },
     "flash_dq": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:300",
-        "path": "training backward, every layer",
+        "path": "training backward, every layer, paths 3-5",
     },
     "flash_dkv": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:362",
-        "path": "training backward, every layer",
+        "path": "training backward, every layer, paths 3-5",
     },
     "paged_tail": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235",
-        "path": "continuous paged decode ticks",
+        "path": "continuous paged decode ticks (and the served checkpoint's)",
     },
     "paged": {
         "route": "cuda",
@@ -178,19 +206,20 @@ KERNELS = {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/mlp_bwd.cu",
         "replaces": "ditl_tpu/ops/mlp_bwd.py:102",
-        "path": "training backward with mlp_bwd_impl=pallas, every layer",
+        "path": "training backward with mlp_bwd_impl=pallas, every layer, paths 4-5",
     },
     "mlp_dh_dwgu": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/mlp_bwd.cu",
         "replaces": "ditl_tpu/ops/mlp_bwd.py:153",
-        "path": "training backward with mlp_bwd_impl=pallas, every layer",
+        "path": "training backward with mlp_bwd_impl=pallas, every layer, paths 4-5",
     },
     "proj_bwd": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/projection_bwd.cu",
         "replaces": "ditl_tpu/ops/projection.py:79",
-        "path": "training backward with proj_bwd_impl=pallas: wq, wk, wv, wo of every layer",
+        "path": "training backward with proj_bwd_impl=pallas: wq, wk, wv, wo of every "
+                "layer, paths 4-5",
     },
 }
 # The decode tick's paged-attention shape on the main path: 8 slots, 32
@@ -1232,7 +1261,7 @@ def phase_train_kernels(flash, mlp_bwd, proj) -> dict:
         f"{launches['mlp_dh_dwgu']} = {layers} layers x {steps} steps, K6 "
         f"{launches['proj_bwd']} = 4 x {layers} x {steps}; K1 {launches['flash_fwd']}, "
         f"K2a {launches['flash_dq']}, K2b {launches['flash_dkv']}")
-    return launches
+    return launches, summary
 
 
 def phase_train_parity2(mlp_bwd, proj) -> None:
@@ -1304,6 +1333,337 @@ def phase_train_parity2(mlp_bwd, proj) -> None:
         f"worst leaf {worst_leaf} at {worst:.3e} of its largest magnitude; launches "
         f"(K5a, K5b, K6) (2, 2, 8) through the kernels, (0, 0, 0) plain")
     require(rel_l <= STEP2_LOSS_TOL and rel_g <= STEP_GNORM_TOL, (rel_l, rel_g))
+
+
+# ---------------------------------------------------------------------------
+# Path 5 (the recipe and the selective remat policies), remat parity,
+# checkpoint, resume and serve
+# ---------------------------------------------------------------------------
+
+
+def _kept_gib_per_layer(cfg, tokens: int) -> dict:
+    """GiB a layer keeps for its backward under each selective policy, from
+    the shapes: the weight products' outputs (q, k, v, o, gate|up, down),
+    the tagged attn_in and mlp_in, or attn_out alone; bf16."""
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    products = (q + 2 * kv + d + 2 * f + d) * tokens * 2
+    return {"dots": products / 2**30, "dots_inputs": (products + 2 * d * tokens * 2) / 2**30,
+            "attn": q * tokens * 2 / 2**30}
+
+
+def phase_recipe(flash, mlp_bwd, proj, full_peak_gib: float) -> dict:
+    """Main path 5: ``train()`` with the JAX package's one-chip recipe
+    (``TRAIN_ARGS`` + ``KERNEL_FLAGS`` + ``remat=dots_inputs``) at full width
+    and depth, then ``dots`` and ``attn`` on the same configuration
+    (``RECIPE_RUNS``), each from the same seed. Each run's counts start at 0
+    just before it and are read just after; returns their sums."""
+    import gc
+
+    import torch
+
+    from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.train.trainer import train
+
+    names = ("flash_fwd", "flash_dq", "flash_dkv", "mlp_dgu_dwdown", "mlp_dh_dwgu",
+             "proj_bwd")
+    total = dict.fromkeys(names, 0)
+    peaks = {"full": full_peak_gib}
+    for remat, steps in RECIPE_RUNS:
+        config, device = build_config(TRAIN_ARGS + KERNEL_FLAGS + [
+            f"model.remat={remat}", f"train.total_steps={steps}"])
+        cfg = config.model
+        require((cfg.name, cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
+                 cfg.vocab_size, cfg.param_dtype, cfg.remat, cfg.fused_gate_up,
+                 cfg.mlp_bwd_impl, cfg.proj_bwd_impl, cfg.attention_impl, cfg.loss_impl,
+                 config.train.optimizer, config.data.batch_size, config.data.seq_len,
+                 device)
+                == ("llama3-8b", 32, 4096, 14336, 128256, "bfloat16", remat, True,
+                    "pallas", "pallas", "flash", "fused", "adafactor", 4, 2048, "cuda"),
+                config)
+        flash.reset_launches()  # this run's counts start here
+        mlp_bwd.reset_launches()
+        proj.reset_launches()
+        summary = train(config, device=device)
+        launches = dict(zip(names, (flash.launches, flash.launches_dq, flash.launches_dkv,
+                                    mlp_bwd.launches_dgu, mlp_bwd.launches_dh,
+                                    proj.launches)))  # read right after the run
+        losses = summary["losses"]
+        require(summary["steps"] == steps and len(losses) == steps, summary)
+        require(all(x == x and abs(x) != float("inf") for x in losses), losses)
+        require(losses[-1] < losses[0], losses)
+        layers = cfg.num_layers
+        # Per step: K1 in each layer's forward and again in its recompute
+        # (a ctypes launch, which no policy can keep), the backward kernels
+        # once per layer, K6 for wq, wk, wv and wo.
+        per_step = {"flash_fwd": 2 * layers, "flash_dq": layers, "flash_dkv": layers,
+                    "mlp_dgu_dwdown": layers, "mlp_dh_dwgu": layers, "proj_bwd": 4 * layers}
+        require(launches == {k: v * steps for k, v in per_step.items()},
+                (remat, launches, per_step))
+        for k in names:
+            total[k] += launches[k]
+        step_s = summary["step_time_p50_s"]
+        tps = summary["tokens_per_sec_per_chip_p50"]
+        mfu = _model_flops_per_token(cfg, config.data.seq_len) * 3 * tps / H100_BF16_FLOPS
+        peaks[remat] = summary["peak_device_memory_gib"]
+        kept = _kept_gib_per_layer(cfg, config.data.batch_size * config.data.seq_len)
+        reckoned = full_peak_gib + layers * kept[remat]
+        log(f"[recipe] remat={remat}: llama3-8b, bf16 masters, adafactor, flash, fused "
+            f"loss, fused_gate_up, mlp_bwd_impl=pallas, proj_bwd_impl=pallas, B=4 S=2048, "
+            f"{steps} steps: losses {[round(x, 4) for x in losses]}")
+        log(f"[recipe] remat={remat}: step time p50 {step_s:.3f} s, {tps:.1f} tokens/s, "
+            f"MFU {mfu:.1%} (as path 3), peak device memory {peaks[remat]:.1f} GiB "
+            f"(reckoned {reckoned:.1f} = path 4's {full_peak_gib:.1f} + {layers} x "
+            f"{kept[remat]:.3f} kept a layer), wall {summary['wall_s']:.1f} s ({SMI})")
+        log(f"[recipe] remat={remat}: launches per step: K1 "
+            f"{launches['flash_fwd'] // steps}, K2a {launches['flash_dq'] // steps}, "
+            f"K2b {launches['flash_dkv'] // steps}, K5a {launches['mlp_dgu_dwdown'] // steps}"
+            f", K5b {launches['mlp_dh_dwgu'] // steps}, K6 {launches['proj_bwd'] // steps}")
+        del summary
+        gc.collect()
+        torch.cuda.empty_cache()
+    # full is the floor: under full and attn the peak can sit at the end of
+    # the backward (every gradient live, no kept output left).
+    require(peaks["full"] <= peaks["attn"] < peaks["dots"] < peaks["dots_inputs"], peaks)
+    log(f"[recipe] peak device memory by policy: "
+        f"{ {k: round(v, 2) for k, v in peaks.items()} } GiB ({SMI})")
+    return total
+
+
+def phase_remat_parity(flash, mlp_bwd, proj) -> None:
+    """One train step at full width, depth 2, B=1, S=2048 through the
+    recipe's kernels under each remat policy and under ``remat=none``, from
+    the same masters and batch: loss, grad norm and every updated master
+    must be the same bits (a policy moves no arithmetic, and the kernels are
+    bitwise repeatable)."""
+    import dataclasses
+
+    import torch
+
+    from ditl_tpu_torch.config import DataConfig, TrainConfig
+    from ditl_tpu_torch.data.dataset import synthetic_dataset
+    from ditl_tpu_torch.data.loader import DataPipeline
+    from ditl_tpu_torch.data.tokenizer import ByteTokenizer
+    from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.models import llama
+    from ditl_tpu_torch.train.state import TrainState, make_optimizer, tree_to
+    from ditl_tpu_torch.train.step import train_step
+
+    config, _ = build_config(TRAIN_ARGS + KERNEL_FLAGS)
+    tcfg = TrainConfig(optimizer="adafactor", warmup_steps=1, total_steps=6)
+    dcfg = DataConfig(batch_size=1, seq_len=2048, synthetic=True)
+    batch = next(iter(DataPipeline(synthetic_dataset(256, 0), ByteTokenizer(), dcfg,
+                                   "cuda").epoch(0)))
+    base_cfg = dataclasses.replace(config.model, num_layers=2)
+    base = llama.init_train_params(base_cfg, seed=3, device="cuda")
+    ref = None
+    for remat in ("none", "full", "dots", "dots_inputs", "attn"):
+        cfg = dataclasses.replace(base_cfg, remat=remat)
+        params = tree_to(base, "cuda")
+        opt = make_optimizer(tcfg, params)
+        state = TrainState.create(params, opt)
+        flash.reset_launches()
+        mlp_bwd.reset_launches()
+        proj.reset_launches()
+        m = train_step(state, batch, cfg, opt)
+        counts = (flash.launches, flash.launches_dq, flash.launches_dkv,
+                  mlp_bwd.launches_dgu, mlp_bwd.launches_dh, proj.launches)
+        require(counts == ((2 if remat == "none" else 4), 2, 2, 2, 2, 8), (remat, counts))
+        out = (m["loss"].cpu(), m["grad_norm"].cpu(),
+               [leaf.master for leaf in state.leaves])
+        if ref is None:
+            ref = out
+            log(f"[remat] parity, one step at full width, 2 layers, B=1, S=2048, the "
+                f"recipe's kernels: remat=none loss {float(out[0]):.6f} grad_norm "
+                f"{float(out[1]):.6f}; launches (K1, K2a, K2b, K5a, K5b, K6) {counts}")
+            continue
+        same = (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+                and all(torch.equal(a, b) for a, b in zip(out[2], ref[2])))
+        log(f"[remat] remat={remat}: loss {float(out[0]):.6f} grad_norm "
+            f"{float(out[1]):.6f}, loss, grad norm and all {len(out[2])} updated masters "
+            f"bitwise equal to remat=none: {same}; launches {counts}")
+        require(same, remat)
+        del state, opt, params, out
+    del ref, base
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, n)) for r, _, names in os.walk(path)
+               for n in names)
+
+
+def phase_checkpoint_serve(flash, paged) -> dict:
+    """The recipe at full width, depth 2, B=4, S=2048 through ``train()``:
+    4 steps straight, saving at 2 and 4 and validating at both; then step 2
+    moved into a directory of its own, and a run resumed there for the last
+    2 steps. Losses, ``val_loss``, masters and optimizer state must be the
+    same bits. Then
+    the continuous paged server with ``--checkpoint-dir`` serves the trained
+    weights: its greedy completions equal the lock-step ``Generator``'s over
+    the trained tree and differ from those of the run's starting weights.
+    Returns the serving launches."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from ditl_tpu_torch.infer import server as server_mod
+    from ditl_tpu_torch.infer.engine import GenerateConfig, Generator
+    from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.models import llama
+    from ditl_tpu_torch.train.checkpoint import CheckpointManager
+    from ditl_tpu_torch.train.state import TrainState, make_optimizer
+    from ditl_tpu_torch.train.trainer import train
+
+    # In the checkout (git-ignored), removed at the end: three 2.9 GB steps
+    # at most at once.
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_ckpt_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    straight_dir, resumed_dir = os.path.join(root, "straight"), os.path.join(root, "resumed")
+    overrides = ["model.num_layers=2", "model.remat=dots_inputs", "train.total_steps=4",
+                 "train.checkpoint_every=2", "data.eval_fraction=0.2", "train.val_every=2",
+                 "train.val_batches=2"]
+    try:
+        config, device = build_config(TRAIN_ARGS + KERNEL_FLAGS + overrides
+                                      + [f"train.checkpoint_dir={straight_dir}"])
+        cfg = config.model
+        straight = train(config, device=device)
+        require(sorted(os.listdir(straight_dir)) == ["2", "4"], os.listdir(straight_dir))
+        os.makedirs(resumed_dir)  # the run that stopped at step 2
+        os.rename(os.path.join(straight_dir, "2"), os.path.join(resumed_dir, "2"))
+        rconfig = dataclasses.replace(config, train=dataclasses.replace(
+            config.train, checkpoint_dir=resumed_dir, keep_checkpoints=1))
+        resumed = train(rconfig, device=device)
+        require(resumed["resumed_from"] == 2 and resumed["steps"] == 4, resumed)
+        require(resumed["losses"] == straight["losses"][2:],
+                (straight["losses"], resumed["losses"]))
+        val = straight["val_loss"]
+        require(val == val and abs(val) != float("inf") and resumed["val_loss"] == val,
+                (val, resumed["val_loss"]))
+        states = []
+        for d in (straight_dir, resumed_dir):
+            params = llama.init_train_params(cfg, seed=5, device="cuda")
+            st = TrainState.create(params, make_optimizer(config.train, params))
+            t0 = time.perf_counter()
+            _, pos = CheckpointManager(d).restore_latest(st)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            require((st.step, pos.global_step) == (4, 4), (st.step, pos))
+            states.append((st, pos))
+        (a, pos_a), (b, pos_b) = states
+        require(pos_a == pos_b, (pos_a, pos_b))
+        sa, sb = a.state_dict(), b.state_dict()
+        leaves = [(la.master, lb.master) for la, lb in zip(a.leaves, b.leaves)]
+        opt_a, opt_b = _tensors(sa["opt_state"]), _tensors(sb["opt_state"])
+        same = (all(torch.equal(x, y) for x, y in leaves) and len(opt_a) == len(opt_b)
+                and all(torch.equal(x, y) for x, y in zip(opt_a, opt_b))
+                and sa["opt_state"]["count"] == sb["opt_state"]["count"])
+        log(f"[checkpoint] the recipe at full width, 2 layers, B=4 S=2048: 4 steps "
+            f"straight, losses {[round(x, 4) for x in straight['losses']]}; resumed at "
+            f"step 2 from the straight run's step-2 checkpoint, losses "
+            f"{[round(x, 4) for x in resumed['losses']]}; val_loss at step 4 (20% of "
+            f"the corpus held out) {val:.6f} in both; masters ({len(leaves)} leaves) and "
+            f"optimizer state ({len(opt_a)} tensors) bitwise equal: {same}; data position "
+            f"{pos_a}")
+        require(same, "resumed state differs from the straight run's")
+        # The save and the restore alone, on the trained state.
+        mgr = CheckpointManager(os.path.join(root, "timed"))
+        t0 = time.perf_counter()
+        mgr.save(4, a, pos_a)
+        copy_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        step_bytes = _dir_bytes(os.path.join(root, "timed", "4"))
+        log(f"[checkpoint] save {save_s:.3f} s (of which the copy to the host, before "
+            f"the next step may start, {copy_s:.3f} s), restore into a fresh state "
+            f"{restore_s:.3f} s, {step_bytes / 2**30:.3f} GiB a step ({step_bytes} bytes; "
+            f"params.pt {os.path.getsize(os.path.join(root, 'timed', '4', 'params.pt'))})")
+        shutil.rmtree(os.path.join(root, "timed"))
+        del states, a, b, sa, sb, leaves, opt_a, opt_b
+        trained = llama.serving_params(
+            torch.load(os.path.join(straight_dir, "4", "params.pt"), weights_only=True),
+            cfg, "cuda")
+        start = llama.init_params(cfg, seed=config.train.seed, device="cuda")
+
+        # The server over the straight run's checkpoint.
+        server = server_mod.create_server([
+            "--preset", "llama3-8b", "--override", "num_layers=2",
+            "--override", "attention_impl=flash", "--override", "fused_gate_up=true",
+            "--checkpoint-dir", straight_dir, "--engine", "continuous",
+            "--cache-mode", "paged", "--max-cache-len", "2048", "--device", "cuda",
+            "--host", "127.0.0.1", "--port", "0"])
+        gen = server.RequestHandlerClass.generator
+        require(all(torch.equal(x, y) for x, y in zip(_tensors(gen.params),
+                                                      _tensors(trained))),
+                "the server does not hold the checkpoint's weights")
+        threaded = server.RequestHandlerClass.threaded_engine
+        outputs: dict = {}
+        generate_one = threaded.generate_one
+
+        def recording(prompt_tokens, **kw):
+            out = generate_one(prompt_tokens, **kw)
+            outputs[tuple(prompt_tokens)] = list(out)
+            return out
+
+        threaded.generate_one = recording
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        prompts = [_text(60, 300), _text(61, 700)]
+        try:
+            flash.reset_launches()  # this path's counts start here
+            paged.reset_launches()
+            bodies = []
+            for p in prompts:
+                status, body = _http("POST", url + "/v1/completions",
+                                     {"prompt": p, "max_tokens": 8})
+                require(status == 200, (status, body))
+                bodies.append(body)
+            launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail}
+        finally:
+            server.close(drain=True)
+            thread.join(timeout=30)
+        require(not thread.is_alive(), "server thread did not stop")
+        tok = gen.tokenizer
+        greedy = GenerateConfig(max_new_tokens=8)
+        lockstep = Generator(trained, cfg, tok, device="cuda")
+        seeded = Generator(start, cfg, tok, device="cuda")
+        n_differ = 0
+        for p, body in zip(prompts, bodies):
+            ids = [tok.bos_id] + tok.encode(p)
+            served = outputs[tuple(ids)]
+            want = lockstep.generate_tokens([ids], greedy)[0]
+            before = seeded.generate_tokens([ids], greedy)[0]
+            log(f"[checkpoint] served {served} (text {body['choices'][0]['text']!r}); "
+                f"lock-step Generator over the trained tree {want}; the run's starting "
+                f"weights {before}")
+            require(served == want, (served, want))
+            n_differ += served != before
+        require(n_differ == len(prompts), "training did not move a greedy completion")
+        require(launches["flash_fwd"] >= cfg.num_layers and launches["paged_tail"] >= 1,
+                launches)
+        log(f"[checkpoint] served the trained checkpoint: K1 {launches['flash_fwd']}, K3 "
+            f"{launches['paged_tail']} launches ({SMI})")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _tensors(tree):
+    """Every tensor of a nested dict/list, in order."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
 
 
 def _paged_inputs(b, h, kv, d, ps, tail_len, lengths, starts, *, seed, n_pool=65,
@@ -1935,21 +2295,33 @@ def main() -> int:
     phase_train_parity(flash)
     gc.collect()
     torch.cuda.empty_cache()
-    training4 = phase_train_kernels(flash, mlp_bwd, proj)
+    training4, summary4 = phase_train_kernels(flash, mlp_bwd, proj)
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_parity2(mlp_bwd, proj)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recipe = phase_recipe(flash, mlp_bwd, proj, summary4["peak_device_memory_gib"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_remat_parity(flash, mlp_bwd, proj)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_serve = phase_checkpoint_serve(flash, paged)
     # Launches per kernel: K1 on both serving paths and both training paths,
     # K2a/K2b on both training paths, K3 on the continuous path, K5a/K5b/K6
     # on training path 4; K4 has no serving path, so its count is the
     # kernels phase's direct calls.
     launches = {"flash_fwd": lockstep["flash_fwd"] + continuous["flash_fwd"]
-                + training["flash_fwd"] + training4["flash_fwd"],
-                "flash_dq": training["flash_dq"] + training4["flash_dq"],
-                "flash_dkv": training["flash_dkv"] + training4["flash_dkv"],
-                "paged_tail": continuous["paged_tail"],
+                + training["flash_fwd"] + training4["flash_fwd"] + recipe["flash_fwd"]
+                + ckpt_serve["flash_fwd"],
+                "flash_dq": training["flash_dq"] + training4["flash_dq"] + recipe["flash_dq"],
+                "flash_dkv": (training["flash_dkv"] + training4["flash_dkv"]
+                              + recipe["flash_dkv"]),
+                "paged_tail": continuous["paged_tail"] + ckpt_serve["paged_tail"],
                 "paged": errors.pop("paged_direct_launches"),
-                **{k: training4[k] for k in ("mlp_dgu_dwdown", "mlp_dh_dwgu", "proj_bwd")}}
+                **{k: training4[k] + recipe[k]
+                   for k in ("mlp_dgu_dwdown", "mlp_dh_dwgu", "proj_bwd")}}
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
             (lockstep, continuous))
     kernels = []
@@ -1959,7 +2331,9 @@ def main() -> int:
         kernels.append({"name": name, **meta, "launches": launches[name],
                         "max_abs_err": errors[name], **timings[name]})
     log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}, "
-        f"training {training}, training with the MLP and projection kernels {training4}")
+        f"training {training}, training with the MLP and projection kernels {training4}, "
+        f"the recipe under its three policies {recipe}, the served checkpoint "
+        f"{ckpt_serve}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,8 @@ launcher does.
 
 Fields whose features are not ported yet are kept so that setting them
 raises where the JAX package would act on them: MoE, LoRA and int8 caches in
-the model code; the remat policies other than ``"none"``/``"full"``,
-checkpointing, validation, API eval, multi-step calls, HF import, telemetry,
-profiling and the fault drills here, at construction. The backward kernels
+the model code; API eval, multi-step calls, HF import, telemetry, profiling
+and the fault drills here, at construction. The backward kernels
 of the MLP block and of the attention projections (``mlp_bwd_impl``,
 ``mlp_custom_vjp``, ``proj_bwd_impl`` and their block fields) are validated
 as the JAX package validates them.
@@ -31,7 +30,7 @@ __all__ = ["ModelConfig", "DataConfig", "TrainConfig", "Config",
 
 # attention_impl values the port runs; the others wait for later slices.
 PORTED_ATTENTION_IMPLS = ("xla", "flash")
-PORTED_REMAT = ("none", "full")
+REMAT_POLICIES = ("none", "full", "dots", "dots_inputs", "attn")
 _NOT_PORTED = " is not ported to PyTorch yet (see ROADMAP.md)"
 
 
@@ -67,9 +66,10 @@ class ModelConfig:
     # kernels, ops/flash_attention.py: K1 forward, K2a/K2b backward).
     attention_impl: str = "xla"
     kv_cache_dtype: str = ""  # "" / "model"; "int8" raises (not ported)
-    # Rematerialization of the training forward: "none" | "full" (each
-    # decoder layer under torch.utils.checkpoint). "dots", "dots_inputs" and
-    # "attn" raise (not ported).
+    # Rematerialization of the training forward (models/llama.py): "none" |
+    # "full" (each decoder layer under torch.utils.checkpoint) | "dots" (keep
+    # the weight products) | "dots_inputs" (those plus the tagged attn_in and
+    # mlp_in) | "attn" (keep only the tagged attn_out).
     remat: str = "full"
     fused_gate_up: bool = False  # gate|up stored as one (D, 2F) matrix
     fused_qkv: bool = False  # q|k|v stored as one (D, (H + 2K) * hd) matrix
@@ -115,10 +115,9 @@ class ModelConfig:
                 f"PyTorch yet (ported: {', '.join(PORTED_ATTENTION_IMPLS)}); "
                 "see ROADMAP.md for the slice that brings it"
             )
-        if self.remat not in PORTED_REMAT + ("dots", "dots_inputs", "attn"):
-            raise ValueError(f"unknown remat policy {self.remat!r}")
-        if self.remat not in PORTED_REMAT:
-            raise NotImplementedError(f"remat={self.remat!r}" + _NOT_PORTED)
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {self.remat!r} "
+                             f"({'|'.join(REMAT_POLICIES)})")
         for knob, allowed in (("mlp_bwd_impl", ("xla", "pallas")),
                               ("proj_bwd_impl", ("xla", "pallas")),
                               ("loss_impl", ("naive", "fused"))):
@@ -152,7 +151,8 @@ class DataConfig:
     shuffle: bool = True
     seed: int = 0
     drop_last: bool = False
-    # Held-out fraction for validation: > 0 raises (validation not ported).
+    # Fraction of the dataset held out for validation (train.val_every; the
+    # two are set together); 0 disables. A seeded permutation, then the tail.
     eval_fraction: float = 0.0
     num_epochs: int = 3
     tokenizer: str = "byte"  # "byte" | HF tokenizer name (raises)
@@ -165,8 +165,6 @@ class DataConfig:
     data_wait_timeout_s: float = 0.0
 
     def __post_init__(self):
-        if self.eval_fraction > 0:
-            raise NotImplementedError("data.eval_fraction (validation)" + _NOT_PORTED)
         if self.data_wait_timeout_s > 0:
             raise NotImplementedError("data.data_wait_timeout_s" + _NOT_PORTED)
 
@@ -191,8 +189,14 @@ class TrainConfig:
     log_every: int = 10
     metrics_file: str = ""  # "" => no JSONL scalar stream
     eval_every: int = 0  # > 0 raises (API eval not ported)
-    val_every: int = 0  # > 0 raises (validation not ported)
-    checkpoint_dir: str = ""  # set raises (checkpointing not ported)
+    # Local validation: every N steps the eval step runs over val_batches
+    # batches of the held-out split (data.eval_fraction).
+    val_every: int = 0
+    val_batches: int = 8
+    checkpoint_dir: str = ""  # "" => checkpointing disabled (train/checkpoint.py)
+    checkpoint_every: int = 0
+    keep_checkpoints: int = 3
+    resume: bool = True  # resume from the latest checkpoint if present
     # Fault drills: non-zero raises (not ported).
     fault_inject_step: int = 0
     fault_kill_step: int = 0
@@ -204,7 +208,6 @@ class TrainConfig:
 
     def __post_init__(self):
         unported = {
-            "checkpoint_dir": "checkpointing", "val_every": "validation",
             "eval_every": "API eval", "init_from_hf": "HF checkpoint import",
             "telemetry_dir": "the event journal", "profile_dir": "profiling",
             "fault_inject_step": "the fault drills",

@@ -17,12 +17,16 @@ Counterpart of the JAX package's ``infer/server.py``: ``GET /health``,
 
 ``--max-pending`` answers 429 beyond that many requests in flight.
 Streaming, adapters, telemetry and pod serving are later slices
-(ROADMAP.md). Weights are drawn from a seed (no checkpoint loading yet), on
-the card unless ``--device cpu`` is given:
+(ROADMAP.md). ``--checkpoint-dir`` serves the newest verified step of a
+training run's checkpoints (``train/checkpoint.py``: its masters turned into
+the serving tree, checked against the preset and overrides, which must be
+the trained model's); without it, or when the directory holds no step that
+restores, the weights are drawn from ``--seed``. On the card unless
+``--device cpu`` is given:
 
     python -m ditl_tpu_torch.infer.server --preset llama3-8b \\
-        --override attention_impl=flash [--device cuda] [--port 8300] \\
-        [--engine continuous --cache-mode paged]
+        --override attention_impl=flash [--checkpoint-dir DIR] [--device cuda] \\
+        [--port 8300] [--engine continuous --cache-mode paged]
 """
 
 from __future__ import annotations
@@ -421,6 +425,9 @@ def _parser() -> argparse.ArgumentParser:
                    "attention_impl=flash")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="weight-init seed")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="serve the newest verified training checkpoint in this "
+                   "directory (train.checkpoint_dir of the run)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8300)
     p.add_argument("--max-tokens", type=int, default=64)
@@ -456,7 +463,18 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
     args = _parser().parse_args(argv)
     cfg = get_preset(args.preset) if args.preset else ModelConfig()
     cfg = parse_model_overrides(cfg, args.override)
-    params = llama.init_params(cfg, seed=args.seed, device=args.device)
+    params = None
+    if args.checkpoint_dir:
+        from ditl_tpu_torch.train.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(args.checkpoint_dir)
+        params = ckpt.restore_latest_params(
+            cfg, llama.init_params(cfg, device="meta"), device=args.device)
+        ckpt.close()
+        if params is not None:
+            logger.info("restored params from %s", args.checkpoint_dir)
+    if params is None:
+        params = llama.init_params(cfg, seed=args.seed, device=args.device)
     tokenizer = get_tokenizer("byte")
     generator = Generator(params, cfg, tokenizer, device=args.device)
     threaded = None

@@ -9,9 +9,13 @@ Runs ``train/trainer.py::train`` on one card (``--device cuda``, the
 default; ``--device cpu`` runs it on the CPU) and prints the summary JSON as
 the last line of stdout. Overrides are ``section.key=value`` over the
 ``model``, ``data`` and ``train`` sections, with ``model.name=<preset>``
-applied first as in the JAX launcher. ``--simulate``, ``--distributed``,
-``--supervise``, ``--pod`` and the rendezvous flags belong to the multi-GPU
-slice and raise.
+applied first as in the JAX launcher. With ``train.checkpoint_dir`` set it
+saves every ``train.checkpoint_every`` steps and at the end, and a second
+run of the same command resumes from the newest verified step
+(``train.resume``, default true); ``data.eval_fraction`` with
+``train.val_every`` reports a held-out ``val_loss``. ``--simulate``,
+``--distributed``, ``--supervise``, ``--pod`` and the rendezvous flags belong
+to the multi-GPU slice and raise.
 """
 
 from __future__ import annotations

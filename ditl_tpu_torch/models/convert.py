@@ -2,9 +2,10 @@
 
 ``params_from_jax`` takes the JAX ``init_params`` layout as nested dicts of
 numpy arrays (layers stacked on axis 0) — what ``jax.device_get`` of the JAX
-tree returns — and produces the port's serving tensors with the storage rules of
-``models/llama.py``. ``train_params_from_jax`` turns the same tree into the
-port's training masters, leaf for leaf in ``cfg.param_dtype`` (the JAX tree's
+tree returns — and produces the port's serving tensors with the storage
+rules of ``models/llama.py::serving_params``. ``train_params_from_jax`` turns
+the same tree into the port's training masters, leaf for leaf in
+``cfg.param_dtype`` (the JAX tree's
 own storage), and ``params_to_numpy`` goes the other way, so the tests can
 hold updated parameters leaf by leaf. Optimizer state is never converted:
 both packages' optimizers start from a fresh state. This is the bridge the
@@ -20,12 +21,11 @@ import numpy as np
 import torch
 
 from ditl_tpu_torch.config import ModelConfig
-from ditl_tpu_torch.models.llama import Params, check_supported, torch_dtype
+from ditl_tpu_torch.models.llama import (Params, check_supported, serving_params,
+                                         torch_dtype)
 from ditl_tpu_torch.utils.device import resolve_device
 
 __all__ = ["params_from_jax", "train_params_from_jax", "params_to_numpy"]
-
-_F32_KEYS = ("attn_norm", "mlp_norm", "final_norm")  # read in f32 by the forward
 
 
 def _tensor(x: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -39,39 +39,11 @@ def _tensor(x: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(device).to(dtype)
 
 
-def params_from_jax(tree: Mapping, cfg: ModelConfig,
-                    device: str | torch.device = "cuda") -> Params:
-    """JAX parameter tree (numpy leaves) -> the port's parameter dict."""
+def _convert(tree: Mapping, cfg: ModelConfig, dtype: torch.dtype,
+             device: str | torch.device) -> Params:
+    """Every leaf of a JAX tree as a tensor of ``dtype`` on ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    cd = torch_dtype(cfg.dtype)
-    layers = tree["layers"]
-    if "lora" in layers or "moe" in layers:
-        raise NotImplementedError(
-            "LoRA and MoE trees are not ported to PyTorch yet (see ROADMAP.md)"
-        )
-    out: Params = {"embed": {"embedding": _tensor(tree["embed"]["embedding"], cd, dev)},
-                   "layers": {}}
-    for group, leaves in layers.items():
-        dtype = torch.float32 if group in _F32_KEYS else cd
-        out["layers"][group] = {k: _tensor(w, dtype, dev) for k, w in leaves.items()}
-    out["final_norm"] = {"scale": _tensor(tree["final_norm"]["scale"], torch.float32, dev)}
-    # The head holds compute-dtype values in f32 storage (models/llama.py).
-    if cfg.tie_embeddings:
-        head = out["embed"]["embedding"].float().T.contiguous()
-    else:
-        head = _tensor(tree["lm_head"]["kernel"], cd, dev).float()
-    out["lm_head"] = {"kernel": head}
-    return out
-
-
-def train_params_from_jax(tree: Mapping, cfg: ModelConfig,
-                          device: str | torch.device = "cuda") -> Params:
-    """JAX parameter tree (numpy leaves) -> training masters: the same tree,
-    every leaf in ``cfg.param_dtype`` (no separate head when tied)."""
-    check_supported(cfg)
-    dev = resolve_device(device)
-    pd = torch_dtype(cfg.param_dtype)
     if "lora" in tree["layers"] or "moe" in tree["layers"]:
         raise NotImplementedError(
             "LoRA and MoE trees are not ported to PyTorch yet (see ROADMAP.md)"
@@ -80,9 +52,23 @@ def train_params_from_jax(tree: Mapping, cfg: ModelConfig,
     def convert(node):
         if isinstance(node, Mapping) and not ("q" in node and "scale" in node):
             return {k: convert(v) for k, v in node.items()}
-        return _tensor(node, pd, dev)
+        return _tensor(node, dtype, dev)
 
     return convert(tree)
+
+
+def params_from_jax(tree: Mapping, cfg: ModelConfig,
+                    device: str | torch.device = "cuda") -> Params:
+    """JAX parameter tree (numpy leaves) -> the port's serving tree
+    (``models/llama.py::serving_params`` of its f32 values)."""
+    return serving_params(_convert(tree, cfg, torch.float32, device), cfg)
+
+
+def train_params_from_jax(tree: Mapping, cfg: ModelConfig,
+                          device: str | torch.device = "cuda") -> Params:
+    """JAX parameter tree (numpy leaves) -> training masters: the same tree,
+    every leaf in ``cfg.param_dtype`` (no separate head when tied)."""
+    return _convert(tree, cfg, torch_dtype(cfg.param_dtype), device)
 
 
 def params_to_numpy(params: Mapping) -> dict:

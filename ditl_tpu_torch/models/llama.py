@@ -23,10 +23,25 @@ the differentiable forward the training loss runs (``train/step.py``): it
 takes the layers' weights one dict per layer (each layer's slices of the
 stacked masters, so the backward writes each layer's gradients into that
 layer's own tensors instead of a zero-filled copy of the whole stack) and
-wraps each decoder layer in ``torch.utils.checkpoint`` under
-``cfg.remat == "full"``. Training masters keep the JAX tree exactly
-(``init_train_params``, every leaf in ``cfg.param_dtype``, no separate f32
-head). MoE, LoRA, int8 caches and quantized weights raise.
+wraps each decoder layer in ``torch.utils.checkpoint`` under every
+``cfg.remat`` but ``"none"`` (``_apply_remat``). Training masters keep the
+JAX tree exactly (``init_train_params``, every leaf in ``cfg.param_dtype``,
+no separate f32 head); ``serving_params`` turns them into the serving tree.
+MoE, LoRA, int8 caches and quantized weights raise.
+
+Remat, as the reference's ``_apply_remat``: ``"full"`` keeps nothing of a
+layer; the other policies run selective checkpointing, whose policy sees
+each dispatcher op of the layer's forward and keeps the outputs it names,
+recomputing the rest in the backward. ``"dots"`` keeps the weight products
+(``aten.mm``/``aten.addmm``: ``t @ w`` with 3-D ``t`` folds to ``mm``), never
+attention's batched ``aten.bmm``, as ``checkpoint_dots_with_no_batch_dims``
+keeps only products without batch dims; ``"dots_inputs"`` adds the tensors
+tagged ``attn_in`` and ``mlp_in``; ``"attn"`` keeps only ``attn_out``. A tag
+is the op ``ditl_torch::checkpoint_name``, a copy the policy can see (a
+custom op's output may not alias its input), applied only where the policy
+names it. The hand-written kernels are ``ctypes`` launches, not dispatcher
+ops: the policy cannot keep their outputs, so the recompute relaunches K1
+under every policy (``_FlashAttention`` saves its ``o`` and ``lse``).
 
 The hand-written backward kernels sit behind the reference's seams: under
 ``proj_bwd_impl="pallas"`` every attention projection (``wq``, ``wk``,
@@ -49,9 +64,10 @@ from ditl_tpu_torch.ops.attention import dot_product_attention
 
 Params = dict[str, Any]
 
-__all__ = ["init_params", "init_train_params", "forward", "train_forward",
-           "head_weights", "logits_from_hidden", "rms_norm", "rope_frequencies",
-           "apply_rope", "check_supported", "torch_dtype"]
+__all__ = ["init_params", "init_train_params", "serving_params", "forward",
+           "train_forward", "head_weights", "logits_from_hidden", "rms_norm",
+           "rope_frequencies", "apply_rope", "check_supported", "torch_dtype",
+           "checkpoint_name"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -86,17 +102,18 @@ def _init_tree(cfg: ModelConfig, seed: int, device, weight_dtype: torch.dtype,
                norm_dtype: torch.dtype) -> Params:
     """The JAX ``init_params`` tree (no ``lm_head`` when tied), drawn with a
     torch generator one layer at a time, so an 8B model never holds an f32
-    copy of more than one layer."""
+    copy of more than one layer. On the ``meta`` device: shapes and dtypes
+    only (what a checkpoint is checked against)."""
     from ditl_tpu_torch.utils.device import resolve_device
 
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     d, hd = cfg.hidden_size, cfg.head_dim
     nh, nkv, f, n_layers = (cfg.num_heads, cfg.num_kv_heads,
                             cfg.intermediate_size, cfg.num_layers)
     if nh % nkv:
         raise ValueError(f"num_heads {nh} must be divisible by num_kv_heads {nkv}")
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
 
     def normal(shape, std):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(weight_dtype)
@@ -146,14 +163,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     """Seed-initialised serving weights in the port's layout (the JAX
     ``init_params`` distributions; a torch generator cannot draw the JAX
     numbers): weights in ``cfg.dtype``, norms and the head in f32."""
-    tree = _init_tree(cfg, seed, device, torch_dtype(cfg.dtype), torch.float32)
-    emb = tree["embed"]["embedding"]
-    if cfg.tie_embeddings:
-        head = emb.float().T.contiguous()
-    else:
-        head = tree.pop("lm_head")["kernel"].float()
-    tree["lm_head"] = {"kernel": head}
-    return tree
+    return serving_params(_init_tree(cfg, seed, device, torch_dtype(cfg.dtype),
+                                     torch.float32), cfg)
 
 
 def init_train_params(cfg: ModelConfig, *, seed: int = 0,
@@ -162,6 +173,98 @@ def init_train_params(cfg: ModelConfig, *, seed: int = 0,
     every leaf in ``cfg.param_dtype``."""
     pd = torch_dtype(cfg.param_dtype)
     return _init_tree(cfg, seed, device, pd, pd)
+
+
+def serving_params(tree: Params, cfg: ModelConfig,
+                   device: str | torch.device | None = None) -> Params:
+    """A tree in the JAX ``init_params`` layout (training masters in any
+    dtype) -> the serving tree, the storage rules of the module note:
+    weights and the embedding in ``cfg.dtype``, norm scales in f32, and the
+    head in f32 holding compute-dtype values (the transposed embedding when
+    tied). Leaves already in their serving dtype are kept, not copied."""
+    cd = torch_dtype(cfg.dtype)
+
+    def conv(node, norm: bool):
+        if isinstance(node, dict):
+            return {k: conv(v, norm or "norm" in k) for k, v in node.items()}
+        t = node if device is None else node.to(device)
+        return t.float() if norm else t.to(cd)
+
+    out = {k: conv(v, "norm" in k) for k, v in tree.items() if k != "lm_head"}
+    if cfg.tie_embeddings:
+        head = out["embed"]["embedding"].float().T.contiguous()
+    else:
+        head = conv(tree["lm_head"]["kernel"], False).float()
+    out["lm_head"] = {"kernel": head}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+
+# The tags each policy keeps (the reference's checkpoint_name calls).
+_KEPT_NAMES = {"dots_inputs": ("attn_in", "mlp_in"), "attn": ("attn_out",)}
+
+
+@torch.library.custom_op("ditl_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+@_checkpoint_name.register_fake
+def _(x: torch.Tensor, name: str) -> torch.Tensor:
+    return torch.empty_like(x)
+
+
+_checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+
+
+def checkpoint_name(x: torch.Tensor, name: str, cfg: ModelConfig) -> torch.Tensor:
+    """``x`` tagged ``name`` for the remat policy (``jax.ad_checkpoint.
+    checkpoint_name``): a copy through ``ditl_torch::checkpoint_name`` where
+    the training forward runs under a policy that keeps that name, else
+    ``x`` itself (the copy would buy nothing)."""
+    if name in _KEPT_NAMES.get(cfg.remat, ()) and torch.is_grad_enabled():
+        return torch.ops.ditl_torch.checkpoint_name(x, name)
+    return x
+
+
+def _remat_policy(remat: str):
+    """The selective-checkpoint policy of ``remat`` ("dots", "dots_inputs"
+    or "attn"): ``(ctx, op, *args) -> CheckpointPolicy``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    dots = remat in ("dots", "dots_inputs")
+    names = _KEPT_NAMES.get(remat, ())
+    products = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+    tag = torch.ops.ditl_torch.checkpoint_name.default
+
+    def policy(ctx, op, *args, **kwargs):
+        if (dots and op in products) or (op == tag and args[1] in names):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def _apply_remat(layer_fn, cfg: ModelConfig):
+    """``layer_fn`` under ``cfg.remat`` (the reference's ``_apply_remat``):
+    non-reentrant ``torch.utils.checkpoint``, selective for the policies
+    that keep something."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return layer_fn
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if cfg.remat != "full":
+        policy = _remat_policy(cfg.remat)
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(policy)
+
+    def wrapped(*args):
+        return checkpoint(layer_fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +365,7 @@ def _decoder_layer(
         return t @ w
 
     h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
+    h = checkpoint_name(h, "attn_in", cfg)  # the q/k/v products' wgrad operand
     if "w_qkv" in attn:
         q, k, v = proj(h, attn["w_qkv"]).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
     else:
@@ -293,9 +397,11 @@ def _decoder_layer(
             q, k, v, causal=True, segment_ids=segment_ids,
             impl=cfg.attention_impl,
         )
-    x = x + proj(attn_out.reshape(b, s, nh * hd), attn["wo"])
+    attn_out = checkpoint_name(attn_out.reshape(b, s, nh * hd), "attn_out", cfg)
+    x = x + proj(attn_out, attn["wo"])
 
     h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
+    h = checkpoint_name(h, "mlp_in", cfg)  # the gate/up products' wgrad operand
     mlp = lp["mlp"]
     if cfg.mlp_custom_vjp or cfg.mlp_bwd_impl == "pallas":
         # The hand-written backward (ops/mlp.py): the kernels K5a/K5b under
@@ -430,14 +536,9 @@ def train_forward(
     # gradient one occurrence at a time (a frequent token's row then carries
     # hundreds of roundings).
     x = torch.nn.functional.embedding(input_ids.long(), top["embed"]["embedding"].to(cd))
+    layer_fn = _apply_remat(_train_layer, cfg)
     for lp in layers:
-        if cfg.remat == "full":
-            from torch.utils.checkpoint import checkpoint
-
-            x = checkpoint(_train_layer, lp, x, cfg, positions, segment_ids,
-                           use_reentrant=False)
-        else:
-            x = _train_layer(lp, x, cfg, positions, segment_ids)
+        x = layer_fn(lp, x, cfg, positions, segment_ids)
     x = rms_norm(x, top["final_norm"]["scale"], cfg.rms_norm_eps)
     if return_hidden:
         return x

@@ -10,7 +10,10 @@ given on the command line on top of it, so that, for example,
         model.mlp_bwd_impl=pallas model.proj_bwd_impl=pallas
 
 breaks down a step of training path 4 (the MLP and projection backward
-kernels). It builds the train state, runs ``--warmup`` steps, then:
+kernels), and with ``model.remat=dots_inputs`` added, of path 5 (the JAX
+package's one-chip recipe). The remat policy is the arguments' (the
+config's default, ``full``, when none is given). It builds the train state,
+runs ``--warmup`` steps, then:
 
 1. times ``--steps`` steps with the host clock after ``synchronize``, split
    into forward + backward and the optimizer (global norm, clip, update);
@@ -37,8 +40,8 @@ __all__ = ["main"]
 
 DEFAULT_ARGS = [
     "--preset", "llama3-8b", "model.param_dtype=bfloat16", "model.attention_impl=flash",
-    "model.loss_impl=fused", "model.loss_block_tokens=4096", "model.remat=full",
-    "train.optimizer=adafactor", "train.warmup_steps=1", "train.total_steps=20",
+    "model.loss_impl=fused", "model.loss_block_tokens=4096", "train.optimizer=adafactor",
+    "train.warmup_steps=1", "train.total_steps=20",
     "data.synthetic=true", "data.batch_size=4", "data.seq_len=2048",
 ]
 CATEGORIES = (  # (category, substrings of kernel names), first match wins
@@ -155,6 +158,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"  {ms:9.3f} ms  x{n:<5d} {name[:110]}")
     print(json.dumps({
         "device": smi, "config": {"model": cfg.name, "layers": cfg.num_layers,
+                                  "remat": cfg.remat,
                                   "batch": config.data.batch_size,
                                   "seq": config.data.seq_len, "overrides": rest},
         "forward_backward_s": fb, "optimizer_s": upd, "traced_step_ms": step_ms,

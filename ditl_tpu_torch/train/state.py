@@ -32,6 +32,13 @@ of the update and its parameter-scale RMS. Adafactor's factored row and
 column statistics are per layer anyway (optax factors the two largest dims).
 Updates are applied in place: ``p + u.astype(p.dtype)`` into the master.
 
+``TrainState.state_dict`` and ``load_state_dict`` carry the step, every
+master and every optimizer statistic (Adam's moments, adafactor's factored
+rows and columns or full second moments, the update count) to and from a
+checkpoint (``train/checkpoint.py``) to the bit: the load copies each saved
+tensor into the live one of the same place, shape and dtype, and raises on
+any difference of structure.
+
 Scalars follow JAX's promotion: a Python constant meeting a bf16 array is
 rounded to bf16 first (``_w``), and an f32 scalar array meeting a bf16 array
 promotes it to f32.
@@ -49,7 +56,7 @@ import torch
 from ditl_tpu_torch.config import TrainConfig
 
 __all__ = ["Leaf", "TrainState", "make_leaves", "make_optimizer", "make_schedule",
-           "global_norm"]
+           "global_norm", "tree_to"]
 
 f32 = np.float32
 
@@ -107,6 +114,26 @@ class TrainState:
         leaves = make_leaves(params)
         return cls(params, leaves, optimizer.init(leaves), 0)
 
+    def state_dict(self) -> dict:
+        """``{"step", "params", "opt_state"}``: the live tensors, not copies
+        (``tree_to`` copies them)."""
+        return {"step": self.step, "params": self.params, "opt_state": self.opt_state}
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: Mapping) -> None:
+        """Copy a ``state_dict`` into this state in place, bit for bit; a
+        leaf of another shape or dtype, or another tree, raises
+        ``ValueError`` before anything is copied."""
+        pairs: list[tuple[torch.Tensor, torch.Tensor]] = []
+        _match(self.params, saved["params"], "params", pairs)
+        counts: list[tuple[dict, str, Any]] = []
+        _match(self.opt_state, saved["opt_state"], "opt_state", pairs, counts)
+        for dst, src in pairs:
+            dst.copy_(src)
+        for node, key, value in counts:
+            node[key] = value
+        self.step = int(saved["step"])
+
     def model_views(self, cast=None) -> tuple[list[dict], dict]:
         """(per-layer weight dicts, top-level dict) for ``train_forward``;
         ``cast(path, tensor)`` maps every part first."""
@@ -123,6 +150,55 @@ class TrainState:
             else:
                 top.setdefault(leaf.path[0], {})[leaf.path[1]] = parts[0]
         return layers, top
+
+
+def _match(live, saved, path: str, pairs: list, scalars: list | None = None) -> None:
+    """Pair each live tensor with the saved one at the same place (into
+    ``pairs``) and each Python scalar with its saved value (into ``scalars``
+    as ``(dict, key, value)``), raising ``ValueError`` on a difference."""
+    if isinstance(live, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) or (
+                saved.shape, saved.dtype) != (live.shape, live.dtype):
+            got = (tuple(saved.shape), saved.dtype) if isinstance(saved, torch.Tensor) \
+                else type(saved).__name__
+            raise ValueError(f"checkpoint leaf {path}: {got} where the state holds "
+                             f"{(tuple(live.shape), live.dtype)}")
+        pairs.append((live, saved))
+    elif isinstance(live, Mapping):
+        if not isinstance(saved, Mapping) or set(saved) != set(live):
+            raise ValueError(f"checkpoint node {path}: keys "
+                             f"{sorted(saved) if isinstance(saved, Mapping) else saved!r}"
+                             f" where the state holds {sorted(live)}")
+        for k, v in live.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                if scalars is None or not isinstance(saved[k], (int, float)):
+                    raise ValueError(f"checkpoint leaf {path}/{k}: {saved[k]!r}")
+                scalars.append((live, k, saved[k]))
+            else:
+                _match(v, saved[k], f"{path}/{k}", pairs, scalars)
+    elif isinstance(live, (list, tuple)):
+        if not isinstance(saved, (list, tuple)) or len(saved) != len(live):
+            raise ValueError(f"checkpoint node {path}: a sequence of another length")
+        for i, (a, b) in enumerate(zip(live, saved)):
+            _match(a, b, f"{path}/{i}", pairs, scalars)
+    elif live is None:
+        if saved is not None:
+            raise ValueError(f"checkpoint node {path}: {type(saved).__name__} where "
+                             "the state holds None")
+    else:
+        raise ValueError(f"checkpoint node {path}: unexpected {type(live).__name__}")
+
+
+def tree_to(tree, device: str | torch.device):
+    """A copy of ``tree`` (dicts, lists, tensors, scalars, None) with every
+    tensor detached and copied to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device, copy=True)
+    if isinstance(tree, Mapping):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device) for v in tree]
+    return tree
 
 
 def _w(value: float, like: torch.Tensor) -> torch.Tensor:

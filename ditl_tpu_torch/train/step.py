@@ -15,7 +15,9 @@ masked next-token cross-entropy with f32 logits, through the naive head
   ``p + u.astype(p.dtype)`` in place.
 
 The metrics stay on the device (``loss``, ``n_tokens``, ``grad_norm``); the
-metrics logger copies them to the host at its flush.
+metrics logger copies them to the host at its flush. ``eval_step`` is the
+reference's ``make_eval_step``: the forward alone, under ``torch.no_grad``
+(so without remat), returning the batch's mean NLL and its token count.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ditl_tpu_torch.config import ModelConfig
 from ditl_tpu_torch.models import llama
 from ditl_tpu_torch.train.state import TrainState, global_norm
 
-__all__ = ["loss_fn", "train_step", "cast_for_compute"]
+__all__ = ["loss_fn", "train_step", "eval_step", "cast_for_compute"]
 
 
 def loss_fn(layers: list[dict], top: dict, batch: dict[str, torch.Tensor],
@@ -109,3 +111,13 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor],
                 p.grad = None
     state.step += 1
     return {"loss": loss_sum / accum, "n_tokens": tokens, "grad_norm": grad_norm}
+
+
+@torch.no_grad()
+def eval_step(state: TrainState, batch: dict[str, torch.Tensor],
+              model_cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """``{"loss", "n_tokens"}`` of ``batch`` under the state's masters, cast
+    for compute as the train step casts them; no gradients."""
+    layers, top = state.model_views(cast_for_compute(model_cfg))
+    _, aux = loss_fn(layers, top, batch, model_cfg)
+    return aux

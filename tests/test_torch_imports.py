@@ -64,6 +64,7 @@ def test_port_package_has_modules():
                  "infer.server", "data.tokenizer", "utils.logging", "utils.http11",
                  "data.dataset", "data.sampler", "data.loader", "ops.fused_ce",
                  "train.state", "train.step", "train.metrics", "train.trainer",
+                 "train.checkpoint",
                  "launch", "ops.mlp", "ops.mlp_bwd", "ops.projection",
                  "tools.profile_train"):
         assert f"ditl_tpu_torch.{name}" in mods
@@ -116,15 +117,14 @@ def test_model_config_matches_jax_field_for_field():
 
 @pytest.mark.parametrize("name,left_out", [
     ("DataConfig", set()),
-    ("TrainConfig", {"eval_samples", "val_batches", "checkpoint_every",
-                     "keep_checkpoints", "resume", "max_restarts", "fault_kill_process",
+    ("TrainConfig", {"eval_samples", "max_restarts", "fault_kill_process",
                      "heartbeat_dir", "heartbeat_timeout_s", "straggler_lag_steps",
                      "straggler_relaunch", "profile_start_step", "profile_num_steps"}),
 ])
 def test_data_and_train_config_match_jax_field_for_field(name, left_out):
     """The port's copies keep the JAX fields of their names, types and
     defaults, in the same order, leaving out only the listed knobs of
-    features the port does not run (checkpoint retention, restarts,
+    features the port does not run (API eval's sample count, restarts,
     heartbeats, profiling windows)."""
     jf, tf = _fields(getattr(jconfig, name)), _fields(getattr(tconfig, name))
     assert {n: jf.get(n) for n in tf} == tf

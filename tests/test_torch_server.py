@@ -209,6 +209,60 @@ def test_cli_builds_a_cpu_server():
         tserver.create_server(["--device", "cpu", "--override", "nope=1"])
 
 
+def test_cli_serves_a_trained_checkpoint(tmp_path):
+    """``--checkpoint-dir``: the port's trainer saves two steps' masters, the
+    server restores them as its serving tree (not the seed's weights), and
+    its greedy completion equals the JAX Generator's over the trained tree;
+    a preset that does not match the checkpoint fails loudly."""
+    import jax.numpy as jnp
+
+    from ditl_tpu_torch.config import Config, DataConfig, TrainConfig
+    from ditl_tpu_torch.models import llama
+    from ditl_tpu_torch.models.convert import params_to_numpy
+    from ditl_tpu_torch.train.trainer import train
+
+    cfg = ModelConfig(**TINY)
+    out = train(Config(model=cfg, data=DataConfig(synthetic=True, batch_size=2, seq_len=64),
+                       train=TrainConfig(total_steps=2, warmup_steps=1, learning_rate=1e-2,
+                                         checkpoint_dir=str(tmp_path))), device="cpu")
+    assert out["steps"] == 2
+    masters = torch.load(tmp_path / "2" / "params.pt", weights_only=True)
+    overrides = [x for k, v in TINY.items() for x in ("--override", f"{k}={v}")]
+    srv = tserver.create_server(["--device", "cpu", "--port", "0", "--host", "127.0.0.1",
+                                 "--checkpoint-dir", str(tmp_path), *overrides])
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        served = srv.RequestHandlerClass.generator.params
+        want = llama.serving_params(masters, cfg)
+        seed = llama.init_params(cfg, seed=0, device="cpu")
+        for group in ("attn", "mlp"):
+            for key, w in want["layers"][group].items():
+                assert torch.equal(served["layers"][group][key], w), key
+                assert not torch.equal(served["layers"][group][key],
+                                       seed["layers"][group][key]), key
+        assert torch.equal(served["lm_head"]["kernel"], want["lm_head"]["kernel"])
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        prompt = "The quick brown fox"
+        status, body = _post(url + "/v1/completions",
+                             {"prompt": prompt, "max_tokens": 10, "temperature": 0})
+        assert status == 200
+        jparams = jax.tree.map(jnp.asarray, params_to_numpy(masters))
+        text, n = _jax_text(JaxGenerator(jparams, JaxModelConfig(**TINY),
+                                         JaxByteTokenizer()), prompt, 10)
+        assert body["choices"][0]["text"] == text
+        assert body["usage"]["completion_tokens"] == n
+    finally:
+        srv.close(drain=False)
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+    wrong = [x for k, v in dict(TINY, hidden_size=128).items()
+             for x in ("--override", f"{k}={v}")]
+    with pytest.raises(ValueError, match="does not match the model config"):
+        tserver.create_server(["--device", "cpu", "--port", "0",
+                               "--checkpoint-dir", str(tmp_path), *wrong])
+
+
 # -- the continuous engine -------------------------------------------------------
 
 

@@ -283,6 +283,21 @@ STEP_CASES = {  # id: (model overrides, train overrides)
              mlp_bwd_block_f=128, mlp_bwd_block_d=128, proj_bwd_block_n=64,
              proj_bwd_block_d=128),
         dict(optimizer="adafactor", grad_accum_steps=1)),
+    # The selective remat policies, each against the reference's policy of
+    # the same name: the weight products kept; the JAX package's one-chip
+    # recipe (dots_inputs with fused_gate_up and both backward kernels,
+    # flash, fused loss, adafactor); the attention output alone kept.
+    "flash-adamw-accum1-remat_dots": (dict(attention_impl="flash", remat="dots"),
+                                      dict(optimizer="adamw", grad_accum_steps=1)),
+    "flash-adafactor-remat_dots_inputs-recipe": (
+        dict(attention_impl="flash", remat="dots_inputs", fused_gate_up=True,
+             fused_qkv=True, mlp_bwd_impl="pallas", proj_bwd_impl="pallas",
+             mlp_bwd_block_n=64, mlp_bwd_block_f=128, mlp_bwd_block_d=128,
+             proj_bwd_block_n=64, proj_bwd_block_d=128, loss_impl="fused",
+             loss_block_tokens=256),
+        dict(optimizer="adafactor", grad_accum_steps=1)),
+    "xla-adafactor-accum2-remat_attn": (dict(attention_impl="xla", remat="attn"),
+                                        dict(optimizer="adafactor", grad_accum_steps=2)),
 }
 
 
@@ -421,8 +436,17 @@ def test_config_overrides_and_unported_knobs():
             config.data.seq_len, device) == ("llama3-8b", 32, "bfloat16", 2048, "cuda")
     config, _ = build_config(["model.name=llama3-8b", "model.num_layers=2"])
     assert (config.model.hidden_size, config.model.num_layers) == (4096, 2)
-    for bad in (["model.remat=dots"], ["model.remat=attn"], ["train.checkpoint_dir=/x"], ["train.val_every=2"], ["train.eval_every=2"],
-                ["train.steps_per_call=2"], ["train.init_from_hf=/x"],
+    config, _ = build_config(["model.remat=dots_inputs", "train.checkpoint_dir=/x",
+                              "train.checkpoint_every=5", "train.keep_checkpoints=2",
+                              "train.resume=false", "train.val_every=2",
+                              "train.val_batches=3", "data.eval_fraction=0.1"])
+    assert (config.model.remat, config.train.checkpoint_dir, config.train.checkpoint_every,
+            config.train.keep_checkpoints, config.train.resume, config.train.val_every,
+            config.train.val_batches, config.data.eval_fraction) == (
+        "dots_inputs", "/x", 5, 2, False, 2, 3, 0.1)
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        build_config(["model.remat=everything"])
+    for bad in (["train.eval_every=2"], ["train.steps_per_call=2"], ["train.init_from_hf=/x"],
                 ["train.telemetry_dir=/x"], ["train.profile_dir=/x"],
                 ["train.fault_nan_step=3"], ["mesh.fsdp=2"], ["chaos.rules=x"],
                 ["--simulate", "8"], ["--distributed"], ["--supervise"], ["--pod", "2"]):
