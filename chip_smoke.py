@@ -19,7 +19,11 @@ no result line. It imports nothing of JAX or of the JAX package.
    tail) and K4 (without) at the decode tick's shape, ragged ones and the
    edges of their key splits, each also against the plain twin of the split
    rule and called twice, which must give the same bits (tolerances at ``O_TOL``/``LSE_TOL``/``BWD_TOL``). K4 has no serving
-   path: its launches are this phase's direct calls.
+   path: its launches are this phase's direct calls. K3 over int8 pools
+   (``ditl_paged_tail_i8``) against the plain version's int8 branch and
+   the split twin at the decode tick, the split edges, a dead slot,
+   starts == lengths and a tail-only slot, head_dim 64 and 128, called
+   twice.
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
    card's bound for the same work from this run's inputs; K1, K2a and K2b
@@ -28,7 +32,10 @@ no result line. It imports nothing of JAX or of the JAX package.
    its backward given the same packed causal mask), with the tiles each
    visits, and the whole backward wrapper (delta, K2a, K2b) against SDPA's
    backward on both inputs; K3 and K4 also at splits of 128, 256 and 512
-   keys.
+   keys. K3 over int8 pools at the decode tick beside the float K3 on the
+   same keys, with SDPA over the keys dequantized to bf16 beforehand as its
+   yardstick and the dequantization's own time, and its bound from the
+   int8 bytes plus scales.
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -36,6 +43,18 @@ no result line. It imports nothing of JAX or of the JAX package.
    same server code, over the same weights object (8 slots, page 256,
    context 2048, decode_chunk 16), answering 12 concurrent requests; K3 on
    every decode step, K1 on every cold prefill.
+6b. Main path 6, int8 serving: the bf16 serving state is freed, then
+   ``infer/server.py --quantize int8 --kv-quant int8 --engine continuous
+   --cache-mode paged`` is built in process (``llama3-8b``, full width and
+   depth): int8 weights resident beside their reckoning from the config,
+   int8 pools plus scales against the bf16 pools at the same page count;
+   path 2's 12 requests over HTTP (K3 over int8 pools on every decode step,
+   the float K3 never, K1 on every cold prefill, the shared prefix hit),
+   ms per step and tokens/s beside path 2's; five logprob requests through
+   the lock-step ``Generator`` over an int8 cache (a repeated one gives the
+   same tokens and logprobs); the same greedy request twice on the engine,
+   identical; one decode step's logits through K3-int8 against the plain
+   version.
 7. Main path 3: training. The serving weights and pools are freed first;
    then ``train()`` runs in-process with the launcher's arguments
    (``TRAIN_ARGS``: ``llama3-8b`` at full width and depth, bf16 masters,
@@ -201,6 +220,12 @@ KERNELS = {
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:191",
         "path": "direct call",
+    },
+    "paged_tail_int8": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235 (quantized=True)",
+        "path": "int8 serving (path 6): continuous paged decode ticks over int8 pools",
     },
     "mlp_dgu_dwdown": {
         "route": "cuda",
@@ -2086,10 +2111,63 @@ def _decode_step_logits(engine, slot: int):
                          positions=engine.pos[:, None], cache=cache, paged=paged)[slot, 0]
 
 
-def phase_serve_continuous(gen, flash, paged) -> dict:
+def _continuous_requests():
+    """The continuous paths' traffic: 12 requests, the first four sharing a
+    600-character prefix (two full 256-token pages with BOS, and 89 more),
+    two of the others sampled and two the same greedy request. Returns the
+    payloads and the repeated prompt."""
+    prefix = _text(30, 600)
+    shared = [{"prompt": prefix + " " + _text(31 + i, n), "max_tokens": m}
+              for i, (n, m) in enumerate([(100, 32), (180, 48), (250, 16), (140, 64)])]
+    repeated = _text(40, 150)
+    others = [
+        {"prompt": _text(41, 1500), "max_tokens": 32},
+        {"prompt": _text(42, 1200), "max_tokens": 48},
+        {"prompt": _text(43, 1000), "max_tokens": 32, "temperature": 0.8,
+         "top_p": 0.9, "seed": 7},
+        {"prompt": _text(44, 450), "max_tokens": 40, "temperature": 1.0, "seed": 11},
+        {"prompt": repeated, "max_tokens": 24},
+        {"prompt": repeated, "max_tokens": 24},
+        {"prompt": _text(45, 100), "max_tokens": 16},
+        {"prompt": _text(46, 300), "max_tokens": 20},
+    ]
+    return shared + others, repeated
+
+
+def _send_continuous(url: str, requests: list, engine):
+    """POST ``requests`` to /v1/completions, each from its own thread: the
+    four shared-prefix requests first, queued or admitted before the others
+    arrive, so pool pressure cannot evict their pages first. Returns
+    {index: (status, body, seconds)} and the wall seconds."""
+    results: dict[int, tuple] = {}
+
+    def one(i):
+        t = time.perf_counter()
+        status, body = _http("POST", url + "/v1/completions", requests[i])
+        results[i] = (status, body, time.perf_counter() - t)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(requests))]
+    t_start = time.perf_counter()
+    for th in threads[:4]:
+        th.start()
+    for _ in range(600):
+        st = engine.stats()
+        if st["slots_busy"] + st["queue_depth"] + len(results) >= 4:
+            break
+        time.sleep(0.01)
+    for th in threads[4:]:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    return results, time.perf_counter() - t_start
+
+
+def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
     """Main path 2: the continuous engine over the paged KV cache, over
     ``gen``'s weights (no second 8B copy), serving 12 concurrent requests
-    through the HTTP server. Returns the path's launch counts."""
+    through the HTTP server. Returns the path's launch counts and a summary
+    (ms per decode step, tokens/s, pool bytes and pages, prefix-hit
+    tokens) that path 6 is set beside."""
     import torch
 
     from ditl_tpu_torch.infer import server as server_mod
@@ -2127,51 +2205,11 @@ def phase_serve_continuous(gen, flash, paged) -> dict:
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
-    prefix = _text(30, 600)  # two full 256-token pages with BOS, and 89 more
-    shared = [  # (payload, prompt text): sent first
-        ({"prompt": prefix + " " + _text(31 + i, n), "max_tokens": m},
-         prefix + " " + _text(31 + i, n))
-        for i, (n, m) in enumerate([(100, 32), (180, 48), (250, 16), (140, 64)])]
-    repeated = _text(40, 150)
-    others = [
-        ({"prompt": _text(41, 1500), "max_tokens": 32}, None),
-        ({"prompt": _text(42, 1200), "max_tokens": 48}, None),
-        ({"prompt": _text(43, 1000), "max_tokens": 32, "temperature": 0.8,
-          "top_p": 0.9, "seed": 7}, None),
-        ({"prompt": _text(44, 450), "max_tokens": 40, "temperature": 1.0,
-          "seed": 11}, None),
-        ({"prompt": repeated, "max_tokens": 24}, None),
-        ({"prompt": repeated, "max_tokens": 24}, None),
-        ({"prompt": _text(45, 100), "max_tokens": 16}, None),
-        ({"prompt": _text(46, 300), "max_tokens": 20}, None),
-    ]
-    requests = [p for p, _ in shared] + [p for p, _ in others]
-    results: dict[int, tuple] = {}
-
-    def one(i):
-        t = time.perf_counter()
-        status, body = _http("POST", url + "/v1/completions", requests[i])
-        results[i] = (status, body, time.perf_counter() - t)
-
-    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(requests))]
+    requests, repeated = _continuous_requests()
     try:
         flash.reset_launches()  # this path's counts start here
         paged.reset_launches()
-        t_start = time.perf_counter()
-        for th in threads[:4]:
-            th.start()
-        # The shared-prefix requests go first: queued or admitted before the
-        # others arrive, so pool pressure cannot evict their pages first.
-        for _ in range(600):
-            st = engine.stats()
-            if st["slots_busy"] + st["queue_depth"] + len(results) >= 4:
-                break
-            time.sleep(0.01)
-        for th in threads[4:]:
-            th.start()
-        for th in threads:
-            th.join(timeout=600)
-        wall = time.perf_counter() - t_start
+        results, wall = _send_continuous(url, requests, engine)
         launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail,
                     "paged": paged.launches}  # read right after the run
         st = engine.stats()
@@ -2220,9 +2258,22 @@ def phase_serve_continuous(gen, flash, paged) -> dict:
         f"decode {tick_ms:.1f} ms per tick, {tick_ms / engine.decode_chunk:.2f} ms "
         f"per step (host clock, each tick ends in a device-to-host copy; {SMI})")
 
-    # One paged decode step through K3 against the same step through the
-    # plain version, from a fresh cold prefill (the server has stopped, so
-    # this thread owns the engine).
+    _check_decode_step(engine, paged, "continuous", "K3")
+    log(f"[continuous] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    pool_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
+    return launches, {"ms_step": tick_ms / engine.decode_chunk,
+                      "tokens_s": n_tokens / wall, "pool_bytes": pool_bytes,
+                      "n_pages": engine.n_pages, "hit_tokens": hit}
+
+
+def _check_decode_step(engine, paged, tag: str, kernel: str) -> None:
+    """One paged decode step through the kernel against the same step
+    through the plain version, from a fresh cold prefill of a 701-token
+    prompt (the server has stopped, so this thread owns the engine)."""
+    import torch
+
+    tok, cfg = engine.tokenizer, engine.cfg
     prompt = [tok.bos_id] + tok.encode(_text(50, 700))
     rid = engine.submit(prompt, max_new_tokens=4)
     engine._admit()
@@ -2241,13 +2292,325 @@ def phase_serve_continuous(gen, flash, paged) -> dict:
     require(lk.shape == (cfg.vocab_size,) and bool(torch.isfinite(lk).all()))
     rel = float((lk - lx).norm() / lx.norm())
     same_top = int(lk.argmax()) == int(lx.argmax())
-    log(f"[continuous] decode-step logits K3 vs plain paged attention (701-token "
+    log(f"[{tag}] decode-step logits {kernel} vs plain paged attention (701-token "
         f"context): rel L2 {rel:.3e}, max abs {float((lk - lx).abs().max()):.3e}, "
         f"same argmax {same_top}")
     require(rel <= LOGITS_REL_TOL and same_top, (rel, same_top))
-    log(f"[continuous] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return launches
+
+
+def _int8_pools(kp, vp):
+    """bf16 pools -> int8 pools and their (P, K, 1, ps) f32 scales, by the
+    engine's own quantization (``infer/cache._quantize``: absmax per
+    position over D)."""
+    from ditl_tpu_torch.infer.cache import _quantize
+
+    (kq, ks), (vq, vs) = _quantize(kp), _quantize(vp)
+    return kq, vq, ks[:, :, None, :].contiguous(), vs[:, :, None, :].contiguous()
+
+
+def phase_paged_int8_kernels(paged) -> dict:
+    """K3 over int8 pools (``ditl_paged_tail_i8``) against the plain
+    version's int8 branch and the split twin, at ``O_TOL``: the decode
+    tick's case (a dead slot, starts == lengths), a tail-only slot at
+    head_dim 64, and the split-edge cases at head_dim 128 and 64; a second
+    call must give the same bits. Returns the max abs error."""
+    import torch
+
+    main = PAGED_MAIN
+    starts, lengths = _paged_main_case()
+    cases = [  # (b, h, kv, d, ps, tail_len, lengths, starts)
+        (main["b"], main["h"], main["kv"], main["d"], main["ps"], main["tail_len"],
+         lengths, starts),
+        (4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 32, 45]),  # dead, tail only
+        (4, 32, 8, 128, 16, 16, [257, 256, 513, 140], [257, 250, 500, 128]),
+        (3, 16, 2, 64, 48, 8, [300, 1, 40], [297, 0, 33]),
+    ]
+    worst = 0.0
+    paged.reset_launches()
+    for i, (b, h, kv, d, ps, tl, lens, sts) in enumerate(cases):
+        q, kp, vp, table, ln, st, tk, tv = _paged_inputs(b, h, kv, d, ps, tl, lens, sts,
+                                                         seed=500 + i, n_pool=128)
+        kq, vq, ks, vs = _int8_pools(kp, vp)
+        kw = dict(tail_k=tk, tail_v=tv, starts=st, k_scale=ks, v_scale=vs)
+        o = paged.paged_attention(q, kq, vq, table, ln, **kw)
+        o2 = paged.paged_attention(q, kq, vq, table, ln, **kw)
+        r = paged.paged_attention_plain(q, kq, vq, table, ln, **kw)
+        sp = paged.paged_attention_split_plain(q, kq, vq, table, ln, **kw)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(o.float()).all()), f"paged_tail_int8 case {i}: non-finite")
+        torch.testing.assert_close(o.float(), r.float(), atol=O_TOL, rtol=O_TOL)
+        torch.testing.assert_close(o.float(), sp.float(), atol=O_TOL, rtol=O_TOL)
+        require(torch.equal(o, o2), f"paged_tail_int8 case {i}: a second call gave other bits")
+        err = float((o.float() - r.float()).abs().max())
+        err_split = float((o.float() - sp.float()).abs().max())
+        worst = max(worst, err)
+        dead = [j for j, n in enumerate(lens) if n == 0]
+        require(all(bool((o[j] == 0).all()) for j in dead), "paged_tail_int8: dead slot")
+        log(f"[kernels] paged_tail_int8 B={b} H={h} K={kv} D={d} ps={ps} T={tl} "
+            f"lengths={lens} starts={sts}: max|o-plain|={err:.3e}, max|o-split plain|="
+            f"{err_split:.3e} (tolerance {O_TOL}), a second call the same bits ok")
+    require((paged.launches_tail_int8, paged.launches_tail, paged.launches)
+            == (2 * len(cases), 0, 0),
+            (paged.launches_tail_int8, paged.launches_tail, paged.launches))
+    return {"paged_tail_int8": worst}
+
+
+def _paged_int8_bound(q, kq, table, lengths, starts):
+    """Least time on an H100 SXM for one K3 call over int8 pools: the live
+    page keys' int8 K and V and their two f32 scales, the live tail keys'
+    bf16 K and V, q and o, the table and the lengths over HBM bandwidth,
+    against 4*D flops per (query head, live key) at bf16 peak."""
+    b, h, d = q.shape
+    kv = kq.shape[1]
+    pairs = list(zip(starts.tolist(), lengths.tolist()))
+    page = sum(min(s, n) for s, n in pairs)
+    tail = sum(max(0, n - s) for s, n in pairs)
+    nbytes = (2 * page * kv * (d + 4) + 2 * tail * kv * d * 2 + 2 * (2 * b * h * d)
+              + 4 * (table.numel() + 2 * b))
+    flops = 4 * d * h * (page + tail)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_paged_int8_timings(paged) -> dict:
+    """K3 over int8 pools at the main path's decode-tick shape: kernel,
+    plain, and as the library yardstick SDPA (``enable_gqa``, the length
+    mask) over the same keys dequantized to bf16 beforehand, with that
+    dequantization's own time beside it; the float K3 on the same bf16 keys
+    in the same run; the bound from int8 bytes plus scales. Every call reads
+    one of ``PAGED_COPIES`` input copies in turn (device times from CUDA-graph
+    replays)."""
+    import torch
+    import torch.nn.functional as F
+
+    m = PAGED_MAIN
+    starts, lengths = _paged_main_case()
+    copies = [_paged_inputs(m["b"], m["h"], m["kv"], m["d"], m["ps"], m["tail_len"],
+                            lengths, starts, seed=400 + c, share=False)
+              for c in range(PAGED_COPIES)]
+    q, kp, _, table, ln, st, _, _ = copies[0]
+    b, h, d = q.shape
+    kv, ps = kp.shape[1], kp.shape[2]
+    maxp = table.shape[1]
+    cols = torch.arange(maxp * ps, device="cuda")
+    tail_cols = torch.arange(m["tail_len"], device="cuda")
+    kernel, float_kernel, plain, library, dequant = [], [], [], [], []
+    for q, kp, vp, table, ln, st, tk, tv in copies:
+        kq, vq, ks, vs = _int8_pools(kp, vp)
+        tail = dict(tail_k=tk, tail_v=tv, starts=st)
+
+        def deq(kq=kq, vq=vq, ks=ks, vs=vs, table=table, tk=tk, tv=tv):
+            """Every slot's page keys dequantized to bf16, then its tail: the
+            (B, K, S, D) K and V that SDPA reads."""
+            out = []
+            for pool, sc, t in ((kq, ks, tk), (vq, vs, tv)):
+                g = (pool[table.long()].float() * sc[table.long()][:, :, :, 0, :, None])
+                g = g.to(torch.bfloat16).transpose(2, 3).reshape(b, maxp * ps, kv, d)
+                out.append(torch.cat([g, t.transpose(1, 2)], dim=1).transpose(1, 2)
+                           .contiguous())
+            return out
+
+        kt, vt = deq()
+        valid = torch.cat([cols[None] < torch.minimum(st, ln)[:, None],
+                           st[:, None] + tail_cols[None] < ln[:, None]], dim=1)
+        kernel.append(functools.partial(paged.paged_attention, q, kq, vq, table, ln,
+                                        **tail, k_scale=ks, v_scale=vs))
+        float_kernel.append(functools.partial(paged.paged_attention, q, kp, vp, table, ln,
+                                              **tail))
+        plain.append(functools.partial(paged.paged_attention_plain, q, kq, vq, table, ln,
+                                       tk, tv, st, ks, vs))
+        library.append(functools.partial(F.scaled_dot_product_attention, q[:, :, None], kt,
+                                         vt, attn_mask=valid[:, None, None, :],
+                                         enable_gqa=True))
+        dequant.append(deq)
+    ms = _graph_ms(kernel)
+    float_ms = _graph_ms(float_kernel)
+    plain_ms = _graph_ms(plain, rounds=1)
+    lib_ms = _graph_ms(library)
+    deq_ms = _graph_ms(dequant, rounds=1)
+    ms2 = _graph_ms(kernel)
+    float_ms2 = _graph_ms(float_kernel)
+    eager_ms = _time_ms(_cycle(kernel), iters=4 * PAGED_COPIES)
+    by_kernel = _device_us_by_kernel(_cycle(kernel), 4 * PAGED_COPIES)
+    log("[timing] paged_tail_int8 device time per call by kernel (torch.profiler, eager "
+        "calls): " + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(by_kernel.items()))
+        + f" ({SMI})")
+    q, kq = copies[0][0], _int8_pools(copies[0][1], copies[0][2])[0]
+    bound_ms, bound_by = _paged_int8_bound(q, kq, copies[0][3], copies[0][4], copies[0][5])
+    float_bound, _ = _paged_bound(q, copies[0][1], copies[0][3], copies[0][4], copies[0][5],
+                                  True)
+    log(f"[timing] paged_tail_int8 B={b} H={h} K={kv} D={d} ps={ps} T={m['tail_len']} "
+        f"lengths={lengths} starts={starts}, {PAGED_COPIES} input copies in turn: device "
+        f"(CUDA graph) kernel {ms:.4f}/{ms2:.4f} ms, float K3 on the same keys in bf16 "
+        f"{float_ms:.4f}/{float_ms2:.4f} ms (bound {float_bound:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, sdpa on K/V dequantized to bf16 beforehand {lib_ms:.4f} ms "
+        f"(the dequantization itself {deq_ms:.4f} ms); eager, host launches included: "
+        f"kernel {eager_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: int8 K/V and "
+        f"their scales), {bound_ms / min(ms, ms2):.1%} of bound ({SMI})")
+    return {"paged_tail_int8": {"ms": min(ms, ms2), "eager_ms": eager_ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": lib_ms,
+                                "dequant_ms": deq_ms, "float_ms": min(float_ms, float_ms2)}}
+
+
+def _int8_weight_bytes(cfg) -> int:
+    """Bytes of the int8 serving tree reckoned from the configuration: int8
+    projection, MLP and head weights with one f32 scale per output column,
+    the bf16 embedding, f32 norm scales (unfused layout, untied head)."""
+    d, f, hd, n_l = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim, cfg.num_layers
+    q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    mats = [(d, q_out), (d, kv_out), (d, kv_out), (q_out, d), (d, f), (d, f), (f, d)]
+    layer = sum(i * o + 4 * o for i, o in mats) + 2 * 4 * d
+    head = d * cfg.vocab_size + 4 * cfg.vocab_size
+    return n_l * layer + head + 2 * cfg.vocab_size * d + 4 * d
+
+
+def phase_serve_int8(flash, paged, bf16: dict) -> dict:
+    """Main path 6, int8 serving: ``infer/server.py --quantize int8
+    --kv-quant int8 --engine continuous --cache-mode paged`` built in
+    process, ``llama3-8b`` at full width and depth. The continuous engine
+    serves the continuous path's 12 requests over HTTP (K3 over int8 pools
+    on every decode step, K1 on every cold prefill); then the lock-step
+    ``Generator`` serves five logprob requests over the same server. ``bf16``
+    is the float continuous path's summary. Returns the launch counts."""
+    import torch
+
+    from ditl_tpu_torch.infer import server as server_mod
+    from ditl_tpu_torch.ops.quant import is_quantized_leaf
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    server = server_mod.create_server([
+        "--preset", "llama3-8b", "--override", "attention_impl=flash", "--device", "cuda",
+        "--host", "127.0.0.1", "--port", "0", "--seed", "0", "--quantize", "int8",
+        "--kv-quant", "int8", "--engine", "continuous", "--cache-mode", "paged",
+        "--slots", "8", "--page-size", "256", "--max-cache-len", "2048",
+    ])
+    gen = server.RequestHandlerClass.generator
+    engine = server.engine._engine
+    cfg = gen.cfg
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    require((cfg.name, cfg.num_layers, cfg.hidden_size, cfg.kv_cache_dtype,
+             cfg.attention_impl) == ("llama3-8b", 32, 4096, "int8", "flash"), cfg)
+    layers = gen.params["layers"]
+    require(all(is_quantized_leaf(w) and w["q"].dtype == torch.int8
+                for group in ("attn", "mlp") for w in layers[group].values()), "layers")
+    require(is_quantized_leaf(gen.params["lm_head"]["kernel"]), "lm head")
+    require(gen.params["embed"]["embedding"].dtype == torch.bfloat16, "embedding")
+    pools = engine.cache
+    require((pools["kp"].dtype, pools["vp"].dtype, pools["ks"].dtype, pools["vs"].dtype)
+            == (torch.int8, torch.int8, torch.float32, torch.float32), pools.keys())
+    pool_bytes = sum(t.numel() * t.element_size() for t in pools.values())
+    value_bytes = pools["kp"].numel() + pools["vp"].numel()
+    scale_bytes = pool_bytes - value_bytes
+    require(engine.n_pages == bf16["n_pages"] and 2 * value_bytes == bf16["pool_bytes"],
+            (engine.n_pages, value_bytes, bf16))
+    tree_bytes = sum(t.numel() * t.element_size() for t in _tensors(gen.params))
+    reckoned = _int8_weight_bytes(cfg)
+    require(tree_bytes == reckoned, (tree_bytes, reckoned))
+    weights_gib = (torch.cuda.memory_allocated() - base - pool_bytes) / 2**30
+    require(abs(weights_gib - reckoned / 2**30) < 0.1, (weights_gib, reckoned))
+    log(f"[int8] server built in {built_s:.1f}s (weights drawn, quantized to int8, "
+        f"engines built); resident weights {weights_gib:.3f} GiB "
+        f"(torch.cuda.memory_allocated, less the pools), reckoned from the config "
+        f"{reckoned / 2**30:.3f} GiB, bf16 serving tree 16.0 GiB (path 1); pools: "
+        f"{engine.n_pages} pages, int8 values {value_bytes / 1e9:.3f} GB + f32 scales "
+        f"{scale_bytes / 1e6:.1f} MB = {pool_bytes / 1e9:.3f} GB against "
+        f"{bf16['pool_bytes'] / 1e9:.3f} GB of bf16 pools at the same page count "
+        f"({pool_bytes / bf16['pool_bytes']:.3f}x)")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    tok = gen.tokenizer
+    requests, repeated = _continuous_requests()
+    lock_prompt = _text(60, 400)
+    lock_requests = [{"prompt": _text(61 + i, n), "max_tokens": 16, "logprobs": 1}
+                     for i, n in enumerate((100, 300))]
+    lock_requests += [{"prompt": lock_prompt, "max_tokens": 24, "logprobs": 1}] * 2
+    lock_requests += [{"prompt": _text(63, 200), "max_tokens": 16, "logprobs": 1,
+                       "temperature": 0.8, "seed": 5}]
+    try:
+        flash.reset_launches()  # the continuous half's counts start here
+        paged.reset_launches()
+        results, wall = _send_continuous(url, requests, engine)
+        launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail,
+                    "paged_tail_int8": paged.launches_tail_int8,
+                    "paged": paged.launches}  # read right after the run
+        st = engine.stats()
+        flash.reset_launches()  # the lock-step half's counts start here
+        paged.reset_launches()
+        lock_bodies = []
+        for payload in lock_requests:
+            status, body = _http("POST", url + "/v1/completions", payload)
+            require(status == 200, (status, body))
+            lock_bodies.append(body)
+        lock_launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail,
+                         "paged_tail_int8": paged.launches_tail_int8}
+    finally:
+        server.close(drain=True)
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "server thread did not stop")
+
+    n_tokens = 0
+    for i, payload in enumerate(requests):
+        require(i in results, f"request {i} did not answer")
+        status, body, w = results[i]
+        require(status == 200, (i, status, body))
+        n = body["usage"]["completion_tokens"]
+        n_tokens += n
+        require(n >= 1, body)
+        if not payload.get("temperature"):
+            require(n == payload["max_tokens"], (i, body))
+    require(st["prefix_cache"]["hit_tokens"] >= 512 * 3, st["prefix_cache"])
+    require(st["pages_free"] + st["pages_cached_evictable"] == st["pages_total"], st)
+    want_k3 = cfg.num_layers * st["decode_steps"]
+    require(launches["paged_tail_int8"] == want_k3, (launches, st["decode_steps"]))
+    require(launches["paged_tail"] == 0 and launches["paged"] == 0, launches)
+    require(launches["flash_fwd"] == cfg.num_layers * st["prefills_cold"],
+            (launches, st["prefills_cold"]))
+    ms_step = st["decode_seconds"] / st["decode_steps"] * 1e3
+    log(f"[int8] continuous: K3-int8 launches {launches['paged_tail_int8']} = "
+        f"{cfg.num_layers} layers x {st['decode_steps']} decode steps "
+        f"({st['decode_ticks']} ticks), float K3 launches {launches['paged_tail']}; K1 "
+        f"launches {launches['flash_fwd']} = {cfg.num_layers} x {st['prefills_cold']} cold "
+        f"prefills; prefix cache {st['prefix_cache']}")
+    log(f"[int8] continuous: {len(requests)} concurrent requests in {wall:.3f}s wall: "
+        f"{n_tokens} generated tokens, {n_tokens / wall:.1f} tokens/s aggregate; decode "
+        f"{ms_step:.2f} ms per step against {bf16['ms_step']:.2f} ms on the bf16 path, "
+        f"{bf16['tokens_s']:.1f} tokens/s there (host clock, each tick ends in a "
+        f"device-to-host copy; {SMI})")
+    require(lock_launches["flash_fwd"] == cfg.num_layers * len(lock_requests)
+            and lock_launches["paged_tail"] == lock_launches["paged_tail_int8"] == 0,
+            lock_launches)
+    a, b = (body["choices"][0] for body in lock_bodies[2:4])
+    require(a["logprobs"]["token_logprobs"] == b["logprobs"]["token_logprobs"]
+            and a["logprobs"]["tokens"] == b["logprobs"]["tokens"], (a, b))
+    for payload, body in zip(lock_requests, lock_bodies):
+        lps = body["choices"][0]["logprobs"]["token_logprobs"]
+        require(all(x == x and x <= 0 for x in lps), lps)  # finite log-probabilities
+        if not payload.get("temperature"):
+            require(body["usage"]["completion_tokens"] == payload["max_tokens"], body)
+    log(f"[int8] lock-step Generator over the int8 cache: {len(lock_requests)} logprob "
+        f"requests, K1 launches {lock_launches['flash_fwd']} = {cfg.num_layers} x "
+        f"{len(lock_requests)} prefills, the repeated greedy request gave identical "
+        f"tokens and logprobs")
+
+    # Greedy output identical across two runs of the engine (the server has
+    # stopped, so this thread owns it), and one decode tick's logits through
+    # K3-int8 against the plain version's int8 branch.
+    prompt = [tok.bos_id] + tok.encode(repeated)
+    runs = []
+    for _ in range(2):
+        rid = engine.submit(prompt, max_new_tokens=24)
+        runs.append(engine.run()[rid])
+    require(len(runs[0]) == 24 and runs[0] == runs[1], runs)
+    log("[int8] the same greedy request run twice on the engine: identical tokens")
+    _check_decode_step(engine, paged, "int8", "K3-int8")
+    log(f"[int8] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return {"flash_fwd": launches["flash_fwd"] + lock_launches["flash_fwd"],
+            "paged_tail_int8": launches["paged_tail_int8"]}
 
 
 def main() -> int:
@@ -2273,18 +2636,25 @@ def main() -> int:
     errors = phase_kernels(flash, train_seg)
     errors.update(phase_bwd_kernels(flash, train_seg))
     errors.update(phase_paged_kernels(paged))
+    errors.update(phase_paged_int8_kernels(paged))
     timings = phase_timings(flash)
     train_timings = phase_train_timings(flash, train_seg)
     timings.update(train_timings)
     timings.update(phase_paged_timings(paged))
+    timings.update(phase_paged_int8_timings(paged))
     errors.update(phase_mm_kernels(mlp_bwd, proj))
     timings.update(phase_mm_timings(mlp_bwd, proj))
     gc.collect()
     torch.cuda.empty_cache()
     gen, lockstep = phase_serve(flash, paged)
-    continuous = phase_serve_continuous(gen, flash, paged)
-    # Free the serving weights and pools before the 8B training state.
+    continuous, bf16_summary = phase_serve_continuous(gen, flash, paged)
+    # Free the bf16 serving weights and pools before path 6's int8 ones.
     del gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[int8] after freeing the bf16 serving state: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    int8_serve = phase_serve_int8(flash, paged, bf16_summary)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train] after freeing the serving state: "
@@ -2313,12 +2683,13 @@ def main() -> int:
     # on training path 4; K4 has no serving path, so its count is the
     # kernels phase's direct calls.
     launches = {"flash_fwd": lockstep["flash_fwd"] + continuous["flash_fwd"]
-                + training["flash_fwd"] + training4["flash_fwd"] + recipe["flash_fwd"]
-                + ckpt_serve["flash_fwd"],
+                + int8_serve["flash_fwd"] + training["flash_fwd"] + training4["flash_fwd"]
+                + recipe["flash_fwd"] + ckpt_serve["flash_fwd"],
                 "flash_dq": training["flash_dq"] + training4["flash_dq"] + recipe["flash_dq"],
                 "flash_dkv": (training["flash_dkv"] + training4["flash_dkv"]
                               + recipe["flash_dkv"]),
                 "paged_tail": continuous["paged_tail"] + ckpt_serve["paged_tail"],
+                "paged_tail_int8": int8_serve["paged_tail_int8"],
                 "paged": errors.pop("paged_direct_launches"),
                 **{k: training4[k] + recipe[k]
                    for k in ("mlp_dgu_dwdown", "mlp_dh_dwgu", "proj_bwd")}}
@@ -2331,6 +2702,7 @@ def main() -> int:
         kernels.append({"name": name, **meta, "launches": launches[name],
                         "max_abs_err": errors[name], **timings[name]})
     log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}, "
+        f"int8 serving {int8_serve}, "
         f"training {training}, training with the MLP and projection kernels {training4}, "
         f"the recipe under its three policies {recipe}, the served checkpoint "
         f"{ckpt_serve}")

@@ -65,7 +65,7 @@ class ModelConfig:
     # "xla" (plain PyTorch attention) | "flash" (the hand-written CUDA
     # kernels, ops/flash_attention.py: K1 forward, K2a/K2b backward).
     attention_impl: str = "xla"
-    kv_cache_dtype: str = ""  # "" / "model"; "int8" raises (not ported)
+    kv_cache_dtype: str = ""  # "" / "model" (the compute dtype) or "int8"
     # Rematerialization of the training forward (models/llama.py): "none" |
     # "full" (each decoder layer under torch.utils.checkpoint) | "dots" (keep
     # the weight products) | "dots_inputs" (those plus the tagged attn_in and

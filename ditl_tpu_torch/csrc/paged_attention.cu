@@ -7,9 +7,10 @@
 //   pages through the page table, positions [0, min(starts, lengths)), and
 //   then the tick's contiguous tail buffer, positions [starts, lengths);
 // - K4 _paged_kernel, the same without a tail: pages up to lengths.
-// Entry points: ditl_paged_tail_bf16 (K3) and ditl_paged_bf16 (K4). Both are
-// instances of one template, for head_dim 64 and 128, in float pools and
-// single-query form (int8 pools and the multi-query verify are not here).
+// Entry points: ditl_paged_tail_bf16 (K3), ditl_paged_tail_i8 (K3 over int8
+// pools: _paged_tail_kernel with quantized=True) and ditl_paged_bf16 (K4).
+// All are instances of one template, for head_dim 64 and 128, in
+// single-query form (the multi-query verify is not here).
 //
 // Bound on the card: the kernel is bytes-bound. It must read each live key's
 // K and V once per slot that reads it (2 * K * D * 2 bytes per key), the live
@@ -57,6 +58,25 @@
 // tiles with plain loads, a thread per (row, key) dot) gave 64 blocks for
 // 132 SMs and ran at 6% of the bound, paced by the longest slot.
 //
+// int8 pools (ditl_paged_tail_i8). The pools hold int8 values and f32
+// scales of shape (P, K, 1, ps), one per (page, KV head, position); the tail
+// stays bf16. Bound at the decode tick (8 slots, 4,343 live keys, 8 KV heads,
+// D = 128): 8.9 MB of int8 K/V plus 0.28 MB of scales, about 2.7 us at 3.35
+// TB/s, half the float kernel's bytes. The design is the float kernel's with
+// a staging step, the simplest that keeps its tensor-core path: a page row's
+// D int8 bytes come by cp.async (16 values a copy) into a raw int8 tile, and
+// the row's two scales by 4-byte cp.async into a scale tile, both double
+// buffered beside the bf16 tiles; tail rows and dead rows go to the bf16
+// tile as before. After the wait, one pass converts the page rows to bf16
+// into the bf16 tile (int8 -> bf16 is exact: |q| <= 127), so the q.k and
+// p.V products and their ldmatrix/mma.sync fragments are unchanged. K's
+// scale multiplies each page key's f32 score (times the softmax scale)
+// before the running max; V's scale multiplies p, before p's rounding to
+// bf16 for the p.V product, while the row sum l adds the unscaled p, so acc
+// / l is the reference's sum of (p * vs) . v over sum of p. Tail keys take
+// scale 1. Converting in registers on the way to the products, TMA and
+// wgmma are later work.
+//
 // Semantics kept from the reference: the q.k scores are f32 and scaled in
 // f32 (here the scale multiplies the f32 sums of the exact bf16 products,
 // which differs from scaling q first by f32 rounding alone); masked columns
@@ -91,7 +111,7 @@ constexpr float kNegInf = -2.3819763e38f;  // ops/attention.py NEG_INF
 
 struct Params {
   const uint16_t* q;        // (B, H, D)
-  const uint16_t* k_pages;  // (P, K, ps, D)
+  const uint16_t* k_pages;  // (P, K, ps, D), float pools
   const uint16_t* v_pages;
   const int* table;         // (B, max_pages)
   const int* lengths;       // (B,)
@@ -103,6 +123,10 @@ struct Params {
   float* part_ml;           // (B, K, n_split, G, 2): m, l
   int kv_heads, groups, page_size, max_pages, n_pool, tail_len, split, n_split;
   float scale;
+  const int8_t* k_i8;       // (P, K, ps, D), int8 pools (ditl_paged_tail_i8)
+  const int8_t* v_i8;
+  const float* k_scale;     // (P, K, 1, ps)
+  const float* v_scale;
 };
 
 // Shared memory of a split block: two stages of (K, V) tiles with rows
@@ -119,6 +143,14 @@ struct Layout {
   static constexpr int kL = kM + kMaxGroups * 4;
   static constexpr int kAlpha = kL + kMaxGroups * 4;
   static constexpr int kBytes = kAlpha + kMaxGroups * 4;
+  // int8 pools: two stages of raw int8 K and V tiles (D bytes a key), then
+  // two stages of the tile's 64 K and 64 V scales.
+  static constexpr int kQTile = kTile * D;
+  static constexpr int kQStage = 2 * kQTile;
+  static constexpr int kQ = kBytes;
+  static constexpr int kScStage = 2 * kTile * 4;
+  static constexpr int kSc = kQ + 2 * kQStage;
+  static constexpr int kBytesI8 = kSc + 2 * kScStage;
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -149,6 +181,38 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
                : "memory");
+}
+
+// 4 bytes global -> shared (a scale); with valid == false, zero-filled.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Two int8 values (bits lo..lo+15 of w) as a bf16 pair; exact.
+__device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t w, int lo) {
+  const float a = static_cast<float>(static_cast<int8_t>((w >> lo) & 0xffu));
+  const float b = static_cast<float>(static_cast<int8_t>((w >> (lo + 8)) & 0xffu));
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(b))) << 16);
+}
+
+// 16 int8 values at src -> 16 bf16 values at dst (both in shared memory,
+// 16-byte aligned).
+__device__ __forceinline__ void i8x16_to_bf16(const uint8_t* src, uint8_t* dst) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  uint4 lo, hi;
+  lo.x = i8x2_bf16x2(w.x, 0);
+  lo.y = i8x2_bf16x2(w.x, 16);
+  lo.z = i8x2_bf16x2(w.y, 0);
+  lo.w = i8x2_bf16x2(w.y, 16);
+  hi.x = i8x2_bf16x2(w.z, 0);
+  hi.y = i8x2_bf16x2(w.z, 16);
+  hi.z = i8x2_bf16x2(w.w, 0);
+  hi.w = i8x2_bf16x2(w.w, 16);
+  reinterpret_cast<uint4*>(dst)[0] = lo;
+  reinterpret_cast<uint4*>(dst)[1] = hi;
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -220,12 +284,25 @@ __device__ __forceinline__ Live slot_live(const Params& p, int b) {
   return live;
 }
 
+// Page id of page position v (< live.tail0) of slot row trow. Out-of-range
+// page ids clamp into the pool, as JAX's gather does.
+__device__ __forceinline__ long page_of(const Params& p, const int* trow, int v) {
+  return min(max(trow[v / p.page_size], 0), p.n_pool - 1);
+}
+
 // K and V of the tile at t0 into stage buffers kb / vb (shared addresses),
-// 16 bytes a copy; dead rows arrive as zeros.
-template <int D>
+// 16 bytes a copy; dead rows arrive as zeros. int8 pools (kI8): a live page
+// row's int8 values go to the staging tiles at qb (K, then V kQTile bytes
+// on) and its two scales to sb (K, then V 256 bytes on), the page rows'
+// bf16 rows being filled by the convert pass after the wait; the scales of
+// tail and dead rows arrive as zeros.
+template <int D, bool kI8>
 __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int b, int kh,
-                                          int t0, uint32_t kb, uint32_t vb) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+                                          int t0, uint32_t kb, uint32_t vb, uint32_t qb,
+                                          uint32_t sb) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
+  constexpr int kChunksI8 = D / 16;  // of an int8 row
+  static_assert(kThreads == 2 * kTile, "one thread per K or V scale of a tile");
   const int* trow = p.table + (long)b * p.max_pages;
 #pragma unroll
   for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
@@ -233,14 +310,23 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
     const int r = idx / kChunks, c = idx % kChunks;
     const int v = t0 + r;
     const bool ok = live.key(v);
-    const uint16_t* ks = p.k_pages;
-    const uint16_t* vs = p.v_pages;
+    if (kI8 && ok && v < live.tail0) {
+      if (c < kChunksI8) {
+        const long off = ((page_of(p, trow, v) * p.kv_heads + kh) * p.page_size +
+                          v % p.page_size) * D + 16 * c;
+        const uint32_t at = r * D + c * 16;
+        cp_async16(qb + at, p.k_i8 + off, true);
+        cp_async16(qb + Layout<D>::kQTile + at, p.v_i8 + off, true);
+      }
+      continue;
+    }
+    // Dead rows read nothing; their address is any valid one.
+    const uint16_t* ks = kI8 ? p.tail_k : p.k_pages;
+    const uint16_t* vs = kI8 ? p.tail_v : p.v_pages;
     long off = 0;
     if (ok) {
       if (v < live.tail0) {
-        // Out-of-range page ids clamp into the pool, as JAX's gather does.
-        const long pid = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
-        off = ((pid * p.kv_heads + kh) * p.page_size + v % p.page_size) * D;
+        off = ((page_of(p, trow, v) * p.kv_heads + kh) * p.page_size + v % p.page_size) * D;
       } else {
         ks = p.tail_k;
         vs = p.tail_v;
@@ -250,6 +336,16 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
     const uint32_t at = r * Layout<D>::kLd + c * 16;
     cp_async16(kb + at, ks + off + 8 * c, ok);
     cp_async16(vb + at, vs + off + 8 * c, ok);
+  }
+  if (kI8) {
+    const int r = threadIdx.x % kTile;
+    const bool is_v = threadIdx.x >= kTile;
+    const int v = t0 + r;
+    const bool ok = live.key(v) && v < live.tail0;
+    const long off = ok ? (page_of(p, trow, v) * p.kv_heads + kh) * p.page_size +
+                              v % p.page_size
+                        : 0;
+    cp_async4(sb + (is_v ? kTile * 4 : 0) + r * 4, (is_v ? p.v_scale : p.k_scale) + off, ok);
   }
   cp_commit();
 }
@@ -301,7 +397,7 @@ __global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
   p.o[(bk * groups + g) * D + d] = __bfloat16_as_ushort(__float2bfloat16_rn(o));
 }
 
-template <int D, bool kTail>
+template <int D, bool kTail, bool kI8>
 __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
   using L = Layout<D>;
   constexpr int kKSteps = D / 16;       // q.k: 16 dimensions a product
@@ -341,19 +437,43 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 #pragma unroll
   for (int j = 0; j < kNTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  load_tile<D>(p, live, b, kh, cur, base, base + L::kTileBytes);
+  load_tile<D, kI8>(p, live, b, kh, cur, base, base + L::kTileBytes, base + L::kQ,
+                    base + L::kSc);
   __syncthreads();  // m and l initialised
   for (int stage = 0; cur >= 0; stage ^= 1) {
     const int nxt = live.next(cur + kTile, v1);
     const uint32_t kb = base + stage * L::kStageBytes, vb = kb + L::kTileBytes;
+    // int8 pools: this stage's K and V scales (0 on tail and dead rows)
+    const float* sks = reinterpret_cast<const float*>(smem + L::kSc + stage * L::kScStage);
+    const float* svs = sks + kTile;
     if (nxt >= 0) {
-      const uint32_t nb = base + (stage ^ 1) * L::kStageBytes;
-      load_tile<D>(p, live, b, kh, nxt, nb, nb + L::kTileBytes);
+      const int ns = stage ^ 1;
+      const uint32_t nb = base + ns * L::kStageBytes;
+      load_tile<D, kI8>(p, live, b, kh, nxt, nb, nb + L::kTileBytes,
+                        base + L::kQ + ns * L::kQStage, base + L::kSc + ns * L::kScStage);
       cp_wait<1>();
     } else {
       cp_wait<0>();
     }
-    __syncthreads();  // the tile's K and V are in shared memory
+    __syncthreads();  // the tile's K and V (int8: raw pages and scales) are in shared memory
+    if (kI8) {
+      // The page rows' int8 values into the bf16 tiles.
+      constexpr int kChunksI8 = D / 16;
+      const uint8_t* qk = smem + L::kQ + stage * L::kQStage;
+      uint8_t* kt = smem + stage * L::kStageBytes;
+#pragma unroll
+      for (int i = 0; i < kTile * kChunksI8 / kThreads; ++i) {
+        const int idx = tid + i * kThreads;
+        const int r = idx / kChunksI8, c = idx % kChunksI8;
+        const int v = cur + r;
+        if (live.key(v) && v < live.tail0) {
+          i8x16_to_bf16(qk + r * D + c * 16, kt + r * L::kLd + c * 32);
+          i8x16_to_bf16(qk + L::kQTile + r * D + c * 16,
+                        kt + L::kTileBytes + r * L::kLd + c * 32);
+        }
+      }
+      __syncthreads();
+    }
 
     // Scores of warp w's 16 keys (two n8 blocks), times the scale in f32;
     // dead keys get the finite mask value.
@@ -371,16 +491,22 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int r = 16 * warp + 8 * j + 2 * quad;
+          float s0 = c[j][0] * p.scale, s1 = c[j][1] * p.scale;
+          if (kI8) {  // K's scale on a page key's score
+            if (cur + r < live.tail0) s0 *= sks[r];
+            if (cur + r + 1 < live.tail0) s1 *= sks[r + 1];
+          }
           float2 sc;
-          sc.x = live.key(cur + r) ? c[j][0] * p.scale : kNegInf;
-          sc.y = live.key(cur + r + 1) ? c[j][1] * p.scale : kNegInf;
+          sc.x = live.key(cur + r) ? s0 : kNegInf;
+          sc.y = live.key(cur + r + 1) ? s1 : kNegInf;
           *reinterpret_cast<float2*>(ss + row * kTile + r) = sc;
         }
       }
     }
     __syncthreads();
 
-    // Online softmax, one warp per query row; p to bf16 for the product.
+    // Online softmax, one warp per query row; p to bf16 for the product
+    // (int8: p times V's scale; l adds the unscaled p).
     for (int g = warp; g < groups; g += kWarps) {
       const float s0 = ss[g * kTile + lane];
       const float s1 = ss[g * kTile + lane + 32];
@@ -389,8 +515,13 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
       const float p0 = expf(s0 - m_next);
       const float p1 = expf(s1 - m_next);
       const float rs = warp_sum(p0 + p1);
-      sp[g * kPLd + lane] = __bfloat16_as_ushort(__float2bfloat16_rn(p0));
-      sp[g * kPLd + lane + 32] = __bfloat16_as_ushort(__float2bfloat16_rn(p1));
+      float w0 = p0, w1 = p1;
+      if (kI8) {
+        if (cur + lane < live.tail0) w0 *= svs[lane];
+        if (cur + lane + 32 < live.tail0) w1 *= svs[lane + 32];
+      }
+      sp[g * kPLd + lane] = __bfloat16_as_ushort(__float2bfloat16_rn(w0));
+      sp[g * kPLd + lane + 32] = __bfloat16_as_ushort(__float2bfloat16_rn(w1));
       if (lane == 0) {
         const float alpha = expf(m_prev - m_next);
         salpha[g] = alpha;
@@ -446,24 +577,25 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
   }
 }
 
-template <int D, bool kTail>
+template <int D, bool kTail, bool kI8>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   static bool prepared = false;
-  auto kernel = paged_split_kernel<D, kTail>;
+  constexpr int kSmem = kI8 ? Layout<D>::kBytesI8 : Layout<D>::kBytes;
+  auto kernel = paged_split_kernel<D, kTail, kI8>;
   if (!prepared) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::kBytes);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     prepared = true;
   }
-  kernel<<<dim3(p.n_split, p.kv_heads, batch), kThreads, Layout<D>::kBytes, stream>>>(p);
+  kernel<<<dim3(p.n_split, p.kv_heads, batch), kThreads, kSmem, stream>>>(p);
   if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
   paged_merge_kernel<D, kTail><<<dim3(p.groups, p.kv_heads, batch), D,
                                  2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kTail>
+template <bool kTail, bool kI8>
 int dispatch(Params p, int batch, int heads, int head_dim, void* stream) {
   if (batch < 1 || p.kv_heads < 1 || heads % p.kv_heads || heads / p.kv_heads > kMaxGroups ||
       p.page_size < 1 || p.max_pages < 1 || p.n_pool < 1 || (kTail && p.tail_len < 1) ||
@@ -478,9 +610,9 @@ int dispatch(Params p, int batch, int heads, int head_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch<64, kTail>(p, batch, s);
+      return launch<64, kTail, kI8>(p, batch, s);
     case 128:
-      return launch<128, kTail>(p, batch, s);
+      return launch<128, kTail, kI8>(p, batch, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -508,7 +640,27 @@ extern "C" int ditl_paged_tail_bf16(const void* q, const void* k_pages, const vo
                  static_cast<uint16_t*>(o), static_cast<float*>(part_acc),
                  static_cast<float*>(part_ml), kv_heads, 0, page_size, max_pages, n_pool,
                  tail_len, split, 0, scale};
-  return dispatch<true>(p, batch, heads, head_dim, stream);
+  return dispatch<true, false>(p, batch, heads, head_dim, stream);
+}
+
+// K3 over int8 pools: as ditl_paged_tail_bf16, with int8 pools (P, K, ps, D)
+// and their f32 scales k_scale, v_scale (P, K, 1, ps); q and the tails bf16.
+extern "C" int ditl_paged_tail_i8(const void* q, const void* k_pages, const void* v_pages,
+                                  const void* k_scale, const void* v_scale, const void* table,
+                                  const void* lengths, const void* starts, const void* tail_k,
+                                  const void* tail_v, void* o, void* part_acc, void* part_ml,
+                                  int batch, int heads, int kv_heads, int head_dim,
+                                  int page_size, int max_pages, int n_pool, int tail_len,
+                                  int split, float scale, void* stream) {
+  const Params p{static_cast<const uint16_t*>(q), nullptr, nullptr,
+                 static_cast<const int*>(table), static_cast<const int*>(lengths),
+                 static_cast<const int*>(starts), static_cast<const uint16_t*>(tail_k),
+                 static_cast<const uint16_t*>(tail_v), static_cast<uint16_t*>(o),
+                 static_cast<float*>(part_acc), static_cast<float*>(part_ml), kv_heads, 0,
+                 page_size, max_pages, n_pool, tail_len, split, 0, scale,
+                 static_cast<const int8_t*>(k_pages), static_cast<const int8_t*>(v_pages),
+                 static_cast<const float*>(k_scale), static_cast<const float*>(v_scale)};
+  return dispatch<true, true>(p, batch, heads, head_dim, stream);
 }
 
 // K4: the same without a tail; pages up to lengths; n_split = ceil(maxp * ps
@@ -524,5 +676,5 @@ extern "C" int ditl_paged_bf16(const void* q, const void* k_pages, const void* v
                  static_cast<uint16_t*>(o), static_cast<float*>(part_acc),
                  static_cast<float*>(part_ml), kv_heads, 0, page_size, max_pages, n_pool, 0,
                  split, 0, scale};
-  return dispatch<false>(p, batch, heads, head_dim, stream);
+  return dispatch<false, false>(p, batch, heads, head_dim, stream);
 }

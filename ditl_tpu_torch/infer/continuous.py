@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's ``infer/continuous.py``, in its plain paged
 configuration: ``cache_mode="paged"``, ``admission="reserve"``, whole-prompt
-prefill, plain decode ticks, float pools, one device, and automatic prefix
-reuse (which paged mode always does). Requests join and leave between decode
-ticks:
+prefill, plain decode ticks, float or int8 pools, one device, and automatic
+prefix reuse (which paged mode always does). Requests join and leave between
+decode ticks:
 
 - **Slots.** ``n_slots`` sequences decode together, each at its own
   position; every tick runs all slots, live or not (fixed shapes).
@@ -12,7 +12,11 @@ ticks:
   a per-slot page table maps logical block -> physical page
   (``infer/paged_cache.py``). Admission reserves a request's worst-case
   pages (prompt + max_new) or leaves it queued; every FULL prompt page is
-  published and reused by later prompts that share the prefix.
+  published and reused by later prompts that share the prefix. With
+  ``kv_cache_dtype="int8"`` the pools hold int8 values plus f32 scales
+  ``ks``/``vs`` of shape (L, P, K, 1, ps), one per (page, KV head,
+  position), quantized as the contiguous cache quantizes (absmax over D);
+  shared prefix pages share their scales.
 - **Prefill into a slot.** A cold prompt runs the causal prefill over its
   bucket (the flash kernel, K1, with ``attention_impl="flash"``); a prompt
   whose leading pages matched runs the masked cached forward over its
@@ -22,7 +26,8 @@ ticks:
   K/V go into a small per-tick tail buffer, attention reads the pages plus
   the tail (the CUDA kernel K3, ``ops/paged_attention.py``), and after the
   last step one in-place scatter flushes the valid tail columns into their
-  pages. No host sync inside a tick: one device-to-host copy of the emitted
+  pages (int8 pools: the bf16 tail is quantized there, once per tick, so a
+  token attends at full precision within its own tick). No host sync inside a tick: one device-to-host copy of the emitted
   tokens per tick, which the host harvests (EOS/pad-delimited).
 
 PyTorch runs eagerly, so the reference's compiled-program caches go away
@@ -39,8 +44,8 @@ Everything else of the reference engine raises ``NotImplementedError`` and
 is queued in ``ROADMAP.md``: the contiguous cache, chunked prefill, token
 budgets, optimistic admission with preemption, speculative ticks and draft
 models, logprobs, grammar masks, multi-LoRA stacks, the host-RAM tier and KV
-handoff, ``register_prefix``, deadlines, pipelined ticks, int8 KV, meshes,
-and the telemetry planes.
+handoff, ``register_prefix``, deadlines, pipelined ticks, meshes, and the
+telemetry planes.
 """
 
 from __future__ import annotations
@@ -109,14 +114,25 @@ class Request:
         return (SLO_CLASSES[self.slo_class], self.req_id)
 
 
+def _quantize_pages(chunk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(L, n, K, ps, D) float -> int8 values + (L, n, K, 1, ps) f32 scales:
+    the contiguous cache's recipe (``infer/cache._quantize``, absmax per
+    position over D)."""
+    from ditl_tpu_torch.infer.cache import _quantize
+
+    q, scale = _quantize(chunk)
+    return q, scale[:, :, :, None, :]
+
+
 def _flush_tail_into_pools(pools: dict, tk: torch.Tensor, tv: torch.Tensor,
                            starts: torch.Tensor, pos: torch.Tensor,
                            table: torch.Tensor, ps: int) -> None:
     """Scatter the tick's tail columns into their pages, in place: one
     scatter per pool per tick. Valid columns are j < pos - starts (the
     tokens the tick committed); invalid ones aim at sentinel page 0 with
-    row-distinct offsets, whose content is never read unmasked. All on the
-    device: no host sync."""
+    row-distinct offsets, whose content is never read unmasked. int8 pools:
+    the tail is quantized here and its scales scattered beside the values.
+    All on the device: no host sync."""
     n_l, n_b, n_k, tail_len, d = tk.shape
     dev = tk.device
     j = torch.arange(tail_len, device=dev)
@@ -126,7 +142,16 @@ def _flush_tail_into_pools(pools: dict, tk: torch.Tensor, tv: torch.Tensor,
     pid = torch.where(valid, pidx, 0).reshape(-1)
     rows = torch.arange(n_b, device=dev)[:, None] * tail_len + j[None, :]
     off = torch.where(valid, gpos % ps, rows % ps).reshape(-1)
-    for pool, tail in ((pools["kp"], tk), (pools["vp"], tv)):
+    quant = "ks" in pools
+    for name, tail in (("k", tk), ("v", tv)):
+        pool = pools[f"{name}p"]
+        if quant:
+            from ditl_tpu_torch.infer.cache import _quantize
+
+            tail, scale = _quantize(tail)  # scale (L, B, K, T)
+            # (L, P, K, ps) view of the (L, P, K, 1, ps) scales
+            pools[f"{name}s"][:, :, :, 0][:, pid, :, off] = scale.permute(1, 3, 0, 2).reshape(
+                n_b * tail_len, n_l, n_k)
         # tail (L, B, K, T, D) -> (B*T, L, K, D): the advanced indices on
         # pool dims 1 and 3 put the scatter dim first.
         pool[:, pid, :, off] = tail.permute(1, 3, 0, 2, 4).reshape(
@@ -223,9 +248,18 @@ class ContinuousEngine:
         dtype = llama.torch_dtype(model_cfg.dtype)
         shape = (model_cfg.num_layers, self.n_pages, model_cfg.num_kv_heads,
                  page_size, model_cfg.head_dim)
-        self.cache = {"kp": torch.zeros(shape, dtype=dtype, device=dev),
-                      "vp": torch.zeros(shape, dtype=dtype, device=dev)}
-        self.page_bytes = 2 * int(np.prod(shape[:1] + shape[2:])) * dtype.itemsize
+        if model_cfg.kv_cache_dtype == "int8":
+            scale_shape = shape[:3] + (1, page_size)
+            self.cache = {"kp": torch.zeros(shape, dtype=torch.int8, device=dev),
+                          "vp": torch.zeros(shape, dtype=torch.int8, device=dev),
+                          "ks": torch.ones(scale_shape, dtype=torch.float32, device=dev),
+                          "vs": torch.ones(scale_shape, dtype=torch.float32, device=dev)}
+        else:
+            self.cache = {"kp": torch.zeros(shape, dtype=dtype, device=dev),
+                          "vp": torch.zeros(shape, dtype=dtype, device=dev)}
+        # Bytes of one page across layers, K and V (int8: scales included).
+        self.page_bytes = sum(t.numel() * t.element_size()
+                              for t in self.cache.values()) // self.n_pages
         self.allocator = PageAllocator(self.n_pages)
         self._table = np.zeros((n_slots, self.maxp), np.int32)
         # Device mirror, re-uploaded only when the host table changes.
@@ -418,6 +452,7 @@ class ContinuousEngine:
         pids[: min(len(write_pids), n_wp)] = write_pids[:n_wp]
         q_pos = torch.arange(d, d + s_bucket, device=dev)[None]
         kp, vp = self.cache["kp"], self.cache["vp"]
+        ks, vs = self.cache.get("ks"), self.cache.get("vs")
         if ctx == 0:
             row = {"k": torch.empty((n_l, 1, s_bucket, n_k, hd), dtype=dtype, device=dev),
                    "v": torch.empty((n_l, 1, s_bucket, n_k, hd), dtype=dtype, device=dev)}
@@ -429,12 +464,18 @@ class ContinuousEngine:
         else:
             ctx_ids = torch.tensor(np.asarray(ctx_row[:ctx], np.int64), device=dev)
 
-            def to_row(pool):  # (L, ctx, K, ps, D) -> (L, 1, ctx*ps + s_bucket, K, D)
-                g = pool[:, ctx_ids].transpose(2, 3).reshape(n_l, 1, ctx * ps, n_k, hd)
+            def to_row(pool, scales):
+                # (L, ctx, K, ps, D) -> (L, 1, ctx*ps + s_bucket, K, D); int8
+                # pages dequantized (f32 value times scale, then the compute
+                # dtype)
+                g = pool[:, ctx_ids]
+                if scales is not None:
+                    g = (g.float() * scales[:, ctx_ids][:, :, :, 0, :, None]).to(dtype)
+                g = g.transpose(2, 3).reshape(n_l, 1, ctx * ps, n_k, hd)
                 pad = torch.zeros((n_l, 1, s_bucket, n_k, hd), dtype=dtype, device=dev)
                 return torch.cat([g, pad], dim=2)
 
-            row = {"k": to_row(kp), "v": to_row(vp)}
+            row = {"k": to_row(kp, ks), "v": to_row(vp, vs)}
             buf = torch.arange(ctx * ps + s_bucket, device=dev)
             mask = buf[None, None, :] <= q_pos[:, :, None]
             hidden = llama.forward(self.params, ids, cfg, positions=q_pos,
@@ -442,10 +483,14 @@ class ContinuousEngine:
                                    return_hidden=True)
             self.prefills_prefix_hit += 1
         pid_t = torch.from_numpy(pids).to(dev)
-        for pool, name in ((kp, "k"), (vp, "v")):
+        for pool, spool, name in ((kp, ks, "k"), (vp, vs, "v")):
             # (L, 1, s_bucket, K, D) at offset d -> (L, n_wp, K, ps, D)
             chunk = row[name][:, 0, d:d + s_bucket].reshape(n_l, n_wp, ps, n_k, hd)
-            pool[:, pid_t] = chunk.transpose(2, 3)
+            chunk = chunk.transpose(2, 3)
+            if spool is not None:  # int8 pools: quantized pages and their scales
+                chunk, scale = _quantize_pages(chunk)
+                spool[:, pid_t] = scale
+            pool[:, pid_t] = chunk
         last = llama.logits_from_hidden(self.params, hidden[:, s - 1])  # (1, V)
         # Scalar mode: the same draws as the tick's per-row mode from this
         # generator; temperature <= 0 is greedy there, so it is 0 here.

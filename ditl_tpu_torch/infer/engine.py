@@ -11,7 +11,11 @@ match it exactly:
 - decode step t writes slot ``prompt_len + t`` at RoPE position
   ``lengths + t`` and attends to ``slot < lengths`` or
   ``prompt_len <= slot <= prompt_len + t``;
-- after EOS a row emits ``pad_id``.
+- after EOS a row emits ``pad_id``;
+- with ``kv_cache_dtype="int8"`` the cache is int8 with f32 scales
+  (``infer/cache.py``): the prefill still runs the flash kernel over the
+  chunk's own K/V and writes them quantized, and each decode step attends
+  the raw int8 cache with its scales.
 
 PyTorch runs eagerly, so the reference's compiled-program cache goes away and
 its decode ``scan`` is a Python loop. Two steps of the reference's program

@@ -21,12 +21,16 @@ Streaming, adapters, telemetry and pod serving are later slices
 training run's checkpoints (``train/checkpoint.py``: its masters turned into
 the serving tree, checked against the preset and overrides, which must be
 the trained model's); without it, or when the directory holds no step that
-restores, the weights are drawn from ``--seed``. On the card unless
-``--device cpu`` is given:
+restores, the weights are drawn from ``--seed``. ``--kv-quant int8`` makes
+the KV caches int8 (set before the weights are made; the paged decode runs
+K3 over int8 pools), ``--quantize int8`` turns the weights into weight-only
+int8 (``ops/quant.py``, after any restore); both engines serve the result.
+On the card unless ``--device cpu`` is given:
 
     python -m ditl_tpu_torch.infer.server --preset llama3-8b \\
         --override attention_impl=flash [--checkpoint-dir DIR] [--device cuda] \\
-        [--port 8300] [--engine continuous --cache-mode paged]
+        [--port 8300] [--engine continuous --cache-mode paged] \\
+        [--quantize int8] [--kv-quant int8]
 """
 
 from __future__ import annotations
@@ -450,6 +454,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--max-queue", type=int, default=0,
                    help="admission-queue depth cap for --engine continuous; beyond "
                    "it requests get HTTP 429 (0 = unbounded)")
+    p.add_argument("--quantize", choices=("none", "int8"), default="none",
+                   help="weight-only int8 (halves the weights' memory; decode reads "
+                   "stay bf16-sized until a fused int8 product; ops/quant.py)")
+    p.add_argument("--kv-quant", choices=("none", "int8"), default="none",
+                   help="int8 KV cache (halves cache reads/footprint; composes with "
+                   "both cache modes)")
     return p
 
 
@@ -463,6 +473,8 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
     args = _parser().parse_args(argv)
     cfg = get_preset(args.preset) if args.preset else ModelConfig()
     cfg = parse_model_overrides(cfg, args.override)
+    if args.kv_quant == "int8":
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     params = None
     if args.checkpoint_dir:
         from ditl_tpu_torch.train.checkpoint import CheckpointManager
@@ -475,6 +487,11 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
             logger.info("restored params from %s", args.checkpoint_dir)
     if params is None:
         params = llama.init_params(cfg, seed=args.seed, device=args.device)
+    if args.quantize == "int8":
+        from ditl_tpu_torch.ops.quant import quantize_weights
+
+        params = quantize_weights(params, tie_embeddings=cfg.tie_embeddings)
+        logger.info("quantized weights to int8 (weight-only)")
     tokenizer = get_tokenizer("byte")
     generator = Generator(params, cfg, tokenizer, device=args.device)
     threaded = None

@@ -7,7 +7,9 @@ rules of ``models/llama.py::serving_params``. ``train_params_from_jax`` turns
 the same tree into the port's training masters, leaf for leaf in
 ``cfg.param_dtype`` (the JAX tree's
 own storage), and ``params_to_numpy`` goes the other way, so the tests can
-hold updated parameters leaf by leaf. Optimizer state is never converted:
+hold updated parameters leaf by leaf. Weight-only int8 leaves (``{"q",
+"scale"}``, ``ops/quant.py``) pass to the serving tree as they are: ``q``
+int8, ``scale`` f32; training takes float trees only. Optimizer state is never converted:
 both packages' optimizers start from a fresh state. This is the bridge the
 parity tests run through; the Hugging Face import and export wait for a
 later slice.
@@ -28,19 +30,21 @@ from ditl_tpu_torch.utils.device import resolve_device
 __all__ = ["params_from_jax", "train_params_from_jax", "params_to_numpy"]
 
 
-def _tensor(x: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+def _tensor(x: Any, dtype: torch.dtype, device: torch.device,
+            serving: bool) -> torch.Tensor | dict:
     if isinstance(x, Mapping):
-        raise NotImplementedError(
-            "quantized weight leaves are not ported to PyTorch yet "
-            "(see ROADMAP.md)"
-        )
+        if not serving:
+            raise ValueError("training masters take float weights, not int8 "
+                             "{'q', 'scale'} leaves (quantize after training)")
+        return {"q": torch.from_numpy(np.array(x["q"], dtype=np.int8)).to(device),
+                "scale": torch.from_numpy(np.array(x["scale"], dtype=np.float32)).to(device)}
     # Go through f32 so the rounding to bf16 is PyTorch's round-to-nearest-
     # even of the f32 master, exactly the reference's astype.
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(device).to(dtype)
 
 
 def _convert(tree: Mapping, cfg: ModelConfig, dtype: torch.dtype,
-             device: str | torch.device) -> Params:
+             device: str | torch.device, serving: bool) -> Params:
     """Every leaf of a JAX tree as a tensor of ``dtype`` on ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -52,7 +56,7 @@ def _convert(tree: Mapping, cfg: ModelConfig, dtype: torch.dtype,
     def convert(node):
         if isinstance(node, Mapping) and not ("q" in node and "scale" in node):
             return {k: convert(v) for k, v in node.items()}
-        return _tensor(node, dtype, dev)
+        return _tensor(node, dtype, dev, serving)
 
     return convert(tree)
 
@@ -61,14 +65,14 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
                     device: str | torch.device = "cuda") -> Params:
     """JAX parameter tree (numpy leaves) -> the port's serving tree
     (``models/llama.py::serving_params`` of its f32 values)."""
-    return serving_params(_convert(tree, cfg, torch.float32, device), cfg)
+    return serving_params(_convert(tree, cfg, torch.float32, device, True), cfg)
 
 
 def train_params_from_jax(tree: Mapping, cfg: ModelConfig,
                           device: str | torch.device = "cuda") -> Params:
     """JAX parameter tree (numpy leaves) -> training masters: the same tree,
     every leaf in ``cfg.param_dtype`` (no separate head when tied)."""
-    return _convert(tree, cfg, torch_dtype(cfg.param_dtype), device)
+    return _convert(tree, cfg, torch_dtype(cfg.param_dtype), device, False)
 
 
 def params_to_numpy(params: Mapping) -> dict:

@@ -27,7 +27,15 @@ wraps each decoder layer in ``torch.utils.checkpoint`` under every
 ``cfg.remat`` but ``"none"`` (``_apply_remat``). Training masters keep the
 JAX tree exactly (``init_train_params``, every leaf in ``cfg.param_dtype``,
 no separate f32 head); ``serving_params`` turns them into the serving tree.
-MoE, LoRA, int8 caches and quantized weights raise.
+MoE and LoRA raise.
+
+int8 serving, as the reference: weight-only int8 leaves (``{"q", "scale"}``,
+``ops/quant.py``) go through ``weight_matmul`` in every projection, the MLP
+and the lm head (f32 logits), one matrix converted per product; the
+backward seams refuse them. ``kv_cache_dtype="int8"`` makes the caches int8
+with f32 scales: the lock-step decode hands the raw int8 cache and its
+scales to attention, and the paged decode tick hands the int8 pools and
+their scales to K3.
 
 Remat, as the reference's ``_apply_remat``: ``"full"`` keeps nothing of a
 layer; the other policies run selective checkpointing, whose policy sees
@@ -61,6 +69,7 @@ import torch.nn.functional as F
 
 from ditl_tpu_torch.config import ModelConfig
 from ditl_tpu_torch.ops.attention import dot_product_attention
+from ditl_tpu_torch.ops.quant import is_quantized_leaf, weight_matmul
 
 Params = dict[str, Any]
 
@@ -84,8 +93,10 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"MoE (num_experts={cfg.num_experts})")
     if cfg.lora_rank > 0:
         missing.append(f"LoRA (lora_rank={cfg.lora_rank})")
-    if cfg.kv_cache_dtype not in ("", "model"):
-        missing.append(f"kv_cache_dtype={cfg.kv_cache_dtype!r}")
+    if cfg.kv_cache_dtype not in ("", "model", "int8"):
+        raise ValueError(
+            f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r} ('', 'model', 'int8')"
+        )
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + ", ".join(missing)
@@ -181,10 +192,13 @@ def serving_params(tree: Params, cfg: ModelConfig,
     dtype) -> the serving tree, the storage rules of the module note:
     weights and the embedding in ``cfg.dtype``, norm scales in f32, and the
     head in f32 holding compute-dtype values (the transposed embedding when
-    tied). Leaves already in their serving dtype are kept, not copied."""
+    tied). Leaves already in their serving dtype are kept, not copied, and
+    weight-only int8 leaves stay as they are (moved to ``device``)."""
     cd = torch_dtype(cfg.dtype)
 
     def conv(node, norm: bool):
+        if is_quantized_leaf(node):
+            return node if device is None else {k: t.to(device) for k, t in node.items()}
         if isinstance(node, dict):
             return {k: conv(v, norm or "norm" in k) for k, v in node.items()}
         t = node if device is None else node.to(device)
@@ -194,7 +208,8 @@ def serving_params(tree: Params, cfg: ModelConfig,
     if cfg.tie_embeddings:
         head = out["embed"]["embedding"].float().T.contiguous()
     else:
-        head = conv(tree["lm_head"]["kernel"], False).float()
+        head = conv(tree["lm_head"]["kernel"], False)
+        head = head if is_quantized_leaf(head) else head.float()
     out["lm_head"] = {"kernel": head}
     return out
 
@@ -332,7 +347,8 @@ def _paged_decode_attention(q, k, v, layer_cache: dict, paged: dict,
     return paged_attention(
         q[:, 0].contiguous(), layer_cache["kp"], layer_cache["vp"],
         paged["table"], paged["lengths"], tail_k=tk, tail_v=tv,
-        starts=paged["starts"],
+        starts=paged["starts"], k_scale=layer_cache.get("ks"),
+        v_scale=layer_cache.get("vs"),
     )[:, None]
 
 
@@ -352,17 +368,29 @@ def _decoder_layer(
     b, s, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn = lp["attn"]
+    cd = x.dtype
 
-    def proj(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def matmul(t: torch.Tensor, w) -> torch.Tensor:
+        if is_quantized_leaf(w):
+            return weight_matmul(t, w, compute_dtype=cd)
+        return t @ w
+
+    def proj(t: torch.Tensor, w) -> torch.Tensor:
         """The attention projections' product: the ``proj_bwd_impl`` seam.
         ``"pallas"`` keeps the forward bit-identical and swaps the backward
-        for the kernel K6 (ops/projection.py)."""
+        for the kernel K6 (ops/projection.py); a weight-only int8 leaf goes
+        through ``weight_matmul``."""
         if cfg.proj_bwd_impl == "pallas":
+            if is_quantized_leaf(w):
+                raise ValueError(
+                    "proj_bwd_impl='pallas' needs plain float weights "
+                    "(quantized serving never differentiates — leave it off)"
+                )
             from ditl_tpu_torch.ops.projection import projection
 
             return projection(t, w, bwd_impl="pallas",
                               blocks=(cfg.proj_bwd_block_n, cfg.proj_bwd_block_d))
-        return t @ w
+        return matmul(t, w)
 
     h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
     h = checkpoint_name(h, "attn_in", cfg)  # the q/k/v products' wgrad operand
@@ -382,6 +410,14 @@ def _decoder_layer(
         write_kv(layer_cache, k, v, cache_index)
     if paged is not None:
         attn_out = _paged_decode_attention(q, k, v, layer_cache, paged, cfg)
+    elif layer_cache is not None and not prefill_causal and "k_scale" in layer_cache:
+        # Decode over an int8 cache: the raw int8 values and their scales go
+        # to attention, which factors the scales out of the products.
+        attn_out = dot_product_attention(
+            q, layer_cache["k"], layer_cache["v"], causal=False, mask=attn_mask,
+            impl=cfg.attention_impl, k_scale=layer_cache["k_scale"],
+            v_scale=layer_cache["v_scale"],
+        )
     elif layer_cache is not None and not prefill_causal:
         # Decode: attend the whole cache under the per-slot mask.
         k_full, v_full = read_kv(layer_cache, x.dtype)
@@ -411,6 +447,11 @@ def _decoder_layer(
                 "mlp_custom_vjp/mlp_bwd_impl='pallas' require fused_gate_up=True "
                 "(the hand-written backward targets the fused w_gu layout)"
             )
+        if is_quantized_leaf(mlp["w_gu"]) or is_quantized_leaf(mlp["w_down"]):
+            raise ValueError(
+                "mlp_custom_vjp/mlp_bwd_impl need plain float weights "
+                "(quantized serving never differentiates — leave it off)"
+            )
         from ditl_tpu_torch.ops.mlp import mlp_block
 
         return x + mlp_block(
@@ -418,10 +459,10 @@ def _decoder_layer(
             bwd_blocks=(cfg.mlp_bwd_block_n, cfg.mlp_bwd_block_f, cfg.mlp_bwd_block_d),
         )
     if "w_gu" in mlp:
-        gate, up = (h @ mlp["w_gu"]).chunk(2, dim=-1)
+        gate, up = matmul(h, mlp["w_gu"]).chunk(2, dim=-1)
     else:
-        gate, up = h @ mlp["w_gate"], h @ mlp["w_up"]
-    return x + (F.silu(gate) * up) @ mlp["w_down"]
+        gate, up = matmul(h, mlp["w_gate"]), matmul(h, mlp["w_up"])
+    return x + matmul(F.silu(gate) * up, mlp["w_down"])
 
 
 @torch.no_grad()
@@ -469,7 +510,7 @@ def forward(
     x = params["embed"]["embedding"][input_ids].to(cd)
     layers = params["layers"]
     for i in range(cfg.num_layers):
-        lp = {name: {key: w[i] for key, w in group.items()}
+        lp = {name: {key: _layer_slice(w, i) for key, w in group.items()}
               for name, group in layers.items()}
         layer_cache = None
         if cache is not None:
@@ -485,10 +526,21 @@ def forward(
     return logits_from_hidden(params, x)
 
 
+def _layer_slice(w, i: int):
+    """Layer ``i`` of a stacked weight, or of both tensors of an int8 leaf."""
+    if is_quantized_leaf(w):
+        return {"q": w["q"][i], "scale": w["scale"][i]}
+    return w[i]
+
+
 def logits_from_hidden(params: Params, x: torch.Tensor) -> torch.Tensor:
     """f32 logits from final-normed hidden states: exact products of the
-    compute-dtype values, summed in f32 (see the module note)."""
-    return x.float() @ params["lm_head"]["kernel"]
+    compute-dtype values, summed in f32 (see the module note); an int8 head
+    as the reference's ``weight_einsum(..., preferred=f32)``."""
+    head = params["lm_head"]["kernel"]
+    if is_quantized_leaf(head):
+        return weight_matmul(x, head, compute_dtype=x.dtype, preferred=torch.float32)
+    return x.float() @ head
 
 
 def head_weights(params: Params, cfg: ModelConfig) -> torch.Tensor:

@@ -7,6 +7,13 @@ page. ``csrc/paged_attention.cu`` holds two kernels, one per Pallas kernel:
 - **K3** (``ditl_paged_tail_bf16``, replaces ``_paged_tail_kernel``): the
   decode tick's kernel. Positions [0, min(starts, lengths)) come from the
   pages, [starts, lengths) from the tick's contiguous tail buffer.
+- **K3 over int8 pools** (``ditl_paged_tail_i8``, replaces
+  ``_paged_tail_kernel`` with ``quantized=True``): the same with int8 pools
+  and f32 scales ``k_scale``/``v_scale`` of shape (P, K, 1, ps), one per
+  (page, KV head, position); the tail stays bf16. K's scale multiplies the
+  f32 score of its key after the product; V's scale multiplies p in the
+  numerator only (the row sum l adds the unscaled p). The decode tick of
+  ``kv_cache_dtype="int8"`` runs it.
 - **K4** (``ditl_paged_bf16``, replaces ``_paged_kernel``): the same without
   a tail, positions [0, lengths) from the pages. No serving path calls it
   (as in the JAX package, where only its tests do).
@@ -20,13 +27,18 @@ in split order. The grid comes from shapes alone, so the wrapper never
 reads ``lengths`` or ``starts`` back from the card.
 
 - ``paged_attention`` is the wrapper, with the JAX signature: it checks its
-  inputs and, for CUDA tensors, launches K3 (with a tail) or K4 (without) or
-  raises. Only for CPU tensors does it run ``paged_attention_plain``.
-  ``launches_tail`` and ``launches`` count K3 and K4 launches.
+  inputs and, for CUDA tensors, launches K3 (with a tail; its int8 form
+  with scales) or K4 (without) or raises. Only for CPU tensors does it run
+  ``paged_attention_plain``. ``launches_tail``, ``launches_tail_int8`` and
+  ``launches`` count K3, K3 over int8 pools and K4 launches.
 - ``paged_attention_plain`` computes what ``paged_attention_xla`` computes:
   gather the pages, append the tail, mask with the finite ``NEG_INF``, f32
   scores and softmax, p cast to v's dtype before the p.v product (f32
-  accumulation), zeros for dead slots (length 0). 3-D q only.
+  accumulation), zeros for dead slots (length 0). 3-D q only. Over int8
+  pools it computes what the reference kernel's quantized branch computes:
+  scores of the exact int8 values times K's scale, p times V's scale in
+  f32 for the page columns (no rounding), the tail columns as the float
+  branch.
 - ``paged_attention_split_plain`` computes the same in the kernels' order:
   each split's partial tile by tile, then the combine (the tests hold it to
   the JAX package; it is on no serving path).
@@ -35,8 +47,8 @@ Layouts are the JAX package's: q (B, H, D); pools (P, K, ps, D); page table
 (B, maxp) int32; lengths and starts (B,) int32; tails (B, K, T, D); output
 (B, H, D).
 
-Not ported yet (ROADMAP.md): int8 pools with scales, the multi-query
-speculative verify (4-D q), and the mesh-sharded form.
+Not ported yet (ROADMAP.md): the multi-query speculative verify (4-D q) and
+the mesh-sharded form.
 """
 
 from __future__ import annotations
@@ -49,7 +61,7 @@ from ditl_tpu_torch.ops.attention import NEG_INF
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_attention_split_plain",
            "split_count", "HEAD_DIMS", "MAX_GROUPS", "SPLIT_KEYS", "TILE_KEYS", "launches",
-           "launches_tail", "reset_launches"]
+           "launches_tail", "launches_tail_int8", "reset_launches"]
 
 HEAD_DIMS = (64, 128)  # the kernels' template instances
 MAX_GROUPS = 8  # query heads per KV head the kernels take
@@ -59,28 +71,33 @@ TILE_KEYS = 64  # keys per tile inside a split (csrc kTile)
 SPLIT_KEYS = 128
 
 # Kernel launches since the last reset_launches(); counted where each kernel
-# is launched and nowhere else. ``launches_tail`` is K3, ``launches`` K4.
+# is launched and nowhere else. ``launches_tail`` is K3 over float pools,
+# ``launches_tail_int8`` K3 over int8 pools, ``launches`` K4.
 launches = 0
 launches_tail = 0
+launches_tail_int8 = 0
 
 _fns: dict[str, ctypes._CFuncPtr] = {}
+# Entry point -> (pointer arguments, int arguments), then the scale and the
+# stream.
+_ARGS = {"ditl_paged_tail_bf16": (11, 9), "ditl_paged_tail_i8": (13, 9),
+         "ditl_paged_bf16": (8, 8)}
 
 
 def reset_launches() -> None:
-    global launches, launches_tail
+    global launches, launches_tail, launches_tail_int8
     launches = 0
     launches_tail = 0
+    launches_tail_int8 = 0
 
 
-def _kernel(tail: bool):
-    name = "ditl_paged_tail_bf16" if tail else "ditl_paged_bf16"
+def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
         from ditl_tpu_torch.ops.cuda_build import load_library
 
         fn = getattr(load_library("paged_attention.cu"), name)
-        n_ptr = 11 if tail else 8
-        n_int = 9 if tail else 8
+        n_ptr, n_int = _ARGS[name]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -97,35 +114,64 @@ def paged_attention_plain(
     tail_k: torch.Tensor | None = None,
     tail_v: torch.Tensor | None = None,
     starts: torch.Tensor | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of both kernels (the JAX package's
-    ``paged_attention_xla`` for 3-D q): returns (B, H, D) in q's dtype."""
+    """Plain PyTorch version of the kernels (the JAX package's
+    ``paged_attention_xla`` for 3-D q; over int8 pools with ``k_scale``/
+    ``v_scale``, the reference kernel's quantized arithmetic): returns
+    (B, H, D) in q's dtype."""
     b, h, d = q.shape
     _, kv_heads, ps, _ = k_pages.shape
     maxp = page_table.shape[1]
     groups = h // kv_heads
     table = page_table.long()
+    n_page = maxp * ps
     # (B, maxp, K, ps, D) -> (B, maxp * ps, K, D)
-    k = k_pages[table].transpose(2, 3).reshape(b, maxp * ps, kv_heads, d)
-    v = v_pages[table].transpose(2, 3).reshape(b, maxp * ps, kv_heads, d)
+    k = k_pages[table].transpose(2, 3).reshape(b, n_page, kv_heads, d)
+    v = v_pages[table].transpose(2, 3).reshape(b, n_page, kv_heads, d)
+    quant = k_scale is not None
+    if quant:  # int8 values are exact in f32; per-key scales (B, K, n_page)
+        k, v = k.float(), v.float()
+        ks, vs = (_key_scales(sc, table) for sc in (k_scale, v_scale))
     page_limit = lengths if starts is None else torch.minimum(starts, lengths)
-    cols = torch.arange(maxp * ps, device=q.device)
+    cols = torch.arange(n_page, device=q.device)
     valid = cols[None, :] < page_limit[:, None]  # (B, S)
     if tail_k is not None:
         t = tail_k.shape[2]
-        k = torch.cat([k, tail_k.transpose(1, 2)], dim=1)
-        v = torch.cat([v, tail_v.transpose(1, 2)], dim=1)
+        k = torch.cat([k, tail_k.transpose(1, 2).to(k.dtype)], dim=1)
+        v = torch.cat([v, tail_v.transpose(1, 2).to(v.dtype)], dim=1)
         tail_cols = torch.arange(t, device=q.device)
         tail_valid = starts[:, None] + tail_cols[None, :] < lengths[:, None]
         valid = torch.cat([valid, tail_valid], dim=1)
     qg = q.reshape(b, kv_heads, groups, d)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * d**-0.5
+    if quant:  # K's scale on the page columns' f32 scores, after the product
+        scores = torch.cat([scores[..., :n_page] * ks[:, :, None],
+                            scores[..., n_page:]], dim=-1)
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     # Dead slots (length 0) have an all-masked row: zeros, not a uniform mix.
     probs = torch.where((lengths > 0)[:, None, None, None], probs, 0.0)
-    out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype).float(), v.float())
+    if quant:
+        # Page columns: p times V's scale in f32; tail columns as the float
+        # branch (p rounded to the tail's dtype).
+        tail_p = probs[..., n_page:]
+        if tail_v is not None:
+            tail_p = tail_p.to(tail_v.dtype).float()
+        pw = torch.cat([probs[..., :n_page] * vs[:, :, None], tail_p], dim=-1)
+    else:
+        pw = probs.to(v.dtype).float()
+    out = torch.einsum("bkgs,bskd->bkgd", pw, v.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def _key_scales(scale: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(P, K, 1, ps) scale pool -> (B, K, maxp * ps): each slot's per-key
+    scales in the order of its gathered page positions."""
+    g = scale[table][:, :, :, 0, :]  # (B, maxp, K, ps)
+    b, maxp, kv, ps = g.shape
+    return g.permute(0, 2, 1, 3).reshape(b, kv, maxp * ps)
 
 
 def split_count(max_pages: int, page_size: int, tail_len: int, split: int) -> int:
@@ -144,6 +190,8 @@ def paged_attention_split_plain(
     tail_k: torch.Tensor | None = None,
     tail_v: torch.Tensor | None = None,
     starts: torch.Tensor | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
     *,
     split: int = SPLIT_KEYS,
 ) -> torch.Tensor:
@@ -154,7 +202,12 @@ def paged_attention_split_plain(
     split's running max and cast to v's dtype before p.v, l adding the f32
     p; tiles without a live key skipped), and the partials merge in split
     order, rescaled by exp(m_s - max m) in f32. Page ids clamp into the
-    pool. Returns (B, H, D) in q's dtype; a dead slot gives zeros."""
+    pool. Returns (B, H, D) in q's dtype; a dead slot gives zeros.
+
+    Over int8 pools (``k_scale``/``v_scale``), as ``ditl_paged_tail_i8``:
+    the exact int8 values, each page key's f32 score times its K scale,
+    and p times its V scale (1 on the tail) cast to the tail's dtype before
+    p.v; l adds the unscaled p."""
     if split % TILE_KEYS or split < TILE_KEYS:
         raise ValueError(f"split must be a positive multiple of {TILE_KEYS}, got {split}")
     b, h, d = q.shape
@@ -165,16 +218,26 @@ def paged_attention_split_plain(
     n_page = maxp * ps
     k = k_pages[table].transpose(2, 3).reshape(b, n_page, kv, d)
     v = v_pages[table].transpose(2, 3).reshape(b, n_page, kv, d)
-    pos = torch.arange(n_page + (0 if tail_k is None else tail_k.shape[2]), device=q.device)
+    t_len = 0 if tail_k is None else tail_k.shape[2]
+    quant = k_scale is not None
+    p_dtype = v.dtype
+    if quant:
+        k, v = k.float(), v.float()
+        p_dtype = q.dtype if tail_v is None else tail_v.dtype
+        # per-key scales (B, K, positions), 1 on the tail
+        ones = torch.ones((b, kv, t_len), device=q.device)
+        ks, vs = (torch.cat([_key_scales(sc, table), ones], dim=-1)
+                  for sc in (k_scale, v_scale))
+    pos = torch.arange(n_page + t_len, device=q.device)
     page_limit = lengths if starts is None else torch.minimum(starts, lengths)
     # Keys past the table's last page are absent, as in the reference.
     live = pos[None, :] < page_limit.clamp(max=n_page)[:, None]
     if tail_k is not None:
-        k = torch.cat([k, tail_k.transpose(1, 2)], dim=1)
-        v = torch.cat([v, tail_v.transpose(1, 2)], dim=1)
+        k = torch.cat([k, tail_k.transpose(1, 2).to(k.dtype)], dim=1)
+        v = torch.cat([v, tail_v.transpose(1, 2).to(v.dtype)], dim=1)
         live |= (pos[None, :] >= n_page) & (starts[:, None] + pos[None, :] - n_page
                                             < lengths[:, None])
-    n_split = split_count(maxp, ps, pos.numel() - n_page, split)
+    n_split = split_count(maxp, ps, t_len, split)
     pad = n_split * split - pos.numel()
     k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
     live = torch.nn.functional.pad(live, (0, pad))
@@ -184,6 +247,10 @@ def paged_attention_split_plain(
     kt = k.float().reshape(b, n_split, tiles, TILE_KEYS, kv, d)
     vt = v.reshape(b, n_split, tiles, TILE_KEYS, kv, d)
     scores = torch.einsum("bkgd,bstjkd->bkgstj", qg, kt) * d**-0.5
+    if quant:
+        ks, vs = (torch.nn.functional.pad(sc, (0, pad), value=1.0)
+                  .reshape(b, kv, 1, n_split, tiles, TILE_KEYS) for sc in (ks, vs))
+        scores = scores * ks
     live = live.reshape(b, 1, 1, n_split, tiles, TILE_KEYS)
     scores = scores.masked_fill(~live, NEG_INF)
     m = torch.full((b, kv, groups, n_split), NEG_INF, device=q.device)
@@ -194,7 +261,8 @@ def paged_attention_split_plain(
         m_new = torch.maximum(m, s_t.amax(-1))
         p = torch.exp(s_t - m_new[..., None])
         alpha = torch.exp(m - m_new)
-        pv = torch.einsum("bkgsj,bsjkd->bkgsd", p.to(v.dtype).float(),
+        p_v = p * vs[:, :, :, :, t] if quant else p
+        pv = torch.einsum("bkgsj,bsjkd->bkgsd", p_v.to(p_dtype).float(),
                           vt[:, :, t].float())
         step = live[:, :, :, :, t].any(-1)  # the tile holds a live key
         m = torch.where(step, m_new, m)
@@ -244,6 +312,31 @@ def _check(q, k_pages, v_pages, page_table, lengths, tail_k, tail_v, starts) -> 
         raise ValueError("paged_attention's tensors must be on one device")
 
 
+def _check_int8(k_pages, v_pages, tail_k, k_scale, v_scale) -> None:
+    """Validate int8 pools and their scales (ValueError on each fault)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale go together")
+    if k_scale is None:
+        raise ValueError("int8 pools need their scales (k_scale and v_scale)")
+    if tail_k is None:
+        raise ValueError(
+            "paged_attention with k_scale/v_scale requires the tail path "
+            "(tail_k/tail_v/starts) — the no-tail kernel would silently "
+            "attend over raw int8 values"
+        )
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise ValueError(f"k_scale/v_scale go with int8 pools, got {k_pages.dtype} "
+                         f"and {v_pages.dtype}")
+    n_pool, kv_heads, ps, _ = k_pages.shape
+    want = (n_pool, kv_heads, 1, ps)
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (sc.dtype != torch.float32 or tuple(sc.shape) != want
+                or not sc.is_contiguous() or sc.device != k_pages.device):
+            raise ValueError(f"{name} must be contiguous float32 of shape {want} on "
+                             f"the pools' device, got {sc.dtype} {tuple(sc.shape)} "
+                             f"on {sc.device}")
+
+
 def paged_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -259,32 +352,35 @@ def paged_attention(
     mesh=None,
 ) -> torch.Tensor:
     """Paged GQA decode attention (see the module note). CUDA tensors launch
-    K3 (with a tail) or K4 (without): bf16 q/pools/tails, int32 table,
-    lengths and starts, all contiguous, head_dim in ``HEAD_DIMS``, at most
-    ``MAX_GROUPS`` query heads per KV head; anything else raises. CPU
-    tensors run the plain version."""
-    global launches, launches_tail
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "paged attention over int8 pools (k_scale/v_scale) is not ported "
-            "to PyTorch yet (see ROADMAP.md)"
-        )
+    K3 (with a tail; ``ditl_paged_tail_i8`` over int8 pools with
+    ``k_scale``/``v_scale``) or K4 (without): bf16 q and tails, bf16 or
+    int8 pools, f32 scales, int32 table, lengths and starts, all contiguous,
+    head_dim in ``HEAD_DIMS``, at most ``MAX_GROUPS`` query heads per KV
+    head; anything else raises. CPU tensors run the plain version."""
+    global launches, launches_tail, launches_tail_int8
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded paged attention is not ported to PyTorch yet "
             "(see ROADMAP.md)"
         )
     _check(q, k_pages, v_pages, page_table, lengths, tail_k, tail_v, starts)
+    quant = (k_scale is not None or v_scale is not None
+             or k_pages.dtype == torch.int8 or v_pages.dtype == torch.int8)
+    if quant:
+        _check_int8(k_pages, v_pages, tail_k, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table, lengths,
-                                     tail_k, tail_v, starts)
+                                     tail_k, tail_v, starts, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
     b, h, d = q.shape
     n_pool, kv_heads, ps, _ = k_pages.shape
     tail = tail_k is not None
-    floats = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages)]
+    floats = [("q", q)]
+    pools = [("k_pages", k_pages), ("v_pages", v_pages)]
     ints = [("page_table", page_table), ("lengths", lengths)]
+    if not quant:
+        floats += pools
     if tail:
         floats += [("tail_k", tail_k), ("tail_v", tail_v)]
         ints += [("starts", starts)]
@@ -297,7 +393,7 @@ def paged_attention(
     for name, t in ints:
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
-    for name, t in floats:
+    for name, t in floats + (pools if quant else []):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     for name, t in ints:
@@ -319,25 +415,35 @@ def paged_attention(
     part_ml = torch.empty((b, kv_heads, n_split, h // kv_heads, 2), dtype=torch.float32,
                           device=q.device)
     work = [part_acc.data_ptr(), part_ml.data_ptr()]
+    shape = [b, h, kv_heads, d, ps, page_table.shape[1], n_pool]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if tail:
-            err = _kernel(True)(
+        if quant:
+            err = _kernel("ditl_paged_tail_i8")(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+                lengths.data_ptr(), starts.data_ptr(), tail_k.data_ptr(),
+                tail_v.data_ptr(), o.data_ptr(), *work, *shape, t_len, SPLIT_KEYS,
+                d**-0.5, stream,
+            )
+        elif tail:
+            err = _kernel("ditl_paged_tail_bf16")(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 page_table.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
-                tail_k.data_ptr(), tail_v.data_ptr(), o.data_ptr(), *work, b, h,
-                kv_heads, d, ps, page_table.shape[1], n_pool, t_len, SPLIT_KEYS, d**-0.5,
-                stream,
+                tail_k.data_ptr(), tail_v.data_ptr(), o.data_ptr(), *work, *shape, t_len,
+                SPLIT_KEYS, d**-0.5, stream,
             )
         else:
-            err = _kernel(False)(
+            err = _kernel("ditl_paged_bf16")(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(), *work, b, h,
-                kv_heads, d, ps, page_table.shape[1], n_pool, SPLIT_KEYS, d**-0.5, stream,
+                page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(), *work, *shape,
+                SPLIT_KEYS, d**-0.5, stream,
             )
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA error {err}")
-    if tail:
+    if quant:
+        launches_tail_int8 += 1
+    elif tail:
         launches_tail += 1
     else:
         launches += 1

@@ -242,12 +242,117 @@ def test_paged_kernels_raise_instead_of_falling_back(cuda):
         tpa.paged_attention(q[:, None], kp, vp, table, lens, tail_k=tk, tail_v=tv,
                             starts=st)
     scale = torch.ones((64, 4, 1, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="int8 pools"):  # scales with float pools
         tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st,
+                            k_scale=scale, v_scale=scale)
+    with pytest.raises(ValueError, match="tail path"):  # scales without a tail
+        tpa.paged_attention(q, kp.to(torch.int8), vp.to(torch.int8), table, lens,
                             k_scale=scale, v_scale=scale)
     with pytest.raises(ValueError, match="int32"):
         tpa.paged_attention(q, kp, vp, table.long(), lens)
     assert (tpa.launches, tpa.launches_tail) == (0, 0)
+
+
+def _int8_pools(kp, vp):
+    """bf16 pools -> int8 pools and their (P, K, 1, ps) f32 scales, by the
+    caches' own quantization (absmax per position over D)."""
+    from ditl_tpu_torch.infer.cache import _quantize
+
+    (kq, ks), (vq, vs) = _quantize(kp), _quantize(vp)
+    return kq, vq, ks[:, :, None, :].contiguous(), vs[:, :, None, :].contiguous()
+
+
+# K3 over int8 pools: the K3 cases (the decode tick, with a dead slot, a
+# tail-only slot, starts == lengths; head_dim 64; MHA; the split edges).
+INT8_CASES = PAGED_CASES
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("b,h,kv,d,ps,tail_len,lengths,starts", INT8_CASES)
+def test_paged_int8_kernel_matches_plain(cuda, b, h, kv, d, ps, tail_len, lengths, starts):
+    """ditl_paged_tail_i8 against the plain version's int8 branch and against
+    the split twin at bf16 tolerance (2e-2: the kernel rounds p * vs to bf16
+    against its running max, the plain version keeps it in f32); a dead slot
+    gives zeros."""
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        cuda, b, h, kv, d, ps, 128, tail_len, lengths, starts)
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    tpa.reset_launches()
+    o = tpa.paged_attention(q, kq, vq, table, lens, tail_k=tk, tail_v=tv, starts=st,
+                            k_scale=ks, v_scale=vs)
+    r = tpa.paged_attention_plain(q, kq, vq, table, lens, tk, tv, st, ks, vs)
+    s_ = tpa.paged_attention_split_plain(q, kq, vq, table, lens, tk, tv, st, ks, vs)
+    torch.cuda.synchronize()
+    assert (tpa.launches_tail_int8, tpa.launches_tail, tpa.launches) == (1, 0, 0)
+    torch.testing.assert_close(o.float(), r.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(), s_.float(), atol=2e-2, rtol=2e-2)
+    dead = [i for i, n in enumerate(lengths) if n == 0]
+    assert all(bool((o[i] == 0).all()) for i in dead)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("case", [0, 3, 4])
+def test_paged_int8_kernel_is_bitwise_repeatable(cuda, case):
+    """Three calls of K3 over int8 pools give the same bits."""
+    b, h, kv, d, ps, tail_len, lengths, starts = INT8_CASES[case]
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        cuda, b, h, kv, d, ps, 128, tail_len, lengths, starts)
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    runs = [tpa.paged_attention(q, kq, vq, table, lens, tail_k=tk, tail_v=tv, starts=st,
+                                k_scale=ks, v_scale=vs) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(run, runs[0]) for run in runs[1:])
+
+
+@pytest.mark.torch_port
+def test_paged_int8_wrapper_never_syncs(cuda):
+    """K3 over int8 pools launches under ``set_sync_debug_mode("error")`` and
+    a CUDA graph captures it."""
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(cuda, *INT8_CASES[0][:4], 256, 128,
+                                                       *INT8_CASES[0][5:])
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    kw = dict(tail_k=tk, tail_v=tv, starts=st, k_scale=ks, v_scale=vs)
+    tpa.paged_attention(q, kq, vq, table, lens, **kw)
+    torch.cuda.synchronize()  # built and loaded
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tpa.paged_attention(q, kq, vq, table, lens, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o = tpa.paged_attention(q, kq, vq, table, lens, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(o, tpa.paged_attention(q, kq, vq, table, lens, **kw))
+
+
+@pytest.mark.torch_port
+def test_paged_int8_invalid_inputs_raise_and_launch_nothing(cuda):
+    """Invalid int8 inputs raise ValueError before any launch: int8 pools
+    without scales, scales without the tail, f32 tails, f64 or
+    non-contiguous or misshapen scales, one scale alone."""
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        cuda, 4, 8, 4, 64, 16, 64, 8, [0, 5, 38, 50], [0, 0, 32, 45])
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    tail = dict(tail_k=tk, tail_v=tv, starts=st)
+    tpa.reset_launches()
+    bad = [
+        ("their scales", (q, kq, vq, table, lens), tail),
+        ("tail path", (q, kq, vq, table, lens), dict(k_scale=ks, v_scale=vs)),
+        ("bfloat16", (q, kq, vq, table, lens),
+         dict(tail_k=tk.float(), tail_v=tv.float(), starts=st, k_scale=ks, v_scale=vs)),
+        ("float32", (q, kq, vq, table, lens), dict(**tail, k_scale=ks.double(), v_scale=vs)),
+        ("contiguous", (q, kq, vq, table, lens),
+         dict(**tail, k_scale=ks.transpose(0, 1).contiguous().transpose(0, 1), v_scale=vs)),
+        ("shape", (q, kq, vq, table, lens), dict(**tail, k_scale=ks[:, :, :, :8],
+                                                 v_scale=vs[:, :, :, :8])),
+        ("go together", (q, kq, vq, table, lens), dict(**tail, k_scale=ks)),
+    ]
+    for match, args, kw in bad:
+        with pytest.raises(ValueError, match=match):
+            tpa.paged_attention(*args, **kw)
+    assert (tpa.launches_tail_int8, tpa.launches_tail, tpa.launches) == (0, 0, 0)
 
 
 def _bwd_inputs(cuda, b, s_q, s_kv, h, kv, d, causal, seg, seed=0):

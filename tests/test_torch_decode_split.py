@@ -14,6 +14,15 @@ narrow heads (a dead slot, a partial page, an exact page boundary, a shared
 page, starts == lengths), page 256 with splits of 64 (boundaries inside
 pages) and 256 (the last split holds only the tail); and page 16 with a
 tail, where a split's tile straddles the last page and the tail.
+
+K3 over int8 pools (``ditl_paged_tail_i8``): the split twin's int8 branch
+(K's scale on each page key's f32 score, p times V's scale cast to the
+tails' dtype before p.v, l adding the unscaled p) on the same cases with
+the pools quantized per position, against the Pallas kernel's quantized
+branch in interpret mode and the gather reference, f32 at 2e-5; and in
+bf16 against the plain version's int8 branch at 2e-2 (the twin rounds
+p * vs to bf16 against the split's running max, the plain version keeps
+it in f32).
 """
 
 import functools
@@ -140,6 +149,52 @@ def test_split_plain_bf16_matches_plain(tail):
     want = tpa.paged_attention_plain(*pos, *(a[k] for k in ("tail_k", "tail_v", "starts")
                                              if k in a))
     got = tpa.paged_attention_split_plain(*pos, **a)
+    torch.testing.assert_close(got.float(), want.float(), atol=O_TOL, rtol=O_TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_case(name: str, d: int):
+    """The K3 case with its pools quantized per position (absmax over D,
+    scale 1.0 on zero rows, round half to even, clip), scales (P, K, 1, ps)."""
+    a = dict(_case(name, d, True))
+    for pool, scale in (("k_pages", "k_scale"), ("v_pages", "v_scale")):
+        x = a[pool]
+        absmax = np.abs(x).max(-1)
+        sc = np.where(absmax == 0, 1.0, absmax / np.float32(127)).astype(np.float32)
+        a[pool] = np.clip(np.round(x / sc[..., None]), -127, 127).astype(np.int8)
+        a[scale] = np.ascontiguousarray(sc[:, :, None, :])
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_int8_out(name: str, d: int, impl: str) -> np.ndarray:
+    a = {k: jnp.asarray(v) for k, v in _int8_case(name, d).items()}
+    pos = [a.pop(k) for k in POSITIONAL]
+    if impl == "xla":
+        return np.asarray(jpa.paged_attention_xla(*pos, **a))
+    return np.asarray(jpa.paged_attention(*pos, **a, interpret=True))
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("name,split", [("tick", 64), ("tick", tpa.SPLIT_KEYS),
+                                        ("small", 64)])
+def test_int8_split_plain_matches_jax(name, split, d, impl):
+    a = {k: torch.from_numpy(v) for k, v in _int8_case(name, d).items()}
+    pos = [a.pop(k) for k in POSITIONAL]
+    out = tpa.paged_attention_split_plain(*pos, **a, split=split).numpy()
+    np.testing.assert_allclose(out, _jax_int8_out(name, d, impl), atol=ATOL)
+    dead = np.flatnonzero(_int8_case(name, d)["lengths"] == 0)
+    assert dead.size and np.all(out[dead] == 0), "a dead slot must give zeros"
+
+
+def test_int8_split_plain_bf16_matches_plain():
+    a = {k: torch.from_numpy(v).to(torch.bfloat16) if k in ("q", "tail_k", "tail_v")
+         else torch.from_numpy(v) for k, v in _int8_case("tick", 128).items()}
+    pos = [a.pop(k) for k in POSITIONAL]
+    want = tpa.paged_attention_plain(*pos, **a)
+    got = tpa.paged_attention_split_plain(*pos, **a)
+    assert got.dtype == want.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), atol=O_TOL, rtol=O_TOL)
 
 

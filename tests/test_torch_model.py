@@ -182,12 +182,17 @@ def test_flash_prefill_runs_jax_kernel_and_matches(monkeypatch):
 def test_unported_features_raise():
     with pytest.raises(ValueError, match="ROADMAP"):
         ModelConfig(attention_impl="ring")
-    for kw in ({"num_experts": 4}, {"lora_rank": 4}, {"kv_cache_dtype": "int8"}):
+    for kw in ({"num_experts": 4}, {"lora_rank": 4}):
         cfg = ModelConfig(**TINY, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             llama.forward({}, torch.zeros((1, 4), dtype=torch.long), cfg)
-    with pytest.raises(NotImplementedError):
-        init_cache(ModelConfig(**TINY, kv_cache_dtype="int8"), 1, 8, "cpu")
+    # int8 caches are ported; an unknown cache dtype raises ValueError, as
+    # the JAX package's init_cache does.
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        llama.forward({}, torch.zeros((1, 4), dtype=torch.long),
+                      ModelConfig(**TINY, kv_cache_dtype="fp8"))
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        init_cache(ModelConfig(**TINY, kv_cache_dtype="fp8"), 1, 8, "cpu")
 
 
 def test_init_params_layout_matches_jax_tree():

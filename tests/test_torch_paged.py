@@ -5,7 +5,13 @@
   ``paged_attention_xla`` and its Pallas kernels (``_paged_tail_kernel``
   with a tail, ``_paged_kernel`` without) in interpret mode, on the same
   numpy inputs. f32 at atol 2e-5, the reference's own tolerance
-  (``tests/test_paged.py``).
+  (``tests/test_paged.py``). Over int8 pools with scales (the reference's
+  ``test_paged_int8_kernel_matches_reference`` shapes): the plain version's
+  int8 branch and the CPU wrapper against the Pallas kernel's quantized
+  branch in interpret mode and the gather reference in f32 at 2e-5, and in
+  bf16 (q and tails) against the gather reference at 2e-2, because that
+  reference rounds the dequantized keys and values to bf16 and the kernel's
+  arithmetic keeps the exact int8 values and f32 scales.
 - Allocator: one seeded operation sequence on both ``PageAllocator``s gives
   the same pages, refcounts, matches, evictions and ``n_evictable``.
 """
@@ -109,7 +115,9 @@ def test_cpu_wrapper_matches_jax_pallas_interpret(name, groups):
 def test_wrapper_raises_for_unported_variants():
     pos, kw = _torch_args("tail", 4)
     scale = torch.ones((32, 4, 1, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="tail path"):  # scales without a tail
+        tpa.paged_attention(*pos[:3], pos[3], pos[4], k_scale=scale, v_scale=scale)
+    with pytest.raises(ValueError, match="int8 pools"):  # scales with float pools
         tpa.paged_attention(*pos, **kw, k_scale=scale, v_scale=scale)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpa.paged_attention(pos[0][:, None], *pos[1:], **kw)
@@ -117,6 +125,112 @@ def test_wrapper_raises_for_unported_variants():
         tpa.paged_attention(*pos, **kw, mesh=object())
     with pytest.raises(ValueError, match="go together"):
         tpa.paged_attention(*pos, tail_k=kw["tail_k"])
+
+
+# -- int8 pools -----------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_case():
+    """The reference's ``test_paged_int8_kernel_matches_reference`` inputs:
+    int8 pools quantized per position with f32 scales, f32 q and tails; a
+    dead slot, a tail-only slot, page-aligned and mid-page starts."""
+    rng = np.random.default_rng(5)
+    kv_heads, d, ps, maxp, pool, tail = 4, 64, 16, 6, 32, 8
+    b, h = 4, 8
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    kf = rng.normal(size=(pool, kv_heads, ps, d))
+    vf = rng.normal(size=(pool, kv_heads, ps, d))
+    ks = np.abs(kf).max(-1) / 127.0
+    vs = np.abs(vf).max(-1) / 127.0
+    ks[ks == 0] = 1.0
+    vs[vs == 0] = 1.0
+    ki = np.clip(np.round(kf / ks[..., None]), -127, 127).astype(np.int8)
+    vi = np.clip(np.round(vf / vs[..., None]), -127, 127).astype(np.int8)
+    starts = np.asarray([0, 0, 32, 45], np.int32)
+    lengths = np.asarray([0, 5, 38, 50], np.int32)
+    table = np.zeros((b, maxp), np.int32)
+    pid = 1
+    for row in range(b):
+        for i in range(-(-int(starts[row]) // ps)):
+            table[row, i] = pid
+            pid += 1
+    return {"q": q, "k_pages": ki, "v_pages": vi, "page_table": table, "lengths": lengths,
+            "tail_k": rng.normal(size=(b, kv_heads, tail, d)).astype(np.float32),
+            "tail_v": rng.normal(size=(b, kv_heads, tail, d)).astype(np.float32),
+            "starts": starts,
+            "k_scale": ks[:, :, None, :].astype(np.float32),
+            "v_scale": vs[:, :, None, :].astype(np.float32)}
+
+
+POSITIONAL = ("q", "k_pages", "v_pages", "page_table", "lengths")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_int8(impl: str, bf16: bool = False) -> np.ndarray:
+    a = {k: jnp.asarray(v) for k, v in _int8_case().items()}
+    if bf16:
+        a.update({k: a[k].astype(jnp.bfloat16) for k in ("q", "tail_k", "tail_v")})
+    pos = [a.pop(k) for k in POSITIONAL]
+    if impl == "xla":
+        return np.asarray(jpa.paged_attention_xla(*pos, **a).astype(jnp.float32))
+    return np.asarray(jpa.paged_attention(*pos, **a, interpret=True))
+
+
+def _torch_int8(bf16: bool = False):
+    a = {k: torch.from_numpy(v) for k, v in _int8_case().items()}
+    if bf16:
+        a.update({k: a[k].to(torch.bfloat16) for k in ("q", "tail_k", "tail_v")})
+    return [a.pop(k) for k in POSITIONAL], a
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_int8_plain_matches_jax(impl):
+    """The plain version's int8 branch (K's scale on the f32 scores, p times
+    V's scale in f32 for the page columns, l adding the unscaled p) against
+    the Pallas kernel's quantized branch in interpret mode and against the
+    dequantizing gather reference, f32 at 2e-5."""
+    pos, kw = _torch_int8()
+    out = tpa.paged_attention_plain(*pos, **kw).numpy()
+    np.testing.assert_allclose(out, _jax_int8(impl), atol=ATOL)
+    assert np.all(out[0] == 0), "a dead slot must give zeros"
+
+
+def test_int8_cpu_wrapper_matches_jax_pallas_interpret():
+    pos, kw = _torch_int8()
+    tpa.reset_launches()
+    out = tpa.paged_attention(*pos, **kw)
+    assert (tpa.launches, tpa.launches_tail, tpa.launches_tail_int8) == (0, 0, 0)
+    np.testing.assert_allclose(out.numpy(), _jax_int8("pallas"), atol=ATOL)
+
+
+def test_int8_bf16_plain_matches_jax_xla_reference():
+    """bf16 q and tails: the gather reference dequantizes the pages to bf16
+    before the products, the plain version keeps exact int8 values and f32
+    scales, so they agree to bf16 tolerance (2e-2)."""
+    pos, kw = _torch_int8(bf16=True)
+    out = tpa.paged_attention(*pos, **kw)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), _jax_int8("xla", bf16=True), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_int8_wrapper_validates_its_inputs():
+    """Each fault raises ValueError: int8 pools without scales, one scale
+    alone, scales of the wrong dtype, shape or layout."""
+    pos, kw = _torch_int8()
+    ks, vs = kw.pop("k_scale"), kw.pop("v_scale")
+    with pytest.raises(ValueError, match="their scales"):
+        tpa.paged_attention(*pos, **kw)
+    with pytest.raises(ValueError, match="go together"):
+        tpa.paged_attention(*pos, **kw, k_scale=ks)
+    with pytest.raises(ValueError, match="float32"):
+        tpa.paged_attention(*pos, **kw, k_scale=ks.double(), v_scale=vs)
+    with pytest.raises(ValueError, match="shape"):
+        tpa.paged_attention(*pos, **kw, k_scale=ks[:, :, :, :8], v_scale=vs[:, :, :, :8])
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa.paged_attention(*pos, **kw, k_scale=ks.transpose(0, 1).contiguous()
+                            .transpose(0, 1), v_scale=vs)
 
 
 # -- allocator -----------------------------------------------------------------

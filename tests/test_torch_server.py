@@ -401,3 +401,98 @@ def test_cli_continuous_server_and_contiguous_raises():
     assert not srv.engine._thread.is_alive()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserver.create_server(base + ["--cache-mode", "contiguous"])
+
+
+# -- int8 serving ------------------------------------------------------------------
+
+
+def _int8_reference(params_np: dict, prompt: str, max_tokens: int, quantize: bool):
+    """The JAX Generator's greedy text over ``params_np`` with an int8 KV
+    cache (the weights quantized by the JAX package first if ``quantize``)."""
+    import jax.numpy as jnp
+
+    from ditl_tpu.ops.quant import quantize_weights
+
+    jparams = jax.tree.map(jnp.asarray, params_np)
+    if quantize:
+        jparams = quantize_weights(jparams)
+    return _jax_text(JaxGenerator(jparams, JaxModelConfig(**TINY, kv_cache_dtype="int8"),
+                                  JaxByteTokenizer()), prompt, max_tokens)
+
+
+def _serve_int8_and_check(srv, want_text: str, want_n: int, prompt: str) -> None:
+    """One greedy completion through the continuous engine and one logprob
+    request through the lock-step Generator: both give ``want_text``."""
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        for extra in ({}, {"logprobs": 1}):
+            status, body = _post(url + "/v1/completions",
+                                 {"prompt": prompt, "max_tokens": 10, "temperature": 0,
+                                  **extra})
+            assert status == 200, body
+            assert body["choices"][0]["text"] == want_text, extra
+            assert body["usage"]["completion_tokens"] == want_n
+    finally:
+        srv.close(drain=True)
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+INT8_FLAGS = ["--quantize", "int8", "--kv-quant", "int8", "--engine", "continuous",
+              "--cache-mode", "paged", "--page-size", "16", "--slots", "2"]
+
+
+def test_cli_int8_serves_on_both_engines():
+    """``--quantize int8 --kv-quant int8``: int8 weights (the lm head too,
+    the embedding float), int8 pools and an int8 lock-step cache; the
+    continuous engine and the lock-step Generator each give the JAX
+    Generator's greedy text over the same int8 weights and an int8 cache."""
+    from ditl_tpu_torch.models.convert import params_to_numpy
+    from ditl_tpu_torch.ops.quant import is_quantized_leaf
+
+    overrides = [x for k, v in TINY.items() for x in ("--override", f"{k}={v}")]
+    srv = tserver.create_server(["--device", "cpu", "--port", "0", "--host", "127.0.0.1",
+                                 *overrides, *INT8_FLAGS])
+    gen = srv.RequestHandlerClass.generator
+    engine = srv.engine._engine
+    assert gen.cfg.kv_cache_dtype == "int8" and engine.cfg.kv_cache_dtype == "int8"
+    assert is_quantized_leaf(gen.params["layers"]["attn"]["wq"])
+    assert is_quantized_leaf(gen.params["lm_head"]["kernel"])
+    assert gen.params["embed"]["embedding"].dtype == torch.float32
+    assert engine.cache["kp"].dtype == torch.int8 and "vs" in engine.cache
+    prompt = "The quick brown fox"
+    text, n = _int8_reference(params_to_numpy(gen.params), prompt, 10, quantize=False)
+    _serve_int8_and_check(srv, text, n, prompt)
+
+
+def test_cli_int8_serves_a_trained_checkpoint(tmp_path):
+    """``--checkpoint-dir`` with ``--quantize int8 --kv-quant int8``: the
+    restored masters are quantized after the restore, bit for bit as the
+    JAX package quantizes the same masters, and both engines give the JAX
+    Generator's greedy text over that int8 tree."""
+    from ditl_tpu_torch.config import Config, DataConfig, TrainConfig
+    from ditl_tpu_torch.models import llama
+    from ditl_tpu_torch.models.convert import params_to_numpy
+    from ditl_tpu_torch.ops.quant import quantize_weights
+    from ditl_tpu_torch.train.trainer import train
+
+    cfg = ModelConfig(**TINY)
+    train(Config(model=cfg, data=DataConfig(synthetic=True, batch_size=2, seq_len=64),
+                 train=TrainConfig(total_steps=2, warmup_steps=1, learning_rate=1e-2,
+                                   checkpoint_dir=str(tmp_path))), device="cpu")
+    masters = torch.load(tmp_path / "2" / "params.pt", weights_only=True)
+    overrides = [x for k, v in TINY.items() for x in ("--override", f"{k}={v}")]
+    srv = tserver.create_server(["--device", "cpu", "--port", "0", "--host", "127.0.0.1",
+                                 "--checkpoint-dir", str(tmp_path), *overrides,
+                                 *INT8_FLAGS])
+    served = srv.RequestHandlerClass.generator.params
+    want = quantize_weights(llama.serving_params(masters, cfg))
+    for group in ("attn", "mlp"):
+        for key, w in want["layers"][group].items():
+            assert torch.equal(served["layers"][group][key]["q"], w["q"]), key
+            assert torch.equal(served["layers"][group][key]["scale"], w["scale"]), key
+    prompt = "hello int8 checkpoint"
+    text, n = _int8_reference(params_to_numpy(masters), prompt, 10, quantize=True)
+    _serve_int8_and_check(srv, text, n, prompt)
