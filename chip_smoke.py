@@ -23,7 +23,15 @@ no result line. It imports nothing of JAX or of the JAX package.
    (``ditl_paged_tail_i8``) against the plain version's int8 branch and
    the split twin at the decode tick, the split edges, a dead slot,
    starts == lengths and a tail-only slot, head_dim 64 and 128, called
-   twice.
+   twice. K3's multi-query verify (``ditl_paged_verify_bf16``/``_i8``) over
+   float and int8 pools against the plain version's 4-D branch and the split
+   twin (``_verify_cases``: the spec tick's shape, head_dim 64, a dead slot,
+   a tail longer than 128 columns whose split is live for some queries and
+   dead for others, a tail-only slot, G = 8 at 72 query rows, Q = 2), called
+   twice, and a 4-D q with Q = 1 against the 3-D call's bits; K3, K3-int8 and
+   K4 in their single-query form on fixed integer-made inputs against the
+   digests of the build before the verify joined their template
+   (``K3_DIGESTS``).
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
    card's bound for the same work from this run's inputs; K1, K2a and K2b
@@ -35,7 +43,10 @@ no result line. It imports nothing of JAX or of the JAX package.
    keys. K3 over int8 pools at the decode tick beside the float K3 on the
    same keys, with SDPA over the keys dequantized to bf16 beforehand as its
    yardstick and the dequantization's own time, and its bound from the
-   int8 bytes plus scales.
+   int8 bytes plus scales. K3-verify (float and int8) at the spec tick
+   (``SPEC_MAIN``) beside the single-query K3 on the same keys, with SDPA over
+   the gathered keys and the same per-query mask as its yardstick (the
+   gather timed apart).
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -43,6 +54,19 @@ no result line. It imports nothing of JAX or of the JAX package.
    same server code, over the same weights object (8 slots, page 256,
    context 2048, decode_chunk 16), answering 12 concurrent requests; K3 on
    every decode step, K1 on every cold prefill.
+6a. Main path 7, speculative continuous serving: the continuous engine as
+   ``infer/server.py --speculative on`` builds it (every tick speculates),
+   over path 1's weights object, path 2's 12 requests plus four prompts that
+   repeat a span: K3-verify 32 x verify rounds, the single-query K3 never;
+   tokens per verify forward per row, ms per round beside path 2's ms per
+   step, tokens/s; greedy tokens equal path 2's (the span prompts the plain
+   engine's) up to each request's first divergence, where the two candidate
+   tokens' logits in one plain forward over the common prefix must differ
+   by less than ``SPEC_TIE_TOL``; then ``--speculative auto`` over the same
+   weights (probing every 2 ticks): a measured threshold and both kinds of
+   tick in ``/v1/stats``. Lock-step speculation: five greedy requests
+   through ``--engine lockstep --speculative on`` (K1 on each prefill), held
+   to path 1's Generator by the same rule, with their acceptance.
 6b. Main path 6, int8 serving: the bf16 serving state is freed, then
    ``infer/server.py --quantize int8 --kv-quant int8 --engine continuous
    --cache-mode paged`` is built in process (``llama3-8b``, full width and
@@ -54,7 +78,10 @@ no result line. It imports nothing of JAX or of the JAX package.
    the lock-step ``Generator`` over an int8 cache (a repeated one gives the
    same tokens and logprobs); the same greedy request twice on the engine,
    identical; one decode step's logits through K3-int8 against the plain
-   version.
+   version. Then int8 with speculation: ``--kv-quant int8 --speculative on``
+   at full width and depth 2, the continuous traffic's greedy requests plus
+   the span prompts: K3-int8-verify on every round, greedy tokens against
+   the same configuration's plain ticks by the divergence rule.
 7. Main path 3: training. The serving weights and pools are freed first;
    then ``train()`` runs in-process with the launcher's arguments
    (``TRAIN_ARGS``: ``llama3-8b`` at full width and depth, bf16 masters,
@@ -115,8 +142,8 @@ no result line. It imports nothing of JAX or of the JAX package.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after (path 5: before and after each policy's run). The paths run at full
-depth: the whole script takes about two and a half minutes on an H100, the
-build included.
+depth (the int8 speculative check at depth 2): the whole script takes about
+three minutes on an H100, the build included.
 
 f32 matrix products run in full f32 here (TF32 off, set below): the port's
 lm head takes f32 products of bf16 values, as the JAX package's logits do.
@@ -171,6 +198,15 @@ MM_TOL = 1e-2
 # sums in another order, a few ulps through two layers' backward).
 STEP2_LOSS_TOL = 1e-6
 STEP2_LEAF_TOL = 2e-2
+# Speculative against plain greedy tokens (bf16): the verify attends through
+# K3-verify over a (k+1)-token chunk, the plain tick through K3 one token at a
+# time, so their logits differ by bf16 rounding (the decode-step logits
+# against the plain attention's: max abs ~0.07 at |logits| <= ~4.5, PERF.md),
+# and a greedy token may flip where two candidates are that close (the JAX
+# package's own note, ditl_tpu/infer/speculative.py). At a request's first
+# divergence one plain forward over the common prefix scores both
+# candidates; their logits must differ by less than this: a near-tie.
+SPEC_TIE_TOL = 0.25
 TRAIN_STEPS = 6
 TRAIN4_STEPS = 4
 # Path 5, the JAX package's one-chip recipe (bench.py: remat="dots_inputs",
@@ -226,6 +262,18 @@ KERNELS = {
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (quantized=True)",
         "path": "int8 serving (path 6): continuous paged decode ticks over int8 pools",
+    },
+    "paged_verify": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, :248)",
+        "path": "speculative continuous serving (path 7): every verify round of every layer",
+    },
+    "paged_verify_int8": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, quantized=True)",
+        "path": "speculative continuous serving over int8 pools: every verify round",
     },
     "mlp_dgu_dwdown": {
         "route": "cuda",
@@ -1692,10 +1740,11 @@ def _tensors(tree):
 
 
 def _paged_inputs(b, h, kv, d, ps, tail_len, lengths, starts, *, seed, n_pool=65,
-                  share=True):
+                  share=True, nq=None, maxp=None):
     """q, pools, tails and a table giving each slot its own pages for
-    ceil(max(starts, lengths) / ps) blocks; with ``share``, rows 1 and 2
-    share their first physical page."""
+    ceil(max(starts, lengths) / ps) blocks, in a table of ``maxp`` columns
+    (default: the most any slot needs); with ``share``, rows 1 and 2 share
+    their first physical page. ``nq``: a verify's (B, Q, H, D) q."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1703,13 +1752,14 @@ def _paged_inputs(b, h, kv, d, ps, tail_len, lengths, starts, *, seed, n_pool=65
     def rnd(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
 
-    q, kp, vp = rnd(b, h, d), rnd(n_pool, kv, ps, d), rnd(n_pool, kv, ps, d)
+    q = rnd(b, h, d) if nq is None else rnd(b, nq, h, d)
+    kp, vp = rnd(n_pool, kv, ps, d), rnd(n_pool, kv, ps, d)
     tk, tv = rnd(b, kv, tail_len, d), rnd(b, kv, tail_len, d)
-    maxp = max(1, max(-(-max(x, y) // ps) for x, y in zip(lengths, starts)))
+    maxp = maxp or max(1, max(-(-max(x, y) // ps) for x, y in zip(lengths, starts)))
     table = torch.zeros((b, maxp), dtype=torch.int32)
     pid = 1
     for row in range(b):
-        for i in range(-(-max(lengths[row], starts[row]) // ps)):
+        for i in range(min(maxp, -(-max(lengths[row], starts[row]) // ps))):
             table[row, i] = pid
             pid += 1
     require(pid <= n_pool, (pid, n_pool))
@@ -2111,6 +2161,28 @@ def _decode_step_logits(engine, slot: int):
                          positions=engine.pos[:, None], cache=cache, paged=paged)[slot, 0]
 
 
+def _recording_engine(engine):
+    """``engine`` behind a ``ThreadedEngine`` that keeps the token ids each
+    completion returned, by (prompt ids, max_new_tokens): the byte tokenizer
+    decodes only ids 3..258 of the 128256-way head to text."""
+    from ditl_tpu_torch.infer.continuous import ThreadedEngine
+
+    class RecordingEngine(ThreadedEngine):
+        def __init__(self, engine):
+            super().__init__(engine)
+            self.outputs: dict[tuple, list] = {}
+            self._lock = threading.Lock()
+
+        def generate_one(self, prompt_tokens, **kw):
+            out = super().generate_one(prompt_tokens, **kw)
+            with self._lock:
+                self.outputs.setdefault((tuple(prompt_tokens), kw["max_new_tokens"]),
+                                        []).append(list(out))
+            return out
+
+    return RecordingEngine(engine)
+
+
 def _continuous_requests():
     """The continuous paths' traffic: 12 requests, the first four sharing a
     600-character prefix (two full 256-token pages with BOS, and 89 more),
@@ -2171,23 +2243,7 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
     import torch
 
     from ditl_tpu_torch.infer import server as server_mod
-    from ditl_tpu_torch.infer.continuous import ContinuousEngine, ThreadedEngine
-
-    class RecordingEngine(ThreadedEngine):
-        """Keeps the token ids each completion returned: the byte tokenizer
-        decodes only ids 3..258 of the 128256-way head to text."""
-
-        def __init__(self, engine):
-            super().__init__(engine)
-            self.outputs: dict[tuple, list] = {}
-            self._lock = threading.Lock()
-
-        def generate_one(self, prompt_tokens, **kw):
-            out = super().generate_one(prompt_tokens, **kw)
-            with self._lock:
-                self.outputs.setdefault((tuple(prompt_tokens), kw["max_new_tokens"]),
-                                        []).append(list(out))
-            return out
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
 
     cfg = gen.cfg
     tok = gen.tokenizer
@@ -2195,7 +2251,7 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
     engine = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
                               max_cache_len=2048, cache_mode="paged", page_size=256,
                               device="cuda")
-    threaded = RecordingEngine(engine)
+    threaded = _recording_engine(engine)
     server = server_mod.make_server(gen, threaded_engine=threaded, host="127.0.0.1",
                                     port=0, model_name=cfg.name)
     pool_gib = 2 * engine.cache["kp"].numel() * 2 / 2**30
@@ -2264,7 +2320,8 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
     pool_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
     return launches, {"ms_step": tick_ms / engine.decode_chunk,
                       "tokens_s": n_tokens / wall, "pool_bytes": pool_bytes,
-                      "n_pages": engine.n_pages, "hit_tokens": hit}
+                      "n_pages": engine.n_pages, "hit_tokens": hit,
+                      "outputs": threaded.outputs}
 
 
 def _check_decode_step(engine, paged, tag: str, kernel: str) -> None:
@@ -2296,6 +2353,296 @@ def _check_decode_step(engine, paged, tag: str, kernel: str) -> None:
         f"context): rel L2 {rel:.3e}, max abs {float((lk - lx).abs().max()):.3e}, "
         f"same argmax {same_top}")
     require(rel <= LOGITS_REL_TOL and same_top, (rel, same_top))
+
+
+def _span_requests():
+    """Four prompts that repeat a span (what prompt lookup is for), greedy."""
+    return [{"prompt": " ".join([_text(70 + i, n)] * reps), "max_tokens": m}
+            for i, (n, reps, m) in enumerate([(120, 4, 48), (60, 8, 40), (200, 3, 64),
+                                              (90, 5, 32)])]
+
+
+def _tie_check(gen, cfg, prompt_ids: list[int], spec: list[int], plain: list[int]):
+    """The speculative tokens against the plain ones up to their first
+    divergence: None when identical, else the gap between the two candidate
+    tokens' logits in one plain forward over the common prefix (a causal
+    prefill of prompt + the shared tokens), which must be under
+    ``SPEC_TIE_TOL``."""
+    n = min(len(spec), len(plain))
+    i = next((j for j in range(n) if spec[j] != plain[j]), None)
+    if i is None and len(spec) == len(plain):
+        return None
+    i = n if i is None else i
+    eos = gen.tokenizer.eos_id
+    a = plain[i] if i < len(plain) else eos
+    b = spec[i] if i < len(spec) else eos
+    import torch
+
+    with torch.no_grad():
+        logits = _prefill_logits(gen, cfg, prompt_ids + plain[:i])
+    gap = abs(float(logits[a] - logits[b]))
+    require(gap < SPEC_TIE_TOL, (i, a, b, gap))
+    return gap
+
+
+def _check_against(gen, cfg, pairs, tag: str) -> None:
+    """``pairs``: (prompt ids, speculative tokens, plain tokens) of greedy
+    requests; each identical, or diverging at a near-tie."""
+    same, gaps = 0, []
+    for prompt_ids, spec, plain in pairs:
+        gap = _tie_check(gen, cfg, prompt_ids, spec, plain)
+        if gap is None:
+            same += 1
+        else:
+            gaps.append(gap)
+    log(f"[{tag}] greedy tokens against the plain path: {same} of {len(pairs)} requests "
+        f"identical; {len(gaps)} diverge at a near-tie, logit gaps "
+        f"{[round(g, 4) for g in gaps]} (SPEC_TIE_TOL {SPEC_TIE_TOL})")
+
+
+def phase_serve_spec(gen, flash, paged, bf16: dict) -> dict:
+    """Main path 7, speculative continuous serving: the continuous engine
+    as ``infer/server.py --engine continuous --cache-mode paged
+    --speculative on`` builds it (``speculative=True``, threshold 0: every
+    tick speculates), over path 1's weights object, serving path 2's 12
+    requests plus four prompts that repeat a span over HTTP. K3-verify on
+    every round of every layer, never the single-query K3; greedy tokens
+    against path 2's (the span prompts against the plain engine's) by the
+    divergence rule; then ``--speculative auto`` over the same weights.
+    Returns the path's launch counts."""
+    import torch
+
+    from ditl_tpu_torch.infer import server as server_mod
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+
+    cfg, tok = gen.cfg, gen.tokenizer
+    engine = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
+                              max_cache_len=2048, cache_mode="paged", page_size=256,
+                              speculative=True, spec_threshold=0.0, device="cuda")
+    threaded = _recording_engine(engine)
+    server = server_mod.make_server(gen, threaded_engine=threaded, host="127.0.0.1",
+                                    port=0, model_name=cfg.name)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    requests = _continuous_requests()[0] + _span_requests()
+    try:
+        flash.reset_launches()  # this path's counts start here
+        paged.reset_launches()
+        results, wall = _send_continuous(url, requests, engine)
+        launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail,
+                    "paged_verify": paged.launches_verify,
+                    "paged": paged.launches}  # read right after the run
+        status, http_stats = _http("GET", url + "/v1/stats")
+        require(status == 200, http_stats)
+    finally:
+        server.close(drain=True)
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "server thread did not stop")
+    st = http_stats["speculative"]
+    n_tokens = 0
+    for i, payload in enumerate(requests):
+        require(i in results, f"request {i} did not answer")
+        status, body, w = results[i]
+        require(status == 200, (i, status, body))
+        n_tokens += body["usage"]["completion_tokens"]
+        if not payload.get("temperature"):
+            require(body["usage"]["completion_tokens"] == payload["max_tokens"], (i, body))
+    require(st["spec_ticks"] == st["ticks"] == http_stats["decode_ticks"] > 0, st)
+    require(launches["paged_verify"] == cfg.num_layers * st["verify_rounds"], (launches, st))
+    require(launches["paged_tail"] == 0 and launches["paged"] == 0, launches)
+    require(launches["flash_fwd"] == cfg.num_layers * http_stats["prefills_cold"],
+            (launches, http_stats["prefills_cold"]))
+    ms_round = st["spec_seconds"] / st["verify_rounds"] * 1e3
+    log(f"[spec] continuous --speculative on: K3-verify launches {launches['paged_verify']} "
+        f"= {cfg.num_layers} layers x {st['verify_rounds']} verify rounds ({st['spec_ticks']} "
+        f"ticks of {st['rounds_per_tick']} rounds, k = {st['k']}), single-query K3 launches "
+        f"{launches['paged_tail']}; K1 launches {launches['flash_fwd']} = {cfg.num_layers} x "
+        f"{http_stats['prefills_cold']} cold prefills")
+    log(f"[spec] {len(requests)} concurrent requests in {wall:.3f}s wall: {n_tokens} "
+        f"generated tokens, {n_tokens / wall:.1f} tokens/s aggregate (path 2: "
+        f"{bf16['tokens_s']:.1f}); {st['tokens_per_row_forward']:.3f} tokens per verify "
+        f"forward per row (acceptance EMA {st['acceptance_ema']:.3f}); {ms_round:.2f} ms "
+        f"per verify round against path 2's {bf16['ms_step']:.2f} ms per step, "
+        f"{ms_round / bf16['ms_step']:.2f}x (host clock, each tick ends in a device-to-host "
+        f"copy; {SMI})")
+
+    # Greedy tokens against the plain path: path 2's for its requests, the
+    # plain engine's for the span prompts (run here over the same weights).
+    plain_engine = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
+                                    max_cache_len=2048, cache_mode="paged", page_size=256,
+                                    device="cuda")
+    span_ids = {}
+    for payload in _span_requests():
+        ids = [tok.bos_id] + tok.encode(payload["prompt"])
+        span_ids[plain_engine.submit(ids, max_new_tokens=payload["max_tokens"])] = (
+            ids, payload["max_tokens"])
+    plain_out = plain_engine.run()
+    want = {key: outs[0] for key, outs in bf16["outputs"].items()}
+    want.update({(tuple(ids), m): plain_out[rid] for rid, (ids, m) in span_ids.items()})
+    del plain_engine
+    keys = {(tuple([tok.bos_id] + tok.encode(p["prompt"])), p["max_tokens"])
+            for p in requests if not p.get("temperature")}
+    pairs = [(list(key[0]), spec_out, want[key]) for key in sorted(keys)
+             for spec_out in threaded.outputs[key]]  # one pair a greedy request
+    _check_against(gen, cfg, pairs, "spec")
+
+    # --speculative auto over the same weights: the measured threshold and
+    # both kinds of tick (probing every 2 ticks, so the smoke's traffic times
+    # both kinds twice; the server's default is every 32).
+    auto = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
+                            max_cache_len=2048, cache_mode="paged", page_size=256,
+                            speculative=True, spec_threshold=None, spec_probe_every=2,
+                            device="cuda")
+    server = server_mod.make_server(gen, threaded_engine=_recording_engine(auto),
+                                    host="127.0.0.1", port=0, model_name=cfg.name)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    greedy = [p for p in requests if not p.get("temperature")]
+    try:
+        for _ in range(3):
+            results, _ = _send_continuous(url, greedy, auto)
+            require(all(results[i][0] == 200 for i in range(len(greedy))), results)
+            status, auto_stats = _http("GET", url + "/v1/stats")
+            if auto_stats["speculative"]["threshold_source"] == "measured":
+                break
+    finally:
+        server.close(drain=True)
+        thread.join(timeout=30)
+    ast = auto_stats["speculative"]
+    require(ast["threshold_source"] == "measured"
+            and abs(ast["threshold"] - ast["spec_round_ms"] / ast["plain_step_ms"]) < 1e-9
+            and 0 < ast["spec_ticks"] < ast["ticks"], ast)
+    log(f"[spec] --speculative auto: threshold {ast['threshold']:.3f} (measured: "
+        f"{ast['spec_round_ms']:.2f} ms per verify round / {ast['plain_step_ms']:.2f} ms per "
+        f"plain step), {ast['spec_ticks']} speculative of {ast['ticks']} ticks, acceptance "
+        f"EMA {ast['acceptance_ema']:.3f} ({SMI})")
+    log(f"[spec] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return launches
+
+
+def phase_lockstep_spec(gen, flash, paged) -> dict:
+    """Lock-step speculation: ``infer/server.py --engine lockstep
+    --speculative on`` over path 1's Generator and weights, five greedy
+    requests (K1 on each prefill; the verify reads the contiguous cache
+    with the reference's mask, no kernel); tokens against path 1's
+    Generator by the divergence rule; the acceptance."""
+    from ditl_tpu_torch.infer import server as server_mod
+    from ditl_tpu_torch.infer.engine import GenerateConfig
+    from ditl_tpu_torch.infer.speculative import SpeculativeGenerator
+
+    class RecordingSpec(SpeculativeGenerator):
+        def generate_tokens(self, token_lists, max_new_tokens=64):
+            out = super().generate_tokens(token_lists, max_new_tokens)
+            self.record.append((token_lists[0], out[0], self.last_acceptance))
+            return out
+
+    cfg, tok = gen.cfg, gen.tokenizer
+    spec = RecordingSpec(gen.params, cfg, tok, device="cuda")
+    spec.record = []
+    server = server_mod.make_server(gen, spec_generator=spec, host="127.0.0.1", port=0,
+                                    model_name=cfg.name)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    requests = [{"prompt": _text(0, 100), "max_tokens": 16},
+                {"prompt": _text(3, 400), "max_tokens": 24},
+                {"prompt": _text(4, 300), "max_tokens": 16}] + _span_requests()[:2]
+    try:
+        flash.reset_launches()
+        paged.reset_launches()
+        t0 = time.perf_counter()
+        for payload in requests:
+            status, body = _http("POST", url + "/v1/completions", payload)
+            require(status == 200 and body["usage"]["completion_tokens"]
+                    == payload["max_tokens"], (status, body))
+        wall = time.perf_counter() - t0
+        k1 = flash.launches
+        status, stats = _http("GET", url + "/v1/stats")
+    finally:
+        server.close(drain=True)
+        thread.join(timeout=30)
+    require(len(spec.record) == len(requests) and k1 == cfg.num_layers * len(requests),
+            (len(spec.record), k1))
+    require(paged.launches_verify == paged.launches_tail == 0)
+    accs = [a for _, _, a in spec.record]
+    log(f"[lockstep-spec] {len(requests)} greedy requests through SpeculativeGenerator "
+        f"(k = {spec.k}) in {wall:.3f}s: K1 launches {k1} = {cfg.num_layers} x "
+        f"{len(requests)} prefills; tokens per verify forward per row {accs}; /stats "
+        f"speculative_acceptance {stats.get('speculative_acceptance')} ({SMI})")
+    pairs = [(ids, out, gen.generate_tokens([ids], GenerateConfig(
+        max_new_tokens=payload["max_tokens"]))[0])
+        for (ids, out, _), payload in zip(spec.record, requests)]
+    _check_against(gen, cfg, pairs, "lockstep-spec")
+    return {"flash_fwd": k1}
+
+
+def phase_spec_int8(flash, paged) -> dict:
+    """int8 with speculation: ``infer/server.py --kv-quant int8 --speculative
+    on --engine continuous --cache-mode paged`` at full width and depth 2
+    (a depth cut: the engine's int8 pools and K3-int8-verify are per layer),
+    the continuous traffic's greedy requests plus the span prompts over
+    HTTP: K3-int8-verify
+    on every round of both layers; greedy tokens against the same engine
+    configuration's plain ticks by the divergence rule. Returns the launch
+    counts."""
+    from ditl_tpu_torch.infer import server as server_mod
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+
+    server = server_mod.create_server([
+        "--preset", "llama3-8b", "--override", "attention_impl=flash", "--override",
+        "num_layers=2", "--device", "cuda", "--host", "127.0.0.1", "--port", "0",
+        "--seed", "0", "--kv-quant", "int8", "--speculative", "on", "--engine",
+        "continuous", "--cache-mode", "paged", "--slots", "8", "--page-size", "256",
+        "--max-cache-len", "2048",
+    ])
+    gen = server.RequestHandlerClass.generator
+    engine = server.engine._engine
+    cfg, tok = gen.cfg, gen.tokenizer
+    require((cfg.num_layers, cfg.hidden_size, cfg.kv_cache_dtype, engine.speculative)
+            == (2, 4096, "int8", True), cfg)
+    recording = _recording_engine(engine)
+    server.engine.close()  # the server's own engine thread; the recording one takes over
+    server.RequestHandlerClass.threaded_engine = recording
+    server.engine = recording
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    requests = [p for p in _continuous_requests()[0] + _span_requests()
+                if not p.get("temperature")]
+    try:
+        flash.reset_launches()
+        paged.reset_launches()
+        results, wall = _send_continuous(url, requests, engine)
+        launches = {"paged_verify_int8": paged.launches_verify_int8,
+                    "paged_verify": paged.launches_verify,
+                    "paged_tail_int8": paged.launches_tail_int8}
+        st = engine.stats()["speculative"]
+    finally:
+        server.close(drain=True)
+        thread.join(timeout=30)
+    require(all(results[i][0] == 200 for i in range(len(requests))), results)
+    require(launches["paged_verify_int8"] == cfg.num_layers * st["verify_rounds"] > 0
+            and launches["paged_verify"] == launches["paged_tail_int8"] == 0, (launches, st))
+    log(f"[spec-int8] depth 2, int8 pools: K3-int8-verify launches "
+        f"{launches['paged_verify_int8']} = {cfg.num_layers} layers x {st['verify_rounds']} "
+        f"verify rounds; {st['tokens_per_row_forward']:.3f} tokens per verify forward per "
+        f"row; {len(requests)} greedy requests in {wall:.3f}s")
+    plain = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
+                             max_cache_len=2048, cache_mode="paged", page_size=256,
+                             device="cuda")
+    ids_of = {}
+    for payload in requests:
+        ids = [tok.bos_id] + tok.encode(payload["prompt"])
+        ids_of[plain.submit(ids, max_new_tokens=payload["max_tokens"])] = (
+            ids, payload["max_tokens"])
+    plain_out = plain.run()
+    plain_of = {(tuple(ids), m): plain_out[rid] for rid, (ids, m) in ids_of.items()}
+    pairs = [(list(key[0]), spec_out, plain_of[key]) for key in sorted(plain_of)
+             for spec_out in recording.outputs[key]]  # one pair a greedy request
+    _check_against(gen, cfg, pairs, "spec-int8")
+    return launches
 
 
 def _int8_pools(kp, vp):
@@ -2451,6 +2798,320 @@ def phase_paged_int8_timings(paged) -> dict:
                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                                 "bound_by": bound_by, "library_ms": lib_ms,
                                 "dequant_ms": deq_ms, "float_ms": min(float_ms, float_ms2)}}
+
+
+def _det_int8(shape, salt: int):
+    """int8 values in [-127, 127] made by integer arithmetic alone (as
+    ``_det_bf16``)."""
+    import torch
+
+    n = 1
+    for x in shape:
+        n *= x
+    i = torch.arange(n, device="cuda", dtype=torch.int64)
+    h = (i * 2654435761 + salt * 40503) % 4294967296
+    h = (h ^ (h >> 15)) * 1274126177 % 4294967296
+    return (h % 255 - 127).to(torch.int8).reshape(shape)
+
+
+def _det_paged_case(b, h, kv, d, ps, tail_len, lengths, starts, salt, nq=None):
+    """A paged case from integer arithmetic alone: bf16 q, pools and tails
+    (``_det_bf16``), int8 pools (``_det_int8``) with f32 scales of 1..1000
+    times 2^-14, and the table ``_paged_inputs`` builds (128 pages, rows 1
+    and 2 sharing their first page)."""
+    import torch
+
+    n_pool = 128
+    q = _det_bf16((b, h, d) if nq is None else (b, nq, h, d), salt, 9)
+    kp, vp = _det_bf16((n_pool, kv, ps, d), salt + 1, 9), _det_bf16((n_pool, kv, ps, d), salt + 2, 9)
+    tk, tv = _det_bf16((b, kv, tail_len, d), salt + 3, 9), _det_bf16((b, kv, tail_len, d), salt + 4, 9)
+    kq, vq = _det_int8((n_pool, kv, ps, d), salt + 5), _det_int8((n_pool, kv, ps, d), salt + 6)
+    ks = ((_det_int8((n_pool, kv, 1, ps), salt + 7).float().abs() + 1) * 2.0**-14).contiguous()
+    vs = ((_det_int8((n_pool, kv, 1, ps), salt + 8).float().abs() + 1) * 2.0**-14).contiguous()
+    maxp = max(1, max(-(-max(x, y) // ps) for x, y in zip(lengths, starts)))
+    table = torch.zeros((b, maxp), dtype=torch.int32)
+    pid = 1
+    for row in range(b):
+        for i in range(-(-max(lengths[row], starts[row]) // ps)):
+            table[row, i] = pid
+            pid += 1
+    table[2, 0] = table[1, 0]
+
+    def ints(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    return dict(q=q, kp=kp, vp=vp, kq=kq, vq=vq, ks=ks, vs=vs, tk=tk, tv=tv,
+                table=table.cuda(), lengths=ints(lengths), starts=ints(starts))
+
+
+# K3, K3 over int8 pools and K4 in their single-query form, on the cases of
+# ``_k3_digests``: SHA-256 prefixes of their outputs as the build before the
+# verify form joined their template gave them (``_k3_digests`` run on the card
+# against that tree's ``ditl_tpu_torch``, first on ``sys.path``).
+K3_DIGESTS: dict[str, str] = {
+    "case 0 K3": "98a9aa9302a1d603",
+    "case 0 K3-int8": "c79691c1cd7c338c",
+    "case 0 K4": "cb41f6707f7ca237",
+    "case 1 K3": "04400c3cdcae43aa",
+    "case 1 K3-int8": "967e49b6502d8e9c",
+    "case 1 K4": "5c8c224a80cc1d46",
+    "case 2 K3": "54d18c07668f0118",
+    "case 2 K3-int8": "bc0c39e8e161843b",
+    "case 2 K4": "4f1fa201bc54b18a",
+}
+
+
+def _k3_digests(paged) -> dict:
+    """K3 (float and int8 pools) and K4 on fixed integer-made inputs: the
+    decode tick's shape, head_dim 64 at page 16 (a dead slot, a tail-only
+    slot), and the split edges; SHA-256 digests of the outputs' bytes. Uses
+    only the wrapper's single-query signature, so it runs against an older
+    tree's module too."""
+    import hashlib
+
+    import torch
+
+    main = PAGED_MAIN
+    starts, lengths = _paged_main_case()
+    cases = [(main["b"], main["h"], main["kv"], main["d"], main["ps"], main["tail_len"],
+              lengths, starts),
+             (4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 32, 45]),
+             (4, 32, 8, 128, 16, 16, [257, 256, 513, 140], [257, 250, 500, 128])]
+    out = {}
+    for i, (b, h, kv, d, ps, tl, lens, sts) in enumerate(cases):
+        c = _det_paged_case(b, h, kv, d, ps, tl, lens, sts, salt=700 + 10 * i)
+        tail = dict(tail_k=c["tk"], tail_v=c["tv"], starts=c["starts"])
+        outs = {
+            "K3": paged.paged_attention(c["q"], c["kp"], c["vp"], c["table"], c["lengths"],
+                                        **tail),
+            "K3-int8": paged.paged_attention(c["q"], c["kq"], c["vq"], c["table"],
+                                             c["lengths"], **tail, k_scale=c["ks"],
+                                             v_scale=c["vs"]),
+            "K4": paged.paged_attention(c["q"], c["kp"], c["vp"], c["table"], c["lengths"]),
+        }
+        torch.cuda.synchronize()
+        for name, t in outs.items():
+            raw = t.contiguous().view(torch.int16).cpu().numpy().tobytes()
+            out[f"case {i} {name}"] = hashlib.sha256(raw).hexdigest()[:16]
+    return out
+
+
+# The speculative tick's verify shape on path 7: 8 slots, Q = spec_k + 1 = 9
+# queries, 32 query / 8 KV heads, head_dim 128, page 256, 8 pages a slot
+# (context 2048), a tail of spec_rounds * Q = 6 * 9 = 54 columns.
+SPEC_MAIN = dict(b=8, nq=9, h=32, kv=8, d=128, ps=256, maxp=8, tail_len=54)
+
+
+def _spec_main_case():
+    """The verify's ragged state in a spec tick: each live slot's tokens
+    [0, starts) in pages and [starts, lengths) in the tail (lengths = pos +
+    1 > starts); the decode tick's slots (a dead one, a page boundary, a
+    shared page), one tail reaching column 54 for its last query."""
+    starts = [0, 700, 512, 1490, 9, 256, 1030, 300]
+    lengths = [0, 710, 513, 1500, 10, 257, 1046, 346]
+    return starts, lengths
+
+
+def _verify_cases():
+    """(label, b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp) for
+    K3-verify's kernels phase."""
+    m = SPEC_MAIN
+    starts, lengths = _spec_main_case()
+    return [
+        ("spec tick", m["b"], m["nq"], m["h"], m["kv"], m["d"], m["ps"], m["tail_len"],
+         lengths, starts, m["maxp"]),
+        # head_dim 64, page 16: a dead slot, a page-aligned and a mid-page
+        # start, tail-straddling lengths (tests/test_paged.py's multi-query
+        # inputs), Q = 5
+        ("head_dim 64", 4, 5, 8, 4, 64, 16, 24, [0, 20, 40, 21], [0, 16, 33, 20], 4),
+        # a tail longer than 128 columns: query 0's limit (125) ends before
+        # the tail's 128-column split boundary, query 8's (133) crosses it;
+        # a tail-only slot (no pages), and a short slot
+        ("long tail", 3, 9, 32, 8, 128, 16, 200, [381, 60, 30], [256, 30, 0], 16),
+        # G = 8: 9 x 8 = 72 query rows (five row tiles)
+        ("G=8", 2, 9, 16, 2, 128, 64, 40, [300, 77], [290, 64], 5),
+        # 8 query rows, one row tile with padding rows: Q = 2, G = 4
+        ("Q=2", 3, 2, 16, 4, 128, 16, 16, [17, 40, 1], [16, 33, 0], 3),
+    ]
+
+
+def phase_paged_verify_kernels(paged) -> dict:
+    """K3's multi-query verify over float and int8 pools against the plain
+    version's 4-D branch and the split twin at ``O_TOL`` (``_verify_cases``:
+    the spec tick, head_dim 64, a dead slot, a tail longer than 128 columns
+    whose split is live for some queries and dead for others, a tail-only
+    slot, G = 8 at 72 rows, Q = 2); a second call the same bits; a 4-D q with
+    Q = 1 the 3-D call's bits; and K3, K3-int8 and K4 in their single-query
+    form the digests of the build before the verify joined their template
+    (``K3_DIGESTS``). Returns the max abs errors."""
+    import torch
+
+    worst = {"paged_verify": 0.0, "paged_verify_int8": 0.0}
+    paged.reset_launches()
+    n_calls = 0
+    for i, (label, b, nq, h, kv, d, ps, tl, lens, sts, maxp) in enumerate(_verify_cases()):
+        q, kp, vp, table, ln, st, tk, tv = _paged_inputs(b, h, kv, d, ps, tl, lens, sts,
+                                                         seed=600 + i, n_pool=128, nq=nq,
+                                                         maxp=maxp, share=b > 2)
+        kq, vq, ks, vs = _int8_pools(kp, vp)
+        tail = dict(tail_k=tk, tail_v=tv, starts=st)
+        for name, kw in (("paged_verify", dict(k_pages=kp, v_pages=vp)),
+                         ("paged_verify_int8", dict(k_pages=kq, v_pages=vq, k_scale=ks,
+                                                    v_scale=vs))):
+            pools = (kw["k_pages"], kw["v_pages"])
+            scales = {k: v for k, v in kw.items() if k.endswith("scale")}
+            o = paged.paged_attention(q, *pools, table, ln, **tail, **scales)
+            o2 = paged.paged_attention(q, *pools, table, ln, **tail, **scales)
+            n_calls += 2
+            r = paged.paged_attention_plain(q, *pools, table, ln, tk, tv, st,
+                                            scales.get("k_scale"), scales.get("v_scale"))
+            sp = paged.paged_attention_split_plain(q, *pools, table, ln, tk, tv, st,
+                                                   scales.get("k_scale"),
+                                                   scales.get("v_scale"))
+            # Q = 1: the 4-D call runs the single-query kernel, the 3-D call's bits
+            o41 = paged.paged_attention(q[:, :1].contiguous(), *pools, table, ln, **tail,
+                                        **scales)
+            o3 = paged.paged_attention(q[:, 0].contiguous(), *pools, table, ln, **tail,
+                                       **scales)
+            torch.cuda.synchronize()
+            require(o.shape == q.shape and bool(torch.isfinite(o.float()).all()),
+                    f"{name} {label}: shape or non-finite")
+            torch.testing.assert_close(o.float(), r.float(), atol=O_TOL, rtol=O_TOL)
+            torch.testing.assert_close(o.float(), sp.float(), atol=O_TOL, rtol=O_TOL)
+            require(torch.equal(o, o2), f"{name} {label}: a second call gave other bits")
+            require(torch.equal(o41[:, 0], o3), f"{name} {label}: Q = 1 differs from 3-D")
+            dead = [j for j, n in enumerate(lens) if n == 0]
+            require(all(bool((o[j] == 0).all()) for j in dead), f"{name}: dead slot")
+            err = float((o.float() - r.float()).abs().max())
+            err_split = float((o.float() - sp.float()).abs().max())
+            worst[name] = max(worst[name], err)
+            log(f"[kernels] {name} {label}: B={b} Q={nq} H={h} K={kv} D={d} ps={ps} "
+                f"T={tl} lengths={lens} starts={sts}: max|o-plain|={err:.3e}, "
+                f"max|o-split plain|={err_split:.3e} (tolerance {O_TOL}), a second call "
+                f"the same bits, Q = 1 the 3-D call's bits")
+    require((paged.launches_verify, paged.launches_verify_int8) == (n_calls // 2, n_calls // 2),
+            (paged.launches_verify, paged.launches_verify_int8, n_calls))
+    digests = _k3_digests(paged)
+    for key, value in digests.items():
+        log(f"[kernels] single-query digest {key}: {value} (expected {K3_DIGESTS.get(key)})")
+    require(digests == K3_DIGESTS, "K3/K3-int8/K4 differ from the earlier build's bits")
+    return worst
+
+
+def _verify_sdpa_inputs(q, kp, vp, table, ln, st, tk, tv, k_scale=None, v_scale=None):
+    """SDPA's view of a verify call: every slot's page keys (int8 pools:
+    dequantized to bf16), then its tail, as (B, K, S, D) K and V, q as
+    (B, H, Q, D), and the (B, 1, Q, S) boolean mask of the plain version."""
+    import torch
+
+    b, nq, h, d = q.shape
+    kv, ps = kp.shape[1], kp.shape[2]
+    maxp = table.shape[1]
+    out = []
+    for pool, sc, t in ((kp, k_scale, tk), (vp, v_scale, tv)):
+        g = pool[table.long()]
+        if sc is not None:
+            g = (g.float() * sc[table.long()][:, :, :, 0, :, None]).to(torch.bfloat16)
+        g = g.transpose(2, 3).reshape(b, maxp * ps, kv, d)
+        out.append(torch.cat([g, t.transpose(1, 2)], dim=1).transpose(1, 2).contiguous())
+    cols = torch.arange(maxp * ps, device="cuda")
+    page = (cols[None] < torch.minimum(st, ln)[:, None])[:, None].expand(b, nq, -1)
+    qi = torch.arange(nq, device="cuda")
+    tcols = torch.arange(tk.shape[2], device="cuda")
+    tail = ((st[:, None, None] + tcols[None, None] < (ln[:, None] + qi[None])[:, :, None])
+            & (ln > st)[:, None, None])
+    mask = torch.cat([page, tail], dim=2)[:, None]
+    return q.transpose(1, 2).contiguous(), out[0], out[1], mask
+
+
+def _verify_bound(q, kv, table, tail_len, lengths, starts, int8: bool):
+    """Least time on an H100 SXM for one verify call: the live keys' K and V
+    once (int8 pools: int8 values plus two f32 scales a page key; the tail
+    bf16), the tail keys any query reads, q and o, the table and lengths,
+    over HBM bandwidth, against 4*D flops per (query row, key it sees) at
+    bf16 peak."""
+    b, nq, h, d = q.shape
+    pairs = list(zip(starts.tolist(), lengths.tolist()))
+    page = sum(min(s, n) for s, n in pairs)
+    tail_keys = sum(min(tail_len, n - s + nq - 1) for s, n in pairs if n > s)
+    seen = sum(nq * min(s, n) + sum(min(tail_len, n - s + qi) for qi in range(nq))
+               for s, n in pairs if n > 0)
+    page_bytes = page * kv * (2 * d + 8) if int8 else page * kv * 2 * d * 2
+    nbytes = (page_bytes + tail_keys * kv * 2 * d * 2 + 2 * (2 * b * nq * h * d)
+              + 4 * (table.numel() + 2 * b))
+    flops = 4 * d * h * seen
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_paged_verify_timings(paged) -> dict:
+    """K3-verify (float and int8 pools) at the spec tick's shape: kernel,
+    the single-query K3 on the same keys (query 0 alone), plain, and the
+    yardstick SDPA (``enable_gqa``) over the same keys gathered (int8:
+    dequantized) beforehand with the same per-query boolean mask, the gather
+    timed apart; the bound. Every call reads one of ``PAGED_COPIES`` input
+    copies in turn (device times from CUDA-graph replays)."""
+    import torch
+    import torch.nn.functional as F
+
+    m = SPEC_MAIN
+    starts, lengths = _spec_main_case()
+    copies = [_paged_inputs(m["b"], m["h"], m["kv"], m["d"], m["ps"], m["tail_len"],
+                            lengths, starts, seed=800 + c, share=False, nq=m["nq"],
+                            maxp=m["maxp"]) for c in range(PAGED_COPIES)]
+    out = {}
+    for name, int8 in (("paged_verify", False), ("paged_verify_int8", True)):
+        kernel, single, plain, library, gather = [], [], [], [], []
+        for q, kp, vp, table, ln, st, tk, tv in copies:
+            scales = {}
+            if int8:
+                kp, vp, ks, vs = _int8_pools(kp, vp)
+                scales = dict(k_scale=ks, v_scale=vs)
+            tail = dict(tail_k=tk, tail_v=tv, starts=st)
+            qs, kt, vt, mask = _verify_sdpa_inputs(q, kp, vp, table, ln, st, tk, tv,
+                                                   **scales)
+            q0 = q[:, 0].contiguous()
+            kernel.append(functools.partial(paged.paged_attention, q, kp, vp, table, ln,
+                                            **tail, **scales))
+            single.append(functools.partial(paged.paged_attention, q0, kp, vp, table, ln,
+                                            **tail, **scales))
+            plain.append(functools.partial(paged.paged_attention_plain, q, kp, vp, table,
+                                           ln, tk, tv, st, scales.get("k_scale"),
+                                           scales.get("v_scale")))
+            library.append(functools.partial(F.scaled_dot_product_attention, qs, kt, vt,
+                                             attn_mask=mask, enable_gqa=True))
+            gather.append(functools.partial(_verify_sdpa_inputs, q, kp, vp, table, ln, st,
+                                            tk, tv, **scales))
+        ms = _graph_ms(kernel)
+        single_ms = _graph_ms(single)
+        plain_ms = _graph_ms(plain, rounds=1)
+        lib_ms = _graph_ms(library)
+        gather_ms = _graph_ms(gather, rounds=1)
+        ms2 = _graph_ms(kernel)
+        single_ms2 = _graph_ms(single)
+        by_kernel = _device_us_by_kernel(_cycle(kernel), 4 * PAGED_COPIES)
+        log(f"[timing] {name} device time per call by kernel (torch.profiler, eager "
+            "calls): " + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(by_kernel.items()))
+            + f" ({SMI})")
+        q, kp, _, table, ln, st, _, _ = copies[0]
+        bound_ms, bound_by = _verify_bound(q, kp.shape[1], table, m["tail_len"], ln, st, int8)
+        single_bound = (_paged_int8_bound(q[:, 0], kp, table, ln, st) if int8
+                        else _paged_bound(q[:, 0], kp, table, ln, st, True))[0]
+        log(f"[timing] {name} B={m['b']} Q={m['nq']} H={m['h']} K={m['kv']} D={m['d']} "
+            f"ps={m['ps']} T={m['tail_len']} lengths={lengths} starts={starts}, "
+            f"{PAGED_COPIES} input copies in turn: device (CUDA graph) kernel "
+            f"{ms:.4f}/{ms2:.4f} ms, the single-query K3 on the same keys (query 0) "
+            f"{single_ms:.4f}/{single_ms2:.4f} ms (bound {single_bound:.4f} ms), verify / "
+            f"single {min(ms, ms2) / min(single_ms, single_ms2):.2f}x; plain "
+            f"{plain_ms:.4f} ms; sdpa (enable_gqa, per-query mask) over keys gathered "
+            f"{'and dequantized ' if int8 else ''}beforehand {lib_ms:.4f} ms (the gather "
+            f"itself {gather_ms:.4f} ms), kernel / sdpa {min(ms, ms2) / lib_ms:.2f}x; "
+            f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / min(ms, ms2):.1%} of bound "
+            f"({SMI})")
+        out[name] = {"ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms, "gather_ms": gather_ms,
+                     "single_ms": min(single_ms, single_ms2)}
+    return out
 
 
 def _int8_weight_bytes(cfg) -> int:
@@ -2637,24 +3298,31 @@ def main() -> int:
     errors.update(phase_bwd_kernels(flash, train_seg))
     errors.update(phase_paged_kernels(paged))
     errors.update(phase_paged_int8_kernels(paged))
+    errors.update(phase_paged_verify_kernels(paged))
     timings = phase_timings(flash)
     train_timings = phase_train_timings(flash, train_seg)
     timings.update(train_timings)
     timings.update(phase_paged_timings(paged))
     timings.update(phase_paged_int8_timings(paged))
+    timings.update(phase_paged_verify_timings(paged))
     errors.update(phase_mm_kernels(mlp_bwd, proj))
     timings.update(phase_mm_timings(mlp_bwd, proj))
     gc.collect()
     torch.cuda.empty_cache()
     gen, lockstep = phase_serve(flash, paged)
     continuous, bf16_summary = phase_serve_continuous(gen, flash, paged)
+    spec_serve = phase_serve_spec(gen, flash, paged, bf16_summary)
+    lockstep_spec = phase_lockstep_spec(gen, flash, paged)
     # Free the bf16 serving weights and pools before path 6's int8 ones.
-    del gen
+    del gen, bf16_summary["outputs"]
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[int8] after freeing the bf16 serving state: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     int8_serve = phase_serve_int8(flash, paged, bf16_summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_int8 = phase_spec_int8(flash, paged)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train] after freeing the serving state: "
@@ -2683,6 +3351,7 @@ def main() -> int:
     # on training path 4; K4 has no serving path, so its count is the
     # kernels phase's direct calls.
     launches = {"flash_fwd": lockstep["flash_fwd"] + continuous["flash_fwd"]
+                + spec_serve["flash_fwd"] + lockstep_spec["flash_fwd"]
                 + int8_serve["flash_fwd"] + training["flash_fwd"] + training4["flash_fwd"]
                 + recipe["flash_fwd"] + ckpt_serve["flash_fwd"],
                 "flash_dq": training["flash_dq"] + training4["flash_dq"] + recipe["flash_dq"],
@@ -2690,6 +3359,8 @@ def main() -> int:
                               + recipe["flash_dkv"]),
                 "paged_tail": continuous["paged_tail"] + ckpt_serve["paged_tail"],
                 "paged_tail_int8": int8_serve["paged_tail_int8"],
+                "paged_verify": spec_serve["paged_verify"],
+                "paged_verify_int8": spec_int8["paged_verify_int8"],
                 "paged": errors.pop("paged_direct_launches"),
                 **{k: training4[k] + recipe[k]
                    for k in ("mlp_dgu_dwdown", "mlp_dh_dwgu", "proj_bwd")}}
@@ -2702,7 +3373,8 @@ def main() -> int:
         kernels.append({"name": name, **meta, "launches": launches[name],
                         "max_abs_err": errors[name], **timings[name]})
     log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}, "
-        f"int8 serving {int8_serve}, "
+        f"speculative continuous {spec_serve}, lock-step speculative {lockstep_spec}, "
+        f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
         f"training {training}, training with the MLP and projection kernels {training4}, "
         f"the recipe under its three policies {recipe}, the served checkpoint "
         f"{ckpt_serve}")

@@ -8,9 +8,11 @@
 //   then the tick's contiguous tail buffer, positions [starts, lengths);
 // - K4 _paged_kernel, the same without a tail: pages up to lengths.
 // Entry points: ditl_paged_tail_bf16 (K3), ditl_paged_tail_i8 (K3 over int8
-// pools: _paged_tail_kernel with quantized=True) and ditl_paged_bf16 (K4).
-// All are instances of one template, for head_dim 64 and 128, in
-// single-query form (the multi-query verify is not here).
+// pools: _paged_tail_kernel with quantized=True), ditl_paged_verify_bf16 and
+// ditl_paged_verify_i8 (K3's multi-query verify: _paged_tail_kernel with
+// q_groups, over float and int8 pools) and ditl_paged_bf16 (K4). All are
+// instances of one template, for head_dim 64 and 128; the verify form is its
+// kMT > 0 instances (see "The multi-query verify" below).
 //
 // Bound on the card: the kernel is bytes-bound. It must read each live key's
 // K and V once per slot that reads it (2 * K * D * 2 bytes per key), the live
@@ -77,6 +79,44 @@
 // scale 1. Converting in registers on the way to the products, TMA and
 // wgmma are later work.
 //
+// The multi-query verify (ditl_paged_verify_*). q is (B, Q, H, D): the
+// speculative verify's Q = spec_k + 1 query tokens per slot, which share every
+// page fetch. A block's query rows are r = qi * G + g of its KV head (Q * G of
+// them, at most 16 * kMaxRowTiles = 80, which covers spec_k = 8 at G = 8).
+// Row r's tail columns j are live when starts + j < lengths + qi (causal
+// within the verify chunk), page columns below min(starts, lengths) for
+// every row, and the tail is read only when lengths > starts (the Pallas
+// kernel's _tail gate). Bound at the spec tick of llama3-8b (8 slots, Q = 9,
+// 32 / 8 heads, D = 128, 4,343 live keys, 54 tail columns): the float K3's
+// 17.8 MB of K/V plus 9x its q and o, about 19 MB, 5.7 us at 3.35 TB/s,
+// against 0.65 GFLOP of products (under a microsecond): still bytes-bound,
+// and the design keeps the single-query form's byte stream, each K and V tile
+// now serving all Q * G rows. Design, the simplest that is right: the
+// template's kMT (m16 row tiles: 1, 3 or 5 instances) sizes the scores, p,
+// m, l and alpha arrays and the accumulators; q's rows sit in shared memory
+// (padded as the key rows) and reach the products by ldmatrix, all 16 rows
+// of each m16 tile filled; row tiles past Q * G are skipped at run time; the
+// softmax loops one warp per row over Q * G rows; the merge runs one block
+// per (query row, KV head, slot). kMT = 0 is the single-query form, which
+// keeps its q fragments in registers (rows 8-15 zero), its 73 KB of shared
+// memory at D = 128, and its bits. wgmma, TMA and in-register int8
+// converts are later work.
+//
+// The rule for rows with nothing live in a split. A tile (and a split) is
+// processed when any row has a live key in it, so a verify row can meet
+// tiles that hold nothing live for it: the tail crosses a 64-key tile or a
+// 128-key split boundary between rows (qi = 8 reaches a split that qi = 0
+// does not). A row's live keys are a prefix of each region (pages, then
+// tail columns below its limit), so such tiles come after the row's live
+// ones. Where the split held a live tile for the row first, its m is a real
+// score and p = exp(mask - m) = 0 on the dead tile. Where the split holds
+// nothing live for the row, its scores are all the finite mask value, its m
+// stays -2.3819763e38 and p = exp(0) = 1 on every column: l and acc take
+// junk, and the merge gives that partial weight 0, testing m == mask
+// explicitly (exp(mask - m_max) would underflow to 0 as well, since every
+// row of a live slot has a live key, tail column 0 at least).
+// ops/paged_attention.py::paged_attention_split_plain encodes the same rule.
+//
 // Semantics kept from the reference: the q.k scores are f32 and scaled in
 // f32 (here the scale multiplies the f32 sums of the exact bf16 products,
 // which differs from scaling q first by f32 rounding alone); masked columns
@@ -104,13 +144,14 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;      // keys per tile; two per lane in the softmax
 constexpr int kMaxGroups = 8;  // query heads per KV head
+constexpr int kMaxRowTiles = 5;  // verify: m16 row tiles, at most 80 query rows
 constexpr int kPLd = kTile + 8;  // bf16 p row, padded: 144 bytes
 constexpr int kMergeBatch = 32;  // merge: splits whose acc values are loaded at once
 constexpr int kMaxSplits = 6144;  // the merge's m and l: 48 KB of shared memory
 constexpr float kNegInf = -2.3819763e38f;  // ops/attention.py NEG_INF
 
 struct Params {
-  const uint16_t* q;        // (B, H, D)
+  const uint16_t* q;        // (B, H, D); verify (B, Q, H, D)
   const uint16_t* k_pages;  // (P, K, ps, D), float pools
   const uint16_t* v_pages;
   const int* table;         // (B, max_pages)
@@ -118,31 +159,35 @@ struct Params {
   const int* starts;        // (B,), K3 only
   const uint16_t* tail_k;   // (B, K, T, D), K3 only
   const uint16_t* tail_v;
-  uint16_t* o;              // (B, H, D)
-  float* part_acc;          // (B, K, n_split, G, D)
-  float* part_ml;           // (B, K, n_split, G, 2): m, l
+  uint16_t* o;              // shaped as q
+  float* part_acc;          // (B, K, n_split, R, D), R = n_q * G query rows
+  float* part_ml;           // (B, K, n_split, R, 2): m, l
   int kv_heads, groups, page_size, max_pages, n_pool, tail_len, split, n_split;
   float scale;
   const int8_t* k_i8;       // (P, K, ps, D), int8 pools (ditl_paged_tail_i8)
   const int8_t* v_i8;
   const float* k_scale;     // (P, K, 1, ps)
   const float* v_scale;
+  int n_q;                  // query tokens per slot: 1, or the verify's Q
 };
 
 // Shared memory of a split block: two stages of (K, V) tiles with rows
 // padded by 16 bytes (so that 8 rows at one column reach 32 banks), then the
-// f32 scores, the bf16 p rows, m, l and alpha.
-template <int D>
+// f32 scores, the bf16 p rows, m, l and alpha of kRows query rows, then (the
+// verify form, kMT > 0) q's rows, padded as the key rows.
+template <int D, int kMT>
 struct Layout {
+  static constexpr int kRows = kMT == 0 ? kMaxGroups : 16 * kMT;
   static constexpr int kLd = D * 2 + 16;  // bytes of one padded key row
   static constexpr int kTileBytes = kTile * kLd;
   static constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
   static constexpr int kS = 2 * kStageBytes;
-  static constexpr int kP = kS + kMaxGroups * kTile * 4;
-  static constexpr int kM = kP + kMaxGroups * kPLd * 2;
-  static constexpr int kL = kM + kMaxGroups * 4;
-  static constexpr int kAlpha = kL + kMaxGroups * 4;
-  static constexpr int kBytes = kAlpha + kMaxGroups * 4;
+  static constexpr int kP = kS + kRows * kTile * 4;
+  static constexpr int kM = kP + kRows * kPLd * 2;
+  static constexpr int kL = kM + kRows * 4;
+  static constexpr int kAlpha = kL + kRows * 4;
+  static constexpr int kQRows = kAlpha + kRows * 4;
+  static constexpr int kBytes = kQRows + (kMT == 0 ? 0 : kRows * kLd);
   // int8 pools: two stages of raw int8 K and V tiles (D bytes a key), then
   // two stages of the tile's 64 K and 64 V scales.
   static constexpr int kQTile = kTile * D;
@@ -238,6 +283,27 @@ __device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uin
       : "r"(a0), "r"(0u), "r"(a1), "r"(0u), "r"(b0), "r"(b1));
 }
 
+// The same product with all 16 rows of A: a[0] rows 0-7 and a[1] rows 8-15
+// at k 2 (lane % 4).., a[2] and a[3] the same at k + 8 (ldmatrix.x4's order
+// below); c[2], c[3] hold rows 8-15.
+__device__ __forceinline__ void mma16816_m16(float* c, const uint32_t* a, uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices: the A fragment of a 16 x 16 block of a
+// row-major tile when lane l gives the address of row l % 16, column 8 (l /
+// 16).
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // Four 8 x 8 bf16 matrices, transposed: the B fragments of two n8 column
 // blocks of a row-major (key, dim) tile; each lane gives one row's address.
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
@@ -247,12 +313,26 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
 }
 
 // Where a slot's live keys lie on its axis of page positions, then tail
-// positions: [0, page_limit) and [tail0, tail_end); the axis ends at end.
+// positions: [0, page_limit) for every query, and [tail0, row_end(qi)) for
+// query qi; tail_end is the last query's end (the union), and the axis ends
+// at end.
 struct Live {
   int page_limit, tail0, tail_end, end;
+  int tail_q0;    // query 0's tail end, when the slot has a tail
+  int tail_max;   // tail0 + tail_len
+  bool has_tail;  // lengths > starts: the Pallas kernel's _tail gate
 
+  // Query qi's tail end: its columns j < lengths + qi - starts.
+  __device__ __forceinline__ int row_end(int qi) const {
+    return has_tail ? min(tail_q0 + qi, tail_max) : tail0;
+  }
+  // Key v is live for some query (the union: tiles, splits, loads).
   __device__ __forceinline__ bool key(int v) const {
     return v < page_limit || (v >= tail0 && v < tail_end);
+  }
+  // Key v is live for the query whose tail ends at te.
+  __device__ __forceinline__ bool key_row(int v, int te) const {
+    return v < page_limit || (v >= tail0 && v < te);
   }
   __device__ __forceinline__ bool tile(int t0) const {
     return t0 < page_limit || max(t0, tail0) < min(t0 + kTile, tail_end);
@@ -270,7 +350,7 @@ struct Live {
   }
 };
 
-// Slot b's live keys, from its length (and start: K3).
+// Slot b's live keys, from its length (and start: K3) and its p.n_q queries.
 template <bool kTail>
 __device__ __forceinline__ Live slot_live(const Params& p, int b) {
   const int length = p.lengths[b];
@@ -279,8 +359,11 @@ __device__ __forceinline__ Live slot_live(const Params& p, int b) {
   live.tail0 = p.max_pages * p.page_size;
   // Keys past the table's last page are absent, as in the reference.
   live.page_limit = min(min(start, length), live.tail0);
-  live.tail_end = live.tail0 + (kTail ? max(0, min(length, start + p.tail_len) - start) : 0);
-  live.end = live.tail0 + (kTail ? p.tail_len : 0);
+  live.has_tail = kTail && length > start;
+  live.tail_q0 = live.tail0 + (length - start);
+  live.tail_max = live.tail0 + (kTail ? p.tail_len : 0);
+  live.tail_end = live.row_end(p.n_q - 1);
+  live.end = live.tail_max;
   return live;
 }
 
@@ -316,7 +399,7 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
                           v % p.page_size) * D + 16 * c;
         const uint32_t at = r * D + c * 16;
         cp_async16(qb + at, p.k_i8 + off, true);
-        cp_async16(qb + Layout<D>::kQTile + at, p.v_i8 + off, true);
+        cp_async16(qb + Layout<D, 0>::kQTile + at, p.v_i8 + off, true);
       }
       continue;
     }
@@ -333,7 +416,7 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
         off = (((long)b * p.kv_heads + kh) * p.tail_len + (v - live.tail0)) * D;
       }
     }
-    const uint32_t at = r * Layout<D>::kLd + c * 16;
+    const uint32_t at = r * Layout<D, 0>::kLd + c * 16;
     cp_async16(kb + at, ks + off + 8 * c, ok);
     cp_async16(vb + at, vs + off + 8 * c, ok);
   }
@@ -350,23 +433,25 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
   cp_commit();
 }
 
-// Merge: one block of D threads per (query row g, KV head kh, slot b); thread
-// d writes o[g, d]. The partials of every split with a live key (the others
-// wrote none and weigh 0; a dead slot's o is 0) are summed in split order:
-// two calls give the same bits. All m and l come in one round trip, then the
-// column's acc values kMergeBatch splits at a time, so at the decode tick
-// (17 splits) the merge waits on three loads in a row: lengths, m and l,
-// acc.
+// Merge: one block of D threads per (query row r, KV head kh, slot b); thread
+// d writes o[r, d], row r = qi * G + g being query qi's head kh * G + g. The
+// partials of every split with a key live for some row (the others wrote
+// none and weigh 0; a dead slot's o is 0) are summed in split order: two
+// calls give the same bits. A partial whose m is the mask value (a verify
+// row with nothing live in that split) weighs 0 too. All m and l come in one
+// round trip, then the column's acc values kMergeBatch splits at a time, so
+// at the decode tick (17 splits) the merge waits on three loads in a row:
+// lengths, m and l, acc.
 template <int D, bool kTail>
 __global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
   extern __shared__ float sml[];  // m, then l, of each split
-  const int g = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
-  const int groups = p.groups, n = p.n_split;
+  const int r = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
+  const int rows = p.n_q * p.groups, n = p.n_split;
   const long bk = (long)b * p.kv_heads + kh;
   const Live live = slot_live<kTail>(p, b);
-  const float2* ml = reinterpret_cast<const float2*>(p.part_ml) + bk * n * groups + g;
+  const float2* ml = reinterpret_cast<const float2*>(p.part_ml) + bk * n * rows + r;
   for (int s = d; s < n; s += D) {
-    const float2 v = live.split_live(s, p.split) ? __ldcg(ml + s * groups)
+    const float2 v = live.split_live(s, p.split) ? __ldcg(ml + s * rows)
                                                  : make_float2(kNegInf, 0.f);
     sml[s] = v.x;
     sml[n + s] = v.y;
@@ -374,19 +459,20 @@ __global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
   __syncthreads();
   float m_max = kNegInf;
   for (int s = 0; s < n; ++s) m_max = fmaxf(m_max, sml[s]);
-  // A split's weight exp(m_s - max), 0 for a split without a live key (its m
-  // stays the mask value); a weight of 0 skips the split's loads.
+  // A split's weight exp(m_s - max), 0 for a split without a live key for
+  // this row (its m stays the mask value); a weight of 0 skips the split's
+  // loads.
   auto weight = [&](int s) { return sml[s] == kNegInf ? 0.f : expf(sml[s] - m_max); };
   float l = 0.f;
   for (int s = 0; s < n; ++s) l += weight(s) * sml[n + s];
-  const float* acc = p.part_acc + (bk * n * groups + g) * D + d;
+  const float* acc = p.part_acc + (bk * n * rows + r) * D + d;
   float o = 0.f;
   for (int s0 = 0; s0 < n; s0 += kMergeBatch) {
     float av[kMergeBatch];
 #pragma unroll
     for (int j = 0; j < kMergeBatch; ++j) {
       const int s = s0 + j;
-      av[j] = s < n && sml[s] != kNegInf ? __ldcg(acc + (long)s * groups * D) : 0.f;
+      av[j] = s < n && sml[s] != kNegInf ? __ldcg(acc + (long)s * rows * D) : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < kMergeBatch; ++j) {
@@ -394,12 +480,19 @@ __global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
     }
   }
   o /= (l == 0.f ? 1.f : l);
-  p.o[(bk * groups + g) * D + d] = __bfloat16_as_ushort(__float2bfloat16_rn(o));
+  const int qi = r / p.groups, g = r % p.groups;
+  const long orow = ((long)b * p.n_q + qi) * p.kv_heads * p.groups + (long)kh * p.groups + g;
+  p.o[orow * D + d] = __bfloat16_as_ushort(__float2bfloat16_rn(o));
 }
 
-template <int D, bool kTail, bool kI8>
+// kMT = 0: the single-query form (up to kMaxGroups query rows, q in
+// registers as rows 0-7 of the m16 A operand). kMT > 0: the verify form, kMT
+// m16 row tiles of query rows r = qi * G + g, q in shared memory.
+template <int D, bool kTail, bool kI8, int kMT>
 __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
-  using L = Layout<D>;
+  using L = Layout<D, kMT>;
+  constexpr bool kVerify = kMT > 0;
+  constexpr int kMTiles = kVerify ? kMT : 1;  // m16 row tiles of the products
   constexpr int kKSteps = D / 16;       // q.k: 16 dimensions a product
   constexpr int kNTiles = D / 8 / kWarps;  // p.V: n8 column blocks a warp
   extern __shared__ __align__(16) uint8_t smem[];
@@ -414,28 +507,49 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row = lane >> 2, quad = lane & 3;  // fragment row (query head) and pair
   const int groups = p.groups;
+  const int rows = p.n_q * groups;  // query rows of this KV head
   const long row0 = ((long)b * p.kv_heads + kh) * groups;  // q/o row of group 0
   const Live live = slot_live<kTail>(p, b);
   const int v0 = split * p.split, v1 = min(v0 + p.split, live.end);
   int cur = live.next(v0, v1);
   if (cur < 0) return;  // no live key: no partial (the merge weighs this split 0)
 
-  // q as the A fragments of every 16-dimension step (bf16 as stored; the
-  // f32 scale multiplies the f32 sums), rows past the group count zero.
-  uint32_t qa[kKSteps][2];
+  // Single-query: q as the A fragments of every 16-dimension step (bf16 as
+  // stored; the f32 scale multiplies the f32 sums), rows past the group
+  // count zero. Verify: q's rows into shared memory (committed with the first
+  // tile), rows past Q * G zero.
+  uint32_t qa[kVerify ? 1 : kKSteps][2];
+  if constexpr (!kVerify) {
 #pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
-    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(p.q + (row0 + row) * D);
-    qa[ks][0] = row < groups ? qrow[ks * 8 + quad] : 0u;
-    qa[ks][1] = row < groups ? qrow[ks * 8 + 4 + quad] : 0u;
+    for (int ks = 0; ks < kKSteps; ++ks) {
+      const uint32_t* qrow = reinterpret_cast<const uint32_t*>(p.q + (row0 + row) * D);
+      qa[ks][0] = row < groups ? qrow[ks * 8 + quad] : 0u;
+      qa[ks][1] = row < groups ? qrow[ks * 8 + 4 + quad] : 0u;
+    }
+  } else {
+    constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
+    const long heads = (long)p.kv_heads * groups;
+    for (int idx = tid; idx < L::kRows * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = idx % kChunks;
+      const bool ok = r < rows;
+      const long qrow = ok ? ((long)b * p.n_q + r / groups) * heads + (long)kh * groups +
+                                 r % groups
+                           : 0;
+      cp_async16(base + L::kQRows + r * L::kLd + c * 16, p.q + qrow * D + 8 * c, ok);
+    }
   }
-  if (tid < kMaxGroups) {
+  if (tid < L::kRows) {
     sm[tid] = kNegInf;
     sl[tid] = 0.f;
   }
-  float acc[kNTiles][4];
+  float acc[kMTiles][kNTiles][4];
 #pragma unroll
-  for (int j = 0; j < kNTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+    }
+  }
 
   load_tile<D, kI8>(p, live, b, kh, cur, base, base + L::kTileBytes, base + L::kQ,
                     base + L::kSc);
@@ -476,8 +590,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
     }
 
     // Scores of warp w's 16 keys (two n8 blocks), times the scale in f32;
-    // dead keys get the finite mask value.
-    {
+    // keys dead for the row get the finite mask value.
+    if constexpr (!kVerify) {
       float c[2][4] = {};
 #pragma unroll
       for (int ks = 0; ks < kKSteps; ++ks) {
@@ -502,12 +616,51 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
           *reinterpret_cast<float2*>(ss + row * kTile + r) = sc;
         }
       }
+    } else {
+      // lane l: q row l % 16 of the row tile, columns + 8 (l / 16)
+      const uint32_t qs = base + L::kQRows + (lane & 15) * L::kLd + (lane >> 4) * 16;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if (16 * mt < rows) {
+          float c[2][4] = {};
+#pragma unroll
+          for (int ks = 0; ks < kKSteps; ++ks) {
+            uint32_t a[4];
+            ldsm_x4(qs + 16 * mt * L::kLd + ks * 32, a);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const uint32_t at = kb + (16 * warp + 8 * j + row) * L::kLd + ks * 32 + quad * 4;
+              mma16816_m16(c[j], a, lds32(at), lds32(at + 16));
+            }
+          }
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {  // rows row and row + 8 of the tile
+            const int r = 16 * mt + 8 * hf + row;
+            if (r < rows) {
+              const int te = live.row_end(r / groups);
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int k = 16 * warp + 8 * j + 2 * quad;
+                float s0 = c[j][2 * hf] * p.scale, s1 = c[j][2 * hf + 1] * p.scale;
+                if (kI8) {  // K's scale on a page key's score
+                  if (cur + k < live.tail0) s0 *= sks[k];
+                  if (cur + k + 1 < live.tail0) s1 *= sks[k + 1];
+                }
+                float2 sc;
+                sc.x = live.key_row(cur + k, te) ? s0 : kNegInf;
+                sc.y = live.key_row(cur + k + 1, te) ? s1 : kNegInf;
+                *reinterpret_cast<float2*>(ss + r * kTile + k) = sc;
+              }
+            }
+          }
+        }
+      }
     }
     __syncthreads();
 
     // Online softmax, one warp per query row; p to bf16 for the product
     // (int8: p times V's scale; l adds the unscaled p).
-    for (int g = warp; g < groups; g += kWarps) {
+    for (int g = warp; g < rows; g += kWarps) {
       const float s0 = ss[g * kTile + lane];
       const float s1 = ss[g * kTile + lane + 32];
       const float m_prev = sm[g];
@@ -533,12 +686,12 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 
     // acc = acc * alpha + p.V for warp w's columns (dead keys: p = 0 and V
     // zero-filled).
-    {
+    if constexpr (!kVerify) {
       const float alpha = row < groups ? salpha[row] : 0.f;
 #pragma unroll
       for (int j = 0; j < kNTiles; ++j) {
-        acc[j][0] *= alpha;
-        acc[j][1] *= alpha;
+        acc[0][j][0] *= alpha;
+        acc[0][j][1] *= alpha;
       }
       const uint32_t pa = base + L::kP + row * kPLd * 2 + quad * 4;
 #pragma unroll
@@ -552,8 +705,49 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
         for (int j = 0; j < kNTiles; j += 2) {
           uint32_t bf[4];
           ldsm_x4_trans(va + j * 16, bf);
-          mma16816(acc[j], a0, a1, bf[0], bf[1]);
-          mma16816(acc[j + 1], a0, a1, bf[2], bf[3]);
+          mma16816(acc[0][j], a0, a1, bf[0], bf[1]);
+          mma16816(acc[0][j + 1], a0, a1, bf[2], bf[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const int r = 16 * mt + row;
+        const float alpha0 = r < rows ? salpha[r] : 0.f;
+        const float alpha1 = r + 8 < rows ? salpha[r + 8] : 0.f;
+#pragma unroll
+        for (int j = 0; j < kNTiles; ++j) {
+          acc[mt][j][0] *= alpha0;
+          acc[mt][j][1] *= alpha0;
+          acc[mt][j][2] *= alpha1;
+          acc[mt][j][3] *= alpha1;
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < kTile / 16; ++ks) {
+        // p rows of every row tile at keys 16 ks..: rows row and row + 8
+        uint32_t a[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          const uint32_t pa = base + L::kP + (16 * mt + row) * kPLd * 2 + ks * 32 + quad * 4;
+          a[mt][0] = lds32(pa);
+          a[mt][1] = lds32(pa + 8 * kPLd * 2);
+          a[mt][2] = lds32(pa + 16);
+          a[mt][3] = lds32(pa + 8 * kPLd * 2 + 16);
+        }
+        const uint32_t va = vb + (16 * ks + (lane & 15)) * L::kLd +
+                            (warp * kNTiles * 8 + 8 * (lane >> 4)) * 2;
+#pragma unroll
+        for (int j = 0; j < kNTiles; j += 2) {
+          uint32_t bf[4];
+          ldsm_x4_trans(va + j * 16, bf);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            if (16 * mt < rows) {
+              mma16816_m16(acc[mt][j], a[mt], bf[0], bf[1]);
+              mma16816_m16(acc[mt][j + 1], a[mt], bf[2], bf[3]);
+            }
+          }
         }
       }
     }
@@ -563,25 +757,43 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 
   // The split's partial: m and l per row, acc.
   const long part = ((long)b * p.kv_heads + kh) * p.n_split + split;
-  if (row < groups) {
+  if constexpr (!kVerify) {
+    if (row < groups) {
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      const int col = warp * kNTiles * 8 + 8 * j + 2 * quad;
-      *reinterpret_cast<float2*>(p.part_acc + (part * groups + row) * D + col) =
-          make_float2(acc[j][0], acc[j][1]);
+      for (int j = 0; j < kNTiles; ++j) {
+        const int col = warp * kNTiles * 8 + 8 * j + 2 * quad;
+        *reinterpret_cast<float2*>(p.part_acc + (part * groups + row) * D + col) =
+            make_float2(acc[0][j][0], acc[0][j][1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 16 * mt + 8 * hf + row;
+        if (r < rows) {
+#pragma unroll
+          for (int j = 0; j < kNTiles; ++j) {
+            const int col = warp * kNTiles * 8 + 8 * j + 2 * quad;
+            *reinterpret_cast<float2*>(p.part_acc + (part * rows + r) * D + col) =
+                make_float2(acc[mt][j][2 * hf], acc[mt][j][2 * hf + 1]);
+          }
+        }
+      }
     }
   }
-  if (tid < groups) {
-    p.part_ml[(part * groups + tid) * 2] = sm[tid];
-    p.part_ml[(part * groups + tid) * 2 + 1] = sl[tid];
+  for (int r = tid; r < rows; r += kThreads) {
+    p.part_ml[(part * rows + r) * 2] = sm[r];
+    p.part_ml[(part * rows + r) * 2 + 1] = sl[r];
   }
 }
 
-template <int D, bool kTail, bool kI8>
+template <int D, bool kTail, bool kI8, int kMT>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   static bool prepared = false;
-  constexpr int kSmem = kI8 ? Layout<D>::kBytesI8 : Layout<D>::kBytes;
-  auto kernel = paged_split_kernel<D, kTail, kI8>;
+  constexpr int kSmem = kI8 ? Layout<D, kMT>::kBytesI8 : Layout<D, kMT>::kBytes;
+  auto kernel = paged_split_kernel<D, kTail, kI8, kMT>;
   if (!prepared) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -590,19 +802,50 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   }
   kernel<<<dim3(p.n_split, p.kv_heads, batch), kThreads, kSmem, stream>>>(p);
   if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  paged_merge_kernel<D, kTail><<<dim3(p.groups, p.kv_heads, batch), D,
+  paged_merge_kernel<D, kTail><<<dim3(p.n_q * p.groups, p.kv_heads, batch), D,
                                  2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance for kMT row tiles (0: the single-query form); the verify
+// form exists only with a tail.
+template <int D, bool kTail, bool kI8>
+int launch_rows(const Params& p, int batch, cudaStream_t stream, int mt) {
+  if constexpr (kTail) {
+    switch (mt) {
+      case 1:
+        return launch<D, kTail, kI8, 1>(p, batch, stream);
+      case 3:
+        return launch<D, kTail, kI8, 3>(p, batch, stream);
+      case kMaxRowTiles:
+        return launch<D, kTail, kI8, kMaxRowTiles>(p, batch, stream);
+      default:
+        break;
+    }
+  }
+  if (mt != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<D, kTail, kI8, 0>(p, batch, stream);
+}
+
 template <bool kTail, bool kI8>
-int dispatch(Params p, int batch, int heads, int head_dim, void* stream) {
-  if (batch < 1 || p.kv_heads < 1 || heads % p.kv_heads || heads / p.kv_heads > kMaxGroups ||
-      p.page_size < 1 || p.max_pages < 1 || p.n_pool < 1 || (kTail && p.tail_len < 1) ||
-      p.split < kTile || p.split % kTile) {
+int dispatch(Params p, int batch, int n_q, bool verify, int heads, int head_dim,
+             void* stream) {
+  if (batch < 1 || n_q < 1 || (!verify && n_q != 1) || p.kv_heads < 1 ||
+      heads % p.kv_heads || heads / p.kv_heads > kMaxGroups || p.page_size < 1 ||
+      p.max_pages < 1 || p.n_pool < 1 || (kTail && p.tail_len < 1) || p.split < kTile ||
+      p.split % kTile) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.groups = heads / p.kv_heads;
+  p.n_q = n_q;
+  // Row tiles of the verify instance: the smallest of 1, 3, kMaxRowTiles
+  // that holds the Q * G query rows (tiles past them are skipped).
+  const int rows = n_q * p.groups;
+  int mt = 0;
+  if (verify) {
+    mt = rows <= 16 ? 1 : rows <= 48 ? 3 : rows <= 16 * kMaxRowTiles ? kMaxRowTiles : -1;
+    if (mt < 0) return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long keys = (long)p.max_pages * p.page_size + (kTail ? p.tail_len : 0);
   const long n_split = (keys + p.split - 1) / p.split;
   if (n_split > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
@@ -610,12 +853,36 @@ int dispatch(Params p, int batch, int heads, int head_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch<64, kTail, kI8>(p, batch, s);
+      return launch_rows<64, kTail, kI8>(p, batch, s, mt);
     case 128:
-      return launch<128, kTail, kI8>(p, batch, s);
+      return launch_rows<128, kTail, kI8>(p, batch, s, mt);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+Params tail_params(const void* q, const void* k_pages, const void* v_pages,
+                   const void* k_scale, const void* v_scale, const void* table,
+                   const void* lengths, const void* starts, const void* tail_k,
+                   const void* tail_v, void* o, void* part_acc, void* part_ml, int kv_heads,
+                   int page_size, int max_pages, int n_pool, int tail_len, int split,
+                   float scale, bool i8) {
+  Params p{static_cast<const uint16_t*>(q), nullptr, nullptr, static_cast<const int*>(table),
+           static_cast<const int*>(lengths), static_cast<const int*>(starts),
+           static_cast<const uint16_t*>(tail_k), static_cast<const uint16_t*>(tail_v),
+           static_cast<uint16_t*>(o), static_cast<float*>(part_acc),
+           static_cast<float*>(part_ml), kv_heads, 0, page_size, max_pages, n_pool,
+           tail_len, split, 0, scale};
+  if (i8) {
+    p.k_i8 = static_cast<const int8_t*>(k_pages);
+    p.v_i8 = static_cast<const int8_t*>(v_pages);
+    p.k_scale = static_cast<const float*>(k_scale);
+    p.v_scale = static_cast<const float*>(v_scale);
+  } else {
+    p.k_pages = static_cast<const uint16_t*>(k_pages);
+    p.v_pages = static_cast<const uint16_t*>(v_pages);
+  }
+  return p;
 }
 
 }  // namespace
@@ -633,14 +900,10 @@ extern "C" int ditl_paged_tail_bf16(const void* q, const void* k_pages, const vo
                                     int kv_heads, int head_dim, int page_size, int max_pages,
                                     int n_pool, int tail_len, int split, float scale,
                                     void* stream) {
-  const Params p{static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k_pages),
-                 static_cast<const uint16_t*>(v_pages), static_cast<const int*>(table),
-                 static_cast<const int*>(lengths), static_cast<const int*>(starts),
-                 static_cast<const uint16_t*>(tail_k), static_cast<const uint16_t*>(tail_v),
-                 static_cast<uint16_t*>(o), static_cast<float*>(part_acc),
-                 static_cast<float*>(part_ml), kv_heads, 0, page_size, max_pages, n_pool,
-                 tail_len, split, 0, scale};
-  return dispatch<true, false>(p, batch, heads, head_dim, stream);
+  const Params p = tail_params(q, k_pages, v_pages, nullptr, nullptr, table, lengths, starts,
+                               tail_k, tail_v, o, part_acc, part_ml, kv_heads, page_size,
+                               max_pages, n_pool, tail_len, split, scale, false);
+  return dispatch<true, false>(p, batch, 1, false, heads, head_dim, stream);
 }
 
 // K3 over int8 pools: as ditl_paged_tail_bf16, with int8 pools (P, K, ps, D)
@@ -652,15 +915,43 @@ extern "C" int ditl_paged_tail_i8(const void* q, const void* k_pages, const void
                                   int batch, int heads, int kv_heads, int head_dim,
                                   int page_size, int max_pages, int n_pool, int tail_len,
                                   int split, float scale, void* stream) {
-  const Params p{static_cast<const uint16_t*>(q), nullptr, nullptr,
-                 static_cast<const int*>(table), static_cast<const int*>(lengths),
-                 static_cast<const int*>(starts), static_cast<const uint16_t*>(tail_k),
-                 static_cast<const uint16_t*>(tail_v), static_cast<uint16_t*>(o),
-                 static_cast<float*>(part_acc), static_cast<float*>(part_ml), kv_heads, 0,
-                 page_size, max_pages, n_pool, tail_len, split, 0, scale,
-                 static_cast<const int8_t*>(k_pages), static_cast<const int8_t*>(v_pages),
-                 static_cast<const float*>(k_scale), static_cast<const float*>(v_scale)};
-  return dispatch<true, true>(p, batch, heads, head_dim, stream);
+  const Params p = tail_params(q, k_pages, v_pages, k_scale, v_scale, table, lengths, starts,
+                               tail_k, tail_v, o, part_acc, part_ml, kv_heads, page_size,
+                               max_pages, n_pool, tail_len, split, scale, true);
+  return dispatch<true, true>(p, batch, 1, false, heads, head_dim, stream);
+}
+
+// K3's multi-query verify: as ditl_paged_tail_bf16 with q and o (B, Q, H, D),
+// n_q = Q, and the workspace's H / K rows replaced by R = Q * H / K <= 80.
+extern "C" int ditl_paged_verify_bf16(const void* q, const void* k_pages, const void* v_pages,
+                                      const void* table, const void* lengths,
+                                      const void* starts, const void* tail_k,
+                                      const void* tail_v, void* o, void* part_acc,
+                                      void* part_ml, int batch, int n_q, int heads,
+                                      int kv_heads, int head_dim, int page_size,
+                                      int max_pages, int n_pool, int tail_len, int split,
+                                      float scale, void* stream) {
+  const Params p = tail_params(q, k_pages, v_pages, nullptr, nullptr, table, lengths, starts,
+                               tail_k, tail_v, o, part_acc, part_ml, kv_heads, page_size,
+                               max_pages, n_pool, tail_len, split, scale, false);
+  return dispatch<true, false>(p, batch, n_q, true, heads, head_dim, stream);
+}
+
+// The verify over int8 pools: ditl_paged_verify_bf16's shapes with
+// ditl_paged_tail_i8's pools and scales.
+extern "C" int ditl_paged_verify_i8(const void* q, const void* k_pages, const void* v_pages,
+                                    const void* k_scale, const void* v_scale,
+                                    const void* table, const void* lengths,
+                                    const void* starts, const void* tail_k,
+                                    const void* tail_v, void* o, void* part_acc,
+                                    void* part_ml, int batch, int n_q, int heads,
+                                    int kv_heads, int head_dim, int page_size, int max_pages,
+                                    int n_pool, int tail_len, int split, float scale,
+                                    void* stream) {
+  const Params p = tail_params(q, k_pages, v_pages, k_scale, v_scale, table, lengths, starts,
+                               tail_k, tail_v, o, part_acc, part_ml, kv_heads, page_size,
+                               max_pages, n_pool, tail_len, split, scale, true);
+  return dispatch<true, true>(p, batch, n_q, true, heads, head_dim, stream);
 }
 
 // K4: the same without a tail; pages up to lengths; n_split = ceil(maxp * ps
@@ -676,5 +967,5 @@ extern "C" int ditl_paged_bf16(const void* q, const void* k_pages, const void* v
                  static_cast<uint16_t*>(o), static_cast<float*>(part_acc),
                  static_cast<float*>(part_ml), kv_heads, 0, page_size, max_pages, n_pool, 0,
                  split, 0, scale};
-  return dispatch<false, false>(p, batch, heads, head_dim, stream);
+  return dispatch<false, false>(p, batch, 1, false, heads, head_dim, stream);
 }

@@ -7,6 +7,12 @@ f32 scales ``k_scale``/``v_scale`` of shape (L, B, Smax, K), one per
 (layer, row, slot, KV head): symmetric absmax over the D values written
 together, as the reference. ``write_kv`` writes in place (the reference
 returns a new array) and quantizes on the way in; ``read_kv`` dequantizes.
+
+``write_kv`` takes a scalar slot (every row at the same depth) or a (B,)
+tensor of per-row slots (the speculative verify, where each row sits at its
+own depth): ``_scatter_rows`` is the reference's gather-and-select
+formulation (positions past the cache are dropped), copied into the cache.
+``scatter_tail`` does the same for the paged decode tick's tail buffer.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import torch
 
 from ditl_tpu_torch.config import ModelConfig
 
-__all__ = ["init_cache", "write_kv", "read_kv"]
+__all__ = ["init_cache", "write_kv", "read_kv", "scatter_tail"]
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
@@ -50,22 +56,53 @@ def _quantize(chunk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(q, -127, 127).to(torch.int8), scale
 
 
-def write_kv(layer_cache: dict, k: torch.Tensor, v: torch.Tensor, idx: int) -> dict:
+def _scatter_rows(cache: torch.Tensor, chunk: torch.Tensor,
+                  idx: torch.Tensor) -> torch.Tensor:
+    """``cache`` (B, Smax, ...) with ``chunk`` (B, S, ...) written at per-row
+    slot offsets ``idx`` (B,), as a new tensor: the reference's gather and
+    select over the whole slot axis (slots past Smax are dropped; no host
+    sync)."""
+    s, smax = chunk.shape[1], cache.shape[1]
+    tail = (1,) * (cache.dim() - 2)
+    rel = torch.arange(smax, device=cache.device)[None, :] - idx.long()[:, None]
+    in_chunk = (rel >= 0) & (rel < s)
+    src = rel.clamp(0, s - 1).reshape(rel.shape + tail).expand(-1, -1, *chunk.shape[2:])
+    gathered = chunk.to(cache.dtype).gather(1, src)
+    return torch.where(in_chunk.reshape(in_chunk.shape + tail), gathered, cache)
+
+
+def scatter_tail(tail: torch.Tensor, chunk: torch.Tensor, off: torch.Tensor) -> None:
+    """Write ``chunk`` (B, K, S, D) into the paged decode tick's tail buffer
+    ``tail`` (B, K, T, D) at per-row column offsets ``off`` (B,), in place
+    (the reference returns a new buffer): the speculative verify's
+    (k+1)-token write, each slot at its own tail depth."""
+    t = tail.transpose(1, 2)  # (B, T, K, D) views
+    tail.copy_(_scatter_rows(t, chunk.transpose(1, 2), off).transpose(1, 2))
+
+
+def write_kv(layer_cache: dict, k: torch.Tensor, v: torch.Tensor,
+             idx: int | torch.Tensor) -> dict:
     """Write a (B, S, K, D) chunk into one layer's (B, Smax, K, D) cache at
-    slot ``idx`` (every row at the same depth), in place; an int8 cache
+    slot ``idx``, in place: a scalar (every row at the same depth) or a (B,)
+    tensor of per-row slots (the speculative verify). An int8 cache
     quantizes the chunk first."""
     s = k.shape[1]
+    names = ("k", "v")
+    chunks = {"k": k, "v": v}
+    if "k_scale" in layer_cache:
+        names = ("k", "v", "k_scale", "v_scale")
+        (chunks["k"], chunks["k_scale"]), (chunks["v"], chunks["v_scale"]) = (
+            _quantize(k), _quantize(v))
+    if isinstance(idx, torch.Tensor) and idx.dim() == 1:
+        for name in names:
+            layer_cache[name].copy_(_scatter_rows(layer_cache[name], chunks[name], idx))
+        return layer_cache
+    idx = int(idx)
     if not 0 <= idx <= layer_cache["k"].shape[1] - s:
         raise ValueError(f"cache write [{idx}, {idx + s}) outside "
                          f"{layer_cache['k'].shape[1]} slots")
-    if "k_scale" in layer_cache:
-        for name, chunk in (("k", k), ("v", v)):
-            q, scale = _quantize(chunk)
-            layer_cache[name][:, idx:idx + s] = q
-            layer_cache[f"{name}_scale"][:, idx:idx + s] = scale
-        return layer_cache
-    layer_cache["k"][:, idx:idx + s] = k
-    layer_cache["v"][:, idx:idx + s] = v
+    for name in names:
+        layer_cache[name][:, idx:idx + s] = chunks[name]
     return layer_cache
 
 

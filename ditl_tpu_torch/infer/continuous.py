@@ -1,10 +1,10 @@
 """Continuous batching over the paged KV cache.
 
-Counterpart of the JAX package's ``infer/continuous.py``, in its plain paged
+Counterpart of the JAX package's ``infer/continuous.py``, in its paged
 configuration: ``cache_mode="paged"``, ``admission="reserve"``, whole-prompt
-prefill, plain decode ticks, float or int8 pools, one device, and automatic
-prefix reuse (which paged mode always does). Requests join and leave between
-decode ticks:
+prefill, plain and prompt-lookup speculative decode ticks, float or int8
+pools, one device, and automatic prefix reuse (which paged mode always
+does). Requests join and leave between decode ticks:
 
 - **Slots.** ``n_slots`` sequences decode together, each at its own
   position; every tick runs all slots, live or not (fixed shapes).
@@ -29,6 +29,24 @@ decode ticks:
   pages (int8 pools: the bf16 tail is quantized there, once per tick, so a
   token attends at full precision within its own tick). No host sync inside a tick: one device-to-host copy of the emitted
   tokens per tick, which the host harvests (EOS/pad-delimited).
+- **Speculative ticks** (``speculative=True``): a tick can run as
+  ``spec_rounds`` verify rounds instead of ``decode_chunk`` steps, following
+  the reference's ``_build_spec_paged_decode``. Each round drafts ``spec_k``
+  tokens per slot by prompt lookup over the slot's token history ``hist``
+  (``infer/speculative.device_lookup_draft``; written at admission, extended
+  by plain ticks too while speculation is armed), verifies them with one
+  (B, k+1) forward whose K/V land in the tick's tail at per-row offsets and
+  whose attention is K3's multi-query verify, and emits the accepted prefix
+  plus the verify's own next token (greedy rows: exact match; sampled rows:
+  rejection sampling, ``spec_sample_tokens``), capped by each slot's budget
+  and by EOS/pad. The tick ends with the same flush as a plain tick. Greedy
+  speculative output equals the plain tick's (exact arithmetic). Each tick
+  decides from the acceptance it predicts for the current slots (each
+  request's measured tokens per verify forward, else the engine's EMA,
+  re-probed every ``spec_probe_every`` ticks) against ``spec_threshold``,
+  by default the measured ratio of a verify round's cost to a plain step's
+  (a prior of 2.5 until both are timed; the first timed tick of each kind
+  is left out, as the reference leaves out compile calls).
 
 PyTorch runs eagerly, so the reference's compiled-program caches go away
 and its decode ``scan`` is a Python loop in the same step order. The pools,
@@ -42,8 +60,8 @@ distribution only; greedy tokens match exactly.
 
 Everything else of the reference engine raises ``NotImplementedError`` and
 is queued in ``ROADMAP.md``: the contiguous cache, chunked prefill, token
-budgets, optimistic admission with preemption, speculative ticks and draft
-models, logprobs, grammar masks, multi-LoRA stacks, the host-RAM tier and KV
+budgets, optimistic admission with preemption, draft-model drafting,
+logprobs, grammar masks, multi-LoRA stacks, the host-RAM tier and KV
 handoff, ``register_prefix``, deadlines, pipelined ticks, meshes, and the
 telemetry planes.
 """
@@ -64,6 +82,11 @@ from ditl_tpu_torch.data.tokenizer import Tokenizer, check_vocab
 from ditl_tpu_torch.infer.engine import GenerateConfig, _next_pow2
 from ditl_tpu_torch.infer.paged_cache import PageAllocator
 from ditl_tpu_torch.infer.sampling import row_uniforms, sample_logits
+from ditl_tpu_torch.infer.speculative import (
+    _emit_rows,
+    device_lookup_draft,
+    spec_sample_tokens,
+)
 from ditl_tpu_torch.models import llama
 from ditl_tpu_torch.utils.device import resolve_device
 from ditl_tpu_torch.utils.logging import get_logger
@@ -107,6 +130,10 @@ class Request:
     tokens: list[int] = field(default_factory=list)
     finished: bool = False
     slo_class: str = "interactive"
+    # Measured speculative acceptance of this request: tokens emitted over
+    # its speculative rounds, and the verify forwards it took part in.
+    spec_tokens: int = 0
+    spec_forwards: int = 0
 
     @property
     def slo_rank(self) -> tuple[int, int]:
@@ -179,6 +206,13 @@ class ContinuousEngine:
         max_queue: int | None = None,
         mesh=None,
         speculative: bool = False,
+        spec_k: int = 8,
+        spec_ngram: int = 3,
+        spec_min_ngram: int = 1,
+        spec_rounds: int | None = None,
+        spec_threshold: float | None = None,
+        spec_probe_every: int = 32,
+        spec_ema: float = 0.7,
         logprobs_k: int = 0,
         fsm_capacity: int = 0,
         draft_params: llama.Params | None = None,
@@ -197,7 +231,15 @@ class ContinuousEngine:
         ``max_seq_len``. ``n_pages`` sizes the pool (default: the contiguous
         equivalent, ``n_slots x ceil(max context / page_size)`` plus the
         sentinel page 0). ``max_queue`` caps how many requests may wait for
-        a slot; ``submit`` raises ``QueueFullError`` beyond it."""
+        a slot; ``submit`` raises ``QueueFullError`` beyond it.
+
+        ``speculative=True`` arms speculative ticks (module note): ``spec_k``
+        drafted tokens a round by prompt lookup with n-gram backoff
+        ``spec_ngram`` -> ``spec_min_ngram``, ``spec_rounds`` verify rounds a
+        tick (default ``decode_chunk / 2.5``), speculating when the predicted
+        acceptance (EMA ``spec_ema``, re-probed every ``spec_probe_every``
+        ticks) clears ``spec_threshold`` (None: the measured verify/decode
+        cost ratio; 0.0 speculates every tick)."""
         check_vocab(tokenizer, model_cfg.vocab_size, "ContinuousEngine")
         llama.check_supported(model_cfg)
         unported = {
@@ -205,8 +247,8 @@ class ContinuousEngine:
             "prefill_chunk (chunked prefill)": prefill_chunk != 0,
             "token_budget": token_budget != 0,
             "admission='optimistic' (preemption and resume)": admission == "optimistic",
-            "speculative decoding": speculative,
-            "draft models": draft_params is not None or draft_cfg is not None,
+            "draft models (draft_params/draft_cfg)": (draft_params is not None
+                                                      or draft_cfg is not None),
             "logprobs_k": logprobs_k != 0,
             "fsm_capacity (grammar-constrained decoding)": fsm_capacity != 0,
             "host_tier_mb (the host-RAM prefix tier)": host_tier_mb != 0,
@@ -288,6 +330,45 @@ class ContinuousEngine:
         self.decode_ticks = 0
         self.decode_steps = 0
         self.decode_seconds = 0.0
+        # -- speculative decode ticks (the reference's validation) ----------
+        self.speculative = speculative
+        if speculative:
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if not (1 <= spec_min_ngram <= spec_ngram):
+                raise ValueError(
+                    f"spec_min_ngram must be in [1, spec_ngram], got {spec_min_ngram}")
+            self.spec_k = spec_k
+            self.spec_ngram = spec_ngram
+            self.spec_min_ngram = spec_min_ngram
+            # Rounds a tick: a verify round costs about 2.5 decode steps (the
+            # threshold's prior), so decode_chunk / 2.5 rounds keep a tick's
+            # cost near a plain tick's.
+            self.spec_rounds = spec_rounds or max(1, round(decode_chunk / 2.5))
+            if self.spec_rounds < 1:
+                raise ValueError(f"spec_rounds must be >= 1, got {spec_rounds}")
+            self._spec_threshold_cfg = spec_threshold
+            self._plain_step_ms: float | None = None
+            self._spec_round_ms: float | None = None
+            self._timed_plain_keys: set = set()
+            self._timed_spec = False
+            self.spec_probe_every = spec_probe_every
+            self._spec_ema_w = spec_ema
+            self.spec_acceptance_ema: float | None = None
+            self.spec_ticks = 0
+            self.spec_verify_rounds = 0
+            # tokens emitted by speculative rounds and the verify forwards
+            # rows took part in, over every request
+            self.spec_emitted = 0
+            self.spec_row_forwards = 0
+            self.spec_seconds = 0.0
+            self._tick_no = 0
+        # Per-slot token history (prompt + generated, the pending ``cur`` at
+        # column pos): the draft source of speculative ticks, written at
+        # admission and carried through every tick while speculation is
+        # armed; one column otherwise.
+        self.hist = torch.zeros((n_slots, self.smax if speculative else 1),
+                                dtype=torch.long, device=dev)
         self.prefills_cold = 0
         self.prefills_prefix_hit = 0
         self.prefix_hit_tokens = 0
@@ -528,6 +609,7 @@ class ContinuousEngine:
         s = len(req.prompt) - d0
         first = self._paged_prefill_chunk(req, slot, d0, s, gen)
         self._publish_prompt_pages(req, slot)
+        self._set_hist(slot, req.prompt, first)
         # In-place writes of this slot's row: no copy of the slot state.
         self.cur[slot] = first
         self.pos[slot] = len(req.prompt)
@@ -535,6 +617,18 @@ class ContinuousEngine:
         self.top_ps[slot] = req.top_p
         self.limits[slot] = len(req.prompt) + req.max_new_tokens
         return True
+
+    def _set_hist(self, slot: int, prompt: list[int], first: torch.Tensor) -> None:
+        """Seed the slot's draft history: the prompt, then the pending first
+        token at column len(prompt) (``hist[pos] == cur`` between ticks).
+        ``first`` stays a device scalar: no host sync at admission."""
+        if not self.speculative:
+            return
+        n = min(len(prompt), self.smax - 1)
+        row = torch.zeros((self.smax,), dtype=torch.long)
+        row[:n] = torch.tensor(prompt[:n], dtype=torch.long)
+        self.hist[slot] = row.to(self.device)
+        self.hist[slot, n] = first
 
     def _admit(self) -> None:
         for slot in range(self.n_slots):
@@ -555,7 +649,9 @@ class ContinuousEngine:
 
     def _decode_tick(self, occupied: list[bool]) -> np.ndarray:
         """One decode tick of ``decode_chunk`` steps over every slot, in the
-        reference's step order; returns the emitted tokens (B, chunk)."""
+        reference's step order; returns the emitted tokens (B, chunk). With
+        speculation armed, each step's pending token also goes into the
+        slot's history (the reference's ``track``)."""
         cfg, dev = self.cfg, self.device
         n_b, chunk = self.n_slots, self.decode_chunk
         pad, eos = self.tokenizer.pad_id, self.tokenizer.eos_id
@@ -577,7 +673,7 @@ class ContinuousEngine:
             gens = [g if r is not None and r.temperature > 0.0 else None
                     for g, r in zip(self._gens, self._slots)]
             uniforms = row_uniforms(gens, (chunk, cfg.vocab_size), dev)
-        cur, pos = self.cur, self.pos
+        cur, pos, hist = self.cur, self.pos, self.hist
         done = ~torch.tensor(occupied, device=dev)
         emitted = []
         for t in range(chunk):
@@ -599,20 +695,109 @@ class ContinuousEngine:
             done = done | (cur == eos)
             pos = torch.where(step_alive, pos + 1, pos)
             cur = torch.where(done, pad, nxt)
+            if self.speculative:
+                hist = _emit_rows(hist, cur[:, None], pos, (~done).long())
             self.decode_steps += 1
         _flush_tail_into_pools(self.cache, cache["tk"], cache["tv"], starts, pos,
                                table, self.page_size)
-        self.cur, self.pos = cur, pos
+        self.cur, self.pos, self.hist = cur, pos, hist
         return torch.stack(emitted, dim=1).cpu().numpy()  # the tick's one copy
 
-    def _harvest(self, emitted: np.ndarray) -> None:
+    def _spec_accept(self, logits: torch.Tensor, tokens_in: torch.Tensor,
+                     gens: list, sampled: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        """(n_acc, next token) of a verify round: the exact-match rule when
+        every row is greedy, else rejection sampling (``spec_sample_tokens``,
+        whose greedy rows take the same exact-match rule)."""
+        k = self.spec_k
+        if sampled:
+            return spec_sample_tokens(logits, tokens_in[:, 1:], gens, self.temps,
+                                      self.top_ps, top_k=self.gen.top_k)
+        cand = torch.argmax(logits, dim=-1)  # (B, k+1)
+        eq = tokens_in[:, 1:] == cand[:, :k]
+        n_acc = torch.cumprod(eq.long(), dim=-1).sum(-1)
+        return n_acc, cand.gather(1, n_acc[:, None])[:, 0]
+
+    def _spec_tick(self, occupied: list[bool], sampled: bool
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One speculative tick of ``spec_rounds`` rounds over every slot, the
+        reference's ``_build_spec_paged_decode`` step for step: draft by
+        prompt lookup, one (B, k+1) verify forward (its K/V into the tail at
+        ``off = pos - starts``, attention through K3's verify), accept, emit
+        (capped by ``limits`` and by EOS/pad before the span), extend the
+        history; then the plain tick's flush. Returns the emitted tokens
+        (B, rounds * (k+1)), their per-row counts and the rounds each row
+        was live, from one device-to-host copy."""
+        cfg, dev = self.cfg, self.device
+        n_b, k, rounds = self.n_slots, self.spec_k, self.spec_rounds
+        pad, eos, smax = self.tokenizer.pad_id, self.tokenizer.eos_id, self.smax
+        out_len = rounds * (k + 1)
+        tail_len = max(rounds * (k + 1), 8)
+        table = self._table_device()
+        starts = self.pos
+        tail_shape = (cfg.num_layers, n_b, cfg.num_kv_heads, tail_len, cfg.head_dim)
+        dtype = llama.torch_dtype(cfg.dtype)
+        cache = {**self.cache,
+                 "tk": torch.zeros(tail_shape, dtype=dtype, device=dev),
+                 "tv": torch.zeros(tail_shape, dtype=dtype, device=dev)}
+        gens = [g if r is not None and r.temperature > 0.0 else None
+                for g, r in zip(self._gens, self._slots)]
+        q_idx = torch.arange(k + 1, device=dev)
+        out = torch.full((n_b, out_len), pad, dtype=torch.long, device=dev)
+        n_out = torch.zeros((n_b,), dtype=torch.long, device=dev)
+        rr = torch.zeros((n_b,), dtype=torch.long, device=dev)
+        zeros = torch.zeros((n_b, 1), dtype=torch.long, device=dev)
+        cur, pos, hist = self.cur, self.pos, self.hist
+        done = ~torch.tensor(occupied, device=dev)
+        for _ in range(rounds):
+            done = done | (pos >= self.limits)
+            live = ~done
+            # hist[pos] holds the pending cur: the context is pos + 1 tokens.
+            draft = device_lookup_draft(hist, torch.clamp(pos + 1, max=smax), k=k,
+                                        ngram=self.spec_ngram, min_ngram=self.spec_min_ngram)
+            tokens_in = torch.cat([cur[:, None], draft], dim=1)
+            lengths = torch.where(live, pos + 1, 0).to(torch.int32)
+            logits = llama.forward(
+                self.params, tokens_in, cfg, positions=pos[:, None] + q_idx[None, :],
+                cache=cache, paged={"table": table, "lengths": lengths, "starts": starts,
+                                    "off": pos - starts},
+            )
+            n_acc, nxt = self._spec_accept(logits, tokens_in, gens, sampled)
+            in_span = q_idx[None, :] <= n_acc[:, None]
+            is_term = (tokens_in == eos) | (tokens_in == pad)
+            term_before = (torch.cumsum(is_term.long(), dim=1) - is_term.long()) > 0
+            budget_ok = (pos[:, None] + q_idx[None, :]) < self.limits[:, None]
+            emit = in_span & ~term_before & budget_ok & live[:, None]
+            e = emit.long().sum(1)
+            hit_term = (emit & is_term).any(1)
+            out = _emit_rows(out, tokens_in, n_out, e)
+            n_out = n_out + e
+            append_seq = torch.where(q_idx[None, :] == n_acc[:, None], nxt[:, None],
+                                     torch.cat([draft, zeros], dim=1))
+            grow = torch.where(hit_term, 0, e)
+            hist = _emit_rows(hist, append_seq, torch.clamp(pos + 1, max=smax), grow)
+            pos = torch.where(live, pos + e.to(pos.dtype), pos)
+            done = done | hit_term
+            cur = torch.where(done, pad, nxt)
+            rr = rr + live.long()
+        self.spec_verify_rounds += rounds
+        _flush_tail_into_pools(self.cache, cache["tk"], cache["tv"], starts, pos,
+                               table, self.page_size)
+        self.cur, self.pos, self.hist = cur, pos, hist
+        host = torch.cat([out, n_out[:, None], rr[:, None]], dim=1).cpu().numpy()
+        return host[:, :out_len], host[:, out_len], host[:, out_len + 1]
+
+    def _harvest(self, emitted: np.ndarray, counts: np.ndarray | None = None) -> None:
         """Append each live slot's tokens up to EOS/pad or its budget;
-        finished requests publish their pages and free their slot."""
+        finished requests publish their pages and free their slot.
+        ``counts`` (speculative ticks): each row's valid emissions, since a
+        round emits 1..k+1 tokens and a live row's output need not end in
+        pad filler."""
         eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
         for slot, req in enumerate(list(self._slots)):
             if req is None:
                 continue
-            for tok in emitted[slot]:
+            row = emitted[slot] if counts is None else emitted[slot][: counts[slot]]
+            for tok in row:
                 tok = int(tok)
                 if tok in (eos, pad) or len(req.tokens) >= req.max_new_tokens:
                     req.finished = True
@@ -630,15 +815,109 @@ class ContinuousEngine:
 
     def step(self) -> None:
         """One scheduler tick: admit queued requests, then decode one chunk
-        of every occupied slot and harvest it."""
+        of every occupied slot (speculatively when armed and predicted to
+        win, ``_use_spec_tick``) and harvest it."""
         self._admit()
         occupied = [r is not None for r in self._slots]
-        if any(occupied):  # host-side check: no device work on idle ticks
-            t0 = time.perf_counter()
-            emitted = self._decode_tick(occupied)
-            self.decode_seconds += time.perf_counter() - t0
+        if not any(occupied):  # host-side check: no device work on idle ticks
+            return
+        active = [r for r in self._slots if r is not None]
+        sampled = any(r.temperature > 0.0 for r in active)
+        t0 = time.perf_counter()
+        if self._use_spec_tick(active):
+            emitted, counts, rr = self._spec_tick(occupied, sampled)
+            dt = time.perf_counter() - t0
+            self.spec_seconds += dt
+            self._record_tick_time("spec", dt * 1e3)
+            self._account_spec(counts, rr)
+            self.spec_ticks += 1
             self.decode_ticks += 1
-            self._harvest(emitted)
+            self._harvest(emitted, counts)
+            return
+        emitted = self._decode_tick(occupied)
+        dt = time.perf_counter() - t0
+        self.decode_seconds += dt
+        self.decode_ticks += 1
+        if self.speculative:
+            # the plain tick's key, as the reference's compiled programs
+            self._record_tick_time((sampled, sampled and any(r.top_p < 1.0 for r in active)),
+                                   dt * 1e3)
+        self._harvest(emitted)
+
+    # -- speculation's decision ------------------------------------------------
+
+    @property
+    def spec_threshold(self) -> float:
+        """Break-even tokens per verify forward for a speculative tick: the
+        configured value, else the measured ratio of a verify round's cost to
+        a plain step's, with a prior of 2.5 until both have been timed."""
+        if self._spec_threshold_cfg is not None:
+            return self._spec_threshold_cfg
+        if self._plain_step_ms and self._spec_round_ms:
+            return self._spec_round_ms / self._plain_step_ms
+        return 2.5
+
+    def _record_tick_time(self, kind, dt_ms: float) -> None:
+        """EMA of the cost per round (``kind == "spec"``) or per plain step
+        (``kind``: the plain tick's (sampled, top-p) key), leaving out the
+        first timed tick of each kind, as the reference leaves out each
+        program's compile call. Host clock; each tick ends in its one
+        device-to-host copy."""
+        if kind == "spec":
+            if not self._timed_spec:
+                self._timed_spec = True
+                return
+            per = dt_ms / self.spec_rounds
+            self._spec_round_ms = (per if self._spec_round_ms is None
+                                   else 0.5 * self._spec_round_ms + 0.5 * per)
+            return
+        if kind not in self._timed_plain_keys:
+            self._timed_plain_keys.add(kind)
+            return
+        per = dt_ms / self.decode_chunk
+        self._plain_step_ms = (per if self._plain_step_ms is None
+                               else 0.5 * self._plain_step_ms + 0.5 * per)
+
+    def _use_spec_tick(self, active: list[Request]) -> bool:
+        """Speculate this tick? The acceptance predicted for the current
+        slots (each request's measured tokens per forward, else the engine's
+        EMA) against ``spec_threshold``; a probe when nothing is measured
+        yet and every ``spec_probe_every`` ticks."""
+        if not self.speculative:
+            return False
+        self._tick_no += 1
+        preds = []
+        for r in active:
+            if r.spec_forwards > 0:
+                preds.append(r.spec_tokens / r.spec_forwards)
+            elif self.spec_acceptance_ema is not None:
+                preds.append(self.spec_acceptance_ema)
+            else:
+                return True  # nothing measured anywhere yet: probe
+        if self._tick_no % self.spec_probe_every == 0:
+            return True
+        return sum(preds) / len(preds) >= self.spec_threshold
+
+    def _account_spec(self, counts: np.ndarray, rr: np.ndarray) -> None:
+        """Per-request acceptance (tokens emitted, verify forwards taken part
+        in) and the engine's EMA of the tick's mean tokens per forward."""
+        accs = []
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            req.spec_tokens += int(counts[slot])
+            req.spec_forwards += int(rr[slot])
+            self.spec_emitted += int(counts[slot])
+            self.spec_row_forwards += int(rr[slot])
+            if rr[slot] > 0:
+                accs.append(counts[slot] / rr[slot])
+        if accs:
+            mean = float(np.mean(accs))
+            self.spec_acceptance_ema = (
+                mean if self.spec_acceptance_ema is None
+                else self._spec_ema_w * self.spec_acceptance_ema
+                + (1.0 - self._spec_ema_w) * mean
+            )
 
     @property
     def pending(self) -> int:
@@ -674,6 +953,30 @@ class ContinuousEngine:
             "decode_seconds": round(self.decode_seconds, 6),
             "prefills_cold": self.prefills_cold,
             "prefills_prefix_hit": self.prefills_prefix_hit,
+            **({"speculative": self._spec_stats()} if self.speculative else {}),
+        }
+
+    def _spec_stats(self) -> dict:
+        return {
+            "drafter": "lookup",
+            "k": self.spec_k,
+            "rounds_per_tick": self.spec_rounds,
+            "threshold": self.spec_threshold,
+            "threshold_source": (
+                "configured" if self._spec_threshold_cfg is not None
+                else "measured" if (self._plain_step_ms and self._spec_round_ms)
+                else "prior"
+            ),
+            "plain_step_ms": self._plain_step_ms,
+            "spec_round_ms": self._spec_round_ms,
+            "acceptance_ema": self.spec_acceptance_ema,
+            "spec_ticks": self.spec_ticks,
+            "ticks": self._tick_no,
+            "verify_rounds": self.spec_verify_rounds,
+            "spec_seconds": round(self.spec_seconds, 6),
+            # tokens per verify forward per row, over every request so far
+            "tokens_per_row_forward": (self.spec_emitted / self.spec_row_forwards
+                                       if self.spec_row_forwards else None),
         }
 
     def run(self) -> dict[int, list[int]]:

@@ -24,13 +24,22 @@ the trained model's); without it, or when the directory holds no step that
 restores, the weights are drawn from ``--seed``. ``--kv-quant int8`` makes
 the KV caches int8 (set before the weights are made; the paged decode runs
 K3 over int8 pools), ``--quantize int8`` turns the weights into weight-only
-int8 (``ops/quant.py``, after any restore); both engines serve the result.
-On the card unless ``--device cpu`` is given:
+int8 (``ops/quant.py``; with ``--checkpoint-dir`` the restored masters are
+quantized in their own dtype before the serving cast, as the JAX server
+quantizes its f32 masters); both engines serve the result.
+``--speculative on|auto`` (default ``off``) serves with prompt-lookup
+speculative decoding (``infer/speculative.py``): the continuous engine runs
+speculative ticks (``on`` every tick, ``auto`` when the measured acceptance
+clears the measured cost ratio), the lock-step engine serves greedy requests
+through ``SpeculativeGenerator`` (``on``) or ``AutoSpeculativeGenerator``
+(``auto``), falling back to the plain ``Generator`` when the speculative
+program's k + 1 slack does not fit the context. On the card unless
+``--device cpu`` is given:
 
     python -m ditl_tpu_torch.infer.server --preset llama3-8b \\
         --override attention_impl=flash [--checkpoint-dir DIR] [--device cuda] \\
         [--port 8300] [--engine continuous --cache-mode paged] \\
-        [--quantize int8] [--kv-quant int8]
+        [--quantize int8] [--kv-quant int8] [--speculative on|auto]
 """
 
 from __future__ import annotations
@@ -163,6 +172,7 @@ def _chat_prompt(messages: list[dict]) -> str:
 class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
     generator: Generator = None  # bound by make_server
     threaded_engine: ThreadedEngine | None = None  # --engine continuous
+    spec_generator = None  # lock-step --speculative on|auto
     model_name: str = "ditl-tpu-torch"
     device_lock: threading.Lock = None  # serialises the lock-step Generator
     default_max_tokens: int = 64
@@ -206,6 +216,14 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 served = dict(self.stats)
             engine = ({"engine": "lockstep"} if self.threaded_engine is None
                       else self.threaded_engine.stats())
+            spec = self.spec_generator
+            if spec is not None:
+                engine["speculative"] = True
+                acc = getattr(spec, "acceptance_ema", None)
+                if acc is None:
+                    acc = getattr(getattr(spec, "spec", spec), "last_acceptance", None)
+                if acc is not None:
+                    engine["speculative_acceptance"] = round(acc, 3)
             self._send_json(200, {"model": self.model_name, **engine,
                                   "device": str(self.generator.device),
                                   "draining": draining,
@@ -307,15 +325,15 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             else:
                 # Lock-step Generator: the lock-step engine, and the
                 # continuous engine's fallback for logprob requests.
-                with self.device_lock:
-                    if n_top is None:
-                        out = self.generator.generate_tokens([prompt_ids], gen)[0]
-                    else:
+                if n_top is None:
+                    out = self._lockstep_generate(prompt_ids, gen)
+                else:
+                    with self.device_lock:
                         # The engine's top-k needs k >= 1; N = 0 computes one
                         # alternative and emits none.
                         outs, lps = self.generator.generate_tokens_with_logprobs(
                             [prompt_ids], dataclasses.replace(gen, logprobs=max(1, n_top)))
-                        out, lp = outs[0], lps[0]
+                    out, lp = outs[0], lps[0]
             with self.stats_lock:
                 self.stats["requests"] += 1
                 self.stats["prompt_tokens"] += len(prompt_ids)
@@ -358,6 +376,22 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                     len(prompt_ids), n_gen, time.time() - t0)
 
 
+    def _lockstep_generate(self, prompt_ids: list[int], gen: GenerateConfig) -> list[int]:
+        """One lock-step generation, speculatively when eligible: greedy, and
+        the speculative program's k + 1 slack fits the context (its
+        ValueError falls back to the plain Generator). The tokens are the
+        same by the speculation exactness contract."""
+        if self.spec_generator is not None and gen.temperature == 0.0:
+            try:
+                with self.device_lock:
+                    return self.spec_generator.generate_tokens(
+                        [prompt_ids], gen.max_new_tokens)[0]
+            except ValueError:
+                pass
+        with self.device_lock:
+            return self.generator.generate_tokens([prompt_ids], gen)[0]
+
+
 def _logprobs_json(tok, ids: list[int], lp: dict, text: str, hit_stop: bool,
                    n_top: int, chat: bool, text_offset: int) -> dict:
     """OpenAI logprobs for the returned tokens. With a stop hit, only the
@@ -396,6 +430,7 @@ def make_server(
     generator: Generator,
     *,
     threaded_engine: ThreadedEngine | None = None,
+    spec_generator=None,
     host: str = "127.0.0.1",
     port: int = 8300,
     model_name: str = "ditl-tpu-torch",
@@ -405,10 +440,13 @@ def make_server(
     """Build (not start) the HTTP server; ``port=0`` picks a free port.
     ``threaded_engine`` (already built, over ``generator``'s weights) serves
     completions through the continuous engine; ``generator`` then serves
-    only logprob requests. Closing the server stops the engine."""
+    only logprob requests. ``spec_generator`` (a ``SpeculativeGenerator``
+    or ``AutoSpeculativeGenerator``) serves the lock-step path's greedy
+    requests. Closing the server stops the engine."""
     handler = type("BoundHandler", (_Handler,), {
         "generator": generator,
         "threaded_engine": threaded_engine,
+        "spec_generator": spec_generator,
         "model_name": model_name,
         "device_lock": threading.Lock(),
         "default_max_tokens": default_max_tokens,
@@ -460,6 +498,13 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-quant", choices=("none", "int8"), default="none",
                    help="int8 KV cache (halves cache reads/footprint; composes with "
                    "both cache modes)")
+    p.add_argument("--speculative", choices=("off", "on", "auto"), default="off",
+                   help="prompt-lookup speculative decoding: 'on' always speculates, "
+                   "'auto' decides from measured acceptance. Continuous engine: "
+                   "speculative decode ticks for greedy and sampled requests (greedy "
+                   "outputs token-identical; sampled exact in distribution by "
+                   "rejection sampling). Lock-step engine: greedy requests through "
+                   "infer/speculative.py")
     return p
 
 
@@ -476,18 +521,21 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
     if args.kv_quant == "int8":
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     params = None
+    restored = False  # a restore quantizes its masters itself
     if args.checkpoint_dir:
         from ditl_tpu_torch.train.checkpoint import CheckpointManager
 
         ckpt = CheckpointManager(args.checkpoint_dir)
         params = ckpt.restore_latest_params(
-            cfg, llama.init_params(cfg, device="meta"), device=args.device)
+            cfg, llama.init_params(cfg, device="meta"), device=args.device,
+            quantize=args.quantize == "int8")
         ckpt.close()
         if params is not None:
             logger.info("restored params from %s", args.checkpoint_dir)
+            restored = True
     if params is None:
         params = llama.init_params(cfg, seed=args.seed, device=args.device)
-    if args.quantize == "int8":
+    if args.quantize == "int8" and not restored:
         from ditl_tpu_torch.ops.quant import quantize_weights
 
         params = quantize_weights(params, tie_embeddings=cfg.tie_embeddings)
@@ -503,8 +551,23 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
             max_cache_len=args.max_cache_len or None, cache_mode=args.cache_mode,
             page_size=args.page_size, n_pages=args.pages or None,
             max_queue=args.max_queue or None, device=args.device,
+            speculative=args.speculative != "off",
+            # 'on' speculates every tick; 'auto' keeps the measured decision.
+            spec_threshold=0.0 if args.speculative == "on" else None,
         ))
-    server = make_server(generator, threaded_engine=threaded, host=args.host,
+    spec = None
+    if args.speculative != "off" and args.engine == "lockstep":
+        from ditl_tpu_torch.infer.speculative import (
+            AutoSpeculativeGenerator,
+            SpeculativeGenerator,
+        )
+
+        spec = (AutoSpeculativeGenerator(params, cfg, tokenizer, plain=generator,
+                                         device=args.device)
+                if args.speculative == "auto"
+                else SpeculativeGenerator(params, cfg, tokenizer, device=args.device))
+    server = make_server(generator, threaded_engine=threaded, spec_generator=spec,
+                         host=args.host,
                          port=args.port, model_name=cfg.name,
                          default_max_tokens=args.max_tokens,
                          max_pending=args.max_pending or None)

@@ -328,28 +328,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def _paged_decode_attention(q, k, v, layer_cache: dict, paged: dict,
                             cfg: ModelConfig) -> torch.Tensor:
-    """The paged decode tick's attention, one token per slot. The token's
-    K/V go into tail column ``paged["t"]`` in place (the reference returns new
-    tails); the pools are read-only here, and the engine flushes the tail
-    into pages once per tick. Attention reads pages + tail through
-    ``paged_attention`` whatever ``attention_impl`` is, as in the reference:
-    the CUDA kernel (K3) on the card."""
+    """The paged decode tick's attention. One token per slot (the plain
+    tick): its K/V go into tail column ``paged["t"]`` in place (the
+    reference returns new tails). A multi-token chunk (the speculative
+    verify, S = k + 1): its K/V go into the tail at per-row offsets
+    ``paged["off"]`` (= pos - starts), since slots advance by their own
+    acceptance. The pools are read-only here, and the engine flushes the
+    tail into pages once per tick. Attention reads pages + tail through
+    ``paged_attention`` (4-D q for the verify) whatever ``attention_impl``
+    is, as in the reference: the CUDA kernels (K3, its verify form) on the
+    card."""
     from ditl_tpu_torch.ops.paged_attention import paged_attention
 
-    if q.shape[1] != 1:
-        raise NotImplementedError(
-            "multi-token paged forward (the speculative verify) is not ported "
-            "to PyTorch yet (see ROADMAP.md)"
-        )
     tk, tv = layer_cache["tk"], layer_cache["tv"]
-    tk[:, :, paged["t"]] = k[:, 0]
-    tv[:, :, paged["t"]] = v[:, 0]
-    return paged_attention(
-        q[:, 0].contiguous(), layer_cache["kp"], layer_cache["vp"],
+    if q.shape[1] == 1:
+        tk[:, :, paged["t"]] = k[:, 0]
+        tv[:, :, paged["t"]] = v[:, 0]
+        q = q[:, 0]
+    else:
+        from ditl_tpu_torch.infer.cache import scatter_tail
+
+        scatter_tail(tk, k.transpose(1, 2), paged["off"])
+        scatter_tail(tv, v.transpose(1, 2), paged["off"])
+    out = paged_attention(
+        q.contiguous(), layer_cache["kp"], layer_cache["vp"],
         paged["table"], paged["lengths"], tail_k=tk, tail_v=tv,
         starts=paged["starts"], k_scale=layer_cache.get("ks"),
         v_scale=layer_cache.get("vs"),
-    )[:, None]
+    )
+    return out[:, None] if out.dim() == 3 else out
 
 
 def _decoder_layer(
@@ -360,7 +367,7 @@ def _decoder_layer(
     positions: torch.Tensor,
     segment_ids: torch.Tensor | None,
     layer_cache: dict | None,
-    cache_index: int,
+    cache_index: int | torch.Tensor,
     attn_mask: torch.Tensor | None,
     prefill_causal: bool,
     paged: dict | None,
@@ -474,7 +481,7 @@ def forward(
     positions: torch.Tensor | None = None,
     segment_ids: torch.Tensor | None = None,
     cache: dict[str, torch.Tensor] | None = None,
-    cache_index: int = 0,
+    cache_index: int | torch.Tensor = 0,
     attn_mask: torch.Tensor | None = None,
     prefill_causal: bool = False,
     paged: dict | None = None,
@@ -488,6 +495,8 @@ def forward(
     cache at slot ``cache_index`` **in place** (the reference returns a new
     cache; in PyTorch an in-place write saves a copy of the cache per step),
     and attention reads the whole cache under ``attn_mask`` (B, S, Smax).
+    ``cache_index`` is an int (every row at one depth) or a (B,) tensor of
+    per-row slots (the speculative verify's chunk).
     ``prefill_causal=True`` with a cache: the chunk fills an empty cache from
     slot 0, so attention is causal over the chunk with validity from
     ``segment_ids`` — the serving prefill, which runs the flash kernel when
@@ -497,7 +506,11 @@ def forward(
     ``{"kp", "vp", "tk", "tv"}`` (pools (L, P, K, ps, D), tails
     (L, B, K, T, D)) is the paged decode tick's step: one token per slot,
     whose K/V are written into tail column ``t`` in place, attending the
-    pages through ``table`` plus the tail (``ops/paged_attention.py``)."""
+    pages through ``table`` plus the tail (``ops/paged_attention.py``). A
+    chunk of S > 1 tokens per slot (the speculative verify) takes
+    ``paged["off"]`` (B,) in place of ``t``: its K/V land in the tail at
+    those per-row offsets, and query qi sees the tail below ``lengths +
+    qi``."""
     check_supported(cfg)
     cd = torch_dtype(cfg.dtype)
     b, s = input_ids.shape

@@ -26,15 +26,42 @@ and writes a partial (m, l, acc), and a second kernel merges the partials
 in split order. The grid comes from shapes alone, so the wrapper never
 reads ``lengths`` or ``starts`` back from the card.
 
+- **K3's multi-query verify** (``ditl_paged_verify_bf16`` and
+  ``ditl_paged_verify_i8``, replace ``_paged_tail_kernel`` with
+  ``q_groups``): the speculative verify's 4-D q (B, Q, H, D), Q consecutive
+  query tokens per slot sharing every page fetch. Row r = qi * G + g of a KV
+  head sees the tail columns j with ``starts + j < lengths + qi`` (causal
+  within the verify chunk); page columns keep one limit for every row.
+
+All run as split-key flash-decoding: a slot's keys lie on one axis, its
+``max_pages * page_size`` page positions then (K3) its ``T`` tail positions,
+cut into splits of ``SPLIT_KEYS`` positions; one block per (split, KV head,
+slot) walks its split's live ``TILE_KEYS``-key tiles with an online softmax
+and writes a partial (m, l, acc) per query row, and a second kernel merges
+the partials in split order. The grid comes from shapes alone, so the
+wrapper never reads ``lengths`` or ``starts`` back from the card.
+
+Tail masks, as the Pallas kernel's: the tail is read only when ``lengths >
+starts`` (its ``_tail`` gate), and then query qi sees tail column j when
+``starts + j < lengths + qi``. Single-query, the gate changes nothing; in the
+verify form it differs from ``paged_attention_xla`` only for slots with
+``0 < lengths <= starts``, which no engine produces (a live slot has
+``lengths = pos + 1`` and ``starts <= pos``). The plain version, the split
+twin and the kernels all apply it.
+
 - ``paged_attention`` is the wrapper, with the JAX signature: it checks its
   inputs and, for CUDA tensors, launches K3 (with a tail; its int8 form
-  with scales) or K4 (without) or raises. Only for CPU tensors does it run
-  ``paged_attention_plain``. ``launches_tail``, ``launches_tail_int8`` and
-  ``launches`` count K3, K3 over int8 pools and K4 launches.
+  with scales; its verify form for 4-D q with Q > 1) or K4 (without) or
+  raises. Only for CPU tensors does it run ``paged_attention_plain``.
+  ``launches_tail``, ``launches_tail_int8``, ``launches_verify``,
+  ``launches_verify_int8`` and ``launches`` count K3, K3 over int8 pools,
+  the verify over float and over int8 pools, and K4 launches. A 4-D q with
+  Q = 1 runs the single-query kernel (the reference passes no ``q_groups``
+  then), so it gives the 3-D call's bits.
 - ``paged_attention_plain`` computes what ``paged_attention_xla`` computes:
   gather the pages, append the tail, mask with the finite ``NEG_INF``, f32
   scores and softmax, p cast to v's dtype before the p.v product (f32
-  accumulation), zeros for dead slots (length 0). 3-D q only. Over int8
+  accumulation), zeros for dead slots (length 0), 3-D or 4-D q. Over int8
   pools it computes what the reference kernel's quantized branch computes:
   scores of the exact int8 values times K's scale, p times V's scale in
   f32 for the page columns (no rounding), the tail columns as the float
@@ -43,12 +70,11 @@ reads ``lengths`` or ``starts`` back from the card.
   each split's partial tile by tile, then the combine (the tests hold it to
   the JAX package; it is on no serving path).
 
-Layouts are the JAX package's: q (B, H, D); pools (P, K, ps, D); page table
-(B, maxp) int32; lengths and starts (B,) int32; tails (B, K, T, D); output
-(B, H, D).
+Layouts are the JAX package's: q (B, H, D) or (B, Q, H, D); pools (P, K,
+ps, D); page table (B, maxp) int32; lengths and starts (B,) int32; tails
+(B, K, T, D); output shaped as q.
 
-Not ported yet (ROADMAP.md): the multi-query speculative verify (4-D q) and
-the mesh-sharded form.
+Not ported yet (ROADMAP.md): the mesh-sharded form.
 """
 
 from __future__ import annotations
@@ -60,11 +86,15 @@ import torch
 from ditl_tpu_torch.ops.attention import NEG_INF
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_attention_split_plain",
-           "split_count", "HEAD_DIMS", "MAX_GROUPS", "SPLIT_KEYS", "TILE_KEYS", "launches",
-           "launches_tail", "launches_tail_int8", "reset_launches"]
+           "split_count", "HEAD_DIMS", "MAX_GROUPS", "MAX_VERIFY_ROWS", "SPLIT_KEYS",
+           "TILE_KEYS", "launches", "launches_tail", "launches_tail_int8",
+           "launches_verify", "launches_verify_int8", "reset_launches"]
 
 HEAD_DIMS = (64, 128)  # the kernels' template instances
 MAX_GROUPS = 8  # query heads per KV head the kernels take
+# Query rows (Q * G) per KV head the verify kernels take: five m16 row tiles,
+# which covers spec_k = 8 at G = 8 (72 rows).
+MAX_VERIFY_ROWS = 80
 TILE_KEYS = 64  # keys per tile inside a split (csrc kTile)
 # Positions per split, a multiple of TILE_KEYS: 128 was the fastest of 128,
 # 256 and 512 at the decode tick on the card (PERF.md).
@@ -72,23 +102,31 @@ SPLIT_KEYS = 128
 
 # Kernel launches since the last reset_launches(); counted where each kernel
 # is launched and nowhere else. ``launches_tail`` is K3 over float pools,
-# ``launches_tail_int8`` K3 over int8 pools, ``launches`` K4.
+# ``launches_tail_int8`` K3 over int8 pools, ``launches_verify`` and
+# ``launches_verify_int8`` its multi-query verify over float and int8 pools,
+# ``launches`` K4.
 launches = 0
 launches_tail = 0
 launches_tail_int8 = 0
+launches_verify = 0
+launches_verify_int8 = 0
 
 _fns: dict[str, ctypes._CFuncPtr] = {}
 # Entry point -> (pointer arguments, int arguments), then the scale and the
 # stream.
 _ARGS = {"ditl_paged_tail_bf16": (11, 9), "ditl_paged_tail_i8": (13, 9),
+         "ditl_paged_verify_bf16": (11, 10), "ditl_paged_verify_i8": (13, 10),
          "ditl_paged_bf16": (8, 8)}
 
 
 def reset_launches() -> None:
-    global launches, launches_tail, launches_tail_int8
+    global launches, launches_tail, launches_tail_int8, launches_verify
+    global launches_verify_int8
     launches = 0
     launches_tail = 0
     launches_tail_int8 = 0
+    launches_verify = 0
+    launches_verify_int8 = 0
 
 
 def _kernel(name: str):
@@ -118,10 +156,14 @@ def paged_attention_plain(
     v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernels (the JAX package's
-    ``paged_attention_xla`` for 3-D q; over int8 pools with ``k_scale``/
-    ``v_scale``, the reference kernel's quantized arithmetic): returns
-    (B, H, D) in q's dtype."""
-    b, h, d = q.shape
+    ``paged_attention_xla``, with the Pallas kernel's tail gate of the
+    module note; over int8 pools with ``k_scale``/``v_scale``, the
+    reference kernel's quantized arithmetic): returns q's shape, (B, H, D)
+    or (B, Q, H, D), in q's dtype."""
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    b, nq, h, d = q.shape
     _, kv_heads, ps, _ = k_pages.shape
     maxp = page_table.shape[1]
     groups = h // kv_heads
@@ -136,34 +178,45 @@ def paged_attention_plain(
         ks, vs = (_key_scales(sc, table) for sc in (k_scale, v_scale))
     page_limit = lengths if starts is None else torch.minimum(starts, lengths)
     cols = torch.arange(n_page, device=q.device)
-    valid = cols[None, :] < page_limit[:, None]  # (B, S)
+    valid = (cols[None, :] < page_limit[:, None])[:, None].expand(b, nq, n_page)
     if tail_k is not None:
         t = tail_k.shape[2]
         k = torch.cat([k, tail_k.transpose(1, 2).to(k.dtype)], dim=1)
         v = torch.cat([v, tail_v.transpose(1, 2).to(v.dtype)], dim=1)
-        tail_cols = torch.arange(t, device=q.device)
-        tail_valid = starts[:, None] + tail_cols[None, :] < lengths[:, None]
-        valid = torch.cat([valid, tail_valid], dim=1)
-    qg = q.reshape(b, kv_heads, groups, d)
-    scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * d**-0.5
+        valid = torch.cat([valid, _tail_valid(lengths, starts, nq, t)], dim=2)
+    qg = q.reshape(b, nq, kv_heads, groups, d)
+    scores = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k.float()) * d**-0.5
     if quant:  # K's scale on the page columns' f32 scores, after the product
-        scores = torch.cat([scores[..., :n_page] * ks[:, :, None],
+        scores = torch.cat([scores[..., :n_page] * ks[:, None, :, None],
                             scores[..., n_page:]], dim=-1)
-    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    scores = scores.masked_fill(~valid[:, :, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     # Dead slots (length 0) have an all-masked row: zeros, not a uniform mix.
-    probs = torch.where((lengths > 0)[:, None, None, None], probs, 0.0)
+    probs = torch.where((lengths > 0)[:, None, None, None, None], probs, 0.0)
     if quant:
         # Page columns: p times V's scale in f32; tail columns as the float
         # branch (p rounded to the tail's dtype).
         tail_p = probs[..., n_page:]
         if tail_v is not None:
             tail_p = tail_p.to(tail_v.dtype).float()
-        pw = torch.cat([probs[..., :n_page] * vs[:, :, None], tail_p], dim=-1)
+        pw = torch.cat([probs[..., :n_page] * vs[:, None, :, None], tail_p], dim=-1)
     else:
         pw = probs.to(v.dtype).float()
-    out = torch.einsum("bkgs,bskd->bkgd", pw, v.float())
-    return out.reshape(b, h, d).to(q.dtype)
+    out = torch.einsum("bqkgs,bskd->bqkgd", pw, v.float())
+    out = out.reshape(b, nq, h, d).to(q.dtype)
+    return out[:, 0] if squeeze else out
+
+
+def _tail_valid(lengths: torch.Tensor, starts: torch.Tensor, nq: int,
+                t: int) -> torch.Tensor:
+    """(B, Q, T): tail column j is live for query qi when the slot has a tail
+    (``lengths > starts``, the Pallas kernel's gate) and ``starts + j <
+    lengths + qi``."""
+    j = torch.arange(t, device=lengths.device)
+    qi = torch.arange(nq, device=lengths.device)
+    limit = lengths[:, None] + qi[None, :]  # (B, Q)
+    live = starts[:, None, None] + j[None, None, :] < limit[:, :, None]
+    return live & (lengths > starts)[:, None, None]
 
 
 def _key_scales(scale: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -195,14 +248,23 @@ def paged_attention_split_plain(
     *,
     split: int = SPLIT_KEYS,
 ) -> torch.Tensor:
-    """What K3 (with a tail) and K4 (without) compute, in their order: each
-    ``split``-position run of a slot's axis (pages, then the tail) gives a
-    partial from its live ``TILE_KEYS``-key tiles, each an online-softmax
-    step (f32 q.k sums scaled in f32, the finite mask value, p relative to the
-    split's running max and cast to v's dtype before p.v, l adding the f32
-    p; tiles without a live key skipped), and the partials merge in split
-    order, rescaled by exp(m_s - max m) in f32. Page ids clamp into the
-    pool. Returns (B, H, D) in q's dtype; a dead slot gives zeros.
+    """What K3 (with a tail), its verify form (4-D q) and K4 (without)
+    compute, in their order: each ``split``-position run of a slot's axis
+    (pages, then the tail) gives a partial per query row from its
+    ``TILE_KEYS``-key tiles that hold a key live for any row, each an
+    online-softmax step (f32 q.k sums scaled in f32, the finite mask value on
+    the row's dead columns, p relative to the split's running max and cast
+    to v's dtype before p.v, l adding the f32 p), and the partials merge in
+    split order, rescaled by exp(m_s - max m) in f32. Page ids clamp into
+    the pool. Returns q's shape in q's dtype; a dead slot gives zeros.
+
+    The rule for rows with nothing live in a split (a verify row qi whose
+    tail limit ends before a split that later rows reach): the row's m stays
+    the mask value, its p is exp(0) = 1 on every column of the split's
+    processed tiles, so l and acc hold junk; the merge gives a partial whose
+    m is the mask value weight 0, as the kernel's merge does. Every row of a
+    live slot has a live key (tail column 0 at least), so its largest m is
+    a real score.
 
     Over int8 pools (``k_scale``/``v_scale``), as ``ditl_paged_tail_i8``:
     the exact int8 values, each page key's f32 score times its K scale,
@@ -210,7 +272,10 @@ def paged_attention_split_plain(
     p.v; l adds the unscaled p."""
     if split % TILE_KEYS or split < TILE_KEYS:
         raise ValueError(f"split must be a positive multiple of {TILE_KEYS}, got {split}")
-    b, h, d = q.shape
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    b, nq, h, d = q.shape
     n_pool, kv, ps, _ = k_pages.shape
     maxp = page_table.shape[1]
     groups = h // kv
@@ -230,64 +295,71 @@ def paged_attention_split_plain(
                   for sc in (k_scale, v_scale))
     pos = torch.arange(n_page + t_len, device=q.device)
     page_limit = lengths if starts is None else torch.minimum(starts, lengths)
-    # Keys past the table's last page are absent, as in the reference.
-    live = pos[None, :] < page_limit.clamp(max=n_page)[:, None]
+    # (B, Q, positions). Keys past the table's last page are absent, as in
+    # the reference.
+    live = (pos[None, :] < page_limit.clamp(max=n_page)[:, None])[:, None]
+    live = live.expand(b, nq, pos.numel())
     if tail_k is not None:
         k = torch.cat([k, tail_k.transpose(1, 2).to(k.dtype)], dim=1)
         v = torch.cat([v, tail_v.transpose(1, 2).to(v.dtype)], dim=1)
-        live |= (pos[None, :] >= n_page) & (starts[:, None] + pos[None, :] - n_page
-                                            < lengths[:, None])
+        live = live | torch.cat([torch.zeros((b, nq, n_page), dtype=torch.bool,
+                                             device=q.device),
+                                 _tail_valid(lengths, starts, nq, t_len)], dim=2)
     n_split = split_count(maxp, ps, t_len, split)
     pad = n_split * split - pos.numel()
     k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
     live = torch.nn.functional.pad(live, (0, pad))
     tiles = split // TILE_KEYS
-    # (B, K, G, split, tile, key) scores; (B, split, tile, key, K, D) values
-    qg = q.float().reshape(b, kv, groups, d)
+    # (B, K, Q, G, split, tile, key) scores; (B, split, tile, key, K, D) values
+    qg = q.float().reshape(b, nq, kv, groups, d).transpose(1, 2)
     kt = k.float().reshape(b, n_split, tiles, TILE_KEYS, kv, d)
     vt = v.reshape(b, n_split, tiles, TILE_KEYS, kv, d)
-    scores = torch.einsum("bkgd,bstjkd->bkgstj", qg, kt) * d**-0.5
+    scores = torch.einsum("bkqgd,bstjkd->bkqgstj", qg, kt) * d**-0.5
     if quant:
         ks, vs = (torch.nn.functional.pad(sc, (0, pad), value=1.0)
-                  .reshape(b, kv, 1, n_split, tiles, TILE_KEYS) for sc in (ks, vs))
+                  .reshape(b, kv, 1, 1, n_split, tiles, TILE_KEYS) for sc in (ks, vs))
         scores = scores * ks
-    live = live.reshape(b, 1, 1, n_split, tiles, TILE_KEYS)
+    live = live.reshape(b, 1, nq, 1, n_split, tiles, TILE_KEYS)
     scores = scores.masked_fill(~live, NEG_INF)
-    m = torch.full((b, kv, groups, n_split), NEG_INF, device=q.device)
+    m = torch.full((b, kv, nq, groups, n_split), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, kv, groups, n_split, d), device=q.device)
+    acc = torch.zeros((b, kv, nq, groups, n_split, d), device=q.device)
     for t in range(tiles):
-        s_t = scores[:, :, :, :, t]
+        s_t = scores[..., t, :]
         m_new = torch.maximum(m, s_t.amax(-1))
         p = torch.exp(s_t - m_new[..., None])
         alpha = torch.exp(m - m_new)
-        p_v = p * vs[:, :, :, :, t] if quant else p
-        pv = torch.einsum("bkgsj,bsjkd->bkgsd", p_v.to(p_dtype).float(),
+        p_v = p * vs[..., t, :] if quant else p
+        pv = torch.einsum("bkqgsj,bsjkd->bkqgsd", p_v.to(p_dtype).float(),
                           vt[:, :, t].float())
-        step = live[:, :, :, :, t].any(-1)  # the tile holds a live key
+        # the tile holds a key live for some row: processed for every row
+        step = live[..., t, :].any(-1).any(2, keepdim=True)
         m = torch.where(step, m_new, m)
         l = torch.where(step, alpha * l + p.sum(-1), l)
         acc = torch.where(step[..., None], alpha[..., None] * acc + pv, acc)
     m_max = m.amax(-1)
     l_all = torch.zeros_like(m_max)
-    out = torch.zeros((b, kv, groups, d), device=q.device)
+    out = torch.zeros((b, kv, nq, groups, d), device=q.device)
     for s_i in range(n_split):  # split order, as the kernels merge
-        w = torch.exp(m[..., s_i] - m_max)
+        m_s = m[..., s_i]
+        w = torch.where(m_s == NEG_INF, 0.0, torch.exp(m_s - m_max))
         l_all = l_all + w * l[..., s_i]
         out = out + w[..., None] * acc[..., s_i, :]
     out = out / torch.where(l_all == 0, 1.0, l_all)[..., None]
-    return out.reshape(b, h, d).to(q.dtype)
+    out = out.transpose(1, 2).reshape(b, nq, h, d).to(q.dtype)
+    return out[:, 0] if squeeze else out
 
 
 def _check(q, k_pages, v_pages, page_table, lengths, tail_k, tail_v, starts) -> None:
-    if q.dim() == 4:
-        raise NotImplementedError(
-            "multi-query paged attention (the speculative verify, 4-D q) is "
-            "not ported to PyTorch yet (see ROADMAP.md)"
+    if q.dim() not in (3, 4) or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError("paged_attention wants q (B,H,D) or (B,Q,H,D) and pools "
+                         "(P,K,ps,D)")
+    if q.dim() == 4 and tail_k is None:
+        raise ValueError(
+            "multi-query paged_attention requires the tail path (the verify "
+            "chunk's own KV lives in the tail buffer)"
         )
-    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
-        raise ValueError("paged_attention wants q (B,H,D) and pools (P,K,ps,D)")
-    b, h, d = q.shape
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
     kv_heads = k_pages.shape[1]
     if k_pages.shape[3] != d:
         raise ValueError(f"head_dim mismatch q {tuple(q.shape)} pools "
@@ -353,11 +425,14 @@ def paged_attention(
 ) -> torch.Tensor:
     """Paged GQA decode attention (see the module note). CUDA tensors launch
     K3 (with a tail; ``ditl_paged_tail_i8`` over int8 pools with
-    ``k_scale``/``v_scale``) or K4 (without): bf16 q and tails, bf16 or
-    int8 pools, f32 scales, int32 table, lengths and starts, all contiguous,
-    head_dim in ``HEAD_DIMS``, at most ``MAX_GROUPS`` query heads per KV
-    head; anything else raises. CPU tensors run the plain version."""
-    global launches, launches_tail, launches_tail_int8
+    ``k_scale``/``v_scale``; the verify entry points for a 4-D q with Q > 1,
+    at most ``MAX_VERIFY_ROWS`` query rows per KV head) or K4 (without):
+    bf16 q and tails, bf16 or int8 pools, f32 scales, int32 table, lengths
+    and starts, all contiguous, head_dim in ``HEAD_DIMS``, at most
+    ``MAX_GROUPS`` query heads per KV head; anything else raises. CPU
+    tensors run the plain version."""
+    global launches, launches_tail, launches_tail_int8, launches_verify
+    global launches_verify_int8
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded paged attention is not ported to PyTorch yet "
@@ -373,7 +448,14 @@ def paged_attention(
                                      tail_k, tail_v, starts, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
-    b, h, d = q.shape
+    if q.dim() == 4 and q.shape[1] == 1:
+        # One query token: the single-query kernel, as the reference passes no
+        # q_groups for Q = 1, so the bits are the 3-D call's.
+        return paged_attention(q[:, 0], k_pages, v_pages, page_table, lengths,
+                               tail_k=tail_k, tail_v=tail_v, starts=starts,
+                               k_scale=k_scale, v_scale=v_scale)[:, None]
+    verify = q.dim() == 4
+    b, nq, h, d = q.shape if verify else (q.shape[0], 1, *q.shape[1:])
     n_pool, kv_heads, ps, _ = k_pages.shape
     tail = tail_k is not None
     floats = [("q", q)]
@@ -402,46 +484,52 @@ def paged_attention(
     if d not in HEAD_DIMS:
         raise ValueError(f"the CUDA paged-attention kernels take head_dim in "
                          f"{HEAD_DIMS}, got {d} (see ROADMAP.md)")
-    if h // kv_heads > MAX_GROUPS:
+    groups = h // kv_heads
+    if groups > MAX_GROUPS:
         raise ValueError(f"the CUDA paged-attention kernels take at most "
-                         f"{MAX_GROUPS} query heads per KV head, got {h // kv_heads}")
+                         f"{MAX_GROUPS} query heads per KV head, got {groups}")
+    rows = nq * groups  # query rows per KV head
+    if rows > MAX_VERIFY_ROWS:
+        raise ValueError(f"the CUDA verify kernels take at most MAX_VERIFY_ROWS = "
+                         f"{MAX_VERIFY_ROWS} query rows (Q x query heads per KV head) "
+                         f"per KV head, got {nq} x {groups} = {rows}")
     t_len = tail_k.shape[2] if tail else 0
     n_split = split_count(page_table.shape[1], ps, t_len, SPLIT_KEYS)
     o = torch.empty_like(q)
     # The split partials (f32 acc; m and l per query row): allocated, never
     # read on the host.
-    part_acc = torch.empty((b, kv_heads, n_split, h // kv_heads, d), dtype=torch.float32,
+    part_acc = torch.empty((b, kv_heads, n_split, rows, d), dtype=torch.float32,
                            device=q.device)
-    part_ml = torch.empty((b, kv_heads, n_split, h // kv_heads, 2), dtype=torch.float32,
+    part_ml = torch.empty((b, kv_heads, n_split, rows, 2), dtype=torch.float32,
                           device=q.device)
     work = [part_acc.data_ptr(), part_ml.data_ptr()]
-    shape = [b, h, kv_heads, d, ps, page_table.shape[1], n_pool]
+    shape = [h, kv_heads, d, ps, page_table.shape[1], n_pool]
+    batch = [b, nq] if verify else [b]
+    pools_ptr = [k_pages.data_ptr(), v_pages.data_ptr()]
+    if quant:
+        pools_ptr += [k_scale.data_ptr(), v_scale.data_ptr()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if quant:
-            err = _kernel("ditl_paged_tail_i8")(
-                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-                lengths.data_ptr(), starts.data_ptr(), tail_k.data_ptr(),
-                tail_v.data_ptr(), o.data_ptr(), *work, *shape, t_len, SPLIT_KEYS,
-                d**-0.5, stream,
-            )
-        elif tail:
-            err = _kernel("ditl_paged_tail_bf16")(
-                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_table.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
-                tail_k.data_ptr(), tail_v.data_ptr(), o.data_ptr(), *work, *shape, t_len,
-                SPLIT_KEYS, d**-0.5, stream,
+        if tail:
+            name = (("ditl_paged_verify" if verify else "ditl_paged_tail")
+                    + ("_i8" if quant else "_bf16"))
+            err = _kernel(name)(
+                q.data_ptr(), *pools_ptr, page_table.data_ptr(), lengths.data_ptr(),
+                starts.data_ptr(), tail_k.data_ptr(), tail_v.data_ptr(), o.data_ptr(),
+                *work, *batch, *shape, t_len, SPLIT_KEYS, d**-0.5, stream,
             )
         else:
             err = _kernel("ditl_paged_bf16")(
-                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(), *work, *shape,
-                SPLIT_KEYS, d**-0.5, stream,
+                q.data_ptr(), *pools_ptr, page_table.data_ptr(), lengths.data_ptr(),
+                o.data_ptr(), *work, *batch, *shape, SPLIT_KEYS, d**-0.5, stream,
             )
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA error {err}")
-    if quant:
+    if verify and quant:
+        launches_verify_int8 += 1
+    elif verify:
+        launches_verify += 1
+    elif quant:
         launches_tail_int8 += 1
     elif tail:
         launches_tail += 1

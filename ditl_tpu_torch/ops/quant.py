@@ -69,9 +69,12 @@ def weight_matmul(x: torch.Tensor, w: Any, *, compute_dtype: torch.dtype,
     return x.to(out_dtype) @ w.to(compute_dtype).to(out_dtype)
 
 
-def quantize_weights(params: Any, *, tie_embeddings: bool = False) -> Any:
+def quantize_weights(params: Any, *, tie_embeddings: bool = False,
+                     device: str | torch.device | None = None) -> Any:
     """Quantize the projection, MLP and lm-head weights of a dense tree (the
-    JAX package's layout, or the port's serving tree).
+    JAX package's layout, or the port's serving tree). ``device``: each
+    matrix moves there before it is quantized (one leaf at a time; its f32
+    transient one layer at a time), the rest of the tree stays where it is.
 
     The port's serving tree holds a tied model's head as a float copy of the
     transposed embedding (``models/llama.py::serving_params``); with
@@ -85,7 +88,7 @@ def quantize_weights(params: Any, *, tie_embeddings: bool = False) -> Any:
     def walk(tree: Any, keep: bool = False) -> Any:
         if isinstance(tree, dict):
             return {
-                k: _quantize_matrix(v)
+                k: _quantize_matrix(v if device is None else v.to(device))
                 if k in _QUANT_KEYS and not isinstance(v, dict) and not keep
                 else walk(v, keep or (tie_embeddings and k == "lm_head"))
                 for k, v in tree.items()

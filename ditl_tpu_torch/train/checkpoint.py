@@ -304,18 +304,26 @@ class CheckpointManager:
         return state, data_iter
 
     def restore_latest_params(self, cfg, abstract_params: dict | None = None,
-                              device: str | torch.device = "cpu") -> dict | None:
+                              device: str | torch.device = "cpu",
+                              quantize: bool = False) -> dict | None:
         """The newest verified step's masters as the serving tree
         (``models/llama.py::serving_params`` for ``cfg``) on ``device``, read
         from ``params.pt`` alone. ``abstract_params`` (a serving tree, or
         one on the ``meta`` device) is checked against it leaf for leaf, so
-        a preset and checkpoint that do not match fail here, loudly."""
+        a preset and checkpoint that do not match fail here, loudly.
+
+        ``quantize``: weight-only int8 (``ops/quant.py``) from the masters
+        in their own dtype, before the serving cast, as the JAX server
+        quantizes its f32 masters: the masters stay on the host and are
+        quantized one leaf (and one layer) at a time on ``device``, so the
+        card never holds an f32 copy of the model."""
         from ditl_tpu_torch.models.llama import serving_params
 
         def load(step: int):
-            params = serving_params(self._load(step, "params.pt"), cfg, device)
+            masters = self._load(step, "params.pt")
             if abstract_params is not None:
-                expect, got = _tree_paths(abstract_params), _tree_paths(params)
+                expect = _tree_paths(abstract_params)
+                got = _tree_paths(serving_params(masters, cfg, "meta"))
                 if expect != got:
                     missing = sorted(set(expect) - set(got))
                     extra = sorted(set(got) - set(expect))
@@ -325,7 +333,12 @@ class CheckpointManager:
                         f"checkpoint at step {step} does not match the model config: "
                         f"missing={missing[:3]} extra={extra[:3]} shape_mismatch="
                         f"{[(k, expect[k], got[k]) for k in diff[:3]]}")
-            return params
+            if quantize:
+                from ditl_tpu_torch.ops.quant import quantize_weights
+
+                masters = quantize_weights(masters, tie_embeddings=cfg.tie_embeddings,
+                                           device=device)
+            return serving_params(masters, cfg, device)
 
         hit = self._restore_newest_verified(load)
         if hit is None:

@@ -21,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 from ditl_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from ditl_tpu_torch.ops import paged_attention as tpa  # noqa: E402
 
@@ -128,25 +129,29 @@ def test_flash_fwd_kernel_raises_instead_of_falling_back(cuda):
     assert tfa.launches == 0
 
 
-def _paged_inputs(cuda, b, h, kv, d, ps, n_pool, tail_len, lengths, starts, seed=0):
+def _paged_inputs(cuda, b, h, kv, d, ps, n_pool, tail_len, lengths, starts, seed=0,
+                  nq=None, maxp=None):
     """Pools, tails and a table giving each slot its own pages for
-    ceil(min(starts, lengths) / ps) blocks; rows 1 and 2 share their first
-    physical page."""
+    ceil(min(starts, lengths) / ps) blocks in ``maxp`` columns (default:
+    the most any slot needs); rows 1 and 2 share their first physical page
+    where there are three rows. ``nq``: a verify's (B, Q, H, D) q."""
     g = torch.Generator(device=cuda).manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=cuda).bfloat16()
 
-    q, kp, vp = rnd(b, h, d), rnd(n_pool, kv, ps, d), rnd(n_pool, kv, ps, d)
+    q = rnd(b, h, d) if nq is None else rnd(b, nq, h, d)
+    kp, vp = rnd(n_pool, kv, ps, d), rnd(n_pool, kv, ps, d)
     tk, tv = rnd(b, kv, tail_len, d), rnd(b, kv, tail_len, d)
-    maxp = max(1, max(-(-max(x, y) // ps) for x, y in zip(lengths, starts)))
+    maxp = maxp or max(1, max(-(-max(x, y) // ps) for x, y in zip(lengths, starts)))
     table = torch.zeros((b, maxp), dtype=torch.int32)
     pid = 1
     for row in range(b):
         for i in range(-(-min(lengths[row], starts[row]) // ps)):
             table[row, i] = pid
             pid += 1
-    table[2, 0] = table[1, 0]
+    if b > 2:
+        table[2, 0] = table[1, 0]
     assert pid <= n_pool
     as_int = lambda x: torch.tensor(x, dtype=torch.int32, device=cuda)  # noqa: E731
     return q, kp, vp, table.to(cuda), as_int(lengths), as_int(starts), tk, tv
@@ -238,9 +243,12 @@ def test_paged_kernels_raise_instead_of_falling_back(cuda):
     tpa.reset_launches()
     with pytest.raises(ValueError, match="bfloat16"):
         tpa.paged_attention(q.float(), kp.float(), vp.float(), table, lens)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpa.paged_attention(q[:, None], kp, vp, table, lens, tail_k=tk, tail_v=tv,
-                            starts=st)
+    with pytest.raises(ValueError, match="multi-query"):  # a verify without a tail
+        tpa.paged_attention(q[:, None].expand(-1, 3, -1, -1).contiguous(), kp, vp, table,
+                            lens)
+    with pytest.raises(ValueError, match="MAX_VERIFY_ROWS = 80"):  # 41 x 2 query rows
+        tpa.paged_attention(q[:, None].expand(-1, 41, -1, -1).contiguous(), kp, vp, table,
+                            lens, tail_k=tk, tail_v=tv, starts=st)
     scale = torch.ones((64, 4, 1, 16), device=cuda)
     with pytest.raises(ValueError, match="int8 pools"):  # scales with float pools
         tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st,
@@ -250,7 +258,7 @@ def test_paged_kernels_raise_instead_of_falling_back(cuda):
                             k_scale=scale, v_scale=scale)
     with pytest.raises(ValueError, match="int32"):
         tpa.paged_attention(q, kp, vp, table.long(), lens)
-    assert (tpa.launches, tpa.launches_tail) == (0, 0)
+    assert (tpa.launches, tpa.launches_tail, tpa.launches_verify) == (0, 0, 0)
 
 
 def _int8_pools(kp, vp):
@@ -353,6 +361,80 @@ def test_paged_int8_invalid_inputs_raise_and_launch_nothing(cuda):
         with pytest.raises(ValueError, match=match):
             tpa.paged_attention(*args, **kw)
     assert (tpa.launches_tail_int8, tpa.launches_tail, tpa.launches) == (0, 0, 0)
+
+
+# K3's multi-query verify: chip_smoke.py's verify cases, (label, b, Q, h, kv,
+# d, ps, tail_len, lengths, starts, maxp): the spec tick of llama3-8b (a dead
+# slot, a page boundary, a tail reaching its last column), head_dim 64 at
+# page 16, a tail longer than 128 columns (query 0's limit before the split
+# at tail column 128, query 8's past it) with a tail-only slot, G = 8 at 72
+# query rows, Q = 2 (one row tile with padding rows).
+VERIFY_CASES = [case[1:] for case in chip_smoke._verify_cases()]
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("case", range(len(VERIFY_CASES)))
+def test_paged_verify_kernels_match_plain(cuda, case, int8):
+    """K3-verify (float and int8 pools) against the plain version's 4-D
+    branch and the split twin at 2e-2; three calls give the same bits; a 4-D
+    q with Q = 1 gives the 3-D call's bits; a dead slot gives zeros; each
+    call counts one verify launch."""
+    b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp = VERIFY_CASES[case]
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        cuda, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=case, nq=nq, maxp=maxp)
+    scales = {}
+    if int8:
+        kp, vp, ks, vs = _int8_pools(kp, vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tail = dict(tail_k=tk, tail_v=tv, starts=st)
+    tpa.reset_launches()
+    runs = [tpa.paged_attention(q, kp, vp, table, lens, **tail, **scales) for _ in range(3)]
+    assert (tpa.launches_verify_int8 if int8 else tpa.launches_verify) == 3
+    r = tpa.paged_attention_plain(q, kp, vp, table, lens, tk, tv, st, **scales)
+    sp = tpa.paged_attention_split_plain(q, kp, vp, table, lens, tk, tv, st, **scales)
+    o41 = tpa.paged_attention(q[:, :1].contiguous(), kp, vp, table, lens, **tail, **scales)
+    o3 = tpa.paged_attention(q[:, 0].contiguous(), kp, vp, table, lens, **tail, **scales)
+    torch.cuda.synchronize()
+    o = runs[0]
+    assert o.shape == q.shape
+    torch.testing.assert_close(o.float(), r.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(), sp.float(), atol=2e-2, rtol=2e-2)
+    assert all(torch.equal(run, o) for run in runs[1:])
+    assert torch.equal(o41[:, 0], o3)
+    dead = [i for i, n in enumerate(lengths) if n == 0]
+    assert all(bool((o[i] == 0).all()) for i in dead)
+
+
+@pytest.mark.torch_port
+def test_paged_verify_wrapper_never_syncs(cuda):
+    """The verify's grid comes from shapes alone: no device-to-host sync, and
+    a CUDA graph captures it."""
+    b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp = VERIFY_CASES[0]
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        cuda, b, h, kv, d, ps, 128, tail_len, lengths, starts, nq=nq, maxp=maxp)
+    kw = dict(tail_k=tk, tail_v=tv, starts=st)
+    want = tpa.paged_attention(q, kp, vp, table, lens, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tpa.paged_attention(q, kp, vp, table, lens, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o = tpa.paged_attention(q, kp, vp, table, lens, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(o, want)
+
+
+@pytest.mark.torch_port
+def test_paged_single_query_kernels_keep_their_digests(cuda):
+    """K3, K3 over int8 pools and K4 in their single-query form give, on
+    fixed integer-made inputs, the bits of the build before the verify form
+    joined their template (chip_smoke.py's ``K3_DIGESTS``)."""
+    assert chip_smoke._k3_digests(tpa) == chip_smoke.K3_DIGESTS
 
 
 def _bwd_inputs(cuda, b, s_q, s_kv, h, kv, d, causal, seg, seed=0):

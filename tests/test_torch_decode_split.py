@@ -203,3 +203,93 @@ def test_split_plain_rejects_ragged_split():
     pos = [a.pop(k) for k in POSITIONAL]
     with pytest.raises(ValueError, match="multiple"):
         tpa.paged_attention_split_plain(*pos, **a, split=96)
+
+
+# -- multi-query q (the speculative verify) ---------------------------------------
+
+# name: (kv heads, groups, head_dim, page size, max pages, tail, Q, lengths,
+# starts); every slot owns its pages.
+MQ_CASES = {
+    # the spec tick's Q = 9 at G = 4 (narrow heads): a dead slot, a tail-only
+    # slot, a mid-page start, a page-aligned start
+    "spec": (2, 4, 64, 16, 6, 40, 9, [0, 30, 50, 97], [0, 0, 45, 80]),
+    # a tail longer than 128 columns: query 0's limit (125 columns) ends
+    # before the tail's column 128, query 8's (133) crosses it, so the split
+    # from column 128 on is live for queries 4-8 and dead for 0-3
+    "long_tail": (2, 4, 64, 16, 16, 256, 9, [381, 60, 30], [256, 30, 0]),
+    "long_tail_d128": (2, 4, 128, 16, 16, 256, 9, [381, 60, 30], [256, 30, 0]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _mq_case(name: str, int8: bool = False):
+    kv, groups, d, ps, maxp, tail, nq, lengths, starts = MQ_CASES[name]
+    b = len(lengths)
+    rng = np.random.default_rng(11)
+    table = np.zeros((b, maxp), np.int32)
+    pid = 1
+    for row in range(b):
+        for i in range(-(-min(lengths[row], starts[row]) // ps)):
+            table[row, i] = pid
+            pid += 1
+    a = {"q": rng.normal(size=(b, nq, kv * groups, d)).astype(np.float32),
+         "k_pages": rng.normal(size=(pid, kv, ps, d)).astype(np.float32),
+         "v_pages": rng.normal(size=(pid, kv, ps, d)).astype(np.float32),
+         "page_table": table, "lengths": np.asarray(lengths, np.int32),
+         "tail_k": rng.normal(size=(b, kv, tail, d)).astype(np.float32),
+         "tail_v": rng.normal(size=(b, kv, tail, d)).astype(np.float32),
+         "starts": np.asarray(starts, np.int32)}
+    if int8:
+        for pool, scale in (("k_pages", "k_scale"), ("v_pages", "v_scale")):
+            x = a[pool]
+            absmax = np.abs(x).max(-1)
+            sc = np.where(absmax == 0, 1.0, absmax / np.float32(127)).astype(np.float32)
+            a[pool] = np.clip(np.round(x / sc[..., None]), -127, 127).astype(np.int8)
+            a[scale] = np.ascontiguousarray(sc[:, :, None, :])
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mq(name: str, int8: bool, impl: str) -> np.ndarray:
+    a = {k: jnp.asarray(v) for k, v in _mq_case(name, int8).items()}
+    pos = [a.pop(k) for k in POSITIONAL]
+    if impl == "xla":
+        return np.asarray(jpa.paged_attention_xla(*pos, **a))
+    return np.asarray(jpa.paged_attention(*pos, **a, interpret=True))
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("split", [64, tpa.SPLIT_KEYS])
+@pytest.mark.parametrize("name", sorted(MQ_CASES))
+def test_multi_query_split_plain_matches_jax(name, split, int8, impl):
+    """The split twin's 4-D branch (tiles and splits processed when any
+    query has a live key in them; a query's partial with nothing live in a
+    split weighs 0 in the merge) against the JAX package's gather reference
+    and its Pallas kernel with ``q_groups`` in interpret mode: f32 at 2e-5,
+    over int8 pools at 1e-4."""
+    a = {k: torch.from_numpy(v) for k, v in _mq_case(name, int8).items()}
+    pos = [a.pop(k) for k in POSITIONAL]
+    out = tpa.paged_attention_split_plain(*pos, **a, split=split).numpy()
+    np.testing.assert_allclose(out, _jax_mq(name, int8, impl), atol=1e-4 if int8 else ATOL)
+    dead = np.flatnonzero(_mq_case(name)["lengths"] == 0)
+    assert np.all(out[dead] == 0), "a dead slot must give zeros for every query"
+
+
+def test_multi_query_long_tail_reaches_a_split_dead_for_early_queries():
+    """The long-tail case holds what the merge rule must get right: in slot
+    0 the split starting at tail column 128 is live for the last queries and
+    holds nothing live for the first."""
+    kv, groups, d, ps, maxp, tail, nq, lengths, starts = MQ_CASES["long_tail"]
+    assert (maxp * ps) % tpa.SPLIT_KEYS == 0 and tail > 128  # column 128 opens a split
+    first = lengths[0] - starts[0]  # query qi sees tail columns < first + qi
+    assert first <= 128 < first + nq - 1
+
+
+def test_multi_query_q1_split_gives_the_3d_bits():
+    a = {k: torch.from_numpy(v) for k, v in _mq_case("spec").items()}
+    pos = [a.pop(k) for k in POSITIONAL]
+    q = pos[0]
+    out41 = tpa.paged_attention_split_plain(q[:, :1], *pos[1:], **a)
+    out3 = tpa.paged_attention_split_plain(q[:, 0], *pos[1:], **a)
+    assert torch.equal(out41[:, 0], out3)

@@ -66,7 +66,7 @@ def test_port_package_has_modules():
                  "train.state", "train.step", "train.metrics", "train.trainer",
                  "train.checkpoint",
                  "launch", "ops.mlp", "ops.mlp_bwd", "ops.projection",
-                 "tools.profile_train", "ops.quant"):
+                 "tools.profile_train", "ops.quant", "infer.speculative"):
         assert f"ditl_tpu_torch.{name}" in mods
     for source in ("flash_fwd.cu", "paged_attention.cu", "flash_bwd.cu", "mlp_bwd.cu",
                    "projection_bwd.cu"):

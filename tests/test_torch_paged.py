@@ -119,8 +119,8 @@ def test_wrapper_raises_for_unported_variants():
         tpa.paged_attention(*pos[:3], pos[3], pos[4], k_scale=scale, v_scale=scale)
     with pytest.raises(ValueError, match="int8 pools"):  # scales with float pools
         tpa.paged_attention(*pos, **kw, k_scale=scale, v_scale=scale)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpa.paged_attention(pos[0][:, None], *pos[1:], **kw)
+    with pytest.raises(ValueError, match="multi-query"):  # 4-D q without a tail
+        tpa.paged_attention(pos[0][:, None], *pos[1:])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpa.paged_attention(*pos, **kw, mesh=object())
     with pytest.raises(ValueError, match="go together"):
@@ -297,3 +297,124 @@ def test_block_keys_match_jax():
         assert tpc.block_keys(toks, 4, parents) == jpc.block_keys(toks, 4, parents)
     with pytest.raises(ValueError, match="page 0"):
         tpc.PageAllocator(1)
+
+
+# -- multi-query q (the speculative verify) ---------------------------------------
+
+# name: (kv heads, groups, head_dim, page size, max pages, pool, tail, Q,
+# lengths, starts)
+MQ_CASES = {
+    # tests/test_paged.py's multi-query inputs: a dead slot, a page-aligned
+    # start, a mid-page start, tail-straddling lengths
+    "reference": (4, 2, 32, 16, 4, 16, 24, 5, [0, 20, 40, 21], [0, 16, 33, 20]),
+    # the spec tick's Q = 9 at G = 4, head_dim 64 and 128: a dead slot, a
+    # tail-only slot, a mid-page start, a page-aligned start
+    "d64": (2, 4, 64, 16, 6, 32, 40, 9, [0, 30, 50, 97], [0, 0, 45, 80]),
+    "d128": (2, 4, 128, 16, 6, 32, 40, 9, [0, 30, 50, 97], [0, 0, 45, 80]),
+    # a tail longer than 128 columns: query 0's limit (125 columns) ends
+    # before the tail's column 128, query 8's (133) crosses it
+    "long_tail": (2, 4, 64, 16, 16, 40, 256, 9, [381, 60, 30], [256, 30, 0]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _mq_case(name: str, int8: bool = False):
+    """f32 inputs for a 4-D q; the reference case draws in
+    ``tests/test_paged.py``'s order (its table random), the others give each
+    slot its own pages. ``int8``: the pools quantized per position (absmax
+    over D, scale 1.0 on zero rows, round half to even), scales (P, K, 1,
+    ps)."""
+    kv, groups, d, ps, maxp, pool, tail, nq, lengths, starts = MQ_CASES[name]
+    b = len(lengths)
+    rng = np.random.default_rng(7)
+    q = rng.normal(size=(b, nq, kv * groups, d)).astype(np.float32)
+    kp = rng.normal(size=(pool, kv, ps, d)).astype(np.float32)
+    vp = rng.normal(size=(pool, kv, ps, d)).astype(np.float32)
+    tk = rng.normal(size=(b, kv, tail, d)).astype(np.float32)
+    tv = rng.normal(size=(b, kv, tail, d)).astype(np.float32)
+    if name == "reference":
+        table = rng.integers(1, pool, size=(b, maxp)).astype(np.int32)
+    else:
+        table = np.zeros((b, maxp), np.int32)
+        pid = 1
+        for row in range(b):
+            for i in range(-(-min(lengths[row], starts[row]) // ps)):
+                table[row, i] = pid
+                pid += 1
+        assert pid <= pool
+    a = {"q": q, "k_pages": kp, "v_pages": vp, "page_table": table,
+         "lengths": np.asarray(lengths, np.int32), "tail_k": tk, "tail_v": tv,
+         "starts": np.asarray(starts, np.int32)}
+    if int8:
+        for pool_name, scale in (("k_pages", "k_scale"), ("v_pages", "v_scale")):
+            x = a[pool_name]
+            absmax = np.abs(x).max(-1)
+            sc = np.where(absmax == 0, 1.0, absmax / np.float32(127)).astype(np.float32)
+            a[pool_name] = np.clip(np.round(x / sc[..., None]), -127, 127).astype(np.int8)
+            a[scale] = np.ascontiguousarray(sc[:, :, None, :])
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mq(name: str, int8: bool, impl: str) -> np.ndarray:
+    a = {k: jnp.asarray(v) for k, v in _mq_case(name, int8).items()}
+    pos = [a.pop(k) for k in POSITIONAL]
+    if impl == "xla":
+        return np.asarray(jpa.paged_attention_xla(*pos, **a))
+    return np.asarray(jpa.paged_attention(*pos, **a, interpret=True))
+
+
+def _torch_mq(name: str, int8: bool = False):
+    a = {k: torch.from_numpy(v) for k, v in _mq_case(name, int8).items()}
+    return [a.pop(k) for k in POSITIONAL], a
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("name", sorted(MQ_CASES))
+def test_multi_query_plain_matches_jax(name, int8, impl):
+    """The plain version's 4-D branch (query qi sees the tail columns j with
+    starts + j < lengths + qi, every query the same pages) against the JAX
+    package's gather reference and its Pallas kernel with ``q_groups`` in
+    interpret mode: f32 at 2e-5, over int8 pools at 1e-4 (the reference's
+    own tolerances, ``tests/test_paged.py``)."""
+    pos, kw = _torch_mq(name, int8)
+    out = tpa.paged_attention_plain(*pos, **kw).numpy()
+    assert out.shape == pos[0].shape
+    np.testing.assert_allclose(out, _jax_mq(name, int8, impl), atol=1e-4 if int8 else ATOL)
+    dead = np.flatnonzero(_mq_case(name)["lengths"] == 0)
+    assert np.all(out[dead] == 0), "a dead slot must give zeros for every query"
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_multi_query_cpu_wrapper_matches_jax_pallas_interpret(int8):
+    """On CPU tensors the wrapper runs the plain version and counts no
+    launch."""
+    pos, kw = _torch_mq("d128", int8)
+    tpa.reset_launches()
+    out = tpa.paged_attention(*pos, **kw)
+    assert (tpa.launches_verify, tpa.launches_verify_int8, tpa.launches_tail,
+            tpa.launches_tail_int8) == (0, 0, 0, 0)
+    np.testing.assert_allclose(out.numpy(), _jax_mq("d128", int8, "pallas"),
+                               atol=1e-4 if int8 else ATOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("name", ["reference", "long_tail"])
+def test_multi_query_q1_gives_the_3d_bits(name, int8):
+    """A 4-D q with Q = 1 gives the 3-D call's bits (the reference passes no
+    q_groups for Q = 1)."""
+    pos, kw = _torch_mq(name, int8)
+    q = pos[0]
+    out41 = tpa.paged_attention(q[:, :1], *pos[1:], **kw)
+    out3 = tpa.paged_attention(q[:, 0], *pos[1:], **kw)
+    assert out41.shape == q[:, :1].shape
+    assert torch.equal(out41[:, 0], out3)
+
+
+def test_multi_query_requires_the_tail():
+    pos, kw = _torch_mq("reference")
+    with pytest.raises(ValueError, match="multi-query"):
+        tpa.paged_attention(*pos)
+    with pytest.raises(ValueError, match="multi-query"):
+        tpa.paged_attention(pos[0][:, :1], *pos[1:])

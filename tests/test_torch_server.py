@@ -469,13 +469,16 @@ def test_cli_int8_serves_on_both_engines():
 
 def test_cli_int8_serves_a_trained_checkpoint(tmp_path):
     """``--checkpoint-dir`` with ``--quantize int8 --kv-quant int8``: the
-    restored masters are quantized after the restore, bit for bit as the
-    JAX package quantizes the same masters, and both engines give the JAX
-    Generator's greedy text over that int8 tree."""
+    restored f32 masters are quantized before the serving cast, so the
+    served ``q`` and ``scale`` equal, bit for bit, the JAX package's
+    ``quantize_weights`` of the same masters, in f32 serving and in bf16
+    serving (the JAX server quantizes its f32 masters too); in f32 both
+    engines give the JAX Generator's greedy text over that int8 tree."""
+    import jax.numpy as jnp
+
+    from ditl_tpu.ops.quant import quantize_weights as jax_quantize
     from ditl_tpu_torch.config import Config, DataConfig, TrainConfig
-    from ditl_tpu_torch.models import llama
     from ditl_tpu_torch.models.convert import params_to_numpy
-    from ditl_tpu_torch.ops.quant import quantize_weights
     from ditl_tpu_torch.train.trainer import train
 
     cfg = ModelConfig(**TINY)
@@ -483,16 +486,27 @@ def test_cli_int8_serves_a_trained_checkpoint(tmp_path):
                  train=TrainConfig(total_steps=2, warmup_steps=1, learning_rate=1e-2,
                                    checkpoint_dir=str(tmp_path))), device="cpu")
     masters = torch.load(tmp_path / "2" / "params.pt", weights_only=True)
-    overrides = [x for k, v in TINY.items() for x in ("--override", f"{k}={v}")]
-    srv = tserver.create_server(["--device", "cpu", "--port", "0", "--host", "127.0.0.1",
-                                 "--checkpoint-dir", str(tmp_path), *overrides,
-                                 *INT8_FLAGS])
-    served = srv.RequestHandlerClass.generator.params
-    want = quantize_weights(llama.serving_params(masters, cfg))
-    for group in ("attn", "mlp"):
-        for key, w in want["layers"][group].items():
-            assert torch.equal(served["layers"][group][key]["q"], w["q"]), key
-            assert torch.equal(served["layers"][group][key]["scale"], w["scale"]), key
-    prompt = "hello int8 checkpoint"
-    text, n = _int8_reference(params_to_numpy(masters), prompt, 10, quantize=True)
-    _serve_int8_and_check(srv, text, n, prompt)
+    assert masters["layers"]["attn"]["wq"].dtype == torch.float32
+    want = jax_quantize(jax.tree.map(jnp.asarray, params_to_numpy(masters)))
+    for dtype in ("float32", "bfloat16"):
+        overrides = [x for k, v in {**TINY, "dtype": dtype}.items()
+                     for x in ("--override", f"{k}={v}")]
+        srv = tserver.create_server(["--device", "cpu", "--port", "0", "--host",
+                                     "127.0.0.1", "--checkpoint-dir", str(tmp_path),
+                                     *overrides, *INT8_FLAGS])
+        served = srv.RequestHandlerClass.generator.params
+        for group in ("attn", "mlp"):
+            for key, w in want["layers"][group].items():
+                got = served["layers"][group][key]
+                assert np.array_equal(got["q"].numpy(), np.asarray(w["q"])), (dtype, key)
+                assert np.array_equal(got["scale"].numpy(), np.asarray(w["scale"])), (dtype, key)
+        head = served["lm_head"]["kernel"]
+        assert np.array_equal(head["q"].numpy(), np.asarray(want["lm_head"]["kernel"]["q"]))
+        assert served["embed"]["embedding"].dtype == getattr(torch, dtype)
+        if dtype == "float32":
+            prompt = "hello int8 checkpoint"
+            text, n = _int8_reference(params_to_numpy(masters), prompt, 10, quantize=True)
+            _serve_int8_and_check(srv, text, n, prompt)
+        else:  # never served: close the socket and stop the engine's thread
+            srv.server_close()
+            srv.engine.close()
