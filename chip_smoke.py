@@ -31,7 +31,14 @@ no result line. It imports nothing of JAX or of the JAX package.
    twice, and a 4-D q with Q = 1 against the 3-D call's bits; K3, K3-int8 and
    K4 in their single-query form on fixed integer-made inputs against the
    digests of the build before the verify joined their template
-   (``K3_DIGESTS``).
+   (``K3_DIGESTS``). ``[f32-kernels]``: the f32 kernels (``csrc/flash_f32.cu``,
+   ``csrc/paged_attention_f32.cu``) against their plain versions in f32:
+   K1-f32, K2a-f32 and K2b-f32 at D = 64 and 128, causal and not, packed and
+   right-padded ids, G = 4 and 7 (path 9's batch among them; ``F32_O_TOL``,
+   ``F32_BWD_TOL``), K3-f32, K4-f32 and K3-f32-verify at the decode tick,
+   the spec tick and the verify's other cases against the plain version
+   and the split twin (``F32_PAGED_TOL``); every kernel called twice gives
+   the same bits.
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
    card's bound for the same work from this run's inputs; K1, K2a and K2b
@@ -46,7 +53,12 @@ no result line. It imports nothing of JAX or of the JAX package.
    int8 bytes plus scales. K3-verify (float and int8) at the spec tick
    (``SPEC_MAIN``) beside the single-query K3 on the same keys, with SDPA over
    the gathered keys and the same per-query mask as its yardstick (the
-   gather timed apart).
+   gather timed apart). ``[f32-timing]``: each f32 kernel, its plain
+   version and the library call on the same f32 inputs (SDPA, its backend
+   named), with the bound at 4 B an element and 165 TFLOP/s (3xTF32; the
+   67 TFLOP/s FFMA figure beside): K1-f32, K2a-f32 and K2b-f32 at path 9's
+   batch (K1-f32 also at the serving prefill), K3-f32 and K4-f32 at the
+   decode tick, K3-f32-verify at the spec tick.
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -82,6 +94,24 @@ no result line. It imports nothing of JAX or of the JAX package.
    at full width and depth 2, the continuous traffic's greedy requests plus
    the span prompts: K3-int8-verify on every round, greedy tokens against
    the same configuration's plain ticks by the divergence rule.
+6c. Main path 8, f32 serving (after the int8 state is freed): paths 1 and
+   2 again with ``--override dtype=float32`` (f32 weights, seed-initialised,
+   f32 pools): K1-f32 on every prefill, K3-f32 on every decode step
+   (counts against prefills and steps), prefill and decode-step logits
+   against the plain versions (``F32_LOGITS_REL_TOL``), decode ms a step,
+   time to first token, tokens/s against the f32 weight-read bound, pool
+   bytes, peak memory; greedy tokens of both engines against the same
+   requests through the plain versions (identical, or a near-tie by
+   ``_tie_check``). Then ``--override dtype=float32 --speculative on`` at
+   depth 2 (K3-f32-verify on every round, no other paged kernel).
+6d. Main path 9, f32 training: ``train()`` with ``F32_TRAIN_ARGS``
+   (qwen2-0.5b at its published size, f32 masters and compute, flash, full
+   remat, adafactor, the fused loss, the MLP and projection backward at the
+   "xla" defaults), B=4, S=2048, ``F32_TRAIN_STEPS`` steps: falling finite
+   losses, K1-f32 2 x 24 a step, K2a-f32 and K2b-f32 24 a step, step p50,
+   tokens/s, MFU over the 495 TFLOP/s TF32 peak, peak memory; then one step
+   at full depth through the f32 kernels against the plain versions (loss
+   within ``F32_STEP_LOSS_TOL``, grad norm within ``F32_STEP_GNORM_TOL``).
 7. Main path 3: training. The serving weights and pools are freed first;
    then ``train()`` runs in-process with the launcher's arguments
    (``TRAIN_ARGS``: ``llama3-8b`` at full width and depth, bf16 masters,
@@ -142,11 +172,12 @@ no result line. It imports nothing of JAX or of the JAX package.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after (path 5: before and after each policy's run). The paths run at full
-depth (the int8 speculative check at depth 2): the whole script takes about
-three minutes on an H100, the build included.
+depth (the int8 and f32 speculative checks at depth 2): the whole script
+takes about four and a half minutes on an H100, the build included.
 
 f32 matrix products run in full f32 here (TF32 off, set below): the port's
-lm head takes f32 products of bf16 values, as the JAX package's logits do.
+lm head takes f32 products of bf16 values, as the JAX package's logits do,
+and the f32 paths' plain versions and SDPA yardsticks multiply in f32.
 """
 
 from __future__ import annotations
@@ -207,6 +238,36 @@ STEP2_LEAF_TOL = 2e-2
 # divergence one plain forward over the common prefix scores both
 # candidates; their logits must differ by less than this: a near-tie.
 SPEC_TIE_TOL = 0.25
+# The f32 kernels (K1-f32, K2a-f32, K2b-f32, K3-f32 and its verify, K4-f32)
+# against their plain versions in f32, TF32 off: the same f32 operands with
+# f32 sums in other orders (FFMA chains against cuBLAS's f32 GEMMs) and the
+# same exponent, so f32 round-off: o and lse within F32_O_TOL, each
+# gradient within F32_BWD_TOL of its own largest magnitude, paged attention
+# within F32_PAGED_TOL (the reference's own f32 tolerance,
+# tests/test_torch_paged.py).
+F32_O_TOL = 1e-4
+F32_BWD_TOL = 1e-4
+F32_PAGED_TOL = 2e-5
+# Path 8's logits through 32 f32 layers, kernels against plain attention:
+# relative L2. Only the attention's sum order differs (f32 round-off, about
+# 1e-7 relative a layer); 1e-4 leaves room for its growth through the
+# residual stream of a seed-initialised model.
+F32_LOGITS_REL_TOL = 1e-4
+# Path 9's one step through the f32 kernels against the plain versions: f32's
+# counterparts of STEP_LOSS_TOL / STEP_GNORM_TOL.
+F32_STEP_LOSS_TOL = 1e-4
+F32_STEP_GNORM_TOL = 1e-3
+F32_TRAIN_STEPS = 3
+# Path 9: qwen2-0.5b at its published size in f32 masters and compute,
+# flash attention, full remat, adafactor, the fused loss; the MLP and
+# projection backward at the reference's "xla" defaults.
+F32_TRAIN_ARGS = [
+    "--preset", "qwen2-0.5b", "model.dtype=float32", "model.param_dtype=float32",
+    "model.attention_impl=flash", "model.loss_impl=fused", "model.loss_block_tokens=4096",
+    "model.remat=full", "train.optimizer=adafactor", "train.warmup_steps=1",
+    f"train.total_steps={F32_TRAIN_STEPS}", "train.log_every=1", "data.synthetic=true",
+    "data.batch_size=4", "data.seq_len=2048",
+]
 TRAIN_STEPS = 6
 TRAIN4_STEPS = 4
 # Path 5, the JAX package's one-chip recipe (bench.py: remat="dots_inputs",
@@ -224,6 +285,11 @@ TRAIN_ARGS = [
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, SXM data sheet
+H100_TF32_FLOPS = 495e12  # dense TF32, SXM data sheet (path 9's MFU)
+# The fastest f32-accurate product on the card: 3xTF32 (three TF32 passes,
+# hi.hi + hi.lo + lo.hi) on the tensor cores; FFMA on the CUDA cores beside.
+H100_F32_FLOPS = H100_TF32_FLOPS / 3
+H100_FFMA_FLOPS = 67e12
 
 KERNELS = {
     "flash_fwd": {
@@ -274,6 +340,43 @@ KERNELS = {
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, quantized=True)",
         "path": "speculative continuous serving over int8 pools: every verify round",
+    },
+    "flash_fwd_f32": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/flash_f32.cu",
+        "replaces": "ditl_tpu/ops/flash_attention.py:127 (float32 operands)",
+        "path": "f32 serving (path 8): cold prefills of both engines; f32 training "
+                "(path 9): forward and remat recompute",
+    },
+    "flash_dq_f32": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/flash_f32.cu",
+        "replaces": "ditl_tpu/ops/flash_attention.py:300 (float32 operands)",
+        "path": "f32 training backward (path 9), every layer",
+    },
+    "flash_dkv_f32": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/flash_f32.cu",
+        "replaces": "ditl_tpu/ops/flash_attention.py:362 (float32 operands)",
+        "path": "f32 training backward (path 9), every layer",
+    },
+    "paged_tail_f32": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235 (float32 operands)",
+        "path": "f32 serving (path 8): continuous paged decode ticks",
+    },
+    "paged_verify_f32": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, float32 operands)",
+        "path": "f32 speculative continuous serving: every verify round",
+    },
+    "paged_f32": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:191 (float32 operands)",
+        "path": "direct call",
     },
     "mlp_dgu_dwdown": {
         "route": "cuda",
@@ -386,13 +489,13 @@ def _graph_ms(fns, rounds: int = 4, replays: int = 3) -> float:
     return ms
 
 
-def _attn_inputs(b, s_q, s_kv, h, kv, d, *, seed, lengths=None, packed=False):
+def _attn_inputs(b, s_q, s_kv, h, kv, d, *, seed, lengths=None, packed=False, dtype=None):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype or torch.bfloat16)
 
     q, k, v = rnd(b, s_q, h, d), rnd(b, s_kv, kv, d), rnd(b, s_kv, kv, d)
     seg = None
@@ -418,18 +521,33 @@ def _attended_pairs(b, s_q, s_kv, causal, seg) -> int:
     return int(mask.sum())
 
 
+def _peak_flops(dtype) -> float:
+    """The card's peak rate for products of ``dtype`` operands: bf16 on the
+    tensor cores, or f32-accurate products (3xTF32) for float32."""
+    import torch
+
+    return H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+
+
+def _bound(nbytes: float, flops: float, dtype):
+    """max(bytes over HBM bandwidth, flops over the dtype's peak) in ms, and
+    which of the two binds."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / _peak_flops(dtype)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def _flash_bound(q, k, seg, causal):
     """Least time on an H100 SXM for the forward: bytes (q, k, v read once,
     o and lse written once, segment ids read once) over HBM bandwidth,
-    against the attended pairs' 4*D flops each over bf16 peak."""
+    against the attended pairs' 4*D flops each over the peak of q's dtype."""
     b, s_q, h, d = q.shape
     s_kv, kv = k.shape[1], k.shape[2]
-    nbytes = 2 * (2 * b * s_q * h * d + 2 * b * s_kv * kv * d) + 4 * b * h * s_q
+    es = q.element_size()
+    nbytes = es * (2 * b * s_q * h * d + 2 * b * s_kv * kv * d) + 4 * b * h * s_q
     if seg is not None:
         nbytes += 4 * seg.numel()
     flops = 4 * d * h * _attended_pairs(b, s_q, s_kv, causal, seg)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, flops, q.dtype)
 
 
 def phase_card() -> None:
@@ -610,15 +728,15 @@ def _train_segments(b: int = 4, s: int = 2048):
     return torch.from_numpy(batch["segment_ids"]).cuda().contiguous()
 
 
-def _bwd_inputs(b, s_q, s_kv, h, kv, d, causal, seg, *, seed, flash):
-    """q, k, v, the forward's o and lse through K1, and an upstream
-    gradient."""
+def _bwd_inputs(b, s_q, s_kv, h, kv, d, causal, seg, *, seed, flash, dtype=None):
+    """q, k, v, the forward's o and lse through K1 (K1-f32 for float32), and
+    an upstream gradient."""
     import torch
 
-    q, k, v, _ = _attn_inputs(b, s_q, s_kv, h, kv, d, seed=seed)
+    q, k, v, _ = _attn_inputs(b, s_q, s_kv, h, kv, d, seed=seed, dtype=dtype)
     o, lse = flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
     g = torch.Generator(device="cuda").manual_seed(seed + 1000)
-    do = torch.randn(o.shape, generator=g, device="cuda").to(torch.bfloat16)
+    do = torch.randn(o.shape, generator=g, device="cuda").to(q.dtype)
     return q, k, v, o, lse, do
 
 
@@ -629,10 +747,10 @@ def _bwd_bound(q, k, seg, causal, kernel: str):
     delta), segment ids once, the outputs written once, over HBM bandwidth;
     against 2*D flops per attended (query, key) pair and head for each
     product (three for dq: q.k, do.v, ds.k; four for dkv: q.k, do.v, p.do,
-    ds.q; five for all three gradients) at bf16 peak."""
+    ds.q; five for all three gradients) at the peak of q's dtype."""
     b, s_q, h, d = q.shape
     s_kv, kv = k.shape[1], k.shape[2]
-    q_bytes, kv_bytes = 2 * b * s_q * h * d, 2 * b * s_kv * kv * d
+    q_bytes, kv_bytes = q.element_size() * b * s_q * h * d, q.element_size() * b * s_kv * kv * d
     nbytes = 2 * q_bytes + 2 * kv_bytes + 4 * b * h * s_q
     nbytes += {"dq": q_bytes + 4 * b * h * s_q, "dkv": 2 * kv_bytes + 4 * b * h * s_q,
                "all": 2 * q_bytes + 2 * kv_bytes}[kernel]
@@ -640,8 +758,7 @@ def _bwd_bound(q, k, seg, causal, kernel: str):
         nbytes += 4 * seg.numel()
     products = {"dq": 3, "dkv": 4, "all": 5}[kernel]
     flops = products * 2 * d * h * _attended_pairs(b, s_q, s_kv, causal, seg)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, flops, q.dtype)
 
 
 def _bwd_segment_ids(spec, b, s, train_seg):
@@ -727,12 +844,14 @@ def phase_bwd_kernels(flash, train_seg) -> dict:
 
 
 def _bwd_launchers(flash, q, k, v, o, lse, do, seg, causal):
-    """K2a and K2b as bare launches on preallocated outputs (the wrapper's
-    arguments; delta computed once), for timing each kernel alone."""
+    """K2a and K2b (or their f32 forms, by ``kernel_route``) as bare
+    launches on preallocated outputs (the wrapper's arguments; delta
+    computed once), for timing each kernel alone."""
     import torch
 
-    dq_fn, dkv_fn = flash._bwd_kernels()
     b, s_q, h, d = q.shape
+    route = flash.kernel_route(q.dtype, d)
+    dq_fn, dkv_fn = flash._kernel(route.dq, "dq"), flash._kernel(route.dkv, "dkv")
     s_kv, kv = k.shape[1], k.shape[2]
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -923,10 +1042,12 @@ def phase_train(flash) -> dict:
     return launches
 
 
-def phase_train_parity(flash) -> None:
-    """One train step at full width, depth 2, B=1 through K1/K2a/K2b and
-    again with ``flash_attention`` rebound to the plain versions, from the
-    same parameters and batch."""
+def phase_train_parity(flash, args=TRAIN_ARGS, num_layers: int = 2, batch_size: int = 1,
+                       tols=(STEP_LOSS_TOL, STEP_GNORM_TOL), tag: str = "train") -> None:
+    """One train step of ``args``' configuration at full width, depth
+    ``num_layers``, B=``batch_size`` through K1/K2a/K2b (their f32 forms
+    for float32) and again with ``flash_attention`` rebound to the plain
+    versions, from the same parameters and batch."""
     import dataclasses
 
     from ditl_tpu_torch.config import DataConfig, TrainConfig
@@ -938,10 +1059,11 @@ def phase_train_parity(flash) -> None:
     from ditl_tpu_torch.train.state import TrainState, make_optimizer
     from ditl_tpu_torch.train.step import train_step
 
-    config, _ = build_config(TRAIN_ARGS)
-    cfg = dataclasses.replace(config.model, num_layers=2)
+    config, _ = build_config(args)
+    cfg = dataclasses.replace(config.model, num_layers=num_layers)
+    sfx = "_f32" if cfg.dtype == "float32" else ""
     tcfg = TrainConfig(optimizer="adafactor", warmup_steps=1, total_steps=6)
-    dcfg = DataConfig(batch_size=1, seq_len=2048, synthetic=True)
+    dcfg = DataConfig(batch_size=batch_size, seq_len=2048, synthetic=True)
     batch = next(iter(DataPipeline(synthetic_dataset(256, 0), ByteTokenizer(), dcfg,
                                    "cuda").epoch(0)))
     base = llama.init_train_params(cfg, seed=1, device="cuda")
@@ -964,18 +1086,21 @@ def phase_train_parity(flash) -> None:
             flash.reset_launches()
             m = train_step(state, batch, cfg, opt)
             loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-            counts = (flash.launches, flash.launches_dq, flash.launches_dkv)
+            counts = tuple(getattr(flash, n + sfx)
+                           for n in ("launches", "launches_dq", "launches_dkv"))
         finally:
             flash.flash_attention_fwd, flash.flash_attention_bwd = fwd, bwd
-        require(counts == ((0, 0, 0) if plain else (4, 2, 2)), counts)
+        layers = cfg.num_layers  # K1 in the forward and the remat recompute
+        require(counts == ((0, 0, 0) if plain else (2 * layers, layers, layers)), counts)
         results.append((loss, gnorm))
         del params, opt, state, m
     (lk, gk), (lp, gp) = results
     rel_l, rel_g = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
-    log(f"[train] parity, one step at full width, 2 layers, B=1, S=2048: kernels loss "
-        f"{lk:.6f} grad_norm {gk:.6f}; plain loss {lp:.6f} grad_norm {gp:.6f}; relative "
-        f"differences {rel_l:.3e}, {rel_g:.3e}")
-    require(rel_l <= STEP_LOSS_TOL and rel_g <= STEP_GNORM_TOL, (rel_l, rel_g))
+    log(f"[{tag}] parity, one step of {cfg.name} ({cfg.dtype}) at full width, "
+        f"{cfg.num_layers} layers, B={batch_size}, S=2048: kernels loss {lk:.6f} grad_norm "
+        f"{gk:.6f}; plain loss {lp:.6f} grad_norm {gp:.6f}; relative differences "
+        f"{rel_l:.3e}, {rel_g:.3e} (tolerances {tols[0]}, {tols[1]})")
+    require(rel_l <= tols[0] and rel_g <= tols[1], (rel_l, rel_g))
 
 
 # ---------------------------------------------------------------------------
@@ -1740,17 +1865,18 @@ def _tensors(tree):
 
 
 def _paged_inputs(b, h, kv, d, ps, tail_len, lengths, starts, *, seed, n_pool=65,
-                  share=True, nq=None, maxp=None):
+                  share=True, nq=None, maxp=None, dtype=None):
     """q, pools, tails and a table giving each slot its own pages for
     ceil(max(starts, lengths) / ps) blocks, in a table of ``maxp`` columns
     (default: the most any slot needs); with ``share``, rows 1 and 2 share
-    their first physical page. ``nq``: a verify's (B, Q, H, D) q."""
+    their first physical page. ``nq``: a verify's (B, Q, H, D) q; ``dtype``
+    (default bf16) of q, pools and tails."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype or torch.bfloat16)
 
     q = rnd(b, h, d) if nq is None else rnd(b, nq, h, d)
     kp, vp = rnd(n_pool, kv, ps, d), rnd(n_pool, kv, ps, d)
@@ -1785,19 +1911,20 @@ def _paged_main_case():
 def _paged_bound(q, kp, table, lengths, starts, tail: bool):
     """Least time on an H100 SXM for one call: the live keys' K and V (read
     once per slot that reads them), q and o, the table and the lengths over
-    HBM bandwidth, against 4*D flops per (query head, live key) at bf16
-    peak. Live keys: positions [0, min(starts, lengths)) from pages plus
-    [starts, lengths) from the tail, or [0, lengths) from pages for K4."""
+    HBM bandwidth, against 4*D flops per (query head, live key) at the
+    peak of q's dtype. Live keys: positions [0, min(starts, lengths)) from
+    pages plus [starts, lengths) from the tail, or [0, lengths) from pages
+    for K4."""
     b, h, d = q.shape
     kv = kp.shape[1]
+    es = q.element_size()
     lengths = [int(x) for x in lengths.tolist()]
     starts = [int(x) for x in starts.tolist()]
     live = sum(lengths) if not tail else sum(
         min(s, n) + max(0, n - s) for s, n in zip(starts, lengths))
-    nbytes = 2 * live * kv * d * 2 + 2 * (2 * b * h * d) + 4 * (table.numel() + 2 * b)
+    nbytes = 2 * live * kv * d * es + 2 * (es * b * h * d) + 4 * (table.numel() + 2 * b)
     flops = 4 * d * h * live
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, flops, q.dtype)
 
 
 def phase_paged_kernels(paged) -> dict:
@@ -1995,18 +2122,22 @@ def _prefill_logits(gen, cfg, ids: list[int]):
     return llama.logits_from_hidden(gen.params, hidden[:, len(ids) - 1])[0]
 
 
-def phase_serve(flash, paged):
-    """Main path 1, the lock-step server; returns its Generator (whose
-    weights path 2 reuses) and the path's launch counts."""
+def phase_serve(flash, paged, dtype: str = "bfloat16"):
+    """Main path 1, the lock-step server (path 8's lock-step half with
+    ``dtype="float32"``: ``--override dtype=float32``, K1-f32); returns its
+    Generator (whose weights path 2 reuses) and the path's launch counts."""
     import dataclasses
 
     import torch
 
     from ditl_tpu_torch.infer import server as server_mod
 
+    f32 = dtype == "float32"
+    tag, sfx = ("f32-serve", "_f32") if f32 else ("serve", "")
     t0 = time.perf_counter()
     server = server_mod.create_server([
         "--preset", "llama3-8b", "--override", "attention_impl=flash",
+        "--override", f"dtype={dtype}",
         "--device", "cuda", "--host", "127.0.0.1", "--port", "0", "--seed", "0",
     ])
     gen = server.RequestHandlerClass.generator
@@ -2014,7 +2145,7 @@ def phase_serve(flash, paged):
     require((cfg.name, cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
              cfg.vocab_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
              cfg.attention_impl, cfg.dtype)
-            == ("llama3-8b", 32, 4096, 14336, 128256, 32, 8, 128, "flash", "bfloat16"),
+            == ("llama3-8b", 32, 4096, 14336, 128256, 32, 8, 128, "flash", dtype),
             cfg)
 
     def total(tree, fn):
@@ -2028,7 +2159,7 @@ def phase_serve(flash, paged):
     step_bytes = total({k: v for k, v in gen.params.items() if k != "embed"},
                        lambda t: t.numel() * t.element_size())
     torch.cuda.synchronize()
-    log(f"[serve] llama3-8b built in {time.perf_counter() - t0:.1f}s: "
+    log(f"[{tag}] llama3-8b ({dtype}) built in {time.perf_counter() - t0:.1f}s: "
         f"{n_params / 1e9:.3f}B parameters, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card; a decode "
         f"step reads {step_bytes / 1e9:.2f} GB of weights: "
@@ -2069,12 +2200,13 @@ def phase_serve(flash, paged):
             walls.append(wall)
             require(status == 200, (route, status, body))
             usage = body["usage"]
-            log(f"[serve] {route} bucket {bucket}: {usage['prompt_tokens']} prompt + "
+            log(f"[{tag}] {route} bucket {bucket}: {usage['prompt_tokens']} prompt + "
                 f"{usage['completion_tokens']} completion tokens in {wall:.3f}s "
                 f"(finish {body['choices'][0]['finish_reason']})")
             bodies.append(body)
-        launches = {"flash_fwd": flash.launches,  # read right after the run
-                    "paged_tail": paged.launches_tail, "paged": paged.launches}
+        launches = {"flash_fwd" + sfx: getattr(flash, "launches" + sfx),  # right after
+                    "paged_tail": paged.launches_tail, "paged": paged.launches,
+                    "paged_tail_f32": paged.launches_tail_f32, "paged_f32": paged.launches_f32}
         status, stats = _http("GET", url + "/v1/stats")
         require(status == 200 and stats["requests"] == len(requests), stats)
     finally:
@@ -2092,8 +2224,8 @@ def phase_serve(flash, paged):
         if not payload.get("temperature"):
             require(n == payload["max_tokens"], body)
     want = cfg.num_layers * len(requests)  # one prefill per request
-    require(launches["flash_fwd"] == want, (launches, want))
-    log(f"[serve] flash_fwd launches on the main path: {launches['flash_fwd']} "
+    require(launches["flash_fwd" + sfx] == want, (launches, want))
+    log(f"[{tag}] flash_fwd{sfx} launches on the main path: {launches['flash_fwd' + sfx]} "
         f"= {cfg.num_layers} layers x {len(requests)} prefills")
 
     # One greedy request repeated gives identical tokens (their logprobs and
@@ -2102,10 +2234,11 @@ def phase_serve(flash, paged):
     require(a["text"] == b["text"], (a["text"], b["text"]))
     require(a["logprobs"]["token_logprobs"] == b["logprobs"]["token_logprobs"])
     require(a["logprobs"]["tokens"] == b["logprobs"]["tokens"])
-    log("[serve] repeated greedy request: identical tokens")
+    log(f"[{tag}] repeated greedy request: identical tokens")
 
     # The prefill's last-position logits with the flash kernel against the
     # same forward with plain attention, on the card.
+    logits_tol = F32_LOGITS_REL_TOL if f32 else LOGITS_REL_TOL
     for i in (0, 2):
         ids = [tok.bos_id] + tok.encode(requests[i][2])
         with torch.no_grad():
@@ -2115,29 +2248,30 @@ def phase_serve(flash, paged):
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t
             lx = _prefill_logits(gen, dataclasses.replace(cfg, attention_impl="xla"), ids)
-        log(f"[serve] bucket {buckets[i]}: prefill {prefill_s * 1e3:.1f} ms "
+        log(f"[{tag}] bucket {buckets[i]}: prefill {prefill_s * 1e3:.1f} ms "
             "(host clock, synchronised)")
         if i == 2:  # its repeat (request 3) ran warm
             steps = requests[3][1]["max_tokens"] - 1  # decode forwards after the prefill
-            log(f"[serve] bucket 512, warm request: wall minus prefill over its {steps} "
-                f"decode steps {(walls[3] - prefill_s) / steps * 1e3:.1f} ms/step")
+            log(f"[{tag}] bucket 512, warm request: wall minus prefill over its {steps} "
+                f"decode steps {(walls[3] - prefill_s) / steps * 1e3:.1f} ms/step ({SMI})")
         require(lf.shape == (cfg.vocab_size,) and bool(torch.isfinite(lf).all()))
         rel = float((lf - lx).norm() / lx.norm())
         max_err = float((lf - lx).abs().max())
         same_top = int(lf.argmax()) == int(lx.argmax())
-        log(f"[serve] prefill logits flash vs xla (bucket {buckets[i]}): rel L2 "
+        log(f"[{tag}] prefill logits flash vs xla (bucket {buckets[i]}): rel L2 "
             f"{rel:.3e}, max abs {max_err:.3e} (|logits| max {float(lx.abs().max()):.3f}), "
-            f"same argmax {same_top}")
-        require(rel <= LOGITS_REL_TOL, rel)
+            f"same argmax {same_top} (tolerance {logits_tol})")
+        require(rel <= logits_tol, rel)
         # The greedy first token the server sampled is this argmax: its
         # logprob is the flash logits' log-softmax maximum.
         if i == 2:
             first_lp = a["logprobs"]["token_logprobs"][0]
             want_lp = float(torch.log_softmax(lf, -1).max())
             require(abs(first_lp - want_lp) < 1e-4, (first_lp, want_lp))
-    require(launches["paged_tail"] == launches["paged"] == 0, launches)
-    log(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return gen, launches
+    require(launches["paged_tail"] == launches["paged"] == launches["paged_tail_f32"]
+            == launches["paged_f32"] == 0, launches)
+    log(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return gen, {k: v for k, v in launches.items() if k.startswith("flash")}
 
 
 def _decode_step_logits(engine, slot: int):
@@ -2152,9 +2286,10 @@ def _decode_step_logits(engine, slot: int):
              c.head_dim)
     alive = torch.zeros(engine.n_slots, dtype=torch.bool, device="cuda")
     alive[slot] = True
+    dtype = llama.torch_dtype(c.dtype)  # the tails stay in the compute dtype
     cache = {**engine.cache,
-             "tk": torch.zeros(shape, dtype=torch.bfloat16, device="cuda"),
-             "tv": torch.zeros(shape, dtype=torch.bfloat16, device="cuda")}
+             "tk": torch.zeros(shape, dtype=dtype, device="cuda"),
+             "tv": torch.zeros(shape, dtype=dtype, device="cuda")}
     paged = {"table": engine._table_device(), "starts": engine.pos, "t": 0,
              "lengths": torch.where(alive, engine.pos + 1, 0).to(torch.int32)}
     return llama.forward(engine.params, engine.cur[:, None], c,
@@ -2247,6 +2382,8 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
 
     cfg = gen.cfg
     tok = gen.tokenizer
+    f32 = cfg.dtype == "float32"  # path 8's continuous half: K1-f32, K3-f32
+    tag, sfx = ("f32-continuous", "_f32") if f32 else ("continuous", "")
     t0 = time.perf_counter()
     engine = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
                               max_cache_len=2048, cache_mode="paged", page_size=256,
@@ -2254,8 +2391,8 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
     threaded = _recording_engine(engine)
     server = server_mod.make_server(gen, threaded_engine=threaded, host="127.0.0.1",
                                     port=0, model_name=cfg.name)
-    pool_gib = 2 * engine.cache["kp"].numel() * 2 / 2**30
-    log(f"[continuous] engine built in {time.perf_counter() - t0:.1f}s: "
+    pool_gib = 2 * engine.cache["kp"].numel() * engine.cache["kp"].element_size() / 2**30
+    log(f"[{tag}] engine built in {time.perf_counter() - t0:.1f}s: "
         f"{engine.n_pages} pages of {engine.page_size} tokens, {pool_gib:.2f} GiB "
         f"of pools, 8 slots, decode_chunk 16, context 2048")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -2266,11 +2403,21 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
         flash.reset_launches()  # this path's counts start here
         paged.reset_launches()
         results, wall = _send_continuous(url, requests, engine)
-        launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail,
-                    "paged": paged.launches}  # read right after the run
+        launches = {"flash_fwd" + sfx: getattr(flash, "launches" + sfx),
+                    "paged_tail" + sfx: getattr(paged, "launches_tail" + sfx),
+                    # every other paged kernel (K4, the verify, the other dtypes')
+                    "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
+                    - getattr(paged, "launches_tail" + sfx)}  # read right after the run
         st = engine.stats()
         status, http_stats = _http("GET", url + "/v1/stats")
         require(status == 200 and http_stats["engine"] == "continuous", http_stats)
+        # Time to first token of one cold request on the idle engine: a fresh
+        # 1000-character prompt, one token, over HTTP.
+        t = time.perf_counter()
+        status, body = _http("POST", url + "/v1/completions",
+                             {"prompt": _text(47, 1000), "max_tokens": 1})
+        ttft_s = time.perf_counter() - t
+        require(status == 200 and body["usage"]["completion_tokens"] == 1, body)
     finally:
         server.close(drain=True)
         thread.join(timeout=30)
@@ -2287,40 +2434,42 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
         require(n >= 1, body)
         if not payload.get("temperature"):
             require(n == payload["max_tokens"], (i, body))  # greedy: to budget
-        log(f"[continuous] request {i}: {body['usage']['prompt_tokens']} prompt + {n} "
+        log(f"[{tag}] request {i}: {body['usage']['prompt_tokens']} prompt + {n} "
             f"completion tokens in {w:.3f}s wall "
             f"({'sampled' if payload.get('temperature') else 'greedy'})")
     rep = threaded.outputs[(tuple([tok.bos_id] + tok.encode(repeated)), 24)]
     require(len(rep) == 2 and rep[0] == rep[1], rep)
-    log("[continuous] repeated greedy request: identical tokens")
+    log(f"[{tag}] repeated greedy request: identical tokens")
     hit = st["prefix_cache"]["hit_tokens"]
     require(hit >= 512 * 3, st["prefix_cache"])
     require(st["pages_free"] + st["pages_cached_evictable"] == st["pages_total"], st)
     require(st["slots_busy"] == 0 and st["queue_depth"] == 0, st)
     want_k3 = cfg.num_layers * st["decode_steps"]
     want_k1 = cfg.num_layers * st["prefills_cold"]
-    require(launches["paged_tail"] == want_k3, (launches, st["decode_steps"]))
-    require(launches["flash_fwd"] == want_k1, (launches, st["prefills_cold"]))
-    require(launches["paged"] == 0, launches)
-    log(f"[continuous] K3 launches {launches['paged_tail']} = {cfg.num_layers} layers x "
-        f"{st['decode_steps']} decode steps ({st['decode_ticks']} ticks); K1 launches "
-        f"{launches['flash_fwd']} = {cfg.num_layers} x {st['prefills_cold']} cold "
+    require(launches["paged_tail" + sfx] == want_k3, (launches, st["decode_steps"]))
+    require(launches["flash_fwd" + sfx] == want_k1, (launches, st["prefills_cold"]))
+    require(launches.pop("other") == 0, launches)
+    log(f"[{tag}] K3{sfx} launches {launches['paged_tail' + sfx]} = {cfg.num_layers} layers "
+        f"x {st['decode_steps']} decode steps ({st['decode_ticks']} ticks); K1{sfx} launches "
+        f"{launches['flash_fwd' + sfx]} = {cfg.num_layers} x {st['prefills_cold']} cold "
         f"prefills ({st['prefills_prefix_hit']} prefix-hit prefills, masked plain "
         f"path); prefix cache {st['prefix_cache']}; pages total {st['pages_total']}, "
         f"free {st['pages_free']}, cached {st['pages_cached_evictable']}")
     tick_ms = st["decode_seconds"] / st["decode_ticks"] * 1e3
-    log(f"[continuous] {len(requests)} concurrent requests in {wall:.3f}s wall: "
+    pool_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
+    log(f"[{tag}] {len(requests)} concurrent requests in {wall:.3f}s wall: "
         f"{n_tokens} generated tokens, {n_tokens / wall:.1f} tokens/s aggregate; "
         f"decode {tick_ms:.1f} ms per tick, {tick_ms / engine.decode_chunk:.2f} ms "
-        f"per step (host clock, each tick ends in a device-to-host copy; {SMI})")
+        f"per step (host clock, each tick ends in a device-to-host copy); time to first "
+        f"token of a cold 1001-token request on the idle engine {ttft_s * 1e3:.1f} ms "
+        f"(HTTP included); pools {pool_bytes / 1e9:.3f} GB ({SMI})")
 
-    _check_decode_step(engine, paged, "continuous", "K3")
-    log(f"[continuous] peak device memory "
+    _check_decode_step(engine, paged, tag, "K3" + sfx)
+    log(f"[{tag}] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    pool_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
     return launches, {"ms_step": tick_ms / engine.decode_chunk,
                       "tokens_s": n_tokens / wall, "pool_bytes": pool_bytes,
-                      "n_pages": engine.n_pages, "hit_tokens": hit,
+                      "n_pages": engine.n_pages, "hit_tokens": hit, "ttft_s": ttft_s,
                       "outputs": threaded.outputs}
 
 
@@ -2349,10 +2498,11 @@ def _check_decode_step(engine, paged, tag: str, kernel: str) -> None:
     require(lk.shape == (cfg.vocab_size,) and bool(torch.isfinite(lk).all()))
     rel = float((lk - lx).norm() / lx.norm())
     same_top = int(lk.argmax()) == int(lx.argmax())
+    tol = F32_LOGITS_REL_TOL if cfg.dtype == "float32" else LOGITS_REL_TOL
     log(f"[{tag}] decode-step logits {kernel} vs plain paged attention (701-token "
         f"context): rel L2 {rel:.3e}, max abs {float((lk - lx).abs().max()):.3e}, "
-        f"same argmax {same_top}")
-    require(rel <= LOGITS_REL_TOL and same_top, (rel, same_top))
+        f"same argmax {same_top} (tolerance {tol})")
+    require(rel <= tol and same_top, (rel, same_top))
 
 
 def _span_requests():
@@ -2578,30 +2728,43 @@ def phase_lockstep_spec(gen, flash, paged) -> dict:
     return {"flash_fwd": k1}
 
 
-def phase_spec_int8(flash, paged) -> dict:
-    """int8 with speculation: ``infer/server.py --kv-quant int8 --speculative
-    on --engine continuous --cache-mode paged`` at full width and depth 2
-    (a depth cut: the engine's int8 pools and K3-int8-verify are per layer),
-    the continuous traffic's greedy requests plus the span prompts over
-    HTTP: K3-int8-verify
-    on every round of both layers; greedy tokens against the same engine
+# Speculation at depth 2 over other pools: (server flags, the verify kernel's
+# name in the kernels line, the log tag, what the pools hold).
+SPEC_DEPTH2 = {
+    "int8": (["--kv-quant", "int8"], "paged_verify_int8", "spec-int8", "int8 pools"),
+    "f32": (["--override", "dtype=float32"], "paged_verify_f32", "f32-spec", "f32 pools"),
+}
+
+
+def phase_spec_depth2(flash, paged, kind: str) -> dict:
+    """Speculation over int8 pools (``kind="int8"``: ``infer/server.py
+    --kv-quant int8``) or in f32 (``"f32"``: ``--override dtype=float32``),
+    ``--speculative on --engine continuous --cache-mode paged`` at full
+    width and depth 2 (a depth cut: the engine's pools and the verify kernel
+    are per layer), the continuous traffic's greedy requests plus the span
+    prompts over HTTP: K3-int8-verify (K3-f32-verify) on every round of both
+    layers, no other paged kernel; greedy tokens against the same engine
     configuration's plain ticks by the divergence rule. Returns the launch
     counts."""
+    import torch
+
     from ditl_tpu_torch.infer import server as server_mod
     from ditl_tpu_torch.infer.continuous import ContinuousEngine
 
+    flags, verify, tag, pools = SPEC_DEPTH2[kind]
     server = server_mod.create_server([
         "--preset", "llama3-8b", "--override", "attention_impl=flash", "--override",
         "num_layers=2", "--device", "cuda", "--host", "127.0.0.1", "--port", "0",
-        "--seed", "0", "--kv-quant", "int8", "--speculative", "on", "--engine",
+        "--seed", "0", *flags, "--speculative", "on", "--engine",
         "continuous", "--cache-mode", "paged", "--slots", "8", "--page-size", "256",
         "--max-cache-len", "2048",
     ])
     gen = server.RequestHandlerClass.generator
     engine = server.engine._engine
     cfg, tok = gen.cfg, gen.tokenizer
-    require((cfg.num_layers, cfg.hidden_size, cfg.kv_cache_dtype, engine.speculative)
-            == (2, 4096, "int8", True), cfg)
+    require((cfg.num_layers, cfg.hidden_size, engine.speculative) == (2, 4096, True), cfg)
+    require(cfg.kv_cache_dtype == "int8" if kind == "int8" else
+            (cfg.dtype, engine.cache["kp"].dtype) == ("float32", torch.float32), cfg)
     recording = _recording_engine(engine)
     server.engine.close()  # the server's own engine thread; the recording one takes over
     server.RequestHandlerClass.threaded_engine = recording
@@ -2615,20 +2778,21 @@ def phase_spec_int8(flash, paged) -> dict:
         flash.reset_launches()
         paged.reset_launches()
         results, wall = _send_continuous(url, requests, engine)
-        launches = {"paged_verify_int8": paged.launches_verify_int8,
-                    "paged_verify": paged.launches_verify,
-                    "paged_tail_int8": paged.launches_tail_int8}
+        counter = "launches_" + verify[len("paged_"):]
+        launches = {verify: getattr(paged, counter),
+                    "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
+                    - getattr(paged, counter)}
         st = engine.stats()["speculative"]
     finally:
         server.close(drain=True)
         thread.join(timeout=30)
     require(all(results[i][0] == 200 for i in range(len(requests))), results)
-    require(launches["paged_verify_int8"] == cfg.num_layers * st["verify_rounds"] > 0
-            and launches["paged_verify"] == launches["paged_tail_int8"] == 0, (launches, st))
-    log(f"[spec-int8] depth 2, int8 pools: K3-int8-verify launches "
-        f"{launches['paged_verify_int8']} = {cfg.num_layers} layers x {st['verify_rounds']} "
+    require(launches[verify] == cfg.num_layers * st["verify_rounds"] > 0
+            and launches.pop("other") == 0, (launches, st))
+    log(f"[{tag}] depth 2, {pools}: {verify} launches "
+        f"{launches[verify]} = {cfg.num_layers} layers x {st['verify_rounds']} "
         f"verify rounds; {st['tokens_per_row_forward']:.3f} tokens per verify forward per "
-        f"row; {len(requests)} greedy requests in {wall:.3f}s")
+        f"row; {len(requests)} greedy requests in {wall:.3f}s ({SMI})")
     plain = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
                              max_cache_len=2048, cache_mode="paged", page_size=256,
                              device="cuda")
@@ -2641,7 +2805,7 @@ def phase_spec_int8(flash, paged) -> dict:
     plain_of = {(tuple(ids), m): plain_out[rid] for rid, (ids, m) in ids_of.items()}
     pairs = [(list(key[0]), spec_out, plain_of[key]) for key in sorted(plain_of)
              for spec_out in recording.outputs[key]]  # one pair a greedy request
-    _check_against(gen, cfg, pairs, "spec-int8")
+    _check_against(gen, cfg, pairs, tag)
     return launches
 
 
@@ -3027,21 +3191,21 @@ def _verify_sdpa_inputs(q, kp, vp, table, ln, st, tk, tv, k_scale=None, v_scale=
 def _verify_bound(q, kv, table, tail_len, lengths, starts, int8: bool):
     """Least time on an H100 SXM for one verify call: the live keys' K and V
     once (int8 pools: int8 values plus two f32 scales a page key; the tail
-    bf16), the tail keys any query reads, q and o, the table and lengths,
-    over HBM bandwidth, against 4*D flops per (query row, key it sees) at
-    bf16 peak."""
+    in q's dtype), the tail keys any query reads, q and o, the table and
+    lengths, over HBM bandwidth, against 4*D flops per (query row, key it
+    sees) at the peak of q's dtype."""
     b, nq, h, d = q.shape
+    es = q.element_size()
     pairs = list(zip(starts.tolist(), lengths.tolist()))
     page = sum(min(s, n) for s, n in pairs)
     tail_keys = sum(min(tail_len, n - s + nq - 1) for s, n in pairs if n > s)
     seen = sum(nq * min(s, n) + sum(min(tail_len, n - s + qi) for qi in range(nq))
                for s, n in pairs if n > 0)
-    page_bytes = page * kv * (2 * d + 8) if int8 else page * kv * 2 * d * 2
-    nbytes = (page_bytes + tail_keys * kv * 2 * d * 2 + 2 * (2 * b * nq * h * d)
+    page_bytes = page * kv * (2 * d + 8) if int8 else page * kv * 2 * d * es
+    nbytes = (page_bytes + tail_keys * kv * 2 * d * es + 2 * (es * b * nq * h * d)
               + 4 * (table.numel() + 2 * b))
     flops = 4 * d * h * seen
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, flops, q.dtype)
 
 
 def phase_paged_verify_timings(paged) -> dict:
@@ -3274,6 +3438,438 @@ def phase_serve_int8(flash, paged, bf16: dict) -> dict:
             "paged_tail_int8": launches["paged_tail_int8"]}
 
 
+# ---------------------------------------------------------------------------
+# The f32 kernels and paths 8 (f32 serving) and 9 (f32 training)
+# ---------------------------------------------------------------------------
+
+
+def _sdpa_backend(*args, **kw) -> str:
+    """The backend PyTorch's dispatcher picks for these SDPA arguments."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(*args, **kw)).name
+
+
+def phase_f32_kernels(flash, paged, train_seg) -> dict:
+    """[f32-kernels]: K1-f32, K2a-f32 and K2b-f32 against the plain forward
+    and backward in f32 (TF32 off, as ``main()`` sets it) at D = 64 and 128,
+    causal and not, packed and right-padded ids, G = 4 and 7 (path 9's batch
+    among them); K3-f32, K4-f32 and K3-f32-verify against the plain version
+    and the split twin at the decode tick (``_paged_main_case``), the spec
+    tick (``_spec_main_case``) and the verify's other cases. Each kernel
+    called twice must give the same bits. Returns the max abs errors and
+    K4-f32's direct-call launches."""
+    import torch
+
+    f32 = torch.float32
+    cases = [  # (label, b, s_q, s_kv, h, kv, d, causal, ids)
+        ("serving prefill, right-padded, G=4", 4, 512, 512, 32, 8, 128, True,
+         [512, 401, 230, 97]),
+        ("path 9's batch, packed rows, G=7", 4, 2048, 2048, 14, 2, 64, True, "train"),
+        ("G=7, ids up and down", 2, 300, 300, 14, 2, 64, True, "nonmono"),
+        ("boundary past a tile edge", 1, 257, 257, 4, 2, 128, True, "edge1"),
+        ("packed, S % 64 != 0", 2, 333, 333, 8, 2, 128, True, "packed"),
+        ("non-causal, Sq != Skv", 2, 200, 333, 8, 2, 64, False, None),
+    ]
+    worst = {"flash_fwd_f32": 0.0, "flash_dq_f32": 0.0, "flash_dkv_f32": 0.0}
+    flash.reset_launches()
+    for i, (label, b, sq, skv, h, kv, d, causal, spec) in enumerate(cases):
+        seg = _bwd_segment_ids(spec, b, sq, train_seg)
+        q, k, v, o, lse, do = _bwd_inputs(b, sq, skv, h, kv, d, causal, seg, seed=900 + i,
+                                          flash=flash, dtype=f32)
+        o2, lse2 = flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+        o_ref, lse_ref = flash.flash_attention_plain(q, k, v, causal=causal, segment_ids=seg)
+        got = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=seg)
+        again = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=seg)
+        want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                               segment_ids=seg)
+        torch.cuda.synchronize()
+        require(o.dtype == f32 and bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
+                f"flash_fwd_f32 {label}: dtype or non-finite")
+        require(torch.equal(o, o2) and torch.equal(lse, lse2),
+                f"flash_fwd_f32 {label}: two calls differ")
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"flash_bwd_f32 {label}: two calls differ")
+        o_err = float((o - o_ref).abs().max())
+        lse_err = float((lse - lse_ref).abs().max())
+        require(o_err <= F32_O_TOL and lse_err <= F32_O_TOL, (label, o_err, lse_err))
+        worst["flash_fwd_f32"] = max(worst["flash_fwd_f32"], o_err)
+        rel = {}
+        for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+            require(x.dtype == f32 and bool(torch.isfinite(x).all()), (label, name))
+            err = float((x - ref).abs().max())
+            rel[name] = err / float(ref.abs().max())
+            require(rel[name] <= F32_BWD_TOL, (label, name, rel[name]))
+            key = "flash_dq_f32" if name == "dq" else "flash_dkv_f32"
+            worst[key] = max(worst[key], err)
+        log(f"[f32-kernels] flash {label}: B={b} Sq={sq} Skv={skv} H={h} K={kv} D={d} "
+            f"causal={causal}: max|o-plain| {o_err:.3e}, max|lse-plain| {lse_err:.3e} "
+            f"(tolerance {F32_O_TOL}); dq/dk/dv max error over the gradient's largest "
+            f"magnitude {rel['dq']:.3e}/{rel['dk']:.3e}/{rel['dv']:.3e} (tolerance "
+            f"{F32_BWD_TOL}); two calls the same bits")
+        del q, k, v, o, lse, do, o2, lse2, o_ref, lse_ref, got, again, want
+    n = len(cases)
+    require((flash.launches_f32, flash.launches_dq_f32, flash.launches_dkv_f32,
+             flash.launches, flash.launches_dq) == (2 * n, 2 * n, 2 * n, 0, 0),
+            (flash.launches_f32, flash.launches_dq_f32, flash.launches_dkv_f32))
+
+    # Paged: the decode tick, the K3 phase's other cases, and every verify
+    # case (the spec tick first), all in f32.
+    m = PAGED_MAIN
+    starts, lengths = _paged_main_case()
+    k3_cases = [
+        ("decode tick", m["b"], m["h"], m["kv"], m["d"], m["ps"], m["tail_len"], lengths,
+         starts),
+        ("head_dim 64, page 16", 4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 32, 45]),
+        ("split edges", 4, 32, 8, 128, 16, 16, [257, 256, 513, 140], [257, 250, 500, 128]),
+    ]
+    worst.update({"paged_tail_f32": 0.0, "paged_f32": 0.0, "paged_verify_f32": 0.0})
+    paged.reset_launches()
+
+    def check(name, label, o, o2, r, sp):
+        require(o.dtype == f32 and bool(torch.isfinite(o).all()), (name, label))
+        require(torch.equal(o, o2), f"{name} {label}: two calls differ")
+        err = float((o - r).abs().max())
+        err_split = float((o - sp).abs().max())
+        require(err <= F32_PAGED_TOL and err_split <= F32_PAGED_TOL, (name, label, err,
+                                                                      err_split))
+        worst[name] = max(worst[name], err)
+        return f"{name} max|o-plain| {err:.3e}, max|o-split plain| {err_split:.3e}"
+
+    for i, (label, b, h, kv, d, ps, tl, lens, sts) in enumerate(k3_cases):
+        q, kp, vp, table, ln, st, tk, tv = _paged_inputs(b, h, kv, d, ps, tl, lens, sts,
+                                                         seed=950 + i, n_pool=128, dtype=f32)
+        tail = dict(tail_k=tk, tail_v=tv, starts=st)
+        low = torch.minimum(st, ln).contiguous()
+        o3, o3b = (paged.paged_attention(q, kp, vp, table, ln, **tail) for _ in range(2))
+        o4, o4b = (paged.paged_attention(q, kp, vp, table, low) for _ in range(2))
+        r3 = paged.paged_attention_plain(q, kp, vp, table, ln, tk, tv, st)
+        s3 = paged.paged_attention_split_plain(q, kp, vp, table, ln, tk, tv, st)
+        r4 = paged.paged_attention_plain(q, kp, vp, table, low)
+        s4 = paged.paged_attention_split_plain(q, kp, vp, table, low)
+        torch.cuda.synchronize()
+        dead = [j for j, n_ in enumerate(lens) if n_ == 0]
+        require(all(bool((o3[j] == 0).all()) for j in dead), "paged_tail_f32: dead slot")
+        log(f"[f32-kernels] paged {label}: B={b} H={h} K={kv} D={d} ps={ps} T={tl}: "
+            f"{check('paged_tail_f32', label, o3, o3b, r3, s3)}; "
+            f"{check('paged_f32', label, o4, o4b, r4, s4)} (tolerance {F32_PAGED_TOL}); "
+            f"two calls the same bits")
+    n_verify = 0
+    for i, (label, b, nq, h, kv, d, ps, tl, lens, sts, maxp) in enumerate(_verify_cases()):
+        q, kp, vp, table, ln, st, tk, tv = _paged_inputs(b, h, kv, d, ps, tl, lens, sts,
+                                                         seed=970 + i, n_pool=128, nq=nq,
+                                                         maxp=maxp, share=b > 2, dtype=f32)
+        tail = dict(tail_k=tk, tail_v=tv, starts=st)
+        o, o2 = (paged.paged_attention(q, kp, vp, table, ln, **tail) for _ in range(2))
+        n_verify += 2
+        r = paged.paged_attention_plain(q, kp, vp, table, ln, tk, tv, st)
+        sp = paged.paged_attention_split_plain(q, kp, vp, table, ln, tk, tv, st)
+        o41 = paged.paged_attention(q[:, :1].contiguous(), kp, vp, table, ln, **tail)
+        o3 = paged.paged_attention(q[:, 0].contiguous(), kp, vp, table, ln, **tail)
+        torch.cuda.synchronize()
+        require(torch.equal(o41[:, 0], o3), f"paged_verify_f32 {label}: Q = 1 differs")
+        log(f"[f32-kernels] paged verify {label}: B={b} Q={nq} H={h} K={kv} D={d} ps={ps} "
+            f"T={tl}: {check('paged_verify_f32', label, o, o2, r, sp)} (tolerance "
+            f"{F32_PAGED_TOL}); two calls the same bits, Q = 1 the 3-D call's bits")
+    require(paged.launches_verify_f32 == n_verify and paged.launches_f32 == 2 * len(k3_cases)
+            and paged.launches_tail == paged.launches_verify == paged.launches == 0,
+            (paged.launches_verify_f32, paged.launches_f32))
+    worst["paged_f32_direct_launches"] = paged.launches_f32
+    return worst
+
+
+def _ffma_ms(flops: float) -> float:
+    return flops / H100_FFMA_FLOPS * 1e3
+
+
+def phase_f32_timings(flash, paged, train_seg) -> dict:
+    """[f32-timing]: each f32 kernel's time by CUDA events (the better of
+    two runs), beside its bound (max of bytes at 4 B an element over 3.35
+    TB/s and flops over 165 TFLOP/s, 3xTF32; the 67 TFLOP/s FFMA figure
+    logged beside), its plain version and the library call on the same f32
+    inputs, TF32 off: K1-f32, K2a-f32, K2b-f32 at path 9's batch (B=4,
+    S=2048, 14/2 heads, D=64, the pipeline's packed rows) against SDPA given
+    the same packed causal mask (forward, ``autograd.grad`` of it), K1-f32
+    also at the serving prefill; K3-f32 and K4-f32 at the decode tick,
+    K3-f32-verify at the spec tick (CUDA-graph device time over
+    ``PAGED_COPIES`` input copies) against SDPA with ``enable_gqa`` over the
+    keys gathered beforehand. The SDPA backend the dispatcher picks is
+    named."""
+    import torch
+    import torch.nn.functional as F
+
+    f32 = torch.float32
+    out = {}
+    # K1-f32 at the serving prefill (logged; the kernels line takes path 9's).
+    q, k, v, seg = _attn_inputs(4, 512, 512, 32, 8, 128, seed=980,
+                                lengths=[512, 401, 230, 97], dtype=f32)
+    mask = torch.ones(512, 512, dtype=torch.bool, device="cuda").tril()[None]
+    mask = (mask & (seg[:, :, None] == seg[:, None, :]))[:, None]
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(4, dim=2).transpose(1, 2) for x in (k, v))
+
+    def fwd():
+        flash.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+
+    ms = min(_time_ms(fwd), _time_ms(fwd))
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    plain_ms = _time_ms(lambda: flash.flash_attention_plain(q, k, v, causal=True,
+                                                            segment_ids=seg), iters=5)
+    bound_ms, bound_by = _flash_bound(q, k, seg, True)
+    flops = 4 * 128 * 32 * _attended_pairs(4, 512, 512, True, seg)
+    log(f"[f32-timing] flash_fwd_f32 serving prefill B=4 S=512 H=32 K=8 D=128 causal+seg: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (backend "
+        f"{_sdpa_backend(qt, kt, vt, mask, 0.0, False)}), bound {bound_ms:.4f} ms "
+        f"({bound_by}; at FFMA's 67 TFLOP/s {_ffma_ms(flops):.4f} ms), {bound_ms / ms:.1%} "
+        f"of bound ({SMI})")
+    del q, k, v, seg, mask, qt, kt, vt
+
+    # K1-f32, K2a-f32, K2b-f32 at path 9's batch.
+    s, causal, seg = 2048, True, train_seg
+    q, k, v, o, lse, do = _bwd_inputs(4, s, s, 14, 2, 64, causal, seg, seed=990,
+                                      flash=flash, dtype=f32)
+    run_dq, run_dkv, keep = _bwd_launchers(flash, q, k, v, o, lse, do, seg, causal)
+    mask = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()[None]
+    mask = (mask & (seg[:, :, None] == seg[:, None, :]))[:, None]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(7, dim=2).transpose(1, 2).detach().requires_grad_()
+              for x in (k, v))
+    backend = _sdpa_backend(qt, kt, vt, mask, 0.0, False)
+    out_t = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    do_t = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    def sdpa_bwd():
+        torch.autograd.grad(out_t, (qt, kt, vt), grad_outputs=do_t, retain_graph=True)
+
+    def fwd():
+        flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+
+    plain_bwd_ms = _time_ms(lambda: flash.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=causal, segment_ids=seg), iters=3, warmup=1)
+    plain_fwd_ms = _time_ms(lambda: flash.flash_attention_plain(
+        q, k, v, causal=causal, segment_ids=seg), iters=3, warmup=1)
+    lib_bwd_ms = min(_time_ms(sdpa_bwd, iters=10), _time_ms(sdpa_bwd, iters=10))
+    lib_fwd_ms = min(_time_ms(sdpa_fwd, iters=10), _time_ms(sdpa_fwd, iters=10))
+    pairs = _attended_pairs(4, s, s, causal, seg)
+    for name, run, plain_ms, lib, kind, products in (
+            ("flash_fwd_f32", fwd, plain_fwd_ms, lib_fwd_ms, None, 2),
+            ("flash_dq_f32", run_dq, plain_bwd_ms, lib_bwd_ms, "dq", 3),
+            ("flash_dkv_f32", run_dkv, plain_bwd_ms, lib_bwd_ms, "dkv", 4)):
+        ms = min(_time_ms(run, iters=10), _time_ms(run, iters=10))
+        bound_ms, bound_by = (_flash_bound(q, k, seg, causal) if kind is None
+                              else _bwd_bound(q, k, seg, causal, kind))
+        flops = products * 2 * 64 * 14 * pairs
+        log(f"[f32-timing] {name} path 9's batch B=4 S={s} H=14 K=2 D=64 causal, packed "
+            f"rows ({int(seg.max())} segments max): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms{'' if kind is None else ' (dq, dk, dv together)'}, sdpa "
+            f"{'forward' if kind is None else 'backward, all three grads,'} with the same "
+            f"packed causal mask {lib:.4f} ms (backend {backend}; {ms / lib:.2f}x), bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, at FFMA's 67 TFLOP/s "
+            f"{_ffma_ms(flops):.4f} ms), {bound_ms / ms:.1%} of bound, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s ({SMI})")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib, "library": f"sdpa {backend}"}
+    del keep, q, k, v, o, lse, do, qt, kt, vt, out_t, do_t, mask
+
+    # K3-f32 and K4-f32 at the decode tick.
+    m = PAGED_MAIN
+    starts, lengths = _paged_main_case()
+    copies = [_paged_inputs(m["b"], m["h"], m["kv"], m["d"], m["ps"], m["tail_len"],
+                            lengths, starts, seed=1000 + c, share=False, dtype=f32)
+              for c in range(PAGED_COPIES)]
+    for name, tail in (("paged_tail_f32", True), ("paged_f32", False)):
+        kernel, plain, library = [], [], []
+        for q, kp, vp, table, ln, st, tk, tv in copies:
+            if tail:
+                qs, kt, vt, mask = _verify_sdpa_inputs(q[:, None], kp, vp, table, ln, st, tk,
+                                                       tv)
+                kw = dict(tail_k=tk, tail_v=tv, starts=st)
+            else:
+                b, maxp, ps = q.shape[0], table.shape[1], kp.shape[2]
+                kt, vt = (p[table.long()].transpose(2, 3).reshape(b, maxp * ps, m["kv"], m["d"])
+                          .transpose(1, 2).contiguous() for p in (kp, vp))
+                cols = torch.arange(maxp * ps, device="cuda")
+                mask = (cols[None] < ln[:, None])[:, None, None, :]
+                qs = q[:, :, None]
+                kw = {}
+            kernel.append(functools.partial(paged.paged_attention, q, kp, vp, table, ln,
+                                            **kw))
+            plain.append(functools.partial(paged.paged_attention_plain, q, kp, vp, table,
+                                           ln, *kw.values()))
+            library.append(functools.partial(F.scaled_dot_product_attention, qs, kt, vt,
+                                             attn_mask=mask, enable_gqa=True))
+        backend = _sdpa_backend(qs, kt, vt, mask, 0.0, False, enable_gqa=True)
+        ms = min(_graph_ms(kernel), _graph_ms(kernel))
+        plain_ms = _graph_ms(plain, rounds=1)
+        lib_ms = _graph_ms(library)
+        q, kp, _, table, ln, st, _, _ = copies[0]
+        bound_ms, bound_by = _paged_bound(q, kp, table, ln, st, tail)
+        log(f"[f32-timing] {name} decode tick B={m['b']} H={m['h']} K={m['kv']} D={m['d']} "
+            f"ps={m['ps']} T={m['tail_len']}, {PAGED_COPIES} input copies in turn: device "
+            f"(CUDA graph) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (enable_gqa, "
+            f"keys gathered beforehand; backend {backend}) {lib_ms:.4f} ms, kernel / sdpa "
+            f"{ms / lib_ms:.2f}x; bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of bound ({SMI})")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms, "library": f"sdpa {backend}"}
+    del copies
+
+    # K3-f32-verify at the spec tick.
+    sm = SPEC_MAIN
+    starts, lengths = _spec_main_case()
+    copies = [_paged_inputs(sm["b"], sm["h"], sm["kv"], sm["d"], sm["ps"], sm["tail_len"],
+                            lengths, starts, seed=1100 + c, share=False, nq=sm["nq"],
+                            maxp=sm["maxp"], dtype=f32) for c in range(PAGED_COPIES)]
+    kernel, plain, library = [], [], []
+    for q, kp, vp, table, ln, st, tk, tv in copies:
+        qs, kt, vt, mask = _verify_sdpa_inputs(q, kp, vp, table, ln, st, tk, tv)
+        kernel.append(functools.partial(paged.paged_attention, q, kp, vp, table, ln,
+                                        tail_k=tk, tail_v=tv, starts=st))
+        plain.append(functools.partial(paged.paged_attention_plain, q, kp, vp, table, ln,
+                                       tk, tv, st))
+        library.append(functools.partial(F.scaled_dot_product_attention, qs, kt, vt,
+                                         attn_mask=mask, enable_gqa=True))
+    backend = _sdpa_backend(qs, kt, vt, mask, 0.0, False, enable_gqa=True)
+    ms = min(_graph_ms(kernel), _graph_ms(kernel))
+    plain_ms = _graph_ms(plain, rounds=1)
+    lib_ms = _graph_ms(library)
+    q, kp, _, table, ln, st, _, _ = copies[0]
+    bound_ms, bound_by = _verify_bound(q, kp.shape[1], table, sm["tail_len"], ln, st, False)
+    log(f"[f32-timing] paged_verify_f32 spec tick B={sm['b']} Q={sm['nq']} H={sm['h']} "
+        f"K={sm['kv']} D={sm['d']} ps={sm['ps']} T={sm['tail_len']}, {PAGED_COPIES} input "
+        f"copies in turn: device (CUDA graph) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa (enable_gqa, per-query mask, keys gathered beforehand; backend {backend}) "
+        f"{lib_ms:.4f} ms, kernel / sdpa {ms / lib_ms:.2f}x; bound {bound_ms:.4f} ms "
+        f"({bound_by}), {bound_ms / ms:.1%} of bound ({SMI})")
+    out["paged_verify_f32"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "library_ms": lib_ms,
+                               "library": f"sdpa {backend}"}
+    return out
+
+
+def phase_f32_serve(flash, paged) -> dict:
+    """Main path 8, f32 serving: ``infer/server.py --preset llama3-8b
+    --override attention_impl=flash --override dtype=float32`` at full width
+    and depth (f32 weights, seed-initialised), lock-step on path 1's five
+    requests (K1-f32 on every prefill), then the continuous engine over f32
+    pools on path 2's 12 requests (K1-f32 on every cold prefill, K3-f32 on
+    every decode step); decode ms a step, time to first token and tokens/s
+    beside the f32 weight-read bound, pool bytes, peak memory; one decode
+    step's logits against the plain version's; greedy tokens of both engines
+    against the same requests through the plain versions (identical, or a
+    near-tie by ``_tie_check``). Returns the launch counts."""
+    import torch
+
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+    from ditl_tpu_torch.infer.engine import GenerateConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    gen, lockstep = phase_serve(flash, paged, "float32")
+    cfg, tok = gen.cfg, gen.tokenizer
+    weight_bytes = sum(t.numel() * t.element_size() for key, sub in gen.params.items()
+                       if key != "embed" for t in _tensors(sub))
+    continuous, summary = phase_serve_continuous(gen, flash, paged)
+    log(f"[f32-serve] continuous decode {summary['ms_step']:.2f} ms a step against the f32 "
+        f"weight-read bound {weight_bytes / H100_BYTES_PER_S * 1e3:.2f} ms "
+        f"({weight_bytes / 1e9:.2f} GB a step at 3.35 TB/s), {summary['tokens_s']:.1f} "
+        f"tokens/s, time to first token {summary['ttft_s'] * 1e3:.1f} ms, pools "
+        f"{summary['pool_bytes'] / 1e9:.3f} GB, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({SMI})")
+
+    # The same greedy requests through the plain versions (flash's forward
+    # and paged attention rebound, looked up at call time): the continuous
+    # engine's, then the lock-step Generator's.
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = sorted({(tuple([tok.bos_id] + tok.encode(p["prompt"])), p["max_tokens"])
+                   for p in _continuous_requests()[0] if not p.get("temperature")})
+    fwd, wrapper = flash.flash_attention_fwd, paged.paged_attention
+    flash.flash_attention_fwd = flash.flash_attention_plain
+    paged.paged_attention = paged.paged_attention_plain
+    try:
+        plain_engine = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
+                                        max_cache_len=2048, cache_mode="paged",
+                                        page_size=256, device="cuda")
+        rid = {plain_engine.submit(list(ids), max_new_tokens=n): (ids, n) for ids, n in keys}
+        plain_out = plain_engine.run()
+        del plain_engine
+        lock_prompts = [[tok.bos_id] + tok.encode(_text(0, 100)),
+                        [tok.bos_id] + tok.encode(_text(3, 400))]
+        lock_plain = [gen.generate_tokens([ids], GenerateConfig(max_new_tokens=16))[0]
+                      for ids in lock_prompts]
+    finally:
+        flash.flash_attention_fwd, paged.paged_attention = fwd, wrapper
+    flash.reset_launches()
+    lock_kernel = [gen.generate_tokens([ids], GenerateConfig(max_new_tokens=16))[0]
+                   for ids in lock_prompts]
+    require(flash.launches_f32 == cfg.num_layers * len(lock_prompts), flash.launches_f32)
+    plain_of = {rid[r]: toks for r, toks in plain_out.items()}
+    pairs = [(list(ids), outs, plain_of[(ids, n)]) for (ids, n) in keys
+             for outs in summary["outputs"][(ids, n)]]
+    _check_against(gen, cfg, pairs, "f32-continuous")
+    _check_against(gen, cfg, list(zip(lock_prompts, lock_kernel, lock_plain)), "f32-serve")
+    return {k: lockstep.get(k, 0) + continuous.get(k, 0)
+            for k in ("flash_fwd_f32", "paged_tail_f32")}
+
+
+def phase_f32_train(flash) -> dict:
+    """Main path 9, f32 training: ``train()`` with ``F32_TRAIN_ARGS``
+    (qwen2-0.5b at its published size: 24 layers, hidden 896, 14/2 heads,
+    D = 64, vocab 151936, tied embeddings, q/k/v biases; f32 masters and
+    compute, flash attention, full remat, adafactor, the fused loss; the MLP
+    and projection backward at the "xla" defaults), B=4, S=2048 packed rows
+    of the synthetic corpus, ``F32_TRAIN_STEPS`` steps: finite, falling
+    losses; K1-f32 2 x 24 a step (forward and recompute), K2a-f32 and
+    K2b-f32 24 a step, no bf16 kernel; step p50, tokens/s, MFU over the
+    495 TFLOP/s TF32 peak, peak memory. Returns the launch counts."""
+    from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.train.trainer import train
+
+    config, device = build_config(F32_TRAIN_ARGS)
+    cfg = config.model
+    require((cfg.name, cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
+             cfg.vocab_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+             cfg.tie_embeddings, cfg.attention_bias, cfg.dtype, cfg.param_dtype,
+             cfg.attention_impl, cfg.mlp_bwd_impl, cfg.proj_bwd_impl, cfg.remat,
+             config.train.optimizer, device)
+            == ("qwen2-0.5b", 24, 896, 4864, 151936, 14, 2, 64, True, True, "float32",
+                "float32", "flash", "xla", "xla", "full", "adafactor", "cuda"), config)
+    flash.reset_launches()  # this path's counts start here
+    summary = train(config, device=device)
+    launches = {"flash_fwd_f32": flash.launches_f32, "flash_dq_f32": flash.launches_dq_f32,
+                "flash_dkv_f32": flash.launches_dkv_f32}  # read right after the run
+    bf16 = (flash.launches, flash.launches_dq, flash.launches_dkv)
+    losses = summary["losses"]
+    require(summary["steps"] == F32_TRAIN_STEPS and len(losses) == F32_TRAIN_STEPS, summary)
+    require(all(x == x and abs(x) != float("inf") for x in losses), losses)
+    require(losses[-1] < losses[0], losses)
+    layers, steps = cfg.num_layers, F32_TRAIN_STEPS
+    require(launches["flash_fwd_f32"] == 2 * layers * steps and launches["flash_dq_f32"]
+            == launches["flash_dkv_f32"] == layers * steps and bf16 == (0, 0, 0),
+            (launches, bf16))
+    step_s = summary["step_time_p50_s"]
+    tps = summary["tokens_per_sec_per_chip_p50"]
+    mfu = _model_flops_per_token(cfg, config.data.seq_len) * 3 * tps / H100_TF32_FLOPS
+    log(f"[f32-train] qwen2-0.5b ({summary['params_m']:.1f}M parameters, f32 masters and "
+        f"compute, adafactor, flash, fused loss, full remat) B=4 S=2048, {steps} steps: "
+        f"losses {[round(x, 4) for x in losses]}")
+    log(f"[f32-train] step time p50 {step_s:.3f} s, {tps:.1f} tokens/s, MFU {mfu:.1%} "
+        f"(bench.py's flops per token x 3 over the 495 TFLOP/s TF32 peak, the card's "
+        f"fastest f32-input rate; remat not counted), peak device memory "
+        f"{summary['peak_device_memory_gib']:.1f} GiB, wall {summary['wall_s']:.1f} s ({SMI})")
+    log(f"[f32-train] launches: K1-f32 {launches['flash_fwd_f32']} = 2 x {layers} layers x "
+        f"{steps} steps (forward + remat recompute), K2a-f32 {launches['flash_dq_f32']} and "
+        f"K2b-f32 {launches['flash_dkv_f32']} = {layers} x {steps}; bf16 kernels {bf16}")
+    return launches
+
+
 def main() -> int:
     import gc
 
@@ -3299,12 +3895,14 @@ def main() -> int:
     errors.update(phase_paged_kernels(paged))
     errors.update(phase_paged_int8_kernels(paged))
     errors.update(phase_paged_verify_kernels(paged))
+    errors.update(phase_f32_kernels(flash, paged, train_seg))
     timings = phase_timings(flash)
     train_timings = phase_train_timings(flash, train_seg)
     timings.update(train_timings)
     timings.update(phase_paged_timings(paged))
     timings.update(phase_paged_int8_timings(paged))
     timings.update(phase_paged_verify_timings(paged))
+    timings.update(phase_f32_timings(flash, paged, train_seg))
     errors.update(phase_mm_kernels(mlp_bwd, proj))
     timings.update(phase_mm_timings(mlp_bwd, proj))
     gc.collect()
@@ -3322,7 +3920,22 @@ def main() -> int:
     int8_serve = phase_serve_int8(flash, paged, bf16_summary)
     gc.collect()
     torch.cuda.empty_cache()
-    spec_int8 = phase_spec_int8(flash, paged)
+    spec_int8 = phase_spec_depth2(flash, paged, "int8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[f32-serve] after freeing the int8 serving state: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    f32_serve = phase_f32_serve(flash, paged)
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_spec = phase_spec_depth2(flash, paged, "f32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_train = phase_f32_train(flash)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_parity(flash, F32_TRAIN_ARGS, num_layers=24, batch_size=4,
+                       tols=(F32_STEP_LOSS_TOL, F32_STEP_GNORM_TOL), tag="f32-train")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train] after freeing the serving state: "
@@ -3362,6 +3975,12 @@ def main() -> int:
                 "paged_verify": spec_serve["paged_verify"],
                 "paged_verify_int8": spec_int8["paged_verify_int8"],
                 "paged": errors.pop("paged_direct_launches"),
+                "flash_fwd_f32": f32_serve["flash_fwd_f32"] + f32_train["flash_fwd_f32"],
+                "flash_dq_f32": f32_train["flash_dq_f32"],
+                "flash_dkv_f32": f32_train["flash_dkv_f32"],
+                "paged_tail_f32": f32_serve["paged_tail_f32"],
+                "paged_verify_f32": f32_spec["paged_verify_f32"],
+                "paged_f32": errors.pop("paged_f32_direct_launches"),
                 **{k: training4[k] + recipe[k]
                    for k in ("mlp_dgu_dwdown", "mlp_dh_dwgu", "proj_bwd")}}
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
@@ -3375,6 +3994,7 @@ def main() -> int:
     log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}, "
         f"speculative continuous {spec_serve}, lock-step speculative {lockstep_spec}, "
         f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
+        f"f32 serving {f32_serve}, f32 speculative {f32_spec}, f32 training {f32_train}, "
         f"training {training}, training with the MLP and projection kernels {training4}, "
         f"the recipe under its three policies {recipe}, the served checkpoint "
         f"{ckpt_serve}")

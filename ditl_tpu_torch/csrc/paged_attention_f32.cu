@@ -1,0 +1,554 @@
+// Paged decode attention on float32 operands for Hopper (sm_90a), as
+// split-key flash-decoding: K3-f32, its multi-query verify and K4-f32.
+//
+// Replaces, for float32 q, pools and tails (the reference's kernels take any
+// float dtype and sum in f32; in f32 their p.astype(v.dtype) is a no-op),
+// two Pallas TPU kernels of ditl_tpu/ops/paged_attention.py:
+// - K3 _paged_tail_kernel (:235, pallas_call :491), with _accumulate_block
+//   and _finalize_out: entry point ditl_paged_tail_f32, one query token per
+//   slot over its pages, positions [0, min(starts, lengths)), then the
+//   tick's tail buffer, positions [starts, lengths); with q_groups (:248,
+//   the speculative verify's Q query tokens per slot): ditl_paged_verify_f32;
+// - K4 _paged_kernel (:191, :516), the same without a tail:
+//   ditl_paged_f32.
+// The bf16 and int8 kernels (paged_attention.cu) stay as they are.
+//
+// Bound on the card: bytes. It must read each live key's K and V once per
+// slot that reads it (2 * K * D * 4 bytes per key in f32, twice the bf16
+// kernel's), the live tail, q and o, and does 4 * D flops per (query head,
+// key): at the decode tick (8 slots, 32 query / 8 KV heads, D = 128, 4,343
+// live keys) about 35.6 MB, 0.0106 ms at 3.35 TB/s, against 0.07 GFLOP of
+// products (about 1 us at FFMA's 67 TFLOP/s). The verify at the spec tick
+// (Q = 9) adds 9x the q and o bytes and 9x the flops: still bytes. So FFMA
+// on the CUDA cores is enough, and what counts is keeping enough bytes in
+// flight: each block copies both 64-key tiles of its split by 16-byte
+// cp.async at once (128 KB at D = 128), one block per SM.
+//
+// Design: the bf16 template's split structure, its rules and its merge.
+// - The grid is (split, KV head, slot), a split being `split` positions
+//   (ops/paged_attention.py SPLIT_KEYS, a multiple of the 64-key tile) of
+//   the slot's axis of max_pages * page_size page positions followed by
+//   tail_len tail positions (K4: none); sized from shapes alone, so the
+//   wrapper reads nothing back from the card. A block whose split holds no
+//   live key stops at once and writes nothing; the merge gives it no
+//   weight.
+// - Inside a split, one 128-thread block walks its live 64-key tiles
+//   (skipping tiles with no live column), the next tile's K and V in flight
+//   by cp.async while the current one is computed (two stages; rows padded
+//   by 16 bytes; dead rows zero-filled by the copy itself).
+// - q.k: thread t takes key t % 64 and, in blocks of four query rows, every
+//   other block from t / 64: each float4 of its K row (from shared memory;
+//   eight threads read eight padded rows, 32 banks) feeds four rows' FMAs,
+//   q's rows read as broadcasts. The verify's rows are r = qi * G + g.
+// - Online softmax, one warp per query row, in f32; p is written over the
+//   scores.
+// - p.V: thread t takes four output columns (a float4 of each V row) of the
+//   rows t / (D / 4) + k * (512 / D): its accumulators rescale by the row's
+//   alpha in registers.
+// - Each block writes its partial (m and l per query row, f32 acc); a second
+//   kernel, one block per (query row, KV head, slot), merges the partials in
+//   split order, so two calls give the same bits.
+//
+// Rules kept from the bf16 template: the tail is read only when lengths >
+// starts (the Pallas kernel's _tail gate); query qi sees tail column j when
+// starts + j < lengths + qi (per-row limits); page columns below min(starts,
+// lengths) for every row; keys past the table's last page are absent;
+// out-of-range page ids clamp into the pool; a tile (and a split) is
+// processed when any row has a live key in it, and a row with nothing live
+// in a split keeps m at the mask value and weighs 0 in the merge (tested
+// explicitly). ops/paged_attention.py::paged_attention_split_plain is this
+// kernel's twin in f32.
+//
+// Semantics, the reference's in f32: scores are the f32 q.k sums times the
+// scale; masked columns of a processed tile take the finite -2.3819763e38;
+// p stays f32 for p.v, l adds the same p; a row with l == 0 (a dead slot,
+// length 0) writes 0; o is f32. Within a split p is relative to the split's
+// running max; the merge rescales each split's l and acc by exp(m_s - max_s
+// m_s). Exponents by expf.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+// -fPIC (ditl_tpu_torch/ops/cuda_build.py). C interface, bound with ctypes.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;          // keys per tile; two per lane in the softmax
+constexpr int kMaxGroups = 8;      // query heads per KV head
+constexpr int kMaxRows = 80;       // verify: query rows (Q * G) per KV head
+constexpr int kMergeBatch = 32;    // merge: splits whose acc values are loaded at once
+constexpr int kMaxSplits = 6144;   // the merge's m and l: 48 KB of shared memory
+constexpr float kNegInf = -2.3819763e38f;  // ops/attention.py NEG_INF
+
+struct Params {
+  const float* q;        // (B, H, D); verify (B, Q, H, D)
+  const float* k_pages;  // (P, K, ps, D)
+  const float* v_pages;
+  const int* table;      // (B, max_pages)
+  const int* lengths;    // (B,)
+  const int* starts;     // (B,), K3 only
+  const float* tail_k;   // (B, K, T, D), K3 only
+  const float* tail_v;
+  float* o;              // shaped as q
+  float* part_acc;       // (B, K, n_split, R, D), R = n_q * G query rows
+  float* part_ml;        // (B, K, n_split, R, 2): m, l
+  int kv_heads, groups, page_size, max_pages, n_pool, tail_len, split, n_split;
+  float scale;
+  int n_q;               // query tokens per slot: 1, or the verify's Q
+};
+
+// Shared memory of a split block with up to kR query rows, in floats: two
+// stages of (K, V) tiles with rows padded by 16 bytes, q's rows padded the
+// same way, the scores (then p) of kR rows, and m, l, alpha per row.
+template <int D, int kR>
+struct Layout {
+  static constexpr int kLd = D + 4;
+  static constexpr int kTileF = kTile * kLd;
+  static constexpr int kQ = 4 * kTileF;
+  static constexpr int kS = kQ + kR * kLd;
+  static constexpr int kM = kS + kR * kTile;
+  static constexpr int kL = kM + kR;
+  static constexpr int kAlpha = kL + kR;
+  static constexpr int kBytes = (kAlpha + kR) * 4;
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// 16 bytes global -> shared, in flight until cp_wait; with valid == false
+// the 16 bytes are zero-filled and src is not read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Where a slot's live keys lie on its axis of page positions, then tail
+// positions: [0, page_limit) for every query, and [tail0, row_end(qi)) for
+// query qi; tail_end is the last query's end (the union), and the axis ends
+// at end. (paged_attention.cu's rule.)
+struct Live {
+  int page_limit, tail0, tail_end, end;
+  int tail_q0;    // query 0's tail end, when the slot has a tail
+  int tail_max;   // tail0 + tail_len
+  bool has_tail;  // lengths > starts: the Pallas kernel's _tail gate
+
+  __device__ __forceinline__ int row_end(int qi) const {
+    return has_tail ? min(tail_q0 + qi, tail_max) : tail0;
+  }
+  __device__ __forceinline__ bool key(int v) const {
+    return v < page_limit || (v >= tail0 && v < tail_end);
+  }
+  __device__ __forceinline__ bool key_row(int v, int te) const {
+    return v < page_limit || (v >= tail0 && v < te);
+  }
+  __device__ __forceinline__ bool tile(int t0) const {
+    return t0 < page_limit || max(t0, tail0) < min(t0 + kTile, tail_end);
+  }
+  __device__ __forceinline__ int next(int t0, int t1) const {
+    for (; t0 < t1; t0 += kTile) {
+      if (tile(t0)) return t0;
+    }
+    return -1;
+  }
+  __device__ __forceinline__ bool split_live(int s, int split) const {
+    return next(s * split, min(s * split + split, end)) >= 0;
+  }
+};
+
+template <bool kTail>
+__device__ __forceinline__ Live slot_live(const Params& p, int b) {
+  const int length = p.lengths[b];
+  const int start = kTail ? p.starts[b] : length;
+  Live live;
+  live.tail0 = p.max_pages * p.page_size;
+  live.page_limit = min(min(start, length), live.tail0);
+  live.has_tail = kTail && length > start;
+  live.tail_q0 = live.tail0 + (length - start);
+  live.tail_max = live.tail0 + (kTail ? p.tail_len : 0);
+  live.tail_end = live.row_end(p.n_q - 1);
+  live.end = live.tail_max;
+  return live;
+}
+
+// K and V of the tile at t0 into a stage (kb: K, kb + kTileF: V), 16 bytes
+// a copy; dead rows arrive as zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(const Params& p, const Live& live, int b, int kh,
+                                          int t0, float* kb) {
+  constexpr int kChunks = D / 4;
+  constexpr int kLd = D + 4;
+  const int* trow = p.table + (long)b * p.max_pages;
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int v = t0 + r;
+    const bool ok = live.key(v);
+    const float* ks = p.k_pages;
+    const float* vs = p.v_pages;
+    long off = 0;
+    if (ok) {
+      if (v < live.tail0) {
+        const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
+        off = ((page * p.kv_heads + kh) * p.page_size + v % p.page_size) * D;
+      } else {
+        ks = p.tail_k;
+        vs = p.tail_v;
+        off = (((long)b * p.kv_heads + kh) * p.tail_len + (v - live.tail0)) * D;
+      }
+    }
+    cp_async16(kb + r * kLd + 4 * c, ks + off + 4 * c, ok);
+    cp_async16(kb + kTile * kLd + r * kLd + 4 * c, vs + off + 4 * c, ok);
+  }
+  cp_commit();
+}
+
+// Merge: one block of D threads per (query row r, KV head kh, slot b), as
+// paged_attention.cu's: the partials of every split with a key live for
+// some row are summed in split order; a partial whose m is the mask value
+// weighs 0.
+template <int D, bool kTail>
+__global__ void __launch_bounds__(D) paged_merge_f32_kernel(const Params p) {
+  extern __shared__ float sml[];  // m, then l, of each split
+  const int r = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
+  const int rows = p.n_q * p.groups, n = p.n_split;
+  const long bk = (long)b * p.kv_heads + kh;
+  const Live live = slot_live<kTail>(p, b);
+  const float2* ml = reinterpret_cast<const float2*>(p.part_ml) + bk * n * rows + r;
+  for (int s = d; s < n; s += D) {
+    const float2 v = live.split_live(s, p.split) ? __ldcg(ml + (long)s * rows)
+                                                 : make_float2(kNegInf, 0.f);
+    sml[s] = v.x;
+    sml[n + s] = v.y;
+  }
+  __syncthreads();
+  float m_max = kNegInf;
+  for (int s = 0; s < n; ++s) m_max = fmaxf(m_max, sml[s]);
+  auto weight = [&](int s) { return sml[s] == kNegInf ? 0.f : expf(sml[s] - m_max); };
+  float l = 0.f;
+  for (int s = 0; s < n; ++s) l += weight(s) * sml[n + s];
+  const float* acc = p.part_acc + (bk * n * rows + r) * D + d;
+  float o = 0.f;
+  for (int s0 = 0; s0 < n; s0 += kMergeBatch) {
+    float av[kMergeBatch];
+#pragma unroll
+    for (int j = 0; j < kMergeBatch; ++j) {
+      const int s = s0 + j;
+      av[j] = s < n && sml[s] != kNegInf ? __ldcg(acc + (long)s * rows * D) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kMergeBatch; ++j) {
+      if (s0 + j < n) o += weight(s0 + j) * av[j];
+    }
+  }
+  o /= (l == 0.f ? 1.f : l);
+  const int qi = r / p.groups, g = r % p.groups;
+  const long orow = ((long)b * p.n_q + qi) * p.kv_heads * p.groups + (long)kh * p.groups + g;
+  p.o[orow * D + d] = o;
+}
+
+// One split of one (KV head, slot) for up to kR query rows (8: the
+// single-query form, G rows; 16, 48 or 80: the verify's Q * G rows).
+template <int D, bool kTail, int kR>
+__global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params p) {
+  using L = Layout<D, kR>;
+  constexpr int kLd = L::kLd;
+  constexpr int kCols = D / 4;                // float4 column groups of a row
+  constexpr int kRowSets = kThreads / kCols;  // p.V: row sets (4 at D = 128, 8 at 64)
+  constexpr int kRowsPT = (kR + kRowSets - 1) / kRowSets;
+  extern __shared__ __align__(16) float smem[];
+  float* qsm = smem + L::kQ;
+  float* ss = smem + L::kS;
+  float* sm = smem + L::kM;
+  float* sl = smem + L::kL;
+  float* salpha = smem + L::kAlpha;
+
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int groups = p.groups;
+  const int rows = p.n_q * groups;
+  const Live live = slot_live<kTail>(p, b);
+  const int v0 = split * p.split, v1 = min(v0 + p.split, live.end);
+  int cur = live.next(v0, v1);
+  if (cur < 0) return;  // no live key: no partial (the merge weighs this split 0)
+
+  // q's rows (r = qi * G + g) into shared memory, committed with the first
+  // tile; rows past Q * G zero.
+  {
+    const long heads = (long)p.kv_heads * groups;
+    for (int idx = tid; idx < kR * kCols; idx += kThreads) {
+      const int r = idx / kCols, c = idx % kCols;
+      const bool ok = r < rows;
+      const long qrow =
+          ok ? ((long)b * p.n_q + r / groups) * heads + (long)kh * groups + r % groups : 0;
+      cp_async16(qsm + r * kLd + 4 * c, p.q + qrow * D + 4 * c, ok);
+    }
+  }
+  for (int r = tid; r < kR; r += kThreads) {
+    sm[r] = kNegInf;
+    sl[r] = 0.f;
+  }
+  const int c4 = tid % kCols, rset = tid / kCols;
+  float acc[kRowsPT][4];
+#pragma unroll
+  for (int i = 0; i < kRowsPT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  load_tile<D>(p, live, b, kh, cur, smem);
+  __syncthreads();  // m and l initialised
+  const int key = tid & (kTile - 1), half = tid / kTile;
+  for (int stage = 0; cur >= 0; stage ^= 1) {
+    const int nxt = live.next(cur + kTile, v1);
+    const float* kb = smem + stage * 2 * L::kTileF;
+    const float* vb = kb + L::kTileF;
+    if (nxt >= 0) {
+      load_tile<D>(p, live, b, kh, nxt, smem + (stage ^ 1) * 2 * L::kTileF);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // the tile's K and V (and q) are in shared memory
+
+    // Scores of key `key` for row blocks half, half + 2, ...: four rows a
+    // block, times the scale in f32; columns dead for the row get the
+    // finite mask value.
+    const float* krow = kb + key * kLd;
+    for (int r0 = 4 * half; r0 < rows; r0 += 8) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int d = 0; d < D; d += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 qv = *reinterpret_cast<const float4*>(qsm + (r0 + e) * kLd + d);
+          a[e] = fmaf(qv.x, kv.x, a[e]);
+          a[e] = fmaf(qv.y, kv.y, a[e]);
+          a[e] = fmaf(qv.z, kv.z, a[e]);
+          a[e] = fmaf(qv.w, kv.w, a[e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + e;
+        if (r < rows) {
+          const int te = live.row_end(r / groups);
+          ss[r * kTile + key] = live.key_row(cur + key, te) ? a[e] * p.scale : kNegInf;
+        }
+      }
+    }
+    __syncthreads();
+
+    // Online softmax, one warp per query row; p over the scores.
+    for (int r = warp; r < rows; r += kWarps) {
+      const float s0 = ss[r * kTile + lane];
+      const float s1 = ss[r * kTile + lane + 32];
+      const float m_prev = sm[r];
+      const float m_next = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+      const float p0 = expf(s0 - m_next);
+      const float p1 = expf(s1 - m_next);
+      const float rs = warp_sum(p0 + p1);
+      ss[r * kTile + lane] = p0;
+      ss[r * kTile + lane + 32] = p1;
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_next);
+        salpha[r] = alpha;
+        sl[r] = alpha * sl[r] + rs;
+        sm[r] = m_next;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + p.V for this thread's rows and four columns (dead
+    // keys: p = 0 and V zero-filled).
+#pragma unroll
+    for (int i = 0; i < kRowsPT; ++i) {
+      const int r = rset + kRowSets * i;
+      const float alpha = r < rows ? salpha[r] : 0.f;
+      acc[i][0] *= alpha;
+      acc[i][1] *= alpha;
+      acc[i][2] *= alpha;
+      acc[i][3] *= alpha;
+    }
+#pragma unroll 4
+    for (int j = 0; j < kTile; ++j) {
+      const float4 vv = *reinterpret_cast<const float4*>(vb + j * kLd + 4 * c4);
+#pragma unroll
+      for (int i = 0; i < kRowsPT; ++i) {
+        const int r = rset + kRowSets * i;
+        if (r < rows) {
+          const float pr = ss[r * kTile + j];
+          acc[i][0] = fmaf(pr, vv.x, acc[i][0]);
+          acc[i][1] = fmaf(pr, vv.y, acc[i][1]);
+          acc[i][2] = fmaf(pr, vv.z, acc[i][2]);
+          acc[i][3] = fmaf(pr, vv.w, acc[i][3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage's buffers and the scores are free again
+    cur = nxt;
+  }
+
+  // The split's partial: m and l per row, acc.
+  const long part = ((long)b * p.kv_heads + kh) * p.n_split + split;
+#pragma unroll
+  for (int i = 0; i < kRowsPT; ++i) {
+    const int r = rset + kRowSets * i;
+    if (r < rows) {
+      *reinterpret_cast<float4*>(p.part_acc + (part * rows + r) * D + 4 * c4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+  }
+  for (int r = tid; r < rows; r += kThreads) {
+    p.part_ml[(part * rows + r) * 2] = sm[r];
+    p.part_ml[(part * rows + r) * 2 + 1] = sl[r];
+  }
+}
+
+template <int D, bool kTail, int kR>
+int launch(const Params& p, int batch, cudaStream_t stream) {
+  static bool prepared = false;
+  constexpr int kSmem = Layout<D, kR>::kBytes;
+  auto kernel = paged_split_f32_kernel<D, kTail, kR>;
+  if (!prepared) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    prepared = true;
+  }
+  kernel<<<dim3(p.n_split, p.kv_heads, batch), kThreads, kSmem, stream>>>(p);
+  if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  paged_merge_f32_kernel<D, kTail><<<dim3(p.n_q * p.groups, p.kv_heads, batch), D,
+                                     2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance for `rows` query rows: 8 for the single-query form; 16, 48
+// or 80 for the verify (which exists only with a tail).
+template <int D, bool kTail>
+int launch_rows(const Params& p, int batch, cudaStream_t stream, bool verify, int rows) {
+  if (!verify) return launch<D, kTail, kMaxGroups>(p, batch, stream);
+  if constexpr (kTail) {
+    if (rows <= 16) return launch<D, kTail, 16>(p, batch, stream);
+    if (rows <= 48) return launch<D, kTail, 48>(p, batch, stream);
+    if (rows <= kMaxRows) return launch<D, kTail, kMaxRows>(p, batch, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool kTail>
+int dispatch(Params p, int batch, int n_q, bool verify, int heads, int head_dim,
+             void* stream) {
+  if (batch < 1 || n_q < 1 || (!verify && n_q != 1) || p.kv_heads < 1 ||
+      heads % p.kv_heads || heads / p.kv_heads > kMaxGroups || p.page_size < 1 ||
+      p.max_pages < 1 || p.n_pool < 1 || (kTail && p.tail_len < 1) || p.split < kTile ||
+      p.split % kTile) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.groups = heads / p.kv_heads;
+  p.n_q = n_q;
+  const int rows = n_q * p.groups;
+  if (rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  const long keys = (long)p.max_pages * p.page_size + (kTail ? p.tail_len : 0);
+  const long n_split = (keys + p.split - 1) / p.split;
+  if (n_split > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
+  p.n_split = static_cast<int>(n_split);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return launch_rows<64, kTail>(p, batch, s, verify, rows);
+    case 128:
+      return launch_rows<128, kTail>(p, batch, s, verify, rows);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+Params make_params(const void* q, const void* k_pages, const void* v_pages, const void* table,
+                   const void* lengths, const void* starts, const void* tail_k,
+                   const void* tail_v, void* o, void* part_acc, void* part_ml, int kv_heads,
+                   int page_size, int max_pages, int n_pool, int tail_len, int split,
+                   float scale) {
+  return Params{static_cast<const float*>(q), static_cast<const float*>(k_pages),
+                static_cast<const float*>(v_pages), static_cast<const int*>(table),
+                static_cast<const int*>(lengths), static_cast<const int*>(starts),
+                static_cast<const float*>(tail_k), static_cast<const float*>(tail_v),
+                static_cast<float*>(o), static_cast<float*>(part_acc),
+                static_cast<float*>(part_ml), kv_heads, 0, page_size, max_pages, n_pool,
+                tail_len, split, 0, scale, 1};
+}
+
+static_assert(Layout<128, kMaxRows>::kBytes <= 232448, "verify shared memory at D = 128");
+
+}  // namespace
+
+// K3-f32. q (B, H, D); pools (P, K, ps, D) with P = n_pool; table (B, maxp)
+// int32; lengths and starts (B,) int32; tails (B, K, T, D); o (B, H, D). f32
+// tensors, all contiguous. Workspace: part_acc f32 (B, K, n_split, H / K, D)
+// and part_ml f32 (B, K, n_split, H / K, 2) with n_split = ceil((maxp * ps +
+// T) / split), split a multiple of 64. Returns cudaGetLastError() after the
+// two launches (0 = launched).
+extern "C" int ditl_paged_tail_f32(const void* q, const void* k_pages, const void* v_pages,
+                                   const void* table, const void* lengths, const void* starts,
+                                   const void* tail_k, const void* tail_v, void* o,
+                                   void* part_acc, void* part_ml, int batch, int heads,
+                                   int kv_heads, int head_dim, int page_size, int max_pages,
+                                   int n_pool, int tail_len, int split, float scale,
+                                   void* stream) {
+  const Params p = make_params(q, k_pages, v_pages, table, lengths, starts, tail_k, tail_v, o,
+                               part_acc, part_ml, kv_heads, page_size, max_pages, n_pool,
+                               tail_len, split, scale);
+  return dispatch<true>(p, batch, 1, false, heads, head_dim, stream);
+}
+
+// K3-f32's multi-query verify: as ditl_paged_tail_f32 with q and o (B, Q, H,
+// D), n_q = Q, and the workspace's H / K rows replaced by R = Q * H / K <=
+// 80.
+extern "C" int ditl_paged_verify_f32(const void* q, const void* k_pages, const void* v_pages,
+                                     const void* table, const void* lengths,
+                                     const void* starts, const void* tail_k,
+                                     const void* tail_v, void* o, void* part_acc,
+                                     void* part_ml, int batch, int n_q, int heads,
+                                     int kv_heads, int head_dim, int page_size, int max_pages,
+                                     int n_pool, int tail_len, int split, float scale,
+                                     void* stream) {
+  const Params p = make_params(q, k_pages, v_pages, table, lengths, starts, tail_k, tail_v, o,
+                               part_acc, part_ml, kv_heads, page_size, max_pages, n_pool,
+                               tail_len, split, scale);
+  return dispatch<true>(p, batch, n_q, true, heads, head_dim, stream);
+}
+
+// K4-f32: the same without a tail; pages up to lengths; n_split =
+// ceil(maxp * ps / split).
+extern "C" int ditl_paged_f32(const void* q, const void* k_pages, const void* v_pages,
+                              const void* table, const void* lengths, void* o, void* part_acc,
+                              void* part_ml, int batch, int heads, int kv_heads, int head_dim,
+                              int page_size, int max_pages, int n_pool, int split, float scale,
+                              void* stream) {
+  const Params p = make_params(q, k_pages, v_pages, table, lengths, nullptr, nullptr, nullptr,
+                               o, part_acc, part_ml, kv_heads, page_size, max_pages, n_pool, 0,
+                               split, scale);
+  return dispatch<false>(p, batch, 1, false, heads, head_dim, stream);
+}

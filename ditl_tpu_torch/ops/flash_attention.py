@@ -6,13 +6,22 @@ Hopper:
 
 - K1 ``csrc/flash_fwd.cu`` replaces ``_fwd_kernel``;
 - K2a (``ditl_flash_bwd_dq_bf16``) and K2b (``ditl_flash_bwd_dkv_bf16``) in
-  ``csrc/flash_bwd.cu`` replace ``_dq_kernel`` and ``_dkv_kernel``.
+  ``csrc/flash_bwd.cu`` replace ``_dq_kernel`` and ``_dkv_kernel``;
+- on float32 operands, K1-f32, K2a-f32 and K2b-f32 in ``csrc/flash_f32.cu``
+  (``ditl_flash_fwd_f32``, ``ditl_flash_bwd_dq_f32``,
+  ``ditl_flash_bwd_dkv_f32``) replace the same three kernels, which the
+  reference runs for any float dtype with f32 sums.
 
+- ``kernel_route`` is the one rule for which entry points a CUDA call takes,
+  from (dtype, head_dim): bf16 at D in ``HEAD_DIMS``, f32 at D in
+  ``F32_HEAD_DIMS``; anything else raises ``NotImplementedError`` naming
+  ROADMAP.md §2.
 - ``flash_attention_fwd`` / ``flash_attention_bwd`` are the wrappers: they
   check their inputs and, for CUDA tensors, launch the kernels or raise.
   Only for CPU tensors do they run ``flash_attention_plain`` /
   ``flash_attention_bwd_plain``. ``launches``, ``launches_dq`` and
-  ``launches_dkv`` count kernel launches.
+  ``launches_dkv`` count the bf16 kernels' launches, ``launches_f32``,
+  ``launches_dq_f32`` and ``launches_dkv_f32`` the f32 ones'.
 - ``flash_attention_plain`` computes what ``_fwd_kernel`` computes, in one
   pass instead of blockwise: q pre-scaled in f32, the q.k product in f32, the
   finite ``NEG_INF`` mask, p cast to v's dtype before the p.v product (f32
@@ -39,6 +48,7 @@ lane-replicated copy without the lanes).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -48,9 +58,20 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain", "tile_schedule",
            "fwd_block_kv", "FWD_BLOCK_Q", "FWD_WARPGROUP_ROWS", "BWD_DQ_BLOCK_Q",
            "BWD_DKV_BLOCK_KV", "BWD_DKV_BLOCK_Q", "BWD_DKV_WARPGROUP_KEYS", "HEAD_DIMS",
-           "launches", "launches_dq", "launches_dkv", "reset_launches"]
+           "F32_HEAD_DIMS", "F32_BLOCK", "F32_MAX_SEQ", "Route", "kernel_route",
+           "launches", "launches_dq", "launches_dkv", "launches_f32", "launches_dq_f32",
+           "launches_dkv_f32", "reset_launches"]
 
-HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
+HEAD_DIMS = (32, 64, 128)  # the bf16 kernels' template instances
+# The f32 kernels' instances: the reference's own head dims below 256
+# (``supports``: D = 64 or D % 128 == 0).
+F32_HEAD_DIMS = (64, 128)
+# The f32 kernels' tiles (csrc/flash_f32.cu): 64 query rows by 64 keys for
+# K1-f32, K2a-f32 and K2b-f32 alike, so ``tile_schedule(ids, causal, s, s,
+# F32_BLOCK, F32_BLOCK)`` is the map of each; a block marks at most 4096
+# tiles (F32_MAX_SEQ positions).
+F32_BLOCK = 64
+F32_MAX_SEQ = 4096 * F32_BLOCK
 # K1's tiles (csrc/flash_fwd.cu): a block owns FWD_BLOCK_Q query rows, each
 # of its two consumer warpgroups FWD_WARPGROUP_ROWS of them, and walks the
 # keys in tiles of fwd_block_kv(head_dim).
@@ -74,47 +95,70 @@ def fwd_block_kv(head_dim: int) -> int:
     return 128 if head_dim == 32 else 64
 
 # Kernel launches since the last reset_launches(); counted where each kernel
-# is launched and nowhere else: K1, K2a, K2b.
+# is launched and nowhere else: K1, K2a, K2b on bf16, and on f32.
 launches = 0
 launches_dq = 0
 launches_dkv = 0
+launches_f32 = 0
+launches_dq_f32 = 0
+launches_dkv_f32 = 0
 
-_fn = None
-_bwd_fns = None
+_fns: dict[str, ctypes._CFuncPtr] = {}
+# Pointer arguments of each kind of entry point; then 7 ints, the scale and
+# the stream.
+_PTRS = {"fwd": 6, "dq": 8, "dkv": 9}
 
 
 def reset_launches() -> None:
     global launches, launches_dq, launches_dkv
+    global launches_f32, launches_dq_f32, launches_dkv_f32
     launches = launches_dq = launches_dkv = 0
+    launches_f32 = launches_dq_f32 = launches_dkv_f32 = 0
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+class Route(NamedTuple):
+    """The CUDA entry points of one (dtype, head_dim): each as (source in
+    ``csrc/``, symbol)."""
+    fwd: tuple[str, str]
+    dq: tuple[str, str]
+    dkv: tuple[str, str]
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> Route:
+    """Which kernels a CUDA call on ``dtype`` operands at ``head_dim`` runs:
+    bf16 at D in ``HEAD_DIMS`` (csrc/flash_fwd.cu, csrc/flash_bwd.cu), f32 at
+    D in ``F32_HEAD_DIMS`` (csrc/flash_f32.cu). Other dtypes (float16) and
+    head dims (D = 256), which the reference computes, raise
+    ``NotImplementedError`` naming ROADMAP.md §2."""
+    if dtype == torch.bfloat16 and head_dim in HEAD_DIMS:
+        return Route(("flash_fwd.cu", "ditl_flash_fwd_bf16"),
+                     ("flash_bwd.cu", "ditl_flash_bwd_dq_bf16"),
+                     ("flash_bwd.cu", "ditl_flash_bwd_dkv_bf16"))
+    if dtype == torch.float32 and head_dim in F32_HEAD_DIMS:
+        return Route(("flash_f32.cu", "ditl_flash_fwd_f32"),
+                     ("flash_f32.cu", "ditl_flash_bwd_dq_f32"),
+                     ("flash_f32.cu", "ditl_flash_bwd_dkv_f32"))
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(
+            f"the CUDA flash kernels take bfloat16 or float32, got {dtype}: not "
+            "ported yet (ROADMAP.md §2; attention_impl='xla' runs it)")
+    dims = HEAD_DIMS if dtype == torch.bfloat16 else F32_HEAD_DIMS
+    raise NotImplementedError(
+        f"the CUDA flash kernels take {dtype} at head_dim in {dims}, got head_dim "
+        f"{head_dim}: not ported yet (ROADMAP.md §2; attention_impl='xla' runs it)")
+
+
+def _kernel(entry: tuple[str, str], kind: str):
+    fn = _fns.get(entry[1])
+    if fn is None:
         from ditl_tpu_torch.ops.cuda_build import load_library
 
-        fn = load_library("flash_fwd.cu").ditl_flash_fwd_bf16
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        fn = getattr(load_library(entry[0]), entry[1])
+        fn.argtypes = [ctypes.c_void_p] * _PTRS[kind] + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
-def _bwd_kernels():
-    global _bwd_fns
-    if _bwd_fns is None:
-        from ditl_tpu_torch.ops.cuda_build import load_library
-
-        lib = load_library("flash_bwd.cu")
-        dq_fn, dkv_fn = lib.ditl_flash_bwd_dq_bf16, lib.ditl_flash_bwd_dkv_bf16
-        dq_fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p]
-        dkv_fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p]
-        dq_fn.restype = dkv_fn.restype = ctypes.c_int
-        _bwd_fns = (dq_fn, dkv_fn)
-    return _bwd_fns
+        _fns[entry[1]] = fn
+    return fn
 
 
 def _check(q, k, v, segment_ids) -> None:
@@ -142,33 +186,28 @@ def _check(q, k, v, segment_ids) -> None:
             raise ValueError("segment_ids must be on q's device")
 
 
-def _check_cuda(segment_ids, **tensors) -> int | None:
-    """What the CUDA kernels take: bf16, contiguous, 16-byte aligned,
-    head_dim in ``HEAD_DIMS``, int32 segment ids. Returns the segment ids'
-    pointer (None without them). Other dtypes and head dims, which the
-    reference computes, raise ``NotImplementedError`` (ROADMAP.md §2 D)."""
+def _check_cuda(segment_ids, **tensors) -> tuple[Route, int | None]:
+    """What the CUDA kernels take: ``kernel_route``'s dtypes and head dims
+    (anything else raises ``NotImplementedError``), contiguous, 16-byte
+    aligned, int32 segment ids; f32 sequences up to ``F32_MAX_SEQ``. Returns
+    the route and the segment ids' pointer (None without them)."""
     q = tensors["q"]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the CUDA flash kernels take bfloat16, got {q.dtype}: other dtypes "
-            "are not ported yet (ROADMAP.md §2 D; attention_impl='xla' runs them)"
-        )
-    if q.shape[3] not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"the CUDA flash kernels take head_dim in {HEAD_DIMS}, got "
-            f"{q.shape[3]}: not ported yet (ROADMAP.md §2 D)")
+    route = kernel_route(q.dtype, q.shape[3])
+    if q.dtype == torch.float32 and max(q.shape[1], tensors["k"].shape[1]) > F32_MAX_SEQ:
+        raise ValueError(f"the f32 flash kernels take sequences up to {F32_MAX_SEQ}, "
+                         f"got q {tuple(q.shape)} k {tuple(tensors['k'].shape)}")
     for name, t in tensors.items():
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} must be {q.dtype} on {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if segment_ids is None:
-        return None
+        return route, None
     if segment_ids.dtype != torch.int32 or not segment_ids.is_contiguous():
         raise ValueError("segment_ids must be contiguous int32")
-    return segment_ids.data_ptr()
+    return route, segment_ids.data_ptr()
 
 
 def _mask(s_q, s_kv, causal, segment_ids, device):
@@ -262,28 +301,31 @@ def flash_attention_fwd(
     causal: bool = True,
     segment_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse). CUDA tensors launch the kernel (bf16, contiguous, head_dim
-    in ``HEAD_DIMS``) or raise; CPU tensors run the plain version."""
-    global launches
+    """(o, lse). CUDA tensors launch K1 or K1-f32 (``kernel_route``;
+    contiguous) or raise; CPU tensors run the plain version."""
+    global launches, launches_f32
     _check(q, k, v, segment_ids)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      segment_ids=segment_ids)
-    seg_ptr = _check_cuda(segment_ids, q=q, k=k, v=v)
+    route, seg_ptr = _check_cuda(segment_ids, q=q, k=k, v=v)
     b, s_q, h, d = q.shape
     s_kv, kv_heads = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(
+        err = _kernel(route.fwd, "fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr, o.data_ptr(),
             lse.data_ptr(), b, s_q, s_kv, h, kv_heads, d, int(causal),
             d**-0.5, stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{route.fwd[1]} kernel launch failed: CUDA error {err}")
+    if q.dtype == torch.float32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return o, lse
 
 
@@ -332,10 +374,10 @@ def flash_attention_bwd(
     segment_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's inputs, its o and lse, and the
-    output's gradient ``do``. CUDA tensors launch K2a then K2b (bf16,
-    contiguous, head_dim in ``HEAD_DIMS``) or raise; CPU tensors run the
+    output's gradient ``do``. CUDA tensors launch K2a then K2b, or their f32
+    forms (``kernel_route``; contiguous), or raise; CPU tensors run the
     plain version."""
-    global launches_dq, launches_dkv
+    global launches_dq, launches_dkv, launches_dq_f32, launches_dkv_f32
     _check(q, k, v, segment_ids)
     b, s_q, h, d = q.shape
     s_kv, kv_heads = k.shape[1], k.shape[2]
@@ -346,7 +388,7 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          segment_ids=segment_ids)
-    seg_ptr = _check_cuda(segment_ids, q=q, k=k, v=v, o=o, do=do)
+    route, seg_ptr = _check_cuda(segment_ids, q=q, k=k, v=v, o=o, do=do)
     if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError("lse must be contiguous float32 on q's device")
     # delta = rowsum(do * o) in f32, outside the kernels as in the reference
@@ -355,7 +397,8 @@ def flash_attention_bwd(
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    dq_fn, dkv_fn = _bwd_kernels()
+    dq_fn, dkv_fn = _kernel(route.dq, "dq"), _kernel(route.dkv, "dkv")
+    f32 = q.dtype == torch.float32
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -363,12 +406,18 @@ def flash_attention_bwd(
         sizes = (b, s_q, s_kv, h, kv_heads, d, int(causal), d**-0.5, stream)
         err = dq_fn(*common, dq.data_ptr(), *sizes)
         if err != 0:
-            raise RuntimeError(f"flash_bwd dq kernel launch failed: CUDA error {err}")
-        launches_dq += 1
+            raise RuntimeError(f"{route.dq[1]} kernel launch failed: CUDA error {err}")
+        if f32:
+            launches_dq_f32 += 1
+        else:
+            launches_dq += 1
         err = dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes)
         if err != 0:
-            raise RuntimeError(f"flash_bwd dkv kernel launch failed: CUDA error {err}")
-        launches_dkv += 1
+            raise RuntimeError(f"{route.dkv[1]} kernel launch failed: CUDA error {err}")
+        if f32:
+            launches_dkv_f32 += 1
+        else:
+            launches_dkv += 1
     return dq, dk, dv
 
 

@@ -70,6 +70,14 @@ twin and the kernels all apply it.
   each split's partial tile by tile, then the combine (the tests hold it to
   the JAX package; it is on no serving path).
 
+- **On float32 operands** (``csrc/paged_attention_f32.cu``, the same Pallas
+  kernels, which the reference runs for any float dtype with f32 sums):
+  ``ditl_paged_tail_f32`` (K3-f32), ``ditl_paged_verify_f32`` (its verify)
+  and ``ditl_paged_f32`` (K4-f32), counted in ``launches_tail_f32``,
+  ``launches_verify_f32`` and ``launches_f32``. ``kernel_route`` picks the
+  entry point from (q's dtype, int8 pools, verify, tail): f32 q over int8
+  pools and float16 raise ``NotImplementedError`` naming ROADMAP.md §2.
+
 Layouts are the JAX package's: q (B, H, D) or (B, Q, H, D); pools (P, K,
 ps, D); page table (B, maxp) int32; lengths and starts (B,) int32; tails
 (B, K, T, D); output shaped as q.
@@ -86,9 +94,10 @@ import torch
 from ditl_tpu_torch.ops.attention import NEG_INF
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_attention_split_plain",
-           "split_count", "HEAD_DIMS", "MAX_GROUPS", "MAX_VERIFY_ROWS", "SPLIT_KEYS",
-           "TILE_KEYS", "launches", "launches_tail", "launches_tail_int8",
-           "launches_verify", "launches_verify_int8", "reset_launches"]
+           "split_count", "kernel_route", "HEAD_DIMS", "MAX_GROUPS", "MAX_VERIFY_ROWS",
+           "SPLIT_KEYS", "TILE_KEYS", "launches", "launches_tail", "launches_tail_int8",
+           "launches_verify", "launches_verify_int8", "launches_f32", "launches_tail_f32",
+           "launches_verify_f32", "reset_launches"]
 
 HEAD_DIMS = (64, 128)  # the kernels' template instances
 MAX_GROUPS = 8  # query heads per KV head the kernels take
@@ -101,32 +110,65 @@ TILE_KEYS = 64  # keys per tile inside a split (csrc kTile)
 SPLIT_KEYS = 128
 
 # Kernel launches since the last reset_launches(); counted where each kernel
-# is launched and nowhere else. ``launches_tail`` is K3 over float pools,
+# is launched and nowhere else. ``launches_tail`` is K3 over bf16 pools,
 # ``launches_tail_int8`` K3 over int8 pools, ``launches_verify`` and
-# ``launches_verify_int8`` its multi-query verify over float and int8 pools,
-# ``launches`` K4.
+# ``launches_verify_int8`` its multi-query verify over bf16 and int8 pools,
+# ``launches`` K4; ``launches_tail_f32``, ``launches_verify_f32`` and
+# ``launches_f32`` the same three over f32 q, tails and pools.
 launches = 0
 launches_tail = 0
 launches_tail_int8 = 0
 launches_verify = 0
 launches_verify_int8 = 0
+launches_f32 = 0
+launches_tail_f32 = 0
+launches_verify_f32 = 0
 
 _fns: dict[str, ctypes._CFuncPtr] = {}
 # Entry point -> (pointer arguments, int arguments), then the scale and the
 # stream.
 _ARGS = {"ditl_paged_tail_bf16": (11, 9), "ditl_paged_tail_i8": (13, 9),
          "ditl_paged_verify_bf16": (11, 10), "ditl_paged_verify_i8": (13, 10),
-         "ditl_paged_bf16": (8, 8)}
+         "ditl_paged_bf16": (8, 8), "ditl_paged_tail_f32": (11, 9),
+         "ditl_paged_verify_f32": (11, 10), "ditl_paged_f32": (8, 8)}
+# Entry point -> its launch counter.
+_COUNTERS = {"ditl_paged_tail_bf16": "launches_tail",
+             "ditl_paged_tail_i8": "launches_tail_int8",
+             "ditl_paged_verify_bf16": "launches_verify",
+             "ditl_paged_verify_i8": "launches_verify_int8", "ditl_paged_bf16": "launches",
+             "ditl_paged_tail_f32": "launches_tail_f32",
+             "ditl_paged_verify_f32": "launches_verify_f32", "ditl_paged_f32": "launches_f32"}
 
 
 def reset_launches() -> None:
-    global launches, launches_tail, launches_tail_int8, launches_verify
-    global launches_verify_int8
-    launches = 0
-    launches_tail = 0
-    launches_tail_int8 = 0
-    launches_verify = 0
-    launches_verify_int8 = 0
+    for name in _COUNTERS.values():
+        globals()[name] = 0
+
+
+def kernel_route(dtype: torch.dtype, *, int8: bool, verify: bool, tail: bool) -> str:
+    """The entry point a CUDA call takes: bf16 q over bf16 or int8 pools
+    (``csrc/paged_attention.cu``), f32 q over f32 pools
+    (``csrc/paged_attention_f32.cu``); K3 with a tail, its verify for a 4-D
+    q with Q > 1, K4 without a tail (never over int8 pools). f32 q over
+    int8 pools (ROADMAP.md §2 variant F) and float16 raise
+    ``NotImplementedError``."""
+    if dtype == torch.bfloat16:
+        suffix = "_i8" if int8 else "_bf16"
+    elif dtype == torch.float32 and not int8:
+        suffix = "_f32"
+    elif dtype == torch.float32:
+        raise NotImplementedError(
+            "the CUDA paged-attention kernels take float32 q over float32 pools; f32 q "
+            "over int8 pools is not ported yet (ROADMAP.md §2 variant F)")
+    else:
+        raise NotImplementedError(
+            f"the CUDA paged-attention kernels take bfloat16 or float32, got {dtype}: "
+            "not ported yet (ROADMAP.md §2)")
+    if not tail:
+        if int8 or verify:
+            raise ValueError("int8 pools and the multi-query verify need the tail path")
+        return "ditl_paged" + suffix
+    return ("ditl_paged_verify" if verify else "ditl_paged_tail") + suffix
 
 
 def _kernel(name: str):
@@ -134,7 +176,8 @@ def _kernel(name: str):
     if fn is None:
         from ditl_tpu_torch.ops.cuda_build import load_library
 
-        fn = getattr(load_library("paged_attention.cu"), name)
+        source = "paged_attention_f32.cu" if name.endswith("_f32") else "paged_attention.cu"
+        fn = getattr(load_library(source), name)
         n_ptr, n_int = _ARGS[name]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -427,12 +470,11 @@ def paged_attention(
     K3 (with a tail; ``ditl_paged_tail_i8`` over int8 pools with
     ``k_scale``/``v_scale``; the verify entry points for a 4-D q with Q > 1,
     at most ``MAX_VERIFY_ROWS`` query rows per KV head) or K4 (without):
-    bf16 q and tails, bf16 or int8 pools, f32 scales, int32 table, lengths
-    and starts, all contiguous, head_dim in ``HEAD_DIMS``, at most
-    ``MAX_GROUPS`` query heads per KV head; anything else raises. CPU
-    tensors run the plain version."""
-    global launches, launches_tail, launches_tail_int8, launches_verify
-    global launches_verify_int8
+    bf16 q and tails over bf16 or int8 pools, or f32 q, tails and pools
+    (``kernel_route``), f32 scales, int32 table, lengths and starts, all
+    contiguous, head_dim in ``HEAD_DIMS``, at most ``MAX_GROUPS`` query
+    heads per KV head; anything else raises. CPU tensors run the plain
+    version."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded paged attention is not ported to PyTorch yet "
@@ -466,21 +508,20 @@ def paged_attention(
     if tail:
         floats += [("tail_k", tail_k), ("tail_v", tail_v)]
         ints += [("starts", starts)]
-    for name, t in floats:
-        if t.dtype != torch.bfloat16:
-            raise ValueError(
-                f"the CUDA paged-attention kernels take bfloat16, got {name} "
-                f"{t.dtype} (see ROADMAP.md for other dtypes)"
-            )
-    for name, t in ints:
+    name = kernel_route(q.dtype, int8=quant, verify=verify, tail=tail)
+    for t_name, t in floats:
+        if t.dtype != q.dtype:
+            raise ValueError(f"the CUDA paged-attention kernels take q, tails and float "
+                             f"pools of one dtype, got q {q.dtype} and {t_name} {t.dtype}")
+    for t_name, t in ints:
         if t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {t.dtype}")
-    for name, t in floats + (pools if quant else []):
+            raise ValueError(f"{t_name} must be int32, got {t.dtype}")
+    for t_name, t in floats + (pools if quant else []):
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    for name, t in ints:
+            raise ValueError(f"{t_name} must be contiguous and 16-byte aligned")
+    for t_name, t in ints:
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{t_name} must be contiguous")
     if d not in HEAD_DIMS:
         raise ValueError(f"the CUDA paged-attention kernels take head_dim in "
                          f"{HEAD_DIMS}, got {d} (see ROADMAP.md)")
@@ -511,28 +552,17 @@ def paged_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if tail:
-            name = (("ditl_paged_verify" if verify else "ditl_paged_tail")
-                    + ("_i8" if quant else "_bf16"))
             err = _kernel(name)(
                 q.data_ptr(), *pools_ptr, page_table.data_ptr(), lengths.data_ptr(),
                 starts.data_ptr(), tail_k.data_ptr(), tail_v.data_ptr(), o.data_ptr(),
                 *work, *batch, *shape, t_len, SPLIT_KEYS, d**-0.5, stream,
             )
         else:
-            err = _kernel("ditl_paged_bf16")(
+            err = _kernel(name)(
                 q.data_ptr(), *pools_ptr, page_table.data_ptr(), lengths.data_ptr(),
                 o.data_ptr(), *work, *batch, *shape, SPLIT_KEYS, d**-0.5, stream,
             )
     if err != 0:
-        raise RuntimeError(f"paged attention kernel launch failed: CUDA error {err}")
-    if verify and quant:
-        launches_verify_int8 += 1
-    elif verify:
-        launches_verify += 1
-    elif quant:
-        launches_tail_int8 += 1
-    elif tail:
-        launches_tail += 1
-    else:
-        launches += 1
+        raise RuntimeError(f"paged attention kernel {name} launch failed: CUDA error {err}")
+    globals()[_COUNTERS[name]] += 1
     return o

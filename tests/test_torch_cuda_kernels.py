@@ -37,9 +37,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(cuda, b, s_q, s_kv, h, kv, d, lengths=None, seed=0):
+def _inputs(cuda, b, s_q, s_kv, h, kv, d, lengths=None, seed=0, dtype=torch.bfloat16):
     g = torch.Generator(device=cuda).manual_seed(seed)
-    q, k, v = (torch.randn(shape, generator=g, device=cuda).bfloat16()
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
                for shape in ((b, s_q, h, d), (b, s_kv, kv, d), (b, s_kv, kv, d)))
     seg = None
     if lengths is not None:
@@ -119,18 +119,22 @@ def test_flash_fwd_kernel_raises_instead_of_falling_back(cuda):
     ROADMAP.md."""
     q, k, v, _ = _inputs(cuda, 1, 64, 64, 4, 2, 128)
     tfa.reset_launches()
-    with pytest.raises(NotImplementedError, match="bfloat16.*ROADMAP"):
-        tfa.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(NotImplementedError, match="float16.*ROADMAP"):
+        tfa.flash_attention(q.half(), k.half(), v.half())
     q48, k48, v48, _ = _inputs(cuda, 1, 64, 64, 4, 2, 48)
     with pytest.raises(NotImplementedError, match="head_dim.*ROADMAP"):
         tfa.flash_attention(q48, k48, v48)
+    for dtype in (torch.bfloat16, torch.float32):  # D = 256 in either dtype
+        q256, k256, v256, _ = _inputs(cuda, 1, 64, 64, 4, 2, 256, dtype=dtype)
+        with pytest.raises(NotImplementedError, match="head_dim.*ROADMAP"):
+            tfa.flash_attention(q256, k256, v256)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
-    assert tfa.launches == 0
+    assert tfa.launches == tfa.launches_f32 == 0
 
 
 def _paged_inputs(cuda, b, h, kv, d, ps, n_pool, tail_len, lengths, starts, seed=0,
-                  nq=None, maxp=None):
+                  nq=None, maxp=None, dtype=torch.bfloat16):
     """Pools, tails and a table giving each slot its own pages for
     ceil(min(starts, lengths) / ps) blocks in ``maxp`` columns (default:
     the most any slot needs); rows 1 and 2 share their first physical page
@@ -138,7 +142,7 @@ def _paged_inputs(cuda, b, h, kv, d, ps, n_pool, tail_len, lengths, starts, seed
     g = torch.Generator(device=cuda).manual_seed(seed)
 
     def rnd(*shape):
-        return torch.randn(shape, generator=g, device=cuda).bfloat16()
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
 
     q = rnd(b, h, d) if nq is None else rnd(b, nq, h, d)
     kp, vp = rnd(n_pool, kv, ps, d), rnd(n_pool, kv, ps, d)
@@ -241,8 +245,14 @@ def test_paged_kernels_raise_instead_of_falling_back(cuda):
     q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
         cuda, 4, 8, 4, 64, 16, 64, 8, [0, 5, 38, 50], [0, 0, 32, 45])
     tpa.reset_launches()
-    with pytest.raises(ValueError, match="bfloat16"):
-        tpa.paged_attention(q.float(), kp.float(), vp.float(), table, lens)
+    with pytest.raises(NotImplementedError, match="float16.*ROADMAP"):
+        tpa.paged_attention(q.half(), kp.half(), vp.half(), table, lens)
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    with pytest.raises(NotImplementedError, match="int8 pools.*ROADMAP.*variant F"):
+        tpa.paged_attention(q.float(), kq, vq, table, lens, tail_k=tk.float(),
+                            tail_v=tv.float(), starts=st, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="one dtype"):  # f32 q over bf16 pools
+        tpa.paged_attention(q.float(), kp, vp, table, lens)
     with pytest.raises(ValueError, match="multi-query"):  # a verify without a tail
         tpa.paged_attention(q[:, None].expand(-1, 3, -1, -1).contiguous(), kp, vp, table,
                             lens)
@@ -258,7 +268,7 @@ def test_paged_kernels_raise_instead_of_falling_back(cuda):
                             k_scale=scale, v_scale=scale)
     with pytest.raises(ValueError, match="int32"):
         tpa.paged_attention(q, kp, vp, table.long(), lens)
-    assert (tpa.launches, tpa.launches_tail, tpa.launches_verify) == (0, 0, 0)
+    assert all(getattr(tpa, n) == 0 for n in tpa._COUNTERS.values())
 
 
 def _int8_pools(kp, vp):
@@ -437,12 +447,12 @@ def test_paged_single_query_kernels_keep_their_digests(cuda):
     assert chip_smoke._k3_digests(tpa) == chip_smoke.K3_DIGESTS
 
 
-def _bwd_inputs(cuda, b, s_q, s_kv, h, kv, d, causal, seg, seed=0):
+def _bwd_inputs(cuda, b, s_q, s_kv, h, kv, d, causal, seg, seed=0, dtype=torch.bfloat16):
     """Forward through K1 (its o and lse), then a random upstream gradient."""
-    q, k, v, _ = _inputs(cuda, b, s_q, s_kv, h, kv, d, seed=seed)
+    q, k, v, _ = _inputs(cuda, b, s_q, s_kv, h, kv, d, seed=seed, dtype=dtype)
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
     g = torch.Generator(device=cuda).manual_seed(seed + 1)
-    do = torch.randn(o.shape, generator=g, device=cuda).bfloat16()
+    do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
     return q, k, v, o, lse, do
 
 
@@ -547,14 +557,17 @@ def test_flash_attention_autograd_launches_k1_k2(cuda):
 def test_flash_bwd_raises_instead_of_falling_back(cuda):
     q, k, v, o, lse, do = _bwd_inputs(cuda, 1, 64, 64, 4, 2, 128, True, None)
     tfa.reset_launches()
-    with pytest.raises(NotImplementedError, match="bfloat16.*ROADMAP"):
-        tfa.flash_attention_bwd(q.float(), k.float(), v.float(), o.float(), lse,
-                                do.float())
+    with pytest.raises(NotImplementedError, match="float16.*ROADMAP"):
+        tfa.flash_attention_bwd(q.half(), k.half(), v.half(), o.half(), lse, do.half())
+    q256, k256, v256, _ = _inputs(cuda, 1, 64, 64, 4, 2, 256, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="head_dim.*ROADMAP"):
+        tfa.flash_attention_bwd(q256, k256, v256, q256, lse, q256)
     with pytest.raises(ValueError, match="lse"):
         tfa.flash_attention_bwd(q, k, v, o, lse.bfloat16(), do)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_bwd(q, k, v, o, lse, do.transpose(1, 2).contiguous().transpose(1, 2))
-    assert (tfa.launches_dq, tfa.launches_dkv) == (0, 0)
+    assert (tfa.launches_dq, tfa.launches_dkv, tfa.launches_dq_f32,
+            tfa.launches_dkv_f32) == (0, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -762,3 +775,179 @@ def test_mlp_and_projection_bwd_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="tile"):
         tpr.projection_bwd(h[:, :50], w_gu, h[:, :50])
     assert (tmb.launches_dgu, tmb.launches_dh, tpr.launches) == (0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# The f32 kernels: K1-f32, K2a-f32, K2b-f32 (csrc/flash_f32.cu) and K3-f32,
+# its verify and K4-f32 (csrc/paged_attention_f32.cu)
+# ---------------------------------------------------------------------------
+
+# f32 tolerances: the kernels and the plain versions take the same f32
+# operands with f32 sums in other orders (FFMA chains against cuBLAS's f32
+# GEMMs, TF32 off) and the same exponent, so they differ by f32 round-off:
+# o and lse within F32_TOL, each gradient within F32_TOL of its own largest
+# magnitude, paged attention within PAGED_F32_TOL (the reference's own f32
+# tolerance, tests/test_torch_paged.py).
+F32_TOL = 1e-4
+PAGED_F32_TOL = 2e-5
+
+# (b, s_q, s_kv, h, kv, d, causal, seg): the serving prefill (right-padded,
+# G = 4), the training pipeline's packed rows at qwen2-0.5b's heads (G = 7,
+# D = 64), G = 7 with ids that go up and down, non-causal Sq < Skv, causal
+# Sq > Skv, a boundary one row past a tile edge, MQA.
+F32_FLASH_CASES = [
+    (4, 512, 512, 32, 8, 128, True, [512, 401, 230, 97]),
+    (4, 2048, 2048, 14, 2, 64, True, "train"),
+    (2, 300, 300, 14, 2, 64, True, "nonmono"),
+    (2, 200, 333, 8, 2, 64, False, None),
+    (2, 333, 200, 8, 2, 128, True, None),
+    (1, 257, 257, 4, 2, 128, True, "edge1"),
+    (1, 129, 129, 4, 1, 128, True, None),
+    (2, 300, 300, 4, 2, 64, False, "edge1"),
+]
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    """The plain versions' f32 products in full f32."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _f32_case(cuda, b, s_q, s_kv, h, kv, d, seg, seed=0):
+    lengths = seg if isinstance(seg, list) else None
+    q, k, v, ids = _inputs(cuda, b, s_q, s_kv, h, kv, d, lengths, seed=seed,
+                           dtype=torch.float32)
+    if isinstance(seg, str):
+        ids = _segment_ids(cuda, seg, b, s_q)
+    return q, k, v, ids
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("b,s_q,s_kv,h,kv,d,causal,seg", F32_FLASH_CASES)
+def test_flash_f32_fwd_kernel_matches_plain(no_tf32, b, s_q, s_kv, h, kv, d, causal, seg):
+    q, k, v, ids = _f32_case(no_tf32, b, s_q, s_kv, h, kv, d, seg)
+    tfa.reset_launches()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=ids)
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, causal=causal, segment_ids=ids)
+    torch.cuda.synchronize()
+    assert (tfa.launches_f32, tfa.launches) == (1, 0)
+    assert o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+    torch.testing.assert_close(o, o_ref, atol=F32_TOL, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=F32_TOL, rtol=0)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("b,s_q,s_kv,h,kv,d,causal,seg", F32_FLASH_CASES)
+def test_flash_f32_bwd_kernels_match_plain(no_tf32, b, s_q, s_kv, h, kv, d, causal, seg):
+    q, k, v, ids = _f32_case(no_tf32, b, s_q, s_kv, h, kv, d, seg)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=ids)
+    do = torch.randn(o.shape, generator=torch.Generator(device=no_tf32).manual_seed(1),
+                     device=no_tf32)
+    tfa.reset_launches()
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=ids)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         segment_ids=ids)
+    torch.cuda.synchronize()
+    assert (tfa.launches_dq_f32, tfa.launches_dkv_f32, tfa.launches_dq) == (1, 1, 0)
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == ref.shape and x.dtype == torch.float32, name
+        assert bool(torch.isfinite(x).all()), name
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(x, ref, rtol=0, atol=F32_TOL * scale, msg=name)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("case", [0, 1])
+def test_flash_f32_kernels_are_bitwise_repeatable(no_tf32, case):
+    """Every f32 block owns its outputs and sums in one fixed order: two
+    calls of each kernel give the same bits."""
+    b, s_q, s_kv, h, kv, d, causal, seg = F32_FLASH_CASES[case]
+    q, k, v, ids = _f32_case(no_tf32, b, s_q, s_kv, h, kv, d, seg)
+    fwd = [tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=ids) for _ in range(2)]
+    o, lse = fwd[0]
+    do = torch.randn_like(o)
+    bwd = [tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=ids)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*fwd))
+    assert all(torch.equal(x, y) for x, y in zip(*bwd))
+
+
+@pytest.mark.torch_port
+def test_flash_attention_f32_autograd_launches_k1_k2(no_tf32):
+    """One forward and backward through ``flash_attention`` in f32 at G = 7:
+    one K1-f32, one K2a-f32, one K2b-f32, no bf16 kernel, and the gradients
+    of the plain attention's autograd."""
+    q, k, v, _ = _inputs(no_tf32, 2, 256, 256, 14, 2, 64, dtype=torch.float32)
+    seg = _packed_segments(no_tf32, 2, 256, 2)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    tfa.reset_launches()
+    out = tfa.flash_attention(*leaves, causal=True, segment_ids=seg)
+    grads = torch.autograd.grad(out.square().sum(), leaves)
+    torch.cuda.synchronize()
+    assert (tfa.launches_f32, tfa.launches_dq_f32, tfa.launches_dkv_f32) == (1, 1, 1)
+    assert (tfa.launches, tfa.launches_dq, tfa.launches_dkv) == (0, 0, 0)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref_out, _ = tfa.flash_attention_plain(*ref_leaves, causal=True, segment_ids=seg)
+    ref = torch.autograd.grad(ref_out.square().sum(), ref_leaves)
+    for name, x, r in zip(("dq", "dk", "dv"), grads, ref):
+        scale = float(r.abs().max())
+        torch.testing.assert_close(x, r, rtol=0, atol=F32_TOL * scale, msg=name)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("b,h,kv,d,ps,tail_len,lengths,starts", PAGED_CASES)
+def test_paged_f32_kernels_match_plain(no_tf32, b, h, kv, d, ps, tail_len, lengths, starts):
+    """K3-f32 and K4-f32 against the plain version and the split twin; two
+    calls give the same bits; a dead slot gives zeros."""
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, dtype=torch.float32)
+    low = torch.minimum(st, lens).contiguous()
+    tpa.reset_launches()
+    o3 = [tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st)
+          for _ in range(2)]
+    o4 = [tpa.paged_attention(q, kp, vp, table, low) for _ in range(2)]
+    r3 = tpa.paged_attention_plain(q, kp, vp, table, lens, tk, tv, st)
+    r4 = tpa.paged_attention_plain(q, kp, vp, table, low)
+    s3 = tpa.paged_attention_split_plain(q, kp, vp, table, lens, tk, tv, st)
+    s4 = tpa.paged_attention_split_plain(q, kp, vp, table, low)
+    torch.cuda.synchronize()
+    assert (tpa.launches_tail_f32, tpa.launches_f32, tpa.launches_tail, tpa.launches) == (
+        2, 2, 0, 0)
+    for o, r, s_ in ((o3, r3, s3), (o4, r4, s4)):
+        assert o[0].dtype == torch.float32 and torch.equal(o[0], o[1])
+        torch.testing.assert_close(o[0], r, atol=PAGED_F32_TOL, rtol=0)
+        torch.testing.assert_close(o[0], s_, atol=PAGED_F32_TOL, rtol=0)
+    dead = [i for i, n in enumerate(lengths) if n == 0]
+    assert all(bool((o3[0][i] == 0).all()) for i in dead)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("case", range(len(VERIFY_CASES)))
+def test_paged_f32_verify_kernel_matches_plain(no_tf32, case):
+    """K3-f32's verify against the plain version's 4-D branch and the split
+    twin; two calls give the same bits; a 4-D q with Q = 1 gives the 3-D
+    call's bits; each call counts one f32 verify launch."""
+    b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp = VERIFY_CASES[case]
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=case, nq=nq,
+        maxp=maxp, dtype=torch.float32)
+    tail = dict(tail_k=tk, tail_v=tv, starts=st)
+    tpa.reset_launches()
+    runs = [tpa.paged_attention(q, kp, vp, table, lens, **tail) for _ in range(2)]
+    assert (tpa.launches_verify_f32, tpa.launches_verify) == (2, 0)
+    r = tpa.paged_attention_plain(q, kp, vp, table, lens, tk, tv, st)
+    sp = tpa.paged_attention_split_plain(q, kp, vp, table, lens, tk, tv, st)
+    o41 = tpa.paged_attention(q[:, :1].contiguous(), kp, vp, table, lens, **tail)
+    o3 = tpa.paged_attention(q[:, 0].contiguous(), kp, vp, table, lens, **tail)
+    torch.cuda.synchronize()
+    o = runs[0]
+    assert o.shape == q.shape and torch.equal(runs[1], o)
+    torch.testing.assert_close(o, r, atol=PAGED_F32_TOL, rtol=0)
+    torch.testing.assert_close(o, sp, atol=PAGED_F32_TOL, rtol=0)
+    assert torch.equal(o41[:, 0], o3)
+    dead = [i for i, n in enumerate(lengths) if n == 0]
+    assert all(bool((o[i] == 0).all()) for i in dead)

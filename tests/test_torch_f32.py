@@ -1,0 +1,337 @@
+"""f32 serving and f32 training through the attention kernels, on the CPU.
+
+The JAX package's flash and paged kernels take any float dtype and sum in
+f32, so it serves and trains with ``model.dtype=float32`` through them. The
+port routes f32 operands on the card to its f32 kernels (K1-f32, K2a-f32,
+K2b-f32 in ``csrc/flash_f32.cu``; K3-f32, its verify and K4-f32 in
+``csrc/paged_attention_f32.cu``). Here, without a card, the wrappers run
+their plain versions; what this file holds:
+
+- the route from (dtype, head_dim) to the flash kernels' entry points, and
+  from (dtype, int8 pools, verify, tail) to the paged kernels' ones: which
+  entry point each case takes, and which cases raise naming ROADMAP.md §2;
+- a Qwen2-layout config (q/k/v biases, tied embeddings, 14 query / 2 KV
+  heads so G = 7, head_dim 64, 2 layers) in f32 with
+  ``attention_impl="flash"``: its parameters round-trip through the
+  converter bit for bit, three train steps equal the JAX package's through
+  its Pallas kernels in interpret mode (loss, grad norm, updated
+  parameters), and greedy tokens of both engines, and of the server built
+  with ``--override dtype=float32``, equal the JAX package's.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances are ``tests/test_torch_train.py``'s for f32: 1e-5 relative on
+the loss, 1e-4 on the grad norm, 1e-3 of each leaf's largest value on the
+parameters after three steps (the same arithmetic summed in other orders,
+with that file's two stated exceptions for near-zero leaves and elements).
+Greedy tokens must be identical (f32 compute).
+"""
+
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ditl_tpu.config import MeshConfig  # noqa: E402
+from ditl_tpu.config import ModelConfig as JModelConfig  # noqa: E402
+from ditl_tpu.config import TrainConfig as JTrainConfig  # noqa: E402
+from ditl_tpu.data.loader import make_global_batch  # noqa: E402
+from ditl_tpu.data.tokenizer import ByteTokenizer as JByteTokenizer  # noqa: E402
+from ditl_tpu.infer.continuous import ContinuousEngine as JEngine  # noqa: E402
+from ditl_tpu.infer.engine import GenerateConfig as JGenerateConfig  # noqa: E402
+from ditl_tpu.infer.engine import Generator as JGenerator  # noqa: E402
+from ditl_tpu.models import llama as jllama  # noqa: E402
+from ditl_tpu.runtime.mesh import build_mesh  # noqa: E402
+from ditl_tpu.train import state as jstate  # noqa: E402
+from ditl_tpu.train import step as jstep  # noqa: E402
+from ditl_tpu_torch.config import ModelConfig, TrainConfig  # noqa: E402
+from ditl_tpu_torch.data.tokenizer import ByteTokenizer  # noqa: E402
+from ditl_tpu_torch.infer import server as tserver  # noqa: E402
+from ditl_tpu_torch.infer.continuous import ContinuousEngine  # noqa: E402
+from ditl_tpu_torch.infer.engine import GenerateConfig, Generator  # noqa: E402
+from ditl_tpu_torch.models.convert import (  # noqa: E402
+    params_from_jax,
+    params_to_numpy,
+    train_params_from_jax,
+)
+from ditl_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+from ditl_tpu_torch.ops import paged_attention as tpa  # noqa: E402
+from ditl_tpu_torch.train import state as tstate  # noqa: E402
+from ditl_tpu_torch.train import step as tstep  # noqa: E402
+from test_torch_train import _assert_trees_close, _batch, _leaves  # noqa: E402
+
+torch.set_num_threads(1)
+
+# qwen2-0.5b's layout (models/presets.py) at a tiny width and depth: q/k/v
+# biases, tied embeddings, 14 query / 2 KV heads (G = 7), head_dim 64, its
+# rope theta and norm epsilon; f32 compute and masters, flash attention.
+QWEN2_TINY = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
+                  num_heads=14, num_kv_heads=2, head_dim=64, max_seq_len=256,
+                  rope_theta=1000000.0, rms_norm_eps=1e-6, attention_bias=True,
+                  tie_embeddings=True, dtype="float32", param_dtype="float32",
+                  attention_impl="flash")
+
+
+# ---------------------------------------------------------------------------
+# The routes
+# ---------------------------------------------------------------------------
+
+_FLASH_BF16 = ("flash_fwd.cu", "flash_bwd.cu", "_bf16")
+_FLASH_F32 = ("flash_f32.cu", "flash_f32.cu", "_f32")
+# (dtype, head_dim) -> (forward source, backward source, symbol suffix) or
+# the text the raise must carry.
+FLASH_ROUTES = {
+    ("bfloat16", 32): _FLASH_BF16, ("bfloat16", 64): _FLASH_BF16,
+    ("bfloat16", 128): _FLASH_BF16, ("bfloat16", 256): "head_dim 256.*ROADMAP.md §2",
+    ("float32", 32): "head_dim 32.*ROADMAP.md §2", ("float32", 64): _FLASH_F32,
+    ("float32", 128): _FLASH_F32, ("float32", 256): "head_dim 256.*ROADMAP.md §2",
+    ("float16", 32): "float16.*ROADMAP.md §2", ("float16", 64): "float16.*ROADMAP.md §2",
+    ("float16", 128): "float16.*ROADMAP.md §2", ("float16", 256): "float16.*ROADMAP.md §2",
+}
+
+
+@pytest.mark.parametrize("dtype,head_dim", sorted(FLASH_ROUTES))
+def test_flash_kernel_route(dtype, head_dim):
+    """``kernel_route``: bf16 at D in {32, 64, 128} keeps the bf16 kernels,
+    f32 at D in {64, 128} (the reference's own head dims below 256) takes
+    ``ditl_flash_*_f32``; float16 and D = 256 raise naming ROADMAP.md §2."""
+    want = FLASH_ROUTES[(dtype, head_dim)]
+    if isinstance(want, str):
+        with pytest.raises(NotImplementedError, match=want):
+            tfa.kernel_route(getattr(torch, dtype), head_dim)
+        return
+    route = tfa.kernel_route(getattr(torch, dtype), head_dim)
+    fwd_src, bwd_src, suffix = want
+    assert route.fwd == (fwd_src, "ditl_flash_fwd" + suffix)
+    assert route.dq == (bwd_src, "ditl_flash_bwd_dq" + suffix)
+    assert route.dkv == (bwd_src, "ditl_flash_bwd_dkv" + suffix)
+
+
+# (dtype, int8 pools, form) -> entry point or the text the raise carries.
+PAGED_ROUTES = {
+    ("bfloat16", False, "tail"): "ditl_paged_tail_bf16",
+    ("bfloat16", False, "verify"): "ditl_paged_verify_bf16",
+    ("bfloat16", False, "no_tail"): "ditl_paged_bf16",
+    ("bfloat16", True, "tail"): "ditl_paged_tail_i8",
+    ("bfloat16", True, "verify"): "ditl_paged_verify_i8",
+    ("float32", False, "tail"): "ditl_paged_tail_f32",
+    ("float32", False, "verify"): "ditl_paged_verify_f32",
+    ("float32", False, "no_tail"): "ditl_paged_f32",
+    ("float32", True, "tail"): "int8 pools.*ROADMAP.md §2 variant F",
+    ("float32", True, "verify"): "int8 pools.*ROADMAP.md §2 variant F",
+    ("float16", False, "tail"): "float16.*ROADMAP.md §2",
+    ("float16", False, "verify"): "float16.*ROADMAP.md §2",
+    ("float16", False, "no_tail"): "float16.*ROADMAP.md §2",
+    ("float16", True, "tail"): "float16.*ROADMAP.md §2",
+}
+
+
+@pytest.mark.parametrize("dtype,int8,form", sorted(PAGED_ROUTES))
+def test_paged_kernel_route(dtype, int8, form):
+    """``kernel_route``: bf16 q over bf16 or int8 pools keeps the bf16 and
+    int8 kernels, f32 q over f32 pools takes ``ditl_paged_{tail,verify,}_f32``
+    (in ``csrc/paged_attention_f32.cu``); f32 q over int8 pools (variant F)
+    and float16 raise naming ROADMAP.md §2."""
+    want = PAGED_ROUTES[(dtype, int8, form)]
+    kw = dict(int8=int8, verify=form == "verify", tail=form != "no_tail")
+    if not want.startswith("ditl_"):
+        with pytest.raises(NotImplementedError, match=want):
+            tpa.kernel_route(getattr(torch, dtype), **kw)
+        return
+    assert tpa.kernel_route(getattr(torch, dtype), **kw) == want
+    assert want in tpa._ARGS and want in tpa._COUNTERS
+
+
+def test_f32_kernels_live_in_their_own_sources():
+    """The f32 kernels are separate sources, so the bf16 and int8 builds'
+    source hashes, and the bits their digests pin, stay as they were: no
+    f32 entry point in the bf16 sources, and no shared header added."""
+    from ditl_tpu_torch.ops.cuda_build import CSRC
+
+    assert sorted(p.name for p in CSRC.glob("*.cuh")) == ["gemm_sm90.cuh", "hopper.cuh"]
+    for name in ("flash_fwd.cu", "flash_bwd.cu", "paged_attention.cu"):
+        assert "_f32(" not in (CSRC / name).read_text()
+    for src, syms in (("flash_f32.cu", ["ditl_flash_fwd_f32", "ditl_flash_bwd_dq_f32",
+                                         "ditl_flash_bwd_dkv_f32"]),
+                      ("paged_attention_f32.cu", ["ditl_paged_tail_f32", "ditl_paged_f32",
+                                                  "ditl_paged_verify_f32"])):
+        text = (CSRC / src).read_text()
+        assert all(f'extern "C" int {s}(' in text for s in syms), src
+
+
+# ---------------------------------------------------------------------------
+# The Qwen2-layout config in f32
+# ---------------------------------------------------------------------------
+
+
+def _configs(**kw):
+    over = dict(QWEN2_TINY, **kw)
+    return JModelConfig(**over), ModelConfig(**over)
+
+
+def _jax_params(jcfg, seed=0):
+    """JAX init, with random norm scales and q/k/v biases so their
+    gradients matter."""
+    params = jax.device_get(jllama.init_params(jax.random.key(seed), jcfg))
+    rng = np.random.default_rng(seed + 1)
+    layers = params["layers"]
+    for group in ("attn_norm", "mlp_norm"):
+        s = layers[group]["scale"]
+        layers[group]["scale"] = (1 + 0.1 * rng.standard_normal(s.shape)).astype(s.dtype)
+    for key in ("bq", "bk", "bv"):
+        b = layers["attn"][key]
+        layers["attn"][key] = (0.1 * rng.standard_normal(b.shape)).astype(b.dtype)
+    return params
+
+
+def test_qwen2_layout_round_trips_in_f32():
+    """The converter carries the Qwen2 layout's f32 parameters (biases,
+    tied embeddings, no lm head) across and back bit for bit, as training
+    masters and as the serving tree, whose tied head is the embedding's
+    transpose."""
+    jcfg, cfg = _configs()
+    params = _jax_params(jcfg)
+    assert "bq" in params["layers"]["attn"] and "lm_head" not in params
+    want = dict(_leaves(params))
+    serving = dict(_leaves(params_to_numpy(params_from_jax(params, cfg, "cpu"))))
+    assert np.array_equal(serving.pop(("lm_head", "kernel")),
+                          want[("embed", "embedding")].T)
+    for back in (serving, dict(_leaves(params_to_numpy(
+            train_params_from_jax(params, cfg, "cpu"))))):
+        assert back.keys() == want.keys()
+        for path, x in want.items():
+            assert back[path].dtype == np.float32 and np.array_equal(back[path], x), path
+
+
+# (model overrides, train overrides): the slice's training configuration
+# (full remat, adafactor, the fused loss, MLP and projection backward at
+# the "xla" defaults), and adamw without remat under the naive loss.
+STEP_CASES = {
+    "remat_full-adafactor-fused": (dict(remat="full", loss_impl="fused", loss_block_tokens=96),
+                                   dict(optimizer="adafactor")),
+    "remat_none-adamw-naive": (dict(remat="none"), dict(optimizer="adamw")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_qwen2_f32_train_steps_match_jax(case):
+    """Three f32 train steps of the Qwen2-layout config against the JAX
+    package's ``make_train_step`` on a one-device mesh, its flash attention
+    through the Pallas kernels in interpret mode: loss, grad norm and every
+    updated parameter leaf after each step."""
+    model_kw, train_kw = STEP_CASES[case]
+    jcfg, cfg = _configs(**model_kw)
+    assert (cfg.mlp_bwd_impl, cfg.proj_bwd_impl) == ("xla", "xla")
+    kw = dict(learning_rate=1e-2, warmup_steps=1, total_steps=5, grad_accum_steps=1,
+              **train_kw)
+    jtcfg, tcfg = JTrainConfig(**kw), TrainConfig(**kw)
+    params = _jax_params(jcfg)
+    mesh = build_mesh(MeshConfig(), devices=jax.devices()[:1])
+    batches = [_batch(seed, b=2) for seed in range(3)]
+    gb = [make_global_batch(mesh, b) for b in batches]
+    with mesh:
+        jparams = jax.tree.map(jnp.asarray, params)
+        tx = jstate.make_optimizer(jtcfg, jparams)
+        jst = jstate.TrainState(step=jnp.zeros((), jnp.int32), params=jparams,
+                                opt_state=tx.init(jparams))
+        jtrain = jstep.make_train_step(jcfg, jtcfg, mesh, gb[0])
+    tparams = train_params_from_jax(params, cfg, "cpu")
+    opt = tstate.make_optimizer(tcfg, tparams)
+    st = tstate.TrainState.create(tparams, opt)
+    for i in range(3):
+        with mesh:
+            jst, jm = jtrain(jst, gb[i])
+        batch = {k: torch.from_numpy(v.copy()) for k, v in batches[i].items()}
+        m = tstep.train_step(st, batch, cfg, opt, tcfg.grad_accum_steps)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
+        _assert_trees_close(params_to_numpy(st.params), jax.device_get(jst.params), 1e-3,
+                            floor=1e-3, outliers=1e-3, outlier_atol=3 * kw["learning_rate"])
+    assert st.step == 3
+
+
+PROMPTS = ["hello world", "the quick brown fox jumps", "a",
+           "some longer prompt with more text to cross pages"]
+
+
+@pytest.fixture(scope="module")
+def qwen2_pair():
+    jcfg, cfg = _configs()
+    params = jllama.init_params(jax.random.key(0), jcfg)
+    return jcfg, params, cfg, params_from_jax(jax.device_get(params), cfg, "cpu")
+
+
+def _jax_greedy(jcfg, params, prompts, max_new):
+    tok = JByteTokenizer()
+    out = JGenerator(params, jcfg, tok).generate_tokens(
+        [[tok.bos_id] + tok.encode(p) for p in prompts], JGenerateConfig(max_new_tokens=max_new))
+    return [tok.decode(t) for t in out]
+
+
+def test_qwen2_f32_lockstep_greedy_matches_jax(qwen2_pair):
+    """The lock-step ``Generator`` (flash prefill, then the cache's decode)
+    in f32 gives the JAX Generator's greedy tokens."""
+    jcfg, params, cfg, tparams = qwen2_pair
+    tok = ByteTokenizer()
+    out = Generator(tparams, cfg, tok, device="cpu").generate_tokens(
+        [[tok.bos_id] + tok.encode(p) for p in PROMPTS], GenerateConfig(max_new_tokens=16))
+    assert [tok.decode(t) for t in out] == _jax_greedy(jcfg, params, PROMPTS, 16)
+
+
+def test_qwen2_f32_continuous_greedy_matches_jax(qwen2_pair):
+    """The continuous engine over f32 page pools (flash prefill, paged decode
+    through ``paged_attention``) gives the JAX paged engine's greedy tokens,
+    and the JAX Generator's."""
+    jcfg, params, cfg, tparams = qwen2_pair
+    kw = dict(n_slots=3, decode_chunk=4, page_size=16)
+    jeng = JEngine(params, jcfg, JByteTokenizer(), cache_mode="paged",
+                   gen=JGenerateConfig(max_new_tokens=16), **kw)
+    teng = ContinuousEngine(tparams, cfg, ByteTokenizer(), cache_mode="paged",
+                            gen=GenerateConfig(max_new_tokens=16), device="cpu", **kw)
+    assert teng.cache["kp"].dtype == torch.float32
+    ref = jeng.generate(PROMPTS)
+    assert teng.generate(PROMPTS) == ref
+    assert ref == _jax_greedy(jcfg, params, PROMPTS, 16)
+
+
+def test_cli_serves_f32_on_both_engines():
+    """``infer/server.py --override dtype=float32 --override
+    attention_impl=flash --engine continuous``: f32 weights and f32 pools
+    (``kv_cache_dtype`` "" is the compute dtype); a greedy completion through
+    the continuous engine and a logprob request through the lock-step
+    Generator both give the JAX Generator's greedy text over the server's
+    own weights."""
+    import json
+    import urllib.request
+
+    overrides = [x for k, v in QWEN2_TINY.items() for x in ("--override", f"{k}={v}")]
+    srv = tserver.create_server(["--device", "cpu", "--port", "0", "--host", "127.0.0.1",
+                                 *overrides, "--engine", "continuous", "--cache-mode",
+                                 "paged", "--page-size", "16", "--slots", "2"])
+    gen = srv.RequestHandlerClass.generator
+    engine = srv.engine._engine
+    assert gen.cfg.dtype == "float32" and gen.cfg.attention_impl == "flash"
+    assert gen.params["layers"]["attn"]["wq"].dtype == torch.float32
+    assert engine.cache["kp"].dtype == torch.float32
+    jparams = jax.tree.map(jnp.asarray, params_to_numpy(gen.params))
+    prompt = "The quick brown fox"
+    want = _jax_greedy(JModelConfig(**QWEN2_TINY), jparams, [prompt], 10)[0]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}/v1/completions"
+        for extra in ({}, {"logprobs": 1}):
+            req = urllib.request.Request(
+                url, data=json.dumps({"prompt": prompt, "max_tokens": 10, "temperature": 0,
+                                      **extra}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                body = json.loads(r.read())
+            assert body["choices"][0]["text"] == want, extra
+    finally:
+        srv.close(drain=True)
+        thread.join(timeout=10)
+    assert not thread.is_alive()
