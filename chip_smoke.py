@@ -38,7 +38,13 @@ no result line. It imports nothing of JAX or of the JAX package.
    ``F32_BWD_TOL``), K3-f32, K4-f32 and K3-f32-verify at the decode tick,
    the spec tick and the verify's other cases against the plain version
    and the split twin (``F32_PAGED_TOL``); every kernel called twice gives
-   the same bits.
+   the same bits. ``[f32-mm-kernels]`` (after the bf16 K5/K6 checks of
+   phase 9): K5a-f32, K5b-f32 and K6-f32 (``csrc/gemm_f32.cu``) against
+   their plain versions in f32 (``F32_MM_TOL`` of each output's largest
+   magnitude) at path 10's shapes (N = 8192, D = 896, F = 4864; K6 at
+   wq/wo and wk/wv), at ragged ones (N = 2064 and 16, D = F = 384) and with
+   a strided gradient; each called twice gives the same bits; the bf16 K5a
+   and K5b still give ``K5_DIGESTS``.
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
    card's bound for the same work from this run's inputs; K1, K2a and K2b
@@ -58,7 +64,11 @@ no result line. It imports nothing of JAX or of the JAX package.
    named), with the bound at 4 B an element and 165 TFLOP/s (3xTF32; the
    67 TFLOP/s FFMA figure beside): K1-f32, K2a-f32 and K2b-f32 at path 9's
    batch (K1-f32 also at the serving prefill), K3-f32 and K4-f32 at the
-   decode tick, K3-f32-verify at the spec tick.
+   decode tick, K3-f32-verify at the spec tick. ``[f32-mm-timing]``:
+   K5a-f32, K5b-f32 and K6-f32 (wq/wo, wk/wv) at path 10's shapes, with
+   their plain versions, cuBLAS's SGEMM (TF32 off) on each kernel's own two
+   products, ``autograd.grad`` of the plain MLP forward or of ``x @ w``, the
+   bound and the rate.
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -112,6 +122,15 @@ no result line. It imports nothing of JAX or of the JAX package.
    tokens/s, MFU over the 495 TFLOP/s TF32 peak, peak memory; then one step
    at full depth through the f32 kernels against the plain versions (loss
    within ``F32_STEP_LOSS_TOL``, grad norm within ``F32_STEP_GNORM_TOL``).
+6e. Main path 10, f32 training under the reference's kernel flags:
+   ``train()`` with ``F32_KERNEL_ARGS`` (path 9 plus ``KERNEL_FLAGS``,
+   ``mlp_bwd_block_f=256`` and ``proj_bwd_block_d=128``, which admit
+   qwen2-0.5b's widths), ``F32_TRAIN_STEPS`` steps: falling finite losses,
+   per step K5a-f32 and K5b-f32 24, K6-f32 96, K1-f32 48, K2a-f32 and
+   K2b-f32 24, every bf16 kernel 0; step p50, tokens/s, MFU, peak memory;
+   then one step's forward and backward at full depth, B=4, through the
+   f32 K5/K6 against their plain versions (loss ``F32_STEP_LOSS_TOL``,
+   grad norm ``F32_STEP_GNORM_TOL``, every leaf ``F32_STEP2_LEAF_TOL``).
 7. Main path 3: training. The serving weights and pools are freed first;
    then ``train()`` runs in-process with the launcher's arguments
    (``TRAIN_ARGS``: ``llama3-8b`` at full width and depth, bf16 masters,
@@ -276,6 +295,23 @@ TRAIN4_STEPS = 4
 RECIPE_RUNS = [("dots_inputs", 4), ("dots", 3), ("attn", 3)]
 KERNEL_FLAGS = ["model.fused_gate_up=true", "model.mlp_bwd_impl=pallas",
                 "model.proj_bwd_impl=pallas"]
+# Path 10: path 9 under the reference's kernel flags. qwen2-0.5b's widths (D
+# = 896, F = 4864) take K5/K6 only with these two of the reference's block
+# fields (ops/mlp_bwd.py::supports, ops/projection.py::supports); without
+# them both packages take the einsum backward.
+F32_KERNEL_ARGS = F32_TRAIN_ARGS + KERNEL_FLAGS + ["model.mlp_bwd_block_f=256",
+                                                   "model.proj_bwd_block_d=128"]
+# K5a-f32, K5b-f32 and K6-f32 against their plain versions, TF32 off: 3xTF32
+# products (each good to about 2^-21) with f32 sums in another order than
+# the plain versions' SGEMMs, so each output within F32_MM_TOL of its own
+# largest magnitude (measured: at most 1.5e-6, at contractions up to 9728).
+F32_MM_TOL = 2e-5
+# Path 10's full-depth step through them against the plain versions: every
+# leaf's gradient within F32_STEP2_LEAF_TOL of its largest magnitude, f32's
+# counterpart of STEP2_LEAF_TOL (which is a few bf16 ulps): the same
+# products to about 2^-21 each, through 24 layers of the backward (measured:
+# 2.5e-6).
+F32_STEP2_LEAF_TOL = 1e-4
 TRAIN_ARGS = [
     "--preset", "llama3-8b", "model.param_dtype=bfloat16", "model.attention_impl=flash",
     "model.loss_impl=fused", "model.loss_block_tokens=4096", "model.remat=full",
@@ -346,19 +382,19 @@ KERNELS = {
         "source": "ditl_tpu_torch/csrc/flash_f32.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:127 (float32 operands)",
         "path": "f32 serving (path 8): cold prefills of both engines; f32 training "
-                "(path 9): forward and remat recompute",
+                "(paths 9, 10): forward and remat recompute",
     },
     "flash_dq_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_f32.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:300 (float32 operands)",
-        "path": "f32 training backward (path 9), every layer",
+        "path": "f32 training backward (paths 9, 10), every layer",
     },
     "flash_dkv_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_f32.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:362 (float32 operands)",
-        "path": "f32 training backward (path 9), every layer",
+        "path": "f32 training backward (paths 9, 10), every layer",
     },
     "paged_tail_f32": {
         "route": "cuda",
@@ -396,6 +432,25 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/projection.py:79",
         "path": "training backward with proj_bwd_impl=pallas: wq, wk, wv, wo of every "
                 "layer, paths 4-5",
+    },
+    "mlp_dgu_dwdown_f32": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/gemm_f32.cu",
+        "replaces": "ditl_tpu/ops/mlp_bwd.py:102 (float32 operands)",
+        "path": "f32 training under the kernel flags (path 10), every layer",
+    },
+    "mlp_dh_dwgu_f32": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/gemm_f32.cu",
+        "replaces": "ditl_tpu/ops/mlp_bwd.py:153 (float32 operands)",
+        "path": "f32 training under the kernel flags (path 10), every layer",
+    },
+    "proj_bwd_f32": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/gemm_f32.cu",
+        "replaces": "ditl_tpu/ops/projection.py:79 (float32 operands)",
+        "path": "f32 training under the kernel flags (path 10): wq, wk, wv, wo of every "
+                "layer",
     },
 }
 # The decode tick's paged-attention shape on the main path: 8 slots, 32
@@ -1120,56 +1175,64 @@ PROJ_CASES = [("wq/wo", 8192, 4096, 4096, 0, None), ("wk/wv", 8192, 4096, 1024, 
               ("ragged, strided g", 2064, 256, 384, 512, (16, 128))]
 
 
-def _mm_bound(flops: float, nbytes: float):
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+def _mm_bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _mlp_bounds(n: int, d: int, f: int) -> dict:
-    """Least time on an H100 SXM for K5a and K5b (bf16 in and out): each
-    input read once and each output written once over HBM bandwidth (K5a: g,
-    w_down, gate|up in, dgu and d_w_down out; K5b: h, dgu, w_gu in, dh and
-    d_w_gu out), against the kernel's two products at bf16 peak (K5a:
-    dinner and d_w_down, 2*N*D*F flops each; K5b: dh and d_w_gu, 2*N*D*2F)."""
-    k5a_bytes = 2 * (n * d + f * d + 2 * n * f) + 2 * (2 * n * f + f * d)
-    k5b_bytes = 2 * (n * d + 2 * n * f + 2 * d * f) + 2 * (n * d + 2 * d * f)
-    return {"mlp_dgu_dwdown": _mm_bound(4.0 * n * d * f, k5a_bytes),
-            "mlp_dh_dwgu": _mm_bound(8.0 * n * d * f, k5b_bytes)}
+def _mlp_bounds(n: int, d: int, f: int, es: int = 2) -> dict:
+    """Least time on an H100 SXM for K5a and K5b (``es``-byte elements in
+    and out: 2, bf16 at the bf16 peak; 4, f32 at 3xTF32's): each input read
+    once and each output written once over HBM bandwidth (K5a: g, w_down,
+    gate|up in, dgu and d_w_down out; K5b: h, dgu, w_gu in, dh and d_w_gu
+    out), against the kernel's two products (K5a: dinner and d_w_down,
+    2*N*D*F flops each; K5b: dh and d_w_gu, 2*N*D*2F)."""
+    k5a_bytes = es * (n * d + f * d + 2 * n * f) + es * (2 * n * f + f * d)
+    k5b_bytes = es * (n * d + 2 * n * f + 2 * d * f) + es * (n * d + 2 * d * f)
+    peak, sfx = (H100_F32_FLOPS, "_f32") if es == 4 else (H100_BF16_FLOPS, "")
+    return {"mlp_dgu_dwdown" + sfx: _mm_bound(4.0 * n * d * f, k5a_bytes, peak),
+            "mlp_dh_dwgu" + sfx: _mm_bound(8.0 * n * d * f, k5b_bytes, peak)}
 
 
-def _proj_bound(n: int, d: int, f: int):
-    """K6: x, w, g read once and dx, dw written once (bf16), against dx =
-    g.w^T and dw = x^T.g, 2*N*D*F flops each."""
-    return _mm_bound(4.0 * n * d * f, 2 * (2 * n * d + 2 * d * f + n * f))
+def _proj_bound(n: int, d: int, f: int, es: int = 2):
+    """K6: x, w, g read once and dx, dw written once (``es``-byte elements,
+    as in ``_mlp_bounds``), against dx = g.w^T and dw = x^T.g, 2*N*D*F
+    flops each."""
+    return _mm_bound(4.0 * n * d * f, es * (2 * n * d + 2 * d * f + n * f),
+                     H100_F32_FLOPS if es == 4 else H100_BF16_FLOPS)
 
 
-def _bf16(shape, seed: int, scale: float = 1.0):
+def _randn(shape, seed: int, scale: float = 1.0, dtype=None):
+    """Normal values times ``scale`` from a seeded card generator, in
+    ``dtype`` (default bf16)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype or torch.bfloat16)
 
 
-def _mlp_case(n: int, d: int, f: int, seed: int):
+def _mlp_case(n: int, d: int, f: int, seed: int, dtype=None):
     """h, w_gu, w_down, the forward's gu (gate | up) and an upstream g at the
-    scales of a layer's inputs (unit activations, fan-in weights)."""
-    h = _bf16((n, d), seed)
-    w_gu = _bf16((d, 2 * f), seed + 1, d**-0.5)
-    w_down = _bf16((f, d), seed + 2, f**-0.5)
-    return h, w_gu, w_down, h @ w_gu, _bf16((n, d), seed + 3, 0.1)
+    scales of a layer's inputs (unit activations, fan-in weights), in
+    ``dtype`` (default bf16)."""
+    h = _randn((n, d), seed, dtype=dtype)
+    w_gu = _randn((d, 2 * f), seed + 1, d**-0.5, dtype)
+    w_down = _randn((f, d), seed + 2, f**-0.5, dtype)
+    return h, w_gu, w_down, h @ w_gu, _randn((n, d), seed + 3, 0.1, dtype)
 
 
-def _proj_case(n: int, d: int, f: int, ld: int, seed: int):
-    """x (1, N, D), w (D, F) and g (1, N, F); with ``ld``, g is the first F
-    columns of an (N, ld) gradient (a fused projection's split)."""
-    x = _bf16((1, n, d), seed)
-    w = _bf16((d, f), seed + 1, d**-0.5)
-    g = _bf16((1, n, ld or f), seed + 2, 0.1)[..., :f]
+def _proj_case(n: int, d: int, f: int, ld: int, seed: int, dtype=None):
+    """x (1, N, D), w (D, F) and g (1, N, F) in ``dtype`` (default bf16);
+    with ``ld``, g is the first F columns of an (N, ld) gradient (a fused
+    projection's split)."""
+    x = _randn((1, n, d), seed, dtype=dtype)
+    w = _randn((d, f), seed + 1, d**-0.5, dtype)
+    g = _randn((1, n, ld or f), seed + 2, 0.1, dtype)[..., :f]
     return x, w, g
 
 
-def _check_scaled(label: str, named) -> float:
-    """``named``: (name, kernel output, plain output); each within MM_TOL of
+def _check_scaled(label: str, named, tol: float = MM_TOL, tag: str = "kernels") -> float:
+    """``named``: (name, kernel output, plain output); each within ``tol`` of
     the plain output's largest magnitude. Returns the largest error."""
     import torch
 
@@ -1179,11 +1242,12 @@ def _check_scaled(label: str, named) -> float:
         require(bool(torch.isfinite(x.float()).all()), f"{label} {name}: non-finite")
         scale = float(r.float().abs().max())
         err = float((x.float() - r.float()).abs().max())
-        torch.testing.assert_close(x.float(), r.float(), rtol=0, atol=MM_TOL * scale,
+        torch.testing.assert_close(x.float(), r.float(), rtol=0, atol=tol * scale,
                                    msg=f"{label} {name}")
         worst = max(worst, err)
-        parts.append(f"max|{name}-plain|={err:.3e} (max|{name}| {scale:.3e})")
-    log(f"[kernels] {label}: " + ", ".join(parts) + " ok")
+        parts.append(f"max|{name}-plain|={err:.3e} (max|{name}| {scale:.3e}, "
+                     f"{err / max(scale, 1e-30):.2e} of it)")
+    log(f"[{tag}] {label}: " + ", ".join(parts) + f" ok (tolerance {tol} of it)")
     return worst
 
 
@@ -1254,8 +1318,8 @@ def phase_mm_kernels(mlp_bwd, proj) -> dict:
     m, n, k = CORE_CASE
     for a_mn in (False, True):
         for b_mn in (False, True):
-            a = _bf16((k, m) if a_mn else (m, k), 580)
-            b = _bf16((k, n) if b_mn else (n, k), 581)
+            a = _randn((k, m) if a_mn else (m, k), 580)
+            b = _randn((k, n) if b_mn else (n, k), 581)
             _check_scaled(f"gemm core M={m} N={n} K={k}, A {'MN' if a_mn else 'K'}-major, "
                           f"B {'MN' if b_mn else 'K'}-major",
                           [("c", mlp_bwd.gemm_core(a, b, a_mn, b_mn),
@@ -1462,11 +1526,16 @@ def phase_train_kernels(flash, mlp_bwd, proj) -> dict:
     return launches, summary
 
 
-def phase_train_parity2(mlp_bwd, proj) -> None:
-    """Training parity 2: the forward and backward of one train step at full
-    width, depth 2, B=1, S=2048 with ``KERNEL_FLAGS``, through K5a/K5b/K6 and
-    again with their wrappers rebound to the plain versions, from the same
-    parameters and batch."""
+def phase_train_parity2(mlp_bwd, proj, args=TRAIN_ARGS + KERNEL_FLAGS, num_layers: int = 2,
+                        batch_size: int = 1,
+                        tols=(STEP2_LOSS_TOL, STEP_GNORM_TOL, STEP2_LEAF_TOL),
+                        tag: str = "train4") -> None:
+    """Training parity 2: the forward and backward of one train step of
+    ``args``' configuration (with ``KERNEL_FLAGS``) at full width, depth
+    ``num_layers``, B=``batch_size``, S=2048, through K5a/K5b/K6 (their f32
+    forms for float32) and again with their wrappers rebound to the plain
+    versions, from the same parameters and batch: loss, grad norm and every
+    leaf's gradient within ``tols``."""
     import dataclasses
 
     import torch
@@ -1480,9 +1549,16 @@ def phase_train_parity2(mlp_bwd, proj) -> None:
     from ditl_tpu_torch.train.state import TrainState, global_norm, make_leaves
     from ditl_tpu_torch.train.step import cast_for_compute, loss_fn
 
-    config, _ = build_config(TRAIN_ARGS + KERNEL_FLAGS)
-    cfg = dataclasses.replace(config.model, num_layers=2)
-    dcfg = DataConfig(batch_size=1, seq_len=2048, synthetic=True)
+    config, _ = build_config(args)
+    cfg = dataclasses.replace(config.model, num_layers=num_layers)
+    require((cfg.fused_gate_up, cfg.mlp_bwd_impl, cfg.proj_bwd_impl)
+            == (True, "pallas", "pallas"), cfg)
+    f32 = cfg.dtype == "float32"
+    names = (("launches_dgu_f32", "launches_dh_f32", "launches_f32") if f32
+             else ("launches_dgu", "launches_dh", "launches"))
+    others = (("launches_dgu", "launches_dh", "launches") if f32
+              else ("launches_dgu_f32", "launches_dh_f32", "launches_f32"))
+    dcfg = DataConfig(batch_size=batch_size, seq_len=2048, synthetic=True)
     batch = next(iter(DataPipeline(synthetic_dataset(256, 0), ByteTokenizer(), dcfg,
                                    "cuda").epoch(0)))
     base = llama.init_train_params(cfg, seed=2, device="cuda")
@@ -1492,8 +1568,12 @@ def phase_train_parity2(mlp_bwd, proj) -> None:
             return {k: clone(v) for k, v in tree.items()}
         return tree.clone()
 
+    def counts(which):
+        return tuple(getattr(mlp_bwd if i < 2 else proj, n) for i, n in enumerate(which))
+
     results = []
     fused, proj_bwd = mlp_bwd.fused_mlp_bwd, proj.projection_bwd
+    layers_n = cfg.num_layers
     for plain in (False, True):
         params = clone(base)
         state = TrainState(params, make_leaves(params))
@@ -1508,10 +1588,11 @@ def phase_train_parity2(mlp_bwd, proj) -> None:
             loss, _ = loss_fn(layers, top, batch, cfg)
             loss.backward()
             gnorm = float(global_norm(state.leaves))
-            counts = (mlp_bwd.launches_dgu, mlp_bwd.launches_dh, proj.launches)
+            got, other = counts(names), counts(others)
         finally:
             mlp_bwd.fused_mlp_bwd, proj.projection_bwd = fused, proj_bwd
-        require(counts == ((0, 0, 0) if plain else (2, 2, 8)), counts)
+        want = (0, 0, 0) if plain else (layers_n, layers_n, 4 * layers_n)
+        require(got == want and other == (0, 0, 0), (got, other))
         grads = {"/".join(leaf.path): [p.grad for p in leaf.parts] for leaf in state.leaves}
         results.append((float(loss), gnorm, grads))
         del params, state, layers, top, loss
@@ -1522,15 +1603,17 @@ def phase_train_parity2(mlp_bwd, proj) -> None:
         for i, (x, r) in enumerate(zip(grads_k[path], parts)):
             scale = float(r.float().abs().max())
             rel = float((x.float() - r.float()).abs().max()) / max(scale, 1e-30)
-            require(rel <= STEP2_LEAF_TOL, (path, i, rel, scale))
+            require(rel <= tols[2], (path, i, rel, scale))
             if rel > worst:
                 worst_leaf, worst = f"{path}[{i}]", rel
-    log(f"[train4] parity, one step's forward and backward at full width, 2 layers, B=1, "
-        f"S=2048, kernel flags: kernels loss {lk:.6f} grad_norm {gk:.6f}; plain loss "
-        f"{lp:.6f} grad_norm {gp:.6f}; relative differences {rel_l:.3e}, {rel_g:.3e}; "
-        f"worst leaf {worst_leaf} at {worst:.3e} of its largest magnitude; launches "
-        f"(K5a, K5b, K6) (2, 2, 8) through the kernels, (0, 0, 0) plain")
-    require(rel_l <= STEP2_LOSS_TOL and rel_g <= STEP_GNORM_TOL, (rel_l, rel_g))
+    log(f"[{tag}] parity, one step's forward and backward of {cfg.name} ({cfg.dtype}) at "
+        f"full width, {layers_n} layers, B={batch_size}, S=2048, kernel flags: kernels loss "
+        f"{lk:.6f} grad_norm {gk:.6f}; plain loss {lp:.6f} grad_norm {gp:.6f}; relative "
+        f"differences {rel_l:.3e}, {rel_g:.3e} (tolerances {tols[0]}, {tols[1]}); worst leaf "
+        f"{worst_leaf} at {worst:.3e} of its largest magnitude (tolerance {tols[2]}); "
+        f"launches (K5a, K5b, K6){'-f32' if f32 else ''} "
+        f"({layers_n}, {layers_n}, {4 * layers_n}) through the kernels, (0, 0, 0) plain")
+    require(rel_l <= tols[0] and rel_g <= tols[1], (rel_l, rel_g))
 
 
 # ---------------------------------------------------------------------------
@@ -3819,55 +3902,256 @@ def phase_f32_serve(flash, paged) -> dict:
             for k in ("flash_fwd_f32", "paged_tail_f32")}
 
 
-def phase_f32_train(flash) -> dict:
-    """Main path 9, f32 training: ``train()`` with ``F32_TRAIN_ARGS``
-    (qwen2-0.5b at its published size: 24 layers, hidden 896, 14/2 heads,
-    D = 64, vocab 151936, tied embeddings, q/k/v biases; f32 masters and
-    compute, flash attention, full remat, adafactor, the fused loss; the MLP
-    and projection backward at the "xla" defaults), B=4, S=2048 packed rows
-    of the synthetic corpus, ``F32_TRAIN_STEPS`` steps: finite, falling
-    losses; K1-f32 2 x 24 a step (forward and recompute), K2a-f32 and
-    K2b-f32 24 a step, no bf16 kernel; step p50, tokens/s, MFU over the
-    495 TFLOP/s TF32 peak, peak memory. Returns the launch counts."""
+def phase_f32_train(flash, mlp_bwd, proj, args=F32_TRAIN_ARGS, tag: str = "f32-train") -> dict:
+    """Main path 9 (``F32_TRAIN_ARGS``) or 10 (``F32_KERNEL_ARGS``), f32
+    training: ``train()`` on qwen2-0.5b at its published size (24 layers,
+    hidden 896, MLP 4864, 14/2 heads, D = 64, vocab 151936, tied embeddings,
+    q/k/v biases; f32 masters and compute, flash attention, full remat,
+    adafactor, the fused loss), B=4, S=2048 packed rows of the synthetic
+    corpus, ``F32_TRAIN_STEPS`` steps; path 9 at the "xla" MLP and projection
+    backward, path 10 under ``KERNEL_FLAGS`` with the block fields that take
+    them. Finite, falling losses; per step K1-f32 2 x 24 (forward and
+    recompute), K2a-f32 and K2b-f32 24, and K5a-f32 and K5b-f32 24 and
+    K6-f32 96 (wq, wk, wv, wo) on path 10, 0 on path 9; no bf16 kernel; step
+    p50, tokens/s, MFU over the 495 TFLOP/s TF32 peak, peak memory. Returns
+    the launch counts."""
     from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.ops import mlp as mlp_op
     from ditl_tpu_torch.train.trainer import train
 
-    config, device = build_config(F32_TRAIN_ARGS)
+    config, device = build_config(args)
     cfg = config.model
+    kernels = cfg.mlp_bwd_impl == "pallas"
+    impl = ("pallas", "pallas", True, 256, 128) if kernels else ("xla", "xla", False, 0, 0)
     require((cfg.name, cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
              cfg.vocab_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
              cfg.tie_embeddings, cfg.attention_bias, cfg.dtype, cfg.param_dtype,
-             cfg.attention_impl, cfg.mlp_bwd_impl, cfg.proj_bwd_impl, cfg.remat,
-             config.train.optimizer, device)
+             cfg.attention_impl, cfg.remat, config.train.optimizer, device)
             == ("qwen2-0.5b", 24, 896, 4864, 151936, 14, 2, 64, True, True, "float32",
-                "float32", "flash", "xla", "xla", "full", "adafactor", "cuda"), config)
+                "float32", "flash", "full", "adafactor", "cuda")
+            and (cfg.mlp_bwd_impl, cfg.proj_bwd_impl, cfg.fused_gate_up,
+                 cfg.mlp_bwd_block_f, cfg.proj_bwd_block_d) == impl, config)
+    b, s = config.data.batch_size, config.data.seq_len
+    d, f, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    mlp_blocks = (cfg.mlp_bwd_block_n, cfg.mlp_bwd_block_f, cfg.mlp_bwd_block_d)
+    proj_blocks = (cfg.proj_bwd_block_n, cfg.proj_bwd_block_d)
+    require(mlp_op.effective_bwd_impl(cfg.mlp_bwd_impl, b, s, d, f, mlp_blocks)
+            == cfg.mlp_bwd_impl and all(
+                proj.effective_bwd_impl(cfg.proj_bwd_impl, b, s, i, o, proj_blocks)
+                == cfg.proj_bwd_impl for i, o in ((d, cfg.num_heads * hd),
+                                                  (d, cfg.num_kv_heads * hd),
+                                                  (cfg.num_heads * hd, d))),
+            f"{tag}: the MLP and projections take {cfg.mlp_bwd_impl}")
     flash.reset_launches()  # this path's counts start here
+    mlp_bwd.reset_launches()
+    proj.reset_launches()
     summary = train(config, device=device)
     launches = {"flash_fwd_f32": flash.launches_f32, "flash_dq_f32": flash.launches_dq_f32,
-                "flash_dkv_f32": flash.launches_dkv_f32}  # read right after the run
-    bf16 = (flash.launches, flash.launches_dq, flash.launches_dkv)
+                "flash_dkv_f32": flash.launches_dkv_f32,
+                "mlp_dgu_dwdown_f32": mlp_bwd.launches_dgu_f32,
+                "mlp_dh_dwgu_f32": mlp_bwd.launches_dh_f32,
+                "proj_bwd_f32": proj.launches_f32}  # read right after the run
+    bf16 = (flash.launches, flash.launches_dq, flash.launches_dkv, mlp_bwd.launches_dgu,
+            mlp_bwd.launches_dh, proj.launches)
     losses = summary["losses"]
     require(summary["steps"] == F32_TRAIN_STEPS and len(losses) == F32_TRAIN_STEPS, summary)
     require(all(x == x and abs(x) != float("inf") for x in losses), losses)
     require(losses[-1] < losses[0], losses)
     layers, steps = cfg.num_layers, F32_TRAIN_STEPS
-    require(launches["flash_fwd_f32"] == 2 * layers * steps and launches["flash_dq_f32"]
-            == launches["flash_dkv_f32"] == layers * steps and bf16 == (0, 0, 0),
-            (launches, bf16))
+    k5 = layers * steps if kernels else 0
+    want = {"flash_fwd_f32": 2 * layers * steps, "flash_dq_f32": layers * steps,
+            "flash_dkv_f32": layers * steps, "mlp_dgu_dwdown_f32": k5,
+            "mlp_dh_dwgu_f32": k5, "proj_bwd_f32": 4 * k5}
+    require(launches == want and bf16 == (0,) * 6, (launches, want, bf16))
     step_s = summary["step_time_p50_s"]
     tps = summary["tokens_per_sec_per_chip_p50"]
     mfu = _model_flops_per_token(cfg, config.data.seq_len) * 3 * tps / H100_TF32_FLOPS
-    log(f"[f32-train] qwen2-0.5b ({summary['params_m']:.1f}M parameters, f32 masters and "
-        f"compute, adafactor, flash, fused loss, full remat) B=4 S=2048, {steps} steps: "
-        f"losses {[round(x, 4) for x in losses]}")
-    log(f"[f32-train] step time p50 {step_s:.3f} s, {tps:.1f} tokens/s, MFU {mfu:.1%} "
+    flags = (" under fused_gate_up, mlp_bwd_impl=pallas, proj_bwd_impl=pallas, "
+             "mlp_bwd_block_f=256, proj_bwd_block_d=128") if kernels else ""
+    log(f"[{tag}] qwen2-0.5b ({summary['params_m']:.1f}M parameters, f32 masters and "
+        f"compute, adafactor, flash, fused loss, full remat){flags} B=4 S=2048, {steps} "
+        f"steps: losses {[round(x, 4) for x in losses]}")
+    log(f"[{tag}] step time p50 {step_s:.3f} s, {tps:.1f} tokens/s, MFU {mfu:.1%} "
         f"(bench.py's flops per token x 3 over the 495 TFLOP/s TF32 peak, the card's "
         f"fastest f32-input rate; remat not counted), peak device memory "
-        f"{summary['peak_device_memory_gib']:.1f} GiB, wall {summary['wall_s']:.1f} s ({SMI})")
-    log(f"[f32-train] launches: K1-f32 {launches['flash_fwd_f32']} = 2 x {layers} layers x "
+        f"{summary['peak_device_memory_gib']:.2f} GiB, wall {summary['wall_s']:.1f} s ({SMI})")
+    log(f"[{tag}] launches: K1-f32 {launches['flash_fwd_f32']} = 2 x {layers} layers x "
         f"{steps} steps (forward + remat recompute), K2a-f32 {launches['flash_dq_f32']} and "
-        f"K2b-f32 {launches['flash_dkv_f32']} = {layers} x {steps}; bf16 kernels {bf16}")
+        f"K2b-f32 {launches['flash_dkv_f32']} = {layers} x {steps}, K5a-f32 "
+        f"{launches['mlp_dgu_dwdown_f32']}, K5b-f32 {launches['mlp_dh_dwgu_f32']}, K6-f32 "
+        f"{launches['proj_bwd_f32']} (4 a layer); bf16 kernels {bf16}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# K5a-f32, K5b-f32 and K6-f32 (csrc/gemm_f32.cu), path 10 (f32 training under
+# the kernel flags)
+# ---------------------------------------------------------------------------
+
+# (label, N, D, F) of path 10's MLP (qwen2-0.5b, N = 4 x 2048) and ragged
+# ones: N = 16 x 129 (d_w_down split over the tokens), the least N, D and F
+# odd multiples of 128.
+F32_MLP_CASES = [("path 10", 8192, 896, 4864), ("ragged", 2064, 384, 384),
+                 ("N = 16", 16, 384, 384)]
+# (label, N, D, F, row stride of g or 0, the reference's blocks that admit
+# N): path 10's wq/wo (dw split in 3) and wk/wv (dw split in 16), a ragged
+# N with g a column slice of a wider gradient.
+F32_PROJ_CASES = [("wq/wo", 8192, 896, 896, 0, (0, 128)),
+                  ("wk/wv", 8192, 896, 128, 0, (0, 128)),
+                  ("ragged, strided g", 2064, 256, 384, 512, (16, 128))]
+
+
+def phase_f32_mm_kernels(mlp_bwd, proj) -> dict:
+    """[f32-mm-kernels]: K5a-f32 and K5b-f32 (K5b-f32 fed the kernel's own
+    dgu, and its plain version the same buffer) at ``F32_MLP_CASES`` and
+    K6-f32 at ``F32_PROJ_CASES`` against their plain versions in f32, TF32
+    off (``F32_MM_TOL``); at path 10's shapes each called twice, which must
+    give the same bits; then the bf16 K5a/K5b against ``K5_DIGESTS`` again.
+    Returns the largest absolute errors."""
+    import torch
+
+    tag = "f32-mm-kernels"
+    worst = {"mlp_dgu_dwdown_f32": 0.0, "mlp_dh_dwgu_f32": 0.0, "proj_bwd_f32": 0.0}
+    for i, (label, n, d, f) in enumerate(F32_MLP_CASES):
+        h, w_gu, w_down, gu, g = _mlp_case(n, d, f, 1100 + 10 * i, torch.float32)
+        gate, up = gu.chunk(2, dim=-1)  # views of gu, as the op saves them
+        mlp_bwd.reset_launches()
+        dgu, d_w_down = mlp_bwd.dgu_dwdown(g, w_down, gate, up)
+        dh, d_w_gu = mlp_bwd.dh_dwgu(h, dgu, w_gu)
+        require((mlp_bwd.launches_dgu_f32, mlp_bwd.launches_dh_f32, mlp_bwd.launches_dgu,
+                 mlp_bwd.launches_dh) == (1, 1, 0, 0), "K5 f32 launch counts")
+        dgu_ref, d_w_down_ref = mlp_bwd.dgu_dwdown_plain(g, w_down, gate, up)
+        dh_ref, d_w_gu_ref = mlp_bwd.dh_dwgu_plain(h, dgu, w_gu)
+        torch.cuda.synchronize()
+        splits = mlp_bwd.f32_weight_splits(f, d, n)[0], mlp_bwd.f32_weight_splits(d, 2 * f, n)[0]
+        shape = f"N={n} D={d} F={f} ({label}; weight gradients split {splits[0]}, {splits[1]})"
+        worst["mlp_dgu_dwdown_f32"] = max(worst["mlp_dgu_dwdown_f32"], _check_scaled(
+            f"mlp_dgu_dwdown_f32 {shape}", [("dgu", dgu, dgu_ref),
+                                            ("d_w_down", d_w_down, d_w_down_ref)],
+            F32_MM_TOL, tag))
+        worst["mlp_dh_dwgu_f32"] = max(worst["mlp_dh_dwgu_f32"], _check_scaled(
+            f"mlp_dh_dwgu_f32 {shape}", [("dh", dh, dh_ref), ("d_w_gu", d_w_gu, d_w_gu_ref)],
+            F32_MM_TOL, tag))
+        if i == 0:  # a second call: the same bits
+            dgu2, d_w_down2 = mlp_bwd.dgu_dwdown(g, w_down, gate, up)
+            dh2, d_w_gu2 = mlp_bwd.dh_dwgu(h, dgu2, w_gu)
+            torch.cuda.synchronize()
+            same = [torch.equal(x, y) for x, y in ((dgu, dgu2), (d_w_down, d_w_down2),
+                                                   (dh, dh2), (d_w_gu, d_w_gu2))]
+            require(all(same), f"K5 f32 {shape}: a second call gave other bits {same}")
+            log(f"[{tag}] mlp_dgu_dwdown_f32, mlp_dh_dwgu_f32 {shape}: a second call gives "
+                f"the same bits (dgu, d_w_down, dh, d_w_gu)")
+            del dgu2, d_w_down2, dh2, d_w_gu2
+        del h, w_gu, w_down, gu, g, gate, up, dgu, dgu_ref, dh, dh_ref, d_w_gu, d_w_gu_ref
+    for i, (label, n, d, f, ld, blocks) in enumerate(F32_PROJ_CASES):
+        x, w, g = _proj_case(n, d, f, ld, 1200 + 10 * i, torch.float32)
+        proj.reset_launches()
+        dx, dw = proj.projection_bwd(x, w, g, blocks=blocks)
+        again = proj.projection_bwd(x, w, g, blocks=blocks)
+        require((proj.launches_f32, proj.launches) == (2, 0), "K6 f32 launch counts")
+        dx_ref, dw_ref = proj.projection_bwd_plain(x, w, g)
+        torch.cuda.synchronize()
+        shape = (f"N={n} D={d} F={f} ({label}; dw split "
+                 f"{mlp_bwd.f32_weight_splits(d, f, n)[0]})")
+        worst["proj_bwd_f32"] = max(worst["proj_bwd_f32"], _check_scaled(
+            f"proj_bwd_f32 {shape}", [("dx", dx, dx_ref), ("dw", dw, dw_ref)], F32_MM_TOL,
+            tag))
+        require(torch.equal(dx, again[0]) and torch.equal(dw, again[1]),
+                f"proj_bwd_f32 {label}: a second call gave other bits")
+        log(f"[{tag}] proj_bwd_f32 {shape}: a second call gives the same bits")
+        del x, w, g, dx, dw, dx_ref, dw_ref, again
+    digests = _k5_digests(mlp_bwd)
+    require(digests == K5_DIGESTS, "K5a/K5b outputs differ from the earlier build's bits")
+    log(f"[{tag}] the bf16 K5a and K5b still give K5_DIGESTS' bits")
+    return worst
+
+
+def phase_f32_mm_timings(mlp_bwd, proj) -> dict:
+    """[f32-mm-timing]: K5a-f32, K5b-f32 and K6-f32 at path 10's shapes:
+    CUDA events over 10 back-to-back calls, the better of two runs; the
+    plain versions; cuBLAS's SGEMM (TF32 off) on each kernel's own two
+    products; the library yardstick of the bf16 rows (the port never calls
+    it): ``torch.autograd.grad`` of the plain MLP forward for K5a and K5b
+    together, of ``x @ w`` for K6; the bounds from these shapes (4 bytes an
+    element, 165 TFLOP/s) and the rates."""
+    import torch
+    import torch.nn.functional as F
+
+    out = {}
+    tag = "f32-mm-timing"
+    _, n, d, f = F32_MLP_CASES[0]
+    h, w_gu, w_down, gu, g = _mlp_case(n, d, f, 1300, torch.float32)
+    gate, up = gu.chunk(2, dim=-1)
+    dgu, _ = mlp_bwd.dgu_dwdown(g, w_down, gate, up)
+    leaves = [t.detach().clone().requires_grad_() for t in (h, w_gu, w_down)]
+    gate_l, up_l = (leaves[0] @ leaves[1]).chunk(2, dim=-1)
+    mlp_out = (F.silu(gate_l) * up_l) @ leaves[2]
+
+    def library():
+        torch.autograd.grad(mlp_out, leaves, grad_outputs=g, retain_graph=True)
+
+    lib_ms = min(_time_ms(library, iters=10), _time_ms(library, iters=10))
+    bounds = _mlp_bounds(n, d, f, es=4)
+    flops = {"mlp_dgu_dwdown_f32": 4.0 * n * d * f, "mlp_dh_dwgu_f32": 8.0 * n * d * f}
+    inner = gate * torch.sigmoid(gate) * up
+    sgemm = {"mlp_dgu_dwdown_f32": lambda: (g @ w_down.T, inner.T @ g),
+             "mlp_dh_dwgu_f32": lambda: (dgu @ w_gu.T, h.T @ dgu)}
+    products = {"mlp_dgu_dwdown_f32": "g @ w_down.T, inner.T @ g",
+                "mlp_dh_dwgu_f32": "dgu @ w_gu.T, h.T @ dgu"}
+    for name, run, plain in (
+            ("mlp_dgu_dwdown_f32", lambda: mlp_bwd.dgu_dwdown(g, w_down, gate, up),
+             lambda: mlp_bwd.dgu_dwdown_plain(g, w_down, gate, up)),
+            ("mlp_dh_dwgu_f32", lambda: mlp_bwd.dh_dwgu(h, dgu, w_gu),
+             lambda: mlp_bwd.dh_dwgu_plain(h, dgu, w_gu))):
+        ms = min(_time_ms(run, iters=10), _time_ms(run, iters=10))
+        plain_ms = _time_ms(plain, iters=3, warmup=1)
+        sgemm_ms = min(_time_ms(sgemm[name], iters=10), _time_ms(sgemm[name], iters=10))
+        bound_ms, bound_by = bounds[name]
+        fl = flops[name]
+        log(f"[{tag}] {name} N={n} D={d} F={f}: kernel {ms:.4f} ms ({fl / ms / 1e9:.1f} "
+            f"TFLOP/s), plain {plain_ms:.4f} ms, cuBLAS SGEMM on its own two products "
+            f"({products[name]}; TF32 off) {sgemm_ms:.4f} ms ({fl / sgemm_ms / 1e9:.1f} "
+            f"TFLOP/s; kernel / SGEMM {ms / sgemm_ms:.2f}x), library (autograd of the plain "
+            f"MLP forward, dh, d_w_gu and d_w_down together) {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {fl / 1e9:.1f} GFLOP, at FFMA's 67 TFLOP/s "
+            f"{_ffma_ms(fl):.4f} ms), {bound_ms / ms:.1%} of bound ({SMI})")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms, "sgemm_ms": sgemm_ms}
+    log(f"[{tag}] K5a-f32 + K5b-f32 "
+        f"{out['mlp_dgu_dwdown_f32']['ms'] + out['mlp_dh_dwgu_f32']['ms']:.4f} ms against "
+        f"the library call's {lib_ms:.4f} ms ({SMI})")
+    del h, w_gu, w_down, gu, g, gate, up, dgu, leaves, gate_l, up_l, mlp_out, inner
+    for label, n, d, f, ld, blocks in F32_PROJ_CASES[:2]:
+        x, w, g = _proj_case(n, d, f, 0, 1400, torch.float32)
+        xl, wl = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+        y = xl @ wl
+
+        def run():
+            proj.projection_bwd(x, w, g, blocks=blocks)
+
+        ms = min(_time_ms(run, iters=10), _time_ms(run, iters=10))
+        plain_ms = _time_ms(lambda: proj.projection_bwd_plain(x, w, g), iters=3, warmup=1)
+        lib_ms = min(_time_ms(lambda: torch.autograd.grad(y, (xl, wl), grad_outputs=g,
+                                                          retain_graph=True), iters=10)
+                     for _ in range(2))
+        g2, x2 = g.reshape(n, f), x.reshape(n, d)
+        sgemm_ms = min(_time_ms(lambda: (g2 @ w.T, x2.T @ g2), iters=10) for _ in range(2))
+        bound_ms, bound_by = _proj_bound(n, d, f, es=4)
+        fl = 4.0 * n * d * f
+        log(f"[{tag}] proj_bwd_f32 {label} N={n} D={d} F={f} (dw split "
+            f"{mlp_bwd.f32_weight_splits(d, f, n)[0]}): kernel {ms:.4f} ms "
+            f"({fl / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuBLAS SGEMM on its "
+            f"own two products (g @ w.T, x.T @ g; TF32 off) {sgemm_ms:.4f} ms "
+            f"({fl / sgemm_ms / 1e9:.1f} TFLOP/s; kernel / SGEMM {ms / sgemm_ms:.2f}x), library "
+            f"(autograd.grad of x @ w) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"at FFMA's 67 TFLOP/s {_ffma_ms(fl):.4f} ms), {bound_ms / ms:.1%} of bound "
+            f"({SMI})")
+        # The kernels line carries the wq/wo shape; wk/wv is logged beside it.
+        out.setdefault("proj_bwd_f32", {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                        "bound_by": bound_by, "library_ms": lib_ms,
+                                        "sgemm_ms": sgemm_ms})
+        del x, w, g, xl, wl, y, g2, x2
+    return out
 
 
 def main() -> int:
@@ -3905,6 +4189,8 @@ def main() -> int:
     timings.update(phase_f32_timings(flash, paged, train_seg))
     errors.update(phase_mm_kernels(mlp_bwd, proj))
     timings.update(phase_mm_timings(mlp_bwd, proj))
+    errors.update(phase_f32_mm_kernels(mlp_bwd, proj))
+    timings.update(phase_f32_mm_timings(mlp_bwd, proj))
     gc.collect()
     torch.cuda.empty_cache()
     gen, lockstep = phase_serve(flash, paged)
@@ -3931,11 +4217,19 @@ def main() -> int:
     f32_spec = phase_spec_depth2(flash, paged, "f32")
     gc.collect()
     torch.cuda.empty_cache()
-    f32_train = phase_f32_train(flash)
+    f32_train = phase_f32_train(flash, mlp_bwd, proj)
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_parity(flash, F32_TRAIN_ARGS, num_layers=24, batch_size=4,
                        tols=(F32_STEP_LOSS_TOL, F32_STEP_GNORM_TOL), tag="f32-train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_train4 = phase_f32_train(flash, mlp_bwd, proj, F32_KERNEL_ARGS, "f32-train-kernels")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_parity2(mlp_bwd, proj, F32_KERNEL_ARGS, num_layers=24, batch_size=4,
+                        tols=(F32_STEP_LOSS_TOL, F32_STEP_GNORM_TOL, F32_STEP2_LEAF_TOL),
+                        tag="f32-train-kernels")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train] after freeing the serving state: "
@@ -3975,9 +4269,10 @@ def main() -> int:
                 "paged_verify": spec_serve["paged_verify"],
                 "paged_verify_int8": spec_int8["paged_verify_int8"],
                 "paged": errors.pop("paged_direct_launches"),
-                "flash_fwd_f32": f32_serve["flash_fwd_f32"] + f32_train["flash_fwd_f32"],
-                "flash_dq_f32": f32_train["flash_dq_f32"],
-                "flash_dkv_f32": f32_train["flash_dkv_f32"],
+                **{k: f32_serve.get(k, 0) + f32_train[k] + f32_train4[k]
+                   for k in ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32")},
+                **{k: f32_train4[k]
+                   for k in ("mlp_dgu_dwdown_f32", "mlp_dh_dwgu_f32", "proj_bwd_f32")},
                 "paged_tail_f32": f32_serve["paged_tail_f32"],
                 "paged_verify_f32": f32_spec["paged_verify_f32"],
                 "paged_f32": errors.pop("paged_f32_direct_launches"),
@@ -3995,6 +4290,7 @@ def main() -> int:
         f"speculative continuous {spec_serve}, lock-step speculative {lockstep_spec}, "
         f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
         f"f32 serving {f32_serve}, f32 speculative {f32_spec}, f32 training {f32_train}, "
+        f"f32 training under the kernel flags {f32_train4}, "
         f"training {training}, training with the MLP and projection kernels {training4}, "
         f"the recipe under its three policies {recipe}, the served checkpoint "
         f"{ckpt_serve}")

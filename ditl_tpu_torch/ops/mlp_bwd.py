@@ -21,6 +21,14 @@ tensors does it run ``fused_mlp_bwd_plain``. ``launches_dgu`` and
 order the kernels' scheduler hands them out; ``gemm_core`` runs the GEMM core
 alone (its card tests).
 
+float32 operands take K5a-f32 and K5b-f32 (``ditl_mlp_bwd_dgu_dwdown_f32``,
+``ditl_mlp_bwd_dh_dwgu_f32``) in ``csrc/gemm_f32.cu``, 3xTF32 on ``mma.sync``
+(its header says how); ``kernel_route`` is the one table of dtype -> source
+and entry points, and ``launches_dgu_f32`` and ``launches_dh_f32`` count
+their wrapper calls (K5a-f32 runs two grids a call, the dinner tiles then the
+d_w_down tiles). ``f32_weight_splits`` is their split-K rule for a weight
+gradient with few tiles.
+
 ``BlockSizes``, ``DEFAULT_BLOCKS``, ``_pick_blocks`` and ``supports`` are the
 reference's, copied: they decide which shapes take this backward
 (``ops/mlp.py`` takes the einsum spelling for the others), exactly as in the
@@ -40,8 +48,10 @@ import torch
 
 __all__ = ["fused_mlp_bwd", "fused_mlp_bwd_plain", "dgu_dwdown", "dgu_dwdown_plain",
            "dh_dwgu", "dh_dwgu_plain", "supports", "BlockSizes", "DEFAULT_BLOCKS",
-           "launches_dgu", "launches_dh", "reset_launches", "K5_BLOCK_M", "K5_BLOCK_N",
-           "K5_BLOCK_K", "K5_GROUP", "k5_tile_order", "gemm_core", "gemm_core_plain"]
+           "launches_dgu", "launches_dh", "launches_dgu_f32", "launches_dh_f32",
+           "reset_launches", "kernel_route", "Route", "f32_weight_splits", "K5_BLOCK_M",
+           "K5_BLOCK_N", "K5_BLOCK_K", "K5_GROUP", "F32_BLOCK", "F32_BLOCK_K",
+           "F32_MAX_SPLITS", "k5_tile_order", "gemm_core", "gemm_core_plain"]
 
 NUM_LANES = 128
 NUM_SUBLANES = 16  # bf16-safe sublane multiple (f32 needs only 8)
@@ -63,17 +73,80 @@ K5_BLOCK_N = 256
 K5_BLOCK_K = 64
 K5_GROUP = 8
 
+# The f32 kernels' tiles (csrc/gemm_f32.cu): F32_BLOCK x F32_BLOCK output
+# tiles, F32_BLOCK_K-deep stages; a weight gradient is split over its tokens
+# into at most F32_MAX_SPLITS parts until its tiles cover CARD_SMS.
+F32_BLOCK = 128
+F32_BLOCK_K = 32
+F32_MAX_SPLITS = 16
+CARD_SMS = 132  # H100 SXM: a constant, so the split (and the bits) never vary
+
 # Kernel launches since the last reset_launches(); counted where each kernel
-# is launched and nowhere else: K5a, K5b.
+# is launched and nowhere else: K5a, K5b on bf16, and on f32 (one count a
+# wrapper call).
 launches_dgu = 0
 launches_dh = 0
+launches_dgu_f32 = 0
+launches_dh_f32 = 0
 
-_fns = None
+_fns: dict[str, ctypes._CFuncPtr] = {}
+# Argument types of each entry point of K5 and K6 (ops/projection.py loads
+# its own through _kernel too): pointers, strides, ints, the stream.
+_ARGS = {
+    "ditl_mlp_bwd_dgu_dwdown_bf16": [ctypes.c_void_p] * 7 + [ctypes.c_long] * 3
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "ditl_mlp_bwd_dh_dwgu_bf16": [ctypes.c_void_p] * 6 + [ctypes.c_long]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "ditl_gemm_sm90_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_long] * 2
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "ditl_mlp_bwd_dgu_dwdown_f32": [ctypes.c_void_p] * 7 + [ctypes.c_long] * 3
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "ditl_mlp_bwd_dh_dwgu_f32": [ctypes.c_void_p] * 6 + [ctypes.c_long]
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "ditl_proj_bwd_bf16": [ctypes.c_void_p] * 6 + [ctypes.c_long] * 2
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "ditl_proj_bwd_f32": [ctypes.c_void_p] * 6 + [ctypes.c_long] * 2
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+}
 
 
 def reset_launches() -> None:
-    global launches_dgu, launches_dh
-    launches_dgu = launches_dh = 0
+    global launches_dgu, launches_dh, launches_dgu_f32, launches_dh_f32
+    launches_dgu = launches_dh = launches_dgu_f32 = launches_dh_f32 = 0
+
+
+class Route(NamedTuple):
+    """The CUDA entry points of one dtype: the source in ``csrc/`` and the
+    symbols of K5a and K5b."""
+    source: str
+    dgu: str
+    dh: str
+
+
+def kernel_route(dtype: torch.dtype) -> Route:
+    """Which kernels a CUDA call on ``dtype`` operands runs: bf16 in
+    csrc/mlp_bwd.cu, f32 in csrc/gemm_f32.cu. float16, which the reference
+    computes, raises ``NotImplementedError`` naming ROADMAP.md §2."""
+    if dtype == torch.bfloat16:
+        return Route("mlp_bwd.cu", "ditl_mlp_bwd_dgu_dwdown_bf16", "ditl_mlp_bwd_dh_dwgu_bf16")
+    if dtype == torch.float32:
+        return Route("gemm_f32.cu", "ditl_mlp_bwd_dgu_dwdown_f32", "ditl_mlp_bwd_dh_dwgu_f32")
+    raise NotImplementedError(
+        f"the CUDA MLP and projection backward kernels take bfloat16 or float32, got "
+        f"{dtype}: not ported yet (ROADMAP.md §2; mlp_bwd_impl/proj_bwd_impl='xla' run it)")
+
+
+def f32_weight_splits(m: int, n: int, k: int) -> tuple[int, int]:
+    """(splits, contraction per split) of an f32 weight gradient (M x N,
+    contracting over K tokens): as many splits as bring its F32_BLOCK-square
+    tiles to CARD_SMS blocks, at most F32_MAX_SPLITS, each a multiple of
+    F32_BLOCK_K deep, the last one the rest. (1, K) when the tiles alone
+    fill the card."""
+    tiles = _cdiv(m, F32_BLOCK) * _cdiv(n, F32_BLOCK)
+    want = min(F32_MAX_SPLITS, max(1, _cdiv(CARD_SMS, tiles)))
+    chunk = _cdiv(_cdiv(k, want), F32_BLOCK_K) * F32_BLOCK_K
+    splits = _cdiv(k, chunk)
+    return (1, k) if splits == 1 else (splits, chunk)
 
 
 def _pick_blocks(n: int, d: int, f: int, blocks) -> BlockSizes:
@@ -137,45 +210,45 @@ def k5_tile_order(n: int, d: int, f: int, kernel: str) -> list[tuple[str, int, i
             for tm, tn in _raster(tiles_m, tiles_n)]
 
 
-def _kernels():
-    global _fns
-    if _fns is None:
+def _kernel(source: str, symbol: str):
+    fn = _fns.get(symbol)
+    if fn is None:
         from ditl_tpu_torch.ops.cuda_build import load_library
 
-        lib = load_library("mlp_bwd.cu")
-        dgu_fn, dh_fn = lib.ditl_mlp_bwd_dgu_dwdown_bf16, lib.ditl_mlp_bwd_dh_dwgu_bf16
-        gemm_fn = lib.ditl_gemm_sm90_bf16
-        dgu_fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_long] * 3 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
-        dh_fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_long] + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
-        gemm_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long] * 2 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
-        dgu_fn.restype = dh_fn.restype = gemm_fn.restype = ctypes.c_int
-        _fns = (dgu_fn, dh_fn, gemm_fn)
-    return _fns
+        fn = getattr(load_library(source), symbol)
+        fn.argtypes = _ARGS[symbol]
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn
 
 
-def _cuda_rows(name: str, t: torch.Tensor, device) -> int:
-    """What the kernels take of a 2-D operand: bf16 on ``device``, unit
-    column stride, 16-byte aligned rows. Returns the row stride."""
+def _cuda_rows(name: str, t: torch.Tensor, device, dtype: torch.dtype) -> int:
+    """What the kernels take of a 2-D operand: ``dtype`` (the route's, from
+    the first operand; another raises ``ValueError``) on ``device``, unit
+    column stride, 16-byte aligned rows (row strides of 8 bf16 or 4 f32
+    elements). Returns the row stride."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}, the other operands {dtype}: the kernels "
+                         "take one dtype")
     if t.device != device:
         raise ValueError(f"{name} must be on {device}, not {t.device}")
-    if t.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the CUDA MLP and projection backward kernels take bfloat16, got "
-            f"{name} {t.dtype} (f32 kernels are queued in ROADMAP.md)")
-    if t.dim() != 2 or t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
+    if (t.dim() != 2 or t.stride(1) != 1 or t.stride(0) % (16 // t.element_size())
+            or t.data_ptr() % 16):
         raise ValueError(f"{name} must be 2-D with unit column stride and 16-byte "
                          f"aligned rows, got strides {t.stride()}")
     return t.stride(0)
+
+
+def _on_card(device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"the kernels run on CUDA tensors, not {device}")
 
 
 def _as_rows(t: torch.Tensor, n: int, cols: int) -> torch.Tensor:
     """(..., cols) -> (n, cols): a view where the strides allow it (gate and
     up stay views of gu), else a contiguous copy."""
     t2 = t.reshape(n, cols)
-    if t2.stride(1) != 1 or t2.stride(0) % 8 or t2.data_ptr() % 16:
+    if t2.stride(1) != 1 or t2.stride(0) % (16 // t2.element_size()) or t2.data_ptr() % 16:
         t2 = t2.contiguous()
     return t2
 
@@ -224,65 +297,89 @@ def dgu_dwdown(g: torch.Tensor, w_down: torch.Tensor, gate: torch.Tensor,
                up: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K5a on CUDA tensors: (N, D) g, (F, D) w_down, (N, F) gate and up, up
     at a fixed offset from gate with gate's row stride (the halves of the
-    forward's gu). Returns (dgu (N, 2F), d_w_down (F, D))."""
-    global launches_dgu
+    forward's gu), all of one dtype (``kernel_route``'s: bf16 or f32).
+    Returns (dgu (N, 2F), d_w_down (F, D)). The dtypes are checked first,
+    then the device and the layout; nothing launches on a failed check."""
+    global launches_dgu, launches_dgu_f32
+    route = kernel_route(g.dtype)
     n, d = g.shape
     f = w_down.shape[0]
     dev = g.device
-    ld_g = _cuda_rows("g", g, dev)
-    ld_gu = _cuda_rows("gate", gate, dev)
-    if (_cuda_rows("up", up, dev) != ld_gu or gate.shape != (n, f) or up.shape != (n, f)
-            or (up.data_ptr() - gate.data_ptr()) % 16):
+    ld_g = _cuda_rows("g", g, dev, g.dtype)
+    ld_gu = _cuda_rows("gate", gate, dev, g.dtype)
+    if (_cuda_rows("up", up, dev, g.dtype) != ld_gu or gate.shape != (n, f)
+            or up.shape != (n, f) or (up.data_ptr() - gate.data_ptr()) % 16):
         raise ValueError("gate and up must be (N, F) with one row stride and "
                          "16-byte aligned")
     w_down = w_down.contiguous()
-    _cuda_rows("w_down", w_down, dev)
+    _cuda_rows("w_down", w_down, dev, g.dtype)
     if w_down.shape[1] != d or d % NUM_LANES or f % NUM_LANES:
         raise ValueError(f"w_down {tuple(w_down.shape)} must be (F, D), both "
                          "multiples of 128")
+    _on_card(dev)
+    up_off = (up.data_ptr() - gate.data_ptr()) // g.element_size()
     dgu = torch.empty((n, 2 * f), dtype=g.dtype, device=dev)
     d_w_down = torch.empty((f, d), dtype=w_down.dtype, device=dev)
     inner = torch.empty((n, f), dtype=g.dtype, device=dev)
-    # [0] the tile counter, [1 + s] the ready count of 256-column strip s
-    sched = torch.zeros(1 + _cdiv(f, K5_BLOCK_N), dtype=torch.int32, device=dev)
+    f32 = g.dtype == torch.float32
+    if f32:  # scratch: d_w_down's split sums, when it is split
+        splits, chunk = f32_weight_splits(f, d, n)
+        scratch = torch.empty((splits, f, d) if splits > 1 else (0,), dtype=g.dtype,
+                              device=dev)
+    else:  # scratch: [0] the tile counter, [1 + s] the ready count of strip s
+        scratch = torch.zeros(1 + _cdiv(f, K5_BLOCK_N), dtype=torch.int32, device=dev)
+    args = [g.data_ptr(), w_down.data_ptr(), gate.data_ptr(), dgu.data_ptr(),
+            d_w_down.data_ptr(), inner.data_ptr(), scratch.data_ptr(), ld_g, ld_gu, up_off,
+            n, d, f] + ([splits, chunk] if f32 else [])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernels()[0](g.data_ptr(), w_down.data_ptr(), gate.data_ptr(),
-                            dgu.data_ptr(), d_w_down.data_ptr(), inner.data_ptr(),
-                            sched.data_ptr(), ld_g, ld_gu,
-                            (up.data_ptr() - gate.data_ptr()) // 2, n, d, f, stream)
+        err = _kernel(route.source, route.dgu)(*args, stream)
     if err != 0:
         raise RuntimeError(f"mlp_bwd dgu kernel launch failed: CUDA error {err}")
-    launches_dgu += 1
+    if f32:
+        launches_dgu_f32 += 1
+    else:
+        launches_dgu += 1
     return dgu, d_w_down
 
 
 def dh_dwgu(h: torch.Tensor, dgu: torch.Tensor, w_gu: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5b on CUDA tensors: (N, D) h, (N, 2F) dgu, (D, 2F) w_gu. Returns
-    (dh (N, D), d_w_gu (D, 2F))."""
-    global launches_dh
+    """K5b on CUDA tensors: (N, D) h, (N, 2F) dgu, (D, 2F) w_gu, all of one
+    dtype (bf16 or f32). Returns (dh (N, D), d_w_gu (D, 2F))."""
+    global launches_dh, launches_dh_f32
+    route = kernel_route(h.dtype)
     n, d = h.shape
     f2 = w_gu.shape[1]
     dev = h.device
-    ld_h = _cuda_rows("h", h, dev)
+    ld_h = _cuda_rows("h", h, dev, h.dtype)
     dgu, w_gu = dgu.contiguous(), w_gu.contiguous()
-    _cuda_rows("dgu", dgu, dev)
-    _cuda_rows("w_gu", w_gu, dev)
+    _cuda_rows("dgu", dgu, dev, h.dtype)
+    _cuda_rows("w_gu", w_gu, dev, h.dtype)
     if dgu.shape != (n, f2) or w_gu.shape != (d, f2) or d % NUM_LANES or f2 % (2 * NUM_LANES):
         raise ValueError(f"dgu {tuple(dgu.shape)} and w_gu {tuple(w_gu.shape)} must be "
                          "(N, 2F) and (D, 2F), D and F multiples of 128")
+    _on_card(dev)
     dh = torch.empty((n, d), dtype=h.dtype, device=dev)
     d_w_gu = torch.empty((d, f2), dtype=w_gu.dtype, device=dev)
-    sched = torch.zeros(1, dtype=torch.int32, device=dev)  # the tile counter
+    f32 = h.dtype == torch.float32
+    if f32:  # scratch: d_w_gu's split sums, when it is split
+        splits, chunk = f32_weight_splits(d, f2, n)
+        scratch = torch.empty((splits, d, f2) if splits > 1 else (0,), dtype=h.dtype,
+                              device=dev)
+    else:  # scratch: the tile counter
+        scratch = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = [h.data_ptr(), dgu.data_ptr(), w_gu.data_ptr(), dh.data_ptr(), d_w_gu.data_ptr(),
+            scratch.data_ptr(), ld_h, n, d, f2 // 2] + ([splits, chunk] if f32 else [])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernels()[1](h.data_ptr(), dgu.data_ptr(), w_gu.data_ptr(), dh.data_ptr(),
-                            d_w_gu.data_ptr(), sched.data_ptr(), ld_h, n, d, f2 // 2,
-                            stream)
+        err = _kernel(route.source, route.dh)(*args, stream)
     if err != 0:
         raise RuntimeError(f"mlp_bwd dh kernel launch failed: CUDA error {err}")
-    launches_dh += 1
+    if f32:
+        launches_dh_f32 += 1
+    else:
+        launches_dh += 1
     return dh, d_w_gu
 
 
@@ -306,7 +403,8 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, a_mn: bool, b_mn: bool) -> torch
     if dev.type != "cuda":
         raise ValueError(f"gemm_core runs on CUDA tensors, not {dev}; "
                          "gemm_core_plain is its plain version")
-    lda, ldb = _cuda_rows("a", a, dev), _cuda_rows("b", b, dev)
+    lda, ldb = (_cuda_rows("a", a, dev, torch.bfloat16),
+                _cuda_rows("b", b, dev, torch.bfloat16))
     k, m = a.shape if a_mn else a.shape[::-1]
     kb, n = b.shape if b_mn else b.shape[::-1]
     if k != kb:
@@ -315,8 +413,9 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, a_mn: bool, b_mn: bool) -> torch
     sched = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernels()[2](a.data_ptr(), b.data_ptr(), c.data_ptr(), sched.data_ptr(),
-                            lda, ldb, m, n, k, int(a_mn), int(b_mn), stream)
+        err = _kernel("mlp_bwd.cu", "ditl_gemm_sm90_bf16")(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), sched.data_ptr(), lda, ldb, m, n, k,
+            int(a_mn), int(b_mn), stream)
     if err != 0:
         raise RuntimeError(f"gemm core launch failed: CUDA error {err}")
     return c
@@ -334,8 +433,9 @@ def fused_mlp_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused-gate|up MLP block backward: ``(dh, d_w_gu, d_w_down)``.
     Raises ``ValueError`` on shapes ``supports`` rejects, as the reference
-    does. CUDA tensors launch K5a then K5b (bf16; other dtypes raise); CPU
-    tensors run the plain version."""
+    does. CUDA tensors launch K5a then K5b (bf16 or f32, ``kernel_route``;
+    float16 raises, and so do operands of mixed dtypes); CPU tensors run the
+    plain version."""
     b, s, d = h.shape
     f = w_down.shape[0]
     n = b * s

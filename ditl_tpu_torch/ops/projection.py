@@ -12,7 +12,11 @@ chosen by ``bwd_impl``:
   (``csrc/gemm_sm90.cuh``). For CUDA tensors it launches the kernel or
   raises; only for CPU tensors does it run ``projection_bwd_plain``.
   ``launches`` counts launches; ``k6_tile_order`` lists the tiles in the
-  order the kernel's scheduler hands them out.
+  order the kernel's scheduler hands them out. float32 operands take
+  K6-f32 (``csrc/gemm_f32.cu``, ``ditl_proj_bwd_f32``: 3xTF32 on
+  ``mma.sync``, dw split over the tokens by ``mlp_bwd.f32_weight_splits``
+  when its tiles are few), counted in ``launches_f32``; ``kernel_route``
+  says which dtype takes which entry point.
 - ``"xla"``, or a shape ``supports`` rejects: the einsum spelling
   (``projection.py:164-165`` of the reference).
 
@@ -24,17 +28,18 @@ slice and raise.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 from ditl_tpu_torch.ops.mlp_bwd import (K5_BLOCK_K, K5_BLOCK_M, K5_BLOCK_N, _as_rows,
-                                        _cdiv, _cuda_rows, _raster)
+                                        _cdiv, _cuda_rows, _kernel, _on_card, _raster,
+                                        f32_weight_splits)
 
 __all__ = ["projection", "projection_bwd", "projection_bwd_plain", "supports",
            "effective_bwd_impl", "BlockSizes", "DEFAULT_BLOCKS", "launches",
-           "reset_launches", "k6_dx_first", "k6_tile_order"]
+           "launches_f32", "reset_launches", "kernel_route", "proj_bwd_rows", "k6_dx_first",
+           "k6_tile_order"]
 
 NUM_LANES = 128
 NUM_SUBLANES = 16
@@ -47,15 +52,28 @@ class BlockSizes(NamedTuple):
 
 DEFAULT_BLOCKS = BlockSizes(256, 256)
 
-# K6 launches since the last reset_launches(), counted where it is launched.
+# K6 launches since the last reset_launches(), counted where it is launched:
+# bf16, and f32.
 launches = 0
-
-_fn = None
+launches_f32 = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_f32
+    launches = launches_f32 = 0
+
+
+def kernel_route(dtype: torch.dtype) -> tuple[str, str]:
+    """(source in ``csrc/``, entry point) of K6 on ``dtype`` operands: bf16
+    in csrc/projection_bwd.cu, f32 in csrc/gemm_f32.cu; float16 raises
+    ``NotImplementedError`` naming ROADMAP.md §2."""
+    if dtype == torch.bfloat16:
+        return "projection_bwd.cu", "ditl_proj_bwd_bf16"
+    if dtype == torch.float32:
+        return "gemm_f32.cu", "ditl_proj_bwd_f32"
+    raise NotImplementedError(
+        f"the CUDA projection backward kernel takes bfloat16 or float32, got {dtype}: "
+        "not ported yet (ROADMAP.md §2; proj_bwd_impl='xla' runs it)")
 
 
 def _pick_blocks(n: int, d: int, blocks) -> BlockSizes:
@@ -87,19 +105,6 @@ def effective_bwd_impl(bwd_impl: str, b: int, s: int, d: int, f: int,
     if bwd_impl != "pallas":
         return bwd_impl
     return "pallas" if supports(b * s, d, f, tuple(blocks or ())) else "xla"
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from ditl_tpu_torch.ops.cuda_build import load_library
-
-        fn = load_library("projection_bwd.cu").ditl_proj_bwd_bf16
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_long] * 2 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def k6_dx_first(n: int, f: int) -> bool:
@@ -143,10 +148,10 @@ def projection_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx, dw) of ``x @ w`` for x (B, S, D), w (D, F) and the output's
     gradient g (B, S, F). Raises ``ValueError`` on shapes ``supports``
-    rejects. CUDA tensors launch K6 (bf16; other dtypes raise), its tiles in
-    the order ``dx_first`` gives (default ``k6_dx_first``; the results are
-    the same bits either way); CPU tensors run the plain version."""
-    global launches
+    rejects. CUDA tensors launch K6 (bf16 or f32, ``kernel_route``; float16
+    and mixed dtypes raise), the bf16 kernel's tiles in the order
+    ``dx_first`` gives (default ``k6_dx_first``; the results are the same
+    bits either way); CPU tensors run the plain version."""
     b, s, d = x.shape
     f = w.shape[1]
     n = b * s
@@ -159,23 +164,47 @@ def projection_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
         return projection_bwd_plain(x, w, g)
     if x.device.type != "cuda":
         raise ValueError(f"projection_bwd runs on cuda or cpu, not {x.device}")
-    x2, g2, w = _as_rows(x, n, d), _as_rows(g, n, f), w.contiguous()
-    ld_x, ld_g = _cuda_rows("x", x2, x.device), _cuda_rows("g", g2, x.device)
-    _cuda_rows("w", w, x.device)
-    if dx_first is None:
-        dx_first = k6_dx_first(n, f)
-    dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
-    dw = torch.empty((d, f), dtype=w.dtype, device=x.device)
-    sched = torch.zeros(1, dtype=torch.int32, device=x.device)  # the tile counter
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(x2.data_ptr(), w.data_ptr(), g2.data_ptr(), dx.data_ptr(),
-                        dw.data_ptr(), sched.data_ptr(), ld_x, ld_g, n, d, f,
-                        int(dx_first), stream)
+    dx, dw = proj_bwd_rows(_as_rows(x, n, d), w.contiguous(), _as_rows(g, n, f), dx_first)
+    return dx.reshape(b, s, d), dw
+
+
+def proj_bwd_rows(x2: torch.Tensor, w: torch.Tensor, g2: torch.Tensor,
+                  dx_first: bool | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 on CUDA tensors x2 (N, D), w (D, F), g2 (N, F) of one dtype
+    (``kernel_route``'s): (dx (N, D), dw (D, F)). The dtypes are checked
+    first, then the device and the layout; nothing launches on a failed
+    check."""
+    global launches, launches_f32
+    entry = kernel_route(x2.dtype)
+    dev = x2.device
+    ld_x, ld_g = _cuda_rows("x", x2, dev, x2.dtype), _cuda_rows("g", g2, dev, x2.dtype)
+    _cuda_rows("w", w, dev, x2.dtype)
+    _on_card(dev)
+    (n, d), f = x2.shape, w.shape[1]
+    dx = torch.empty((n, d), dtype=x2.dtype, device=dev)
+    dw = torch.empty((d, f), dtype=w.dtype, device=dev)
+    f32 = x2.dtype == torch.float32
+    if f32:  # dx_first does not apply: the longer contraction per tile goes first
+        splits, chunk = f32_weight_splits(d, f, n)
+        # scratch: dw's split sums, when it is split
+        scratch = torch.empty((splits, d, f) if splits > 1 else (0,), dtype=x2.dtype,
+                              device=dev)
+        tail = [splits, chunk]
+    else:  # scratch: the tile counter
+        scratch = torch.zeros(1, dtype=torch.int32, device=dev)
+        tail = [int(k6_dx_first(n, f) if dx_first is None else dx_first)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel(*entry)(x2.data_ptr(), w.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+                              dw.data_ptr(), scratch.data_ptr(), ld_x, ld_g, n, d, f, *tail,
+                              stream)
     if err != 0:
         raise RuntimeError(f"projection_bwd kernel launch failed: CUDA error {err}")
-    launches += 1
-    return dx.reshape(b, s, d), dw
+    if f32:
+        launches_f32 += 1
+    else:
+        launches += 1
+    return dx, dw
 
 
 class _Projection(torch.autograd.Function):

@@ -1,9 +1,13 @@
 """Where one training step's time goes on the card.
 
-    python -m ditl_tpu_torch.tools.profile_train [section.field=value ...]
+    python -m ditl_tpu_torch.tools.profile_train [--path 3|9|10] [section.field=value ...]
 
-Starts from ``chip_smoke.py``'s training path (``DEFAULT_ARGS``: ``llama3-8b``
-at full width and depth, B=4, S=2048) and applies the launcher's arguments
+Starts from one of ``chip_smoke.py``'s training paths (``PATH_ARGS``:
+``--path 3``, the default, ``llama3-8b`` at full width and depth in bf16;
+``--path 9``, ``qwen2-0.5b`` at its published size in f32, the MLP and
+projection backward at the "xla" defaults; ``--path 10``, path 9 under the
+reference's kernel flags and the block fields that admit its widths: K5a-f32,
+K5b-f32 and K6-f32; all B=4, S=2048) and applies the launcher's arguments
 given on the command line on top of it, so that, for example,
 
     python -m ditl_tpu_torch.tools.profile_train model.fused_gate_up=true \
@@ -18,8 +22,8 @@ runs ``--warmup`` steps, then:
 1. times ``--steps`` steps with the host clock after ``synchronize``, split
    into forward + backward and the optimizer (global norm, clip, update);
 2. traces ``--steps`` more steps with ``torch.profiler`` and sums the
-   device time of every kernel by category (the flash kernels K1/K2a/K2b,
-   the MLP and projection backward kernels K5a/K5b/K6, GEMMs, the rest),
+   device time of every kernel by category (each of the port's kernels,
+   bf16 and f32, in a category of its own; then GEMMs and the rest),
    against the traced wall time: the device's idle share is what the
    kernels leave of it.
 
@@ -38,21 +42,52 @@ import torch
 
 __all__ = ["main"]
 
-DEFAULT_ARGS = [
+_BF16_ARGS = [
     "--preset", "llama3-8b", "model.param_dtype=bfloat16", "model.attention_impl=flash",
     "model.loss_impl=fused", "model.loss_block_tokens=4096", "train.optimizer=adafactor",
     "train.warmup_steps=1", "train.total_steps=20",
     "data.synthetic=true", "data.batch_size=4", "data.seq_len=2048",
 ]
-CATEGORIES = (  # (category, substrings of kernel names), first match wins
+_F32_ARGS = [
+    "--preset", "qwen2-0.5b", "model.dtype=float32", "model.param_dtype=float32",
+    "model.attention_impl=flash", "model.loss_impl=fused", "model.loss_block_tokens=4096",
+    "model.remat=full", "train.optimizer=adafactor", "train.warmup_steps=1",
+    "train.total_steps=20", "data.synthetic=true", "data.batch_size=4", "data.seq_len=2048",
+]
+PATH_ARGS = {
+    "3": _BF16_ARGS,
+    "9": _F32_ARGS,
+    # qwen2-0.5b's widths (D = 896, F = 4864) take the kernels only with
+    # these two of the reference's block fields (ops/mlp_bwd.py::supports,
+    # ops/projection.py::supports).
+    "10": _F32_ARGS + ["model.fused_gate_up=true", "model.mlp_bwd_impl=pallas",
+                       "model.proj_bwd_impl=pallas", "model.mlp_bwd_block_f=256",
+                       "model.proj_bwd_block_d=128"],
+}
+# (category, substrings of kernel names), first match wins. Every __global__
+# kernel of ditl_tpu_torch/csrc/*.cu has a category of its own, ahead of
+# "GEMM" (whose substrings a kernel's name could contain).
+CATEGORIES = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K2a flash_dq", ("flash_bwd_dq_kernel",)),
     ("K2b flash_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K1-f32 flash_fwd_f32", ("flash_fwd_f32_kernel",)),
+    ("K2a-f32 flash_dq_f32", ("flash_dq_f32_kernel",)),
+    ("K2b-f32 flash_dkv_f32", ("flash_dkv_f32_kernel",)),
+    ("K3/K4 paged_split", ("paged_split_kernel",)),
+    ("K3/K4 paged_merge", ("paged_merge_kernel",)),
+    ("K3/K4-f32 paged_split_f32", ("paged_split_f32_kernel",)),
+    ("K3/K4-f32 paged_merge_f32", ("paged_merge_f32_kernel",)),
     ("K5a mlp_dgu_dwdown", ("mlp_dgu_dwdown_kernel",)),
     # K5b and K6 are instances of one kernel, tagged 5 and 6 (demangled or
     # mangled; names are matched lower-cased)
     ("K5b mlp_dh_dwgu", ("proj_bwd_kernel<5>", "proj_bwd_kernelili5e")),
     ("K6 proj_bwd", ("proj_bwd_kernel<6>", "proj_bwd_kernelili6e")),
+    ("K5 GEMM core alone (card tests)", ("gemm_sm90_kernel",)),
+    ("K5a-f32 mlp_dgu_f32", ("mlp_dgu_f32_kernel",)),
+    ("K5b-f32 mlp_dh_f32", ("mlp_dh_f32_kernel",)),
+    ("K6-f32 proj_bwd_f32", ("proj_bwd_f32_kernel",)),
+    ("K5/K6-f32 split sums", ("splitk_sum_f32_kernel",)),
     ("GEMM", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")),
     ("elementwise/reduce", ("elementwise", "reduce", "vectorized", "unrolled",
                             "index", "scatter", "gather", "softmax", "cat", "copy",
@@ -72,6 +107,8 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="ditl_tpu_torch.tools.profile_train")
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--path", choices=sorted(PATH_ARGS), default="3",
+                        help="the training path whose arguments come first")
     args, rest = parser.parse_known_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA device", file=sys.stderr)
@@ -85,7 +122,7 @@ def main(argv: list[str] | None = None) -> int:
     from ditl_tpu_torch.train.step import cast_for_compute, loss_fn, train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    config, device = build_config(DEFAULT_ARGS + rest)
+    config, device = build_config(PATH_ARGS[args.path] + rest)
     cfg = config.model
     pipe = DataPipeline(load_text_dataset(config.data), get_tokenizer(config.data.tokenizer),
                         config.data, device)
@@ -157,7 +194,8 @@ def main(argv: list[str] | None = None) -> int:
     for ms, name, n in sorted(top, reverse=True)[:25]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {name[:110]}")
     print(json.dumps({
-        "device": smi, "config": {"model": cfg.name, "layers": cfg.num_layers,
+        "device": smi, "config": {"path": args.path, "model": cfg.name,
+                                  "dtype": cfg.dtype, "layers": cfg.num_layers,
                                   "remat": cfg.remat,
                                   "batch": config.data.batch_size,
                                   "seq": config.data.seq_len, "overrides": rest},

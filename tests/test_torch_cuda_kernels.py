@@ -581,16 +581,16 @@ def test_flash_bwd_raises_instead_of_falling_back(cuda):
 MM_TOL = 1e-2
 
 
-def _rnd(cuda, *shape, seed, scale=1.0):
+def _rnd(cuda, *shape, seed, scale=1.0, dtype=torch.bfloat16):
     g = torch.Generator(device=cuda).manual_seed(seed)
-    return (torch.randn(shape, generator=g, device=cuda) * scale).bfloat16()
+    return (torch.randn(shape, generator=g, device=cuda) * scale).to(dtype)
 
 
-def _assert_scaled(name, got, want):
+def _assert_scaled(name, got, want, tol=MM_TOL):
     assert got.shape == want.shape and got.dtype == want.dtype, name
     assert bool(torch.isfinite(got.float()).all()), name
     scale = float(want.float().abs().max())
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=MM_TOL * scale,
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * scale,
                                msg=name)
 
 
@@ -612,14 +612,14 @@ def test_gemm_core_layouts_match_plain(cuda, a_mn, b_mn):
     _assert_scaled("c", c, tmb.gemm_core_plain(a, b, a_mn, b_mn))
 
 
-def _mlp_inputs(cuda, n, d, f, seed=1):
+def _mlp_inputs(cuda, n, d, f, seed=1, dtype=torch.bfloat16):
     """h, w_gu, w_down, g and the forward's gate/up as the halves of one gu
-    buffer (row stride 2F), as the op saves them."""
-    h = _rnd(cuda, n, d, seed=seed)
-    w_gu = _rnd(cuda, d, 2 * f, seed=seed + 1, scale=d**-0.5)
-    w_down = _rnd(cuda, f, d, seed=seed + 2, scale=f**-0.5)
-    g = _rnd(cuda, n, d, seed=seed + 3)
-    gu = (h.float() @ w_gu.float()).bfloat16()
+    buffer (row stride 2F), as the op saves them, in ``dtype``."""
+    h = _rnd(cuda, n, d, seed=seed, dtype=dtype)
+    w_gu = _rnd(cuda, d, 2 * f, seed=seed + 1, scale=d**-0.5, dtype=dtype)
+    w_down = _rnd(cuda, f, d, seed=seed + 2, scale=f**-0.5, dtype=dtype)
+    g = _rnd(cuda, n, d, seed=seed + 3, dtype=dtype)
+    gu = (h.float() @ w_gu.float()).to(dtype)
     gate, up = gu.chunk(2, dim=-1)
     return h, w_gu, w_down, g, gate, up
 
@@ -759,6 +759,8 @@ def test_mlp_and_projection_autograd_launch_k5_k6(cuda):
 
 @pytest.mark.torch_port
 def test_mlp_and_projection_bwd_raise_instead_of_falling_back(cuda):
+    """float16 (not ported: ROADMAP.md §2), operands of mixed dtypes and
+    shapes ``supports`` rejects raise on the card, and nothing launches."""
     from ditl_tpu_torch.ops import mlp_bwd as tmb
     from ditl_tpu_torch.ops import projection as tpr
 
@@ -768,13 +770,18 @@ def test_mlp_and_projection_bwd_raise_instead_of_falling_back(cuda):
     tmb.reset_launches()
     tpr.reset_launches()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmb.fused_mlp_bwd(h.float(), w_gu.float(), w_down.float(), gate.float(),
-                          up.float(), h.float())
+        tmb.fused_mlp_bwd(h.half(), w_gu.half(), w_down.half(), gate.half(),
+                          up.half(), h.half())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpr.projection_bwd(h.float(), w_gu.float(), h.float())
+        tpr.projection_bwd(h.half(), w_gu.half(), h.half())
+    with pytest.raises(ValueError, match="one dtype"):  # an f32 g, the rest bf16
+        tmb.fused_mlp_bwd(h, w_gu, w_down, gate, up, h.float())
+    with pytest.raises(ValueError, match="one dtype"):
+        tpr.projection_bwd(h.float(), w_gu, h.float())
     with pytest.raises(ValueError, match="tile"):
         tpr.projection_bwd(h[:, :50], w_gu, h[:, :50])
-    assert (tmb.launches_dgu, tmb.launches_dh, tpr.launches) == (0, 0, 0)
+    assert (tmb.launches_dgu, tmb.launches_dh, tpr.launches, tmb.launches_dgu_f32,
+            tmb.launches_dh_f32, tpr.launches_f32) == (0, 0, 0, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -951,3 +958,118 @@ def test_paged_f32_verify_kernel_matches_plain(no_tf32, case):
     assert torch.equal(o41[:, 0], o3)
     dead = [i for i, n in enumerate(lengths) if n == 0]
     assert all(bool((o[i] == 0).all()) for i in dead)
+
+
+# ---------------------------------------------------------------------------
+# The f32 MLP and projection backward kernels: K5a-f32, K5b-f32 and K6-f32
+# (csrc/gemm_f32.cu)
+# ---------------------------------------------------------------------------
+
+# 3xTF32 products (each good to about 2^-21) summed in f32 in another order
+# than the plain versions' SGEMMs (TF32 off): each output within MM_F32_TOL
+# of its own largest magnitude (chip_smoke.F32_MM_TOL).
+MM_F32_TOL = chip_smoke.F32_MM_TOL
+
+
+F32 = torch.float32
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("n,d,f", [(8192, 896, 4864), (2064, 384, 384), (16, 384, 384),
+                                   (2064, 256, 128)])
+def test_mlp_bwd_f32_kernels_match_plain(no_tf32, n, d, f):
+    """K5a-f32 and K5b-f32 against their plain versions: qwen2-0.5b's
+    training step (N = 8192, D = 896, F = 4864), a ragged token edge (N =
+    2064), the least N, D and F odd multiples of 128; gate/up as the strided
+    halves of gu, K5b-f32 fed the same dgu as its plain version. N = 2064
+    splits d_w_down over the tokens (f32_weight_splits)."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+
+    h, w_gu, w_down, g, gate, up = _mlp_inputs(no_tf32, n, d, f, dtype=F32)
+    tmb.reset_launches()
+    dgu, d_w_down = tmb.dgu_dwdown(g, w_down, gate, up)
+    dgu_ref, d_w_down_ref = tmb.dgu_dwdown_plain(g, w_down, gate, up)
+    dh, d_w_gu = tmb.dh_dwgu(h, dgu, w_gu)
+    dh_ref, d_w_gu_ref = tmb.dh_dwgu_plain(h, dgu, w_gu)
+    torch.cuda.synchronize()
+    assert (tmb.launches_dgu_f32, tmb.launches_dh_f32, tmb.launches_dgu,
+            tmb.launches_dh) == (1, 1, 0, 0)
+    for name, x, r in (("dgu", dgu, dgu_ref), ("d_w_down", d_w_down, d_w_down_ref),
+                       ("dh", dh, dh_ref), ("d_w_gu", d_w_gu, d_w_gu_ref)):
+        _assert_scaled(name, x, r, MM_F32_TOL)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("n,d,f,ld", [(8192, 896, 896, 0), (8192, 896, 128, 0),
+                                      (2064, 256, 384, 512), (16, 384, 128, 0)],
+                         ids=["wq/wo", "wk/wv", "ragged, strided g", "N=16"])
+def test_proj_bwd_f32_kernel_matches_plain(no_tf32, n, d, f, ld):
+    """K6-f32 against its plain version at qwen2-0.5b's wq/wo (dw split in
+    3 over the tokens) and wk/wv (dw split in 16), a ragged token edge with
+    the gradient a column slice of a wider one, and the least N."""
+    from ditl_tpu_torch.ops import projection as tpr
+
+    x = _rnd(no_tf32, 1, n, d, seed=5, dtype=F32)
+    w = _rnd(no_tf32, d, f, seed=6, scale=d**-0.5, dtype=F32)
+    g = _rnd(no_tf32, 1, n, ld or f, seed=7, dtype=F32)[..., :f]
+    tpr.reset_launches()
+    dx, dw = tpr.projection_bwd(x, w, g, blocks=(16, 128))
+    dx_ref, dw_ref = tpr.projection_bwd_plain(x, w, g)
+    torch.cuda.synchronize()
+    assert (tpr.launches_f32, tpr.launches) == (1, 0)
+    _assert_scaled("dx", dx, dx_ref, MM_F32_TOL)
+    _assert_scaled("dw", dw, dw_ref, MM_F32_TOL)
+
+
+@pytest.mark.torch_port
+def test_mlp_proj_f32_kernels_are_bitwise_repeatable(no_tf32):
+    """Three calls of K5a-f32, K5b-f32 and K6-f32 give the same bits: one
+    block sums each output tile (or split), the splits are added in a fixed
+    order, and K5a-f32's d_w_down grid reads inner only after the dinner
+    grid wrote it (stream order)."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+    from ditl_tpu_torch.ops import projection as tpr
+
+    h, w_gu, w_down, g, gate, up = _mlp_inputs(no_tf32, 2064, 384, 384, seed=30, dtype=F32)
+    x = _rnd(no_tf32, 1, 8192, 896, seed=31, dtype=F32)
+    w = _rnd(no_tf32, 896, 128, seed=32, scale=896**-0.5, dtype=F32)
+    gp = _rnd(no_tf32, 1, 8192, 128, seed=33, dtype=F32)
+    runs = []
+    for _ in range(3):
+        dgu, d_w_down = tmb.dgu_dwdown(g, w_down, gate, up)
+        runs.append((dgu, d_w_down, *tmb.dh_dwgu(h, dgu, w_gu),
+                     *tpr.projection_bwd(x, w, gp, blocks=(16, 128))))
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for name, a, b in zip(("dgu", "d_w_down", "dh", "d_w_gu", "dx", "dw"), run, runs[0]):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.torch_port
+def test_mlp_and_projection_f32_autograd_launch_k5_k6(no_tf32):
+    """One f32 forward and backward through ``mlp_gu`` and ``projection``
+    with ``"pallas"``: one K5a-f32, one K5b-f32 and one K6-f32 launch, no
+    bf16 launch, and the einsum spelling's gradients within MM_F32_TOL."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+    from ditl_tpu_torch.ops import projection as tpr
+    from ditl_tpu_torch.ops.mlp import mlp_gu
+
+    h = _rnd(no_tf32, 2, 256, 256, seed=8, dtype=F32)
+    w_gu = _rnd(no_tf32, 256, 512, seed=9, scale=1 / 16, dtype=F32)
+    w_down = _rnd(no_tf32, 256, 256, seed=10, scale=1 / 16, dtype=F32)
+    w = _rnd(no_tf32, 256, 256, seed=11, scale=1 / 16, dtype=F32)
+    grads = {}
+    for impl in ("pallas", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (h, w_gu, w_down, w)]
+        tmb.reset_launches()
+        tpr.reset_launches()
+        out = mlp_gu(*leaves[:3], impl, (64, 128, 128))
+        out = tpr.projection(out, leaves[3], bwd_impl=impl, blocks=(64, 128))
+        grads[impl] = torch.autograd.grad(out.square().sum(), leaves)
+        torch.cuda.synchronize()
+        want = (1, 1, 1) if impl == "pallas" else (0, 0, 0)
+        assert (tmb.launches_dgu_f32, tmb.launches_dh_f32, tpr.launches_f32) == want
+        assert (tmb.launches_dgu, tmb.launches_dh, tpr.launches) == (0, 0, 0)
+    for name, x, r in zip(("dh", "d_w_gu", "d_w_down", "dw"), grads["pallas"],
+                          grads["xla"]):
+        _assert_scaled(name, x, r, MM_F32_TOL)

@@ -7,16 +7,22 @@ K2b-f32 in ``csrc/flash_f32.cu``; K3-f32, its verify and K4-f32 in
 ``csrc/paged_attention_f32.cu``). Here, without a card, the wrappers run
 their plain versions; what this file holds:
 
-- the route from (dtype, head_dim) to the flash kernels' entry points, and
-  from (dtype, int8 pools, verify, tail) to the paged kernels' ones: which
-  entry point each case takes, and which cases raise naming ROADMAP.md §2;
+- the route from (dtype, head_dim) to the flash kernels' entry points, from
+  (dtype, int8 pools, verify, tail) to the paged kernels' ones, and from the
+  dtype to the MLP and projection backward's (K5a, K5b, K6; f32 in
+  ``csrc/gemm_f32.cu``): which entry point each case takes, and which cases
+  raise naming ROADMAP.md §2; operands of mixed dtypes raise before any
+  launch; the f32 kernels' split rule for a weight gradient;
 - a Qwen2-layout config (q/k/v biases, tied embeddings, 14 query / 2 KV
   heads so G = 7, head_dim 64, 2 layers) in f32 with
   ``attention_impl="flash"``: its parameters round-trip through the
   converter bit for bit, three train steps equal the JAX package's through
   its Pallas kernels in interpret mode (loss, grad norm, updated
-  parameters), and greedy tokens of both engines, and of the server built
-  with ``--override dtype=float32``, equal the JAX package's.
+  parameters), also under the reference's kernel flags (``fused_gate_up``,
+  ``mlp_bwd_impl`` and ``proj_bwd_impl="pallas"``, its K5/K6 in interpret
+  mode), and greedy tokens of both engines, and of the server built with
+  ``--override dtype=float32``, equal the JAX package's; ``qwen2-0.5b``'s
+  widths take K5/K6 in both packages only with path 10's block fields.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances are ``tests/test_torch_train.py``'s for f32: 1e-5 relative on
@@ -44,6 +50,9 @@ from ditl_tpu.infer.continuous import ContinuousEngine as JEngine  # noqa: E402
 from ditl_tpu.infer.engine import GenerateConfig as JGenerateConfig  # noqa: E402
 from ditl_tpu.infer.engine import Generator as JGenerator  # noqa: E402
 from ditl_tpu.models import llama as jllama  # noqa: E402
+from ditl_tpu.models.presets import get_preset as jget_preset  # noqa: E402
+from ditl_tpu.ops import mlp as jmlp  # noqa: E402
+from ditl_tpu.ops import projection as jproj  # noqa: E402
 from ditl_tpu.runtime.mesh import build_mesh  # noqa: E402
 from ditl_tpu.train import state as jstate  # noqa: E402
 from ditl_tpu.train import step as jstep  # noqa: E402
@@ -57,8 +66,12 @@ from ditl_tpu_torch.models.convert import (  # noqa: E402
     params_to_numpy,
     train_params_from_jax,
 )
+from ditl_tpu_torch.models.presets import get_preset  # noqa: E402
 from ditl_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+from ditl_tpu_torch.ops import mlp as tmlp  # noqa: E402
+from ditl_tpu_torch.ops import mlp_bwd as tmb  # noqa: E402
 from ditl_tpu_torch.ops import paged_attention as tpa  # noqa: E402
+from ditl_tpu_torch.ops import projection as tproj  # noqa: E402
 from ditl_tpu_torch.train import state as tstate  # noqa: E402
 from ditl_tpu_torch.train import step as tstep  # noqa: E402
 from test_torch_train import _assert_trees_close, _batch, _leaves  # noqa: E402
@@ -162,6 +175,113 @@ def test_f32_kernels_live_in_their_own_sources():
         assert all(f'extern "C" int {s}(' in text for s in syms), src
 
 
+# dtype -> (K5 source, K6 source, symbol suffix) or the text the raise carries.
+MM_ROUTES = {
+    "bfloat16": ("mlp_bwd.cu", "projection_bwd.cu", "_bf16"),
+    "float32": ("gemm_f32.cu", "gemm_f32.cu", "_f32"),
+    "float16": "float16.*ROADMAP.md §2",
+}
+
+
+@pytest.mark.parametrize("dtype", sorted(MM_ROUTES))
+def test_mlp_and_projection_kernel_route(dtype):
+    """``mlp_bwd.kernel_route`` and ``projection.kernel_route``: bf16 keeps
+    the bf16 kernels, f32 takes ``ditl_mlp_bwd_*_f32`` and
+    ``ditl_proj_bwd_f32`` (csrc/gemm_f32.cu); float16 raises naming
+    ROADMAP.md §2."""
+    want = MM_ROUTES[dtype]
+    if isinstance(want, str):
+        for route in (tmb.kernel_route, tproj.kernel_route):
+            with pytest.raises(NotImplementedError, match=want):
+                route(getattr(torch, dtype))
+        return
+    k5, k6, sfx = want
+    assert tmb.kernel_route(getattr(torch, dtype)) == (
+        k5, "ditl_mlp_bwd_dgu_dwdown" + sfx, "ditl_mlp_bwd_dh_dwgu" + sfx)
+    assert tproj.kernel_route(getattr(torch, dtype)) == (k6, "ditl_proj_bwd" + sfx)
+
+
+def _mm_operands(kind):
+    """Operands of K5a, K5b and K6 (N = 64, D = F = 128) in f32 with one of
+    them bf16 (``"mixed"``), or all float16."""
+    rng = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    h, g, w = t(64, 128), t(64, 128), t(128, 128)
+    gate, up = t(64, 256).chunk(2, dim=-1)
+    w_gu, dgu = t(128, 256), t(64, 256)
+    calls = {"dgu_dwdown": (tmb.dgu_dwdown, [g, w, gate, up]),
+             "dh_dwgu": (tmb.dh_dwgu, [h, dgu, w_gu]),
+             "proj_bwd_rows": (tproj.proj_bwd_rows, [h, w, g])}
+    for fn, args in calls.values():
+        if kind == "mixed":
+            args[-1] = args[-1].bfloat16()
+        else:
+            args[:] = [a.half() for a in args]
+    return calls
+
+
+@pytest.mark.parametrize("kind,error,match", [
+    ("mixed", ValueError, "one dtype"), ("float16", NotImplementedError, "ROADMAP.md §2")])
+@pytest.mark.parametrize("wrapper", ["dgu_dwdown", "dh_dwgu", "proj_bwd_rows"])
+def test_mlp_and_projection_kernels_check_dtypes_before_anything(wrapper, kind, error,
+                                                                 match):
+    """The CUDA wrappers of K5a, K5b and K6 check their operands' dtypes
+    first: mixed dtypes raise ``ValueError``, float16 (not ported)
+    ``NotImplementedError`` naming ROADMAP.md, before the device check and
+    before any library is built or launched (so here, on CPU tensors, too)."""
+    fn, args = _mm_operands(kind)[wrapper]
+    tmb.reset_launches()
+    tproj.reset_launches()
+    with pytest.raises(error, match=match):
+        fn(*args)
+    assert (tmb.launches_dgu, tmb.launches_dh, tmb.launches_dgu_f32, tmb.launches_dh_f32,
+            tproj.launches, tproj.launches_f32) == (0,) * 6
+
+
+def test_f32_mm_kernels_live_in_their_own_source():
+    """K5a-f32, K5b-f32 and K6-f32 are csrc/gemm_f32.cu's, which includes no
+    header of the repo (the build hash covers csrc/*.cuh, so a new header
+    would rebuild every bf16 library); no bf16 source names them."""
+    from ditl_tpu_torch.ops.cuda_build import CSRC
+
+    text = (CSRC / "gemm_f32.cu").read_text()
+    syms = ["ditl_mlp_bwd_dgu_dwdown_f32", "ditl_mlp_bwd_dh_dwgu_f32", "ditl_proj_bwd_f32"]
+    assert all(f'extern "C" int {s}(' in text for s in syms)
+    assert '#include "' not in text
+    for name in ("mlp_bwd.cu", "projection_bwd.cu", "gemm_sm90.cuh"):
+        other = (CSRC / name).read_text()
+        assert not any(s in other for s in syms) and "_f32" not in other, name
+
+
+# (M, N, K) of weight gradients: path 10's d_w_down, d_w_gu, wq/wo's and
+# wk/wv's dw, the card tests' ragged shapes, the least N, and a K that is no
+# multiple of the stage depth.
+SPLIT_SHAPES = [(4864, 896, 8192), (896, 9728, 8192), (896, 896, 8192), (896, 128, 8192),
+                (384, 384, 2064), (256, 384, 2064), (384, 384, 16), (128, 128, 1000)]
+
+
+@pytest.mark.parametrize("m,n,k", SPLIT_SHAPES)
+def test_f32_weight_splits_cover_the_tokens_once(m, n, k):
+    """``f32_weight_splits``: the wanted count is what brings the tiles to
+    the card's SMs, at most F32_MAX_SPLITS; each split is the least multiple
+    of F32_BLOCK_K that takes the contraction in that many, so the splits
+    cover it exactly once (the last one the rest, none empty) and are no
+    more than wanted; one split of the whole K when the tiles alone fill
+    the card."""
+    splits, chunk = tmb.f32_weight_splits(m, n, k)
+    tiles = -(-m // tmb.F32_BLOCK) * -(-n // tmb.F32_BLOCK)
+    want = min(tmb.F32_MAX_SPLITS, max(1, -(-tmb.CARD_SMS // tiles)))
+    least = -(-(-(-k // want)) // tmb.F32_BLOCK_K) * tmb.F32_BLOCK_K
+    if splits == 1:
+        assert chunk == k and least >= k
+        return
+    assert chunk == least and 1 < splits <= want
+    assert chunk * (splits - 1) < k <= chunk * splits
+
+
 # ---------------------------------------------------------------------------
 # The Qwen2-layout config in f32
 # ---------------------------------------------------------------------------
@@ -206,25 +326,50 @@ def test_qwen2_layout_round_trips_in_f32():
             assert back[path].dtype == np.float32 and np.array_equal(back[path], x), path
 
 
-# (model overrides, train overrides): the slice's training configuration
-# (full remat, adafactor, the fused loss, MLP and projection backward at
-# the "xla" defaults), and adamw without remat under the naive loss.
+# (model overrides, train overrides): path 9's training configuration (full
+# remat, adafactor, the fused loss, MLP and projection backward at the "xla"
+# defaults), path 10's (the same under the reference's kernel flags, with
+# blocks that tile this config: D = 128, F = 256, wq 128 x 896, wk/wv 128 x
+# 128, wo 896 x 128, N = 256), and adamw without remat under the naive loss.
+_PATH9 = dict(remat="full", loss_impl="fused", loss_block_tokens=96)
+KERNEL_FLAGS = dict(fused_gate_up=True, mlp_bwd_impl="pallas", proj_bwd_impl="pallas",
+                    mlp_bwd_block_n=32, mlp_bwd_block_f=128, mlp_bwd_block_d=128,
+                    proj_bwd_block_n=32, proj_bwd_block_d=128)
 STEP_CASES = {
-    "remat_full-adafactor-fused": (dict(remat="full", loss_impl="fused", loss_block_tokens=96),
-                                   dict(optimizer="adafactor")),
+    "remat_full-adafactor-fused": (_PATH9, dict(optimizer="adafactor")),
+    "remat_full-adafactor-fused-kernel_flags": (dict(_PATH9, **KERNEL_FLAGS),
+                                                dict(optimizer="adafactor")),
     "remat_none-adamw-naive": (dict(remat="none"), dict(optimizer="adamw")),
 }
+
+
+def _bwd_impls(jcfg, cfg, b, s):
+    """The MLP and attention projections' backward each package takes for
+    these configs at (B, S): {(package, product): impl}."""
+    d, f, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    out = {}
+    for name, c, mlp, proj in (("jax", jcfg, jmlp, jproj), ("torch", cfg, tmlp, tproj)):
+        mb = (c.mlp_bwd_block_n, c.mlp_bwd_block_f, c.mlp_bwd_block_d)
+        pb = (c.proj_bwd_block_n, c.proj_bwd_block_d)
+        out[(name, "mlp")] = mlp.effective_bwd_impl(c.mlp_bwd_impl, b, s, d, f, mb)
+        for w, d_in, d_out in (("wq", d, c.num_heads * hd), ("wk/wv", d, c.num_kv_heads * hd),
+                               ("wo", c.num_heads * hd, d)):
+            out[(name, w)] = proj.effective_bwd_impl(c.proj_bwd_impl, b, s, d_in, d_out, pb)
+    return out
 
 
 @pytest.mark.parametrize("case", sorted(STEP_CASES))
 def test_qwen2_f32_train_steps_match_jax(case):
     """Three f32 train steps of the Qwen2-layout config against the JAX
     package's ``make_train_step`` on a one-device mesh, its flash attention
-    through the Pallas kernels in interpret mode: loss, grad norm and every
-    updated parameter leaf after each step."""
+    (and under the kernel flags its MLP and projection backward) through the
+    Pallas kernels in interpret mode: loss, grad norm and every updated
+    parameter leaf after each step. Both packages take the backward the
+    case's flags name, for the MLP and every projection."""
     model_kw, train_kw = STEP_CASES[case]
     jcfg, cfg = _configs(**model_kw)
-    assert (cfg.mlp_bwd_impl, cfg.proj_bwd_impl) == ("xla", "xla")
+    impls = _bwd_impls(jcfg, cfg, 2, 128)
+    assert set(impls.values()) == {cfg.mlp_bwd_impl} == {cfg.proj_bwd_impl}, impls
     kw = dict(learning_rate=1e-2, warmup_steps=1, total_steps=5, grad_accum_steps=1,
               **train_kw)
     jtcfg, tcfg = JTrainConfig(**kw), TrainConfig(**kw)
@@ -251,6 +396,22 @@ def test_qwen2_f32_train_steps_match_jax(case):
         _assert_trees_close(params_to_numpy(st.params), jax.device_get(jst.params), 1e-3,
                             floor=1e-3, outliers=1e-3, outlier_atol=3 * kw["learning_rate"])
     assert st.step == 3
+
+
+def test_qwen2_05b_takes_the_kernels_only_with_path_10_blocks():
+    """``qwen2-0.5b`` at B=4, S=2048 (D = 896, F = 4864) under the kernel
+    flags: with path 10's block fields (``mlp_bwd_block_f=256``,
+    ``proj_bwd_block_d=128``) both packages take K5/K6 for the MLP and every
+    projection; with the default blocks both take the einsum backward
+    (4864 % 512 and 896 % 256 are not 0)."""
+    flags = dict(fused_gate_up=True, mlp_bwd_impl="pallas", proj_bwd_impl="pallas")
+    blocks = dict(mlp_bwd_block_f=256, proj_bwd_block_d=128)
+    for extra, want in ((blocks, "pallas"), ({}, "xla")):
+        jcfg = jget_preset("qwen2-0.5b", **flags, **extra)
+        cfg = get_preset("qwen2-0.5b", **flags, **extra)
+        assert (cfg.hidden_size, cfg.intermediate_size) == (896, 4864)
+        impls = _bwd_impls(jcfg, cfg, 4, 2048)
+        assert len(impls) == 8 and set(impls.values()) == {want}, (extra, impls)
 
 
 PROMPTS = ["hello world", "the quick brown fox jumps", "a",

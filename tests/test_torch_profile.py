@@ -1,0 +1,98 @@
+"""The training profile's kernel categories (``tools/profile_train.py``).
+
+``_category`` files each kernel of a ``torch.profiler`` trace by substrings
+of its name. Every ``__global__`` kernel of the port's CUDA sources
+(``ditl_tpu_torch/csrc/*.cu``) must land in a category of the port's own,
+never in cuBLAS's "GEMM" (a port kernel's name may contain ``gemm``) or in
+"other", whether the trace names it demangled (with or without template
+arguments) or mangled. The names are read from the sources themselves, so
+a new kernel without a category fails here.
+"""
+
+import re
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ditl_tpu_torch.ops.cuda_build import CSRC  # noqa: E402
+from ditl_tpu_torch.tools import profile_train  # noqa: E402
+
+torch.set_num_threads(1)
+
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+PORT_CATEGORIES = {cat for cat, _ in profile_train.CATEGORIES} - {"GEMM", "elementwise/reduce"}
+
+
+def _kernels() -> list[tuple[str, str]]:
+    return sorted((src.name, name) for src in CSRC.glob("*.cu")
+                  for name in _GLOBAL.findall(src.read_text()))
+
+
+def test_every_source_declares_kernels():
+    """The regex finds the kernels of every source (the bf16 and f32 flash
+    and paged kernels, K5a and the GEMM core, the f32 MLP and projection
+    kernels and their split sum)."""
+    found = _kernels()
+    assert {src for src, _ in found} == {p.name for p in CSRC.glob("*.cu")} - {
+        "projection_bwd.cu"}  # K6's body is gemm_sm90.cuh's proj_bwd_kernel<6>
+    names = {name for _, name in found}
+    assert {"flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel",
+            "paged_split_f32_kernel", "paged_merge_f32_kernel", "mlp_dgu_f32_kernel",
+            "mlp_dh_f32_kernel", "proj_bwd_f32_kernel", "splitk_sum_f32_kernel"} <= names
+
+
+@pytest.mark.parametrize("src,name", _kernels())
+def test_every_port_kernel_has_a_port_category(src, name):
+    """Each kernel, as the trace may name it: plain, demangled with template
+    arguments and its anonymous namespace, and mangled (lower-cased by
+    ``_category``), lands in one port category, the same each way."""
+    spellings = [name, f"void (anonymous namespace)::{name}<64>((anonymous namespace)::Params)",
+                 f"_ZN44_GLOBAL__N__653f8060_11_{src.replace('.', '_')}_854ed9c0"
+                 f"{len(name)}{name}ENS_6ParamsE"]
+    cats = {profile_train._category(x) for x in spellings}
+    assert len(cats) == 1 and cats <= PORT_CATEGORIES, (src, name, cats)
+
+
+def test_f32_kernels_have_categories_of_their_own():
+    """The f32 kernels are not filed with their bf16 counterparts: K1-f32,
+    K2a-f32, K2b-f32, K3/K4-f32 and K5a/K5b/K6-f32 each have their own."""
+    pairs = [("flash_fwd_kernel", "flash_fwd_f32_kernel"),
+             ("flash_bwd_dq_kernel", "flash_dq_f32_kernel"),
+             ("flash_bwd_dkv_kernel", "flash_dkv_f32_kernel"),
+             ("paged_split_kernel", "paged_split_f32_kernel"),
+             ("paged_merge_kernel", "paged_merge_f32_kernel"),
+             ("mlp_dgu_dwdown_kernel", "mlp_dgu_f32_kernel"),
+             ("proj_bwd_kernel<5>", "mlp_dh_f32_kernel"),
+             ("proj_bwd_kernel<6>", "proj_bwd_f32_kernel")]
+    for bf16, f32 in pairs:
+        assert profile_train._category(bf16) != profile_train._category(f32), (bf16, f32)
+    cats = [profile_train._category(f32) for _, f32 in pairs]
+    assert len(set(cats)) == len(cats)
+
+
+@pytest.mark.parametrize("name,cat", [
+    ("void cutlass::Kernel2<cutlass_80_simt_sgemm_128x128_8x4_nn_align1>(Params)", "GEMM"),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x32", "GEMM"),
+    ("void at::native::vectorized_elementwise_kernel<4, AddFunctor<float>>", "elementwise/reduce"),
+])
+def test_library_kernels_keep_their_categories(name, cat):
+    """cuBLAS's and PyTorch's own kernels still land where they did."""
+    assert profile_train._category(name) == cat
+
+
+def test_path_arguments():
+    """``--path`` picks the arguments of training paths 3, 9 and 10; path 10
+    is path 9 under the kernel flags with the block fields that admit
+    qwen2-0.5b's widths."""
+    from ditl_tpu_torch.launch import build_config
+
+    args = profile_train.PATH_ARGS
+    assert args["10"][:len(args["9"])] == args["9"]
+    cfgs = {p: build_config(a + ["--device", "cpu"])[0].model for p, a in args.items()}
+    assert (cfgs["3"].name, cfgs["3"].param_dtype) == ("llama3-8b", "bfloat16")
+    assert (cfgs["9"].name, cfgs["9"].dtype, cfgs["9"].mlp_bwd_impl) == (
+        "qwen2-0.5b", "float32", "xla")
+    c = cfgs["10"]
+    assert (c.fused_gate_up, c.mlp_bwd_impl, c.proj_bwd_impl, c.mlp_bwd_block_f,
+            c.proj_bwd_block_d) == (True, "pallas", "pallas", 256, 128)
