@@ -44,7 +44,19 @@ no result line. It imports nothing of JAX or of the JAX package.
    magnitude) at path 10's shapes (N = 8192, D = 896, F = 4864; K6 at
    wq/wo and wk/wv), at ragged ones (N = 2064 and 16, D = F = 384) and with
    a strided gradient; each called twice gives the same bits; the bf16 K5a
-   and K5b still give ``K5_DIGESTS``.
+   and K5b still give ``K5_DIGESTS``. ``[f16-kernels]`` and
+   ``[f32-int8-kernels]`` (``phase_f16_int8_kernels``): K1-f16 against the
+   plain forward in float16 at the serving prefill, the training batch's
+   packed rows and head_dim 64 and 32 (``O_TOL``/``LSE_TOL``), a float16
+   backward raising on the card, the bf16 K1 against ``K1_DIGESTS`` (its
+   build before the element type became a template parameter); the paged
+   entry points of ``NEW_PAGED`` (K3-f16, K4-f16, K3-f16-verify,
+   K3-int8-f16 and its verify at ``O_TOL``; K3-int8-f32 and its verify
+   within ``F32_PAGED_TOL`` of the largest magnitude) against the plain
+   version and the split twin at the decode tick, a ragged head_dim 64 case
+   (a dead slot, a tail-only slot, an empty tail) and the split edges, the
+   verify forms at ``_verify_cases`` and 80 query rows; every kernel called
+   twice gives the same bits.
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
    card's bound for the same work from this run's inputs; K1, K2a and K2b
@@ -68,7 +80,11 @@ no result line. It imports nothing of JAX or of the JAX package.
    K5a-f32, K5b-f32 and K6-f32 (wq/wo, wk/wv) at path 10's shapes, with
    their plain versions, cuBLAS's SGEMM (TF32 off) on each kernel's own two
    products, ``autograd.grad`` of the plain MLP forward or of ``x @ w``, the
-   bound and the rate.
+   bound and the rate. ``[f16-timing]`` and ``[f32-int8-timing]``: K1-f16 at
+   the serving prefill and on packed rows against SDPA in float16, the new
+   paged kernels at the decode tick or the spec tick against SDPA over keys
+   gathered (and dequantized to q's dtype) beforehand, the gather timed
+   apart.
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -114,6 +130,18 @@ no result line. It imports nothing of JAX or of the JAX package.
    requests through the plain versions (identical, or a near-tie by
    ``_tie_check``). Then ``--override dtype=float32 --speculative on`` at
    depth 2 (K3-f32-verify on every round, no other paged kernel).
+   Main path 11, f32 serving over int8 pools (after path 8's state is
+   freed): the same with ``--override dtype=float32 --kv-quant int8``:
+   K1-f32 on every prefill (the lock-step int8 cache decodes outside any
+   kernel, as in the reference), K3-int8-f32 on every decode step, pool
+   bytes against path 8's; then its speculation at depth 2
+   (K3-int8-f32-verify on every round; the same requests on a plain engine,
+   K3-int8-f32 on every step). Main path 12, float16 serving
+   (``--override dtype=float16``, 16.0 GiB of weights): K1-f16 on every
+   prefill, K3-f16 on every decode step, finite logits and their largest
+   magnitude; then float16 speculation at depth 2 (K3-f16-verify) and
+   ``--kv-quant int8`` under float16 at depth 2 (K3-int8-f16 on the plain
+   engine's steps, K3-int8-f16-verify on the speculative engine's rounds).
 6d. Main path 9, f32 training: ``train()`` with ``F32_TRAIN_ARGS``
    (qwen2-0.5b at its published size, f32 masters and compute, flash, full
    remat, adafactor, the fused loss, the MLP and projection backward at the
@@ -191,8 +219,8 @@ no result line. It imports nothing of JAX or of the JAX package.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after (path 5: before and after each policy's run). The paths run at full
-depth (the int8 and f32 speculative checks at depth 2): the whole script
-takes about four and a half minutes on an H100, the build included.
+depth (the speculative checks over other pools and dtypes at depth 2): the
+whole script takes about six minutes on an H100, the build included.
 
 f32 matrix products run in full f32 here (TF32 off, set below): the port's
 lm head takes f32 products of bf16 values, as the JAX package's logits do,
@@ -451,6 +479,57 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/projection.py:79 (float32 operands)",
         "path": "f32 training under the kernel flags (path 10): wq, wk, wv, wo of every "
                 "layer",
+    },
+    "flash_fwd_f16": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "ditl_tpu/ops/flash_attention.py:127 (float16 operands)",
+        "path": "float16 serving (path 12): every prefill of the lock-step engine, every "
+                "cold prefill of the continuous one",
+    },
+    "paged_tail_f16": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235 (float16 operands)",
+        "path": "float16 serving (path 12): continuous paged decode ticks",
+    },
+    "paged_verify_f16": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, float16 operands)",
+        "path": "float16 speculative continuous serving: every verify round",
+    },
+    "paged_f16": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:191 (float16 operands)",
+        "path": "direct call",
+    },
+    "paged_tail_int8_f16": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235 (quantized=True, float16 q)",
+        "path": "float16 serving over int8 pools (--kv-quant int8): continuous decode ticks",
+    },
+    "paged_verify_int8_f16": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, quantized=True, "
+                    "float16 q)",
+        "path": "float16 speculative serving over int8 pools: every verify round",
+    },
+    "paged_tail_int8_f32": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235 (quantized=True, float32 q)",
+        "path": "f32 serving over int8 pools (path 11): continuous paged decode ticks",
+    },
+    "paged_verify_int8_f32": {
+        "route": "cuda",
+        "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
+        "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, quantized=True, "
+                    "float32 q)",
+        "path": "f32 speculative serving over int8 pools: every verify round",
     },
 }
 # The decode tick's paged-attention shape on the main path: 8 slots, 32
@@ -905,8 +984,8 @@ def _bwd_launchers(flash, q, k, v, o, lse, do, seg, causal):
     import torch
 
     b, s_q, h, d = q.shape
-    route = flash.kernel_route(q.dtype, d)
-    dq_fn, dkv_fn = flash._kernel(route.dq, "dq"), flash._kernel(route.dkv, "dkv")
+    dq_fn, dkv_fn = (flash._kernel(flash.kernel_route(q.dtype, d, kind), kind)
+                     for kind in ("dq", "dkv"))
     s_kv, kv = k.shape[1], k.shape[2]
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -1280,6 +1359,51 @@ def _det_bf16(shape, salt: int, shift: int):
     h = (i * 2654435761 + salt * 40503) % 4294967296
     h = (h ^ (h >> 15)) * 1274126177 % 4294967296
     return ((h % 2001 - 1000).float() * 2.0**-shift).reshape(shape).to(torch.bfloat16)
+
+
+# ``_k1_digests``, as K1 built from commit a31cf38 (before its element type
+# became a template parameter) gave them on an H100: the bf16 K1 must keep
+# these bits.
+K1_DIGESTS = {
+    "serving prefill o": "f02dece29e8b24c6",
+    "serving prefill lse": "d77d7591f3f90744",
+    "packed D=64 o": "11e4064bbab891dc",
+    "packed D=64 lse": "12d148447c1460bd",
+    "D=32 no mask o": "c44b61ee7f702a88",
+    "D=32 no mask lse": "92b62254061d03dd",
+}
+
+
+def _k1_digests(flash) -> dict:
+    """K1 (bf16) on fixed integer-made inputs: the serving prefill (B=4,
+    S=512, 32/8 heads, D=128, right-padded ids), packed rows at D=64 (G=4,
+    S=300, ids in runs) and D=32 without a mask (Sq=200, Skv=333); SHA-256
+    digests of o's and lse's bytes. Uses only the wrapper's forward
+    signature, so it runs against an older tree's module too."""
+    import hashlib
+
+    import torch
+
+    pos = torch.arange(512, device="cuda")
+    padded = (pos[None] < torch.tensor([512, 401, 230, 97], device="cuda")[:, None])
+    packed = torch.stack([torch.arange(300, device="cuda") // 70,
+                          torch.arange(300, device="cuda") // 111]) + 1
+    cases = [("serving prefill", 4, 512, 512, 32, 8, 128, True, padded.to(torch.int32)),
+             ("packed D=64", 2, 300, 300, 8, 2, 64, True, packed.to(torch.int32)),
+             ("D=32 no mask", 2, 200, 333, 8, 4, 32, False, None)]
+    out = {}
+    for i, (label, b, sq, skv, h, kv, d, causal, seg) in enumerate(cases):
+        q = _det_bf16((b, sq, h, d), 800 + 10 * i, 9)
+        k = _det_bf16((b, skv, kv, d), 801 + 10 * i, 9)
+        v = _det_bf16((b, skv, kv, d), 802 + 10 * i, 9)
+        o, lse = flash.flash_attention_fwd(q, k, v, causal=causal,
+                                           segment_ids=None if seg is None
+                                           else seg.contiguous())
+        torch.cuda.synchronize()
+        for name, t in (("o", o.view(torch.int16)), ("lse", lse.view(torch.int32))):
+            raw = t.contiguous().cpu().numpy().tobytes()
+            out[f"{label} {name}"] = hashlib.sha256(raw).hexdigest()[:16]
+    return out
 
 
 def _k5_digests(mlp_bwd) -> dict:
@@ -2205,22 +2329,29 @@ def _prefill_logits(gen, cfg, ids: list[int]):
     return llama.logits_from_hidden(gen.params, hidden[:, len(ids) - 1])[0]
 
 
-def phase_serve(flash, paged, dtype: str = "bfloat16"):
-    """Main path 1, the lock-step server (path 8's lock-step half with
-    ``dtype="float32"``: ``--override dtype=float32``, K1-f32); returns its
-    Generator (whose weights path 2 reuses) and the path's launch counts."""
+# Serving compute dtype -> (kernel and counter suffix, log tag prefix).
+DTYPE_SFX = {"bfloat16": ("", ""), "float16": ("_f16", "f16-"), "float32": ("_f32", "f32-")}
+
+
+def phase_serve(flash, paged, dtype: str = "bfloat16", kv_int8: bool = False):
+    """Main path 1, the lock-step server; with ``dtype`` the lock-step half
+    of path 8 (``--override dtype=float32``, K1-f32), path 11 (the same plus
+    ``--kv-quant int8``: a contiguous int8 cache, whose decode runs outside
+    any kernel, as in the reference) or path 12 (``dtype=float16``,
+    K1-f16). Returns its Generator (whose weights the continuous half
+    reuses) and the path's launch counts."""
     import dataclasses
 
     import torch
 
     from ditl_tpu_torch.infer import server as server_mod
 
-    f32 = dtype == "float32"
-    tag, sfx = ("f32-serve", "_f32") if f32 else ("serve", "")
+    sfx, prefix = DTYPE_SFX[dtype]
+    tag = prefix + ("int8-serve" if kv_int8 else "serve")
     t0 = time.perf_counter()
     server = server_mod.create_server([
         "--preset", "llama3-8b", "--override", "attention_impl=flash",
-        "--override", f"dtype={dtype}",
+        "--override", f"dtype={dtype}", *(["--kv-quant", "int8"] if kv_int8 else []),
         "--device", "cuda", "--host", "127.0.0.1", "--port", "0", "--seed", "0",
     ])
     gen = server.RequestHandlerClass.generator
@@ -2228,8 +2359,8 @@ def phase_serve(flash, paged, dtype: str = "bfloat16"):
     require((cfg.name, cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
              cfg.vocab_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
              cfg.attention_impl, cfg.dtype)
-            == ("llama3-8b", 32, 4096, 14336, 128256, 32, 8, 128, "flash", dtype),
-            cfg)
+            == ("llama3-8b", 32, 4096, 14336, 128256, 32, 8, 128, "flash", dtype)
+            and (cfg.kv_cache_dtype == "int8") == kv_int8, cfg)
 
     def total(tree, fn):
         if isinstance(tree, torch.Tensor):
@@ -2288,8 +2419,7 @@ def phase_serve(flash, paged, dtype: str = "bfloat16"):
                 f"(finish {body['choices'][0]['finish_reason']})")
             bodies.append(body)
         launches = {"flash_fwd" + sfx: getattr(flash, "launches" + sfx),  # right after
-                    "paged_tail": paged.launches_tail, "paged": paged.launches,
-                    "paged_tail_f32": paged.launches_tail_f32, "paged_f32": paged.launches_f32}
+                    "paged": sum(getattr(paged, n) for n in paged._COUNTERS.values())}
         status, stats = _http("GET", url + "/v1/stats")
         require(status == 200 and stats["requests"] == len(requests), stats)
     finally:
@@ -2321,7 +2451,7 @@ def phase_serve(flash, paged, dtype: str = "bfloat16"):
 
     # The prefill's last-position logits with the flash kernel against the
     # same forward with plain attention, on the card.
-    logits_tol = F32_LOGITS_REL_TOL if f32 else LOGITS_REL_TOL
+    logits_tol = F32_LOGITS_REL_TOL if dtype == "float32" else LOGITS_REL_TOL
     for i in (0, 2):
         ids = [tok.bos_id] + tok.encode(requests[i][2])
         with torch.no_grad():
@@ -2351,8 +2481,7 @@ def phase_serve(flash, paged, dtype: str = "bfloat16"):
             first_lp = a["logprobs"]["token_logprobs"][0]
             want_lp = float(torch.log_softmax(lf, -1).max())
             require(abs(first_lp - want_lp) < 1e-4, (first_lp, want_lp))
-    require(launches["paged_tail"] == launches["paged"] == launches["paged_tail_f32"]
-            == launches["paged_f32"] == 0, launches)
+    require(launches["paged"] == 0, launches)  # no paged kernel of any kind
     log(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return gen, {k: v for k, v in launches.items() if k.startswith("flash")}
 
@@ -2465,8 +2594,11 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
 
     cfg = gen.cfg
     tok = gen.tokenizer
-    f32 = cfg.dtype == "float32"  # path 8's continuous half: K1-f32, K3-f32
-    tag, sfx = ("f32-continuous", "_f32") if f32 else ("continuous", "")
+    # paths 8, 11 and 12's continuous halves: K1-f32 or K1-f16, and K3 over
+    # pools of the compute dtype or int8
+    sfx, prefix = DTYPE_SFX[cfg.dtype]
+    int8 = "_int8" if cfg.kv_cache_dtype == "int8" else ""
+    tag = prefix + ("int8-continuous" if int8 else "continuous")
     t0 = time.perf_counter()
     engine = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
                               max_cache_len=2048, cache_mode="paged", page_size=256,
@@ -2486,11 +2618,12 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
         flash.reset_launches()  # this path's counts start here
         paged.reset_launches()
         results, wall = _send_continuous(url, requests, engine)
+        k3 = "paged_tail" + int8 + sfx
         launches = {"flash_fwd" + sfx: getattr(flash, "launches" + sfx),
-                    "paged_tail" + sfx: getattr(paged, "launches_tail" + sfx),
+                    k3: getattr(paged, "launches_tail" + int8 + sfx),
                     # every other paged kernel (K4, the verify, the other dtypes')
                     "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
-                    - getattr(paged, "launches_tail" + sfx)}  # read right after the run
+                    - getattr(paged, "launches_tail" + int8 + sfx)}  # read right after
         st = engine.stats()
         status, http_stats = _http("GET", url + "/v1/stats")
         require(status == 200 and http_stats["engine"] == "continuous", http_stats)
@@ -2529,10 +2662,10 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
     require(st["slots_busy"] == 0 and st["queue_depth"] == 0, st)
     want_k3 = cfg.num_layers * st["decode_steps"]
     want_k1 = cfg.num_layers * st["prefills_cold"]
-    require(launches["paged_tail" + sfx] == want_k3, (launches, st["decode_steps"]))
+    require(launches[k3] == want_k3, (launches, st["decode_steps"]))
     require(launches["flash_fwd" + sfx] == want_k1, (launches, st["prefills_cold"]))
     require(launches.pop("other") == 0, launches)
-    log(f"[{tag}] K3{sfx} launches {launches['paged_tail' + sfx]} = {cfg.num_layers} layers "
+    log(f"[{tag}] {k3} launches {launches[k3]} = {cfg.num_layers} layers "
         f"x {st['decode_steps']} decode steps ({st['decode_ticks']} ticks); K1{sfx} launches "
         f"{launches['flash_fwd' + sfx]} = {cfg.num_layers} x {st['prefills_cold']} cold "
         f"prefills ({st['prefills_prefix_hit']} prefix-hit prefills, masked plain "
@@ -2547,7 +2680,7 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
         f"token of a cold 1001-token request on the idle engine {ttft_s * 1e3:.1f} ms "
         f"(HTTP included); pools {pool_bytes / 1e9:.3f} GB ({SMI})")
 
-    _check_decode_step(engine, paged, tag, "K3" + sfx)
+    _check_decode_step(engine, paged, tag, k3)
     log(f"[{tag}] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return launches, {"ms_step": tick_ms / engine.decode_chunk,
@@ -2811,30 +2944,67 @@ def phase_lockstep_spec(gen, flash, paged) -> dict:
     return {"flash_fwd": k1}
 
 
-# Speculation at depth 2 over other pools: (server flags, the verify kernel's
-# name in the kernels line, the log tag, what the pools hold).
+# Speculation at depth 2 over other pools: (server flags, the compute dtype,
+# int8 pools, the log tag, what the pools hold). The verify kernel's name in
+# the kernels line is "paged_verify" + ("_int8" with int8 pools) + the
+# dtype's suffix, the single-query kernel's "paged_tail" + the same.
 SPEC_DEPTH2 = {
-    "int8": (["--kv-quant", "int8"], "paged_verify_int8", "spec-int8", "int8 pools"),
-    "f32": (["--override", "dtype=float32"], "paged_verify_f32", "f32-spec", "f32 pools"),
+    "int8": (["--kv-quant", "int8"], "bfloat16", True, "spec-int8", "int8 pools"),
+    "f32": (["--override", "dtype=float32"], "float32", False, "f32-spec", "f32 pools"),
+    "f32-int8": (["--override", "dtype=float32", "--kv-quant", "int8"], "float32", True,
+                 "f32-int8-spec", "int8 pools under f32"),
+    "f16": (["--override", "dtype=float16"], "float16", False, "f16-spec", "float16 pools"),
+    "f16-int8": (["--override", "dtype=float16", "--kv-quant", "int8"], "float16", True,
+                 "f16-int8-spec", "int8 pools under float16"),
 }
 
 
+def _serve_greedy(server, recording, flash, paged, requests, counter: str):
+    """``requests`` over HTTP to ``server``, whose continuous engine is the
+    recording ``ThreadedEngine`` ``recording``: the outputs by (prompt ids,
+    max tokens), the paged launches of ``counter`` and of every other paged
+    kernel, read right after, the engine's stats and the wall seconds. The
+    server is closed after."""
+    engine = recording._engine
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        flash.reset_launches()
+        paged.reset_launches()
+        results, wall = _send_continuous(url, requests, engine)
+        n = getattr(paged, counter)
+        other = sum(getattr(paged, c) for c in paged._COUNTERS.values()) - n
+        st = engine.stats()
+    finally:
+        server.close(drain=True)
+        thread.join(timeout=30)
+    require(all(results[i][0] == 200 for i in range(len(requests))), results)
+    return recording.outputs, n, other, st, wall
+
+
 def phase_spec_depth2(flash, paged, kind: str) -> dict:
-    """Speculation over int8 pools (``kind="int8"``: ``infer/server.py
-    --kv-quant int8``) or in f32 (``"f32"``: ``--override dtype=float32``),
-    ``--speculative on --engine continuous --cache-mode paged`` at full
-    width and depth 2 (a depth cut: the engine's pools and the verify kernel
-    are per layer), the continuous traffic's greedy requests plus the span
-    prompts over HTTP: K3-int8-verify (K3-f32-verify) on every round of both
-    layers, no other paged kernel; greedy tokens against the same engine
-    configuration's plain ticks by the divergence rule. Returns the launch
-    counts."""
+    """Speculation over other pools (``SPEC_DEPTH2``: ``--kv-quant int8``,
+    ``--override dtype=float32`` or ``dtype=float16``, or both),
+    ``--speculative on --engine continuous --cache-mode paged`` built by
+    ``create_server`` at full width and depth 2 (a depth cut: the engine's
+    pools and the verify kernel are per layer), the continuous traffic's
+    greedy requests plus the span prompts over HTTP: the verify kernel of
+    those pools and that dtype on every round of both layers, no other paged
+    kernel; then the same requests through a plain (not speculative) engine
+    of the same configuration over the same weights, served the same way:
+    the single-query K3 of those pools on every decode step of both layers,
+    no other paged kernel; the speculative greedy tokens against the plain
+    engine's by the divergence rule. Returns the launch counts."""
     import torch
 
     from ditl_tpu_torch.infer import server as server_mod
     from ditl_tpu_torch.infer.continuous import ContinuousEngine
+    from ditl_tpu_torch.models.llama import torch_dtype
 
-    flags, verify, tag, pools = SPEC_DEPTH2[kind]
+    flags, dtype, int8, tag, pools = SPEC_DEPTH2[kind]
+    name = ("_int8" if int8 else "") + DTYPE_SFX[dtype][0]
+    verify, single = "paged_verify" + name, "paged_tail" + name
     server = server_mod.create_server([
         "--preset", "llama3-8b", "--override", "attention_impl=flash", "--override",
         "num_layers=2", "--device", "cuda", "--host", "127.0.0.1", "--port", "0",
@@ -2845,51 +3015,39 @@ def phase_spec_depth2(flash, paged, kind: str) -> dict:
     gen = server.RequestHandlerClass.generator
     engine = server.engine._engine
     cfg, tok = gen.cfg, gen.tokenizer
-    require((cfg.num_layers, cfg.hidden_size, engine.speculative) == (2, 4096, True), cfg)
-    require(cfg.kv_cache_dtype == "int8" if kind == "int8" else
-            (cfg.dtype, engine.cache["kp"].dtype) == ("float32", torch.float32), cfg)
+    require((cfg.num_layers, cfg.hidden_size, engine.speculative, cfg.dtype)
+            == (2, 4096, True, dtype), cfg)
+    require(engine.cache["kp"].dtype == (torch.int8 if int8 else torch_dtype(dtype)),
+            engine.cache["kp"].dtype)
     recording = _recording_engine(engine)
     server.engine.close()  # the server's own engine thread; the recording one takes over
     server.RequestHandlerClass.threaded_engine = recording
     server.engine = recording
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}"
     requests = [p for p in _continuous_requests()[0] + _span_requests()
                 if not p.get("temperature")]
-    try:
-        flash.reset_launches()
-        paged.reset_launches()
-        results, wall = _send_continuous(url, requests, engine)
-        counter = "launches_" + verify[len("paged_"):]
-        launches = {verify: getattr(paged, counter),
-                    "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
-                    - getattr(paged, counter)}
-        st = engine.stats()["speculative"]
-    finally:
-        server.close(drain=True)
-        thread.join(timeout=30)
-    require(all(results[i][0] == 200 for i in range(len(requests))), results)
-    require(launches[verify] == cfg.num_layers * st["verify_rounds"] > 0
-            and launches.pop("other") == 0, (launches, st))
+    outputs, n, other, st, wall = _serve_greedy(server, recording, flash, paged, requests,
+                                                _counter(verify))
+    st = st["speculative"]
+    require(n == cfg.num_layers * st["verify_rounds"] > 0 and other == 0, (n, other, st))
     log(f"[{tag}] depth 2, {pools}: {verify} launches "
-        f"{launches[verify]} = {cfg.num_layers} layers x {st['verify_rounds']} "
+        f"{n} = {cfg.num_layers} layers x {st['verify_rounds']} "
         f"verify rounds; {st['tokens_per_row_forward']:.3f} tokens per verify forward per "
         f"row; {len(requests)} greedy requests in {wall:.3f}s ({SMI})")
-    plain = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
-                             max_cache_len=2048, cache_mode="paged", page_size=256,
-                             device="cuda")
-    ids_of = {}
-    for payload in requests:
-        ids = [tok.bos_id] + tok.encode(payload["prompt"])
-        ids_of[plain.submit(ids, max_new_tokens=payload["max_tokens"])] = (
-            ids, payload["max_tokens"])
-    plain_out = plain.run()
-    plain_of = {(tuple(ids), m): plain_out[rid] for rid, (ids, m) in ids_of.items()}
-    pairs = [(list(key[0]), spec_out, plain_of[key]) for key in sorted(plain_of)
-             for spec_out in recording.outputs[key]]  # one pair a greedy request
+    plain = _recording_engine(ContinuousEngine(
+        gen.params, cfg, tok, n_slots=8, decode_chunk=16, max_cache_len=2048,
+        cache_mode="paged", page_size=256, device="cuda"))
+    plain_server = server_mod.make_server(gen, threaded_engine=plain, host="127.0.0.1",
+                                          port=0, model_name=cfg.name)
+    plain_out, n_single, other, pst, _ = _serve_greedy(plain_server, plain, flash, paged,
+                                                      requests, _counter(single))
+    require(n_single == cfg.num_layers * pst["decode_steps"] > 0 and other == 0,
+            (n_single, other, pst["decode_steps"]))
+    log(f"[{tag}] the same requests on the plain engine: {single} launches {n_single} = "
+        f"{cfg.num_layers} layers x {pst['decode_steps']} decode steps, no other paged kernel")
+    pairs = [(list(key[0]), spec_out, plain_out[key][0]) for key in sorted(plain_out)
+             for spec_out in outputs[key]]  # one pair a greedy request
     _check_against(gen, cfg, pairs, tag)
-    return launches
+    return {verify: n, single: n_single}
 
 
 def _int8_pools(kp, vp):
@@ -2951,19 +3109,20 @@ def phase_paged_int8_kernels(paged) -> dict:
 
 def _paged_int8_bound(q, kq, table, lengths, starts):
     """Least time on an H100 SXM for one K3 call over int8 pools: the live
-    page keys' int8 K and V and their two f32 scales, the live tail keys'
-    bf16 K and V, q and o, the table and the lengths over HBM bandwidth,
-    against 4*D flops per (query head, live key) at bf16 peak."""
+    page keys' int8 K and V and their two f32 scales, the live tail keys' K
+    and V in q's dtype, q and o, the table and the lengths over HBM
+    bandwidth, against 4*D flops per (query head, live key) at the peak of
+    q's dtype."""
     b, h, d = q.shape
     kv = kq.shape[1]
+    es = q.element_size()
     pairs = list(zip(starts.tolist(), lengths.tolist()))
     page = sum(min(s, n) for s, n in pairs)
     tail = sum(max(0, n - s) for s, n in pairs)
-    nbytes = (2 * page * kv * (d + 4) + 2 * tail * kv * d * 2 + 2 * (2 * b * h * d)
+    nbytes = (2 * page * kv * (d + 4) + 2 * tail * kv * d * es + 2 * (es * b * h * d)
               + 4 * (table.numel() + 2 * b))
     flops = 4 * d * h * (page + tail)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, flops, q.dtype)
 
 
 def phase_paged_int8_timings(paged) -> dict:
@@ -3247,7 +3406,7 @@ def phase_paged_verify_kernels(paged) -> dict:
 
 def _verify_sdpa_inputs(q, kp, vp, table, ln, st, tk, tv, k_scale=None, v_scale=None):
     """SDPA's view of a verify call: every slot's page keys (int8 pools:
-    dequantized to bf16), then its tail, as (B, K, S, D) K and V, q as
+    dequantized to q's dtype), then its tail, as (B, K, S, D) K and V, q as
     (B, H, Q, D), and the (B, 1, Q, S) boolean mask of the plain version."""
     import torch
 
@@ -3258,7 +3417,7 @@ def _verify_sdpa_inputs(q, kp, vp, table, ln, st, tk, tv, k_scale=None, v_scale=
     for pool, sc, t in ((kp, k_scale, tk), (vp, v_scale, tv)):
         g = pool[table.long()]
         if sc is not None:
-            g = (g.float() * sc[table.long()][:, :, :, 0, :, None]).to(torch.bfloat16)
+            g = (g.float() * sc[table.long()][:, :, :, 0, :, None]).to(q.dtype)
         g = g.transpose(2, 3).reshape(b, maxp * ps, kv, d)
         out.append(torch.cat([g, t.transpose(1, 2)], dim=1).transpose(1, 2).contiguous())
     cols = torch.arange(maxp * ps, device="cuda")
@@ -3835,33 +3994,331 @@ def phase_f32_timings(flash, paged, train_seg) -> dict:
     return out
 
 
-def phase_f32_serve(flash, paged) -> dict:
-    """Main path 8, f32 serving: ``infer/server.py --preset llama3-8b
-    --override attention_impl=flash --override dtype=float32`` at full width
-    and depth (f32 weights, seed-initialised), lock-step on path 1's five
-    requests (K1-f32 on every prefill), then the continuous engine over f32
-    pools on path 2's 12 requests (K1-f32 on every cold prefill, K3-f32 on
-    every decode step); decode ms a step, time to first token and tokens/s
-    beside the f32 weight-read bound, pool bytes, peak memory; one decode
-    step's logits against the plain version's; greedy tokens of both engines
-    against the same requests through the plain versions (identical, or a
-    near-tie by ``_tie_check``). Returns the launch counts."""
+# float16 kernels (K1-f16, K3-f16, its verify, K4-f16, K3-int8-f16 and its
+# verify) and K3 over int8 pools with an f32 q (variant F) beside the other
+# kernel phases. (name, dtype, int8 pools, form) of each paged entry point
+# that path 11 or 12 runs or that is called directly (K4-f16).
+NEW_PAGED = [
+    ("paged_tail_f16", "float16", False, "tail"),
+    ("paged_f16", "float16", False, "no_tail"),
+    ("paged_verify_f16", "float16", False, "verify"),
+    ("paged_tail_int8_f16", "float16", True, "tail"),
+    ("paged_verify_int8_f16", "float16", True, "verify"),
+    ("paged_tail_int8_f32", "float32", True, "tail"),
+    ("paged_verify_int8_f32", "float32", True, "verify"),
+]
+# The single-query cases of the new paged kernels: (label, b, h, kv, d, ps,
+# tail_len, lengths, starts); the decode tick, then a ragged head_dim 64
+# case (a dead slot, a tail-only slot, an empty tail: starts == lengths) and
+# the split edges.
+NEW_PAGED_CASES = [
+    ("decode tick", PAGED_MAIN["b"], PAGED_MAIN["h"], PAGED_MAIN["kv"], PAGED_MAIN["d"],
+     PAGED_MAIN["ps"], PAGED_MAIN["tail_len"], _paged_main_case()[1], _paged_main_case()[0]),
+    ("head_dim 64, page 16", 4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 38, 45]),
+    ("split edges", 4, 32, 8, 128, 16, 16, [257, 256, 513, 140], [257, 250, 500, 128]),
+]
+# The verify's cases: ``_verify_cases`` (the spec tick, 72 rows at G = 8,
+# ...) and 80 query rows (Q = 10, G = 8), the most the kernels take.
+VERIFY_80 = ("80 rows", 2, 10, 16, 2, 128, 64, 40, [300, 77], [290, 64], 5)
+
+
+def _close(name: str, dtype, o, ref) -> float:
+    """``o`` against ``ref``: float16 at ``O_TOL`` (bf16's), f32 within
+    ``F32_PAGED_TOL`` of ``ref``'s largest magnitude; returns max|o - ref|."""
+    import torch
+
+    err = float((o.float() - ref.float()).abs().max())
+    if dtype == torch.float32:
+        require(err <= F32_PAGED_TOL * float(ref.abs().max()), (name, err))
+    else:
+        torch.testing.assert_close(o.float(), ref.float(), atol=O_TOL, rtol=O_TOL)
+    return err
+
+
+def phase_f16_int8_kernels(flash, paged, train_seg) -> dict:
+    """[f16-kernels]: K1-f16 (``ditl_flash_fwd_f16``) against the plain
+    forward in float16 (``O_TOL``/``LSE_TOL``) at the serving prefill, the
+    training batch's packed rows (forward only), head_dim 64 and 32, causal
+    and not, ids up and down, a boundary past a tile edge; a float16
+    backward on the card raises, naming ROADMAP.md §2; the bf16 K1 keeps
+    ``K1_DIGESTS``. Then each entry point of ``NEW_PAGED`` against the plain
+    version and the split twin (``_close``): the single-query forms on
+    ``NEW_PAGED_CASES``, the verify forms on ``_verify_cases`` and 80 query
+    rows, a 4-D q with Q = 1 the 3-D call's bits. Every kernel called twice
+    gives the same bits. Returns the max abs errors and K4-f16's direct-call
+    launches."""
+    import torch
+
+    f16 = torch.float16
+    worst = {"flash_fwd_f16": 0.0}
+    cases = [  # (label, b, s_q, s_kv, h, kv, d, causal, ids)
+        ("serving prefill, right-padded", 4, 512, 512, 32, 8, 128, True,
+         [512, 401, 230, 97]),
+        ("training batch, packed rows", 4, 2048, 2048, 32, 8, 128, True, "train"),
+        ("head_dim 64, ids up and down", 2, 300, 300, 8, 2, 64, True, "nonmono"),
+        ("head_dim 64, packed, S % 64 != 0", 2, 333, 333, 8, 2, 64, True, "packed"),
+        ("head_dim 32, non-causal, Sq != Skv", 2, 200, 333, 8, 4, 32, False, None),
+        ("head_dim 32, boundary past a tile edge", 1, 257, 257, 4, 2, 32, True, "edge1"),
+        ("head_dim 128, non-causal, ids up and down", 2, 300, 300, 8, 2, 128, False,
+         "nonmono"),
+    ]
+    flash.reset_launches()
+    for i, (label, b, sq, skv, h, kv, d, causal, spec) in enumerate(cases):
+        q, k, v, _ = _attn_inputs(b, sq, skv, h, kv, d, seed=1300 + i, dtype=f16)
+        seg = _bwd_segment_ids(spec, b, sq, train_seg)
+        o, lse = flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+        o2, lse2 = flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+        o_ref, lse_ref = flash.flash_attention_plain(q, k, v, causal=causal, segment_ids=seg)
+        torch.cuda.synchronize()
+        require(o.dtype == f16 and bool(torch.isfinite(o.float()).all()
+                                        and torch.isfinite(lse).all()),
+                f"flash_fwd_f16 {label}: dtype or non-finite")
+        require(torch.equal(o, o2) and torch.equal(lse, lse2),
+                f"flash_fwd_f16 {label}: two calls differ")
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=O_TOL, rtol=O_TOL)
+        torch.testing.assert_close(lse, lse_ref, atol=LSE_TOL, rtol=LSE_TOL)
+        err = float((o.float() - o_ref.float()).abs().max())
+        worst["flash_fwd_f16"] = max(worst["flash_fwd_f16"], err)
+        log(f"[f16-kernels] flash {label}: B={b} Sq={sq} Skv={skv} H={h} K={kv} D={d} "
+            f"causal={causal}: max|o-plain| {err:.3e}, max|lse-plain| "
+            f"{float((lse - lse_ref).abs().max()):.3e} (tolerance {O_TOL} / {LSE_TOL}); "
+            f"two calls the same bits")
+        if i == 0:
+            try:
+                flash.flash_attention_bwd(q, k, v, o, lse, o, causal=causal, segment_ids=seg)
+            except NotImplementedError as e:
+                require("ROADMAP.md §2" in str(e), str(e))
+                log(f"[f16-kernels] the float16 backward raises on the card: {e}")
+            else:
+                raise AssertionError("the float16 flash backward did not raise")
+        del q, k, v, o, lse, o2, lse2, o_ref, lse_ref
+    require((flash.launches_f16, flash.launches, flash.launches_dq, flash.launches_dkv)
+            == (2 * len(cases), 0, 0, 0), (flash.launches_f16, flash.launches))
+    digests = _k1_digests(flash)
+    for key, value in digests.items():
+        log(f"[f16-kernels] bf16 K1 digest {key}: {value} (expected {K1_DIGESTS.get(key)})")
+    require(digests == K1_DIGESTS, "the bf16 K1 differs from the earlier build's bits")
+
+    paged.reset_launches()
+    calls = {name: 0 for name, *_ in NEW_PAGED}
+    for name, dtype_name, int8, form in NEW_PAGED:
+        dtype = getattr(torch, dtype_name)
+        worst[name] = 0.0
+        tag = "f16-kernels" if dtype == f16 else "f32-int8-kernels"
+        cases = NEW_PAGED_CASES if form != "verify" else _verify_cases() + [VERIFY_80]
+        for i, case in enumerate(cases):
+            if form == "verify":
+                label, b, nq, h, kv, d, ps, tl, lens, sts, maxp = case
+            else:
+                (label, b, h, kv, d, ps, tl, lens, sts), nq, maxp = case, None, None
+            q, kp, vp, table, ln, st, tk, tv = _paged_inputs(
+                b, h, kv, d, ps, tl, lens, sts, seed=1400 + 10 * i, n_pool=128, nq=nq,
+                maxp=maxp, share=b > 2, dtype=dtype)
+            scales = {}
+            if int8:
+                kp, vp, ks, vs = _int8_pools(kp, vp)
+                scales = dict(k_scale=ks, v_scale=vs)
+            tail = {} if form == "no_tail" else dict(tail_k=tk, tail_v=tv, starts=st)
+            lim = torch.minimum(st, ln).contiguous() if form == "no_tail" else ln
+            o, o2 = (paged.paged_attention(q, kp, vp, table, lim, **tail, **scales)
+                     for _ in range(2))
+            calls[name] += 2
+            args = (q, kp, vp, table, lim) if form == "no_tail" else (
+                q, kp, vp, table, lim, tk, tv, st, scales.get("k_scale"),
+                scales.get("v_scale"))
+            r = paged.paged_attention_plain(*args)
+            sp = paged.paged_attention_split_plain(*args)
+            extra = ""
+            if form == "verify":
+                o41 = paged.paged_attention(q[:, :1].contiguous(), kp, vp, table, lim,
+                                            **tail, **scales)
+                o3 = paged.paged_attention(q[:, 0].contiguous(), kp, vp, table, lim,
+                                           **tail, **scales)
+                require(torch.equal(o41[:, 0], o3), f"{name} {label}: Q = 1 differs")
+                calls[name.replace("verify", "tail")] += 2  # both single-query calls
+                extra = ", Q = 1 the 3-D call's bits"
+            torch.cuda.synchronize()
+            require(o.dtype == dtype and o.shape == q.shape
+                    and bool(torch.isfinite(o.float()).all()), f"{name} {label}")
+            require(torch.equal(o, o2), f"{name} {label}: two calls differ")
+            dead = [j for j, n_ in enumerate(lens) if n_ == 0]
+            require(all(bool((o[j] == 0).all()) for j in dead), f"{name}: dead slot")
+            err = _close(name, dtype, o, r)
+            err_split = _close(name, dtype, o, sp)
+            worst[name] = max(worst[name], err)
+            tol = (f"{F32_PAGED_TOL} of the largest magnitude" if dtype == torch.float32
+                   else O_TOL)
+            log(f"[{tag}] {name} {label}: B={b}{'' if nq is None else f' Q={nq}'} H={h} "
+                f"K={kv} D={d} ps={ps} T={tl}: max|o-plain| {err:.3e}, max|o-split plain| "
+                f"{err_split:.3e} (tolerance {tol}); two calls the same bits{extra}")
+    counts = {name: getattr(paged, _counter(name)) for name in calls}
+    require(counts == calls and sum(getattr(paged, c) for c in paged._COUNTERS.values())
+            == sum(calls.values()), (counts, calls))
+    worst["paged_f16_direct_launches"] = counts["paged_f16"]
+    return worst
+
+
+def _counter(name: str) -> str:
+    """The launch counter of a kernels-line paged name (``paged_tail_f16``
+    -> ``launches_tail_f16``, ``paged_f16`` -> ``launches_f16``)."""
+    return "launches_" + name[len("paged_"):]
+
+
+def phase_f16_int8_timings(flash, paged, train_seg) -> dict:
+    """[f16-timing] and [f32-int8-timing]: each new kernel's time (the better
+    of two runs), its plain version's and the library call's on the same
+    inputs, beside its bound from this run's inputs (bytes at their element
+    sizes over 3.35 TB/s, flops over 989 TFLOP/s for float16 or 165 TFLOP/s
+    3xTF32 for f32; FFMA's 67 TFLOP/s logged beside for F): K1-f16 at the
+    serving prefill (B=4, S=512, 32/8 heads, D=128, right-padded) and on the
+    training batch's packed rows, CUDA events, against SDPA in float16 with
+    the same mask; the paged kernels of ``NEW_PAGED`` at the decode tick
+    (single-query) or the spec tick (verify), CUDA-graph device time over
+    ``PAGED_COPIES`` input copies, against SDPA (``enable_gqa``) over the
+    keys gathered (int8: and dequantized to q's dtype) beforehand with the
+    plain version's mask, the gather timed apart."""
+    import torch
+    import torch.nn.functional as F
+
+    f16 = torch.float16
+    out = {}
+    for label, b, s, seg in (("serving prefill", 4, 512, [512, 401, 230, 97]),
+                             ("training batch, packed rows", 4, 2048, "train")):
+        q, k, v, _ = _attn_inputs(b, s, s, 32, 8, 128, seed=1500, dtype=f16)
+        seg = _bwd_segment_ids(seg, b, s, train_seg)
+        mask = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()[None]
+        mask = (mask & (seg[:, :, None] == seg[:, None, :]))[:, None]
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(4, dim=2).transpose(1, 2) for x in (k, v))
+
+        def fwd():
+            flash.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+
+        def sdpa():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        ms = min(_time_ms(fwd), _time_ms(fwd))
+        lib_ms = min(_time_ms(sdpa), _time_ms(sdpa))
+        plain_ms = _time_ms(lambda: flash.flash_attention_plain(
+            q, k, v, causal=True, segment_ids=seg), iters=3, warmup=1)
+        bound_ms, bound_by = _flash_bound(q, k, seg, True)
+        backend = _sdpa_backend(qt, kt, vt, mask, 0.0, False)
+        log(f"[f16-timing] flash_fwd_f16 {label} B={b} S={s} H=32 K=8 D=128 causal+seg: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (float16, same mask; "
+            f"backend {backend}) {lib_ms:.4f} ms, kernel / sdpa {ms / lib_ms:.2f}x, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound ({SMI})")
+        out.setdefault("flash_fwd_f16", {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "library": f"sdpa {backend}"})
+        del q, k, v, seg, mask, qt, kt, vt
+
+    tick, spec = PAGED_MAIN, SPEC_MAIN
+    for name, dtype_name, int8, form in NEW_PAGED:
+        dtype = getattr(torch, dtype_name)
+        m = spec if form == "verify" else tick
+        starts, lengths = _spec_main_case() if form == "verify" else _paged_main_case()
+        kernel, plain, library, gather = [], [], [], []
+        for c in range(PAGED_COPIES):
+            q, kp, vp, table, ln, st, tk, tv = _paged_inputs(
+                m["b"], m["h"], m["kv"], m["d"], m["ps"], m["tail_len"], lengths, starts,
+                seed=1600 + c, share=False, nq=m.get("nq") if form == "verify" else None,
+                maxp=m.get("maxp"), dtype=dtype)
+            scales = {}
+            if int8:
+                kp, vp, ks, vs = _int8_pools(kp, vp)
+                scales = dict(k_scale=ks, v_scale=vs)
+            if form == "no_tail":
+                ln = torch.minimum(st, ln).contiguous()
+                kw, args = {}, (q, kp, vp, table, ln)
+                b, maxp, ps = q.shape[0], table.shape[1], kp.shape[2]
+                kt, vt = (p_[table.long()].transpose(2, 3).reshape(b, maxp * ps, m["kv"],
+                                                                   m["d"])
+                          .transpose(1, 2).contiguous() for p_ in (kp, vp))
+                cols = torch.arange(maxp * ps, device="cuda")
+                qs, mask = q[:, :, None], (cols[None] < ln[:, None])[:, None, None, :]
+                gather.append(lambda: None)
+            else:
+                kw = dict(tail_k=tk, tail_v=tv, starts=st, **scales)
+                args = (q, kp, vp, table, ln, tk, tv, st, *scales.values())
+                q4 = q if form == "verify" else q[:, None]
+                qs, kt, vt, mask = _verify_sdpa_inputs(q4, kp, vp, table, ln, st, tk, tv,
+                                                       **scales)
+                gather.append(functools.partial(_verify_sdpa_inputs, q4, kp, vp, table, ln,
+                                                st, tk, tv, **scales))
+            if c == 0:  # the bound's inputs
+                first = (q, kp, table, ln, st)
+            kernel.append(functools.partial(paged.paged_attention, q, kp, vp, table, ln,
+                                            **kw))
+            plain.append(functools.partial(paged.paged_attention_plain, *args))
+            library.append(functools.partial(F.scaled_dot_product_attention, qs, kt, vt,
+                                             attn_mask=mask, enable_gqa=True))
+        backend = _sdpa_backend(qs, kt, vt, mask, 0.0, False, enable_gqa=True)
+        ms = min(_graph_ms(kernel), _graph_ms(kernel))
+        plain_ms = _graph_ms(plain, rounds=1)
+        lib_ms = _graph_ms(library)
+        gather_ms = None if form == "no_tail" else _graph_ms(gather, rounds=1)
+        q, kp, table, ln, st = first
+        if form == "verify":
+            bound_ms, bound_by = _verify_bound(q, kp.shape[1], table, m["tail_len"], ln, st,
+                                               int8)
+        elif int8:
+            bound_ms, bound_by = _paged_int8_bound(q, kp, table, ln, st)
+        else:
+            bound_ms, bound_by = _paged_bound(q, kp, table, ln, st, form == "tail")
+        tag = "f16-timing" if dtype == f16 else "f32-int8-timing"
+        shape = (f"spec tick B={m['b']} Q={m['nq']}" if form == "verify"
+                 else f"decode tick B={m['b']}")
+        gathered = "" if gather_ms is None else (
+            f", the gather{' and dequantization' if int8 else ''} itself {gather_ms:.4f} ms")
+        log(f"[{tag}] {name} {shape} H={m['h']} K={m['kv']} D={m['d']} ps={m['ps']} "
+            f"T={m['tail_len']}, {PAGED_COPIES} input copies in turn: device (CUDA graph) "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({dtype_name}, enable_gqa, "
+            f"the plain version's mask, keys gathered{' and dequantized' if int8 else ''} "
+            f"beforehand; backend {backend}) {lib_ms:.4f} ms{gathered}, kernel / sdpa "
+            f"{ms / lib_ms:.2f}x; bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of bound ({SMI})")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms, "library": f"sdpa {backend}",
+                     "gather_ms": gather_ms}
+    return out
+
+
+def phase_dtype_serve(flash, paged, dtype: str, kv_int8: bool = False,
+                      f32_pools: float | None = None) -> dict:
+    """Main path 8 (f32 serving: ``infer/server.py --preset llama3-8b
+    --override attention_impl=flash --override dtype=float32``), path 11
+    (the same plus ``--kv-quant int8``) or path 12 (``--override
+    dtype=float16``) at full width and depth (weights seed-initialised):
+    lock-step on path 1's five requests (K1-f32 or K1-f16 on every
+    prefill), then the continuous engine on path 2's 12 requests (K1 on
+    every cold prefill, K3-f32, K3-int8-f32 or K3-f16 on every decode step);
+    decode ms a step, time to first token and tokens/s beside the
+    weight-read bound, pool bytes (path 11: against path 8's ``f32_pools``),
+    peak memory; one decode step's logits against the plain version's;
+    greedy tokens of both engines against the same requests through the
+    plain versions (identical, or a near-tie by ``_tie_check``). Returns the
+    launch counts and the pool bytes."""
     import torch
 
     from ditl_tpu_torch.infer.continuous import ContinuousEngine
     from ditl_tpu_torch.infer.engine import GenerateConfig
 
+    sfx, prefix = DTYPE_SFX[dtype]
+    tag = prefix + ("int8-serve" if kv_int8 else "serve")
     torch.cuda.reset_peak_memory_stats()
-    gen, lockstep = phase_serve(flash, paged, "float32")
+    gen, lockstep = phase_serve(flash, paged, dtype, kv_int8)
     cfg, tok = gen.cfg, gen.tokenizer
     weight_bytes = sum(t.numel() * t.element_size() for key, sub in gen.params.items()
                        if key != "embed" for t in _tensors(sub))
     continuous, summary = phase_serve_continuous(gen, flash, paged)
-    log(f"[f32-serve] continuous decode {summary['ms_step']:.2f} ms a step against the f32 "
-        f"weight-read bound {weight_bytes / H100_BYTES_PER_S * 1e3:.2f} ms "
+    pools = summary["pool_bytes"]
+    against = ("" if f32_pools is None else
+               f" ({pools / f32_pools:.3f}x path 8's f32 pools, {f32_pools / 1e9:.3f} GB)")
+    log(f"[{tag}] continuous decode {summary['ms_step']:.2f} ms a step against the "
+        f"{dtype} weight-read bound {weight_bytes / H100_BYTES_PER_S * 1e3:.2f} ms "
         f"({weight_bytes / 1e9:.2f} GB a step at 3.35 TB/s), {summary['tokens_s']:.1f} "
         f"tokens/s, time to first token {summary['ttft_s'] * 1e3:.1f} ms, pools "
-        f"{summary['pool_bytes'] / 1e9:.3f} GB, peak device memory "
+        f"{pools / 1e9:.3f} GB{against}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({SMI})")
 
     # The same greedy requests through the plain versions (flash's forward
@@ -3892,14 +4349,16 @@ def phase_f32_serve(flash, paged) -> dict:
     flash.reset_launches()
     lock_kernel = [gen.generate_tokens([ids], GenerateConfig(max_new_tokens=16))[0]
                    for ids in lock_prompts]
-    require(flash.launches_f32 == cfg.num_layers * len(lock_prompts), flash.launches_f32)
+    require(getattr(flash, "launches" + sfx) == cfg.num_layers * len(lock_prompts),
+            getattr(flash, "launches" + sfx))
     plain_of = {rid[r]: toks for r, toks in plain_out.items()}
     pairs = [(list(ids), outs, plain_of[(ids, n)]) for (ids, n) in keys
              for outs in summary["outputs"][(ids, n)]]
-    _check_against(gen, cfg, pairs, "f32-continuous")
-    _check_against(gen, cfg, list(zip(lock_prompts, lock_kernel, lock_plain)), "f32-serve")
-    return {k: lockstep.get(k, 0) + continuous.get(k, 0)
-            for k in ("flash_fwd_f32", "paged_tail_f32")}
+    _check_against(gen, cfg, pairs, tag.replace("serve", "continuous"))
+    _check_against(gen, cfg, list(zip(lock_prompts, lock_kernel, lock_plain)), tag)
+    out = {k: lockstep.get(k, 0) + continuous.get(k, 0) for k in {**lockstep, **continuous}}
+    out["pool_bytes"] = pools
+    return out
 
 
 def phase_f32_train(flash, mlp_bwd, proj, args=F32_TRAIN_ARGS, tag: str = "f32-train") -> dict:
@@ -4180,6 +4639,7 @@ def main() -> int:
     errors.update(phase_paged_int8_kernels(paged))
     errors.update(phase_paged_verify_kernels(paged))
     errors.update(phase_f32_kernels(flash, paged, train_seg))
+    errors.update(phase_f16_int8_kernels(flash, paged, train_seg))
     timings = phase_timings(flash)
     train_timings = phase_train_timings(flash, train_seg)
     timings.update(train_timings)
@@ -4187,6 +4647,7 @@ def main() -> int:
     timings.update(phase_paged_int8_timings(paged))
     timings.update(phase_paged_verify_timings(paged))
     timings.update(phase_f32_timings(flash, paged, train_seg))
+    timings.update(phase_f16_int8_timings(flash, paged, train_seg))
     errors.update(phase_mm_kernels(mlp_bwd, proj))
     timings.update(phase_mm_timings(mlp_bwd, proj))
     errors.update(phase_f32_mm_kernels(mlp_bwd, proj))
@@ -4211,10 +4672,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[f32-serve] after freeing the int8 serving state: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    f32_serve = phase_f32_serve(flash, paged)
+    f32_serve = phase_dtype_serve(flash, paged, "float32")
     gc.collect()
     torch.cuda.empty_cache()
     f32_spec = phase_spec_depth2(flash, paged, "f32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_int8_serve = phase_dtype_serve(flash, paged, "float32", kv_int8=True,
+                                       f32_pools=f32_serve["pool_bytes"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_int8_spec = phase_spec_depth2(flash, paged, "f32-int8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f16_serve = phase_dtype_serve(flash, paged, "float16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f16_spec = phase_spec_depth2(flash, paged, "f16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f16_int8_spec = phase_spec_depth2(flash, paged, "f16-int8")
     gc.collect()
     torch.cuda.empty_cache()
     f32_train = phase_f32_train(flash, mlp_bwd, proj)
@@ -4265,17 +4742,26 @@ def main() -> int:
                 "flash_dkv": (training["flash_dkv"] + training4["flash_dkv"]
                               + recipe["flash_dkv"]),
                 "paged_tail": continuous["paged_tail"] + ckpt_serve["paged_tail"],
-                "paged_tail_int8": int8_serve["paged_tail_int8"],
+                "paged_tail_int8": int8_serve["paged_tail_int8"] + spec_int8["paged_tail_int8"],
                 "paged_verify": spec_serve["paged_verify"],
                 "paged_verify_int8": spec_int8["paged_verify_int8"],
                 "paged": errors.pop("paged_direct_launches"),
-                **{k: f32_serve.get(k, 0) + f32_train[k] + f32_train4[k]
-                   for k in ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32")},
+                **{k: f32_serve.get(k, 0) + f32_int8_serve.get(k, 0) + f32_train[k]
+                   + f32_train4[k] for k in ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32")},
                 **{k: f32_train4[k]
                    for k in ("mlp_dgu_dwdown_f32", "mlp_dh_dwgu_f32", "proj_bwd_f32")},
-                "paged_tail_f32": f32_serve["paged_tail_f32"],
+                "paged_tail_f32": f32_serve["paged_tail_f32"] + f32_spec["paged_tail_f32"],
                 "paged_verify_f32": f32_spec["paged_verify_f32"],
                 "paged_f32": errors.pop("paged_f32_direct_launches"),
+                "paged_tail_int8_f32": (f32_int8_serve["paged_tail_int8_f32"]
+                                        + f32_int8_spec["paged_tail_int8_f32"]),
+                "paged_verify_int8_f32": f32_int8_spec["paged_verify_int8_f32"],
+                "flash_fwd_f16": f16_serve["flash_fwd_f16"],
+                "paged_tail_f16": f16_serve["paged_tail_f16"] + f16_spec["paged_tail_f16"],
+                "paged_verify_f16": f16_spec["paged_verify_f16"],
+                "paged_f16": errors.pop("paged_f16_direct_launches"),
+                "paged_tail_int8_f16": f16_int8_spec["paged_tail_int8_f16"],
+                "paged_verify_int8_f16": f16_int8_spec["paged_verify_int8_f16"],
                 **{k: training4[k] + recipe[k]
                    for k in ("mlp_dgu_dwdown", "mlp_dh_dwgu", "proj_bwd")}}
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
@@ -4289,7 +4775,10 @@ def main() -> int:
     log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}, "
         f"speculative continuous {spec_serve}, lock-step speculative {lockstep_spec}, "
         f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
-        f"f32 serving {f32_serve}, f32 speculative {f32_spec}, f32 training {f32_train}, "
+        f"f32 serving {f32_serve}, f32 speculative {f32_spec}, f32 over int8 pools "
+        f"{f32_int8_serve}, its speculation {f32_int8_spec}, float16 serving {f16_serve}, "
+        f"its speculation {f16_spec}, float16 over int8 pools with speculation "
+        f"{f16_int8_spec}, f32 training {f32_train}, "
         f"f32 training under the kernel flags {f32_train4}, "
         f"training {training}, training with the MLP and projection kernels {training4}, "
         f"the recipe under its three policies {recipe}, the served checkpoint "

@@ -1,9 +1,18 @@
-// FlashAttention forward (K1) for Hopper (sm_90a): bf16 in, f32 sums.
+// FlashAttention forward (K1) for Hopper (sm_90a): bf16 or float16 in, f32
+// sums.
 //
 // Replaces: ditl_tpu/ops/flash_attention.py::_fwd_kernel (the Pallas TPU
 // kernel driven by _fwd and the public flash_attention). It computes the same
 // function: grouped-query attention with an online softmax, a causal mask and
-// a segment-id mask, writing o and the per-row log-sum-exp.
+// a segment-id mask, writing o and the per-row log-sum-exp. Entry points:
+// ditl_flash_fwd_bf16 and ditl_flash_fwd_f16 (K1-f16: the reference's
+// kernel takes any float dtype), one template whose kF16 parameter picks the
+// operand type of the wgmma products (.f16 in place of .bf16: the same
+// fragment layouts, descriptors and swizzle), of the tensor maps
+// (CU_TENSOR_MAP_DATA_TYPE_FLOAT16) and of P's and o's rounding
+// (__floats2half2_rn in place of the bf16 pack). Tiles, ring, tile
+// skipping, bound and design are the same for both; the bf16 instances keep
+// their code and bits (chip_smoke.py K1_DIGESTS).
 //
 // Bound on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16), each computed
 // by chip_smoke.py from its run's inputs (q, k, v and ids read once, o and
@@ -58,8 +67,9 @@
 // -2.3819763e38 (the softmax runs in base 2 on scores times scale * log2 e,
 // and masked scores take the finite value itself, so a tile fully masked for
 // a row gives p = 1 that the next real key's rescale zeroes, never inf - inf);
-// q.k is summed in f32 and scaled in f32; p is rounded to bf16 for P.V with
-// f32 sums; rows whose normaliser is 0 write 0; lse = m + log(l) per row.
+// q.k is summed in f32 and scaled in f32; p is rounded to bf16 (float16) for
+// P.V with f32 sums; rows whose normaliser is 0 write 0; lse = m + log(l) per
+// row.
 //
 // ptxas -v (CUDA 12.9, sm_90a): 139 registers at D = 128, 106 at D = 64,
 // 153 at D = 32; no spills, no stack.
@@ -118,7 +128,7 @@ struct Cfg {
 // m64nN product, per warp w of a warpgroup, g = lane / 4, t = lane % 4:
 // d[4i + 0, 1] at row 16w + g, columns 8i + 2t, +1; d[4i + 2, 3] at row
 // 16w + g + 8.
-template <int D>
+template <int D, bool kF16>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
@@ -300,7 +310,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                                         8 * C::kPanelBytes, C::kLayout);
           const uint64_t db = make_desc(k_s + p * N * C::kPanelBytes + off, 16,
                                         8 * C::kPanelBytes, C::kLayout);
-          wgmma_ss<N>(s, da, db, ks > 0);
+          wgmma_ss<N, kF16>(s, da, db, ks > 0);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -347,7 +357,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           m[r] = m_new;
         }
 
-        // P = 2^(S - m): f32 for the row sums, bf16 A fragments for P.V.
+        // P = 2^(S - m): f32 for the row sums, bf16 (float16) A fragments for
+        // P.V.
         // K-step kk covers keys 16 kk .. 16 kk + 15, s[8 kk .. 8 kk + 7]; its
         // fragment pf[4 kk ..] is (g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8,
         // 2t + 8), as the accumulator lays out two n8 column groups.
@@ -361,8 +372,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           const float p3 = exp2f(s[j + 3] - m[1]);
           rs[0] += p0 + p1;
           rs[1] += p2 + p3;
-          pf[(j >> 1) + 0] = pack_bf16(p0, p1);
-          pf[(j >> 1) + 1] = pack_bf16(p2, p3);
+          pf[(j >> 1) + 0] = pack2<kF16>(p0, p1);
+          pf[(j >> 1) + 1] = pack2<kF16>(p2, p3);
         }
         l[0] = alpha[0] * l[0] + rs[0];
         l[1] = alpha[1] * l[1] + rs[1];
@@ -374,7 +385,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int kk = 0; kk < N / 16; ++kk) {
           const uint64_t dv = make_desc(v_s + kk * 16 * C::kPanelBytes, N * C::kPanelBytes,
                                         8 * C::kPanelBytes, C::kLayout);
-          wgmma_rs<D>(acc, pf + 4 * kk, dv);
+          wgmma_rs<D, kF16>(acc, pf + 4 * kk, dv);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -404,11 +415,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int c = 8 * i + 2 * t;
       if (row0 < sq) {
         *reinterpret_cast<uint32_t*>(ob + row0 * q_stride + c) =
-            pack_bf16(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+            pack2<kF16>(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
       }
       if (row1 < sq) {
         *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + c) =
-            pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
+            pack2<kF16>(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
       }
     }
     if (t == 0) {
@@ -419,7 +430,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+template <int D, bool kF16>
 int launch(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
            int batch, int sq, int skv, int heads, int kv_heads, int causal, float scale,
            cudaStream_t stream) {
@@ -427,23 +438,44 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* o
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map(encode, &tm_q, q, D, heads, sq, batch, C::kPanel, kBlockM) ||
-      !make_map(encode, &tm_k, k, D, kv_heads, skv, batch, C::kPanel, C::kBlockN) ||
-      !make_map(encode, &tm_v, v, D, kv_heads, skv, batch, C::kPanel, C::kBlockN)) {
+  if (!make_map(encode, &tm_q, q, D, heads, sq, batch, C::kPanel, kBlockM, kF16) ||
+      !make_map(encode, &tm_k, k, D, kv_heads, skv, batch, C::kPanel, C::kBlockN, kF16) ||
+      !make_map(encode, &tm_v, v, D, kv_heads, skv, batch, C::kPanel, C::kBlockN, kF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemAlloc);
+        flash_fwd_kernel<D, kF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemAlloc);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
   const dim3 grid(heads, batch, (sq + kBlockM - 1) / kBlockM);
-  flash_fwd_kernel<D><<<grid, kThreads, C::kSmemAlloc, stream>>>(
+  flash_fwd_kernel<D, kF16><<<grid, kThreads, C::kSmemAlloc, stream>>>(
       tm_q, tm_k, tm_v, static_cast<const int*>(seg), static_cast<uint16_t*>(o),
       static_cast<float*>(lse), sq, skv, heads, kv_heads, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The entry points' body: the instance for head_dim and the operand type.
+template <bool kF16>
+int dispatch(const void* q, const void* k, const void* v, const void* seg, void* o,
+             void* lse, int batch, int sq, int skv, int heads, int kv_heads, int head_dim,
+             int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32:
+      return launch<32, kF16>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal,
+                              scale, s);
+    case 64:
+      return launch<64, kF16>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal,
+                              scale, s);
+    case 128:
+      return launch<128, kF16>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal,
+                               scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -456,15 +488,16 @@ extern "C" int ditl_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                    int batch, int sq, int skv, int heads,
                                    int kv_heads, int head_dim, int causal,
                                    float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return launch<32>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale, s);
-    case 64:
-      return launch<64>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale, s);
-    case 128:
-      return launch<128>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, head_dim,
+                         causal, scale, stream);
+}
+
+// K1-f16: as ditl_flash_fwd_bf16 with q, k, v and o float16.
+extern "C" int ditl_flash_fwd_f16(const void* q, const void* k, const void* v,
+                                  const void* seg, void* o, void* lse,
+                                  int batch, int sq, int skv, int heads,
+                                  int kv_heads, int head_dim, int causal,
+                                  float scale, void* stream) {
+  return dispatch<true>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, head_dim,
+                        causal, scale, stream);
 }

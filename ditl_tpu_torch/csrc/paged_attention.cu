@@ -12,7 +12,11 @@
 // ditl_paged_verify_i8 (K3's multi-query verify: _paged_tail_kernel with
 // q_groups, over float and int8 pools) and ditl_paged_bf16 (K4). All are
 // instances of one template, for head_dim 64 and 128; the verify form is its
-// kMT > 0 instances (see "The multi-query verify" below).
+// kMT > 0 instances (see "The multi-query verify" below). The same five on
+// float16 q, tails and float pools (the reference's kernels take any float
+// dtype with f32 sums) are the template's kF16 instances:
+// ditl_paged_tail_f16, ditl_paged_tail_i8_f16, ditl_paged_verify_f16,
+// ditl_paged_verify_i8_f16 and ditl_paged_f16 (see "float16" below).
 //
 // Bound on the card: the kernel is bytes-bound. It must read each live key's
 // K and V once per slot that reads it (2 * K * D * 2 bytes per key), the live
@@ -117,6 +121,14 @@
 // row of a live slot has a live key, tail column 0 at least).
 // ops/paged_attention.py::paged_attention_split_plain encodes the same rule.
 //
+// float16. The bytes, the bound and the design are bf16's: the kF16
+// instances differ only in the element type the tensor cores read
+// (mma.sync m16n8k16 .f16 in place of .bf16, the same fragment layouts and
+// ldmatrix loads), the int8 -> float16 convert of the staging pass (exact:
+// |q| <= 127 < 2^11), and the rounding of p (times V's scale over int8
+// pages) and of o to float16 in place of bf16. The bf16 instances keep
+// their code and bits (chip_smoke.py K3_DIGESTS).
+//
 // Semantics kept from the reference: the q.k scores are f32 and scaled in
 // f32 (here the scale multiplies the f32 sums of the exact bf16 products,
 // which differs from scaling q first by f32 rounding alone); masked columns
@@ -134,6 +146,7 @@
 // -fPIC (ditl_tpu_torch/ops/cuda_build.py). C interface, bound with ctypes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -235,27 +248,38 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool va
                : "memory");
 }
 
-// Two int8 values (bits lo..lo+15 of w) as a bf16 pair; exact.
-__device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t w, int lo) {
-  const float a = static_cast<float>(static_cast<int8_t>((w >> lo) & 0xffu));
-  const float b = static_cast<float>(static_cast<int8_t>((w >> (lo + 8)) & 0xffu));
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(b))) << 16);
+// A float rounded to the kernel's 16-bit type (kF16: float16, else bf16),
+// as its bits.
+template <bool kF16>
+__device__ __forceinline__ uint16_t to_bits(float x) {
+  if constexpr (kF16) return __half_as_ushort(__float2half_rn(x));
+  else return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
-// 16 int8 values at src -> 16 bf16 values at dst (both in shared memory,
-// 16-byte aligned).
-__device__ __forceinline__ void i8x16_to_bf16(const uint8_t* src, uint8_t* dst) {
+// Two int8 values (bits lo..lo+15 of w) as a pair of the 16-bit type; exact
+// in both (|q| <= 127).
+template <bool kF16>
+__device__ __forceinline__ uint32_t i8x2_to_x2(uint32_t w, int lo) {
+  const float a = static_cast<float>(static_cast<int8_t>((w >> lo) & 0xffu));
+  const float b = static_cast<float>(static_cast<int8_t>((w >> (lo + 8)) & 0xffu));
+  return static_cast<uint32_t>(to_bits<kF16>(a)) |
+         (static_cast<uint32_t>(to_bits<kF16>(b)) << 16);
+}
+
+// 16 int8 values at src -> 16 values of the 16-bit type at dst (both in
+// shared memory, 16-byte aligned).
+template <bool kF16>
+__device__ __forceinline__ void i8x16_convert(const uint8_t* src, uint8_t* dst) {
   const uint4 w = *reinterpret_cast<const uint4*>(src);
   uint4 lo, hi;
-  lo.x = i8x2_bf16x2(w.x, 0);
-  lo.y = i8x2_bf16x2(w.x, 16);
-  lo.z = i8x2_bf16x2(w.y, 0);
-  lo.w = i8x2_bf16x2(w.y, 16);
-  hi.x = i8x2_bf16x2(w.z, 0);
-  hi.y = i8x2_bf16x2(w.z, 16);
-  hi.z = i8x2_bf16x2(w.w, 0);
-  hi.w = i8x2_bf16x2(w.w, 16);
+  lo.x = i8x2_to_x2<kF16>(w.x, 0);
+  lo.y = i8x2_to_x2<kF16>(w.x, 16);
+  lo.z = i8x2_to_x2<kF16>(w.y, 0);
+  lo.w = i8x2_to_x2<kF16>(w.y, 16);
+  hi.x = i8x2_to_x2<kF16>(w.z, 0);
+  hi.y = i8x2_to_x2<kF16>(w.z, 16);
+  hi.z = i8x2_to_x2<kF16>(w.w, 0);
+  hi.w = i8x2_to_x2<kF16>(w.w, 16);
   reinterpret_cast<uint4*>(dst)[0] = lo;
   reinterpret_cast<uint4*>(dst)[1] = hi;
 }
@@ -270,32 +294,46 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// c += a . b on the tensor cores, m16n8k16, bf16 in, f32 sums. a: rows
-// lane / 4 (a[0], k 2 (lane % 4)..; a[1], k + 8) of the 16; rows 8-15, which
-// no query head fills, are zero. b: k 2 (lane % 4).. and k + 8, column lane /
-// 4. c: row lane / 4, columns 2 (lane % 4), + 1 (c[2], c[3]: rows 8-15).
+// c += a . b on the tensor cores, m16n8k16, the 16-bit type in (kF16:
+// float16, else bf16; the fragment layouts are the same), f32 sums.
+template <bool kF16>
+__device__ __forceinline__ void mma16816_x4(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint32_t b0, uint32_t b1) {
+  if constexpr (kF16) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  }
+}
+
+// The single-query product. a: rows lane / 4 (a[0], k 2 (lane % 4)..; a[1],
+// k + 8) of the 16; rows 8-15, which no query head fills, are zero. b: k 2 (lane % 4).. and k + 8,
+// column lane / 4. c: row lane / 4, columns 2 (lane % 4), + 1 (c[2], c[3]:
+// rows 8-15).
+template <bool kF16>
 __device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(0u), "r"(a1), "r"(0u), "r"(b0), "r"(b1));
+  mma16816_x4<kF16>(c, a0, 0u, a1, 0u, b0, b1);
 }
 
 // The same product with all 16 rows of A: a[0] rows 0-7 and a[1] rows 8-15
 // at k 2 (lane % 4).., a[2] and a[3] the same at k + 8 (ldmatrix.x4's order
 // below); c[2], c[3] hold rows 8-15.
+template <bool kF16>
 __device__ __forceinline__ void mma16816_m16(float* c, const uint32_t* a, uint32_t b0,
                                              uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  mma16816_x4<kF16>(c, a[0], a[1], a[2], a[3], b0, b1);
 }
 
-// Four 8 x 8 bf16 matrices: the A fragment of a 16 x 16 block of a
+// Four 8 x 8 16-bit matrices: the A fragment of a 16 x 16 block of a
 // row-major tile when lane l gives the address of row l % 16, column 8 (l /
 // 16).
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
@@ -304,7 +342,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
                : "r"(addr));
 }
 
-// Four 8 x 8 bf16 matrices, transposed: the B fragments of two n8 column
+// Four 8 x 8 16-bit matrices, transposed: the B fragments of two n8 column
 // blocks of a row-major (key, dim) tile; each lane gives one row's address.
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -442,7 +480,7 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
 // round trip, then the column's acc values kMergeBatch splits at a time, so
 // at the decode tick (17 splits) the merge waits on three loads in a row:
 // lengths, m and l, acc.
-template <int D, bool kTail>
+template <int D, bool kTail, bool kF16>
 __global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
   extern __shared__ float sml[];  // m, then l, of each split
   const int r = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
@@ -482,13 +520,13 @@ __global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
   o /= (l == 0.f ? 1.f : l);
   const int qi = r / p.groups, g = r % p.groups;
   const long orow = ((long)b * p.n_q + qi) * p.kv_heads * p.groups + (long)kh * p.groups + g;
-  p.o[orow * D + d] = __bfloat16_as_ushort(__float2bfloat16_rn(o));
+  p.o[orow * D + d] = to_bits<kF16>(o);
 }
 
 // kMT = 0: the single-query form (up to kMaxGroups query rows, q in
 // registers as rows 0-7 of the m16 A operand). kMT > 0: the verify form, kMT
 // m16 row tiles of query rows r = qi * G + g, q in shared memory.
-template <int D, bool kTail, bool kI8, int kMT>
+template <int D, bool kTail, bool kI8, int kMT, bool kF16>
 __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
   using L = Layout<D, kMT>;
   constexpr bool kVerify = kMT > 0;
@@ -581,9 +619,9 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
         const int r = idx / kChunksI8, c = idx % kChunksI8;
         const int v = cur + r;
         if (live.key(v) && v < live.tail0) {
-          i8x16_to_bf16(qk + r * D + c * 16, kt + r * L::kLd + c * 32);
-          i8x16_to_bf16(qk + L::kQTile + r * D + c * 16,
-                        kt + L::kTileBytes + r * L::kLd + c * 32);
+          i8x16_convert<kF16>(qk + r * D + c * 16, kt + r * L::kLd + c * 32);
+          i8x16_convert<kF16>(qk + L::kQTile + r * D + c * 16,
+                              kt + L::kTileBytes + r * L::kLd + c * 32);
         }
       }
       __syncthreads();
@@ -598,7 +636,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const uint32_t at = kb + (16 * warp + 8 * j + row) * L::kLd + ks * 32 + quad * 4;
-          mma16816(c[j], qa[ks][0], qa[ks][1], lds32(at), lds32(at + 16));
+          mma16816<kF16>(c[j], qa[ks][0], qa[ks][1], lds32(at), lds32(at + 16));
         }
       }
       if (row < groups) {
@@ -630,7 +668,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
               const uint32_t at = kb + (16 * warp + 8 * j + row) * L::kLd + ks * 32 + quad * 4;
-              mma16816_m16(c[j], a, lds32(at), lds32(at + 16));
+              mma16816_m16<kF16>(c[j], a, lds32(at), lds32(at + 16));
             }
           }
 #pragma unroll
@@ -673,8 +711,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
         if (cur + lane < live.tail0) w0 *= svs[lane];
         if (cur + lane + 32 < live.tail0) w1 *= svs[lane + 32];
       }
-      sp[g * kPLd + lane] = __bfloat16_as_ushort(__float2bfloat16_rn(w0));
-      sp[g * kPLd + lane + 32] = __bfloat16_as_ushort(__float2bfloat16_rn(w1));
+      sp[g * kPLd + lane] = to_bits<kF16>(w0);
+      sp[g * kPLd + lane + 32] = to_bits<kF16>(w1);
       if (lane == 0) {
         const float alpha = expf(m_prev - m_next);
         salpha[g] = alpha;
@@ -705,8 +743,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
         for (int j = 0; j < kNTiles; j += 2) {
           uint32_t bf[4];
           ldsm_x4_trans(va + j * 16, bf);
-          mma16816(acc[0][j], a0, a1, bf[0], bf[1]);
-          mma16816(acc[0][j + 1], a0, a1, bf[2], bf[3]);
+          mma16816<kF16>(acc[0][j], a0, a1, bf[0], bf[1]);
+          mma16816<kF16>(acc[0][j + 1], a0, a1, bf[2], bf[3]);
         }
       }
     } else {
@@ -744,8 +782,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt) {
             if (16 * mt < rows) {
-              mma16816_m16(acc[mt][j], a[mt], bf[0], bf[1]);
-              mma16816_m16(acc[mt][j + 1], a[mt], bf[2], bf[3]);
+              mma16816_m16<kF16>(acc[mt][j], a[mt], bf[0], bf[1]);
+              mma16816_m16<kF16>(acc[mt][j + 1], a[mt], bf[2], bf[3]);
             }
           }
         }
@@ -789,11 +827,11 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
   }
 }
 
-template <int D, bool kTail, bool kI8, int kMT>
+template <int D, bool kTail, bool kI8, int kMT, bool kF16>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   static bool prepared = false;
   constexpr int kSmem = kI8 ? Layout<D, kMT>::kBytesI8 : Layout<D, kMT>::kBytes;
-  auto kernel = paged_split_kernel<D, kTail, kI8, kMT>;
+  auto kernel = paged_split_kernel<D, kTail, kI8, kMT, kF16>;
   if (!prepared) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -802,32 +840,32 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   }
   kernel<<<dim3(p.n_split, p.kv_heads, batch), kThreads, kSmem, stream>>>(p);
   if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  paged_merge_kernel<D, kTail><<<dim3(p.n_q * p.groups, p.kv_heads, batch), D,
-                                 2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
+  paged_merge_kernel<D, kTail, kF16><<<dim3(p.n_q * p.groups, p.kv_heads, batch), D,
+                                       2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instance for kMT row tiles (0: the single-query form); the verify
 // form exists only with a tail.
-template <int D, bool kTail, bool kI8>
+template <int D, bool kTail, bool kI8, bool kF16>
 int launch_rows(const Params& p, int batch, cudaStream_t stream, int mt) {
   if constexpr (kTail) {
     switch (mt) {
       case 1:
-        return launch<D, kTail, kI8, 1>(p, batch, stream);
+        return launch<D, kTail, kI8, 1, kF16>(p, batch, stream);
       case 3:
-        return launch<D, kTail, kI8, 3>(p, batch, stream);
+        return launch<D, kTail, kI8, 3, kF16>(p, batch, stream);
       case kMaxRowTiles:
-        return launch<D, kTail, kI8, kMaxRowTiles>(p, batch, stream);
+        return launch<D, kTail, kI8, kMaxRowTiles, kF16>(p, batch, stream);
       default:
         break;
     }
   }
   if (mt != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<D, kTail, kI8, 0>(p, batch, stream);
+  return launch<D, kTail, kI8, 0, kF16>(p, batch, stream);
 }
 
-template <bool kTail, bool kI8>
+template <bool kTail, bool kI8, bool kF16>
 int dispatch(Params p, int batch, int n_q, bool verify, int heads, int head_dim,
              void* stream) {
   if (batch < 1 || n_q < 1 || (!verify && n_q != 1) || p.kv_heads < 1 ||
@@ -853,9 +891,9 @@ int dispatch(Params p, int batch, int n_q, bool verify, int heads, int head_dim,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch_rows<64, kTail, kI8>(p, batch, s, mt);
+      return launch_rows<64, kTail, kI8, kF16>(p, batch, s, mt);
     case 128:
-      return launch_rows<128, kTail, kI8>(p, batch, s, mt);
+      return launch_rows<128, kTail, kI8, kF16>(p, batch, s, mt);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -885,6 +923,36 @@ Params tail_params(const void* q, const void* k_pages, const void* v_pages,
   return p;
 }
 
+// K3 and its verify (n_q > 1 with verify), over float (kI8 false: k_scale
+// and v_scale unused) or int8 pools, on the 16-bit type of kF16.
+template <bool kI8, bool kF16>
+int tail_entry(const void* q, const void* k_pages, const void* v_pages, const void* k_scale,
+               const void* v_scale, const void* table, const void* lengths, const void* starts,
+               const void* tail_k, const void* tail_v, void* o, void* part_acc, void* part_ml,
+               int batch, int n_q, bool verify, int heads, int kv_heads, int head_dim,
+               int page_size, int max_pages, int n_pool, int tail_len, int split, float scale,
+               void* stream) {
+  const Params p = tail_params(q, k_pages, v_pages, k_scale, v_scale, table, lengths, starts,
+                               tail_k, tail_v, o, part_acc, part_ml, kv_heads, page_size,
+                               max_pages, n_pool, tail_len, split, scale, kI8);
+  return dispatch<true, kI8, kF16>(p, batch, n_q, verify, heads, head_dim, stream);
+}
+
+// K4 on the 16-bit type of kF16.
+template <bool kF16>
+int no_tail_entry(const void* q, const void* k_pages, const void* v_pages, const void* table,
+                  const void* lengths, void* o, void* part_acc, void* part_ml, int batch,
+                  int heads, int kv_heads, int head_dim, int page_size, int max_pages,
+                  int n_pool, int split, float scale, void* stream) {
+  const Params p{static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k_pages),
+                 static_cast<const uint16_t*>(v_pages), static_cast<const int*>(table),
+                 static_cast<const int*>(lengths), nullptr, nullptr, nullptr,
+                 static_cast<uint16_t*>(o), static_cast<float*>(part_acc),
+                 static_cast<float*>(part_ml), kv_heads, 0, page_size, max_pages, n_pool, 0,
+                 split, 0, scale};
+  return dispatch<false, false, kF16>(p, batch, 1, false, heads, head_dim, stream);
+}
+
 }  // namespace
 
 // K3. q (B, H, D); pools (P, K, ps, D) with P = n_pool; table (B, maxp)
@@ -900,10 +968,10 @@ extern "C" int ditl_paged_tail_bf16(const void* q, const void* k_pages, const vo
                                     int kv_heads, int head_dim, int page_size, int max_pages,
                                     int n_pool, int tail_len, int split, float scale,
                                     void* stream) {
-  const Params p = tail_params(q, k_pages, v_pages, nullptr, nullptr, table, lengths, starts,
-                               tail_k, tail_v, o, part_acc, part_ml, kv_heads, page_size,
-                               max_pages, n_pool, tail_len, split, scale, false);
-  return dispatch<true, false>(p, batch, 1, false, heads, head_dim, stream);
+  return tail_entry<false, false>(q, k_pages, v_pages, nullptr, nullptr, table, lengths, starts,
+                                  tail_k, tail_v, o, part_acc, part_ml, batch, 1, false, heads,
+                                  kv_heads, head_dim, page_size, max_pages, n_pool, tail_len,
+                                  split, scale, stream);
 }
 
 // K3 over int8 pools: as ditl_paged_tail_bf16, with int8 pools (P, K, ps, D)
@@ -915,10 +983,10 @@ extern "C" int ditl_paged_tail_i8(const void* q, const void* k_pages, const void
                                   int batch, int heads, int kv_heads, int head_dim,
                                   int page_size, int max_pages, int n_pool, int tail_len,
                                   int split, float scale, void* stream) {
-  const Params p = tail_params(q, k_pages, v_pages, k_scale, v_scale, table, lengths, starts,
-                               tail_k, tail_v, o, part_acc, part_ml, kv_heads, page_size,
-                               max_pages, n_pool, tail_len, split, scale, true);
-  return dispatch<true, true>(p, batch, 1, false, heads, head_dim, stream);
+  return tail_entry<true, false>(q, k_pages, v_pages, k_scale, v_scale, table, lengths, starts,
+                                 tail_k, tail_v, o, part_acc, part_ml, batch, 1, false, heads,
+                                 kv_heads, head_dim, page_size, max_pages, n_pool, tail_len,
+                                 split, scale, stream);
 }
 
 // K3's multi-query verify: as ditl_paged_tail_bf16 with q and o (B, Q, H, D),
@@ -931,10 +999,10 @@ extern "C" int ditl_paged_verify_bf16(const void* q, const void* k_pages, const 
                                       int kv_heads, int head_dim, int page_size,
                                       int max_pages, int n_pool, int tail_len, int split,
                                       float scale, void* stream) {
-  const Params p = tail_params(q, k_pages, v_pages, nullptr, nullptr, table, lengths, starts,
-                               tail_k, tail_v, o, part_acc, part_ml, kv_heads, page_size,
-                               max_pages, n_pool, tail_len, split, scale, false);
-  return dispatch<true, false>(p, batch, n_q, true, heads, head_dim, stream);
+  return tail_entry<false, false>(q, k_pages, v_pages, nullptr, nullptr, table, lengths, starts,
+                                  tail_k, tail_v, o, part_acc, part_ml, batch, n_q, true, heads,
+                                  kv_heads, head_dim, page_size, max_pages, n_pool, tail_len,
+                                  split, scale, stream);
 }
 
 // The verify over int8 pools: ditl_paged_verify_bf16's shapes with
@@ -948,10 +1016,10 @@ extern "C" int ditl_paged_verify_i8(const void* q, const void* k_pages, const vo
                                     int kv_heads, int head_dim, int page_size, int max_pages,
                                     int n_pool, int tail_len, int split, float scale,
                                     void* stream) {
-  const Params p = tail_params(q, k_pages, v_pages, k_scale, v_scale, table, lengths, starts,
-                               tail_k, tail_v, o, part_acc, part_ml, kv_heads, page_size,
-                               max_pages, n_pool, tail_len, split, scale, true);
-  return dispatch<true, true>(p, batch, n_q, true, heads, head_dim, stream);
+  return tail_entry<true, false>(q, k_pages, v_pages, k_scale, v_scale, table, lengths, starts,
+                                 tail_k, tail_v, o, part_acc, part_ml, batch, n_q, true, heads,
+                                 kv_heads, head_dim, page_size, max_pages, n_pool, tail_len,
+                                 split, scale, stream);
 }
 
 // K4: the same without a tail; pages up to lengths; n_split = ceil(maxp * ps
@@ -961,11 +1029,76 @@ extern "C" int ditl_paged_bf16(const void* q, const void* k_pages, const void* v
                                void* part_ml, int batch, int heads, int kv_heads, int head_dim,
                                int page_size, int max_pages, int n_pool, int split, float scale,
                                void* stream) {
-  const Params p{static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k_pages),
-                 static_cast<const uint16_t*>(v_pages), static_cast<const int*>(table),
-                 static_cast<const int*>(lengths), nullptr, nullptr, nullptr,
-                 static_cast<uint16_t*>(o), static_cast<float*>(part_acc),
-                 static_cast<float*>(part_ml), kv_heads, 0, page_size, max_pages, n_pool, 0,
-                 split, 0, scale};
-  return dispatch<false, false>(p, batch, 1, false, heads, head_dim, stream);
+  return no_tail_entry<false>(q, k_pages, v_pages, table, lengths, o, part_acc, part_ml, batch,
+                              heads, kv_heads, head_dim, page_size, max_pages, n_pool, split,
+                              scale, stream);
+}
+
+// The float16 instances: each takes its bf16 twin's arguments, with q, o,
+// the tails and the float pools float16 (int8 pools and f32 scales as
+// before).
+extern "C" int ditl_paged_tail_f16(const void* q, const void* k_pages, const void* v_pages,
+                                   const void* table, const void* lengths, const void* starts,
+                                   const void* tail_k, const void* tail_v, void* o,
+                                   void* part_acc, void* part_ml, int batch, int heads,
+                                   int kv_heads, int head_dim, int page_size, int max_pages,
+                                   int n_pool, int tail_len, int split, float scale,
+                                   void* stream) {
+  return tail_entry<false, true>(q, k_pages, v_pages, nullptr, nullptr, table, lengths, starts,
+                                 tail_k, tail_v, o, part_acc, part_ml, batch, 1, false, heads,
+                                 kv_heads, head_dim, page_size, max_pages, n_pool, tail_len,
+                                 split, scale, stream);
+}
+
+extern "C" int ditl_paged_tail_i8_f16(const void* q, const void* k_pages, const void* v_pages,
+                                      const void* k_scale, const void* v_scale,
+                                      const void* table, const void* lengths,
+                                      const void* starts, const void* tail_k,
+                                      const void* tail_v, void* o, void* part_acc,
+                                      void* part_ml, int batch, int heads, int kv_heads,
+                                      int head_dim, int page_size, int max_pages, int n_pool,
+                                      int tail_len, int split, float scale, void* stream) {
+  return tail_entry<true, true>(q, k_pages, v_pages, k_scale, v_scale, table, lengths, starts,
+                                tail_k, tail_v, o, part_acc, part_ml, batch, 1, false, heads,
+                                kv_heads, head_dim, page_size, max_pages, n_pool, tail_len,
+                                split, scale, stream);
+}
+
+extern "C" int ditl_paged_verify_f16(const void* q, const void* k_pages, const void* v_pages,
+                                     const void* table, const void* lengths,
+                                     const void* starts, const void* tail_k,
+                                     const void* tail_v, void* o, void* part_acc,
+                                     void* part_ml, int batch, int n_q, int heads,
+                                     int kv_heads, int head_dim, int page_size, int max_pages,
+                                     int n_pool, int tail_len, int split, float scale,
+                                     void* stream) {
+  return tail_entry<false, true>(q, k_pages, v_pages, nullptr, nullptr, table, lengths, starts,
+                                 tail_k, tail_v, o, part_acc, part_ml, batch, n_q, true, heads,
+                                 kv_heads, head_dim, page_size, max_pages, n_pool, tail_len,
+                                 split, scale, stream);
+}
+
+extern "C" int ditl_paged_verify_i8_f16(const void* q, const void* k_pages,
+                                        const void* v_pages, const void* k_scale,
+                                        const void* v_scale, const void* table,
+                                        const void* lengths, const void* starts,
+                                        const void* tail_k, const void* tail_v, void* o,
+                                        void* part_acc, void* part_ml, int batch, int n_q,
+                                        int heads, int kv_heads, int head_dim, int page_size,
+                                        int max_pages, int n_pool, int tail_len, int split,
+                                        float scale, void* stream) {
+  return tail_entry<true, true>(q, k_pages, v_pages, k_scale, v_scale, table, lengths, starts,
+                                tail_k, tail_v, o, part_acc, part_ml, batch, n_q, true, heads,
+                                kv_heads, head_dim, page_size, max_pages, n_pool, tail_len,
+                                split, scale, stream);
+}
+
+extern "C" int ditl_paged_f16(const void* q, const void* k_pages, const void* v_pages,
+                              const void* table, const void* lengths, void* o, void* part_acc,
+                              void* part_ml, int batch, int heads, int kv_heads, int head_dim,
+                              int page_size, int max_pages, int n_pool, int split, float scale,
+                              void* stream) {
+  return no_tail_entry<true>(q, k_pages, v_pages, table, lengths, o, part_acc, part_ml, batch,
+                             heads, kv_heads, head_dim, page_size, max_pages, n_pool, split,
+                             scale, stream);
 }

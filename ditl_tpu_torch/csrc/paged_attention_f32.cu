@@ -10,8 +10,12 @@
 //   tick's tail buffer, positions [starts, lengths); with q_groups (:248,
 //   the speculative verify's Q query tokens per slot): ditl_paged_verify_f32;
 // - K4 _paged_kernel (:191, :516), the same without a tail:
-//   ditl_paged_f32.
-// The bf16 and int8 kernels (paged_attention.cu) stay as they are.
+//   ditl_paged_f32;
+// - K3 with quantized=True (ROADMAP.md §2 variant F: an f32 q and tail over
+//   int8 pools with f32 scales (P, K, 1, ps)): ditl_paged_tail_i8_f32 and
+//   its verify ditl_paged_verify_i8_f32.
+// The bf16, float16 and bf16/float16-over-int8 kernels (paged_attention.cu)
+// stay as they are.
 //
 // Bound on the card: bytes. It must read each live key's K and V once per
 // slot that reads it (2 * K * D * 4 bytes per key in f32, twice the bf16
@@ -59,6 +63,25 @@
 // explicitly). ops/paged_attention.py::paged_attention_split_plain is this
 // kernel's twin in f32.
 //
+// Over int8 pools (variant F). Bound at the decode tick: 8.9 MB of int8
+// K/V plus 0.28 MB of scales and the f32 tail, q and o, about 2.8 us at
+// 3.35 TB/s, a quarter of the f32 kernel's bytes; its FFMA work is the f32
+// kernel's. The reference's quantized branch (_accumulate_block :140-176)
+// in f32: q . k of the exact int8 values in f32, times the scale, times K's
+// scale of the key; p times V's scale in f32, never rounded (the reference
+// multiplies (p * vs) by v.astype(f32)), while l adds the unscaled p; the
+// tail columns as the f32 kernel's. Design, the simplest that keeps the f32
+// kernel's byte stream and FFMA: a live page row's D int8 values come by
+// 16-byte cp.async into the first D bytes of its f32 row in the stage (no
+// extra shared memory, so the 80-row verify still fits: 199,872 bytes at D
+// = 128), its two scales by 4-byte cp.async into a scale tile; q . k reads
+// 16 int8 values a 16-byte load and p . V four a 4-byte load, converted to
+// f32 in registers (exact), a row taking the int8 or the f32 read by
+// whether it is a live page key, the rule the copy used. Routing it through
+// the bf16 int8 kernel would round q to bf16, its eighth bit, far outside
+// f32's tolerance. (int8 values are exact in TF32, so two TF32 MMAs a
+// product, q_hi . k + q_lo . k, are a later route to the tensor cores.)
+//
 // Semantics, the reference's in f32: scores are the f32 q.k sums times the
 // scale; masked columns of a processed tile take the finite -2.3819763e38;
 // p stays f32 for p.v, l adds the same p; a row with l == 0 (a dead slot,
@@ -99,11 +122,17 @@ struct Params {
   int kv_heads, groups, page_size, max_pages, n_pool, tail_len, split, n_split;
   float scale;
   int n_q;               // query tokens per slot: 1, or the verify's Q
+  const int8_t* k_i8;    // (P, K, ps, D), int8 pools (ditl_paged_*_i8_f32)
+  const int8_t* v_i8;
+  const float* k_scale;  // (P, K, 1, ps)
+  const float* v_scale;
 };
 
 // Shared memory of a split block with up to kR query rows, in floats: two
 // stages of (K, V) tiles with rows padded by 16 bytes, q's rows padded the
-// same way, the scores (then p) of kR rows, and m, l, alpha per row.
+// same way, the scores (then p) of kR rows, and m, l, alpha per row; over
+// int8 pools, two stages of the tile's 64 K and 64 V scales after them (a
+// page row's D int8 values sit in the first D bytes of its f32 row).
 template <int D, int kR>
 struct Layout {
   static constexpr int kLd = D + 4;
@@ -113,7 +142,9 @@ struct Layout {
   static constexpr int kM = kS + kR * kTile;
   static constexpr int kL = kM + kR;
   static constexpr int kAlpha = kL + kR;
-  static constexpr int kBytes = (kAlpha + kR) * 4;
+  static constexpr int kSc = kAlpha + kR;
+  static constexpr int kBytes = kSc * 4;
+  static constexpr int kBytesI8 = (kSc + 2 * 2 * kTile) * 4;
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -135,6 +166,19 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
+}
+
+// 4 bytes global -> shared (a scale); with valid == false, zero-filled.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Byte i of w as a signed int8, in f32 (exact).
+__device__ __forceinline__ float i8_at(uint32_t w, int i) {
+  return static_cast<float>(static_cast<int8_t>((w >> (8 * i)) & 0xffu));
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -194,13 +238,24 @@ __device__ __forceinline__ Live slot_live(const Params& p, int b) {
   return live;
 }
 
+// Whether key v of a tile over int8 pools came as int8 values (a live page
+// key) and not as f32 (a tail key, or a dead key's zeros).
+__device__ __forceinline__ bool int8_row(const Live& live, int v) {
+  return live.key(v) && v < live.tail0;
+}
+
 // K and V of the tile at t0 into a stage (kb: K, kb + kTileF: V), 16 bytes
-// a copy; dead rows arrive as zeros.
-template <int D>
+// a copy; dead rows arrive as zeros. Over int8 pools (kI8) a live page
+// row's D int8 values go to the first D bytes of its f32 row, and its two
+// scales to sc (K, then V kTile floats on); the scales of tail and dead rows
+// arrive as zeros.
+template <int D, bool kI8>
 __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int b, int kh,
-                                          int t0, float* kb) {
+                                          int t0, float* kb, float* sc) {
   constexpr int kChunks = D / 4;
+  constexpr int kChunksI8 = D / 16;
   constexpr int kLd = D + 4;
+  static_assert(kThreads == 2 * kTile, "one thread per K or V scale of a tile");
   const int* trow = p.table + (long)b * p.max_pages;
 #pragma unroll
   for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
@@ -208,8 +263,18 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
     const int r = idx / kChunks, c = idx % kChunks;
     const int v = t0 + r;
     const bool ok = live.key(v);
-    const float* ks = p.k_pages;
-    const float* vs = p.v_pages;
+    if (kI8 && ok && v < live.tail0) {
+      if (c < kChunksI8) {
+        const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
+        const long off = ((page * p.kv_heads + kh) * p.page_size + v % p.page_size) * D;
+        cp_async16(kb + r * kLd + 4 * c, p.k_i8 + off + 16 * c, true);
+        cp_async16(kb + kTile * kLd + r * kLd + 4 * c, p.v_i8 + off + 16 * c, true);
+      }
+      continue;
+    }
+    // Dead rows read nothing; their address is any valid one.
+    const float* ks = kI8 ? p.tail_k : p.k_pages;
+    const float* vs = kI8 ? p.tail_v : p.v_pages;
     long off = 0;
     if (ok) {
       if (v < live.tail0) {
@@ -223,6 +288,18 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
     }
     cp_async16(kb + r * kLd + 4 * c, ks + off + 4 * c, ok);
     cp_async16(kb + kTile * kLd + r * kLd + 4 * c, vs + off + 4 * c, ok);
+  }
+  if (kI8) {
+    const int r = threadIdx.x % kTile;
+    const bool is_v = threadIdx.x >= kTile;
+    const int v = t0 + r;
+    const bool ok = int8_row(live, v);
+    long off = 0;
+    if (ok) {
+      const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
+      off = (page * p.kv_heads + kh) * p.page_size + v % p.page_size;
+    }
+    cp_async4(sc + (is_v ? kTile : 0) + r, (is_v ? p.v_scale : p.k_scale) + off, ok);
   }
   cp_commit();
 }
@@ -273,7 +350,7 @@ __global__ void __launch_bounds__(D) paged_merge_f32_kernel(const Params p) {
 
 // One split of one (KV head, slot) for up to kR query rows (8: the
 // single-query form, G rows; 16, 48 or 80: the verify's Q * G rows).
-template <int D, bool kTail, int kR>
+template <int D, bool kTail, int kR, bool kI8>
 __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params p) {
   using L = Layout<D, kR>;
   constexpr int kLd = L::kLd;
@@ -286,6 +363,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
   float* sm = smem + L::kM;
   float* sl = smem + L::kL;
   float* salpha = smem + L::kAlpha;
+  float* ssc = smem + L::kSc;  // int8 pools: two stages of K, then V, scales
 
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -317,15 +395,19 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
 #pragma unroll
   for (int i = 0; i < kRowsPT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  load_tile<D>(p, live, b, kh, cur, smem);
+  load_tile<D, kI8>(p, live, b, kh, cur, smem, ssc);
   __syncthreads();  // m and l initialised
   const int key = tid & (kTile - 1), half = tid / kTile;
   for (int stage = 0; cur >= 0; stage ^= 1) {
     const int nxt = live.next(cur + kTile, v1);
     const float* kb = smem + stage * 2 * L::kTileF;
     const float* vb = kb + L::kTileF;
+    // int8 pools: this stage's K and V scales (0 on tail and dead rows)
+    const float* sks = ssc + stage * 2 * kTile;
+    const float* svs = sks + kTile;
     if (nxt >= 0) {
-      load_tile<D>(p, live, b, kh, nxt, smem + (stage ^ 1) * 2 * L::kTileF);
+      load_tile<D, kI8>(p, live, b, kh, nxt, smem + (stage ^ 1) * 2 * L::kTileF,
+                        ssc + (stage ^ 1) * 2 * kTile);
       cp_wait<1>();
     } else {
       cp_wait<0>();
@@ -333,21 +415,45 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
     __syncthreads();  // the tile's K and V (and q) are in shared memory
 
     // Scores of key `key` for row blocks half, half + 2, ...: four rows a
-    // block, times the scale in f32; columns dead for the row get the
-    // finite mask value.
+    // block, times the scale in f32 (int8 pools: then times K's scale for a
+    // page key); columns dead for the row get the finite mask value.
     const float* krow = kb + key * kLd;
+    const bool key_i8 = kI8 && int8_row(live, cur + key);
+    const float k_scale = key_i8 ? sks[key] : 1.f;
     for (int r0 = 4 * half; r0 < rows; r0 += 8) {
       float a[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int d = 0; d < D; d += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+      if (key_i8) {
+        // 16 int8 values a 16-byte load; q . k in the same order as f32 keys.
+#pragma unroll 2
+        for (int d = 0; d < D; d += 16) {
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              reinterpret_cast<const uint8_t*>(krow) + d);
+          const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float4 qv = *reinterpret_cast<const float4*>(qsm + (r0 + e) * kLd + d);
-          a[e] = fmaf(qv.x, kv.x, a[e]);
-          a[e] = fmaf(qv.y, kv.y, a[e]);
-          a[e] = fmaf(qv.z, kv.z, a[e]);
-          a[e] = fmaf(qv.w, kv.w, a[e]);
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float4 qv =
+                  *reinterpret_cast<const float4*>(qsm + (r0 + e) * kLd + d + 4 * j);
+              a[e] = fmaf(qv.x, i8_at(words[j], 0), a[e]);
+              a[e] = fmaf(qv.y, i8_at(words[j], 1), a[e]);
+              a[e] = fmaf(qv.z, i8_at(words[j], 2), a[e]);
+              a[e] = fmaf(qv.w, i8_at(words[j], 3), a[e]);
+            }
+          }
+        }
+      } else {
+#pragma unroll 8
+        for (int d = 0; d < D; d += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 qv = *reinterpret_cast<const float4*>(qsm + (r0 + e) * kLd + d);
+            a[e] = fmaf(qv.x, kv.x, a[e]);
+            a[e] = fmaf(qv.y, kv.y, a[e]);
+            a[e] = fmaf(qv.z, kv.z, a[e]);
+            a[e] = fmaf(qv.w, kv.w, a[e]);
+          }
         }
       }
 #pragma unroll
@@ -355,13 +461,17 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
         const int r = r0 + e;
         if (r < rows) {
           const int te = live.row_end(r / groups);
-          ss[r * kTile + key] = live.key_row(cur + key, te) ? a[e] * p.scale : kNegInf;
+          float sc = a[e] * p.scale;
+          if (key_i8) sc *= k_scale;
+          ss[r * kTile + key] = live.key_row(cur + key, te) ? sc : kNegInf;
         }
       }
     }
     __syncthreads();
 
-    // Online softmax, one warp per query row; p over the scores.
+    // Online softmax, one warp per query row; p over the scores (int8
+    // pools: p times V's scale on a page key, never rounded; l adds the
+    // unscaled p).
     for (int r = warp; r < rows; r += kWarps) {
       const float s0 = ss[r * kTile + lane];
       const float s1 = ss[r * kTile + lane + 32];
@@ -370,8 +480,13 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
       const float p0 = expf(s0 - m_next);
       const float p1 = expf(s1 - m_next);
       const float rs = warp_sum(p0 + p1);
-      ss[r * kTile + lane] = p0;
-      ss[r * kTile + lane + 32] = p1;
+      float w0 = p0, w1 = p1;
+      if (kI8) {
+        if (cur + lane < live.tail0) w0 *= svs[lane];
+        if (cur + lane + 32 < live.tail0) w1 *= svs[lane + 32];
+      }
+      ss[r * kTile + lane] = w0;
+      ss[r * kTile + lane + 32] = w1;
       if (lane == 0) {
         const float alpha = expf(m_prev - m_next);
         salpha[r] = alpha;
@@ -394,7 +509,14 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
     }
 #pragma unroll 4
     for (int j = 0; j < kTile; ++j) {
-      const float4 vv = *reinterpret_cast<const float4*>(vb + j * kLd + 4 * c4);
+      float4 vv;
+      if (kI8 && int8_row(live, cur + j)) {  // the same for every thread of the block
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            reinterpret_cast<const uint8_t*>(vb + j * kLd) + 4 * c4);
+        vv = make_float4(i8_at(w, 0), i8_at(w, 1), i8_at(w, 2), i8_at(w, 3));
+      } else {
+        vv = *reinterpret_cast<const float4*>(vb + j * kLd + 4 * c4);
+      }
 #pragma unroll
       for (int i = 0; i < kRowsPT; ++i) {
         const int r = rset + kRowSets * i;
@@ -427,11 +549,11 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
   }
 }
 
-template <int D, bool kTail, int kR>
+template <int D, bool kTail, int kR, bool kI8>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   static bool prepared = false;
-  constexpr int kSmem = Layout<D, kR>::kBytes;
-  auto kernel = paged_split_f32_kernel<D, kTail, kR>;
+  constexpr int kSmem = kI8 ? Layout<D, kR>::kBytesI8 : Layout<D, kR>::kBytes;
+  auto kernel = paged_split_f32_kernel<D, kTail, kR, kI8>;
   if (!prepared) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -447,18 +569,18 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 
 // The instance for `rows` query rows: 8 for the single-query form; 16, 48
 // or 80 for the verify (which exists only with a tail).
-template <int D, bool kTail>
+template <int D, bool kTail, bool kI8>
 int launch_rows(const Params& p, int batch, cudaStream_t stream, bool verify, int rows) {
-  if (!verify) return launch<D, kTail, kMaxGroups>(p, batch, stream);
+  if (!verify) return launch<D, kTail, kMaxGroups, kI8>(p, batch, stream);
   if constexpr (kTail) {
-    if (rows <= 16) return launch<D, kTail, 16>(p, batch, stream);
-    if (rows <= 48) return launch<D, kTail, 48>(p, batch, stream);
-    if (rows <= kMaxRows) return launch<D, kTail, kMaxRows>(p, batch, stream);
+    if (rows <= 16) return launch<D, kTail, 16, kI8>(p, batch, stream);
+    if (rows <= 48) return launch<D, kTail, 48, kI8>(p, batch, stream);
+    if (rows <= kMaxRows) return launch<D, kTail, kMaxRows, kI8>(p, batch, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool kTail>
+template <bool kTail, bool kI8>
 int dispatch(Params p, int batch, int n_q, bool verify, int heads, int head_dim,
              void* stream) {
   if (batch < 1 || n_q < 1 || (!verify && n_q != 1) || p.kv_heads < 1 ||
@@ -478,9 +600,9 @@ int dispatch(Params p, int batch, int n_q, bool verify, int heads, int head_dim,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch_rows<64, kTail>(p, batch, s, verify, rows);
+      return launch_rows<64, kTail, kI8>(p, batch, s, verify, rows);
     case 128:
-      return launch_rows<128, kTail>(p, batch, s, verify, rows);
+      return launch_rows<128, kTail, kI8>(p, batch, s, verify, rows);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -500,7 +622,24 @@ Params make_params(const void* q, const void* k_pages, const void* v_pages, cons
                 tail_len, split, 0, scale, 1};
 }
 
-static_assert(Layout<128, kMaxRows>::kBytes <= 232448, "verify shared memory at D = 128");
+// The same over int8 pools (P, K, ps, D) and their f32 scales (P, K, 1, ps).
+Params make_params_i8(const void* q, const void* k_pages, const void* v_pages,
+                      const void* k_scale, const void* v_scale, const void* table,
+                      const void* lengths, const void* starts, const void* tail_k,
+                      const void* tail_v, void* o, void* part_acc, void* part_ml,
+                      int kv_heads, int page_size, int max_pages, int n_pool, int tail_len,
+                      int split, float scale) {
+  Params p = make_params(q, nullptr, nullptr, table, lengths, starts, tail_k, tail_v, o,
+                         part_acc, part_ml, kv_heads, page_size, max_pages, n_pool, tail_len,
+                         split, scale);
+  p.k_i8 = static_cast<const int8_t*>(k_pages);
+  p.v_i8 = static_cast<const int8_t*>(v_pages);
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
+  return p;
+}
+
+static_assert(Layout<128, kMaxRows>::kBytesI8 <= 232448, "verify shared memory at D = 128");
 
 }  // namespace
 
@@ -520,7 +659,7 @@ extern "C" int ditl_paged_tail_f32(const void* q, const void* k_pages, const voi
   const Params p = make_params(q, k_pages, v_pages, table, lengths, starts, tail_k, tail_v, o,
                                part_acc, part_ml, kv_heads, page_size, max_pages, n_pool,
                                tail_len, split, scale);
-  return dispatch<true>(p, batch, 1, false, heads, head_dim, stream);
+  return dispatch<true, false>(p, batch, 1, false, heads, head_dim, stream);
 }
 
 // K3-f32's multi-query verify: as ditl_paged_tail_f32 with q and o (B, Q, H,
@@ -537,7 +676,7 @@ extern "C" int ditl_paged_verify_f32(const void* q, const void* k_pages, const v
   const Params p = make_params(q, k_pages, v_pages, table, lengths, starts, tail_k, tail_v, o,
                                part_acc, part_ml, kv_heads, page_size, max_pages, n_pool,
                                tail_len, split, scale);
-  return dispatch<true>(p, batch, n_q, true, heads, head_dim, stream);
+  return dispatch<true, false>(p, batch, n_q, true, heads, head_dim, stream);
 }
 
 // K4-f32: the same without a tail; pages up to lengths; n_split =
@@ -550,5 +689,39 @@ extern "C" int ditl_paged_f32(const void* q, const void* k_pages, const void* v_
   const Params p = make_params(q, k_pages, v_pages, table, lengths, nullptr, nullptr, nullptr,
                                o, part_acc, part_ml, kv_heads, page_size, max_pages, n_pool, 0,
                                split, scale);
-  return dispatch<false>(p, batch, 1, false, heads, head_dim, stream);
+  return dispatch<false, false>(p, batch, 1, false, heads, head_dim, stream);
+}
+
+// K3-f32 over int8 pools (variant F): as ditl_paged_tail_f32 with int8 pools
+// (P, K, ps, D) and their f32 scales k_scale, v_scale (P, K, 1, ps); q and
+// the tails f32.
+extern "C" int ditl_paged_tail_i8_f32(const void* q, const void* k_pages, const void* v_pages,
+                                      const void* k_scale, const void* v_scale,
+                                      const void* table, const void* lengths,
+                                      const void* starts, const void* tail_k,
+                                      const void* tail_v, void* o, void* part_acc,
+                                      void* part_ml, int batch, int heads, int kv_heads,
+                                      int head_dim, int page_size, int max_pages, int n_pool,
+                                      int tail_len, int split, float scale, void* stream) {
+  const Params p = make_params_i8(q, k_pages, v_pages, k_scale, v_scale, table, lengths,
+                                  starts, tail_k, tail_v, o, part_acc, part_ml, kv_heads,
+                                  page_size, max_pages, n_pool, tail_len, split, scale);
+  return dispatch<true, true>(p, batch, 1, false, heads, head_dim, stream);
+}
+
+// Its multi-query verify: ditl_paged_verify_f32's shapes with
+// ditl_paged_tail_i8_f32's pools and scales.
+extern "C" int ditl_paged_verify_i8_f32(const void* q, const void* k_pages,
+                                        const void* v_pages, const void* k_scale,
+                                        const void* v_scale, const void* table,
+                                        const void* lengths, const void* starts,
+                                        const void* tail_k, const void* tail_v, void* o,
+                                        void* part_acc, void* part_ml, int batch, int n_q,
+                                        int heads, int kv_heads, int head_dim, int page_size,
+                                        int max_pages, int n_pool, int tail_len, int split,
+                                        float scale, void* stream) {
+  const Params p = make_params_i8(q, k_pages, v_pages, k_scale, v_scale, table, lengths,
+                                  starts, tail_k, tail_v, o, part_acc, part_ml, kv_heads,
+                                  page_size, max_pages, n_pool, tail_len, split, scale);
+  return dispatch<true, true>(p, batch, n_q, true, heads, head_dim, stream);
 }

@@ -26,7 +26,12 @@ the KV caches int8 (set before the weights are made; the paged decode runs
 K3 over int8 pools), ``--quantize int8`` turns the weights into weight-only
 int8 (``ops/quant.py``; with ``--checkpoint-dir`` the restored masters are
 quantized in their own dtype before the serving cast, as the JAX server
-quantizes its f32 masters); both engines serve the result.
+quantizes its f32 masters); both engines serve the result. ``--override
+dtype=bfloat16|float16|float32`` picks the compute dtype, which the weights,
+the tails and the float caches take; each dtype, with or without
+``--kv-quant int8``, has its own flash and paged kernels on the card
+(``ops/flash_attention.py`` and ``ops/paged_attention.py``,
+``kernel_route``).
 ``--speculative on|auto`` (default ``off``) serves with prompt-lookup
 speculative decoding (``infer/speculative.py``): the continuous engine runs
 speculative ticks (``on`` every tick, ``auto`` when the measured acceptance
@@ -39,7 +44,8 @@ program's k + 1 slack does not fit the context. On the card unless
     python -m ditl_tpu_torch.infer.server --preset llama3-8b \\
         --override attention_impl=flash [--checkpoint-dir DIR] [--device cuda] \\
         [--port 8300] [--engine continuous --cache-mode paged] \\
-        [--quantize int8] [--kv-quant int8] [--speculative on|auto]
+        [--override dtype=float16|float32] [--quantize int8] [--kv-quant int8] \\
+        [--speculative on|auto]
 """
 
 from __future__ import annotations
@@ -496,8 +502,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="weight-only int8 (halves the weights' memory; decode reads "
                    "stay bf16-sized until a fused int8 product; ops/quant.py)")
     p.add_argument("--kv-quant", choices=("none", "int8"), default="none",
-                   help="int8 KV cache (halves cache reads/footprint; composes with "
-                   "both cache modes)")
+                   help="int8 KV cache (halves cache reads/footprint against bf16 or "
+                   "float16, a quarter against float32; composes with both cache modes "
+                   "and every --override dtype)")
     p.add_argument("--speculative", choices=("off", "on", "auto"), default="off",
                    help="prompt-lookup speculative decoding: 'on' always speculates, "
                    "'auto' decides from measured acceptance. Continuous engine: "

@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``ops/flash_attention.py``. The kernels
 replace the Pallas ones; each source's header says how it is laid out for
 Hopper:
 
-- K1 ``csrc/flash_fwd.cu`` replaces ``_fwd_kernel``;
+- K1 ``csrc/flash_fwd.cu`` replaces ``_fwd_kernel``: ``ditl_flash_fwd_bf16``
+  and, on float16 operands, ``ditl_flash_fwd_f16`` (K1-f16, the same
+  kernel's float16 instance);
 - K2a (``ditl_flash_bwd_dq_bf16``) and K2b (``ditl_flash_bwd_dkv_bf16``) in
   ``csrc/flash_bwd.cu`` replace ``_dq_kernel`` and ``_dkv_kernel``;
 - on float32 operands, K1-f32, K2a-f32 and K2b-f32 in ``csrc/flash_f32.cu``
@@ -12,16 +14,19 @@ Hopper:
   ``ditl_flash_bwd_dkv_f32``) replace the same three kernels, which the
   reference runs for any float dtype with f32 sums.
 
-- ``kernel_route`` is the one rule for which entry points a CUDA call takes,
-  from (dtype, head_dim): bf16 at D in ``HEAD_DIMS``, f32 at D in
-  ``F32_HEAD_DIMS``; anything else raises ``NotImplementedError`` naming
-  ROADMAP.md §2.
+- ``kernel_route`` is the one rule for which entry point a CUDA call takes,
+  from (dtype, head_dim, the forward or one of the backward's two
+  kernels): bf16 at D in ``HEAD_DIMS`` all three, float16 at D in
+  ``HEAD_DIMS`` the forward, f32 at D in ``F32_HEAD_DIMS`` all three;
+  anything else (a float16 backward, D = 256) raises
+  ``NotImplementedError`` naming ROADMAP.md §2.
 - ``flash_attention_fwd`` / ``flash_attention_bwd`` are the wrappers: they
   check their inputs and, for CUDA tensors, launch the kernels or raise.
   Only for CPU tensors do they run ``flash_attention_plain`` /
   ``flash_attention_bwd_plain``. ``launches``, ``launches_dq`` and
-  ``launches_dkv`` count the bf16 kernels' launches, ``launches_f32``,
-  ``launches_dq_f32`` and ``launches_dkv_f32`` the f32 ones'.
+  ``launches_dkv`` count the bf16 kernels' launches, ``launches_f16`` K1-f16's,
+  ``launches_f32``, ``launches_dq_f32`` and ``launches_dkv_f32`` the f32
+  ones'.
 - ``flash_attention_plain`` computes what ``_fwd_kernel`` computes, in one
   pass instead of blockwise: q pre-scaled in f32, the q.k product in f32, the
   finite ``NEG_INF`` mask, p cast to v's dtype before the p.v product (f32
@@ -48,8 +53,6 @@ lane-replicated copy without the lanes).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
-
 import torch
 
 from ditl_tpu_torch.ops.attention import NEG_INF
@@ -58,11 +61,11 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain", "tile_schedule",
            "fwd_block_kv", "FWD_BLOCK_Q", "FWD_WARPGROUP_ROWS", "BWD_DQ_BLOCK_Q",
            "BWD_DKV_BLOCK_KV", "BWD_DKV_BLOCK_Q", "BWD_DKV_WARPGROUP_KEYS", "HEAD_DIMS",
-           "F32_HEAD_DIMS", "F32_BLOCK", "F32_MAX_SEQ", "Route", "kernel_route",
-           "launches", "launches_dq", "launches_dkv", "launches_f32", "launches_dq_f32",
+           "F32_HEAD_DIMS", "F32_BLOCK", "F32_MAX_SEQ", "kernel_route", "launches",
+           "launches_dq", "launches_dkv", "launches_f16", "launches_f32", "launches_dq_f32",
            "launches_dkv_f32", "reset_launches"]
 
-HEAD_DIMS = (32, 64, 128)  # the bf16 kernels' template instances
+HEAD_DIMS = (32, 64, 128)  # the bf16 and float16 kernels' template instances
 # The f32 kernels' instances: the reference's own head dims below 256
 # (``supports``: D = 64 or D % 128 == 0).
 F32_HEAD_DIMS = (64, 128)
@@ -95,10 +98,12 @@ def fwd_block_kv(head_dim: int) -> int:
     return 128 if head_dim == 32 else 64
 
 # Kernel launches since the last reset_launches(); counted where each kernel
-# is launched and nowhere else: K1, K2a, K2b on bf16, and on f32.
+# is launched and nowhere else: K1, K2a, K2b on bf16, K1 on float16, and K1,
+# K2a, K2b on f32.
 launches = 0
 launches_dq = 0
 launches_dkv = 0
+launches_f16 = 0
 launches_f32 = 0
 launches_dq_f32 = 0
 launches_dkv_f32 = 0
@@ -107,45 +112,50 @@ _fns: dict[str, ctypes._CFuncPtr] = {}
 # Pointer arguments of each kind of entry point; then 7 ints, the scale and
 # the stream.
 _PTRS = {"fwd": 6, "dq": 8, "dkv": 9}
+# (dtype, kind) -> (source in ``csrc/``, symbol, launch counter), and the
+# head dims each dtype's kernels take.
+_ENTRIES = {
+    (torch.bfloat16, "fwd"): ("flash_fwd.cu", "ditl_flash_fwd_bf16", "launches"),
+    (torch.bfloat16, "dq"): ("flash_bwd.cu", "ditl_flash_bwd_dq_bf16", "launches_dq"),
+    (torch.bfloat16, "dkv"): ("flash_bwd.cu", "ditl_flash_bwd_dkv_bf16", "launches_dkv"),
+    (torch.float16, "fwd"): ("flash_fwd.cu", "ditl_flash_fwd_f16", "launches_f16"),
+    (torch.float32, "fwd"): ("flash_f32.cu", "ditl_flash_fwd_f32", "launches_f32"),
+    (torch.float32, "dq"): ("flash_f32.cu", "ditl_flash_bwd_dq_f32", "launches_dq_f32"),
+    (torch.float32, "dkv"): ("flash_f32.cu", "ditl_flash_bwd_dkv_f32", "launches_dkv_f32"),
+}
+_DIMS = {torch.bfloat16: HEAD_DIMS, torch.float16: HEAD_DIMS, torch.float32: F32_HEAD_DIMS}
 
 
 def reset_launches() -> None:
-    global launches, launches_dq, launches_dkv
-    global launches_f32, launches_dq_f32, launches_dkv_f32
-    launches = launches_dq = launches_dkv = 0
-    launches_f32 = launches_dq_f32 = launches_dkv_f32 = 0
+    for _, _, counter in _ENTRIES.values():
+        globals()[counter] = 0
 
 
-class Route(NamedTuple):
-    """The CUDA entry points of one (dtype, head_dim): each as (source in
-    ``csrc/``, symbol)."""
-    fwd: tuple[str, str]
-    dq: tuple[str, str]
-    dkv: tuple[str, str]
-
-
-def kernel_route(dtype: torch.dtype, head_dim: int) -> Route:
-    """Which kernels a CUDA call on ``dtype`` operands at ``head_dim`` runs:
-    bf16 at D in ``HEAD_DIMS`` (csrc/flash_fwd.cu, csrc/flash_bwd.cu), f32 at
-    D in ``F32_HEAD_DIMS`` (csrc/flash_f32.cu). Other dtypes (float16) and
-    head dims (D = 256), which the reference computes, raise
+def kernel_route(dtype: torch.dtype, head_dim: int, kind: str = "fwd") -> tuple[str, str]:
+    """The entry point a CUDA call of ``kind`` ("fwd": K1; "dq", "dkv": the
+    backward's K2a, K2b) on ``dtype`` operands at ``head_dim`` takes, as
+    (source in ``csrc/``, symbol): bf16 and float16 at D in ``HEAD_DIMS``
+    (csrc/flash_fwd.cu, csrc/flash_bwd.cu; float16 the forward only), f32 at
+    D in ``F32_HEAD_DIMS`` (csrc/flash_f32.cu). The rest, which the
+    reference computes (the float16 backward, D = 256), raises
     ``NotImplementedError`` naming ROADMAP.md §2."""
-    if dtype == torch.bfloat16 and head_dim in HEAD_DIMS:
-        return Route(("flash_fwd.cu", "ditl_flash_fwd_bf16"),
-                     ("flash_bwd.cu", "ditl_flash_bwd_dq_bf16"),
-                     ("flash_bwd.cu", "ditl_flash_bwd_dkv_bf16"))
-    if dtype == torch.float32 and head_dim in F32_HEAD_DIMS:
-        return Route(("flash_f32.cu", "ditl_flash_fwd_f32"),
-                     ("flash_f32.cu", "ditl_flash_bwd_dq_f32"),
-                     ("flash_f32.cu", "ditl_flash_bwd_dkv_f32"))
-    if dtype not in (torch.bfloat16, torch.float32):
+    if kind not in _PTRS:
+        raise ValueError(f"kind must be one of {tuple(_PTRS)}, got {kind!r}")
+    if dtype not in _DIMS:
         raise NotImplementedError(
-            f"the CUDA flash kernels take bfloat16 or float32, got {dtype}: not "
-            "ported yet (ROADMAP.md §2; attention_impl='xla' runs it)")
-    dims = HEAD_DIMS if dtype == torch.bfloat16 else F32_HEAD_DIMS
-    raise NotImplementedError(
-        f"the CUDA flash kernels take {dtype} at head_dim in {dims}, got head_dim "
-        f"{head_dim}: not ported yet (ROADMAP.md §2; attention_impl='xla' runs it)")
+            f"the CUDA flash kernels take bfloat16, float16 or float32, got {dtype}: not "
+            "ported (ROADMAP.md §2; attention_impl='xla' runs it)")
+    if head_dim not in _DIMS[dtype]:
+        raise NotImplementedError(
+            f"the CUDA flash kernels take {dtype} at head_dim in {_DIMS[dtype]}, got "
+            f"head_dim {head_dim}: not ported yet (ROADMAP.md §2; attention_impl='xla' "
+            "runs it)")
+    if (dtype, kind) not in _ENTRIES:
+        raise NotImplementedError(
+            f"the CUDA flash backward ({kind}) on {dtype} is not ported yet: the "
+            "float16 backward is the next slice (ROADMAP.md §2; attention_impl='xla' "
+            "runs it)")
+    return _ENTRIES[(dtype, kind)][:2]
 
 
 def _kernel(entry: tuple[str, str], kind: str):
@@ -186,15 +196,16 @@ def _check(q, k, v, segment_ids) -> None:
             raise ValueError("segment_ids must be on q's device")
 
 
-def _check_cuda(segment_ids, **tensors) -> tuple[Route, int | None]:
-    """What the CUDA kernels take: ``kernel_route``'s dtypes and head dims
-    (anything else raises ``NotImplementedError``), contiguous, 16-byte
-    aligned, int32 segment ids; f32 sequences up to ``F32_MAX_SEQ``. Returns
-    the route and the segment ids' pointer (None without them)."""
+def _check_cuda(segment_ids, kinds, **tensors) -> tuple[list, int | None]:
+    """What the CUDA kernels of ``kinds`` take: ``kernel_route``'s dtypes and
+    head dims (anything else raises ``NotImplementedError``), contiguous,
+    16-byte aligned, int32 segment ids; f32 sequences up to
+    ``F32_MAX_SEQ``. Returns each kind's entry point and the segment ids'
+    pointer (None without them)."""
     q = tensors["q"]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    route = kernel_route(q.dtype, q.shape[3])
+    route = [kernel_route(q.dtype, q.shape[3], kind) for kind in kinds]
     if q.dtype == torch.float32 and max(q.shape[1], tensors["k"].shape[1]) > F32_MAX_SEQ:
         raise ValueError(f"the f32 flash kernels take sequences up to {F32_MAX_SEQ}, "
                          f"got q {tuple(q.shape)} k {tuple(tensors['k'].shape)}")
@@ -301,32 +312,34 @@ def flash_attention_fwd(
     causal: bool = True,
     segment_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse). CUDA tensors launch K1 or K1-f32 (``kernel_route``;
+    """(o, lse). CUDA tensors launch K1, K1-f16 or K1-f32 (``kernel_route``;
     contiguous) or raise; CPU tensors run the plain version."""
-    global launches, launches_f32
     _check(q, k, v, segment_ids)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      segment_ids=segment_ids)
-    route, seg_ptr = _check_cuda(segment_ids, q=q, k=k, v=v)
+    (entry,), seg_ptr = _check_cuda(segment_ids, ["fwd"], q=q, k=k, v=v)
     b, s_q, h, d = q.shape
     s_kv, kv_heads = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel(route.fwd, "fwd")(
+        err = _kernel(entry, "fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr, o.data_ptr(),
             lse.data_ptr(), b, s_q, s_kv, h, kv_heads, d, int(causal),
             d**-0.5, stream,
         )
-    if err != 0:
-        raise RuntimeError(f"{route.fwd[1]} kernel launch failed: CUDA error {err}")
-    if q.dtype == torch.float32:
-        launches_f32 += 1
-    else:
-        launches += 1
+    _count(q.dtype, "fwd", err)
     return o, lse
+
+
+def _count(dtype: torch.dtype, kind: str, err: int) -> None:
+    """Raise on a refused launch, else count it on its kernel's counter."""
+    _, symbol, counter = _ENTRIES[(dtype, kind)]
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
+    globals()[counter] += 1
 
 
 def flash_attention_bwd_plain(
@@ -375,9 +388,8 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's inputs, its o and lse, and the
     output's gradient ``do``. CUDA tensors launch K2a then K2b, or their f32
-    forms (``kernel_route``; contiguous), or raise; CPU tensors run the
-    plain version."""
-    global launches_dq, launches_dkv, launches_dq_f32, launches_dkv_f32
+    forms (``kernel_route``; contiguous), or raise (float16 among them);
+    CPU tensors run the plain version."""
     _check(q, k, v, segment_ids)
     b, s_q, h, d = q.shape
     s_kv, kv_heads = k.shape[1], k.shape[2]
@@ -388,7 +400,8 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          segment_ids=segment_ids)
-    route, seg_ptr = _check_cuda(segment_ids, q=q, k=k, v=v, o=o, do=do)
+    (dq_entry, dkv_entry), seg_ptr = _check_cuda(segment_ids, ["dq", "dkv"], q=q, k=k, v=v,
+                                                 o=o, do=do)
     if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError("lse must be contiguous float32 on q's device")
     # delta = rowsum(do * o) in f32, outside the kernels as in the reference
@@ -397,27 +410,14 @@ def flash_attention_bwd(
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    dq_fn, dkv_fn = _kernel(route.dq, "dq"), _kernel(route.dkv, "dkv")
-    f32 = q.dtype == torch.float32
+    dq_fn, dkv_fn = _kernel(dq_entry, "dq"), _kernel(dkv_entry, "dkv")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), seg_ptr)
         sizes = (b, s_q, s_kv, h, kv_heads, d, int(causal), d**-0.5, stream)
-        err = dq_fn(*common, dq.data_ptr(), *sizes)
-        if err != 0:
-            raise RuntimeError(f"{route.dq[1]} kernel launch failed: CUDA error {err}")
-        if f32:
-            launches_dq_f32 += 1
-        else:
-            launches_dq += 1
-        err = dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes)
-        if err != 0:
-            raise RuntimeError(f"{route.dkv[1]} kernel launch failed: CUDA error {err}")
-        if f32:
-            launches_dkv_f32 += 1
-        else:
-            launches_dkv += 1
+        _count(q.dtype, "dq", dq_fn(*common, dq.data_ptr(), *sizes))
+        _count(q.dtype, "dkv", dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes))
     return dq, dk, dv
 
 

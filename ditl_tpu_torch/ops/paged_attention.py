@@ -18,14 +18,6 @@ page. ``csrc/paged_attention.cu`` holds two kernels, one per Pallas kernel:
   a tail, positions [0, lengths) from the pages. No serving path calls it
   (as in the JAX package, where only its tests do).
 
-Both run as split-key flash-decoding: a slot's keys lie on one axis, its
-``max_pages * page_size`` page positions then (K3) its ``T`` tail positions,
-cut into splits of ``SPLIT_KEYS`` positions; one block per (split, KV head,
-slot) walks its split's live ``TILE_KEYS``-key tiles with an online softmax
-and writes a partial (m, l, acc), and a second kernel merges the partials
-in split order. The grid comes from shapes alone, so the wrapper never
-reads ``lengths`` or ``starts`` back from the card.
-
 - **K3's multi-query verify** (``ditl_paged_verify_bf16`` and
   ``ditl_paged_verify_i8``, replace ``_paged_tail_kernel`` with
   ``q_groups``): the speculative verify's 4-D q (B, Q, H, D), Q consecutive
@@ -74,9 +66,20 @@ twin and the kernels all apply it.
   kernels, which the reference runs for any float dtype with f32 sums):
   ``ditl_paged_tail_f32`` (K3-f32), ``ditl_paged_verify_f32`` (its verify)
   and ``ditl_paged_f32`` (K4-f32), counted in ``launches_tail_f32``,
-  ``launches_verify_f32`` and ``launches_f32``. ``kernel_route`` picks the
-  entry point from (q's dtype, int8 pools, verify, tail): f32 q over int8
-  pools and float16 raise ``NotImplementedError`` naming ROADMAP.md §2.
+  ``launches_verify_f32`` and ``launches_f32``; over int8 pools (variant
+  F) ``ditl_paged_tail_i8_f32`` and ``ditl_paged_verify_i8_f32``
+  (``launches_tail_int8_f32``, ``launches_verify_int8_f32``): the int8
+  values and their scales in f32, p times V's scale never rounded.
+- **On float16 operands** (``csrc/paged_attention.cu``, the bf16 template's
+  float16 instances): ``ditl_paged_tail_f16``, ``ditl_paged_verify_f16``,
+  ``ditl_paged_f16`` and over int8 pools ``ditl_paged_tail_i8_f16``,
+  ``ditl_paged_verify_i8_f16``, counted in ``launches_tail_f16``,
+  ``launches_verify_f16``, ``launches_f16``, ``launches_tail_int8_f16`` and
+  ``launches_verify_int8_f16``.
+
+``kernel_route`` picks the entry point from (q's dtype, int8 pools, verify,
+tail), and ``_SOURCES`` its source; other dtypes raise
+``NotImplementedError`` naming ROADMAP.md §2.
 
 Layouts are the JAX package's: q (B, H, D) or (B, Q, H, D); pools (P, K,
 ps, D); page table (B, maxp) int32; lengths and starts (B,) int32; tails
@@ -97,7 +100,9 @@ __all__ = ["paged_attention", "paged_attention_plain", "paged_attention_split_pl
            "split_count", "kernel_route", "HEAD_DIMS", "MAX_GROUPS", "MAX_VERIFY_ROWS",
            "SPLIT_KEYS", "TILE_KEYS", "launches", "launches_tail", "launches_tail_int8",
            "launches_verify", "launches_verify_int8", "launches_f32", "launches_tail_f32",
-           "launches_verify_f32", "reset_launches"]
+           "launches_verify_f32", "launches_tail_int8_f32", "launches_verify_int8_f32",
+           "launches_f16", "launches_tail_f16", "launches_verify_f16",
+           "launches_tail_int8_f16", "launches_verify_int8_f16", "reset_launches"]
 
 HEAD_DIMS = (64, 128)  # the kernels' template instances
 MAX_GROUPS = 8  # query heads per KV head the kernels take
@@ -113,8 +118,8 @@ SPLIT_KEYS = 128
 # is launched and nowhere else. ``launches_tail`` is K3 over bf16 pools,
 # ``launches_tail_int8`` K3 over int8 pools, ``launches_verify`` and
 # ``launches_verify_int8`` its multi-query verify over bf16 and int8 pools,
-# ``launches`` K4; ``launches_tail_f32``, ``launches_verify_f32`` and
-# ``launches_f32`` the same three over f32 q, tails and pools.
+# ``launches`` K4, all with bf16 q; the same names with ``_f32`` or ``_f16``
+# count the kernels of f32 or float16 q.
 launches = 0
 launches_tail = 0
 launches_tail_int8 = 0
@@ -123,21 +128,42 @@ launches_verify_int8 = 0
 launches_f32 = 0
 launches_tail_f32 = 0
 launches_verify_f32 = 0
+launches_tail_int8_f32 = 0
+launches_verify_int8_f32 = 0
+launches_f16 = 0
+launches_tail_f16 = 0
+launches_verify_f16 = 0
+launches_tail_int8_f16 = 0
+launches_verify_int8_f16 = 0
 
 _fns: dict[str, ctypes._CFuncPtr] = {}
-# Entry point -> (pointer arguments, int arguments), then the scale and the
-# stream.
-_ARGS = {"ditl_paged_tail_bf16": (11, 9), "ditl_paged_tail_i8": (13, 9),
-         "ditl_paged_verify_bf16": (11, 10), "ditl_paged_verify_i8": (13, 10),
-         "ditl_paged_bf16": (8, 8), "ditl_paged_tail_f32": (11, 9),
-         "ditl_paged_verify_f32": (11, 10), "ditl_paged_f32": (8, 8)}
-# Entry point -> its launch counter.
-_COUNTERS = {"ditl_paged_tail_bf16": "launches_tail",
-             "ditl_paged_tail_i8": "launches_tail_int8",
-             "ditl_paged_verify_bf16": "launches_verify",
-             "ditl_paged_verify_i8": "launches_verify_int8", "ditl_paged_bf16": "launches",
-             "ditl_paged_tail_f32": "launches_tail_f32",
-             "ditl_paged_verify_f32": "launches_verify_f32", "ditl_paged_f32": "launches_f32"}
+# Entry point suffix of each q dtype over float pools and over int8 pools,
+# and the source that holds its kernels.
+_DTYPES = {torch.bfloat16: ("_bf16", "_i8", "paged_attention.cu"),
+           torch.float16: ("_f16", "_i8_f16", "paged_attention.cu"),
+           torch.float32: ("_f32", "_i8_f32", "paged_attention_f32.cu")}
+
+
+def _entry_points():
+    """Entry point -> (pointer arguments, int arguments), then the scale and
+    the stream; entry point -> its launch counter; entry point -> its
+    source."""
+    args, counters, sources = {}, {}, {}
+    for float_sfx, int8_sfx, source in _DTYPES.values():
+        counter_sfx = "" if float_sfx == "_bf16" else float_sfx
+        for name, n_args, counter in (
+                ("ditl_paged_tail" + float_sfx, (11, 9), "launches_tail"),
+                ("ditl_paged_verify" + float_sfx, (11, 10), "launches_verify"),
+                ("ditl_paged" + float_sfx, (8, 8), "launches"),
+                ("ditl_paged_tail" + int8_sfx, (13, 9), "launches_tail_int8"),
+                ("ditl_paged_verify" + int8_sfx, (13, 10), "launches_verify_int8")):
+            args[name] = n_args
+            counters[name] = counter + counter_sfx
+            sources[name] = source
+    return args, counters, sources
+
+
+_ARGS, _COUNTERS, _SOURCES = _entry_points()
 
 
 def reset_launches() -> None:
@@ -146,24 +172,17 @@ def reset_launches() -> None:
 
 
 def kernel_route(dtype: torch.dtype, *, int8: bool, verify: bool, tail: bool) -> str:
-    """The entry point a CUDA call takes: bf16 q over bf16 or int8 pools
-    (``csrc/paged_attention.cu``), f32 q over f32 pools
-    (``csrc/paged_attention_f32.cu``); K3 with a tail, its verify for a 4-D
-    q with Q > 1, K4 without a tail (never over int8 pools). f32 q over
-    int8 pools (ROADMAP.md §2 variant F) and float16 raise
-    ``NotImplementedError``."""
-    if dtype == torch.bfloat16:
-        suffix = "_i8" if int8 else "_bf16"
-    elif dtype == torch.float32 and not int8:
-        suffix = "_f32"
-    elif dtype == torch.float32:
+    """The entry point a CUDA call takes: bf16 or float16 q over pools of
+    its dtype or int8 (``csrc/paged_attention.cu``), f32 q over f32 or int8
+    pools (``csrc/paged_attention_f32.cu``; ``_SOURCES`` maps each entry
+    point to its source); K3 with a tail, its verify for a 4-D q with Q >
+    1, K4 without a tail (never over int8 pools). Other dtypes raise
+    ``NotImplementedError`` naming ROADMAP.md §2."""
+    if dtype not in _DTYPES:
         raise NotImplementedError(
-            "the CUDA paged-attention kernels take float32 q over float32 pools; f32 q "
-            "over int8 pools is not ported yet (ROADMAP.md §2 variant F)")
-    else:
-        raise NotImplementedError(
-            f"the CUDA paged-attention kernels take bfloat16 or float32, got {dtype}: "
-            "not ported yet (ROADMAP.md §2)")
+            f"the CUDA paged-attention kernels take bfloat16, float16 or float32, got "
+            f"{dtype}: not ported (ROADMAP.md §2)")
+    suffix = _DTYPES[dtype][1 if int8 else 0]
     if not tail:
         if int8 or verify:
             raise ValueError("int8 pools and the multi-query verify need the tail path")
@@ -176,8 +195,7 @@ def _kernel(name: str):
     if fn is None:
         from ditl_tpu_torch.ops.cuda_build import load_library
 
-        source = "paged_attention_f32.cu" if name.endswith("_f32") else "paged_attention.cu"
-        fn = getattr(load_library(source), name)
+        fn = getattr(load_library(_SOURCES[name]), name)
         n_ptr, n_int = _ARGS[name]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -470,7 +488,7 @@ def paged_attention(
     K3 (with a tail; ``ditl_paged_tail_i8`` over int8 pools with
     ``k_scale``/``v_scale``; the verify entry points for a 4-D q with Q > 1,
     at most ``MAX_VERIFY_ROWS`` query rows per KV head) or K4 (without):
-    bf16 q and tails over bf16 or int8 pools, or f32 q, tails and pools
+    bf16, float16 or f32 q and tails over pools of their dtype or int8
     (``kernel_route``), f32 scales, int32 table, lengths and starts, all
     contiguous, head_dim in ``HEAD_DIMS``, at most ``MAX_GROUPS`` query
     heads per KV head; anything else raises. CPU tensors run the plain

@@ -114,23 +114,30 @@ def test_flash_fwd_kernel_matches_plain(cuda, b, s_q, s_kv, h, kv, d, causal, se
 @pytest.mark.torch_port
 def test_flash_fwd_kernel_raises_instead_of_falling_back(cuda):
     """On CUDA tensors the wrapper launches the kernel or raises: no plain
-    fallback for shapes or dtypes the kernel does not take. Dtypes and head
-    dims that the reference computes raise NotImplementedError naming
-    ROADMAP.md."""
+    fallback for shapes or dtypes the kernel does not take. What the
+    reference computes and the port has no kernel for yet (the float16
+    backward, D = 256) raises NotImplementedError naming ROADMAP.md; a
+    float16 forward launches K1-f16, and its backward raises when called."""
     q, k, v, _ = _inputs(cuda, 1, 64, 64, 4, 2, 128)
     tfa.reset_launches()
-    with pytest.raises(NotImplementedError, match="float16.*ROADMAP"):
-        tfa.flash_attention(q.half(), k.half(), v.half())
+    leaves = [t.half().requires_grad_() for t in (q, k, v)]
+    out = tfa.flash_attention(*leaves)
+    assert tfa.launches_f16 == 1
+    with pytest.raises(NotImplementedError, match="float16.*ROADMAP.md §2"):
+        out.float().sum().backward()
+    with pytest.raises(ValueError, match="dtype mismatch"):  # mixed dtypes
+        tfa.flash_attention(q.half(), k, v)
     q48, k48, v48, _ = _inputs(cuda, 1, 64, 64, 4, 2, 48)
     with pytest.raises(NotImplementedError, match="head_dim.*ROADMAP"):
         tfa.flash_attention(q48, k48, v48)
-    for dtype in (torch.bfloat16, torch.float32):  # D = 256 in either dtype
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):  # D = 256 in each dtype
         q256, k256, v256, _ = _inputs(cuda, 1, 64, 64, 4, 2, 256, dtype=dtype)
         with pytest.raises(NotImplementedError, match="head_dim.*ROADMAP"):
             tfa.flash_attention(q256, k256, v256)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
-    assert tfa.launches == tfa.launches_f32 == 0
+    assert tfa.launches == tfa.launches_f32 == tfa.launches_dq == 0
+    assert tfa.launches_f16 == 1
 
 
 def _paged_inputs(cuda, b, h, kv, d, ps, n_pool, tail_len, lengths, starts, seed=0,
@@ -245,14 +252,16 @@ def test_paged_kernels_raise_instead_of_falling_back(cuda):
     q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
         cuda, 4, 8, 4, 64, 16, 64, 8, [0, 5, 38, 50], [0, 0, 32, 45])
     tpa.reset_launches()
-    with pytest.raises(NotImplementedError, match="float16.*ROADMAP"):
-        tpa.paged_attention(q.half(), kp.half(), vp.half(), table, lens)
+    with pytest.raises(NotImplementedError, match="float64.*ROADMAP"):
+        tpa.paged_attention(q.double(), kp.double(), vp.double(), table, lens)
     kq, vq, ks, vs = _int8_pools(kp, vp)
-    with pytest.raises(NotImplementedError, match="int8 pools.*ROADMAP.*variant F"):
-        tpa.paged_attention(q.float(), kq, vq, table, lens, tail_k=tk.float(),
-                            tail_v=tv.float(), starts=st, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="one dtype"):  # f32 q, bf16 tails, int8 pools
+        tpa.paged_attention(q.float(), kq, vq, table, lens, tail_k=tk, tail_v=tv, starts=st,
+                            k_scale=ks, v_scale=vs)
     with pytest.raises(ValueError, match="one dtype"):  # f32 q over bf16 pools
         tpa.paged_attention(q.float(), kp, vp, table, lens)
+    with pytest.raises(ValueError, match="one dtype"):  # float16 q over bf16 pools
+        tpa.paged_attention(q.half(), kp, vp, table, lens)
     with pytest.raises(ValueError, match="multi-query"):  # a verify without a tail
         tpa.paged_attention(q[:, None].expand(-1, 3, -1, -1).contiguous(), kp, vp, table,
                             lens)
@@ -1073,3 +1082,126 @@ def test_mlp_and_projection_f32_autograd_launch_k5_k6(no_tf32):
     for name, x, r in zip(("dh", "d_w_gu", "d_w_down", "dw"), grads["pallas"],
                           grads["xla"]):
         _assert_scaled(name, x, r, MM_F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# float16: K1-f16 (csrc/flash_fwd.cu), K3-f16, its verify, K4-f16 and the
+# int8-pool forms (csrc/paged_attention.cu); an f32 q over int8 pools:
+# K3-int8-f32 and its verify (csrc/paged_attention_f32.cu)
+# ---------------------------------------------------------------------------
+
+# float16 outputs at bf16's tolerance (2e-2: p and o rounded to float16,
+# whose ulp is 8x finer than bf16's); f32 over int8 pools within
+# PAGED_F32_TOL of the output's largest magnitude (FFMA in another order).
+F16 = torch.float16
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("b,s_q,s_kv,h,kv,d,causal,seg", [
+    (4, 512, 512, 32, 8, 128, True, [512, 401, 230, 97]),  # serving prefill
+    (4, 2048, 2048, 32, 8, 128, True, "train"),  # the training batch, forward only
+    (2, 300, 300, 8, 2, 64, True, "nonmono"),
+    (2, 200, 333, 8, 4, 32, False, None),
+    (1, 257, 257, 4, 2, 32, True, "edge1"),
+    (2, 300, 300, 4, 2, 128, False, "nonmono"),
+])
+def test_flash_f16_fwd_kernel_matches_plain(cuda, b, s_q, s_kv, h, kv, d, causal, seg):
+    """K1-f16 against the plain forward in float16; two calls give the same
+    bits; each call counts one K1-f16 launch and no other."""
+    lengths = seg if isinstance(seg, list) else None
+    q, k, v, ids = _inputs(cuda, b, s_q, s_kv, h, kv, d, lengths, dtype=F16)
+    if isinstance(seg, str):
+        ids = _segment_ids(cuda, seg, b, s_q)
+    tfa.reset_launches()
+    runs = [tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=ids) for _ in range(2)]
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, causal=causal, segment_ids=ids)
+    torch.cuda.synchronize()
+    assert (tfa.launches_f16, tfa.launches, tfa.launches_f32) == (2, 0, 0)
+    o, lse = runs[0]
+    assert o.dtype == F16 and torch.equal(o, runs[1][0]) and torch.equal(lse, runs[1][1])
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-3)
+
+
+def _close(o, ref, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ref, rtol=0, atol=PAGED_F32_TOL * float(ref.abs().max()))
+    else:
+        torch.testing.assert_close(o.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("dtype,int8", [(F16, False), (F16, True), (torch.float32, True)])
+@pytest.mark.parametrize("case", range(len(PAGED_CASES)))
+def test_paged_f16_and_f32_int8_kernels_match_plain(no_tf32, dtype, int8, case):
+    """K3-f16 and K4-f16 (float16 pools), K3-int8-f16 (float16 q over int8
+    pools) and K3-int8-f32 (f32 q over int8 pools) against the plain version
+    and the split twin; two calls give the same bits; each call counts on
+    its own counter and on no other."""
+    b, h, kv, d, ps, tail_len, lengths, starts = PAGED_CASES[case]
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=case, dtype=dtype)
+    sfx = "_f16" if dtype == F16 else "_f32"
+    scales = {}
+    if int8:
+        kp, vp, ks, vs = _int8_pools(kp, vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tpa.reset_launches()
+    o3 = [tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st,
+                              **scales) for _ in range(2)]
+    args = (q, kp, vp, table, lens, tk, tv, st, *scales.values())
+    checks = [(o3, tpa.paged_attention_plain(*args), tpa.paged_attention_split_plain(*args))]
+    want = {"launches_tail" + ("_int8" if int8 else "") + sfx: 2}
+    if not int8:
+        low = torch.minimum(st, lens).contiguous()
+        o4 = [tpa.paged_attention(q, kp, vp, table, low) for _ in range(2)]
+        checks.append((o4, tpa.paged_attention_plain(q, kp, vp, table, low),
+                       tpa.paged_attention_split_plain(q, kp, vp, table, low)))
+        want["launches" + sfx] = 2
+    torch.cuda.synchronize()
+    assert {n: getattr(tpa, n) for n in tpa._COUNTERS.values() if getattr(tpa, n)} == want
+    for o, r, s_ in checks:
+        assert o[0].dtype == dtype and torch.equal(o[0], o[1])
+        _close(o[0], r, dtype)
+        _close(o[0], s_, dtype)
+    dead = [i for i, n in enumerate(lengths) if n == 0]
+    assert all(bool((o3[0][i] == 0).all()) for i in dead)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("dtype,int8", [(F16, False), (F16, True), (torch.float32, True)])
+@pytest.mark.parametrize("case", range(len(VERIFY_CASES) + 1))
+def test_paged_f16_and_f32_int8_verify_kernels_match_plain(no_tf32, dtype, int8, case):
+    """The verify forms (K3-f16-verify, K3-int8-f16-verify, K3-int8-f32-verify)
+    on the verify cases and at 80 query rows against the plain version's
+    4-D branch and the split twin; two calls give the same bits; a 4-D q
+    with Q = 1 gives the 3-D call's bits."""
+    cases = VERIFY_CASES + [chip_smoke.VERIFY_80[1:]]
+    b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp = cases[case]
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=case, nq=nq,
+        maxp=maxp, dtype=dtype)
+    scales = {}
+    if int8:
+        kp, vp, ks, vs = _int8_pools(kp, vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tail = dict(tail_k=tk, tail_v=tv, starts=st, **scales)
+    counter = "launches_verify" + ("_int8" if int8 else "") + (
+        "_f16" if dtype == F16 else "_f32")
+    tpa.reset_launches()
+    runs = [tpa.paged_attention(q, kp, vp, table, lens, **tail) for _ in range(2)]
+    assert getattr(tpa, counter) == 2
+    assert sum(getattr(tpa, n) for n in tpa._COUNTERS.values()) == 2
+    args = (q, kp, vp, table, lens, tk, tv, st, *scales.values())
+    r = tpa.paged_attention_plain(*args)
+    sp = tpa.paged_attention_split_plain(*args)
+    o41 = tpa.paged_attention(q[:, :1].contiguous(), kp, vp, table, lens, **tail)
+    o3 = tpa.paged_attention(q[:, 0].contiguous(), kp, vp, table, lens, **tail)
+    torch.cuda.synchronize()
+    o = runs[0]
+    assert o.shape == q.shape and o.dtype == dtype and torch.equal(runs[1], o)
+    _close(o, r, dtype)
+    _close(o, sp, dtype)
+    assert torch.equal(o41[:, 0], o3)
+    dead = [i for i, n in enumerate(lengths) if n == 0]
+    assert all(bool((o[i] == 0).all()) for i in dead)

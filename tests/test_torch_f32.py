@@ -93,34 +93,43 @@ QWEN2_TINY = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_la
 # ---------------------------------------------------------------------------
 
 _FLASH_BF16 = ("flash_fwd.cu", "flash_bwd.cu", "_bf16")
+_FLASH_F16 = ("flash_fwd.cu", "float16 backward.*ROADMAP.md §2", "_f16")
 _FLASH_F32 = ("flash_f32.cu", "flash_f32.cu", "_f32")
-# (dtype, head_dim) -> (forward source, backward source, symbol suffix) or
-# the text the raise must carry.
+# (dtype, head_dim) -> (forward source, backward source or the text its
+# raise carries, symbol suffix), or the text every kind's raise carries.
 FLASH_ROUTES = {
     ("bfloat16", 32): _FLASH_BF16, ("bfloat16", 64): _FLASH_BF16,
     ("bfloat16", 128): _FLASH_BF16, ("bfloat16", 256): "head_dim 256.*ROADMAP.md §2",
     ("float32", 32): "head_dim 32.*ROADMAP.md §2", ("float32", 64): _FLASH_F32,
     ("float32", 128): _FLASH_F32, ("float32", 256): "head_dim 256.*ROADMAP.md §2",
-    ("float16", 32): "float16.*ROADMAP.md §2", ("float16", 64): "float16.*ROADMAP.md §2",
-    ("float16", 128): "float16.*ROADMAP.md §2", ("float16", 256): "float16.*ROADMAP.md §2",
+    ("float16", 32): _FLASH_F16, ("float16", 64): _FLASH_F16,
+    ("float16", 128): _FLASH_F16, ("float16", 256): "head_dim 256.*ROADMAP.md §2",
 }
 
 
 @pytest.mark.parametrize("dtype,head_dim", sorted(FLASH_ROUTES))
 def test_flash_kernel_route(dtype, head_dim):
     """``kernel_route``: bf16 at D in {32, 64, 128} keeps the bf16 kernels,
-    f32 at D in {64, 128} (the reference's own head dims below 256) takes
-    ``ditl_flash_*_f32``; float16 and D = 256 raise naming ROADMAP.md §2."""
+    float16 at the same D takes ``ditl_flash_fwd_f16`` for the forward and
+    raises for the backward's two kernels, f32 at D in {64, 128} (the
+    reference's own head dims below 256) takes ``ditl_flash_*_f32``; D = 256
+    raises for every kind, naming ROADMAP.md §2."""
+    dt = getattr(torch, dtype)
     want = FLASH_ROUTES[(dtype, head_dim)]
     if isinstance(want, str):
-        with pytest.raises(NotImplementedError, match=want):
-            tfa.kernel_route(getattr(torch, dtype), head_dim)
+        for kind in ("fwd", "dq", "dkv"):
+            with pytest.raises(NotImplementedError, match=want):
+                tfa.kernel_route(dt, head_dim, kind)
         return
-    route = tfa.kernel_route(getattr(torch, dtype), head_dim)
-    fwd_src, bwd_src, suffix = want
-    assert route.fwd == (fwd_src, "ditl_flash_fwd" + suffix)
-    assert route.dq == (bwd_src, "ditl_flash_bwd_dq" + suffix)
-    assert route.dkv == (bwd_src, "ditl_flash_bwd_dkv" + suffix)
+    fwd_src, bwd, suffix = want
+    assert tfa.kernel_route(dt, head_dim) == tfa.kernel_route(dt, head_dim, "fwd") == (
+        fwd_src, "ditl_flash_fwd" + suffix)
+    for kind in ("dq", "dkv"):
+        if bwd.endswith(".cu"):
+            assert tfa.kernel_route(dt, head_dim, kind) == (bwd, f"ditl_flash_bwd_{kind}{suffix}")
+        else:
+            with pytest.raises(NotImplementedError, match=bwd):
+                tfa.kernel_route(dt, head_dim, kind)
 
 
 # (dtype, int8 pools, form) -> entry point or the text the raise carries.
@@ -133,21 +142,25 @@ PAGED_ROUTES = {
     ("float32", False, "tail"): "ditl_paged_tail_f32",
     ("float32", False, "verify"): "ditl_paged_verify_f32",
     ("float32", False, "no_tail"): "ditl_paged_f32",
-    ("float32", True, "tail"): "int8 pools.*ROADMAP.md §2 variant F",
-    ("float32", True, "verify"): "int8 pools.*ROADMAP.md §2 variant F",
-    ("float16", False, "tail"): "float16.*ROADMAP.md §2",
-    ("float16", False, "verify"): "float16.*ROADMAP.md §2",
-    ("float16", False, "no_tail"): "float16.*ROADMAP.md §2",
-    ("float16", True, "tail"): "float16.*ROADMAP.md §2",
+    ("float32", True, "tail"): "ditl_paged_tail_i8_f32",
+    ("float32", True, "verify"): "ditl_paged_verify_i8_f32",
+    ("float16", False, "tail"): "ditl_paged_tail_f16",
+    ("float16", False, "verify"): "ditl_paged_verify_f16",
+    ("float16", False, "no_tail"): "ditl_paged_f16",
+    ("float16", True, "tail"): "ditl_paged_tail_i8_f16",
+    ("float16", True, "verify"): "ditl_paged_verify_i8_f16",
+    ("float64", False, "tail"): "float64.*ROADMAP.md §2",
 }
 
 
 @pytest.mark.parametrize("dtype,int8,form", sorted(PAGED_ROUTES))
 def test_paged_kernel_route(dtype, int8, form):
-    """``kernel_route``: bf16 q over bf16 or int8 pools keeps the bf16 and
-    int8 kernels, f32 q over f32 pools takes ``ditl_paged_{tail,verify,}_f32``
-    (in ``csrc/paged_attention_f32.cu``); f32 q over int8 pools (variant F)
-    and float16 raise naming ROADMAP.md §2."""
+    """``kernel_route``: bf16 and float16 q over pools of their dtype or int8
+    take ``csrc/paged_attention.cu``'s entry points (``_bf16``/``_i8``,
+    ``_f16``/``_i8_f16``), f32 q over f32 or int8 pools (variant F)
+    ``csrc/paged_attention_f32.cu``'s (``_f32``/``_i8_f32``); each has its
+    argument count, counter and source; another dtype raises naming
+    ROADMAP.md §2."""
     want = PAGED_ROUTES[(dtype, int8, form)]
     kw = dict(int8=int8, verify=form == "verify", tail=form != "no_tail")
     if not want.startswith("ditl_"):
@@ -156,6 +169,8 @@ def test_paged_kernel_route(dtype, int8, form):
         return
     assert tpa.kernel_route(getattr(torch, dtype), **kw) == want
     assert want in tpa._ARGS and want in tpa._COUNTERS
+    assert tpa._SOURCES[want] == ("paged_attention_f32.cu" if dtype == "float32"
+                                  else "paged_attention.cu")
 
 
 def test_f32_kernels_live_in_their_own_sources():
@@ -170,7 +185,9 @@ def test_f32_kernels_live_in_their_own_sources():
     for src, syms in (("flash_f32.cu", ["ditl_flash_fwd_f32", "ditl_flash_bwd_dq_f32",
                                          "ditl_flash_bwd_dkv_f32"]),
                       ("paged_attention_f32.cu", ["ditl_paged_tail_f32", "ditl_paged_f32",
-                                                  "ditl_paged_verify_f32"])):
+                                                  "ditl_paged_verify_f32",
+                                                  "ditl_paged_tail_i8_f32",
+                                                  "ditl_paged_verify_i8_f32"])):
         text = (CSRC / src).read_text()
         assert all(f'extern "C" int {s}(' in text for s in syms), src
 
