@@ -1,5 +1,5 @@
-// FlashAttention backward for Hopper (sm_90a): two kernels, bf16 in, f32
-// sums, on K1's skeleton (flash_fwd.cu) and its helpers (hopper.cuh).
+// FlashAttention backward for Hopper (sm_90a): two kernels, bf16 or float16
+// in, f32 sums, on K1's skeleton (flash_fwd.cu) and its helpers (hopper.cuh).
 //
 // Replaces:
 // - K2a ditl_tpu/ops/flash_attention.py::_dq_kernel (pallas_call in
@@ -15,6 +15,17 @@
 // s = scale * (q . k), dp = do . v^T and ds = p * (dp - delta); delta =
 // rowsum(do * o) is an input (computed by PyTorch, as the reference computes
 // it outside its kernels).
+//
+// Entry points: ditl_flash_bwd_dq_bf16 / ditl_flash_bwd_dkv_bf16 and, on
+// float16 operands, ditl_flash_bwd_dq_f16 / ditl_flash_bwd_dkv_f16 (K2a-f16,
+// K2b-f16: the reference's kernels take any float dtype). Each kernel is one
+// template whose kF16 parameter picks the operand type of the wgmma products
+// (.f16 in place of .bf16: the same fragment layouts, descriptors and
+// swizzle), of the tensor maps (CU_TENSOR_MAP_DATA_TYPE_FLOAT16) and of the
+// roundings of p, ds and the outputs (__floats2half2_rn in place of the bf16
+// pack), as K1's (flash_fwd.cu). Tiles, rings, tile skipping, bound and
+// design are the same for both; the bf16 instances keep their code and bits
+// (chip_smoke.py K2_DIGESTS).
 //
 // Bound on the card (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16), computed by
 // chip_smoke.py from its run's inputs (q, k, v, do, lse, delta and ids read
@@ -80,9 +91,14 @@
 //   and keys past Skv only fill rows that are never stored.
 //
 // Precision, as the reference feeds the products: q.k^T and do.v^T take bf16
-// operands with f32 sums; p and ds are rounded to bf16 for the second
-// products (p^T.do, ds.k, ds^T.q) with f32 sums; the outputs are rounded to
-// bf16. Masked scores are the finite -2.3819763e38, set after the scale (as
+// (float16) operands with f32 sums; p and ds are rounded to bf16 (float16)
+// for the second products (p^T.do, ds.k, ds^T.q) with f32 sums, where the
+// reference keeps them in f32; the outputs are rounded to bf16 (float16).
+// float16 has more mantissa than bf16 but not its range: a float16 training
+// step's do lies among float16's subnormals, where ds (proportional to do)
+// would keep a few bits. So the wrapper (ops/flash_attention.py) hands
+// K2a-f16/K2b-f16 do rescaled by an exact power of two (largest magnitude in
+// (2^-5, 2^-4]) and multiplies their outputs back in f32. Masked scores are the finite -2.3819763e38, set after the scale (as
 // K1 does), so p = 2^(NEG_INF - lse log2 e) = 0.
 //
 // ptxas -v (CUDA 12.9, sm_90a), no spills and no stack in any instance: K2a
@@ -223,7 +239,7 @@ struct DqCfg {
 // Accumulator layout of an m64nN product, per warp w of a warpgroup, g =
 // lane / 4, t = lane % 4: d[4i + 0, 1] at row 16w + g, columns 8i + 2t, +1;
 // d[4i + 2, 3] at row 16w + g + 8.
-template <int D>
+template <int D, bool kF16>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -404,12 +420,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           wgmma_fence();
 #pragma unroll
           for (int ks = 0; ks < D / 16; ++ks) {
-            wgmma_ss<KH>(s, desc_k<D>(q_s, M, ks), desc_k<D>(ks_s, N, ks), ks > 0);
+            wgmma_ss<KH, kF16>(s, desc_k<D>(q_s, M, ks), desc_k<D>(ks_s, N, ks), ks > 0);
           }
           wgmma_commit();
 #pragma unroll
           for (int ks = 0; ks < D / 16; ++ks) {
-            wgmma_ss<KH>(dp, desc_k<D>(do_s, M, ks), desc_k<D>(vs_s, N, ks), ks > 0);
+            wgmma_ss<KH, kF16>(dp, desc_k<D>(do_s, M, ks), desc_k<D>(vs_s, N, ks), ks > 0);
           }
           wgmma_commit();
           wgmma_wait<1>();  // S is in; dP still runs
@@ -452,20 +468,21 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           wgmma_wait<0>();
           fence_regs<KH / 2>(dp);
 
-          // dS = P (dP - delta) as bf16 A fragments: K-step kk covers keys
+          // dS = P (dP - delta) as bf16 (float16) A fragments: K-step kk covers keys
           // 16 kk .. 16 kk + 15 of the sub-tile, s[8 kk ..], dsf[4 kk ..] (the
           // accumulator's two n8 column groups are the A fragment's halves).
           uint32_t dsf[KH / 4];
 #pragma unroll
           for (int j = 0; j < KH / 2; j += 4) {
-            dsf[(j >> 1) + 0] = pack_bf16(s[j] * (dp[j] - dl0), s[j + 1] * (dp[j + 1] - dl0));
-            dsf[(j >> 1) + 1] = pack_bf16(s[j + 2] * (dp[j + 2] - dl1),
-                                          s[j + 3] * (dp[j + 3] - dl1));
+            dsf[(j >> 1) + 0] =
+                pack2<kF16>(s[j] * (dp[j] - dl0), s[j + 1] * (dp[j + 1] - dl0));
+            dsf[(j >> 1) + 1] =
+                pack2<kF16>(s[j + 2] * (dp[j + 2] - dl1), s[j + 3] * (dp[j + 3] - dl1));
           }
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < KH / 16; ++kk) {
-            wgmma_rs<D>(acc, dsf + 4 * kk, desc_mn<D>(k_s, N, half * KH / 16 + kk));
+            wgmma_rs<D, kF16>(acc, dsf + 4 * kk, desc_mn<D>(k_s, N, half * KH / 16 + kk));
           }
           wgmma_commit();
           wgmma_wait<0>();
@@ -488,11 +505,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int c = 8 * i + 2 * t;
       if (row0 < sq) {
         *reinterpret_cast<uint32_t*>(out + row0 * q_stride + c) =
-            pack_bf16(acc[4 * i] * scale, acc[4 * i + 1] * scale);
+            pack2<kF16>(acc[4 * i] * scale, acc[4 * i + 1] * scale);
       }
       if (row1 < sq) {
         *reinterpret_cast<uint32_t*>(out + row1 * q_stride + c) =
-            pack_bf16(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale);
+            pack2<kF16>(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale);
       }
     }
   }
@@ -592,7 +609,7 @@ struct DkvProducer {
 // Grid (KV heads, batch, key blocks); two warpgroups of 64 keys each, warp 0
 // also the producer. In the transposed products a thread's accumulator rows
 // are keys and its columns query rows of the tile.
-template <int D>
+template <int D, bool kF16>
 __global__ void __launch_bounds__(kConsumers, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -764,12 +781,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
-        wgmma_ss<M>(s, desc_k<D>(k_s, KN, ks), desc_k<D>(q_s, M, ks), ks > 0);
+        wgmma_ss<M, kF16>(s, desc_k<D>(k_s, KN, ks), desc_k<D>(q_s, M, ks), ks > 0);
       }
       wgmma_commit();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
-        wgmma_ss<M>(dp, desc_k<D>(v_s, KN, ks), desc_k<D>(do_s, M, ks), ks > 0);
+        wgmma_ss<M, kF16>(dp, desc_k<D>(v_s, KN, ks), desc_k<D>(do_s, M, ks), ks > 0);
       }
       wgmma_commit();
       wgmma_wait<1>();  // S^T is in; dP^T still runs
@@ -811,24 +828,24 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       fence_regs<M / 2>(dp);
 
-      // P^T and dS^T = P^T (dP^T - delta) as bf16 A fragments: K-step kk
+      // P^T and dS^T = P^T (dP^T - delta) as bf16 (float16) A fragments: K-step kk
       // covers rows 16 kk .. 16 kk + 15 of the tile.
       uint32_t pf[M / 4], dsf[M / 4];
 #pragma unroll
       for (int i = 0; i < M / 8; ++i) {
         const float2 dl = *reinterpret_cast<const float2*>(dls + 8 * i + 2 * t);
-        pf[2 * i] = pack_bf16(s[4 * i], s[4 * i + 1]);
-        pf[2 * i + 1] = pack_bf16(s[4 * i + 2], s[4 * i + 3]);
-        dsf[2 * i] = pack_bf16(s[4 * i] * (dp[4 * i] - dl.x),
-                               s[4 * i + 1] * (dp[4 * i + 1] - dl.y));
-        dsf[2 * i + 1] = pack_bf16(s[4 * i + 2] * (dp[4 * i + 2] - dl.x),
-                                   s[4 * i + 3] * (dp[4 * i + 3] - dl.y));
+        pf[2 * i] = pack2<kF16>(s[4 * i], s[4 * i + 1]);
+        pf[2 * i + 1] = pack2<kF16>(s[4 * i + 2], s[4 * i + 3]);
+        dsf[2 * i] = pack2<kF16>(s[4 * i] * (dp[4 * i] - dl.x),
+                                 s[4 * i + 1] * (dp[4 * i + 1] - dl.y));
+        dsf[2 * i + 1] = pack2<kF16>(s[4 * i + 2] * (dp[4 * i + 2] - dl.x),
+                                     s[4 * i + 3] * (dp[4 * i + 3] - dl.y));
       }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < M / 16; ++kk) {
-        wgmma_rs<D>(dva, pf + 4 * kk, desc_mn<D>(do_s, M, kk));
-        wgmma_rs<D>(dka, dsf + 4 * kk, desc_mn<D>(q_s, M, kk));
+        wgmma_rs<D, kF16>(dva, pf + 4 * kk, desc_mn<D>(do_s, M, kk));
+        wgmma_rs<D, kF16>(dka, dsf + 4 * kk, desc_mn<D>(q_s, M, kk));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -854,15 +871,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int c = 8 * i + 2 * t;
     if (key0 < skv) {
       *reinterpret_cast<uint32_t*>(dkb + key0 * kv_stride + c) =
-          pack_bf16(dka[4 * i] * scale, dka[4 * i + 1] * scale);
+          pack2<kF16>(dka[4 * i] * scale, dka[4 * i + 1] * scale);
       *reinterpret_cast<uint32_t*>(dvb + key0 * kv_stride + c) =
-          pack_bf16(dva[4 * i], dva[4 * i + 1]);
+          pack2<kF16>(dva[4 * i], dva[4 * i + 1]);
     }
     if (key1 < skv) {
       *reinterpret_cast<uint32_t*>(dkb + key1 * kv_stride + c) =
-          pack_bf16(dka[4 * i + 2] * scale, dka[4 * i + 3] * scale);
+          pack2<kF16>(dka[4 * i + 2] * scale, dka[4 * i + 3] * scale);
       *reinterpret_cast<uint32_t*>(dvb + key1 * kv_stride + c) =
-          pack_bf16(dva[4 * i + 2], dva[4 * i + 3]);
+          pack2<kF16>(dva[4 * i + 2], dva[4 * i + 3]);
     }
   }
 }
@@ -875,17 +892,19 @@ struct Args {
 };
 
 // The four tensor maps: q and do with boxes of q_rows rows, k and v of
-// kv_rows.
-template <int D>
+// kv_rows; float16 elements with kF16, else bf16.
+template <int D, bool kF16>
 int make_maps(const Args& a, int q_rows, int kv_rows, CUtensorMap* maps) {
   using P = Panels<D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const bool ok =
-      make_map(encode, &maps[0], a.q, D, a.heads, a.sq, a.batch, P::kPanel, q_rows) &&
-      make_map(encode, &maps[1], a.k, D, a.kv_heads, a.skv, a.batch, P::kPanel, kv_rows) &&
-      make_map(encode, &maps[2], a.v, D, a.kv_heads, a.skv, a.batch, P::kPanel, kv_rows) &&
-      make_map(encode, &maps[3], a.dout, D, a.heads, a.sq, a.batch, P::kPanel, q_rows);
+      make_map(encode, &maps[0], a.q, D, a.heads, a.sq, a.batch, P::kPanel, q_rows, kF16) &&
+      make_map(encode, &maps[1], a.k, D, a.kv_heads, a.skv, a.batch, P::kPanel, kv_rows,
+               kF16) &&
+      make_map(encode, &maps[2], a.v, D, a.kv_heads, a.skv, a.batch, P::kPanel, kv_rows,
+               kF16) &&
+      make_map(encode, &maps[3], a.dout, D, a.heads, a.sq, a.batch, P::kPanel, q_rows, kF16);
   return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -903,46 +922,69 @@ int check_regs(Kernel kernel) {
   return 0;
 }
 
-template <int D>
+template <int D, bool kF16>
 int launch_dq(const Args& a, void* dq) {
   using C = DqCfg<D>;
   CUtensorMap m[4];
-  if (const int err = make_maps<D>(a, C::kBlockM, C::kBlockN, m)) return err;
+  if (const int err = make_maps<D, kF16>(a, C::kBlockM, C::kBlockN, m)) return err;
   static bool smem_set = false;
   if (!smem_set) {
-    if (const int bad = check_regs(flash_bwd_dq_kernel<D>)) return bad;
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemAlloc);
+    if (const int bad = check_regs(flash_bwd_dq_kernel<D, kF16>)) return bad;
+    const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kF16>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 C::kSmemAlloc);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
   const dim3 grid(a.heads, a.batch, (a.sq + C::kBlockM - 1) / C::kBlockM);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, C::kSmemAlloc, a.stream>>>(
+  flash_bwd_dq_kernel<D, kF16><<<grid, kThreads, C::kSmemAlloc, a.stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const int*>(a.seg),
       static_cast<uint16_t*>(dq), a.sq, a.skv, a.heads, a.kv_heads, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kF16>
 int launch_dkv(const Args& a, void* dk, void* dv) {
   using C = DkvCfg<D>;
   CUtensorMap m[4];
-  if (const int err = make_maps<D>(a, C::kBlockM, C::kBlockN, m)) return err;
+  if (const int err = make_maps<D, kF16>(a, C::kBlockM, C::kBlockN, m)) return err;
   static bool smem_set = false;
   if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemAlloc);
+    const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, kF16>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 C::kSmemAlloc);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
   const dim3 grid(a.kv_heads, a.batch, (a.skv + C::kBlockN - 1) / C::kBlockN);
-  flash_bwd_dkv_kernel<D><<<grid, kConsumers, C::kSmemAlloc, a.stream>>>(
+  flash_bwd_dkv_kernel<D, kF16><<<grid, kConsumers, C::kSmemAlloc, a.stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const int*>(a.seg),
       static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), a.sq, a.skv, a.heads,
       a.kv_heads, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The entry points' bodies: the instance for head_dim and the operand type.
+template <bool kF16>
+int dispatch_dq(const Args& a, int head_dim, void* dq) {
+  switch (head_dim) {
+    case 32: return launch_dq<32, kF16>(a, dq);
+    case 64: return launch_dq<64, kF16>(a, dq);
+    case 128: return launch_dq<128, kF16>(a, dq);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool kF16>
+int dispatch_dkv(const Args& a, int head_dim, void* dk, void* dv) {
+  switch (head_dim) {
+    case 32: return launch_dkv<32, kF16>(a, dk, dv);
+    case 64: return launch_dkv<64, kF16>(a, dk, dv);
+    case 128: return launch_dkv<128, kF16>(a, dk, dv);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -958,12 +1000,7 @@ extern "C" int ditl_flash_bwd_dq_bf16(const void* q, const void* k, const void* 
                                       float scale, void* stream) {
   const Args a{q, k, v, dout, lse, delta, seg, batch, sq, skv, heads, kv_heads,
                causal, scale, static_cast<cudaStream_t>(stream)};
-  switch (head_dim) {
-    case 32: return launch_dq<32>(a, dq);
-    case 64: return launch_dq<64>(a, dq);
-    case 128: return launch_dq<128>(a, dq);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_dq<false>(a, head_dim, dq);
 }
 
 // The same inputs; dk/dv like k. Returns cudaGetLastError() after the launch.
@@ -975,10 +1012,29 @@ extern "C" int ditl_flash_bwd_dkv_bf16(const void* q, const void* k, const void*
                                        int causal, float scale, void* stream) {
   const Args a{q, k, v, dout, lse, delta, seg, batch, sq, skv, heads, kv_heads,
                causal, scale, static_cast<cudaStream_t>(stream)};
-  switch (head_dim) {
-    case 32: return launch_dkv<32>(a, dk, dv);
-    case 64: return launch_dkv<64>(a, dk, dv);
-    case 128: return launch_dkv<128>(a, dk, dv);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_dkv<false>(a, head_dim, dk, dv);
+}
+
+// K2a-f16: as ditl_flash_bwd_dq_bf16 with q, k, v, do and dq float16.
+extern "C" int ditl_flash_bwd_dq_f16(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse,
+                                     const void* delta, const void* seg, void* dq,
+                                     int batch, int sq, int skv, int heads,
+                                     int kv_heads, int head_dim, int causal,
+                                     float scale, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, seg, batch, sq, skv, heads, kv_heads,
+               causal, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch_dq<true>(a, head_dim, dq);
+}
+
+// K2b-f16: as ditl_flash_bwd_dkv_bf16 with q, k, v, do, dk and dv float16.
+extern "C" int ditl_flash_bwd_dkv_f16(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse,
+                                      const void* delta, const void* seg, void* dk,
+                                      void* dv, int batch, int sq, int skv,
+                                      int heads, int kv_heads, int head_dim,
+                                      int causal, float scale, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, seg, batch, sq, skv, heads, kv_heads,
+               causal, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch_dkv<true>(a, head_dim, dk, dv);
 }

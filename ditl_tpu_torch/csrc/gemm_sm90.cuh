@@ -40,6 +40,13 @@
 // in grouped order (raster): kGroup column tiles at a time, the column index
 // fastest, so the blocks in flight share operand rows and columns in L2.
 //
+// The element type is a template parameter (kF16) of the products, the
+// epilogue and the kernels: bf16 (false) or float16 (true), the same wgmma
+// shape with .f16 operands in place of .bf16, the same 2-byte boxes and
+// swizzle, the tensor maps' element type and the epilogue's rounding
+// (hopper.cuh's pack2). The bf16 instances keep their code and bits
+// (chip_smoke.py K5_DIGESTS).
+//
 // Each source that includes this is one translation unit of its own; the
 // helpers sit in an anonymous namespace.
 
@@ -118,48 +125,53 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// m64n256k16, bf16 in, f32 sums d[128]; A and B from shared memory, each
-// K-major (0) or MN-major (1); scale_d = 0 overwrites d.
-template <int kTA, int kTB>
+// m64n256k16, bf16 (or, kF16, float16) in, f32 sums d[128]; A and B from
+// shared memory, each K-major (0) or MN-major (1); scale_d = 0 overwrites d.
+// The asm is a macro of the operand type's name T.
+#define DITL_WGMMA_N256(T)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." T "." T " {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "  \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "  \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "  \
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "  \
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "  \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "  \
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "  \
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "  \
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),  \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),  \
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),  \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),  \
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),  \
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),  \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),  \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),  \
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),  \
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),  \
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),  \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),  \
+        "+f"(d[126]), "+f"(d[127])  \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB))
+
+template <int kTA, int kTB, bool kF16>
 __device__ __forceinline__ void wgmma_n256(float* d, uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, %131, %132;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB));
+  if constexpr (kF16) DITL_WGMMA_N256("f16");
+  else DITL_WGMMA_N256("bf16");
 }
 
 // Descriptor of k-step ks (16 deep) of one operand's boxes in a stage:
@@ -301,10 +313,11 @@ __device__ __forceinline__ int next_tile(const Ring& r) {
   return static_cast<int>(lds32(r.slot()));
 }
 
-// Consumer warpgroup wg: acc = A . B over nk k-tiles. One group of four
-// wgmmas per k-tile stays in flight; a stage is released (one arrival per
-// warp) once the products that read it are done.
-template <bool kMNA, bool kMNB>
+// Consumer warpgroup wg: acc = A . B over nk k-tiles, bf16 (float16 with
+// kF16) operands. One group of four wgmmas per k-tile stays in flight; a
+// stage is released (one arrival per warp) once the products that read it
+// are done.
+template <bool kMNA, bool kMNB, bool kF16 = false>
 __device__ __forceinline__ void consume(Ring& r, int wg, int nk, float* acc) {
   const bool lane0 = (threadIdx.x & 31) == 0;
   int prev = 0;
@@ -314,7 +327,7 @@ __device__ __forceinline__ void consume(Ring& r, int wg, int nk, float* acc) {
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kBK / 16; ++ks) {
-      wgmma_n256<kMNA, kMNB>(acc, desc<kMNA>(a, ks), desc<kMNB>(b, ks), kt > 0 || ks > 0);
+      wgmma_n256<kMNA, kMNB, kF16>(acc, desc<kMNA>(a, ks), desc<kMNB>(b, ks), kt > 0 || ks > 0);
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -383,9 +396,10 @@ struct BoxPos {
   }
 };
 
-// The warpgroup's 64 rows of a tile as bf16, through its two epilogue boxes
-// 128 columns at a time, stored by TMA (the map clips rows and columns
-// past the output's edge).
+// The warpgroup's 64 rows of a tile as bf16 (float16 with kF16), through its
+// two epilogue boxes 128 columns at a time, stored by TMA (the map clips rows
+// and columns past the output's edge).
+template <bool kF16 = false>
 __device__ __forceinline__ void store_acc(const float* acc, const Ring& r, const CUtensorMap* map,
                                           const Tile& t, int wg) {
   const BoxPos pos;
@@ -398,7 +412,7 @@ __device__ __forceinline__ void store_acc(const float* acc, const Ring& r, const
       for (int i = 0; i < 16; ++i) {
         const int c = 16 * half + i;  // column group: columns 8c + 2t, + 1
         sts32(buf + (i / 8) * kBox + pos.at(i % 8, h),
-              pack_bf16(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]));
+              pack2<kF16>(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]));
       }
     }
     wg_publish(wg);
@@ -437,17 +451,20 @@ __device__ __forceinline__ void signal_count(int* count) {
 
 }  // namespace sm90
 
-// (rows, cols) bf16 with row stride ld elements as a 2-D tensor map with
-// 64 x 64 boxes and the 128-byte swizzle; coordinates past the edge read as
-// zeros. ld * 2 must be a multiple of 16 and ptr 16-byte aligned.
+// (rows, cols) bf16 (float16 with f16) with row stride ld elements as a 2-D
+// tensor map with 64 x 64 boxes and the 128-byte swizzle; coordinates past
+// the edge read as zeros. ld * 2 must be a multiple of 16 and ptr 16-byte
+// aligned.
 bool make_map_2d(EncodeTiled encode, CUtensorMap* map, const void* ptr, long rows, long cols,
-                 long ld) {
+                 long ld, bool f16 = false) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {2ull * static_cast<cuuint64_t>(ld)};
   const cuuint32_t box[2] = {64, 64};
   const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUtensorMapDataType type =
+      f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -502,7 +519,8 @@ int launch_prepare(Kernel kernel, bool& prepared) {
 // The roles share nothing; dx_first says which is handed out first. K5b is
 // this with g = dgu, w = w_gu and F = 2F; K6 the attention projections'. kTag
 // only names the instance (5 in mlp_bwd.cu, 6 in projection_bwd.cu), so that
-// a profile tells K5b's launches from K6's.
+// a profile tells K5b's launches from K6's; kF16 picks float16 operands and
+// outputs in place of bf16.
 // ---------------------------------------------------------------------------
 
 namespace sm90 {
@@ -529,7 +547,7 @@ __device__ __forceinline__ Tile proj_tile(const ProjArgs& p, int t) {
   return Tile{1, tm * kBM, tn * kBN, cdiv(p.n, kBK)};
 }
 
-template <int kTag>
+template <int kTag, bool kF16>
 __global__ void __launch_bounds__(kThreads, 1)
 proj_bwd_kernel(const __grid_constant__ ProjMaps m, const ProjArgs p) {
   extern __shared__ uint8_t smem_raw[];
@@ -556,11 +574,11 @@ proj_bwd_kernel(const __grid_constant__ ProjMaps m, const ProjArgs p) {
       if (t < 0) break;
       const Tile tile = proj_tile(p, t);
       if (tile.role == 0) {
-        consume<false, false>(ring, wg, tile.nk, acc);
-        store_acc(acc, ring, &m.dx, tile, wg);
+        consume<false, false, kF16>(ring, wg, tile.nk, acc);
+        store_acc<kF16>(acc, ring, &m.dx, tile, wg);
       } else {
-        consume<true, true>(ring, wg, tile.nk, acc);
-        store_acc(acc, ring, &m.dw, tile, wg);
+        consume<true, true, kF16>(ring, wg, tile.nk, acc);
+        store_acc<kF16>(acc, ring, &m.dw, tile, wg);
       }
     }
   }
@@ -569,10 +587,11 @@ proj_bwd_kernel(const __grid_constant__ ProjMaps m, const ProjArgs p) {
 }  // namespace sm90
 
 // dx (N, D) and dw (D, F), contiguous, from x (N, D) at row stride ld_x, w
-// (D, F) contiguous and g (N, F) at row stride ld_g; sched one zeroed int.
-// D and F multiples of 128, N > 0, every row 16-byte aligned. Returns
-// cudaGetLastError() after the launch (0 = launched).
-template <int kTag>
+// (D, F) contiguous and g (N, F) at row stride ld_g, all bf16 (float16 with
+// kF16); sched one zeroed int. D and F multiples of 128, N > 0, every row
+// 16-byte aligned. Returns cudaGetLastError() after the launch (0 =
+// launched).
+template <int kTag, bool kF16>
 int proj_bwd_launch(const void* x, const void* w, const void* g, void* dx, void* dw, void* sched,
                     long ld_x, long ld_g, int n, int d, int f, bool dx_first,
                     cudaStream_t stream) {
@@ -581,16 +600,19 @@ int proj_bwd_launch(const void* x, const void* w, const void* g, void* dx, void*
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   ProjMaps m;
-  if (!make_map_2d(encode, &m.x, x, n, d, ld_x) || !make_map_2d(encode, &m.g, g, n, f, ld_g) ||
-      !make_map_2d(encode, &m.w, w, d, f, f) || !make_map_2d(encode, &m.dx, dx, n, d, d) ||
-      !make_map_2d(encode, &m.dw, dw, d, f, f)) {
+  if (!make_map_2d(encode, &m.x, x, n, d, ld_x, kF16) ||
+      !make_map_2d(encode, &m.g, g, n, f, ld_g, kF16) ||
+      !make_map_2d(encode, &m.w, w, d, f, f, kF16) ||
+      !make_map_2d(encode, &m.dx, dx, n, d, d, kF16) ||
+      !make_map_2d(encode, &m.dw, dw, d, f, f, kF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ProjArgs a{static_cast<int*>(sched), n, d, f,
                    cdiv(n, kBM) * cdiv(d, kBN) + (d / kBM) * cdiv(f, kBN), dx_first ? 1 : 0};
   static bool prepared = false;
-  if (const int err = launch_prepare(proj_bwd_kernel<kTag>, prepared)) return err;
-  proj_bwd_kernel<kTag><<<std::min(a.tiles, num_sms()), kThreads, kSmemAlloc, stream>>>(m, a);
+  if (const int err = launch_prepare(proj_bwd_kernel<kTag, kF16>, prepared)) return err;
+  proj_bwd_kernel<kTag, kF16>
+      <<<std::min(a.tiles, num_sms()), kThreads, kSmemAlloc, stream>>>(m, a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 // Backward of the fused-gate|up SwiGLU MLP block for Hopper (sm_90a): two
-// persistent kernels on the GEMM core of gemm_sm90.cuh, bf16 in, f32 sums,
-// bf16 out.
+// persistent kernels on the GEMM core of gemm_sm90.cuh, bf16 or float16 in,
+// f32 sums, outputs in the operands' type.
 //
 // Replaces:
 // - K5a ditl_tpu/ops/mlp_bwd.py::_dgu_dwdown_kernel (pallas_call :222):
@@ -77,6 +77,16 @@
 // under autograd of the plain MLP forward (9.0124 ms); the first design
 // took 11.8640 and 15.1822 ms.
 //
+// float16 (K5a-f16 ditl_mlp_bwd_dgu_dwdown_f16, K5b-f16
+// ditl_mlp_bwd_dh_dwgu_f16): the same kernels' kF16 instances (the core's
+// .f16 products, float16 tensor maps, pack2<true> roundings), as the
+// reference's kernels take any float dtype: dgate, dup and inner are rounded
+// to float16 where it casts them to g's dtype (ditl_tpu/ops/mlp_bwd.py
+// :136-138). The epilogue reads gate and up through unpack_lo/unpack_hi: a
+// float16 value is not the top half of an f32, so the bf16 instance's bit
+// shifts would read garbage there; float16 takes __half2float of each half.
+// The bf16 instances keep their code and bits (K5_DIGESTS).
+//
 // ditl_gemm_sm90_bf16 exposes the core alone (C = A . B, either operand
 // K-major or MN-major) for the card tests of its four operand layouts.
 //
@@ -91,11 +101,23 @@ namespace {
 
 using namespace sm90;
 
-__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+// The low and high halves of a register of two bf16 (float16 with kF16)
+// values, in f32. A bf16 is the top half of its f32; a float16 is not, and
+// converts by __half2float.
+template <bool kF16>
+__device__ __forceinline__ float unpack_lo(uint32_t x) {
+  if constexpr (kF16) return __half2float(__ushort_as_half(static_cast<uint16_t>(x & 0xffffu)));
+  else return __uint_as_float(x << 16);
+}
+
+template <bool kF16>
+__device__ __forceinline__ float unpack_hi(uint32_t x) {
+  if constexpr (kF16) return __half2float(__ushort_as_half(static_cast<uint16_t>(x >> 16)));
+  else return __uint_as_float(x & 0xffff0000u);
+}
 
 // sigmoid in f32. Fast exponent and an exact reciprocal: inputs that are
-// bf16 values, outputs rounded to bf16 by every caller.
+// bf16 (float16) values, outputs rounded to bf16 (float16) by every caller.
 __device__ __forceinline__ float sigmoidf_(float x) { return __frcp_rn(1.f + __expf(-x)); }
 
 // ---------------------------------------------------------------------------
@@ -168,6 +190,7 @@ __device__ __forceinline__ void produce_gate_up(Ring& r, const DguMaps& m, const
 // in place over gate and up, inner into the box after them, and the three
 // stored by TMA (the maps clip rows past N and columns past F). The tile's
 // coordinates are decoded again where needed: registers are scarce here.
+template <bool kF16>
 __device__ __forceinline__ void swiglu_epilogue(Ring& r, const float* acc, const DguMaps& m,
                                                 const DguArgs& p, int t, int wg) {
   constexpr int kBatch = 4;
@@ -197,8 +220,8 @@ __device__ __forceinline__ void swiglu_epilogue(Ring& r, const float* acc, const
         float dgate[2], dup[2], inr[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float gate = e ? bf16_hi(gv[b]) : bf16_lo(gv[b]);
-          const float up = e ? bf16_hi(uv[b]) : bf16_lo(uv[b]);
+          const float gate = e ? unpack_hi<kF16>(gv[b]) : unpack_lo<kF16>(gv[b]);
+          const float up = e ? unpack_hi<kF16>(uv[b]) : unpack_lo<kF16>(uv[b]);
           const float dinner = acc[4 * (8 * cb + j) + 2 * h + e];
           const float sg = sigmoidf_(gate);
           const float silu = gate * sg;
@@ -206,9 +229,9 @@ __device__ __forceinline__ void swiglu_epilogue(Ring& r, const float* acc, const
           dup[e] = dinner * silu;
           inr[e] = silu * up;
         }
-        sts32(at, pack_bf16(dgate[0], dgate[1]));
-        sts32(at + kBox, pack_bf16(dup[0], dup[1]));
-        sts32(at + 2 * kBox, pack_bf16(inr[0], inr[1]));
+        sts32(at, pack2<kF16>(dgate[0], dgate[1]));
+        sts32(at + kBox, pack2<kF16>(dup[0], dup[1]));
+        sts32(at + 2 * kBox, pack2<kF16>(inr[0], inr[1]));
       }
     }
     wg_publish(wg);
@@ -227,6 +250,7 @@ __device__ __forceinline__ void swiglu_epilogue(Ring& r, const float* acc, const
   }
 }
 
+template <bool kF16>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_dgu_dwdown_kernel(const __grid_constant__ DguMaps m, const DguArgs p) {
   extern __shared__ uint8_t smem_raw[];
@@ -265,12 +289,12 @@ mlp_dgu_dwdown_kernel(const __grid_constant__ DguMaps m, const DguArgs p) {
       if (t < 0) break;
       const Tile tile = dgu_tile(p, t);
       if (tile.role == 0) {
-        consume<false, false>(ring, wg, tile.nk, acc);
-        swiglu_epilogue(ring, acc, m, p, t, wg);
+        consume<false, false, kF16>(ring, wg, tile.nk, acc);
+        swiglu_epilogue<kF16>(ring, acc, m, p, t, wg);
         if ((threadIdx.x & 127) == 0) signal_count(p.sched + 1 + dgu_tile(p, t).n0 / kBN);
       } else {
-        consume<true, true>(ring, wg, tile.nk, acc);
-        store_acc(acc, ring, &m.d_w_down, tile, wg);
+        consume<true, true, kF16>(ring, wg, tile.nk, acc);
+        store_acc<kF16>(acc, ring, &m.d_w_down, tile, wg);
       }
     }
   }
@@ -333,41 +357,61 @@ int launch_gemm(const GemmMaps& m, const GemmArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
 
-// K5a. g (N, D) row stride ld_g; w_down (F, D) contiguous; gate/up (N, F)
-// with row stride ld_gu, up at gate + up_off elements; dgu (N, 2F) and
-// d_w_down (F, D) contiguous outputs; inner an (N, F) scratch; sched
-// 1 + ceil(F / 256) zeroed ints. D and F multiples of 128, every row
-// 16-byte aligned. Returns cudaGetLastError() after the launch (0 =
-// launched).
-extern "C" int ditl_mlp_bwd_dgu_dwdown_bf16(const void* g, const void* w_down,
-                                            const void* gate, void* dgu, void* d_w_down,
-                                            void* inner, void* sched, long ld_g, long ld_gu,
-                                            long up_off, int n, int d, int f, void* stream) {
+// K5a's launch on bf16 (float16 with kF16) operands; the arguments of the
+// entry points below.
+template <bool kF16>
+int dgu_launch(const void* g, const void* w_down, const void* gate, void* dgu, void* d_w_down,
+               void* inner, void* sched, long ld_g, long ld_gu, long up_off, int n, int d,
+               int f, cudaStream_t stream) {
   if (n <= 0 || d % kBM || f % kBM) return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const uint16_t* up = static_cast<const uint16_t*>(gate) + up_off;
   uint16_t* dup = static_cast<uint16_t*>(dgu) + f;
   DguMaps m;
-  if (!make_map_2d(encode, &m.g, g, n, d, ld_g) ||
-      !make_map_2d(encode, &m.w_down, w_down, f, d, d) ||
-      !make_map_2d(encode, &m.inner, inner, n, f, f) ||
-      !make_map_2d(encode, &m.gate, gate, n, f, ld_gu) ||
-      !make_map_2d(encode, &m.up, up, n, f, ld_gu) ||
-      !make_map_2d(encode, &m.dgate, dgu, n, f, 2L * f) ||
-      !make_map_2d(encode, &m.dup, dup, n, f, 2L * f) ||
-      !make_map_2d(encode, &m.d_w_down, d_w_down, f, d, d)) {
+  if (!make_map_2d(encode, &m.g, g, n, d, ld_g, kF16) ||
+      !make_map_2d(encode, &m.w_down, w_down, f, d, d, kF16) ||
+      !make_map_2d(encode, &m.inner, inner, n, f, f, kF16) ||
+      !make_map_2d(encode, &m.gate, gate, n, f, ld_gu, kF16) ||
+      !make_map_2d(encode, &m.up, up, n, f, ld_gu, kF16) ||
+      !make_map_2d(encode, &m.dgate, dgu, n, f, 2L * f, kF16) ||
+      !make_map_2d(encode, &m.dup, dup, n, f, 2L * f, kF16) ||
+      !make_map_2d(encode, &m.d_w_down, d_w_down, f, d, d, kF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DguArgs a{static_cast<int*>(sched), n, d, f,
                   cdiv(n, kBM) * cdiv(f, kBN) + (f / kBM) * cdiv(d, kBN)};
   static bool prepared = false;
-  if (const int err = launch_prepare(mlp_dgu_dwdown_kernel, prepared)) return err;
-  mlp_dgu_dwdown_kernel<<<std::min(a.tiles, num_sms()), kThreads, kSmemAlloc,
-                          static_cast<cudaStream_t>(stream)>>>(m, a);
+  if (const int err = launch_prepare(mlp_dgu_dwdown_kernel<kF16>, prepared)) return err;
+  mlp_dgu_dwdown_kernel<kF16><<<std::min(a.tiles, num_sms()), kThreads, kSmemAlloc, stream>>>(
+      m, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K5a. g (N, D) row stride ld_g; w_down (F, D) contiguous; gate/up (N, F)
+// with row stride ld_gu, up at gate + up_off elements; dgu (N, 2F) and
+// d_w_down (F, D) contiguous outputs; inner an (N, F) scratch; sched
+// 1 + ceil(F / 256) zeroed ints; all bf16. D and F multiples of 128, every
+// row 16-byte aligned. Returns cudaGetLastError() after the launch (0 =
+// launched).
+extern "C" int ditl_mlp_bwd_dgu_dwdown_bf16(const void* g, const void* w_down,
+                                            const void* gate, void* dgu, void* d_w_down,
+                                            void* inner, void* sched, long ld_g, long ld_gu,
+                                            long up_off, int n, int d, int f, void* stream) {
+  return dgu_launch<false>(g, w_down, gate, dgu, d_w_down, inner, sched, ld_g, ld_gu, up_off,
+                           n, d, f, static_cast<cudaStream_t>(stream));
+}
+
+// K5a-f16: as ditl_mlp_bwd_dgu_dwdown_bf16 with every tensor float16.
+extern "C" int ditl_mlp_bwd_dgu_dwdown_f16(const void* g, const void* w_down,
+                                           const void* gate, void* dgu, void* d_w_down,
+                                           void* inner, void* sched, long ld_g, long ld_gu,
+                                           long up_off, int n, int d, int f, void* stream) {
+  return dgu_launch<true>(g, w_down, gate, dgu, d_w_down, inner, sched, ld_g, ld_gu, up_off,
+                          n, d, f, static_cast<cudaStream_t>(stream));
 }
 
 // K5b. h (N, D) row stride ld_h; dgu (N, 2F) and w_gu (D, 2F) contiguous;
@@ -377,8 +421,16 @@ extern "C" int ditl_mlp_bwd_dgu_dwdown_bf16(const void* g, const void* w_down,
 extern "C" int ditl_mlp_bwd_dh_dwgu_bf16(const void* h, const void* dgu, const void* w_gu,
                                          void* dh, void* d_w_gu, void* sched, long ld_h, int n,
                                          int d, int f, void* stream) {
-  return proj_bwd_launch<5>(h, w_gu, dgu, dh, d_w_gu, sched, ld_h, 2L * f, n, d, 2 * f, true,
-                            static_cast<cudaStream_t>(stream));
+  return proj_bwd_launch<5, false>(h, w_gu, dgu, dh, d_w_gu, sched, ld_h, 2L * f, n, d, 2 * f,
+                                   true, static_cast<cudaStream_t>(stream));
+}
+
+// K5b-f16: as ditl_mlp_bwd_dh_dwgu_bf16 with every tensor float16.
+extern "C" int ditl_mlp_bwd_dh_dwgu_f16(const void* h, const void* dgu, const void* w_gu,
+                                        void* dh, void* d_w_gu, void* sched, long ld_h, int n,
+                                        int d, int f, void* stream) {
+  return proj_bwd_launch<5, true>(h, w_gu, dgu, dh, d_w_gu, sched, ld_h, 2L * f, n, d, 2 * f,
+                                  true, static_cast<cudaStream_t>(stream));
 }
 
 // The GEMM core alone: C (M, N) = A . B with f32 sums, C contiguous bf16.

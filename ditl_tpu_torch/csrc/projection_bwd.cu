@@ -1,6 +1,6 @@
 // Backward of a dense projection out = x . w for Hopper (sm_90a): one
-// persistent kernel on the GEMM core of gemm_sm90.cuh, bf16 in, f32 sums,
-// bf16 out.
+// persistent kernel on the GEMM core of gemm_sm90.cuh, bf16 or float16 in,
+// f32 sums, outputs in the operands' type.
 //
 // Replaces K6 ditl_tpu/ops/projection.py::_bwd_kernel (pallas_call :121):
 // dx = g . w^T and dw = x^T . g, for the attention projections wq, wk, wv,
@@ -27,6 +27,9 @@
 //   F >= N; at the training shape dw, over 8192 tokens, against F = 4096 or
 //   1024), so that its long tiles do not form a ragged tail at the end.
 //   chip_smoke.py times both orders at both shapes.
+// - float16 (K6-f16, ditl_proj_bwd_f16): the kernel's kF16 instance,
+//   proj_bwd_kernel<6, true> (the core's .f16 products, float16 tensor maps
+//   and roundings), as the reference's kernel takes any float dtype.
 // - x and g take row strides (g may be a column slice of a fused
 //   projection's gradient) through their tensor maps. D and F are multiples
 //   of 128 (ops/projection.py::supports), N a multiple of 16: TMA fills rows
@@ -41,11 +44,19 @@
 // K6. x (N, D) row stride ld_x; w (D, F) contiguous; g (N, F) row stride
 // ld_g; dx (N, D) and dw (D, F) contiguous outputs; sched one zeroed int;
 // dx_first != 0 hands out every dx tile before any dw tile, 0 the reverse.
-// D and F multiples of 128. Returns cudaGetLastError() after the launch (0 =
-// launched).
+// D and F multiples of 128; all bf16. Returns cudaGetLastError() after the
+// launch (0 = launched).
 extern "C" int ditl_proj_bwd_bf16(const void* x, const void* w, const void* g, void* dx,
                                   void* dw, void* sched, long ld_x, long ld_g, int n, int d,
                                   int f, int dx_first, void* stream) {
-  return proj_bwd_launch<6>(x, w, g, dx, dw, sched, ld_x, ld_g, n, d, f, dx_first != 0,
-                            static_cast<cudaStream_t>(stream));
+  return proj_bwd_launch<6, false>(x, w, g, dx, dw, sched, ld_x, ld_g, n, d, f, dx_first != 0,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// K6-f16: as ditl_proj_bwd_bf16 with every tensor float16.
+extern "C" int ditl_proj_bwd_f16(const void* x, const void* w, const void* g, void* dx,
+                                 void* dw, void* sched, long ld_x, long ld_g, int n, int d,
+                                 int f, int dx_first, void* stream) {
+  return proj_bwd_launch<6, true>(x, w, g, dx, dw, sched, ld_x, ld_g, n, d, f, dx_first != 0,
+                                  static_cast<cudaStream_t>(stream));
 }

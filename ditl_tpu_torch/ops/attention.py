@@ -6,8 +6,14 @@ are f32 whatever the input dtype.
 
 - ``"xla"``: ``_xla_attention``, plain PyTorch (the name is kept so a reader
   finds the counterpart).
-- ``"flash"``: the CUDA flash-attention kernel (``ops/flash_attention.py``).
-  The port's kernel takes every shape, so there is no shape fallback.
+- ``"flash"``: the CUDA flash-attention kernel (``ops/flash_attention.py``)
+  where the reference runs its Pallas kernel: ``flash_attention.supports``
+  must hold for the forward's and the backward's blocks (both 512, the
+  reference's defaults, since the port's ``ModelConfig`` has no
+  ``flash_block_*`` fields). Other shapes (D = 32, sequences that do not
+  tile, such as the lock-step engine's buckets of 16-64) take
+  ``_xla_attention``, as in the reference, although the port's kernels
+  take D = 32 and any sequence length on a direct call.
 - The explicit-mask path (KV-cache decode) is ``_xla_attention`` for every
   impl, as in the reference; over an int8 cache it takes the raw int8 K/V
   with ``k_scale``/``v_scale`` (B, Skv, K) and factors the scales out of
@@ -20,9 +26,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["dot_product_attention", "NEG_INF"]
+__all__ = ["dot_product_attention", "NEG_INF", "FLASH_BLOCK"]
 
 NEG_INF = -2.3819763e38  # most negative bf16-representable; avoids bf16 NaNs
+# The reference's default flash blocks (ditl_tpu/ops/attention.py): forward
+# and backward (block_q, block_kv) alike.
+FLASH_BLOCK = 512
 
 
 def _xla_attention(
@@ -95,9 +104,14 @@ def dot_product_attention(
     if impl == "xla":
         return _xla_attention(q, k, v, causal=causal, segment_ids=segment_ids)
     if impl == "flash":
-        from ditl_tpu_torch.ops.flash_attention import flash_attention
+        from ditl_tpu_torch.ops import flash_attention as fa
 
-        return flash_attention(q, k, v, causal=causal, segment_ids=segment_ids)
+        s_q, s_kv, d = q.shape[1], k.shape[1], q.shape[3]
+        # The reference's blocks: forward (512, 512) and backward (0, 0),
+        # which falls back to the forward's.
+        if not fa.supports(s_q, s_kv, d, FLASH_BLOCK, FLASH_BLOCK):
+            return _xla_attention(q, k, v, causal=causal, segment_ids=segment_ids)
+        return fa.flash_attention(q, k, v, causal=causal, segment_ids=segment_ids)
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention impl {impl!r} needs the multi-GPU slice of the port "

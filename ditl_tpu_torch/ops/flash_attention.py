@@ -8,7 +8,9 @@ Hopper:
   and, on float16 operands, ``ditl_flash_fwd_f16`` (K1-f16, the same
   kernel's float16 instance);
 - K2a (``ditl_flash_bwd_dq_bf16``) and K2b (``ditl_flash_bwd_dkv_bf16``) in
-  ``csrc/flash_bwd.cu`` replace ``_dq_kernel`` and ``_dkv_kernel``;
+  ``csrc/flash_bwd.cu`` replace ``_dq_kernel`` and ``_dkv_kernel``, and on
+  float16 operands ``ditl_flash_bwd_dq_f16`` / ``ditl_flash_bwd_dkv_f16``
+  (K2a-f16, K2b-f16, the same kernels' float16 instances);
 - on float32 operands, K1-f32, K2a-f32 and K2b-f32 in ``csrc/flash_f32.cu``
   (``ditl_flash_fwd_f32``, ``ditl_flash_bwd_dq_f32``,
   ``ditl_flash_bwd_dkv_f32``) replace the same three kernels, which the
@@ -16,15 +18,21 @@ Hopper:
 
 - ``kernel_route`` is the one rule for which entry point a CUDA call takes,
   from (dtype, head_dim, the forward or one of the backward's two
-  kernels): bf16 at D in ``HEAD_DIMS`` all three, float16 at D in
-  ``HEAD_DIMS`` the forward, f32 at D in ``F32_HEAD_DIMS`` all three;
-  anything else (a float16 backward, D = 256) raises
+  kernels): bf16 and float16 at D in ``HEAD_DIMS`` all three, f32 at D in
+  ``F32_HEAD_DIMS`` all three; anything else (D = 256) raises
   ``NotImplementedError`` naming ROADMAP.md §2.
+- ``supports`` and ``_pick_blocks`` are the reference's, copied (with its
+  ``NUM_LANES``/``NUM_SUBLANES``): the shapes for which the reference's
+  ``dot_product_attention(impl="flash")`` runs its kernel at all.
+  ``ops/attention.py`` takes the same rule, so both packages send the same
+  shapes to the kernels and the rest to plain attention; the kernels
+  themselves take more (D = 32, any sequence length) on a direct call.
 - ``flash_attention_fwd`` / ``flash_attention_bwd`` are the wrappers: they
   check their inputs and, for CUDA tensors, launch the kernels or raise.
   Only for CPU tensors do they run ``flash_attention_plain`` /
   ``flash_attention_bwd_plain``. ``launches``, ``launches_dq`` and
-  ``launches_dkv`` count the bf16 kernels' launches, ``launches_f16`` K1-f16's,
+  ``launches_dkv`` count the bf16 kernels' launches, ``launches_f16``,
+  ``launches_dq_f16`` and ``launches_dkv_f16`` the float16 ones',
   ``launches_f32``, ``launches_dq_f32`` and ``launches_dkv_f32`` the f32
   ones'.
 - ``flash_attention_plain`` computes what ``_fwd_kernel`` computes, in one
@@ -34,8 +42,10 @@ Hopper:
 - ``flash_attention_bwd_plain`` computes the reference backward's formulas
   (``_bwd_impl``) in one pass, in f32: p = exp(s - lse) from the saved lse,
   delta = rowsum(do * o), ds = p (do.v^T - delta), dq = scale ds.k,
-  dk = ds^T.(scale q), dv = p^T.do, GQA summed over the group. It is not
-  autograd of the plain forward.
+  dk = ds^T.(scale q), dv = p^T.do, GQA summed over the group, p and ds
+  kept in f32 as the reference keeps them (the kernels round them to the
+  operands' dtype for their tensor-core products); the gradients in the
+  operands' dtype. It is not autograd of the plain forward.
 - ``tile_schedule`` is the kernels' rule for which (query tile, key tile)
   pairs they visit (causal diagonal and segment-id ranges), as a boolean
   map, at K1's, K2a's or K2b's tiling; the CPU tests hold that it covers
@@ -53,6 +63,8 @@ lane-replicated copy without the lanes).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
+
 import torch
 
 from ditl_tpu_torch.ops.attention import NEG_INF
@@ -61,9 +73,41 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain", "tile_schedule",
            "fwd_block_kv", "FWD_BLOCK_Q", "FWD_WARPGROUP_ROWS", "BWD_DQ_BLOCK_Q",
            "BWD_DKV_BLOCK_KV", "BWD_DKV_BLOCK_Q", "BWD_DKV_WARPGROUP_KEYS", "HEAD_DIMS",
-           "F32_HEAD_DIMS", "F32_BLOCK", "F32_MAX_SEQ", "kernel_route", "launches",
-           "launches_dq", "launches_dkv", "launches_f16", "launches_f32", "launches_dq_f32",
+           "F32_HEAD_DIMS", "F32_BLOCK", "F32_MAX_SEQ", "kernel_route", "supports",
+           "BlockSizes", "launches", "launches_dq", "launches_dkv", "launches_f16",
+           "launches_dq_f16", "launches_dkv_f16", "launches_f32", "launches_dq_f32",
            "launches_dkv_f32", "reset_launches"]
+
+# The reference's tiling rule (ditl_tpu/ops/flash_attention.py): its kernel
+# tiles (block_q, block_kv) blocks of (8, 128)-tiled vregs.
+NUM_LANES = 128
+NUM_SUBLANES = 8
+
+
+class BlockSizes(NamedTuple):
+    block_q: int
+    block_kv: int
+
+
+def _pick_blocks(s_q: int, s_kv: int, block_q: int, block_kv: int) -> BlockSizes:
+    return BlockSizes(min(block_q, s_q), min(block_kv, s_kv))
+
+
+def supports(s_q: int, s_kv: int, head_dim: int, block_q: int = 512,
+             block_kv: int = 512) -> bool:
+    """True if the reference's kernel takes these shapes (its callers fall
+    back to plain attention otherwise): blocks that tile both sequences,
+    key blocks a multiple of 128 and query blocks of 8, and D = 64 or a
+    multiple of 128."""
+    bq, bkv = _pick_blocks(s_q, s_kv, block_q, block_kv)
+    return (
+        s_q % bq == 0
+        and s_kv % bkv == 0
+        and bkv % NUM_LANES == 0
+        and bq % NUM_SUBLANES == 0
+        and (head_dim == 64 or head_dim % NUM_LANES == 0)
+    )
+
 
 HEAD_DIMS = (32, 64, 128)  # the bf16 and float16 kernels' template instances
 # The f32 kernels' instances: the reference's own head dims below 256
@@ -98,12 +142,13 @@ def fwd_block_kv(head_dim: int) -> int:
     return 128 if head_dim == 32 else 64
 
 # Kernel launches since the last reset_launches(); counted where each kernel
-# is launched and nowhere else: K1, K2a, K2b on bf16, K1 on float16, and K1,
-# K2a, K2b on f32.
+# is launched and nowhere else: K1, K2a, K2b on bf16, on float16 and on f32.
 launches = 0
 launches_dq = 0
 launches_dkv = 0
 launches_f16 = 0
+launches_dq_f16 = 0
+launches_dkv_f16 = 0
 launches_f32 = 0
 launches_dq_f32 = 0
 launches_dkv_f32 = 0
@@ -119,6 +164,8 @@ _ENTRIES = {
     (torch.bfloat16, "dq"): ("flash_bwd.cu", "ditl_flash_bwd_dq_bf16", "launches_dq"),
     (torch.bfloat16, "dkv"): ("flash_bwd.cu", "ditl_flash_bwd_dkv_bf16", "launches_dkv"),
     (torch.float16, "fwd"): ("flash_fwd.cu", "ditl_flash_fwd_f16", "launches_f16"),
+    (torch.float16, "dq"): ("flash_bwd.cu", "ditl_flash_bwd_dq_f16", "launches_dq_f16"),
+    (torch.float16, "dkv"): ("flash_bwd.cu", "ditl_flash_bwd_dkv_f16", "launches_dkv_f16"),
     (torch.float32, "fwd"): ("flash_f32.cu", "ditl_flash_fwd_f32", "launches_f32"),
     (torch.float32, "dq"): ("flash_f32.cu", "ditl_flash_bwd_dq_f32", "launches_dq_f32"),
     (torch.float32, "dkv"): ("flash_f32.cu", "ditl_flash_bwd_dkv_f32", "launches_dkv_f32"),
@@ -135,10 +182,9 @@ def kernel_route(dtype: torch.dtype, head_dim: int, kind: str = "fwd") -> tuple[
     """The entry point a CUDA call of ``kind`` ("fwd": K1; "dq", "dkv": the
     backward's K2a, K2b) on ``dtype`` operands at ``head_dim`` takes, as
     (source in ``csrc/``, symbol): bf16 and float16 at D in ``HEAD_DIMS``
-    (csrc/flash_fwd.cu, csrc/flash_bwd.cu; float16 the forward only), f32 at
-    D in ``F32_HEAD_DIMS`` (csrc/flash_f32.cu). The rest, which the
-    reference computes (the float16 backward, D = 256), raises
-    ``NotImplementedError`` naming ROADMAP.md §2."""
+    (csrc/flash_fwd.cu, csrc/flash_bwd.cu), f32 at D in ``F32_HEAD_DIMS``
+    (csrc/flash_f32.cu). The rest, which the reference computes (D = 256),
+    raises ``NotImplementedError`` naming ROADMAP.md §2."""
     if kind not in _PTRS:
         raise ValueError(f"kind must be one of {tuple(_PTRS)}, got {kind!r}")
     if dtype not in _DIMS:
@@ -149,11 +195,6 @@ def kernel_route(dtype: torch.dtype, head_dim: int, kind: str = "fwd") -> tuple[
         raise NotImplementedError(
             f"the CUDA flash kernels take {dtype} at head_dim in {_DIMS[dtype]}, got "
             f"head_dim {head_dim}: not ported yet (ROADMAP.md §2; attention_impl='xla' "
-            "runs it)")
-    if (dtype, kind) not in _ENTRIES:
-        raise NotImplementedError(
-            f"the CUDA flash backward ({kind}) on {dtype} is not ported yet: the "
-            "float16 backward is the next slice (ROADMAP.md §2; attention_impl='xla' "
             "runs it)")
     return _ENTRIES[(dtype, kind)][:2]
 
@@ -313,7 +354,9 @@ def flash_attention_fwd(
     segment_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(o, lse). CUDA tensors launch K1, K1-f16 or K1-f32 (``kernel_route``;
-    contiguous) or raise; CPU tensors run the plain version."""
+    contiguous) or raise; CPU tensors run the plain version. Takes every
+    shape the kernels take (``supports`` is the model's rule for calling
+    it, not this wrapper's)."""
     _check(q, k, v, segment_ids)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
@@ -387,9 +430,10 @@ def flash_attention_bwd(
     segment_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's inputs, its o and lse, and the
-    output's gradient ``do``. CUDA tensors launch K2a then K2b, or their f32
-    forms (``kernel_route``; contiguous), or raise (float16 among them);
-    CPU tensors run the plain version."""
+    output's gradient ``do``. CUDA tensors launch K2a then K2b, or their
+    float16 or f32 forms (``kernel_route``; contiguous), or raise; float16
+    runs them on ``do`` rescaled by an exact power of two (see below). CPU
+    tensors run the plain version."""
     _check(q, k, v, segment_ids)
     b, s_q, h, d = q.shape
     s_kv, kv_heads = k.shape[1], k.shape[2]
@@ -404,6 +448,18 @@ def flash_attention_bwd(
                                                  o=o, do=do)
     if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError("lse must be contiguous float32 on q's device")
+    unscale = None
+    if q.dtype == torch.float16:
+        # float16 lacks f32's range: a float16 training step's output
+        # gradients lie among its subnormals, where the kernels' float16
+        # rounding of dS for their second products (the reference keeps dS
+        # in f32) would lose them. An exact power of two brings do's largest
+        # magnitude into (2^-5, 2^-4]; every gradient, and delta, is linear
+        # in do, so the kernels run on the rescaled do and their outputs are
+        # multiplied back in f32 before their rounding to float16.
+        peak = do.abs().amax().float().clamp_min(2.0**-24)
+        unscale = torch.exp2(torch.ceil(torch.log2(peak)) + 4)
+        do = (do.float() / unscale).to(q.dtype)
     # delta = rowsum(do * o) in f32, outside the kernels as in the reference
     # (the product upcasts o itself: one f32 copy fewer, the same values).
     delta = (do.float() * o).sum(-1).transpose(1, 2).contiguous()
@@ -418,6 +474,8 @@ def flash_attention_bwd(
         sizes = (b, s_q, s_kv, h, kv_heads, d, int(causal), d**-0.5, stream)
         _count(q.dtype, "dq", dq_fn(*common, dq.data_ptr(), *sizes))
         _count(q.dtype, "dkv", dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes))
+    if unscale is not None:
+        dq, dk, dv = ((t.float() * unscale).to(t.dtype) for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -17,7 +17,17 @@ the same exact products come from f32 copies of the operands. The block's
 f32 gradient of the logits is rounded to the compute dtype before the two
 backward products (the reference feeds it unrounded to the transpose of its
 f32-output product): a bf16 rounding of the logits' gradient, stated as the
-loss-gradient tolerance in the tests. With f32 compute nothing is rounded.
+loss-gradient tolerance in the tests. float16 lacks f32's exponent range:
+the softmax part of that gradient, about ``g / V`` (8e-10 at qwen2-0.5b's
+vocabulary and 8192 tokens), lies below its least subnormal (6e-8) and would
+round to 0, where the reference keeps it. So the block's gradient is
+multiplied by an exact power of two before the rounding (its largest
+magnitude, at most ``|g|``, brought to 2^14 or below) and the two products'
+f32 outputs are divided by it: the reference's values to float16's relative
+precision, not a loss scale (nothing outside this op sees it). Every dtype
+takes that path: for bf16 and f32, whose range holds the gradient anyway,
+multiplying by a power of two and dividing by it again is exact. With f32
+compute nothing is rounded.
 This is a plain matmul outside any Pallas kernel, so PyTorch's matmul
 computes it.
 """
@@ -61,6 +71,9 @@ class _FusedCE(torch.autograd.Function):
         x, head, targets, mask, lse_all = ctx.saved_tensors
         block, cd = ctx.block, ctx.compute_dtype
         hc = head.to(cd)
+        # An exact power of two that brings |g|, the bound of every element
+        # of a block's gradient, to at most 2^14 (see the module note).
+        scale = torch.exp2(torch.floor(torch.log2(16384.0 / g.float().abs().clamp_min(1e-30))))
         dx = torch.empty_like(x)
         dhead = torch.zeros(head.shape, dtype=torch.float32, device=head.device)
         for s in range(0, x.shape[0], block):
@@ -70,11 +83,11 @@ class _FusedCE(torch.autograd.Function):
             p = torch.exp_(_mm_f32(xb, hc).sub_(lse_all[s:s + block, None]))
             rows = torch.arange(p.shape[0], device=p.device)
             p[rows, targets[s:s + block]] -= 1.0
-            p.mul_((mask[s:s + block] * g)[:, None])
+            p.mul_((mask[s:s + block] * g * scale)[:, None])
             dlog = p.to(cd)
             del p
-            dx[s:s + block] = _mm_f32(dlog, hc.t()).to(x.dtype)
-            dhead += _mm_f32(xb.t(), dlog)
+            dx[s:s + block] = _mm_f32(dlog, hc.t()).div_(scale).to(x.dtype)
+            dhead += _mm_f32(xb.t(), dlog).div_(scale)
             del dlog
         return dx, dhead.to(head.dtype), None, None, None, None
 

@@ -14,6 +14,10 @@ fed by TMA, ``csrc/gemm_sm90.cuh``):
 - K5b (``ditl_mlp_bwd_dh_dwgu_bf16``) replaces ``_dh_dwgu_kernel``:
   ``dh = dgu . w_gu^T`` and ``d_w_gu = h^T . dgu`` from that buffer.
 
+On float16 operands the same kernels' float16 instances run (K5a-f16
+``ditl_mlp_bwd_dgu_dwdown_f16``, K5b-f16 ``ditl_mlp_bwd_dh_dwgu_f16``, the
+same source), counted in ``launches_dgu_f16`` and ``launches_dh_f16``.
+
 ``fused_mlp_bwd`` is the wrapper: for CUDA tensors it launches K5a then K5b
 (``dgu_dwdown`` and ``dh_dwgu``, one launch each) or raises; only for CPU
 tensors does it run ``fused_mlp_bwd_plain``. ``launches_dgu`` and
@@ -48,10 +52,11 @@ import torch
 
 __all__ = ["fused_mlp_bwd", "fused_mlp_bwd_plain", "dgu_dwdown", "dgu_dwdown_plain",
            "dh_dwgu", "dh_dwgu_plain", "supports", "BlockSizes", "DEFAULT_BLOCKS",
-           "launches_dgu", "launches_dh", "launches_dgu_f32", "launches_dh_f32",
-           "reset_launches", "kernel_route", "Route", "f32_weight_splits", "K5_BLOCK_M",
-           "K5_BLOCK_N", "K5_BLOCK_K", "K5_GROUP", "F32_BLOCK", "F32_BLOCK_K",
-           "F32_MAX_SPLITS", "k5_tile_order", "gemm_core", "gemm_core_plain"]
+           "launches_dgu", "launches_dh", "launches_dgu_f16", "launches_dh_f16",
+           "launches_dgu_f32", "launches_dh_f32", "reset_launches", "kernel_route", "Route",
+           "f32_weight_splits", "K5_BLOCK_M", "K5_BLOCK_N", "K5_BLOCK_K", "K5_GROUP",
+           "F32_BLOCK", "F32_BLOCK_K", "F32_MAX_SPLITS", "k5_tile_order", "gemm_core",
+           "gemm_core_plain"]
 
 NUM_LANES = 128
 NUM_SUBLANES = 16  # bf16-safe sublane multiple (f32 needs only 8)
@@ -82,12 +87,16 @@ F32_MAX_SPLITS = 16
 CARD_SMS = 132  # H100 SXM: a constant, so the split (and the bits) never vary
 
 # Kernel launches since the last reset_launches(); counted where each kernel
-# is launched and nowhere else: K5a, K5b on bf16, and on f32 (one count a
-# wrapper call).
+# is launched and nowhere else: K5a, K5b on bf16, on float16, and on f32
+# (one count a wrapper call).
 launches_dgu = 0
 launches_dh = 0
+launches_dgu_f16 = 0
+launches_dh_f16 = 0
 launches_dgu_f32 = 0
 launches_dh_f32 = 0
+# dtype -> the suffix of its launch counters.
+_COUNTER_SFX = {torch.bfloat16: "", torch.float16: "_f16", torch.float32: "_f32"}
 
 _fns: dict[str, ctypes._CFuncPtr] = {}
 # Argument types of each entry point of K5 and K6 (ops/projection.py loads
@@ -97,6 +106,10 @@ _ARGS = {
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "ditl_mlp_bwd_dh_dwgu_bf16": [ctypes.c_void_p] * 6 + [ctypes.c_long]
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "ditl_mlp_bwd_dgu_dwdown_f16": [ctypes.c_void_p] * 7 + [ctypes.c_long] * 3
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "ditl_mlp_bwd_dh_dwgu_f16": [ctypes.c_void_p] * 6 + [ctypes.c_long]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "ditl_gemm_sm90_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_long] * 2
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "ditl_mlp_bwd_dgu_dwdown_f32": [ctypes.c_void_p] * 7 + [ctypes.c_long] * 3
@@ -105,14 +118,16 @@ _ARGS = {
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "ditl_proj_bwd_bf16": [ctypes.c_void_p] * 6 + [ctypes.c_long] * 2
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "ditl_proj_bwd_f16": [ctypes.c_void_p] * 6 + [ctypes.c_long] * 2
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "ditl_proj_bwd_f32": [ctypes.c_void_p] * 6 + [ctypes.c_long] * 2
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 
 
 def reset_launches() -> None:
-    global launches_dgu, launches_dh, launches_dgu_f32, launches_dh_f32
-    launches_dgu = launches_dh = launches_dgu_f32 = launches_dh_f32 = 0
+    for sfx in _COUNTER_SFX.values():
+        globals()["launches_dgu" + sfx] = globals()["launches_dh" + sfx] = 0
 
 
 class Route(NamedTuple):
@@ -124,16 +139,18 @@ class Route(NamedTuple):
 
 
 def kernel_route(dtype: torch.dtype) -> Route:
-    """Which kernels a CUDA call on ``dtype`` operands runs: bf16 in
-    csrc/mlp_bwd.cu, f32 in csrc/gemm_f32.cu. float16, which the reference
-    computes, raises ``NotImplementedError`` naming ROADMAP.md §2."""
+    """Which kernels a CUDA call on ``dtype`` operands runs: bf16 and
+    float16 in csrc/mlp_bwd.cu, f32 in csrc/gemm_f32.cu. Another dtype
+    raises ``NotImplementedError`` naming ROADMAP.md §2."""
     if dtype == torch.bfloat16:
         return Route("mlp_bwd.cu", "ditl_mlp_bwd_dgu_dwdown_bf16", "ditl_mlp_bwd_dh_dwgu_bf16")
+    if dtype == torch.float16:
+        return Route("mlp_bwd.cu", "ditl_mlp_bwd_dgu_dwdown_f16", "ditl_mlp_bwd_dh_dwgu_f16")
     if dtype == torch.float32:
         return Route("gemm_f32.cu", "ditl_mlp_bwd_dgu_dwdown_f32", "ditl_mlp_bwd_dh_dwgu_f32")
     raise NotImplementedError(
-        f"the CUDA MLP and projection backward kernels take bfloat16 or float32, got "
-        f"{dtype}: not ported yet (ROADMAP.md §2; mlp_bwd_impl/proj_bwd_impl='xla' run it)")
+        f"the CUDA MLP and projection backward kernels take bfloat16, float16 or float32, "
+        f"got {dtype}: not ported (ROADMAP.md §2; mlp_bwd_impl/proj_bwd_impl='xla' run it)")
 
 
 def f32_weight_splits(m: int, n: int, k: int) -> tuple[int, int]:
@@ -225,8 +242,8 @@ def _kernel(source: str, symbol: str):
 def _cuda_rows(name: str, t: torch.Tensor, device, dtype: torch.dtype) -> int:
     """What the kernels take of a 2-D operand: ``dtype`` (the route's, from
     the first operand; another raises ``ValueError``) on ``device``, unit
-    column stride, 16-byte aligned rows (row strides of 8 bf16 or 4 f32
-    elements). Returns the row stride."""
+    column stride, 16-byte aligned rows (row strides of 8 bf16 or float16,
+    or 4 f32 elements). Returns the row stride."""
     if t.dtype != dtype:
         raise ValueError(f"{name} is {t.dtype}, the other operands {dtype}: the kernels "
                          "take one dtype")
@@ -297,10 +314,10 @@ def dgu_dwdown(g: torch.Tensor, w_down: torch.Tensor, gate: torch.Tensor,
                up: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K5a on CUDA tensors: (N, D) g, (F, D) w_down, (N, F) gate and up, up
     at a fixed offset from gate with gate's row stride (the halves of the
-    forward's gu), all of one dtype (``kernel_route``'s: bf16 or f32).
-    Returns (dgu (N, 2F), d_w_down (F, D)). The dtypes are checked first,
-    then the device and the layout; nothing launches on a failed check."""
-    global launches_dgu, launches_dgu_f32
+    forward's gu), all of one dtype (``kernel_route``'s: bf16, float16 or
+    f32). Returns (dgu (N, 2F), d_w_down (F, D)). The dtypes are checked
+    first, then the device and the layout; nothing launches on a failed
+    check."""
     route = kernel_route(g.dtype)
     n, d = g.shape
     f = w_down.shape[0]
@@ -336,18 +353,14 @@ def dgu_dwdown(g: torch.Tensor, w_down: torch.Tensor, gate: torch.Tensor,
         err = _kernel(route.source, route.dgu)(*args, stream)
     if err != 0:
         raise RuntimeError(f"mlp_bwd dgu kernel launch failed: CUDA error {err}")
-    if f32:
-        launches_dgu_f32 += 1
-    else:
-        launches_dgu += 1
+    globals()["launches_dgu" + _COUNTER_SFX[g.dtype]] += 1
     return dgu, d_w_down
 
 
 def dh_dwgu(h: torch.Tensor, dgu: torch.Tensor, w_gu: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5b on CUDA tensors: (N, D) h, (N, 2F) dgu, (D, 2F) w_gu, all of one
-    dtype (bf16 or f32). Returns (dh (N, D), d_w_gu (D, 2F))."""
-    global launches_dh, launches_dh_f32
+    dtype (bf16, float16 or f32). Returns (dh (N, D), d_w_gu (D, 2F))."""
     route = kernel_route(h.dtype)
     n, d = h.shape
     f2 = w_gu.shape[1]
@@ -376,10 +389,7 @@ def dh_dwgu(h: torch.Tensor, dgu: torch.Tensor, w_gu: torch.Tensor
         err = _kernel(route.source, route.dh)(*args, stream)
     if err != 0:
         raise RuntimeError(f"mlp_bwd dh kernel launch failed: CUDA error {err}")
-    if f32:
-        launches_dh_f32 += 1
-    else:
-        launches_dh += 1
+    globals()["launches_dh" + _COUNTER_SFX[h.dtype]] += 1
     return dh, d_w_gu
 
 
@@ -433,8 +443,8 @@ def fused_mlp_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused-gate|up MLP block backward: ``(dh, d_w_gu, d_w_down)``.
     Raises ``ValueError`` on shapes ``supports`` rejects, as the reference
-    does. CUDA tensors launch K5a then K5b (bf16 or f32, ``kernel_route``;
-    float16 raises, and so do operands of mixed dtypes); CPU tensors run the
+    does. CUDA tensors launch K5a then K5b (bf16, float16 or f32,
+    ``kernel_route``; operands of mixed dtypes raise); CPU tensors run the
     plain version."""
     b, s, d = h.shape
     f = w_down.shape[0]

@@ -12,7 +12,9 @@ chosen by ``bwd_impl``:
   (``csrc/gemm_sm90.cuh``). For CUDA tensors it launches the kernel or
   raises; only for CPU tensors does it run ``projection_bwd_plain``.
   ``launches`` counts launches; ``k6_tile_order`` lists the tiles in the
-  order the kernel's scheduler hands them out. float32 operands take
+  order the kernel's scheduler hands them out. float16 operands take
+  K6-f16 (``ditl_proj_bwd_f16``, the same kernel's float16 instance),
+  counted in ``launches_f16``; float32 operands take
   K6-f32 (``csrc/gemm_f32.cu``, ``ditl_proj_bwd_f32``: 3xTF32 on
   ``mma.sync``, dw split over the tokens by ``mlp_bwd.f32_weight_splits``
   when its tiles are few), counted in ``launches_f32``; ``kernel_route``
@@ -38,8 +40,8 @@ from ditl_tpu_torch.ops.mlp_bwd import (K5_BLOCK_K, K5_BLOCK_M, K5_BLOCK_N, _as_
 
 __all__ = ["projection", "projection_bwd", "projection_bwd_plain", "supports",
            "effective_bwd_impl", "BlockSizes", "DEFAULT_BLOCKS", "launches",
-           "launches_f32", "reset_launches", "kernel_route", "proj_bwd_rows", "k6_dx_first",
-           "k6_tile_order"]
+           "launches_f16", "launches_f32", "reset_launches", "kernel_route", "proj_bwd_rows",
+           "k6_dx_first", "k6_tile_order"]
 
 NUM_LANES = 128
 NUM_SUBLANES = 16
@@ -53,27 +55,32 @@ class BlockSizes(NamedTuple):
 DEFAULT_BLOCKS = BlockSizes(256, 256)
 
 # K6 launches since the last reset_launches(), counted where it is launched:
-# bf16, and f32.
+# bf16, float16 and f32.
 launches = 0
+launches_f16 = 0
 launches_f32 = 0
+# dtype -> (source in csrc/, entry point, launch counter)
+_ENTRIES = {
+    torch.bfloat16: ("projection_bwd.cu", "ditl_proj_bwd_bf16", "launches"),
+    torch.float16: ("projection_bwd.cu", "ditl_proj_bwd_f16", "launches_f16"),
+    torch.float32: ("gemm_f32.cu", "ditl_proj_bwd_f32", "launches_f32"),
+}
 
 
 def reset_launches() -> None:
-    global launches, launches_f32
-    launches = launches_f32 = 0
+    for _, _, counter in _ENTRIES.values():
+        globals()[counter] = 0
 
 
 def kernel_route(dtype: torch.dtype) -> tuple[str, str]:
     """(source in ``csrc/``, entry point) of K6 on ``dtype`` operands: bf16
-    in csrc/projection_bwd.cu, f32 in csrc/gemm_f32.cu; float16 raises
-    ``NotImplementedError`` naming ROADMAP.md §2."""
-    if dtype == torch.bfloat16:
-        return "projection_bwd.cu", "ditl_proj_bwd_bf16"
-    if dtype == torch.float32:
-        return "gemm_f32.cu", "ditl_proj_bwd_f32"
-    raise NotImplementedError(
-        f"the CUDA projection backward kernel takes bfloat16 or float32, got {dtype}: "
-        "not ported yet (ROADMAP.md §2; proj_bwd_impl='xla' runs it)")
+    and float16 in csrc/projection_bwd.cu, f32 in csrc/gemm_f32.cu; another
+    dtype raises ``NotImplementedError`` naming ROADMAP.md §2."""
+    if dtype not in _ENTRIES:
+        raise NotImplementedError(
+            f"the CUDA projection backward kernel takes bfloat16, float16 or float32, got "
+            f"{dtype}: not ported (ROADMAP.md §2; proj_bwd_impl='xla' runs it)")
+    return _ENTRIES[dtype][:2]
 
 
 def _pick_blocks(n: int, d: int, blocks) -> BlockSizes:
@@ -148,8 +155,8 @@ def projection_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx, dw) of ``x @ w`` for x (B, S, D), w (D, F) and the output's
     gradient g (B, S, F). Raises ``ValueError`` on shapes ``supports``
-    rejects. CUDA tensors launch K6 (bf16 or f32, ``kernel_route``; float16
-    and mixed dtypes raise), the bf16 kernel's tiles in the order
+    rejects. CUDA tensors launch K6 (bf16, float16 or f32, ``kernel_route``;
+    mixed dtypes raise), the bf16 and float16 kernel's tiles in the order
     ``dx_first`` gives (default ``k6_dx_first``; the results are the same
     bits either way); CPU tensors run the plain version."""
     b, s, d = x.shape
@@ -174,7 +181,6 @@ def proj_bwd_rows(x2: torch.Tensor, w: torch.Tensor, g2: torch.Tensor,
     (``kernel_route``'s): (dx (N, D), dw (D, F)). The dtypes are checked
     first, then the device and the layout; nothing launches on a failed
     check."""
-    global launches, launches_f32
     entry = kernel_route(x2.dtype)
     dev = x2.device
     ld_x, ld_g = _cuda_rows("x", x2, dev, x2.dtype), _cuda_rows("g", g2, dev, x2.dtype)
@@ -200,10 +206,7 @@ def proj_bwd_rows(x2: torch.Tensor, w: torch.Tensor, g2: torch.Tensor,
                               stream)
     if err != 0:
         raise RuntimeError(f"projection_bwd kernel launch failed: CUDA error {err}")
-    if f32:
-        launches_f32 += 1
-    else:
-        launches += 1
+    globals()[_ENTRIES[x2.dtype][2]] += 1
     return dx, dw
 
 

@@ -1,13 +1,15 @@
 """Where one training step's time goes on the card.
 
-    python -m ditl_tpu_torch.tools.profile_train [--path 3|9|10] [section.field=value ...]
+    python -m ditl_tpu_torch.tools.profile_train [--path 3|9|10|13] [section.field=value ...]
 
 Starts from one of ``chip_smoke.py``'s training paths (``PATH_ARGS``:
 ``--path 3``, the default, ``llama3-8b`` at full width and depth in bf16;
 ``--path 9``, ``qwen2-0.5b`` at its published size in f32, the MLP and
 projection backward at the "xla" defaults; ``--path 10``, path 9 under the
 reference's kernel flags and the block fields that admit its widths: K5a-f32,
-K5b-f32 and K6-f32; all B=4, S=2048) and applies the launcher's arguments
+K5b-f32 and K6-f32; ``--path 13``, path 10 in float16 compute over f32
+masters: K1-f16, K2a-f16, K2b-f16, K5a-f16, K5b-f16 and K6-f16; all B=4,
+S=2048) and applies the launcher's arguments
 given on the command line on top of it, so that, for example,
 
     python -m ditl_tpu_torch.tools.profile_train model.fused_gate_up=true \
@@ -23,7 +25,8 @@ runs ``--warmup`` steps, then:
    into forward + backward and the optimizer (global norm, clip, update);
 2. traces ``--steps`` more steps with ``torch.profiler`` and sums the
    device time of every kernel by category (each of the port's kernels,
-   bf16 and f32, in a category of its own; then GEMMs and the rest),
+   bf16, float16 and f32, in a category of its own; then GEMMs and the
+   rest),
    against the traced wall time: the device's idle share is what the
    kernels leave of it.
 
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 
@@ -54,20 +58,33 @@ _F32_ARGS = [
     "model.remat=full", "train.optimizer=adafactor", "train.warmup_steps=1",
     "train.total_steps=20", "data.synthetic=true", "data.batch_size=4", "data.seq_len=2048",
 ]
+# qwen2-0.5b's widths (D = 896, F = 4864) take the kernels only with these
+# two of the reference's block fields (ops/mlp_bwd.py::supports,
+# ops/projection.py::supports).
+_KERNEL_FLAGS = ["model.fused_gate_up=true", "model.mlp_bwd_impl=pallas",
+                 "model.proj_bwd_impl=pallas", "model.mlp_bwd_block_f=256",
+                 "model.proj_bwd_block_d=128"]
 PATH_ARGS = {
     "3": _BF16_ARGS,
     "9": _F32_ARGS,
-    # qwen2-0.5b's widths (D = 896, F = 4864) take the kernels only with
-    # these two of the reference's block fields (ops/mlp_bwd.py::supports,
-    # ops/projection.py::supports).
-    "10": _F32_ARGS + ["model.fused_gate_up=true", "model.mlp_bwd_impl=pallas",
-                       "model.proj_bwd_impl=pallas", "model.mlp_bwd_block_f=256",
-                       "model.proj_bwd_block_d=128"],
+    "10": _F32_ARGS + _KERNEL_FLAGS,
+    "13": [a.replace("model.dtype=float32", "model.dtype=float16") for a in _F32_ARGS]
+    + _KERNEL_FLAGS,
 }
-# (category, substrings of kernel names), first match wins. Every __global__
-# kernel of ditl_tpu_torch/csrc/*.cu has a category of its own, ahead of
-# "GEMM" (whose substrings a kernel's name could contain).
+# A float16 instance of a bf16 kernel template: its trace name carries the
+# element-type argument, demangled ("<64, true>", "<true>") or mangled
+# ("ILi64ELb1EE", "ILb1EE"; names are matched lower-cased).
+_F16 = r"(<(\d+, )?true>|i(li\d+e)?lb1e)"
+# (category, regular expressions searched in kernel names), first match
+# wins. Every __global__ kernel of ditl_tpu_torch/csrc/*.cu has a category of
+# its own, ahead of "GEMM" (whose patterns a kernel's name could contain).
 CATEGORIES = (
+    ("K1-f16 flash_fwd_f16", ("flash_fwd_kernel" + _F16,)),
+    ("K2a-f16 flash_dq_f16", ("flash_bwd_dq_kernel" + _F16,)),
+    ("K2b-f16 flash_dkv_f16", ("flash_bwd_dkv_kernel" + _F16,)),
+    ("K5a-f16 mlp_dgu_dwdown_f16", ("mlp_dgu_dwdown_kernel" + _F16,)),
+    ("K5b-f16 mlp_dh_dwgu_f16", ("proj_bwd_kernel<5, true>", "proj_bwd_kernelili5elb1e")),
+    ("K6-f16 proj_bwd_f16", ("proj_bwd_kernel<6, true>", "proj_bwd_kernelili6elb1e")),
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K2a flash_dq", ("flash_bwd_dq_kernel",)),
     ("K2b flash_dkv", ("flash_bwd_dkv_kernel",)),
@@ -81,8 +98,8 @@ CATEGORIES = (
     ("K5a mlp_dgu_dwdown", ("mlp_dgu_dwdown_kernel",)),
     # K5b and K6 are instances of one kernel, tagged 5 and 6 (demangled or
     # mangled; names are matched lower-cased)
-    ("K5b mlp_dh_dwgu", ("proj_bwd_kernel<5>", "proj_bwd_kernelili5e")),
-    ("K6 proj_bwd", ("proj_bwd_kernel<6>", "proj_bwd_kernelili6e")),
+    ("K5b mlp_dh_dwgu", ("proj_bwd_kernel<5[,>]", "proj_bwd_kernelili5e")),
+    ("K6 proj_bwd", ("proj_bwd_kernel<6[,>]", "proj_bwd_kernelili6e")),
     ("K5 GEMM core alone (card tests)", ("gemm_sm90_kernel",)),
     ("K5a-f32 mlp_dgu_f32", ("mlp_dgu_f32_kernel",)),
     ("K5b-f32 mlp_dh_f32", ("mlp_dh_f32_kernel",)),
@@ -98,7 +115,7 @@ CATEGORIES = (
 def _category(name: str) -> str:
     low = name.lower()
     for cat, keys in CATEGORIES:
-        if any(k in low for k in keys):
+        if any(re.search(k, low) for k in keys):
             return cat
     return "other"
 

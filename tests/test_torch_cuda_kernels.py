@@ -115,16 +115,16 @@ def test_flash_fwd_kernel_matches_plain(cuda, b, s_q, s_kv, h, kv, d, causal, se
 def test_flash_fwd_kernel_raises_instead_of_falling_back(cuda):
     """On CUDA tensors the wrapper launches the kernel or raises: no plain
     fallback for shapes or dtypes the kernel does not take. What the
-    reference computes and the port has no kernel for yet (the float16
-    backward, D = 256) raises NotImplementedError naming ROADMAP.md; a
-    float16 forward launches K1-f16, and its backward raises when called."""
+    reference computes and the port has no kernel for yet (D = 256, D = 48)
+    raises NotImplementedError naming ROADMAP.md; a float16 forward
+    launches K1-f16, and its backward K2a-f16 and K2b-f16."""
     q, k, v, _ = _inputs(cuda, 1, 64, 64, 4, 2, 128)
     tfa.reset_launches()
     leaves = [t.half().requires_grad_() for t in (q, k, v)]
     out = tfa.flash_attention(*leaves)
     assert tfa.launches_f16 == 1
-    with pytest.raises(NotImplementedError, match="float16.*ROADMAP.md §2"):
-        out.float().sum().backward()
+    out.float().sum().backward()
+    assert (tfa.launches_dq_f16, tfa.launches_dkv_f16) == (1, 1)
     with pytest.raises(ValueError, match="dtype mismatch"):  # mixed dtypes
         tfa.flash_attention(q.half(), k, v)
     q48, k48, v48, _ = _inputs(cuda, 1, 64, 64, 4, 2, 48)
@@ -564,10 +564,13 @@ def test_flash_attention_autograd_launches_k1_k2(cuda):
 
 @pytest.mark.torch_port
 def test_flash_bwd_raises_instead_of_falling_back(cuda):
+    """An unported dtype (float64) or head dim (256), a bad lse or a strided
+    gradient raise on the card, and nothing launches."""
     q, k, v, o, lse, do = _bwd_inputs(cuda, 1, 64, 64, 4, 2, 128, True, None)
     tfa.reset_launches()
-    with pytest.raises(NotImplementedError, match="float16.*ROADMAP"):
-        tfa.flash_attention_bwd(q.half(), k.half(), v.half(), o.half(), lse, do.half())
+    with pytest.raises(NotImplementedError, match="float64.*ROADMAP"):
+        tfa.flash_attention_bwd(q.double(), k.double(), v.double(), o.double(), lse,
+                                do.double())
     q256, k256, v256, _ = _inputs(cuda, 1, 64, 64, 4, 2, 256, dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="head_dim.*ROADMAP"):
         tfa.flash_attention_bwd(q256, k256, v256, q256, lse, q256)
@@ -575,8 +578,8 @@ def test_flash_bwd_raises_instead_of_falling_back(cuda):
         tfa.flash_attention_bwd(q, k, v, o, lse.bfloat16(), do)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_bwd(q, k, v, o, lse, do.transpose(1, 2).contiguous().transpose(1, 2))
-    assert (tfa.launches_dq, tfa.launches_dkv, tfa.launches_dq_f32,
-            tfa.launches_dkv_f32) == (0, 0, 0, 0)
+    assert (tfa.launches_dq, tfa.launches_dkv, tfa.launches_dq_f16, tfa.launches_dkv_f16,
+            tfa.launches_dq_f32, tfa.launches_dkv_f32) == (0,) * 6
 
 
 # ---------------------------------------------------------------------------
@@ -768,8 +771,9 @@ def test_mlp_and_projection_autograd_launch_k5_k6(cuda):
 
 @pytest.mark.torch_port
 def test_mlp_and_projection_bwd_raise_instead_of_falling_back(cuda):
-    """float16 (not ported: ROADMAP.md §2), operands of mixed dtypes and
-    shapes ``supports`` rejects raise on the card, and nothing launches."""
+    """An unported dtype (float64: ROADMAP.md §2), operands of mixed dtypes
+    and shapes ``supports`` rejects raise on the card, and nothing
+    launches."""
     from ditl_tpu_torch.ops import mlp_bwd as tmb
     from ditl_tpu_torch.ops import projection as tpr
 
@@ -779,18 +783,19 @@ def test_mlp_and_projection_bwd_raise_instead_of_falling_back(cuda):
     tmb.reset_launches()
     tpr.reset_launches()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmb.fused_mlp_bwd(h.half(), w_gu.half(), w_down.half(), gate.half(),
-                          up.half(), h.half())
+        tmb.fused_mlp_bwd(h.double(), w_gu.double(), w_down.double(), gate.double(),
+                          up.double(), h.double())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpr.projection_bwd(h.half(), w_gu.half(), h.half())
+        tpr.projection_bwd(h.double(), w_gu.double(), h.double())
     with pytest.raises(ValueError, match="one dtype"):  # an f32 g, the rest bf16
         tmb.fused_mlp_bwd(h, w_gu, w_down, gate, up, h.float())
     with pytest.raises(ValueError, match="one dtype"):
         tpr.projection_bwd(h.float(), w_gu, h.float())
     with pytest.raises(ValueError, match="tile"):
         tpr.projection_bwd(h[:, :50], w_gu, h[:, :50])
-    assert (tmb.launches_dgu, tmb.launches_dh, tpr.launches, tmb.launches_dgu_f32,
-            tmb.launches_dh_f32, tpr.launches_f32) == (0, 0, 0, 0, 0, 0)
+    assert (tmb.launches_dgu, tmb.launches_dh, tpr.launches, tmb.launches_dgu_f16,
+            tmb.launches_dh_f16, tpr.launches_f16, tmb.launches_dgu_f32,
+            tmb.launches_dh_f32, tpr.launches_f32) == (0,) * 9
 
 
 # ---------------------------------------------------------------------------
@@ -1205,3 +1210,240 @@ def test_paged_f16_and_f32_int8_verify_kernels_match_plain(no_tf32, dtype, int8,
     assert torch.equal(o41[:, 0], o3)
     dead = [i for i, n in enumerate(lengths) if n == 0]
     assert all(bool((o[i] == 0).all()) for i in dead)
+
+
+# ---------------------------------------------------------------------------
+# The float16 backward: K2a-f16, K2b-f16 (csrc/flash_bwd.cu), K5a-f16,
+# K5b-f16 (csrc/mlp_bwd.cu) and K6-f16 (csrc/projection_bwd.cu), the bf16
+# kernels' float16 instances
+# ---------------------------------------------------------------------------
+
+# (b, s_q, s_kv, h, kv, d, causal, seg): the llama3-8b training batch (packed
+# rows) and one document per row, path 13's qwen2-0.5b heads (14/2, D = 64)
+# on packed rows, D = 32, ragged S = 129 and 300 (ids up and down), causal
+# Sq > Skv.
+F16_BWD_CASES = [
+    (4, 2048, 2048, 32, 8, 128, True, "train"),
+    (2, 2048, 2048, 32, 8, 128, True, 0),
+    (4, 2048, 2048, 14, 2, 64, True, "train"),
+    (2, 300, 300, 8, 2, 32, True, "nonmono"),
+    (1, 129, 129, 4, 1, 128, True, 0),
+    (2, 300, 300, 14, 2, 64, True, "nonmono"),
+    (2, 333, 200, 8, 2, 128, True, 0),
+]
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("b,s_q,s_kv,h,kv,d,causal,seg", F16_BWD_CASES)
+def test_flash_f16_bwd_kernels_match_plain(cuda, b, s_q, s_kv, h, kv, d, causal, seg):
+    """K2a-f16 and K2b-f16 against the plain backward in float16: each
+    gradient within BWD_TOL of its largest magnitude (the kernels round p
+    and ds to float16 for the second products, which the plain version
+    keeps in f32, as the reference does), one launch of each, no bf16 or f32
+    backward launch."""
+    ids = _bwd_segments(cuda, seg, b, s_q)
+    q, k, v, o, lse, do = _bwd_inputs(cuda, b, s_q, s_kv, h, kv, d, causal, ids,
+                                      dtype=torch.float16)
+    tfa.reset_launches()
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=ids)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         segment_ids=ids)
+    torch.cuda.synchronize()
+    assert (tfa.launches_dq_f16, tfa.launches_dkv_f16, tfa.launches_dq, tfa.launches_dkv,
+            tfa.launches_dq_f32, tfa.launches_dkv_f32) == (1, 1, 0, 0, 0, 0)
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == ref.shape and x.dtype == torch.float16
+        assert bool(torch.isfinite(x.float()).all()), name
+        scale = float(ref.float().abs().max())
+        torch.testing.assert_close(x.float(), ref.float(), rtol=0, atol=BWD_TOL * scale,
+                                   msg=name)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("do_scale", [2.0**-21, 2.0**-14, 2.0**6])
+def test_flash_f16_bwd_holds_training_scale_gradients(cuda, do_scale):
+    """A float16 training step's output gradients lie among float16's
+    subnormals (2^-21: path 13's flash backward); the wrapper rescales do by
+    an exact power of two around K2a-f16 and K2b-f16, so the kernels' float16
+    rounding of dS loses nothing the plain backward (dS in f32, as the
+    reference) keeps: each gradient within BWD_TOL of its largest magnitude
+    at every scale, plus two float16 subnormal steps (2^-24 each: the
+    rescaled output's rounding, then the unscaled one's) where the outputs
+    are subnormal, and finite at a large scale."""
+    ids = _bwd_segments(cuda, "train", 4, 2048)
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 4, 2048, 2048, 14, 2, 64, True, ids,
+                                      dtype=torch.float16)
+    do = (do.float() * do_scale).half()
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, segment_ids=ids)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True, segment_ids=ids)
+    torch.cuda.synchronize()
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(x.float()).all()), name
+        scale = float(ref.float().abs().max())
+        torch.testing.assert_close(x.float(), ref.float(), rtol=0,
+                                   atol=BWD_TOL * scale + 2.0**-23, msg=name)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("seg", ["train", None])
+def test_flash_f16_bwd_kernels_are_bitwise_repeatable(cuda, seg):
+    """K2a-f16 and K2b-f16 keep the bf16 kernels' ownership (no atomics), so
+    two calls give the same bits."""
+    ids = _bwd_segments(cuda, seg, 4, 2048) if seg else None
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 4, 2048, 2048, 32, 8, 128, True, ids,
+                                      dtype=torch.float16)
+    first = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, segment_ids=ids)
+    second = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, segment_ids=ids)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.torch_port
+def test_flash_attention_f16_autograd_launches_k1_k2(cuda):
+    """One float16 forward and backward through ``flash_attention``: one
+    K1-f16, one K2a-f16, one K2b-f16 (no other flash kernel), and the
+    gradients of the plain attention's autograd."""
+    q, k, v, _ = _inputs(cuda, 2, 256, 256, 8, 2, 64, dtype=torch.float16)
+    seg = _packed_segments(cuda, 2, 256, 2)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    tfa.reset_launches()
+    out = tfa.flash_attention(*leaves, causal=True, segment_ids=seg)
+    grads = torch.autograd.grad(out.float().square().sum(), leaves)
+    torch.cuda.synchronize()
+    assert (tfa.launches_f16, tfa.launches_dq_f16, tfa.launches_dkv_f16) == (1, 1, 1)
+    assert (tfa.launches, tfa.launches_dq, tfa.launches_dkv, tfa.launches_f32) == (0,) * 4
+    ref_leaves = [t.clone().float().requires_grad_() for t in (q, k, v)]
+    ref_out, _ = tfa.flash_attention_plain(*ref_leaves, causal=True, segment_ids=seg)
+    ref = torch.autograd.grad(ref_out.square().sum(), ref_leaves)
+    for name, x, r in zip(("dq", "dk", "dv"), grads, ref):
+        scale = float(r.abs().max())
+        torch.testing.assert_close(x.float(), r, rtol=0, atol=3 * BWD_TOL * scale, msg=name)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("n,d,f", [(8192, 896, 4864), (2064, 384, 384), (16, 256, 128),
+                                   (1024, 512, 768)])
+def test_mlp_bwd_f16_kernels_match_plain(cuda, n, d, f):
+    """K5a-f16 and K5b-f16 against their plain versions in float16, within
+    MM_TOL of each output's largest magnitude: path 13's widths (D = 896 and
+    F = 4864 overhang the 256-wide tiles), a ragged token edge, the least N;
+    the SwiGLU epilogue reads float16 gate and up (not bf16 bit shifts)."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+
+    h, w_gu, w_down, g, gate, up = _mlp_inputs(cuda, n, d, f, seed=50, dtype=torch.float16)
+    tmb.reset_launches()
+    dgu, d_w_down = tmb.dgu_dwdown(g, w_down, gate, up)
+    dgu_ref, d_w_down_ref = tmb.dgu_dwdown_plain(g, w_down, gate, up)
+    dh, d_w_gu = tmb.dh_dwgu(h, dgu, w_gu)
+    dh_ref, d_w_gu_ref = tmb.dh_dwgu_plain(h, dgu, w_gu)
+    torch.cuda.synchronize()
+    assert (tmb.launches_dgu_f16, tmb.launches_dh_f16, tmb.launches_dgu,
+            tmb.launches_dh) == (1, 1, 0, 0)
+    for name, x, r in (("dgu", dgu, dgu_ref), ("d_w_down", d_w_down, d_w_down_ref),
+                       ("dh", dh, dh_ref), ("d_w_gu", d_w_gu, d_w_gu_ref)):
+        _assert_scaled(name, x, r)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("n,d,f,ld", [(8192, 896, 896, 0), (8192, 896, 128, 0),
+                                      (2064, 256, 384, 512)],
+                         ids=["wq/wo", "wk/wv", "strided g"])
+def test_proj_bwd_f16_kernel_matches_plain(cuda, n, d, f, ld):
+    """K6-f16 against its plain version in float16 at path 13's projections
+    (qwen2-0.5b's 896 x 896 and 896 x 128, which the 256-wide tiles
+    overhang) and a strided gradient, within MM_TOL; both tile orders give
+    the same bits."""
+    from ditl_tpu_torch.ops import projection as tpr
+
+    x = _rnd(cuda, 1, n, d, seed=60, dtype=torch.float16)
+    w = _rnd(cuda, d, f, seed=61, scale=d**-0.5, dtype=torch.float16)
+    g = _rnd(cuda, 1, n, ld or f, seed=62, dtype=torch.float16)[..., :f]
+    tpr.reset_launches()
+    runs = [tpr.projection_bwd(x, w, g, blocks=(16, 128), dx_first=order)
+            for order in (None, True, False)]
+    dx_ref, dw_ref = tpr.projection_bwd_plain(x, w, g)
+    torch.cuda.synchronize()
+    assert (tpr.launches_f16, tpr.launches) == (3, 0)
+    for run in runs[1:]:
+        assert torch.equal(run[0], runs[0][0]) and torch.equal(run[1], runs[0][1])
+    _assert_scaled("dx", runs[0][0], dx_ref)
+    _assert_scaled("dw", runs[0][1], dw_ref)
+
+
+@pytest.mark.torch_port
+def test_mlp_bwd_f16_kernels_are_bitwise_repeatable(cuda):
+    """Three calls of K5a-f16 and K5b-f16 give the same bits."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+
+    h, w_gu, w_down, g, gate, up = _mlp_inputs(cuda, 4096, 1024, 2816, seed=70,
+                                               dtype=torch.float16)
+    runs = []
+    for _ in range(3):
+        dgu, d_w_down = tmb.dgu_dwdown(g, w_down, gate, up)
+        runs.append((dgu, d_w_down, *tmb.dh_dwgu(h, dgu, w_gu)))
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for name, x, r in zip(("dgu", "d_w_down", "dh", "d_w_gu"), run, runs[0]):
+            assert torch.equal(x, r), name
+
+
+@pytest.mark.torch_port
+def test_mlp_and_projection_f16_autograd_launch_k5_k6(cuda):
+    """One float16 forward and backward through ``mlp_gu`` and
+    ``projection`` with ``"pallas"``: one K5a-f16, one K5b-f16 and one
+    K6-f16, and the gradients of the einsum spelling."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+    from ditl_tpu_torch.ops import projection as tpr
+    from ditl_tpu_torch.ops.mlp import mlp_gu
+
+    f16 = torch.float16
+    h = _rnd(cuda, 2, 256, 256, seed=80, dtype=f16)
+    w_gu = _rnd(cuda, 256, 512, seed=81, scale=1 / 16, dtype=f16)
+    w_down = _rnd(cuda, 256, 256, seed=82, scale=1 / 16, dtype=f16)
+    w = _rnd(cuda, 256, 256, seed=83, scale=1 / 16, dtype=f16)
+    grads = {}
+    for impl in ("pallas", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (h, w_gu, w_down, w)]
+        tmb.reset_launches()
+        tpr.reset_launches()
+        out = mlp_gu(*leaves[:3], impl, (64, 128, 128))
+        out = tpr.projection(out, leaves[3], bwd_impl=impl, blocks=(64, 128))
+        grads[impl] = torch.autograd.grad(out.float().square().sum(), leaves)
+        torch.cuda.synchronize()
+        want = (1, 1, 1) if impl == "pallas" else (0, 0, 0)
+        assert (tmb.launches_dgu_f16, tmb.launches_dh_f16, tpr.launches_f16) == want
+    for name, x, r in zip(("h", "w_gu", "w_down", "w"), grads["pallas"], grads["xla"]):
+        scale = float(r.float().abs().max())
+        torch.testing.assert_close(x.float(), r.float(), rtol=0, atol=3 * MM_TOL * scale,
+                                   msg=name)
+
+
+@pytest.mark.torch_port
+def test_k2_kernels_keep_the_bits_of_their_bf16_build(cuda):
+    """The bf16 K2a and K2b on fixed integer-made inputs give the bytes the
+    kernels built before their element type became a template parameter
+    gave (``chip_smoke.K2_DIGESTS``)."""
+    assert chip_smoke._k2_digests(tfa) == chip_smoke.K2_DIGESTS
+
+
+@pytest.mark.torch_port
+def test_tiny_llama_f32_train_step_with_flash_follows_the_reference(cuda):
+    """tiny-llama (head_dim 32) in f32 with ``attention_impl=flash``: the
+    reference's dispatch sends D = 32 to plain attention, so one train step
+    on the card is finite and launches no flash kernel of any dtype (there
+    is no f32 kernel at D = 32, which the step reached, and raised on,
+    before the port followed the reference's dispatch)."""
+    from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.train.trainer import train
+
+    config, device = build_config([
+        "--preset", "tiny-llama", "model.dtype=float32", "model.param_dtype=float32",
+        "model.attention_impl=flash", "data.synthetic=true", "data.batch_size=2",
+        "data.seq_len=256", "train.total_steps=1", "train.log_every=1"])
+    assert (config.model.head_dim, device) == (32, "cuda")
+    tfa.reset_launches()
+    summary = train(config, device=device)
+    counts = [getattr(tfa, c) for _, _, c in tfa._ENTRIES.values()]
+    assert summary["steps"] == 1 and all(torch.isfinite(torch.tensor(summary["losses"])))
+    assert counts == [0] * len(counts), counts

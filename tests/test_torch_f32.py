@@ -93,7 +93,7 @@ QWEN2_TINY = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_la
 # ---------------------------------------------------------------------------
 
 _FLASH_BF16 = ("flash_fwd.cu", "flash_bwd.cu", "_bf16")
-_FLASH_F16 = ("flash_fwd.cu", "float16 backward.*ROADMAP.md §2", "_f16")
+_FLASH_F16 = ("flash_fwd.cu", "flash_bwd.cu", "_f16")
 _FLASH_F32 = ("flash_f32.cu", "flash_f32.cu", "_f32")
 # (dtype, head_dim) -> (forward source, backward source or the text its
 # raise carries, symbol suffix), or the text every kind's raise carries.
@@ -110,10 +110,11 @@ FLASH_ROUTES = {
 @pytest.mark.parametrize("dtype,head_dim", sorted(FLASH_ROUTES))
 def test_flash_kernel_route(dtype, head_dim):
     """``kernel_route``: bf16 at D in {32, 64, 128} keeps the bf16 kernels,
-    float16 at the same D takes ``ditl_flash_fwd_f16`` for the forward and
-    raises for the backward's two kernels, f32 at D in {64, 128} (the
-    reference's own head dims below 256) takes ``ditl_flash_*_f32``; D = 256
-    raises for every kind, naming ROADMAP.md §2."""
+    float16 at the same D takes ``ditl_flash_fwd_f16`` and
+    ``ditl_flash_bwd_{dq,dkv}_f16`` (the same sources' float16 instances),
+    f32 at D in {64, 128} (the reference's own head dims below 256) takes
+    ``ditl_flash_*_f32``; D = 256 raises for every kind, naming ROADMAP.md
+    §2."""
     dt = getattr(torch, dtype)
     want = FLASH_ROUTES[(dtype, head_dim)]
     if isinstance(want, str):
@@ -196,16 +197,19 @@ def test_f32_kernels_live_in_their_own_sources():
 MM_ROUTES = {
     "bfloat16": ("mlp_bwd.cu", "projection_bwd.cu", "_bf16"),
     "float32": ("gemm_f32.cu", "gemm_f32.cu", "_f32"),
-    "float16": "float16.*ROADMAP.md §2",
+    "float16": ("mlp_bwd.cu", "projection_bwd.cu", "_f16"),
+    "float64": "float64.*ROADMAP.md §2",
 }
 
 
 @pytest.mark.parametrize("dtype", sorted(MM_ROUTES))
 def test_mlp_and_projection_kernel_route(dtype):
     """``mlp_bwd.kernel_route`` and ``projection.kernel_route``: bf16 keeps
-    the bf16 kernels, f32 takes ``ditl_mlp_bwd_*_f32`` and
-    ``ditl_proj_bwd_f32`` (csrc/gemm_f32.cu); float16 raises naming
-    ROADMAP.md §2."""
+    the bf16 kernels, float16 takes their float16 instances
+    (``ditl_mlp_bwd_*_f16``, ``ditl_proj_bwd_f16`` in the same sources), f32
+    takes ``ditl_mlp_bwd_*_f32`` and ``ditl_proj_bwd_f32``
+    (csrc/gemm_f32.cu); another dtype (float64) raises naming ROADMAP.md
+    §2."""
     want = MM_ROUTES[dtype]
     if isinstance(want, str):
         for route in (tmb.kernel_route, tproj.kernel_route):
@@ -220,7 +224,7 @@ def test_mlp_and_projection_kernel_route(dtype):
 
 def _mm_operands(kind):
     """Operands of K5a, K5b and K6 (N = 64, D = F = 128) in f32 with one of
-    them bf16 (``"mixed"``), or all float16."""
+    them bf16 (``"mixed"``), or all float16 or all float64."""
     rng = np.random.default_rng(0)
 
     def t(*shape):
@@ -236,26 +240,30 @@ def _mm_operands(kind):
         if kind == "mixed":
             args[-1] = args[-1].bfloat16()
         else:
-            args[:] = [a.half() for a in args]
+            args[:] = [a.to(getattr(torch, kind)) for a in args]
     return calls
 
 
 @pytest.mark.parametrize("kind,error,match", [
-    ("mixed", ValueError, "one dtype"), ("float16", NotImplementedError, "ROADMAP.md §2")])
+    ("mixed", ValueError, "one dtype"), ("float16", ValueError, "CUDA tensors"),
+    ("float64", NotImplementedError, "ROADMAP.md §2")])
 @pytest.mark.parametrize("wrapper", ["dgu_dwdown", "dh_dwgu", "proj_bwd_rows"])
 def test_mlp_and_projection_kernels_check_dtypes_before_anything(wrapper, kind, error,
                                                                  match):
     """The CUDA wrappers of K5a, K5b and K6 check their operands' dtypes
-    first: mixed dtypes raise ``ValueError``, float16 (not ported)
+    first: mixed dtypes raise ``ValueError``, float64 (not ported)
     ``NotImplementedError`` naming ROADMAP.md, before the device check and
-    before any library is built or launched (so here, on CPU tensors, too)."""
+    before any library is built or launched (so here, on CPU tensors, too);
+    float16, which has kernels, passes the dtype check and is refused at the
+    device check, here on CPU tensors, before anything launches."""
     fn, args = _mm_operands(kind)[wrapper]
     tmb.reset_launches()
     tproj.reset_launches()
     with pytest.raises(error, match=match):
         fn(*args)
-    assert (tmb.launches_dgu, tmb.launches_dh, tmb.launches_dgu_f32, tmb.launches_dh_f32,
-            tproj.launches, tproj.launches_f32) == (0,) * 6
+    assert (tmb.launches_dgu, tmb.launches_dh, tmb.launches_dgu_f16, tmb.launches_dh_f16,
+            tmb.launches_dgu_f32, tmb.launches_dh_f32, tproj.launches, tproj.launches_f16,
+            tproj.launches_f32) == (0,) * 9
 
 
 def test_f32_mm_kernels_live_in_their_own_source():

@@ -9,7 +9,9 @@ runs ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` over 2 x 2 tiles
 relative to each gradient's largest magnitude: f32 at 1e-4 (the same
 formulas, whole-tensor here and tiled there, summed in other orders); bf16
 at 2e-2 (both round the outputs to bf16, and the port recomputes delta from
-its own forward's bf16 ``o``, which can sit a bf16 ulp from the kernel's).
+its own forward's bf16 ``o``, which can sit a bf16 ulp from the kernel's);
+float16 at 4e-3, the same reasons with three more mantissa bits (2e-2 / 8,
+rounded up to a power of two's worth of headroom).
 """
 
 import functools
@@ -26,7 +28,7 @@ from ditl_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 
 torch.set_num_threads(1)
 
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 4e-3}
 LAYOUTS = {  # name: (heads, kv heads, packed segments)
     "gqa": (8, 2, False),
     "gqa-packed": (8, 2, True),
@@ -68,7 +70,7 @@ def _close(got, want, tol, name):
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_plain_backward_and_autograd_match_jax_kernels(dtype, causal, layout):
     h, kv, packed = LAYOUTS[layout]
     q, k, v, do, seg = _inputs(len(layout) + causal, 2, 256, h, kv, 64, packed)
@@ -171,7 +173,7 @@ def _schedule_case(kind, dtype):
 
 
 @pytest.mark.parametrize("kernel", sorted(BWD_TILINGS))
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("kind", ["sorted", "padded", "nonmono", "mid"])
 def test_schedule_masked_plain_backward_matches_jax_kernels(kind, dtype, kernel):
     """Masking everything outside K2a's or K2b's visited tiles changes no

@@ -17,7 +17,9 @@ Tolerances:
 - bf16: each output within 8e-3 of its largest magnitude, one bf16 ulp:
   both sides round ``dgate``, ``dup`` and ``inner`` to bf16 at the same
   places, so only the order of the f32 sums differs, which can move a
-  rounding by one ulp.
+  rounding by one ulp;
+- float16: the same within 2e-3 of the largest magnitude, two float16 ulps
+  (float16 keeps three more mantissa bits than bf16).
 """
 
 import dataclasses
@@ -49,6 +51,8 @@ torch.set_num_threads(1)
 
 MLP_BLOCKS = (64, 128, 128)  # the reference test's blocks
 BF16_ULP = 8e-3
+F16_ULP = 2e-3
+HALF_TOL = {"bfloat16": BF16_ULP, "float16": F16_ULP}  # the 2-byte dtypes' tolerances
 
 
 def _identity(t):
@@ -83,7 +87,8 @@ def _close_to_scale(got, want, rel, name=""):
                                err_msg=name)
 
 
-@pytest.mark.parametrize("dtype,d,f", [("float32", 256, 128), ("bfloat16", 256, 384)])
+@pytest.mark.parametrize("dtype,d,f", [("float32", 256, 128), ("bfloat16", 256, 384),
+                                       ("float16", 256, 384)])
 def test_fused_mlp_bwd_matches_jax_kernels(dtype, d, f):
     """``fused_mlp_bwd`` against the reference's two Pallas passes (interpret
     mode) on the same inputs: dh, d_w_gu, d_w_down."""
@@ -100,7 +105,7 @@ def test_fused_mlp_bwd_matches_jax_kernels(dtype, d, f):
             np.testing.assert_allclose(x.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5,
                                        err_msg=name)
         else:
-            _close_to_scale(x, r, BF16_ULP, name)
+            _close_to_scale(x, r, HALF_TOL[dtype], name)
 
 
 def test_plain_passes_match_jax_kernels_with_gate_up_views():
@@ -196,7 +201,7 @@ def test_fused_mlp_bwd_rejects_what_supports_rejects():
         tmlp.mlp_block(h, w_gu, w_down, bwd_impl="pallas", mesh=object())
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_mlp_gu_forward_is_the_inline_forward(dtype):
     """``mlp_gu``'s output is bit-identical to the inline layer's MLP."""
     h, w_gu, w_down, *_ = (torch.from_numpy(a).to(getattr(torch, dtype))
@@ -344,14 +349,15 @@ def _k5_emulated(g, w_down, gate, up, h, w_gu):
     return dgu, d_w_down, dh, d_w_gu
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_k5_tile_data_flow_matches_plain_and_jax_kernels(dtype):
     """The kernels' data flow, tile by tile in the scheduler's order (inner
     materialised by the dinner tiles and read back by the d_w_down tiles,
     256-wide tiles overhanging F = 384, a ragged N = 272), against the plain
     versions and the reference's two Pallas passes in interpret mode: every
     output stored, within the file's tolerance for sums in other orders in
-    f32 (1e-4) and one bf16 ulp of each output's scale in bf16."""
+    f32 (1e-4) and one bf16 ulp (two float16 ulps) of each output's scale in
+    bf16 (float16)."""
     b, s, d, f = 1, 272, 256, 384
     blocks = (16, 128, 128)
     assert jmlp_bwd.supports(b * s, d, f, blocks) and tmlp_bwd.supports(b * s, d, f, blocks)
@@ -374,10 +380,10 @@ def test_k5_tile_data_flow_matches_plain_and_jax_kernels(dtype):
                                            err_msg=name)
             else:
                 _close_to_scale(x, jnp.asarray(np.asarray(torch.as_tensor(ref).float())),
-                                BF16_ULP, name)
+                                HALF_TOL[dtype], name)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_d_w_down_from_materialised_inner_is_plain_bits(dtype):
     """d_w_down from a materialised inner = (silu(gate) * up) rounded to the
     dtype once, as K5a's dinner tiles store it, is bit for bit the plain
@@ -396,7 +402,7 @@ def test_d_w_down_from_materialised_inner_is_plain_bits(dtype):
     if dtype == "float32":
         np.testing.assert_allclose(d_w_down.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     else:
-        _close_to_scale(d_w_down, want, BF16_ULP)
+        _close_to_scale(d_w_down, want, HALF_TOL[dtype])
 
 
 # ---------------------------------------------------------------------------

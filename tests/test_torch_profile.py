@@ -9,6 +9,7 @@ arguments) or mangled. The names are read from the sources themselves, so
 a new kernel without a category fails here.
 """
 
+import dataclasses
 import re
 
 import pytest
@@ -81,10 +82,31 @@ def test_library_kernels_keep_their_categories(name, cat):
     assert profile_train._category(name) == cat
 
 
+@pytest.mark.parametrize("kernel,template", [
+    ("flash_fwd_kernel", "64"), ("flash_bwd_dq_kernel", "128"), ("flash_bwd_dkv_kernel", "32"),
+    ("mlp_dgu_dwdown_kernel", ""), ("proj_bwd_kernel", "5"), ("proj_bwd_kernel", "6")])
+def test_float16_instances_have_categories_of_their_own(kernel, template):
+    """The float16 instances of the bf16 templates (K1-f16, K2a-f16,
+    K2b-f16, K5a-f16, K5b-f16, K6-f16) land in a category of their own, not
+    their bf16 twin's, demangled or mangled."""
+    def spellings(flag):
+        args = f"{template}, {flag}" if template else flag
+        mangled = (f"ILi{template}ELb{int(flag == 'true')}EE" if template
+                   else f"ILb{int(flag == 'true')}EE")
+        return {profile_train._category(f"void (anonymous namespace)::{kernel}<{args}>(x)"),
+                profile_train._category(f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}{mangled}Ev")}
+
+    f16, bf16 = spellings("true"), spellings("false")
+    assert len(f16) == len(bf16) == 1 and f16 != bf16, (f16, bf16)
+    assert f16 <= PORT_CATEGORIES and bf16 <= PORT_CATEGORIES
+    assert "-f16 " in next(iter(f16)) and "-f16" not in next(iter(bf16))
+
+
 def test_path_arguments():
-    """``--path`` picks the arguments of training paths 3, 9 and 10; path 10
-    is path 9 under the kernel flags with the block fields that admit
-    qwen2-0.5b's widths."""
+    """``--path`` picks the arguments of training paths 3, 9, 10 and 13;
+    path 10 is path 9 under the kernel flags with the block fields that
+    admit qwen2-0.5b's widths, path 13 path 10 in float16 compute over f32
+    masters."""
     from ditl_tpu_torch.launch import build_config
 
     args = profile_train.PATH_ARGS
@@ -96,3 +118,6 @@ def test_path_arguments():
     c = cfgs["10"]
     assert (c.fused_gate_up, c.mlp_bwd_impl, c.proj_bwd_impl, c.mlp_bwd_block_f,
             c.proj_bwd_block_d) == (True, "pallas", "pallas", 256, 128)
+    c13 = cfgs["13"]
+    assert (c13.dtype, c13.param_dtype) == ("float16", "float32")
+    assert dataclasses.replace(c13, dtype="float32") == c

@@ -9,7 +9,7 @@ comparison first asserts that both packages' dispatch picks the kernel.
 Tolerances: f32 at 1e-4 relative and 1e-5 absolute (the reference's own test
 against autodiff); bf16 within 8e-3 of each gradient's largest magnitude,
 one bf16 ulp (the same bf16 operands, f32 sums in another order, one
-rounding each).
+rounding each); float16 within 2e-3 of it, two float16 ulps.
 
 K6's tile order (``k6_tile_order``, the plain list of what the kernel's
 scheduler hands out) is checked for coverage and for the rule that the role
@@ -29,6 +29,7 @@ from ditl_tpu_torch.ops import projection as tproj  # noqa: E402
 torch.set_num_threads(1)
 
 BLOCKS = (64, 128)  # the reference test's blocks
+HALF_TOL = {"bfloat16": 8e-3, "float16": 2e-3}  # of each gradient's largest magnitude
 
 
 def _inputs(b, s, d, f, dtype, seed=0):
@@ -56,7 +57,7 @@ def _grads_port(x, w, g, impl, blocks):
     return x.grad, w.grad
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("d,f", [(256, 256), (256, 128), (128, 384)])
 def test_projection_grads_match_jax_kernel(dtype, d, f):
     b, s = 2, 32
@@ -72,7 +73,8 @@ def test_projection_grads_match_jax_kernel(dtype, d, f):
             np.testing.assert_allclose(x.numpy(), r, rtol=1e-4, atol=1e-5, err_msg=name)
         else:
             np.testing.assert_allclose(x.float().numpy(), r, rtol=0,
-                                       atol=8e-3 * float(np.abs(r).max()), err_msg=name)
+                                       atol=HALF_TOL[dtype] * float(np.abs(r).max()),
+                                       err_msg=name)
 
 
 def test_projection_bwd_wrapper_matches_jax_kernel():
@@ -109,7 +111,7 @@ def test_projection_falls_back_on_untileable_shapes():
         tproj.projection(tx, tw, bwd_impl="pallas", mesh=object())
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_projection_forward_is_the_inline_product(dtype):
     _, (x, w, _) = _inputs(2, 16, 128, 256, dtype, seed=3)
     for impl in ("pallas", "xla"):
