@@ -67,6 +67,15 @@ no result line. It imports nothing of JAX or of the JAX package.
    bits; then the bf16 K1, K2a/K2b, K3 and K5a/K5b against ``K1_DIGESTS``,
    ``K2_DIGESTS`` (recorded on the build before K2's element type became a
    template parameter), ``K3_DIGESTS`` and ``K5_DIGESTS``.
+   ``[hd-kernels]`` (``phase_head_dim_kernels``): every paged entry point
+   (``HD_PAGED``: K3, K4, K3-verify and their int8 forms in bf16, float16
+   and f32) at head_dim 32 and 256 against the plain version and the split
+   twin (``HD_PAGED_CASES``, ``HD_VERIFY_CASES``: the decode and spec ticks
+   of paths 14 and 15, G = 1 and 8, 80 query rows, split and tile edges, dead
+   and tail-only slots), and K1, K2a and K2b at head_dim 256 in bf16 and
+   float16 (``HD_FLASH_CASES``: path 15's prefill and training rows, ids up
+   and down, a boundary past a tile edge, Sq != Skv); every kernel called
+   twice gives the same bits.
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
    card's bound for the same work from this run's inputs; K1, K2a and K2b
@@ -99,7 +108,12 @@ no result line. It imports nothing of JAX or of the JAX package.
    beside the bf16 twin on the same values, the plain version, SDPA's
    backward in float16 with the same mask (K2) or cuBLAS float16 on the
    kernel's own two products and ``autograd.grad`` of the plain forward
-   (K5/K6), and the bound (989 TFLOP/s dense float16).
+   (K5/K6), and the bound (989 TFLOP/s dense float16). ``[hd-timing]``:
+   every paged entry point at head_dim 32 and 256 at the decode tick of
+   paths 14 and 15 (the verify forms at their spec tick), K1 at head_dim 256
+   at path 15's prefill and on one packed training row, K2a and K2b on that
+   row, each beside its plain version, SDPA (or SDPA's backward) and its
+   bound; the kernels line carries them under ``at_head_dims``.
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -189,6 +203,25 @@ no result line. It imports nothing of JAX or of the JAX package.
    (D = 32) in f32 with ``attention_impl=flash``, where the reference takes
    plain attention: one train step and one served prefill, finite, no flash
    launch of any dtype.
+6g. Main path 14, the README's quick start: ``infer/server.py --preset
+   tiny-llama --engine continuous --cache-mode paged`` (D = 32, 8/4 heads,
+   hidden 256, vocab 32000, 4 layers) built by ``create_server``, path 2's
+   12 requests over HTTP, then the same with ``--speculative on`` (its
+   greedy requests and the span prompts), in bf16, over int8 pools, in
+   float16 and in f32, each with and without int8 pools (``HD_SERVE_RUNS``):
+   the single-query K3 of those pools and that dtype on every decode step,
+   the verify on every round, no other paged kernel; one decode step's
+   logits against the plain paged version; greedy tokens against the same
+   requests through the plain versions (speculative: against the plain
+   run), identical or a near-tie. Main path 15, head_dim 256
+   (``GEMMA_SERVE``: google/gemma-2b's attention and MLP widths as the
+   repo's Llama architecture, 8 heads on 1 KV head, vocab 256000, tied
+   embeddings, ``attention_impl=flash``): the same runs, bf16 at full depth
+   (18 layers: K1 at D = 256 on every cold prefill, K3 on every decode step)
+   and every run at depth 2; then its training (``GEMMA_TRAIN_ARGS``, depth
+   4, B=1, S=2048, 3 steps: K1, K2a, K2b at D = 256), one step at depth 4
+   through the kernels against the plain versions, and one float16 and one
+   f32 step at depth 2 the same way.
 7. Main path 3: training. The serving weights and pools are freed first;
    then ``train()`` runs in-process with the launcher's arguments
    (``TRAIN_ARGS``: ``llama3-8b`` at full width and depth, bf16 masters,
@@ -249,8 +282,9 @@ no result line. It imports nothing of JAX or of the JAX package.
 
 Each main path's launch counts are zeroed just before it runs and read just
 after (path 5: before and after each policy's run). The paths run at full
-depth (the speculative checks over other pools and dtypes at depth 2): the
-whole script takes about seven minutes on an H100, the build included.
+depth (the speculative checks over other pools and dtypes, and path 15's
+runs but its first, at depth 2): the whole script takes about seven minutes
+on an H100, the build included.
 
 f32 matrix products run in full f32 here (TF32 off, set below): the port's
 lm head takes f32 products of bf16 values, as the JAX package's logits do,
@@ -407,55 +441,67 @@ H100_TF32_FLOPS = 495e12  # dense TF32, SXM data sheet (path 9's MFU)
 H100_F32_FLOPS = H100_TF32_FLOPS / 3
 H100_FFMA_FLOPS = 67e12
 
+# Each entry's "head_dims": the head dims its kernel was held against its
+# plain version at in this run (None: the MLP and projection kernels have
+# none).
 KERNELS = {
     "flash_fwd": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:127",
         "path": "both serving paths' cold prefills (and the served checkpoint's); "
-                "training forward and remat recompute, paths 3-5",
+                "training forward and remat recompute, paths 3-5; path 15 (D = 256)",
+        "head_dims": [32, 64, 128, 256],
     },
     "flash_dq": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:300",
-        "path": "training backward, every layer, paths 3-5",
+        "path": "training backward, every layer, paths 3-5 and 15 (D = 256)",
+        "head_dims": [32, 64, 128, 256],
     },
     "flash_dkv": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:362",
-        "path": "training backward, every layer, paths 3-5",
+        "path": "training backward, every layer, paths 3-5 and 15 (D = 256)",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_tail": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235",
-        "path": "continuous paged decode ticks (and the served checkpoint's)",
+        "path": "continuous paged decode ticks (and the served checkpoint's); paths 14 "
+                "(D = 32) and 15 (D = 256)",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:191",
         "path": "direct call",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_tail_int8": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (quantized=True)",
         "path": "int8 serving (path 6): continuous paged decode ticks over int8 pools",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_verify": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, :248)",
         "path": "speculative continuous serving (path 7): every verify round of every layer",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_verify_int8": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, quantized=True)",
         "path": "speculative continuous serving over int8 pools: every verify round",
+        "head_dims": [32, 64, 128, 256],
     },
     "flash_fwd_f32": {
         "route": "cuda",
@@ -463,48 +509,56 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/flash_attention.py:127 (float32 operands)",
         "path": "f32 serving (path 8): cold prefills of both engines; f32 training "
                 "(paths 9, 10): forward and remat recompute",
+        "head_dims": [64, 128, 256],
     },
     "flash_dq_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_f32.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:300 (float32 operands)",
         "path": "f32 training backward (paths 9, 10), every layer",
+        "head_dims": [64, 128, 256],
     },
     "flash_dkv_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_f32.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:362 (float32 operands)",
         "path": "f32 training backward (paths 9, 10), every layer",
+        "head_dims": [64, 128, 256],
     },
     "paged_tail_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (float32 operands)",
         "path": "f32 serving (path 8): continuous paged decode ticks",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_verify_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, float32 operands)",
         "path": "f32 speculative continuous serving: every verify round",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:191 (float32 operands)",
         "path": "direct call",
+        "head_dims": [32, 64, 128, 256],
     },
     "mlp_dgu_dwdown": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/mlp_bwd.cu",
         "replaces": "ditl_tpu/ops/mlp_bwd.py:102",
         "path": "training backward with mlp_bwd_impl=pallas, every layer, paths 4-5",
+        "head_dims": None,
     },
     "mlp_dh_dwgu": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/mlp_bwd.cu",
         "replaces": "ditl_tpu/ops/mlp_bwd.py:153",
         "path": "training backward with mlp_bwd_impl=pallas, every layer, paths 4-5",
+        "head_dims": None,
     },
     "proj_bwd": {
         "route": "cuda",
@@ -512,18 +566,21 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/projection.py:79",
         "path": "training backward with proj_bwd_impl=pallas: wq, wk, wv, wo of every "
                 "layer, paths 4-5",
+        "head_dims": None,
     },
     "mlp_dgu_dwdown_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/gemm_f32.cu",
         "replaces": "ditl_tpu/ops/mlp_bwd.py:102 (float32 operands)",
         "path": "f32 training under the kernel flags (path 10), every layer",
+        "head_dims": None,
     },
     "mlp_dh_dwgu_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/gemm_f32.cu",
         "replaces": "ditl_tpu/ops/mlp_bwd.py:153 (float32 operands)",
         "path": "f32 training under the kernel flags (path 10), every layer",
+        "head_dims": None,
     },
     "proj_bwd_f32": {
         "route": "cuda",
@@ -531,6 +588,7 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/projection.py:79 (float32 operands)",
         "path": "f32 training under the kernel flags (path 10): wq, wk, wv, wo of every "
                 "layer",
+        "head_dims": None,
     },
     "flash_fwd_f16": {
         "route": "cuda",
@@ -538,30 +596,35 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/flash_attention.py:127 (float16 operands)",
         "path": "float16 serving (path 12): every prefill of the lock-step engine, every "
                 "cold prefill of the continuous one",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_tail_f16": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (float16 operands)",
         "path": "float16 serving (path 12): continuous paged decode ticks",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_verify_f16": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, float16 operands)",
         "path": "float16 speculative continuous serving: every verify round",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_f16": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:191 (float16 operands)",
         "path": "direct call",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_tail_int8_f16": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (quantized=True, float16 q)",
         "path": "float16 serving over int8 pools (--kv-quant int8): continuous decode ticks",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_verify_int8_f16": {
         "route": "cuda",
@@ -569,12 +632,14 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, quantized=True, "
                     "float16 q)",
         "path": "float16 speculative serving over int8 pools: every verify round",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_tail_int8_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (quantized=True, float32 q)",
         "path": "f32 serving over int8 pools (path 11): continuous paged decode ticks",
+        "head_dims": [32, 64, 128, 256],
     },
     "paged_verify_int8_f32": {
         "route": "cuda",
@@ -582,30 +647,35 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, quantized=True, "
                     "float32 q)",
         "path": "f32 speculative serving over int8 pools: every verify round",
+        "head_dims": [32, 64, 128, 256],
     },
     "flash_dq_f16": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:300 (float16 operands)",
         "path": "float16 training (path 13): backward, every layer",
+        "head_dims": [32, 64, 128, 256],
     },
     "flash_dkv_f16": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:362 (float16 operands)",
         "path": "float16 training (path 13): backward, every layer",
+        "head_dims": [32, 64, 128, 256],
     },
     "mlp_dgu_dwdown_f16": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/mlp_bwd.cu",
         "replaces": "ditl_tpu/ops/mlp_bwd.py:102 (float16 operands)",
         "path": "float16 training under the kernel flags (path 13), every layer",
+        "head_dims": None,
     },
     "mlp_dh_dwgu_f16": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/mlp_bwd.cu",
         "replaces": "ditl_tpu/ops/mlp_bwd.py:153 (float16 operands)",
         "path": "float16 training under the kernel flags (path 13), every layer",
+        "head_dims": None,
     },
     "proj_bwd_f16": {
         "route": "cuda",
@@ -613,6 +683,7 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/projection.py:79 (float16 operands)",
         "path": "float16 training under the kernel flags (path 13): wq, wk, wv, wo of "
                 "every layer",
+        "head_dims": None,
     },
 }
 # The decode tick's paged-attention shape on the main path: 8 slots, 32
@@ -1101,7 +1172,7 @@ def _tiles(flash, name, seg, causal, s) -> str:
                       (flash.FWD_WARPGROUP_ROWS, flash.fwd_block_kv(128))),
         "flash_dq": ((flash.BWD_DQ_BLOCK_Q, flash.fwd_block_kv(128)),
                      (flash.FWD_WARPGROUP_ROWS, flash.fwd_block_kv(128))),
-        "flash_dkv": ((flash.BWD_DKV_BLOCK_Q, flash.BWD_DKV_BLOCK_KV),
+        "flash_dkv": ((flash.BWD_DKV_BLOCK_Q, flash.bwd_dkv_block_kv(128)),
                       (flash.BWD_DKV_BLOCK_Q, flash.BWD_DKV_WARPGROUP_KEYS)),
     }[name]
     counts = []
@@ -1261,11 +1332,12 @@ def phase_train(flash) -> dict:
 
 
 def phase_train_parity(flash, args=TRAIN_ARGS, num_layers: int = 2, batch_size: int = 1,
-                       tols=(STEP_LOSS_TOL, STEP_GNORM_TOL), tag: str = "train") -> None:
+                       tols=(STEP_LOSS_TOL, STEP_GNORM_TOL), tag: str = "train") -> dict:
     """One train step of ``args``' configuration at full width, depth
     ``num_layers``, B=``batch_size`` through K1/K2a/K2b (their f32 forms
     for float32) and again with ``flash_attention`` rebound to the plain
-    versions, from the same parameters and batch."""
+    versions, from the same parameters and batch (float16: K1-f16, K2a-f16,
+    K2b-f16). Returns the kernels step's launch counts."""
     import dataclasses
 
     from ditl_tpu_torch.config import DataConfig, TrainConfig
@@ -1279,7 +1351,7 @@ def phase_train_parity(flash, args=TRAIN_ARGS, num_layers: int = 2, batch_size: 
 
     config, _ = build_config(args)
     cfg = dataclasses.replace(config.model, num_layers=num_layers)
-    sfx = "_f32" if cfg.dtype == "float32" else ""
+    sfx = DTYPE_SFX[cfg.dtype][0]
     tcfg = TrainConfig(optimizer="adafactor", warmup_steps=1, total_steps=6)
     dcfg = DataConfig(batch_size=batch_size, seq_len=2048, synthetic=True)
     batch = next(iter(DataPipeline(synthetic_dataset(256, 0), ByteTokenizer(), dcfg,
@@ -1310,6 +1382,8 @@ def phase_train_parity(flash, args=TRAIN_ARGS, num_layers: int = 2, batch_size: 
             flash.flash_attention_fwd, flash.flash_attention_bwd = fwd, bwd
         layers = cfg.num_layers  # K1 in the forward and the remat recompute
         require(counts == ((0, 0, 0) if plain else (2 * layers, layers, layers)), counts)
+        if not plain:
+            launched = {k + sfx: n for k, n in zip(("flash_fwd", "flash_dq", "flash_dkv"), counts)}
         results.append((loss, gnorm))
         del params, opt, state, m
     (lk, gk), (lp, gp) = results
@@ -1319,6 +1393,7 @@ def phase_train_parity(flash, args=TRAIN_ARGS, num_layers: int = 2, batch_size: 
         f"{gk:.6f}; plain loss {lp:.6f} grad_norm {gp:.6f}; relative differences "
         f"{rel_l:.3e}, {rel_g:.3e} (tolerances {tols[0]}, {tols[1]})")
     require(rel_l <= tols[0] and rel_g <= tols[1], (rel_l, rel_g))
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -4293,69 +4368,19 @@ def phase_f16_int8_kernels(flash, paged, train_seg) -> dict:
         log(f"[f16-kernels] bf16 K1 digest {key}: {value} (expected {K1_DIGESTS.get(key)})")
     require(digests == K1_DIGESTS, "the bf16 K1 differs from the earlier build's bits")
 
-    paged.reset_launches()
-    calls = {name: 0 for name, *_ in NEW_PAGED}
-    for name, dtype_name, int8, form in NEW_PAGED:
-        dtype = getattr(torch, dtype_name)
-        worst[name] = 0.0
-        tag = "f16-kernels" if dtype == f16 else "f32-int8-kernels"
-        cases = NEW_PAGED_CASES if form != "verify" else _verify_cases() + [VERIFY_80]
-        for i, case in enumerate(cases):
-            if form == "verify":
-                label, b, nq, h, kv, d, ps, tl, lens, sts, maxp = case
-            else:
-                (label, b, h, kv, d, ps, tl, lens, sts), nq, maxp = case, None, None
-            q, kp, vp, table, ln, st, tk, tv = _paged_inputs(
-                b, h, kv, d, ps, tl, lens, sts, seed=1400 + 10 * i, n_pool=128, nq=nq,
-                maxp=maxp, share=b > 2, dtype=dtype)
-            scales = {}
-            if int8:
-                kp, vp, ks, vs = _int8_pools(kp, vp)
-                scales = dict(k_scale=ks, v_scale=vs)
-            tail = {} if form == "no_tail" else dict(tail_k=tk, tail_v=tv, starts=st)
-            lim = torch.minimum(st, ln).contiguous() if form == "no_tail" else ln
-            o, o2 = (paged.paged_attention(q, kp, vp, table, lim, **tail, **scales)
-                     for _ in range(2))
-            calls[name] += 2
-            args = (q, kp, vp, table, lim) if form == "no_tail" else (
-                q, kp, vp, table, lim, tk, tv, st, scales.get("k_scale"),
-                scales.get("v_scale"))
-            r = paged.paged_attention_plain(*args)
-            sp = paged.paged_attention_split_plain(*args)
-            extra = ""
-            if form == "verify":
-                o41 = paged.paged_attention(q[:, :1].contiguous(), kp, vp, table, lim,
-                                            **tail, **scales)
-                o3 = paged.paged_attention(q[:, 0].contiguous(), kp, vp, table, lim,
-                                           **tail, **scales)
-                require(torch.equal(o41[:, 0], o3), f"{name} {label}: Q = 1 differs")
-                calls[name.replace("verify", "tail")] += 2  # both single-query calls
-                extra = ", Q = 1 the 3-D call's bits"
-            torch.cuda.synchronize()
-            require(o.dtype == dtype and o.shape == q.shape
-                    and bool(torch.isfinite(o.float()).all()), f"{name} {label}")
-            require(torch.equal(o, o2), f"{name} {label}: two calls differ")
-            dead = [j for j, n_ in enumerate(lens) if n_ == 0]
-            require(all(bool((o[j] == 0).all()) for j in dead), f"{name}: dead slot")
-            err = _close(name, dtype, o, r)
-            err_split = _close(name, dtype, o, sp)
-            worst[name] = max(worst[name], err)
-            tol = (f"{F32_PAGED_TOL} of the largest magnitude" if dtype == torch.float32
-                   else O_TOL)
-            log(f"[{tag}] {name} {label}: B={b}{'' if nq is None else f' Q={nq}'} H={h} "
-                f"K={kv} D={d} ps={ps} T={tl}: max|o-plain| {err:.3e}, max|o-split plain| "
-                f"{err_split:.3e} (tolerance {tol}); two calls the same bits{extra}")
-    counts = {name: getattr(paged, _counter(name)) for name in calls}
-    require(counts == calls and sum(getattr(paged, c) for c in paged._COUNTERS.values())
-            == sum(calls.values()), (counts, calls))
+    errors, counts = _check_paged_entries(
+        paged, NEW_PAGED, NEW_PAGED_CASES, _verify_cases() + [VERIFY_80], 1400,
+        lambda dtype: "f16-kernels" if dtype == f16 else "f32-int8-kernels")
+    worst.update(errors)
     worst["paged_f16_direct_launches"] = counts["paged_f16"]
     return worst
 
 
 def _counter(name: str) -> str:
     """The launch counter of a kernels-line paged name (``paged_tail_f16``
-    -> ``launches_tail_f16``, ``paged_f16`` -> ``launches_f16``)."""
-    return "launches_" + name[len("paged_"):]
+    -> ``launches_tail_f16``, ``paged_f16`` -> ``launches_f16``, ``paged`` ->
+    ``launches``)."""
+    return "launches" + name[len("paged"):]
 
 
 def phase_f16_int8_timings(flash, paged, train_seg) -> dict:
@@ -4406,75 +4431,89 @@ def phase_f16_int8_timings(flash, paged, train_seg) -> dict:
             "library_ms": lib_ms, "library": f"sdpa {backend}"})
         del q, k, v, seg, mask, qt, kt, vt
 
-    tick, spec = PAGED_MAIN, SPEC_MAIN
     for name, dtype_name, int8, form in NEW_PAGED:
-        dtype = getattr(torch, dtype_name)
-        m = spec if form == "verify" else tick
-        starts, lengths = _spec_main_case() if form == "verify" else _paged_main_case()
-        kernel, plain, library, gather = [], [], [], []
-        for c in range(PAGED_COPIES):
-            q, kp, vp, table, ln, st, tk, tv = _paged_inputs(
-                m["b"], m["h"], m["kv"], m["d"], m["ps"], m["tail_len"], lengths, starts,
-                seed=1600 + c, share=False, nq=m.get("nq") if form == "verify" else None,
-                maxp=m.get("maxp"), dtype=dtype)
-            scales = {}
-            if int8:
-                kp, vp, ks, vs = _int8_pools(kp, vp)
-                scales = dict(k_scale=ks, v_scale=vs)
-            if form == "no_tail":
-                ln = torch.minimum(st, ln).contiguous()
-                kw, args = {}, (q, kp, vp, table, ln)
-                b, maxp, ps = q.shape[0], table.shape[1], kp.shape[2]
-                kt, vt = (p_[table.long()].transpose(2, 3).reshape(b, maxp * ps, m["kv"],
-                                                                   m["d"])
-                          .transpose(1, 2).contiguous() for p_ in (kp, vp))
-                cols = torch.arange(maxp * ps, device="cuda")
-                qs, mask = q[:, :, None], (cols[None] < ln[:, None])[:, None, None, :]
-                gather.append(lambda: None)
-            else:
-                kw = dict(tail_k=tk, tail_v=tv, starts=st, **scales)
-                args = (q, kp, vp, table, ln, tk, tv, st, *scales.values())
-                q4 = q if form == "verify" else q[:, None]
-                qs, kt, vt, mask = _verify_sdpa_inputs(q4, kp, vp, table, ln, st, tk, tv,
-                                                       **scales)
-                gather.append(functools.partial(_verify_sdpa_inputs, q4, kp, vp, table, ln,
-                                                st, tk, tv, **scales))
-            if c == 0:  # the bound's inputs
-                first = (q, kp, table, ln, st)
-            kernel.append(functools.partial(paged.paged_attention, q, kp, vp, table, ln,
-                                            **kw))
-            plain.append(functools.partial(paged.paged_attention_plain, *args))
-            library.append(functools.partial(F.scaled_dot_product_attention, qs, kt, vt,
-                                             attn_mask=mask, enable_gqa=True))
-        backend = _sdpa_backend(qs, kt, vt, mask, 0.0, False, enable_gqa=True)
-        ms = min(_graph_ms(kernel), _graph_ms(kernel))
-        plain_ms = _graph_ms(plain, rounds=1)
-        lib_ms = _graph_ms(library)
-        gather_ms = None if form == "no_tail" else _graph_ms(gather, rounds=1)
-        q, kp, table, ln, st = first
-        if form == "verify":
-            bound_ms, bound_by = _verify_bound(q, kp.shape[1], table, m["tail_len"], ln, st,
-                                               int8)
-        elif int8:
-            bound_ms, bound_by = _paged_int8_bound(q, kp, table, ln, st)
-        else:
-            bound_ms, bound_by = _paged_bound(q, kp, table, ln, st, form == "tail")
-        tag = "f16-timing" if dtype == f16 else "f32-int8-timing"
-        shape = (f"spec tick B={m['b']} Q={m['nq']}" if form == "verify"
-                 else f"decode tick B={m['b']}")
-        gathered = "" if gather_ms is None else (
-            f", the gather{' and dequantization' if int8 else ''} itself {gather_ms:.4f} ms")
-        log(f"[{tag}] {name} {shape} H={m['h']} K={m['kv']} D={m['d']} ps={m['ps']} "
-            f"T={m['tail_len']}, {PAGED_COPIES} input copies in turn: device (CUDA graph) "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({dtype_name}, enable_gqa, "
-            f"the plain version's mask, keys gathered{' and dequantized' if int8 else ''} "
-            f"beforehand; backend {backend}) {lib_ms:.4f} ms{gathered}, kernel / sdpa "
-            f"{ms / lib_ms:.2f}x; bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{bound_ms / ms:.1%} of bound ({SMI})")
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib_ms, "library": f"sdpa {backend}",
-                     "gather_ms": gather_ms}
+        tag = "f16-timing" if dtype_name == "float16" else "f32-int8-timing"
+        m = SPEC_MAIN if form == "verify" else PAGED_MAIN
+        out[name] = _time_paged(paged, name, dtype_name, int8, form, m, tag)
     return out
+
+
+def _time_paged(paged, name: str, dtype_name: str, int8: bool, form: str, m: dict,
+                tag: str) -> dict:
+    """One paged entry point's timing at the decode tick (``m``: b, h, kv, d,
+    ps, tail_len) or, for the verify, the spec tick (also nq, maxp), with
+    ``_paged_main_case``'s or ``_spec_main_case``'s ragged state: the kernel
+    (CUDA-graph device time over ``PAGED_COPIES`` input copies, the better of
+    two runs), the plain version, SDPA (``enable_gqa``) over the keys
+    gathered (int8: and dequantized to q's dtype) beforehand with the plain
+    version's mask, the gather timed apart, and the bound from the first
+    copy's inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    dtype = getattr(torch, dtype_name)
+    starts, lengths = _spec_main_case() if form == "verify" else _paged_main_case()
+    kernel, plain, library, gather = [], [], [], []
+    for c in range(PAGED_COPIES):
+        q, kp, vp, table, ln, st, tk, tv = _paged_inputs(
+            m["b"], m["h"], m["kv"], m["d"], m["ps"], m["tail_len"], lengths, starts,
+            seed=1600 + c, share=False, nq=m.get("nq") if form == "verify" else None,
+            maxp=m.get("maxp"), dtype=dtype)
+        scales = {}
+        if int8:
+            kp, vp, ks, vs = _int8_pools(kp, vp)
+            scales = dict(k_scale=ks, v_scale=vs)
+        if form == "no_tail":
+            ln = torch.minimum(st, ln).contiguous()
+            kw, args = {}, (q, kp, vp, table, ln)
+            b, maxp, ps = q.shape[0], table.shape[1], kp.shape[2]
+            kt, vt = (p_[table.long()].transpose(2, 3).reshape(b, maxp * ps, m["kv"],
+                                                               m["d"])
+                      .transpose(1, 2).contiguous() for p_ in (kp, vp))
+            cols = torch.arange(maxp * ps, device="cuda")
+            qs, mask = q[:, :, None], (cols[None] < ln[:, None])[:, None, None, :]
+            gather.append(lambda: None)
+        else:
+            kw = dict(tail_k=tk, tail_v=tv, starts=st, **scales)
+            args = (q, kp, vp, table, ln, tk, tv, st, *scales.values())
+            q4 = q if form == "verify" else q[:, None]
+            qs, kt, vt, mask = _verify_sdpa_inputs(q4, kp, vp, table, ln, st, tk, tv,
+                                                   **scales)
+            gather.append(functools.partial(_verify_sdpa_inputs, q4, kp, vp, table, ln,
+                                            st, tk, tv, **scales))
+        if c == 0:  # the bound's inputs
+            first = (q, kp, table, ln, st)
+        kernel.append(functools.partial(paged.paged_attention, q, kp, vp, table, ln,
+                                        **kw))
+        plain.append(functools.partial(paged.paged_attention_plain, *args))
+        library.append(functools.partial(F.scaled_dot_product_attention, qs, kt, vt,
+                                         attn_mask=mask, enable_gqa=True))
+    backend = _sdpa_backend(qs, kt, vt, mask, 0.0, False, enable_gqa=True)
+    ms = min(_graph_ms(kernel), _graph_ms(kernel))
+    plain_ms = _graph_ms(plain, rounds=1)
+    lib_ms = _graph_ms(library)
+    gather_ms = None if form == "no_tail" else _graph_ms(gather, rounds=1)
+    q, kp, table, ln, st = first
+    if form == "verify":
+        bound_ms, bound_by = _verify_bound(q, kp.shape[1], table, m["tail_len"], ln, st,
+                                           int8)
+    elif int8:
+        bound_ms, bound_by = _paged_int8_bound(q, kp, table, ln, st)
+    else:
+        bound_ms, bound_by = _paged_bound(q, kp, table, ln, st, form == "tail")
+    shape = (f"spec tick B={m['b']} Q={m['nq']}" if form == "verify"
+             else f"decode tick B={m['b']}")
+    gathered = "" if gather_ms is None else (
+        f", the gather{' and dequantization' if int8 else ''} itself {gather_ms:.4f} ms")
+    log(f"[{tag}] {name} {shape} H={m['h']} K={m['kv']} D={m['d']} ps={m['ps']} "
+        f"T={m['tail_len']}, {PAGED_COPIES} input copies in turn: device (CUDA graph) "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa ({dtype_name}, enable_gqa, "
+        f"the plain version's mask, keys gathered{' and dequantized' if int8 else ''} "
+        f"beforehand; backend {backend}) {lib_ms:.4f} ms{gathered}, kernel / sdpa "
+        f"{ms / lib_ms:.2f}x; bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{bound_ms / ms:.1%} of bound ({SMI})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "library": f"sdpa {backend}", "gather_ms": gather_ms}
 
 
 def phase_dtype_serve(flash, paged, dtype: str, kv_int8: bool = False,
@@ -5115,6 +5154,516 @@ def phase_f1(flash) -> dict:
     return {"loss": loss}
 
 
+# ---------------------------------------------------------------------------
+# Head dims 32 and 256 (paths 14 and 15): the paged kernels at D = 32 and 256
+# in every dtype and form, K1/K2a/K2b at D = 256 in bf16 and float16
+# ---------------------------------------------------------------------------
+
+# Every paged entry point: (kernels-line name, q's dtype, int8 pools, form).
+HD_PAGED = [
+    ("paged_tail", "bfloat16", False, "tail"), ("paged", "bfloat16", False, "no_tail"),
+    ("paged_verify", "bfloat16", False, "verify"),
+    ("paged_tail_int8", "bfloat16", True, "tail"),
+    ("paged_verify_int8", "bfloat16", True, "verify"),
+    ("paged_tail_f32", "float32", False, "tail"), ("paged_f32", "float32", False, "no_tail"),
+    ("paged_verify_f32", "float32", False, "verify"),
+] + NEW_PAGED
+# Single-query cases at the new head dims: (label, b, h, kv, d, ps, tail_len,
+# lengths, starts). Path 14's decode tick (tiny-llama: 8/4 heads, D = 32)
+# and path 15's (8 heads on 1 KV head, D = 256) with the main path's ragged
+# state; G = 1 and G = 8 at page 16 with keys ending one past a split and
+# on a split boundary, a tile across the last page and the tail, a dead
+# slot, a tail-only slot and starts == lengths.
+HD_PAGED_CASES = [
+    ("path 14 decode tick, G = 2", 8, 8, 4, 32, 256, 16, _paged_main_case()[1],
+     _paged_main_case()[0]),
+    ("D = 32, G = 1, split edges", 4, 4, 4, 32, 16, 16, [257, 256, 513, 140],
+     [257, 250, 500, 128]),
+    ("D = 32, G = 8, dead and tail-only slots", 4, 8, 1, 32, 16, 8, [0, 5, 38, 50],
+     [0, 0, 38, 45]),
+    ("path 15 decode tick, G = 8", 8, 8, 1, 256, 256, 16, _paged_main_case()[1],
+     _paged_main_case()[0]),
+    ("D = 256, G = 1, split edges", 4, 4, 4, 256, 16, 16, [257, 256, 513, 140],
+     [257, 250, 500, 128]),
+    ("D = 256, G = 8, dead and tail-only slots", 4, 8, 1, 256, 16, 8, [0, 5, 38, 50],
+     [0, 0, 38, 45]),
+]
+# Verify cases at the new head dims: (label, b, nq, h, kv, d, ps, tail_len,
+# lengths, starts, maxp). The spec tick of paths 14 and 15 (Q = 9: 18 and
+# 72 query rows), 80 rows at G = 8 (Q = 10), G = 1 with a tail longer than
+# 128 columns (query 0's limit before the split at tail column 128, query
+# 8's past it) and a tail-only slot, and Q = 5 at G = 8 (40 rows: three row
+# tiles).
+HD_VERIFY_CASES = [
+    ("path 14 spec tick", 8, 9, 8, 4, 32, 256, 54, _spec_main_case()[1],
+     _spec_main_case()[0], 8),
+    ("D = 32, G = 8, 80 rows", 2, 10, 8, 1, 32, 64, 40, [300, 77], [290, 64], 5),
+    ("D = 32, G = 1, long tail", 3, 9, 4, 4, 32, 16, 200, [381, 60, 30], [256, 30, 0], 16),
+    ("path 15 spec tick", 8, 9, 8, 1, 256, 256, 54, _spec_main_case()[1],
+     _spec_main_case()[0], 8),
+    ("D = 256, G = 8, 80 rows", 2, 10, 8, 1, 256, 64, 40, [300, 77], [290, 64], 5),
+    ("D = 256, G = 1, long tail", 3, 9, 4, 4, 256, 16, 200, [381, 60, 30], [256, 30, 0],
+     16),
+    ("D = 256, G = 8, Q = 5", 4, 5, 8, 1, 256, 16, 24, [0, 20, 40, 21], [0, 16, 33, 20], 4),
+]
+# K1/K2a/K2b at D = 256: (label, b, s_q, s_kv, h, kv, causal, ids). Path 15's
+# prefill (8 heads on 1 KV head, right-padded), its training batch's packed
+# rows, ids up and down at G = 2, a boundary one row past a tile edge, and
+# Sq != Skv without a mask.
+HD_FLASH_CASES = [
+    ("path 15 prefill, right-padded", 4, 512, 512, 8, 1, True, [512, 401, 230, 97]),
+    ("training batch, packed rows", 4, 2048, 2048, 8, 1, True, "train"),
+    ("ids up and down, G = 2", 2, 300, 300, 4, 2, True, "nonmono"),
+    ("boundary past a tile edge", 1, 257, 257, 4, 2, True, "edge1"),
+    ("non-causal, Sq != Skv", 2, 200, 333, 4, 4, False, None),
+]
+HD_FLASH = [("flash_fwd", "flash_dq", "flash_dkv", "bfloat16"),
+            ("flash_fwd_f16", "flash_dq_f16", "flash_dkv_f16", "float16"),
+            ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32", "float32")]
+
+
+def _paged_case_inputs(case, form, dtype, int8, seed):
+    """A single-query or verify case's inputs (``_paged_inputs``), int8
+    pools and scales where ``int8``: the kernel's call, and the plain
+    versions' positional arguments."""
+    import torch
+
+    if form == "verify":
+        label, b, nq, h, kv, d, ps, tl, lens, sts, maxp = case
+    else:
+        (label, b, h, kv, d, ps, tl, lens, sts), nq, maxp = case, None, None
+    q, kp, vp, table, ln, st, tk, tv = _paged_inputs(
+        b, h, kv, d, ps, tl, lens, sts, seed=seed, n_pool=128, nq=nq, maxp=maxp,
+        share=b > 2, dtype=dtype)
+    scales = {}
+    if int8:
+        kp, vp, ks, vs = _int8_pools(kp, vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    if form == "no_tail":
+        ln = torch.minimum(st, ln).contiguous()
+        return (q, kp, vp, table, ln), {}, (q, kp, vp, table, ln), lens
+    kw = dict(tail_k=tk, tail_v=tv, starts=st, **scales)
+    return (q, kp, vp, table, ln), kw, (q, kp, vp, table, ln, tk, tv, st,
+                                        scales.get("k_scale"), scales.get("v_scale")), lens
+
+
+def _check_paged_entries(paged, entries, cases, verify_cases, seed: int, tag_of):
+    """Each paged entry point of ``entries`` ((kernels-line name, q's dtype,
+    int8 pools, form)) against the plain version and the split twin
+    (``_close``) on ``cases`` (single-query forms) or ``verify_cases``: two
+    calls the same bits, a 4-D q with Q = 1 the 3-D call's bits, a dead
+    slot zeros; ``tag_of(dtype)`` tags the log lines. Every launch counts on
+    its own counter and on no other. Returns the largest error and the
+    launches, by name."""
+    import torch
+
+    worst, calls = {}, {}
+    paged.reset_launches()
+    for name, dtype_name, int8, form in entries:
+        dtype = getattr(torch, dtype_name)
+        for i, case in enumerate(verify_cases if form == "verify" else cases):
+            args, kw, plain_args, lens = _paged_case_inputs(case, form, dtype, int8,
+                                                            seed + 10 * i)
+            q = args[0]
+            o, o2 = (paged.paged_attention(*args, **kw) for _ in range(2))
+            calls[name] = calls.get(name, 0) + 2
+            r = paged.paged_attention_plain(*plain_args)
+            sp = paged.paged_attention_split_plain(*plain_args)
+            extra = ""
+            if form == "verify":
+                o41 = paged.paged_attention(q[:, :1].contiguous(), *args[1:], **kw)
+                o3 = paged.paged_attention(q[:, 0].contiguous(), *args[1:], **kw)
+                single = name.replace("verify", "tail")
+                calls[single] = calls.get(single, 0) + 2
+                extra = ", Q = 1 the 3-D call's bits"
+            torch.cuda.synchronize()
+            label = case[0]
+            require(o.dtype == dtype and o.shape == q.shape
+                    and bool(torch.isfinite(o.float()).all()), f"{name} {label}")
+            require(torch.equal(o, o2), f"{name} {label}: two calls differ")
+            if form == "verify":
+                require(torch.equal(o41[:, 0], o3), f"{name} {label}: Q = 1 differs")
+            dead = [j for j, n_ in enumerate(lens) if n_ == 0]
+            require(all(bool((o[j] == 0).all()) for j in dead), f"{name}: dead slot")
+            err = _close(name, dtype, o, r)
+            err_split = _close(name, dtype, o, sp)
+            worst[name] = max(worst.get(name, 0.0), err)
+            tol = (f"{F32_PAGED_TOL} of the largest magnitude" if dtype == torch.float32
+                   else O_TOL)
+            log(f"[{tag_of(dtype)}] {name} D={q.shape[-1]} {label}: q {tuple(q.shape)}, "
+                f"pools {tuple(args[1].shape)}: max|o-plain| {err:.3e}, max|o-split plain| "
+                f"{err_split:.3e} (tolerance {tol}); two calls the same bits{extra}")
+            del args, kw, plain_args, o, o2, r, sp
+    counts = {name: getattr(paged, _counter(name)) for name in calls}
+    require(counts == calls and sum(getattr(paged, c) for c in paged._COUNTERS.values())
+            == sum(calls.values()), (counts, calls))
+    return worst, counts
+
+
+def phase_head_dim_kernels(flash, paged, train_seg) -> dict:
+    """[hd-kernels]: the instances this slice added, each against its plain
+    version. Every paged entry point (``HD_PAGED``: K3, K4, K3-verify and
+    their int8 forms, in bf16, float16 and f32) at D = 32 and 256 against
+    the plain version and the split twin (``_close``: bf16 and float16 at
+    ``O_TOL``, f32 within ``F32_PAGED_TOL`` of the largest magnitude) on
+    ``HD_PAGED_CASES`` or ``HD_VERIFY_CASES`` (G = 1 and 8, 80 query rows,
+    split and tile edges), a 4-D q with Q = 1 the 3-D call's bits; K1, K2a
+    and K2b at D = 256 in bf16, float16 and f32 on ``HD_FLASH_CASES`` (o and
+    lse at ``O_TOL``/``LSE_TOL``, each gradient within ``BWD_TOL`` of its
+    largest magnitude; f32 at ``F32_O_TOL`` and ``F32_BWD_TOL``). Every
+    kernel called twice gives the same bits.
+    Returns the largest errors by kernels-line name and K4's direct-call
+    launches by name (``<name>_direct``)."""
+    import torch
+
+    worst, counts = _check_paged_entries(paged, HD_PAGED, HD_PAGED_CASES, HD_VERIFY_CASES,
+                                         2000, lambda dtype: "hd-kernels")
+    for name in ("paged", "paged_f16", "paged_f32"):
+        worst[name + "_direct"] = counts[name]
+
+    for fwd_name, dq_name, dkv_name, dtype_name in HD_FLASH:
+        dtype = getattr(torch, dtype_name)
+        f32 = dtype == torch.float32
+        o_tol, lse_tol, bwd_tol = ((F32_O_TOL, F32_O_TOL, F32_BWD_TOL) if f32
+                                   else (O_TOL, LSE_TOL, BWD_TOL))
+        for name in (fwd_name, dq_name, dkv_name):
+            worst[name] = 0.0
+        for i, (label, b, sq, skv, h, kv, causal, spec) in enumerate(HD_FLASH_CASES):
+            seg = _bwd_segment_ids(spec, b, sq, train_seg)
+            flash.reset_launches()
+            q, k, v, o, lse, do = _bwd_inputs(b, sq, skv, h, kv, 256, causal, seg,
+                                              seed=2100 + i, flash=flash, dtype=dtype)
+            o2, lse2 = flash.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+            got = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                            segment_ids=seg)
+            again = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                              segment_ids=seg)
+            sfx = DTYPE_SFX[dtype_name][0]
+            require(tuple(getattr(flash, c + sfx) for c in
+                          ("launches", "launches_dq", "launches_dkv")) == (2, 2, 2),
+                    f"{fwd_name} {label}: launch counts")
+            o_ref, lse_ref = flash.flash_attention_plain(q, k, v, causal=causal,
+                                                         segment_ids=seg)
+            want = flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                   segment_ids=seg)
+            torch.cuda.synchronize()
+            require(torch.equal(o, o2) and torch.equal(lse, lse2)
+                    and all(torch.equal(x, y) for x, y in zip(got, again)),
+                    f"{fwd_name} {label}: two calls differ")
+            require(bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all()),
+                    f"{fwd_name} {label}: non-finite")
+            torch.testing.assert_close(o.float(), o_ref.float(), atol=o_tol, rtol=o_tol)
+            torch.testing.assert_close(lse, lse_ref, atol=lse_tol, rtol=lse_tol)
+            err = float((o.float() - o_ref.float()).abs().max())
+            worst[fwd_name] = max(worst[fwd_name], err)
+            shape = f"B={b} Sq={sq} Skv={skv} H={h} K={kv} D=256 causal={causal}"
+            log(f"[hd-kernels] {fwd_name} {label}: {shape}: max|o-plain| {err:.3e}, "
+                f"max|lse-plain| {float((lse - lse_ref).abs().max()):.3e} (tolerance "
+                f"{o_tol} / {lse_tol}); two calls the same bits")
+            _check_scaled(f"{dq_name}/{dkv_name} {label}: {shape}",
+                          list(zip(("dq", "dk", "dv"), got, want)), bwd_tol, "hd-kernels")
+            errs = [float((x.float() - r.float()).abs().max()) for x, r in zip(got, want)]
+            worst[dq_name] = max(worst[dq_name], errs[0])
+            worst[dkv_name] = max(worst[dkv_name], errs[1], errs[2])
+            del q, k, v, o, lse, do, o2, lse2, got, again, o_ref, lse_ref, want
+    log(f"[hd-kernels] K1, K2a and K2b at D = 256 (bf16, float16, f32): two calls the same "
+        f"bits in every case")
+    return worst
+
+
+
+# Path 14's decode tick (tiny-llama: 8 query on 4 KV heads, D = 32) and path
+# 15's (8 on 1, D = 256), at the main path's slots, page and tail; their spec
+# ticks (Q = 9, 8 pages a slot, a 54-column tail).
+HD_TICKS = {32: dict(b=8, h=8, kv=4, d=32, ps=256, tail_len=16),
+            256: dict(b=8, h=8, kv=1, d=256, ps=256, tail_len=16)}
+HD_SPEC_TICKS = {d: dict(m, nq=9, maxp=8, tail_len=54) for d, m in HD_TICKS.items()}
+
+
+def phase_head_dim_timings(flash, paged, train_seg) -> dict:
+    """[hd-timing]: the new instances' times beside their plain versions,
+    their library calls and their bounds (``_time_paged``'s and the flash
+    timings' rules): every paged entry point of ``HD_PAGED`` at path 14's
+    and path 15's decode tick (the verify forms at their spec tick); K1 at
+    D = 256 in bf16, float16 and f32 at path 15's prefill (B=4, S=512, 8 heads on
+    1 KV head, right-padded) and on one row of the training batch's packed
+    documents (B=1, S=2048, path 15's training shape), against SDPA with
+    the same mask; K2a and K2b at that training shape, each launch alone,
+    against SDPA's backward with the same mask (all three gradients).
+    Returns {kernels-line name: {head_dim: timing}}."""
+    import torch
+    import torch.nn.functional as F
+
+    out: dict = {}
+    for name, dtype_name, int8, form in HD_PAGED:
+        for d in (32, 256):
+            m = (HD_SPEC_TICKS if form == "verify" else HD_TICKS)[d]
+            out.setdefault(name, {})[d] = _time_paged(paged, name, dtype_name, int8, form, m,
+                                                      "hd-timing")
+
+    def best(fn, iters=20):
+        return min(_time_ms(fn, iters=iters), _time_ms(fn, iters=iters))
+
+    for fwd_name, dq_name, dkv_name, dtype_name in HD_FLASH:
+        dtype = getattr(torch, dtype_name)
+        for label, b, s, seg in (("path 15 prefill", 4, 512, [512, 401, 230, 97]),
+                                 ("path 15 training row, packed", 1, 2048, "train")):
+            seg = (_bwd_segment_ids(seg, b, s, train_seg) if seg != "train"
+                   else train_seg[:1].contiguous())
+            q, k, v, o, lse, do = _bwd_inputs(b, s, s, 8, 1, 256, True, seg, seed=2300,
+                                              flash=flash, dtype=dtype)
+            mask = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()[None]
+            mask = (mask & (seg[:, :, None] == seg[:, None, :]))[:, None]
+            qt = q.transpose(1, 2).detach().requires_grad_()
+            kt, vt = (x.repeat_interleave(8, dim=2).transpose(1, 2).detach().requires_grad_()
+                      for x in (k, v))
+            backend = _sdpa_backend(qt, kt, vt, mask, 0.0, False)
+            ms = best(lambda: flash.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg))
+            lib_ms = best(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+            plain_ms = _time_ms(lambda: flash.flash_attention_plain(
+                q, k, v, causal=True, segment_ids=seg), iters=3, warmup=1)
+            bound_ms, bound_by = _flash_bound(q, k, seg, True)
+            shape = f"B={b} S={s} H=8 K=1 D=256 causal+seg"
+            log(f"[hd-timing] {fwd_name} {label} {shape}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, sdpa ({dtype_name}, same mask; backend {backend}) "
+                f"{lib_ms:.4f} ms, kernel / sdpa {ms / lib_ms:.2f}x, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {bound_ms / ms:.1%} of bound ({SMI})")
+            out.setdefault(fwd_name, {}).setdefault(256, {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms, "library": f"sdpa {backend}", "shape": label})
+            if s != 2048:
+                del q, k, v, o, lse, do, qt, kt, vt, mask
+                continue
+            run_dq, run_dkv, keep = _bwd_launchers(flash, q, k, v, o, lse, do, seg, True)
+            out_t = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            do_t = do.transpose(1, 2)
+            lib_ms = best(lambda: torch.autograd.grad(out_t, (qt, kt, vt), grad_outputs=do_t,
+                                                      retain_graph=True), iters=10)
+            plain_ms = _time_ms(lambda: flash.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=True, segment_ids=seg), iters=3, warmup=1)
+            for name, run, kind in ((dq_name, run_dq, "dq"), (dkv_name, run_dkv, "dkv")):
+                ms = best(run, iters=10)
+                bound_ms, bound_by = _bwd_bound(q, k, seg, True, kind)
+                log(f"[hd-timing] {name} {label} {shape}: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms (dq, dk, dv together), sdpa backward ({dtype_name}, "
+                    f"the same mask, all three gradients) {lib_ms:.4f} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound ({SMI})")
+                out.setdefault(name, {})[256] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms,
+                    "library": f"sdpa backward {backend}", "shape": label}
+            del q, k, v, o, lse, do, qt, kt, vt, mask, keep, out_t, do_t
+    return out
+
+
+# Path 15: google/gemma-2b's published attention and MLP widths (its
+# config.json: vocab 256000, hidden 2048, intermediate 16384, 18 layers, 8
+# heads on 1 KV head, head_dim 256, rope_theta 10000, rms_norm_eps 1e-6,
+# tied embeddings, 8192 positions) as the repo's Llama architecture (SwiGLU
+# without GeGLU, no embedding scale, no norm offset), through ModelConfig
+# fields both packages have: server overrides, not a preset.
+GEMMA_WIDTHS = ["name=gemma-2b-widths", "vocab_size=256000", "hidden_size=2048",
+                "intermediate_size=16384", "num_layers=18", "num_heads=8", "num_kv_heads=1",
+                "head_dim=256", "max_seq_len=8192", "rope_theta=10000.0", "rms_norm_eps=1e-6",
+                "tie_embeddings=true"]
+GEMMA_SERVE = [a for o in GEMMA_WIDTHS + ["attention_impl=flash"] for a in ("--override", o)]
+# Path 15's training: 3 steps at depth 4, B=1, S=2048, as paths 3-5 (bf16
+# masters, adafactor, flash, the fused loss, full remat).
+GEMMA_TRAIN_ARGS = ["model." + o for o in GEMMA_WIDTHS] + [
+    "model.num_layers=4", "model.param_dtype=bfloat16", "model.attention_impl=flash",
+    "model.loss_impl=fused", "model.loss_block_tokens=4096", "model.remat=full",
+    "train.optimizer=adafactor", "train.warmup_steps=1", "train.total_steps=3",
+    "train.log_every=1", "data.synthetic=true", "data.batch_size=1", "data.seq_len=2048"]
+# Its float16 leg: float16 compute over f32 masters (path 13's dtypes); its
+# f32 leg: f32 masters and compute.
+GEMMA_F16_ARGS = [a.replace("model.param_dtype=bfloat16", "model.param_dtype=float32")
+                  for a in GEMMA_TRAIN_ARGS] + ["model.dtype=float16"]
+GEMMA_F32_ARGS = [a.replace("model.param_dtype=bfloat16", "model.param_dtype=float32")
+                  for a in GEMMA_TRAIN_ARGS] + ["model.dtype=float32"]
+# The serving runs of paths 14 and 15: (tag, server flags, compute dtype, int8
+# pools). Each runs plain, then with --speculative on.
+HD_SERVE_RUNS = [
+    ("bf16", [], "bfloat16", False),
+    ("int8", ["--kv-quant", "int8"], "bfloat16", True),
+    ("f16", ["--override", "dtype=float16"], "float16", False),
+    ("f16-int8", ["--override", "dtype=float16", "--kv-quant", "int8"], "float16", True),
+    ("f32", ["--override", "dtype=float32"], "float32", False),
+    ("f32-int8", ["--override", "dtype=float32", "--kv-quant", "int8"], "float32", True),
+]
+
+
+def _hd_serve(flash, paged, base: list, tag: str, dtype: str, int8: bool, spec: bool,
+              against: dict | None):
+    """One serving run of path 14 or 15: ``infer/server.py`` as ``create_server``
+    builds it from ``base`` plus ``--engine continuous --cache-mode paged
+    --slots 8 --page-size 256 --max-cache-len 2048`` (and ``--speculative
+    on``), the continuous traffic over HTTP (speculative: its greedy
+    requests plus the span prompts). The single-query K3 of the run's pools
+    and dtype on every decode step of every layer (speculative: the verify
+    on every round), no other paged kernel, K1 on every cold prefill where
+    ``attention_impl=flash`` (none at D = 32, where the reference's dispatch
+    and the port take plain attention). Without
+    speculation one decode step's logits against the plain paged version
+    (``_check_decode_step``); greedy tokens against ``against`` (a run's
+    outputs by prompt) or, where None, the same requests through the plain
+    versions on a plain engine over the same weights, each identical or a
+    near-tie. Returns the launch counts and the greedy outputs."""
+    from ditl_tpu_torch.infer import server as server_mod
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+
+    server = server_mod.create_server([
+        *base, "--device", "cuda", "--host", "127.0.0.1", "--port", "0", "--seed", "0",
+        "--engine", "continuous", "--cache-mode", "paged", "--slots", "8", "--page-size",
+        "256", "--max-cache-len", "2048", *(["--speculative", "on"] if spec else [])])
+    gen = server.RequestHandlerClass.generator
+    engine = server.engine._engine
+    cfg, tok = gen.cfg, gen.tokenizer
+    require((cfg.dtype, cfg.kv_cache_dtype == "int8", engine.speculative) == (dtype, int8, spec),
+            cfg)
+    recording = _recording_engine(engine)
+    server.engine.close()  # the server's own engine thread; the recording one takes over
+    server.RequestHandlerClass.threaded_engine = recording
+    server.engine = recording
+    sfx = DTYPE_SFX[dtype][0]
+    kernel = ("paged_verify" if spec else "paged_tail") + ("_int8" if int8 else "") + sfx
+    requests = _continuous_requests()[0]
+    if spec:
+        requests = [p for p in requests + _span_requests() if not p.get("temperature")]
+    outputs, n, other, st, wall = _serve_greedy(server, recording, flash, paged, requests,
+                                                _counter(kernel))
+    k1 = getattr(flash, "launches" + sfx)  # read right after
+    k1_others = sum(getattr(flash, c) for _, _, c in flash._ENTRIES.values()) - k1
+    layers = cfg.num_layers
+    steps = st["speculative"]["verify_rounds"] if spec else st["decode_steps"]
+    require(n == layers * steps > 0 and other == 0, (tag, n, other, steps))
+    # K1 runs where the reference's dispatch takes its kernel (D = 64 or a
+    # multiple of 128, here at the engine's 2048-token buckets)
+    flash_on = cfg.attention_impl == "flash" and flash.supports(2048, 2048, cfg.head_dim)
+    want_k1 = layers * st["prefills_cold"] if flash_on else 0
+    require(k1_others == 0 and (spec or k1 == want_k1), (tag, k1, want_k1, k1_others))
+    log(f"[{tag}] {cfg.name} D={cfg.head_dim} {layers} layers, {dtype}"
+        f"{' over int8 pools' if int8 else ''}{', --speculative on' if spec else ''}: "
+        f"{len(requests)} requests in {wall:.3f}s; {kernel} launches {n} = {layers} layers x "
+        f"{steps} {'verify rounds' if spec else 'decode steps'}, no other paged kernel; "
+        f"K1{sfx} launches {k1} ({st['prefills_cold']} cold prefills"
+        f"{'' if flash_on else ': plain attention, as the reference dispatches'}) ({SMI})")
+    if not spec:
+        _check_decode_step(engine, paged, tag, kernel)
+    greedy_keys = {(tuple([tok.bos_id] + tok.encode(p["prompt"])), p["max_tokens"])
+                   for p in requests if not p.get("temperature")}
+    greedy = {key: outs for key, outs in outputs.items() if key in greedy_keys}
+    if against is None:
+        fwd, wrapper = flash.flash_attention_fwd, paged.paged_attention
+        flash.flash_attention_fwd = flash.flash_attention_plain
+        paged.paged_attention = paged.paged_attention_plain
+        try:
+            plain_engine = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
+                                            max_cache_len=2048, cache_mode="paged",
+                                            page_size=256, device="cuda")
+            rid = {plain_engine.submit(list(ids), max_new_tokens=m): (ids, m)
+                   for ids, m in sorted(greedy)}
+            against = {rid[r]: [toks] for r, toks in plain_engine.run().items()}
+            del plain_engine
+        finally:
+            flash.flash_attention_fwd, paged.paged_attention = fwd, wrapper
+    pairs = [(list(key[0]), o, against[key][0]) for key in sorted(greedy) if key in against
+             for o in greedy[key]]
+    require(len(pairs) >= 8, (tag, len(pairs)))
+    _check_against(gen, cfg, pairs, tag)
+    del server, gen, engine, recording
+    return {kernel: n, "flash_fwd" + sfx: k1}, greedy
+
+
+def phase_head_dim_serve(flash, paged, path: int) -> dict:
+    """Main path 14 (``infer/server.py --preset tiny-llama --engine continuous
+    --cache-mode paged``, the README's quick start: D = 32, 8/4 heads, hidden
+    256, vocab 32000, 4 layers, weights from seed 0) or path 15
+    (``GEMMA_SERVE``: D = 256, 8 heads on 1 KV head, ``attention_impl=flash``;
+    full depth in bf16, then every run at depth 2): each of
+    ``HD_SERVE_RUNS`` through ``_hd_serve``, plain (greedy tokens held to the
+    plain versions') and then with ``--speculative on`` (held to the plain
+    run's), so every single-query and verify form at that head dim launches
+    on a run. Returns the launch counts summed by kernels-line name."""
+    import gc
+
+    import torch
+
+    total: dict = {}
+    for tag, flags, dtype, int8 in HD_SERVE_RUNS:
+        if path == 14:
+            base, depths = ["--preset", "tiny-llama", *flags], [[]]
+        else:
+            base = [*GEMMA_SERVE, *flags]
+            depths = ([[]] if tag == "bf16" else []) + [["--override", "num_layers=2"]]
+        for depth in depths:
+            plain_out = None
+            for spec in ((False,) if path == 15 and not depth else (False, True)):
+                label = f"path{path}-{tag}" + ("-depth2" if depth else "") + (
+                    "-spec" if spec else "")
+                counts, outs = _hd_serve(flash, paged, base + depth, label, dtype, int8, spec,
+                                         plain_out if spec else None)
+                plain_out = plain_out if spec else outs
+                for key, value in counts.items():
+                    total[key] = total.get(key, 0) + value
+                gc.collect()
+                torch.cuda.empty_cache()
+    log(f"[path{path}] launches by kernel: {total}")
+    return total
+
+
+def phase_head_dim_train(flash) -> dict:
+    """Main path 15's training: ``train()`` on ``GEMMA_TRAIN_ARGS`` (D = 256 at
+    gemma-2b's widths, depth 4, B=1, S=2048, bf16 masters, adafactor, flash,
+    the fused loss, full remat), 3 steps: finite, falling losses; K1 2 x 4 a
+    step, K2a and K2b 4 a step (D = 256), no other dtype's kernel. Then one
+    step at depth 4 through the kernels against the plain versions
+    (``STEP_LOSS_TOL``/``STEP_GNORM_TOL``), one float16 step at depth 2
+    (``GEMMA_F16_ARGS``: K1-f16, K2a-f16, K2b-f16 against the plain versions,
+    bf16's tolerances, which §2 holds the float16 kernels to), and one f32
+    step at depth 2 (``GEMMA_F32_ARGS``: K1-f32, K2a-f32, K2b-f32,
+    ``F32_STEP_LOSS_TOL``/``F32_STEP_GNORM_TOL``). Returns the launch
+    counts."""
+    from ditl_tpu_torch.launch import build_config
+    from ditl_tpu_torch.train.trainer import train
+
+    config, device = build_config(GEMMA_TRAIN_ARGS)
+    cfg = config.model
+    require((cfg.vocab_size, cfg.hidden_size, cfg.intermediate_size, cfg.num_layers,
+             cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.tie_embeddings,
+             cfg.param_dtype, cfg.attention_impl, device)
+            == (256000, 2048, 16384, 4, 8, 1, 256, True, "bfloat16", "flash", "cuda"), cfg)
+    counters = [c for _, _, c in flash._ENTRIES.values()]
+    flash.reset_launches()  # this path's counts start here
+    summary = train(config, device=device)
+    counts = {c: getattr(flash, c) for c in counters}  # read right after the run
+    losses = summary["losses"]
+    steps, layers = config.train.total_steps, cfg.num_layers
+    require(summary["steps"] == steps and all(x == x and abs(x) != float("inf")
+                                              for x in losses) and losses[-1] < losses[0],
+            losses)
+    want = {c: 0 for c in counters}
+    want.update(launches=2 * layers * steps, launches_dq=layers * steps,
+                launches_dkv=layers * steps)
+    require(counts == want, (counts, want))
+    tps = summary["tokens_per_sec_per_chip_p50"]
+    mfu = _model_flops_per_token(cfg, config.data.seq_len) * 3 * tps / H100_BF16_FLOPS
+    log(f"[path15-train] {cfg.name} at depth {layers} ({summary['params_m']:.1f}M parameters, "
+        f"D = 256, bf16 masters, adafactor, flash, fused loss, full remat) B=1 S=2048, "
+        f"{steps} steps: losses {[round(x, 4) for x in losses]}; step p50 "
+        f"{summary['step_time_p50_s']:.3f} s, {tps:.1f} tokens/s, MFU {mfu:.1%}, peak "
+        f"{summary['peak_device_memory_gib']:.2f} GiB; K1 {counts['launches']} = 2 x {layers} "
+        f"x {steps}, K2a {counts['launches_dq']} and K2b {counts['launches_dkv']} = {layers} x "
+        f"{steps} ({SMI})")
+    parity = phase_train_parity(flash, GEMMA_TRAIN_ARGS, num_layers=4, tag="path15-train")
+    f16 = phase_train_parity(flash, GEMMA_F16_ARGS, num_layers=2, tag="path15-train-f16")
+    f32 = phase_train_parity(flash, GEMMA_F32_ARGS, num_layers=2,
+                             tols=(F32_STEP_LOSS_TOL, F32_STEP_GNORM_TOL), tag="path15-train-f32")
+    launched = {"flash_fwd": counts["launches"], "flash_dq": counts["launches_dq"],
+                "flash_dkv": counts["launches_dkv"]}
+    return {k: sum(d.get(k, 0) for d in (launched, parity, f16, f32))
+            for k in {**launched, **parity, **f16, **f32}}
+
+
 def main() -> int:
     import gc
 
@@ -5143,6 +5692,7 @@ def main() -> int:
     errors.update(phase_f32_kernels(flash, paged, train_seg))
     errors.update(phase_f16_int8_kernels(flash, paged, train_seg))
     errors.update(phase_f16_bwd_kernels(flash, mlp_bwd, proj, paged, train_seg))
+    hd_errors = phase_head_dim_kernels(flash, paged, train_seg)
     timings = phase_timings(flash)
     train_timings = phase_train_timings(flash, train_seg)
     timings.update(train_timings)
@@ -5152,6 +5702,7 @@ def main() -> int:
     timings.update(phase_f32_timings(flash, paged, train_seg))
     timings.update(phase_f16_int8_timings(flash, paged, train_seg))
     timings.update(phase_f16_bwd_timings(flash, mlp_bwd, proj, train_seg))
+    hd_timings = phase_head_dim_timings(flash, paged, train_seg)
     errors.update(phase_mm_kernels(mlp_bwd, proj))
     timings.update(phase_mm_timings(mlp_bwd, proj))
     errors.update(phase_f32_mm_kernels(mlp_bwd, proj))
@@ -5227,6 +5778,11 @@ def main() -> int:
     phase_f1(flash)
     gc.collect()
     torch.cuda.empty_cache()
+    path14 = phase_head_dim_serve(flash, paged, 14)
+    path15 = phase_head_dim_serve(flash, paged, 15)
+    path15_train = phase_head_dim_train(flash)
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[train] after freeing the serving state: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     training = phase_train(flash)
@@ -5287,12 +5843,32 @@ def main() -> int:
                    for k in ("mlp_dgu_dwdown", "mlp_dh_dwgu", "proj_bwd")}}
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
             (lockstep, continuous))
+    # Paths 14 (D = 32) and 15 (D = 256): their launches join each kernel's,
+    # K4's direct calls at those head dims its direct count, and each
+    # kernel's error is its worst at any head dim.
+    by_dim = {}
+    for name in KERNELS:
+        by_dim[name] = {"14": path14.get(name, 0), "15": path15.get(name, 0)
+                        + path15_train.get(name, 0)}
+        launches[name] = launches.get(name, 0) + hd_errors.pop(name + "_direct", 0) + sum(
+            by_dim[name].values())
+        if name in hd_errors:
+            errors[name] = max(errors[name], hd_errors[name])
+    # Every single-query and verify form ran on path 14 (D = 32) and on path
+    # 15 (D = 256), and K1, K2a, K2b in every dtype on path 15.
+    for name in KERNELS:
+        forms = name.startswith("paged_") and name not in ("paged_f16", "paged_f32")  # not K4
+        d256 = forms or name.startswith("flash_")
+        require((not forms or by_dim[name]["14"] > 0) and (not d256 or by_dim[name]["15"] > 0),
+                (name, by_dim[name]))
     kernels = []
     for name, meta in KERNELS.items():
         if launches.get(name, 0) < 1:
             raise AssertionError(f"kernel {name} was not launched on its path")
         kernels.append({"name": name, **meta, "launches": launches[name],
-                        "max_abs_err": errors[name], **timings[name]})
+                        "launches_paths_14_15": by_dim[name],
+                        "max_abs_err": errors[name], **timings[name],
+                        "at_head_dims": hd_timings.get(name, {})})
     log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}, "
         f"speculative continuous {spec_serve}, lock-step speculative {lockstep_spec}, "
         f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
@@ -5305,7 +5881,8 @@ def main() -> int:
         f"depth 2 {f16_8b_zeros}), "
         f"training {training}, training with the MLP and projection kernels {training4}, "
         f"the recipe under its three policies {recipe}, the served checkpoint "
-        f"{ckpt_serve}")
+        f"{ckpt_serve}, path 14 (tiny-llama, D = 32) {path14}, path 15 (D = 256) {path15}, "
+        f"its training {path15_train}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,20 @@
 //   never waits on a load. Shared memory at D = 128: K/V 64 KB + 4 x 32.8
 //   KB. Blocks with the longest loops start first: under causal masking,
 //   the first key blocks.
+// - D = 256. K2a takes K1's 32-key tiles, S and dP by wgmma m64n32k16 (16
+//   registers each), dQ += dS.K as two m64n128k16 products a k-step
+//   (hopper.cuh wgmma_rs<256>): dQ's 128 registers, S, dP and dS's 40 fit the
+//   consumers' 232; a 2-stage ring (Q 64 KB + dO 64 KB + 2 x 32 KB). K2b
+//   cannot keep 128 keys' dK and dV (256 registers a thread), so a block
+//   owns 64 keys and its two warpgroups split D: warpgroup w accumulates dK
+//   and dV columns 128 w .. 128 w + 127 (64 + 64 registers, as at D = 128)
+//   and computes S^T and dP^T over the full D itself, the pair of them twice
+//   per block. The other split, one warpgroup dV and the other dK with P^T
+//   and dS^T passed through shared memory, would do each S^T product once
+//   but needs a shared-memory handoff and a barrier per tile between the
+//   warpgroups; the column split keeps K2b's code path (the same products,
+//   each warpgroup on its own columns of dO and Q) and is right first.
+//   Shared memory: K 32 KB + V 32 KB + 2 x (Q 32 KB + dO 32 KB).
 // - Tile skipping, K1's rule: a tile is loaded only if it is not wholly on
 //   the masked side of the causal diagonal and its segment-id range
 //   [min, max] overlaps the block's; each warpgroup skips the loaded tiles
@@ -101,10 +115,13 @@
 // (2^-5, 2^-4]) and multiplies their outputs back in f32. Masked scores are the finite -2.3819763e38, set after the scale (as
 // K1 does), so p = 2^(NEG_INF - lse log2 e) = 0.
 //
-// ptxas -v (CUDA 12.9, sm_90a), no spills and no stack in any instance: K2a
-// 168 registers at D = 128, 64 and 32 (the 384-thread block's allocation,
-// which setmaxnreg splits 40 / 232); K2b 250 / 192 / 158. chip_smoke.py's
-// build phase prints the lines on every run.
+// ptxas -v (CUDA 12.9, sm_90a), no spills and no stack at D = 128, 64 and
+// 32: K2a 168 registers (the 384-thread block's allocation, which
+// setmaxnreg splits 40 / 232); K2b 250 / 192 / 158. At D = 256:
+// K2a 168 with 464 bytes spilled (stores; 320 of loads), since ptxas
+// compiles the consumers' branch within the block's 168 whatever
+// setmaxnreg later grants; K2b 248, no spills. chip_smoke.py's build phase
+// prints the lines on every run.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (ditl_tpu_torch/ops/cuda_build.py). C interface, bound with ctypes.
@@ -119,7 +136,6 @@ constexpr int kConsumers = 256;                  // two warpgroups: K2b's block
 constexpr int kThreads = kConsumers + 128;       // K2a's: + a producer warpgroup
 constexpr int kProducerWarp = kConsumers / 32;   // K2a's one producer warp that works
 constexpr int kEmptyArrivals = kConsumers / 32;  // one per consumer warp
-constexpr int kStages = 4;                       // ring depth, both kernels
 constexpr float kNegInf = -2.3819763e38f;        // ops/attention.py NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -220,8 +236,9 @@ __device__ __forceinline__ void tile_range(const int* ids, int t, int len, int& 
 template <int D>
 struct DqCfg {
   static constexpr int kBlockM = 128;                   // query rows per block
-  static constexpr int kBlockN = D == 32 ? 128 : 64;    // keys per K/V tile (K1's)
-  static constexpr int kSubN = 64;                      // keys per product (S, dP)
+  static constexpr int kBlockN = D == 32 ? 128 : D == 256 ? 32 : 64;  // keys per K/V tile (K1's)
+  static constexpr int kSubN = D == 256 ? 32 : 64;      // keys per product (S, dP)
+  static constexpr int kStages = D == 256 ? 2 : 4;      // K/V ring depth
   static constexpr int kQBytes = kBlockM * D * 2;       // Q or dO
   static constexpr int kTileBytes = kBlockN * D * 2;    // one K or one V tile
   static constexpr int kDoOff = kQBytes;
@@ -258,8 +275,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t base = (raw + 1023u) & ~1023u;
   int* slots = reinterpret_cast<int*>(smem_raw + (base - raw) + C::kSlotOff);
   const uint32_t full_bar = base + C::kBarOff;        // full[s] at + 8 s
-  const uint32_t empty_bar = full_bar + 8 * kStages;  // empty[s] at + 8 s
-  const uint32_t q_bar = empty_bar + 8 * kStages;
+  const uint32_t empty_bar = full_bar + 8 * C::kStages;  // empty[s] at + 8 s
+  const uint32_t q_bar = empty_bar + 8 * C::kStages;
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -273,7 +290,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < C::kStages; ++s) {
       mbar_init(full_bar + 8 * s, 1);
       mbar_init(empty_bar + 8 * s, kEmptyArrivals);
     }
@@ -350,7 +367,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
               tma_load(base + C::kVOff + off, &tm_v, bar, p * P::kPanel, kh, k0, b);
             }
           }
-          if (++stage == kStages) {
+          if (++stage == C::kStages) {
             stage = 0;
             phase ^= 1;
           }
@@ -492,7 +509,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
-      if (++stage == kStages) {
+      if (++stage == C::kStages) {
         stage = 0;
         phase ^= 1;
       }
@@ -522,8 +539,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 // Shared memory of K2b; every tile starts on a 1024-byte boundary.
 template <int D>
 struct DkvCfg {
-  static constexpr int kBlockN = 128;                 // keys per block
+  // At D = 256 a block owns 64 keys and its two warpgroups split the
+  // columns of dK and dV (kSplitD): each owns kDW = 128 of them.
+  static constexpr bool kSplitD = D == 256;
+  static constexpr int kDW = kSplitD ? D / 2 : D;      // dK/dV columns a warpgroup owns
+  static constexpr int kBlockN = kSplitD ? 64 : 128;  // keys per block
   static constexpr int kBlockM = 64;                  // query rows per Q/dO tile
+  static constexpr int kStages = D == 256 ? 2 : 4;    // Q/dO ring depth
   static constexpr int kKBytes = kBlockN * D * 2;     // K or V of the block
   static constexpr int kTileBytes = kBlockM * D * 2;  // one Q or one dO tile
   static constexpr int kVOff = kKBytes;
@@ -628,8 +650,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   int* slots = reinterpret_cast<int*>(smem_raw + (base - raw) + C::kSlotOff);
   const uint32_t slots_s = base + C::kSlotOff;
   const uint32_t full_bar = base + C::kBarOff;        // full[s] at + 8 s
-  const uint32_t empty_bar = full_bar + 8 * kStages;  // empty[s] at + 8 s
-  const uint32_t kv_bar = empty_bar + 8 * kStages;
+  const uint32_t empty_bar = full_bar + 8 * C::kStages;  // empty[s] at + 8 s
+  const uint32_t kv_bar = empty_bar + 8 * C::kStages;
 
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
@@ -641,7 +663,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < C::kStages; ++s) {
       mbar_init(full_bar + 8 * s, 33);  // warp 0's 32 copies + the TMA bytes' arrival
       mbar_init(empty_bar + 8 * s, kEmptyArrivals);
     }
@@ -657,7 +679,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   const int wg = warp >> 2;
-  const int wk0 = k0 + 64 * wg;               // the warpgroup's first key
+  // The warpgroup's first key (kSplitD: both take the block's 64 keys) and
+  // its first dK/dV column.
+  const int wk0 = k0 + (C::kSplitD ? 0 : 64 * wg);
+  const int dc0 = C::kSplitD ? C::kDW * wg : 0;
   const int w_last = min(skv, wk0 + 64) - 1;  // its last real key (< wk0: none)
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -692,19 +717,22 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   const float scale_log2 = scale * kLog2e;
-  float dka[D / 2], dva[D / 2];
+  constexpr int DW = C::kDW;
+  float dka[DW / 2], dva[DW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < DW / 2; ++i) dka[i] = dva[i] = 0.f;
 
-  const uint32_t k_s = base + wg * 64 * P::kBytes;
-  const uint32_t v_s = base + C::kVOff + wg * 64 * P::kBytes;
+  const uint32_t k_s = base + (wk0 - k0) * P::kBytes;
+  const uint32_t v_s = base + C::kVOff + (wk0 - k0) * P::kBytes;
+  // kSplitD: this warpgroup's dO and Q columns start dc0 / 64 panels on.
+  const uint32_t col_off = dc0 / P::kPanel * M * P::kBytes;
   int stage = 0;
   uint32_t phase = 0;
   for (int it = 0;; ++it) {
     if (warp == 0) {
-      // Keep up to kStages items in flight: fill every freed stage, and wait
+      // Keep up to C::kStages items in flight: fill every freed stage, and wait
       // for one only when item `it` itself is still missing.
-      while (!pr.ended && pr.produced < it + kStages) {
+      while (!pr.ended && pr.produced < it + C::kStages) {
         const uint32_t empty = empty_bar + 8 * pr.stage;
         if (pr.produced == it) {
           ring_wait(empty, pr.phase ^ 1);
@@ -753,7 +781,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
         }
         ++pr.produced;
-        if (++pr.stage == kStages) {
+        if (++pr.stage == C::kStages) {
           pr.stage = 0;
           pr.phase ^= 1;
         }
@@ -844,19 +872,19 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < M / 16; ++kk) {
-        wgmma_rs<D, kF16>(dva, pf + 4 * kk, desc_mn<D>(do_s, M, kk));
-        wgmma_rs<D, kF16>(dka, dsf + 4 * kk, desc_mn<D>(q_s, M, kk));
+        wgmma_rs<DW, kF16>(dva, pf + 4 * kk, desc_mn<D>(do_s + col_off, M, kk));
+        wgmma_rs<DW, kF16>(dka, dsf + 4 * kk, desc_mn<D>(q_s + col_off, M, kk));
       }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<D / 2>(dva);
-      fence_regs<D / 2>(dka);
+      fence_regs<DW / 2>(dva);
+      fence_regs<DW / 2>(dka);
       fence_regs<M / 4>(pf);  // the A fragments stay live until here
       fence_regs<M / 4>(dsf);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
-    if (++stage == kStages) {
+    if (++stage == C::kStages) {
       stage = 0;
       phase ^= 1;
     }
@@ -867,8 +895,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint16_t* dkb = dk + off;
   uint16_t* dvb = dv + off;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int c = 8 * i + 2 * t;
+  for (int i = 0; i < DW / 8; ++i) {
+    const int c = dc0 + 8 * i + 2 * t;
     if (key0 < skv) {
       *reinterpret_cast<uint32_t*>(dkb + key0 * kv_stride + c) =
           pack2<kF16>(dka[4 * i] * scale, dka[4 * i + 1] * scale);
@@ -973,6 +1001,7 @@ int dispatch_dq(const Args& a, int head_dim, void* dq) {
     case 32: return launch_dq<32, kF16>(a, dq);
     case 64: return launch_dq<64, kF16>(a, dq);
     case 128: return launch_dq<128, kF16>(a, dq);
+    case 256: return launch_dq<256, kF16>(a, dq);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -983,6 +1012,7 @@ int dispatch_dkv(const Args& a, int head_dim, void* dk, void* dv) {
     case 32: return launch_dkv<32, kF16>(a, dk, dv);
     case 64: return launch_dkv<64, kF16>(a, dk, dv);
     case 128: return launch_dkv<128, kF16>(a, dk, dv);
+    case 256: return launch_dkv<256, kF16>(a, dk, dv);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

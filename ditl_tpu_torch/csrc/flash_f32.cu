@@ -60,6 +60,22 @@
 // - Blocks with the longest loops start first: K1 and K2a walk the query
 //   tiles from the last, K2b the key tiles from the first.
 //
+// Head dims 64, 128 and 256. At D = 256 a 64-row tile is 65 KB (rows of
+// 260 floats), so the double buffers do not fit (K1-f32: 333 KB; K2a-f32
+// and K2b-f32: 399 KB) and the streamed tiles go one at a time
+// (kOneStage): K1-f32 keeps one K/V stage and loads the next tile once the
+// current one is done (221.7 KB); K2a-f32 streams each key tile's V, then
+// its K, through one buffer (dP = dO.V^T first, then S = Q.K^T and dQ +=
+// dS.K over K; 221.7 KB with Q and dO); K2b-f32 streams each item's Q, dO
+// and Q again through one buffer (S^T and P^T over Q, dP^T, dS^T and dV +=
+// P^T.dO over dO, dK += dS^T.Q over Q scaled again; 222.7 KB with K and V).
+// Every load waits for the block to finish with the tile before it, and
+// K2b-f32 loads three tiles an item: right first, slow (PERF.md §6). The
+// accumulators double (4 x 16 floats a gradient a thread). ptxas -v
+// (sm_90a): 246 / 194 / 146 registers for K1-f32 at D = 256 / 128 / 64, no
+// spills; K2a-f32 255 (24 bytes spilled) / 242 / 168; K2b-f32 255 (204
+// bytes spilled) / 222 / 168.
+//
 // Semantics, the reference's in f32: q is scaled in f32 before the q.k
 // product (q * scale, then the dot); masked scores take the finite
 // -2.3819763e38, so a tile fully masked for a row gives p = exp(0) = 1 that
@@ -274,26 +290,35 @@ __device__ __forceinline__ int next_tile(const unsigned char* vis, int t, int n)
   return t;
 }
 
+// D = 256: a 64-row tile is 65 KB, so the streamed tiles are not double
+// buffered. K1-f32 keeps one K/V stage (its next tile loads once the
+// current one is done); K2a-f32 and K2b-f32 stream one tile at a time
+// through a single buffer (see their kernels).
+template <int D>
+constexpr bool kOneStage = D == 256;
+
 // Shared memory of each kernel, in floats, then the tile marks.
 template <int D>
-struct FwdSmem {  // Q, two K/V stages, P, key ids of two stages, id range
-  static constexpr int kQ = 0, kKV = Tile<D>::kSize, kP = kKV + 4 * Tile<D>::kSize;
+struct FwdSmem {  // Q, two K/V stages (D = 256: one), P, key ids of two stages, id range
+  static constexpr int kQ = 0, kKV = Tile<D>::kSize;
+  static constexpr int kP = kKV + (kOneStage<D> ? 2 : 4) * Tile<D>::kSize;
   static constexpr int kIds = kP + kB * kTLd, kRange = kIds + 2 * kB, kVis = kRange + 4;
   static constexpr int kBytes = kVis * 4 + kMaxTiles;
 };
 
 template <int D>
-struct DqSmem {  // Q, dO, two K/V stages, dS, key ids of two stages, id range
+struct DqSmem {  // Q, dO, two K/V stages (D = 256: one tile, V then K), dS, key ids, id range
   static constexpr int kQ = 0, kDo = Tile<D>::kSize, kKV = 2 * Tile<D>::kSize;
-  static constexpr int kT = kKV + 4 * Tile<D>::kSize;
+  static constexpr int kT = kKV + (kOneStage<D> ? 1 : 4) * Tile<D>::kSize;
   static constexpr int kIds = kT + kB * kTLd, kRange = kIds + 2 * kB, kVis = kRange + 4;
   static constexpr int kBytes = kVis * 4 + kMaxTiles;
 };
 
 template <int D>
-struct DkvSmem {  // K, V, two Q/dO stages, P^T / dS^T, (lse, delta, ids) x 2, id range
+struct DkvSmem {  // K, V, two Q/dO stages (D = 256: one tile, Q, dO, Q), P^T / dS^T,
+                  // (lse, delta, ids) x 2, id range
   static constexpr int kK = 0, kV = Tile<D>::kSize, kQdo = 2 * Tile<D>::kSize;
-  static constexpr int kT = kQdo + 4 * Tile<D>::kSize;
+  static constexpr int kT = kQdo + (kOneStage<D> ? 1 : 4) * Tile<D>::kSize;
   static constexpr int kStats = kT + kB * kTLd, kRange = kStats + 2 * 3 * kB;
   static constexpr int kVis = kRange + 4;
   static constexpr int kBytes = kVis * 4 + kMaxTiles;
@@ -361,9 +386,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < 4 * kJ; ++c) acc[i][c] = 0.f;
   }
   bool first = true;
-  for (int stage = 0; cur < n_kv; stage ^= 1) {
+  for (int stage = 0; cur < n_kv; stage = kOneStage<D> ? 0 : stage ^ 1) {
     const int nxt = next_tile(vis, cur, n_kv);
-    if (nxt < n_kv) {
+    if (!kOneStage<D> && nxt < n_kv) {
       load_kv(nxt, stage ^ 1);
       cp_commit();
       cp_wait<1>();
@@ -416,6 +441,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // P complete
     tile_products<D>(acc, ps, ks + T::kSize, ty, tx);
     __syncthreads();  // this stage and P are free again
+    if (kOneStage<D> && nxt < n_kv) {
+      load_kv(nxt, 0);
+      cp_commit();
+    }
     cur = nxt;
   }
   cp_wait<0>();
@@ -484,20 +513,52 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
 
+  auto load_ids = [&](int t, int stage) {
+    if (ids != nullptr && tid < kB) {
+      const int p = t * kB + tid;
+      cp_async4(kid + stage * kB + tid, ids + min(p, skv - 1), p < skv);
+    }
+  };
   auto load_kv = [&](int t, int stage) {
     float* ks = smem + L::kKV + 2 * stage * T::kSize;
     load_rows<D>(ks, kb, kv_stride, t * kB, skv);
     load_rows<D>(ks + T::kSize, vb, kv_stride, t * kB, skv);
-    if (ids != nullptr && tid < kB) {
-      const int p = t * kB + tid;
-      cp_async4(kid + stage * kB + tid, ids + min(p, skv - 1), p < skv);
+    load_ids(t, stage);
+  };
+  // dS = P (dP - delta) of key tile k0 into the dS tile, P from the f32
+  // scores s with the masks, lse and delta of this thread's rows.
+  auto write_ds = [&](const float (&s)[4][4], const float (&dp)[4][4], int k0,
+                      const int* kids) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float x = s[i][j];
+        if (col >= skv) {
+          x = -INFINITY;
+        } else if ((causal && col > row) || (ids != nullptr && kids[tx + 16 * j] != rid[i])) {
+          x = kNegInf;
+        }
+        const float p = expf(x - lse_r[i]);
+        ts[(ty + 16 * i) * kTLd + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
+      }
     }
   };
 
   int cur = next_tile(vis, -1, n_kv);
   load_rows<D>(qs, q + qoff, q_stride, q0, sq);
   load_rows<D>(dos, dout + qoff, q_stride, q0, sq);
-  if (cur < n_kv) load_kv(cur, 0);
+  float* buf = smem + L::kKV;  // D = 256: the one streamed tile
+  if (cur < n_kv) {
+    if constexpr (kOneStage<D>) {
+      load_rows<D>(buf, vb, kv_stride, cur * kB, skv);
+      load_ids(cur, 0);
+    } else {
+      load_kv(cur, 0);
+    }
+  }
   cp_commit();
 
   float acc[4][4 * kJ];
@@ -506,8 +567,37 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4 * kJ; ++c) acc[i][c] = 0.f;
   }
+  if constexpr (kOneStage<D>) {
+    // Per key tile, V then K through one buffer: dP = dO.V^T once V has
+    // landed, then K over it for S = Q.K^T and dQ += dS.K. Each load waits
+    // for the block to finish with the tile before it.
+    for (bool first = true; cur < n_kv; first = false) {
+      const int nxt = next_tile(vis, cur, n_kv);
+      cp_wait<0>();
+      if (first) scale_rows<D>(qs, scale);
+      __syncthreads();  // V, the ids (and Q, dO) are in shared memory
+      float s[4][4], dp[4][4];
+      row_products<D>(dp, dos, buf, ty, tx);
+      __syncthreads();  // V read
+      load_rows<D>(buf, kb, kv_stride, cur * kB, skv);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();  // K is in shared memory
+      row_products<D>(s, qs, buf, ty, tx);
+      write_ds(s, dp, cur * kB, kid);
+      __syncthreads();  // dS complete
+      tile_products<D>(acc, ts, buf, ty, tx);
+      __syncthreads();  // K and dS read
+      if (nxt < n_kv) {
+        load_rows<D>(buf, vb, kv_stride, nxt * kB, skv);
+        load_ids(nxt, 0);
+        cp_commit();
+      }
+      cur = nxt;
+    }
+  }
   bool first = true;
-  for (int stage = 0; cur < n_kv; stage ^= 1) {
+  for (int stage = 0; !kOneStage<D> && cur < n_kv; stage ^= 1) {
     const int nxt = next_tile(vis, cur, n_kv);
     if (nxt < n_kv) {
       load_kv(nxt, stage ^ 1);
@@ -525,22 +615,7 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[4][4], dp[4][4];
     row_products<D>(s, qs, ks, ty, tx);
     row_products<D>(dp, dos, ks + T::kSize, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j];
-        if (col >= skv) {
-          x = -INFINITY;
-        } else if ((causal && col > row) || (ids != nullptr && kids[tx + 16 * j] != rid[i])) {
-          x = kNegInf;
-        }
-        const float p = expf(x - lse_r[i]);
-        ts[(ty + 16 * i) * kTLd + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
-      }
-    }
+    write_ds(s, dp, k0, kids);
     __syncthreads();  // dS complete
     tile_products<D>(acc, ts, ks, ty, tx);
     __syncthreads();
@@ -610,12 +685,17 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       nt = next_tile(vis, -1, n_q);
     }
   };
+  // Rows [t * 64, t * 64 + 64) of query head g of `src` (q or do) into dst.
+  auto load_head_rows = [&](float* dst, const float* src, int g, int t) {
+    const long qoff = (long)b * sq * q_stride + (long)(kh * groups + g) * D;
+    load_rows<D>(dst, src + qoff, q_stride, t * kB, sq);
+  };
   auto load_q = [&](int g, int t, int stage) {
     const int h = kh * groups + g;
-    const long qoff = (long)b * sq * q_stride + (long)h * D;
     float* qs = smem + L::kQdo + 2 * stage * T::kSize;
-    load_rows<D>(qs, q + qoff, q_stride, t * kB, sq);
-    load_rows<D>(qs + T::kSize, dout + qoff, q_stride, t * kB, sq);
+    load_head_rows(qs, q, g, t);
+    // D = 256: Q alone; dO follows in its place
+    if constexpr (!kOneStage<D>) load_head_rows(qs + T::kSize, dout, g, t);
     float* st = smem + L::kStats + stage * 3 * kB;
     const long stat = ((long)b * heads + h) * sq;
     if (tid < 3 * kB) {
@@ -642,7 +722,78 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4 * kJ; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
   }
-  for (int stage = 0; g < groups; stage ^= 1) {
+  // P^T of the item at query tile t from the f32 scores s^T, with the
+  // masks and the tile's lse (st).
+  auto p_of = [&](const float (&s)[4][4], float (&p)[4][4], int t, const float* st) {
+    const int* rids = reinterpret_cast<const int*>(st + 2 * kB);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j, row = t * kB + c;
+        float x = s[i][j];
+        if ((causal && key > row) || (ids != nullptr && rids[c] != kid[i])) x = kNegInf;
+        p[i][j] = row < sq ? expf(x - st[c]) : 0.f;
+      }
+    }
+  };
+  // This thread's 4 x 4 block of a 64 x 64 tile into the shared tile.
+  auto to_tile = [&](const float (&x)[4][4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ts[(ty + 16 * i) * kTLd + tx + 16 * j] = x[i][j];
+    }
+  };
+  if constexpr (kOneStage<D>) {
+    // Per item, Q, dO and Q again through one buffer: S^T = K.Q^T and P^T
+    // once Q has landed, then dO over it for dP^T, dS^T and dV += P^T.dO,
+    // then Q (scaled again) for dK += dS^T.Q. Each load waits for the block
+    // to finish with the tile before it; lse, delta and ids stay for the
+    // whole item.
+    float* buf = smem + L::kQdo;
+    const float* st = smem + L::kStats;
+    while (g < groups) {
+      int ng, nt;
+      next_item(g, t, ng, nt);
+      cp_wait<0>();
+      scale_rows<D>(buf, scale);
+      __syncthreads();  // Q (scaled), lse, delta and ids
+      float s[4][4], dp[4][4], p[4][4], ds[4][4];
+      row_products<D>(s, ks, buf, ty, tx);  // S^T: keys x queries
+      p_of(s, p, t, st);
+      __syncthreads();  // Q read
+      load_head_rows(buf, dout, g, t);
+      cp_commit();
+      to_tile(p);
+      cp_wait<0>();
+      __syncthreads();  // dO and P^T
+      row_products<D>(dp, vs, buf, ty, tx);  // dP^T
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ds[i][j] = p[i][j] * (dp[i][j] - st[kB + tx + 16 * j]);
+      }
+      tile_products<D>(dv_acc, ts, buf, ty, tx);
+      __syncthreads();  // dO and P^T read
+      load_head_rows(buf, q, g, t);
+      cp_commit();
+      to_tile(ds);
+      cp_wait<0>();
+      scale_rows<D>(buf, scale);
+      __syncthreads();  // Q (scaled) and dS^T
+      tile_products<D>(dk_acc, ts, buf, ty, tx);
+      __syncthreads();  // this item's tiles are free again
+      if (ng < groups) {
+        load_q(ng, nt, 0);
+        cp_commit();
+      }
+      g = ng;
+      t = nt;
+    }
+  }
+  for (int stage = 0; !kOneStage<D> && g < groups; stage ^= 1) {
     int ng, nt;
     next_item(g, t, ng, nt);
     if (ng < groups) {
@@ -657,33 +808,21 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     scale_rows<D>(qs, scale);
     __syncthreads();  // this stage's Q (scaled), dO, lse, delta and ids
     const float* st = smem + L::kStats + stage * 3 * kB;
-    const int* rids = reinterpret_cast<const int*>(st + 2 * kB);
-    const int r0 = t * kB;
-    float s[4][4], dp[4][4];
+    float s[4][4], dp[4][4], p[4][4];
     row_products<D>(s, ks, qs, ty, tx);   // S^T: keys x queries
     row_products<D>(dp, vs, dos, ty, tx);  // dP^T
+    p_of(s, p, t, st);
     float ds[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int key = k0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, row = r0 + c;
-        float x = s[i][j];
-        if ((causal && key > row) || (ids != nullptr && rids[c] != kid[i])) x = kNegInf;
-        const float p = row < sq ? expf(x - st[c]) : 0.f;
-        ds[i][j] = p * (dp[i][j] - st[kB + c]);
-        ts[(ty + 16 * i) * kTLd + c] = p;
-      }
+      for (int j = 0; j < 4; ++j) ds[i][j] = p[i][j] * (dp[i][j] - st[kB + tx + 16 * j]);
     }
+    to_tile(p);
     __syncthreads();  // P^T complete
     tile_products<D>(dv_acc, ts, dos, ty, tx);
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ts[(ty + 16 * i) * kTLd + tx + 16 * j] = ds[i][j];
-    }
+    to_tile(ds);
     __syncthreads();  // dS^T complete
     tile_products<D>(dk_acc, ts, qs, ty, tx);
     __syncthreads();  // this stage and the tile are free again
@@ -776,12 +915,15 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 static_assert(DqSmem<128>::kBytes <= 232448, "K2a-f32 shared memory at D = 128");
 static_assert(DkvSmem<128>::kBytes <= 232448, "K2b-f32 shared memory at D = 128");
+static_assert(FwdSmem<256>::kBytes <= 232448 && DqSmem<256>::kBytes <= 232448 &&
+                  DkvSmem<256>::kBytes <= 232448,
+              "the f32 kernels' shared memory at D = 256");
 
 }  // namespace
 
 // K1-f32. q (B, Sq, H, D), k/v (B, Skv, K, D) f32 contiguous and 16-byte
 // aligned; seg (B, S) int32 or null (then Sq == Skv); o like q; lse (B, H,
-// Sq) f32. head_dim 64 or 128. Returns cudaGetLastError() after the launch
+// Sq) f32. head_dim 64, 128 or 256. Returns cudaGetLastError() after the launch
 // (0 = launched).
 extern "C" int ditl_flash_fwd_f32(const void* q, const void* k, const void* v, const void* seg,
                                   void* o, void* lse, int batch, int sq, int skv, int heads,
@@ -794,6 +936,9 @@ extern "C" int ditl_flash_fwd_f32(const void* q, const void* k, const void* v, c
       return launch_fwd<64>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale, s);
     case 128:
       return launch_fwd<128>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale,
+                             s);
+    case 256:
+      return launch_fwd<256>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal, scale,
                              s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -816,6 +961,9 @@ extern "C" int ditl_flash_bwd_dq_f32(const void* q, const void* k, const void* v
     case 128:
       return launch_dq<128>(q, k, v, dout, lse, delta, seg, dq, batch, sq, skv, heads, kv_heads,
                             causal, scale, s);
+    case 256:
+      return launch_dq<256>(q, k, v, dout, lse, delta, seg, dq, batch, sq, skv, heads, kv_heads,
+                            causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -835,6 +983,9 @@ extern "C" int ditl_flash_bwd_dkv_f32(const void* q, const void* k, const void* 
                             kv_heads, causal, scale, s);
     case 128:
       return launch_dkv<128>(q, k, v, dout, lse, delta, seg, dk, dv, batch, sq, skv, heads,
+                             kv_heads, causal, scale, s);
+    case 256:
+      return launch_dkv<256>(q, k, v, dout, lse, delta, seg, dk, dv, batch, sq, skv, heads,
                              kv_heads, causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -31,21 +31,25 @@
 //   warpgroups of 64. S = Q.K^T is wgmma m64nNk16 with Q and K in shared
 //   memory; P stays in registers as the A operand of O += P.V (the m64
 //   accumulator layout is the A fragment layout), V read as an MN-major B.
-// - Key tiles of N = 64 at D >= 64 and 128 at D = 32. A consumer thread
-//   holds N/2 scores, D/2 output sums and N/4 bf16 P registers: 112 at
-//   D = 128, 80 at D = 64, 112 at D = 32. ptxas gives a 288-thread block 168
-//   registers a thread: N = 128 at D = 64 (128 of them, plus addresses and
-//   the mask's indices) spilled, and N = 128 at D = 128 (160) cannot fit.
-//   N = 64 also keeps the skipping fine-grained at the D the presets train
-//   with.
+// - Key tiles of N = 64 at D = 64 and 128, 128 at D = 32 and 32 at D = 256.
+//   A consumer thread holds N/2 scores, D/2 output sums and N/4 bf16 P
+//   registers: 112 at D = 128, 80 at D = 64, 112 at D = 32, 152 at D =
+//   256. ptxas gives a 288-thread block 168 registers a thread: N = 128 at
+//   D = 64 (128 of them, plus addresses and the mask's indices) spilled, and
+//   N = 128 at D = 128 (160) cannot fit. N = 64 also keeps the skipping
+//   fine-grained at the D the presets train with. At D = 256 the output
+//   sums alone are 128 registers, so the key tile shrinks to 32 (S by
+//   wgmma m64n32k16), and O += P.V is two m64n128k16 products a k-step
+//   (hopper.cuh wgmma_rs<256>); 32-key tiles also keep 4 stages within
+//   shared memory (64 KB of Q, 128 KB of K/V ring).
 // - An asynchronous ring of 4 K/V stages in dynamic shared memory, filled by
 //   TMA (cp.async.bulk.tensor on 4-D tensor maps (d, head, position, batch)
 //   encoded on the host) from a producer warp under full/empty mbarriers: the
 //   consumers work on the tile that has arrived while the next three load.
 //   Rows are stored with the 128-byte swizzle (64 bf16) at D >= 64, the
 //   64-byte one (32 bf16) at D = 32; the descriptors use the same mode. Shared
-//   memory per block: 166,024 bytes at D = 128, 84,104 at 64, 76,936 at 32
-//   (one block per SM: the registers allow one).
+//   memory per block: 166,024 bytes at D = 128, 84,104 at 64, 76,936 at 32,
+//   198,232 at 256 (one block per SM: the registers allow one).
 // - Tile skipping. The producer loads a key tile only if it is not wholly
 //   above the causal diagonal and its segment-id range [min, max] overlaps
 //   the block's: disjoint ranges share no id, so this is exact for any ids,
@@ -72,7 +76,11 @@
 // row.
 //
 // ptxas -v (CUDA 12.9, sm_90a): 139 registers at D = 128, 106 at D = 64,
-// 153 at D = 32; no spills, no stack.
+// 153 at D = 32; no spills, no stack. At D = 256: 168
+// registers, 384 bytes spilled (stores; 240 of loads), a 128-byte stack:
+// ptxas allocates a 288-thread block no more than 168 a thread, and O's 128
+// sums, S's 16 and P's 8 exceed it. Right first; fewer spills (a 64-row
+// consumer per block, or the output's halves in turn) are later work.
 //
 // Tried on the card and dropped (PERF.md, Findings): a persistent grid (one
 // block per SM, two Q buffers, the ring running on across work items), the
@@ -106,7 +114,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 // on a 1024-byte boundary, the period of the 128-byte swizzle.
 template <int D>
 struct Cfg {
-  static constexpr int kBlockN = D == 32 ? 128 : 64;  // keys per K/V tile
+  static constexpr int kBlockN = D == 32 ? 128 : D == 256 ? 32 : 64;  // keys per K/V tile
   static constexpr int kStages = 4;                     // K/V ring depth
   static constexpr int kPanel = D >= 64 ? 64 : 32;      // bf16 per swizzled row
   static constexpr int kPanelBytes = 2 * kPanel;        // = the swizzle width
@@ -472,6 +480,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* seg, void*
                               scale, s);
     case 128:
       return launch<128, kF16>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal,
+                               scale, s);
+    case 256:
+      return launch<256, kF16>(q, k, v, seg, o, lse, batch, sq, skv, heads, kv_heads, causal,
                                scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -3,7 +3,8 @@
 //
 // Device side: shared-memory addresses, mbarriers, TMA tile loads from 4-D
 // tensor maps, wgmma descriptors and products (m64nNk16, bf16 in, f32 sums;
-// SS with A and B in shared memory, RS with A from registers), and the
+// SS with A and B in shared memory, N = 32, 64, 128; RS with A from
+// registers, N = 32, 64, 128 and 256 as two n128 products), and the
 // segment-id range reductions the tile skipping uses; float16 forms of the
 // products for K1-f16. Host side: the tensor map of a (batch, rows, heads, d)
 // bf16 or float16 tensor, encoded through the runtime's driver entry point so
@@ -108,6 +109,23 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
 // (the mma.m16n8k16 A fragment of each warp's 16 rows), B (16 x N) MN-major
 // ("transposed") in shared memory, accumulating. Each product's asm is a
 // macro of the operand type's name T.
+
+#define DITL_WGMMA_SS_N32(T)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." T "." T " {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "  \
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])  \
+      : "l"(a), "l"(b), "r"(scale_d))
+
+template <bool kF16>
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (kF16) DITL_WGMMA_SS_N32("f16");
+  else DITL_WGMMA_SS_N32("bf16");
+}
 
 #define DITL_WGMMA_SS_N64(T)  \
   asm volatile(  \
@@ -226,17 +244,31 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
 
 template <int N, bool kF16 = false>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int scale_d) {
-  static_assert(N == 64 || N == 128, "Q.K^T tile width");
-  if constexpr (N == 64) wgmma_ss_n64<kF16>(d, a, b, scale_d);
+  static_assert(N == 32 || N == 64 || N == 128, "Q.K^T tile width");
+  if constexpr (N == 32) wgmma_ss_n32<kF16>(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64<kF16>(d, a, b, scale_d);
   else wgmma_ss_n128<kF16>(d, a, b, scale_d);
 }
 
+// N = 256 (head dim 256) is two m64n128k16 products: d[0..63] on B's
+// columns 0-127, d[64..127] on columns 128-255, which an MN-major B in
+// 64-column swizzled panels holds two panels (twice the descriptor's
+// leading byte offset) further on. d[4i + ..] keeps the m64nN layout
+// (columns 8i + 2t) across the two halves.
 template <int N, bool kF16 = false>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
-  static_assert(N == 32 || N == 64 || N == 128, "head dim");
-  if constexpr (N == 32) wgmma_rs_n32<kF16>(d, a, b);
-  else if constexpr (N == 64) wgmma_rs_n64<kF16>(d, a, b);
-  else wgmma_rs_n128<kF16>(d, a, b);
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "head dim");
+  if constexpr (N == 32) {
+    wgmma_rs_n32<kF16>(d, a, b);
+  } else if constexpr (N == 64) {
+    wgmma_rs_n64<kF16>(d, a, b);
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128<kF16>(d, a, b);
+  } else {
+    const uint64_t lbo = (b >> 16) & 0x3FFF;  // in 16-byte units, as the start address
+    wgmma_rs_n128<kF16>(d, a, b);
+    wgmma_rs_n128<kF16>(d + 64, a, b + 2 * lbo);
+  }
 }
 
 // Two floats -> one register of two bf16, the first in the low half.

@@ -11,8 +11,9 @@
 // pools: _paged_tail_kernel with quantized=True), ditl_paged_verify_bf16 and
 // ditl_paged_verify_i8 (K3's multi-query verify: _paged_tail_kernel with
 // q_groups, over float and int8 pools) and ditl_paged_bf16 (K4). All are
-// instances of one template, for head_dim 64 and 128; the verify form is its
-// kMT > 0 instances (see "The multi-query verify" below). The same five on
+// instances of one template, for head_dim 32, 64, 128 and 256 (see "Head
+// dims" below); the verify form is its kMT > 0 instances (see "The
+// multi-query verify" below). The same five on
 // float16 q, tails and float pools (the reference's kernels take any float
 // dtype with f32 sums) are the template's kF16 instances:
 // ditl_paged_tail_f16, ditl_paged_tail_i8_f16, ditl_paged_verify_f16,
@@ -129,6 +130,27 @@
 // pages) and of o to float16 in place of bf16. The bf16 instances keep
 // their code and bits (chip_smoke.py K3_DIGESTS).
 //
+// Head dims. D = 64 and 128 were the first instances; 32 (tiny-llama, the
+// default ModelConfig) and 256 keep the design and add two rules.
+// - D = 32: the p.V split gives each of the four warps D / 8 / 4 = 1 n8
+//   column block, so the odd last block takes ldmatrix.x2.trans (one
+//   block's two 8 x 8 matrices) where the pairs take .x4; a bf16 row is 4
+//   16-byte chunks (every copy and convert loop divides evenly: 64 rows x 4
+//   chunks over 128 threads).
+// - D = 256: a padded row is 528 bytes, two stages of K/V tiles 132 KB. The
+//   verify over int8 pools at kMT = 3 or 5 would add 64 KB of int8 staging
+//   to 176-205 KB, past the 227 KB a block may take; there (Layout::kInPlace,
+//   chosen by size) a live page row's int8 bytes are staged into the last D
+//   bytes of its own padded 16-bit row, and the convert pass, one thread a
+//   row, widens them from the front in chunk order (chunk c's output ends
+//   before chunk c + 1's input begins), so no staging tile is needed. The
+//   verify's 5 x 8 x 4 = 160 accumulators a thread fit the 255 registers
+//   that 128-thread blocks allow.
+// ptxas -v (sm_90a), no spills in any instance: D = 32 48-64
+// registers (merge 127-139); D = 256 single-query 196 (int8 190), K4 198,
+// verify 126 / 240 / 255 at kMT = 1 / 3 / 5 (int8 128 / 164 / 253), merge
+// 64; the bf16 and float16 instances alike.
+//
 // Semantics kept from the reference: the q.k scores are f32 and scaled in
 // f32 (here the scale multiplies the f32 sums of the exact bf16 products,
 // which differs from scaling q first by f32 rounding alone); masked columns
@@ -162,6 +184,7 @@ constexpr int kPLd = kTile + 8;  // bf16 p row, padded: 144 bytes
 constexpr int kMergeBatch = 32;  // merge: splits whose acc values are loaded at once
 constexpr int kMaxSplits = 6144;  // the merge's m and l: 48 KB of shared memory
 constexpr float kNegInf = -2.3819763e38f;  // ops/attention.py NEG_INF
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may take
 
 struct Params {
   const uint16_t* q;        // (B, H, D); verify (B, Q, H, D)
@@ -202,13 +225,20 @@ struct Layout {
   static constexpr int kQRows = kAlpha + kRows * 4;
   static constexpr int kBytes = kQRows + (kMT == 0 ? 0 : kRows * kLd);
   // int8 pools: two stages of raw int8 K and V tiles (D bytes a key), then
-  // two stages of the tile's 64 K and 64 V scales.
+  // two stages of the tile's 64 K and 64 V scales. Where the raw tiles do
+  // not fit beside the rest (D = 256 with 48 or 80 verify rows), a page
+  // row's int8 values are staged in place instead: into the last D bytes
+  // of its own padded 16-bit row, which the convert pass then fills from
+  // the front (kInPlace).
   static constexpr int kQTile = kTile * D;
   static constexpr int kQStage = 2 * kQTile;
   static constexpr int kQ = kBytes;
   static constexpr int kScStage = 2 * kTile * 4;
-  static constexpr int kSc = kQ + 2 * kQStage;
+  static constexpr bool kInPlace = kQ + 2 * kQStage + 2 * kScStage > kMaxSmem;
+  static constexpr int kSc = kInPlace ? kQ : kQ + 2 * kQStage;
   static constexpr int kBytesI8 = kSc + 2 * kScStage;
+  static constexpr int kInPlaceAt = kLd - D;  // a row's staged int8 bytes
+  static_assert(kBytes <= kMaxSmem && kBytesI8 <= kMaxSmem, "shared memory of a block");
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -350,6 +380,14 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
                : "r"(addr));
 }
 
+// Two of them: the B fragments of one n8 column block (lanes 0-15 give the
+// rows' addresses; the others' are ignored).
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
 // Where a slot's live keys lie on its axis of page positions, then tail
 // positions: [0, page_limit) for every query, and [tail0, row_end(qi)) for
 // query qi; tail_end is the last query's end (the union), and the axis ends
@@ -416,8 +454,9 @@ __device__ __forceinline__ long page_of(const Params& p, const int* trow, int v)
 // row's int8 values go to the staging tiles at qb (K, then V kQTile bytes
 // on) and its two scales to sb (K, then V 256 bytes on), the page rows'
 // bf16 rows being filled by the convert pass after the wait; the scales of
-// tail and dead rows arrive as zeros.
-template <int D, bool kI8>
+// tail and dead rows arrive as zeros. kInPlace: a live page row's int8
+// values go to the last D bytes of its own row in kb / vb instead (qb unused).
+template <int D, bool kI8, bool kInPlace>
 __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int b, int kh,
                                           int t0, uint32_t kb, uint32_t vb, uint32_t qb,
                                           uint32_t sb) {
@@ -435,9 +474,15 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
       if (c < kChunksI8) {
         const long off = ((page_of(p, trow, v) * p.kv_heads + kh) * p.page_size +
                           v % p.page_size) * D + 16 * c;
-        const uint32_t at = r * D + c * 16;
-        cp_async16(qb + at, p.k_i8 + off, true);
-        cp_async16(qb + Layout<D, 0>::kQTile + at, p.v_i8 + off, true);
+        if constexpr (kInPlace) {
+          const uint32_t at = r * Layout<D, 0>::kLd + Layout<D, 0>::kInPlaceAt + c * 16;
+          cp_async16(kb + at, p.k_i8 + off, true);
+          cp_async16(vb + at, p.v_i8 + off, true);
+        } else {
+          const uint32_t at = r * D + c * 16;
+          cp_async16(qb + at, p.k_i8 + off, true);
+          cp_async16(qb + Layout<D, 0>::kQTile + at, p.v_i8 + off, true);
+        }
       }
       continue;
     }
@@ -589,8 +634,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
     }
   }
 
-  load_tile<D, kI8>(p, live, b, kh, cur, base, base + L::kTileBytes, base + L::kQ,
-                    base + L::kSc);
+  load_tile<D, kI8, L::kInPlace>(p, live, b, kh, cur, base, base + L::kTileBytes, base + L::kQ,
+                                 base + L::kSc);
   __syncthreads();  // m and l initialised
   for (int stage = 0; cur >= 0; stage ^= 1) {
     const int nxt = live.next(cur + kTile, v1);
@@ -601,8 +646,9 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
     if (nxt >= 0) {
       const int ns = stage ^ 1;
       const uint32_t nb = base + ns * L::kStageBytes;
-      load_tile<D, kI8>(p, live, b, kh, nxt, nb, nb + L::kTileBytes,
-                        base + L::kQ + ns * L::kQStage, base + L::kSc + ns * L::kScStage);
+      load_tile<D, kI8, L::kInPlace>(p, live, b, kh, nxt, nb, nb + L::kTileBytes,
+                                     base + L::kQ + ns * L::kQStage,
+                                     base + L::kSc + ns * L::kScStage);
       cp_wait<1>();
     } else {
       cp_wait<0>();
@@ -611,17 +657,31 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
     if (kI8) {
       // The page rows' int8 values into the bf16 tiles.
       constexpr int kChunksI8 = D / 16;
-      const uint8_t* qk = smem + L::kQ + stage * L::kQStage;
       uint8_t* kt = smem + stage * L::kStageBytes;
-#pragma unroll
-      for (int i = 0; i < kTile * kChunksI8 / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int r = idx / kChunksI8, c = idx % kChunksI8;
+      if constexpr (L::kInPlace) {
+        // Thread t converts row t % 64 of K (t < 64) or V, its chunks in
+        // order: chunk c's 32 output bytes end before chunk c + 1's 16 input
+        // bytes begin (32 (c + 1) <= kInPlaceAt + 16 (c + 1) for c < D / 16).
+        const int r = tid % kTile;
         const int v = cur + r;
         if (live.key(v) && v < live.tail0) {
-          i8x16_convert<kF16>(qk + r * D + c * 16, kt + r * L::kLd + c * 32);
-          i8x16_convert<kF16>(qk + L::kQTile + r * D + c * 16,
-                              kt + L::kTileBytes + r * L::kLd + c * 32);
+          uint8_t* row = kt + (tid / kTile) * L::kTileBytes + r * L::kLd;
+          for (int c = 0; c < kChunksI8; ++c) {
+            i8x16_convert<kF16>(row + L::kInPlaceAt + c * 16, row + c * 32);
+          }
+        }
+      } else {
+        const uint8_t* qk = smem + L::kQ + stage * L::kQStage;
+#pragma unroll
+        for (int i = 0; i < kTile * kChunksI8 / kThreads; ++i) {
+          const int idx = tid + i * kThreads;
+          const int r = idx / kChunksI8, c = idx % kChunksI8;
+          const int v = cur + r;
+          if (live.key(v) && v < live.tail0) {
+            i8x16_convert<kF16>(qk + r * D + c * 16, kt + r * L::kLd + c * 32);
+            i8x16_convert<kF16>(qk + L::kQTile + r * D + c * 16,
+                                kt + L::kTileBytes + r * L::kLd + c * 32);
+          }
         }
       }
       __syncthreads();
@@ -742,9 +802,14 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 #pragma unroll
         for (int j = 0; j < kNTiles; j += 2) {
           uint32_t bf[4];
-          ldsm_x4_trans(va + j * 16, bf);
-          mma16816<kF16>(acc[0][j], a0, a1, bf[0], bf[1]);
-          mma16816<kF16>(acc[0][j + 1], a0, a1, bf[2], bf[3]);
+          if (j + 1 < kNTiles) {
+            ldsm_x4_trans(va + j * 16, bf);
+            mma16816<kF16>(acc[0][j], a0, a1, bf[0], bf[1]);
+            mma16816<kF16>(acc[0][j + 1], a0, a1, bf[2], bf[3]);
+          } else {  // an odd last column block (D = 32: the warp's only one)
+            ldsm_x2_trans(va + j * 16, bf);
+            mma16816<kF16>(acc[0][j], a0, a1, bf[0], bf[1]);
+          }
         }
       }
     } else {
@@ -778,12 +843,17 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 #pragma unroll
         for (int j = 0; j < kNTiles; j += 2) {
           uint32_t bf[4];
-          ldsm_x4_trans(va + j * 16, bf);
+          const bool pair = j + 1 < kNTiles;  // else an odd last column block
+          if (pair) {
+            ldsm_x4_trans(va + j * 16, bf);
+          } else {
+            ldsm_x2_trans(va + j * 16, bf);
+          }
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt) {
             if (16 * mt < rows) {
               mma16816_m16<kF16>(acc[mt][j], a[mt], bf[0], bf[1]);
-              mma16816_m16<kF16>(acc[mt][j + 1], a[mt], bf[2], bf[3]);
+              if (pair) mma16816_m16<kF16>(acc[mt][j + 1], a[mt], bf[2], bf[3]);
             }
           }
         }
@@ -890,10 +960,14 @@ int dispatch(Params p, int batch, int n_q, bool verify, int heads, int head_dim,
   p.n_split = static_cast<int>(n_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 32:
+      return launch_rows<32, kTail, kI8, kF16>(p, batch, s, mt);
     case 64:
       return launch_rows<64, kTail, kI8, kF16>(p, batch, s, mt);
     case 128:
       return launch_rows<128, kTail, kI8, kF16>(p, batch, s, mt);
+    case 256:
+      return launch_rows<256, kTail, kI8, kF16>(p, batch, s, mt);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

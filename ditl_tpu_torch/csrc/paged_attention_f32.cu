@@ -82,6 +82,19 @@
 // f32's tolerance. (int8 values are exact in TF32, so two TF32 MMAs a
 // product, q_hi . k + q_lo . k, are a later route to the tensor cores.)
 //
+// Head dims 32, 64, 128 and 256, one template. At D = 256 a stage of K and V
+// tiles is 130 KB, so the block keeps one stage (Layout::kStages = 1: the
+// next tile loads once the current one is done, no overlap), and the p.V
+// split's two row sets of 64 float4 columns would give an 80-row verify 160
+// accumulators a thread beside its q rows' 83 KB: a block takes at most 48
+// rows there (kBlockRows), and a verify with more runs ceil(rows / 48)
+// blocks side by side (blockIdx.y: KV head, then row group), each walking
+// the split's tiles for its rows; their partials land in the same
+// workspace rows the merge reads. ptxas -v (sm_90a): D = 32
+// 56-72 registers (the int8 forms at 8 and 16 rows spill 4 bytes); D = 256
+// single-query 246, verify 250 / 255 at 16 / 48 rows, K4 242, over int8
+// pools 128 (8 bytes spilled) / 178 / 254, merge 59-64.
+//
 // Semantics, the reference's in f32: scores are the f32 q.k sums times the
 // scale; masked columns of a processed tile take the finite -2.3819763e38;
 // p stays f32 for p.v, l adds the same p; a row with l == 0 (a dead slot,
@@ -106,6 +119,7 @@ constexpr int kMaxRows = 80;       // verify: query rows (Q * G) per KV head
 constexpr int kMergeBatch = 32;    // merge: splits whose acc values are loaded at once
 constexpr int kMaxSplits = 6144;   // the merge's m and l: 48 KB of shared memory
 constexpr float kNegInf = -2.3819763e38f;  // ops/attention.py NEG_INF
+constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may take
 
 struct Params {
   const float* q;        // (B, H, D); verify (B, Q, H, D)
@@ -128,24 +142,34 @@ struct Params {
   const float* v_scale;
 };
 
-// Shared memory of a split block with up to kR query rows, in floats: two
-// stages of (K, V) tiles with rows padded by 16 bytes, q's rows padded the
-// same way, the scores (then p) of kR rows, and m, l, alpha per row; over
-// int8 pools, two stages of the tile's 64 K and 64 V scales after them (a
-// page row's D int8 values sit in the first D bytes of its f32 row).
+// Shared memory of a split block with up to kR query rows, in floats:
+// kStages stages of (K, V) tiles with rows padded by 16 bytes, q's rows
+// padded the same way, the scores (then p) of kR rows, and m, l, alpha per
+// row; over int8 pools, kStages stages of the tile's 64 K and 64 V scales
+// after them (a page row's D int8 values sit in the first D bytes of its f32
+// row). Two stages at D <= 128; one at D = 256, where a stage alone is 130
+// KB: its next tile loads after the current one is done.
 template <int D, int kR>
 struct Layout {
+  static constexpr int kStages = D == 256 ? 1 : 2;
   static constexpr int kLd = D + 4;
   static constexpr int kTileF = kTile * kLd;
-  static constexpr int kQ = 4 * kTileF;
+  static constexpr int kQ = 2 * kStages * kTileF;
   static constexpr int kS = kQ + kR * kLd;
   static constexpr int kM = kS + kR * kTile;
   static constexpr int kL = kM + kR;
   static constexpr int kAlpha = kL + kR;
   static constexpr int kSc = kAlpha + kR;
   static constexpr int kBytes = kSc * 4;
-  static constexpr int kBytesI8 = (kSc + 2 * 2 * kTile) * 4;
+  static constexpr int kBytesI8 = (kSc + kStages * 2 * kTile) * 4;
+  static_assert(kBytesI8 <= kMaxSmem, "shared memory of a block");
 };
+
+// The most query rows one block takes at D: 80, or 48 at D = 256 (its
+// accumulators and its q rows); a verify with more rows runs ceil(rows /
+// kR) blocks of rows side by side, each walking the split's tiles.
+template <int D>
+constexpr int kBlockRows = D == 256 ? 48 : kMaxRows;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -356,6 +380,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
   constexpr int kLd = L::kLd;
   constexpr int kCols = D / 4;                // float4 column groups of a row
   constexpr int kRowSets = kThreads / kCols;  // p.V: row sets (4 at D = 128, 8 at 64)
+  static_assert(kR <= kBlockRows<D>, "rows of one block");
   constexpr int kRowsPT = (kR + kRowSets - 1) / kRowSets;
   extern __shared__ __align__(16) float smem[];
   float* qsm = smem + L::kQ;
@@ -365,10 +390,14 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
   float* salpha = smem + L::kAlpha;
   float* ssc = smem + L::kSc;  // int8 pools: two stages of K, then V, scales
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y: the KV head, then the block's group of kR query rows (one
+  // group unless Q * G > kR): rows row0 + r, r < rows, of the Q * G.
+  const int split = blockIdx.x, kh = blockIdx.y % p.kv_heads, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int groups = p.groups;
-  const int rows = p.n_q * groups;
+  const int all_rows = p.n_q * groups;
+  const int row0 = blockIdx.y / p.kv_heads * kR;
+  const int rows = min(kR, all_rows - row0);
   const Live live = slot_live<kTail>(p, b);
   const int v0 = split * p.split, v1 = min(v0 + p.split, live.end);
   int cur = live.next(v0, v1);
@@ -381,8 +410,9 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
     for (int idx = tid; idx < kR * kCols; idx += kThreads) {
       const int r = idx / kCols, c = idx % kCols;
       const bool ok = r < rows;
+      const int rr = row0 + r;
       const long qrow =
-          ok ? ((long)b * p.n_q + r / groups) * heads + (long)kh * groups + r % groups : 0;
+          ok ? ((long)b * p.n_q + rr / groups) * heads + (long)kh * groups + rr % groups : 0;
       cp_async16(qsm + r * kLd + 4 * c, p.q + qrow * D + 4 * c, ok);
     }
   }
@@ -398,14 +428,14 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
   load_tile<D, kI8>(p, live, b, kh, cur, smem, ssc);
   __syncthreads();  // m and l initialised
   const int key = tid & (kTile - 1), half = tid / kTile;
-  for (int stage = 0; cur >= 0; stage ^= 1) {
+  for (int stage = 0; cur >= 0; stage = (stage + 1) % L::kStages) {
     const int nxt = live.next(cur + kTile, v1);
     const float* kb = smem + stage * 2 * L::kTileF;
     const float* vb = kb + L::kTileF;
     // int8 pools: this stage's K and V scales (0 on tail and dead rows)
     const float* sks = ssc + stage * 2 * kTile;
     const float* svs = sks + kTile;
-    if (nxt >= 0) {
+    if (L::kStages == 2 && nxt >= 0) {
       load_tile<D, kI8>(p, live, b, kh, nxt, smem + (stage ^ 1) * 2 * L::kTileF,
                         ssc + (stage ^ 1) * 2 * kTile);
       cp_wait<1>();
@@ -460,7 +490,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
       for (int e = 0; e < 4; ++e) {
         const int r = r0 + e;
         if (r < rows) {
-          const int te = live.row_end(r / groups);
+          const int te = live.row_end((row0 + r) / groups);
           float sc = a[e] * p.scale;
           if (key_i8) sc *= k_scale;
           ss[r * kTile + key] = live.key_row(cur + key, te) ? sc : kNegInf;
@@ -530,6 +560,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
       }
     }
     __syncthreads();  // this stage's buffers and the scores are free again
+    if (L::kStages == 1 && nxt >= 0) load_tile<D, kI8>(p, live, b, kh, nxt, smem, ssc);
     cur = nxt;
   }
 
@@ -539,13 +570,13 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
   for (int i = 0; i < kRowsPT; ++i) {
     const int r = rset + kRowSets * i;
     if (r < rows) {
-      *reinterpret_cast<float4*>(p.part_acc + (part * rows + r) * D + 4 * c4) =
+      *reinterpret_cast<float4*>(p.part_acc + (part * all_rows + row0 + r) * D + 4 * c4) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
   }
   for (int r = tid; r < rows; r += kThreads) {
-    p.part_ml[(part * rows + r) * 2] = sm[r];
-    p.part_ml[(part * rows + r) * 2 + 1] = sl[r];
+    p.part_ml[(part * all_rows + row0 + r) * 2] = sm[r];
+    p.part_ml[(part * all_rows + row0 + r) * 2 + 1] = sl[r];
   }
 }
 
@@ -560,7 +591,8 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     prepared = true;
   }
-  kernel<<<dim3(p.n_split, p.kv_heads, batch), kThreads, kSmem, stream>>>(p);
+  const int row_groups = (p.n_q * p.groups + kR - 1) / kR;
+  kernel<<<dim3(p.n_split, p.kv_heads * row_groups, batch), kThreads, kSmem, stream>>>(p);
   if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
   paged_merge_f32_kernel<D, kTail><<<dim3(p.n_q * p.groups, p.kv_heads, batch), D,
                                      2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
@@ -568,14 +600,15 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 }
 
 // The instance for `rows` query rows: 8 for the single-query form; 16, 48
-// or 80 for the verify (which exists only with a tail).
+// or 80 for the verify (which exists only with a tail); at D = 256 rows
+// past 48 run in blocks of 48 (kBlockRows).
 template <int D, bool kTail, bool kI8>
 int launch_rows(const Params& p, int batch, cudaStream_t stream, bool verify, int rows) {
   if (!verify) return launch<D, kTail, kMaxGroups, kI8>(p, batch, stream);
-  if constexpr (kTail) {
+  if constexpr (kTail) {  // rows <= kMaxRows (dispatch)
     if (rows <= 16) return launch<D, kTail, 16, kI8>(p, batch, stream);
     if (rows <= 48) return launch<D, kTail, 48, kI8>(p, batch, stream);
-    if (rows <= kMaxRows) return launch<D, kTail, kMaxRows, kI8>(p, batch, stream);
+    return launch<D, kTail, kBlockRows<D>, kI8>(p, batch, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -599,10 +632,14 @@ int dispatch(Params p, int batch, int n_q, bool verify, int heads, int head_dim,
   p.n_split = static_cast<int>(n_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 32:
+      return launch_rows<32, kTail, kI8>(p, batch, s, verify, rows);
     case 64:
       return launch_rows<64, kTail, kI8>(p, batch, s, verify, rows);
     case 128:
       return launch_rows<128, kTail, kI8>(p, batch, s, verify, rows);
+    case 256:
+      return launch_rows<256, kTail, kI8>(p, batch, s, verify, rows);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -639,7 +676,6 @@ Params make_params_i8(const void* q, const void* k_pages, const void* v_pages,
   return p;
 }
 
-static_assert(Layout<128, kMaxRows>::kBytesI8 <= 232448, "verify shared memory at D = 128");
 
 }  // namespace
 

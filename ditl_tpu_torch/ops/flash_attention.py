@@ -19,7 +19,7 @@ Hopper:
 - ``kernel_route`` is the one rule for which entry point a CUDA call takes,
   from (dtype, head_dim, the forward or one of the backward's two
   kernels): bf16 and float16 at D in ``HEAD_DIMS`` all three, f32 at D in
-  ``F32_HEAD_DIMS`` all three; anything else (D = 256) raises
+  ``F32_HEAD_DIMS`` all three; other head dims raise
   ``NotImplementedError`` naming ROADMAP.md §2.
 - ``supports`` and ``_pick_blocks`` are the reference's, copied (with its
   ``NUM_LANES``/``NUM_SUBLANES``): the shapes for which the reference's
@@ -72,7 +72,7 @@ from ditl_tpu_torch.ops.attention import NEG_INF
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain", "tile_schedule",
            "fwd_block_kv", "FWD_BLOCK_Q", "FWD_WARPGROUP_ROWS", "BWD_DQ_BLOCK_Q",
-           "BWD_DKV_BLOCK_KV", "BWD_DKV_BLOCK_Q", "BWD_DKV_WARPGROUP_KEYS", "HEAD_DIMS",
+           "bwd_dkv_block_kv", "BWD_DKV_BLOCK_Q", "BWD_DKV_WARPGROUP_KEYS", "HEAD_DIMS",
            "F32_HEAD_DIMS", "F32_BLOCK", "F32_MAX_SEQ", "kernel_route", "supports",
            "BlockSizes", "launches", "launches_dq", "launches_dkv", "launches_f16",
            "launches_dq_f16", "launches_dkv_f16", "launches_f32", "launches_dq_f32",
@@ -109,10 +109,10 @@ def supports(s_q: int, s_kv: int, head_dim: int, block_q: int = 512,
     )
 
 
-HEAD_DIMS = (32, 64, 128)  # the bf16 and float16 kernels' template instances
-# The f32 kernels' instances: the reference's own head dims below 256
+HEAD_DIMS = (32, 64, 128, 256)  # the bf16 and float16 kernels' template instances
+# The f32 kernels' instances: the reference's own head dims up to 256
 # (``supports``: D = 64 or D % 128 == 0).
-F32_HEAD_DIMS = (64, 128)
+F32_HEAD_DIMS = (64, 128, 256)
 # The f32 kernels' tiles (csrc/flash_f32.cu): 64 query rows by 64 keys for
 # K1-f32, K2a-f32 and K2b-f32 alike, so ``tile_schedule(ids, causal, s, s,
 # F32_BLOCK, F32_BLOCK)`` is the map of each; a block marks at most 4096
@@ -126,12 +126,12 @@ FWD_BLOCK_Q = 128
 FWD_WARPGROUP_ROWS = 64
 # K2a's tiles (csrc/flash_bwd.cu) are K1's: BWD_DQ_BLOCK_Q query rows a
 # block, FWD_WARPGROUP_ROWS a warpgroup, key tiles of fwd_block_kv(head_dim).
-# K2b's block owns BWD_DKV_BLOCK_KV keys, BWD_DKV_WARPGROUP_KEYS a warpgroup,
-# and walks the query rows in tiles of BWD_DKV_BLOCK_Q:
-# ``tile_schedule(ids, causal, s, s, BWD_DKV_BLOCK_Q, BWD_DKV_BLOCK_KV)`` is
-# its map, read by columns.
+# K2b's block owns bwd_dkv_block_kv(head_dim) keys, each warpgroup
+# BWD_DKV_WARPGROUP_KEYS of them (at D = 256 both the block's 64, each on
+# half the columns), and walks the query rows in tiles of BWD_DKV_BLOCK_Q:
+# ``tile_schedule(ids, causal, s, s, BWD_DKV_BLOCK_Q, bwd_dkv_block_kv(d))``
+# is its map, read by columns.
 BWD_DQ_BLOCK_Q = 128
-BWD_DKV_BLOCK_KV = 128
 BWD_DKV_WARPGROUP_KEYS = 64
 BWD_DKV_BLOCK_Q = 64
 
@@ -139,7 +139,12 @@ BWD_DKV_BLOCK_Q = 64
 def fwd_block_kv(head_dim: int) -> int:
     """K1's and K2a's key-tile width at ``head_dim``
     (``Cfg<D>::kBlockN``, ``DqCfg<D>::kBlockN``)."""
-    return 128 if head_dim == 32 else 64
+    return {32: 128, 256: 32}.get(head_dim, 64)
+
+
+def bwd_dkv_block_kv(head_dim: int) -> int:
+    """K2b's keys a block at ``head_dim`` (``DkvCfg<D>::kBlockN``)."""
+    return 64 if head_dim == 256 else 128
 
 # Kernel launches since the last reset_launches(); counted where each kernel
 # is launched and nowhere else: K1, K2a, K2b on bf16, on float16 and on f32.
@@ -183,8 +188,9 @@ def kernel_route(dtype: torch.dtype, head_dim: int, kind: str = "fwd") -> tuple[
     backward's K2a, K2b) on ``dtype`` operands at ``head_dim`` takes, as
     (source in ``csrc/``, symbol): bf16 and float16 at D in ``HEAD_DIMS``
     (csrc/flash_fwd.cu, csrc/flash_bwd.cu), f32 at D in ``F32_HEAD_DIMS``
-    (csrc/flash_f32.cu). The rest, which the reference computes (D = 256),
-    raises ``NotImplementedError`` naming ROADMAP.md §2."""
+    (csrc/flash_f32.cu). The rest, which the reference computes where
+    ``supports`` holds (D = 384, ...), raises ``NotImplementedError`` naming
+    ROADMAP.md §2."""
     if kind not in _PTRS:
         raise ValueError(f"kind must be one of {tuple(_PTRS)}, got {kind!r}")
     if dtype not in _DIMS:

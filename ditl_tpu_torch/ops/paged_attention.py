@@ -77,9 +77,10 @@ twin and the kernels all apply it.
   ``launches_verify_f16``, ``launches_f16``, ``launches_tail_int8_f16`` and
   ``launches_verify_int8_f16``.
 
-``kernel_route`` picks the entry point from (q's dtype, int8 pools, verify,
-tail), and ``_SOURCES`` its source; other dtypes raise
-``NotImplementedError`` naming ROADMAP.md §2.
+``kernel_route`` picks the entry point from (q's dtype, head_dim, int8
+pools, verify, tail), and ``_SOURCES`` its source; other dtypes and head
+dims outside ``HEAD_DIMS`` raise ``NotImplementedError`` naming ROADMAP.md
+§2.
 
 Layouts are the JAX package's: q (B, H, D) or (B, Q, H, D); pools (P, K,
 ps, D); page table (B, maxp) int32; lengths and starts (B,) int32; tails
@@ -104,7 +105,7 @@ __all__ = ["paged_attention", "paged_attention_plain", "paged_attention_split_pl
            "launches_f16", "launches_tail_f16", "launches_verify_f16",
            "launches_tail_int8_f16", "launches_verify_int8_f16", "reset_launches"]
 
-HEAD_DIMS = (64, 128)  # the kernels' template instances
+HEAD_DIMS = (32, 64, 128, 256)  # the kernels' template instances, every dtype
 MAX_GROUPS = 8  # query heads per KV head the kernels take
 # Query rows (Q * G) per KV head the verify kernels take: five m16 row tiles,
 # which covers spec_k = 8 at G = 8 (72 rows).
@@ -171,17 +172,24 @@ def reset_launches() -> None:
         globals()[name] = 0
 
 
-def kernel_route(dtype: torch.dtype, *, int8: bool, verify: bool, tail: bool) -> str:
+def kernel_route(dtype: torch.dtype, head_dim: int, *, int8: bool, verify: bool,
+                 tail: bool) -> str:
     """The entry point a CUDA call takes: bf16 or float16 q over pools of
     its dtype or int8 (``csrc/paged_attention.cu``), f32 q over f32 or int8
     pools (``csrc/paged_attention_f32.cu``; ``_SOURCES`` maps each entry
     point to its source); K3 with a tail, its verify for a 4-D q with Q >
-    1, K4 without a tail (never over int8 pools). Other dtypes raise
+    1, K4 without a tail (never over int8 pools); each entry point holds
+    every head dim of ``HEAD_DIMS``. Other dtypes and head dims, which the
+    reference computes (its paged kernel takes any D), raise
     ``NotImplementedError`` naming ROADMAP.md §2."""
     if dtype not in _DTYPES:
         raise NotImplementedError(
             f"the CUDA paged-attention kernels take bfloat16, float16 or float32, got "
             f"{dtype}: not ported (ROADMAP.md §2)")
+    if head_dim not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"the CUDA paged-attention kernels take head_dim in {HEAD_DIMS}, got "
+            f"head_dim {head_dim}: not ported yet (ROADMAP.md §2)")
     suffix = _DTYPES[dtype][1 if int8 else 0]
     if not tail:
         if int8 or verify:
@@ -526,7 +534,7 @@ def paged_attention(
     if tail:
         floats += [("tail_k", tail_k), ("tail_v", tail_v)]
         ints += [("starts", starts)]
-    name = kernel_route(q.dtype, int8=quant, verify=verify, tail=tail)
+    name = kernel_route(q.dtype, d, int8=quant, verify=verify, tail=tail)
     for t_name, t in floats:
         if t.dtype != q.dtype:
             raise ValueError(f"the CUDA paged-attention kernels take q, tails and float "
@@ -540,9 +548,6 @@ def paged_attention(
     for t_name, t in ints:
         if not t.is_contiguous():
             raise ValueError(f"{t_name} must be contiguous")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA paged-attention kernels take head_dim in "
-                         f"{HEAD_DIMS}, got {d} (see ROADMAP.md)")
     groups = h // kv_heads
     if groups > MAX_GROUPS:
         raise ValueError(f"the CUDA paged-attention kernels take at most "

@@ -96,6 +96,12 @@ def _segment_ids(cuda, kind, b, s, seed=0):
     (2, 300, 300, 4, 2, 64, False, "edge1"),
     (2, 300, 300, 4, 2, 128, False, "nonmono"),
     (2, 300, 300, 4, 2, 128, False, None),
+    # head_dim 256: path 15's prefill (8 heads on 1 KV head), ids up and down,
+    # a boundary one row past a tile edge, Sq != Skv without a mask
+    (4, 512, 512, 8, 1, 256, True, [512, 401, 230, 97]),
+    (2, 300, 300, 4, 2, 256, True, "nonmono"),
+    (1, 257, 257, 4, 2, 256, True, "edge1"),
+    (2, 200, 333, 4, 4, 256, False, None),
 ])
 def test_flash_fwd_kernel_matches_plain(cuda, b, s_q, s_kv, h, kv, d, causal, seg):
     lengths = seg if isinstance(seg, list) else None
@@ -114,10 +120,11 @@ def test_flash_fwd_kernel_matches_plain(cuda, b, s_q, s_kv, h, kv, d, causal, se
 @pytest.mark.torch_port
 def test_flash_fwd_kernel_raises_instead_of_falling_back(cuda):
     """On CUDA tensors the wrapper launches the kernel or raises: no plain
-    fallback for shapes or dtypes the kernel does not take. What the
-    reference computes and the port has no kernel for yet (D = 256, D = 48)
-    raises NotImplementedError naming ROADMAP.md; a float16 forward
-    launches K1-f16, and its backward K2a-f16 and K2b-f16."""
+    fallback for shapes or dtypes the kernel does not take. A head dim the
+    port has no kernel for (D = 48) raises NotImplementedError naming
+    ROADMAP.md; a float16 forward launches K1-f16, and its backward K2a-f16
+    and K2b-f16 (D = 256 in every dtype is held to its plain version in the
+    kernel tests)."""
     q, k, v, _ = _inputs(cuda, 1, 64, 64, 4, 2, 128)
     tfa.reset_launches()
     leaves = [t.half().requires_grad_() for t in (q, k, v)]
@@ -130,10 +137,9 @@ def test_flash_fwd_kernel_raises_instead_of_falling_back(cuda):
     q48, k48, v48, _ = _inputs(cuda, 1, 64, 64, 4, 2, 48)
     with pytest.raises(NotImplementedError, match="head_dim.*ROADMAP"):
         tfa.flash_attention(q48, k48, v48)
-    for dtype in (torch.bfloat16, torch.float16, torch.float32):  # D = 256 in each dtype
-        q256, k256, v256, _ = _inputs(cuda, 1, 64, 64, 4, 2, 256, dtype=dtype)
-        with pytest.raises(NotImplementedError, match="head_dim.*ROADMAP"):
-            tfa.flash_attention(q256, k256, v256)
+    q48, k48, v48, _ = _inputs(cuda, 1, 64, 64, 4, 2, 48, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="head_dim.*ROADMAP"):  # f32 at D = 48
+        tfa.flash_attention(q48, k48, v48)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     assert tfa.launches == tfa.launches_f32 == tfa.launches_dq == 0
@@ -179,7 +185,7 @@ PAGED_CASES = [
     # on a split boundary, a tile across the last page and the tail
     (4, 32, 8, 128, 16, 16, [257, 256, 513, 140], [257, 250, 500, 128]),
     (3, 16, 2, 64, 48, 8, [300, 1, 40], [297, 0, 33]),
-]
+] + [case[1:] for case in chip_smoke.HD_PAGED_CASES]  # head_dim 32 and 256, G = 1, 2, 8
 
 
 @pytest.mark.torch_port
@@ -387,8 +393,11 @@ def test_paged_int8_invalid_inputs_raise_and_launch_nothing(cuda):
 # slot, a page boundary, a tail reaching its last column), head_dim 64 at
 # page 16, a tail longer than 128 columns (query 0's limit before the split
 # at tail column 128, query 8's past it) with a tail-only slot, G = 8 at 72
-# query rows, Q = 2 (one row tile with padding rows).
-VERIFY_CASES = [case[1:] for case in chip_smoke._verify_cases()]
+# query rows, Q = 2 (one row tile with padding rows); then head_dim 32 and
+# 256 (chip_smoke.HD_VERIFY_CASES: the spec ticks of paths 14 and 15, 80 rows
+# at G = 8, G = 1 with a long tail, 40 rows).
+BASE_VERIFY_CASES = [case[1:] for case in chip_smoke._verify_cases()]
+VERIFY_CASES = BASE_VERIFY_CASES + [case[1:] for case in chip_smoke.HD_VERIFY_CASES]
 
 
 @pytest.mark.torch_port
@@ -506,6 +515,12 @@ BWD_CASES = [
     (1, 129, 129, 4, 1, 128, True, 0),
     (2, 200, 333, 8, 2, 64, True, 0),  # causal, Sq < Skv
     (2, 333, 200, 8, 2, 128, True, 0),  # causal, Sq > Skv
+    # head_dim 256: a training row of path 15 (8 heads on 1 KV head, packed
+    # documents), ids up and down, a boundary past a tile edge, Sq != Skv
+    (1, 2048, 2048, 8, 1, 256, True, 4),
+    (2, 300, 300, 4, 2, 256, True, "nonmono"),
+    (1, 257, 257, 4, 2, 256, True, "edge1"),
+    (2, 200, 333, 4, 4, 256, False, 0),
 ]
 
 
@@ -564,16 +579,16 @@ def test_flash_attention_autograd_launches_k1_k2(cuda):
 
 @pytest.mark.torch_port
 def test_flash_bwd_raises_instead_of_falling_back(cuda):
-    """An unported dtype (float64) or head dim (256), a bad lse or a strided
+    """An unported dtype (float64) or head dim (48), a bad lse or a strided
     gradient raise on the card, and nothing launches."""
     q, k, v, o, lse, do = _bwd_inputs(cuda, 1, 64, 64, 4, 2, 128, True, None)
     tfa.reset_launches()
     with pytest.raises(NotImplementedError, match="float64.*ROADMAP"):
         tfa.flash_attention_bwd(q.double(), k.double(), v.double(), o.double(), lse,
                                 do.double())
-    q256, k256, v256, _ = _inputs(cuda, 1, 64, 64, 4, 2, 256, dtype=torch.float32)
+    q48, k48, v48, _ = _inputs(cuda, 1, 64, 64, 4, 2, 48, dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="head_dim.*ROADMAP"):
-        tfa.flash_attention_bwd(q256, k256, v256, q256, lse, q256)
+        tfa.flash_attention_bwd(q48, k48, v48, q48, lse, q48)
     with pytest.raises(ValueError, match="lse"):
         tfa.flash_attention_bwd(q, k, v, o, lse.bfloat16(), do)
     with pytest.raises(ValueError, match="contiguous"):
@@ -815,7 +830,9 @@ PAGED_F32_TOL = 2e-5
 # (b, s_q, s_kv, h, kv, d, causal, seg): the serving prefill (right-padded,
 # G = 4), the training pipeline's packed rows at qwen2-0.5b's heads (G = 7,
 # D = 64), G = 7 with ids that go up and down, non-causal Sq < Skv, causal
-# Sq > Skv, a boundary one row past a tile edge, MQA.
+# Sq > Skv, a boundary one row past a tile edge, MQA; then D = 256 (path
+# 15's heads, 8 on 1: its prefill and a packed training row; ids up and
+# down; non-causal Sq != Skv).
 F32_FLASH_CASES = [
     (4, 512, 512, 32, 8, 128, True, [512, 401, 230, 97]),
     (4, 2048, 2048, 14, 2, 64, True, "train"),
@@ -825,6 +842,10 @@ F32_FLASH_CASES = [
     (1, 257, 257, 4, 2, 128, True, "edge1"),
     (1, 129, 129, 4, 1, 128, True, None),
     (2, 300, 300, 4, 2, 64, False, "edge1"),
+    (4, 512, 512, 8, 1, 256, True, [512, 401, 230, 97]),
+    (1, 2048, 2048, 8, 1, 256, True, "train"),
+    (2, 300, 300, 4, 2, 256, True, "nonmono"),
+    (2, 200, 333, 4, 4, 256, False, None),
 ]
 
 
@@ -1109,6 +1130,9 @@ F16 = torch.float16
     (2, 200, 333, 8, 4, 32, False, None),
     (1, 257, 257, 4, 2, 32, True, "edge1"),
     (2, 300, 300, 4, 2, 128, False, "nonmono"),
+    (4, 512, 512, 8, 1, 256, True, [512, 401, 230, 97]),  # path 15's prefill
+    (2, 300, 300, 4, 2, 256, True, "nonmono"),
+    (2, 200, 333, 4, 4, 256, False, None),
 ])
 def test_flash_f16_fwd_kernel_matches_plain(cuda, b, s_q, s_kv, h, kv, d, causal, seg):
     """K1-f16 against the plain forward in float16; two calls give the same
@@ -1181,7 +1205,8 @@ def test_paged_f16_and_f32_int8_verify_kernels_match_plain(no_tf32, dtype, int8,
     on the verify cases and at 80 query rows against the plain version's
     4-D branch and the split twin; two calls give the same bits; a 4-D q
     with Q = 1 gives the 3-D call's bits."""
-    cases = VERIFY_CASES + [chip_smoke.VERIFY_80[1:]]
+    cases = (BASE_VERIFY_CASES + [chip_smoke.VERIFY_80[1:]]
+             + VERIFY_CASES[len(BASE_VERIFY_CASES):])
     b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp = cases[case]
     q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
         no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=case, nq=nq,
@@ -1230,6 +1255,8 @@ F16_BWD_CASES = [
     (1, 129, 129, 4, 1, 128, True, 0),
     (2, 300, 300, 14, 2, 64, True, "nonmono"),
     (2, 333, 200, 8, 2, 128, True, 0),
+    (1, 2048, 2048, 8, 1, 256, True, 4),  # a training row of path 15
+    (2, 300, 300, 4, 2, 256, True, "nonmono"),
 ]
 
 

@@ -99,22 +99,22 @@ _FLASH_F32 = ("flash_f32.cu", "flash_f32.cu", "_f32")
 # raise carries, symbol suffix), or the text every kind's raise carries.
 FLASH_ROUTES = {
     ("bfloat16", 32): _FLASH_BF16, ("bfloat16", 64): _FLASH_BF16,
-    ("bfloat16", 128): _FLASH_BF16, ("bfloat16", 256): "head_dim 256.*ROADMAP.md §2",
+    ("bfloat16", 128): _FLASH_BF16, ("bfloat16", 256): _FLASH_BF16,
     ("float32", 32): "head_dim 32.*ROADMAP.md §2", ("float32", 64): _FLASH_F32,
-    ("float32", 128): _FLASH_F32, ("float32", 256): "head_dim 256.*ROADMAP.md §2",
+    ("float32", 128): _FLASH_F32, ("float32", 256): _FLASH_F32,
     ("float16", 32): _FLASH_F16, ("float16", 64): _FLASH_F16,
-    ("float16", 128): _FLASH_F16, ("float16", 256): "head_dim 256.*ROADMAP.md §2",
+    ("float16", 128): _FLASH_F16, ("float16", 256): _FLASH_F16,
 }
 
 
 @pytest.mark.parametrize("dtype,head_dim", sorted(FLASH_ROUTES))
 def test_flash_kernel_route(dtype, head_dim):
-    """``kernel_route``: bf16 at D in {32, 64, 128} keeps the bf16 kernels,
-    float16 at the same D takes ``ditl_flash_fwd_f16`` and
+    """``kernel_route``: bf16 at D in {32, 64, 128, 256} keeps the bf16
+    kernels, float16 at the same D takes ``ditl_flash_fwd_f16`` and
     ``ditl_flash_bwd_{dq,dkv}_f16`` (the same sources' float16 instances),
-    f32 at D in {64, 128} (the reference's own head dims below 256) takes
-    ``ditl_flash_*_f32``; D = 256 raises for every kind, naming ROADMAP.md
-    §2."""
+    f32 at D in {64, 128, 256} (the reference's own head dims) takes
+    ``ditl_flash_*_f32``; f32 at D = 32 raises for every kind, naming
+    ROADMAP.md §2."""
     dt = getattr(torch, dtype)
     want = FLASH_ROUTES[(dtype, head_dim)]
     if isinstance(want, str):
@@ -159,16 +159,23 @@ def test_paged_kernel_route(dtype, int8, form):
     """``kernel_route``: bf16 and float16 q over pools of their dtype or int8
     take ``csrc/paged_attention.cu``'s entry points (``_bf16``/``_i8``,
     ``_f16``/``_i8_f16``), f32 q over f32 or int8 pools (variant F)
-    ``csrc/paged_attention_f32.cu``'s (``_f32``/``_i8_f32``); each has its
-    argument count, counter and source; another dtype raises naming
-    ROADMAP.md §2."""
+    ``csrc/paged_attention_f32.cu``'s (``_f32``/``_i8_f32``), at every head
+    dim of ``HEAD_DIMS`` (32, 64, 128, 256); each has its argument count,
+    counter and source; another dtype, or another head dim (48, 96), raises
+    naming ROADMAP.md §2."""
     want = PAGED_ROUTES[(dtype, int8, form)]
     kw = dict(int8=int8, verify=form == "verify", tail=form != "no_tail")
+    dt = getattr(torch, dtype)
     if not want.startswith("ditl_"):
         with pytest.raises(NotImplementedError, match=want):
-            tpa.kernel_route(getattr(torch, dtype), **kw)
+            tpa.kernel_route(dt, 128, **kw)
         return
-    assert tpa.kernel_route(getattr(torch, dtype), **kw) == want
+    assert tpa.HEAD_DIMS == (32, 64, 128, 256)
+    for head_dim in tpa.HEAD_DIMS:
+        assert tpa.kernel_route(dt, head_dim, **kw) == want
+    for head_dim in (48, 96):
+        with pytest.raises(NotImplementedError, match=f"head_dim {head_dim}.*ROADMAP.md §2"):
+            tpa.kernel_route(dt, head_dim, **kw)
     assert want in tpa._ARGS and want in tpa._COUNTERS
     assert tpa._SOURCES[want] == ("paged_attention_f32.cu" if dtype == "float32"
                                   else "paged_attention.cu")

@@ -130,10 +130,10 @@ from test_torch_flash_attention import _admitted, _expand, _schedule_ids  # noqa
 
 # (block_q, block_kv) of each kernel at head_dim 64: K2a walks K1's tiles
 # (BWD_DQ_BLOCK_Q rows, fwd_block_kv keys), K2b BWD_DKV_BLOCK_Q rows against
-# its BWD_DKV_BLOCK_KV keys.
+# its bwd_dkv_block_kv keys.
 BWD_TILINGS = {
     "dq": (tfa.BWD_DQ_BLOCK_Q, tfa.fwd_block_kv(64)),
-    "dkv": (tfa.BWD_DKV_BLOCK_Q, tfa.BWD_DKV_BLOCK_KV),
+    "dkv": (tfa.BWD_DKV_BLOCK_Q, tfa.bwd_dkv_block_kv(64)),
 }
 
 
@@ -206,7 +206,7 @@ def test_training_batch_backward_visits_under_half_the_causal_tiles(kernel):
                         ByteTokenizer(), cfg, "cpu")
     seg = torch.from_numpy(next(pipe._host_batches(0))["segment_ids"])
     blocks = {"dq": (tfa.BWD_DQ_BLOCK_Q, tfa.fwd_block_kv(128)),
-              "dkv": (tfa.BWD_DKV_BLOCK_Q, tfa.BWD_DKV_BLOCK_KV)}[kernel]
+              "dkv": (tfa.BWD_DKV_BLOCK_Q, tfa.bwd_dkv_block_kv(128))}[kernel]
     visit = tfa.tile_schedule(seg, True, 2048, 2048, *blocks)
     causal = 4 * int(tfa.tile_schedule(None, True, 2048, 2048, *blocks).sum())
     assert int(seg.max()) >= 2 and int(visit.sum()) < causal / 2, (int(visit.sum()), causal)
