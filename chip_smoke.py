@@ -75,7 +75,13 @@ no result line. It imports nothing of JAX or of the JAX package.
    and tail-only slots), and K1, K2a and K2b at head_dim 256 in bf16 and
    float16 (``HD_FLASH_CASES``: path 15's prefill and training rows, ids up
    and down, a boundary past a tile edge, Sq != Skv); every kernel called
-   twice gives the same bits.
+   twice gives the same bits. ``[shape-kernels]``
+   (``phase_shape_kernels``): every paged entry point at the group counts,
+   verify rows and head dims of paths 16 and 17 (``SHAPE_PAGED_CASES``,
+   ``SHAPE_VERIFY_CASES``: G = 16 single-query, a 144-row verify in two row
+   groups, D = 96 on the 128 instance, G = 12 at D = 80 with split edges and
+   108 rows, D = 16 at G = 16 with dead and tail-only slots and a long
+   tail) the same way.
 4. Timings: each kernel, its plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
    card's bound for the same work from this run's inputs; K1, K2a and K2b
@@ -114,6 +120,10 @@ no result line. It imports nothing of JAX or of the JAX package.
    at path 15's prefill and on one packed training row, K2a and K2b on that
    row, each beside its plain version, SDPA (or SDPA's backward) and its
    bound; the kernels line carries them under ``at_head_dims``.
+   ``[shape-timing]``: every paged entry point at path 16's decode tick (G
+   = 16) and spec tick (144 rows) and path 17's (D = 96), the verify forms
+   also at 80 rows of path 16's widths (Q = 5: one row group), the same
+   way; the kernels line carries them under ``at_shapes``.
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -222,6 +232,18 @@ no result line. It imports nothing of JAX or of the JAX package.
    4, B=1, S=2048, 3 steps: K1, K2a, K2b at D = 256), one step at depth 4
    through the kernels against the plain versions, and one float16 and one
    f32 step at depth 2 the same way.
+6h. Main path 16, Llama-3.1-405B's widths (``LLAMA405_SERVE``: the
+   ``llama31-70b`` preset with hidden 16384, MLP 53248, 128 heads on 8 KV
+   heads: G = 16), the runs of paths 14 and 15: bf16 at depth 4 of 126,
+   plain and speculative (the decode tick's K3 at 16 query rows a KV head,
+   the verify at 144 in two row groups, K1 at G = 16 on every cold
+   prefill), every other run at depth 2. Main path 17, Phi-3-mini-4k's
+   widths (``PHI3_SERVE``: hidden 3072, MLP 8192, 32 layers, 32 heads
+   without GQA, D = 96, vocab 32064): bf16 at full depth, every run at
+   depth 2; prefill in plain attention (the reference's ``supports`` takes
+   no D = 96); every request's prompt plus new tokens under the published
+   2047-token sliding window, so it never binds. Both: the repeated greedy
+   request gives identical tokens.
 7. Main path 3: training. The serving weights and pools are freed first;
    then ``train()`` runs in-process with the launcher's arguments
    (``TRAIN_ARGS``: ``llama3-8b`` at full width and depth, bf16 masters,
@@ -443,7 +465,8 @@ H100_FFMA_FLOPS = 67e12
 
 # Each entry's "head_dims": the head dims its kernel was held against its
 # plain version at in this run (None: the MLP and projection kernels have
-# none).
+# none); the paged kernels take every multiple of 16 up to 256, and any
+# group count and verify-row count (paths 16 and 17).
 KERNELS = {
     "flash_fwd": {
         "route": "cuda",
@@ -473,35 +496,35 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/paged_attention.py:235",
         "path": "continuous paged decode ticks (and the served checkpoint's); paths 14 "
                 "(D = 32) and 15 (D = 256)",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:191",
         "path": "direct call",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_tail_int8": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (quantized=True)",
         "path": "int8 serving (path 6): continuous paged decode ticks over int8 pools",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_verify": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, :248)",
         "path": "speculative continuous serving (path 7): every verify round of every layer",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_verify_int8": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, quantized=True)",
         "path": "speculative continuous serving over int8 pools: every verify round",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "flash_fwd_f32": {
         "route": "cuda",
@@ -530,21 +553,21 @@ KERNELS = {
         "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (float32 operands)",
         "path": "f32 serving (path 8): continuous paged decode ticks",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_verify_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, float32 operands)",
         "path": "f32 speculative continuous serving: every verify round",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:191 (float32 operands)",
         "path": "direct call",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "mlp_dgu_dwdown": {
         "route": "cuda",
@@ -603,28 +626,28 @@ KERNELS = {
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (float16 operands)",
         "path": "float16 serving (path 12): continuous paged decode ticks",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_verify_f16": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, float16 operands)",
         "path": "float16 speculative continuous serving: every verify round",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_f16": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:191 (float16 operands)",
         "path": "direct call",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_tail_int8_f16": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (quantized=True, float16 q)",
         "path": "float16 serving over int8 pools (--kv-quant int8): continuous decode ticks",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_verify_int8_f16": {
         "route": "cuda",
@@ -632,14 +655,14 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, quantized=True, "
                     "float16 q)",
         "path": "float16 speculative serving over int8 pools: every verify round",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_tail_int8_f32": {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention_f32.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (quantized=True, float32 q)",
         "path": "f32 serving over int8 pools (path 11): continuous paged decode ticks",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_verify_int8_f32": {
         "route": "cuda",
@@ -647,7 +670,7 @@ KERNELS = {
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, quantized=True, "
                     "float32 q)",
         "path": "f32 speculative serving over int8 pools: every verify round",
-        "head_dims": [32, 64, 128, 256],
+        "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "flash_dq_f16": {
         "route": "cuda",
@@ -5493,8 +5516,8 @@ HD_SERVE_RUNS = [
 
 
 def _hd_serve(flash, paged, base: list, tag: str, dtype: str, int8: bool, spec: bool,
-              against: dict | None):
-    """One serving run of path 14 or 15: ``infer/server.py`` as ``create_server``
+              against: dict | None, max_total: int | None = None):
+    """One serving run of paths 14-17: ``infer/server.py`` as ``create_server``
     builds it from ``base`` plus ``--engine continuous --cache-mode paged
     --slots 8 --page-size 256 --max-cache-len 2048`` (and ``--speculative
     on``), the continuous traffic over HTTP (speculative: its greedy
@@ -5507,7 +5530,9 @@ def _hd_serve(flash, paged, base: list, tag: str, dtype: str, int8: bool, spec: 
     (``_check_decode_step``); greedy tokens against ``against`` (a run's
     outputs by prompt) or, where None, the same requests through the plain
     versions on a plain engine over the same weights, each identical or a
-    near-tie. Returns the launch counts and the greedy outputs."""
+    near-tie; a greedy request sent twice gives the same tokens twice. With
+    ``max_total``, every request's prompt plus new tokens stays under it.
+    Returns the launch counts and the greedy outputs."""
     from ditl_tpu_torch.infer import server as server_mod
     from ditl_tpu_torch.infer.continuous import ContinuousEngine
 
@@ -5529,6 +5554,8 @@ def _hd_serve(flash, paged, base: list, tag: str, dtype: str, int8: bool, spec: 
     requests = _continuous_requests()[0]
     if spec:
         requests = [p for p in requests + _span_requests() if not p.get("temperature")]
+    longest = max(1 + len(tok.encode(p["prompt"])) + p["max_tokens"] for p in requests)
+    require(max_total is None or longest < max_total, (tag, longest, max_total))
     outputs, n, other, st, wall = _serve_greedy(server, recording, flash, paged, requests,
                                                 _counter(kernel))
     k1 = getattr(flash, "launches" + sfx)  # read right after
@@ -5552,6 +5579,8 @@ def _hd_serve(flash, paged, base: list, tag: str, dtype: str, int8: bool, spec: 
     greedy_keys = {(tuple([tok.bos_id] + tok.encode(p["prompt"])), p["max_tokens"])
                    for p in requests if not p.get("temperature")}
     greedy = {key: outs for key, outs in outputs.items() if key in greedy_keys}
+    require(any(len(outs) > 1 for outs in greedy.values())
+            and all(o == outs[0] for outs in greedy.values() for o in outs), tag)
     if against is None:
         fwd, wrapper = flash.flash_attention_fwd, paged.paged_attention
         flash.flash_attention_fwd = flash.flash_attention_plain
@@ -5577,31 +5606,39 @@ def _hd_serve(flash, paged, base: list, tag: str, dtype: str, int8: bool, spec: 
 def phase_head_dim_serve(flash, paged, path: int) -> dict:
     """Main path 14 (``infer/server.py --preset tiny-llama --engine continuous
     --cache-mode paged``, the README's quick start: D = 32, 8/4 heads, hidden
-    256, vocab 32000, 4 layers, weights from seed 0) or path 15
+    256, vocab 32000, 4 layers, weights from seed 0), path 15
     (``GEMMA_SERVE``: D = 256, 8 heads on 1 KV head, ``attention_impl=flash``;
-    full depth in bf16, then every run at depth 2): each of
+    full depth in bf16, then every run at depth 2), path 16
+    (``LLAMA405_SERVE``: G = 16; bf16 at depth 4, plain and speculative,
+    then every other run at depth 2) or path 17 (``PHI3_SERVE``: D = 96;
+    as path 15, every request under the 2047-token sliding window): each of
     ``HD_SERVE_RUNS`` through ``_hd_serve``, plain (greedy tokens held to the
     plain versions') and then with ``--speculative on`` (held to the plain
-    run's), so every single-query and verify form at that head dim launches
+    run's), so every single-query and verify form at that shape launches
     on a run. Returns the launch counts summed by kernels-line name."""
     import gc
 
     import torch
 
+    depth2 = ["--override", "num_layers=2"]
     total: dict = {}
     for tag, flags, dtype, int8 in HD_SERVE_RUNS:
         if path == 14:
-            base, depths = ["--preset", "tiny-llama", *flags], [[]]
+            base, depths = ["--preset", "tiny-llama", *flags], [([], (False, True))]
+        elif path == 16:
+            base = [*LLAMA405_SERVE, *flags]
+            depths = [([] if tag == "bf16" else depth2, (False, True))]
         else:
-            base = [*GEMMA_SERVE, *flags]
-            depths = ([[]] if tag == "bf16" else []) + [["--override", "num_layers=2"]]
-        for depth in depths:
+            base = [*(GEMMA_SERVE if path == 15 else PHI3_SERVE), *flags]
+            depths = ([([], (False,))] if tag == "bf16" else []) + [(depth2, (False, True))]
+        for depth, specs in depths:
             plain_out = None
-            for spec in ((False,) if path == 15 and not depth else (False, True)):
+            for spec in specs:
                 label = f"path{path}-{tag}" + ("-depth2" if depth else "") + (
                     "-spec" if spec else "")
                 counts, outs = _hd_serve(flash, paged, base + depth, label, dtype, int8, spec,
-                                         plain_out if spec else None)
+                                         plain_out if spec else None,
+                                         PHI3_WINDOW if path == 17 else None)
                 plain_out = plain_out if spec else outs
                 for key, value in counts.items():
                     total[key] = total.get(key, 0) + value
@@ -5664,6 +5701,123 @@ def phase_head_dim_train(flash) -> dict:
             for k in {**launched, **parity, **f16, **f32}}
 
 
+# ---------------------------------------------------------------------------
+# Any group count, any verify rows, any head dim up to 256 that is a multiple
+# of 16 (paths 16 and 17)
+# ---------------------------------------------------------------------------
+
+# Path 16: Llama-3.1-405B's published widths (meta-llama/Llama-3.1-405B,
+# config.json: vocab 128256, hidden 16384, intermediate 53248, 126 layers,
+# 128 heads on 8 KV heads, head_dim 128, rope_theta 500000 with the llama3
+# rope scaling of factor 8) from the ``llama31-70b`` preset, its family at
+# smaller widths (vocab, rope and its scaling as published), by overrides:
+# not a preset. G = 16. Depth 4 of 126 (34 GB of weights; the kernels are
+# per layer).
+LLAMA405_WIDTHS = ["name=llama31-405b-widths", "hidden_size=16384",
+                   "intermediate_size=53248", "num_heads=128", "num_kv_heads=8",
+                   "head_dim=128", "num_layers=4", "attention_impl=flash"]
+LLAMA405_SERVE = ["--preset", "llama31-70b",
+                  *[a for o in LLAMA405_WIDTHS for a in ("--override", o)]]
+# Path 17: microsoft/Phi-3-mini-4k-instruct's published widths (config.json:
+# vocab 32064, hidden 3072, intermediate 8192, 32 layers, 32 heads and 32 KV
+# heads, head_dim 3072 / 32 = 96, rope_theta 10000, rms_norm_eps 1e-5,
+# untied, 4096 positions; its fused qkv and gate_up are a weight layout of
+# the same products) as the repo's Llama architecture, full depth (3.82B
+# parameters). Its sliding_window of 2047 never binds while every request
+# holds fewer than PHI3_WINDOW tokens, which the runs check.
+PHI3_WIDTHS = ["name=phi-3-mini-4k-widths", "vocab_size=32064", "hidden_size=3072",
+               "intermediate_size=8192", "num_layers=32", "num_heads=32", "num_kv_heads=32",
+               "head_dim=96", "max_seq_len=4096", "rope_theta=10000.0", "rms_norm_eps=1e-5",
+               "tie_embeddings=false", "attention_impl=flash"]
+PHI3_SERVE = [a for o in PHI3_WIDTHS for a in ("--override", o)]
+PHI3_WINDOW = 2047
+
+# The decode tick of path 16 (128 query on 8 KV heads: 16 rows a KV head)
+# and path 17 (32 on 32 at D = 96), at the main path's slots, page and tail;
+# their spec ticks (Q = 9: 144 and 9 query rows a KV head); and path 16's
+# widths at Q = 5 (80 rows: one row group), timed beside its 144 rows.
+SHAPE_TICKS = {16: dict(b=8, h=128, kv=8, d=128, ps=256, tail_len=16),
+               17: dict(b=8, h=32, kv=32, d=96, ps=256, tail_len=16)}
+SHAPE_SPEC_TICKS = {p: dict(m, nq=9, maxp=8, tail_len=54) for p, m in SHAPE_TICKS.items()}
+SHAPE_VERIFY_80 = dict(SHAPE_SPEC_TICKS[16], nq=5)
+# Single-query cases: (label, b, h, kv, d, ps, tail_len, lengths, starts).
+# The decode ticks of paths 16 and 17 with the main path's ragged state;
+# Mistral-Large-2's G = 12 at D = 80 (the 128 instance, six of the 16
+# chunks of its bf16 rows zero-filled) at the split edges; D = 16 (the 32
+# instance) at G = 16 with dead and tail-only slots.
+SHAPE_PAGED_CASES = [
+    ("path 16 decode tick, G = 16", 8, 128, 8, 128, 256, 16, _paged_main_case()[1],
+     _paged_main_case()[0]),
+    ("path 17 decode tick, D = 96, G = 1", 8, 32, 32, 96, 256, 16, _paged_main_case()[1],
+     _paged_main_case()[0]),
+    ("G = 12, D = 80, split edges", 4, 12, 1, 80, 16, 16, [257, 256, 513, 140],
+     [257, 250, 500, 128]),
+    ("D = 16, G = 16, dead and tail-only slots", 4, 16, 1, 16, 16, 8, [0, 5, 38, 50],
+     [0, 0, 38, 45]),
+]
+# Verify cases: (label, b, nq, h, kv, d, ps, tail_len, lengths, starts,
+# maxp). The spec ticks of paths 16 (144 rows: two row groups) and 17; G =
+# 12 at D = 80 (108 rows); D = 16 at G = 16 with a tail longer than 128
+# columns (query 0's limit before the split at tail column 128, query 8's
+# past it) and a tail-only slot (144 rows).
+SHAPE_VERIFY_CASES = [
+    ("path 16 spec tick, 144 rows", 8, 9, 128, 8, 128, 256, 54, _spec_main_case()[1],
+     _spec_main_case()[0], 8),
+    ("path 17 spec tick, D = 96", 8, 9, 32, 32, 96, 256, 54, _spec_main_case()[1],
+     _spec_main_case()[0], 8),
+    ("G = 12, D = 80, 108 rows", 2, 9, 12, 1, 80, 64, 40, [300, 77], [290, 64], 5),
+    ("D = 16, G = 16, long tail, 144 rows", 3, 9, 16, 1, 16, 16, 200, [381, 60, 30],
+     [256, 30, 0], 16),
+]
+
+
+def phase_shape_kernels(paged) -> dict:
+    """[shape-kernels]: every paged entry point (``HD_PAGED``: K3, K4,
+    K3-verify and their int8 forms, in bf16, float16 and f32) at the shapes
+    of paths 16 and 17 and one odd case per source (``SHAPE_PAGED_CASES``,
+    ``SHAPE_VERIFY_CASES``) against the plain version and the split twin
+    (``_close``: bf16 and float16 at ``O_TOL``, f32 within
+    ``F32_PAGED_TOL`` of the largest magnitude), two calls the same bits, a
+    4-D q with Q = 1 the 3-D call's bits, a dead slot zeros. Returns the
+    largest errors by kernels-line name and K4's direct-call launches
+    (``<name>_direct``)."""
+    worst, counts = _check_paged_entries(paged, HD_PAGED, SHAPE_PAGED_CASES, SHAPE_VERIFY_CASES,
+                                         2400, lambda dtype: "shape-kernels")
+    for name in ("paged", "paged_f16", "paged_f32"):
+        worst[name + "_direct"] = counts[name]
+    log(f"[shape-kernels] every paged entry point at G = 12 and 16, 108 and 144 verify rows, "
+        f"D = 16, 80 and 96 (on instances {paged.INSTANCE_DIMS}): within tolerance of the "
+        f"plain version and the split twin, two calls the same bits ({SMI})")
+    return worst
+
+
+def phase_shape_timings(paged) -> dict:
+    """[shape-timing]: every paged entry point of ``HD_PAGED`` at path 16's
+    and path 17's decode tick (the verify forms at their spec tick), by
+    ``_time_paged``'s rules (CUDA-graph replays over ``PAGED_COPIES`` input
+    copies, the plain version, SDPA on keys gathered or dequantized
+    beforehand, the bound from bytes); the verify forms also at 80 rows of
+    path 16's widths (``SHAPE_VERIFY_80``), so the second row group's cost
+    shows beside the 144-row time. Returns {kernels-line name: {shape:
+    timing}}."""
+    out: dict = {}
+    for name, dtype_name, int8, form in HD_PAGED:
+        for path in (16, 17):
+            m = (SHAPE_SPEC_TICKS if form == "verify" else SHAPE_TICKS)[path]
+            out.setdefault(name, {})[f"path {path}"] = _time_paged(
+                paged, name, dtype_name, int8, form, m, "shape-timing")
+        if form == "verify":
+            t80 = _time_paged(paged, name, dtype_name, int8, form, SHAPE_VERIFY_80,
+                              "shape-timing")
+            out[name]["path 16, 80 rows"] = t80
+            t144 = out[name]["path 16"]
+            log(f"[shape-timing] {name} at path 16's widths: 144 rows (two row groups) "
+                f"{t144['ms']:.4f} ms against 80 rows (one) {t80['ms']:.4f} ms, "
+                f"{t144['ms'] / t80['ms']:.2f}x; bounds {t144['bound_ms']:.4f} / "
+                f"{t80['bound_ms']:.4f} ms ({SMI})")
+    return out
+
+
 def main() -> int:
     import gc
 
@@ -5693,6 +5847,7 @@ def main() -> int:
     errors.update(phase_f16_int8_kernels(flash, paged, train_seg))
     errors.update(phase_f16_bwd_kernels(flash, mlp_bwd, proj, paged, train_seg))
     hd_errors = phase_head_dim_kernels(flash, paged, train_seg)
+    shape_errors = phase_shape_kernels(paged)
     timings = phase_timings(flash)
     train_timings = phase_train_timings(flash, train_seg)
     timings.update(train_timings)
@@ -5703,6 +5858,7 @@ def main() -> int:
     timings.update(phase_f16_int8_timings(flash, paged, train_seg))
     timings.update(phase_f16_bwd_timings(flash, mlp_bwd, proj, train_seg))
     hd_timings = phase_head_dim_timings(flash, paged, train_seg)
+    shape_timings = phase_shape_timings(paged)
     errors.update(phase_mm_kernels(mlp_bwd, proj))
     timings.update(phase_mm_timings(mlp_bwd, proj))
     errors.update(phase_f32_mm_kernels(mlp_bwd, proj))
@@ -5783,6 +5939,12 @@ def main() -> int:
     path15_train = phase_head_dim_train(flash)
     gc.collect()
     torch.cuda.empty_cache()
+    path16 = phase_head_dim_serve(flash, paged, 16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path17 = phase_head_dim_serve(flash, paged, 17)
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[train] after freeing the serving state: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     training = phase_train(flash)
@@ -5843,32 +6005,38 @@ def main() -> int:
                    for k in ("mlp_dgu_dwdown", "mlp_dh_dwgu", "proj_bwd")}}
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
             (lockstep, continuous))
-    # Paths 14 (D = 32) and 15 (D = 256): their launches join each kernel's,
-    # K4's direct calls at those head dims its direct count, and each
-    # kernel's error is its worst at any head dim.
+    # Paths 14 (D = 32), 15 (D = 256), 16 (G = 16) and 17 (D = 96): their
+    # launches join each kernel's, K4's direct calls at those shapes its
+    # direct count, and each kernel's error is its worst at any shape.
     by_dim = {}
     for name in KERNELS:
         by_dim[name] = {"14": path14.get(name, 0), "15": path15.get(name, 0)
-                        + path15_train.get(name, 0)}
-        launches[name] = launches.get(name, 0) + hd_errors.pop(name + "_direct", 0) + sum(
-            by_dim[name].values())
-        if name in hd_errors:
-            errors[name] = max(errors[name], hd_errors[name])
-    # Every single-query and verify form ran on path 14 (D = 32) and on path
-    # 15 (D = 256), and K1, K2a, K2b in every dtype on path 15.
+                        + path15_train.get(name, 0), "16": path16.get(name, 0),
+                        "17": path17.get(name, 0)}
+        launches[name] = (launches.get(name, 0) + hd_errors.pop(name + "_direct", 0)
+                          + shape_errors.pop(name + "_direct", 0) + sum(by_dim[name].values()))
+        for extra in (hd_errors, shape_errors):
+            if name in extra:
+                errors[name] = max(errors[name], extra[name])
+    # Every single-query and verify form ran on paths 14 (D = 32), 15 (D =
+    # 256), 16 (G = 16, 144-row verify) and 17 (D = 96); K1, K2a, K2b in
+    # every dtype on path 15, and K1 in every dtype at G = 16 on path 16.
     for name in KERNELS:
         forms = name.startswith("paged_") and name not in ("paged_f16", "paged_f32")  # not K4
         d256 = forms or name.startswith("flash_")
-        require((not forms or by_dim[name]["14"] > 0) and (not d256 or by_dim[name]["15"] > 0),
+        k1 = name.startswith("flash_fwd")
+        require((not forms or min(by_dim[name][p] for p in ("14", "16", "17")) > 0)
+                and (not d256 or by_dim[name]["15"] > 0) and (not k1 or by_dim[name]["16"] > 0),
                 (name, by_dim[name]))
     kernels = []
     for name, meta in KERNELS.items():
         if launches.get(name, 0) < 1:
             raise AssertionError(f"kernel {name} was not launched on its path")
         kernels.append({"name": name, **meta, "launches": launches[name],
-                        "launches_paths_14_15": by_dim[name],
+                        "launches_paths_14_17": by_dim[name],
                         "max_abs_err": errors[name], **timings[name],
-                        "at_head_dims": hd_timings.get(name, {})})
+                        "at_head_dims": hd_timings.get(name, {}),
+                        "at_shapes": shape_timings.get(name, {})})
     log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}, "
         f"speculative continuous {spec_serve}, lock-step speculative {lockstep_spec}, "
         f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
@@ -5882,7 +6050,7 @@ def main() -> int:
         f"training {training}, training with the MLP and projection kernels {training4}, "
         f"the recipe under its three policies {recipe}, the served checkpoint "
         f"{ckpt_serve}, path 14 (tiny-llama, D = 32) {path14}, path 15 (D = 256) {path15}, "
-        f"its training {path15_train}")
+        f"its training {path15_train}, path 16 (G = 16) {path16}, path 17 (D = 96) {path17}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,11 @@
 // pools: _paged_tail_kernel with quantized=True), ditl_paged_verify_bf16 and
 // ditl_paged_verify_i8 (K3's multi-query verify: _paged_tail_kernel with
 // q_groups, over float and int8 pools) and ditl_paged_bf16 (K4). All are
-// instances of one template, for head_dim 32, 64, 128 and 256 (see "Head
-// dims" below); the verify form is its kMT > 0 instances (see "The
-// multi-query verify" below). The same five on
+// instances of one template, for head dims up to 32, 64, 128 and 256: any
+// head_dim that is a multiple of 16 up to 256 runs on the smallest instance
+// that holds it (see "Head dims" below); the verify form, and any call with
+// more than 8 query rows per KV head, is its kMT > 0 instances (see "The
+// multi-query verify" and "Row groups" below). The same five on
 // float16 q, tails and float pools (the reference's kernels take any float
 // dtype with f32 sums) are the template's kF16 instances:
 // ditl_paged_tail_f16, ditl_paged_tail_i8_f16, ditl_paged_verify_f16,
@@ -44,7 +46,7 @@
 //   each at D = 128, rows padded by 16 bytes, dead rows zero-filled by the
 //   copy itself).
 // - Both products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-//   sums), the G = H / K query rows of a KV head (at most 8) as rows 0-7 of
+//   sums), the G = H / K query rows of a KV head (G <= 8) as rows 0-7 of
 //   the 16-row A operand, so every K and V tile serves the whole GQA group.
 //   q.k: each warp takes 16 keys of a tile, q's fragments in registers, K's
 //   read from shared memory. p.V: each warp takes D / 4 output columns, p
@@ -86,8 +88,8 @@
 //
 // The multi-query verify (ditl_paged_verify_*). q is (B, Q, H, D): the
 // speculative verify's Q = spec_k + 1 query tokens per slot, which share every
-// page fetch. A block's query rows are r = qi * G + g of its KV head (Q * G of
-// them, at most 16 * kMaxRowTiles = 80, which covers spec_k = 8 at G = 8).
+// page fetch. The query rows of a KV head are r = qi * G + g (Q * G of them);
+// a block takes at most 16 * kMaxRowTiles = 80 of them (see "Row groups").
 // Row r's tail columns j are live when starts + j < lengths + qi (causal
 // within the verify chunk), page columns below min(starts, lengths) for
 // every row, and the tail is read only when lengths > starts (the Pallas
@@ -106,6 +108,18 @@
 // keeps its q fragments in registers (rows 8-15 zero), its 73 KB of shared
 // memory at D = 128, and its bits. wgmma, TMA and in-register int8
 // converts are later work.
+//
+// Row groups. A call with more query rows than one block takes, a verify
+// with Q * G > 80 (Llama-3.1-405B's G = 16 at spec_k = 8: 144 rows) or a
+// single query with G > 8 (which takes the kMT > 0 instances with n_q = 1;
+// K4 too), runs ceil(rows / (16 kMT)) blocks side by side: blockIdx.y is the
+// KV head, then the row group, and block g takes rows [80 g, 80 g + 80) of
+// the KV head. Each walks the split's tiles for its own rows (every row group
+// re-reads the split's K and V: right, and a cost that PERF.md times) and
+// writes its rows' partials into the workspace rows the merge reads. Tiles
+// and splits stay live by the union over all Q rows of the slot, so a block
+// meets tiles with nothing live for its rows exactly as a verify row does
+// (the rule below); each row's arithmetic is the same in any grouping.
 //
 // The rule for rows with nothing live in a split. A tile (and a split) is
 // processed when any row has a live key in it, so a verify row can meet
@@ -130,8 +144,22 @@
 // pages) and of o to float16 in place of bf16. The bf16 instances keep
 // their code and bits (chip_smoke.py K3_DIGESTS).
 //
-// Head dims. D = 64 and 128 were the first instances; 32 (tiny-llama, the
-// default ModelConfig) and 256 keep the design and add two rules.
+// Head dims. The template's D is a capacity: a call's head_dim (Params::
+// head_dim, any multiple of 16 up to 256) runs on the smallest of the 32,
+// 64, 128 and 256 instances that holds it. Pool, tail and q rows are read at
+// their true stride, one 16-byte copy per chunk (a multiple of 16 keeps
+// every bf16, float16 and int8 row whole chunks); the chunks past head_dim
+// are zero-filled in shared memory (cp.async with a zero source size; over
+// int8 pools the staged chunks, which the convert pass widens to zeros), so
+// q's and K's columns past head_dim add exact zeros to q.k and V's add zero
+// columns to acc, which are never stored: the partials, the merge (head_dim
+// threads) and o use the true stride. The scale is the caller's, the true
+// head_dim**-0.5. At an instance's own head_dim every copy is live and the
+// arithmetic is the earlier build's. Phi-3-mini's D = 96 runs on the 128
+// instance (a quarter of its copies are zero fills and warp 3's p.V columns
+// are zeros: time over bytes is what PERF.md records for it).
+// D = 64 and 128 were the first instances; 32 (tiny-llama, the default
+// ModelConfig) and 256 keep the design and add two rules.
 // - D = 32: the p.V split gives each of the four warps D / 8 / 4 = 1 n8
 //   column block, so the odd last block takes ldmatrix.x2.trans (one
 //   block's two 8 x 8 matrices) where the pairs take .x4; a bf16 row is 4
@@ -146,10 +174,13 @@
 //   before chunk c + 1's input begins), so no staging tile is needed. The
 //   verify's 5 x 8 x 4 = 160 accumulators a thread fit the 255 registers
 //   that 128-thread blocks allow.
-// ptxas -v (sm_90a), no spills in any instance: D = 32 48-64
-// registers (merge 127-139); D = 256 single-query 196 (int8 190), K4 198,
-// verify 126 / 240 / 255 at kMT = 1 / 3 / 5 (int8 128 / 164 / 253), merge
-// 64; the bf16 and float16 instances alike.
+// ptxas -v (sm_90a) with the run-time head_dim and row groups: D = 32
+// 48-64 registers; D = 128 single-query 112 (K4 102, int8 180), row tiles
+// 87 / 136 / 168 at kMT = 1 / 3 / 5 (kMT = 5 spills 12 bytes; K4 80 / 126
+// / 172, int8 72 / 126 / 164); D = 256 single-query 204 (K4 192, int8
+// 192), row tiles 143 / 248 / 255 (kMT = 5 spills 56 bytes; K4 140 / 187 /
+// 255 and 48 bytes; int8 128 / 168 / 253); D = 64 int8 at kMT = 5 spills 4
+// bytes; merge 62-139; the bf16 and float16 instances alike.
 //
 // Semantics kept from the reference: the q.k scores are f32 and scaled in
 // f32 (here the scale multiplies the f32 sums of the exact bf16 products,
@@ -178,8 +209,8 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;      // keys per tile; two per lane in the softmax
-constexpr int kMaxGroups = 8;  // query heads per KV head
-constexpr int kMaxRowTiles = 5;  // verify: m16 row tiles, at most 80 query rows
+constexpr int kSingleRows = 8;  // the single-query form's rows: rows 0-7 of the m16 A operand
+constexpr int kMaxRowTiles = 5;  // m16 row tiles of a block: at most 80 query rows a block
 constexpr int kPLd = kTile + 8;  // bf16 p row, padded: 144 bytes
 constexpr int kMergeBatch = 32;  // merge: splits whose acc values are loaded at once
 constexpr int kMaxSplits = 6144;  // the merge's m and l: 48 KB of shared memory
@@ -205,15 +236,17 @@ struct Params {
   const float* k_scale;     // (P, K, 1, ps)
   const float* v_scale;
   int n_q;                  // query tokens per slot: 1, or the verify's Q
+  int head_dim;             // the rows' true width: a multiple of 16, <= the instance's D
 };
 
 // Shared memory of a split block: two stages of (K, V) tiles with rows
 // padded by 16 bytes (so that 8 rows at one column reach 32 banks), then the
 // f32 scores, the bf16 p rows, m, l and alpha of kRows query rows, then (the
-// verify form, kMT > 0) q's rows, padded as the key rows.
+// verify form, kMT > 0) q's rows, padded as the key rows. D is the instance's
+// capacity (columns past head_dim hold zeros).
 template <int D, int kMT>
 struct Layout {
-  static constexpr int kRows = kMT == 0 ? kMaxGroups : 16 * kMT;
+  static constexpr int kRows = kMT == 0 ? kSingleRows : 16 * kMT;
   static constexpr int kLd = D * 2 + 16;  // bytes of one padded key row
   static constexpr int kTileBytes = kTile * kLd;
   static constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
@@ -456,6 +489,8 @@ __device__ __forceinline__ long page_of(const Params& p, const int* trow, int v)
 // bf16 rows being filled by the convert pass after the wait; the scales of
 // tail and dead rows arrive as zeros. kInPlace: a live page row's int8
 // values go to the last D bytes of its own row in kb / vb instead (qb unused).
+// Rows are head_dim wide in device memory; their chunks past head_dim arrive
+// as zeros (staged int8 chunks too, which the convert pass widens to zeros).
 template <int D, bool kI8, bool kInPlace>
 __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int b, int kh,
                                           int t0, uint32_t kb, uint32_t vb, uint32_t qb,
@@ -463,6 +498,7 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
   constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
   constexpr int kChunksI8 = D / 16;  // of an int8 row
   static_assert(kThreads == 2 * kTile, "one thread per K or V scale of a tile");
+  const int hd = p.head_dim;
   const int* trow = p.table + (long)b * p.max_pages;
 #pragma unroll
   for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
@@ -472,36 +508,41 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
     const bool ok = live.key(v);
     if (kI8 && ok && v < live.tail0) {
       if (c < kChunksI8) {
-        const long off = ((page_of(p, trow, v) * p.kv_heads + kh) * p.page_size +
-                          v % p.page_size) * D + 16 * c;
+        const bool in = 16 * c < hd;
+        const long off = in ? ((page_of(p, trow, v) * p.kv_heads + kh) * p.page_size +
+                               v % p.page_size) * hd + 16 * c
+                            : 0;
         if constexpr (kInPlace) {
           const uint32_t at = r * Layout<D, 0>::kLd + Layout<D, 0>::kInPlaceAt + c * 16;
-          cp_async16(kb + at, p.k_i8 + off, true);
-          cp_async16(vb + at, p.v_i8 + off, true);
+          cp_async16(kb + at, p.k_i8 + off, in);
+          cp_async16(vb + at, p.v_i8 + off, in);
         } else {
           const uint32_t at = r * D + c * 16;
-          cp_async16(qb + at, p.k_i8 + off, true);
-          cp_async16(qb + Layout<D, 0>::kQTile + at, p.v_i8 + off, true);
+          cp_async16(qb + at, p.k_i8 + off, in);
+          cp_async16(qb + Layout<D, 0>::kQTile + at, p.v_i8 + off, in);
         }
       }
       continue;
     }
-    // Dead rows read nothing; their address is any valid one.
+    // Dead rows and chunks past head_dim read nothing; their address is any
+    // valid one.
+    const bool in = ok && 8 * c < hd;
     const uint16_t* ks = kI8 ? p.tail_k : p.k_pages;
     const uint16_t* vs = kI8 ? p.tail_v : p.v_pages;
     long off = 0;
-    if (ok) {
+    if (in) {
       if (v < live.tail0) {
-        off = ((page_of(p, trow, v) * p.kv_heads + kh) * p.page_size + v % p.page_size) * D;
+        off = ((page_of(p, trow, v) * p.kv_heads + kh) * p.page_size + v % p.page_size) * hd +
+              8 * c;
       } else {
         ks = p.tail_k;
         vs = p.tail_v;
-        off = (((long)b * p.kv_heads + kh) * p.tail_len + (v - live.tail0)) * D;
+        off = (((long)b * p.kv_heads + kh) * p.tail_len + (v - live.tail0)) * hd + 8 * c;
       }
     }
     const uint32_t at = r * Layout<D, 0>::kLd + c * 16;
-    cp_async16(kb + at, ks + off + 8 * c, ok);
-    cp_async16(vb + at, vs + off + 8 * c, ok);
+    cp_async16(kb + at, ks + off, in);
+    cp_async16(vb + at, vs + off, in);
   }
   if (kI8) {
     const int r = threadIdx.x % kTile;
@@ -524,16 +565,17 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
 // row with nothing live in that split) weighs 0 too. All m and l come in one
 // round trip, then the column's acc values kMergeBatch splits at a time, so
 // at the decode tick (17 splits) the merge waits on three loads in a row:
-// lengths, m and l, acc.
+// lengths, m and l, acc. The block has head_dim threads (D is the
+// instance's capacity).
 template <int D, bool kTail, bool kF16>
 __global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
   extern __shared__ float sml[];  // m, then l, of each split
   const int r = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
-  const int rows = p.n_q * p.groups, n = p.n_split;
+  const int rows = p.n_q * p.groups, n = p.n_split, hd = p.head_dim;
   const long bk = (long)b * p.kv_heads + kh;
   const Live live = slot_live<kTail>(p, b);
   const float2* ml = reinterpret_cast<const float2*>(p.part_ml) + bk * n * rows + r;
-  for (int s = d; s < n; s += D) {
+  for (int s = d; s < n; s += hd) {
     const float2 v = live.split_live(s, p.split) ? __ldcg(ml + s * rows)
                                                  : make_float2(kNegInf, 0.f);
     sml[s] = v.x;
@@ -548,14 +590,14 @@ __global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
   auto weight = [&](int s) { return sml[s] == kNegInf ? 0.f : expf(sml[s] - m_max); };
   float l = 0.f;
   for (int s = 0; s < n; ++s) l += weight(s) * sml[n + s];
-  const float* acc = p.part_acc + (bk * n * rows + r) * D + d;
+  const float* acc = p.part_acc + (bk * n * rows + r) * hd + d;
   float o = 0.f;
   for (int s0 = 0; s0 < n; s0 += kMergeBatch) {
     float av[kMergeBatch];
 #pragma unroll
     for (int j = 0; j < kMergeBatch; ++j) {
       const int s = s0 + j;
-      av[j] = s < n && sml[s] != kNegInf ? __ldcg(acc + (long)s * rows * D) : 0.f;
+      av[j] = s < n && sml[s] != kNegInf ? __ldcg(acc + (long)s * rows * hd) : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < kMergeBatch; ++j) {
@@ -565,12 +607,14 @@ __global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
   o /= (l == 0.f ? 1.f : l);
   const int qi = r / p.groups, g = r % p.groups;
   const long orow = ((long)b * p.n_q + qi) * p.kv_heads * p.groups + (long)kh * p.groups + g;
-  p.o[orow * D + d] = to_bits<kF16>(o);
+  p.o[orow * hd + d] = to_bits<kF16>(o);
 }
 
-// kMT = 0: the single-query form (up to kMaxGroups query rows, q in
-// registers as rows 0-7 of the m16 A operand). kMT > 0: the verify form, kMT
-// m16 row tiles of query rows r = qi * G + g, q in shared memory.
+// kMT = 0: the single-query form (at most kSingleRows query rows, q in
+// registers as rows 0-7 of the m16 A operand). kMT > 0: the verify form (and
+// any call with more rows), kMT m16 row tiles of query rows r = qi * G + g,
+// q in shared memory; blockIdx.y is the KV head, then the row group of 16 kMT
+// rows.
 template <int D, bool kTail, bool kI8, int kMT, bool kF16>
 __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
   using L = Layout<D, kMT>;
@@ -586,11 +630,13 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
   float* salpha = reinterpret_cast<float*>(smem + L::kAlpha);
   const uint32_t base = smem_addr(smem);
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, kh = blockIdx.y % p.kv_heads, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row = lane >> 2, quad = lane & 3;  // fragment row (query head) and pair
-  const int groups = p.groups;
-  const int rows = p.n_q * groups;  // query rows of this KV head
+  const int groups = p.groups, hd = p.head_dim;
+  const int all_rows = p.n_q * groups;  // query rows of this KV head
+  const int rbase = blockIdx.y / p.kv_heads * L::kRows;  // the block's first row of them
+  const int rows = min(L::kRows, all_rows - rbase);  // and its count
   const long row0 = ((long)b * p.kv_heads + kh) * groups;  // q/o row of group 0
   const Live live = slot_live<kTail>(p, b);
   const int v0 = split * p.split, v1 = min(v0 + p.split, live.end);
@@ -599,26 +645,29 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 
   // Single-query: q as the A fragments of every 16-dimension step (bf16 as
   // stored; the f32 scale multiplies the f32 sums), rows past the group
-  // count zero. Verify: q's rows into shared memory (committed with the first
-  // tile), rows past Q * G zero.
+  // count and steps past head_dim zero. Verify: q's rows into shared memory
+  // (committed with the first tile), rows past the block's and chunks past
+  // head_dim zero.
   uint32_t qa[kVerify ? 1 : kKSteps][2];
   if constexpr (!kVerify) {
+    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(p.q + (row0 + row) * hd);
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
-      const uint32_t* qrow = reinterpret_cast<const uint32_t*>(p.q + (row0 + row) * D);
-      qa[ks][0] = row < groups ? qrow[ks * 8 + quad] : 0u;
-      qa[ks][1] = row < groups ? qrow[ks * 8 + 4 + quad] : 0u;
+      const bool in = row < groups && 16 * ks < hd;
+      qa[ks][0] = in ? qrow[ks * 8 + quad] : 0u;
+      qa[ks][1] = in ? qrow[ks * 8 + 4 + quad] : 0u;
     }
   } else {
     constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
     const long heads = (long)p.kv_heads * groups;
     for (int idx = tid; idx < L::kRows * kChunks; idx += kThreads) {
       const int r = idx / kChunks, c = idx % kChunks;
-      const bool ok = r < rows;
-      const long qrow = ok ? ((long)b * p.n_q + r / groups) * heads + (long)kh * groups +
-                                 r % groups
+      const bool ok = r < rows && 8 * c < hd;
+      const int rr = rbase + r;
+      const long qrow = ok ? ((long)b * p.n_q + rr / groups) * heads + (long)kh * groups +
+                                 rr % groups
                            : 0;
-      cp_async16(base + L::kQRows + r * L::kLd + c * 16, p.q + qrow * D + 8 * c, ok);
+      cp_async16(base + L::kQRows + r * L::kLd + c * 16, p.q + qrow * hd + 8 * c, ok);
     }
   }
   if (tid < L::kRows) {
@@ -735,7 +784,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
           for (int hf = 0; hf < 2; ++hf) {  // rows row and row + 8 of the tile
             const int r = 16 * mt + 8 * hf + row;
             if (r < rows) {
-              const int te = live.row_end(r / groups);
+              const int te = live.row_end((rbase + r) / groups);
 #pragma unroll
               for (int j = 0; j < 2; ++j) {
                 const int k = 16 * warp + 8 * j + 2 * quad;
@@ -863,15 +912,18 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
     cur = nxt;
   }
 
-  // The split's partial: m and l per row, acc.
+  // The split's partial: m and l per row, acc (its columns below head_dim),
+  // in the workspace rows of the block's row group.
   const long part = ((long)b * p.kv_heads + kh) * p.n_split + split;
   if constexpr (!kVerify) {
     if (row < groups) {
 #pragma unroll
       for (int j = 0; j < kNTiles; ++j) {
         const int col = warp * kNTiles * 8 + 8 * j + 2 * quad;
-        *reinterpret_cast<float2*>(p.part_acc + (part * groups + row) * D + col) =
-            make_float2(acc[0][j][0], acc[0][j][1]);
+        if (col < hd) {
+          *reinterpret_cast<float2*>(p.part_acc + (part * groups + row) * hd + col) =
+              make_float2(acc[0][j][0], acc[0][j][1]);
+        }
       }
     }
   } else {
@@ -884,16 +936,19 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 #pragma unroll
           for (int j = 0; j < kNTiles; ++j) {
             const int col = warp * kNTiles * 8 + 8 * j + 2 * quad;
-            *reinterpret_cast<float2*>(p.part_acc + (part * rows + r) * D + col) =
-                make_float2(acc[mt][j][2 * hf], acc[mt][j][2 * hf + 1]);
+            if (col < hd) {
+              *reinterpret_cast<float2*>(p.part_acc + (part * all_rows + rbase + r) * hd +
+                                         col) =
+                  make_float2(acc[mt][j][2 * hf], acc[mt][j][2 * hf + 1]);
+            }
           }
         }
       }
     }
   }
   for (int r = tid; r < rows; r += kThreads) {
-    p.part_ml[(part * rows + r) * 2] = sm[r];
-    p.part_ml[(part * rows + r) * 2 + 1] = sl[r];
+    p.part_ml[(part * all_rows + rbase + r) * 2] = sm[r];
+    p.part_ml[(part * all_rows + rbase + r) * 2 + 1] = sl[r];
   }
 }
 
@@ -908,69 +963,59 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     prepared = true;
   }
-  kernel<<<dim3(p.n_split, p.kv_heads, batch), kThreads, kSmem, stream>>>(p);
+  // Row groups: blocks of L::kRows query rows side by side (one unless the
+  // rows exceed a block's).
+  const int row_groups = (p.n_q * p.groups + Layout<D, kMT>::kRows - 1) / Layout<D, kMT>::kRows;
+  kernel<<<dim3(p.n_split, p.kv_heads * row_groups, batch), kThreads, kSmem, stream>>>(p);
   if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  paged_merge_kernel<D, kTail, kF16><<<dim3(p.n_q * p.groups, p.kv_heads, batch), D,
+  paged_merge_kernel<D, kTail, kF16><<<dim3(p.n_q * p.groups, p.kv_heads, batch), p.head_dim,
                                        2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance for kMT row tiles (0: the single-query form); the verify
-// form exists only with a tail.
+// The instance for kMT row tiles (0: the single-query form).
 template <int D, bool kTail, bool kI8, bool kF16>
 int launch_rows(const Params& p, int batch, cudaStream_t stream, int mt) {
-  if constexpr (kTail) {
-    switch (mt) {
-      case 1:
-        return launch<D, kTail, kI8, 1, kF16>(p, batch, stream);
-      case 3:
-        return launch<D, kTail, kI8, 3, kF16>(p, batch, stream);
-      case kMaxRowTiles:
-        return launch<D, kTail, kI8, kMaxRowTiles, kF16>(p, batch, stream);
-      default:
-        break;
-    }
+  switch (mt) {
+    case 0:
+      return launch<D, kTail, kI8, 0, kF16>(p, batch, stream);
+    case 1:
+      return launch<D, kTail, kI8, 1, kF16>(p, batch, stream);
+    case 3:
+      return launch<D, kTail, kI8, 3, kF16>(p, batch, stream);
+    default:
+      return launch<D, kTail, kI8, kMaxRowTiles, kF16>(p, batch, stream);
   }
-  if (mt != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<D, kTail, kI8, 0, kF16>(p, batch, stream);
 }
 
 template <bool kTail, bool kI8, bool kF16>
 int dispatch(Params p, int batch, int n_q, bool verify, int heads, int head_dim,
              void* stream) {
   if (batch < 1 || n_q < 1 || (!verify && n_q != 1) || p.kv_heads < 1 ||
-      heads % p.kv_heads || heads / p.kv_heads > kMaxGroups || p.page_size < 1 ||
-      p.max_pages < 1 || p.n_pool < 1 || (kTail && p.tail_len < 1) || p.split < kTile ||
-      p.split % kTile) {
+      heads % p.kv_heads || p.page_size < 1 || p.max_pages < 1 || p.n_pool < 1 ||
+      (kTail && p.tail_len < 1) || p.split < kTile || p.split % kTile || head_dim < 16 ||
+      head_dim > 256 || head_dim % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.groups = heads / p.kv_heads;
   p.n_q = n_q;
-  // Row tiles of the verify instance: the smallest of 1, 3, kMaxRowTiles
-  // that holds the Q * G query rows (tiles past them are skipped).
+  p.head_dim = head_dim;
+  // The single-query form for at most kSingleRows rows; else row tiles: the
+  // smallest of 1, 3, kMaxRowTiles that holds the Q * G query rows (tiles
+  // past them are skipped), and blocks of 80 rows side by side past that.
   const int rows = n_q * p.groups;
-  int mt = 0;
-  if (verify) {
-    mt = rows <= 16 ? 1 : rows <= 48 ? 3 : rows <= 16 * kMaxRowTiles ? kMaxRowTiles : -1;
-    if (mt < 0) return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int mt = !verify && rows <= kSingleRows ? 0 : rows <= 16 ? 1 : rows <= 48 ? 3
+                                                                                   : kMaxRowTiles;
   const long keys = (long)p.max_pages * p.page_size + (kTail ? p.tail_len : 0);
   const long n_split = (keys + p.split - 1) / p.split;
   if (n_split > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
   p.n_split = static_cast<int>(n_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return launch_rows<32, kTail, kI8, kF16>(p, batch, s, mt);
-    case 64:
-      return launch_rows<64, kTail, kI8, kF16>(p, batch, s, mt);
-    case 128:
-      return launch_rows<128, kTail, kI8, kF16>(p, batch, s, mt);
-    case 256:
-      return launch_rows<256, kTail, kI8, kF16>(p, batch, s, mt);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // The smallest instance that holds head_dim.
+  if (head_dim <= 32) return launch_rows<32, kTail, kI8, kF16>(p, batch, s, mt);
+  if (head_dim <= 64) return launch_rows<64, kTail, kI8, kF16>(p, batch, s, mt);
+  if (head_dim <= 128) return launch_rows<128, kTail, kI8, kF16>(p, batch, s, mt);
+  return launch_rows<256, kTail, kI8, kF16>(p, batch, s, mt);
 }
 
 Params tail_params(const void* q, const void* k_pages, const void* v_pages,
@@ -1030,7 +1075,8 @@ int no_tail_entry(const void* q, const void* k_pages, const void* v_pages, const
 }  // namespace
 
 // K3. q (B, H, D); pools (P, K, ps, D) with P = n_pool; table (B, maxp)
-// int32; lengths and starts (B,) int32; tails (B, K, T, D); o (B, H, D). bf16
+// int32; lengths and starts (B,) int32; tails (B, K, T, D); o (B, H, D), with
+// D = head_dim a multiple of 16 up to 256 and any H / K. bf16
 // tensors, all contiguous. Workspace: part_acc f32 (B, K, n_split, H / K, D)
 // and part_ml f32 (B, K, n_split, H / K, 2) with n_split = ceil((maxp * ps +
 // T) / split), split a multiple of 64. Returns cudaGetLastError() after the
@@ -1064,7 +1110,8 @@ extern "C" int ditl_paged_tail_i8(const void* q, const void* k_pages, const void
 }
 
 // K3's multi-query verify: as ditl_paged_tail_bf16 with q and o (B, Q, H, D),
-// n_q = Q, and the workspace's H / K rows replaced by R = Q * H / K <= 80.
+// n_q = Q, and the workspace's H / K rows replaced by R = Q * H / K (any count:
+// blocks of 80 rows side by side past 80).
 extern "C" int ditl_paged_verify_bf16(const void* q, const void* k_pages, const void* v_pages,
                                       const void* table, const void* lengths,
                                       const void* starts, const void* tail_k,

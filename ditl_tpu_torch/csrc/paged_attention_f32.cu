@@ -82,18 +82,33 @@
 // f32's tolerance. (int8 values are exact in TF32, so two TF32 MMAs a
 // product, q_hi . k + q_lo . k, are a later route to the tensor cores.)
 //
-// Head dims 32, 64, 128 and 256, one template. At D = 256 a stage of K and V
+// Head dims up to 32, 64, 128 and 256, one template whose D is a capacity:
+// a call's head_dim (Params::head_dim, any multiple of 16 up to 256) runs on
+// the smallest instance that holds it, as in paged_attention.cu. Rows are
+// read at their true stride, one 16-byte copy per chunk (an f32 row of a
+// multiple of 16 is whole float4 chunks, an int8 row whole 16-byte chunks);
+// chunks past head_dim are zero-filled in shared memory, so they add exact
+// zeros to q.k and zero columns to acc, which are never stored (the
+// partials, the merge with head_dim threads and o take the true stride);
+// the scale is the caller's head_dim**-0.5. At D = 256 a stage of K and V
 // tiles is 130 KB, so the block keeps one stage (Layout::kStages = 1: the
 // next tile loads once the current one is done, no overlap), and the p.V
 // split's two row sets of 64 float4 columns would give an 80-row verify 160
 // accumulators a thread beside its q rows' 83 KB: a block takes at most 48
-// rows there (kBlockRows), and a verify with more runs ceil(rows / 48)
-// blocks side by side (blockIdx.y: KV head, then row group), each walking
-// the split's tiles for its rows; their partials land in the same
-// workspace rows the merge reads. ptxas -v (sm_90a): D = 32
-// 56-72 registers (the int8 forms at 8 and 16 rows spill 4 bytes); D = 256
-// single-query 246, verify 250 / 255 at 16 / 48 rows, K4 242, over int8
-// pools 128 (8 bytes spilled) / 178 / 254, merge 59-64.
+// rows there (kBlockRows).
+// Row groups: a call with more rows than a block takes (a verify past 80
+// rows, or 48 at D = 256; Llama-3.1-405B's G = 16 at spec_k = 8 is 144)
+// runs ceil(rows / kR) blocks side by side (blockIdx.y: KV head, then row
+// group), each walking the split's tiles for its rows (each re-reads the
+// split's K and V); their partials land in the same workspace rows the
+// merge reads. A single query with G > 8 (and K4 with G > 8) takes the
+// 16-, 48- or 80-row instances with n_q = 1. ptxas -v (sm_90a) with the
+// run-time head_dim: D = 32 and 64 56-168 registers (4 bytes spilled in
+// three forms); D = 128 single-query 116 (K4 96, int8 146), 16 / 48 / 80
+// rows 128 / 190 / 198 (K4 128 / 168 / 184, 12 bytes spilled at 48; int8
+// 168 at each, 36 bytes spilled at 16); D = 256 single-query 204 (K4 206,
+// int8 138), 16 / 48 rows 206 / 255 with 132 bytes spilled (K4 202 / 255
+// and 128 bytes; int8 182 / 255, none); merge 48-145.
 //
 // Semantics, the reference's in f32: scores are the f32 q.k sums times the
 // scale; masked columns of a processed tile take the finite -2.3819763e38;
@@ -114,8 +129,8 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;          // keys per tile; two per lane in the softmax
-constexpr int kMaxGroups = 8;      // query heads per KV head
-constexpr int kMaxRows = 80;       // verify: query rows (Q * G) per KV head
+constexpr int kSingleRows = 8;     // the single-query form's block: G <= 8 rows
+constexpr int kMaxRows = 80;       // query rows (Q * G) of one block; more run side by side
 constexpr int kMergeBatch = 32;    // merge: splits whose acc values are loaded at once
 constexpr int kMaxSplits = 6144;   // the merge's m and l: 48 KB of shared memory
 constexpr float kNegInf = -2.3819763e38f;  // ops/attention.py NEG_INF
@@ -140,6 +155,7 @@ struct Params {
   const int8_t* v_i8;
   const float* k_scale;  // (P, K, 1, ps)
   const float* v_scale;
+  int head_dim;          // the rows' true width: a multiple of 16, <= the instance's D
 };
 
 // Shared memory of a split block with up to kR query rows, in floats:
@@ -148,7 +164,8 @@ struct Params {
 // row; over int8 pools, kStages stages of the tile's 64 K and 64 V scales
 // after them (a page row's D int8 values sit in the first D bytes of its f32
 // row). Two stages at D <= 128; one at D = 256, where a stage alone is 130
-// KB: its next tile loads after the current one is done.
+// KB: its next tile loads after the current one is done. D is the
+// instance's capacity (columns past head_dim hold zeros).
 template <int D, int kR>
 struct Layout {
   static constexpr int kStages = D == 256 ? 1 : 2;
@@ -272,7 +289,8 @@ __device__ __forceinline__ bool int8_row(const Live& live, int v) {
 // a copy; dead rows arrive as zeros. Over int8 pools (kI8) a live page
 // row's D int8 values go to the first D bytes of its f32 row, and its two
 // scales to sc (K, then V kTile floats on); the scales of tail and dead rows
-// arrive as zeros.
+// arrive as zeros. Rows are head_dim wide in device memory; their chunks past
+// head_dim arrive as zeros.
 template <int D, bool kI8>
 __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int b, int kh,
                                           int t0, float* kb, float* sc) {
@@ -280,6 +298,7 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
   constexpr int kChunksI8 = D / 16;
   constexpr int kLd = D + 4;
   static_assert(kThreads == 2 * kTile, "one thread per K or V scale of a tile");
+  const int hd = p.head_dim;
   const int* trow = p.table + (long)b * p.max_pages;
 #pragma unroll
   for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
@@ -289,29 +308,33 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
     const bool ok = live.key(v);
     if (kI8 && ok && v < live.tail0) {
       if (c < kChunksI8) {
+        const bool in = 16 * c < hd;
         const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
-        const long off = ((page * p.kv_heads + kh) * p.page_size + v % p.page_size) * D;
-        cp_async16(kb + r * kLd + 4 * c, p.k_i8 + off + 16 * c, true);
-        cp_async16(kb + kTile * kLd + r * kLd + 4 * c, p.v_i8 + off + 16 * c, true);
+        const long off =
+            in ? ((page * p.kv_heads + kh) * p.page_size + v % p.page_size) * hd + 16 * c : 0;
+        cp_async16(kb + r * kLd + 4 * c, p.k_i8 + off, in);
+        cp_async16(kb + kTile * kLd + r * kLd + 4 * c, p.v_i8 + off, in);
       }
       continue;
     }
-    // Dead rows read nothing; their address is any valid one.
+    // Dead rows and chunks past head_dim read nothing; their address is any
+    // valid one.
+    const bool in = ok && 4 * c < hd;
     const float* ks = kI8 ? p.tail_k : p.k_pages;
     const float* vs = kI8 ? p.tail_v : p.v_pages;
     long off = 0;
-    if (ok) {
+    if (in) {
       if (v < live.tail0) {
         const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
-        off = ((page * p.kv_heads + kh) * p.page_size + v % p.page_size) * D;
+        off = ((page * p.kv_heads + kh) * p.page_size + v % p.page_size) * hd + 4 * c;
       } else {
         ks = p.tail_k;
         vs = p.tail_v;
-        off = (((long)b * p.kv_heads + kh) * p.tail_len + (v - live.tail0)) * D;
+        off = (((long)b * p.kv_heads + kh) * p.tail_len + (v - live.tail0)) * hd + 4 * c;
       }
     }
-    cp_async16(kb + r * kLd + 4 * c, ks + off + 4 * c, ok);
-    cp_async16(kb + kTile * kLd + r * kLd + 4 * c, vs + off + 4 * c, ok);
+    cp_async16(kb + r * kLd + 4 * c, ks + off, in);
+    cp_async16(kb + kTile * kLd + r * kLd + 4 * c, vs + off, in);
   }
   if (kI8) {
     const int r = threadIdx.x % kTile;
@@ -331,16 +354,16 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
 // Merge: one block of D threads per (query row r, KV head kh, slot b), as
 // paged_attention.cu's: the partials of every split with a key live for
 // some row are summed in split order; a partial whose m is the mask value
-// weighs 0.
+// weighs 0. The block has head_dim threads (D is the instance's capacity).
 template <int D, bool kTail>
 __global__ void __launch_bounds__(D) paged_merge_f32_kernel(const Params p) {
   extern __shared__ float sml[];  // m, then l, of each split
   const int r = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
-  const int rows = p.n_q * p.groups, n = p.n_split;
+  const int rows = p.n_q * p.groups, n = p.n_split, hd = p.head_dim;
   const long bk = (long)b * p.kv_heads + kh;
   const Live live = slot_live<kTail>(p, b);
   const float2* ml = reinterpret_cast<const float2*>(p.part_ml) + bk * n * rows + r;
-  for (int s = d; s < n; s += D) {
+  for (int s = d; s < n; s += hd) {
     const float2 v = live.split_live(s, p.split) ? __ldcg(ml + (long)s * rows)
                                                  : make_float2(kNegInf, 0.f);
     sml[s] = v.x;
@@ -352,14 +375,14 @@ __global__ void __launch_bounds__(D) paged_merge_f32_kernel(const Params p) {
   auto weight = [&](int s) { return sml[s] == kNegInf ? 0.f : expf(sml[s] - m_max); };
   float l = 0.f;
   for (int s = 0; s < n; ++s) l += weight(s) * sml[n + s];
-  const float* acc = p.part_acc + (bk * n * rows + r) * D + d;
+  const float* acc = p.part_acc + (bk * n * rows + r) * hd + d;
   float o = 0.f;
   for (int s0 = 0; s0 < n; s0 += kMergeBatch) {
     float av[kMergeBatch];
 #pragma unroll
     for (int j = 0; j < kMergeBatch; ++j) {
       const int s = s0 + j;
-      av[j] = s < n && sml[s] != kNegInf ? __ldcg(acc + (long)s * rows * D) : 0.f;
+      av[j] = s < n && sml[s] != kNegInf ? __ldcg(acc + (long)s * rows * hd) : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < kMergeBatch; ++j) {
@@ -369,11 +392,12 @@ __global__ void __launch_bounds__(D) paged_merge_f32_kernel(const Params p) {
   o /= (l == 0.f ? 1.f : l);
   const int qi = r / p.groups, g = r % p.groups;
   const long orow = ((long)b * p.n_q + qi) * p.kv_heads * p.groups + (long)kh * p.groups + g;
-  p.o[orow * D + d] = o;
+  p.o[orow * hd + d] = o;
 }
 
 // One split of one (KV head, slot) for up to kR query rows (8: the
-// single-query form, G rows; 16, 48 or 80: the verify's Q * G rows).
+// single-query form, G <= 8 rows; 16, 48 or 80: the verify's Q * G rows, or
+// a single query's G > 8 rows).
 template <int D, bool kTail, int kR, bool kI8>
 __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params p) {
   using L = Layout<D, kR>;
@@ -394,7 +418,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
   // group unless Q * G > kR): rows row0 + r, r < rows, of the Q * G.
   const int split = blockIdx.x, kh = blockIdx.y % p.kv_heads, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int groups = p.groups;
+  const int groups = p.groups, hd = p.head_dim;
   const int all_rows = p.n_q * groups;
   const int row0 = blockIdx.y / p.kv_heads * kR;
   const int rows = min(kR, all_rows - row0);
@@ -404,16 +428,16 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
   if (cur < 0) return;  // no live key: no partial (the merge weighs this split 0)
 
   // q's rows (r = qi * G + g) into shared memory, committed with the first
-  // tile; rows past Q * G zero.
+  // tile; rows past the block's and chunks past head_dim zero.
   {
     const long heads = (long)p.kv_heads * groups;
     for (int idx = tid; idx < kR * kCols; idx += kThreads) {
       const int r = idx / kCols, c = idx % kCols;
-      const bool ok = r < rows;
+      const bool ok = r < rows && 4 * c < hd;
       const int rr = row0 + r;
       const long qrow =
           ok ? ((long)b * p.n_q + rr / groups) * heads + (long)kh * groups + rr % groups : 0;
-      cp_async16(qsm + r * kLd + 4 * c, p.q + qrow * D + 4 * c, ok);
+      cp_async16(qsm + r * kLd + 4 * c, p.q + qrow * hd + 4 * c, ok);
     }
   }
   for (int r = tid; r < kR; r += kThreads) {
@@ -564,13 +588,13 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
     cur = nxt;
   }
 
-  // The split's partial: m and l per row, acc.
+  // The split's partial: m and l per row, acc (its columns below head_dim).
   const long part = ((long)b * p.kv_heads + kh) * p.n_split + split;
 #pragma unroll
   for (int i = 0; i < kRowsPT; ++i) {
     const int r = rset + kRowSets * i;
-    if (r < rows) {
-      *reinterpret_cast<float4*>(p.part_acc + (part * all_rows + row0 + r) * D + 4 * c4) =
+    if (r < rows && 4 * c4 < hd) {
+      *reinterpret_cast<float4*>(p.part_acc + (part * all_rows + row0 + r) * hd + 4 * c4) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
   }
@@ -594,55 +618,45 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   const int row_groups = (p.n_q * p.groups + kR - 1) / kR;
   kernel<<<dim3(p.n_split, p.kv_heads * row_groups, batch), kThreads, kSmem, stream>>>(p);
   if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  paged_merge_f32_kernel<D, kTail><<<dim3(p.n_q * p.groups, p.kv_heads, batch), D,
+  paged_merge_f32_kernel<D, kTail><<<dim3(p.n_q * p.groups, p.kv_heads, batch), p.head_dim,
                                      2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance for `rows` query rows: 8 for the single-query form; 16, 48
-// or 80 for the verify (which exists only with a tail); at D = 256 rows
-// past 48 run in blocks of 48 (kBlockRows).
+// The instance for `rows` query rows: 8 for the single-query form at G <=
+// 8; else 16, 48 or 80 (48 at D = 256, kBlockRows), and blocks of that many
+// rows side by side past it.
 template <int D, bool kTail, bool kI8>
 int launch_rows(const Params& p, int batch, cudaStream_t stream, bool verify, int rows) {
-  if (!verify) return launch<D, kTail, kMaxGroups, kI8>(p, batch, stream);
-  if constexpr (kTail) {  // rows <= kMaxRows (dispatch)
-    if (rows <= 16) return launch<D, kTail, 16, kI8>(p, batch, stream);
-    if (rows <= 48) return launch<D, kTail, 48, kI8>(p, batch, stream);
-    return launch<D, kTail, kBlockRows<D>, kI8>(p, batch, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (!verify && rows <= kSingleRows) return launch<D, kTail, kSingleRows, kI8>(p, batch, stream);
+  if (rows <= 16) return launch<D, kTail, 16, kI8>(p, batch, stream);
+  if (rows <= 48) return launch<D, kTail, 48, kI8>(p, batch, stream);
+  return launch<D, kTail, kBlockRows<D>, kI8>(p, batch, stream);
 }
 
 template <bool kTail, bool kI8>
 int dispatch(Params p, int batch, int n_q, bool verify, int heads, int head_dim,
              void* stream) {
   if (batch < 1 || n_q < 1 || (!verify && n_q != 1) || p.kv_heads < 1 ||
-      heads % p.kv_heads || heads / p.kv_heads > kMaxGroups || p.page_size < 1 ||
-      p.max_pages < 1 || p.n_pool < 1 || (kTail && p.tail_len < 1) || p.split < kTile ||
-      p.split % kTile) {
+      heads % p.kv_heads || p.page_size < 1 || p.max_pages < 1 || p.n_pool < 1 ||
+      (kTail && p.tail_len < 1) || p.split < kTile || p.split % kTile || head_dim < 16 ||
+      head_dim > 256 || head_dim % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.groups = heads / p.kv_heads;
   p.n_q = n_q;
+  p.head_dim = head_dim;
   const int rows = n_q * p.groups;
-  if (rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   const long keys = (long)p.max_pages * p.page_size + (kTail ? p.tail_len : 0);
   const long n_split = (keys + p.split - 1) / p.split;
   if (n_split > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
   p.n_split = static_cast<int>(n_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return launch_rows<32, kTail, kI8>(p, batch, s, verify, rows);
-    case 64:
-      return launch_rows<64, kTail, kI8>(p, batch, s, verify, rows);
-    case 128:
-      return launch_rows<128, kTail, kI8>(p, batch, s, verify, rows);
-    case 256:
-      return launch_rows<256, kTail, kI8>(p, batch, s, verify, rows);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // The smallest instance that holds head_dim.
+  if (head_dim <= 32) return launch_rows<32, kTail, kI8>(p, batch, s, verify, rows);
+  if (head_dim <= 64) return launch_rows<64, kTail, kI8>(p, batch, s, verify, rows);
+  if (head_dim <= 128) return launch_rows<128, kTail, kI8>(p, batch, s, verify, rows);
+  return launch_rows<256, kTail, kI8>(p, batch, s, verify, rows);
 }
 
 Params make_params(const void* q, const void* k_pages, const void* v_pages, const void* table,
@@ -680,7 +694,8 @@ Params make_params_i8(const void* q, const void* k_pages, const void* v_pages,
 }  // namespace
 
 // K3-f32. q (B, H, D); pools (P, K, ps, D) with P = n_pool; table (B, maxp)
-// int32; lengths and starts (B,) int32; tails (B, K, T, D); o (B, H, D). f32
+// int32; lengths and starts (B,) int32; tails (B, K, T, D); o (B, H, D), with
+// D = head_dim a multiple of 16 up to 256 and any H / K. f32
 // tensors, all contiguous. Workspace: part_acc f32 (B, K, n_split, H / K, D)
 // and part_ml f32 (B, K, n_split, H / K, 2) with n_split = ceil((maxp * ps +
 // T) / split), split a multiple of 64. Returns cudaGetLastError() after the
@@ -699,8 +714,8 @@ extern "C" int ditl_paged_tail_f32(const void* q, const void* k_pages, const voi
 }
 
 // K3-f32's multi-query verify: as ditl_paged_tail_f32 with q and o (B, Q, H,
-// D), n_q = Q, and the workspace's H / K rows replaced by R = Q * H / K <=
-// 80.
+// D), n_q = Q, and the workspace's H / K rows replaced by R = Q * H / K (any
+// count: blocks side by side past a block's rows).
 extern "C" int ditl_paged_verify_f32(const void* q, const void* k_pages, const void* v_pages,
                                      const void* table, const void* lengths,
                                      const void* starts, const void* tail_k,

@@ -79,8 +79,15 @@ twin and the kernels all apply it.
 
 ``kernel_route`` picks the entry point from (q's dtype, head_dim, int8
 pools, verify, tail), and ``_SOURCES`` its source; other dtypes and head
-dims outside ``HEAD_DIMS`` raise ``NotImplementedError`` naming ROADMAP.md
-§2.
+dims outside ``HEAD_DIMS`` (every multiple of 16 up to 256) raise
+``NotImplementedError`` naming ROADMAP.md §2. Each entry point takes any
+head_dim of ``HEAD_DIMS`` on the smallest of its template instances
+(``INSTANCE_DIMS``) that holds it, columns past head_dim zero in shared
+memory, and any number of query heads per KV head and of verify rows: past
+a block's rows (8 single-query, 80 in the row-tile forms) it runs blocks of
+rows side by side, each over the split's keys (the sources' "Row groups";
+each row's arithmetic, and so ``paged_attention_split_plain``, is the same
+in any grouping).
 
 Layouts are the JAX package's: q (B, H, D) or (B, Q, H, D); pools (P, K,
 ps, D); page table (B, maxp) int32; lengths and starts (B,) int32; tails
@@ -98,18 +105,18 @@ import torch
 from ditl_tpu_torch.ops.attention import NEG_INF
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_attention_split_plain",
-           "split_count", "kernel_route", "HEAD_DIMS", "MAX_GROUPS", "MAX_VERIFY_ROWS",
-           "SPLIT_KEYS", "TILE_KEYS", "launches", "launches_tail", "launches_tail_int8",
-           "launches_verify", "launches_verify_int8", "launches_f32", "launches_tail_f32",
+           "split_count", "kernel_route", "HEAD_DIMS", "INSTANCE_DIMS", "SPLIT_KEYS",
+           "TILE_KEYS", "launches", "launches_tail", "launches_tail_int8", "launches_verify",
+           "launches_verify_int8", "launches_f32", "launches_tail_f32",
            "launches_verify_f32", "launches_tail_int8_f32", "launches_verify_int8_f32",
            "launches_f16", "launches_tail_f16", "launches_verify_f16",
            "launches_tail_int8_f16", "launches_verify_int8_f16", "reset_launches"]
 
-HEAD_DIMS = (32, 64, 128, 256)  # the kernels' template instances, every dtype
-MAX_GROUPS = 8  # query heads per KV head the kernels take
-# Query rows (Q * G) per KV head the verify kernels take: five m16 row tiles,
-# which covers spec_k = 8 at G = 8 (72 rows).
-MAX_VERIFY_ROWS = 80
+# The head dims every entry point takes: each multiple of 16 up to 256 (a
+# row of any dtype is then whole 16-byte chunks), on the smallest template
+# instance of INSTANCE_DIMS that holds it.
+HEAD_DIMS = tuple(range(16, 257, 16))
+INSTANCE_DIMS = (32, 64, 128, 256)
 TILE_KEYS = 64  # keys per tile inside a split (csrc kTile)
 # Positions per split, a multiple of TILE_KEYS: 128 was the fastest of 128,
 # 256 and 512 at the decode tick on the card (PERF.md).
@@ -178,18 +185,18 @@ def kernel_route(dtype: torch.dtype, head_dim: int, *, int8: bool, verify: bool,
     its dtype or int8 (``csrc/paged_attention.cu``), f32 q over f32 or int8
     pools (``csrc/paged_attention_f32.cu``; ``_SOURCES`` maps each entry
     point to its source); K3 with a tail, its verify for a 4-D q with Q >
-    1, K4 without a tail (never over int8 pools); each entry point holds
-    every head dim of ``HEAD_DIMS``. Other dtypes and head dims, which the
-    reference computes (its paged kernel takes any D), raise
-    ``NotImplementedError`` naming ROADMAP.md §2."""
+    1, K4 without a tail (never over int8 pools); each entry point takes
+    every head dim of ``HEAD_DIMS`` (multiples of 16 up to 256). Other
+    dtypes and head dims, which the reference computes (its paged kernel
+    takes any D), raise ``NotImplementedError`` naming ROADMAP.md §2."""
     if dtype not in _DTYPES:
         raise NotImplementedError(
             f"the CUDA paged-attention kernels take bfloat16, float16 or float32, got "
             f"{dtype}: not ported (ROADMAP.md §2)")
     if head_dim not in HEAD_DIMS:
         raise NotImplementedError(
-            f"the CUDA paged-attention kernels take head_dim in {HEAD_DIMS}, got "
-            f"head_dim {head_dim}: not ported yet (ROADMAP.md §2)")
+            f"the CUDA paged-attention kernels take head_dim a multiple of 16 up to 256, "
+            f"got head_dim {head_dim}: not ported yet (ROADMAP.md §2)")
     suffix = _DTYPES[dtype][1 if int8 else 0]
     if not tail:
         if int8 or verify:
@@ -338,7 +345,12 @@ def paged_attention_split_plain(
     Over int8 pools (``k_scale``/``v_scale``), as ``ditl_paged_tail_i8``:
     the exact int8 values, each page key's f32 score times its K scale,
     and p times its V scale (1 on the tail) cast to the tail's dtype before
-    p.v; l adds the unscaled p."""
+    p.v; l adds the unscaled p.
+
+    The kernels' row groups (blocks of rows side by side when a KV head has
+    more query rows than a block takes) change no row's arithmetic: each
+    row's partials come from the same tiles, live by the union over the
+    slot's Q queries, in the same order, so this twin has no row groups."""
     if split % TILE_KEYS or split < TILE_KEYS:
         raise ValueError(f"split must be a positive multiple of {TILE_KEYS}, got {split}")
     squeeze = q.dim() == 3
@@ -494,13 +506,12 @@ def paged_attention(
 ) -> torch.Tensor:
     """Paged GQA decode attention (see the module note). CUDA tensors launch
     K3 (with a tail; ``ditl_paged_tail_i8`` over int8 pools with
-    ``k_scale``/``v_scale``; the verify entry points for a 4-D q with Q > 1,
-    at most ``MAX_VERIFY_ROWS`` query rows per KV head) or K4 (without):
-    bf16, float16 or f32 q and tails over pools of their dtype or int8
-    (``kernel_route``), f32 scales, int32 table, lengths and starts, all
-    contiguous, head_dim in ``HEAD_DIMS``, at most ``MAX_GROUPS`` query
-    heads per KV head; anything else raises. CPU tensors run the plain
-    version."""
+    ``k_scale``/``v_scale``; the verify entry points for a 4-D q with Q > 1)
+    or K4 (without): bf16, float16 or f32 q and tails over pools of their
+    dtype or int8 (``kernel_route``), f32 scales, int32 table, lengths and
+    starts, all contiguous, head_dim in ``HEAD_DIMS``, any number of query
+    heads per KV head and of verify rows; anything else raises. CPU tensors
+    run the plain version."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded paged attention is not ported to PyTorch yet "
@@ -548,15 +559,7 @@ def paged_attention(
     for t_name, t in ints:
         if not t.is_contiguous():
             raise ValueError(f"{t_name} must be contiguous")
-    groups = h // kv_heads
-    if groups > MAX_GROUPS:
-        raise ValueError(f"the CUDA paged-attention kernels take at most "
-                         f"{MAX_GROUPS} query heads per KV head, got {groups}")
-    rows = nq * groups  # query rows per KV head
-    if rows > MAX_VERIFY_ROWS:
-        raise ValueError(f"the CUDA verify kernels take at most MAX_VERIFY_ROWS = "
-                         f"{MAX_VERIFY_ROWS} query rows (Q x query heads per KV head) "
-                         f"per KV head, got {nq} x {groups} = {rows}")
+    rows = nq * (h // kv_heads)  # query rows per KV head
     t_len = tail_k.shape[2] if tail else 0
     n_split = split_count(page_table.shape[1], ps, t_len, SPLIT_KEYS)
     o = torch.empty_like(q)

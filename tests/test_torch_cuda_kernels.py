@@ -271,9 +271,6 @@ def test_paged_kernels_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="multi-query"):  # a verify without a tail
         tpa.paged_attention(q[:, None].expand(-1, 3, -1, -1).contiguous(), kp, vp, table,
                             lens)
-    with pytest.raises(ValueError, match="MAX_VERIFY_ROWS = 80"):  # 41 x 2 query rows
-        tpa.paged_attention(q[:, None].expand(-1, 41, -1, -1).contiguous(), kp, vp, table,
-                            lens, tail_k=tk, tail_v=tv, starts=st)
     scale = torch.ones((64, 4, 1, 16), device=cuda)
     with pytest.raises(ValueError, match="int8 pools"):  # scales with float pools
         tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st,
@@ -283,7 +280,18 @@ def test_paged_kernels_raise_instead_of_falling_back(cuda):
                             k_scale=scale, v_scale=scale)
     with pytest.raises(ValueError, match="int32"):
         tpa.paged_attention(q, kp, vp, table.long(), lens)
+    with pytest.raises(NotImplementedError, match="head_dim 40.*ROADMAP"):
+        tpa.paged_attention(q[..., :40].contiguous(), kp[..., :40].contiguous(),
+                            vp[..., :40].contiguous(), table, lens)
     assert all(getattr(tpa, n) == 0 for n in tpa._COUNTERS.values())
+    # 41 x 2 query rows, which the verify once refused: one launch in two row
+    # groups of the 80-row instance, against the plain version.
+    q41 = q[:, None].expand(-1, 41, -1, -1).contiguous()
+    o = tpa.paged_attention(q41, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st)
+    torch.cuda.synchronize()
+    assert tpa.launches_verify == 1
+    torch.testing.assert_close(o.float(), tpa.paged_attention_plain(
+        q41, kp, vp, table, lens, tk, tv, st).float(), atol=2e-2, rtol=2e-2)
 
 
 def _int8_pools(kp, vp):
@@ -1474,3 +1482,41 @@ def test_tiny_llama_f32_train_step_with_flash_follows_the_reference(cuda):
     counts = [getattr(tfa, c) for _, _, c in tfa._ENTRIES.values()]
     assert summary["steps"] == 1 and all(torch.isfinite(torch.tensor(summary["losses"])))
     assert counts == [0] * len(counts), counts
+
+
+# Any group count, verify-row count and head dim up to 256 that is a multiple
+# of 16: every paged entry point (chip_smoke.HD_PAGED: K3, K4, K3-verify and
+# their int8 forms in bf16, float16 and f32) on chip_smoke.py's shape cases,
+# the decode and spec ticks of paths 16 (G = 16: 16 single-query rows, a
+# 144-row verify in two row groups) and 17 (D = 96 on the 128 instance),
+# G = 12 at D = 80 (108 rows) and D = 16 at G = 16.
+SHAPE_ENTRIES = [(entry, i) for entry in chip_smoke.HD_PAGED
+                 for i in range(len(chip_smoke.SHAPE_PAGED_CASES))]
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("entry,case", SHAPE_ENTRIES,
+                         ids=[f"{e[0]}-{i}" for e, i in SHAPE_ENTRIES])
+def test_paged_kernels_at_any_groups_rows_and_head_dim(no_tf32, entry, case):
+    """Each entry point against the plain version and the split twin (bf16
+    and float16 at 2e-2, f32 within ``F32_PAGED_TOL`` of the largest
+    magnitude: ``chip_smoke._close``); two calls the same bits; each call
+    counts one launch of its own kernel and none of another; a dead slot
+    gives zeros."""
+    name, dtype_name, int8, form = entry
+    dtype = getattr(torch, dtype_name)
+    cases = chip_smoke.SHAPE_VERIFY_CASES if form == "verify" else chip_smoke.SHAPE_PAGED_CASES
+    args, kw, plain_args, lens = chip_smoke._paged_case_inputs(cases[case], form, dtype, int8,
+                                                               seed=2500 + case)
+    tpa.reset_launches()
+    o, o2 = (tpa.paged_attention(*args, **kw) for _ in range(2))
+    r = tpa.paged_attention_plain(*plain_args)
+    s_ = tpa.paged_attention_split_plain(*plain_args)
+    torch.cuda.synchronize()
+    counter = chip_smoke._counter(name)
+    assert getattr(tpa, counter) == 2
+    assert sum(getattr(tpa, c) for c in tpa._COUNTERS.values()) == 2
+    assert o.dtype == dtype and o.shape == args[0].shape and torch.equal(o, o2)
+    chip_smoke._close(name, dtype, o, r)
+    chip_smoke._close(name, dtype, o, s_)
+    assert all(bool((o[j] == 0).all()) for j, n in enumerate(lens) if n == 0)

@@ -160,9 +160,9 @@ def test_paged_kernel_route(dtype, int8, form):
     take ``csrc/paged_attention.cu``'s entry points (``_bf16``/``_i8``,
     ``_f16``/``_i8_f16``), f32 q over f32 or int8 pools (variant F)
     ``csrc/paged_attention_f32.cu``'s (``_f32``/``_i8_f32``), at every head
-    dim of ``HEAD_DIMS`` (32, 64, 128, 256); each has its argument count,
-    counter and source; another dtype, or another head dim (48, 96), raises
-    naming ROADMAP.md §2."""
+    dim of ``HEAD_DIMS`` (each multiple of 16 up to 256: 48 and 96 among
+    them); each has its argument count, counter and source; another dtype,
+    or another head dim (40, 272), raises naming ROADMAP.md §2."""
     want = PAGED_ROUTES[(dtype, int8, form)]
     kw = dict(int8=int8, verify=form == "verify", tail=form != "no_tail")
     dt = getattr(torch, dtype)
@@ -170,10 +170,11 @@ def test_paged_kernel_route(dtype, int8, form):
         with pytest.raises(NotImplementedError, match=want):
             tpa.kernel_route(dt, 128, **kw)
         return
-    assert tpa.HEAD_DIMS == (32, 64, 128, 256)
+    assert tpa.HEAD_DIMS == tuple(range(16, 257, 16))
+    assert 48 in tpa.HEAD_DIMS and 96 in tpa.HEAD_DIMS
     for head_dim in tpa.HEAD_DIMS:
         assert tpa.kernel_route(dt, head_dim, **kw) == want
-    for head_dim in (48, 96):
+    for head_dim in (40, 272):
         with pytest.raises(NotImplementedError, match=f"head_dim {head_dim}.*ROADMAP.md §2"):
             tpa.kernel_route(dt, head_dim, **kw)
     assert want in tpa._ARGS and want in tpa._COUNTERS
