@@ -119,11 +119,15 @@ no result line. It imports nothing of JAX or of the JAX package.
    paths 14 and 15 (the verify forms at their spec tick), K1 at head_dim 256
    at path 15's prefill and on one packed training row, K2a and K2b on that
    row, each beside its plain version, SDPA (or SDPA's backward) and its
-   bound; the kernels line carries them under ``at_head_dims``.
-   ``[shape-timing]``: every paged entry point at path 16's decode tick (G
-   = 16) and spec tick (144 rows) and path 17's (D = 96), the verify forms
-   also at 80 rows of path 16's widths (Q = 5: one row group), the same
-   way; the kernels line carries them under ``at_shapes``.
+   bound, and for f32 K2a-f32 + K2b-f32 against SDPA's whole backward with
+   K2b-f32's grid (its runs, ``f32_dkv_splits``; path 9's batch the same
+   in ``[f32-timing]``); the kernels line carries them under
+   ``at_head_dims``. ``[shape-timing]``: every paged entry point at path
+   16's decode tick (G = 16) and spec tick (144 rows) and path 17's (D =
+   96), the verify forms also at 80 rows of path 16's widths (Q = 5: one row
+   group), the same way; K1, K1-f16 and K1-f32 at path 16's prefill widths
+   (128 heads on 8, D = 128) on the serving prefill's batch against SDPA;
+   the kernels line carries them under ``at_shapes``.
 5. Main path 1: the lock-step OpenAI server, ``llama3-8b`` at full width and
    depth (32 layers), ``attention_impl=flash``, seed-initialised weights,
    run in-process on a thread so the kernels' launch counters can be read.
@@ -1158,12 +1162,14 @@ def phase_bwd_kernels(flash, train_seg) -> dict:
 def _bwd_launchers(flash, q, k, v, o, lse, do, seg, causal):
     """K2a and K2b (or their f32 forms, by ``kernel_route``) as bare
     launches on preallocated outputs (the wrapper's arguments; delta
-    computed once), for timing each kernel alone."""
+    computed once; K2b-f32 over its split workspace where the wrapper
+    splits it, the runs and their sum timed together), for timing each
+    kernel alone."""
     import torch
 
     b, s_q, h, d = q.shape
-    dq_fn, dkv_fn = (flash._kernel(flash.kernel_route(q.dtype, d, kind), kind)
-                     for kind in ("dq", "dkv"))
+    dq_fn = flash._kernel(flash.kernel_route(q.dtype, d, "dq"), "dq")
+    dkv_entry = flash.kernel_route(q.dtype, d, "dkv")
     s_kv, kv = k.shape[1], k.shape[2]
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -1178,7 +1184,8 @@ def _bwd_launchers(flash, q, k, v, o, lse, do, seg, causal):
         require(dq_fn(*common, dq.data_ptr(), *sizes()) == 0, "K2a launch")
 
     def run_dkv():
-        require(dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes()) == 0, "K2b launch")
+        require(flash._run_dkv(dkv_entry, common, dk.data_ptr(), dv.data_ptr(), sizes(),
+                               q.device) == 0, "K2b launch")
 
     return run_dq, run_dkv, (delta, dq, dk, dv)
 
@@ -4216,6 +4223,9 @@ def phase_f32_timings(flash, paged, train_seg) -> dict:
             f"{flops / ms / 1e9:.1f} TFLOP/s ({SMI})")
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib, "library": f"sdpa {backend}"}
+    log("[f32-timing] " + _k2_f32_summary(flash, out["flash_dq_f32"]["ms"],
+                                          out["flash_dkv_f32"]["ms"], lib_bwd_ms,
+                                          plain_bwd_ms, 4, 2, 7, s, 64))
     del keep, q, k, v, o, lse, do, qt, kt, vt, out_t, do_t, mask
 
     # K3-f32 and K4-f32 at the decode tick.
@@ -5475,8 +5485,28 @@ def phase_head_dim_timings(flash, paged, train_seg) -> dict:
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": lib_ms,
                     "library": f"sdpa backward {backend}", "shape": label}
+            if dtype == torch.float32:
+                log("[hd-timing] " + _k2_f32_summary(flash, out[dq_name][256]["ms"],
+                                                     out[dkv_name][256]["ms"], lib_ms,
+                                                     plain_ms, b, 1, 8, s, 256))
             del q, k, v, o, lse, do, qt, kt, vt, mask, keep, out_t, do_t
     return out
+
+
+def _k2_f32_summary(flash, dq_ms, dkv_ms, lib_ms, plain_ms, b, kv, groups, s, d) -> str:
+    """K2a-f32 + K2b-f32 against SDPA's whole backward and the plain one,
+    and K2b-f32's grid (``f32_dkv_splits``, as the wrapper takes it)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, chunk = flash.f32_dkv_splits(b, kv, groups, s, s, d)
+    blocks = splits * kv * b * -(-s // flash.f32_bwd_block(d))
+    return (f"K2a-f32 + K2b-f32 at B={b} S={s} H={kv * groups} K={kv} D={d}: "
+            f"{dq_ms + dkv_ms:.4f} ms against the sdpa backward (all three grads) "
+            f"{lib_ms:.4f} ms ({(dq_ms + dkv_ms) / lib_ms:.2f}x) and the plain backward "
+            f"{plain_ms:.4f} ms; K2b-f32 {dkv_ms:.4f} ms, {dkv_ms / plain_ms:.2f}x the plain "
+            f"backward; K2b-f32's grid {blocks} blocks on {sms} SMs ({splits} runs of "
+            f"{chunk} items) ({SMI})")
 
 
 # Path 15: google/gemma-2b's published attention and MLP widths (its
@@ -5791,16 +5821,53 @@ def phase_shape_kernels(paged) -> dict:
     return worst
 
 
-def phase_shape_timings(paged) -> dict:
+def phase_shape_timings(flash, paged) -> dict:
     """[shape-timing]: every paged entry point of ``HD_PAGED`` at path 16's
     and path 17's decode tick (the verify forms at their spec tick), by
     ``_time_paged``'s rules (CUDA-graph replays over ``PAGED_COPIES`` input
     copies, the plain version, SDPA on keys gathered or dequantized
     beforehand, the bound from bytes); the verify forms also at 80 rows of
     path 16's widths (``SHAPE_VERIFY_80``), so the second row group's cost
-    shows beside the 144-row time. Returns {kernels-line name: {shape:
-    timing}}."""
+    shows beside the 144-row time; K1, K1-f16 and K1-f32 at path 16's
+    prefill widths (128 heads on 8 KV heads, D = 128: G = 16) on the serving
+    prefill's batch (B=4, S=512, right-padded) against SDPA with the same
+    mask, the plain version and the bound. Returns {kernels-line name:
+    {shape: timing}}."""
+    import torch
+    import torch.nn.functional as F
+
     out: dict = {}
+    for fwd_name, _, _, dtype_name in HD_FLASH:
+        q, k, v, seg = _attn_inputs(4, 512, 512, 128, 8, 128, seed=2500,
+                                    lengths=[512, 401, 230, 97],
+                                    dtype=getattr(torch, dtype_name))
+        mask = torch.ones(512, 512, dtype=torch.bool, device="cuda").tril()[None]
+        mask = (mask & (seg[:, :, None] == seg[:, None, :]))[:, None]
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(16, dim=2).transpose(1, 2) for x in (k, v))
+
+        def fwd():
+            flash.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+
+        def sdpa():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        ms = min(_time_ms(fwd), _time_ms(fwd))
+        lib_ms = min(_time_ms(sdpa), _time_ms(sdpa))
+        plain_ms = _time_ms(lambda: flash.flash_attention_plain(q, k, v, causal=True,
+                                                                segment_ids=seg),
+                            iters=3, warmup=1)
+        bound_ms, bound_by = _flash_bound(q, k, seg, True)
+        backend = _sdpa_backend(qt, kt, vt, mask, 0.0, False)
+        log(f"[shape-timing] {fwd_name} path 16 prefill, G = 16: B=4 S=512 H=128 K=8 D=128 "
+            f"causal, right-padded ({dtype_name}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, sdpa (same mask; backend {backend}) {lib_ms:.4f} ms, kernel / sdpa "
+            f"{ms / lib_ms:.2f}x, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} "
+            f"of bound ({SMI})")
+        out.setdefault(fwd_name, {})["path 16 prefill, G = 16"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "library": f"sdpa {backend}"}
+        del q, k, v, seg, mask, qt, kt, vt
     for name, dtype_name, int8, form in HD_PAGED:
         for path in (16, 17):
             m = (SHAPE_SPEC_TICKS if form == "verify" else SHAPE_TICKS)[path]
@@ -5858,7 +5925,7 @@ def main() -> int:
     timings.update(phase_f16_int8_timings(flash, paged, train_seg))
     timings.update(phase_f16_bwd_timings(flash, mlp_bwd, proj, train_seg))
     hd_timings = phase_head_dim_timings(flash, paged, train_seg)
-    shape_timings = phase_shape_timings(paged)
+    shape_timings = phase_shape_timings(flash, paged)
     errors.update(phase_mm_kernels(mlp_bwd, proj))
     timings.update(phase_mm_timings(mlp_bwd, proj))
     errors.update(phase_f32_mm_kernels(mlp_bwd, proj))

@@ -14,7 +14,11 @@ Hopper:
 - on float32 operands, K1-f32, K2a-f32 and K2b-f32 in ``csrc/flash_f32.cu``
   (``ditl_flash_fwd_f32``, ``ditl_flash_bwd_dq_f32``,
   ``ditl_flash_bwd_dkv_f32``) replace the same three kernels, which the
-  reference runs for any float dtype with f32 sums.
+  reference runs for any float dtype with f32 sums. K2a-f32 and K2b-f32 run
+  their products as 3xTF32 on the tensor cores; K2b-f32 splits each KV
+  head's (group head, query tile) items into runs when its grid would not
+  fill the card (``f32_dkv_splits``; ``ditl_flash_bwd_dkv_split_f32`` over a
+  workspace, the runs summed in order by a second kernel).
 
 - ``kernel_route`` is the one rule for which entry point a CUDA call takes,
   from (dtype, head_dim, the forward or one of the backward's two
@@ -46,6 +50,9 @@ Hopper:
   kept in f32 as the reference keeps them (the kernels round them to the
   operands' dtype for their tensor-core products); the gradients in the
   operands' dtype. It is not autograd of the plain forward.
+- ``f32_dkv_splits`` is K2b-f32's split rule, a pure function of the shapes
+  and an SM count (CARD_SMS on every card, so the bits never vary);
+  ``f32_dkv_runs`` lists the items each run walks.
 - ``tile_schedule`` is the kernels' rule for which (query tile, key tile)
   pairs they visit (causal diagonal and segment-id ranges), as a boolean
   map, at K1's, K2a's or K2b's tiling; the CPU tests hold that it covers
@@ -68,12 +75,14 @@ from typing import NamedTuple
 import torch
 
 from ditl_tpu_torch.ops.attention import NEG_INF
+from ditl_tpu_torch.ops.mlp_bwd import CARD_SMS
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain", "tile_schedule",
            "fwd_block_kv", "FWD_BLOCK_Q", "FWD_WARPGROUP_ROWS", "BWD_DQ_BLOCK_Q",
            "bwd_dkv_block_kv", "BWD_DKV_BLOCK_Q", "BWD_DKV_WARPGROUP_KEYS", "HEAD_DIMS",
-           "F32_HEAD_DIMS", "F32_BLOCK", "F32_MAX_SEQ", "kernel_route", "supports",
+           "F32_HEAD_DIMS", "F32_BLOCK", "F32_MAX_SEQ", "f32_bwd_block", "f32_dkv_splits",
+           "f32_dkv_runs", "F32_DKV_MAX_SPLITS", "CARD_SMS", "kernel_route", "supports",
            "BlockSizes", "launches", "launches_dq", "launches_dkv", "launches_f16",
            "launches_dq_f16", "launches_dkv_f16", "launches_f32", "launches_dq_f32",
            "launches_dkv_f32", "reset_launches"]
@@ -113,12 +122,18 @@ HEAD_DIMS = (32, 64, 128, 256)  # the bf16 and float16 kernels' template instanc
 # The f32 kernels' instances: the reference's own head dims up to 256
 # (``supports``: D = 64 or D % 128 == 0).
 F32_HEAD_DIMS = (64, 128, 256)
-# The f32 kernels' tiles (csrc/flash_f32.cu): 64 query rows by 64 keys for
-# K1-f32, K2a-f32 and K2b-f32 alike, so ``tile_schedule(ids, causal, s, s,
-# F32_BLOCK, F32_BLOCK)`` is the map of each; a block marks at most 4096
-# tiles (F32_MAX_SEQ positions).
+# K1-f32's tiles (csrc/flash_f32.cu): 64 query rows by 64 keys, so
+# ``tile_schedule(ids, causal, s, s, F32_BLOCK, F32_BLOCK)`` is its map; a
+# block marks at most 4096 tiles (F32_MAX_SEQ positions). K2a-f32 and
+# K2b-f32 take square tiles of ``f32_bwd_block(head_dim)``: 64 at D = 64 and
+# 128, 32 at D = 256, so ``tile_schedule(ids, causal, s, s, f32_bwd_block(d),
+# f32_bwd_block(d))`` is the map of each (K2b-f32 reads it by columns).
 F32_BLOCK = 64
 F32_MAX_SEQ = 4096 * F32_BLOCK
+# K2b-f32's split: a grid under two waves of CARD_SMS blocks (the H100 SXM's
+# SMs, a constant as in K6-f32's split, so the runs and the bits never vary)
+# is split into at most F32_DKV_MAX_SPLITS runs.
+F32_DKV_MAX_SPLITS = 16
 # K1's tiles (csrc/flash_fwd.cu): a block owns FWD_BLOCK_Q query rows, each
 # of its two consumer warpgroups FWD_WARPGROUP_ROWS of them, and walks the
 # keys in tiles of fwd_block_kv(head_dim).
@@ -146,6 +161,46 @@ def bwd_dkv_block_kv(head_dim: int) -> int:
     """K2b's keys a block at ``head_dim`` (``DkvCfg<D>::kBlockN``)."""
     return 64 if head_dim == 256 else 128
 
+
+def f32_bwd_block(head_dim: int) -> int:
+    """K2a-f32's query rows a block and keys a streamed tile, K2b-f32's keys
+    a block and query rows a streamed tile, at ``head_dim``
+    (``Bwd<D>::kR``)."""
+    return 32 if head_dim == 256 else 64
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def f32_dkv_splits(batch: int, kv_heads: int, groups: int, s_q: int, s_kv: int,
+                   head_dim: int, sms: int = CARD_SMS) -> tuple[int, int]:
+    """(runs, items a run) of K2b-f32 (``chunk`` in csrc/flash_f32.cu). A
+    block owns ``f32_bwd_block(head_dim)`` keys of one KV head and walks the
+    head's items, (group head, query tile) in the folded order i = g n_q +
+    t. When KV heads x batch x key tiles is under two waves of ``sms``
+    blocks, the items are cut into as many runs of equal length as bring
+    the grid to two waves, at most F32_DKV_MAX_SPLITS and at most one an
+    item; else (1, every item). The wrapper takes ``sms`` = CARD_SMS on
+    every card."""
+    block = f32_bwd_block(head_dim)
+    items = groups * _cdiv(s_q, block)
+    blocks = kv_heads * batch * _cdiv(s_kv, block)
+    want = min(F32_DKV_MAX_SPLITS, items, _cdiv(2 * sms, blocks))
+    if blocks >= 2 * sms or want <= 1:
+        return 1, items
+    chunk = _cdiv(items, want)
+    return _cdiv(items, chunk), chunk
+
+
+def f32_dkv_runs(splits: int, chunk: int, groups: int, n_q: int) -> list[list[tuple[int, int]]]:
+    """The (group head, query tile) items each run of K2b-f32 walks, in its
+    order (before tile skipping): run r takes items [r chunk, (r + 1) chunk)
+    of the folded order, the last one the rest."""
+    items = groups * n_q
+    return [[divmod(i, n_q) for i in range(r * chunk, min(items, (r + 1) * chunk))]
+            for r in range(splits)]
+
 # Kernel launches since the last reset_launches(); counted where each kernel
 # is launched and nowhere else: K1, K2a, K2b on bf16, on float16 and on f32.
 launches = 0
@@ -160,8 +215,10 @@ launches_dkv_f32 = 0
 
 _fns: dict[str, ctypes._CFuncPtr] = {}
 # Pointer arguments of each kind of entry point; then 7 ints, the scale and
-# the stream.
+# the stream. K2b-f32's split form takes the workspace as a tenth pointer
+# and the runs and their length as two more ints.
 _PTRS = {"fwd": 6, "dq": 8, "dkv": 9}
+_DKV_SPLIT_F32 = "ditl_flash_bwd_dkv_split_f32"
 # (dtype, kind) -> (source in ``csrc/``, symbol, launch counter), and the
 # head dims each dtype's kernels take.
 _ENTRIES = {
@@ -211,11 +268,33 @@ def _kernel(entry: tuple[str, str], kind: str):
         from ditl_tpu_torch.ops.cuda_build import load_library
 
         fn = getattr(load_library(entry[0]), entry[1])
-        fn.argtypes = [ctypes.c_void_p] * _PTRS[kind] + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p]
+        if entry[1] == _DKV_SPLIT_F32:
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
+                ctypes.c_float, ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * _PTRS[kind] + [ctypes.c_int] * 7 + [
+                ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[entry[1]] = fn
     return fn
+
+
+def _run_dkv(entry: tuple[str, str], common: tuple, dk: int, dv: int, sizes: tuple,
+             device: torch.device) -> int:
+    """K2b, K2b-f16 or K2b-f32 on preallocated dk and dv (pointers) with
+    the wrapper's ``common`` pointers and ``sizes``; K2b-f32 over a
+    workspace of ``f32_dkv_splits``' runs when it splits. Returns the entry
+    point's error code."""
+    b, s_q, s_kv, h, kv_heads, d, causal, scale, stream = sizes
+    if entry[1] == "ditl_flash_bwd_dkv_f32":
+        splits, chunk = f32_dkv_splits(b, kv_heads, h // kv_heads, s_q, s_kv, d)
+        if splits > 1:
+            work = torch.empty((2, splits, b, s_kv, kv_heads, d), dtype=torch.float32,
+                               device=device)
+            return _kernel((entry[0], _DKV_SPLIT_F32), "dkv")(
+                *common, dk, dv, work.data_ptr(), b, s_q, s_kv, h, kv_heads, d, causal, splits,
+                chunk, scale, stream)
+    return _kernel(entry, "dkv")(*common, dk, dv, *sizes)
 
 
 def _check(q, k, v, segment_ids) -> None:
@@ -472,14 +551,14 @@ def flash_attention_bwd(
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    dq_fn, dkv_fn = _kernel(dq_entry, "dq"), _kernel(dkv_entry, "dkv")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), seg_ptr)
         sizes = (b, s_q, s_kv, h, kv_heads, d, int(causal), d**-0.5, stream)
-        _count(q.dtype, "dq", dq_fn(*common, dq.data_ptr(), *sizes))
-        _count(q.dtype, "dkv", dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes))
+        _count(q.dtype, "dq", _kernel(dq_entry, "dq")(*common, dq.data_ptr(), *sizes))
+        _count(q.dtype, "dkv", _run_dkv(dkv_entry, common, dk.data_ptr(), dv.data_ptr(), sizes,
+                                        q.device))
     if unscale is not None:
         dq, dk, dv = ((t.float() * unscale).to(t.dtype) for t in (dq, dk, dv))
     return dq, dk, dv

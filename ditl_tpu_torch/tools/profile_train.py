@@ -90,7 +90,8 @@ CATEGORIES = (
     ("K2b flash_dkv", ("flash_bwd_dkv_kernel",)),
     ("K1-f32 flash_fwd_f32", ("flash_fwd_f32_kernel",)),
     ("K2a-f32 flash_dq_f32", ("flash_dq_f32_kernel",)),
-    ("K2b-f32 flash_dkv_f32", ("flash_dkv_f32_kernel",)),
+    # K2b-f32's runs and, when it splits, their in-order sum
+    ("K2b-f32 flash_dkv_f32", ("flash_dkv_f32_kernel", "flash_dkv_f32_sum_kernel")),
     ("K3/K4 paged_split", ("paged_split_kernel",)),
     ("K3/K4 paged_merge", ("paged_merge_kernel",)),
     ("K3/K4-f32 paged_split_f32", ("paged_split_f32_kernel",)),

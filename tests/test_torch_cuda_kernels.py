@@ -102,6 +102,7 @@ def _segment_ids(cuda, kind, b, s, seed=0):
     (2, 300, 300, 4, 2, 256, True, "nonmono"),
     (1, 257, 257, 4, 2, 256, True, "edge1"),
     (2, 200, 333, 4, 4, 256, False, None),
+    (1, 2048, 2048, 7, 1, 64, True, "train"),
 ])
 def test_flash_fwd_kernel_matches_plain(cuda, b, s_q, s_kv, h, kv, d, causal, seg):
     lengths = seg if isinstance(seg, list) else None
@@ -827,8 +828,10 @@ def test_mlp_and_projection_bwd_raise_instead_of_falling_back(cuda):
 # ---------------------------------------------------------------------------
 
 # f32 tolerances: the kernels and the plain versions take the same f32
-# operands with f32 sums in other orders (FFMA chains against cuBLAS's f32
-# GEMMs, TF32 off) and the same exponent, so they differ by f32 round-off:
+# operands with f32 sums in other orders (FFMA chains in K1-f32 and the
+# paged kernels, 3xTF32 products, each good to about 2^-21, in K2a-f32 and
+# K2b-f32, against cuBLAS's f32 GEMMs, TF32 off) and the same exponent, so
+# they differ by f32 round-off:
 # o and lse within F32_TOL, each gradient within F32_TOL of its own largest
 # magnitude, paged attention within PAGED_F32_TOL (the reference's own f32
 # tolerance, tests/test_torch_paged.py).
@@ -840,7 +843,9 @@ PAGED_F32_TOL = 2e-5
 # D = 64), G = 7 with ids that go up and down, non-causal Sq < Skv, causal
 # Sq > Skv, a boundary one row past a tile edge, MQA; then D = 256 (path
 # 15's heads, 8 on 1: its prefill and a packed training row; ids up and
-# down; non-causal Sq != Skv).
+# down; non-causal Sq != Skv); then G = 7 on one KV head at D = 64, B = 1,
+# S = 2048, packed, where K2b-f32 splits its items into 9 runs of 25, a
+# count that does not divide the group (``f32_dkv_splits``).
 F32_FLASH_CASES = [
     (4, 512, 512, 32, 8, 128, True, [512, 401, 230, 97]),
     (4, 2048, 2048, 14, 2, 64, True, "train"),
@@ -854,6 +859,7 @@ F32_FLASH_CASES = [
     (1, 2048, 2048, 8, 1, 256, True, "train"),
     (2, 300, 300, 4, 2, 256, True, "nonmono"),
     (2, 200, 333, 4, 4, 256, False, None),
+    (1, 2048, 2048, 7, 1, 64, True, "train"),
 ]
 
 
@@ -910,10 +916,12 @@ def test_flash_f32_bwd_kernels_match_plain(no_tf32, b, s_q, s_kv, h, kv, d, caus
 
 
 @pytest.mark.torch_port
-@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("case", [0, 1, 9])
 def test_flash_f32_kernels_are_bitwise_repeatable(no_tf32, case):
-    """Every f32 block owns its outputs and sums in one fixed order: two
-    calls of each kernel give the same bits."""
+    """Every f32 block owns its outputs and sums in one fixed order, and
+    K2b-f32's runs are summed in order by a second kernel (path 15's packed
+    row, case 9, takes 5 runs): two calls of each kernel give the same
+    bits."""
     b, s_q, s_kv, h, kv, d, causal, seg = F32_FLASH_CASES[case]
     q, k, v, ids = _f32_case(no_tf32, b, s_q, s_kv, h, kv, d, seg)
     fwd = [tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=ids) for _ in range(2)]
@@ -1141,6 +1149,7 @@ F16 = torch.float16
     (4, 512, 512, 8, 1, 256, True, [512, 401, 230, 97]),  # path 15's prefill
     (2, 300, 300, 4, 2, 256, True, "nonmono"),
     (2, 200, 333, 4, 4, 256, False, None),
+    (1, 2048, 2048, 7, 1, 64, True, "train"),
 ])
 def test_flash_f16_fwd_kernel_matches_plain(cuda, b, s_q, s_kv, h, kv, d, causal, seg):
     """K1-f16 against the plain forward in float16; two calls give the same

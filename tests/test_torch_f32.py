@@ -529,3 +529,59 @@ def test_cli_serves_f32_on_both_engines():
         srv.close(drain=True)
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+# -- K2b-f32's split (f32_dkv_splits) ------------------------------------------
+
+# (batch, kv_heads, groups, s_q, s_kv, head_dim): path 15's packed row (D =
+# 256, 8 on 1), path 9's batch (G = 7 on 2), G = 7 on one KV head (9 runs),
+# the serving prefill (G = 4 on 8), MQA and ragged lengths at D = 256 and
+# 128, Sq != Skv, G = 16 (path 16's heads), a grid that fills the card.
+SPLIT_SHAPES = [
+    (1, 1, 8, 2048, 2048, 256),
+    (4, 2, 7, 2048, 2048, 64),
+    (1, 1, 7, 2048, 2048, 64),
+    (4, 8, 4, 512, 512, 128),
+    (2, 2, 1, 300, 300, 256),
+    (1, 1, 1, 129, 129, 128),
+    (2, 4, 1, 200, 333, 256),
+    (1, 8, 16, 512, 512, 128),
+    (8, 8, 4, 2048, 2048, 128),
+]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78, 16])
+@pytest.mark.parametrize("b,kv,g,s_q,s_kv,d", SPLIT_SHAPES)
+def test_f32_dkv_runs_cover_every_item_once_in_order(b, kv, g, s_q, s_kv, d, sms):
+    """K2b-f32's runs: every (group head, query tile) item of a KV head
+    exactly once, in the folded order, no run empty, at most
+    F32_DKV_MAX_SPLITS; the kernel's own check on (splits, chunk) holds; a
+    grid of two waves or more is not split, a smaller one is split toward two
+    waves; the same shapes and SM count give the same split."""
+    block = tfa.f32_bwd_block(d)
+    splits, chunk = tfa.f32_dkv_splits(b, kv, g, s_q, s_kv, d, sms)
+    assert (splits, chunk) == tfa.f32_dkv_splits(b, kv, g, s_q, s_kv, d, sms)
+    n_q = -(-s_q // block)
+    items = g * n_q
+    runs = tfa.f32_dkv_runs(splits, chunk, g, n_q)
+    assert [item for run in runs for item in run] == [(h, t) for h in range(g)
+                                                      for t in range(n_q)]
+    assert all(runs) and 1 <= splits <= tfa.F32_DKV_MAX_SPLITS
+    assert chunk * (splits - 1) < items <= chunk * splits
+    blocks = kv * b * -(-s_kv // block)
+    want = min(tfa.F32_DKV_MAX_SPLITS, items, -(-2 * sms // blocks))
+    if blocks >= 2 * sms:
+        assert (splits, chunk) == (1, items)
+    else:
+        assert splits <= want and chunk == -(-items // want)
+
+
+def test_f32_dkv_split_fills_the_card_at_path_15():
+    """Path 15's packed row (B = 1, S = 2048, 8 heads on 1, D = 256): 64 key
+    blocks alone; 5 runs of 103 items take K2b-f32 to 320 blocks on the H100
+    SXM's 132 SMs. Path 9's batch takes 2 runs (512 blocks)."""
+    assert tfa.f32_bwd_block(256) == 32 and tfa.f32_bwd_block(64) == 64
+    assert tfa.f32_dkv_splits(1, 1, 8, 2048, 2048, 256) == (5, 103)
+    assert 5 * 2048 // 32 >= tfa.CARD_SMS
+    assert tfa.f32_dkv_splits(4, 2, 7, 2048, 2048, 64) == (2, 112)
+    assert tfa.f32_dkv_splits(1, 1, 7, 2048, 2048, 64) == (9, 25)

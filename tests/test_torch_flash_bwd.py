@@ -130,10 +130,14 @@ from test_torch_flash_attention import _admitted, _expand, _schedule_ids  # noqa
 
 # (block_q, block_kv) of each kernel at head_dim 64: K2a walks K1's tiles
 # (BWD_DQ_BLOCK_Q rows, fwd_block_kv keys), K2b BWD_DKV_BLOCK_Q rows against
-# its bwd_dkv_block_kv keys.
+# its bwd_dkv_block_kv keys; K2a-f32 and K2b-f32 take square tiles of
+# f32_bwd_block(head_dim) at every head dim (64 at D = 64 and 128, 32 at D =
+# 256; K2b-f32 reads the map by columns).
 BWD_TILINGS = {
     "dq": (tfa.BWD_DQ_BLOCK_Q, tfa.fwd_block_kv(64)),
     "dkv": (tfa.BWD_DKV_BLOCK_Q, tfa.bwd_dkv_block_kv(64)),
+    "f32_d64_d128": (tfa.f32_bwd_block(64), tfa.f32_bwd_block(128)),
+    "f32_d256": (tfa.f32_bwd_block(256), tfa.f32_bwd_block(256)),
 }
 
 
@@ -195,7 +199,8 @@ def test_schedule_masked_plain_backward_matches_jax_kernels(kind, dtype, kernel)
 @pytest.mark.parametrize("kernel", sorted(BWD_TILINGS))
 def test_training_batch_backward_visits_under_half_the_causal_tiles(kernel):
     """The training pipeline's first batch (packed documents): K2a's and
-    K2b's tilings at D = 128 visit fewer than half of the causal tiles."""
+    K2b's tilings at D = 128, and the f32 backward's, visit fewer than half
+    of the causal tiles."""
     from ditl_tpu_torch.config import DataConfig
     from ditl_tpu_torch.data.dataset import synthetic_dataset
     from ditl_tpu_torch.data.loader import DataPipeline
@@ -206,7 +211,8 @@ def test_training_batch_backward_visits_under_half_the_causal_tiles(kernel):
                         ByteTokenizer(), cfg, "cpu")
     seg = torch.from_numpy(next(pipe._host_batches(0))["segment_ids"])
     blocks = {"dq": (tfa.BWD_DQ_BLOCK_Q, tfa.fwd_block_kv(128)),
-              "dkv": (tfa.BWD_DKV_BLOCK_Q, tfa.bwd_dkv_block_kv(128))}[kernel]
+              "dkv": (tfa.BWD_DKV_BLOCK_Q, tfa.bwd_dkv_block_kv(128))}.get(
+                  kernel, BWD_TILINGS[kernel])
     visit = tfa.tile_schedule(seg, True, 2048, 2048, *blocks)
     causal = 4 * int(tfa.tile_schedule(None, True, 2048, 2048, *blocks).sum())
     assert int(seg.max()) >= 2 and int(visit.sum()) < causal / 2, (int(visit.sum()), causal)

@@ -32,15 +32,16 @@ def _kernels() -> list[tuple[str, str]]:
 
 def test_every_source_declares_kernels():
     """The regex finds the kernels of every source (the bf16 and f32 flash
-    and paged kernels, K5a and the GEMM core, the f32 MLP and projection
-    kernels and their split sum)."""
+    and paged kernels, K2b-f32's split sum, K5a and the GEMM core, the f32
+    MLP and projection kernels and their split sum)."""
     found = _kernels()
     assert {src for src, _ in found} == {p.name for p in CSRC.glob("*.cu")} - {
         "projection_bwd.cu"}  # K6's body is gemm_sm90.cuh's proj_bwd_kernel<6>
     names = {name for _, name in found}
     assert {"flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel",
             "paged_split_f32_kernel", "paged_merge_f32_kernel", "mlp_dgu_f32_kernel",
-            "mlp_dh_f32_kernel", "proj_bwd_f32_kernel", "splitk_sum_f32_kernel"} <= names
+            "mlp_dh_f32_kernel", "proj_bwd_f32_kernel", "splitk_sum_f32_kernel",
+            "flash_dkv_f32_sum_kernel"} <= names
 
 
 @pytest.mark.parametrize("src,name", _kernels())
