@@ -377,11 +377,11 @@ STEP2_LEAF_TOL = 2e-2
 SPEC_TIE_TOL = 0.25
 # The f32 kernels (K1-f32, K2a-f32, K2b-f32, K3-f32 and its verify, K4-f32)
 # against their plain versions in f32, TF32 off: the same f32 operands with
-# f32 sums in other orders (FFMA chains against cuBLAS's f32 GEMMs) and the
-# same exponent, so f32 round-off: o and lse within F32_O_TOL, each
-# gradient within F32_BWD_TOL of its own largest magnitude, paged attention
-# within F32_PAGED_TOL (the reference's own f32 tolerance,
-# tests/test_torch_paged.py).
+# f32 sums in other orders (FFMA chains or 3xTF32 products against
+# cuBLAS's f32 GEMMs) and the same exponent, so f32 round-off: o and lse
+# within F32_O_TOL, each gradient within F32_BWD_TOL of its own largest
+# magnitude, paged attention within F32_PAGED_TOL (the reference's own f32
+# tolerance, tests/test_torch_paged.py).
 F32_O_TOL = 1e-4
 F32_BWD_TOL = 1e-4
 F32_PAGED_TOL = 2e-5
@@ -4725,9 +4725,10 @@ def phase_dtype_train(flash, mlp_bwd, proj, args=F32_TRAIN_ARGS, tag: str = "f32
 
 # (label, N, D, F) of path 10's MLP (qwen2-0.5b, N = 4 x 2048) and ragged
 # ones: N = 16 x 129 (d_w_down split over the tokens), the least N, D and F
-# odd multiples of 128.
+# odd multiples of 128, and N = 2000 (no multiple of K5b-f32's 128-row tiles
+# or 32-token k-tiles) with 2F = 1280.
 F32_MLP_CASES = [("path 10", 8192, 896, 4864), ("ragged", 2064, 384, 384),
-                 ("N = 16", 16, 384, 384)]
+                 ("N = 16", 16, 384, 384), ("ragged N = 2000", 2000, 384, 640)]
 # (label, N, D, F, row stride of g or 0, the reference's blocks that admit
 # N): path 10's wq/wo (dw split in 3) and wk/wv (dw split in 16), a ragged
 # N with g a column slice of a wider gradient.
@@ -5831,8 +5832,9 @@ def phase_shape_timings(flash, paged) -> dict:
     shows beside the 144-row time; K1, K1-f16 and K1-f32 at path 16's
     prefill widths (128 heads on 8 KV heads, D = 128: G = 16) on the serving
     prefill's batch (B=4, S=512, right-padded) against SDPA with the same
-    mask, the plain version and the bound. Returns {kernels-line name:
-    {shape: timing}}."""
+    mask, the plain version and the bound, each first held to the plain
+    version (``O_TOL``/``LSE_TOL``; f32 ``F32_O_TOL``). Returns
+    {kernels-line name: {shape: timing}}."""
     import torch
     import torch.nn.functional as F
 
@@ -5852,6 +5854,20 @@ def phase_shape_timings(flash, paged) -> dict:
         def sdpa():
             F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
+        # Held to the plain version first, as [kernels] and [f32-kernels]
+        # hold each dtype's K1.
+        o, lse = flash.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+        o_ref, lse_ref = flash.flash_attention_plain(q, k, v, causal=True, segment_ids=seg)
+        o_err = float((o.float() - o_ref.float()).abs().max())
+        lse_err = float((lse - lse_ref).abs().max())
+        if dtype_name == "float32":
+            require(o_err <= F32_O_TOL and lse_err <= F32_O_TOL, (fwd_name, o_err, lse_err))
+        else:
+            torch.testing.assert_close(o.float(), o_ref.float(), atol=O_TOL, rtol=O_TOL)
+            torch.testing.assert_close(lse, lse_ref, atol=LSE_TOL, rtol=LSE_TOL)
+        log(f"[shape-timing] {fwd_name} path 16 prefill, G = 16: max|o-plain| {o_err:.3e}, "
+            f"max|lse-plain| {lse_err:.3e} ok")
+        del o, lse, o_ref, lse_ref
         ms = min(_time_ms(fwd), _time_ms(fwd))
         lib_ms = min(_time_ms(sdpa), _time_ms(sdpa))
         plain_ms = _time_ms(lambda: flash.flash_attention_plain(q, k, v, causal=True,

@@ -31,12 +31,57 @@
 // So these kernels are bound by their products. All three do only the work
 // the masks leave (tile skipping).
 //
-// K1-f32 (FFMA, as first ported): FFMA on the CUDA cores, 64 x 64 tiles
-// in shared memory padded by 16 bytes a row, register-blocked 4 x 4 a
-// thread (row_products, tile_products), so each shared-memory load feeds
-// four FMAs; a cp.async double buffer of K/V tiles (one stage at D = 256,
-// kOneStage: 221.7 KB). ptxas -v (sm_90a): 246 / 194 / 146 registers at D =
-// 256 / 128 / 64, no spills.
+// K1-f32: 3xTF32 on wgmma from operands split once into shared memory.
+// What held its first, FFMA design back (PR 13: 8.6-11.9% of its bound):
+// FFMA's 67 TFLOP/s, Q read from shared memory again for each key tile, and
+// no copy in flight at D = 256. This design:
+// - Split once. Every f32 operand element is split once a block into a TF32
+//   hi tile and a lo = x - hi tile (split_tf32's rounding), both K-major
+//   under the 128-byte swizzle that wgmma reads (a tf32 k8 step is 32 bytes
+//   of a row, as a bf16 k16 step, so hopper.cuh's descriptors carry over).
+//   Q (scaled by `scale` in f32 first) is split in place once and kept for
+//   every key tile; K is split to the same swizzled offsets; V, MN-major for
+//   P.V, is transposed by its split pass into V^T, each thread a 4 x 4 block
+//   in registers. Every thread copies (cp.async, 16 bytes) and splits its
+//   own chunks, so no barrier sits between a copy and its split.
+// - Products. S = Q.K^T is wgmma m64nNk8 with both operands in shared
+//   memory; O += P.V takes P from registers: the S accumulator of an n8
+//   column group holds a thread's keys 2t and 2t + 1, which become the A
+//   fragment's k = t and k = t + 4, and V^T's split pass stores key 2e + par
+//   of each group of 8 at position 4 par + e to match. A k8 step is three
+//   wgmmas, lo.hi, hi.lo, hi.hi; each 32-deep chunk of a contraction sums
+//   from zero (scale-d = 0; the asm's "=f" form, so no partial is kept live
+//   across sub-tiles) into a partial that a rounded FADD adds to the running
+//   sum (the reference-accuracy rule of gemm_f32.cu's header).
+// - Tiles (Fwd<D>, ops/flash_attention.py::f32_fwd_block): two warpgroups,
+//   no producer. At D = 64 and 128 each owns 64 query rows (a block of
+//   128) over 64- and 32-key sub-tiles: Q hi/lo 64 / 128 KB, a sub-tile's K
+//   hi/lo, V^T hi/lo and raw K and V 16 KB each: 162 / 226 KB. At D = 256 Q
+//   hi/lo alone are 128 KB at 64 rows, so both warpgroups take the block's
+//   64 rows and each half of the head dim (kDSplit): its half of S's
+//   contraction, the two halves added in one order through shared memory
+//   (kX), and its half of O's columns; 16-key sub-tiles (V^T rows of 16
+//   keys, the 64-byte swizzle), K copied into K hi and split in place: 218
+//   KB. One block an SM. A sub-tile is two block barriers: after the S
+//   products the threads split its V^T and put the next sub-tile's V in
+//   flight, then the softmax; before (D = 64, 128) or beside (D = 256) the
+//   P.V products they split the next sub-tile's K and put the one after in
+//   flight. S's partials are in flight kSGroup at a time (two at D = 128,
+//   where four spilled), everything that decides whether a warpgroup issues
+//   wgmmas is broadcast from lane 0 (warp-uniform to the compiler), and the
+//   copies of a sub-tile that does not exist zero-fill instead of branching.
+// - What bounds it now: the products take about half of a sub-tile's
+//   time; the rest is the V and K splits, the softmax and the drains, run
+//   in lock step by both warpgroups (a clock64 trace of the phases, not
+//   kept). A warp stalls issuing its wgmmas until the tensor cores take
+//   them, so its own split does not run beside them, and the shared
+//   sub-tile keeps one warpgroup's products from covering the other's
+//   softmax. At D = 256 a branch on the visit test across the barrier
+//   before the softmax made ptxas serialize every wgmma (C7518, "WG.DP in
+//   divergent path"); the walk now stops at the block's last row, which
+//   is both warpgroups' there, so the test is a constant.
+// ptxas -v (sm_90a): 248 / 232 / 200 registers at D = 64 / 128 / 256, no
+// spills.
 //
 // K2a-f32 and K2b-f32: 3xTF32 on the tensor cores (mma.sync.m16n8k8.tf32),
 // as csrc/gemm_f32.cu runs K5/K6-f32. Each f32 operand x is split into
@@ -107,9 +152,11 @@
 // visited unless causal and the key tile starts past the query tile's last
 // row, or the two tiles' segment-id ranges [min, max] are disjoint (then no
 // pair in them is admitted, for any ids). ops/flash_attention.py::
-// tile_schedule is this rule at F32_BLOCK (K1-f32) and f32_bwd_block(D)
-// (K2a-f32, K2b-f32). A block marks the tiles it visits once, in shared
-// memory (K2: a bit each), then walks them. On the training pipeline's
+// tile_schedule is this rule at (f32_fwd_block(D)[0] rows, F32_BLOCK keys)
+// (K1-f32) and f32_bwd_block(D) (K2a-f32, K2b-f32). A block marks the tiles
+// it visits once, in shared memory (a bit each), then walks them; K1-f32
+// walks each marked 64-key tile in sub-tiles, and a warpgroup skips a
+// sub-tile that starts past its last row (f32_fwd_visits). On the training pipeline's
 // packed rows the attended pairs are about a fifth of the causal ones.
 // Blocks with the longest loops start first: K1 and K2a walk the query
 // tiles from the last, K2b the key tiles from the first.
@@ -128,29 +175,18 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (ditl_tpu_torch/ops/cuda_build.py). C interface, bound with ctypes.
 
-#include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"  // smem_addr, make_desc, the wgmma fence/commit/wait, fence_regs
+
 namespace {
 
-constexpr int kB = 64;           // query rows and keys per tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kTLd = kB + 4;     // floats per row of a 64 x 64 tile (P, dS)
-constexpr int kMaxTiles = 4096;  // tiles a block can mark: S <= 262,144
+constexpr int kB = 64;           // keys of a tile K1-f32 marks (F32_BLOCK)
+constexpr int kThreads = 256;    // K2a-f32's and K2b-f32's blocks
+constexpr int kMaxTiles = 4096;  // 64-key tiles a block can mark: S <= 262,144
 constexpr float kNegInf = -2.3819763e38f;  // ops/attention.py NEG_INF
-
-template <int D>
-struct Tile {
-  static constexpr int kLd = D + 4;      // floats per padded row
-  static constexpr int kSize = kB * kLd;  // floats per 64-row tile
-  static constexpr int kJ = D / 64;       // float4 column groups a thread owns
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared, in flight until cp_wait; with valid == false
 // the 16 bytes are zero-filled and src is not read.
@@ -181,104 +217,6 @@ __device__ __forceinline__ float at(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
-// Rows [r0, r0 + 64) of a matrix whose rows lie row_stride floats apart
-// (D floats each, from src) into a padded shared tile; rows >= n arrive as
-// zeros. Each thread copies the same chunks in scale_rows below.
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long row_stride,
-                                          int r0, int n) {
-  constexpr int kChunks = D / 4;
-  static_assert(kB * kChunks % kThreads == 0, "whole chunks per thread");
-#pragma unroll
-  for (int i = 0; i < kB * kChunks / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * Tile<D>::kLd + 4 * c,
-               ok ? src + (long)(r0 + r) * row_stride + 4 * c : src, ok);
-  }
-}
-
-// Multiplies the chunks this thread copied with load_rows by scale, once
-// they have landed (cp_wait makes a thread's own copies visible to it; the
-// barrier after this makes them visible to the block): q * scale in f32, as
-// the reference scales q before its products.
-template <int D>
-__device__ __forceinline__ void scale_rows(float* tile, float scale) {
-  constexpr int kChunks = D / 4;
-#pragma unroll
-  for (int i = 0; i < kB * kChunks / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    float4* p = reinterpret_cast<float4*>(tile + (idx / kChunks) * Tile<D>::kLd +
-                                          4 * (idx % kChunks));
-    float4 x = *p;
-    x.x *= scale;
-    x.y *= scale;
-    x.z *= scale;
-    x.w *= scale;
-    *p = x;
-  }
-}
-
-// s[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d], d in order.
-template <int D>
-__device__ __forceinline__ void row_products(float (&s)[4][4], const float* a, const float* b,
-                                             int ty, int tx) {
-  constexpr int kLd = Tile<D>::kLd;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  }
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * kLd + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * kLd + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
-        s[i][j] = fmaf(x[i].y, y[j].y, s[i][j]);
-        s[i][j] = fmaf(x[i].z, y[j].z, s[i][j]);
-        s[i][j] = fmaf(x[i].w, y[j].w, s[i][j]);
-      }
-    }
-  }
-}
-
-// acc[i][4 j + e] += sum_k t[ty + 16 i][k] * m[k][4 tx + 64 j + e], k < 64
-// in order: t a 64 x 64 tile (kTLd), m a 64 x D tile (kLd).
-template <int D>
-__device__ __forceinline__ void tile_products(float (&acc)[4][4 * Tile<D>::kJ], const float* t,
-                                              const float* m, int ty, int tx) {
-  constexpr int kLd = Tile<D>::kLd, kJ = Tile<D>::kJ;
-#pragma unroll 2
-  for (int k = 0; k < kB; k += 4) {
-    float4 w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const float4*>(t + (ty + 16 * i) * kTLd + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        const float4 y = *reinterpret_cast<const float4*>(m + (k + kk) * kLd + 4 * tx + 64 * j);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float wi = at(w[i], kk);
-          acc[i][4 * j + 0] = fmaf(wi, y.x, acc[i][4 * j + 0]);
-          acc[i][4 * j + 1] = fmaf(wi, y.y, acc[i][4 * j + 1]);
-          acc[i][4 * j + 2] = fmaf(wi, y.z, acc[i][4 * j + 2]);
-          acc[i][4 * j + 3] = fmaf(wi, y.w, acc[i][4 * j + 3]);
-        }
-      }
-    }
-  }
-}
-
 // [min, max] of ids[r0 .. r1) (r1 > r0) into lo / hi, by the first warp.
 __device__ __forceinline__ void id_range(const int* ids, int r0, int r1, int* out) {
   if (threadIdx.x < 32) {
@@ -296,191 +234,6 @@ __device__ __forceinline__ void id_range(const int* ids, int r0, int r1, int* ou
       out[0] = lo;
       out[1] = hi;
     }
-  }
-}
-
-// Marks the streamed tiles t < n (64 positions from t * 64, real ones < len)
-// that a block visits: when causal, those inside the causal limit (K1/K2a:
-// key tiles starting at or before the block's last row; K2b: query tiles
-// whose last row reaches the block's first key); with ids, those whose id
-// range meets the block's [range[0], range[1]].
-__device__ __forceinline__ void mark_tiles(unsigned char* vis, int n, int len, const int* ids,
-                                           const int* range, bool kv_stream, bool causal,
-                                           int limit) {
-  for (int t = threadIdx.x; t < n; t += kThreads) {
-    const int p0 = t * kB, p1 = min(len, p0 + kB);
-    bool visit = !causal || (kv_stream ? p0 <= limit : p1 - 1 >= limit);
-    if (visit && ids != nullptr) {
-      int lo = INT_MAX, hi = INT_MIN;
-      for (int p = p0; p < p1; ++p) {
-        lo = min(lo, ids[p]);
-        hi = max(hi, ids[p]);
-      }
-      visit = lo <= range[1] && hi >= range[0];
-    }
-    vis[t] = visit;
-  }
-}
-
-__device__ __forceinline__ int next_tile(const unsigned char* vis, int t, int n) {
-  for (++t; t < n && !vis[t]; ++t) {
-  }
-  return t;
-}
-
-// D = 256: a 64-row tile is 65 KB, so K1-f32's streamed tiles are not
-// double buffered: it keeps one K/V stage and loads its next tile once the
-// current one is done.
-template <int D>
-constexpr bool kOneStage = D == 256;
-
-// Shared memory of K1-f32, in floats, then the tile marks.
-template <int D>
-struct FwdSmem {  // Q, two K/V stages (D = 256: one), P, key ids of two stages, id range
-  static constexpr int kQ = 0, kKV = Tile<D>::kSize;
-  static constexpr int kP = kKV + (kOneStage<D> ? 2 : 4) * Tile<D>::kSize;
-  static constexpr int kIds = kP + kB * kTLd, kRange = kIds + 2 * kB, kVis = kRange + 4;
-  static constexpr int kBytes = kVis * 4 + kMaxTiles;
-};
-
-// ---------------------------------------------------------------------------
-// K1-f32: grid (heads, batch, query tiles), o and lse.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int* __restrict__ seg,
-                     float* __restrict__ o, float* __restrict__ lse, int sq, int skv, int heads,
-                     int kv_heads, int causal, float scale) {
-  using T = Tile<D>;
-  using L = FwdSmem<D>;
-  constexpr int kJ = T::kJ;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem + L::kQ;
-  int* kid = reinterpret_cast<int*>(smem + L::kIds);
-  int* range = reinterpret_cast<int*>(smem + L::kRange);
-  unsigned char* vis = reinterpret_cast<unsigned char*>(smem + L::kVis);
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kB;  // longest causal rows first
-  const int kh = h / (heads / kv_heads);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int* ids = seg != nullptr ? seg + (long)b * skv : nullptr;  // Sq == Skv
-  const int q_last = min(sq, q0 + kB) - 1;
-  const int n_kv = (skv + kB - 1) / kB;
-  const long q_stride = (long)heads * D, kv_stride = (long)kv_heads * D;
-  const float* qb = q + (long)b * sq * q_stride + (long)h * D;
-  const float* kb = k + (long)b * skv * kv_stride + (long)kh * D;
-  const float* vb = v + (long)b * skv * kv_stride + (long)kh * D;
-
-  if (ids != nullptr) id_range(ids, q0, q_last + 1, range);
-  __syncthreads();
-  mark_tiles(vis, n_kv, skv, ids, range, true, causal, q_last);
-  int rid[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) rid[i] = ids != nullptr ? ids[min(q0 + ty + 16 * i, sq - 1)] : 0;
-  __syncthreads();
-
-  auto load_kv = [&](int t, int stage) {
-    float* ks = smem + L::kKV + 2 * stage * T::kSize;
-    load_rows<D>(ks, kb, kv_stride, t * kB, skv);
-    load_rows<D>(ks + T::kSize, vb, kv_stride, t * kB, skv);
-    if (ids != nullptr && tid < kB) {
-      const int p = t * kB + tid;
-      cp_async4(kid + stage * kB + tid, ids + min(p, skv - 1), p < skv);
-    }
-  };
-
-  int cur = next_tile(vis, -1, n_kv);
-  load_rows<D>(qs, qb, q_stride, q0, sq);
-  if (cur < n_kv) load_kv(cur, 0);
-  cp_commit();
-
-  float m[4], l[4], acc[4][4 * kJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * kJ; ++c) acc[i][c] = 0.f;
-  }
-  bool first = true;
-  for (int stage = 0; cur < n_kv; stage = kOneStage<D> ? 0 : stage ^ 1) {
-    const int nxt = next_tile(vis, cur, n_kv);
-    if (!kOneStage<D> && nxt < n_kv) {
-      load_kv(nxt, stage ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    if (first) scale_rows<D>(qs, scale);
-    first = false;
-    __syncthreads();  // this stage's K, V and ids (and Q) are in shared memory
-    const float* ks = smem + L::kKV + 2 * stage * T::kSize;
-    const int* kids = kid + stage * kB;
-    const int k0 = cur * kB;
-    float s[4][4];
-    row_products<D>(s, qs, ks, ty, tx);
-    float* ps = smem + L::kP;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j];
-        if (col >= skv) {
-          x = -INFINITY;  // not a key at all: weight exactly 0
-        } else if ((causal && col > row) || (ids != nullptr && kids[tx + 16 * j] != rid[i])) {
-          x = kNegInf;
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int o = 1; o < 16; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        ps[(ty + 16 * i) * kTLd + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int o = 1; o < 16; o <<= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      l[i] = alpha * l[i] + rs;
-#pragma unroll
-      for (int c = 0; c < 4 * kJ; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();  // P complete
-    tile_products<D>(acc, ps, ks + T::kSize, ty, tx);
-    __syncthreads();  // this stage and P are free again
-    if (kOneStage<D> && nxt < n_kv) {
-      load_kv(nxt, 0);
-      cp_commit();
-    }
-    cur = nxt;
-  }
-  cp_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= sq) continue;
-    const float li = l[i] == 0.f ? 1.f : l[i];  // a row with no weight writes 0
-    float* orow = o + ((long)b * sq + row) * q_stride + (long)h * D;
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      *reinterpret_cast<float4*>(orow + 4 * tx + 64 * j) =
-          make_float4(acc[i][4 * j] / li, acc[i][4 * j + 1] / li, acc[i][4 * j + 2] / li,
-                      acc[i][4 * j + 3] / li);
-    }
-    if (tx == 0) lse[((long)b * heads + h) * sq + row] = m[i] + logf(li);
   }
 }
 
@@ -1037,6 +790,696 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_sum_kernel(
   *reinterpret_cast<float4*>((is_v ? dv : dk) + e) = acc;
 }
 
+// ---------------------------------------------------------------------------
+// K1-f32: 3xTF32 on wgmma from operands split once into shared memory.
+// ---------------------------------------------------------------------------
+
+// m64nNk8 products on tf32 operands, f32 sums d[N / 2] a thread in the
+// m64nN accumulator layout. _ss: A (64 x 8) and B (N x 8) both K-major in
+// shared memory (tf32 takes no transposed operand); _rs: A from registers,
+// the mma.m16n8k8.tf32 A fragment of each warp's 16 rows: (g, t), (g + 8,
+// t), (g, t + 4), (g + 8, t + 4). Each asm is a macro of d's constraint:
+// kAcc adds to d ("+f", scale-d = 1); otherwise d is written from zero
+// ("=f", scale-d = 0), so its old values are dead to the compiler and a
+// partial is not kept live from one sub-tile to the next.
+#define DITL_TF32_SS_N16(C)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "  \
+      "%8, %9, p, 1, 1;\n}\n"  \
+      : C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7])  \
+      : "l"(a), "l"(b), "r"(scale_d))
+
+#define DITL_TF32_SS_N32(C)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "  \
+      "%16, %17, p, 1, 1;\n}\n"  \
+      : C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]),  \
+        C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]), C(d[15])  \
+      : "l"(a), "l"(b), "r"(scale_d))
+
+#define DITL_TF32_SS_N64(C)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
+      "%32, %33, p, 1, 1;\n}\n"  \
+      : C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]),  \
+        C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]), C(d[15]),  \
+        C(d[16]), C(d[17]), C(d[18]), C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]),  \
+        C(d[24]), C(d[25]), C(d[26]), C(d[27]), C(d[28]), C(d[29]), C(d[30]), C(d[31])  \
+      : "l"(a), "l"(b), "r"(scale_d))
+
+#define DITL_TF32_RS_N64(C)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"  \
+      : C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]),  \
+        C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]), C(d[15]),  \
+        C(d[16]), C(d[17]), C(d[18]), C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]),  \
+        C(d[24]), C(d[25]), C(d[26]), C(d[27]), C(d[28]), C(d[29]), C(d[30]), C(d[31])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
+
+#define DITL_TF32_RS_N128(C)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"  \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"  \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"  \
+      : C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]),  \
+        C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]), C(d[15]),  \
+        C(d[16]), C(d[17]), C(d[18]), C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]),  \
+        C(d[24]), C(d[25]), C(d[26]), C(d[27]), C(d[28]), C(d[29]), C(d[30]), C(d[31]),  \
+        C(d[32]), C(d[33]), C(d[34]), C(d[35]), C(d[36]), C(d[37]), C(d[38]), C(d[39]),  \
+        C(d[40]), C(d[41]), C(d[42]), C(d[43]), C(d[44]), C(d[45]), C(d[46]), C(d[47]),  \
+        C(d[48]), C(d[49]), C(d[50]), C(d[51]), C(d[52]), C(d[53]), C(d[54]), C(d[55]),  \
+        C(d[56]), C(d[57]), C(d[58]), C(d[59]), C(d[60]), C(d[61]), C(d[62]), C(d[63])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
+
+template <int N, bool kAcc>
+__device__ __forceinline__ void wgmma_tf32_ss(float* d, uint64_t a, uint64_t b) {
+  static_assert(N == 16 || N == 32 || N == 64, "key sub-tile");
+  const int scale_d = kAcc;
+  if constexpr (kAcc) {
+    if constexpr (N == 16) DITL_TF32_SS_N16("+f");
+    else if constexpr (N == 32) DITL_TF32_SS_N32("+f");
+    else DITL_TF32_SS_N64("+f");
+  } else {
+    if constexpr (N == 16) DITL_TF32_SS_N16("=f");
+    else if constexpr (N == 32) DITL_TF32_SS_N32("=f");
+    else DITL_TF32_SS_N64("=f");
+  }
+}
+
+template <int N, bool kAcc>
+__device__ __forceinline__ void wgmma_tf32_rs(float* d, const uint32_t* a, uint64_t b) {
+  static_assert(N == 64 || N == 128, "columns of a P.V pass");
+  const int scale_d = kAcc;
+  if constexpr (kAcc) {
+    if constexpr (N == 64) DITL_TF32_RS_N64("+f");
+    else DITL_TF32_RS_N128("+f");
+  } else {
+    if constexpr (N == 64) DITL_TF32_RS_N64("=f");
+    else DITL_TF32_RS_N128("=f");
+  }
+}
+
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// x = hi + lo four floats at a time, split_tf32's rounding.
+__device__ __forceinline__ void split4(const float4& x, float4& hi, float4& lo) {
+  uint32_t h, l;
+  split_tf32(x.x, h, l);
+  hi.x = __uint_as_float(h);
+  lo.x = __uint_as_float(l);
+  split_tf32(x.y, h, l);
+  hi.y = __uint_as_float(h);
+  lo.y = __uint_as_float(l);
+  split_tf32(x.z, h, l);
+  hi.z = __uint_as_float(h);
+  lo.z = __uint_as_float(l);
+  split_tf32(x.w, h, l);
+  hi.w = __uint_as_float(h);
+  lo.w = __uint_as_float(l);
+}
+
+// Its argument, opaque to the compiler: what is computed from it inside a
+// loop stays there, instead of being hoisted into registers held across the
+// loop (K1-f32's copies and splits recompute their addresses from it).
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// cp_async4 where `active`, as a predicated instruction: no branch, so no
+// divergent path sits between a warpgroup's wgmmas and their wait (ptxas
+// serializes the wgmmas of a warpgroup whose code may diverge there).
+__device__ __forceinline__ void cp_async4_if(void* dst, const void* src, bool valid,
+                                             bool active) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
+      "@p cp.async.ca.shared.global [%0], [%1], 4, %2;\n}\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(valid ? 4 : 0), "r"(static_cast<int>(active))
+      : "memory");
+}
+
+// K1-f32's tiles and shared memory at head dim D (ops/flash_attention.py::
+// f32_fwd_block): two warpgroups walk the visited 64-key tiles in sub-tiles
+// of kN keys. At D = 64 and 128 each owns 64 query rows (a block of 128)
+// and all of D; at D = 256 (kDSplit), where Q's hi and lo tiles alone fill
+// 128 KB at 64 rows, both take the block's 64 rows and each one half of D:
+// its half of S's contraction (the halves summed through shared memory, kX)
+// and its half of O's columns. Byte offsets from a 1024-aligned base; every
+// operand tile starts on a 1024-byte boundary.
+template <int D>
+struct Fwd {
+  static constexpr bool kDSplit = D == 256;
+  static constexpr int kThreads = 256;
+  static constexpr int kRows = kDSplit ? 64 : 128;              // query rows a block
+  static constexpr int kN = D == 64 ? 64 : D == 128 ? 32 : 16;  // keys a sub-tile
+  static constexpr int kSub = kB / kN;                          // sub-tiles a 64-key tile
+  static constexpr int kVW = kN < 32 ? kN : 32;                 // keys a row of a V^T panel
+  static constexpr uint64_t kVLayout = kVW == 32 ? 1 : 2;       // 128- or 64-byte swizzle
+  static constexpr int kChunks = kDSplit ? 4 : D / 32;          // S's 32-deep chunks a warpgroup
+  static constexpr int kSGroup = D == 128 ? 2 : kChunks;        // of them in flight at once
+  static constexpr int kCols = kDSplit ? D / 2 : D;             // O's columns a warpgroup
+  static constexpr int kPVK = kN < 32 ? kN : 32;                // keys a P.V partial
+  static constexpr int kQ = kRows * D * 4;  // bytes of Q hi (or Q lo)
+  static constexpr int kKV = kN * D * 4;    // bytes of one sub-tile operand
+  static constexpr int kQHi = 0, kQLo = kQ;
+  static constexpr int kKHi = 2 * kQ, kKLo = kKHi + kKV;
+  static constexpr int kVHi = kKLo + kKV, kVLo = kVHi + kKV;
+  static constexpr int kRawV = kVLo + kKV;
+  // Raw K beside (D = 64, 128) or, at D = 256, loaded into K hi and split in
+  // place; there the halves of S go through kX (a warpgroup's partial sums).
+  static constexpr int kRawK = kDSplit ? kKHi : kRawV + kKV;
+  static constexpr int kX = kRawV + kKV;
+  static constexpr int kIds = kDSplit ? kX + 2 * 128 * kN / 2 * 4 : kRawK + kKV;
+  static constexpr int kRange = kIds + 8 * kN;  // key ids of two sub-tiles before it
+  static constexpr int kVis = kRange + 16;      // marks of the 64-key tiles, bits
+  static constexpr int kSmem = kVis + kMaxTiles / 8;
+  static constexpr int kSmemAlloc = kSmem + 1024;  // room to align the base
+  // A thread's share of a sub-tile: four K chunks and one 4 x 4 V unit.
+  static_assert(kN * D / 4 == 4 * kThreads && kN * D / 16 == kThreads, "per-thread shares");
+};
+
+// Byte offset of 16-byte chunk c (floats 4c .. 4c + 3) of row r in a
+// K-major tile of R rows: panels of 32 floats (128 bytes) a row, each
+// R x 128 bytes, the 128-byte swizzle (chunk c % 8 at (c % 8) ^ (r % 8)).
+template <int R>
+__device__ __forceinline__ int kmaj_off(int r, int c) {
+  return (c >> 3) * R * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Raw V (N keys of D floats): chunk c of key row kap at kap D + (c ^
+// rsw(kap)), so the eight lanes that read one row chunk in the split reach
+// eight bank groups.
+template <int D>
+__device__ __forceinline__ int rawv_off(int kap, int c) {
+  return kap * D * 4 + ((c ^ ((kap & 1) | (((kap >> 3) & 3) << 1))) << 4);
+}
+
+// V^T, the B operand of P.V, K-major: row d holds the sub-tile's keys in
+// panels of VW (32 keys, 128-byte swizzle; 16 keys at D = 256, 64-byte
+// swizzle). Within each group of 8 keys, key 2e + par sits at 4 par + e:
+// a thread's P accumulator holds keys 2t, 2t + 1 of an n8 column group,
+// which are the A fragment's k = t and t + 4 (see the header). Chunk `chunk`
+// (0-7) of panel kp of row d.
+template <int D, int VW>
+__device__ __forceinline__ int vt_off(int kp, int d, int chunk) {
+  const int swz = VW == 32 ? (d & 7) : ((d >> 1) & 3);
+  return kp * D * VW * 4 + d * VW * 4 + ((chunk ^ swz) << 4);
+}
+
+// S's partials of kSGroup 32-deep chunks of d, one each (3xTF32 a k8
+// step: lo.hi, hi.lo, hi.hi, the first from zero), one commit group. q_hi
+// .. k_lo: shared addresses of the warpgroup's Q rows and of K at the
+// group's first chunk; a k8 step adds its panel and its 32 bytes within the
+// row to the descriptors, constants.
+template <int D>
+__device__ __forceinline__ void fwd_issue_s(float (&sp)[Fwd<D>::kSGroup][Fwd<D>::kN / 2],
+                                            uint32_t q_hi, uint32_t q_lo, uint32_t k_hi,
+                                            uint32_t k_lo) {
+  using F = Fwd<D>;
+  const uint64_t dqh = make_desc(q_hi, 16, 1024, 1), dql = make_desc(q_lo, 16, 1024, 1);
+  const uint64_t dkh = make_desc(k_hi, 16, 1024, 1), dkl = make_desc(k_lo, 16, 1024, 1);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < F::kSGroup; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t qo = (c * F::kRows * 128 + kk * 32) >> 4;
+      const uint64_t ko = (c * F::kN * 128 + kk * 32) >> 4;
+      if (kk == 0) wgmma_tf32_ss<F::kN, false>(sp[c], dql + qo, dkh + ko);
+      else wgmma_tf32_ss<F::kN, true>(sp[c], dql + qo, dkh + ko);
+      wgmma_tf32_ss<F::kN, true>(sp[c], dqh + qo, dkl + ko);
+      wgmma_tf32_ss<F::kN, true>(sp[c], dqh + qo, dkh + ko);
+    }
+  }
+  wgmma_commit();
+}
+
+// Waits for fwd_issue_s' group and adds its partials to s in chunk order,
+// each by a rounded FADD (the first group's first partial starts s).
+template <int D>
+__device__ __forceinline__ void fwd_fold_s(float (&s)[Fwd<D>::kN / 2],
+                                           float (&sp)[Fwd<D>::kSGroup][Fwd<D>::kN / 2],
+                                           bool first) {
+  using F = Fwd<D>;
+  wgmma_wait_all();
+#pragma unroll
+  for (int c = 0; c < F::kSGroup; ++c) fence_regs<F::kN / 2>(sp[c]);
+#pragma unroll
+  for (int j = 0; j < F::kN / 2; ++j) {
+    float x = first ? sp[0][j] : __fadd_rn(s[j], sp[0][j]);
+#pragma unroll
+    for (int c = 1; c < F::kSGroup; ++c) x = __fadd_rn(x, sp[c][j]);
+    s[j] = x;
+  }
+}
+
+// P.V's partial over keys 32 kc .. 32 kc + kPVK - 1 for the warpgroup's O
+// columns: A = P's fragments, B = V^T's rows of those columns at shared
+// addresses v_hi, v_lo; one commit group.
+template <int D>
+__device__ __forceinline__ void fwd_issue_pv(float (&part)[Fwd<D>::kCols / 2],
+                                             const uint32_t (&ph)[Fwd<D>::kPVK / 8][4],
+                                             const uint32_t (&pl)[Fwd<D>::kPVK / 8][4],
+                                             uint32_t v_hi, uint32_t v_lo, int kc) {
+  using F = Fwd<D>;
+  const uint64_t dvh = make_desc(v_hi, 16, 8 * F::kVW * 4, F::kVLayout);
+  const uint64_t dvl = make_desc(v_lo, 16, 8 * F::kVW * 4, F::kVLayout);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < F::kPVK / 8; ++kk) {  // keys 32 kc + 8 kk .. + 7
+    const uint64_t vo = (kc * D * F::kVW * 4 + kk * 32) >> 4;
+    if (kk == 0) wgmma_tf32_rs<F::kCols, false>(part, pl[kk], dvh + vo);
+    else wgmma_tf32_rs<F::kCols, true>(part, pl[kk], dvh + vo);
+    wgmma_tf32_rs<F::kCols, true>(part, ph[kk], dvl + vo);
+    wgmma_tf32_rs<F::kCols, true>(part, ph[kk], dvh + vo);
+  }
+  wgmma_commit();
+}
+
+// Chunk i (0-3) of thread me's four chunks of a sub-tile's K: hi and lo
+// from the raw chunk, at the same offsets (at D = 256 in place: hi over the
+// raw value).
+template <int D>
+__device__ __forceinline__ void fwd_split_k(uint8_t* sm, int me, int i) {
+  using F = Fwd<D>;
+  constexpr int kC = D / 4;
+  const int c = me + i * F::kThreads, off = kmaj_off<F::kN>(c / kC, c % kC);
+  float4 hi, lo;
+  split4(*reinterpret_cast<const float4*>(sm + F::kRawK + off), hi, lo);
+  *reinterpret_cast<float4*>(sm + F::kKHi + off) = hi;
+  *reinterpret_cast<float4*>(sm + F::kKLo + off) = lo;
+}
+
+// Thread me's V unit (keys 8 (cc / 2) + 2 e + cc % 2, e = 0..3, by columns
+// 4 ch .. 4 ch + 3; cc = me % (N / 4), ch = me / (N / 4)) from raw V.
+template <int D>
+__device__ __forceinline__ void fwd_load_vx(const uint8_t* sm, int me, float4 (&x)[4]) {
+  using F = Fwd<D>;
+  const int cc = me % (F::kN / 4), ch = me / (F::kN / 4);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int kap = 8 * (cc >> 1) + 2 * e + (cc & 1);
+    x[e] = *reinterpret_cast<const float4*>(sm + F::kRawV + rawv_off<D>(kap, ch));
+  }
+}
+
+// Row 4 ch + j of V^T from the unit, transposed in registers: its hi and lo
+// written as whole chunks.
+template <int D>
+__device__ __forceinline__ void fwd_split_v(uint8_t* sm, int me, const float4 (&x)[4], int j) {
+  using F = Fwd<D>;
+  const int cc = me % (F::kN / 4), ch = me / (F::kN / 4);
+  const int off = vt_off<D, F::kVW>(cc >> 3, 4 * ch + j, cc & 7);
+  float4 hi, lo;
+  split4(make_float4(at(x[0], j), at(x[1], j), at(x[2], j), at(x[3], j)), hi, lo);
+  *reinterpret_cast<float4*>(sm + F::kVHi + off) = hi;
+  *reinterpret_cast<float4*>(sm + F::kVLo + off) = lo;
+}
+
+// Grid (heads, batch, query blocks of kRows); two warpgroups, no producer:
+// every thread copies (cp.async) and splits its own chunks of each tile, so
+// a copy needs no barrier before its split. Accumulator layout of an m64nN
+// product, warp w of a warpgroup, g = lane / 4, t = lane % 4: d[4i + 0, 1]
+// at row 16w + g, columns 8i + 2t, +1; d[4i + 2, 3] at row 16w + g + 8.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ seg,
+                     float* __restrict__ o, float* __restrict__ lse, int sq, int skv, int heads,
+                     int kv_heads, int causal, float scale) {
+  using F = Fwd<D>;
+  constexpr int N = F::kN, T = F::kThreads, kC = D / 4;  // kC: 16-byte chunks a row
+  static_assert(T == kThreads, "mark_bits walks the tiles kThreads at a time");
+  extern __shared__ __align__(16) uint8_t fwd_smem[];
+  uint8_t* sm = fwd_smem + ((1024u - (smem_addr(fwd_smem) & 1023u)) & 1023u);
+  const uint32_t sb = smem_addr(sm);
+  int* kid = reinterpret_cast<int*>(sm + F::kIds);
+  int* range = reinterpret_cast<int*>(sm + F::kRange);
+  uint32_t* vis = reinterpret_cast<uint32_t*>(sm + F::kVis);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * F::kRows;  // longest causal rows first
+  const int kh = h / (heads / kv_heads);
+  const int tid = threadIdx.x, g = (tid & 31) >> 2, t = tid & 3;
+  // Warp-uniform to the compiler (broadcast from lane 0), as is all that
+  // decides whether a warpgroup issues wgmmas.
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);  // this thread's warpgroup
+  const int wq0 = F::kDSplit ? q0 : q0 + 64 * wg;          // its first row
+  const int w_last = min(sq, wq0 + 64) - 1;                // its last real row (< wq0: none)
+  const int row0 = wq0 + 16 * ((tid >> 5) & 3) + g, row1 = row0 + 8;
+  const int col0 = F::kDSplit ? wg * F::kCols : 0;         // its first column of O
+  const int* ids = seg != nullptr ? seg + (long)b * skv : nullptr;  // Sq == Skv
+  const int q_last = min(sq, q0 + F::kRows) - 1;
+  const int n64 = (skv + kB - 1) / kB;
+  const long q_stride = (long)heads * D, kv_stride = (long)kv_heads * D;
+  const float* qb = q + (long)b * sq * q_stride + (long)h * D;
+  const float* kb = k + (long)b * skv * kv_stride + (long)kh * D;
+  const float* vb = v + (long)b * skv * kv_stride + (long)kh * D;
+
+  // Q's copy first (raw, into Q hi's layout): its latency runs beside the
+  // marking. It joins the first cp.async group, with the first K.
+#pragma unroll 4
+  for (int i = 0; i < F::kRows * kC / T; ++i) {
+    const int c = tid + i * T, r = c / kC, ch = c % kC;
+    const bool ok = q0 + r < sq;
+    cp_async16(sm + F::kQHi + kmaj_off<F::kRows>(r, ch),
+               ok ? qb + (long)(q0 + r) * q_stride + 4 * ch : qb, ok);
+  }
+  if (ids != nullptr) id_range(ids, q0, q_last + 1, range);
+  __syncthreads();
+  mark_bits(vis, n64, kB, skv, ids, range, true, causal, q_last);
+  const int rid0 = ids != nullptr ? ids[min(row0, sq - 1)] : 0;
+  const int rid1 = ids != nullptr ? ids[min(row1, sq - 1)] : 0;
+  __syncthreads();
+
+  // The first sub-tile after u (u >= -1; none after -2) that the block
+  // visits, or -1: the rest of u's 64-key tile, then the next marked one;
+  // when causal, none that starts past the block's last row (no pair of it
+  // is admitted, and the walk goes up the keys). Broadcast from lane 0, so
+  // the compiler sees it warp-uniform.
+  auto next_sub = [&](int u) {
+    int w = -1;
+    if (u >= 0 && (u + 1) % F::kSub != 0 && (u + 1) * N < skv) {
+      w = u + 1;
+    } else if (u >= -1) {
+      const int tile = next_bit(vis, u < 0 ? -1 : u / F::kSub, n64);
+      w = tile < n64 ? tile * F::kSub : -1;
+    }
+    if (causal && w * N > q_last) w = -1;
+    return __shfl_sync(0xffffffffu, w, 0);
+  };
+  // This thread's chunks of sub-tile u's K (raw, in K hi's layout) and, by
+  // the first N threads, its key ids into slot `slot`. No branch: for u < 0
+  // (no such sub-tile) every copy zero-fills and nothing reads it.
+  auto load_k = [&](int u, int slot) {
+    const int me = opaque(tid), k0 = max(u, 0) * N;
+#pragma unroll
+    for (int i = 0; i < N * kC / T; ++i) {
+      const int c = me + i * T, r = c / kC, ch = c % kC;
+      const bool ok = u >= 0 && k0 + r < skv;
+      cp_async16(sm + F::kRawK + kmaj_off<N>(r, ch),
+                 ok ? kb + (long)(k0 + r) * kv_stride + 4 * ch : kb, ok);
+    }
+    const int p = k0 + me % N;
+    cp_async4_if(kid + slot * N + me % N, ids + min(p, skv - 1), u >= 0 && p < skv,
+                 ids != nullptr && me < N);
+  };
+  // A V unit: keys 8 (cc / 2) + 2 e + cc % 2 (e = 0..3) by columns 4 ch ..
+  // 4 ch + 3; the lane's low three bits are cc % 8, its chunk of V^T.
+  auto load_v = [&](int u) {
+    const int me = opaque(tid), k0 = max(u, 0) * N;
+#pragma unroll
+    for (int i = 0; i < N * D / 16 / T; ++i) {
+      const int unit = me + i * T, cc = unit % (N / 4), ch = unit / (N / 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kap = 8 * (cc >> 1) + 2 * e + (cc & 1);
+        const bool ok = u >= 0 && k0 + kap < skv;
+        cp_async16(sm + F::kRawV + rawv_off<D>(kap, ch),
+                   ok ? vb + (long)(k0 + kap) * kv_stride + 4 * ch : vb, ok);
+      }
+    }
+  };
+  // K and V of the first sub-tile; then Q scaled and split in place (hi
+  // over x, lo beside) and K split. cp.async groups from here on, in order:
+  // [Q, K], [V]; then at D = 64, 128 the next sub-tile's K goes in flight,
+  // [K next].
+  int cur = next_sub(-1);
+  int nxt = next_sub(cur < 0 ? -2 : cur);
+  if (cur >= 0) load_k(cur, 0);
+  cp_commit();
+  if (cur >= 0) load_v(cur);
+  cp_commit();
+  cp_wait<1>();
+#pragma unroll 4
+  for (int i = 0; i < F::kRows * kC / T; ++i) {
+    const int c = tid + i * T, off = kmaj_off<F::kRows>(c / kC, c % kC);
+    float4 x = *reinterpret_cast<const float4*>(sm + F::kQHi + off), hi, lo;
+    x.x *= scale;  // q * scale in f32, as the reference scales q before its products
+    x.y *= scale;
+    x.z *= scale;
+    x.w *= scale;
+    split4(x, hi, lo);
+    *reinterpret_cast<float4*>(sm + F::kQHi + off) = hi;
+    *reinterpret_cast<float4*>(sm + F::kQLo + off) = lo;
+  }
+  if (cur >= 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fwd_split_k<D>(sm, tid, i);
+  }
+  if (!F::kDSplit) {
+    if (nxt >= 0) load_k(nxt, 1);
+    cp_commit();
+  }
+  fence_async();
+  __syncthreads();
+
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float acc[F::kCols / 2];  // this warpgroup's O columns
+#pragma unroll
+  for (int j = 0; j < F::kCols / 2; ++j) acc[j] = 0.f;
+
+  for (int it = 0; cur >= 0; ++it) {
+    const int nn = next_sub(nxt < 0 ? -2 : nxt);
+    const int k0 = cur * N;
+    // The warpgroup's own test: a sub-tile past its last row holds no pair
+    // the causal mask admits, so skipping it changes no sum. At D = 256 both
+    // warpgroups hold the block's rows, which the walk already stops at, so
+    // every sub-tile is visited: a constant, so no branch on it sits between
+    // the barrier before the softmax and the wgmmas (ptxas serialized them).
+    const bool visit =
+        F::kDSplit ||
+        __shfl_sync(0xffffffffu, static_cast<int>(w_last >= wq0 && (!causal || k0 <= w_last)), 0);
+    const int base = opaque(sb);
+
+    // S = Q.K^T: each 32-deep chunk of d into its own partial, kSGroup of
+    // them in flight; the partials added in order (at D = 256 the
+    // warpgroup's half).
+    float s[N / 2];
+    {
+      float sp[F::kSGroup][N / 2];
+      // The warpgroup's Q rows (D = 64, 128) or its half of d (D = 256).
+      const int qo = F::kDSplit ? wg * F::kChunks * F::kRows * 128 : wg * 64 * 128;
+      const int ko = F::kDSplit ? wg * F::kChunks * N * 128 : 0;
+      if (visit) fwd_issue_s<D>(sp, base + F::kQHi + qo, base + F::kQLo + qo,
+                                base + F::kKHi + ko, base + F::kKLo + ko);
+      // Then this sub-tile's V^T from this thread's raw V, and the next
+      // sub-tile's V in flight.
+      cp_wait<F::kDSplit ? 0 : 1>();
+      {
+        const int me = opaque(tid);
+        float4 vx[4];
+        fwd_load_vx<D>(sm, me, vx);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) fwd_split_v<D>(sm, me, vx, j);
+      }
+      load_v(nxt);
+      cp_commit();
+      fence_async();
+      if (visit) {
+        fwd_fold_s<D>(s, sp, true);
+#pragma unroll
+        for (int c = F::kSGroup; c < F::kChunks; c += F::kSGroup) {
+          fwd_issue_s<D>(sp, base + F::kQHi + qo + c * F::kRows * 128,
+                         base + F::kQLo + qo + c * F::kRows * 128,
+                         base + F::kKHi + ko + c * N * 128, base + F::kKLo + ko + c * N * 128);
+          fwd_fold_s<D>(s, sp, false);
+        }
+      }
+    }
+    if constexpr (F::kDSplit) {
+      // The two halves of S through shared memory, thread to its twin in
+      // the other warpgroup (same rows and columns); both add them in the
+      // same order, so both hold the same S.
+      float* xs = reinterpret_cast<float*>(sm + F::kX) + (tid & 127) * (N / 2);
+      if (visit) {
+#pragma unroll
+        for (int j = 0; j < N / 2; j += 4) {
+          *reinterpret_cast<float4*>(xs + wg * 128 * (N / 2) + j) =
+              make_float4(s[j], s[j + 1], s[j + 2], s[j + 3]);
+        }
+      }
+      __syncthreads();  // both halves written; every S of this sub-tile done, K is free
+      load_k(nxt, (it + 1) & 1);  // into K hi, split in place below
+      cp_commit();
+      if (visit) {
+#pragma unroll
+        for (int j = 0; j < N / 2; j += 4) {
+          const float4 x0 = *reinterpret_cast<const float4*>(xs + j);
+          const float4 x1 = *reinterpret_cast<const float4*>(xs + 128 * (N / 2) + j);
+          s[j] = __fadd_rn(x0.x, x1.x);
+          s[j + 1] = __fadd_rn(x0.y, x1.y);
+          s[j + 2] = __fadd_rn(x0.z, x1.z);
+          s[j + 3] = __fadd_rn(x0.w, x1.w);
+        }
+      }
+    }
+
+    if (visit) {
+      // Mask only where a mask can bite on this warp's 16 rows: the ragged
+      // key edge, keys past its first row, or ids not all one (its rows'
+      // and the sub-tile's keys').
+      const int* kids = kid + (it & 1) * N;
+      bool mask = k0 + N > skv || (causal && k0 + N - 1 > wq0 + 16 * ((tid >> 5) & 3));
+      if (!mask && ids != nullptr) {
+        const int r = __shfl_sync(0xffffffffu, rid0, 0);
+        bool one = rid0 == r && rid1 == r;
+#pragma unroll
+        for (int c = 0; c < N; c += 32) one = one && kids[(c + (tid & 31)) % N] == r;
+        mask = !__all_sync(0xffffffffu, one);
+      }
+      if (mask) {
+#pragma unroll
+        for (int i = 0; i < N / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * i + 2 * t + (e & 1), col = k0 + c;
+            float x = s[4 * i + e];
+            if (col >= skv) {
+              x = -INFINITY;  // not a key at all: weight exactly 0
+            } else if ((causal && col > (e < 2 ? row0 : row1)) ||
+                       (ids != nullptr && kids[c] != (e < 2 ? rid0 : rid1))) {
+              x = kNegInf;
+            }
+            s[4 * i + e] = x;
+          }
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < N / 2; j += 4) x = fmaxf(x, fmaxf(s[j + 2 * r], s[j + 2 * r + 1]));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float m_new = fmaxf(m[r], x);
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+      // P = exp(S - m) in f32, in place of S; the row sums.
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < N / 2; ++j) {
+        s[j] = expf(s[j] - m[(j >> 1) & 1]);
+        rs[(j >> 1) & 1] += s[j];
+      }
+      l[0] = alpha[0] * l[0] + rs[0];
+      l[1] = alpha[1] * l[1] + rs[1];
+      if (alpha[0] != 1.f || alpha[1] != 1.f) {  // a row max moved (x 1 changes no bit)
+#pragma unroll
+        for (int j = 0; j < F::kCols / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      }
+    }
+    if constexpr (!F::kDSplit) {
+      __syncthreads();  // V^T is whole; every S of this sub-tile is done, K is free
+    }
+
+    // O += P.V, 32 keys (all kN below 32) a partial: P's A fragments for
+    // those keys (k8 step i: keys 8i .. 8i + 7, this thread's (g, 2t), (g +
+    // 8, 2t) as k = t and (g, 2t + 1), (g + 8, 2t + 1) as k = t + 4), their
+    // products, then the partial added. The threads split the next
+    // sub-tile's K first at D = 64, 128 (it landed an iteration ago; the one
+    // after it then goes in flight), so its registers are not live beside
+    // the partial's; at D = 256 (its copy issued just before the softmax)
+    // after the first partial's products are issued.
+    auto advance_k = [&]() {
+      if constexpr (F::kDSplit) {
+        cp_wait<0>();
+      } else {
+        cp_wait<1>();
+      }
+      const int me = opaque(tid);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fwd_split_k<D>(sm, me, i);  // without a next sub-tile,
+      if constexpr (!F::kDSplit) {                             // of zeros nothing reads
+        load_k(nn, it & 1);
+        cp_commit();
+      }
+      fence_async();
+    };
+    if constexpr (!F::kDSplit) advance_k();
+    const uint32_t vrow = col0 * F::kVW * 4;  // V^T's rows of the warpgroup's columns
+#pragma unroll
+    for (int kc = 0; kc < N / F::kPVK; ++kc) {
+      if (visit) {
+        uint32_t ph[F::kPVK / 8][4], pl[F::kPVK / 8][4];
+#pragma unroll
+        for (int i = 0; i < F::kPVK / 8; ++i) {
+          const int j = 4 * (F::kPVK / 8 * kc + i);
+          split_tf32(s[j], ph[i][0], pl[i][0]);
+          split_tf32(s[j + 2], ph[i][1], pl[i][1]);
+          split_tf32(s[j + 1], ph[i][2], pl[i][2]);
+          split_tf32(s[j + 3], ph[i][3], pl[i][3]);
+        }
+        float part[F::kCols / 2];
+        fwd_issue_pv<D>(part, ph, pl, base + F::kVHi + vrow, base + F::kVLo + vrow, kc);
+        if (F::kDSplit && kc == 0) advance_k();
+        wgmma_wait_all();
+        fence_regs<F::kCols / 2>(part);
+#pragma unroll
+        for (int i = 0; i < F::kPVK / 8; ++i) {
+          fence_regs<4>(ph[i]);  // the A fragments stay live until here
+          fence_regs<4>(pl[i]);
+        }
+#pragma unroll
+        for (int j = 0; j < F::kCols / 2; ++j) acc[j] = __fadd_rn(acc[j], part[j]);
+      } else if (F::kDSplit && kc == 0) {
+        advance_k();
+      }
+    }
+    __syncthreads();  // the next K is whole; every P.V of this sub-tile is done
+    cur = nxt;
+    nxt = nn;
+  }
+  cp_wait<0>();
+
+  // Row sums across the four threads that share a row, then normalise.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (l[r] == 0.f) l[r] = 1.f;  // a row with no weight writes 0
+  }
+  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+  float* ob = o + (long)b * sq * q_stride + (long)h * D + col0;
+#pragma unroll
+  for (int i = 0; i < F::kCols / 8; ++i) {
+    const int c = 8 * i + 2 * t;
+    if (row0 < sq) {
+      *reinterpret_cast<float2*>(ob + row0 * q_stride + c) =
+          make_float2(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+    }
+    if (row1 < sq) {
+      *reinterpret_cast<float2*>(ob + row1 * q_stride + c) =
+          make_float2(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
+    }
+  }
+  if (t == 0 && (!F::kDSplit || wg == 0)) {
+    float* lb = lse + ((long)b * heads + h) * sq;
+    if (row0 < sq) lb[row0] = m[0] + logf(l[0]);
+    if (row1 < sq) lb[row1] = m[1] + logf(l[1]);
+  }
+}
+
 template <typename Kernel>
 int prepare(Kernel kernel, int bytes, bool& done) {
   if (!done) {
@@ -1057,11 +1500,11 @@ template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
                int batch, int sq, int skv, int heads, int kv_heads, int causal, float scale,
                cudaStream_t stream) {
+  using F = Fwd<D>;
   static bool done = false;
-  constexpr int kBytes = FwdSmem<D>::kBytes;
-  if (const int err = prepare(flash_fwd_f32_kernel<D>, kBytes, done)) return err;
-  const dim3 grid(heads, batch, (sq + kB - 1) / kB);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, kBytes, stream>>>(
+  if (const int err = prepare(flash_fwd_f32_kernel<D>, F::kSmemAlloc, done)) return err;
+  const dim3 grid(heads, batch, (sq + F::kRows - 1) / F::kRows);
+  flash_fwd_f32_kernel<D><<<grid, F::kThreads, F::kSmemAlloc, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(seg), static_cast<float*>(o), static_cast<float*>(lse), sq, skv,
       heads, kv_heads, causal, scale);
@@ -1119,7 +1562,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return static_cast<int>(cudaGetLastError());
 }
 
-static_assert(FwdSmem<256>::kBytes <= 232448, "K1-f32 shared memory at D = 256");
+static_assert(Fwd<64>::kSmemAlloc <= 232448 && Fwd<128>::kSmemAlloc <= 232448 &&
+                  Fwd<256>::kSmemAlloc <= 232448,
+              "K1-f32 shared memory");
 static_assert(DqSmem<64>::kBytes <= 232448 && DqSmem<128>::kBytes <= 232448 &&
                   DqSmem<256>::kBytes <= 232448,
               "K2a-f32 shared memory");

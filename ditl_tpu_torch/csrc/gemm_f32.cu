@@ -30,6 +30,10 @@
 // the products run on the tensor cores as 3xTF32 (below), so the ceiling is
 // 165 TFLOP/s and not FFMA's 67.
 //
+// Two cores. K5a-f32 and K6-f32 run mm_body (3xTF32 on mma.sync, below);
+// K5b-f32 runs the wgmma core (last section of this header), which K6-f32,
+// whose two products are K5b-f32's, can move onto.
+//
 // Products: 3xTF32 on mma.sync.m16n8k8.tf32. Each f32 operand x is split
 // into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (x - hi is exact);
 // a k-step accumulates lo.hi, then hi.lo, then hi.hi, and drops lo.lo
@@ -59,11 +63,12 @@
 // 128 rows of 32 + 4 floats (bank 4g + t), MN-major tiles 32 k-rows of 128 +
 // 8 floats (bank 8t + g). 3 x 36,864 = 110,592 bytes of dynamic shared
 // memory, one block per SM; 64 accumulator and 64 partial registers a
-// thread (ptxas for sm_90a: 207 registers, no spills, in each of the three
-// kernels; the split sum 32). One block per output tile (a plain, not a
+// thread (ptxas for sm_90a: 207 registers, no spills, in K5a-f32 and
+// K6-f32; the split sum 32). One block per output tile (a plain, not a
 // persistent, grid); edges at both ends of M and N are masked.
-// - K5b and K6 run their two roles in one grid: the role with the longer
-//   contraction per tile first (blocks start in index order).
+// - K6 (and K5b on its core) run their two roles in one grid: the role
+//   with the longer contraction per tile first (blocks start in index
+//   order).
 // - K5a runs two grids, one after the other on the caller's stream, from its
 //   one entry point: the dinner tiles (whose epilogue computes SwiGLU and
 //   writes dgu and inner), then the d_w_down tiles, which read that inner.
@@ -81,6 +86,40 @@
 //   no contraction into FMAs), expf and not the fast intrinsic. gate and up
 //   are read in place from the forward's gu: gate's row stride and up's
 //   offset from gate are arguments, nothing is copied.
+//
+// K5b-f32 on the wgmma core (mlp_dh_f32_kernel, wg_tile). What held it
+// back on mm_body (PR 14: 30.7% of its bound, 1.02x the two SGEMMs):
+// issue slots, not the tensor cores. mma.sync takes its operands from the
+// threads, so compute_stage loads every fragment value with its own 32-bit
+// shared load and splits it in registers: a 128 x 128 tile over 2 x 4 warps
+// splits each A value 4 times and each B value twice. This core:
+// - Split once. Every operand element of a k-tile is split once into a
+//   TF32 hi and a lo = x - hi (the rounding of flash_f32.cu's split_tf32:
+//   hi by two integer operations, lo unrounded), into K-major tiles of 128
+//   rows by 32 floats under the 128-byte swizzle, which wgmma reads from
+//   shared memory without the threads. dh = dgu.w_gu^T has both operands
+//   K-major (split to the same offsets); d_w_gu = h^T.dgu has both
+//   MN-major, transposed by the split pass (each thread a 4 x 4 block in
+//   registers; the raw tile's chunks XOR-swizzled so its reads and the split
+//   tile's writes both reach eight bank groups).
+// - Products. Two warpgroups, 64 rows of the 128 x 128 output tile each:
+//   a k-tile is four k8 steps of three wgmma m64n128k8 (lo.hi, hi.lo,
+//   hi.hi) into a partial from zero, which a rounded FADD adds to the
+//   running sum: the reference-accuracy rule above, at the same 32-deep
+//   chunks.
+// - Overlap. Three raw stages (cp.async, each thread copying the chunks it
+//   splits, so no barrier sits between a copy and its split) and two split
+//   sets: while k-tile c's wgmmas run, the threads split k-tile c + 1 into
+//   the other set and put k-tile c + 4 in flight. One barrier a k-tile.
+//   Shared memory: 3 x 32 KB raw + 2 x 64 KB split + 1 KB to align = 225 KB,
+//   one block an SM; 256 threads, no producer warp.
+// - Grid and splits as mm_body's: one block per output tile (or split),
+//   the role with the longer contraction first; d_w_gu split over the
+//   tokens by f32_weight_splits and summed in order by
+//   splitk_sum_f32_kernel, no atomics.
+// - What bounds it now: each k-tile's wait and FADDs, when the tensor
+//   cores idle until the next k-tile's products are issued.
+// ptxas -v (sm_90a): 193 registers, no spills.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (ditl_tpu_torch/ops/cuda_build.py). C interface, bound with ctypes.
@@ -376,15 +415,9 @@ __device__ __forceinline__ void mm_body(const Params& p, float* smem) {
   }
 }
 
-// One body, three names, so a profile tells the kernels apart.
+// One body, two names (K5a-f32, K6-f32), so a profile tells the kernels apart.
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_dgu_f32_kernel(const __grid_constant__ Params p) {
-  extern __shared__ __align__(16) float smem[];
-  mm_body(p, smem);
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-mlp_dh_f32_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) float smem[];
   mm_body(p, smem);
 }
@@ -393,6 +426,292 @@ __global__ void __launch_bounds__(kThreads, 1)
 proj_bwd_f32_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) float smem[];
   mm_body(p, smem);
+}
+
+// ---------------------------------------------------------------------------
+// K5b-f32: 3xTF32 on wgmma from operands split once into shared memory.
+// ---------------------------------------------------------------------------
+
+// m64n128k8 on tf32 operands, A (64 x 8) and B (128 x 8) both K-major in
+// shared memory (tf32 takes no transposed operand), f32 sums d[64] a thread
+// in the m64n128 accumulator layout; scale_d = 0 overwrites d.
+#define DITL_TF32_SS_N128  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"  \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"  \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+      "%64, %65, p, 1, 1;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),  \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
+      : "l"(a), "l"(b), "r"(scale_d))
+
+__device__ __forceinline__ void wgmma_tf32_n128(float* d, uint64_t a, uint64_t b, int scale_d) {
+  DITL_TF32_SS_N128;
+}
+
+// The wgmma helpers K5b-f32 needs, as csrc/hopper.cuh has them (this
+// source includes no header of the repo): a shared-memory descriptor (start
+// address, leading and stride byte offsets in 16-byte units, swizzle
+// mode), fence, commit, wait, and a barrier to the compiler's moving
+// register reads across the asynchronous products.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// x = hi + lo, the rounding of csrc/flash_f32.cu's split_tf32: hi is x
+// rounded to the nearest TF32 value (cvt.rna's result) by two integer
+// operations, lo = x - hi exact and handed over unrounded (the tensor cores
+// read its top 19 bits), four floats at a time.
+__device__ __forceinline__ void split4(const float4& x, float4& hi, float4& lo) {
+  const float v[4] = {x.x, x.y, x.z, x.w};
+  float h[4], l[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    h[e] = __uint_as_float((__float_as_uint(v[e]) + 0x1000u) & 0xffffe000u);
+    l[e] = v[e] - h[e];
+  }
+  hi = make_float4(h[0], h[1], h[2], h[3]);
+  lo = make_float4(l[0], l[1], l[2], l[3]);
+}
+
+// The core's shared memory, bytes from a 1024-aligned base: kRawStages raw
+// k-tiles of both operands (A, then B, kOpBytes each), filled by cp.async;
+// then two split sets (A hi, A lo, B hi, B lo), each operand K-major, 128
+// rows of 32 floats (128 bytes) under the 128-byte swizzle.
+constexpr int kWgThreads = 256;  // two warpgroups, 64 rows of the output tile each
+constexpr int kRawStages = 3;
+constexpr int kOpBytes = kBM * kBK * 4;
+constexpr int kSetOff = kRawStages * 2 * kOpBytes;
+constexpr int kWgSmem = kSetOff + 2 * 4 * kOpBytes + 1024;  // + room to align the base
+static_assert(kBM == 128 && kBN == 128 && kBK == 32, "the split layouts' tile");
+static_assert(kWgSmem <= 232448, "shared memory per block");
+
+// Byte offset of 16-byte chunk c (0-7) of row r of a K-major tile.
+__device__ __forceinline__ int kmaj_off(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// Byte offset of 16-byte chunk i (0-31) of k-row k of a raw MN-major tile
+// (32 rows of 128 floats): chunk i sits at i ^ (k / 4 % 8), so the eight
+// lanes that read one row in wg_split reach eight bank groups.
+__device__ __forceinline__ int mn_off(int k, int i) { return k * 512 + ((i ^ ((k >> 2) & 7)) << 4); }
+
+// This thread's chunks of k-tile [k0, k0 + kBK) of both operands into raw
+// stage `raw`; contraction indices >= k_end and rows or columns past the
+// matrix arrive as zeros. K-major: four chunks an operand (row c / 8, k
+// chunk c % 8). MN-major: a 4 x 4 block an operand, k-rows 4 kb .. 4 kb +
+// 3 by columns 4 i .. 4 i + 3 (kb = tid % 8, i = tid / 8), which
+// wg_split transposes.
+template <bool MN>
+__device__ __forceinline__ void wg_load(uint8_t* raw, const Role& r, int m0, int n0, int k0,
+                                        int k_end) {
+  const int tid = threadIdx.x;
+  if constexpr (!MN) {
+#pragma unroll
+    for (int x = 0; x < kBM * kBK / 4 / kWgThreads; ++x) {
+      const int c = tid + x * kWgThreads, row = c >> 3, kc = c & 7;
+      const bool kin = k0 + 4 * kc < k_end;
+      const bool va = kin && m0 + row < r.m, vb = kin && n0 + row < r.n;
+      const int off = kmaj_off(row, kc);
+      cp_async16(raw + off, va ? r.a + (long)(m0 + row) * r.lda + k0 + 4 * kc : r.a, va);
+      cp_async16(raw + kOpBytes + off, vb ? r.b + (long)(n0 + row) * r.ldb + k0 + 4 * kc : r.b,
+                 vb);
+    }
+  } else {
+    const int kb = tid & 7, i = tid >> 3;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * kb + e;
+      const bool kin = k0 + k < k_end;
+      const bool va = kin && m0 + 4 * i < r.m, vb = kin && n0 + 4 * i < r.n;
+      const int off = mn_off(k, i);
+      cp_async16(raw + off, va ? r.a + (long)(k0 + k) * r.lda + m0 + 4 * i : r.a, va);
+      cp_async16(raw + kOpBytes + off, vb ? r.b + (long)(k0 + k) * r.ldb + n0 + 4 * i : r.b, vb);
+    }
+  }
+}
+
+// Splits this thread's chunks of raw stage `raw` into split set `set` (A
+// hi, A lo, B hi, B lo): K-major chunks to the same offsets; MN-major 4 x 4
+// blocks transposed in registers, each of their four rows (m or n) written
+// as one chunk of its K-major row.
+template <bool MN>
+__device__ __forceinline__ void wg_split(const uint8_t* raw, uint8_t* set) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int op = 0; op < 2; ++op) {
+    const uint8_t* src = raw + op * kOpBytes;
+    uint8_t* hi = set + 2 * op * kOpBytes;
+    uint8_t* lo = hi + kOpBytes;
+    if constexpr (!MN) {
+#pragma unroll
+      for (int x = 0; x < kBM * kBK / 4 / kWgThreads; ++x) {
+        const int c = tid + x * kWgThreads, off = kmaj_off(c >> 3, c & 7);
+        float4 h, l;
+        split4(*reinterpret_cast<const float4*>(src + off), h, l);
+        *reinterpret_cast<float4*>(hi + off) = h;
+        *reinterpret_cast<float4*>(lo + off) = l;
+      }
+    } else {
+      const int kb = tid & 7, i = tid >> 3;
+      float4 v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = *reinterpret_cast<const float4*>(src + mn_off(4 * kb + e, i));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int off = kmaj_off(4 * i + j, kb);
+        float4 h, l;
+        split4(make_float4(at(v[0], j), at(v[1], j), at(v[2], j), at(v[3], j)), h, l);
+        *reinterpret_cast<float4*>(hi + off) = h;
+        *reinterpret_cast<float4*>(lo + off) = l;
+      }
+    }
+  }
+}
+
+// One output tile (one split of it) of role r on the wgmma core: k-tile c's
+// twelve products a warpgroup (3xTF32, four k8 steps) from split set c % 2
+// run while the threads split k-tile c + 1 into the other set and put
+// k-tile c + 4 in flight; each k-tile's products sum from zero into part,
+// which a rounded FADD adds to acc. One barrier a k-tile.
+template <bool MN>
+__device__ __forceinline__ void wg_tile(const Role& r, int idx, uint8_t* sm) {
+  const uint32_t sb = smem_addr(sm);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int split = idx % r.splits, rest = idx / r.splits;
+  const int m0 = rest / r.tiles_n * kBM, n0 = rest % r.tiles_n * kBN;
+  const int kb = split * r.k_chunk;
+  const int ke = min(r.k, kb + r.k_chunk);
+  const int nk = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
+  float acc[64], part[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = part[j] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kRawStages; ++s) {
+    if (s < nk) wg_load<MN>(sm + s * 2 * kOpBytes, r, m0, n0, kb + s * kBK, ke);
+    cp_commit();
+  }
+  cp_wait<kRawStages - 1>();
+  if (nk > 0) wg_split<MN>(sm, sm + kSetOff);
+  if (kRawStages < nk) wg_load<MN>(sm, r, m0, n0, kb + kRawStages * kBK, ke);
+  cp_commit();
+  fence_async();
+  __syncthreads();
+
+  for (int c = 0; c < nk; ++c) {
+    const uint32_t set = sb + kSetOff + (c & 1) * 4 * kOpBytes;
+    const uint64_t dah = make_desc(set + wg * 64 * 128, 16, 1024, 1);
+    const uint64_t dal = make_desc(set + kOpBytes + wg * 64 * 128, 16, 1024, 1);
+    const uint64_t dbh = make_desc(set + 2 * kOpBytes, 16, 1024, 1);
+    const uint64_t dbl = make_desc(set + 3 * kOpBytes, 16, 1024, 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {  // k8 step kk: 32 bytes into the rows
+      wgmma_tf32_n128(part, dal + 2 * kk, dbh + 2 * kk, kk > 0);
+      wgmma_tf32_n128(part, dah + 2 * kk, dbl + 2 * kk, 1);
+      wgmma_tf32_n128(part, dah + 2 * kk, dbh + 2 * kk, 1);
+    }
+    wgmma_commit();
+    // k-tile c + 1 has landed (this thread's chunks); its set was last read
+    // by k-tile c - 1's products, which every thread waited for before the
+    // last barrier.
+    cp_wait<kRawStages - 1>();
+    const int slot = (c + 1) % kRawStages;
+    if (c + 1 < nk) wg_split<MN>(sm + slot * 2 * kOpBytes, sm + kSetOff + ((c + 1) & 1) * 4 * kOpBytes);
+    if (c + 1 + kRawStages < nk) {
+      wg_load<MN>(sm + slot * 2 * kOpBytes, r, m0, n0, kb + (c + 1 + kRawStages) * kBK, ke);
+    }
+    cp_commit();
+    fence_async();
+    wgmma_wait_all();
+    fence_regs<64>(part);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = __fadd_rn(acc[j], part[j]);
+    __syncthreads();
+  }
+  cp_wait<0>();
+
+  float* out = r.c;
+  long ldc = r.ldc;
+  if (r.splits > 1) {
+    out += (long)split * r.m * r.n;
+    ldc = r.n;
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = m0 + wg * 64 + warp * 16 + g + 8 * half;
+    if (row >= r.m) continue;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = n0 + 8 * i + 2 * t;
+      if (col >= r.n) continue;
+      *reinterpret_cast<float2*>(out + (long)row * ldc + col) =
+          make_float2(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
+    }
+  }
+}
+
+// K5b-f32: one block per output tile (or split of one) of both roles, the
+// role with the longer contraction per tile first (p.mn_first).
+__global__ void __launch_bounds__(kWgThreads, 1)
+mlp_dh_f32_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) uint8_t wg_smem[];
+  uint8_t* sm = wg_smem + ((1024u - (smem_addr(wg_smem) & 1023u)) & 1023u);
+  int idx = blockIdx.x;
+  bool mn;
+  if (p.mn_first) {
+    mn = idx < p.mn.tiles;
+    if (!mn) idx -= p.mn.tiles;
+  } else {
+    mn = idx >= p.km.tiles;
+    if (mn) idx -= p.km.tiles;
+  }
+  if (mn) {
+    wg_tile<true>(p.mn, idx, sm);
+  } else {
+    wg_tile<false>(p.km, idx, sm);
+  }
 }
 
 // out (M x N, row stride ld_out) = sum over s = 0, 1, ..., splits - 1 of
@@ -453,6 +772,17 @@ int launch_mm(Kernel kernel, bool& configured, const Params& p, cudaStream_t str
   }
   const int blocks = p.km.tiles + p.mn.tiles;
   kernel<<<blocks, kThreads, kSmemBytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wg(bool& configured, const Params& p, cudaStream_t stream) {
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mlp_dh_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  mlp_dh_f32_kernel<<<p.km.tiles + p.mn.tiles, kWgThreads, kWgSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -518,7 +848,7 @@ extern "C" int ditl_mlp_bwd_dh_dwgu_f32(const void* h, const void* dgu, const vo
   p.mn = make_role(h, dgu, splits > 1 ? work : d_w_gu, ld_h, 2L * f, 2L * f, d, 2 * f, n,
                    splits, k_chunk);
   p.mn_first = mn_first(p);
-  if (const int err = launch_mm(mlp_dh_f32_kernel, configured, p, s)) return err;
+  if (const int err = launch_wg(configured, p, s)) return err;
   return finish_splits(p.mn, d_w_gu, 2L * f, s);
 }
 

@@ -14,8 +14,10 @@ Hopper:
 - on float32 operands, K1-f32, K2a-f32 and K2b-f32 in ``csrc/flash_f32.cu``
   (``ditl_flash_fwd_f32``, ``ditl_flash_bwd_dq_f32``,
   ``ditl_flash_bwd_dkv_f32``) replace the same three kernels, which the
-  reference runs for any float dtype with f32 sums. K2a-f32 and K2b-f32 run
-  their products as 3xTF32 on the tensor cores; K2b-f32 splits each KV
+  reference runs for any float dtype with f32 sums. All three run their
+  products as 3xTF32 on the tensor cores: K1-f32 on wgmma from operands
+  split once into shared memory (``f32_fwd_block``, ``f32_fwd_visits``),
+  K2a-f32 and K2b-f32 on mma.sync; K2b-f32 splits each KV
   head's (group head, query tile) items into runs when its grid would not
   fill the card (``f32_dkv_splits``; ``ditl_flash_bwd_dkv_split_f32`` over a
   workspace, the runs summed in order by a second kernel).
@@ -81,7 +83,8 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain", "tile_schedule",
            "fwd_block_kv", "FWD_BLOCK_Q", "FWD_WARPGROUP_ROWS", "BWD_DQ_BLOCK_Q",
            "bwd_dkv_block_kv", "BWD_DKV_BLOCK_Q", "BWD_DKV_WARPGROUP_KEYS", "HEAD_DIMS",
-           "F32_HEAD_DIMS", "F32_BLOCK", "F32_MAX_SEQ", "f32_bwd_block", "f32_dkv_splits",
+           "F32_HEAD_DIMS", "F32_BLOCK", "F32_MAX_SEQ", "f32_fwd_block", "f32_fwd_visits",
+           "f32_bwd_block", "f32_dkv_splits",
            "f32_dkv_runs", "F32_DKV_MAX_SPLITS", "CARD_SMS", "kernel_route", "supports",
            "BlockSizes", "launches", "launches_dq", "launches_dkv", "launches_f16",
            "launches_dq_f16", "launches_dkv_f16", "launches_f32", "launches_dq_f32",
@@ -122,11 +125,13 @@ HEAD_DIMS = (32, 64, 128, 256)  # the bf16 and float16 kernels' template instanc
 # The f32 kernels' instances: the reference's own head dims up to 256
 # (``supports``: D = 64 or D % 128 == 0).
 F32_HEAD_DIMS = (64, 128, 256)
-# K1-f32's tiles (csrc/flash_f32.cu): 64 query rows by 64 keys, so
-# ``tile_schedule(ids, causal, s, s, F32_BLOCK, F32_BLOCK)`` is its map; a
-# block marks at most 4096 tiles (F32_MAX_SEQ positions). K2a-f32 and
-# K2b-f32 take square tiles of ``f32_bwd_block(head_dim)``: 64 at D = 64 and
-# 128, 32 at D = 256, so ``tile_schedule(ids, causal, s, s, f32_bwd_block(d),
+# K1-f32's tiles (csrc/flash_f32.cu): a block of ``f32_fwd_block(d)[0]``
+# query rows marks the F32_BLOCK-key tiles it visits,
+# ``tile_schedule(ids, causal, s, s, f32_fwd_block(d)[0], F32_BLOCK)``, at
+# most 4096 of them (F32_MAX_SEQ positions), and walks each in sub-tiles of
+# ``f32_fwd_block(d)[1]`` keys (``f32_fwd_visits``). K2a-f32 and K2b-f32
+# take square tiles of ``f32_bwd_block(head_dim)``: 64 at D = 64 and 128, 32
+# at D = 256, so ``tile_schedule(ids, causal, s, s, f32_bwd_block(d),
 # f32_bwd_block(d))`` is the map of each (K2b-f32 reads it by columns).
 F32_BLOCK = 64
 F32_MAX_SEQ = 4096 * F32_BLOCK
@@ -160,6 +165,37 @@ def fwd_block_kv(head_dim: int) -> int:
 def bwd_dkv_block_kv(head_dim: int) -> int:
     """K2b's keys a block at ``head_dim`` (``DkvCfg<D>::kBlockN``)."""
     return 64 if head_dim == 256 else 128
+
+
+def f32_fwd_block(head_dim: int) -> tuple[int, int]:
+    """K1-f32's (query rows a block, keys a sub-tile) at ``head_dim``
+    (``Fwd<D>::kRows``, ``Fwd<D>::kN``): two warpgroups of 64 rows each over
+    64-key sub-tiles at D = 64 and 32-key ones at D = 128; at D = 256, where
+    Q's split halves alone fill 128 KB of shared memory at 64 rows, both
+    warpgroups take the block's 64 rows, each half of the head dim, over
+    16-key sub-tiles."""
+    if head_dim not in F32_HEAD_DIMS:
+        raise ValueError(f"K1-f32 takes head_dim in {F32_HEAD_DIMS}, got {head_dim}")
+    return {64: (128, 64), 128: (128, 32), 256: (64, 16)}[head_dim]
+
+
+def f32_fwd_visits(segment_ids: torch.Tensor | None, causal: bool, s_q: int, s_kv: int,
+                   head_dim: int) -> torch.Tensor:
+    """(B, Sq, Skv) boolean map (B = 1 without segment ids) of the (query
+    row, key) pairs whose products K1-f32 computes: a block visits the
+    F32_BLOCK-key tiles of ``tile_schedule`` at its ``f32_fwd_block`` rows,
+    in sub-tiles; each 64-row warpgroup skips, when causal, the sub-tiles
+    that start past its last row (they hold no admitted pair)."""
+    rows, sub = f32_fwd_block(head_dim)
+    tiles = tile_schedule(segment_ids, causal, s_q, s_kv, rows, F32_BLOCK)
+    visit = tiles.repeat_interleave(rows, dim=1).repeat_interleave(F32_BLOCK, dim=2)
+    visit = visit[:, :s_q, :s_kv]
+    if causal:
+        device = visit.device
+        wg_last = ((torch.arange(s_q, device=device) // 64 + 1) * 64).clamp(max=s_q) - 1
+        sub_first = torch.arange(s_kv, device=device) // sub * sub
+        visit = visit & (sub_first[None, :] <= wg_last[:, None])[None]
+    return visit
 
 
 def f32_bwd_block(head_dim: int) -> int:

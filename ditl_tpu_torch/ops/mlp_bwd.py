@@ -26,8 +26,10 @@ order the kernels' scheduler hands them out; ``gemm_core`` runs the GEMM core
 alone (its card tests).
 
 float32 operands take K5a-f32 and K5b-f32 (``ditl_mlp_bwd_dgu_dwdown_f32``,
-``ditl_mlp_bwd_dh_dwgu_f32``) in ``csrc/gemm_f32.cu``, 3xTF32 on ``mma.sync``
-(its header says how); ``kernel_route`` is the one table of dtype -> source
+``ditl_mlp_bwd_dh_dwgu_f32``) in ``csrc/gemm_f32.cu``, 3xTF32 on the tensor
+cores: K5a-f32 on ``mma.sync``, K5b-f32 on ``wgmma`` from operands split
+once into shared memory (its header says how); ``kernel_route`` is the one
+table of dtype -> source
 and entry points, and ``launches_dgu_f32`` and ``launches_dh_f32`` count
 their wrapper calls (K5a-f32 runs two grids a call, the dinner tiles then the
 d_w_down tiles). ``f32_weight_splits`` is their split-K rule for a weight

@@ -828,8 +828,8 @@ def test_mlp_and_projection_bwd_raise_instead_of_falling_back(cuda):
 # ---------------------------------------------------------------------------
 
 # f32 tolerances: the kernels and the plain versions take the same f32
-# operands with f32 sums in other orders (FFMA chains in K1-f32 and the
-# paged kernels, 3xTF32 products, each good to about 2^-21, in K2a-f32 and
+# operands with f32 sums in other orders (FFMA chains in the paged
+# kernels, 3xTF32 products, each good to about 2^-21, in K1-f32, K2a-f32 and
 # K2b-f32, against cuBLAS's f32 GEMMs, TF32 off) and the same exponent, so
 # they differ by f32 round-off:
 # o and lse within F32_TOL, each gradient within F32_TOL of its own largest
@@ -845,7 +845,10 @@ PAGED_F32_TOL = 2e-5
 # 15's heads, 8 on 1: its prefill and a packed training row; ids up and
 # down; non-causal Sq != Skv); then G = 7 on one KV head at D = 64, B = 1,
 # S = 2048, packed, where K2b-f32 splits its items into 9 runs of 25, a
-# count that does not divide the group (``f32_dkv_splits``).
+# count that does not divide the group (``f32_dkv_splits``); then D = 256
+# with a boundary one row past a tile edge, Sq = 257 (K1-f32's 16-key
+# sub-tiles across both), and G = 16, path 16's prefill widths (128 heads on
+# 8, D = 128), right-padded.
 F32_FLASH_CASES = [
     (4, 512, 512, 32, 8, 128, True, [512, 401, 230, 97]),
     (4, 2048, 2048, 14, 2, 64, True, "train"),
@@ -860,6 +863,8 @@ F32_FLASH_CASES = [
     (2, 300, 300, 4, 2, 256, True, "nonmono"),
     (2, 200, 333, 4, 4, 256, False, None),
     (1, 2048, 2048, 7, 1, 64, True, "train"),
+    (1, 257, 257, 4, 2, 256, True, "edge1"),
+    (2, 256, 256, 128, 8, 128, True, [256, 131]),
 ]
 
 
@@ -916,12 +921,15 @@ def test_flash_f32_bwd_kernels_match_plain(no_tf32, b, s_q, s_kv, h, kv, d, caus
 
 
 @pytest.mark.torch_port
-@pytest.mark.parametrize("case", [0, 1, 9])
+@pytest.mark.parametrize("case", [0, 1, 9, 13, 14])
 def test_flash_f32_kernels_are_bitwise_repeatable(no_tf32, case):
     """Every f32 block owns its outputs and sums in one fixed order, and
     K2b-f32's runs are summed in order by a second kernel (path 15's packed
     row, case 9, takes 5 runs): two calls of each kernel give the same
-    bits."""
+    bits. K1-f32 at each of its instances: D = 128 with two warpgroups and
+    32-key sub-tiles (cases 0, 14), D = 64 with 64-key sub-tiles (1), D =
+    256 with the warpgroups on the two halves of the head dim and 16-key
+    sub-tiles (9, 13)."""
     b, s_q, s_kv, h, kv, d, causal, seg = F32_FLASH_CASES[case]
     q, k, v, ids = _f32_case(no_tf32, b, s_q, s_kv, h, kv, d, seg)
     fwd = [tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=ids) for _ in range(2)]
@@ -1027,13 +1035,15 @@ F32 = torch.float32
 
 @pytest.mark.torch_port
 @pytest.mark.parametrize("n,d,f", [(8192, 896, 4864), (2064, 384, 384), (16, 384, 384),
-                                   (2064, 256, 128)])
+                                   (2064, 256, 128), (2000, 384, 640)])
 def test_mlp_bwd_f32_kernels_match_plain(no_tf32, n, d, f):
     """K5a-f32 and K5b-f32 against their plain versions: qwen2-0.5b's
     training step (N = 8192, D = 896, F = 4864), a ragged token edge (N =
     2064), the least N, D and F odd multiples of 128; gate/up as the strided
     halves of gu, K5b-f32 fed the same dgu as its plain version. N = 2064
-    splits d_w_down over the tokens (f32_weight_splits)."""
+    splits d_w_down over the tokens (f32_weight_splits). N = 2000 is no
+    multiple of K5b-f32's 128-row tiles nor of its 32-token k-tiles, and
+    2F = 1280 takes ten 128-column tiles beside D = 384's three."""
     from ditl_tpu_torch.ops import mlp_bwd as tmb
 
     h, w_gu, w_down, g, gate, up = _mlp_inputs(no_tf32, n, d, f, dtype=F32)
@@ -1094,6 +1104,28 @@ def test_mlp_proj_f32_kernels_are_bitwise_repeatable(no_tf32):
     for run in runs[1:]:
         for name, a, b in zip(("dgu", "d_w_down", "dh", "d_w_gu", "dx", "dw"), run, runs[0]):
             assert torch.equal(a, b), name
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("n,d,f,splits", [(2064, 384, 384, 8), (8192, 896, 4864, 1)],
+                         ids=["d_w_gu split", "no split"])
+def test_mlp_dh_f32_kernel_is_bitwise_repeatable(no_tf32, n, d, f, splits):
+    """Two calls of K5b-f32 give the same bits, with d_w_gu split over the
+    tokens (f32_weight_splits: eight splits summed in order by
+    splitk_sum_f32_kernel) and without (path 10's shapes): one block owns
+    each output tile or split and sums its k-tiles in one order, no
+    atomics."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+
+    assert tmb.f32_weight_splits(d, 2 * f, n)[0] == splits
+    h, w_gu, w_down, g, gate, up = _mlp_inputs(no_tf32, n, d, f, seed=40, dtype=F32)
+    dgu, _ = tmb.dgu_dwdown(g, w_down, gate, up)
+    tmb.reset_launches()
+    runs = [tmb.dh_dwgu(h, dgu, w_gu) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tmb.launches_dh_f32 == 2
+    for name, a, b in zip(("dh", "d_w_gu"), *runs):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.torch_port

@@ -320,6 +320,78 @@ def test_schedule_masked_plain_matches_jax_kernel(kind, dtype, block_q, block_kv
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+# K1-f32 (csrc/flash_f32.cu) visits the F32_BLOCK-key tiles of
+# tile_schedule at its block's f32_fwd_block(d)[0] rows, in sub-tiles of
+# f32_fwd_block(d)[1] keys, and each 64-row warpgroup skips the sub-tiles
+# past its last row: f32_fwd_visits is that map at element resolution.
+
+
+def test_f32_fwd_block_is_the_kernels_tiling():
+    """Two warpgroups (128 rows) over 64-key sub-tiles at D = 64 and 32-key
+    ones at D = 128, one warpgroup over 16-key sub-tiles at D = 256: every
+    sub-tile divides the 64-key tiles the block marks; other head dims
+    raise."""
+    assert [tfa.f32_fwd_block(d) for d in tfa.F32_HEAD_DIMS] == [(128, 64), (128, 32),
+                                                                 (64, 16)]
+    assert all(tfa.F32_BLOCK % tfa.f32_fwd_block(d)[1] == 0 for d in tfa.F32_HEAD_DIMS)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.f32_fwd_block(32)
+
+
+@pytest.mark.parametrize("d", tfa.F32_HEAD_DIMS)
+@pytest.mark.parametrize("kind,causal,s_q,s_kv", [
+    ("sorted", True, 300, 300), ("padded", True, 512, 512), ("nonmono", True, 300, 300),
+    ("mid", True, 257, 257), ("nonmono", False, 300, 300), (None, True, 200, 333),
+    (None, True, 333, 200), (None, False, 129, 300),
+])
+def test_f32_fwd_visits_cover_admitted_pairs(kind, causal, s_q, s_kv, d):
+    """Every pair the masks admit lies in K1-f32's visits; the visits lie in
+    the block's marked tiles; without ids and causal, a sub-tile starting
+    past the warpgroup's last row is never visited."""
+    seg = None if kind is None else _schedule_ids(kind, 3, s_q, seed=s_q)
+    tseg = None if seg is None else torch.from_numpy(seg)
+    visit = tfa.f32_fwd_visits(tseg, causal, s_q, s_kv, d).numpy()
+    assert visit.shape[1:] == (s_q, s_kv)
+    assert not (_admitted(seg, causal, s_q, s_kv) & ~visit).any()
+    rows, sub = tfa.f32_fwd_block(d)
+    tiles = tfa.tile_schedule(tseg, causal, s_q, s_kv, rows, tfa.F32_BLOCK)
+    assert not (visit & ~_expand(tiles.numpy(), rows, tfa.F32_BLOCK, s_q, s_kv)).any()
+    if causal:
+        for r in range(0, s_q, 64):
+            last = min(s_q, r + 64) - 1
+            first_skipped = (last // sub + 1) * sub
+            assert not visit[:, r:r + 64, first_skipped:].any()
+
+
+@pytest.mark.parametrize("d", tfa.F32_HEAD_DIMS)
+@pytest.mark.parametrize("kind", ["sorted", "padded", "nonmono", "mid"])
+def test_f32_fwd_visits_masked_plain_matches_jax_kernel(kind, d):
+    """Masking every pair outside K1-f32's visits changes nothing in f32:
+    the result equals the plain version and the JAX kernel in interpret mode
+    at each K1-f32 tiling (f32 tolerance)."""
+    q, k, v = _qkv(9, 2, 256, 4, 2, d)
+    seg = _schedule_ids(kind, 2, 256, seed=4)
+    tq, tk, tv, tseg = (_to_torch(q, "float32"), _to_torch(k, "float32"),
+                        _to_torch(v, "float32"), torch.from_numpy(seg))
+    mask = tfa.f32_fwd_visits(tseg, True, 256, 256, d) & torch.from_numpy(
+        _admitted(seg, True, 256, 256))
+    qf = tq.reshape(2, 256, 2, 2, d) * d**-0.5
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qf, tk).masked_fill(~mask[:, None, None],
+                                                               tattn.NEG_INF)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    out = (torch.einsum("bkgqs,bskd->bkgqd", p, tv) / p.sum(dim=-1, keepdim=True))
+    out = out.permute(0, 3, 1, 2, 4).reshape(2, 256, 4, d)
+    plain, _ = tfa.flash_attention_plain(tq, tk, tv, causal=True, segment_ids=tseg)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    ref = jfa.flash_attention(_to_jax(q, "float32"), _to_jax(k, "float32"),
+                              _to_jax(v, "float32"), causal=True, segment_ids=jnp.asarray(seg),
+                              block_q=128, block_kv=128, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32), atol=TOL["float32"],
+                               rtol=TOL["float32"])
+
+
 def test_training_batch_visits_under_half_the_causal_tiles():
     """The training pipeline's first batch (packed documents): K1 visits
     fewer than half of the causal tiles at its D = 128 tiling."""
