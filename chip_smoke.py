@@ -42,8 +42,9 @@ no result line. It imports nothing of JAX or of the JAX package.
    phase 9): K5a-f32, K5b-f32 and K6-f32 (``csrc/gemm_f32.cu``) against
    their plain versions in f32 (``F32_MM_TOL`` of each output's largest
    magnitude) at path 10's shapes (N = 8192, D = 896, F = 4864; K6 at
-   wq/wo and wk/wv), at ragged ones (N = 2064 and 16, D = F = 384) and with
-   a strided gradient; each called twice gives the same bits; the bf16 K5a
+   wq/wo and wk/wv), at ragged ones (N = 2064 and 16, D = F = 384; N =
+   2000 with F = 640 and 600, no multiple of the tiles) and with a strided
+   gradient; each called twice gives the same bits; the bf16 K5a
    and K5b still give ``K5_DIGESTS``. ``[f16-kernels]`` and
    ``[f32-int8-kernels]`` (``phase_f16_int8_kernels``): K1-f16 against the
    plain forward in float16 at the serving prefill, the training batch's
@@ -66,7 +67,8 @@ no result line. It imports nothing of JAX or of the JAX package.
    qwen2-0.5b's wq/wo and wk/wv (``MM_TOL``); every kernel twice the same
    bits; then the bf16 K1, K2a/K2b, K3 and K5a/K5b against ``K1_DIGESTS``,
    ``K2_DIGESTS`` (recorded on the build before K2's element type became a
-   template parameter), ``K3_DIGESTS`` and ``K5_DIGESTS``.
+   template parameter), ``K3_DIGESTS`` and ``K5_DIGESTS``, and the f32 kernels that
+   share K3-int8-f32's and K5a-f32's sources against ``F32_DIGESTS``.
    ``[hd-kernels]`` (``phase_head_dim_kernels``): every paged entry point
    (``HD_PAGED``: K3, K4, K3-verify and their int8 forms in bf16, float16
    and f32) at head_dim 32 and 256 against the plain version and the split
@@ -3609,6 +3611,138 @@ def _k3_digests(paged) -> dict:
     return out
 
 
+def _det_f32(shape, salt: int, shift: int):
+    """f32 values made on the card by integer arithmetic alone (integers in
+    [-2^20, 2^20] times 2**-shift, hashed as in ``_det_bf16``): 21 bits of
+    mantissa, the same bits whatever card, CUDA version or torch makes them."""
+    import torch
+
+    n = 1
+    for x in shape:
+        n *= x
+    i = torch.arange(n, device="cuda", dtype=torch.int64)
+    h = (i * 2654435761 + salt * 40503) % 4294967296
+    h = (h ^ (h >> 15)) * 1274126177 % 4294967296
+    return ((h % 2097153 - 1048576).float() * 2.0**-shift).reshape(shape)
+
+
+# ``_f32_digests``, as the f32 kernels that share csrc/paged_attention_f32.cu
+# and csrc/gemm_f32.cu with K3-int8-f32 and K5a-f32 gave them on an H100
+# before those two were redesigned (run on the card against the tree of
+# commit 1bdbc9f): K3-f32, K4-f32, K3-f32-verify, K3-int8-f32-verify,
+# K5b-f32 and K6-f32 must keep these bits.
+F32_DIGESTS: dict[str, str] = {
+    "decode tick K3-f32": "51d847dbbd755cbb",
+    "decode tick K4-f32": "88c30e48e7283906",
+    "head_dim 64 K3-f32": "567b29cea951d983",
+    "head_dim 64 K4-f32": "f6d1f0251ef33fc2",
+    "G = 16 K3-f32": "c0a2ea8d262d5ca8",
+    "G = 16 K4-f32": "4c8326650ed6026b",
+    "spec tick K3-f32-verify": "c915bd788252a456",
+    "spec tick K3-int8-f32-verify": "f354046b91af4cad",
+    "head_dim 64 K3-f32-verify": "d37a56e3b5c03b42",
+    "head_dim 64 K3-int8-f32-verify": "bf921215540524f7",
+    "144 rows K3-f32-verify": "31c06d64a5f73d1e",
+    "144 rows K3-int8-f32-verify": "3efb76a58310840e",
+    "D = 256 K3-f32-verify": "23b3a4c7bd31dfcc",
+    "D = 256 K3-int8-f32-verify": "2754f285da94845d",
+    "K5b-f32 N=8192 D=896 F=4864 dh": "1400a7112f362849",
+    "K5b-f32 N=8192 D=896 F=4864 d_w_gu": "d23a7fe9806eb0cc",
+    "K5b-f32 N=2064 D=384 F=384 dh": "40b1658e2f75f968",
+    "K5b-f32 N=2064 D=384 F=384 d_w_gu": "2d7d2e65052ff8f5",
+    "K6-f32 N=8192 D=896 F=896 dx": "5f9bea34234a7f36",
+    "K6-f32 N=8192 D=896 F=896 dw": "012e923f56102cac",
+    "K6-f32 N=8192 D=896 F=128 dx": "aa0b300c94911bd2",
+    "K6-f32 N=8192 D=896 F=128 dw": "d3c19e9f821a5dd6",
+}
+
+
+def _f32_digests(paged, mlp_bwd, proj) -> dict:
+    """K3-f32 and K4-f32 (the decode tick, head_dim 64 at page 16 with a dead
+    and a tail-only slot, path 16's G = 16), K3-f32-verify and
+    K3-int8-f32-verify (the spec tick, head_dim 64 at Q = 5, path 16's 144
+    rows, D = 256), K5b-f32 (path 10's shapes unsplit, N = 2064 with d_w_gu
+    split) and K6-f32 (path 10's wq/wo and wk/wv, dw split 3 and 16 ways) on
+    fixed integer-made f32 inputs (``_det_f32``; int8 pools ``_det_int8``
+    with scales of 1..128 times 2^-14); SHA-256 prefixes of the outputs'
+    bytes. Uses only the wrappers' signatures, so it runs against an older
+    tree's module too."""
+    import hashlib
+
+    import torch
+
+    def digest(t):
+        raw = t.contiguous().view(torch.int32).cpu().numpy().tobytes()
+        return hashlib.sha256(raw).hexdigest()[:16]
+
+    def ints(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    def case(b, h, kv, d, ps, tl, lens, sts, salt, nq=None, maxp=None):
+        maxp = maxp or max(1, max(-(-max(x, y) // ps) for x, y in zip(lens, sts)))
+        n_pool = b * maxp + 1
+        table = torch.zeros((b, maxp), dtype=torch.int32)
+        pid = 1
+        for row in range(b):
+            for i in range(min(maxp, -(-max(lens[row], sts[row]) // ps))):
+                table[row, i] = pid
+                pid += 1
+        table[2 % b, 0] = table[1 % b, 0]
+        pools = (n_pool, kv, ps, d)
+        scale = ((n_pool, kv, 1, ps))
+        return dict(
+            q=_det_f32((b, h, d) if nq is None else (b, nq, h, d), salt, 20),
+            kp=_det_f32(pools, salt + 1, 20), vp=_det_f32(pools, salt + 2, 20),
+            kq=_det_int8(pools, salt + 3), vq=_det_int8(pools, salt + 4),
+            ks=((_det_int8(scale, salt + 5).float().abs() + 1) * 2.0**-14).contiguous(),
+            vs=((_det_int8(scale, salt + 6).float().abs() + 1) * 2.0**-14).contiguous(),
+            tk=_det_f32((b, kv, tl, d), salt + 7, 20), tv=_det_f32((b, kv, tl, d), salt + 8, 20),
+            table=table.cuda(), lengths=ints(lens), starts=ints(sts))
+
+    out = {}
+    starts, lengths = _paged_main_case()
+    single = [("decode tick", 8, 32, 8, 128, 256, 16, lengths, starts),
+              ("head_dim 64", 4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 32, 45]),
+              ("G = 16", 8, 128, 8, 128, 256, 16, lengths, starts)]
+    for i, (label, b, h, kv, d, ps, tl, lens, sts) in enumerate(single):
+        c = case(b, h, kv, d, ps, tl, lens, sts, 3000 + 20 * i)
+        low = torch.minimum(c["starts"], c["lengths"]).contiguous()
+        out[f"{label} K3-f32"] = digest(paged.paged_attention(
+            c["q"], c["kp"], c["vp"], c["table"], c["lengths"], tail_k=c["tk"], tail_v=c["tv"],
+            starts=c["starts"]))
+        out[f"{label} K4-f32"] = digest(paged.paged_attention(c["q"], c["kp"], c["vp"],
+                                                              c["table"], low))
+        del c
+    sp_starts, sp_lengths = _spec_main_case()
+    verify = [("spec tick", 8, 9, 32, 8, 128, 256, 54, sp_lengths, sp_starts, 8),
+              ("head_dim 64", 4, 5, 8, 4, 64, 16, 24, [0, 20, 40, 21], [0, 16, 33, 20], 4),
+              ("144 rows", 8, 9, 128, 8, 128, 256, 54, sp_lengths, sp_starts, 8),
+              ("D = 256", 8, 9, 8, 1, 256, 256, 54, sp_lengths, sp_starts, 8)]
+    for i, (label, b, nq, h, kv, d, ps, tl, lens, sts, maxp) in enumerate(verify):
+        c = case(b, h, kv, d, ps, tl, lens, sts, 3200 + 20 * i, nq=nq, maxp=maxp)
+        tail = dict(tail_k=c["tk"], tail_v=c["tv"], starts=c["starts"])
+        out[f"{label} K3-f32-verify"] = digest(paged.paged_attention(
+            c["q"], c["kp"], c["vp"], c["table"], c["lengths"], **tail))
+        out[f"{label} K3-int8-f32-verify"] = digest(paged.paged_attention(
+            c["q"], c["kq"], c["vq"], c["table"], c["lengths"], **tail, k_scale=c["ks"],
+            v_scale=c["vs"]))
+        del c
+    for n, d, f in ((8192, 896, 4864), (2064, 384, 384)):
+        h, dgu = _det_f32((n, d), 3400, 20), _det_f32((n, 2 * f), 3401, 24)
+        w_gu = _det_f32((d, 2 * f), 3402, 25)
+        for name, t in zip(("dh", "d_w_gu"), mlp_bwd.dh_dwgu(h, dgu, w_gu)):
+            out[f"K5b-f32 N={n} D={d} F={f} {name}"] = digest(t)
+        del h, dgu, w_gu
+    for n, d, f in ((8192, 896, 896), (8192, 896, 128)):
+        x, w = _det_f32((1, n, d), 3500, 20), _det_f32((d, f), 3501, 25)
+        g = _det_f32((1, n, f), 3502, 24)
+        for name, t in zip(("dx", "dw"), proj.projection_bwd(x, w, g, blocks=(0, 128))):
+            out[f"K6-f32 N={n} D={d} F={f} {name}"] = digest(t)
+        del x, w, g
+    torch.cuda.synchronize()
+    return out
+
+
 # The speculative tick's verify shape on path 7: 8 slots, Q = spec_k + 1 = 9
 # queries, 32 query / 8 KV heads, head_dim 128, page 256, 8 pages a slot
 # (context 2048), a tail of spec_rounds * Q = 6 * 9 = 54 columns.
@@ -4728,7 +4862,8 @@ def phase_dtype_train(flash, mlp_bwd, proj, args=F32_TRAIN_ARGS, tag: str = "f32
 # odd multiples of 128, and N = 2000 (no multiple of K5b-f32's 128-row tiles
 # or 32-token k-tiles) with 2F = 1280.
 F32_MLP_CASES = [("path 10", 8192, 896, 4864), ("ragged", 2064, 384, 384),
-                 ("N = 16", 16, 384, 384), ("ragged N = 2000", 2000, 384, 640)]
+                 ("N = 16", 16, 384, 384), ("ragged N = 2000", 2000, 384, 640),
+                 ("ragged N = 2000, F = 600", 2000, 384, 600)]
 # (label, N, D, F, row stride of g or 0, the reference's blocks that admit
 # N): path 10's wq/wo (dw split in 3) and wk/wv (dw split in 16), a ragged
 # N with g a column slice of a wider gradient.
@@ -4759,7 +4894,7 @@ def phase_f32_mm_kernels(mlp_bwd, proj) -> dict:
         dgu_ref, d_w_down_ref = mlp_bwd.dgu_dwdown_plain(g, w_down, gate, up)
         dh_ref, d_w_gu_ref = mlp_bwd.dh_dwgu_plain(h, dgu, w_gu)
         torch.cuda.synchronize()
-        splits = mlp_bwd.f32_weight_splits(f, d, n)[0], mlp_bwd.f32_weight_splits(d, 2 * f, n)[0]
+        splits = mlp_bwd.f32_dwdown_splits(f, d, n)[0], mlp_bwd.f32_weight_splits(d, 2 * f, n)[0]
         shape = f"N={n} D={d} F={f} ({label}; weight gradients split {splits[0]}, {splits[1]})"
         worst["mlp_dgu_dwdown_f32"] = max(worst["mlp_dgu_dwdown_f32"], _check_scaled(
             f"mlp_dgu_dwdown_f32 {shape}", [("dgu", dgu, dgu_ref),
@@ -4844,7 +4979,10 @@ def phase_f32_mm_timings(mlp_bwd, proj) -> dict:
         sgemm_ms = min(_time_ms(sgemm[name], iters=10), _time_ms(sgemm[name], iters=10))
         bound_ms, bound_by = bounds[name]
         fl = flops[name]
-        log(f"[{tag}] {name} N={n} D={d} F={f}: kernel {ms:.4f} ms ({fl / ms / 1e9:.1f} "
+        split = (mlp_bwd.f32_dwdown_splits(f, d, n) if name == "mlp_dgu_dwdown_f32"
+                 else mlp_bwd.f32_weight_splits(d, 2 * f, n))[0]
+        log(f"[{tag}] {name} N={n} D={d} F={f} (weight gradient split {split}): kernel "
+            f"{ms:.4f} ms ({fl / ms / 1e9:.1f} "
             f"TFLOP/s), plain {plain_ms:.4f} ms, cuBLAS SGEMM on its own two products "
             f"({products[name]}; TF32 off) {sgemm_ms:.4f} ms ({fl / sgemm_ms / 1e9:.1f} "
             f"TFLOP/s; kernel / SGEMM {ms / sgemm_ms:.2f}x), library (autograd of the plain "
@@ -4853,6 +4991,21 @@ def phase_f32_mm_timings(mlp_bwd, proj) -> dict:
             f"{_ffma_ms(fl):.4f} ms), {bound_ms / ms:.1%} of bound ({SMI})")
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms, "sgemm_ms": sgemm_ms}
+    # K5a-f32 with d_w_down as f32_dwdown_splits splits it and unsplit, in
+    # turns (split, unsplit, unsplit, split).
+    rule = mlp_bwd.f32_dwdown_splits
+    times = {"split": [], "unsplit": []}
+    try:
+        for label in ("split", "unsplit", "unsplit", "split"):
+            mlp_bwd.f32_dwdown_splits = rule if label == "split" else (lambda m_, n_, k_: (1, k_))
+            times[label].append(_time_ms(lambda: mlp_bwd.dgu_dwdown(g, w_down, gate, up),
+                                         iters=10))
+    finally:
+        mlp_bwd.f32_dwdown_splits = rule
+    log(f"[{tag}] mlp_dgu_dwdown_f32 with d_w_down split {rule(f, d, n)[0]} ways "
+        f"{min(times['split']):.4f} ms, unsplit {min(times['unsplit']):.4f} ms (each the better "
+        f"of two runs of 10 calls, in turns; {SMI})")
+    out["mlp_dgu_dwdown_f32"]["unsplit_ms"] = min(times["unsplit"])
     log(f"[{tag}] K5a-f32 + K5b-f32 "
         f"{out['mlp_dgu_dwdown_f32']['ms'] + out['mlp_dh_dwgu_f32']['ms']:.4f} ms against "
         f"the library call's {lib_ms:.4f} ms ({SMI})")
@@ -4934,7 +5087,8 @@ def phase_f16_bwd_kernels(flash, mlp_bwd, proj, paged, train_seg) -> dict:
     wrapper rescales around the kernels), K5a-f16 and K5b-f16 at ``F16_MLP_CASES`` and K6-f16
     at ``F16_PROJ_CASES`` against their plain versions (``MM_TOL``); every
     kernel called twice gives the same bits; then the bf16 K1, K2, K3 and K5
-    keep ``K1_DIGESTS``, ``K2_DIGESTS``, ``K3_DIGESTS`` and ``K5_DIGESTS``.
+    keep ``K1_DIGESTS``, ``K2_DIGESTS``, ``K3_DIGESTS`` and ``K5_DIGESTS``,
+    and the f32 kernels beside K3-int8-f32 and K5a-f32 ``F32_DIGESTS``.
     Returns the largest absolute errors."""
     import torch
 
@@ -5009,15 +5163,17 @@ def phase_f16_bwd_kernels(flash, mlp_bwd, proj, paged, train_seg) -> dict:
         del x, w, g, runs, dx_ref, dw_ref
     log(f"[{tag}] K6-f16: the default order, dx tiles first and dw tiles first give the "
         f"same bits in every case")
-    for name, fn, want in (("K1", lambda: _k1_digests(flash), K1_DIGESTS),
-                           ("K2", lambda: _k2_digests(flash), K2_DIGESTS),
-                           ("K3", lambda: _k3_digests(paged), K3_DIGESTS),
-                           ("K5", lambda: _k5_digests(mlp_bwd), K5_DIGESTS)):
+    for name, fn, want in (("bf16 K1", lambda: _k1_digests(flash), K1_DIGESTS),
+                           ("bf16 K2", lambda: _k2_digests(flash), K2_DIGESTS),
+                           ("bf16 K3", lambda: _k3_digests(paged), K3_DIGESTS),
+                           ("bf16 K5", lambda: _k5_digests(mlp_bwd), K5_DIGESTS),
+                           ("f32", lambda: _f32_digests(paged, mlp_bwd, proj), F32_DIGESTS)):
         got = fn()
         for key, value in got.items():
-            log(f"[{tag}] bf16 {name} digest {key}: {value} (expected {want.get(key)})")
-        require(got == want, f"the bf16 {name} differs from the earlier build's bits")
-    log(f"[{tag}] the bf16 K1, K2a/K2b, K3 and K5a/K5b keep their digests")
+            log(f"[{tag}] {name} digest {key}: {value} (expected {want.get(key)})")
+        require(got == want, f"the {name} kernels differ from the earlier build's bits")
+    log(f"[{tag}] the bf16 K1, K2a/K2b, K3 and K5a/K5b keep their digests, and K3-f32, "
+        f"K4-f32, K3-f32-verify, K3-int8-f32-verify, K5b-f32 and K6-f32 theirs (F32_DIGESTS)")
     return worst
 
 

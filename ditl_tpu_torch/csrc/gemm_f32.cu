@@ -30,9 +30,9 @@
 // the products run on the tensor cores as 3xTF32 (below), so the ceiling is
 // 165 TFLOP/s and not FFMA's 67.
 //
-// Two cores. K5a-f32 and K6-f32 run mm_body (3xTF32 on mma.sync, below);
-// K5b-f32 runs the wgmma core (last section of this header), which K6-f32,
-// whose two products are K5b-f32's, can move onto.
+// Two cores. K6-f32 runs mm_body (3xTF32 on mma.sync, below); K5b-f32 and
+// K5a-f32 run the wgmma core (the last sections of this header), which
+// K6-f32, whose two products are K5b-f32's, can move onto.
 //
 // Products: 3xTF32 on mma.sync.m16n8k8.tf32. Each f32 operand x is split
 // into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (x - hi is exact);
@@ -63,29 +63,18 @@
 // 128 rows of 32 + 4 floats (bank 4g + t), MN-major tiles 32 k-rows of 128 +
 // 8 floats (bank 8t + g). 3 x 36,864 = 110,592 bytes of dynamic shared
 // memory, one block per SM; 64 accumulator and 64 partial registers a
-// thread (ptxas for sm_90a: 207 registers, no spills, in K5a-f32 and
-// K6-f32; the split sum 32). One block per output tile (a plain, not a
-// persistent, grid); edges at both ends of M and N are masked.
+// thread (ptxas for sm_90a: 207 registers, no spills, in K6-f32; the split
+// sum 32). One block per output tile (a plain, not a persistent, grid);
+// edges at both ends of M and N are masked.
 // - K6 (and K5b on its core) run their two roles in one grid: the role
 //   with the longer contraction per tile first (blocks start in index
 //   order).
-// - K5a runs two grids, one after the other on the caller's stream, from its
-//   one entry point: the dinner tiles (whose epilogue computes SwiGLU and
-//   writes dgu and inner), then the d_w_down tiles, which read that inner.
-//   Stream order is the dependency; the wrapper counts one launch per call.
 // - Split-K over the tokens for a weight gradient with few tiles (K6 at
 //   wk/wv: dw is 896 x 128, seven tiles, each over 8192 tokens): the
 //   wrapper chooses the splits (ops/mlp_bwd.py::f32_weight_splits); each
 //   split writes its partial sums into an f32 workspace, and a second
 //   kernel adds the splits in order 0, 1, ..., S-1. No atomics anywhere, so
 //   two calls give the same bits.
-// - SwiGLU epilogue of K5a in the plain version's order (ops/mlp_bwd.py::
-//   dgu_dwdown_plain): sg = 1 / (1 + expf(-gate)), silu = gate . sg, dgate =
-//   dinner . up . (sg . (1 + gate . (1 - sg))), dup = dinner . silu, inner =
-//   silu . up, each operation rounded on its own (__fmul_rn and friends, so
-//   no contraction into FMAs), expf and not the fast intrinsic. gate and up
-//   are read in place from the forward's gu: gate's row stride and up's
-//   offset from gate are arguments, nothing is copied.
 //
 // K5b-f32 on the wgmma core (mlp_dh_f32_kernel, wg_tile). What held it
 // back on mm_body (PR 14: 30.7% of its bound, 1.02x the two SGEMMs):
@@ -120,6 +109,37 @@
 // - What bounds it now: each k-tile's wait and FADDs, when the tensor
 //   cores idle until the next k-tile's products are issued.
 // ptxas -v (sm_90a): 193 registers, no spills.
+//
+// K5a-f32 on the wgmma core (mlp_dgu_f32_kernel, wg_tile with the SwiGLU
+// epilogue). What held it back on mm_body (22.9% of its bound, 1.23x the
+// two SGEMMs, on an H100 SXM at 700 W): K5b-f32's issue slots, and a
+// d_w_down grid of 266 tiles (path 10: F = 4864 by D = 896) in three waves
+// of 132 where 2.02 are needed.
+// - Two grids, one after the other on the caller's stream, from its one
+//   entry point: the dinner tiles (g . w_down^T, both operands K-major over
+//   D), whose epilogue computes SwiGLU and writes dgu and inner, then the
+//   d_w_down tiles (inner^T . g, both MN-major over the tokens), which
+//   read that inner. Stream order is the dependency; the wrapper counts one
+//   launch a call. Both run wg_load / wg_split / wg_tile as K5b-f32 does
+//   (K5b-f32's instance is the same code: the epilogue is a template
+//   parameter it leaves off).
+// - The SwiGLU epilogue in the wgmma accumulator layout, in the plain
+//   version's order (ops/mlp_bwd.py::dgu_dwdown_plain): sg = 1 / (1 +
+//   expf(-gate)), silu = gate . sg, dgate = dinner . up . (sg . (1 + gate .
+//   (1 - sg))), dup = dinner . silu, inner = silu . up, each operation
+//   rounded on its own (__fmul_rn and friends, so no contraction into
+//   FMAs), expf and not the fast intrinsic. A thread holds rows wg 64 +
+//   warp 16 + g (and + 8) and column pairs 8i + 2t, + 1, so gate and up are
+//   read, and dgu and inner written, as float2s. gate and up are read in
+//   place from the forward's gu: gate's row stride and up's offset from
+//   gate are arguments, nothing is copied.
+// - d_w_down's splits: ops/mlp_bwd.py::f32_dwdown_splits. A grid under one
+//   wave splits as f32_weight_splits does; a larger one into the count up
+//   to 4 that wastes least of its last wave (path 10: 4 splits of 2048
+//   tokens, 1064 blocks, 9 waves of a quarter the depth, 2.25 unsplit
+//   waves' time where the unsplit grid takes 3), summed in order by
+//   splitk_sum_f32_kernel.
+// ptxas -v (sm_90a): 193 registers, no spills, as K5b-f32's.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (ditl_tpu_torch/ops/cuda_build.py). C interface, bound with ctypes.
@@ -300,9 +320,9 @@ __device__ __forceinline__ void swiglu_bwd(float dinner, float gate, float up, f
   inner = __fmul_rn(silu, up);
 }
 
-// The accumulators out: C, a split's partial sums, or (K5a's dinner) SwiGLU
-// into dgu and inner. A thread holds columns 2t, 2t + 1 of rows g, g + 8 of
-// each m16n8 tile; M and N are multiples of 4, so both columns are in or out.
+// The accumulators out: C, or a split's partial sums. A thread holds columns
+// 2t, 2t + 1 of rows g, g + 8 of each m16n8 tile; M and N are multiples of
+// 4, so both columns are in or out.
 template <bool MN>
 __device__ __forceinline__ void epilogue(const Role& r, const float (&acc)[4][4][4], int m0,
                                          int n0, int split, int wm, int wn, int g, int t) {
@@ -312,7 +332,6 @@ __device__ __forceinline__ void epilogue(const Role& r, const float (&acc)[4][4]
     c += (long)split * r.m * r.n;
     ldc = r.n;
   }
-  const bool swiglu = !MN && r.gate != nullptr;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -323,21 +342,8 @@ __device__ __forceinline__ void epilogue(const Role& r, const float (&acc)[4][4]
       for (int j = 0; j < 4; ++j) {
         const int col = n0 + wn * 32 + j * 8 + 2 * t;
         if (col >= r.n) continue;
-        const float x0 = acc[i][j][2 * half], x1 = acc[i][j][2 * half + 1];
-        if (swiglu) {
-          const float* gp = r.gate + (long)row * r.ld_gate + col;
-          const float2 gt = *reinterpret_cast<const float2*>(gp);
-          const float2 up = *reinterpret_cast<const float2*>(gp + r.up_off);
-          float2 dg, du, in;
-          swiglu_bwd(x0, gt.x, up.x, dg.x, du.x, in.x);
-          swiglu_bwd(x1, gt.y, up.y, dg.y, du.y, in.y);
-          float* drow = r.dgu + (long)row * 2 * r.n;
-          *reinterpret_cast<float2*>(drow + col) = dg;
-          *reinterpret_cast<float2*>(drow + r.n + col) = du;
-          *reinterpret_cast<float2*>(r.inner + (long)row * r.n + col) = in;
-        } else {
-          *reinterpret_cast<float2*>(c + (long)row * ldc + col) = make_float2(x0, x1);
-        }
+        *reinterpret_cast<float2*>(c + (long)row * ldc + col) =
+            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
       }
     }
   }
@@ -415,13 +421,7 @@ __device__ __forceinline__ void mm_body(const Params& p, float* smem) {
   }
 }
 
-// One body, two names (K5a-f32, K6-f32), so a profile tells the kernels apart.
-__global__ void __launch_bounds__(kThreads, 1)
-mlp_dgu_f32_kernel(const __grid_constant__ Params p) {
-  extern __shared__ __align__(16) float smem[];
-  mm_body(p, smem);
-}
-
+// K6-f32.
 __global__ void __launch_bounds__(kThreads, 1)
 proj_bwd_f32_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -613,7 +613,10 @@ __device__ __forceinline__ void wg_split(const uint8_t* raw, uint8_t* set) {
 // run while the threads split k-tile c + 1 into the other set and put
 // k-tile c + 4 in flight; each k-tile's products sum from zero into part,
 // which a rounded FADD adds to acc. One barrier a k-tile.
-template <bool MN>
+// kSwiglu (K5a-f32's dinner tiles, K-major, one split): the epilogue
+// computes SwiGLU's backward from gate and up into dgu and inner, as
+// swiglu_bwd; else it stores C or a split's partial sums.
+template <bool MN, bool kSwiglu>
 __device__ __forceinline__ void wg_tile(const Role& r, int idx, uint8_t* sm) {
   const uint32_t sb = smem_addr(sm);
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
@@ -672,6 +675,32 @@ __device__ __forceinline__ void wg_tile(const Role& r, int idx, uint8_t* sm) {
   }
   cp_wait<0>();
 
+  // A thread holds rows wg 64 + warp 16 + g (and + 8) and columns 8 i + 2 t,
+  // + 1 of the tile (acc[4 i + 2 half + e]); M and N are multiples of 4, so
+  // both columns of a pair are in or out.
+  if constexpr (kSwiglu) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + wg * 64 + warp * 16 + g + 8 * half;
+      if (row >= r.m) continue;
+      const float* grow = r.gate + (long)row * r.ld_gate;
+      float* drow = r.dgu + (long)row * 2 * r.n;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int col = n0 + 8 * i + 2 * t;
+        if (col >= r.n) continue;
+        const float2 gt = *reinterpret_cast<const float2*>(grow + col);
+        const float2 up = *reinterpret_cast<const float2*>(grow + r.up_off + col);
+        float2 dg, du, in;
+        swiglu_bwd(acc[4 * i + 2 * half], gt.x, up.x, dg.x, du.x, in.x);
+        swiglu_bwd(acc[4 * i + 2 * half + 1], gt.y, up.y, dg.y, du.y, in.y);
+        *reinterpret_cast<float2*>(drow + col) = dg;
+        *reinterpret_cast<float2*>(drow + r.n + col) = du;
+        *reinterpret_cast<float2*>(r.inner + (long)row * r.n + col) = in;
+      }
+    }
+    return;
+  }
   float* out = r.c;
   long ldc = r.ldc;
   if (r.splits > 1) {
@@ -708,9 +737,22 @@ mlp_dh_f32_kernel(const __grid_constant__ Params p) {
     if (mn) idx -= p.km.tiles;
   }
   if (mn) {
-    wg_tile<true>(p.mn, idx, sm);
+    wg_tile<true, false>(p.mn, idx, sm);
   } else {
-    wg_tile<false>(p.km, idx, sm);
+    wg_tile<false, false>(p.km, idx, sm);
+  }
+}
+
+// K5a-f32: one grid of the dinner tiles (K-major, the SwiGLU epilogue), or
+// one of the d_w_down tiles (MN-major, or splits of them), one block each.
+__global__ void __launch_bounds__(kWgThreads, 1)
+mlp_dgu_f32_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) uint8_t wg_smem[];
+  uint8_t* sm = wg_smem + ((1024u - (smem_addr(wg_smem) & 1023u)) & 1023u);
+  if (p.mn.tiles > 0) {
+    wg_tile<true, false>(p.mn, blockIdx.x, sm);
+  } else {
+    wg_tile<false, true>(p.km, blockIdx.x, sm);
   }
 }
 
@@ -775,14 +817,15 @@ int launch_mm(Kernel kernel, bool& configured, const Params& p, cudaStream_t str
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_wg(bool& configured, const Params& p, cudaStream_t stream) {
+template <typename Kernel>
+int launch_wg(Kernel kernel, bool& configured, const Params& p, cudaStream_t stream) {
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mlp_dh_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  mlp_dh_f32_kernel<<<p.km.tiles + p.mn.tiles, kWgThreads, kWgSmem, stream>>>(p);
+  kernel<<<p.km.tiles + p.mn.tiles, kWgThreads, kWgSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -823,12 +866,11 @@ extern "C" int ditl_mlp_bwd_dgu_dwdown_f32(const void* g, const void* w_down, co
   dinner.km.up_off = up_off;
   dinner.km.dgu = static_cast<float*>(dgu);
   dinner.km.inner = static_cast<float*>(inner);
-  if (const int err = launch_mm(mlp_dgu_f32_kernel, configured, dinner, s)) return err;
+  if (const int err = launch_wg(mlp_dgu_f32_kernel, configured, dinner, s)) return err;
   Params dwd = {};
   dwd.mn = make_role(inner, g, splits > 1 ? work : d_w_down, f, ld_g, d, f, d, n, splits,
                      k_chunk);
-  dwd.mn_first = 1;
-  if (const int err = launch_mm(mlp_dgu_f32_kernel, configured, dwd, s)) return err;
+  if (const int err = launch_wg(mlp_dgu_f32_kernel, configured, dwd, s)) return err;
   return finish_splits(dwd.mn, d_w_down, d, s);
 }
 
@@ -848,7 +890,7 @@ extern "C" int ditl_mlp_bwd_dh_dwgu_f32(const void* h, const void* dgu, const vo
   p.mn = make_role(h, dgu, splits > 1 ? work : d_w_gu, ld_h, 2L * f, 2L * f, d, 2 * f, n,
                    splits, k_chunk);
   p.mn_first = mn_first(p);
-  if (const int err = launch_wg(configured, p, s)) return err;
+  if (const int err = launch_wg(mlp_dh_f32_kernel, configured, p, s)) return err;
   return finish_splits(p.mn, d_w_gu, 2L * f, s);
 }
 

@@ -65,22 +65,66 @@
 //
 // Over int8 pools (variant F). Bound at the decode tick: 8.9 MB of int8
 // K/V plus 0.28 MB of scales and the f32 tail, q and o, about 2.8 us at
-// 3.35 TB/s, a quarter of the f32 kernel's bytes; its FFMA work is the f32
-// kernel's. The reference's quantized branch (_accumulate_block :140-176)
-// in f32: q . k of the exact int8 values in f32, times the scale, times K's
-// scale of the key; p times V's scale in f32, never rounded (the reference
-// multiplies (p * vs) by v.astype(f32)), while l adds the unscaled p; the
-// tail columns as the f32 kernel's. Design, the simplest that keeps the f32
-// kernel's byte stream and FFMA: a live page row's D int8 values come by
-// 16-byte cp.async into the first D bytes of its f32 row in the stage (no
-// extra shared memory, so the 80-row verify still fits: 199,872 bytes at D
-// = 128), its two scales by 4-byte cp.async into a scale tile; q . k reads
-// 16 int8 values a 16-byte load and p . V four a 4-byte load, converted to
-// f32 in registers (exact), a row taking the int8 or the f32 read by
-// whether it is a live page key, the rule the copy used. Routing it through
-// the bf16 int8 kernel would round q to bf16, its eighth bit, far outside
-// f32's tolerance. (int8 values are exact in TF32, so two TF32 MMAs a
-// product, q_hi . k + q_lo . k, are a later route to the tensor cores.)
+// 3.35 TB/s, a quarter of the f32 kernel's bytes. The reference's quantized
+// branch (_accumulate_block :140-176) in f32: q . k of the exact int8 values
+// in f32, times the scale, times K's scale of the key; p times V's scale in
+// f32, never rounded (the reference multiplies (p * vs) by v.astype(f32)),
+// while l adds the unscaled p; the tail columns as the f32 kernel's.
+// Routing it through the bf16 int8 kernel would round q to bf16, far
+// outside f32's tolerance.
+// - The single query (ditl_paged_tail_i8_f32, and a 4-D q with Q = 1) runs
+//   paged_i8_mma_f32_kernel, paged_attention.cu's K3-int8 design with f32
+//   numerics. Its first form staged int8 rows in the f32 kernel's row
+//   slots (about 140 KB a block at D = 128: one block, four warps, an SM)
+//   and ran both products on FFMA, a 16-byte load and 16 converts a thread
+//   per key: 1.6x K3-f32, which reads four times its bytes (H100 SXM, 700
+//   W).
+//   - Grid, walk, merge and every rule below as the f32 kernel's: (split,
+//     KV head and group of 16 of the G query rows, slot); 64-key tiles,
+//     dead ones skipped; a split with nothing live returns at once.
+//   - Small staging tiles. A page tile (every row below the tail) comes by
+//     16-byte cp.async into two stages of raw int8 tiles, D + 32 bytes a
+//     key, the next page tile in flight while one is computed; its two
+//     scales by 4-byte copies into a scale tile. A tile with tail rows
+//     (the tail's, or one that mixes page and tail rows) takes one f32
+//     tile that aliases both stages: its K rows, then after q.k its V rows
+//     (page rows as int8 bytes in the first D bytes of their f32 row, tail
+//     rows f32, dead rows zeros); such a tile is loaded once the one
+//     before it is done, as only the axis's last tiles hold tail rows. 71
+//     KB a block at D = 128 (three blocks an SM), 34 / 46 / 120 KB at D =
+//     32 / 64 / 256.
+//   - Both products on the tensor cores (mma.sync.m16n8k8.tf32), 3xTF32:
+//     the 16 query rows (G <= 16 a block, zero-padded) are the m16 A
+//     operand, so each K and V tile serves the whole group. q is split
+//     once a block into TF32 hi and lo = q - hi (flash_f32.cu's split_tf32)
+//     A fragments, which shared memory holds in lane order (one 16-byte
+//     read a k8 step; in registers they would take D registers a thread at
+//     G = 16). An int8 key is exact in TF32, so a page tile takes two MMAs
+//     a product, q_lo . k then q_hi . k; a tile with tail rows splits its
+//     f32 rows too and takes three, lo.hi, hi.lo, hi.hi (lo = 0 on its
+//     int8 rows): a choice per tile, the same for the whole block. p times
+//     V's scale is formed in f32 and split into p's hi and lo fragments by
+//     the softmax; p.V takes p_lo . v, p_hi . v on a page tile, three MMAs
+//     on a tile with tail rows. Each 32-deep partial (32 dimensions of q.k,
+//     32 keys of p.V) sums from zero and a rounded FADD adds it on (the
+//     tensor cores' own accumulation truncates).
+//   - int8 to TF32 in registers from the raw tile, no convert pass: the
+//     contraction of q.k is permuted alike in both operands (k8 step 4c + s
+//     takes dimensions 32c + 8t + 2s and + 1 for columns t and t + 4), so
+//     one 8-byte read of a key row feeds four steps; p.V's output columns
+//     are permuted (column n of n8 block j is dimension w D / 4 + (D / 32)
+//     n + j), so one read of D / 32 bytes of a V row feeds all of a warp's
+//     column blocks. A byte converts by one byte permute into 2^23 + (v +
+//     128) and one FADD, exact.
+//   - Rows: G <= 16 is one block; more run in groups of 16 side by side.
+//     Scores mask by each row's tail limit, and q and o rows are indexed by
+//     (query, group head), so the verify's Q G rows can move onto these
+//     row tiles.
+// - The verify (ditl_paged_verify_i8_f32, Q > 1) keeps the FFMA split
+//   kernel's kI8 instances: a live page row's D int8 values staged into the
+//   first D bytes of its f32 row, q . k 16 values a 16-byte load and p . V
+//   four a 4-byte load, converted to f32 in registers (exact), a row taking
+//   the int8 or the f32 read by whether it is a live page key.
 //
 // Head dims up to 32, 64, 128 and 256, one template whose D is a capacity:
 // a call's head_dim (Params::head_dim, any multiple of 16 up to 256) runs on
@@ -102,13 +146,16 @@
 // group), each walking the split's tiles for its rows (each re-reads the
 // split's K and V); their partials land in the same workspace rows the
 // merge reads. A single query with G > 8 (and K4 with G > 8) takes the
-// 16-, 48- or 80-row instances with n_q = 1. ptxas -v (sm_90a) with the
-// run-time head_dim: D = 32 and 64 56-168 registers (4 bytes spilled in
-// three forms); D = 128 single-query 116 (K4 96, int8 146), 16 / 48 / 80
-// rows 128 / 190 / 198 (K4 128 / 168 / 184, 12 bytes spilled at 48; int8
-// 168 at each, 36 bytes spilled at 16); D = 256 single-query 204 (K4 206,
-// int8 138), 16 / 48 rows 206 / 255 with 132 bytes spilled (K4 202 / 255
-// and 128 bytes; int8 182 / 255, none); merge 48-145.
+// 16-, 48- or 80-row instances with n_q = 1 (over int8 pools, the
+// tensor-core kernel's groups of 16). ptxas -v (sm_90a) with the run-time
+// head_dim: D = 32 and 64 56-168 registers (4 bytes spilled in three
+// forms); D = 128 single-query 116 (K4 96), 16 / 48 / 80 rows 128 / 190 /
+// 198 (K4 128 / 168 / 184, 12 bytes spilled at 48; int8 168 at each, 36
+// bytes spilled at 16); D = 256 single-query 204 (K4 206), 16 / 48 rows 206
+// / 255 with 132 bytes spilled (K4 202 / 255 and 128 bytes; int8 182 / 255,
+// none); merge 48-145; paged_i8_mma_f32_kernel 124 / 128 / 127 / 164 at D =
+// 32 / 64 / 128 / 256, no spills (the FFMA single-query int8 forms it
+// replaced spilled 4 bytes at D = 32 and 8 at D = 256).
 //
 // Semantics, the reference's in f32: scores are the f32 q.k sums times the
 // scale; masked columns of a processed tile take the finite -2.3819763e38;
@@ -604,6 +651,528 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3-int8-f32, the single-query form over int8 pools, on the tensor cores.
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaRows = 16;  // query rows of a block: the rows of the m16 A operand
+
+// The block's shared memory, in bytes. Two stages of raw int8 K and V tiles
+// (64 rows of D bytes, padded to D + 32 so the fragment reads below reach 32
+// banks); the f32 tile of a tile with tail rows (64 rows of D + 8 floats,
+// holding its K rows, then its V rows) aliases both stages, which such a
+// tile never needs; then q's and p's A fragments (TF32 hi, then lo, 16 bytes
+// a lane a k8 step), the scores of the 16 rows, m, l and alpha, and two
+// stages of the tile's 64 K and 64 V scales.
+template <int D>
+struct MmaLayout {
+  static constexpr int kLd8 = D + 32;
+  static constexpr int kTile8 = kTile * kLd8;
+  static constexpr int kStage = 2 * kTile8;
+  static constexpr int kLdF = D + 8;
+  static constexpr int kQF = 2 * kStage;
+  static constexpr int kQFrag = D / 8 * 32 * 16;      // one of q's hi or lo fragment sets
+  static constexpr int kPF = kQF + 2 * kQFrag;
+  static constexpr int kPFrag = kTile / 8 * 32 * 16;  // one of p's
+  static constexpr int kLdS = kTile + 4;
+  static constexpr int kS = kPF + 2 * kPFrag;
+  static constexpr int kM = kS + kMmaRows * kLdS * 4;
+  static constexpr int kL = kM + kMmaRows * 4;
+  static constexpr int kAlpha = kL + kMmaRows * 4;
+  static constexpr int kSc = kAlpha + kMmaRows * 4;
+  static constexpr int kBytes = kSc + 2 * 2 * kTile * 4;
+  static_assert(kTile * kLdF * 4 <= 2 * kStage, "the f32 tile fits the two int8 stages");
+  static_assert(kBytes <= kMaxSmem, "shared memory of a block");
+};
+
+// x = hi + lo, hi x rounded to the nearest TF32 value (cvt.rna's result) by
+// two integer operations, lo = x - hi exact and handed over unrounded (the
+// tensor cores read its top 19 bits): csrc/flash_f32.cu's split_tf32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, f32) += a (16 x 8, tf32, row) . b (8 x 8, tf32, col).
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Byte i of a word of int8 values whose sign bits were flipped (w ^
+// 0x80808080, so the byte is v + 128) as the bits of v in f32, exact in
+// TF32: 2^23 + (v + 128) built by one byte permute, minus 2^23 + 128.
+__device__ __forceinline__ uint32_t i8_tf32(uint32_t w, int i) {
+  return __float_as_uint(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u | i)) - 8388736.f);
+}
+
+// N consecutive int8 values at p (N = 1, 2, 4 or 8, aligned to N), sign
+// bits flipped for i8_tf32: bytes 0-3 in .x, 4-7 in .y.
+template <int N>
+__device__ __forceinline__ uint2 ld_i8(const uint8_t* p) {
+  uint2 w = make_uint2(0u, 0u);
+  if constexpr (N == 8) w = *reinterpret_cast<const uint2*>(p);
+  else if constexpr (N == 4) w.x = *reinterpret_cast<const uint32_t*>(p);
+  else if constexpr (N == 2) w.x = *reinterpret_cast<const uint16_t*>(p);
+  else w.x = *p;
+  return make_uint2(w.x ^ 0x80808080u, w.y ^ 0x80808080u);
+}
+
+__device__ __forceinline__ uint32_t i8_at8(const uint2& w, int i) {
+  return i8_tf32(i < 4 ? w.x : w.y, i & 3);
+}
+
+// N consecutive floats at p (aligned to 4 N bytes) into v.
+template <int N>
+__device__ __forceinline__ void ld_f32(const float* p, float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + i);
+      v[i] = x.x;
+      v[i + 1] = x.y;
+      v[i + 2] = x.z;
+      v[i + 3] = x.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// The page tile at t0 (every row below tail0: page keys, or dead keys that
+// arrive as zeros) into an int8 stage (K at k8, V kTile8 bytes on), a live
+// row's D bytes by 16-byte cp.async, chunks past head_dim zero; its K and V
+// scales to sc (V kTile floats on; 0 on dead rows).
+template <int D>
+__device__ __forceinline__ void load_i8_tile(const Params& p, const Live& live, int b, int kh,
+                                             int t0, uint8_t* k8, float* sc) {
+  using L = MmaLayout<D>;
+  constexpr int kChunks = D / 16;
+  const int hd = p.head_dim;
+  const int* trow = p.table + (long)b * p.max_pages;
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int v = t0 + r;
+    const bool in = live.key(v) && 16 * c < hd;
+    long off = 0;
+    if (in) {
+      const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
+      off = ((page * p.kv_heads + kh) * p.page_size + v % p.page_size) * hd + 16 * c;
+    }
+    cp_async16(k8 + r * L::kLd8 + 16 * c, p.k_i8 + off, in);
+    cp_async16(k8 + L::kTile8 + r * L::kLd8 + 16 * c, p.v_i8 + off, in);
+  }
+  const int r = threadIdx.x % kTile;
+  const bool is_v = threadIdx.x >= kTile;
+  const int v = t0 + r;
+  const bool ok = int8_row(live, v);
+  long off = 0;
+  if (ok) {
+    const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
+    off = (page * p.kv_heads + kh) * p.page_size + v % p.page_size;
+  }
+  cp_async4(sc + (is_v ? kTile : 0) + r, (is_v ? p.v_scale : p.k_scale) + off, ok);
+  cp_commit();
+}
+
+// K's (is_v false: with both scales to sc) or V's rows of a tile with tail
+// rows into the f32 tile ft: a live page row's D int8 bytes into the first D
+// bytes of its f32 row, a tail row's f32 values, a dead row zeros (chunks
+// past head_dim zero).
+template <int D>
+__device__ __forceinline__ void load_f32_tile(const Params& p, const Live& live, int b, int kh,
+                                              int t0, bool is_v, float* ft, float* sc) {
+  using L = MmaLayout<D>;
+  constexpr int kChunks = D / 4;
+  const int hd = p.head_dim;
+  const int* trow = p.table + (long)b * p.max_pages;
+  const int8_t* pool = is_v ? p.v_i8 : p.k_i8;
+  const float* tail = is_v ? p.tail_v : p.tail_k;
+#pragma unroll 4
+  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int v = t0 + r;
+    float* dst = ft + r * L::kLdF;
+    if (int8_row(live, v)) {
+      if (c < D / 16) {
+        const bool in = 16 * c < hd;
+        long off = 0;
+        if (in) {
+          const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
+          off = ((page * p.kv_heads + kh) * p.page_size + v % p.page_size) * hd + 16 * c;
+        }
+        cp_async16(reinterpret_cast<uint8_t*>(dst) + 16 * c, pool + off, in);
+      }
+      continue;
+    }
+    // A tail row, or a dead row (no read; its address is any valid one).
+    const bool in = live.key(v) && 4 * c < hd;
+    const long off =
+        in ? (((long)b * p.kv_heads + kh) * p.tail_len + (v - live.tail0)) * hd + 4 * c : 0;
+    cp_async16(dst + 4 * c, tail + off, in);
+  }
+  if (!is_v) {
+    const int r = threadIdx.x % kTile;
+    const bool v_sc = threadIdx.x >= kTile;
+    const int v = t0 + r;
+    const bool ok = int8_row(live, v);
+    long off = 0;
+    if (ok) {
+      const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
+      off = (page * p.kv_heads + kh) * p.page_size + v % p.page_size;
+    }
+    cp_async4(sc + (v_sc ? kTile : 0) + r, (v_sc ? p.v_scale : p.k_scale) + off, ok);
+  }
+  cp_commit();
+}
+
+// The float index of element (row r, contraction index k) of an m16 x k8
+// A fragment set laid out lane by lane (k8 step k / 8, lane 4 (r % 8) + k %
+// 4, element r / 8 + 2 ((k % 8) / 4)).
+__device__ __forceinline__ int frag_at(int r, int k) {
+  return ((k >> 3) * 32 + ((r & 7) << 2) + (k & 3)) * 4 + (r >> 3) + (((k >> 2) & 1) << 1);
+}
+
+// One split of one (KV head, slot) for up to 16 query rows of a single
+// query (blockIdx.y: the KV head, then the block's group of 16 of the G
+// rows), q.k and p.V as 3xTF32 products on mma.sync.m16n8k8 (see "Over int8
+// pools" in the header).
+template <int D>
+__global__ void __launch_bounds__(kThreads) paged_i8_mma_f32_kernel(const Params p) {
+  using L = MmaLayout<D>;
+  constexpr int kNT = D / 32;  // p.V: n8 column blocks a warp (D / 4 columns)
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  uint8_t* smem = mma_smem;
+  float* ft = reinterpret_cast<float*>(smem);  // the f32 tile (aliases both stages)
+  float4* qf = reinterpret_cast<float4*>(smem + L::kQF);  // q's A fragments: hi, then lo
+  float* pf = reinterpret_cast<float*>(smem + L::kPF);    // p's: hi, then lo
+  float* ss = reinterpret_cast<float*>(smem + L::kS);
+  float* sm = reinterpret_cast<float*>(smem + L::kM);
+  float* sl = reinterpret_cast<float*>(smem + L::kL);
+  float* salpha = reinterpret_cast<float*>(smem + L::kAlpha);
+  float* ssc = reinterpret_cast<float*>(smem + L::kSc);
+
+  const int split = blockIdx.x, kh = blockIdx.y % p.kv_heads, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
+  const int groups = p.groups, hd = p.head_dim;
+  const int all_rows = p.n_q * groups;
+  const int row0 = blockIdx.y / p.kv_heads * kMmaRows;
+  const int rows = min(kMmaRows, all_rows - row0);
+  const Live live = slot_live<true>(p, b);
+  const int v0 = split * p.split, v1 = min(v0 + p.split, live.end);
+  int cur = live.next(v0, v1);
+  if (cur < 0) return;  // no live key: no partial (the merge weighs this split 0)
+  // A tile with every row below tail0 is a page tile (int8 stages, two
+  // MMAs a product); else it holds tail rows (the f32 tile, three MMAs).
+  bool page = cur + kTile <= live.tail0;
+  if (page) {
+    load_i8_tile<D>(p, live, b, kh, cur, smem, ssc);
+  } else {
+    load_f32_tile<D>(p, live, b, kh, cur, false, ft, ssc);
+  }
+
+  // q's rows split once into TF32 hi and lo A fragments, in the order the
+  // k8 steps read the keys' bytes: step 4c + s takes, for column t (t + 4),
+  // dimension 32c + 8t + 2s (+ 1), so one 8-byte read of a key row feeds
+  // four steps. Rows past the block's and dimensions past head_dim zero.
+  {
+    const long heads = (long)p.kv_heads * groups;
+    for (int idx = tid; idx < D / 8 * 32; idx += kThreads) {
+      const int ks = idx >> 5, fg = (idx >> 2) & 7, ft4 = idx & 3;
+      const int d0 = 32 * (ks >> 2) + 8 * ft4 + 2 * (ks & 3);
+      float2 x[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = fg + 8 * h, rr = row0 + r;
+        x[h] = make_float2(0.f, 0.f);
+        if (r < rows && d0 < hd) {
+          const long qrow = ((long)b * p.n_q + rr / groups) * heads + (long)kh * groups + rr % groups;
+          x[h] = *reinterpret_cast<const float2*>(p.q + qrow * hd + d0);
+        }
+      }
+      const float a[4] = {x[0].x, x[1].x, x[0].y, x[1].y};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(a[e], hi[e], lo[e]);
+      qf[idx] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                            __uint_as_float(hi[2]), __uint_as_float(hi[3]));
+      qf[D / 8 * 32 + idx] = make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                                         __uint_as_float(lo[2]), __uint_as_float(lo[3]));
+    }
+  }
+  for (int i = tid; i < 2 * kTile / 8 * 32 * 4; i += kThreads) pf[i] = 0.f;  // padding rows: p = 0
+  if (tid < kMmaRows) {
+    sm[tid] = kNegInf;
+    sl[tid] = 0.f;
+  }
+  float acc[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int stage = 0; cur >= 0; stage ^= 1) {
+    const int nxt = live.next(cur + kTile, v1);
+    // The next tile is in flight during this one only if both are page tiles.
+    const bool ahead = page && nxt >= 0 && nxt + kTile <= live.tail0;
+    if (ahead) {
+      load_i8_tile<D>(p, live, b, kh, nxt, smem + (stage ^ 1) * L::kStage,
+                      ssc + (stage ^ 1) * 2 * kTile);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // the tile's K (and V) and scales, q's fragments, m, l
+    const uint8_t* k8 = smem + stage * L::kStage;
+    const uint8_t* v8 = k8 + L::kTile8;
+    const float* sks = ssc + stage * 2 * kTile;
+    const float* svs = sks + kTile;
+
+    // Scores of warp w's 16 keys (two n8 blocks), 32 dimensions a chunk:
+    // each chunk's MMAs sum from zero and a rounded FADD adds them up.
+    {
+      float s[2][4] = {};
+#pragma unroll 2
+      for (int c = 0; c < D / 32; ++c) {
+        uint32_t bh[2][4][2], bl[2][4][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int r = 16 * warp + 8 * j + g;
+          if (page || int8_row(live, cur + r)) {
+            const uint8_t* row = page ? k8 + r * L::kLd8 : reinterpret_cast<const uint8_t*>(
+                                                                ft + r * L::kLdF);
+            const uint2 w = ld_i8<8>(row + 32 * c + 8 * t);
+#pragma unroll
+            for (int s4 = 0; s4 < 4; ++s4) {
+              bh[j][s4][0] = i8_at8(w, 2 * s4);
+              bh[j][s4][1] = i8_at8(w, 2 * s4 + 1);
+              bl[j][s4][0] = bl[j][s4][1] = 0u;
+            }
+          } else {
+            float x[8];
+            ld_f32<8>(ft + r * L::kLdF + 32 * c + 8 * t, x);
+#pragma unroll
+            for (int s4 = 0; s4 < 4; ++s4) {
+              split_tf32(x[2 * s4], bh[j][s4][0], bl[j][s4][0]);
+              split_tf32(x[2 * s4 + 1], bh[j][s4][1], bl[j][s4][1]);
+            }
+          }
+        }
+        float part[2][4] = {};
+#pragma unroll
+        for (int s4 = 0; s4 < 4; ++s4) {
+          const int ks = 4 * c + s4;
+          const float4 h4 = qf[ks * 32 + lane], l4 = qf[D / 8 * 32 + ks * 32 + lane];
+          const uint32_t ah[4] = {__float_as_uint(h4.x), __float_as_uint(h4.y),
+                                  __float_as_uint(h4.z), __float_as_uint(h4.w)};
+          const uint32_t al[4] = {__float_as_uint(l4.x), __float_as_uint(l4.y),
+                                  __float_as_uint(l4.z), __float_as_uint(l4.w)};
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (page) {  // an int8 key is exact in TF32: q_lo.k, then q_hi.k
+              mma_tf32(part[j], al, bh[j][s4]);
+              mma_tf32(part[j], ah, bh[j][s4]);
+            } else {  // lo.hi, hi.lo, hi.hi (lo = 0 on the tile's int8 rows)
+              mma_tf32(part[j], al, bh[j][s4]);
+              mma_tf32(part[j], ah, bl[j][s4]);
+              mma_tf32(part[j], ah, bh[j][s4]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = __fadd_rn(s[j][e], part[j][e]);
+        }
+      }
+      // times the scale, then K's scale on a page key; keys dead for the
+      // row take the finite mask value.
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 8 * hf + g;
+        if (r < rows) {
+          const int te = live.row_end((row0 + r) / groups);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int k = 16 * warp + 8 * j + 2 * t;
+            float s0 = s[j][2 * hf] * p.scale, s1 = s[j][2 * hf + 1] * p.scale;
+            if (int8_row(live, cur + k)) s0 *= sks[k];
+            if (int8_row(live, cur + k + 1)) s1 *= sks[k + 1];
+            float2 sc;
+            sc.x = live.key_row(cur + k, te) ? s0 : kNegInf;
+            sc.y = live.key_row(cur + k + 1, te) ? s1 : kNegInf;
+            *reinterpret_cast<float2*>(ss + r * L::kLdS + k) = sc;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the scores; the f32 tile's K rows are read
+    if (!page) load_f32_tile<D>(p, live, b, kh, cur, true, ft, nullptr);
+
+    // Online softmax, one warp per query row; p times V's scale on a page
+    // key (never rounded; l adds the unscaled p), split into p's fragments.
+    for (int r = warp; r < rows; r += kWarps) {
+      const float s0 = ss[r * L::kLdS + lane];
+      const float s1 = ss[r * L::kLdS + lane + 32];
+      const float m_prev = sm[r];
+      const float m_next = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+      const float p0 = expf(s0 - m_next);
+      const float p1 = expf(s1 - m_next);
+      const float rs = warp_sum(p0 + p1);
+      float w[2] = {p0, p1};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = lane + 32 * h;
+        if (int8_row(live, cur + k)) w[h] *= svs[k];
+        uint32_t hi, lo;
+        split_tf32(w[h], hi, lo);
+        pf[frag_at(r, k)] = __uint_as_float(hi);
+        pf[kTile / 8 * 32 * 4 + frag_at(r, k)] = __uint_as_float(lo);
+      }
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_next);
+        salpha[r] = alpha;
+        sl[r] = alpha * sl[r] + rs;
+        sm[r] = m_next;
+      }
+    }
+    if (!page) cp_wait<0>();
+    __syncthreads();  // p's fragments, alpha (and the f32 tile's V rows)
+
+    // acc = acc * alpha + p.V on warp w's D / 4 columns, 32 keys a chunk.
+    // Column n of n8 block j is dimension w D / 4 + kNT n + j, so one read
+    // of kNT bytes (or floats) of a V row feeds every block of the warp.
+    {
+      const float alpha0 = g < rows ? salpha[g] : 0.f;
+      const float alpha1 = g + 8 < rows ? salpha[g + 8] : 0.f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        acc[j][0] = __fmul_rn(acc[j][0], alpha0);
+        acc[j][1] = __fmul_rn(acc[j][1], alpha0);
+        acc[j][2] = __fmul_rn(acc[j][2], alpha1);
+        acc[j][3] = __fmul_rn(acc[j][3], alpha1);
+      }
+      const int col = warp * (D / 4) + kNT * g;
+      const float4* pfh = reinterpret_cast<const float4*>(pf);
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        float part[kNT][4] = {};
+#pragma unroll
+        for (int s4 = 0; s4 < 4; ++s4) {
+          const int ks = 4 * kc + s4;
+          const float4 h4 = pfh[ks * 32 + lane], l4 = pfh[kTile / 8 * 32 + ks * 32 + lane];
+          const uint32_t ah[4] = {__float_as_uint(h4.x), __float_as_uint(h4.y),
+                                  __float_as_uint(h4.z), __float_as_uint(h4.w)};
+          const uint32_t al[4] = {__float_as_uint(l4.x), __float_as_uint(l4.y),
+                                  __float_as_uint(l4.z), __float_as_uint(l4.w)};
+          uint32_t bh[kNT][2], bl[kNT][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {  // V rows 8 ks + t and 8 ks + t + 4
+            const int r = 8 * ks + t + 4 * e;
+            if (page || int8_row(live, cur + r)) {
+              const uint8_t* row = page ? v8 + r * L::kLd8 : reinterpret_cast<const uint8_t*>(
+                                                                  ft + r * L::kLdF);
+              const uint2 w = ld_i8<kNT>(row + col);
+#pragma unroll
+              for (int j = 0; j < kNT; ++j) {
+                bh[j][e] = i8_at8(w, j);
+                bl[j][e] = 0u;
+              }
+            } else {
+              float x[kNT];
+              ld_f32<kNT>(ft + r * L::kLdF + col, x);
+#pragma unroll
+              for (int j = 0; j < kNT; ++j) split_tf32(x[j], bh[j][e], bl[j][e]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            if (page) {  // an int8 V row is exact in TF32: p_lo.v, then p_hi.v
+              mma_tf32(part[j], al, bh[j]);
+              mma_tf32(part[j], ah, bh[j]);
+            } else {
+              mma_tf32(part[j], al, bh[j]);
+              mma_tf32(part[j], ah, bl[j]);
+              mma_tf32(part[j], ah, bh[j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], part[j][e]);
+        }
+      }
+    }
+    __syncthreads();  // the stage, the f32 tile, the scores and p are free again
+    if (!ahead && nxt >= 0) {  // a tile with tail rows: after this one
+      load_f32_tile<D>(p, live, b, kh, nxt, false, ft, ssc + (stage ^ 1) * 2 * kTile);
+    }
+    page = ahead;
+    cur = nxt;
+  }
+
+  // The split's partial: m and l per row; acc's row g (and g + 8) holds
+  // dimensions w D / 4 + 2 t kNT .. + 2 kNT - 1 in order (columns 2t of the
+  // kNT blocks, then 2t + 1), a run that head_dim (a multiple of 16) holds
+  // whole or not at all.
+  const long part = ((long)b * p.kv_heads + kh) * p.n_split + split;
+  const int col0 = warp * (D / 4) + 2 * t * kNT;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = 8 * hf + g;
+    if (r < rows && col0 < hd) {
+      float run[2 * kNT];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        run[j] = acc[j][2 * hf];
+        run[kNT + j] = acc[j][2 * hf + 1];
+      }
+      float* dst = p.part_acc + (part * all_rows + row0 + r) * hd + col0;
+      if constexpr (kNT == 1) {
+        *reinterpret_cast<float2*>(dst) = make_float2(run[0], run[1]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 2 * kNT; i += 4) {
+          *reinterpret_cast<float4*>(dst + i) =
+              make_float4(run[i], run[i + 1], run[i + 2], run[i + 3]);
+        }
+      }
+    }
+  }
+  for (int r = tid; r < rows; r += kThreads) {
+    p.part_ml[(part * all_rows + row0 + r) * 2] = sm[r];
+    p.part_ml[(part * all_rows + row0 + r) * 2 + 1] = sl[r];
+  }
+}
+
+template <int D>
+int launch_i8_mma(const Params& p, int batch, cudaStream_t stream) {
+  static bool prepared = false;
+  constexpr int kSmem = MmaLayout<D>::kBytes;
+  auto kernel = paged_i8_mma_f32_kernel<D>;
+  if (!prepared) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    prepared = true;
+  }
+  const int row_groups = (p.n_q * p.groups + kMmaRows - 1) / kMmaRows;
+  kernel<<<dim3(p.n_split, p.kv_heads * row_groups, batch), kThreads, kSmem, stream>>>(p);
+  if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  paged_merge_f32_kernel<D, true><<<dim3(p.n_q * p.groups, p.kv_heads, batch), p.head_dim,
+                                    2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, bool kTail, int kR, bool kI8>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   static bool prepared = false;
@@ -628,7 +1197,11 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 // rows side by side past it.
 template <int D, bool kTail, bool kI8>
 int launch_rows(const Params& p, int batch, cudaStream_t stream, bool verify, int rows) {
-  if (!verify && rows <= kSingleRows) return launch<D, kTail, kSingleRows, kI8>(p, batch, stream);
+  if constexpr (kI8) {  // a single query over int8 pools: the tensor-core kernel, any G
+    if (!verify) return launch_i8_mma<D>(p, batch, stream);
+  } else {
+    if (!verify && rows <= kSingleRows) return launch<D, kTail, kSingleRows, kI8>(p, batch, stream);
+  }
   if (rows <= 16) return launch<D, kTail, 16, kI8>(p, batch, stream);
   if (rows <= 48) return launch<D, kTail, 48, kI8>(p, batch, stream);
   return launch<D, kTail, kBlockRows<D>, kI8>(p, batch, stream);

@@ -27,13 +27,15 @@ alone (its card tests).
 
 float32 operands take K5a-f32 and K5b-f32 (``ditl_mlp_bwd_dgu_dwdown_f32``,
 ``ditl_mlp_bwd_dh_dwgu_f32``) in ``csrc/gemm_f32.cu``, 3xTF32 on the tensor
-cores: K5a-f32 on ``mma.sync``, K5b-f32 on ``wgmma`` from operands split
-once into shared memory (its header says how); ``kernel_route`` is the one
-table of dtype -> source
-and entry points, and ``launches_dgu_f32`` and ``launches_dh_f32`` count
-their wrapper calls (K5a-f32 runs two grids a call, the dinner tiles then the
-d_w_down tiles). ``f32_weight_splits`` is their split-K rule for a weight
-gradient with few tiles.
+cores, both on ``wgmma`` from operands split once into shared memory (the
+source's header says how); ``kernel_route`` is the one table of dtype ->
+source and entry points, and ``launches_dgu_f32`` and ``launches_dh_f32``
+count their wrapper calls (K5a-f32 runs two grids a call, the dinner tiles
+then the d_w_down tiles). ``f32_weight_splits`` is their split-K rule for a
+weight gradient with few tiles (K5b-f32's d_w_gu, K6-f32's dw), and
+``f32_dwdown_splits`` K5a-f32's for d_w_down, which also splits a grid of
+more than one wave so that its last wave is not mostly idle. The f32
+kernels take any D and F that are multiples of 4 (16-byte rows).
 
 ``BlockSizes``, ``DEFAULT_BLOCKS``, ``_pick_blocks`` and ``supports`` are the
 reference's, copied: they decide which shapes take this backward
@@ -56,7 +58,7 @@ __all__ = ["fused_mlp_bwd", "fused_mlp_bwd_plain", "dgu_dwdown", "dgu_dwdown_pla
            "dh_dwgu", "dh_dwgu_plain", "supports", "BlockSizes", "DEFAULT_BLOCKS",
            "launches_dgu", "launches_dh", "launches_dgu_f16", "launches_dh_f16",
            "launches_dgu_f32", "launches_dh_f32", "reset_launches", "kernel_route", "Route",
-           "f32_weight_splits", "K5_BLOCK_M", "K5_BLOCK_N", "K5_BLOCK_K", "K5_GROUP",
+           "f32_weight_splits", "f32_dwdown_splits", "K5_BLOCK_M", "K5_BLOCK_N", "K5_BLOCK_K", "K5_GROUP",
            "F32_BLOCK", "F32_BLOCK_K", "F32_MAX_SPLITS", "k5_tile_order", "gemm_core",
            "gemm_core_plain"]
 
@@ -87,6 +89,9 @@ F32_BLOCK = 128
 F32_BLOCK_K = 32
 F32_MAX_SPLITS = 16
 CARD_SMS = 132  # H100 SXM: a constant, so the split (and the bits) never vary
+# K5a-f32's d_w_down over a grid of at least CARD_SMS tiles: at most this
+# many splits (each writes and the sum reads an F x D f32 plane).
+F32_DWDOWN_MAX_SPLITS = 4
 
 # Kernel launches since the last reset_launches(); counted where each kernel
 # is launched and nowhere else: K5a, K5b on bf16, on float16, and on f32
@@ -163,6 +168,24 @@ def f32_weight_splits(m: int, n: int, k: int) -> tuple[int, int]:
     fill the card."""
     tiles = _cdiv(m, F32_BLOCK) * _cdiv(n, F32_BLOCK)
     want = min(F32_MAX_SPLITS, max(1, _cdiv(CARD_SMS, tiles)))
+    chunk = _cdiv(_cdiv(k, want), F32_BLOCK_K) * F32_BLOCK_K
+    splits = _cdiv(k, chunk)
+    return (1, k) if splits == 1 else (splits, chunk)
+
+
+def f32_dwdown_splits(m: int, n: int, k: int) -> tuple[int, int]:
+    """(splits, contraction per split) of K5a-f32's d_w_down (M = F by N = D,
+    contracting over K tokens). Fewer tiles than CARD_SMS: as
+    ``f32_weight_splits``. Else the count s <= F32_DWDOWN_MAX_SPLITS whose
+    blocks waste least of their last wave, the least ceil(s tiles /
+    CARD_SMS) / s (waves, in units of an unsplit tile's time), the smaller s
+    on a tie: at path 10's 266 tiles, 3 waves unsplit, 2.25 in 4 splits.
+    Each split is a multiple of F32_BLOCK_K deep, the last one the rest."""
+    tiles = _cdiv(m, F32_BLOCK) * _cdiv(n, F32_BLOCK)
+    if tiles < CARD_SMS:
+        return f32_weight_splits(m, n, k)
+    want = min(range(1, F32_DWDOWN_MAX_SPLITS + 1),
+               key=lambda s: (_cdiv(s * tiles, CARD_SMS) / s, s))
     chunk = _cdiv(_cdiv(k, want), F32_BLOCK_K) * F32_BLOCK_K
     splits = _cdiv(k, chunk)
     return (1, k) if splits == 1 else (splits, chunk)
@@ -258,6 +281,13 @@ def _cuda_rows(name: str, t: torch.Tensor, device, dtype: torch.dtype) -> int:
     return t.stride(0)
 
 
+def _width_off(x: int, f32: bool) -> bool:
+    """Whether a width D or F is one the kernels refuse: the f32 kernels
+    take multiples of 4 (16-byte rows, ragged tiles masked), the bf16 and
+    float16 ones multiples of 128."""
+    return bool(x % (4 if f32 else NUM_LANES))
+
+
 def _on_card(device) -> None:
     if device.type != "cuda":
         raise ValueError(f"the kernels run on CUDA tensors, not {device}")
@@ -332,17 +362,17 @@ def dgu_dwdown(g: torch.Tensor, w_down: torch.Tensor, gate: torch.Tensor,
                          "16-byte aligned")
     w_down = w_down.contiguous()
     _cuda_rows("w_down", w_down, dev, g.dtype)
-    if w_down.shape[1] != d or d % NUM_LANES or f % NUM_LANES:
+    f32 = g.dtype == torch.float32
+    if w_down.shape[1] != d or _width_off(d, f32) or _width_off(f, f32):
         raise ValueError(f"w_down {tuple(w_down.shape)} must be (F, D), both "
-                         "multiples of 128")
+                         f"multiples of {4 if f32 else NUM_LANES}")
     _on_card(dev)
     up_off = (up.data_ptr() - gate.data_ptr()) // g.element_size()
     dgu = torch.empty((n, 2 * f), dtype=g.dtype, device=dev)
     d_w_down = torch.empty((f, d), dtype=w_down.dtype, device=dev)
     inner = torch.empty((n, f), dtype=g.dtype, device=dev)
-    f32 = g.dtype == torch.float32
     if f32:  # scratch: d_w_down's split sums, when it is split
-        splits, chunk = f32_weight_splits(f, d, n)
+        splits, chunk = f32_dwdown_splits(f, d, n)
         scratch = torch.empty((splits, f, d) if splits > 1 else (0,), dtype=g.dtype,
                               device=dev)
     else:  # scratch: [0] the tile counter, [1 + s] the ready count of strip s
@@ -371,13 +401,15 @@ def dh_dwgu(h: torch.Tensor, dgu: torch.Tensor, w_gu: torch.Tensor
     dgu, w_gu = dgu.contiguous(), w_gu.contiguous()
     _cuda_rows("dgu", dgu, dev, h.dtype)
     _cuda_rows("w_gu", w_gu, dev, h.dtype)
-    if dgu.shape != (n, f2) or w_gu.shape != (d, f2) or d % NUM_LANES or f2 % (2 * NUM_LANES):
+    f32 = h.dtype == torch.float32
+    if (dgu.shape != (n, f2) or w_gu.shape != (d, f2) or f2 % 2 or _width_off(d, f32)
+            or _width_off(f2 // 2, f32)):
         raise ValueError(f"dgu {tuple(dgu.shape)} and w_gu {tuple(w_gu.shape)} must be "
-                         "(N, 2F) and (D, 2F), D and F multiples of 128")
+                         f"(N, 2F) and (D, 2F), D and F multiples of "
+                         f"{4 if f32 else NUM_LANES}")
     _on_card(dev)
     dh = torch.empty((n, d), dtype=h.dtype, device=dev)
     d_w_gu = torch.empty((d, f2), dtype=w_gu.dtype, device=dev)
-    f32 = h.dtype == torch.float32
     if f32:  # scratch: d_w_gu's split sums, when it is split
         splits, chunk = f32_weight_splits(d, f2, n)
         scratch = torch.empty((splits, d, f2) if splits > 1 else (0,), dtype=h.dtype,

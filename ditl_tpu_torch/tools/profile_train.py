@@ -95,6 +95,7 @@ CATEGORIES = (
     ("K3/K4 paged_split", ("paged_split_kernel",)),
     ("K3/K4 paged_merge", ("paged_merge_kernel",)),
     ("K3/K4-f32 paged_split_f32", ("paged_split_f32_kernel",)),
+    ("K3-int8-f32 paged_i8_mma_f32", ("paged_i8_mma_f32_kernel",)),
     ("K3/K4-f32 paged_merge_f32", ("paged_merge_f32_kernel",)),
     ("K5a mlp_dgu_dwdown", ("mlp_dgu_dwdown_kernel",)),
     # K5b and K6 are instances of one kernel, tagged 5 and 6 (demangled or

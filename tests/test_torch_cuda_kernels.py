@@ -1035,15 +1035,18 @@ F32 = torch.float32
 
 @pytest.mark.torch_port
 @pytest.mark.parametrize("n,d,f", [(8192, 896, 4864), (2064, 384, 384), (16, 384, 384),
-                                   (2064, 256, 128), (2000, 384, 640)])
+                                   (2064, 256, 128), (2000, 384, 640), (2000, 384, 600)])
 def test_mlp_bwd_f32_kernels_match_plain(no_tf32, n, d, f):
     """K5a-f32 and K5b-f32 against their plain versions: qwen2-0.5b's
-    training step (N = 8192, D = 896, F = 4864), a ragged token edge (N =
-    2064), the least N, D and F odd multiples of 128; gate/up as the strided
-    halves of gu, K5b-f32 fed the same dgu as its plain version. N = 2064
-    splits d_w_down over the tokens (f32_weight_splits). N = 2000 is no
-    multiple of K5b-f32's 128-row tiles nor of its 32-token k-tiles, and
-    2F = 1280 takes ten 128-column tiles beside D = 384's three."""
+    training step (N = 8192, D = 896, F = 4864; d_w_down split in 4 by
+    f32_dwdown_splits), a ragged token edge (N = 2064), the least N, D and F
+    odd multiples of 128; gate/up as the strided halves of gu, K5b-f32 fed
+    the same dgu as its plain version. N = 2064 splits d_w_down over the
+    tokens (f32_weight_splits). N = 2000 is no multiple of the 128-row tiles
+    nor of the 32-token k-tiles, and 2F = 1280 takes ten 128-column tiles
+    beside D = 384's three; F = 600 is no multiple of 128 either, so K5a's
+    dinner tiles, its SwiGLU epilogue and its d_w_down rows and K5b's d_w_gu
+    columns end mid-tile."""
     from ditl_tpu_torch.ops import mlp_bwd as tmb
 
     h, w_gu, w_down, g, gate, up = _mlp_inputs(no_tf32, n, d, f, dtype=F32)
@@ -1125,6 +1128,29 @@ def test_mlp_dh_f32_kernel_is_bitwise_repeatable(no_tf32, n, d, f, splits):
     torch.cuda.synchronize()
     assert tmb.launches_dh_f32 == 2
     for name, a, b in zip(("dh", "d_w_gu"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("n,d,f,splits", [(8192, 896, 4864, 4), (2064, 384, 384, 13),
+                                          (512, 1536, 1408, 1)],
+                         ids=["path 10, d_w_down split 4", "split 13", "no split"])
+def test_mlp_dgu_f32_kernel_is_bitwise_repeatable(no_tf32, n, d, f, splits):
+    """Two calls of K5a-f32 give the same bits, with d_w_down split over the
+    tokens (f32_dwdown_splits: path 10's 266 tiles in four splits, or
+    f32_weight_splits' count for a grid of nine tiles, summed in order by
+    splitk_sum_f32_kernel) and unsplit (132 tiles, one wave): one block owns
+    each output tile or split and sums its k-tiles in one order, and the
+    d_w_down grid reads inner only after the dinner grid wrote it."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
+
+    assert tmb.f32_dwdown_splits(f, d, n)[0] == splits
+    h, w_gu, w_down, g, gate, up = _mlp_inputs(no_tf32, n, d, f, seed=41, dtype=F32)
+    tmb.reset_launches()
+    runs = [tmb.dgu_dwdown(g, w_down, gate, up) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tmb.launches_dgu_f32 == 2
+    for name, a, b in zip(("dgu", "d_w_down"), *runs):
         assert torch.equal(a, b), name
 
 
@@ -1284,6 +1310,54 @@ def test_paged_f16_and_f32_int8_verify_kernels_match_plain(no_tf32, dtype, int8,
     assert torch.equal(o41[:, 0], o3)
     dead = [i for i, n in enumerate(lengths) if n == 0]
     assert all(bool((o[i] == 0).all()) for i in dead)
+
+
+# K3-int8-f32's tensor-core kernel (paged_i8_mma_f32_kernel): (b, h, kv, d,
+# ps, tail_len, lengths, starts, maxp) at path 16's G = 16, path 17's D = 96
+# and D = 32 and 256 (the decode tick's ragged state: a dead slot, a partial
+# page, an exact page boundary, starts == lengths); G = 20, two row groups
+# of 16 and 4, at the split edges; and page 16 with five pages a slot, so
+# the axis's tail starts at 80: the tile at 64 mixes page rows, dead rows
+# and tail rows, a 100-column tail spans two more tiles and a split
+# boundary, with a tail-only slot and a dead slot.
+INT8_F32_MMA_CASES = [
+    ("G=16", 8, 128, 8, 128, 256, 16, PAGED_CASES[0][6], PAGED_CASES[0][7], None),
+    ("D=96", 8, 32, 32, 96, 256, 16, PAGED_CASES[0][6], PAGED_CASES[0][7], None),
+    ("D=32", 8, 8, 4, 32, 256, 16, PAGED_CASES[0][6], PAGED_CASES[0][7], None),
+    ("D=256", 8, 8, 1, 256, 256, 16, PAGED_CASES[0][6], PAGED_CASES[0][7], None),
+    ("G=20", 3, 40, 2, 128, 16, 16, [257, 256, 140], [257, 250, 128], None),
+    ("mixed tile", 5, 8, 2, 64, 16, 100, [100, 80, 175, 3, 0], [80, 70, 80, 0, 0], 5),
+]
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("case", INT8_F32_MMA_CASES, ids=[c[0] for c in INT8_F32_MMA_CASES])
+def test_paged_int8_f32_tensor_core_kernel_matches_plain(no_tf32, case):
+    """K3-int8-f32 (f32 q over int8 pools, one query) on the tensor cores
+    against the plain version and the split twin within PAGED_F32_TOL of the
+    largest magnitude, at each group count, head dim and tile kind it
+    takes; two calls give the same bits, a 4-D q with Q = 1 the 3-D call's,
+    a dead slot zeros; each call counts one K3-int8-f32 launch."""
+    _, b, h, kv, d, ps, tail_len, lengths, starts, maxp = case
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=d + h, maxp=maxp,
+        dtype=torch.float32)
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    tail = dict(tail_k=tk, tail_v=tv, starts=st, k_scale=ks, v_scale=vs)
+    tpa.reset_launches()
+    runs = [tpa.paged_attention(q, kq, vq, table, lens, **tail) for _ in range(2)]
+    o4 = tpa.paged_attention(q[:, None].contiguous(), kq, vq, table, lens, **tail)
+    assert {n: getattr(tpa, n) for n in tpa._COUNTERS.values() if getattr(tpa, n)} == {
+        "launches_tail_int8_f32": 3}
+    args = (q, kq, vq, table, lens, tk, tv, st, ks, vs)
+    r, sp = tpa.paged_attention_plain(*args), tpa.paged_attention_split_plain(*args)
+    torch.cuda.synchronize()
+    o = runs[0]
+    assert o.shape == q.shape and o.dtype == torch.float32
+    assert torch.equal(runs[1], o) and torch.equal(o4[:, 0], o)
+    _close(o, r, torch.float32)
+    _close(o, sp, torch.float32)
+    assert all(bool((o[i] == 0).all()) for i, n in enumerate(lengths) if n == 0)
 
 
 # ---------------------------------------------------------------------------

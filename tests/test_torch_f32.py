@@ -315,6 +315,35 @@ def test_f32_weight_splits_cover_the_tokens_once(m, n, k):
     assert chunk * (splits - 1) < k <= chunk * splits
 
 
+@pytest.mark.parametrize("m,n,k", SPLIT_SHAPES + [(1408, 1536, 512), (4864, 896, 2000)])
+def test_f32_dwdown_splits_cover_the_tokens_once(m, n, k):
+    """``f32_dwdown_splits`` (K5a-f32's d_w_down): a grid under CARD_SMS
+    tiles takes ``f32_weight_splits``' split; a larger one the count up to
+    F32_DWDOWN_MAX_SPLITS that wastes least of its last wave (path 10's 266
+    tiles: four splits of 2048 tokens; 132 tiles, one whole wave: none).
+    The splits cover the tokens once, in order, none empty, each but the
+    last a multiple of F32_BLOCK_K deep."""
+    splits, chunk = tmb.f32_dwdown_splits(m, n, k)
+    tiles = -(-m // tmb.F32_BLOCK) * -(-n // tmb.F32_BLOCK)
+    if tiles < tmb.CARD_SMS:
+        assert (splits, chunk) == tmb.f32_weight_splits(m, n, k)
+    else:
+        counts = range(1, tmb.F32_DWDOWN_MAX_SPLITS + 1)
+        waves = {s: -(-s * tiles // tmb.CARD_SMS) / s for s in counts}
+        want = min(s for s in counts if waves[s] == min(waves.values()))
+        assert splits <= want
+    if splits == 1:
+        assert chunk == k
+    else:
+        assert chunk % tmb.F32_BLOCK_K == 0
+        bounds = [(i * chunk, min(k, (i + 1) * chunk)) for i in range(splits)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == k
+        assert all(a < b for a, b in bounds)
+        assert all(x[1] == y[0] for x, y in zip(bounds, bounds[1:]))
+    assert tmb.f32_dwdown_splits(4864, 896, 8192) == (4, 2048)
+    assert tmb.f32_dwdown_splits(1408, 1536, 512) == (1, 512)
+
+
 # ---------------------------------------------------------------------------
 # The Qwen2-layout config in f32
 # ---------------------------------------------------------------------------
