@@ -67,8 +67,8 @@ no result line. It imports nothing of JAX or of the JAX package.
    qwen2-0.5b's wq/wo and wk/wv (``MM_TOL``); every kernel twice the same
    bits; then the bf16 K1, K2a/K2b, K3 and K5a/K5b against ``K1_DIGESTS``,
    ``K2_DIGESTS`` (recorded on the build before K2's element type became a
-   template parameter), ``K3_DIGESTS`` and ``K5_DIGESTS``, and the f32 kernels that
-   share K3-int8-f32's and K5a-f32's sources against ``F32_DIGESTS``.
+   template parameter), ``K3_DIGESTS`` and ``K5_DIGESTS``, and the f32 paged kernels
+   and K5b-f32 and K6-f32 against ``F32_DIGESTS``.
    ``[hd-kernels]`` (``phase_head_dim_kernels``): every paged entry point
    (``HD_PAGED``: K3, K4, K3-verify and their int8 forms in bf16, float16
    and f32) at head_dim 32 and 256 against the plain version and the split
@@ -3626,26 +3626,34 @@ def _det_f32(shape, salt: int, shift: int):
     return ((h % 2097153 - 1048576).float() * 2.0**-shift).reshape(shape)
 
 
-# ``_f32_digests``, as the f32 kernels that share csrc/paged_attention_f32.cu
-# and csrc/gemm_f32.cu with K3-int8-f32 and K5a-f32 gave them on an H100
-# before those two were redesigned (run on the card against the tree of
-# commit 1bdbc9f): K3-f32, K4-f32, K3-f32-verify, K3-int8-f32-verify,
-# K5b-f32 and K6-f32 must keep these bits.
+# ``_f32_digests`` on an H100: K4-f32, K3-f32-verify, K5b-f32 and K6-f32 as
+# they gave them before K3-int8-f32 and K5a-f32 were redesigned (run on the
+# card against the tree of commit 1bdbc9f; K4-f32 at D = 256 against commit
+# a7d5426); the single-query K3-int8-f32 as its tensor-core kernel gave them
+# when it came in (commit a7d5426); K3-f32 and K3-int8-f32-verify as the
+# tensor-core kernel gives them since they moved onto it (3xTF32 sums in
+# place of FFMA's). Each must keep these bits.
 F32_DIGESTS: dict[str, str] = {
-    "decode tick K3-f32": "51d847dbbd755cbb",
+    "decode tick K3-f32": "84d13dc45a836fe4",
     "decode tick K4-f32": "88c30e48e7283906",
-    "head_dim 64 K3-f32": "567b29cea951d983",
+    "decode tick K3-int8-f32": "f9d683fd87d27a1a",
+    "head_dim 64 K3-f32": "c596d37787dfe96c",
     "head_dim 64 K4-f32": "f6d1f0251ef33fc2",
-    "G = 16 K3-f32": "c0a2ea8d262d5ca8",
+    "head_dim 64 K3-int8-f32": "7771de22d9feb078",
+    "G = 16 K3-f32": "afe1ddb1f99ef867",
     "G = 16 K4-f32": "4c8326650ed6026b",
+    "G = 16 K3-int8-f32": "17c4a0f89ca3b1ac",
+    "D = 256 K3-f32": "07c52ec338a05aa6",
+    "D = 256 K4-f32": "1696d75edb2e07de",
+    "D = 256 K3-int8-f32": "eff2e56b47557f52",
     "spec tick K3-f32-verify": "c915bd788252a456",
-    "spec tick K3-int8-f32-verify": "f354046b91af4cad",
+    "spec tick K3-int8-f32-verify": "d6f3f092af50c59e",
     "head_dim 64 K3-f32-verify": "d37a56e3b5c03b42",
-    "head_dim 64 K3-int8-f32-verify": "bf921215540524f7",
+    "head_dim 64 K3-int8-f32-verify": "53ecc44e861d0343",
     "144 rows K3-f32-verify": "31c06d64a5f73d1e",
-    "144 rows K3-int8-f32-verify": "3efb76a58310840e",
+    "144 rows K3-int8-f32-verify": "c9deaf23cafe018e",
     "D = 256 K3-f32-verify": "23b3a4c7bd31dfcc",
-    "D = 256 K3-int8-f32-verify": "2754f285da94845d",
+    "D = 256 K3-int8-f32-verify": "0f87c775c820f4c3",
     "K5b-f32 N=8192 D=896 F=4864 dh": "1400a7112f362849",
     "K5b-f32 N=8192 D=896 F=4864 d_w_gu": "d23a7fe9806eb0cc",
     "K5b-f32 N=2064 D=384 F=384 dh": "40b1658e2f75f968",
@@ -3658,8 +3666,9 @@ F32_DIGESTS: dict[str, str] = {
 
 
 def _f32_digests(paged, mlp_bwd, proj) -> dict:
-    """K3-f32 and K4-f32 (the decode tick, head_dim 64 at page 16 with a dead
-    and a tail-only slot, path 16's G = 16), K3-f32-verify and
+    """K3-f32, K4-f32 and K3-int8-f32 (the decode tick, head_dim 64 at page 16
+    with a dead and a tail-only slot, path 16's G = 16, D = 256 at path 15's
+    heads), K3-f32-verify and
     K3-int8-f32-verify (the spec tick, head_dim 64 at Q = 5, path 16's 144
     rows, D = 256), K5b-f32 (path 10's shapes unsplit, N = 2064 with d_w_gu
     split) and K6-f32 (path 10's wq/wo and wk/wv, dw split 3 and 16 ways) on
@@ -3703,15 +3712,19 @@ def _f32_digests(paged, mlp_bwd, proj) -> dict:
     starts, lengths = _paged_main_case()
     single = [("decode tick", 8, 32, 8, 128, 256, 16, lengths, starts),
               ("head_dim 64", 4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 32, 45]),
-              ("G = 16", 8, 128, 8, 128, 256, 16, lengths, starts)]
+              ("G = 16", 8, 128, 8, 128, 256, 16, lengths, starts),
+              ("D = 256", 8, 8, 1, 256, 256, 16, lengths, starts)]
     for i, (label, b, h, kv, d, ps, tl, lens, sts) in enumerate(single):
         c = case(b, h, kv, d, ps, tl, lens, sts, 3000 + 20 * i)
         low = torch.minimum(c["starts"], c["lengths"]).contiguous()
+        tail = dict(tail_k=c["tk"], tail_v=c["tv"], starts=c["starts"])
         out[f"{label} K3-f32"] = digest(paged.paged_attention(
-            c["q"], c["kp"], c["vp"], c["table"], c["lengths"], tail_k=c["tk"], tail_v=c["tv"],
-            starts=c["starts"]))
+            c["q"], c["kp"], c["vp"], c["table"], c["lengths"], **tail))
         out[f"{label} K4-f32"] = digest(paged.paged_attention(c["q"], c["kp"], c["vp"],
                                                               c["table"], low))
+        out[f"{label} K3-int8-f32"] = digest(paged.paged_attention(
+            c["q"], c["kq"], c["vq"], c["table"], c["lengths"], **tail, k_scale=c["ks"],
+            v_scale=c["vs"]))
         del c
     sp_starts, sp_lengths = _spec_main_case()
     verify = [("spec tick", 8, 9, 32, 8, 128, 256, 54, sp_lengths, sp_starts, 8),
@@ -5088,7 +5101,7 @@ def phase_f16_bwd_kernels(flash, mlp_bwd, proj, paged, train_seg) -> dict:
     at ``F16_PROJ_CASES`` against their plain versions (``MM_TOL``); every
     kernel called twice gives the same bits; then the bf16 K1, K2, K3 and K5
     keep ``K1_DIGESTS``, ``K2_DIGESTS``, ``K3_DIGESTS`` and ``K5_DIGESTS``,
-    and the f32 kernels beside K3-int8-f32 and K5a-f32 ``F32_DIGESTS``.
+    and the f32 paged kernels, K5b-f32 and K6-f32 ``F32_DIGESTS``.
     Returns the largest absolute errors."""
     import torch
 
@@ -5173,7 +5186,8 @@ def phase_f16_bwd_kernels(flash, mlp_bwd, proj, paged, train_seg) -> dict:
             log(f"[{tag}] {name} digest {key}: {value} (expected {want.get(key)})")
         require(got == want, f"the {name} kernels differ from the earlier build's bits")
     log(f"[{tag}] the bf16 K1, K2a/K2b, K3 and K5a/K5b keep their digests, and K3-f32, "
-        f"K4-f32, K3-f32-verify, K3-int8-f32-verify, K5b-f32 and K6-f32 theirs (F32_DIGESTS)")
+        f"K4-f32, K3-f32-verify, K3-int8-f32 and its verify, K5b-f32 and K6-f32 theirs "
+        f"(F32_DIGESTS)")
     return worst
 
 

@@ -17,41 +17,45 @@
 // The bf16, float16 and bf16/float16-over-int8 kernels (paged_attention.cu)
 // stay as they are.
 //
-// Bound on the card: bytes. It must read each live key's K and V once per
-// slot that reads it (2 * K * D * 4 bytes per key in f32, twice the bf16
+// Two kernels. K3-f32, K3-int8-f32 and K3-int8-f32-verify run the
+// tensor-core kernel, paged_mma_f32_kernel (3xTF32 mma.sync, below); K3-f32's
+// verify and K4-f32 the FFMA kernel, paged_split_f32_kernel. Both share the
+// grid, the walk over a split's tiles, the merge and every rule below.
+//
+// Bound on the card: bytes. K3-f32 must read each live key's K and V once
+// per slot that reads it (2 * K * D * 4 bytes per key in f32, twice the bf16
 // kernel's), the live tail, q and o, and does 4 * D flops per (query head,
 // key): at the decode tick (8 slots, 32 query / 8 KV heads, D = 128, 4,343
 // live keys) about 35.6 MB, 0.0106 ms at 3.35 TB/s, against 0.07 GFLOP of
-// products (about 1 us at FFMA's 67 TFLOP/s). The verify at the spec tick
-// (Q = 9) adds 9x the q and o bytes and 9x the flops: still bytes. So FFMA
-// on the CUDA cores is enough, and what counts is keeping enough bytes in
-// flight: each block copies both 64-key tiles of its split by 16-byte
-// cp.async at once (128 KB at D = 128), one block per SM.
+// products. The verify at the spec tick (Q = 9) adds 9x the q and o bytes
+// and 9x the flops: still bytes at G = 4, operations (3xTF32) at path 16's
+// G = 16 over int8 pools. What counts is keeping enough bytes in flight and
+// enough blocks on an SM to overlap each block's chain of waits.
 //
-// Design: the bf16 template's split structure, its rules and its merge.
-// - The grid is (split, KV head, slot), a split being `split` positions
-//   (ops/paged_attention.py SPLIT_KEYS, a multiple of the 64-key tile) of
-//   the slot's axis of max_pages * page_size page positions followed by
-//   tail_len tail positions (K4: none); sized from shapes alone, so the
-//   wrapper reads nothing back from the card. A block whose split holds no
-//   live key stops at once and writes nothing; the merge gives it no
-//   weight.
+// Grid and walk (both kernels): the bf16 template's split structure, its
+// rules and its merge.
+// - The grid is (split, KV head and row group, slot), a split being `split`
+//   positions (ops/paged_attention.py SPLIT_KEYS, a multiple of the 64-key
+//   tile) of the slot's axis of max_pages * page_size page positions
+//   followed by tail_len tail positions (K4: none); sized from shapes alone,
+//   so the wrapper reads nothing back from the card. A block whose split
+//   holds no live key stops at once and writes nothing; the merge gives it
+//   no weight.
 // - Inside a split, one 128-thread block walks its live 64-key tiles
-//   (skipping tiles with no live column), the next tile's K and V in flight
-//   by cp.async while the current one is computed (two stages; rows padded
-//   by 16 bytes; dead rows zero-filled by the copy itself).
-// - q.k: thread t takes key t % 64 and, in blocks of four query rows, every
-//   other block from t / 64: each float4 of its K row (from shared memory;
-//   eight threads read eight padded rows, 32 banks) feeds four rows' FMAs,
-//   q's rows read as broadcasts. The verify's rows are r = qi * G + g.
-// - Online softmax, one warp per query row, in f32; p is written over the
-//   scores.
-// - p.V: thread t takes four output columns (a float4 of each V row) of the
-//   rows t / (D / 4) + k * (512 / D): its accumulators rescale by the row's
-//   alpha in registers.
+//   (skipping tiles with no live column) with an online softmax, one warp
+//   per query row, in f32.
 // - Each block writes its partial (m and l per query row, f32 acc); a second
 //   kernel, one block per (query row, KV head, slot), merges the partials in
 //   split order, so two calls give the same bits.
+//
+// The FFMA kernel (K3-f32-verify, K4-f32): the next tile's K and V in flight
+// by cp.async while the current one is computed (two stages; rows padded by
+// 16 bytes; dead rows zero-filled by the copy itself). q.k: thread t takes
+// key t % 64 and, in blocks of four query rows, every other block from t /
+// 64: each float4 of its K row feeds four rows' FMAs, q's rows read as
+// broadcasts. p.V: thread t takes four output columns (a float4 of each V
+// row) of the rows t / (D / 4) + k * (512 / D); its accumulators rescale by
+// the row's alpha in registers. The verify's rows are r = qi * G + g.
 //
 // Rules kept from the bf16 template: the tail is read only when lengths >
 // starts (the Pallas kernel's _tail gate); query qi sees tail column j when
@@ -72,59 +76,73 @@
 // while l adds the unscaled p; the tail columns as the f32 kernel's.
 // Routing it through the bf16 int8 kernel would round q to bf16, far
 // outside f32's tolerance.
-// - The single query (ditl_paged_tail_i8_f32, and a 4-D q with Q = 1) runs
-//   paged_i8_mma_f32_kernel, paged_attention.cu's K3-int8 design with f32
-//   numerics. Its first form staged int8 rows in the f32 kernel's row
-//   slots (about 140 KB a block at D = 128: one block, four warps, an SM)
-//   and ran both products on FFMA, a 16-byte load and 16 converts a thread
-//   per key: 1.6x K3-f32, which reads four times its bytes (H100 SXM, 700
-//   W).
-//   - Grid, walk, merge and every rule below as the f32 kernel's: (split,
-//     KV head and group of 16 of the G query rows, slot); 64-key tiles,
-//     dead ones skipped; a split with nothing live returns at once.
-//   - Small staging tiles. A page tile (every row below the tail) comes by
-//     16-byte cp.async into two stages of raw int8 tiles, D + 32 bytes a
-//     key, the next page tile in flight while one is computed; its two
-//     scales by 4-byte copies into a scale tile. A tile with tail rows
-//     (the tail's, or one that mixes page and tail rows) takes one f32
-//     tile that aliases both stages: its K rows, then after q.k its V rows
-//     (page rows as int8 bytes in the first D bytes of their f32 row, tail
-//     rows f32, dead rows zeros); such a tile is loaded once the one
-//     before it is done, as only the axis's last tiles hold tail rows. 71
-//     KB a block at D = 128 (three blocks an SM), 34 / 46 / 120 KB at D =
-//     32 / 64 / 256.
-//   - Both products on the tensor cores (mma.sync.m16n8k8.tf32), 3xTF32:
-//     the 16 query rows (G <= 16 a block, zero-padded) are the m16 A
-//     operand, so each K and V tile serves the whole group. q is split
-//     once a block into TF32 hi and lo = q - hi (flash_f32.cu's split_tf32)
-//     A fragments, which shared memory holds in lane order (one 16-byte
-//     read a k8 step; in registers they would take D registers a thread at
-//     G = 16). An int8 key is exact in TF32, so a page tile takes two MMAs
-//     a product, q_lo . k then q_hi . k; a tile with tail rows splits its
-//     f32 rows too and takes three, lo.hi, hi.lo, hi.hi (lo = 0 on its
-//     int8 rows): a choice per tile, the same for the whole block. p times
-//     V's scale is formed in f32 and split into p's hi and lo fragments by
-//     the softmax; p.V takes p_lo . v, p_hi . v on a page tile, three MMAs
-//     on a tile with tail rows. Each 32-deep partial (32 dimensions of q.k,
-//     32 keys of p.V) sums from zero and a rounded FADD adds it on (the
-//     tensor cores' own accumulation truncates).
-//   - int8 to TF32 in registers from the raw tile, no convert pass: the
-//     contraction of q.k is permuted alike in both operands (k8 step 4c + s
-//     takes dimensions 32c + 8t + 2s and + 1 for columns t and t + 4), so
-//     one 8-byte read of a key row feeds four steps; p.V's output columns
-//     are permuted (column n of n8 block j is dimension w D / 4 + (D / 32)
-//     n + j), so one read of D / 32 bytes of a V row feeds all of a warp's
-//     column blocks. A byte converts by one byte permute into 2^23 + (v +
-//     128) and one FADD, exact.
-//   - Rows: G <= 16 is one block; more run in groups of 16 side by side.
-//     Scores mask by each row's tail limit, and q and o rows are indexed by
-//     (query, group head), so the verify's Q G rows can move onto these
-//     row tiles.
-// - The verify (ditl_paged_verify_i8_f32, Q > 1) keeps the FFMA split
-//   kernel's kI8 instances: a live page row's D int8 values staged into the
-//   first D bytes of its f32 row, q . k 16 values a 16-byte load and p . V
-//   four a 4-byte load, converted to f32 in registers (exact), a row taking
-//   the int8 or the f32 read by whether it is a live page key.
+//
+// The tensor-core kernel, paged_mma_f32_kernel<D, kF32, kMT>: paged_attention.cu's
+// K3-int8 design with f32 numerics; the single query over int8 pools first,
+// then the verify over int8 pools and K3-f32 over f32 pools moved onto it
+// (their first forms ran both products on FFMA, with one block of four warps
+// an SM: 2.4-3.2% of the verify's bound, 22% of K3-f32's; H100 SXM, 700 W).
+// - Rows: kMT m16 row tiles of the n_q G rows r = qi G + g a block, one
+//   warpgroup (four warps) a row tile, so a block of kMT row tiles is 128
+//   kMT threads; the first warpgroup copies the tiles, and each K and V tile
+//   in shared memory serves every row tile (one copy from device memory
+//   where kMT one-tile blocks would make kMT). The single queries take one
+//   row tile (G > 16 in groups of 16 side by side), and so does a verify
+//   over int8 pools of at most 16 rows; past 16 rows the verify takes
+//   kVerifyRowTiles (2) row tiles a block, more blocks side by side (path
+//   11's spec tick, 36 rows: two blocks, of two row tiles and of one with
+//   its second warpgroup idle; path 16's 144 rows: five). A row tile past
+//   the block's rows computes nothing. Scores mask by each row's tail
+//   limit.
+// - Over int8 pools, small staging tiles. A page tile (every row below the
+//   tail) comes by 16-byte cp.async into two stages of raw int8 tiles, D +
+//   32 bytes a key, the next page tile in flight while one is computed; its
+//   two scales by 4-byte copies into a scale tile. A tile with tail rows
+//   (the tail's, or one that mixes page and tail rows) takes one f32 tile
+//   that aliases both stages: its K rows, then after q.k its V rows (page
+//   rows as int8 bytes in the first D bytes of their f32 row, tail rows f32,
+//   dead rows zeros); such a tile is loaded once the one before it is done,
+//   as only the axis's last tiles hold tail rows. Block bytes at D = 32 /
+//   64 / 128 / 256: one row tile 34 / 47 / 71 / 120 KB, two 51 / 67 / 100 /
+//   166 KB.
+// - Over f32 pools (K3-f32), f32 page tiles: one K tile and one V tile of
+//   64 keys, D + 8 floats a row (35 KB each at D = 128), every live row,
+//   page or tail, by 16-byte cp.async from a row id that 64 threads take
+//   once a tile (f32_row: the table read and the divisions once a row, not
+//   once a 16-byte copy). A tile's V rows load during its q.k, the next
+//   tile's K rows once q.k is done (during the softmax and p.V), its V rows
+//   once p.V is done. Block bytes at D = 32 / 64 / 128 / 256: 37 / 58 / 99
+//   / 181 KB, six / three / two / one blocks an SM (at D = 256 one block an
+//   SM is all that fits).
+// - Both products on the tensor cores (mma.sync.m16n8k8.tf32), 3xTF32: a
+//   row tile's 16 query rows (zero-padded) are the m16 A operand. q is split
+//   once a block into TF32 hi and lo = q - hi (flash_f32.cu's split_tf32) A
+//   fragments, which shared memory holds in lane order (one 16-byte read a
+//   k8 step; in registers they would take D registers a thread a row tile);
+//   with one row tile over int8 pools q is read once the first tile's
+//   copies are issued, else q's loads are issued first. An int8 key is
+//   exact in TF32, so an int8 page tile takes two MMAs a product, q_lo . k
+//   then q_hi . k; a tile with f32 rows splits them too and takes three,
+//   lo.hi, hi.lo, hi.hi (lo = 0 on its int8 rows): a choice per tile, the
+//   same for the whole block; every tile over f32 pools takes three. p
+//   (times V's scale on an int8 row) is formed in f32 and split into p's hi
+//   and lo fragments by the softmax; p.V takes two or three MMAs alike. Each
+//   32-deep partial (32 dimensions of q.k, 32 keys of p.V) sums from zero
+//   and a rounded FADD adds it on (the tensor cores' own accumulation
+//   truncates), so a row's bits do not depend on the block that holds it.
+// - The softmax takes one warp a row with one row tile over int8 pools (the
+//   single query's first form, its instructions kept); else eight lanes a
+//   row, four rows a warp at a time (two row tiles put 32 rows on eight
+//   warps), its row sums in the order of a warp a row (a butterfly over
+//   lanes holding keys l and l + 32), so the bits are the same in both.
+// - int8 to TF32 in registers from the raw tile, no convert pass: the
+//   contraction of q.k is permuted alike in both operands (k8 step 4c + s
+//   takes dimensions 32c + 8t + 2s and + 1 for columns t and t + 4), so
+//   one 8-byte read of a key row feeds four steps; p.V's output columns
+//   are permuted (column n of n8 block j is dimension w D / 4 + (D / 32)
+//   n + j), so one read of D / 32 bytes of a V row feeds all of a warp's
+//   column blocks. A byte converts by one byte permute into 2^23 + (v +
+//   128) and one FADD, exact.
 //
 // Head dims up to 32, 64, 128 and 256, one template whose D is a capacity:
 // a call's head_dim (Params::head_dim, any multiple of 16 up to 256) runs on
@@ -134,28 +152,29 @@
 // chunks past head_dim are zero-filled in shared memory, so they add exact
 // zeros to q.k and zero columns to acc, which are never stored (the
 // partials, the merge with head_dim threads and o take the true stride);
-// the scale is the caller's head_dim**-0.5. At D = 256 a stage of K and V
-// tiles is 130 KB, so the block keeps one stage (Layout::kStages = 1: the
-// next tile loads once the current one is done, no overlap), and the p.V
-// split's two row sets of 64 float4 columns would give an 80-row verify 160
-// accumulators a thread beside its q rows' 83 KB: a block takes at most 48
-// rows there (kBlockRows).
-// Row groups: a call with more rows than a block takes (a verify past 80
-// rows, or 48 at D = 256; Llama-3.1-405B's G = 16 at spec_k = 8 is 144)
-// runs ceil(rows / kR) blocks side by side (blockIdx.y: KV head, then row
-// group), each walking the split's tiles for its rows (each re-reads the
-// split's K and V); their partials land in the same workspace rows the
-// merge reads. A single query with G > 8 (and K4 with G > 8) takes the
-// 16-, 48- or 80-row instances with n_q = 1 (over int8 pools, the
-// tensor-core kernel's groups of 16). ptxas -v (sm_90a) with the run-time
-// head_dim: D = 32 and 64 56-168 registers (4 bytes spilled in three
-// forms); D = 128 single-query 116 (K4 96), 16 / 48 / 80 rows 128 / 190 /
-// 198 (K4 128 / 168 / 184, 12 bytes spilled at 48; int8 168 at each, 36
-// bytes spilled at 16); D = 256 single-query 204 (K4 206), 16 / 48 rows 206
-// / 255 with 132 bytes spilled (K4 202 / 255 and 128 bytes; int8 182 / 255,
-// none); merge 48-145; paged_i8_mma_f32_kernel 124 / 128 / 127 / 164 at D =
-// 32 / 64 / 128 / 256, no spills (the FFMA single-query int8 forms it
-// replaced spilled 4 bytes at D = 32 and 8 at D = 256).
+// the scale is the caller's head_dim**-0.5. In the FFMA kernel at D = 256
+// a stage of K and V tiles is 130 KB, so the block keeps one stage
+// (Layout::kStages = 1: the next tile loads once the current one is done, no
+// overlap), and the p.V split's two row sets of 64 float4 columns would give
+// an 80-row verify 160 accumulators a thread beside its q rows' 83 KB: a
+// block takes at most 48 rows there (kBlockRows).
+// Row groups: a call with more rows than a block takes (an FFMA verify past
+// 80 rows, or 48 at D = 256; Llama-3.1-405B's G = 16 at spec_k = 8 is 144)
+// runs ceil(rows / rows a block) blocks side by side (blockIdx.y: KV head,
+// then row group), each walking the split's tiles for its rows (each
+// re-reads the split's K and V); their partials land in the same workspace
+// rows the merge reads. K4-f32 with G > 8 takes the FFMA kernel's 16-, 48-
+// or 80-row instances with n_q = 1.
+// ptxas -v (sm_90a) with the run-time head_dim, FFMA kernel: D = 32 and 64
+// 56-128 registers (4 bytes spilled at D = 32, 80 rows); D = 128 K4 96, 16 /
+// 48 / 80 rows 128 / 190 / 198 (K4 128 / 168 / 184, 12 bytes spilled at 48);
+// D = 256 K4 206, 16 / 48 rows 206 / 255 with 132 bytes spilled (K4 202 /
+// 255 and 128 bytes); merge 48-145. paged_mma_f32_kernel, no spills: over
+// int8 pools 126 / 118 / 120 / 164 registers at D = 32 / 64 / 128 / 256
+// with one row tile (its first form, as its own kernel, 124 / 128 / 127 /
+// 164), 128 / 124 / 127 / 188 with two; over f32 pools 72 / 96 / 120 /
+// 163. Blocks an SM (shared memory and registers): int8 one row tile 4 / 4
+// / 3 / 1, two 2 / 2 / 2 / 1; f32 6 / 3 / 2 / 1.
 //
 // Semantics, the reference's in f32: scores are the f32 q.k sums times the
 // scale; masked columns of a processed tile take the finite -2.3819763e38;
@@ -208,9 +227,7 @@ struct Params {
 // Shared memory of a split block with up to kR query rows, in floats:
 // kStages stages of (K, V) tiles with rows padded by 16 bytes, q's rows
 // padded the same way, the scores (then p) of kR rows, and m, l, alpha per
-// row; over int8 pools, kStages stages of the tile's 64 K and 64 V scales
-// after them (a page row's D int8 values sit in the first D bytes of its f32
-// row). Two stages at D <= 128; one at D = 256, where a stage alone is 130
+// row. Two stages at D <= 128; one at D = 256, where a stage alone is 130
 // KB: its next tile loads after the current one is done. D is the
 // instance's capacity (columns past head_dim hold zeros).
 template <int D, int kR>
@@ -223,10 +240,8 @@ struct Layout {
   static constexpr int kM = kS + kR * kTile;
   static constexpr int kL = kM + kR;
   static constexpr int kAlpha = kL + kR;
-  static constexpr int kSc = kAlpha + kR;
-  static constexpr int kBytes = kSc * 4;
-  static constexpr int kBytesI8 = (kSc + kStages * 2 * kTile) * 4;
-  static_assert(kBytesI8 <= kMaxSmem, "shared memory of a block");
+  static constexpr int kBytes = (kAlpha + kR) * 4;
+  static_assert(kBytes <= kMaxSmem, "shared memory of a block");
 };
 
 // The most query rows one block takes at D: 80, or 48 at D = 256 (its
@@ -262,11 +277,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
-}
-
-// Byte i of w as a signed int8, in f32 (exact).
-__device__ __forceinline__ float i8_at(uint32_t w, int i) {
-  return static_cast<float>(static_cast<int8_t>((w >> (8 * i)) & 0xffu));
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -333,18 +343,13 @@ __device__ __forceinline__ bool int8_row(const Live& live, int v) {
 }
 
 // K and V of the tile at t0 into a stage (kb: K, kb + kTileF: V), 16 bytes
-// a copy; dead rows arrive as zeros. Over int8 pools (kI8) a live page
-// row's D int8 values go to the first D bytes of its f32 row, and its two
-// scales to sc (K, then V kTile floats on); the scales of tail and dead rows
-// arrive as zeros. Rows are head_dim wide in device memory; their chunks past
-// head_dim arrive as zeros.
-template <int D, bool kI8>
+// a copy; dead rows arrive as zeros. Rows are head_dim wide in device
+// memory; their chunks past head_dim arrive as zeros.
+template <int D>
 __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int b, int kh,
-                                          int t0, float* kb, float* sc) {
+                                          int t0, float* kb) {
   constexpr int kChunks = D / 4;
-  constexpr int kChunksI8 = D / 16;
   constexpr int kLd = D + 4;
-  static_assert(kThreads == 2 * kTile, "one thread per K or V scale of a tile");
   const int hd = p.head_dim;
   const int* trow = p.table + (long)b * p.max_pages;
 #pragma unroll
@@ -352,23 +357,11 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
     const int idx = threadIdx.x + i * kThreads;
     const int r = idx / kChunks, c = idx % kChunks;
     const int v = t0 + r;
-    const bool ok = live.key(v);
-    if (kI8 && ok && v < live.tail0) {
-      if (c < kChunksI8) {
-        const bool in = 16 * c < hd;
-        const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
-        const long off =
-            in ? ((page * p.kv_heads + kh) * p.page_size + v % p.page_size) * hd + 16 * c : 0;
-        cp_async16(kb + r * kLd + 4 * c, p.k_i8 + off, in);
-        cp_async16(kb + kTile * kLd + r * kLd + 4 * c, p.v_i8 + off, in);
-      }
-      continue;
-    }
     // Dead rows and chunks past head_dim read nothing; their address is any
     // valid one.
-    const bool in = ok && 4 * c < hd;
-    const float* ks = kI8 ? p.tail_k : p.k_pages;
-    const float* vs = kI8 ? p.tail_v : p.v_pages;
+    const bool in = live.key(v) && 4 * c < hd;
+    const float* ks = p.k_pages;
+    const float* vs = p.v_pages;
     long off = 0;
     if (in) {
       if (v < live.tail0) {
@@ -382,18 +375,6 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
     }
     cp_async16(kb + r * kLd + 4 * c, ks + off, in);
     cp_async16(kb + kTile * kLd + r * kLd + 4 * c, vs + off, in);
-  }
-  if (kI8) {
-    const int r = threadIdx.x % kTile;
-    const bool is_v = threadIdx.x >= kTile;
-    const int v = t0 + r;
-    const bool ok = int8_row(live, v);
-    long off = 0;
-    if (ok) {
-      const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
-      off = (page * p.kv_heads + kh) * p.page_size + v % p.page_size;
-    }
-    cp_async4(sc + (is_v ? kTile : 0) + r, (is_v ? p.v_scale : p.k_scale) + off, ok);
   }
   cp_commit();
 }
@@ -442,10 +423,10 @@ __global__ void __launch_bounds__(D) paged_merge_f32_kernel(const Params p) {
   p.o[orow * hd + d] = o;
 }
 
-// One split of one (KV head, slot) for up to kR query rows (8: the
-// single-query form, G <= 8 rows; 16, 48 or 80: the verify's Q * G rows, or
-// a single query's G > 8 rows).
-template <int D, bool kTail, int kR, bool kI8>
+// One split of one (KV head, slot) for up to kR query rows (8: K4-f32's
+// single query, G <= 8 rows; 16, 48 or 80: the verify's Q * G rows, or
+// K4-f32's G > 8 rows).
+template <int D, bool kTail, int kR>
 __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params p) {
   using L = Layout<D, kR>;
   constexpr int kLd = L::kLd;
@@ -459,7 +440,6 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
   float* sm = smem + L::kM;
   float* sl = smem + L::kL;
   float* salpha = smem + L::kAlpha;
-  float* ssc = smem + L::kSc;  // int8 pools: two stages of K, then V, scales
 
   // blockIdx.y: the KV head, then the block's group of kR query rows (one
   // group unless Q * G > kR): rows row0 + r, r < rows, of the Q * G.
@@ -496,19 +476,15 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
 #pragma unroll
   for (int i = 0; i < kRowsPT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  load_tile<D, kI8>(p, live, b, kh, cur, smem, ssc);
+  load_tile<D>(p, live, b, kh, cur, smem);
   __syncthreads();  // m and l initialised
   const int key = tid & (kTile - 1), half = tid / kTile;
   for (int stage = 0; cur >= 0; stage = (stage + 1) % L::kStages) {
     const int nxt = live.next(cur + kTile, v1);
     const float* kb = smem + stage * 2 * L::kTileF;
     const float* vb = kb + L::kTileF;
-    // int8 pools: this stage's K and V scales (0 on tail and dead rows)
-    const float* sks = ssc + stage * 2 * kTile;
-    const float* svs = sks + kTile;
     if (L::kStages == 2 && nxt >= 0) {
-      load_tile<D, kI8>(p, live, b, kh, nxt, smem + (stage ^ 1) * 2 * L::kTileF,
-                        ssc + (stage ^ 1) * 2 * kTile);
+      load_tile<D>(p, live, b, kh, nxt, smem + (stage ^ 1) * 2 * L::kTileF);
       cp_wait<1>();
     } else {
       cp_wait<0>();
@@ -516,45 +492,21 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
     __syncthreads();  // the tile's K and V (and q) are in shared memory
 
     // Scores of key `key` for row blocks half, half + 2, ...: four rows a
-    // block, times the scale in f32 (int8 pools: then times K's scale for a
-    // page key); columns dead for the row get the finite mask value.
+    // block, times the scale in f32; columns dead for the row get the finite
+    // mask value.
     const float* krow = kb + key * kLd;
-    const bool key_i8 = kI8 && int8_row(live, cur + key);
-    const float k_scale = key_i8 ? sks[key] : 1.f;
     for (int r0 = 4 * half; r0 < rows; r0 += 8) {
       float a[4] = {0.f, 0.f, 0.f, 0.f};
-      if (key_i8) {
-        // 16 int8 values a 16-byte load; q . k in the same order as f32 keys.
-#pragma unroll 2
-        for (int d = 0; d < D; d += 16) {
-          const uint4 w = *reinterpret_cast<const uint4*>(
-              reinterpret_cast<const uint8_t*>(krow) + d);
-          const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float4 qv =
-                  *reinterpret_cast<const float4*>(qsm + (r0 + e) * kLd + d + 4 * j);
-              a[e] = fmaf(qv.x, i8_at(words[j], 0), a[e]);
-              a[e] = fmaf(qv.y, i8_at(words[j], 1), a[e]);
-              a[e] = fmaf(qv.z, i8_at(words[j], 2), a[e]);
-              a[e] = fmaf(qv.w, i8_at(words[j], 3), a[e]);
-            }
-          }
-        }
-      } else {
 #pragma unroll 8
-        for (int d = 0; d < D; d += 4) {
-          const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+      for (int d = 0; d < D; d += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(krow + d);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float4 qv = *reinterpret_cast<const float4*>(qsm + (r0 + e) * kLd + d);
-            a[e] = fmaf(qv.x, kv.x, a[e]);
-            a[e] = fmaf(qv.y, kv.y, a[e]);
-            a[e] = fmaf(qv.z, kv.z, a[e]);
-            a[e] = fmaf(qv.w, kv.w, a[e]);
-          }
+        for (int e = 0; e < 4; ++e) {
+          const float4 qv = *reinterpret_cast<const float4*>(qsm + (r0 + e) * kLd + d);
+          a[e] = fmaf(qv.x, kv.x, a[e]);
+          a[e] = fmaf(qv.y, kv.y, a[e]);
+          a[e] = fmaf(qv.z, kv.z, a[e]);
+          a[e] = fmaf(qv.w, kv.w, a[e]);
         }
       }
 #pragma unroll
@@ -562,17 +514,14 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
         const int r = r0 + e;
         if (r < rows) {
           const int te = live.row_end((row0 + r) / groups);
-          float sc = a[e] * p.scale;
-          if (key_i8) sc *= k_scale;
+          const float sc = a[e] * p.scale;
           ss[r * kTile + key] = live.key_row(cur + key, te) ? sc : kNegInf;
         }
       }
     }
     __syncthreads();
 
-    // Online softmax, one warp per query row; p over the scores (int8
-    // pools: p times V's scale on a page key, never rounded; l adds the
-    // unscaled p).
+    // Online softmax, one warp per query row; p over the scores.
     for (int r = warp; r < rows; r += kWarps) {
       const float s0 = ss[r * kTile + lane];
       const float s1 = ss[r * kTile + lane + 32];
@@ -581,13 +530,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
       const float p0 = expf(s0 - m_next);
       const float p1 = expf(s1 - m_next);
       const float rs = warp_sum(p0 + p1);
-      float w0 = p0, w1 = p1;
-      if (kI8) {
-        if (cur + lane < live.tail0) w0 *= svs[lane];
-        if (cur + lane + 32 < live.tail0) w1 *= svs[lane + 32];
-      }
-      ss[r * kTile + lane] = w0;
-      ss[r * kTile + lane + 32] = w1;
+      ss[r * kTile + lane] = p0;
+      ss[r * kTile + lane + 32] = p1;
       if (lane == 0) {
         const float alpha = expf(m_prev - m_next);
         salpha[r] = alpha;
@@ -610,14 +554,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
     }
 #pragma unroll 4
     for (int j = 0; j < kTile; ++j) {
-      float4 vv;
-      if (kI8 && int8_row(live, cur + j)) {  // the same for every thread of the block
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(
-            reinterpret_cast<const uint8_t*>(vb + j * kLd) + 4 * c4);
-        vv = make_float4(i8_at(w, 0), i8_at(w, 1), i8_at(w, 2), i8_at(w, 3));
-      } else {
-        vv = *reinterpret_cast<const float4*>(vb + j * kLd + 4 * c4);
-      }
+      const float4 vv = *reinterpret_cast<const float4*>(vb + j * kLd + 4 * c4);
 #pragma unroll
       for (int i = 0; i < kRowsPT; ++i) {
         const int r = rset + kRowSets * i;
@@ -631,7 +568,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
       }
     }
     __syncthreads();  // this stage's buffers and the scores are free again
-    if (L::kStages == 1 && nxt >= 0) load_tile<D, kI8>(p, live, b, kh, nxt, smem, ssc);
+    if (L::kStages == 1 && nxt >= 0) load_tile<D>(p, live, b, kh, nxt, smem);
     cur = nxt;
   }
 
@@ -652,36 +589,48 @@ __global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params 
 }
 
 // ---------------------------------------------------------------------------
-// K3-int8-f32, the single-query form over int8 pools, on the tensor cores.
+// The tensor-core kernel: K3-int8-f32 and its verify over int8 pools, K3-f32
+// over f32 pools.
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaRows = 16;  // query rows of a block: the rows of the m16 A operand
+constexpr int kMmaRows = 16;  // query rows of a row tile: the rows of the m16 A operand
 
-// The block's shared memory, in bytes. Two stages of raw int8 K and V tiles
-// (64 rows of D bytes, padded to D + 32 so the fragment reads below reach 32
-// banks); the f32 tile of a tile with tail rows (64 rows of D + 8 floats,
-// holding its K rows, then its V rows) aliases both stages, which such a
-// tile never needs; then q's and p's A fragments (TF32 hi, then lo, 16 bytes
-// a lane a k8 step), the scores of the 16 rows, m, l and alpha, and two
-// stages of the tile's 64 K and 64 V scales.
-template <int D>
+// m16 row tiles a block of the verify over int8 pools past one row tile. Two
+// were the fastest of one, two and three at path 16's 144-row spec tick and
+// 3% behind one at path 11's 36 rows (PERF.md §6); three at D = 256
+// take more shared memory than a block has.
+constexpr int kVerifyRowTiles = 2;
+
+// The block's shared memory, in bytes, for kMT row tiles. Over int8 pools
+// (kF32 false): two stages of raw int8 K and V tiles (64 rows of D bytes,
+// padded to D + 32 so the fragment reads below reach 32 banks); the f32 tile
+// of a tile with tail rows (64 rows of D + 8 floats, holding its K rows,
+// then its V rows) aliases both stages, which such a tile never needs. Over
+// f32 pools: one f32 K tile and one f32 V tile of 64 rows of D + 8 floats.
+// Then, for each row tile, q's and p's A fragments (TF32 hi, then lo, 16
+// bytes a lane a k8 step); the scores, m, l and alpha of the 16 kMT rows;
+// over int8 pools, two stages of the tile's 64 K and 64 V scales, over f32
+// pools two sets of 64 row ids (the tile's, the next's).
+template <int D, bool kF32, int kMT>
 struct MmaLayout {
   static constexpr int kLd8 = D + 32;
   static constexpr int kTile8 = kTile * kLd8;
   static constexpr int kStage = 2 * kTile8;
   static constexpr int kLdF = D + 8;
-  static constexpr int kQF = 2 * kStage;
+  static constexpr int kTileF = kTile * kLdF * 4;     // bytes of an f32 tile
+  static constexpr int kQF = kF32 ? 2 * kTileF : 2 * kStage;
   static constexpr int kQFrag = D / 8 * 32 * 16;      // one of q's hi or lo fragment sets
-  static constexpr int kPF = kQF + 2 * kQFrag;
+  static constexpr int kPF = kQF + kMT * 2 * kQFrag;
   static constexpr int kPFrag = kTile / 8 * 32 * 16;  // one of p's
   static constexpr int kLdS = kTile + 4;
-  static constexpr int kS = kPF + 2 * kPFrag;
-  static constexpr int kM = kS + kMmaRows * kLdS * 4;
-  static constexpr int kL = kM + kMmaRows * 4;
-  static constexpr int kAlpha = kL + kMmaRows * 4;
-  static constexpr int kSc = kAlpha + kMmaRows * 4;
-  static constexpr int kBytes = kSc + 2 * 2 * kTile * 4;
-  static_assert(kTile * kLdF * 4 <= 2 * kStage, "the f32 tile fits the two int8 stages");
+  static constexpr int kRows = kMT * kMmaRows;
+  static constexpr int kS = kPF + kMT * 2 * kPFrag;
+  static constexpr int kM = kS + kRows * kLdS * 4;
+  static constexpr int kL = kM + kRows * 4;
+  static constexpr int kAlpha = kL + kRows * 4;
+  static constexpr int kSc = kAlpha + kRows * 4;
+  static constexpr int kBytes = kSc + (kF32 ? 2 * kTile * 4 : 2 * 2 * kTile * 4);
+  static_assert(kF32 || kTileF <= 2 * kStage, "the f32 tile fits the two int8 stages");
   static_assert(kBytes <= kMaxSmem, "shared memory of a block");
 };
 
@@ -752,8 +701,9 @@ __device__ __forceinline__ void ld_f32(const float* p, float (&v)[N]) {
 template <int D>
 __device__ __forceinline__ void load_i8_tile(const Params& p, const Live& live, int b, int kh,
                                              int t0, uint8_t* k8, float* sc) {
-  using L = MmaLayout<D>;
+  using L = MmaLayout<D, false, 1>;
   constexpr int kChunks = D / 16;
+  static_assert(kThreads == 2 * kTile, "one thread per K or V scale of a tile");
   const int hd = p.head_dim;
   const int* trow = p.table + (long)b * p.max_pages;
 #pragma unroll
@@ -784,13 +734,13 @@ __device__ __forceinline__ void load_i8_tile(const Params& p, const Live& live, 
 }
 
 // K's (is_v false: with both scales to sc) or V's rows of a tile with tail
-// rows into the f32 tile ft: a live page row's D int8 bytes into the first D
-// bytes of its f32 row, a tail row's f32 values, a dead row zeros (chunks
-// past head_dim zero).
+// rows over int8 pools into the f32 tile ft: a live page row's D int8 bytes
+// into the first D bytes of its f32 row, a tail row's f32 values, a dead row
+// zeros (chunks past head_dim zero).
 template <int D>
 __device__ __forceinline__ void load_f32_tile(const Params& p, const Live& live, int b, int kh,
                                               int t0, bool is_v, float* ft, float* sc) {
-  using L = MmaLayout<D>;
+  using L = MmaLayout<D, false, 1>;
   constexpr int kChunks = D / 4;
   const int hd = p.head_dim;
   const int* trow = p.table + (long)b * p.max_pages;
@@ -835,6 +785,43 @@ __device__ __forceinline__ void load_f32_tile(const Params& p, const Live& live,
   cp_commit();
 }
 
+// Over f32 pools, the row of key v: >= 0 the pool row (page K + kh) ps + v %
+// ps, <= -2 the tail row -2 - id = (b K + kh) T + v - tail0, -1 a dead key.
+// A tile's 64 ids are taken once (64 threads), so its copies read no table.
+__device__ __forceinline__ int f32_row(const Params& p, const Live& live, int b, int kh,
+                                       int v) {
+  if (!live.key(v)) return -1;
+  if (v < live.tail0) {
+    const int page =
+        min(max(p.table[(long)b * p.max_pages + v / p.page_size], 0), p.n_pool - 1);
+    return (page * p.kv_heads + kh) * p.page_size + v % p.page_size;
+  }
+  return -2 - ((b * p.kv_heads + kh) * p.tail_len + (v - live.tail0));
+}
+
+// K's (is_v false) or V's rows of an f32-pool tile into the f32 tile ft by
+// their ids (f32_row), 16 bytes a copy; dead rows and chunks past head_dim
+// zero.
+template <int D>
+__device__ __forceinline__ void load_f32_rows(const Params& p, const int* ids, bool is_v,
+                                              float* ft) {
+  using L = MmaLayout<D, true, 1>;
+  constexpr int kChunks = D / 4;
+  const int hd = p.head_dim;
+  const float* pool = is_v ? p.v_pages : p.k_pages;
+  const float* tail = is_v ? p.tail_v : p.tail_k;
+#pragma unroll 4
+  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int id = ids[r];
+    const bool in = id != -1 && 4 * c < hd;
+    const float* src = id >= 0 ? pool + (long)id * hd : tail + (long)(-2 - id) * hd;
+    cp_async16(ft + r * L::kLdF + 4 * c, in ? src + 4 * c : pool, in);
+  }
+  cp_commit();
+}
+
 // The float index of element (row r, contraction index k) of an m16 x k8
 // A fragment set laid out lane by lane (k8 step k / 8, lane 4 (r % 8) + k %
 // 4, element r / 8 + 2 ((k % 8) / 4)).
@@ -842,93 +829,179 @@ __device__ __forceinline__ int frag_at(int r, int k) {
   return ((k >> 3) * 32 + ((r & 7) << 2) + (k & 3)) * 4 + (r >> 3) + (((k >> 2) & 1) << 1);
 }
 
-// One split of one (KV head, slot) for up to 16 query rows of a single
-// query (blockIdx.y: the KV head, then the block's group of 16 of the G
-// rows), q.k and p.V as 3xTF32 products on mma.sync.m16n8k8 (see "Over int8
-// pools" in the header).
-template <int D>
-__global__ void __launch_bounds__(kThreads) paged_i8_mma_f32_kernel(const Params p) {
-  using L = MmaLayout<D>;
-  constexpr int kNT = D / 32;  // p.V: n8 column blocks a warp (D / 4 columns)
+__device__ __forceinline__ void frag_u32(const float4& x, uint32_t (&a)[4]) {
+  a[0] = __float_as_uint(x.x);
+  a[1] = __float_as_uint(x.y);
+  a[2] = __float_as_uint(x.z);
+  a[3] = __float_as_uint(x.w);
+}
+
+
+// One split of one (KV head, slot) for kMT m16 row tiles of the n_q G query
+// rows r = qi G + g (blockIdx.y: the KV head, then the block's group of 16
+// kMT rows), one warpgroup of four warps a row tile; q.k and p.V as 3xTF32
+// products on mma.sync.m16n8k8 (see "The tensor-core kernel" in the
+// header); over int8 pools (kF32 false) or f32 pools. The first warpgroup
+// copies the tiles; the K and V tiles in shared memory serve every row
+// tile.
+//
+// The least blocks an SM in the launch bounds: two for two row tiles at D
+// <= 128; none (0) for one row tile over int8 pools, as its first form
+// named none (a count of 1 gives it up to 32 more registers, one block an
+// SM fewer at D = 32 and 64); one for K3-f32's instance.
+template <int D, bool kF32, int kMT>
+__global__ void __launch_bounds__(kThreads * kMT,
+                                  kMT == 2 && D <= 128 ? 2 : kMT == 2 || kF32 ? 1 : 0)
+    paged_mma_f32_kernel(const Params p) {
+  using L = MmaLayout<D, kF32, kMT>;
+  constexpr int kNT = D / 32;                 // p.V: n8 column blocks a warp (D / 4 columns)
+  constexpr int kQSet = D / 8 * 32;           // float4s of one of q's fragment sets
+  constexpr int kPSet = kTile / 8 * 32 * 4;   // floats of one of p's
+  constexpr int kBlockThreads = kThreads * kMT;
   extern __shared__ __align__(16) uint8_t mma_smem[];
   uint8_t* smem = mma_smem;
-  float* ft = reinterpret_cast<float*>(smem);  // the f32 tile (aliases both stages)
-  float4* qf = reinterpret_cast<float4*>(smem + L::kQF);  // q's A fragments: hi, then lo
-  float* pf = reinterpret_cast<float*>(smem + L::kPF);    // p's: hi, then lo
+  // int8 pools: the f32 tile of a tile with tail rows (aliases both stages,
+  // K rows then V rows); f32 pools: the K tile, then the V tile.
+  float* ft = reinterpret_cast<float*>(smem);
+  float* fv = kF32 ? ft + kTile * L::kLdF : ft;
+  const float4* qf = reinterpret_cast<const float4*>(smem + L::kQF);  // q's A fragments
+  float* pf = reinterpret_cast<float*>(smem + L::kPF);                // p's
   float* ss = reinterpret_cast<float*>(smem + L::kS);
   float* sm = reinterpret_cast<float*>(smem + L::kM);
   float* sl = reinterpret_cast<float*>(smem + L::kL);
   float* salpha = reinterpret_cast<float*>(smem + L::kAlpha);
-  float* ssc = reinterpret_cast<float*>(smem + L::kSc);
+  float* ssc = reinterpret_cast<float*>(smem + L::kSc);  // int8 pools: the scales
+  int* srow = reinterpret_cast<int*>(smem + L::kSc);     // f32 pools: the row ids
 
   const int split = blockIdx.x, kh = blockIdx.y % p.kv_heads, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // One row tile over int8 pools (the single query, and a verify of at
+  // most 16 rows) keeps its first form's order and softmax: q read after
+  // the first tile's copies are issued, one warp a row.
+  constexpr bool kFirstForm = !kF32 && kMT == 1;
+  const int mt = kMT == 1 ? 0 : warp / kWarps, wq = warp % kWarps;  // row tile, place in it
+  const bool loader = kMT == 1 || tid < kThreads;  // the first warpgroup copies the tiles
   const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
   const int groups = p.groups, hd = p.head_dim;
   const int all_rows = p.n_q * groups;
-  const int row0 = blockIdx.y / p.kv_heads * kMmaRows;
-  const int rows = min(kMmaRows, all_rows - row0);
+  const int row0 = blockIdx.y / p.kv_heads * L::kRows;
+  const int rows = min(L::kRows, all_rows - row0);
+  const bool busy = kMT == 1 || kMmaRows * mt < rows;  // the warp's row tile holds rows
   const Live live = slot_live<true>(p, b);
   const int v0 = split * p.split, v1 = min(v0 + p.split, live.end);
   int cur = live.next(v0, v1);
   if (cur < 0) return;  // no live key: no partial (the merge weighs this split 0)
-  // A tile with every row below tail0 is a page tile (int8 stages, two
-  // MMAs a product); else it holds tail rows (the f32 tile, three MMAs).
-  bool page = cur + kTile <= live.tail0;
-  if (page) {
-    load_i8_tile<D>(p, live, b, kh, cur, smem, ssc);
-  } else {
-    load_f32_tile<D>(p, live, b, kh, cur, false, ft, ssc);
-  }
-
-  // q's rows split once into TF32 hi and lo A fragments, in the order the
+  // q's rows, split once into TF32 hi and lo A fragments, in the order the
   // k8 steps read the keys' bytes: step 4c + s takes, for column t (t + 4),
   // dimension 32c + 8t + 2s (+ 1), so one 8-byte read of a key row feeds
   // four steps. Rows past the block's and dimensions past head_dim zero.
-  {
-    const long heads = (long)p.kv_heads * groups;
-    for (int idx = tid; idx < D / 8 * 32; idx += kThreads) {
-      const int ks = idx >> 5, fg = (idx >> 2) & 7, ft4 = idx & 3;
-      const int d0 = 32 * (ks >> 2) + 8 * ft4 + 2 * (ks & 3);
-      float2 x[2];
+  // Float4 e4 of row tile m's sets takes two float2s of q (q_pair).
+  const long heads = (long)p.kv_heads * groups;
+  auto q_pair = [&](int m, int e4, float2 (&x)[2]) {
+    const int ks = e4 >> 5, fg = (e4 >> 2) & 7, ft4 = e4 & 3;
+    const int d0 = 32 * (ks >> 2) + 8 * ft4 + 2 * (ks & 3);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = fg + 8 * h, rr = row0 + r;
-        x[h] = make_float2(0.f, 0.f);
-        if (r < rows && d0 < hd) {
-          const long qrow = ((long)b * p.n_q + rr / groups) * heads + (long)kh * groups + rr % groups;
-          x[h] = *reinterpret_cast<const float2*>(p.q + qrow * hd + d0);
-        }
+    for (int h = 0; h < 2; ++h) {
+      const int r = kMmaRows * m + fg + 8 * h, rr = row0 + r;
+      x[h] = make_float2(0.f, 0.f);
+      if (r < rows && d0 < hd) {
+        const long qrow = ((long)b * p.n_q + rr / groups) * heads + (long)kh * groups + rr % groups;
+        x[h] = *reinterpret_cast<const float2*>(p.q + qrow * hd + d0);
       }
-      const float a[4] = {x[0].x, x[1].x, x[0].y, x[1].y};
-      uint32_t hi[4], lo[4];
+    }
+  };
+  auto q_split = [&](int m, int e4, const float2 (&x)[2]) {
+    float4* qw = reinterpret_cast<float4*>(smem + L::kQF) + 2 * kQSet * m;
+    const float a[4] = {x[0].x, x[1].x, x[0].y, x[1].y};
+    uint32_t hi[4], lo[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(a[e], hi[e], lo[e]);
-      qf[idx] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
-                            __uint_as_float(hi[2]), __uint_as_float(hi[3]));
-      qf[D / 8 * 32 + idx] = make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
-                                         __uint_as_float(lo[2]), __uint_as_float(lo[3]));
+    for (int e = 0; e < 4; ++e) split_tf32(a[e], hi[e], lo[e]);
+    qw[e4] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]), __uint_as_float(hi[2]),
+                         __uint_as_float(hi[3]));
+    qw[kQSet + e4] = make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                                 __uint_as_float(lo[2]), __uint_as_float(lo[3]));
+  };
+  // Over int8 pools a tile with every row below tail0 is a page tile (int8
+  // stages, two MMAs a product); else it holds tail rows (the f32 tile,
+  // three MMAs). Over f32 pools every tile takes the f32 tiles and three.
+  bool page = !kF32 && cur + kTile <= live.tail0;
+  if constexpr (kFirstForm) {  // the first tile's copies, then q
+    if (page) {
+      load_i8_tile<D>(p, live, b, kh, cur, smem, ssc);
+    } else {
+      load_f32_tile<D>(p, live, b, kh, cur, false, ft, ssc);
+    }
+    for (int e4 = tid; e4 < kQSet; e4 += kThreads) {
+      float2 x[2];
+      q_pair(0, e4, x);
+      q_split(0, e4, x);
+    }
+  } else {
+    // q's loads in flight while the first tile's copies are issued; each
+    // thread takes D / 32 float4s of the kMT row tiles' sets.
+    constexpr int kQIters = kMT * kQSet / kBlockThreads;
+    static_assert(kQIters * kBlockThreads == kMT * kQSet, "q's fragments a thread");
+    float2 xq[kQIters][2];
+#pragma unroll
+    for (int i = 0; i < kQIters; ++i) {
+      const int idx = tid + i * kBlockThreads;
+      q_pair(idx / kQSet, idx % kQSet, xq[i]);
+    }
+    if constexpr (kF32) {
+      if (tid < kTile) srow[tid] = f32_row(p, live, b, kh, cur + tid);
+      __syncthreads();
+      if (loader) {
+        load_f32_rows<D>(p, srow, false, ft);
+        load_f32_rows<D>(p, srow, true, fv);
+      }
+    } else if (loader) {
+      if (page) {
+        load_i8_tile<D>(p, live, b, kh, cur, smem, ssc);
+      } else {
+        load_f32_tile<D>(p, live, b, kh, cur, false, ft, ssc);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kQIters; ++i) {
+      const int idx = tid + i * kBlockThreads;
+      q_split(idx / kQSet, idx % kQSet, xq[i]);
     }
   }
-  for (int i = tid; i < 2 * kTile / 8 * 32 * 4; i += kThreads) pf[i] = 0.f;  // padding rows: p = 0
-  if (tid < kMmaRows) {
-    sm[tid] = kNegInf;
-    sl[tid] = 0.f;
+  {
+    float4* pw = reinterpret_cast<float4*>(pf);  // padding rows: p = 0
+    for (int i = tid; i < kMT * 2 * kPSet / 4; i += kBlockThreads) pw[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  for (int r = tid; r < L::kRows; r += kBlockThreads) {
+    sm[r] = kNegInf;
+    sl[r] = 0.f;
+  }
+  const float4* qh = qf + 2 * kQSet * mt;  // this warp's row tile: q's hi, then lo
+  const float4* ph = reinterpret_cast<const float4*>(pf) + mt * 2 * (kPSet / 4);  // p's
   float acc[kNT][4];
 #pragma unroll
   for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   for (int stage = 0; cur >= 0; stage ^= 1) {
     const int nxt = live.next(cur + kTile, v1);
-    // The next tile is in flight during this one only if both are page tiles.
-    const bool ahead = page && nxt >= 0 && nxt + kTile <= live.tail0;
-    if (ahead) {
-      load_i8_tile<D>(p, live, b, kh, nxt, smem + (stage ^ 1) * L::kStage,
-                      ssc + (stage ^ 1) * 2 * kTile);
+    // int8 pools: the next tile is in flight during this one only if both
+    // are page tiles. f32 pools: wait for this tile's K rows (its V rows
+    // may still be in flight) and take the next tile's row ids (their set
+    // was last read by the copies of the tile before this one).
+    bool ahead = false;
+    if constexpr (kF32) {
+      if (nxt >= 0 && tid < kTile) srow[(stage ^ 1) * kTile + tid] = f32_row(p, live, b, kh, nxt + tid);
       cp_wait<1>();
     } else {
-      cp_wait<0>();
+      ahead = page && nxt >= 0 && nxt + kTile <= live.tail0;
+      if (ahead) {
+        if (loader) {
+          load_i8_tile<D>(p, live, b, kh, nxt, smem + (stage ^ 1) * L::kStage,
+                          ssc + (stage ^ 1) * 2 * kTile);
+        }
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
     }
     __syncthreads();  // the tile's K (and V) and scales, q's fragments, m, l
     const uint8_t* k8 = smem + stage * L::kStage;
@@ -936,17 +1009,19 @@ __global__ void __launch_bounds__(kThreads) paged_i8_mma_f32_kernel(const Params
     const float* sks = ssc + stage * 2 * kTile;
     const float* svs = sks + kTile;
 
-    // Scores of warp w's 16 keys (two n8 blocks), 32 dimensions a chunk:
-    // each chunk's MMAs sum from zero and a rounded FADD adds them up.
-    {
+    // Scores of warp wq's 16 keys (two n8 blocks) for its row tile, 32
+    // dimensions a chunk: each chunk's MMAs sum from zero and a rounded
+    // FADD adds them on. A row tile past the block's rows (the last block
+    // of an odd count) computes nothing.
+    if (busy) {
       float s[2][4] = {};
 #pragma unroll 2
       for (int c = 0; c < D / 32; ++c) {
         uint32_t bh[2][4][2], bl[2][4][2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const int r = 16 * warp + 8 * j + g;
-          if (page || int8_row(live, cur + r)) {
+          const int r = 16 * wq + 8 * j + g;
+          if (!kF32 && (page || int8_row(live, cur + r))) {
             const uint8_t* row = page ? k8 + r * L::kLd8 : reinterpret_cast<const uint8_t*>(
                                                                 ft + r * L::kLdF);
             const uint2 w = ld_i8<8>(row + 32 * c + 8 * t);
@@ -970,17 +1045,15 @@ __global__ void __launch_bounds__(kThreads) paged_i8_mma_f32_kernel(const Params
 #pragma unroll
         for (int s4 = 0; s4 < 4; ++s4) {
           const int ks = 4 * c + s4;
-          const float4 h4 = qf[ks * 32 + lane], l4 = qf[D / 8 * 32 + ks * 32 + lane];
-          const uint32_t ah[4] = {__float_as_uint(h4.x), __float_as_uint(h4.y),
-                                  __float_as_uint(h4.z), __float_as_uint(h4.w)};
-          const uint32_t al[4] = {__float_as_uint(l4.x), __float_as_uint(l4.y),
-                                  __float_as_uint(l4.z), __float_as_uint(l4.w)};
+          uint32_t ah[4], al[4];
+          frag_u32(qh[ks * 32 + lane], ah);
+          frag_u32(qh[kQSet + ks * 32 + lane], al);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             if (page) {  // an int8 key is exact in TF32: q_lo.k, then q_hi.k
               mma_tf32(part[j], al, bh[j][s4]);
               mma_tf32(part[j], ah, bh[j][s4]);
-            } else {  // lo.hi, hi.lo, hi.hi (lo = 0 on the tile's int8 rows)
+            } else {  // lo.hi, hi.lo, hi.hi (lo = 0 on a tile's int8 rows)
               mma_tf32(part[j], al, bh[j][s4]);
               mma_tf32(part[j], ah, bl[j][s4]);
               mma_tf32(part[j], ah, bh[j][s4]);
@@ -993,19 +1066,19 @@ __global__ void __launch_bounds__(kThreads) paged_i8_mma_f32_kernel(const Params
           for (int e = 0; e < 4; ++e) s[j][e] = __fadd_rn(s[j][e], part[j][e]);
         }
       }
-      // times the scale, then K's scale on a page key; keys dead for the
-      // row take the finite mask value.
+      // times the scale, then K's scale on an int8 page key; keys dead for
+      // the row take the finite mask value.
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        const int r = 8 * hf + g;
+        const int r = kMmaRows * mt + 8 * hf + g;
         if (r < rows) {
           const int te = live.row_end((row0 + r) / groups);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const int k = 16 * warp + 8 * j + 2 * t;
+            const int k = 16 * wq + 8 * j + 2 * t;
             float s0 = s[j][2 * hf] * p.scale, s1 = s[j][2 * hf + 1] * p.scale;
-            if (int8_row(live, cur + k)) s0 *= sks[k];
-            if (int8_row(live, cur + k + 1)) s1 *= sks[k + 1];
+            if (!kF32 && int8_row(live, cur + k)) s0 *= sks[k];
+            if (!kF32 && int8_row(live, cur + k + 1)) s1 *= sks[k + 1];
             float2 sc;
             sc.x = live.key_row(cur + k, te) ? s0 : kNegInf;
             sc.y = live.key_row(cur + k + 1, te) ? s1 : kNegInf;
@@ -1014,45 +1087,108 @@ __global__ void __launch_bounds__(kThreads) paged_i8_mma_f32_kernel(const Params
         }
       }
     }
-    __syncthreads();  // the scores; the f32 tile's K rows are read
-    if (!page) load_f32_tile<D>(p, live, b, kh, cur, true, ft, nullptr);
-
-    // Online softmax, one warp per query row; p times V's scale on a page
-    // key (never rounded; l adds the unscaled p), split into p's fragments.
-    for (int r = warp; r < rows; r += kWarps) {
-      const float s0 = ss[r * L::kLdS + lane];
-      const float s1 = ss[r * L::kLdS + lane + 32];
-      const float m_prev = sm[r];
-      const float m_next = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_next);
-      const float p1 = expf(s1 - m_next);
-      const float rs = warp_sum(p0 + p1);
-      float w[2] = {p0, p1};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = lane + 32 * h;
-        if (int8_row(live, cur + k)) w[h] *= svs[k];
-        uint32_t hi, lo;
-        split_tf32(w[h], hi, lo);
-        pf[frag_at(r, k)] = __uint_as_float(hi);
-        pf[kTile / 8 * 32 * 4 + frag_at(r, k)] = __uint_as_float(lo);
-      }
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_next);
-        salpha[r] = alpha;
-        sl[r] = alpha * sl[r] + rs;
-        sm[r] = m_next;
+    __syncthreads();  // the scores; the K rows are read
+    if (loader) {
+      if constexpr (kF32) {
+        if (nxt >= 0) load_f32_rows<D>(p, srow + (stage ^ 1) * kTile, false, ft);
+      } else {
+        if (!page) load_f32_tile<D>(p, live, b, kh, cur, true, ft, nullptr);
       }
     }
-    if (!page) cp_wait<0>();
-    __syncthreads();  // p's fragments, alpha (and the f32 tile's V rows)
 
-    // acc = acc * alpha + p.V on warp w's D / 4 columns, 32 keys a chunk.
-    // Column n of n8 block j is dimension w D / 4 + kNT n + j, so one read
-    // of kNT bytes (or floats) of a V row feeds every block of the warp.
-    {
-      const float alpha0 = g < rows ? salpha[g] : 0.f;
-      const float alpha1 = g + 8 < rows ? salpha[g + 8] : 0.f;
+    // Online softmax; p times V's scale on an int8 page key (never rounded;
+    // l adds the unscaled p), split into p's fragments of the row's tile.
+    if constexpr (kFirstForm) {  // one warp a row, keys lane and lane + 32
+      for (int r = warp; r < rows; r += kWarps) {
+        const float s0 = ss[r * L::kLdS + lane];
+        const float s1 = ss[r * L::kLdS + lane + 32];
+        const float m_prev = sm[r];
+        const float m_next = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+        const float p0 = expf(s0 - m_next);
+        const float p1 = expf(s1 - m_next);
+        const float rs = warp_sum(p0 + p1);
+        float w[2] = {p0, p1};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = lane + 32 * h;
+          if (int8_row(live, cur + k)) w[h] *= svs[k];
+          uint32_t hi, lo;
+          split_tf32(w[h], hi, lo);
+          pf[frag_at(r, k)] = __uint_as_float(hi);
+          pf[kPSet + frag_at(r, k)] = __uint_as_float(lo);
+        }
+        if (lane == 0) {
+          const float alpha = expf(m_prev - m_next);
+          salpha[r] = alpha;
+          sl[r] = alpha * sl[r] + rs;
+          sm[r] = m_next;
+        }
+      }
+    } else {
+      // Eight lanes a row (lane j of a row's eight holds keys j + 8i), four
+      // rows a warp at a time. The row sum adds in the order of a butterfly
+      // over 32 lanes that each hold keys l and l + 32: lane l = j + 8k adds
+      // keys j + 8k and j + 8k + 32, lanes l ^ 16 and l ^ 8 are added here,
+      // l ^ 4, 2, 1 by shuffles; so the bits are those of a warp a row.
+      const int j8 = lane & 7;
+      for (int r0 = 4 * warp; r0 < rows; r0 += 4 * kWarps * kMT) {
+        const int r = r0 + (lane >> 3);
+        const bool in = r < rows;
+        float w[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) w[i] = in ? ss[r * L::kLdS + j8 + 8 * i] : kNegInf;
+        float mx = w[0];
+#pragma unroll
+        for (int i = 1; i < 8; ++i) mx = fmaxf(mx, w[i]);
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_prev = in ? sm[r] : kNegInf;
+        const float m_next = fmaxf(m_prev, mx);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) w[i] = expf(w[i] - m_next);
+        float rs = ((w[0] + w[4]) + (w[2] + w[6])) + ((w[1] + w[5]) + (w[3] + w[7]));
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
+        if (in) {
+          float* prow = pf + (r / kMmaRows) * 2 * kPSet;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int k = j8 + 8 * i;
+            float x = w[i];
+            if (!kF32 && int8_row(live, cur + k)) x *= svs[k];
+            uint32_t hi, lo;
+            split_tf32(x, hi, lo);
+            prow[frag_at(r % kMmaRows, k)] = __uint_as_float(hi);
+            prow[kPSet + frag_at(r % kMmaRows, k)] = __uint_as_float(lo);
+          }
+          if (j8 == 0) {
+            const float alpha = expf(m_prev - m_next);
+            salpha[r] = alpha;
+            sl[r] = alpha * sl[r] + rs;
+            sm[r] = m_next;
+          }
+        }
+      }
+    }
+    if constexpr (kF32) {
+      if (nxt >= 0) {
+        cp_wait<1>();  // this tile's V rows; the next tile's K rows in flight
+      } else {
+        cp_wait<0>();
+      }
+    } else {
+      if (!page) cp_wait<0>();
+    }
+    __syncthreads();  // p's fragments, alpha, the tile's V rows
+
+    // acc = acc * alpha + p.V on warp wq's D / 4 columns of its row tile,
+    // 32 keys a chunk. Column n of n8 block j is dimension wq D / 4 + kNT n +
+    // j, so one read of kNT bytes (or floats) of a V row feeds every block
+    // of the warp.
+    if (busy) {
+      const int r = kMmaRows * mt + g;
+      const float alpha0 = r < rows ? salpha[r] : 0.f;
+      const float alpha1 = r + 8 < rows ? salpha[r + 8] : 0.f;
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         acc[j][0] = __fmul_rn(acc[j][0], alpha0);
@@ -1060,26 +1196,23 @@ __global__ void __launch_bounds__(kThreads) paged_i8_mma_f32_kernel(const Params
         acc[j][2] = __fmul_rn(acc[j][2], alpha1);
         acc[j][3] = __fmul_rn(acc[j][3], alpha1);
       }
-      const int col = warp * (D / 4) + kNT * g;
-      const float4* pfh = reinterpret_cast<const float4*>(pf);
+      const int col = wq * (D / 4) + kNT * g;
 #pragma unroll
       for (int kc = 0; kc < 2; ++kc) {
         float part[kNT][4] = {};
 #pragma unroll
         for (int s4 = 0; s4 < 4; ++s4) {
           const int ks = 4 * kc + s4;
-          const float4 h4 = pfh[ks * 32 + lane], l4 = pfh[kTile / 8 * 32 + ks * 32 + lane];
-          const uint32_t ah[4] = {__float_as_uint(h4.x), __float_as_uint(h4.y),
-                                  __float_as_uint(h4.z), __float_as_uint(h4.w)};
-          const uint32_t al[4] = {__float_as_uint(l4.x), __float_as_uint(l4.y),
-                                  __float_as_uint(l4.z), __float_as_uint(l4.w)};
+          uint32_t ah[4], al[4];
+          frag_u32(ph[ks * 32 + lane], ah);
+          frag_u32(ph[kPSet / 4 + ks * 32 + lane], al);
           uint32_t bh[kNT][2], bl[kNT][2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {  // V rows 8 ks + t and 8 ks + t + 4
-            const int r = 8 * ks + t + 4 * e;
-            if (page || int8_row(live, cur + r)) {
-              const uint8_t* row = page ? v8 + r * L::kLd8 : reinterpret_cast<const uint8_t*>(
-                                                                  ft + r * L::kLdF);
+            const int vr = 8 * ks + t + 4 * e;
+            if (!kF32 && (page || int8_row(live, cur + vr))) {
+              const uint8_t* row = page ? v8 + vr * L::kLd8 : reinterpret_cast<const uint8_t*>(
+                                                                   ft + vr * L::kLdF);
               const uint2 w = ld_i8<kNT>(row + col);
 #pragma unroll
               for (int j = 0; j < kNT; ++j) {
@@ -1088,7 +1221,7 @@ __global__ void __launch_bounds__(kThreads) paged_i8_mma_f32_kernel(const Params
               }
             } else {
               float x[kNT];
-              ld_f32<kNT>(ft + r * L::kLdF + col, x);
+              ld_f32<kNT>(fv + vr * L::kLdF + col, x);
 #pragma unroll
               for (int j = 0; j < kNT; ++j) split_tf32(x[j], bh[j][e], bl[j][e]);
             }
@@ -1112,23 +1245,27 @@ __global__ void __launch_bounds__(kThreads) paged_i8_mma_f32_kernel(const Params
         }
       }
     }
-    __syncthreads();  // the stage, the f32 tile, the scores and p are free again
-    if (!ahead && nxt >= 0) {  // a tile with tail rows: after this one
-      load_f32_tile<D>(p, live, b, kh, nxt, false, ft, ssc + (stage ^ 1) * 2 * kTile);
+    __syncthreads();  // the stage or f32 tiles, the scores and p are free again
+    if constexpr (kF32) {
+      if (loader && nxt >= 0) load_f32_rows<D>(p, srow + (stage ^ 1) * kTile, true, fv);
+    } else {
+      if (loader && !ahead && nxt >= 0) {  // a tile with tail rows: after this one
+        load_f32_tile<D>(p, live, b, kh, nxt, false, ft, ssc + (stage ^ 1) * 2 * kTile);
+      }
+      page = ahead;
     }
-    page = ahead;
     cur = nxt;
   }
 
-  // The split's partial: m and l per row; acc's row g (and g + 8) holds
-  // dimensions w D / 4 + 2 t kNT .. + 2 kNT - 1 in order (columns 2t of the
-  // kNT blocks, then 2t + 1), a run that head_dim (a multiple of 16) holds
-  // whole or not at all.
+  // The split's partial: m and l per row; acc's row g (and g + 8) of the
+  // warp's row tile holds dimensions wq D / 4 + 2 t kNT .. + 2 kNT - 1 in
+  // order (columns 2t of the kNT blocks, then 2t + 1), a run that head_dim
+  // (a multiple of 16) holds whole or not at all.
   const long part = ((long)b * p.kv_heads + kh) * p.n_split + split;
-  const int col0 = warp * (D / 4) + 2 * t * kNT;
+  const int col0 = wq * (D / 4) + 2 * t * kNT;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int r = 8 * hf + g;
+    const int r = kMmaRows * mt + 8 * hf + g;
     if (r < rows && col0 < hd) {
       float run[2 * kNT];
 #pragma unroll
@@ -1148,36 +1285,37 @@ __global__ void __launch_bounds__(kThreads) paged_i8_mma_f32_kernel(const Params
       }
     }
   }
-  for (int r = tid; r < rows; r += kThreads) {
+  for (int r = tid; r < rows; r += kBlockThreads) {
     p.part_ml[(part * all_rows + row0 + r) * 2] = sm[r];
     p.part_ml[(part * all_rows + row0 + r) * 2 + 1] = sl[r];
   }
 }
 
-template <int D>
-int launch_i8_mma(const Params& p, int batch, cudaStream_t stream) {
+template <int D, bool kF32, int kMT>
+int launch_mma(const Params& p, int batch, cudaStream_t stream) {
   static bool prepared = false;
-  constexpr int kSmem = MmaLayout<D>::kBytes;
-  auto kernel = paged_i8_mma_f32_kernel<D>;
+  constexpr int kSmem = MmaLayout<D, kF32, kMT>::kBytes;
+  auto kernel = paged_mma_f32_kernel<D, kF32, kMT>;
   if (!prepared) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     prepared = true;
   }
-  const int row_groups = (p.n_q * p.groups + kMmaRows - 1) / kMmaRows;
-  kernel<<<dim3(p.n_split, p.kv_heads * row_groups, batch), kThreads, kSmem, stream>>>(p);
+  constexpr int kRows = kMT * kMmaRows;
+  const int row_groups = (p.n_q * p.groups + kRows - 1) / kRows;
+  kernel<<<dim3(p.n_split, p.kv_heads * row_groups, batch), kThreads * kMT, kSmem, stream>>>(p);
   if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
   paged_merge_f32_kernel<D, true><<<dim3(p.n_q * p.groups, p.kv_heads, batch), p.head_dim,
                                     2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kTail, int kR, bool kI8>
+template <int D, bool kTail, int kR>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   static bool prepared = false;
-  constexpr int kSmem = kI8 ? Layout<D, kR>::kBytesI8 : Layout<D, kR>::kBytes;
-  auto kernel = paged_split_f32_kernel<D, kTail, kR, kI8>;
+  constexpr int kSmem = Layout<D, kR>::kBytes;
+  auto kernel = paged_split_f32_kernel<D, kTail, kR>;
   if (!prepared) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -1192,19 +1330,29 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance for `rows` query rows: 8 for the single-query form at G <=
-// 8; else 16, 48 or 80 (48 at D = 256, kBlockRows), and blocks of that many
-// rows side by side past it.
+// The kernel and instance for `rows` query rows. Over int8 pools the
+// tensor-core kernel: the single query one row tile a block (groups of 16
+// of any G side by side), the verify past 16 rows kVerifyRowTiles row tiles
+// a block, blocks side by side past them. K3-f32's
+// single query: the tensor-core kernel over f32 pools, one row tile a block.
+// K3-f32's verify and K4-f32: the FFMA kernel's 8-row form for K4-f32 at G
+// <= 8, else 16, 48 or 80 rows (48 at D = 256, kBlockRows), blocks of that
+// many side by side past it.
 template <int D, bool kTail, bool kI8>
 int launch_rows(const Params& p, int batch, cudaStream_t stream, bool verify, int rows) {
-  if constexpr (kI8) {  // a single query over int8 pools: the tensor-core kernel, any G
-    if (!verify) return launch_i8_mma<D>(p, batch, stream);
+  if constexpr (kI8) {
+    if (verify && rows > kMmaRows) return launch_mma<D, false, kVerifyRowTiles>(p, batch, stream);
+    return launch_mma<D, false, 1>(p, batch, stream);
   } else {
-    if (!verify && rows <= kSingleRows) return launch<D, kTail, kSingleRows, kI8>(p, batch, stream);
+    if constexpr (kTail) {
+      if (!verify) return launch_mma<D, true, 1>(p, batch, stream);
+    } else {
+      if (rows <= kSingleRows) return launch<D, false, kSingleRows>(p, batch, stream);
+    }
+    if (rows <= 16) return launch<D, kTail, 16>(p, batch, stream);
+    if (rows <= 48) return launch<D, kTail, 48>(p, batch, stream);
+    return launch<D, kTail, kBlockRows<D>>(p, batch, stream);
   }
-  if (rows <= 16) return launch<D, kTail, 16, kI8>(p, batch, stream);
-  if (rows <= 48) return launch<D, kTail, 48, kI8>(p, batch, stream);
-  return launch<D, kTail, kBlockRows<D>, kI8>(p, batch, stream);
 }
 
 template <bool kTail, bool kI8>

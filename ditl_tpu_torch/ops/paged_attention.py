@@ -69,11 +69,12 @@ twin and the kernels all apply it.
   ``launches_verify_f32`` and ``launches_f32``; over int8 pools (variant
   F) ``ditl_paged_tail_i8_f32`` and ``ditl_paged_verify_i8_f32``
   (``launches_tail_int8_f32``, ``launches_verify_int8_f32``): the int8
-  values and their scales in f32, p times V's scale never rounded. The
-  single query runs on the tensor cores (3xTF32 ``mma.sync``: an int8 key
-  or V row is exact in TF32, so two products where an f32 row takes
-  three) over small int8 staging tiles, any G in groups of 16 rows; the
-  verify and the other f32 kernels on FFMA.
+  values and their scales in f32, p times V's scale never rounded. K3-f32,
+  K3-int8-f32 and its verify run on the tensor cores (3xTF32 ``mma.sync``:
+  an int8 key or V row is exact in TF32, so two products where an f32 row
+  takes three), over small int8 staging tiles or f32 page tiles, in m16 row
+  tiles of 16 query rows (the verify over int8 pools past 16 rows two a
+  block); K3-f32's verify and K4-f32 on FFMA.
 - **On float16 operands** (``csrc/paged_attention.cu``, the bf16 template's
   float16 instances): ``ditl_paged_tail_f16``, ``ditl_paged_verify_f16``,
   ``ditl_paged_f16`` and over int8 pools ``ditl_paged_tail_i8_f16``,
@@ -88,10 +89,11 @@ dims outside ``HEAD_DIMS`` (every multiple of 16 up to 256) raise
 head_dim of ``HEAD_DIMS`` on the smallest of its template instances
 (``INSTANCE_DIMS``) that holds it, columns past head_dim zero in shared
 memory, and any number of query heads per KV head and of verify rows: past
-a block's rows (8 single-query, 16 for K3-int8-f32, 80 in the row-tile
-forms) it runs blocks of rows side by side, each over the split's keys (the
-sources' "Row groups"; each row's arithmetic, and so
-``paged_attention_split_plain``, is the same in any grouping).
+a block's rows (8 single-query, 16 for K3-f32 and K3-int8-f32, 80 in the
+row-tile forms, 32 for K3-int8-f32-verify) it runs blocks of
+rows side by side, each over the split's keys (the sources' "Row groups";
+each row's arithmetic, and so ``paged_attention_split_plain``, is the same
+in any grouping).
 
 Layouts are the JAX package's: q (B, H, D) or (B, Q, H, D); pools (P, K,
 ps, D); page table (B, maxp) int32; lengths and starts (B,) int32; tails

@@ -1360,6 +1360,94 @@ def test_paged_int8_f32_tensor_core_kernel_matches_plain(no_tf32, case):
     assert all(bool((o[i] == 0).all()) for i, n in enumerate(lengths) if n == 0)
 
 
+@pytest.mark.torch_port
+@pytest.mark.parametrize("case", INT8_F32_MMA_CASES, ids=[c[0] for c in INT8_F32_MMA_CASES])
+def test_paged_f32_tensor_core_kernel_matches_plain(no_tf32, case):
+    """K3-f32 (f32 q over f32 pools, one query) on the tensor-core kernel's
+    f32-pool instance against the plain version and the split twin within
+    PAGED_F32_TOL of the largest magnitude, at G = 16 and 20, D = 32, 96 and
+    256 and a tile that mixes page, dead and tail rows; two calls give the
+    same bits, a 4-D q with Q = 1 the 3-D call's, a dead slot zeros; each
+    call counts one K3-f32 launch."""
+    _, b, h, kv, d, ps, tail_len, lengths, starts, maxp = case
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=d + h + 1, maxp=maxp,
+        dtype=torch.float32)
+    tail = dict(tail_k=tk, tail_v=tv, starts=st)
+    tpa.reset_launches()
+    runs = [tpa.paged_attention(q, kp, vp, table, lens, **tail) for _ in range(2)]
+    o4 = tpa.paged_attention(q[:, None].contiguous(), kp, vp, table, lens, **tail)
+    assert {n: getattr(tpa, n) for n in tpa._COUNTERS.values() if getattr(tpa, n)} == {
+        "launches_tail_f32": 3}
+    args = (q, kp, vp, table, lens, tk, tv, st)
+    r, sp = tpa.paged_attention_plain(*args), tpa.paged_attention_split_plain(*args)
+    torch.cuda.synchronize()
+    o = runs[0]
+    assert o.shape == q.shape and o.dtype == torch.float32
+    assert torch.equal(runs[1], o) and torch.equal(o4[:, 0], o)
+    _close(o, r, torch.float32)
+    _close(o, sp, torch.float32)
+    assert all(bool((o[i] == 0).all()) for i, n in enumerate(lengths) if n == 0)
+
+
+# K3-int8-f32-verify on the tensor-core kernel's row tiles: (label, b, nq, h,
+# kv, d, ps, tail_len, lengths, starts, maxp), blocks of at most two row
+# tiles. Path 11's spec tick (Q = 9, G = 4: 36 rows, three row tiles in two
+# blocks, the second with one), path 16's 144 rows (G = 16: nine row tiles
+# in five blocks), G = 20 at Q = 3 (60 rows, a partial row tile), D = 32 (G
+# = 2: 18 rows), D = 96 (G = 4) and D = 256 (G = 8: 72 rows) at the spec
+# tick's ragged
+# state; page 16 with five pages a slot, so the axis's tail starts at 80 and
+# the tile at 64 mixes page, dead and tail rows; and a tail whose split
+# boundary (tail column 128) lies between query 0's limit (125) and query
+# 8's (133), with a tail-only slot.
+SPEC = chip_smoke.SPEC_MAIN
+SPEC_STARTS, SPEC_LENGTHS = chip_smoke._spec_main_case()
+INT8_F32_VERIFY_MMA_CASES = [
+    ("spec tick", 8, 9, 32, 8, 128, 256, 54, SPEC_LENGTHS, SPEC_STARTS, 8),
+    ("144 rows", 8, 9, 128, 8, 128, 256, 54, SPEC_LENGTHS, SPEC_STARTS, 8),
+    ("G=20", 3, 3, 40, 2, 128, 16, 16, [257, 256, 140], [254, 250, 128], None),
+    ("D=32", 8, 9, 8, 4, 32, 256, 54, SPEC_LENGTHS, SPEC_STARTS, 8),
+    ("D=96", 8, 9, 32, 8, 96, 256, 54, SPEC_LENGTHS, SPEC_STARTS, 8),
+    ("D=256", 8, 9, 8, 1, 256, 256, 54, SPEC_LENGTHS, SPEC_STARTS, 8),
+    ("mixed tile", 5, 3, 16, 2, 64, 16, 100, [100, 80, 175, 3, 0], [80, 70, 80, 0, 0], 5),
+    ("split-crossing tail", 3, 9, 32, 8, 128, 16, 200, [381, 60, 30], [256, 30, 0], 16),
+]
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("case", INT8_F32_VERIFY_MMA_CASES,
+                         ids=[c[0] for c in INT8_F32_VERIFY_MMA_CASES])
+def test_paged_int8_f32_verify_tensor_core_kernel_matches_plain(no_tf32, case):
+    """K3-int8-f32-verify (f32 q over int8 pools, Q > 1) on the tensor-core
+    kernel with several m16 row tiles a block against the plain version's
+    4-D branch and the split twin within PAGED_F32_TOL of the largest
+    magnitude; two calls give the same bits, a 4-D q with Q = 1 the 3-D
+    call's, a dead slot zeros; each verify call counts one
+    K3-int8-f32-verify launch and nothing else."""
+    _, b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp = case
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=d + h + nq, nq=nq,
+        maxp=maxp, dtype=torch.float32)
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    tail = dict(tail_k=tk, tail_v=tv, starts=st, k_scale=ks, v_scale=vs)
+    tpa.reset_launches()
+    runs = [tpa.paged_attention(q, kq, vq, table, lens, **tail) for _ in range(2)]
+    assert {n: getattr(tpa, n) for n in tpa._COUNTERS.values() if getattr(tpa, n)} == {
+        "launches_verify_int8_f32": 2}
+    args = (q, kq, vq, table, lens, tk, tv, st, ks, vs)
+    r, sp = tpa.paged_attention_plain(*args), tpa.paged_attention_split_plain(*args)
+    o41 = tpa.paged_attention(q[:, :1].contiguous(), kq, vq, table, lens, **tail)
+    o3 = tpa.paged_attention(q[:, 0].contiguous(), kq, vq, table, lens, **tail)
+    torch.cuda.synchronize()
+    o = runs[0]
+    assert o.shape == q.shape and o.dtype == torch.float32
+    assert torch.equal(runs[1], o) and torch.equal(o41[:, 0], o3)
+    _close(o, r, torch.float32)
+    _close(o, sp, torch.float32)
+    assert all(bool((o[i] == 0).all()) for i, n in enumerate(lengths) if n == 0)
+
+
 # ---------------------------------------------------------------------------
 # The float16 backward: K2a-f16, K2b-f16 (csrc/flash_bwd.cu), K5a-f16,
 # K5b-f16 (csrc/mlp_bwd.cu) and K6-f16 (csrc/projection_bwd.cu), the bf16

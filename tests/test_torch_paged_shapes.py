@@ -46,9 +46,12 @@ from ditl_tpu_torch.ops import paged_attention as tpa  # noqa: E402
 
 torch.set_num_threads(1)
 
-# (head_dim, query heads, KV heads, Q (1: a 3-D q))
+# (head_dim, query heads, KV heads, Q (1: a 3-D q)); (128, 8, 2, 9) is path
+# 11's spec tick at G = 4 (36 rows a KV head: three row tiles, in two blocks
+# of at most two on the card's f32 verify over int8 pools), (256, 8, 1, 9) D
+# = 256 at G = 8 (72 rows: blocks of two row tiles).
 SHAPES = [(96, 2, 2, 1), (96, 2, 2, 9), (16, 16, 1, 1), (16, 16, 1, 9), (80, 12, 1, 9),
-          (48, 16, 2, 9)]
+          (48, 16, 2, 9), (128, 8, 2, 9), (256, 8, 1, 9)]
 # pool kind -> (q and tail dtype, int8 pools, tolerance)
 POOLS = {"bf16": ("bfloat16", False, 2e-2), "f32": ("float32", False, 2e-5),
          "int8": ("float32", True, 1e-4)}
