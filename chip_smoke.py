@@ -242,7 +242,7 @@ no result line. It imports nothing of JAX or of the JAX package.
    ``llama31-70b`` preset with hidden 16384, MLP 53248, 128 heads on 8 KV
    heads: G = 16), the runs of paths 14 and 15: bf16 at depth 4 of 126,
    plain and speculative (the decode tick's K3 at 16 query rows a KV head,
-   the verify at 144 in two row groups, K1 at G = 16 on every cold
+   the verify at 144 rows a KV head, K1 at G = 16 on every cold
    prefill), every other run at depth 2. Main path 17, Phi-3-mini-4k's
    widths (``PHI3_SERVE``: hidden 3072, MLP 8192, 32 layers, 32 heads
    without GQA, D = 96, vocab 32064): bf16 at full depth, every run at
@@ -323,6 +323,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import random
 import re
 import subprocess
@@ -3611,6 +3612,74 @@ def _k3_digests(paged) -> dict:
     return out
 
 
+# The row-tile kernel's forms (``paged_rows_kernel``: the verify, and the
+# single query past 8 rows a KV head) on the cases of ``_rows_digests``:
+# SHA-256 prefixes of their outputs as the build that moved them onto it
+# gave them on an H100 (the spec tick at splits of 256 keys, 144 rows at
+# 256, head_dim 64 and G = 16 at 128).
+ROWS_DIGESTS: dict[str, str] = {
+    "spec tick K3-verify bf16": "f665ae6f9e7d3a53",
+    "spec tick K3-int8-verify bf16": "513955bf7dcd2672",
+    "spec tick K3-verify f16": "036f2a66c96d74f3",
+    "spec tick K3-int8-verify f16": "7e9189e4f5ca4f7a",
+    "head_dim 64 K3-verify bf16": "99dcd46b6f81db7e",
+    "head_dim 64 K3-int8-verify bf16": "ad24890f26841140",
+    "head_dim 64 K3-verify f16": "6d4dea3f0a4ebc01",
+    "head_dim 64 K3-int8-verify f16": "f784073b22adc314",
+    "144 rows K3-verify bf16": "83083b3adbaf9690",
+    "144 rows K3-int8-verify bf16": "92d04aa834300515",
+    "144 rows K3-verify f16": "1ed62a829f41341b",
+    "144 rows K3-int8-verify f16": "dde74d20caa0f6bd",
+    "G = 16 K3 bf16": "fe2fcb98f86fc2dd",
+    "G = 16 K3-int8 bf16": "a29af00bb2b67d4a",
+    "G = 16 K4 bf16": "edee20f786ee80a1",
+    "G = 16 K3 f16": "48315790f83ca42f",
+    "G = 16 K3-int8 f16": "b99cebda575fafa6",
+    "G = 16 K4 f16": "b964d1f48eaa2fcb",
+}
+
+
+def _rows_digests(paged) -> dict:
+    """K3-verify and K3-int8-verify in bf16 and float16 at the spec tick,
+    at head_dim 64 (page 16, a dead slot, Q = 5) and at path 16's 144 rows
+    (G = 16, Q = 9); K3, K3-int8 and K4 in both types at path 16's decode
+    tick (G = 16, one query); each on ``_det_paged_case``'s integer-made
+    inputs (float16: the same values, exact in float16). SHA-256 digests
+    of the outputs' bytes."""
+    import hashlib
+
+    import torch
+
+    spec_st, spec_ln = _spec_main_case()
+    tick_st, tick_ln = _paged_main_case()
+    m, p16 = SPEC_MAIN, SHAPE_SPEC_TICKS[16]
+    cases = [("spec tick", (m["b"], m["h"], m["kv"], m["d"], m["ps"], m["tail_len"], spec_ln,
+                            spec_st), m["nq"]),
+             ("head_dim 64", (4, 8, 4, 64, 16, 24, [0, 20, 40, 21], [0, 16, 33, 20]), 5),
+             ("144 rows", (p16["b"], p16["h"], p16["kv"], p16["d"], p16["ps"], p16["tail_len"],
+                           spec_ln, spec_st), p16["nq"]),
+             ("G = 16", (8, 128, 8, 128, 256, 16, tick_ln, tick_st), None)]
+    out = {}
+    for i, (label, shape, nq) in enumerate(cases):
+        c = _det_paged_case(*shape, salt=900 + 10 * i, nq=nq)
+        for sfx, dtype in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+            q, kp, vp, tk, tv = (c[k].to(dtype) for k in ("q", "kp", "vp", "tk", "tv"))
+            tail = dict(tail_k=tk, tail_v=tv, starts=c["starts"])
+            int8 = dict(k_scale=c["ks"], v_scale=c["vs"])
+            name = "-verify" if nq else ""
+            outs = {f"K3{name}": paged.paged_attention(q, kp, vp, c["table"], c["lengths"],
+                                                       **tail),
+                    f"K3-int8{name}": paged.paged_attention(q, c["kq"], c["vq"], c["table"],
+                                                            c["lengths"], **tail, **int8)}
+            if nq is None:
+                outs["K4"] = paged.paged_attention(q, kp, vp, c["table"], c["lengths"])
+            torch.cuda.synchronize()
+            for key, t in outs.items():
+                raw = t.contiguous().view(torch.int16).cpu().numpy().tobytes()
+                out[f"{label} {key} {sfx}"] = hashlib.sha256(raw).hexdigest()[:16]
+    return out
+
+
 def _det_f32(shape, salt: int, shift: int):
     """f32 values made on the card by integer arithmetic alone (integers in
     [-2^20, 2^20] times 2**-shift, hashed as in ``_det_bf16``): 21 bits of
@@ -3792,6 +3861,18 @@ def _verify_cases():
         ("G=8", 2, 9, 16, 2, 128, 64, 40, [300, 77], [290, 64], 5),
         # 8 query rows, one row tile with padding rows: Q = 2, G = 4
         ("Q=2", 3, 2, 16, 4, 128, 16, 16, [17, 40, 1], [16, 33, 0], 3),
+        # G = 20 at Q = 3: 60 rows, the last row tile partial; the split edges
+        ("G=20, 60 rows", 3, 3, 40, 2, 128, 16, 16, [258, 253, 140], [256, 250, 128], 17),
+        # Q = 17 at G = 16: 272 rows, past a block's row tiles into a second
+        # row group
+        ("272 rows", 2, 17, 32, 2, 128, 64, 40, [300, 77], [290, 64], 5),
+        # 144 rows at head_dim 256: the largest shared memory (int8 staged in
+        # place)
+        ("D=256, 144 rows", 2, 9, 32, 2, 256, 64, 40, [300, 77], [290, 64], 5),
+        # page 16, five pages a slot: the tile at 64 mixes page rows (below
+        # min(starts, lengths)), dead page rows and tail rows from 80; a
+        # 100-column tail over a split boundary, a tail-only and a dead slot
+        ("mixed tile", 5, 3, 8, 2, 64, 16, 100, [100, 80, 175, 3, 0], [80, 70, 80, 0, 0], 5),
     ]
 
 
@@ -3855,6 +3936,10 @@ def phase_paged_verify_kernels(paged) -> dict:
     for key, value in digests.items():
         log(f"[kernels] single-query digest {key}: {value} (expected {K3_DIGESTS.get(key)})")
     require(digests == K3_DIGESTS, "K3/K3-int8/K4 differ from the earlier build's bits")
+    rows = _rows_digests(paged)
+    for key, value in rows.items():
+        log(f"[kernels] row-tile digest {key}: {value} (expected {ROWS_DIGESTS.get(key)})")
+    require(rows == ROWS_DIGESTS, "the row-tile kernel's forms differ from their recorded bits")
     return worst
 
 
@@ -5957,7 +6042,7 @@ SHAPE_PAGED_CASES = [
      [0, 0, 38, 45]),
 ]
 # Verify cases: (label, b, nq, h, kv, d, ps, tail_len, lengths, starts,
-# maxp). The spec ticks of paths 16 (144 rows: two row groups) and 17; G =
+# maxp). The spec ticks of paths 16 (144 rows) and 17; G =
 # 12 at D = 80 (108 rows); D = 16 at G = 16 with a tail longer than 128
 # columns (query 0's limit before the split at tail column 128, query 8's
 # past it) and a tail-only slot (144 rows).
@@ -6064,11 +6149,86 @@ def phase_shape_timings(flash, paged) -> dict:
                               "shape-timing")
             out[name]["path 16, 80 rows"] = t80
             t144 = out[name]["path 16"]
-            log(f"[shape-timing] {name} at path 16's widths: 144 rows (two row groups) "
-                f"{t144['ms']:.4f} ms against 80 rows (one) {t80['ms']:.4f} ms, "
+            log(f"[shape-timing] {name} at path 16's widths: 144 rows "
+                f"{t144['ms']:.4f} ms against 80 rows {t80['ms']:.4f} ms, "
                 f"{t144['ms'] / t80['ms']:.2f}x; bounds {t144['bound_ms']:.4f} / "
                 f"{t80['bound_ms']:.4f} ms ({SMI})")
     return out
+
+
+# The row-tile kernel's shapes for ``--paged-rows``: (label, form, tick):
+# the spec ticks of paths 7 (36 rows), 16 (144 rows; its widths at 80
+# rows too), 17 (9 rows, D = 96), 14 (D = 32) and 15 (D = 256), path 16's
+# decode tick (one query at G = 16), and the main decode tick (G = 4: the
+# single-query kernel, beside them).
+ROWS_TIMING = [("spec tick, 36 rows", "verify", SPEC_MAIN),
+               ("path 16, 144 rows", "verify", SHAPE_SPEC_TICKS[16]),
+               ("path 16, 80 rows", "verify", SHAPE_VERIFY_80),
+               ("path 17, 9 rows", "verify", SHAPE_SPEC_TICKS[17]),
+               ("D = 32", "verify", HD_SPEC_TICKS[32]),
+               ("D = 256", "verify", HD_SPEC_TICKS[256]),
+               ("path 16, one query, G = 16", "tail", SHAPE_TICKS[16]),
+               ("path 16, one query, G = 16", "no_tail", SHAPE_TICKS[16]),
+               ("decode tick, G = 4", "tail", PAGED_MAIN),
+               ("decode tick, G = 4", "no_tail", PAGED_MAIN)]
+
+
+def _paged_kernel_ms(paged, dtype_name: str, int8: bool, form: str, m: dict):
+    """One paged form's device time on ``_time_paged``'s inputs (the same
+    seeds and ragged state): CUDA-graph ms over ``PAGED_COPIES`` input
+    copies, the better of two runs, and torch.profiler's device us per call
+    by kernel (eager calls)."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    starts, lengths = _spec_main_case() if form == "verify" else _paged_main_case()
+    calls = []
+    for c in range(PAGED_COPIES):
+        q, kp, vp, table, ln, st, tk, tv = _paged_inputs(
+            m["b"], m["h"], m["kv"], m["d"], m["ps"], m["tail_len"], lengths, starts,
+            seed=1600 + c, share=False, nq=m.get("nq") if form == "verify" else None,
+            maxp=m.get("maxp"), dtype=dtype)
+        kw = {}
+        if int8:
+            kp, vp, ks, vs = _int8_pools(kp, vp)
+            kw = dict(k_scale=ks, v_scale=vs)
+        if form == "no_tail":
+            ln = torch.minimum(st, ln).contiguous()
+        else:
+            kw.update(tail_k=tk, tail_v=tv, starts=st)
+        calls.append(functools.partial(paged.paged_attention, q, kp, vp, table, ln, **kw))
+    ms = min(_graph_ms(calls), _graph_ms(calls))
+    return ms, _device_us_by_kernel(_cycle(calls), 4 * PAGED_COPIES)
+
+
+def phase_rows_timings(paged, tree: str, sweeps: bool) -> None:
+    """[rows-timing], for ``python3 chip_smoke.py --paged-rows [TREE]``: the
+    bf16 verify over float and int8 pools at each verify shape of
+    ``ROWS_TIMING``, and the single query at G = 16 and 4 (K3, K3-int8, K4), by
+    ``_paged_kernel_ms``: the whole call's device time and the split kernel
+    and the merge apart. With ``sweeps``, where the module has
+    ``split_keys`` (the row-tile kernel's split lengths), each also at
+    splits of 128, 256 and 512 keys. Uses only the wrapper's signature, so it runs
+    against an older tree's module (``TREE`` first on ``sys.path``)."""
+    for label, form, m in ROWS_TIMING:
+        for int8 in ((False, True) if form != "no_tail" else (False,)):
+            name = {"verify": "paged_verify", "tail": "paged_tail", "no_tail": "paged"}[form]
+            name += "_int8" if int8 else ""
+            ms, by_kernel = _paged_kernel_ms(paged, "bfloat16", int8, form, m)
+            log(f"[rows-timing] {tree} {name} {label}: {ms:.4f} ms; by kernel "
+                + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(by_kernel.items()))
+                + f" ({SMI})")
+            if sweeps and hasattr(paged, "split_keys"):
+                rule, sweep = paged.split_keys, []
+                try:
+                    for split in (128, 256, 512):
+                        paged.split_keys = lambda *_, n=split: n
+                        ms_s = _paged_kernel_ms(paged, "bfloat16", int8, form, m)[0]
+                        sweep.append(f"split {split} {ms_s:.4f}")
+                finally:
+                    paged.split_keys = rule
+                log(f"[rows-timing] {tree} {name} {label} split lengths, ms: "
+                    f"{', '.join(sweep)} ({SMI})")
 
 
 def main() -> int:
@@ -6312,5 +6472,27 @@ def main() -> int:
     return 0
 
 
+def rows_main(tree: str | None, sweeps: bool) -> int:
+    """``--paged-rows [--sweep] [TREE]``: the card's name and limit, then
+    ``phase_rows_timings`` on TREE's ``ditl_tpu_torch`` (default: this
+    checkout's), with the split-length sweep under ``--sweep``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the card", file=sys.stderr)
+        return 1
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
+    from ditl_tpu_torch.ops import paged_attention as paged
+
+    log(f"[rows-timing] ditl_tpu_torch from {os.path.dirname(paged.__file__)}")
+    phase_card()
+    phase_rows_timings(paged, tree or ".", sweeps)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--paged-rows"]:
+        rest = sys.argv[2:]
+        sys.exit(rows_main(next((a for a in rest if a != "--sweep"), None), "--sweep" in rest))
     sys.exit(main())

@@ -10,12 +10,13 @@
 // Entry points: ditl_paged_tail_bf16 (K3), ditl_paged_tail_i8 (K3 over int8
 // pools: _paged_tail_kernel with quantized=True), ditl_paged_verify_bf16 and
 // ditl_paged_verify_i8 (K3's multi-query verify: _paged_tail_kernel with
-// q_groups, over float and int8 pools) and ditl_paged_bf16 (K4). All are
-// instances of one template, for head dims up to 32, 64, 128 and 256: any
+// q_groups, over float and int8 pools) and ditl_paged_bf16 (K4). Two
+// kernels, each a template for head dims up to 32, 64, 128 and 256 (any
 // head_dim that is a multiple of 16 up to 256 runs on the smallest instance
-// that holds it (see "Head dims" below); the verify form, and any call with
-// more than 8 query rows per KV head, is its kMT > 0 instances (see "The
-// multi-query verify" and "Row groups" below). The same five on
+// that holds it, see "Head dims" below): paged_split_kernel, the single
+// query at up to 8 query rows per KV head, and paged_rows_kernel, the verify
+// and any call with more rows (see "The row-tile kernel" and "Row groups"
+// below); one merge serves both. The same five on
 // float16 q, tails and float pools (the reference's kernels take any float
 // dtype with f32 sums) are the template's kF16 instances:
 // ditl_paged_tail_f16, ditl_paged_tail_i8_f16, ditl_paged_verify_f16,
@@ -34,13 +35,14 @@
 // - Split keys. A slot's keys lie on one axis of max_pages * page_size page
 //   positions followed by tail_len tail positions (K4: no tail). The grid is
 //   (split, KV head, slot), a split being a fixed run of `split` positions
-//   (ops/paged_attention.py SPLIT_KEYS, a multiple of the 64-key tile), so
+//   (ops/paged_attention.py SPLIT_KEYS or, for the row-tile kernel,
+//   split_keys; a multiple of the 64-key tile), so
 //   the grid is sized from shapes the host knows, never from lengths or
 //   starts: the wrapper reads nothing back from the card, and a decode step
 //   can be captured in a CUDA graph. A block whose split holds no live key
 //   stops at once and writes nothing; the merge, applying the same rule to
 //   the same lengths, gives that split no weight.
-// - Inside a split, one 128-thread block walks its live 64-key tiles
+// - Inside a split, one 128-thread block (the single-query form) walks its live 64-key tiles
 //   (skipping tiles with no live column) with the next tile's K and V in
 //   flight by cp.async while the current one is computed (two stages, 34 KB
 //   each at D = 128, rows padded by 16 bytes, dead rows zero-filled by the
@@ -86,40 +88,69 @@
 // scale 1. Converting in registers on the way to the products, TMA and
 // wgmma are later work.
 //
-// The multi-query verify (ditl_paged_verify_*). q is (B, Q, H, D): the
-// speculative verify's Q = spec_k + 1 query tokens per slot, which share every
-// page fetch. The query rows of a KV head are r = qi * G + g (Q * G of them);
-// a block takes at most 16 * kMaxRowTiles = 80 of them (see "Row groups").
-// Row r's tail columns j are live when starts + j < lengths + qi (causal
-// within the verify chunk), page columns below min(starts, lengths) for
-// every row, and the tail is read only when lengths > starts (the Pallas
-// kernel's _tail gate). Bound at the spec tick of llama3-8b (8 slots, Q = 9,
-// 32 / 8 heads, D = 128, 4,343 live keys, 54 tail columns): the float K3's
-// 17.8 MB of K/V plus 9x its q and o, about 19 MB, 5.7 us at 3.35 TB/s,
-// against 0.65 GFLOP of products (under a microsecond): still bytes-bound,
-// and the design keeps the single-query form's byte stream, each K and V tile
-// now serving all Q * G rows. Design, the simplest that is right: the
-// template's kMT (m16 row tiles: 1, 3 or 5 instances) sizes the scores, p,
-// m, l and alpha arrays and the accumulators; q's rows sit in shared memory
-// (padded as the key rows) and reach the products by ldmatrix, all 16 rows
-// of each m16 tile filled; row tiles past Q * G are skipped at run time; the
-// softmax loops one warp per row over Q * G rows; the merge runs one block
-// per (query row, KV head, slot). kMT = 0 is the single-query form, which
-// keeps its q fragments in registers (rows 8-15 zero), its 73 KB of shared
-// memory at D = 128, and its bits. wgmma, TMA and in-register int8
-// converts are later work.
+// The row-tile kernel (paged_rows_kernel<D, kTail, kI8, kF16, kKG>): every
+// verify (ditl_paged_verify_*: q (B, Q, H, D), the speculative verify's Q =
+// spec_k + 1 query tokens per slot, which share every page fetch) and every
+// call with more than 8 query rows per KV head (a single query at G > 8, K4
+// too). The query rows of a KV head are r = qi * G + g (Q * G of them). Row
+// r's tail columns j are live when starts + j < lengths + qi (causal within
+// the verify chunk), page columns below min(starts, lengths) for every row,
+// and the tail is read only when lengths > starts (the Pallas kernel's _tail
+// gate). Bound at the spec tick of llama3-8b (8 slots, Q = 9, 32 / 8 heads,
+// D = 128, 4,343 live keys, 54 tail columns): the float K3's 17.8 MB of K/V
+// plus 9x its q and o, about 19 MB, 5.7 us at 3.35 TB/s, against 0.65 GFLOP
+// of products (under a microsecond): bytes-bound, each K and V tile serving
+// all Q * G rows. Its first form (the single-query template's kMT = 1, 3, 5
+// instances) ran the softmax one warp a row through shared memory, four
+// barriers a tile, and row groups of 80 rows that each re-read the split:
+// 0.0489 ms at the spec tick, 0.1849 ms at 144 rows (PERF.md §6). This one:
+// - One warp per m16 row tile of 16 query rows, over the whole 64-key tile:
+//   q.k from q's A fragments (ldmatrix from shared memory, where the q rows
+//   sit padded as the key rows) and K's B fragments (ldmatrix, two n8 key
+//   blocks a load), eight n8 score blocks a warp in registers, each score
+//   masked by its row's tail limit (no masks on a tile whose keys every row
+//   sees). The online softmax in registers: a thread holds two rows x 16
+//   keys, the row max and sum take two __shfl_xor steps in the quad, m, l
+//   and alpha live in registers. p (times V's scale over int8 pages, rounded
+//   to the 16-bit type; l adds the f32 p) is packed straight into p.V's A
+//   fragments: the m16n8k16 sums of two adjacent n8 score blocks are one
+//   k16 step's A fragment (FlashAttention-2's layout). p.V runs over all D
+//   columns a warp (acc[D / 8][4]: 64 registers at D = 128), V's fragments
+//   by ldmatrix.trans from the stage every warp reads. No score, p or alpha
+//   arrays in shared memory: two barriers a tile (the tile is in; its stage
+//   is free), plus the int8 convert's, which widens int8 rows by byte
+//   permutes (i8x16_convert_exact: the same values, fewer instructions).
+// - All of a KV head's rows in one block, up to Rows<D>::kMaxTiles row tiles
+//   (12 at D = 128, 16 at D <= 64, 8 at D = 256: the registers a thread may
+//   take at that many warps), so each split's K and V are loaded and
+//   converted once for every row (path 16's 144 rows: nine warps).
+// - Few row tiles: a block keeps at least four warps to issue its copies
+//   and hide latency. One row tile takes kKG = 4 warps, two or three tiles
+//   kKG = 2 warps each; the kKG warps of a tile take disjoint keys of every
+//   key tile (16 or 32), each with its own m, l and acc, and hand them to the
+//   tile's first warp through shared memory after the last tile (the stages
+//   are free), which combines them in key order, each weighted exp(m_w - max
+//   m_w), 0 where m_w is the mask value (nothing live for the row in the
+//   warp's keys), and writes the partial.
+// - Split length. The partials (rows x D f32 per split) grow with the rows:
+//   at 144 rows they are 112% of the bf16 K/V bytes a 128-key split reads.
+//   The wrapper takes 256-key splits where the call holds at least 2304
+//   query rows (B * Q * H), 128 below (ops/paged_attention.py split_keys,
+//   measured on the card at every shape: PERF.md §6), from shapes
+//   alone. The merge reads fewer partials, and blocks fewer splits.
+// Shared memory at D = 128: 68 KB of stages plus 272 bytes a q row (81 KB at
+// 36 rows, 106 KB at 144), over int8 pools 33 KB more; at D = 256 int8 rows
+// are staged in place (Rows<256>::kInPlace), 199 KB at 128 rows.
 //
-// Row groups. A call with more query rows than one block takes, a verify
-// with Q * G > 80 (Llama-3.1-405B's G = 16 at spec_k = 8: 144 rows) or a
-// single query with G > 8 (which takes the kMT > 0 instances with n_q = 1;
-// K4 too), runs ceil(rows / (16 kMT)) blocks side by side: blockIdx.y is the
-// KV head, then the row group, and block g takes rows [80 g, 80 g + 80) of
-// the KV head. Each walks the split's tiles for its own rows (every row group
-// re-reads the split's K and V: right, and a cost that PERF.md times) and
-// writes its rows' partials into the workspace rows the merge reads. Tiles
-// and splits stay live by the union over all Q rows of the slot, so a block
-// meets tiles with nothing live for its rows exactly as a verify row does
-// (the rule below); each row's arithmetic is the same in any grouping.
+// Row groups. A KV head with more row tiles than Rows<D>::kMaxTiles (e.g.
+// 272 rows at D = 128, 144 at D = 256) runs as few blocks side by side as
+// hold them, each of as even a size as the tiles allow: blockIdx.y is the KV
+// head, then the row group. Each walks the split's tiles for its own rows
+// (every row group re-reads the split's K and V) and writes its rows'
+// partials into the workspace rows the merge reads. Tiles and splits stay
+// live by the union over all Q rows of the slot, so a block meets tiles with
+// nothing live for its rows exactly as a verify row does (the rule below);
+// each row's arithmetic is the same in any grouping.
 //
 // The rule for rows with nothing live in a split. A tile (and a split) is
 // processed when any row has a live key in it, so a verify row can meet
@@ -160,27 +191,24 @@
 // are zeros: time over bytes is what PERF.md records for it).
 // D = 64 and 128 were the first instances; 32 (tiny-llama, the default
 // ModelConfig) and 256 keep the design and add two rules.
-// - D = 32: the p.V split gives each of the four warps D / 8 / 4 = 1 n8
-//   column block, so the odd last block takes ldmatrix.x2.trans (one
-//   block's two 8 x 8 matrices) where the pairs take .x4; a bf16 row is 4
-//   16-byte chunks (every copy and convert loop divides evenly: 64 rows x 4
-//   chunks over 128 threads).
+// - D = 32: the single-query p.V split gives each of the four warps D / 8 /
+//   4 = 1 n8 column block, so the odd last block takes ldmatrix.x2.trans
+//   (one block's two 8 x 8 matrices) where the pairs take .x4; a bf16 row is
+//   4 16-byte chunks (every copy and convert loop divides evenly: 64 rows x
+//   4 chunks over 128 threads).
 // - D = 256: a padded row is 528 bytes, two stages of K/V tiles 132 KB. The
-//   verify over int8 pools at kMT = 3 or 5 would add 64 KB of int8 staging
-//   to 176-205 KB, past the 227 KB a block may take; there (Layout::kInPlace,
+//   row-tile kernel over int8 pools would add 64 KB of int8 staging past the
+//   227 KB a block may take at 8 row tiles; there (Rows<256>::kInPlace,
 //   chosen by size) a live page row's int8 bytes are staged into the last D
 //   bytes of its own padded 16-bit row, and the convert pass, one thread a
 //   row, widens them from the front in chunk order (chunk c's output ends
-//   before chunk c + 1's input begins), so no staging tile is needed. The
-//   verify's 5 x 8 x 4 = 160 accumulators a thread fit the 255 registers
-//   that 128-thread blocks allow.
-// ptxas -v (sm_90a) with the run-time head_dim and row groups: D = 32
-// 48-64 registers; D = 128 single-query 112 (K4 102, int8 180), row tiles
-// 87 / 136 / 168 at kMT = 1 / 3 / 5 (kMT = 5 spills 12 bytes; K4 80 / 126
-// / 172, int8 72 / 126 / 164); D = 256 single-query 204 (K4 192, int8
-// 192), row tiles 143 / 248 / 255 (kMT = 5 spills 56 bytes; K4 140 / 187 /
-// 255 and 48 bytes; int8 128 / 168 / 253); D = 64 int8 at kMT = 5 spills 4
-// bytes; merge 62-139; the bf16 and float16 instances alike.
+//   before chunk c + 1's input begins), so no staging tile is needed.
+// ptxas -v (sm_90a), with the run-time head_dim: the single-query kernel at
+// D = 32 / 64 / 128 / 256 48 / 76 / 112 / 206 registers (K4 48 / 72 / 103 /
+// 192, int8 56 / 72 / 182 / 188); the row-tile kernel at kKG = 1 / 2 / 4 93-113 /
+// 61-72 / 48-56 at D = 32, 113-127 / 76-87 / 72-79 at D = 64, 149-167 /
+// 129-137 / 107-126 at D = 128, 247-253 / 168-218 / 168-190 at D = 256; no
+// spills; merge 62-139; the bf16 and float16 instances alike.
 //
 // Semantics kept from the reference: the q.k scores are f32 and scaled in
 // f32 (here the scale multiplies the f32 sums of the exact bf16 products,
@@ -206,11 +234,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // the single-query kernel's block
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;      // keys per tile; two per lane in the softmax
 constexpr int kSingleRows = 8;  // the single-query form's rows: rows 0-7 of the m16 A operand
-constexpr int kMaxRowTiles = 5;  // m16 row tiles of a block: at most 80 query rows a block
 constexpr int kPLd = kTile + 8;  // bf16 p row, padded: 144 bytes
 constexpr int kMergeBatch = 32;  // merge: splits whose acc values are loaded at once
 constexpr int kMaxSplits = 6144;  // the merge's m and l: 48 KB of shared memory
@@ -237,16 +264,17 @@ struct Params {
   const float* v_scale;
   int n_q;                  // query tokens per slot: 1, or the verify's Q
   int head_dim;             // the rows' true width: a multiple of 16, <= the instance's D
+  int row_tiles;            // paged_rows_kernel: m16 row tiles of a block
 };
 
-// Shared memory of a split block: two stages of (K, V) tiles with rows
-// padded by 16 bytes (so that 8 rows at one column reach 32 banks), then the
-// f32 scores, the bf16 p rows, m, l and alpha of kRows query rows, then (the
-// verify form, kMT > 0) q's rows, padded as the key rows. D is the instance's
-// capacity (columns past head_dim hold zeros).
-template <int D, int kMT>
+// Shared memory of the single-query split block: two stages of (K, V) tiles
+// with rows padded by 16 bytes (so that 8 rows at one column reach 32
+// banks), then the f32 scores, the bf16 p rows, m, l and alpha of its
+// kSingleRows query rows. D is the instance's capacity (columns past
+// head_dim hold zeros).
+template <int D>
 struct Layout {
-  static constexpr int kRows = kMT == 0 ? kSingleRows : 16 * kMT;
+  static constexpr int kRows = kSingleRows;
   static constexpr int kLd = D * 2 + 16;  // bytes of one padded key row
   static constexpr int kTileBytes = kTile * kLd;
   static constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
@@ -255,23 +283,55 @@ struct Layout {
   static constexpr int kM = kP + kRows * kPLd * 2;
   static constexpr int kL = kM + kRows * 4;
   static constexpr int kAlpha = kL + kRows * 4;
-  static constexpr int kQRows = kAlpha + kRows * 4;
-  static constexpr int kBytes = kQRows + (kMT == 0 ? 0 : kRows * kLd);
+  static constexpr int kBytes = kAlpha + kRows * 4;
   // int8 pools: two stages of raw int8 K and V tiles (D bytes a key), then
-  // two stages of the tile's 64 K and 64 V scales. Where the raw tiles do
-  // not fit beside the rest (D = 256 with 48 or 80 verify rows), a page
-  // row's int8 values are staged in place instead: into the last D bytes
-  // of its own padded 16-bit row, which the convert pass then fills from
-  // the front (kInPlace).
+  // two stages of the tile's 64 K and 64 V scales. Where raw tiles do not
+  // fit beside the rest (paged_rows_kernel at D = 256), a page row's int8
+  // values are staged in place instead: into the last D bytes of its own
+  // padded 16-bit row, which the convert pass then fills from the front.
   static constexpr int kQTile = kTile * D;
   static constexpr int kQStage = 2 * kQTile;
   static constexpr int kQ = kBytes;
   static constexpr int kScStage = 2 * kTile * 4;
-  static constexpr bool kInPlace = kQ + 2 * kQStage + 2 * kScStage > kMaxSmem;
-  static constexpr int kSc = kInPlace ? kQ : kQ + 2 * kQStage;
+  static constexpr int kSc = kQ + 2 * kQStage;
   static constexpr int kBytesI8 = kSc + 2 * kScStage;
   static constexpr int kInPlaceAt = kLd - D;  // a row's staged int8 bytes
-  static_assert(kBytes <= kMaxSmem && kBytesI8 <= kMaxSmem, "shared memory of a block");
+  static_assert(kBytesI8 <= kMaxSmem, "shared memory of a block");
+};
+
+// paged_rows_kernel's shared memory at capacity D and nt row tiles: the
+// single-query block's two K/V stages, then nt * 16 q rows padded as the
+// key rows; over int8 pools the raw int8 stages (none in place) and the
+// scale stages. No score, p, m, l or alpha arrays: they live in registers.
+// kMaxTiles caps a block's row tiles (one warp each, the thread bound
+// below it); past it, row groups run side by side.
+template <int D>
+struct Rows {
+  using L = Layout<D>;
+  static constexpr int kMaxTiles = D == 256 ? 8 : D == 128 ? 12 : 16;
+  static constexpr int kQRows = L::kS;
+  static constexpr int kTileQ = 16 * L::kLd;  // a row tile's q rows
+  static constexpr bool kInPlace =
+      kQRows + kMaxTiles * kTileQ + 2 * L::kQStage + 2 * L::kScStage > kMaxSmem;
+  static constexpr int kStaging = kInPlace ? 0 : 2 * L::kQStage;
+  __host__ __device__ static constexpr int qi8(int nt) { return kQRows + nt * kTileQ; }
+  __host__ __device__ static constexpr int sc(int nt) { return qi8(nt) + kStaging; }
+  __host__ __device__ static constexpr int bytes(int nt, bool i8) {
+    return i8 ? sc(nt) + 2 * L::kScStage : qi8(nt);
+  }
+};
+
+// Threads of a paged_rows_kernel block with kKG warps a row tile: one row
+// tile (kKG 4), two or three (kKG 2), or up to Rows<D>::kMaxTiles (kKG 1).
+template <int D, int kKG>
+struct RowsBlock {
+  static constexpr int kTiles = kKG == 4 ? 1 : kKG == 2 ? 3 : Rows<D>::kMaxTiles;
+  static constexpr int kThreads = 32 * kKG * kTiles;
+  static_assert(Rows<D>::bytes(kTiles, true) <= kMaxSmem, "shared memory of a block");
+  // kKG > 1: the warps' acc, m and l and the rows' weights, combined after
+  // the last tile, fit the stages.
+  static_assert(kKG == 1 || kKG * kTiles * 16 * (D + 3) * 4 <= Layout<D>::kS,
+                "combine buffer");
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -319,6 +379,12 @@ __device__ __forceinline__ uint16_t to_bits(float x) {
   else return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
+// Two floats rounded to the 16-bit type, packed: x in the low half.
+template <bool kF16>
+__device__ __forceinline__ uint32_t pack2(float x, float y) {
+  return static_cast<uint32_t>(to_bits<kF16>(x)) | (static_cast<uint32_t>(to_bits<kF16>(y)) << 16);
+}
+
 // Two int8 values (bits lo..lo+15 of w) as a pair of the 16-bit type; exact
 // in both (|q| <= 127).
 template <bool kF16>
@@ -343,6 +409,43 @@ __device__ __forceinline__ void i8x16_convert(const uint8_t* src, uint8_t* dst) 
   hi.y = i8x2_to_x2<kF16>(w.z, 16);
   hi.z = i8x2_to_x2<kF16>(w.w, 0);
   hi.w = i8x2_to_x2<kF16>(w.w, 16);
+  reinterpret_cast<uint4*>(dst)[0] = lo;
+  reinterpret_cast<uint4*>(dst)[1] = hi;
+}
+
+// 16 int8 values at src -> 16 values of the 16-bit type at dst, exact, by
+// byte permutes: each byte, biased by 128 (b ^ 0x80), is placed under an
+// exponent whose unit is 1 (f32 2^23 + u, rounded in pairs to bf16 by one
+// cvt; float16 1024 + u), and the bias is taken off. The same values as
+// i8x16_convert in fewer instructions.
+template <bool kF16>
+__device__ __forceinline__ uint32_t i8x2_exact(uint32_t u, int k) {
+  if constexpr (kF16) {
+    uint32_t h = __byte_perm(u, 0x64u, k | 0x40 | ((k + 1) << 8) | 0x4000);
+    __half2 x = __hsub2(*reinterpret_cast<__half2*>(&h), __floats2half2_rn(1152.f, 1152.f));
+    return *reinterpret_cast<uint32_t*>(&x);
+  } else {
+    const float a = __uint_as_float(__byte_perm(u, 0x4B00u, 0x5440 | k)) - 8388736.f;
+    const float b = __uint_as_float(__byte_perm(u, 0x4B00u, 0x5440 | (k + 1))) - 8388736.f;
+    __nv_bfloat162 x = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&x);
+  }
+}
+
+template <bool kF16>
+__device__ __forceinline__ void i8x16_convert_exact(const uint8_t* src, uint8_t* dst) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  const uint32_t u[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u,
+                         w.w ^ 0x80808080u};
+  uint4 lo, hi;
+  lo.x = i8x2_exact<kF16>(u[0], 0);
+  lo.y = i8x2_exact<kF16>(u[0], 2);
+  lo.z = i8x2_exact<kF16>(u[1], 0);
+  lo.w = i8x2_exact<kF16>(u[1], 2);
+  hi.x = i8x2_exact<kF16>(u[2], 0);
+  hi.y = i8x2_exact<kF16>(u[2], 2);
+  hi.z = i8x2_exact<kF16>(u[3], 0);
+  hi.w = i8x2_exact<kF16>(u[3], 2);
   reinterpret_cast<uint4*>(dst)[0] = lo;
   reinterpret_cast<uint4*>(dst)[1] = hi;
 }
@@ -398,7 +501,9 @@ __device__ __forceinline__ void mma16816_m16(float* c, const uint32_t* a, uint32
 
 // Four 8 x 8 16-bit matrices: the A fragment of a 16 x 16 block of a
 // row-major tile when lane l gives the address of row l % 16, column 8 (l /
-// 16).
+// 16); or, from a row-major (key, dim) tile, the B fragments of two n8 key
+// blocks at one 16-dimension step when lane l gives key l % 8 + 8 (l / 16),
+// dimension 8 ((l / 8) % 2).
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -491,18 +596,19 @@ __device__ __forceinline__ long page_of(const Params& p, const int* trow, int v)
 // values go to the last D bytes of its own row in kb / vb instead (qb unused).
 // Rows are head_dim wide in device memory; their chunks past head_dim arrive
 // as zeros (staged int8 chunks too, which the convert pass widens to zeros).
-template <int D, bool kI8, bool kInPlace>
+// kThr > 0: a block of kThr threads (the single-query kernel's loop, kept
+// as it was); kThr = 0: a block of nthr threads, any count.
+template <int D, bool kI8, bool kInPlace, int kThr = kThreads>
 __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int b, int kh,
                                           int t0, uint32_t kb, uint32_t vb, uint32_t qb,
-                                          uint32_t sb) {
+                                          uint32_t sb, int nthr = kThr) {
+  using L = Layout<D>;
   constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
   constexpr int kChunksI8 = D / 16;  // of an int8 row
-  static_assert(kThreads == 2 * kTile, "one thread per K or V scale of a tile");
+  static_assert(kThr == 0 || kThr == 2 * kTile, "one thread per K or V scale of a tile");
   const int hd = p.head_dim;
   const int* trow = p.table + (long)b * p.max_pages;
-#pragma unroll
-  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
+  auto copy = [&](int idx) {
     const int r = idx / kChunks, c = idx % kChunks;
     const int v = t0 + r;
     const bool ok = live.key(v);
@@ -513,16 +619,16 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
                                v % p.page_size) * hd + 16 * c
                             : 0;
         if constexpr (kInPlace) {
-          const uint32_t at = r * Layout<D, 0>::kLd + Layout<D, 0>::kInPlaceAt + c * 16;
+          const uint32_t at = r * L::kLd + L::kInPlaceAt + c * 16;
           cp_async16(kb + at, p.k_i8 + off, in);
           cp_async16(vb + at, p.v_i8 + off, in);
         } else {
           const uint32_t at = r * D + c * 16;
           cp_async16(qb + at, p.k_i8 + off, in);
-          cp_async16(qb + Layout<D, 0>::kQTile + at, p.v_i8 + off, in);
+          cp_async16(qb + L::kQTile + at, p.v_i8 + off, in);
         }
       }
-      continue;
+      return;
     }
     // Dead rows and chunks past head_dim read nothing; their address is any
     // valid one.
@@ -540,19 +646,29 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
         off = (((long)b * p.kv_heads + kh) * p.tail_len + (v - live.tail0)) * hd + 8 * c;
       }
     }
-    const uint32_t at = r * Layout<D, 0>::kLd + c * 16;
+    const uint32_t at = r * L::kLd + c * 16;
     cp_async16(kb + at, ks + off, in);
     cp_async16(vb + at, vs + off, in);
-  }
-  if (kI8) {
-    const int r = threadIdx.x % kTile;
-    const bool is_v = threadIdx.x >= kTile;
+  };
+  auto scale = [&](int i) {  // i < 64: K's scale of row i; else V's of row i - 64
+    const int r = i % kTile;
+    const bool is_v = i >= kTile;
     const int v = t0 + r;
     const bool ok = live.key(v) && v < live.tail0;
     const long off = ok ? (page_of(p, trow, v) * p.kv_heads + kh) * p.page_size +
                               v % p.page_size
                         : 0;
     cp_async4(sb + (is_v ? kTile * 4 : 0) + r * 4, (is_v ? p.v_scale : p.k_scale) + off, ok);
+  };
+  if constexpr (kThr > 0) {
+#pragma unroll
+    for (int i = 0; i < kTile * kChunks / kThr; ++i) copy(threadIdx.x + i * kThr);
+    if (kI8) scale(threadIdx.x);
+  } else {
+    for (int idx = threadIdx.x; idx < kTile * kChunks; idx += nthr) copy(idx);
+    if (kI8) {
+      for (int i = threadIdx.x; i < 2 * kTile; i += nthr) scale(i);
+    }
   }
   cp_commit();
 }
@@ -610,16 +726,13 @@ __global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
   p.o[orow * hd + d] = to_bits<kF16>(o);
 }
 
-// kMT = 0: the single-query form (at most kSingleRows query rows, q in
-// registers as rows 0-7 of the m16 A operand). kMT > 0: the verify form (and
-// any call with more rows), kMT m16 row tiles of query rows r = qi * G + g,
-// q in shared memory; blockIdx.y is the KV head, then the row group of 16 kMT
-// rows.
-template <int D, bool kTail, bool kI8, int kMT, bool kF16>
+// The single-query form: at most kSingleRows query rows (G <= 8), q in
+// registers as rows 0-7 of the m16 A operand; four warps split each tile's
+// keys for q.k and its columns for p.V, the softmax one warp a row through
+// shared memory. Every call with more rows takes paged_rows_kernel.
+template <int D, bool kTail, bool kI8, bool kF16>
 __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
-  using L = Layout<D, kMT>;
-  constexpr bool kVerify = kMT > 0;
-  constexpr int kMTiles = kVerify ? kMT : 1;  // m16 row tiles of the products
+  using L = Layout<D>;
   constexpr int kKSteps = D / 16;       // q.k: 16 dimensions a product
   constexpr int kNTiles = D / 8 / kWarps;  // p.V: n8 column blocks a warp
   extern __shared__ __align__(16) uint8_t smem[];
@@ -630,61 +743,37 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
   float* salpha = reinterpret_cast<float*>(smem + L::kAlpha);
   const uint32_t base = smem_addr(smem);
 
-  const int split = blockIdx.x, kh = blockIdx.y % p.kv_heads, b = blockIdx.z;
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row = lane >> 2, quad = lane & 3;  // fragment row (query head) and pair
   const int groups = p.groups, hd = p.head_dim;
-  const int all_rows = p.n_q * groups;  // query rows of this KV head
-  const int rbase = blockIdx.y / p.kv_heads * L::kRows;  // the block's first row of them
-  const int rows = min(L::kRows, all_rows - rbase);  // and its count
   const long row0 = ((long)b * p.kv_heads + kh) * groups;  // q/o row of group 0
   const Live live = slot_live<kTail>(p, b);
   const int v0 = split * p.split, v1 = min(v0 + p.split, live.end);
   int cur = live.next(v0, v1);
   if (cur < 0) return;  // no live key: no partial (the merge weighs this split 0)
 
-  // Single-query: q as the A fragments of every 16-dimension step (bf16 as
-  // stored; the f32 scale multiplies the f32 sums), rows past the group
-  // count and steps past head_dim zero. Verify: q's rows into shared memory
-  // (committed with the first tile), rows past the block's and chunks past
-  // head_dim zero.
-  uint32_t qa[kVerify ? 1 : kKSteps][2];
-  if constexpr (!kVerify) {
-    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(p.q + (row0 + row) * hd);
+  // q as the A fragments of every 16-dimension step (bf16 as stored; the
+  // f32 scale multiplies the f32 sums), rows past the group count and steps
+  // past head_dim zero.
+  uint32_t qa[kKSteps][2];
+  const uint32_t* qrow = reinterpret_cast<const uint32_t*>(p.q + (row0 + row) * hd);
 #pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-      const bool in = row < groups && 16 * ks < hd;
-      qa[ks][0] = in ? qrow[ks * 8 + quad] : 0u;
-      qa[ks][1] = in ? qrow[ks * 8 + 4 + quad] : 0u;
-    }
-  } else {
-    constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
-    const long heads = (long)p.kv_heads * groups;
-    for (int idx = tid; idx < L::kRows * kChunks; idx += kThreads) {
-      const int r = idx / kChunks, c = idx % kChunks;
-      const bool ok = r < rows && 8 * c < hd;
-      const int rr = rbase + r;
-      const long qrow = ok ? ((long)b * p.n_q + rr / groups) * heads + (long)kh * groups +
-                                 rr % groups
-                           : 0;
-      cp_async16(base + L::kQRows + r * L::kLd + c * 16, p.q + qrow * hd + 8 * c, ok);
-    }
+  for (int ks = 0; ks < kKSteps; ++ks) {
+    const bool in = row < groups && 16 * ks < hd;
+    qa[ks][0] = in ? qrow[ks * 8 + quad] : 0u;
+    qa[ks][1] = in ? qrow[ks * 8 + 4 + quad] : 0u;
   }
   if (tid < L::kRows) {
     sm[tid] = kNegInf;
     sl[tid] = 0.f;
   }
-  float acc[kMTiles][kNTiles][4];
+  float acc[kNTiles][4];
 #pragma unroll
-  for (int mt = 0; mt < kMTiles; ++mt) {
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-    }
-  }
+  for (int j = 0; j < kNTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  load_tile<D, kI8, L::kInPlace>(p, live, b, kh, cur, base, base + L::kTileBytes, base + L::kQ,
-                                 base + L::kSc);
+  load_tile<D, kI8, false>(p, live, b, kh, cur, base, base + L::kTileBytes, base + L::kQ,
+                           base + L::kSc);
   __syncthreads();  // m and l initialised
   for (int stage = 0; cur >= 0; stage ^= 1) {
     const int nxt = live.next(cur + kTile, v1);
@@ -695,9 +784,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
     if (nxt >= 0) {
       const int ns = stage ^ 1;
       const uint32_t nb = base + ns * L::kStageBytes;
-      load_tile<D, kI8, L::kInPlace>(p, live, b, kh, nxt, nb, nb + L::kTileBytes,
-                                     base + L::kQ + ns * L::kQStage,
-                                     base + L::kSc + ns * L::kScStage);
+      load_tile<D, kI8, false>(p, live, b, kh, nxt, nb, nb + L::kTileBytes,
+                               base + L::kQ + ns * L::kQStage, base + L::kSc + ns * L::kScStage);
       cp_wait<1>();
     } else {
       cp_wait<0>();
@@ -707,30 +795,16 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
       // The page rows' int8 values into the bf16 tiles.
       constexpr int kChunksI8 = D / 16;
       uint8_t* kt = smem + stage * L::kStageBytes;
-      if constexpr (L::kInPlace) {
-        // Thread t converts row t % 64 of K (t < 64) or V, its chunks in
-        // order: chunk c's 32 output bytes end before chunk c + 1's 16 input
-        // bytes begin (32 (c + 1) <= kInPlaceAt + 16 (c + 1) for c < D / 16).
-        const int r = tid % kTile;
+      const uint8_t* qk = smem + L::kQ + stage * L::kQStage;
+#pragma unroll
+      for (int i = 0; i < kTile * kChunksI8 / kThreads; ++i) {
+        const int idx = tid + i * kThreads;
+        const int r = idx / kChunksI8, c = idx % kChunksI8;
         const int v = cur + r;
         if (live.key(v) && v < live.tail0) {
-          uint8_t* row = kt + (tid / kTile) * L::kTileBytes + r * L::kLd;
-          for (int c = 0; c < kChunksI8; ++c) {
-            i8x16_convert<kF16>(row + L::kInPlaceAt + c * 16, row + c * 32);
-          }
-        }
-      } else {
-        const uint8_t* qk = smem + L::kQ + stage * L::kQStage;
-#pragma unroll
-        for (int i = 0; i < kTile * kChunksI8 / kThreads; ++i) {
-          const int idx = tid + i * kThreads;
-          const int r = idx / kChunksI8, c = idx % kChunksI8;
-          const int v = cur + r;
-          if (live.key(v) && v < live.tail0) {
-            i8x16_convert<kF16>(qk + r * D + c * 16, kt + r * L::kLd + c * 32);
-            i8x16_convert<kF16>(qk + L::kQTile + r * D + c * 16,
-                                kt + L::kTileBytes + r * L::kLd + c * 32);
-          }
+          i8x16_convert<kF16>(qk + r * D + c * 16, kt + r * L::kLd + c * 32);
+          i8x16_convert<kF16>(qk + L::kQTile + r * D + c * 16,
+                              kt + L::kTileBytes + r * L::kLd + c * 32);
         }
       }
       __syncthreads();
@@ -738,7 +812,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 
     // Scores of warp w's 16 keys (two n8 blocks), times the scale in f32;
     // keys dead for the row get the finite mask value.
-    if constexpr (!kVerify) {
+    {
       float c[2][4] = {};
 #pragma unroll
       for (int ks = 0; ks < kKSteps; ++ks) {
@@ -763,51 +837,12 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
           *reinterpret_cast<float2*>(ss + row * kTile + r) = sc;
         }
       }
-    } else {
-      // lane l: q row l % 16 of the row tile, columns + 8 (l / 16)
-      const uint32_t qs = base + L::kQRows + (lane & 15) * L::kLd + (lane >> 4) * 16;
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        if (16 * mt < rows) {
-          float c[2][4] = {};
-#pragma unroll
-          for (int ks = 0; ks < kKSteps; ++ks) {
-            uint32_t a[4];
-            ldsm_x4(qs + 16 * mt * L::kLd + ks * 32, a);
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const uint32_t at = kb + (16 * warp + 8 * j + row) * L::kLd + ks * 32 + quad * 4;
-              mma16816_m16<kF16>(c[j], a, lds32(at), lds32(at + 16));
-            }
-          }
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {  // rows row and row + 8 of the tile
-            const int r = 16 * mt + 8 * hf + row;
-            if (r < rows) {
-              const int te = live.row_end((rbase + r) / groups);
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                const int k = 16 * warp + 8 * j + 2 * quad;
-                float s0 = c[j][2 * hf] * p.scale, s1 = c[j][2 * hf + 1] * p.scale;
-                if (kI8) {  // K's scale on a page key's score
-                  if (cur + k < live.tail0) s0 *= sks[k];
-                  if (cur + k + 1 < live.tail0) s1 *= sks[k + 1];
-                }
-                float2 sc;
-                sc.x = live.key_row(cur + k, te) ? s0 : kNegInf;
-                sc.y = live.key_row(cur + k + 1, te) ? s1 : kNegInf;
-                *reinterpret_cast<float2*>(ss + r * kTile + k) = sc;
-              }
-            }
-          }
-        }
-      }
     }
     __syncthreads();
 
     // Online softmax, one warp per query row; p to bf16 for the product
     // (int8: p times V's scale; l adds the unscaled p).
-    for (int g = warp; g < rows; g += kWarps) {
+    for (int g = warp; g < groups; g += kWarps) {
       const float s0 = ss[g * kTile + lane];
       const float s1 = ss[g * kTile + lane + 32];
       const float m_prev = sm[g];
@@ -833,12 +868,12 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 
     // acc = acc * alpha + p.V for warp w's columns (dead keys: p = 0 and V
     // zero-filled).
-    if constexpr (!kVerify) {
+    {
       const float alpha = row < groups ? salpha[row] : 0.f;
 #pragma unroll
       for (int j = 0; j < kNTiles; ++j) {
-        acc[0][j][0] *= alpha;
-        acc[0][j][1] *= alpha;
+        acc[j][0] *= alpha;
+        acc[j][1] *= alpha;
       }
       const uint32_t pa = base + L::kP + row * kPLd * 2 + quad * 4;
 #pragma unroll
@@ -853,57 +888,11 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
           uint32_t bf[4];
           if (j + 1 < kNTiles) {
             ldsm_x4_trans(va + j * 16, bf);
-            mma16816<kF16>(acc[0][j], a0, a1, bf[0], bf[1]);
-            mma16816<kF16>(acc[0][j + 1], a0, a1, bf[2], bf[3]);
+            mma16816<kF16>(acc[j], a0, a1, bf[0], bf[1]);
+            mma16816<kF16>(acc[j + 1], a0, a1, bf[2], bf[3]);
           } else {  // an odd last column block (D = 32: the warp's only one)
             ldsm_x2_trans(va + j * 16, bf);
-            mma16816<kF16>(acc[0][j], a0, a1, bf[0], bf[1]);
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const int r = 16 * mt + row;
-        const float alpha0 = r < rows ? salpha[r] : 0.f;
-        const float alpha1 = r + 8 < rows ? salpha[r + 8] : 0.f;
-#pragma unroll
-        for (int j = 0; j < kNTiles; ++j) {
-          acc[mt][j][0] *= alpha0;
-          acc[mt][j][1] *= alpha0;
-          acc[mt][j][2] *= alpha1;
-          acc[mt][j][3] *= alpha1;
-        }
-      }
-#pragma unroll
-      for (int ks = 0; ks < kTile / 16; ++ks) {
-        // p rows of every row tile at keys 16 ks..: rows row and row + 8
-        uint32_t a[kMT][4];
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          const uint32_t pa = base + L::kP + (16 * mt + row) * kPLd * 2 + ks * 32 + quad * 4;
-          a[mt][0] = lds32(pa);
-          a[mt][1] = lds32(pa + 8 * kPLd * 2);
-          a[mt][2] = lds32(pa + 16);
-          a[mt][3] = lds32(pa + 8 * kPLd * 2 + 16);
-        }
-        const uint32_t va = vb + (16 * ks + (lane & 15)) * L::kLd +
-                            (warp * kNTiles * 8 + 8 * (lane >> 4)) * 2;
-#pragma unroll
-        for (int j = 0; j < kNTiles; j += 2) {
-          uint32_t bf[4];
-          const bool pair = j + 1 < kNTiles;  // else an odd last column block
-          if (pair) {
-            ldsm_x4_trans(va + j * 16, bf);
-          } else {
-            ldsm_x2_trans(va + j * 16, bf);
-          }
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            if (16 * mt < rows) {
-              mma16816_m16<kF16>(acc[mt][j], a[mt], bf[0], bf[1]);
-              if (pair) mma16816_m16<kF16>(acc[mt][j + 1], a[mt], bf[2], bf[3]);
-            }
+            mma16816<kF16>(acc[j], a0, a1, bf[0], bf[1]);
           }
         }
       }
@@ -912,80 +901,386 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
     cur = nxt;
   }
 
-  // The split's partial: m and l per row, acc (its columns below head_dim),
-  // in the workspace rows of the block's row group.
+  // The split's partial: m and l per row, acc (its columns below head_dim).
   const long part = ((long)b * p.kv_heads + kh) * p.n_split + split;
-  if constexpr (!kVerify) {
-    if (row < groups) {
+  if (row < groups) {
 #pragma unroll
-      for (int j = 0; j < kNTiles; ++j) {
-        const int col = warp * kNTiles * 8 + 8 * j + 2 * quad;
-        if (col < hd) {
-          *reinterpret_cast<float2*>(p.part_acc + (part * groups + row) * hd + col) =
-              make_float2(acc[0][j][0], acc[0][j][1]);
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = 16 * mt + 8 * hf + row;
-        if (r < rows) {
-#pragma unroll
-          for (int j = 0; j < kNTiles; ++j) {
-            const int col = warp * kNTiles * 8 + 8 * j + 2 * quad;
-            if (col < hd) {
-              *reinterpret_cast<float2*>(p.part_acc + (part * all_rows + rbase + r) * hd +
-                                         col) =
-                  make_float2(acc[mt][j][2 * hf], acc[mt][j][2 * hf + 1]);
-            }
-          }
-        }
+    for (int j = 0; j < kNTiles; ++j) {
+      const int col = warp * kNTiles * 8 + 8 * j + 2 * quad;
+      if (col < hd) {
+        *reinterpret_cast<float2*>(p.part_acc + (part * groups + row) * hd + col) =
+            make_float2(acc[j][0], acc[j][1]);
       }
     }
   }
-  for (int r = tid; r < rows; r += kThreads) {
-    p.part_ml[(part * all_rows + rbase + r) * 2] = sm[r];
-    p.part_ml[(part * all_rows + rbase + r) * 2 + 1] = sl[r];
+  for (int r = tid; r < groups; r += kThreads) {
+    p.part_ml[(part * groups + r) * 2] = sm[r];
+    p.part_ml[(part * groups + r) * 2 + 1] = sl[r];
   }
 }
 
-template <int D, bool kTail, bool kI8, int kMT, bool kF16>
-int launch(const Params& p, int batch, cudaStream_t stream) {
+// The row-tile form (the verify, and any call with more than kSingleRows
+// rows): a block takes nt = p.row_tiles m16 tiles of the KV head's query
+// rows r = qi * G + g, one warp each (kKG = 1), or, at one to three tiles,
+// kKG warps each that split every key tile between them (see "The
+// row-tile kernel" above). blockIdx.y is the KV head, then the row group of
+// 16 nt rows.
+template <int D, bool kTail, bool kI8, bool kF16, int kKG>
+__global__ void __launch_bounds__(RowsBlock<D, kKG>::kThreads) paged_rows_kernel(const Params p) {
+  using L = Layout<D>;
+  using R = Rows<D>;
+  constexpr int kKeys = kTile / kKG;  // keys of a tile a warp takes
+  constexpr int kNB = kKeys / 8;      // their n8 score blocks
+  constexpr int kKSteps = D / 16;     // q.k: 16 dimensions a product
+  constexpr int kNCols = D / 8;       // p.V: every n8 column block
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t base = smem_addr(smem);
+
+  const int nt = p.row_tiles, nthr = blockDim.x;
+  const int split = blockIdx.x, kh = blockIdx.y % p.kv_heads, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, quad = lane & 3;  // fragment row and pair
+  const int tile = warp / kKG, k0 = warp % kKG * kKeys;  // the warp's row tile, first key
+  const int groups = p.groups, hd = p.head_dim;
+  const int all_rows = p.n_q * groups;  // query rows of this KV head
+  const int rbase = blockIdx.y / p.kv_heads * 16 * nt;  // the block's first row of them
+  const int rows = min(16 * nt, all_rows - rbase);     // and its count
+  const bool active = 16 * tile < rows;                // the warp's tile holds a row
+  const Live live = slot_live<kTail>(p, b);
+  const int v0 = split * p.split, v1 = min(v0 + p.split, live.end);
+  int cur = live.next(v0, v1);
+  if (cur < 0) return;  // no live key: no partial (the merge weighs this split 0)
+
+  // q's rows into shared memory (committed with the first tile), rows past
+  // the block's and chunks past head_dim zero.
+  {
+    constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
+    const long heads = (long)p.kv_heads * groups;
+    for (int idx = tid; idx < 16 * nt * kChunks; idx += nthr) {
+      const int r = idx / kChunks, c = idx % kChunks;
+      const bool ok = r < rows && 8 * c < hd;
+      const int rr = rbase + r;
+      const long qrow = ok ? ((long)b * p.n_q + rr / groups) * heads + (long)kh * groups +
+                                 rr % groups
+                           : 0;
+      cp_async16(base + R::kQRows + r * L::kLd + c * 16, p.q + qrow * hd + 8 * c, ok);
+    }
+  }
+  // The thread's rows g and g + 8 of its tile: their tail ends, running
+  // max m and sum l; acc over every column of the two rows.
+  int te[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) te[h] = live.row_end((rbase + 16 * tile + g + 8 * h) / groups);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kNCols][4];
+#pragma unroll
+  for (int n = 0; n < kNCols; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // lane l's ldmatrix rows: q row l % 16 of the tile at dimensions + 8 (l /
+  // 16); K key l % 8 + 8 (l / 16) of the warp's at + 8 ((l / 8) % 2); V key
+  // l % 16 of a 16-key step at columns + 8 (l / 16).
+  const uint32_t qa = base + R::kQRows + (16 * tile + (lane & 15)) * L::kLd + (lane >> 4) * 16;
+  const int ka = (k0 + (lane & 7) + ((lane >> 4) << 3)) * L::kLd + ((lane >> 3) & 1) * 16;
+  const int va = (k0 + (lane & 15)) * L::kLd + (lane >> 4) * 16;
+
+  load_tile<D, kI8, R::kInPlace, 0>(p, live, b, kh, cur, base, base + L::kTileBytes,
+                                    base + R::qi8(nt), base + R::sc(nt), nthr);
+  for (int stage = 0; cur >= 0; stage ^= 1) {
+    const int nxt = live.next(cur + kTile, v1);
+    const uint32_t kb = base + stage * L::kStageBytes, vb = kb + L::kTileBytes;
+    // int8 pools: this stage's K and V scales (0 on tail and dead rows)
+    const float* sks = reinterpret_cast<const float*>(smem + R::sc(nt) + stage * L::kScStage);
+    const float* svs = sks + kTile;
+    if (nxt >= 0) {
+      const int ns = stage ^ 1;
+      const uint32_t nb = base + ns * L::kStageBytes;
+      load_tile<D, kI8, R::kInPlace, 0>(p, live, b, kh, nxt, nb, nb + L::kTileBytes,
+                                        base + R::qi8(nt) + ns * L::kQStage,
+                                        base + R::sc(nt) + ns * L::kScStage, nthr);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // the tile's K and V (int8: raw pages and scales) are in shared memory
+    if constexpr (kI8) {
+      // The page rows' int8 values into the 16-bit tiles.
+      constexpr int kChunksI8 = D / 16;
+      uint8_t* kt = smem + stage * L::kStageBytes;
+      if constexpr (R::kInPlace) {
+        // Row i % 64 of K (i < 64) or V, its chunks in order: chunk c's 32
+        // output bytes end before chunk c + 1's 16 input bytes begin (32 (c
+        // + 1) <= kInPlaceAt + 16 (c + 1) for c < D / 16).
+        for (int i = tid; i < 2 * kTile; i += nthr) {
+          const int r = i % kTile;
+          const int v = cur + r;
+          if (live.key(v) && v < live.tail0) {
+            uint8_t* row = kt + (i / kTile) * L::kTileBytes + r * L::kLd;
+            for (int c = 0; c < kChunksI8; ++c) {
+              i8x16_convert_exact<kF16>(row + L::kInPlaceAt + c * 16, row + c * 32);
+            }
+          }
+        }
+      } else {
+        const uint8_t* qk = smem + R::qi8(nt) + stage * L::kQStage;
+        for (int idx = tid; idx < kTile * kChunksI8; idx += nthr) {
+          const int r = idx / kChunksI8, c = idx % kChunksI8;
+          const int v = cur + r;
+          if (live.key(v) && v < live.tail0) {
+            i8x16_convert_exact<kF16>(qk + r * D + c * 16, kt + r * L::kLd + c * 32);
+            i8x16_convert_exact<kF16>(qk + L::kQTile + r * D + c * 16,
+                                kt + L::kTileBytes + r * L::kLd + c * 32);
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    if (active) {
+      // q.k of the tile's 16 rows and the warp's kKeys keys, in registers.
+      float s[kNB][4];
+#pragma unroll
+      for (int j = 0; j < kNB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(qa + ks * 32, a);
+#pragma unroll
+        for (int j = 0; j < kNB; j += 2) {
+          uint32_t bk[4];
+          ldsm_x4(kb + ka + j * 8 * L::kLd + ks * 32, bk);
+          mma16816_m16<kF16>(s[j], a, bk[0], bk[1]);
+          mma16816_m16<kF16>(s[j + 1], a, bk[2], bk[3]);
+        }
+      }
+      // Scores times the scale in f32 (int8: times K's scale on a page
+      // key); keys dead for the row get the finite mask value (none on a
+      // tile of page keys every row sees whole). Then the online softmax
+      // of rows g and g + 8, their max and sum over the quad's four lanes.
+      const bool whole = cur + kTile <= live.page_limit;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kNB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = k0 + 8 * j + 2 * quad + (e & 1);
+          float x = s[j][e] * p.scale;
+          if (whole) {
+            if (kI8) x *= sks[k];
+          } else {
+            if (kI8 && cur + k < live.tail0) x *= sks[k];
+            x = live.key_row(cur + k, te[e >> 1]) ? x : kNegInf;
+          }
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_next = fmaxf(m[h], mx[h]);
+        alpha[h] = expf(m[h] - m_next);
+        m[h] = m_next;
+      }
+      // p, rounded to the 16-bit type for p.V (int8: p times V's scale on a
+      // page key), packed as the A fragments of the 16-key steps: the
+      // m16n8k16 sums of n8 blocks 2i and 2i + 1 are step i's A fragment.
+      uint32_t pa[kNB][2];
+#pragma unroll
+      for (int j = 0; j < kNB; ++j) {
+        const int k = k0 + 8 * j + 2 * quad;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float p0 = expf(s[j][2 * h] - m[h]);
+          const float p1 = expf(s[j][2 * h + 1] - m[h]);
+          rs[h] += p0 + p1;
+          float w0 = p0, w1 = p1;
+          if (kI8) {
+            if (cur + k < live.tail0) w0 *= svs[k];
+            if (cur + k + 1 < live.tail0) w1 *= svs[k + 1];
+          }
+          pa[j][h] = pack2<kF16>(w0, w1);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+        l[h] = alpha[h] * l[h] + rs[h];
+      }
+#pragma unroll
+      for (int n = 0; n < kNCols; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      // acc += p.V over every column (dead keys: p = 0 and V zero-filled;
+      // columns past head_dim are zeros, never stored), V's fragments by
+      // ldmatrix.trans. Guarding the columns or q.k's steps by head_dim
+      // measured slower at every shape, head_dim 96 included.
+#pragma unroll
+      for (int i = 0; i < kNB / 2; ++i) {
+        const uint32_t a[4] = {pa[2 * i][0], pa[2 * i][1], pa[2 * i + 1][0], pa[2 * i + 1][1]};
+#pragma unroll
+        for (int n = 0; n < kNCols; n += 2) {
+          uint32_t bv[4];
+          ldsm_x4_trans(vb + va + 16 * i * L::kLd + n * 16, bv);
+          mma16816_m16<kF16>(acc[n], a, bv[0], bv[1]);
+          mma16816_m16<kF16>(acc[n + 1], a, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage's buffers are free again
+    cur = nxt;
+  }
+
+  // The split's partial, m and l per row and acc (its columns below
+  // head_dim), in the workspace rows of the block's row group.
+  const long part = ((long)b * p.kv_heads + kh) * p.n_split + split;
+  float* pacc = p.part_acc + (part * all_rows + rbase) * hd;
+  float* pml = p.part_ml + (part * all_rows + rbase) * 2;
+  const int kw = warp % kKG;  // the warp's key part
+  if constexpr (kKG > 1) {
+    // The kKG warps of a row tile hold the same rows over disjoint keys: the
+    // others hand their m, l and acc to the tile's first warp through shared
+    // memory (the stages are free), which combines them in key order, each
+    // part weighted exp(m_w - max m_w) (0 where m_w is the mask value:
+    // nothing live for the row in the warp's keys).
+    float* cacc = reinterpret_cast<float*>(smem);  // [warp][16][D]
+    float* cml = cacc + nt * kKG * 16 * D;         // [warp][16]: m, l
+    if (kw > 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = warp * 16 + g + 8 * h;
+#pragma unroll
+        for (int n = 0; n < kNCols; ++n) {
+          *reinterpret_cast<float2*>(cacc + i * D + 8 * n + 2 * quad) =
+              make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+        }
+        if (quad == 0) *reinterpret_cast<float2*>(cml + 2 * i) = make_float2(m[h], l[h]);
+      }
+    }
+    __syncthreads();
+    if (kw == 0 && active) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = warp * 16 + g + 8 * h;
+        float mw[kKG], lw[kKG], wt[kKG];
+        mw[0] = m[h];
+        lw[0] = l[h];
+        float mm = m[h];
+#pragma unroll
+        for (int w = 1; w < kKG; ++w) {
+          const float2 v = *reinterpret_cast<const float2*>(cml + 2 * (i + 16 * w));
+          mw[w] = v.x;
+          lw[w] = v.y;
+          mm = fmaxf(mm, v.x);
+        }
+        float ll = 0.f;
+#pragma unroll
+        for (int w = 0; w < kKG; ++w) {
+          wt[w] = mw[w] == kNegInf ? 0.f : expf(mw[w] - mm);
+          ll += wt[w] * lw[w];
+        }
+        m[h] = mm;
+        l[h] = ll;
+#pragma unroll
+        for (int n = 0; n < kNCols; ++n) {
+          float o0 = wt[0] * acc[n][2 * h], o1 = wt[0] * acc[n][2 * h + 1];
+#pragma unroll
+          for (int w = 1; w < kKG; ++w) {
+            const float2 a = *reinterpret_cast<const float2*>(cacc + (i + 16 * w) * D + 8 * n +
+                                                              2 * quad);
+            o0 += wt[w] * a.x;
+            o1 += wt[w] * a.y;
+          }
+          acc[n][2 * h] = o0;
+          acc[n][2 * h + 1] = o1;
+        }
+      }
+    }
+  }
+  if (kw == 0 && active) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * tile + g + 8 * h;
+      if (r < rows) {
+#pragma unroll
+        for (int n = 0; n < kNCols; ++n) {
+          const int col = 8 * n + 2 * quad;
+          if (col < hd) {
+            *reinterpret_cast<float2*>(pacc + r * hd + col) =
+                make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+          }
+        }
+        if (quad == 0) *reinterpret_cast<float2*>(pml + 2 * r) = make_float2(m[h], l[h]);
+      }
+    }
+  }
+}
+
+// The merge of every form: one block of head_dim threads per (query row,
+// KV head, slot).
+template <int D, bool kTail, bool kF16>
+int launch_merge(const Params& p, int batch, cudaStream_t stream) {
+  paged_merge_kernel<D, kTail, kF16><<<dim3(p.n_q * p.groups, p.kv_heads, batch), p.head_dim,
+                                       2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kTail, bool kI8, bool kF16>
+int launch_single(const Params& p, int batch, cudaStream_t stream) {
   static bool prepared = false;
-  constexpr int kSmem = kI8 ? Layout<D, kMT>::kBytesI8 : Layout<D, kMT>::kBytes;
-  auto kernel = paged_split_kernel<D, kTail, kI8, kMT, kF16>;
+  constexpr int kSmem = kI8 ? Layout<D>::kBytesI8 : Layout<D>::kBytes;
+  auto kernel = paged_split_kernel<D, kTail, kI8, kF16>;
   if (!prepared) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     prepared = true;
   }
-  // Row groups: blocks of L::kRows query rows side by side (one unless the
-  // rows exceed a block's).
-  const int row_groups = (p.n_q * p.groups + Layout<D, kMT>::kRows - 1) / Layout<D, kMT>::kRows;
-  kernel<<<dim3(p.n_split, p.kv_heads * row_groups, batch), kThreads, kSmem, stream>>>(p);
+  kernel<<<dim3(p.n_split, p.kv_heads, batch), kThreads, kSmem, stream>>>(p);
   if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  paged_merge_kernel<D, kTail, kF16><<<dim3(p.n_q * p.groups, p.kv_heads, batch), p.head_dim,
-                                       2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge<D, kTail, kF16>(p, batch, stream);
 }
 
-// The instance for kMT row tiles (0: the single-query form).
-template <int D, bool kTail, bool kI8, bool kF16>
-int launch_rows(const Params& p, int batch, cudaStream_t stream, int mt) {
-  switch (mt) {
-    case 0:
-      return launch<D, kTail, kI8, 0, kF16>(p, batch, stream);
-    case 1:
-      return launch<D, kTail, kI8, 1, kF16>(p, batch, stream);
-    case 3:
-      return launch<D, kTail, kI8, 3, kF16>(p, batch, stream);
-    default:
-      return launch<D, kTail, kI8, kMaxRowTiles, kF16>(p, batch, stream);
+template <int D, bool kTail, bool kI8, bool kF16, int kKG>
+int launch_rows_kg(Params p, int batch, int nt, int row_groups, cudaStream_t stream) {
+  static bool prepared = false;
+  auto kernel = paged_rows_kernel<D, kTail, kI8, kF16, kKG>;
+  if (!prepared) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Rows<D>::bytes(RowsBlock<D, kKG>::kTiles, kI8));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    prepared = true;
   }
+  p.row_tiles = nt;
+  kernel<<<dim3(p.n_split, p.kv_heads * row_groups, batch), 32 * kKG * nt,
+           Rows<D>::bytes(nt, kI8), stream>>>(p);
+  if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  return launch_merge<D, kTail, kF16>(p, batch, stream);
+}
+
+// The row-tile form: the KV head's Q * G rows in m16 tiles, at most
+// Rows<D>::kMaxTiles a block (past that, row groups of as even a size as
+// the tiles allow, side by side); one tile takes four warps over each key
+// tile, two or three tiles two warps each, more one warp each.
+template <int D, bool kTail, bool kI8, bool kF16>
+int launch_rows(const Params& p, int batch, cudaStream_t stream) {
+  const int tiles = (p.n_q * p.groups + 15) / 16;
+  const int row_groups = (tiles + Rows<D>::kMaxTiles - 1) / Rows<D>::kMaxTiles;
+  const int nt = (tiles + row_groups - 1) / row_groups;
+  if (nt == 1) return launch_rows_kg<D, kTail, kI8, kF16, 4>(p, batch, nt, row_groups, stream);
+  if (nt < 4) return launch_rows_kg<D, kTail, kI8, kF16, 2>(p, batch, nt, row_groups, stream);
+  return launch_rows_kg<D, kTail, kI8, kF16, 1>(p, batch, nt, row_groups, stream);
+}
+
+template <int D, bool kTail, bool kI8, bool kF16>
+int launch(const Params& p, int batch, cudaStream_t stream, bool single) {
+  return single ? launch_single<D, kTail, kI8, kF16>(p, batch, stream)
+                : launch_rows<D, kTail, kI8, kF16>(p, batch, stream);
 }
 
 template <bool kTail, bool kI8, bool kF16>
@@ -1000,22 +1295,19 @@ int dispatch(Params p, int batch, int n_q, bool verify, int heads, int head_dim,
   p.groups = heads / p.kv_heads;
   p.n_q = n_q;
   p.head_dim = head_dim;
-  // The single-query form for at most kSingleRows rows; else row tiles: the
-  // smallest of 1, 3, kMaxRowTiles that holds the Q * G query rows (tiles
-  // past them are skipped), and blocks of 80 rows side by side past that.
-  const int rows = n_q * p.groups;
-  const int mt = !verify && rows <= kSingleRows ? 0 : rows <= 16 ? 1 : rows <= 48 ? 3
-                                                                                   : kMaxRowTiles;
+  // The single-query form for at most kSingleRows rows; else the row-tile
+  // form.
+  const bool single = !verify && n_q * p.groups <= kSingleRows;
   const long keys = (long)p.max_pages * p.page_size + (kTail ? p.tail_len : 0);
   const long n_split = (keys + p.split - 1) / p.split;
   if (n_split > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
   p.n_split = static_cast<int>(n_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The smallest instance that holds head_dim.
-  if (head_dim <= 32) return launch_rows<32, kTail, kI8, kF16>(p, batch, s, mt);
-  if (head_dim <= 64) return launch_rows<64, kTail, kI8, kF16>(p, batch, s, mt);
-  if (head_dim <= 128) return launch_rows<128, kTail, kI8, kF16>(p, batch, s, mt);
-  return launch_rows<256, kTail, kI8, kF16>(p, batch, s, mt);
+  if (head_dim <= 32) return launch<32, kTail, kI8, kF16>(p, batch, s, single);
+  if (head_dim <= 64) return launch<64, kTail, kI8, kF16>(p, batch, s, single);
+  if (head_dim <= 128) return launch<128, kTail, kI8, kF16>(p, batch, s, single);
+  return launch<256, kTail, kI8, kF16>(p, batch, s, single);
 }
 
 Params tail_params(const void* q, const void* k_pages, const void* v_pages,
@@ -1111,7 +1403,7 @@ extern "C" int ditl_paged_tail_i8(const void* q, const void* k_pages, const void
 
 // K3's multi-query verify: as ditl_paged_tail_bf16 with q and o (B, Q, H, D),
 // n_q = Q, and the workspace's H / K rows replaced by R = Q * H / K (any count:
-// blocks of 80 rows side by side past 80).
+// row groups side by side past a block's row tiles).
 extern "C" int ditl_paged_verify_bf16(const void* q, const void* k_pages, const void* v_pages,
                                       const void* table, const void* lengths,
                                       const void* starts, const void* tail_k,

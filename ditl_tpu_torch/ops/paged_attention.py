@@ -27,11 +27,16 @@ page. ``csrc/paged_attention.cu`` holds two kernels, one per Pallas kernel:
 
 All run as split-key flash-decoding: a slot's keys lie on one axis, its
 ``max_pages * page_size`` page positions then (K3) its ``T`` tail positions,
-cut into splits of ``SPLIT_KEYS`` positions; one block per (split, KV head,
+cut into splits of ``split_keys`` positions (``SPLIT_KEYS``, or 256 for a
+bf16 or float16 call of many query rows); one block per (split, KV head,
 slot) walks its split's live ``TILE_KEYS``-key tiles with an online softmax
 and writes a partial (m, l, acc) per query row, and a second kernel merges
 the partials in split order. The grid comes from shapes alone, so the
-wrapper never reads ``lengths`` or ``starts`` back from the card.
+wrapper never reads ``lengths`` or ``starts`` back from the card. In bf16
+and float16 the single query at up to ``SINGLE_ROWS`` query rows a KV head
+takes ``paged_split_kernel``; the verify and any call with more rows take
+``paged_rows_kernel`` (one warp per 16-row tile, softmax in registers, all
+of a KV head's rows in one block).
 
 Tail masks, as the Pallas kernel's: the tail is read only when ``lengths >
 starts`` (its ``_tail`` gate), and then query qi sees tail column j when
@@ -89,11 +94,11 @@ dims outside ``HEAD_DIMS`` (every multiple of 16 up to 256) raise
 head_dim of ``HEAD_DIMS`` on the smallest of its template instances
 (``INSTANCE_DIMS``) that holds it, columns past head_dim zero in shared
 memory, and any number of query heads per KV head and of verify rows: past
-a block's rows (8 single-query, 16 for K3-f32 and K3-int8-f32, 80 in the
-row-tile forms, 32 for K3-int8-f32-verify) it runs blocks of
-rows side by side, each over the split's keys (the sources' "Row groups";
-each row's arithmetic, and so ``paged_attention_split_plain``, is the same
-in any grouping).
+a block's rows (8 single-query, 16 for K3-f32 and K3-int8-f32, 192 in the
+bf16 and float16 row-tile kernel at D = 128, 32 for K3-int8-f32-verify) it
+runs blocks of rows side by side, each over the split's keys (the sources'
+"Row groups"; each row's arithmetic, and so ``paged_attention_split_plain``,
+is the same in any grouping).
 
 Layouts are the JAX package's: q (B, H, D) or (B, Q, H, D); pools (P, K,
 ps, D); page table (B, maxp) int32; lengths and starts (B,) int32; tails
@@ -111,8 +116,9 @@ import torch
 from ditl_tpu_torch.ops.attention import NEG_INF
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_attention_split_plain",
-           "split_count", "kernel_route", "HEAD_DIMS", "INSTANCE_DIMS", "SPLIT_KEYS",
-           "TILE_KEYS", "launches", "launches_tail", "launches_tail_int8", "launches_verify",
+           "split_count", "split_keys", "kernel_route", "HEAD_DIMS", "INSTANCE_DIMS",
+           "SPLIT_KEYS", "SINGLE_ROWS", "LONG_SPLIT", "LONG_SPLIT_ROWS", "TILE_KEYS",
+           "launches", "launches_tail", "launches_tail_int8", "launches_verify",
            "launches_verify_int8", "launches_f32", "launches_tail_f32",
            "launches_verify_f32", "launches_tail_int8_f32", "launches_verify_int8_f32",
            "launches_f16", "launches_tail_f16", "launches_verify_f16",
@@ -127,6 +133,16 @@ TILE_KEYS = 64  # keys per tile inside a split (csrc kTile)
 # Positions per split, a multiple of TILE_KEYS: 128 was the fastest of 128,
 # 256 and 512 at the decode tick on the card (PERF.md).
 SPLIT_KEYS = 128
+# Query rows a KV head that the single-query kernel takes (csrc kSingleRows);
+# the bf16 and float16 calls with more, and every verify, take the row-tile
+# kernel. Its partials grow with the rows, so a call with at least
+# LONG_SPLIT_ROWS query rows in all (B * Q * H: the spec tick of llama3-8b,
+# 8 x 9 x 32) takes splits of LONG_SPLIT keys; a smaller call keeps the
+# shorter splits that give its grid blocks enough to fill the card (PERF.md
+# §6).
+SINGLE_ROWS = 8
+LONG_SPLIT = 256
+LONG_SPLIT_ROWS = 2304
 
 # Kernel launches since the last reset_launches(); counted where each kernel
 # is launched and nowhere else. ``launches_tail`` is K3 over bf16 pools,
@@ -316,6 +332,22 @@ def split_count(max_pages: int, page_size: int, tail_len: int, split: int) -> in
     return -(-(max_pages * page_size + tail_len) // split)
 
 
+def split_keys(q: torch.Tensor, k_pages: torch.Tensor) -> int:
+    """Positions per split of a call with q (B, H, D) or (B, Q, H, D) over
+    pools (P, K, ps, D): ``LONG_SPLIT`` for bf16 and float16 past
+    ``SINGLE_ROWS`` query rows a KV head (Q * G) where the call holds at
+    least ``LONG_SPLIT_ROWS`` query rows in all (B * Q * H), else
+    ``SPLIT_KEYS``. Shapes only, so the grid stays free of device-to-host
+    syncs; the CUDA wrapper launches with it and
+    ``paged_attention_split_plain`` takes it by default."""
+    b, h = q.shape[0], q.shape[-2]
+    nq = q.shape[1] if q.dim() == 4 else 1
+    if (q.dtype == torch.float32 or nq * (h // k_pages.shape[1]) <= SINGLE_ROWS
+            or b * nq * h < LONG_SPLIT_ROWS):
+        return SPLIT_KEYS
+    return LONG_SPLIT
+
+
 def paged_attention_split_plain(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -328,7 +360,7 @@ def paged_attention_split_plain(
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
     *,
-    split: int = SPLIT_KEYS,
+    split: int | None = None,
 ) -> torch.Tensor:
     """What K3 (with a tail), its verify form (4-D q) and K4 (without)
     compute, in their order: each ``split``-position run of a slot's axis
@@ -356,7 +388,12 @@ def paged_attention_split_plain(
     The kernels' row groups (blocks of rows side by side when a KV head has
     more query rows than a block takes) change no row's arithmetic: each
     row's partials come from the same tiles, live by the union over the
-    slot's Q queries, in the same order, so this twin has no row groups."""
+    slot's Q queries, in the same order, so this twin has no row groups.
+
+    ``split`` defaults to the kernels' own length, ``split_keys(q,
+    k_pages)``."""
+    if split is None:
+        split = split_keys(q, k_pages)
     if split % TILE_KEYS or split < TILE_KEYS:
         raise ValueError(f"split must be a positive multiple of {TILE_KEYS}, got {split}")
     squeeze = q.dim() == 3
@@ -567,7 +604,8 @@ def paged_attention(
             raise ValueError(f"{t_name} must be contiguous")
     rows = nq * (h // kv_heads)  # query rows per KV head
     t_len = tail_k.shape[2] if tail else 0
-    n_split = split_count(page_table.shape[1], ps, t_len, SPLIT_KEYS)
+    split = split_keys(q, k_pages)
+    n_split = split_count(page_table.shape[1], ps, t_len, split)
     o = torch.empty_like(q)
     # The split partials (f32 acc; m and l per query row): allocated, never
     # read on the host.
@@ -587,12 +625,12 @@ def paged_attention(
             err = _kernel(name)(
                 q.data_ptr(), *pools_ptr, page_table.data_ptr(), lengths.data_ptr(),
                 starts.data_ptr(), tail_k.data_ptr(), tail_v.data_ptr(), o.data_ptr(),
-                *work, *batch, *shape, t_len, SPLIT_KEYS, d**-0.5, stream,
+                *work, *batch, *shape, t_len, split, d**-0.5, stream,
             )
         else:
             err = _kernel(name)(
                 q.data_ptr(), *pools_ptr, page_table.data_ptr(), lengths.data_ptr(),
-                o.data_ptr(), *work, *batch, *shape, SPLIT_KEYS, d**-0.5, stream,
+                o.data_ptr(), *work, *batch, *shape, split, d**-0.5, stream,
             )
     if err != 0:
         raise RuntimeError(f"paged attention kernel {name} launch failed: CUDA error {err}")

@@ -92,6 +92,9 @@ CATEGORIES = (
     ("K2a-f32 flash_dq_f32", ("flash_dq_f32_kernel",)),
     # K2b-f32's runs and, when it splits, their in-order sum
     ("K2b-f32 flash_dkv_f32", ("flash_dkv_f32_kernel", "flash_dkv_f32_sum_kernel")),
+    # the row-tile kernel: every verify in bf16 and float16, and K3, K3-int8
+    # and K4 past 8 query rows a KV head
+    ("K3-verify/K3-int8-verify/K3 and K4 past 8 rows paged_rows", ("paged_rows_kernel",)),
     ("K3/K4 paged_split", ("paged_split_kernel",)),
     ("K3/K4 paged_merge", ("paged_merge_kernel",)),
     ("K3-f32-verify/K4-f32 paged_split_f32", ("paged_split_f32_kernel",)),

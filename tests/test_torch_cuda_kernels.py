@@ -402,9 +402,11 @@ def test_paged_int8_invalid_inputs_raise_and_launch_nothing(cuda):
 # slot, a page boundary, a tail reaching its last column), head_dim 64 at
 # page 16, a tail longer than 128 columns (query 0's limit before the split
 # at tail column 128, query 8's past it) with a tail-only slot, G = 8 at 72
-# query rows, Q = 2 (one row tile with padding rows); then head_dim 32 and
-# 256 (chip_smoke.HD_VERIFY_CASES: the spec ticks of paths 14 and 15, 80 rows
-# at G = 8, G = 1 with a long tail, 40 rows).
+# query rows, Q = 2 (one row tile with padding rows), G = 20 at Q = 3 (60
+# rows, a partial row tile), 272 rows (two row groups), 144 rows at head_dim
+# 256 (int8 staged in place), a tile mixing page, dead and tail rows; then
+# head_dim 32 and 256 (chip_smoke.HD_VERIFY_CASES: the spec ticks of paths 14
+# and 15, 80 rows at G = 8, G = 1 with a long tail, 40 rows).
 BASE_VERIFY_CASES = [case[1:] for case in chip_smoke._verify_cases()]
 VERIFY_CASES = BASE_VERIFY_CASES + [case[1:] for case in chip_smoke.HD_VERIFY_CASES]
 
@@ -444,10 +446,13 @@ def test_paged_verify_kernels_match_plain(cuda, case, int8):
 
 
 @pytest.mark.torch_port
-def test_paged_verify_wrapper_never_syncs(cuda):
-    """The verify's grid comes from shapes alone: no device-to-host sync, and
-    a CUDA graph captures it."""
-    b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp = VERIFY_CASES[0]
+@pytest.mark.parametrize("case", [VERIFY_CASES[0], chip_smoke.SHAPE_VERIFY_CASES[0][1:]],
+                         ids=["spec tick", "144 rows"])
+def test_paged_verify_wrapper_never_syncs(cuda, case):
+    """The verify's grid and split length come from shapes alone: no
+    device-to-host sync, and a CUDA graph captures it (the spec tick, and
+    path 16's 144 rows a KV head)."""
+    b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp = case
     q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
         cuda, b, h, kv, d, ps, 128, tail_len, lengths, starts, nq=nq, maxp=maxp)
     kw = dict(tail_k=tk, tail_v=tv, starts=st)
@@ -466,12 +471,64 @@ def test_paged_verify_wrapper_never_syncs(cuda):
     assert torch.equal(o, want)
 
 
+# One query past the single-query form's 8 rows a KV head, on the row-tile
+# kernel: (b, h, kv, d, ps, tail_len, lengths, starts) at G = 12 and G = 16,
+# the split edges with a dead slot.
+ROWS_SINGLE_CASES = [(4, 48, 4, 128, 16, 16, [257, 256, 0, 140], [257, 250, 0, 128]),
+                     (4, 64, 4, 64, 16, 16, [257, 256, 0, 140], [257, 250, 0, 128])]
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("case", ROWS_SINGLE_CASES, ids=["G=12", "G=16"])
+def test_paged_single_query_past_eight_rows_matches_plain(cuda, case, int8, dtype):
+    """K3 (float and int8 pools) with one query at G = 12 and 16, on the
+    row-tile kernel: against the plain version and the split twin at 2e-2;
+    three calls the same bits; a 4-D q with Q = 1 the 3-D call's bits; a
+    dead slot zeros; one launch a call on its own counter."""
+    b, h, kv, d, ps, tail_len, lengths, starts = case
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        cuda, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=7, dtype=dtype)
+    scales = {}
+    if int8:
+        kp, vp, ks, vs = _int8_pools(kp, vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tail = dict(tail_k=tk, tail_v=tv, starts=st, **scales)
+    counter = "launches_tail" + ("_int8" if int8 else "") + (
+        "_f16" if dtype == torch.float16 else "")
+    tpa.reset_launches()
+    runs = [tpa.paged_attention(q, kp, vp, table, lens, **tail) for _ in range(3)]
+    assert getattr(tpa, counter) == 3
+    assert sum(getattr(tpa, n) for n in tpa._COUNTERS.values()) == 3
+    args = (q, kp, vp, table, lens, tk, tv, st, *scales.values())
+    r = tpa.paged_attention_plain(*args)
+    sp = tpa.paged_attention_split_plain(*args)
+    o4 = tpa.paged_attention(q[:, None].contiguous(), kp, vp, table, lens, **tail)
+    torch.cuda.synchronize()
+    o = runs[0]
+    assert o.shape == q.shape and o.dtype == dtype
+    torch.testing.assert_close(o.float(), r.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(), sp.float(), atol=2e-2, rtol=2e-2)
+    assert all(torch.equal(run, o) for run in runs[1:])
+    assert torch.equal(o4[:, 0], o)
+    assert all(bool((o[i] == 0).all()) for i, n in enumerate(lengths) if n == 0)
+
+
 @pytest.mark.torch_port
 def test_paged_single_query_kernels_keep_their_digests(cuda):
     """K3, K3 over int8 pools and K4 in their single-query form give, on
     fixed integer-made inputs, the bits of the build before the verify form
     joined their template (chip_smoke.py's ``K3_DIGESTS``)."""
     assert chip_smoke._k3_digests(tpa) == chip_smoke.K3_DIGESTS
+
+
+@pytest.mark.torch_port
+def test_paged_row_tile_kernel_keeps_its_digests(cuda):
+    """The row-tile kernel's forms (K3-verify and K3-int8-verify in bf16 and
+    float16 at the spec tick, head_dim 64 and 144 rows; K3, K3-int8 and K4
+    at G = 16) give the bits recorded in chip_smoke.py's ``ROWS_DIGESTS``."""
+    assert chip_smoke._rows_digests(tpa) == chip_smoke.ROWS_DIGESTS
 
 
 def _bwd_inputs(cuda, b, s_q, s_kv, h, kv, d, causal, seg, seed=0, dtype=torch.bfloat16):

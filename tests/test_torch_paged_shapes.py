@@ -13,10 +13,14 @@ up to 256 that is a multiple of 16.
   against the final row max, the reference kernel against its running max:
   one bf16 ulp near 1), f32 pools at 2e-5 (the reference's own tolerance),
   int8 pools under an f32 q at 1e-4 (``tests/test_torch_paged.py``'s int8
-  tolerance).
+  tolerance) and under a bf16 q at 2e-2. G = 20 at D = 32 with Q = 3 (60
+  rows, the last row tile partial).
 - ``paged_attention_split_plain`` (the kernels' order) against
   ``paged_attention_plain`` at the same shapes in f32, splits of 64 and 128
-  keys: row groups change no row's arithmetic, so the twin has none.
+  keys: row groups change no row's arithmetic, so the twin has none. The
+  split length a bf16 or float16 call takes (``split_keys``: 256 keys from
+  2304 query rows a call) is the twin's default, and the twin holds the
+  plain version there.
 - Two tiny engine configs, 2 layers each: D = 96 with G = 1, and D = 16 with
   16 query heads on 1 KV head. The port's paged ``ContinuousEngine`` gives
   the JAX engine's greedy tokens on the same weights (``models/convert.py``),
@@ -49,12 +53,14 @@ torch.set_num_threads(1)
 # (head_dim, query heads, KV heads, Q (1: a 3-D q)); (128, 8, 2, 9) is path
 # 11's spec tick at G = 4 (36 rows a KV head: three row tiles, in two blocks
 # of at most two on the card's f32 verify over int8 pools), (256, 8, 1, 9) D
-# = 256 at G = 8 (72 rows: blocks of two row tiles).
+# = 256 at G = 8 (72 rows: blocks of two row tiles), (32, 20, 1, 3) G = 20
+# at Q = 3 (60 rows: four row tiles, the last partial).
 SHAPES = [(96, 2, 2, 1), (96, 2, 2, 9), (16, 16, 1, 1), (16, 16, 1, 9), (80, 12, 1, 9),
-          (48, 16, 2, 9), (128, 8, 2, 9), (256, 8, 1, 9)]
-# pool kind -> (q and tail dtype, int8 pools, tolerance)
+          (48, 16, 2, 9), (128, 8, 2, 9), (256, 8, 1, 9), (32, 20, 1, 3)]
+# pool kind -> (q and tail dtype, int8 pools, tolerance); "int8_bf16" is the
+# int8 serving path's bf16 q and tails over int8 pools
 POOLS = {"bf16": ("bfloat16", False, 2e-2), "f32": ("float32", False, 2e-5),
-         "int8": ("float32", True, 1e-4)}
+         "int8": ("float32", True, 1e-4), "int8_bf16": ("bfloat16", True, 2e-2)}
 # A dead slot, a tail-only slot, tails that straddle a page edge; page 16,
 # four pages a slot, a 24-column tail (the verify's nine rows fit in it).
 LENGTHS, STARTS, PAGE, MAX_PAGES, TAIL = [0, 20, 40, 21], [0, 16, 33, 20], 16, 4, 24
@@ -162,6 +168,59 @@ def test_split_twin_matches_plain_with_row_groups(shape, split):
             np.testing.assert_allclose(
                 tpa.paged_attention_split_plain(*no_tail, split=split).numpy(),
                 tpa.paged_attention_plain(*no_tail).numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,b,nq,h,kv,split", [
+    ("bfloat16", 64, 1, 64, 8, 128), ("bfloat16", 8, 9, 32, 8, 256),
+    ("float16", 7, 9, 32, 8, 128), ("bfloat16", 8, 9, 128, 8, 256),
+    ("float16", 8, 9, 32, 32, 256), ("bfloat16", 8, 9, 8, 1, 128),
+    ("bfloat16", 8, 1, 128, 8, 128), ("float32", 8, 9, 128, 8, 128)])
+def test_split_keys_follows_the_rows_of_the_call(dtype, b, nq, h, kv, split):
+    """The row-tile kernel's split length: 256 keys in bf16 and float16
+    where the call holds at least 2304 query rows (B * Q * H: the spec
+    tick of llama3-8b, 8 x 9 x 32); 128 (``SPLIT_KEYS``) below that, at 8
+    rows a KV head or fewer (the single-query kernel) and always in f32."""
+    q = torch.empty((b, h, 16) if nq == 1 else (b, nq, h, 16), dtype=getattr(torch, dtype))
+    assert tpa.split_keys(q, torch.empty((1, kv, 16, 16))) == split
+
+
+# (B, Q, H, K, q dtype): a bf16 verify of 2592 query rows (splits of 256
+# keys), and G = 16 in one query and at Q = 9 on fewer rows (splits of
+# 128), over float and int8 pools.
+SPLIT_CALLS = [(4, 9, 72, 8, "bfloat16"), (2, 1, 32, 2, "float16"), (2, 9, 32, 2, "bfloat16")]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("call", SPLIT_CALLS, ids=lambda c: f"b{c[0]}_q{c[1]}_h{c[2]}_k{c[3]}")
+def test_split_twin_takes_the_wrappers_split(call, int8):
+    """The split twin's default length is ``split_keys``, the one the CUDA
+    wrapper launches with (the same bits as an explicit ``split=``), and at
+    it the twin gives the plain version's output at the kernels' 16-bit
+    tolerance (2e-2)."""
+    b, nq, h, kv, dtype = call
+    d, ps, maxp, tail = 16, 16, 12, 24
+    rng = np.random.default_rng(b * 100 + nq * 10 + kv)
+    dt = getattr(torch, dtype)
+    lengths = torch.tensor([181, 0, 40, 21][:b], dtype=torch.int32)
+    starts = torch.tensor([176, 0, 33, 20][:b], dtype=torch.int32)
+    q = torch.from_numpy(rng.normal(size=(b, h, d) if nq == 1 else (b, nq, h, d))).to(dt)
+    kp, vp = (torch.from_numpy(rng.normal(size=(b * maxp + 1, kv, ps, d))).to(dt)
+              for _ in range(2))
+    table = torch.arange(1, b * maxp + 1, dtype=torch.int32).reshape(b, maxp)
+    tk, tv = (torch.from_numpy(rng.normal(size=(b, kv, tail, d))).to(dt) for _ in range(2))
+    scales = ()
+    if int8:
+        kp, vp = ((x.float() * 20).round().clamp(-127, 127).to(torch.int8) for x in (kp, vp))
+        scales = tuple(torch.from_numpy(rng.uniform(0.01, 0.05, size=(b * maxp + 1, kv, 1, ps))
+                                        .astype(np.float32)) for _ in range(2))
+    args = (q, kp, vp, table, lengths, tk, tv, starts, *scales)
+    split = tpa.split_keys(q, kp)
+    assert split == (256 if b * nq * h >= 2304 else 128)
+    twin = tpa.paged_attention_split_plain(*args)
+    assert torch.equal(twin, tpa.paged_attention_split_plain(*args, split=split))
+    np.testing.assert_allclose(twin.float().numpy(),
+                               tpa.paged_attention_plain(*args).float().numpy(),
+                               atol=2e-2, rtol=2e-2)
 
 
 def test_every_multiple_of_16_routes_and_others_raise():

@@ -42,7 +42,7 @@ def test_every_source_declares_kernels():
             "paged_split_f32_kernel", "paged_mma_f32_kernel", "paged_merge_f32_kernel",
             "mlp_dgu_f32_kernel",
             "mlp_dh_f32_kernel", "proj_bwd_f32_kernel", "splitk_sum_f32_kernel",
-            "flash_dkv_f32_sum_kernel"} <= names
+            "flash_dkv_f32_sum_kernel", "paged_rows_kernel", "paged_split_kernel"} <= names
 
 
 @pytest.mark.parametrize("src,name", _kernels())
@@ -55,6 +55,15 @@ def test_every_port_kernel_has_a_port_category(src, name):
                  f"{len(name)}{name}ENS_6ParamsE"]
     cats = {profile_train._category(x) for x in spellings}
     assert len(cats) == 1 and cats <= PORT_CATEGORIES, (src, name, cats)
+
+
+def test_row_tile_kernel_has_a_category_of_its_own():
+    """The row-tile paged kernel (the verify, and the single query past 8
+    rows a KV head) is not filed with the single-query split kernel."""
+    rows = profile_train._category("void (anonymous namespace)::paged_rows_kernel<128, true, "
+                                   "false, false, 2>((anonymous namespace)::Params)")
+    assert rows != profile_train._category("paged_split_kernel")
+    assert rows in PORT_CATEGORIES and "paged_rows" in rows
 
 
 def test_f32_kernels_have_categories_of_their_own():
