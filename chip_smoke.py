@@ -3560,10 +3560,12 @@ def _det_paged_case(b, h, kv, d, ps, tail_len, lengths, starts, salt, nq=None):
                 table=table.cuda(), lengths=ints(lengths), starts=ints(starts))
 
 
-# K3, K3 over int8 pools and K4 in their single-query form, on the cases of
-# ``_k3_digests``: SHA-256 prefixes of their outputs as the build before the
-# verify form joined their template gave them (``_k3_digests`` run on the card
-# against that tree's ``ditl_tpu_torch``, first on ``sys.path``).
+# K3, K3 over int8 pools (bf16 and float16 q) and K4 in their single-query
+# form, on the cases of ``_k3_digests``: SHA-256 prefixes of their outputs as
+# the build before the verify form joined their template gave them
+# (``_k3_digests`` run on the card against that tree's ``ditl_tpu_torch``,
+# first on ``sys.path``); K3-int8-f16 as the build before its page tiles were
+# widened in registers gave them, which the registers' build gives too.
 K3_DIGESTS: dict[str, str] = {
     "case 0 K3": "98a9aa9302a1d603",
     "case 0 K3-int8": "c79691c1cd7c338c",
@@ -3574,12 +3576,15 @@ K3_DIGESTS: dict[str, str] = {
     "case 2 K3": "54d18c07668f0118",
     "case 2 K3-int8": "bc0c39e8e161843b",
     "case 2 K4": "4f1fa201bc54b18a",
+    "case 0 K3-int8-f16": "da1cc0bd3c46a2eb",
+    "case 1 K3-int8-f16": "015caf020a7392fe",
+    "case 2 K3-int8-f16": "bd4fb0abe7184a68",
 }
 
 
 def _k3_digests(paged) -> dict:
-    """K3 (float and int8 pools) and K4 on fixed integer-made inputs: the
-    decode tick's shape, head_dim 64 at page 16 (a dead slot, a tail-only
+    """K3 (float and int8 pools; over int8 pools also with float16 q and
+    tails) and K4 on fixed integer-made inputs: the decode tick's shape, head_dim 64 at page 16 (a dead slot, a tail-only
     slot), and the split edges; SHA-256 digests of the outputs' bytes. Uses
     only the wrapper's single-query signature, so it runs against an older
     tree's module too."""
@@ -3604,6 +3609,10 @@ def _k3_digests(paged) -> dict:
                                              c["lengths"], **tail, k_scale=c["ks"],
                                              v_scale=c["vs"]),
             "K4": paged.paged_attention(c["q"], c["kp"], c["vp"], c["table"], c["lengths"]),
+            "K3-int8-f16": paged.paged_attention(
+                c["q"].half(), c["kq"], c["vq"], c["table"], c["lengths"],
+                tail_k=c["tk"].half(), tail_v=c["tv"].half(), starts=c["starts"],
+                k_scale=c["ks"], v_scale=c["vs"]),
         }
         torch.cuda.synchronize()
         for name, t in outs.items():
@@ -3695,33 +3704,33 @@ def _det_f32(shape, salt: int, shift: int):
     return ((h % 2097153 - 1048576).float() * 2.0**-shift).reshape(shape)
 
 
-# ``_f32_digests`` on an H100: K4-f32, K3-f32-verify, K5b-f32 and K6-f32 as
-# they gave them before K3-int8-f32 and K5a-f32 were redesigned (run on the
-# card against the tree of commit 1bdbc9f; K4-f32 at D = 256 against commit
-# a7d5426); the single-query K3-int8-f32 as its tensor-core kernel gave them
-# when it came in (commit a7d5426); K3-f32 and K3-int8-f32-verify as the
-# tensor-core kernel gives them since they moved onto it (3xTF32 sums in
-# place of FFMA's). Each must keep these bits.
+# ``_f32_digests`` on an H100: K5b-f32 and K6-f32 as they gave them before
+# K3-int8-f32 and K5a-f32 were redesigned (run on the card against the tree
+# of commit 1bdbc9f); the single-query K3-int8-f32 as its tensor-core kernel
+# gave them when it came in (commit a7d5426); K3-f32, K3-int8-f32-verify,
+# K3-f32-verify and K4-f32 as the tensor-core kernel gives them since they
+# moved onto it (3xTF32 sums in place of FFMA's; the f32 verify at 144 rows
+# at splits of 256 keys). Each must keep these bits.
 F32_DIGESTS: dict[str, str] = {
     "decode tick K3-f32": "84d13dc45a836fe4",
-    "decode tick K4-f32": "88c30e48e7283906",
+    "decode tick K4-f32": "f01f41b5c90f8377",
     "decode tick K3-int8-f32": "f9d683fd87d27a1a",
     "head_dim 64 K3-f32": "c596d37787dfe96c",
-    "head_dim 64 K4-f32": "f6d1f0251ef33fc2",
+    "head_dim 64 K4-f32": "acbce96c0421f372",
     "head_dim 64 K3-int8-f32": "7771de22d9feb078",
     "G = 16 K3-f32": "afe1ddb1f99ef867",
-    "G = 16 K4-f32": "4c8326650ed6026b",
+    "G = 16 K4-f32": "7cdb6f6183a4873b",
     "G = 16 K3-int8-f32": "17c4a0f89ca3b1ac",
     "D = 256 K3-f32": "07c52ec338a05aa6",
-    "D = 256 K4-f32": "1696d75edb2e07de",
+    "D = 256 K4-f32": "d5377d43d158fcca",
     "D = 256 K3-int8-f32": "eff2e56b47557f52",
-    "spec tick K3-f32-verify": "c915bd788252a456",
+    "spec tick K3-f32-verify": "bdea2bb6dc61adc9",
     "spec tick K3-int8-f32-verify": "d6f3f092af50c59e",
-    "head_dim 64 K3-f32-verify": "d37a56e3b5c03b42",
+    "head_dim 64 K3-f32-verify": "1f80b7a28a9c7308",
     "head_dim 64 K3-int8-f32-verify": "53ecc44e861d0343",
-    "144 rows K3-f32-verify": "31c06d64a5f73d1e",
+    "144 rows K3-f32-verify": "57c31d457356e28a",
     "144 rows K3-int8-f32-verify": "c9deaf23cafe018e",
-    "D = 256 K3-f32-verify": "23b3a4c7bd31dfcc",
+    "D = 256 K3-f32-verify": "274f52a5aabd1c4a",
     "D = 256 K3-int8-f32-verify": "0f87c775c820f4c3",
     "K5b-f32 N=8192 D=896 F=4864 dh": "1400a7112f362849",
     "K5b-f32 N=8192 D=896 F=4864 d_w_gu": "d23a7fe9806eb0cc",
@@ -6201,6 +6210,28 @@ def _paged_kernel_ms(paged, dtype_name: str, int8: bool, form: str, m: dict):
     return ms, _device_us_by_kernel(_cycle(calls), 4 * PAGED_COPIES)
 
 
+# The forms a later build moved, for ``--paged-rows`` beside ``ROWS_TIMING``:
+# (label, form, tick, q dtype, int8 pools). K3-int8 in bf16 and float16 at
+# the decode tick, paths 14 and 15 (D = 32 / 256) and path 17 (G = 1, D =
+# 96); K3-f32-verify at the spec ticks of paths 11 (36 rows), 16 (144 rows;
+# its widths at 80 rows), 17, 14 and 15; K4-f32 at the decode ticks of paths
+# 8, 16 and 17.
+MOVED_TIMING = (
+    [(label, "tail", m, dtype, True)
+     for label, m in (("decode tick, G = 4", PAGED_MAIN), ("D = 32", HD_TICKS[32]),
+                      ("D = 256", HD_TICKS[256]), ("path 17, G = 1, D = 96", SHAPE_TICKS[17]))
+     for dtype in ("bfloat16", "float16")]
+    + [(label, "verify", m, "float32", False)
+       for label, m in (("spec tick, 36 rows", SPEC_MAIN),
+                        ("path 16, 144 rows", SHAPE_SPEC_TICKS[16]),
+                        ("path 16, 80 rows", SHAPE_VERIFY_80),
+                        ("path 17, 9 rows", SHAPE_SPEC_TICKS[17]),
+                        ("D = 32", HD_SPEC_TICKS[32]), ("D = 256", HD_SPEC_TICKS[256]))]
+    + [(label, "no_tail", m, "float32", False)
+       for label, m in (("decode tick, G = 4", PAGED_MAIN), ("path 16, G = 16", SHAPE_TICKS[16]),
+                        ("path 17, G = 1, D = 96", SHAPE_TICKS[17]))])
+
+
 def phase_rows_timings(paged, tree: str, sweeps: bool) -> None:
     """[rows-timing], for ``python3 chip_smoke.py --paged-rows [TREE]``: the
     bf16 verify over float and int8 pools at each verify shape of
@@ -6208,8 +6239,10 @@ def phase_rows_timings(paged, tree: str, sweeps: bool) -> None:
     ``_paged_kernel_ms``: the whole call's device time and the split kernel
     and the merge apart. With ``sweeps``, where the module has
     ``split_keys`` (the row-tile kernel's split lengths), each also at
-    splits of 128, 256 and 512 keys. Uses only the wrapper's signature, so it runs
-    against an older tree's module (``TREE`` first on ``sys.path``)."""
+    splits of 128, 256 and 512 keys. Then each form of ``MOVED_TIMING``
+    the same way; with ``sweeps`` the f32 verify also at splits of 128 and
+    256 keys. Uses only the wrapper's signature, so it runs against an older
+    tree's module (``TREE`` first on ``sys.path``)."""
     for label, form, m in ROWS_TIMING:
         for int8 in ((False, True) if form != "no_tail" else (False,)):
             name = {"verify": "paged_verify", "tail": "paged_tail", "no_tail": "paged"}[form]
@@ -6229,6 +6262,24 @@ def phase_rows_timings(paged, tree: str, sweeps: bool) -> None:
                     paged.split_keys = rule
                 log(f"[rows-timing] {tree} {name} {label} split lengths, ms: "
                     f"{', '.join(sweep)} ({SMI})")
+    for label, form, m, dtype_name, int8 in MOVED_TIMING:
+        name = {"verify": "paged_verify", "tail": "paged_tail", "no_tail": "paged"}[form]
+        name += ("_int8" if int8 else "") + DTYPE_SFX[dtype_name][0]
+        ms, by_kernel = _paged_kernel_ms(paged, dtype_name, int8, form, m)
+        log(f"[rows-timing] {tree} {name} {label}: {ms:.4f} ms; by kernel "
+            + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(by_kernel.items()))
+            + f" ({SMI})")
+        if not (sweeps and form == "verify"):
+            continue
+        rule, sweep = paged.split_keys, []
+        try:
+            for split in (128, 256):
+                paged.split_keys = lambda *_, n=split: n
+                sweep.append(f"split {split} "
+                             f"{_paged_kernel_ms(paged, dtype_name, int8, form, m)[0]:.4f}")
+        finally:
+            paged.split_keys = rule
+        log(f"[rows-timing] {tree} {name} {label} sweep, ms: {', '.join(sweep)} ({SMI})")
 
 
 def main() -> int:

@@ -73,20 +73,28 @@
 // scales of shape (P, K, 1, ps), one per (page, KV head, position); the tail
 // stays bf16. Bound at the decode tick (8 slots, 4,343 live keys, 8 KV heads,
 // D = 128): 8.9 MB of int8 K/V plus 0.28 MB of scales, about 2.7 us at 3.35
-// TB/s, half the float kernel's bytes. The design is the float kernel's with
-// a staging step, the simplest that keeps its tensor-core path: a page row's
-// D int8 bytes come by cp.async (16 values a copy) into a raw int8 tile, and
-// the row's two scales by 4-byte cp.async into a scale tile, both double
-// buffered beside the bf16 tiles; tail rows and dead rows go to the bf16
-// tile as before. After the wait, one pass converts the page rows to bf16
-// into the bf16 tile (int8 -> bf16 is exact: |q| <= 127), so the q.k and
-// p.V products and their ldmatrix/mma.sync fragments are unchanged. K's
-// scale multiplies each page key's f32 score (times the softmax scale)
-// before the running max; V's scale multiplies p, before p's rounding to
-// bf16 for the p.V product, while the row sum l adds the unscaled p, so acc
-// / l is the reference's sum of (p * vs) . v over sum of p. Tail keys take
-// scale 1. Converting in registers on the way to the products, TMA and
-// wgmma are later work.
+// TB/s, half the float kernel's bytes. The single-query kernel's kI8
+// instances (G <= 8) feed both products from the raw int8 tiles: a page
+// tile's D int8 bytes a row come by cp.async (16 values a copy) into two
+// stages of int8 tiles, rows padded by 16 bytes, the row's two scales by
+// 4-byte cp.async into a scale stage; each B fragment is read from the int8
+// tile and widened in registers by byte permutes (i8x2_exact, i8_pair;
+// int8 -> bf16 or float16 is exact: |q| <= 127), q.k's contraction and
+// p.V's output columns permuted so that one 4-byte read is a lane's K
+// fragment of a k16 step and one read of D / 32 bytes its V column of
+// every n8 block (see paged_split_kernel). No convert pass and no 16-bit
+// copy of a page row: four barriers a tile, as the float kernel. A tile
+// with tail rows (the axis's last ones) takes one 16-bit K and V tile over
+// both stages, tail and dead rows 16-bit, page rows' int8 bytes staged in
+// place (Layout::kInPlaceAt), read row by row; it loads once the tile
+// before it is done. Block bytes at D = 32 / 64 / 128 / 256: 17 / 25 / 41 /
+// 74 KB (the first form, with a bf16 copy of each tile and a convert pass:
+// 104 KB at D = 128). K's scale multiplies each page key's f32 score (times
+// the softmax scale) before the running max; V's scale multiplies p, before
+// p's rounding to bf16 for the p.V product, while the row sum l adds the
+// unscaled p, so acc / l is the reference's sum of (p * vs) . v over sum of
+// p. Tail keys take scale 1. The row-tile kernel's int8 instances (the
+// verify, G > 8) keep a convert pass into 16-bit tiles (below).
 //
 // The row-tile kernel (paged_rows_kernel<D, kTail, kI8, kF16, kKG>): every
 // verify (ditl_paged_verify_*: q (B, Q, H, D), the speculative verify's Q =
@@ -170,10 +178,10 @@
 // float16. The bytes, the bound and the design are bf16's: the kF16
 // instances differ only in the element type the tensor cores read
 // (mma.sync m16n8k16 .f16 in place of .bf16, the same fragment layouts and
-// ldmatrix loads), the int8 -> float16 convert of the staging pass (exact:
-// |q| <= 127 < 2^11), and the rounding of p (times V's scale over int8
-// pages) and of o to float16 in place of bf16. The bf16 instances keep
-// their code and bits (chip_smoke.py K3_DIGESTS).
+// ldmatrix loads), the int8 -> float16 widening (exact: |q| <= 127 <
+// 2^11), and the rounding of p (times V's scale over int8 pages) and of o
+// to float16 in place of bf16. The bf16 instances keep their code and bits
+// (chip_smoke.py K3_DIGESTS).
 //
 // Head dims. The template's D is a capacity: a call's head_dim (Params::
 // head_dim, any multiple of 16 up to 256) runs on the smallest of the 32,
@@ -205,7 +213,11 @@
 //   before chunk c + 1's input begins), so no staging tile is needed.
 // ptxas -v (sm_90a), with the run-time head_dim: the single-query kernel at
 // D = 32 / 64 / 128 / 256 48 / 76 / 112 / 206 registers (K4 48 / 72 / 103 /
-// 192, int8 56 / 72 / 182 / 188); the row-tile kernel at kKG = 1 / 2 / 4 93-113 /
+// 192; int8 84 / 85 / 127 / 203 in bf16 and float16, no spills, its first
+// form 56 / 72 / 182 / 188; at D = 256 a launch bound of three blocks an SM
+// spilled 104 bytes, so it names two); blocks an SM over int8 pools (shared
+// memory and registers) 5 / 5 / 4 / 2 (the first form two at D = 128);
+// the row-tile kernel at kKG = 1 / 2 / 4 93-113 /
 // 61-72 / 48-56 at D = 32, 113-127 / 76-87 / 72-79 at D = 64, 149-167 /
 // 129-137 / 107-126 at D = 128, 247-253 / 168-218 / 168-190 at D = 256; no
 // spills; merge 62-139; the bf16 and float16 instances alike.
@@ -284,19 +296,43 @@ struct Layout {
   static constexpr int kL = kM + kRows * 4;
   static constexpr int kAlpha = kL + kRows * 4;
   static constexpr int kBytes = kAlpha + kRows * 4;
-  // int8 pools: two stages of raw int8 K and V tiles (D bytes a key), then
-  // two stages of the tile's 64 K and 64 V scales. Where raw tiles do not
-  // fit beside the rest (paged_rows_kernel at D = 256), a page row's int8
+  // int8 pools (paged_rows_kernel): two stages of raw int8 K and V tiles (D
+  // bytes a key), then two stages of the tile's 64 K and 64 V scales. Where
+  // raw tiles do not fit beside the rest (at D = 256), a page row's int8
   // values are staged in place instead: into the last D bytes of its own
-  // padded 16-bit row, which the convert pass then fills from the front.
+  // padded 16-bit row, which the convert pass then fills from the front
+  // (the single-query kernel's tile with tail rows stages them there too,
+  // and reads them in place).
   static constexpr int kQTile = kTile * D;
   static constexpr int kQStage = 2 * kQTile;
   static constexpr int kQ = kBytes;
   static constexpr int kScStage = 2 * kTile * 4;
   static constexpr int kSc = kQ + 2 * kQStage;
-  static constexpr int kBytesI8 = kSc + 2 * kScStage;
   static constexpr int kInPlaceAt = kLd - D;  // a row's staged int8 bytes
-  static_assert(kBytesI8 <= kMaxSmem, "shared memory of a block");
+};
+
+// Shared memory of the single-query block over int8 pools (paged_split_kernel's
+// kI8 instances): two stages of raw int8 K and V tiles, rows of D bytes
+// padded by 16 (so the 4-byte fragment reads of 8 keys x 4 lanes reach 32
+// banks), which a tile with tail rows overlays with one 16-bit K and V tile
+// (Layout's padded rows; its page rows' int8 bytes staged in place, at
+// kInPlaceAt of their own rows); then the f32 scores, the 16-bit p rows, m,
+// l and alpha of the kSingleRows query rows, and two stages of the tile's
+// 64 K and 64 V scales.
+template <int D>
+struct SingleI8 {
+  static constexpr int kLd8 = D + 16;
+  static constexpr int kTile8 = kTile * kLd8;
+  static constexpr int kStage = 2 * kTile8;  // K, then V
+  static constexpr int kS = 2 * kStage;
+  static constexpr int kP = kS + kSingleRows * kTile * 4;
+  static constexpr int kM = kP + kSingleRows * kPLd * 2;
+  static constexpr int kL = kM + kSingleRows * 4;
+  static constexpr int kAlpha = kL + kSingleRows * 4;
+  static constexpr int kSc = kAlpha + kSingleRows * 4;
+  static constexpr int kScStage = 2 * kTile * 4;
+  static constexpr int kBytes = kSc + 2 * kScStage;
+  static_assert(Layout<D>::kStageBytes <= kS, "the 16-bit tile fits the two int8 stages");
 };
 
 // paged_rows_kernel's shared memory at capacity D and nt row tiles: the
@@ -448,6 +484,64 @@ __device__ __forceinline__ void i8x16_convert_exact(const uint8_t* src, uint8_t*
   hi.w = i8x2_exact<kF16>(u[3], 2);
   reinterpret_cast<uint4*>(dst)[0] = lo;
   reinterpret_cast<uint4*>(dst)[1] = hi;
+}
+
+// Two int8 values, byte j (0-3) of a and byte j of b, whose sign bits were
+// flipped (w ^ 0x80808080: the byte is v + 128), as a pair of the 16-bit
+// type (a's in the low half), exact. bf16: each byte under 2^23 by a byte
+// permute, the bias taken off by an FADD (the f32 value's low 16 bits are
+// zero, so a permute packs the two bf16 halves); float16: both bytes under
+// 1024 by a permute and an AND-OR, the bias taken off by one HSUB2.
+template <bool kF16>
+__device__ __forceinline__ uint32_t i8_pair(uint32_t a, uint32_t b, int j) {
+  if constexpr (kF16) {
+    uint32_t h = (__byte_perm(a, b, j | ((j + 4) << 8)) & 0x00ff00ffu) | 0x64006400u;
+    __half2 x = __hsub2(*reinterpret_cast<__half2*>(&h), __floats2half2_rn(1152.f, 1152.f));
+    return *reinterpret_cast<uint32_t*>(&x);
+  } else {
+    const float x = __uint_as_float(__byte_perm(a, 0x4B00u, 0x5440 | j)) - 8388736.f;
+    const float y = __uint_as_float(__byte_perm(b, 0x4B00u, 0x5440 | j)) - 8388736.f;
+    return __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
+  }
+}
+
+// N consecutive int8 bytes at shared address addr (N = 1, 2, 4 or 8,
+// aligned to N), sign bits flipped: bytes 0-3 in .x, 4-7 in .y.
+template <int N>
+__device__ __forceinline__ uint2 lds_i8(uint32_t addr) {
+  uint2 w = make_uint2(0u, 0u);
+  if constexpr (N == 8) {
+    asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n" : "=r"(w.x), "=r"(w.y) : "r"(addr));
+  } else if constexpr (N == 4) {
+    w.x = lds32(addr);
+  } else if constexpr (N == 2) {
+    uint16_t h;
+    asm volatile("ld.shared.b16 %0, [%1];\n" : "=h"(h) : "r"(addr));
+    w.x = h;
+  } else {
+    uint16_t h;
+    asm volatile("ld.shared.u8 %0, [%1];\n" : "=h"(h) : "r"(addr));
+    w.x = h;
+  }
+  return make_uint2(w.x ^ 0x80808080u, w.y ^ 0x80808080u);
+}
+
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 w;
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n" : "=r"(w.x), "=r"(w.y) : "r"(addr));
+  return w;
+}
+
+__device__ __forceinline__ uint32_t lds16(uint32_t addr) {
+  uint16_t h;
+  asm volatile("ld.shared.b16 %0, [%1];\n" : "=h"(h) : "r"(addr));
+  return h;
+}
+
+__device__ __forceinline__ int lds_s8(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.s8 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -673,6 +767,42 @@ __device__ __forceinline__ void load_tile(const Params& p, const Live& live, int
   cp_commit();
 }
 
+// A page tile of the single-query block over int8 pools (every row below
+// tail0: page keys, or dead keys that arrive as zeros) into an int8 stage
+// (K at k8, V kTile8 bytes on), a live row's D bytes by 16-byte cp.async,
+// chunks past head_dim zero; its K and V scales to sc (V 256 bytes on; 0 on
+// dead rows).
+template <int D>
+__device__ __forceinline__ void load_i8_stage(const Params& p, const Live& live, int b, int kh,
+                                              int t0, uint32_t k8, uint32_t sc) {
+  using L = SingleI8<D>;
+  constexpr int kChunks = D / 16;
+  static_assert(kThreads == 2 * kTile, "one thread per K or V scale of a tile");
+  const int hd = p.head_dim;
+  const int* trow = p.table + (long)b * p.max_pages;
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int v = t0 + r;
+    const bool in = live.key(v) && 16 * c < hd;
+    const long off =
+        in ? ((page_of(p, trow, v) * p.kv_heads + kh) * p.page_size + v % p.page_size) * hd +
+                 16 * c
+           : 0;
+    cp_async16(k8 + r * L::kLd8 + 16 * c, p.k_i8 + off, in);
+    cp_async16(k8 + L::kTile8 + r * L::kLd8 + 16 * c, p.v_i8 + off, in);
+  }
+  const int r = threadIdx.x % kTile;
+  const bool is_v = threadIdx.x >= kTile;
+  const int v = t0 + r;
+  const bool ok = live.key(v);
+  const long off =
+      ok ? (page_of(p, trow, v) * p.kv_heads + kh) * p.page_size + v % p.page_size : 0;
+  cp_async4(sc + (is_v ? kTile * 4 : 0) + r * 4, (is_v ? p.v_scale : p.k_scale) + off, ok);
+  cp_commit();
+}
+
 // Merge: one block of D threads per (query row r, KV head kh, slot b); thread
 // d writes o[r, d], row r = qi * G + g being query qi's head kh * G + g. The
 // partials of every split with a key live for some row (the others wrote
@@ -730,17 +860,39 @@ __global__ void __launch_bounds__(D) paged_merge_kernel(const Params p) {
 // registers as rows 0-7 of the m16 A operand; four warps split each tile's
 // keys for q.k and its columns for p.V, the softmax one warp a row through
 // shared memory. Every call with more rows takes paged_rows_kernel.
+//
+// Over int8 pools (kI8) a page tile feeds both products from its raw int8
+// stage, each fragment widened in registers (no convert pass): q.k's
+// contraction is permuted alike in q and K (k16 step s takes, for column
+// pair t, dimensions 16 s + 4 t, + 1 as k 2t, 2t + 1 and 16 s + 4 t + 2, + 3
+// as k 2t + 8, 2t + 9), so one 4-byte read of a key row is a lane's B
+// fragment of a step, and q's A fragment one 8-byte read; p.V's output
+// columns are permuted (column n of the warp's n8 block j is dimension w D /
+// 4 + kNTiles n + j), so one read of kNTiles bytes of a V row gives a lane
+// its column in every block, two keys' bytes paired by a byte permute
+// (i8_pair). A tile with tail rows takes one 16-bit tile over both stages
+// (tail rows 16-bit, page rows' int8 bytes in place), loaded once the tile
+// before it is done; its fragments are read row by row from either.
+//
+// The least blocks an SM over int8 pools, three (two at D = 256, where three
+// would spill), caps its registers at 168 (255); the float instances name
+// none, as before.
+template <int D, bool kI8>
+constexpr int kSingleMinBlocks = !kI8 ? 0 : D == 256 ? 2 : 3;
+
 template <int D, bool kTail, bool kI8, bool kF16>
-__global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, kSingleMinBlocks<D, kI8>)
+    paged_split_kernel(const Params p) {
   using L = Layout<D>;
+  using LI = SingleI8<D>;
   constexpr int kKSteps = D / 16;       // q.k: 16 dimensions a product
   constexpr int kNTiles = D / 8 / kWarps;  // p.V: n8 column blocks a warp
   extern __shared__ __align__(16) uint8_t smem[];
-  float* ss = reinterpret_cast<float*>(smem + L::kS);
-  uint16_t* sp = reinterpret_cast<uint16_t*>(smem + L::kP);
-  float* sm = reinterpret_cast<float*>(smem + L::kM);
-  float* sl = reinterpret_cast<float*>(smem + L::kL);
-  float* salpha = reinterpret_cast<float*>(smem + L::kAlpha);
+  float* ss = reinterpret_cast<float*>(smem + (kI8 ? LI::kS : L::kS));
+  uint16_t* sp = reinterpret_cast<uint16_t*>(smem + (kI8 ? LI::kP : L::kP));
+  float* sm = reinterpret_cast<float*>(smem + (kI8 ? LI::kM : L::kM));
+  float* sl = reinterpret_cast<float*>(smem + (kI8 ? LI::kL : L::kL));
+  float* salpha = reinterpret_cast<float*>(smem + (kI8 ? LI::kAlpha : L::kAlpha));
   const uint32_t base = smem_addr(smem);
 
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
@@ -753,16 +905,35 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
   int cur = live.next(v0, v1);
   if (cur < 0) return;  // no live key: no partial (the merge weighs this split 0)
 
+  // int8 pools: a page tile (every row below tail0) comes into an int8
+  // stage; a tile with tail rows into the 16-bit tile over both stages.
+  bool page = kI8 && cur + kTile <= live.tail0;
+  if constexpr (kI8) {
+    if (page) {
+      load_i8_stage<D>(p, live, b, kh, cur, base, base + LI::kSc);
+    } else {
+      load_tile<D, true, true>(p, live, b, kh, cur, base, base + L::kTileBytes, 0u,
+                               base + LI::kSc);
+    }
+  }
   // q as the A fragments of every 16-dimension step (bf16 as stored; the
   // f32 scale multiplies the f32 sums), rows past the group count and steps
-  // past head_dim zero.
+  // past head_dim zero; over int8 pools in the permuted order, one 8-byte
+  // read a step.
   uint32_t qa[kKSteps][2];
   const uint32_t* qrow = reinterpret_cast<const uint32_t*>(p.q + (row0 + row) * hd);
 #pragma unroll
   for (int ks = 0; ks < kKSteps; ++ks) {
     const bool in = row < groups && 16 * ks < hd;
-    qa[ks][0] = in ? qrow[ks * 8 + quad] : 0u;
-    qa[ks][1] = in ? qrow[ks * 8 + 4 + quad] : 0u;
+    if constexpr (kI8) {
+      const uint2 w = in ? *reinterpret_cast<const uint2*>(qrow + ks * 8 + 2 * quad)
+                         : make_uint2(0u, 0u);
+      qa[ks][0] = w.x;
+      qa[ks][1] = w.y;
+    } else {
+      qa[ks][0] = in ? qrow[ks * 8 + quad] : 0u;
+      qa[ks][1] = in ? qrow[ks * 8 + 4 + quad] : 0u;
+    }
   }
   if (tid < L::kRows) {
     sm[tid] = kNegInf;
@@ -772,16 +943,31 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
 #pragma unroll
   for (int j = 0; j < kNTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  load_tile<D, kI8, false>(p, live, b, kh, cur, base, base + L::kTileBytes, base + L::kQ,
-                           base + L::kSc);
+  if constexpr (!kI8) {
+    load_tile<D, kI8, false>(p, live, b, kh, cur, base, base + L::kTileBytes, base + L::kQ,
+                             base + L::kSc);
+  }
   __syncthreads();  // m and l initialised
   for (int stage = 0; cur >= 0; stage ^= 1) {
     const int nxt = live.next(cur + kTile, v1);
     const uint32_t kb = base + stage * L::kStageBytes, vb = kb + L::kTileBytes;
     // int8 pools: this stage's K and V scales (0 on tail and dead rows)
-    const float* sks = reinterpret_cast<const float*>(smem + L::kSc + stage * L::kScStage);
+    const float* sks = reinterpret_cast<const float*>(
+        smem + (kI8 ? LI::kSc + stage * LI::kScStage : L::kSc + stage * L::kScStage));
     const float* svs = sks + kTile;
-    if (nxt >= 0) {
+    // int8 pools: the next tile is in flight during this one only if both
+    // are page tiles (a tile with tail rows takes both stages).
+    bool ahead = false;
+    if constexpr (kI8) {
+      ahead = page && nxt >= 0 && nxt + kTile <= live.tail0;
+      if (ahead) {
+        load_i8_stage<D>(p, live, b, kh, nxt, base + (stage ^ 1) * LI::kStage,
+                         base + LI::kSc + (stage ^ 1) * LI::kScStage);
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+    } else if (nxt >= 0) {
       const int ns = stage ^ 1;
       const uint32_t nb = base + ns * L::kStageBytes;
       load_tile<D, kI8, false>(p, live, b, kh, nxt, nb, nb + L::kTileBytes,
@@ -791,35 +977,58 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
       cp_wait<0>();
     }
     __syncthreads();  // the tile's K and V (int8: raw pages and scales) are in shared memory
-    if (kI8) {
-      // The page rows' int8 values into the bf16 tiles.
-      constexpr int kChunksI8 = D / 16;
-      uint8_t* kt = smem + stage * L::kStageBytes;
-      const uint8_t* qk = smem + L::kQ + stage * L::kQStage;
-#pragma unroll
-      for (int i = 0; i < kTile * kChunksI8 / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int r = idx / kChunksI8, c = idx % kChunksI8;
-        const int v = cur + r;
-        if (live.key(v) && v < live.tail0) {
-          i8x16_convert<kF16>(qk + r * D + c * 16, kt + r * L::kLd + c * 32);
-          i8x16_convert<kF16>(qk + L::kQTile + r * D + c * 16,
-                              kt + L::kTileBytes + r * L::kLd + c * 32);
-        }
-      }
-      __syncthreads();
-    }
+    // int8 pools: the stage's raw tiles, or the 16-bit tile (K at base, V
+    // kTileBytes on) of a tile with tail rows.
+    const uint32_t k8 = base + stage * LI::kStage, v8 = k8 + LI::kTile8;
+    auto int8_row = [&](int r) { return live.key(cur + r) && cur + r < live.tail0; };
 
     // Scores of warp w's 16 keys (two n8 blocks), times the scale in f32;
     // keys dead for the row get the finite mask value.
     {
       float c[2][4] = {};
+      if constexpr (kI8) {
+        if (page) {
 #pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
+          for (int ks = 0; ks < kKSteps; ++ks) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const uint32_t at = kb + (16 * warp + 8 * j + row) * L::kLd + ks * 32 + quad * 4;
-          mma16816<kF16>(c[j], qa[ks][0], qa[ks][1], lds32(at), lds32(at + 16));
+            for (int j = 0; j < 2; ++j) {
+              const uint32_t u =
+                  lds32(k8 + (16 * warp + 8 * j + row) * LI::kLd8 + ks * 16 + quad * 4) ^
+                  0x80808080u;
+              mma16816<kF16>(c[j], qa[ks][0], qa[ks][1], i8x2_exact<kF16>(u, 0),
+                             i8x2_exact<kF16>(u, 2));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int r = 16 * warp + 8 * j + row;
+            const uint32_t at = base + r * L::kLd;
+            const bool i8 = int8_row(r);
+#pragma unroll
+            for (int ks = 0; ks < kKSteps; ++ks) {
+              uint32_t b0, b1;
+              if (i8) {
+                const uint32_t u = lds32(at + L::kInPlaceAt + ks * 16 + quad * 4) ^ 0x80808080u;
+                b0 = i8x2_exact<kF16>(u, 0);
+                b1 = i8x2_exact<kF16>(u, 2);
+              } else {
+                const uint2 w = lds64(at + (ks * 16 + quad * 4) * 2);
+                b0 = w.x;
+                b1 = w.y;
+              }
+              mma16816<kF16>(c[j], qa[ks][0], qa[ks][1], b0, b1);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint32_t at = kb + (16 * warp + 8 * j + row) * L::kLd + ks * 32 + quad * 4;
+            mma16816<kF16>(c[j], qa[ks][0], qa[ks][1], lds32(at), lds32(at + 16));
+          }
         }
       }
       if (row < groups) {
@@ -875,41 +1084,109 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Params p) {
         acc[j][0] *= alpha;
         acc[j][1] *= alpha;
       }
-      const uint32_t pa = base + L::kP + row * kPLd * 2 + quad * 4;
+      const uint32_t pa = base + (kI8 ? LI::kP : L::kP) + row * kPLd * 2 + quad * 4;
+      // int8 pools: the lane's column of each n8 block (permuted)
+      const int col = warp * (D / 4) + kNTiles * row;
 #pragma unroll
       for (int ks = 0; ks < kTile / 16; ++ks) {
         const uint32_t a0 = row < groups ? lds32(pa + ks * 32) : 0u;
         const uint32_t a1 = row < groups ? lds32(pa + ks * 32 + 16) : 0u;
-        // lane l: row (key) 16 ks + 8 ((l / 8) % 2) + l % 8, columns + 8 (l / 16)
-        const uint32_t va = vb + (16 * ks + (lane & 15)) * L::kLd +
-                            (warp * kNTiles * 8 + 8 * (lane >> 4)) * 2;
+        if constexpr (kI8) {
+          // keys 16 ks + 2 quad, + 1 (b0) and + 8, + 9 (b1)
+          const int k0 = 16 * ks + 2 * quad;
+          if (page) {
+            uint2 u[4];
 #pragma unroll
-        for (int j = 0; j < kNTiles; j += 2) {
-          uint32_t bf[4];
-          if (j + 1 < kNTiles) {
-            ldsm_x4_trans(va + j * 16, bf);
-            mma16816<kF16>(acc[j], a0, a1, bf[0], bf[1]);
-            mma16816<kF16>(acc[j + 1], a0, a1, bf[2], bf[3]);
-          } else {  // an odd last column block (D = 32: the warp's only one)
-            ldsm_x2_trans(va + j * 16, bf);
-            mma16816<kF16>(acc[j], a0, a1, bf[0], bf[1]);
+            for (int e = 0; e < 4; ++e) {
+              u[e] = lds_i8<kNTiles>(v8 + (k0 + (e & 1) + 8 * (e >> 1)) * LI::kLd8 + col);
+            }
+#pragma unroll
+            for (int j = 0; j < kNTiles; ++j) {
+              const bool hi = j >= 4;
+              mma16816<kF16>(acc[j], a0, a1,
+                             i8_pair<kF16>(hi ? u[0].y : u[0].x, hi ? u[1].y : u[1].x, j & 3),
+                             i8_pair<kF16>(hi ? u[2].y : u[2].x, hi ? u[3].y : u[3].x, j & 3));
+            }
+          } else {
+            // A tile with tail rows, value by value: a page row's int8 byte
+            // (in place) widened, or a tail or dead row's 16-bit value.
+            auto v16 = [&](int k, int j) -> uint32_t {
+              const uint32_t at = base + L::kTileBytes + k * L::kLd;
+              if (int8_row(k)) {
+                return to_bits<kF16>(static_cast<float>(lds_s8(at + L::kInPlaceAt + col + j)));
+              }
+              return lds16(at + (col + j) * 2);
+            };
+#pragma unroll
+            for (int j = 0; j < kNTiles; ++j) {
+              mma16816<kF16>(acc[j], a0, a1, v16(k0, j) | (v16(k0 + 1, j) << 16),
+                             v16(k0 + 8, j) | (v16(k0 + 9, j) << 16));
+            }
+          }
+        } else {
+          // lane l: row (key) 16 ks + 8 ((l / 8) % 2) + l % 8, columns + 8 (l / 16)
+          const uint32_t va = vb + (16 * ks + (lane & 15)) * L::kLd +
+                              (warp * kNTiles * 8 + 8 * (lane >> 4)) * 2;
+#pragma unroll
+          for (int j = 0; j < kNTiles; j += 2) {
+            uint32_t bf[4];
+            if (j + 1 < kNTiles) {
+              ldsm_x4_trans(va + j * 16, bf);
+              mma16816<kF16>(acc[j], a0, a1, bf[0], bf[1]);
+              mma16816<kF16>(acc[j + 1], a0, a1, bf[2], bf[3]);
+            } else {  // an odd last column block (D = 32: the warp's only one)
+              ldsm_x2_trans(va + j * 16, bf);
+              mma16816<kF16>(acc[j], a0, a1, bf[0], bf[1]);
+            }
           }
         }
       }
     }
     __syncthreads();  // this stage's buffers, the scores and p are free again
+    if constexpr (kI8) {
+      if (!ahead && nxt >= 0) {  // a tile with tail rows: after this one
+        load_tile<D, true, true>(p, live, b, kh, nxt, base, base + L::kTileBytes, 0u,
+                                 base + LI::kSc + (stage ^ 1) * LI::kScStage);
+      }
+      page = ahead;
+    }
     cur = nxt;
   }
 
   // The split's partial: m and l per row, acc (its columns below head_dim).
+  // Over int8 pools the lane's acc holds dimensions w D / 4 + 2 quad kNTiles
+  // .. + 2 kNTiles - 1 in order (columns 2 quad of its blocks, then 2 quad +
+  // 1), a run that head_dim (a multiple of 16) holds whole or not at all.
   const long part = ((long)b * p.kv_heads + kh) * p.n_split + split;
   if (row < groups) {
+    if constexpr (kI8) {
+      const int col0 = warp * (D / 4) + 2 * quad * kNTiles;
+      if (col0 < hd) {
+        float run[2 * kNTiles];
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      const int col = warp * kNTiles * 8 + 8 * j + 2 * quad;
-      if (col < hd) {
-        *reinterpret_cast<float2*>(p.part_acc + (part * groups + row) * hd + col) =
-            make_float2(acc[j][0], acc[j][1]);
+        for (int j = 0; j < kNTiles; ++j) {
+          run[j] = acc[j][0];
+          run[kNTiles + j] = acc[j][1];
+        }
+        float* dst = p.part_acc + (part * groups + row) * hd + col0;
+        if constexpr (kNTiles == 1) {
+          *reinterpret_cast<float2*>(dst) = make_float2(run[0], run[1]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 2 * kNTiles; i += 4) {
+            *reinterpret_cast<float4*>(dst + i) =
+                make_float4(run[i], run[i + 1], run[i + 2], run[i + 3]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+        const int col = warp * kNTiles * 8 + 8 * j + 2 * quad;
+        if (col < hd) {
+          *reinterpret_cast<float2*>(p.part_acc + (part * groups + row) * hd + col) =
+              make_float2(acc[j][0], acc[j][1]);
+        }
       }
     }
   }
@@ -1232,7 +1509,7 @@ int launch_merge(const Params& p, int batch, cudaStream_t stream) {
 template <int D, bool kTail, bool kI8, bool kF16>
 int launch_single(const Params& p, int batch, cudaStream_t stream) {
   static bool prepared = false;
-  constexpr int kSmem = kI8 ? Layout<D>::kBytesI8 : Layout<D>::kBytes;
+  constexpr int kSmem = kI8 ? SingleI8<D>::kBytes : Layout<D>::kBytes;
   auto kernel = paged_split_kernel<D, kTail, kI8, kF16>;
   if (!prepared) {
     const cudaError_t err =

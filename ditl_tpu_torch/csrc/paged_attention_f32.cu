@@ -17,10 +17,10 @@
 // The bf16, float16 and bf16/float16-over-int8 kernels (paged_attention.cu)
 // stay as they are.
 //
-// Two kernels. K3-f32, K3-int8-f32 and K3-int8-f32-verify run the
-// tensor-core kernel, paged_mma_f32_kernel (3xTF32 mma.sync, below); K3-f32's
-// verify and K4-f32 the FFMA kernel, paged_split_f32_kernel. Both share the
-// grid, the walk over a split's tiles, the merge and every rule below.
+// One split kernel and one merge: every form runs the tensor-core kernel,
+// paged_mma_f32_kernel (3xTF32 mma.sync, below), then paged_merge_f32_kernel.
+// K3-f32's verify and K4-f32 ran an FFMA kernel of their own until they
+// moved onto it (PERF.md §6).
 //
 // Bound on the card: bytes. K3-f32 must read each live key's K and V once
 // per slot that reads it (2 * K * D * 4 bytes per key in f32, twice the bf16
@@ -32,8 +32,8 @@
 // G = 16 over int8 pools. What counts is keeping enough bytes in flight and
 // enough blocks on an SM to overlap each block's chain of waits.
 //
-// Grid and walk (both kernels): the bf16 template's split structure, its
-// rules and its merge.
+// Grid and walk: the bf16 template's split structure, its rules and its
+// merge.
 // - The grid is (split, KV head and row group, slot), a split being `split`
 //   positions (ops/paged_attention.py SPLIT_KEYS, a multiple of the 64-key
 //   tile) of the slot's axis of max_pages * page_size page positions
@@ -41,21 +41,11 @@
 //   so the wrapper reads nothing back from the card. A block whose split
 //   holds no live key stops at once and writes nothing; the merge gives it
 //   no weight.
-// - Inside a split, one 128-thread block walks its live 64-key tiles
-//   (skipping tiles with no live column) with an online softmax, one warp
-//   per query row, in f32.
+// - Inside a split, a block walks its live 64-key tiles (skipping tiles with
+//   no live column) with an online softmax in f32.
 // - Each block writes its partial (m and l per query row, f32 acc); a second
 //   kernel, one block per (query row, KV head, slot), merges the partials in
 //   split order, so two calls give the same bits.
-//
-// The FFMA kernel (K3-f32-verify, K4-f32): the next tile's K and V in flight
-// by cp.async while the current one is computed (two stages; rows padded by
-// 16 bytes; dead rows zero-filled by the copy itself). q.k: thread t takes
-// key t % 64 and, in blocks of four query rows, every other block from t /
-// 64: each float4 of its K row feeds four rows' FMAs, q's rows read as
-// broadcasts. p.V: thread t takes four output columns (a float4 of each V
-// row) of the rows t / (D / 4) + k * (512 / D); its accumulators rescale by
-// the row's alpha in registers. The verify's rows are r = qi * G + g.
 //
 // Rules kept from the bf16 template: the tail is read only when lengths >
 // starts (the Pallas kernel's _tail gate); query qi sees tail column j when
@@ -64,8 +54,8 @@
 // out-of-range page ids clamp into the pool; a tile (and a split) is
 // processed when any row has a live key in it, and a row with nothing live
 // in a split keeps m at the mask value and weighs 0 in the merge (tested
-// explicitly). ops/paged_attention.py::paged_attention_split_plain is this
-// kernel's twin in f32.
+// explicitly). ops/paged_attention.py::paged_attention_split_plain is the
+// kernels' twin in f32.
 //
 // Over int8 pools (variant F). Bound at the decode tick: 8.9 MB of int8
 // K/V plus 0.28 MB of scales and the f32 tail, q and o, about 2.8 us at
@@ -77,22 +67,24 @@
 // Routing it through the bf16 int8 kernel would round q to bf16, far
 // outside f32's tolerance.
 //
-// The tensor-core kernel, paged_mma_f32_kernel<D, kF32, kMT>: paged_attention.cu's
-// K3-int8 design with f32 numerics; the single query over int8 pools first,
-// then the verify over int8 pools and K3-f32 over f32 pools moved onto it
-// (their first forms ran both products on FFMA, with one block of four warps
-// an SM: 2.4-3.2% of the verify's bound, 22% of K3-f32's; H100 SXM, 700 W).
+// The tensor-core kernel, paged_mma_f32_kernel<D, kF32, kMT, kTail>:
+// paged_attention.cu's K3-int8 design with f32 numerics; the single query
+// over int8 pools first, then the verify over int8 pools and K3-f32 over f32
+// pools, then K3-f32's verify and K4-f32 (kTail false) moved onto it (their
+// first forms ran both products on FFMA: 2.4-3.2% of the verify's bound, 22%
+// of K3-f32's; H100 SXM, 700 W; PERF.md §6).
 // - Rows: kMT m16 row tiles of the n_q G rows r = qi G + g a block, one
 //   warpgroup (four warps) a row tile, so a block of kMT row tiles is 128
 //   kMT threads; the first warpgroup copies the tiles, and each K and V tile
 //   in shared memory serves every row tile (one copy from device memory
-//   where kMT one-tile blocks would make kMT). The single queries take one
-//   row tile (G > 16 in groups of 16 side by side), and so does a verify
-//   over int8 pools of at most 16 rows; past 16 rows the verify takes
-//   kVerifyRowTiles (2) row tiles a block, more blocks side by side (path
-//   11's spec tick, 36 rows: two blocks, of two row tiles and of one with
-//   its second warpgroup idle; path 16's 144 rows: five). A row tile past
-//   the block's rows computes nothing. Scores mask by each row's tail
+//   where kMT one-tile blocks would make kMT). The single queries (K3-f32,
+//   K4-f32, K3-int8-f32) take one row tile (G > 16 in groups of 16 side by
+//   side), and so does a verify of at most 16 rows. Past 16 rows the verify
+//   over int8 pools takes kVerifyRowTiles (2) row tiles a block, more
+//   blocks side by side (path 11's spec tick, 36 rows: two blocks, of two
+//   row tiles and of one with its second warpgroup idle; path 16's 144
+//   rows: five); over f32 pools f32_verify_row_tiles (below). A row tile
+//   past the block's rows computes nothing. Scores mask by each row's tail
 //   limit.
 // - Over int8 pools, small staging tiles. A page tile (every row below the
 //   tail) comes by 16-byte cp.async into two stages of raw int8 tiles, D +
@@ -105,15 +97,17 @@
 //   as only the axis's last tiles hold tail rows. Block bytes at D = 32 /
 //   64 / 128 / 256: one row tile 34 / 47 / 71 / 120 KB, two 51 / 67 / 100 /
 //   166 KB.
-// - Over f32 pools (K3-f32), f32 page tiles: one K tile and one V tile of
+// - Over f32 pools (K3-f32, its verify, K4-f32), f32 tiles: one K tile and one V tile of
 //   64 keys, D + 8 floats a row (35 KB each at D = 128), every live row,
 //   page or tail, by 16-byte cp.async from a row id that 64 threads take
 //   once a tile (f32_row: the table read and the divisions once a row, not
 //   once a 16-byte copy). A tile's V rows load during its q.k, the next
 //   tile's K rows once q.k is done (during the softmax and p.V), its V rows
-//   once p.V is done. Block bytes at D = 32 / 64 / 128 / 256: 37 / 58 / 99
-//   / 181 KB, six / three / two / one blocks an SM (at D = 256 one block an
-//   SM is all that fits).
+//   once p.V is done. Block bytes at D = 32 / 64 / 128 / 256: one row tile
+//   37 / 58 / 99 / 181 KB, six / three / two / one blocks an SM (at D = 256
+//   one block an SM is all that fits); three row tiles 71 / 100 / 157 KB up
+//   to D = 128, two 227 KB at D = 256 (the verify's only instances past one
+//   row tile).
 // - Both products on the tensor cores (mma.sync.m16n8k8.tf32), 3xTF32: a
 //   row tile's 16 query rows (zero-padded) are the m16 A operand. q is split
 //   once a block into TF32 hi and lo = q - hi (flash_f32.cu's split_tf32) A
@@ -152,29 +146,20 @@
 // chunks past head_dim are zero-filled in shared memory, so they add exact
 // zeros to q.k and zero columns to acc, which are never stored (the
 // partials, the merge with head_dim threads and o take the true stride);
-// the scale is the caller's head_dim**-0.5. In the FFMA kernel at D = 256
-// a stage of K and V tiles is 130 KB, so the block keeps one stage
-// (Layout::kStages = 1: the next tile loads once the current one is done, no
-// overlap), and the p.V split's two row sets of 64 float4 columns would give
-// an 80-row verify 160 accumulators a thread beside its q rows' 83 KB: a
-// block takes at most 48 rows there (kBlockRows).
-// Row groups: a call with more rows than a block takes (an FFMA verify past
-// 80 rows, or 48 at D = 256; Llama-3.1-405B's G = 16 at spec_k = 8 is 144)
-// runs ceil(rows / rows a block) blocks side by side (blockIdx.y: KV head,
-// then row group), each walking the split's tiles for its rows (each
-// re-reads the split's K and V); their partials land in the same workspace
-// rows the merge reads. K4-f32 with G > 8 takes the FFMA kernel's 16-, 48-
-// or 80-row instances with n_q = 1.
-// ptxas -v (sm_90a) with the run-time head_dim, FFMA kernel: D = 32 and 64
-// 56-128 registers (4 bytes spilled at D = 32, 80 rows); D = 128 K4 96, 16 /
-// 48 / 80 rows 128 / 190 / 198 (K4 128 / 168 / 184, 12 bytes spilled at 48);
-// D = 256 K4 206, 16 / 48 rows 206 / 255 with 132 bytes spilled (K4 202 /
-// 255 and 128 bytes); merge 48-145. paged_mma_f32_kernel, no spills: over
-// int8 pools 126 / 118 / 120 / 164 registers at D = 32 / 64 / 128 / 256
-// with one row tile (its first form, as its own kernel, 124 / 128 / 127 /
-// 164), 128 / 124 / 127 / 188 with two; over f32 pools 72 / 96 / 120 /
-// 163. Blocks an SM (shared memory and registers): int8 one row tile 4 / 4
-// / 3 / 1, two 2 / 2 / 2 / 1; f32 6 / 3 / 2 / 1.
+// the scale is the caller's head_dim**-0.5.
+// Row groups: a call with more rows than a block takes (Llama-3.1-405B's G
+// = 16 at spec_k = 8 is 144) runs ceil(rows / 16 kMT) blocks side by side
+// (blockIdx.y: KV head, then row group), each walking the split's tiles for
+// its rows (each re-reads the split's K and V); their partials land in the
+// same workspace rows the merge reads.
+// ptxas -v (sm_90a) with the run-time head_dim, no spills: over int8 pools
+// 126 / 118 / 120 / 164 registers at D = 32 / 64 / 128 / 256 with one row
+// tile (its first form, as its own kernel, 124 / 128 / 127 / 164), 128 /
+// 124 / 127 / 188 with two; over f32 pools one row tile 72 / 96 / 120 /
+// 163 (K4-f32, kTail false: 72 / 98 / 118 / 161), three 72 / 96 / 123 up
+// to D = 128, two 166 at D = 256; merge 48-145. Blocks an SM (shared memory
+// and registers): int8 one row tile 4 / 4 / 3 / 1, two 2 / 2 / 2 / 1; f32
+// one row tile 6 / 3 / 2 / 1, three 2 / 1 / 1, two 1 at D = 256.
 //
 // Semantics, the reference's in f32: scores are the f32 q.k sums times the
 // scale; masked columns of a processed tile take the finite -2.3819763e38;
@@ -195,8 +180,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;          // keys per tile; two per lane in the softmax
-constexpr int kSingleRows = 8;     // the single-query form's block: G <= 8 rows
-constexpr int kMaxRows = 80;       // query rows (Q * G) of one block; more run side by side
 constexpr int kMergeBatch = 32;    // merge: splits whose acc values are loaded at once
 constexpr int kMaxSplits = 6144;   // the merge's m and l: 48 KB of shared memory
 constexpr float kNegInf = -2.3819763e38f;  // ops/attention.py NEG_INF
@@ -223,32 +206,6 @@ struct Params {
   const float* v_scale;
   int head_dim;          // the rows' true width: a multiple of 16, <= the instance's D
 };
-
-// Shared memory of a split block with up to kR query rows, in floats:
-// kStages stages of (K, V) tiles with rows padded by 16 bytes, q's rows
-// padded the same way, the scores (then p) of kR rows, and m, l, alpha per
-// row. Two stages at D <= 128; one at D = 256, where a stage alone is 130
-// KB: its next tile loads after the current one is done. D is the
-// instance's capacity (columns past head_dim hold zeros).
-template <int D, int kR>
-struct Layout {
-  static constexpr int kStages = D == 256 ? 1 : 2;
-  static constexpr int kLd = D + 4;
-  static constexpr int kTileF = kTile * kLd;
-  static constexpr int kQ = 2 * kStages * kTileF;
-  static constexpr int kS = kQ + kR * kLd;
-  static constexpr int kM = kS + kR * kTile;
-  static constexpr int kL = kM + kR;
-  static constexpr int kAlpha = kL + kR;
-  static constexpr int kBytes = (kAlpha + kR) * 4;
-  static_assert(kBytes <= kMaxSmem, "shared memory of a block");
-};
-
-// The most query rows one block takes at D: 80, or 48 at D = 256 (its
-// accumulators and its q rows); a verify with more rows runs ceil(rows /
-// kR) blocks of rows side by side, each walking the split's tiles.
-template <int D>
-constexpr int kBlockRows = D == 256 ? 48 : kMaxRows;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -342,43 +299,6 @@ __device__ __forceinline__ bool int8_row(const Live& live, int v) {
   return live.key(v) && v < live.tail0;
 }
 
-// K and V of the tile at t0 into a stage (kb: K, kb + kTileF: V), 16 bytes
-// a copy; dead rows arrive as zeros. Rows are head_dim wide in device
-// memory; their chunks past head_dim arrive as zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(const Params& p, const Live& live, int b, int kh,
-                                          int t0, float* kb) {
-  constexpr int kChunks = D / 4;
-  constexpr int kLd = D + 4;
-  const int hd = p.head_dim;
-  const int* trow = p.table + (long)b * p.max_pages;
-#pragma unroll
-  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int v = t0 + r;
-    // Dead rows and chunks past head_dim read nothing; their address is any
-    // valid one.
-    const bool in = live.key(v) && 4 * c < hd;
-    const float* ks = p.k_pages;
-    const float* vs = p.v_pages;
-    long off = 0;
-    if (in) {
-      if (v < live.tail0) {
-        const long page = min(max(trow[v / p.page_size], 0), p.n_pool - 1);
-        off = ((page * p.kv_heads + kh) * p.page_size + v % p.page_size) * hd + 4 * c;
-      } else {
-        ks = p.tail_k;
-        vs = p.tail_v;
-        off = (((long)b * p.kv_heads + kh) * p.tail_len + (v - live.tail0)) * hd + 4 * c;
-      }
-    }
-    cp_async16(kb + r * kLd + 4 * c, ks + off, in);
-    cp_async16(kb + kTile * kLd + r * kLd + 4 * c, vs + off, in);
-  }
-  cp_commit();
-}
-
 // Merge: one block of D threads per (query row r, KV head kh, slot b), as
 // paged_attention.cu's: the partials of every split with a key live for
 // some row are summed in split order; a partial whose m is the mask value
@@ -421,171 +341,6 @@ __global__ void __launch_bounds__(D) paged_merge_f32_kernel(const Params p) {
   const int qi = r / p.groups, g = r % p.groups;
   const long orow = ((long)b * p.n_q + qi) * p.kv_heads * p.groups + (long)kh * p.groups + g;
   p.o[orow * hd + d] = o;
-}
-
-// One split of one (KV head, slot) for up to kR query rows (8: K4-f32's
-// single query, G <= 8 rows; 16, 48 or 80: the verify's Q * G rows, or
-// K4-f32's G > 8 rows).
-template <int D, bool kTail, int kR>
-__global__ void __launch_bounds__(kThreads) paged_split_f32_kernel(const Params p) {
-  using L = Layout<D, kR>;
-  constexpr int kLd = L::kLd;
-  constexpr int kCols = D / 4;                // float4 column groups of a row
-  constexpr int kRowSets = kThreads / kCols;  // p.V: row sets (4 at D = 128, 8 at 64)
-  static_assert(kR <= kBlockRows<D>, "rows of one block");
-  constexpr int kRowsPT = (kR + kRowSets - 1) / kRowSets;
-  extern __shared__ __align__(16) float smem[];
-  float* qsm = smem + L::kQ;
-  float* ss = smem + L::kS;
-  float* sm = smem + L::kM;
-  float* sl = smem + L::kL;
-  float* salpha = smem + L::kAlpha;
-
-  // blockIdx.y: the KV head, then the block's group of kR query rows (one
-  // group unless Q * G > kR): rows row0 + r, r < rows, of the Q * G.
-  const int split = blockIdx.x, kh = blockIdx.y % p.kv_heads, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int groups = p.groups, hd = p.head_dim;
-  const int all_rows = p.n_q * groups;
-  const int row0 = blockIdx.y / p.kv_heads * kR;
-  const int rows = min(kR, all_rows - row0);
-  const Live live = slot_live<kTail>(p, b);
-  const int v0 = split * p.split, v1 = min(v0 + p.split, live.end);
-  int cur = live.next(v0, v1);
-  if (cur < 0) return;  // no live key: no partial (the merge weighs this split 0)
-
-  // q's rows (r = qi * G + g) into shared memory, committed with the first
-  // tile; rows past the block's and chunks past head_dim zero.
-  {
-    const long heads = (long)p.kv_heads * groups;
-    for (int idx = tid; idx < kR * kCols; idx += kThreads) {
-      const int r = idx / kCols, c = idx % kCols;
-      const bool ok = r < rows && 4 * c < hd;
-      const int rr = row0 + r;
-      const long qrow =
-          ok ? ((long)b * p.n_q + rr / groups) * heads + (long)kh * groups + rr % groups : 0;
-      cp_async16(qsm + r * kLd + 4 * c, p.q + qrow * hd + 4 * c, ok);
-    }
-  }
-  for (int r = tid; r < kR; r += kThreads) {
-    sm[r] = kNegInf;
-    sl[r] = 0.f;
-  }
-  const int c4 = tid % kCols, rset = tid / kCols;
-  float acc[kRowsPT][4];
-#pragma unroll
-  for (int i = 0; i < kRowsPT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  load_tile<D>(p, live, b, kh, cur, smem);
-  __syncthreads();  // m and l initialised
-  const int key = tid & (kTile - 1), half = tid / kTile;
-  for (int stage = 0; cur >= 0; stage = (stage + 1) % L::kStages) {
-    const int nxt = live.next(cur + kTile, v1);
-    const float* kb = smem + stage * 2 * L::kTileF;
-    const float* vb = kb + L::kTileF;
-    if (L::kStages == 2 && nxt >= 0) {
-      load_tile<D>(p, live, b, kh, nxt, smem + (stage ^ 1) * 2 * L::kTileF);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();  // the tile's K and V (and q) are in shared memory
-
-    // Scores of key `key` for row blocks half, half + 2, ...: four rows a
-    // block, times the scale in f32; columns dead for the row get the finite
-    // mask value.
-    const float* krow = kb + key * kLd;
-    for (int r0 = 4 * half; r0 < rows; r0 += 8) {
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int d = 0; d < D; d += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(krow + d);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float4 qv = *reinterpret_cast<const float4*>(qsm + (r0 + e) * kLd + d);
-          a[e] = fmaf(qv.x, kv.x, a[e]);
-          a[e] = fmaf(qv.y, kv.y, a[e]);
-          a[e] = fmaf(qv.z, kv.z, a[e]);
-          a[e] = fmaf(qv.w, kv.w, a[e]);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + e;
-        if (r < rows) {
-          const int te = live.row_end((row0 + r) / groups);
-          const float sc = a[e] * p.scale;
-          ss[r * kTile + key] = live.key_row(cur + key, te) ? sc : kNegInf;
-        }
-      }
-    }
-    __syncthreads();
-
-    // Online softmax, one warp per query row; p over the scores.
-    for (int r = warp; r < rows; r += kWarps) {
-      const float s0 = ss[r * kTile + lane];
-      const float s1 = ss[r * kTile + lane + 32];
-      const float m_prev = sm[r];
-      const float m_next = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_next);
-      const float p1 = expf(s1 - m_next);
-      const float rs = warp_sum(p0 + p1);
-      ss[r * kTile + lane] = p0;
-      ss[r * kTile + lane + 32] = p1;
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_next);
-        salpha[r] = alpha;
-        sl[r] = alpha * sl[r] + rs;
-        sm[r] = m_next;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p.V for this thread's rows and four columns (dead
-    // keys: p = 0 and V zero-filled).
-#pragma unroll
-    for (int i = 0; i < kRowsPT; ++i) {
-      const int r = rset + kRowSets * i;
-      const float alpha = r < rows ? salpha[r] : 0.f;
-      acc[i][0] *= alpha;
-      acc[i][1] *= alpha;
-      acc[i][2] *= alpha;
-      acc[i][3] *= alpha;
-    }
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      const float4 vv = *reinterpret_cast<const float4*>(vb + j * kLd + 4 * c4);
-#pragma unroll
-      for (int i = 0; i < kRowsPT; ++i) {
-        const int r = rset + kRowSets * i;
-        if (r < rows) {
-          const float pr = ss[r * kTile + j];
-          acc[i][0] = fmaf(pr, vv.x, acc[i][0]);
-          acc[i][1] = fmaf(pr, vv.y, acc[i][1]);
-          acc[i][2] = fmaf(pr, vv.z, acc[i][2]);
-          acc[i][3] = fmaf(pr, vv.w, acc[i][3]);
-        }
-      }
-    }
-    __syncthreads();  // this stage's buffers and the scores are free again
-    if (L::kStages == 1 && nxt >= 0) load_tile<D>(p, live, b, kh, nxt, smem);
-    cur = nxt;
-  }
-
-  // The split's partial: m and l per row, acc (its columns below head_dim).
-  const long part = ((long)b * p.kv_heads + kh) * p.n_split + split;
-#pragma unroll
-  for (int i = 0; i < kRowsPT; ++i) {
-    const int r = rset + kRowSets * i;
-    if (r < rows && 4 * c4 < hd) {
-      *reinterpret_cast<float4*>(p.part_acc + (part * all_rows + row0 + r) * hd + 4 * c4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    }
-  }
-  for (int r = tid; r < rows; r += kThreads) {
-    p.part_ml[(part * all_rows + row0 + r) * 2] = sm[r];
-    p.part_ml[(part * all_rows + row0 + r) * 2 + 1] = sl[r];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -845,13 +600,15 @@ __device__ __forceinline__ void frag_u32(const float4& x, uint32_t (&a)[4]) {
 // copies the tiles; the K and V tiles in shared memory serve every row
 // tile.
 //
-// The least blocks an SM in the launch bounds: two for two row tiles at D
-// <= 128; none (0) for one row tile over int8 pools, as its first form
-// named none (a count of 1 gives it up to 32 more registers, one block an
-// SM fewer at D = 32 and 64); one for K3-f32's instance.
-template <int D, bool kF32, int kMT>
+// The least blocks an SM in the launch bounds: over int8 pools two for two
+// row tiles at D <= 128, none (0) for one row tile, as its first form named
+// none (a count of 1 gives it up to 32 more registers, one block an SM fewer
+// at D = 32 and 64); over f32 pools one (three row tiles take 157 KB at D =
+// 128 and two 227 KB at D = 256, so one block is all that fits). kTail false:
+// K4-f32, no tail (p.starts is never read).
+template <int D, bool kF32, int kMT, bool kTail>
 __global__ void __launch_bounds__(kThreads * kMT,
-                                  kMT == 2 && D <= 128 ? 2 : kMT == 2 || kF32 ? 1 : 0)
+                                  !kF32 && kMT == 2 && D <= 128 ? 2 : kMT >= 2 || kF32 ? 1 : 0)
     paged_mma_f32_kernel(const Params p) {
   using L = MmaLayout<D, kF32, kMT>;
   constexpr int kNT = D / 32;                 // p.V: n8 column blocks a warp (D / 4 columns)
@@ -887,7 +644,7 @@ __global__ void __launch_bounds__(kThreads * kMT,
   const int row0 = blockIdx.y / p.kv_heads * L::kRows;
   const int rows = min(L::kRows, all_rows - row0);
   const bool busy = kMT == 1 || kMmaRows * mt < rows;  // the warp's row tile holds rows
-  const Live live = slot_live<true>(p, b);
+  const Live live = slot_live<kTail>(p, b);
   const int v0 = split * p.split, v1 = min(v0 + p.split, live.end);
   int cur = live.next(v0, v1);
   if (cur < 0) return;  // no live key: no partial (the merge weighs this split 0)
@@ -1291,11 +1048,11 @@ __global__ void __launch_bounds__(kThreads * kMT,
   }
 }
 
-template <int D, bool kF32, int kMT>
+template <int D, bool kF32, int kMT, bool kTail>
 int launch_mma(const Params& p, int batch, cudaStream_t stream) {
   static bool prepared = false;
   constexpr int kSmem = MmaLayout<D, kF32, kMT>::kBytes;
-  auto kernel = paged_mma_f32_kernel<D, kF32, kMT>;
+  auto kernel = paged_mma_f32_kernel<D, kF32, kMT, kTail>;
   if (!prepared) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -1306,52 +1063,51 @@ int launch_mma(const Params& p, int batch, cudaStream_t stream) {
   const int row_groups = (p.n_q * p.groups + kRows - 1) / kRows;
   kernel<<<dim3(p.n_split, p.kv_heads * row_groups, batch), kThreads * kMT, kSmem, stream>>>(p);
   if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  paged_merge_f32_kernel<D, true><<<dim3(p.n_q * p.groups, p.kv_heads, batch), p.head_dim,
-                                    2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D, bool kTail, int kR>
-int launch(const Params& p, int batch, cudaStream_t stream) {
-  static bool prepared = false;
-  constexpr int kSmem = Layout<D, kR>::kBytes;
-  auto kernel = paged_split_f32_kernel<D, kTail, kR>;
-  if (!prepared) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    prepared = true;
-  }
-  const int row_groups = (p.n_q * p.groups + kR - 1) / kR;
-  kernel<<<dim3(p.n_split, p.kv_heads * row_groups, batch), kThreads, kSmem, stream>>>(p);
-  if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
   paged_merge_f32_kernel<D, kTail><<<dim3(p.n_q * p.groups, p.kv_heads, batch), p.head_dim,
                                      2 * static_cast<size_t>(p.n_split) * 4, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel and instance for `rows` query rows. Over int8 pools the
-// tensor-core kernel: the single query one row tile a block (groups of 16
-// of any G side by side), the verify past 16 rows kVerifyRowTiles row tiles
-// a block, blocks side by side past them. K3-f32's
-// single query: the tensor-core kernel over f32 pools, one row tile a block.
-// K3-f32's verify and K4-f32: the FFMA kernel's 8-row form for K4-f32 at G
-// <= 8, else 16, 48 or 80 rows (48 at D = 256, kBlockRows), blocks of that
-// many side by side past it.
+// m16 row tiles a block of the verify over f32 pools with `rows` query rows
+// a KV head, from shapes alone. Up to D = 128: one up to 32 rows (blocks
+// side by side), three past them (157 KB at D = 128, one block of twelve
+// warps an SM). At D = 256: one up to 16 rows, two past them (227 KB; three
+// do not fit). Timed with each count forced (NVIDIA H100 80GB HBM3, 700.00
+// W; PERF.md §6), ms at one / two / three: 36 rows 0.0797 / 0.0934 / 0.0744,
+// 80 rows 0.1355 / 0.1503 / 0.1308, 144 rows 0.2349 / 0.2536 / 0.2132, 9
+// rows (D = 96) 0.0930 / 0.1419 / 0.1473, 18 rows (D = 32) within 2%; at D =
+// 256, 72 rows, one / two 0.0529 / 0.0391. Two lose to one and three up to D
+// = 128, so no two-row-tile instance is built there.
+template <int D>
+int f32_verify_row_tiles(int rows) {
+  if (D <= 128) return rows <= 2 * kMmaRows ? 1 : 3;
+  return rows <= kMmaRows ? 1 : 2;
+}
+
+// The instance for `rows` query rows, all on the tensor-core kernel. Over
+// int8 pools the single query one row tile a block (groups of 16 of any G
+// side by side), the verify past 16 rows kVerifyRowTiles row tiles a block,
+// blocks side by side past them. Over f32 pools the single query (K3-f32,
+// and K4-f32 without a tail) one row tile a block, the verify
+// f32_verify_row_tiles.
 template <int D, bool kTail, bool kI8>
 int launch_rows(const Params& p, int batch, cudaStream_t stream, bool verify, int rows) {
   if constexpr (kI8) {
-    if (verify && rows > kMmaRows) return launch_mma<D, false, kVerifyRowTiles>(p, batch, stream);
-    return launch_mma<D, false, 1>(p, batch, stream);
-  } else {
-    if constexpr (kTail) {
-      if (!verify) return launch_mma<D, true, 1>(p, batch, stream);
-    } else {
-      if (rows <= kSingleRows) return launch<D, false, kSingleRows>(p, batch, stream);
+    if (verify && rows > kMmaRows) {
+      return launch_mma<D, false, kVerifyRowTiles, true>(p, batch, stream);
     }
-    if (rows <= 16) return launch<D, kTail, 16>(p, batch, stream);
-    if (rows <= 48) return launch<D, kTail, 48>(p, batch, stream);
-    return launch<D, kTail, kBlockRows<D>>(p, batch, stream);
+    return launch_mma<D, false, 1, true>(p, batch, stream);
+  } else {
+    if (!verify) return launch_mma<D, true, 1, kTail>(p, batch, stream);
+    if constexpr (kTail) {
+      if (f32_verify_row_tiles<D>(rows) == 1) return launch_mma<D, true, 1, true>(p, batch, stream);
+      if constexpr (D <= 128) {
+        return launch_mma<D, true, 3, true>(p, batch, stream);
+      } else {
+        return launch_mma<D, true, 2, true>(p, batch, stream);
+      }
+    }
+    return static_cast<int>(cudaErrorInvalidValue);  // a verify has a tail
   }
 }
 

@@ -28,7 +28,8 @@ page. ``csrc/paged_attention.cu`` holds two kernels, one per Pallas kernel:
 All run as split-key flash-decoding: a slot's keys lie on one axis, its
 ``max_pages * page_size`` page positions then (K3) its ``T`` tail positions,
 cut into splits of ``split_keys`` positions (``SPLIT_KEYS``, or 256 for a
-bf16 or float16 call of many query rows); one block per (split, KV head,
+bf16 or float16 call of many query rows and an f32 verify of more); one
+block per (split, KV head,
 slot) walks its split's live ``TILE_KEYS``-key tiles with an online softmax
 and writes a partial (m, l, acc) per query row, and a second kernel merges
 the partials in split order. The grid comes from shapes alone, so the
@@ -74,12 +75,12 @@ twin and the kernels all apply it.
   ``launches_verify_f32`` and ``launches_f32``; over int8 pools (variant
   F) ``ditl_paged_tail_i8_f32`` and ``ditl_paged_verify_i8_f32``
   (``launches_tail_int8_f32``, ``launches_verify_int8_f32``): the int8
-  values and their scales in f32, p times V's scale never rounded. K3-f32,
-  K3-int8-f32 and its verify run on the tensor cores (3xTF32 ``mma.sync``:
-  an int8 key or V row is exact in TF32, so two products where an f32 row
-  takes three), over small int8 staging tiles or f32 page tiles, in m16 row
-  tiles of 16 query rows (the verify over int8 pools past 16 rows two a
-  block); K3-f32's verify and K4-f32 on FFMA.
+  values and their scales in f32, p times V's scale never rounded. All run
+  on the tensor cores (3xTF32 ``mma.sync``: an int8 key or V row is exact
+  in TF32, so two products where an f32 row takes three), over small int8
+  staging tiles or f32 tiles, in m16 row tiles of 16 query rows (the
+  verify past 16 rows two a block over int8 pools, up to three over f32
+  pools).
 - **On float16 operands** (``csrc/paged_attention.cu``, the bf16 template's
   float16 instances): ``ditl_paged_tail_f16``, ``ditl_paged_verify_f16``,
   ``ditl_paged_f16`` and over int8 pools ``ditl_paged_tail_i8_f16``,
@@ -94,8 +95,9 @@ dims outside ``HEAD_DIMS`` (every multiple of 16 up to 256) raise
 head_dim of ``HEAD_DIMS`` on the smallest of its template instances
 (``INSTANCE_DIMS``) that holds it, columns past head_dim zero in shared
 memory, and any number of query heads per KV head and of verify rows: past
-a block's rows (8 single-query, 16 for K3-f32 and K3-int8-f32, 192 in the
-bf16 and float16 row-tile kernel at D = 128, 32 for K3-int8-f32-verify) it
+a block's rows (8 single-query, 16 for K3-f32, K4-f32 and K3-int8-f32, 192
+in the bf16 and float16 row-tile kernel at D = 128, 32 for
+K3-int8-f32-verify, 48 for K3-f32-verify, 32 at D = 256) it
 runs blocks of rows side by side, each over the split's keys (the sources'
 "Row groups"; each row's arithmetic, and so ``paged_attention_split_plain``,
 is the same in any grouping).
@@ -117,7 +119,8 @@ from ditl_tpu_torch.ops.attention import NEG_INF
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_attention_split_plain",
            "split_count", "split_keys", "kernel_route", "HEAD_DIMS", "INSTANCE_DIMS",
-           "SPLIT_KEYS", "SINGLE_ROWS", "LONG_SPLIT", "LONG_SPLIT_ROWS", "TILE_KEYS",
+           "SPLIT_KEYS", "SINGLE_ROWS", "LONG_SPLIT", "LONG_SPLIT_ROWS", "LONG_SPLIT_ROWS_F32",
+           "TILE_KEYS",
            "launches", "launches_tail", "launches_tail_int8", "launches_verify",
            "launches_verify_int8", "launches_f32", "launches_tail_f32",
            "launches_verify_f32", "launches_tail_int8_f32", "launches_verify_int8_f32",
@@ -143,6 +146,10 @@ SPLIT_KEYS = 128
 SINGLE_ROWS = 8
 LONG_SPLIT = 256
 LONG_SPLIT_ROWS = 2304
+# The f32 verify over f32 pools takes LONG_SPLIT keys from this many query
+# rows a call (path 16's 144- and 80-row verifies, 9216 and 5120 rows: 6%
+# faster than 128 on the card; path 11's 2304 rows 10% slower, PERF.md §6).
+LONG_SPLIT_ROWS_F32 = 4608
 
 # Kernel launches since the last reset_launches(); counted where each kernel
 # is launched and nowhere else. ``launches_tail`` is K3 over bf16 pools,
@@ -336,16 +343,18 @@ def split_keys(q: torch.Tensor, k_pages: torch.Tensor) -> int:
     """Positions per split of a call with q (B, H, D) or (B, Q, H, D) over
     pools (P, K, ps, D): ``LONG_SPLIT`` for bf16 and float16 past
     ``SINGLE_ROWS`` query rows a KV head (Q * G) where the call holds at
-    least ``LONG_SPLIT_ROWS`` query rows in all (B * Q * H), else
+    least ``LONG_SPLIT_ROWS`` query rows in all (B * Q * H), and for the f32
+    verify over f32 pools from ``LONG_SPLIT_ROWS_F32`` rows; else
     ``SPLIT_KEYS``. Shapes only, so the grid stays free of device-to-host
     syncs; the CUDA wrapper launches with it and
     ``paged_attention_split_plain`` takes it by default."""
     b, h = q.shape[0], q.shape[-2]
     nq = q.shape[1] if q.dim() == 4 else 1
-    if (q.dtype == torch.float32 or nq * (h // k_pages.shape[1]) <= SINGLE_ROWS
-            or b * nq * h < LONG_SPLIT_ROWS):
-        return SPLIT_KEYS
-    return LONG_SPLIT
+    if q.dtype == torch.float32:
+        long = nq > 1 and k_pages.dtype == torch.float32 and b * nq * h >= LONG_SPLIT_ROWS_F32
+    else:
+        long = nq * (h // k_pages.shape[1]) > SINGLE_ROWS and b * nq * h >= LONG_SPLIT_ROWS
+    return LONG_SPLIT if long else SPLIT_KEYS
 
 
 def paged_attention_split_plain(

@@ -97,9 +97,10 @@ CATEGORIES = (
     ("K3-verify/K3-int8-verify/K3 and K4 past 8 rows paged_rows", ("paged_rows_kernel",)),
     ("K3/K4 paged_split", ("paged_split_kernel",)),
     ("K3/K4 paged_merge", ("paged_merge_kernel",)),
-    ("K3-f32-verify/K4-f32 paged_split_f32", ("paged_split_f32_kernel",)),
-    # the tensor-core kernel: K3-f32, K3-int8-f32 and K3-int8-f32-verify
-    ("K3-f32/K3-int8-f32/K3-int8-f32-verify paged_mma_f32", ("paged_mma_f32_kernel",)),
+    # the tensor-core kernel: every f32 paged form (K3-f32, its verify,
+    # K4-f32, K3-int8-f32 and its verify)
+    ("K3-f32/K3-f32-verify/K4-f32/K3-int8-f32/K3-int8-f32-verify paged_mma_f32",
+     ("paged_mma_f32_kernel",)),
     ("K3/K4-f32 paged_merge_f32", ("paged_merge_f32_kernel",)),
     ("K5a mlp_dgu_dwdown", ("mlp_dgu_dwdown_kernel",)),
     # K5b and K6 are instances of one kernel, tagged 5 and 6 (demangled or

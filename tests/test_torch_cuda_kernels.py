@@ -304,9 +304,23 @@ def _int8_pools(kp, vp):
     return kq, vq, ks[:, :, None, :].contiguous(), vs[:, :, None, :].contiguous()
 
 
+# Single-query cases past PAGED_CASES' head dims and groups: Phi-3-mini's D
+# = 96 at G = 4 (page 16, three pages: the axis's tail starts at 48, so the
+# first tile mixes page, dead and tail rows) and at G = 1 over the split
+# edges; G = 16 and G = 20 (past the single-query form's 8 rows; the f32
+# kernel's groups of 16, the second partial) at D = 128 and 32.
+EXTRA_SINGLE_CASES = [
+    (3, 8, 2, 96, 16, 8, [17, 40, 33], [16, 33, 33]),
+    (4, 4, 4, 96, 16, 16, [257, 256, 513, 140], [257, 250, 500, 128]),
+    (3, 32, 2, 128, 16, 8, [17, 40, 33], [16, 33, 33]),
+    (3, 40, 2, 32, 48, 8, [300, 1, 40], [297, 0, 33]),
+]
+
 # K3 over int8 pools: the K3 cases (the decode tick, with a dead slot, a
-# tail-only slot, starts == lengths; head_dim 64; MHA; the split edges).
-INT8_CASES = PAGED_CASES
+# tail-only slot, starts == lengths; head_dim 64; MHA; the split edges; D =
+# 32 and 256 at G = 1, 2 and 8, a tile mixing page and tail rows), then D =
+# 96 and G = 16 and 20.
+INT8_CASES = PAGED_CASES + EXTRA_SINGLE_CASES
 
 
 @pytest.mark.torch_port
@@ -314,18 +328,22 @@ INT8_CASES = PAGED_CASES
 def test_paged_int8_kernel_matches_plain(cuda, b, h, kv, d, ps, tail_len, lengths, starts):
     """ditl_paged_tail_i8 against the plain version's int8 branch and against
     the split twin at bf16 tolerance (2e-2: the kernel rounds p * vs to bf16
-    against its running max, the plain version keeps it in f32); a dead slot
-    gives zeros."""
+    against its running max, the plain version keeps it in f32); three calls
+    give the same bits, each one launch of K3-int8 and no other; a dead
+    slot gives zeros."""
     q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
         cuda, b, h, kv, d, ps, 128, tail_len, lengths, starts)
     kq, vq, ks, vs = _int8_pools(kp, vp)
     tpa.reset_launches()
-    o = tpa.paged_attention(q, kq, vq, table, lens, tail_k=tk, tail_v=tv, starts=st,
-                            k_scale=ks, v_scale=vs)
+    runs = [tpa.paged_attention(q, kq, vq, table, lens, tail_k=tk, tail_v=tv, starts=st,
+                                k_scale=ks, v_scale=vs) for _ in range(3)]
     r = tpa.paged_attention_plain(q, kq, vq, table, lens, tk, tv, st, ks, vs)
     s_ = tpa.paged_attention_split_plain(q, kq, vq, table, lens, tk, tv, st, ks, vs)
     torch.cuda.synchronize()
-    assert (tpa.launches_tail_int8, tpa.launches_tail, tpa.launches) == (1, 0, 0)
+    assert {n: getattr(tpa, n) for n in tpa._COUNTERS.values() if getattr(tpa, n)} == {
+        "launches_tail_int8": 3}
+    o = runs[0]
+    assert all(torch.equal(run, o) for run in runs[1:])
     torch.testing.assert_close(o.float(), r.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(o.float(), s_.float(), atol=2e-2, rtol=2e-2)
     dead = [i for i, n in enumerate(lengths) if n == 0]
@@ -1022,53 +1040,73 @@ def test_flash_attention_f32_autograd_launches_k1_k2(no_tf32):
 
 
 @pytest.mark.torch_port
-@pytest.mark.parametrize("b,h,kv,d,ps,tail_len,lengths,starts", PAGED_CASES)
+@pytest.mark.parametrize("b,h,kv,d,ps,tail_len,lengths,starts",
+                         PAGED_CASES + EXTRA_SINGLE_CASES)
 def test_paged_f32_kernels_match_plain(no_tf32, b, h, kv, d, ps, tail_len, lengths, starts):
-    """K3-f32 and K4-f32 against the plain version and the split twin; two
-    calls give the same bits; a dead slot gives zeros."""
+    """K3-f32 and K4-f32 (both on the tensor-core kernel: G = 1, 2, 4, 8, 16
+    and 20, D = 32, 64, 96, 128 and 256) against the plain version and the
+    split twin; three calls give the same bits, each one launch on its own
+    counter; a dead slot gives zeros."""
     q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
         no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, dtype=torch.float32)
     low = torch.minimum(st, lens).contiguous()
     tpa.reset_launches()
     o3 = [tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st)
-          for _ in range(2)]
-    o4 = [tpa.paged_attention(q, kp, vp, table, low) for _ in range(2)]
+          for _ in range(3)]
+    o4 = [tpa.paged_attention(q, kp, vp, table, low) for _ in range(3)]
     r3 = tpa.paged_attention_plain(q, kp, vp, table, lens, tk, tv, st)
     r4 = tpa.paged_attention_plain(q, kp, vp, table, low)
     s3 = tpa.paged_attention_split_plain(q, kp, vp, table, lens, tk, tv, st)
     s4 = tpa.paged_attention_split_plain(q, kp, vp, table, low)
     torch.cuda.synchronize()
-    assert (tpa.launches_tail_f32, tpa.launches_f32, tpa.launches_tail, tpa.launches) == (
-        2, 2, 0, 0)
+    assert {n: getattr(tpa, n) for n in tpa._COUNTERS.values() if getattr(tpa, n)} == {
+        "launches_tail_f32": 3, "launches_f32": 3}
     for o, r, s_ in ((o3, r3, s3), (o4, r4, s4)):
-        assert o[0].dtype == torch.float32 and torch.equal(o[0], o[1])
+        assert o[0].dtype == torch.float32 and all(torch.equal(o[0], x) for x in o[1:])
         torch.testing.assert_close(o[0], r, atol=PAGED_F32_TOL, rtol=0)
         torch.testing.assert_close(o[0], s_, atol=PAGED_F32_TOL, rtol=0)
     dead = [i for i, n in enumerate(lengths) if n == 0]
     assert all(bool((o3[0][i] == 0).all()) for i in dead)
 
 
+# The f32 verify's row-tile boundaries (b, Q, h, kv, d, ps, tail_len,
+# lengths, starts, maxp): 16 rows a KV head (one row tile: G = 4, Q = 4), 17
+# (G = 1, Q = 17), 32 (G = 16, Q = 2) and 33 (G = 3, Q = 11), each with a
+# dead slot and the page 16 axis whose tail starts mid-tile.
+F32_VERIFY_ROW_CASES = [
+    (3, 4, 8, 2, 128, 16, 24, [0, 40, 21], [0, 33, 20], 3),
+    (3, 17, 4, 4, 64, 16, 40, [0, 40, 21], [0, 33, 20], 3),
+    (3, 2, 32, 2, 128, 16, 24, [0, 40, 21], [0, 33, 20], 3),
+    (3, 11, 6, 2, 96, 16, 32, [0, 40, 21], [0, 33, 20], 3),
+]
+
+
 @pytest.mark.torch_port
-@pytest.mark.parametrize("case", range(len(VERIFY_CASES)))
+@pytest.mark.parametrize("case", range(len(VERIFY_CASES) + len(F32_VERIFY_ROW_CASES)))
 def test_paged_f32_verify_kernel_matches_plain(no_tf32, case):
-    """K3-f32's verify against the plain version's 4-D branch and the split
-    twin; two calls give the same bits; a 4-D q with Q = 1 gives the 3-D
-    call's bits; each call counts one f32 verify launch."""
-    b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp = VERIFY_CASES[case]
+    """K3-f32's verify (the tensor-core kernel, at every row-tile count)
+    against the plain version's 4-D branch and the split twin, on the verify
+    cases (144 rows at D = 256, a tile mixing page, dead and tail rows
+    among them) and at 16, 17, 32 and 33 rows a KV head; three calls give
+    the same bits; a 4-D q with Q = 1 gives the 3-D call's bits; each call
+    counts one f32 verify launch and no other."""
+    b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp = (
+        VERIFY_CASES + F32_VERIFY_ROW_CASES)[case]
     q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
         no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=case, nq=nq,
         maxp=maxp, dtype=torch.float32)
     tail = dict(tail_k=tk, tail_v=tv, starts=st)
     tpa.reset_launches()
-    runs = [tpa.paged_attention(q, kp, vp, table, lens, **tail) for _ in range(2)]
-    assert (tpa.launches_verify_f32, tpa.launches_verify) == (2, 0)
+    runs = [tpa.paged_attention(q, kp, vp, table, lens, **tail) for _ in range(3)]
+    assert {n: getattr(tpa, n) for n in tpa._COUNTERS.values() if getattr(tpa, n)} == {
+        "launches_verify_f32": 3}
     r = tpa.paged_attention_plain(q, kp, vp, table, lens, tk, tv, st)
     sp = tpa.paged_attention_split_plain(q, kp, vp, table, lens, tk, tv, st)
     o41 = tpa.paged_attention(q[:, :1].contiguous(), kp, vp, table, lens, **tail)
     o3 = tpa.paged_attention(q[:, 0].contiguous(), kp, vp, table, lens, **tail)
     torch.cuda.synchronize()
     o = runs[0]
-    assert o.shape == q.shape and torch.equal(runs[1], o)
+    assert o.shape == q.shape and all(torch.equal(x, o) for x in runs[1:])
     torch.testing.assert_close(o, r, atol=PAGED_F32_TOL, rtol=0)
     torch.testing.assert_close(o, sp, atol=PAGED_F32_TOL, rtol=0)
     assert torch.equal(o41[:, 0], o3)
@@ -1293,13 +1331,15 @@ def _close(o, ref, dtype):
 
 @pytest.mark.torch_port
 @pytest.mark.parametrize("dtype,int8", [(F16, False), (F16, True), (torch.float32, True)])
-@pytest.mark.parametrize("case", range(len(PAGED_CASES)))
+@pytest.mark.parametrize("case", range(len(INT8_CASES)))
 def test_paged_f16_and_f32_int8_kernels_match_plain(no_tf32, dtype, int8, case):
     """K3-f16 and K4-f16 (float16 pools), K3-int8-f16 (float16 q over int8
     pools) and K3-int8-f32 (f32 q over int8 pools) against the plain version
-    and the split twin; two calls give the same bits; each call counts on
-    its own counter and on no other."""
-    b, h, kv, d, ps, tail_len, lengths, starts = PAGED_CASES[case]
+    and the split twin, on ``INT8_CASES`` (G = 1, 2, 4, 8, 16 and 20; D =
+    32, 64, 96, 128 and 256; tiles mixing page and tail rows; dead slots);
+    three calls give the same bits; each call counts on its own counter and
+    on no other."""
+    b, h, kv, d, ps, tail_len, lengths, starts = INT8_CASES[case]
     q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
         no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=case, dtype=dtype)
     sfx = "_f16" if dtype == F16 else "_f32"
@@ -1309,24 +1349,89 @@ def test_paged_f16_and_f32_int8_kernels_match_plain(no_tf32, dtype, int8, case):
         scales = dict(k_scale=ks, v_scale=vs)
     tpa.reset_launches()
     o3 = [tpa.paged_attention(q, kp, vp, table, lens, tail_k=tk, tail_v=tv, starts=st,
-                              **scales) for _ in range(2)]
+                              **scales) for _ in range(3)]
     args = (q, kp, vp, table, lens, tk, tv, st, *scales.values())
     checks = [(o3, tpa.paged_attention_plain(*args), tpa.paged_attention_split_plain(*args))]
-    want = {"launches_tail" + ("_int8" if int8 else "") + sfx: 2}
+    want = {"launches_tail" + ("_int8" if int8 else "") + sfx: 3}
     if not int8:
         low = torch.minimum(st, lens).contiguous()
-        o4 = [tpa.paged_attention(q, kp, vp, table, low) for _ in range(2)]
+        o4 = [tpa.paged_attention(q, kp, vp, table, low) for _ in range(3)]
         checks.append((o4, tpa.paged_attention_plain(q, kp, vp, table, low),
                        tpa.paged_attention_split_plain(q, kp, vp, table, low)))
-        want["launches" + sfx] = 2
+        want["launches" + sfx] = 3
     torch.cuda.synchronize()
     assert {n: getattr(tpa, n) for n in tpa._COUNTERS.values() if getattr(tpa, n)} == want
     for o, r, s_ in checks:
-        assert o[0].dtype == dtype and torch.equal(o[0], o[1])
+        assert o[0].dtype == dtype and all(torch.equal(o[0], x) for x in o[1:])
         _close(o[0], r, dtype)
         _close(o[0], s_, dtype)
     dead = [i for i, n in enumerate(lengths) if n == 0]
     assert all(bool((o3[0][i] == 0).all()) for i in dead)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("dtype,int8", [(torch.bfloat16, True), (F16, True),
+                                        (torch.float32, True), (torch.float32, False)])
+@pytest.mark.parametrize("case", [0, len(PAGED_CASES)])
+def test_paged_single_query_clamps_out_of_range_page_ids(no_tf32, dtype, int8, case):
+    """The single query (K3-int8 in bf16 and float16, K3-int8-f32, K3-f32 and
+    K4-f32) with live page ids past the pool and below 0, at the decode tick
+    and at D = 96 with a tile mixing page and tail rows: the ids clamp into
+    the pool, as JAX's gather does (the split twin clamps; the plain version
+    gets the clamped table); three calls give the same bits, one launch
+    each."""
+    b, h, kv, d, ps, tail_len, lengths, starts = INT8_CASES[case]
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts, seed=case, dtype=dtype)
+    scales = {}
+    if int8:
+        kp, vp, ks, vs = _int8_pools(kp, vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    bad = table.clone()
+    bad[1, 0], bad[-1, 0] = kp.shape[0] + 7, -3
+    clamped = bad.clamp(0, kp.shape[0] - 1)
+    forms = [(dict(tail_k=tk, tail_v=tv, starts=st, **scales), lens, (tk, tv, st)),]
+    if not int8:
+        forms.append(({}, torch.minimum(st, lens).contiguous(), ()))
+    for kw, ln, tail in forms:
+        tpa.reset_launches()
+        runs = [tpa.paged_attention(q, kp, vp, bad, ln, **kw) for _ in range(3)]
+        r = tpa.paged_attention_plain(q, kp, vp, clamped, ln, *tail, *scales.values())
+        sp = tpa.paged_attention_split_plain(q, kp, vp, bad, ln, *tail, *scales.values())
+        torch.cuda.synchronize()
+        assert sum(getattr(tpa, n) for n in tpa._COUNTERS.values()) == 3
+        assert all(torch.equal(x, runs[0]) for x in runs[1:])
+        _close(runs[0], r, dtype)
+        _close(runs[0], sp, dtype)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("form", ["verify", "no_tail"])
+def test_paged_f32_tensor_core_forms_never_sync(no_tf32, form):
+    """K3-f32's verify at 144 rows a KV head (G = 16, Q = 9) and K4-f32 at G
+    = 16, both at D = 256 on the tensor-core kernel, launch under
+    ``set_sync_debug_mode("error")`` and a CUDA graph captures them."""
+    b, nq, h, kv, d, ps, tail_len, lengths, starts, maxp = BASE_VERIFY_CASES[-2]
+    q, kp, vp, table, lens, st, tk, tv = _paged_inputs(
+        no_tf32, b, h, kv, d, ps, 128, tail_len, lengths, starts,
+        nq=nq if form == "verify" else None, maxp=maxp, dtype=torch.float32)
+    if form == "verify":
+        kw, ln = dict(tail_k=tk, tail_v=tv, starts=st), lens
+    else:
+        kw, ln = {}, torch.minimum(st, lens).contiguous()
+    tpa.paged_attention(q, kp, vp, table, ln, **kw)
+    torch.cuda.synchronize()  # built and loaded
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tpa.paged_attention(q, kp, vp, table, ln, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o = tpa.paged_attention(q, kp, vp, table, ln, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(o, tpa.paged_attention(q, kp, vp, table, ln, **kw))
 
 
 @pytest.mark.torch_port

@@ -58,9 +58,11 @@ torch.set_num_threads(1)
 SHAPES = [(96, 2, 2, 1), (96, 2, 2, 9), (16, 16, 1, 1), (16, 16, 1, 9), (80, 12, 1, 9),
           (48, 16, 2, 9), (128, 8, 2, 9), (256, 8, 1, 9), (32, 20, 1, 3)]
 # pool kind -> (q and tail dtype, int8 pools, tolerance); "int8_bf16" is the
-# int8 serving path's bf16 q and tails over int8 pools
+# int8 serving path's bf16 q and tails over int8 pools, "int8_f16" the same
+# in float16
 POOLS = {"bf16": ("bfloat16", False, 2e-2), "f32": ("float32", False, 2e-5),
-         "int8": ("float32", True, 1e-4), "int8_bf16": ("bfloat16", True, 2e-2)}
+         "int8": ("float32", True, 1e-4), "int8_bf16": ("bfloat16", True, 2e-2),
+         "int8_f16": ("float16", True, 2e-2)}
 # A dead slot, a tail-only slot, tails that straddle a page edge; page 16,
 # four pages a slot, a 24-column tail (the verify's nine rows fit in it).
 LENGTHS, STARTS, PAGE, MAX_PAGES, TAIL = [0, 20, 40, 21], [0, 16, 33, 20], 16, 4, 24
@@ -148,6 +150,43 @@ def test_paged_matches_jax_pallas_at_any_group_rows_and_head_dim(shape, pool):
                             tail=True).startswith("ditl_paged")
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_no_tail_out(shape: tuple, pool: str) -> np.ndarray:
+    """The JAX ``paged_attention`` without a tail (K4's Pallas kernel,
+    interpret mode) over pages up to min(starts, lengths)."""
+    dtype, _, _ = POOLS[pool]
+    a = _case(shape, False)
+    lens = np.minimum(a["starts"], a["lengths"])
+    pos = [jnp.asarray(a[k]).astype(getattr(jnp, dtype)) if k in FLOATS else jnp.asarray(a[k])
+           for k in POSITIONAL[:4]] + [jnp.asarray(lens)]
+    return np.asarray(jpa.paged_attention(*pos, interpret=True), np.float32)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[3] == 1], ids=_shape_id)
+def test_paged_no_tail_matches_jax_pallas(shape, pool):
+    """K4 (no tail, pages up to min(starts, lengths)) at the one-query
+    shapes: the CPU wrapper (no launch) and the plain version against the
+    JAX ``paged_attention`` without a tail (Pallas, interpret mode); the
+    shape routes to K4's entry point (on the card K4-f32 runs the
+    tensor-core kernel at any G and D)."""
+    dtype, _, tol = POOLS[pool]
+    t = _torch_case(shape, pool)
+    lens = torch.minimum(t["starts"], t["lengths"])
+    pos = [t[k] for k in POSITIONAL[:4]] + [lens]
+    tpa.reset_launches()
+    wrapped = tpa.paged_attention(*pos)
+    plain = tpa.paged_attention_plain(*pos)
+    assert sum(getattr(tpa, c) for c in tpa._COUNTERS.values()) == 0
+    want = _jax_no_tail_out(shape, pool)
+    for out in (wrapped, plain):
+        assert out.dtype == getattr(torch, dtype) and out.shape == pos[0].shape
+        np.testing.assert_allclose(out.float().numpy(), want, atol=tol, rtol=tol)
+    assert np.all(wrapped.float().numpy()[0] == 0), "a dead slot gives zeros"
+    assert tpa.kernel_route(getattr(torch, dtype), shape[0], int8=False, verify=False,
+                            tail=False) == "ditl_paged" + ("_f32" if pool == "f32" else "_bf16")
+
+
 @pytest.mark.parametrize("split", [64, 128])
 @pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
 def test_split_twin_matches_plain_with_row_groups(shape, split):
@@ -174,14 +213,26 @@ def test_split_twin_matches_plain_with_row_groups(shape, split):
     ("bfloat16", 64, 1, 64, 8, 128), ("bfloat16", 8, 9, 32, 8, 256),
     ("float16", 7, 9, 32, 8, 128), ("bfloat16", 8, 9, 128, 8, 256),
     ("float16", 8, 9, 32, 32, 256), ("bfloat16", 8, 9, 8, 1, 128),
-    ("bfloat16", 8, 1, 128, 8, 128), ("float32", 8, 9, 128, 8, 128)])
+    ("bfloat16", 8, 1, 128, 8, 128), ("float32", 8, 9, 128, 8, 256),
+    ("float32", 8, 9, 32, 8, 128), ("float32", 8, 5, 128, 8, 256),
+    ("float32", 8, 1, 128, 8, 128)])
 def test_split_keys_follows_the_rows_of_the_call(dtype, b, nq, h, kv, split):
-    """The row-tile kernel's split length: 256 keys in bf16 and float16
-    where the call holds at least 2304 query rows (B * Q * H: the spec
-    tick of llama3-8b, 8 x 9 x 32); 128 (``SPLIT_KEYS``) below that, at 8
-    rows a KV head or fewer (the single-query kernel) and always in f32."""
+    """The split length: 256 keys in bf16 and float16 where the call holds
+    at least 2304 query rows (B * Q * H: the spec tick of llama3-8b, 8 x 9
+    x 32) and more than 8 a KV head (the row-tile kernel); for the f32
+    verify over f32 pools from 4608 rows (path 16's 144 and 80 rows, not
+    path 11's 36); 128 (``SPLIT_KEYS``) otherwise: fewer rows, the
+    single-query kernels, one f32 query at any G."""
     q = torch.empty((b, h, 16) if nq == 1 else (b, nq, h, 16), dtype=getattr(torch, dtype))
     assert tpa.split_keys(q, torch.empty((1, kv, 16, 16))) == split
+
+
+def test_split_keys_keeps_128_for_the_f32_verify_over_int8_pools():
+    """The f32 verify over int8 pools keeps ``SPLIT_KEYS`` at every row
+    count (its 256-key rule is the f32 pools' alone), so its bits hold."""
+    q = torch.empty((8, 9, 128, 16), dtype=torch.float32)
+    assert tpa.split_keys(q, torch.empty((1, 8, 16, 16), dtype=torch.int8)) == tpa.SPLIT_KEYS
+    assert tpa.split_keys(q, torch.empty((1, 8, 16, 16))) == tpa.LONG_SPLIT
 
 
 # (B, Q, H, K, q dtype): a bf16 verify of 2592 query rows (splits of 256

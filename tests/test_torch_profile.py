@@ -39,7 +39,7 @@ def test_every_source_declares_kernels():
         "projection_bwd.cu"}  # K6's body is gemm_sm90.cuh's proj_bwd_kernel<6>
     names = {name for _, name in found}
     assert {"flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel",
-            "paged_split_f32_kernel", "paged_mma_f32_kernel", "paged_merge_f32_kernel",
+            "paged_mma_f32_kernel", "paged_merge_f32_kernel",
             "mlp_dgu_f32_kernel",
             "mlp_dh_f32_kernel", "proj_bwd_f32_kernel", "splitk_sum_f32_kernel",
             "flash_dkv_f32_sum_kernel", "paged_rows_kernel", "paged_split_kernel"} <= names
@@ -68,13 +68,11 @@ def test_row_tile_kernel_has_a_category_of_its_own():
 
 def test_f32_kernels_have_categories_of_their_own():
     """The f32 kernels are not filed with their bf16 counterparts: K1-f32,
-    K2a-f32, K2b-f32, K3/K4-f32 (K3-f32, K3-int8-f32 and its verify on the
-    tensor-core kernel apart from the FFMA kernel's K3-f32-verify and K4-f32)
-    and K5a/K5b/K6-f32 each have their own."""
+    K2a-f32, K2b-f32, K3/K4-f32 (every f32 paged form on the tensor-core
+    kernel) and K5a/K5b/K6-f32 each have their own."""
     pairs = [("flash_fwd_kernel", "flash_fwd_f32_kernel"),
              ("flash_bwd_dq_kernel", "flash_dq_f32_kernel"),
              ("flash_bwd_dkv_kernel", "flash_dkv_f32_kernel"),
-             ("paged_split_kernel", "paged_split_f32_kernel"),
              ("paged_split_kernel", "paged_mma_f32_kernel"),
              ("paged_merge_kernel", "paged_merge_f32_kernel"),
              ("mlp_dgu_dwdown_kernel", "mlp_dgu_f32_kernel"),
