@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --paged-rows [--sweep] [TREE]`` and ``--f32-mm
+[--sweep] [TREE]`` time one kernel family on TREE's ``ditl_tpu_torch``
+(default: this checkout's; ``tree_main``), so that a parent commit unpacked
+beside the checkout and the checkout can be timed in turns in one run.
+
 Every phase is fatal: a failure raises, the script exits non-zero and prints
 no result line. It imports nothing of JAX or of the JAX package.
 
@@ -68,7 +73,7 @@ no result line. It imports nothing of JAX or of the JAX package.
    bits; then the bf16 K1, K2a/K2b, K3 and K5a/K5b against ``K1_DIGESTS``,
    ``K2_DIGESTS`` (recorded on the build before K2's element type became a
    template parameter), ``K3_DIGESTS`` and ``K5_DIGESTS``, and the f32 paged kernels
-   and K5b-f32 and K6-f32 against ``F32_DIGESTS``.
+   and K5a-f32, K5b-f32 and K6-f32 against ``F32_DIGESTS``.
    ``[hd-kernels]`` (``phase_head_dim_kernels``): every paged entry point
    (``HD_PAGED``: K3, K4, K3-verify and their int8 forms in bf16, float16
    and f32) at head_dim 32 and 256 against the plain version and the split
@@ -897,6 +902,18 @@ def _kernel_name(line: str) -> str:
     return "?"
 
 
+def _log_ptxas(name: str, path, tag: str = "build") -> None:
+    """ptxas' register and spill lines of the build of ``name`` at ``path``,
+    each named by its kernel."""
+    ptxas = path.with_suffix(".log")
+    kernel = ""
+    for line in (ptxas.read_text().splitlines() if ptxas.is_file() else []):
+        if "Compiling entry function" in line:
+            kernel = _kernel_name(line)
+        elif "registers" in line or "spill" in line:
+            log(f"[{tag}] {name} {kernel}: {line.strip()}")
+
+
 def phase_build() -> None:
     from ditl_tpu_torch.ops.cuda_build import build_libraries
 
@@ -904,13 +921,7 @@ def phase_build() -> None:
     built = build_libraries()
     log(f"[build] {sorted(built)} in {time.perf_counter() - t0:.1f}s")
     for name, path in built.items():
-        ptxas = path.with_suffix(".log")
-        kernel = ""
-        for line in (ptxas.read_text().splitlines() if ptxas.is_file() else []):
-            if "Compiling entry function" in line:
-                kernel = _kernel_name(line)
-            elif "registers" in line or "spill" in line:
-                log(f"[build] {name} {kernel}: {line.strip()}")
+        _log_ptxas(name, path)
 
 
 def _segment_ids(kind, b, s, train_seg):
@@ -3710,7 +3721,11 @@ def _det_f32(shape, salt: int, shift: int):
 # gave them when it came in (commit a7d5426); K3-f32, K3-int8-f32-verify,
 # K3-f32-verify and K4-f32 as the tensor-core kernel gives them since they
 # moved onto it (3xTF32 sums in place of FFMA's; the f32 verify at 144 rows
-# at splits of 256 keys). Each must keep these bits.
+# at splits of 256 keys); K5a-f32 as the tree of commit a89f671 gave them.
+# K6-f32 on the wgmma core gives its earlier core's bits (each k8 step's
+# three products in the same order from the same zeroed partial), but for
+# wk/wv's dw, which f32_proj_splits sums from 8 splits, not 16. Each must
+# keep these bits.
 F32_DIGESTS: dict[str, str] = {
     "decode tick K3-f32": "84d13dc45a836fe4",
     "decode tick K4-f32": "f01f41b5c90f8377",
@@ -3732,6 +3747,10 @@ F32_DIGESTS: dict[str, str] = {
     "144 rows K3-int8-f32-verify": "c9deaf23cafe018e",
     "D = 256 K3-f32-verify": "274f52a5aabd1c4a",
     "D = 256 K3-int8-f32-verify": "0f87c775c820f4c3",
+    "K5a-f32 N=8192 D=896 F=4864 dgu": "9ddad8f92f486427",
+    "K5a-f32 N=8192 D=896 F=4864 d_w_down": "d37a095548985bd5",
+    "K5a-f32 N=2064 D=384 F=384 dgu": "23e24e787e829478",
+    "K5a-f32 N=2064 D=384 F=384 d_w_down": "666b841401785d14",
     "K5b-f32 N=8192 D=896 F=4864 dh": "1400a7112f362849",
     "K5b-f32 N=8192 D=896 F=4864 d_w_gu": "d23a7fe9806eb0cc",
     "K5b-f32 N=2064 D=384 F=384 dh": "40b1658e2f75f968",
@@ -3739,7 +3758,7 @@ F32_DIGESTS: dict[str, str] = {
     "K6-f32 N=8192 D=896 F=896 dx": "5f9bea34234a7f36",
     "K6-f32 N=8192 D=896 F=896 dw": "012e923f56102cac",
     "K6-f32 N=8192 D=896 F=128 dx": "aa0b300c94911bd2",
-    "K6-f32 N=8192 D=896 F=128 dw": "d3c19e9f821a5dd6",
+    "K6-f32 N=8192 D=896 F=128 dw": "33b4a7ddfc55024d",
 }
 
 
@@ -3748,12 +3767,14 @@ def _f32_digests(paged, mlp_bwd, proj) -> dict:
     with a dead and a tail-only slot, path 16's G = 16, D = 256 at path 15's
     heads), K3-f32-verify and
     K3-int8-f32-verify (the spec tick, head_dim 64 at Q = 5, path 16's 144
-    rows, D = 256), K5b-f32 (path 10's shapes unsplit, N = 2064 with d_w_gu
-    split) and K6-f32 (path 10's wq/wo and wk/wv, dw split 3 and 16 ways) on
-    fixed integer-made f32 inputs (``_det_f32``; int8 pools ``_det_int8``
-    with scales of 1..128 times 2^-14); SHA-256 prefixes of the outputs'
-    bytes. Uses only the wrappers' signatures, so it runs against an older
-    tree's module too."""
+    rows, D = 256), K5a-f32 and K5b-f32 (path 10's shapes, d_w_down split 4
+    ways and d_w_gu unsplit; N = 2064, D = F = 384, d_w_down split 13 ways
+    and d_w_gu split), K6-f32 (path 10's wq/wo and wk/wv, dw split 3 and 8
+    ways) on fixed integer-made f32 inputs (``_det_f32``; int8 pools
+    ``_det_int8`` with scales of 1..128 times 2^-14); SHA-256 prefixes of
+    the outputs' bytes; with ``paged`` None, the K5 and K6 entries alone.
+    Uses only the wrappers' signatures, so it runs against an older tree's
+    module too."""
     import hashlib
 
     import torch
@@ -3787,38 +3808,44 @@ def _f32_digests(paged, mlp_bwd, proj) -> dict:
             table=table.cuda(), lengths=ints(lens), starts=ints(sts))
 
     out = {}
-    starts, lengths = _paged_main_case()
-    single = [("decode tick", 8, 32, 8, 128, 256, 16, lengths, starts),
-              ("head_dim 64", 4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 32, 45]),
-              ("G = 16", 8, 128, 8, 128, 256, 16, lengths, starts),
-              ("D = 256", 8, 8, 1, 256, 256, 16, lengths, starts)]
-    for i, (label, b, h, kv, d, ps, tl, lens, sts) in enumerate(single):
-        c = case(b, h, kv, d, ps, tl, lens, sts, 3000 + 20 * i)
-        low = torch.minimum(c["starts"], c["lengths"]).contiguous()
-        tail = dict(tail_k=c["tk"], tail_v=c["tv"], starts=c["starts"])
-        out[f"{label} K3-f32"] = digest(paged.paged_attention(
-            c["q"], c["kp"], c["vp"], c["table"], c["lengths"], **tail))
-        out[f"{label} K4-f32"] = digest(paged.paged_attention(c["q"], c["kp"], c["vp"],
-                                                              c["table"], low))
-        out[f"{label} K3-int8-f32"] = digest(paged.paged_attention(
-            c["q"], c["kq"], c["vq"], c["table"], c["lengths"], **tail, k_scale=c["ks"],
-            v_scale=c["vs"]))
-        del c
-    sp_starts, sp_lengths = _spec_main_case()
-    verify = [("spec tick", 8, 9, 32, 8, 128, 256, 54, sp_lengths, sp_starts, 8),
-              ("head_dim 64", 4, 5, 8, 4, 64, 16, 24, [0, 20, 40, 21], [0, 16, 33, 20], 4),
-              ("144 rows", 8, 9, 128, 8, 128, 256, 54, sp_lengths, sp_starts, 8),
-              ("D = 256", 8, 9, 8, 1, 256, 256, 54, sp_lengths, sp_starts, 8)]
-    for i, (label, b, nq, h, kv, d, ps, tl, lens, sts, maxp) in enumerate(verify):
-        c = case(b, h, kv, d, ps, tl, lens, sts, 3200 + 20 * i, nq=nq, maxp=maxp)
-        tail = dict(tail_k=c["tk"], tail_v=c["tv"], starts=c["starts"])
-        out[f"{label} K3-f32-verify"] = digest(paged.paged_attention(
-            c["q"], c["kp"], c["vp"], c["table"], c["lengths"], **tail))
-        out[f"{label} K3-int8-f32-verify"] = digest(paged.paged_attention(
-            c["q"], c["kq"], c["vq"], c["table"], c["lengths"], **tail, k_scale=c["ks"],
-            v_scale=c["vs"]))
-        del c
+    if paged is not None:  # None: the matrix products alone
+        starts, lengths = _paged_main_case()
+        single = [("decode tick", 8, 32, 8, 128, 256, 16, lengths, starts),
+                  ("head_dim 64", 4, 8, 4, 64, 16, 8, [0, 5, 38, 50], [0, 0, 32, 45]),
+                  ("G = 16", 8, 128, 8, 128, 256, 16, lengths, starts),
+                  ("D = 256", 8, 8, 1, 256, 256, 16, lengths, starts)]
+        for i, (label, b, h, kv, d, ps, tl, lens, sts) in enumerate(single):
+            c = case(b, h, kv, d, ps, tl, lens, sts, 3000 + 20 * i)
+            low = torch.minimum(c["starts"], c["lengths"]).contiguous()
+            tail = dict(tail_k=c["tk"], tail_v=c["tv"], starts=c["starts"])
+            out[f"{label} K3-f32"] = digest(paged.paged_attention(
+                c["q"], c["kp"], c["vp"], c["table"], c["lengths"], **tail))
+            out[f"{label} K4-f32"] = digest(paged.paged_attention(c["q"], c["kp"], c["vp"],
+                                                                  c["table"], low))
+            out[f"{label} K3-int8-f32"] = digest(paged.paged_attention(
+                c["q"], c["kq"], c["vq"], c["table"], c["lengths"], **tail, k_scale=c["ks"],
+                v_scale=c["vs"]))
+            del c
+        sp_starts, sp_lengths = _spec_main_case()
+        verify = [("spec tick", 8, 9, 32, 8, 128, 256, 54, sp_lengths, sp_starts, 8),
+                  ("head_dim 64", 4, 5, 8, 4, 64, 16, 24, [0, 20, 40, 21], [0, 16, 33, 20], 4),
+                  ("144 rows", 8, 9, 128, 8, 128, 256, 54, sp_lengths, sp_starts, 8),
+                  ("D = 256", 8, 9, 8, 1, 256, 256, 54, sp_lengths, sp_starts, 8)]
+        for i, (label, b, nq, h, kv, d, ps, tl, lens, sts, maxp) in enumerate(verify):
+            c = case(b, h, kv, d, ps, tl, lens, sts, 3200 + 20 * i, nq=nq, maxp=maxp)
+            tail = dict(tail_k=c["tk"], tail_v=c["tv"], starts=c["starts"])
+            out[f"{label} K3-f32-verify"] = digest(paged.paged_attention(
+                c["q"], c["kp"], c["vp"], c["table"], c["lengths"], **tail))
+            out[f"{label} K3-int8-f32-verify"] = digest(paged.paged_attention(
+                c["q"], c["kq"], c["vq"], c["table"], c["lengths"], **tail, k_scale=c["ks"],
+                v_scale=c["vs"]))
+            del c
     for n, d, f in ((8192, 896, 4864), (2064, 384, 384)):
+        g, w_down = _det_f32((n, d), 3600, 24), _det_f32((f, d), 3601, 25)
+        gate, up = _det_f32((n, 2 * f), 3602, 20).chunk(2, dim=-1)
+        for name, t in zip(("dgu", "d_w_down"), mlp_bwd.dgu_dwdown(g, w_down, gate, up)):
+            out[f"K5a-f32 N={n} D={d} F={f} {name}"] = digest(t)
+        del g, w_down, gate, up
         h, dgu = _det_f32((n, d), 3400, 20), _det_f32((n, 2 * f), 3401, 24)
         w_gu = _det_f32((d, 2 * f), 3402, 25)
         for name, t in zip(("dh", "d_w_gu"), mlp_bwd.dh_dwgu(h, dgu, w_gu)):
@@ -4972,11 +4999,15 @@ F32_MLP_CASES = [("path 10", 8192, 896, 4864), ("ragged", 2064, 384, 384),
                  ("N = 16", 16, 384, 384), ("ragged N = 2000", 2000, 384, 640),
                  ("ragged N = 2000, F = 600", 2000, 384, 600)]
 # (label, N, D, F, row stride of g or 0, the reference's blocks that admit
-# N): path 10's wq/wo (dw split in 3) and wk/wv (dw split in 16), a ragged
-# N with g a column slice of a wider gradient.
+# N, or None for a shape ``supports`` refuses, which calls ``proj_bwd_rows``
+# directly): path 10's wq/wo (dw split in 3) and wk/wv (dw split in 8), a
+# ragged N with g a column slice of a wider gradient, and N = 2000 (no
+# multiple of the 128-row tiles or the 32-token k-tiles) with F = 600 (dx's
+# contraction and dw's columns end mid-tile).
 F32_PROJ_CASES = [("wq/wo", 8192, 896, 896, 0, (0, 128)),
                   ("wk/wv", 8192, 896, 128, 0, (0, 128)),
-                  ("ragged, strided g", 2064, 256, 384, 512, (16, 128))]
+                  ("ragged, strided g", 2064, 256, 384, 512, (16, 128)),
+                  ("ragged N = 2000, F = 600", 2000, 384, 600, 0, None)]
 
 
 def phase_f32_mm_kernels(mlp_bwd, proj) -> dict:
@@ -5024,16 +5055,20 @@ def phase_f32_mm_kernels(mlp_bwd, proj) -> dict:
     for i, (label, n, d, f, ld, blocks) in enumerate(F32_PROJ_CASES):
         x, w, g = _proj_case(n, d, f, ld, 1200 + 10 * i, torch.float32)
         proj.reset_launches()
-        dx, dw = proj.projection_bwd(x, w, g, blocks=blocks)
-        again = proj.projection_bwd(x, w, g, blocks=blocks)
+        if blocks is None:  # a shape supports refuses: the rows entry
+            def run():
+                return proj.proj_bwd_rows(x.reshape(n, d), w, g.reshape(n, f))
+        else:
+            def run():
+                return proj.projection_bwd(x, w, g, blocks=blocks)
+        (dx, dw), again = run(), run()
         require((proj.launches_f32, proj.launches) == (2, 0), "K6 f32 launch counts")
         dx_ref, dw_ref = proj.projection_bwd_plain(x, w, g)
         torch.cuda.synchronize()
-        shape = (f"N={n} D={d} F={f} ({label}; dw split "
-                 f"{mlp_bwd.f32_weight_splits(d, f, n)[0]})")
+        shape = f"N={n} D={d} F={f} ({label}; dw split {_k6_f32_splits(mlp_bwd, n, d, f)[0]})"
         worst["proj_bwd_f32"] = max(worst["proj_bwd_f32"], _check_scaled(
-            f"proj_bwd_f32 {shape}", [("dx", dx, dx_ref), ("dw", dw, dw_ref)], F32_MM_TOL,
-            tag))
+            f"proj_bwd_f32 {shape}", [("dx", dx, dx_ref.reshape(dx.shape)), ("dw", dw, dw_ref)],
+            F32_MM_TOL, tag))
         require(torch.equal(dx, again[0]) and torch.equal(dw, again[1]),
                 f"proj_bwd_f32 {label}: a second call gave other bits")
         log(f"[{tag}] proj_bwd_f32 {shape}: a second call gives the same bits")
@@ -5135,7 +5170,7 @@ def phase_f32_mm_timings(mlp_bwd, proj) -> dict:
         bound_ms, bound_by = _proj_bound(n, d, f, es=4)
         fl = 4.0 * n * d * f
         log(f"[{tag}] proj_bwd_f32 {label} N={n} D={d} F={f} (dw split "
-            f"{mlp_bwd.f32_weight_splits(d, f, n)[0]}): kernel {ms:.4f} ms "
+            f"{_k6_f32_splits(mlp_bwd, n, d, f)[0]}): kernel {ms:.4f} ms "
             f"({fl / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuBLAS SGEMM on its "
             f"own two products (g @ w.T, x.T @ g; TF32 off) {sgemm_ms:.4f} ms "
             f"({fl / sgemm_ms / 1e9:.1f} TFLOP/s; kernel / SGEMM {ms / sgemm_ms:.2f}x), library "
@@ -5149,6 +5184,80 @@ def phase_f32_mm_timings(mlp_bwd, proj) -> dict:
         del x, w, g, xl, wl, y, g2, x2
     return out
 
+
+
+# K6-f32's dw split counts that ``--f32-mm --sweep`` times: (label, N, D, F,
+# counts) at path 10's two projection shapes, and at half and twice its
+# tokens.
+F32_PROJ_SWEEP = [("wq/wo", 8192, 896, 896, (1, 2, 3, 4, 6)),
+                  ("wk/wv", 8192, 896, 128, (4, 6, 7, 8, 9, 10, 12, 16)),
+                  ("wq/wo, N = 4096", 4096, 896, 896, (2, 3, 4, 6)),
+                  ("wk/wv, N = 4096", 4096, 896, 128, (4, 6, 8, 10, 16)),
+                  ("wk/wv, N = 16384", 16384, 896, 128, (4, 6, 8, 10, 16))]
+
+
+def _k6_f32_splits(mlp_bwd, n: int, d: int, f: int) -> tuple[int, int]:
+    """K6-f32's dw split as ``mlp_bwd``'s tree gives it: ``f32_proj_splits``,
+    or ``f32_weight_splits`` in a tree from before K6-f32 had a rule of its
+    own."""
+    if hasattr(mlp_bwd, "f32_proj_splits"):
+        return mlp_bwd.f32_proj_splits(n, d, f)
+    return mlp_bwd.f32_weight_splits(d, f, n)
+
+
+def phase_f32_split_sweep(mlp_bwd, proj) -> dict:
+    """[f32-mm-sweep]: K6-f32 at ``F32_PROJ_SWEEP``'s shapes with dw split
+    into each count (each split the least multiple of F32_BLOCK_K tokens
+    that takes the tokens in that many, as the split rules round),
+    called through the C entry point, which takes the count as an argument
+    (the wrapper's count comes from shapes alone). Each count's dx and dw
+    within ``F32_MM_TOL`` of the plain version; then two rounds of timings
+    (10 calls each, the counts in order, then reversed), the better of the
+    two. Returns {label: {count: ms}}."""
+    import torch
+
+    tag = "f32-mm-sweep"
+    entry = mlp_bwd._kernel(*proj.kernel_route(torch.float32))
+    cdiv, bk = mlp_bwd._cdiv, mlp_bwd.F32_BLOCK_K
+    out = {}
+    for label, n, d, f, counts in F32_PROJ_SWEEP:
+        x, w, g = _proj_case(n, d, f, 0, 1400, torch.float32)
+        x2, g2 = x.reshape(n, d), g.reshape(n, f)
+        dx, dw = torch.empty_like(x2), torch.empty_like(w)
+        split = {}
+        for c in counts:
+            chunk = cdiv(cdiv(n, c), bk) * bk
+            split[c] = (cdiv(n, chunk), chunk)
+        work = torch.empty((max(s for s, _ in split.values()), d, f), dtype=torch.float32,
+                           device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run(c):
+            err = entry(x2.data_ptr(), w.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+                        dw.data_ptr(), work.data_ptr(), d, f, n, d, f, *split[c], stream)
+            require(err == 0, f"proj_bwd_f32 {label}, dw split {c}: CUDA error {err}")
+
+        dx_ref, dw_ref = proj.projection_bwd_plain(x, w, g)
+        for c in counts:
+            run(c)
+            torch.cuda.synchronize()
+            _check_scaled(f"proj_bwd_f32 {label} N={n} D={d} F={f}, dw split {split[c][0]} "
+                          f"({split[c][1]} tokens)",
+                          [("dx", dx, dx_ref.reshape(n, d)), ("dw", dw, dw_ref)], F32_MM_TOL,
+                          tag)
+        times = {c: [] for c in counts}
+        for order in (counts, counts[::-1]):
+            for c in order:
+                times[c].append(_time_ms(lambda: run(c), iters=10))
+        best = {c: min(v) for c, v in times.items()}
+        log(f"[{tag}] proj_bwd_f32 {label} N={n} D={d} F={f}, ms by dw split (the better "
+            f"of two runs of 10 calls, in turns; the module's rule gives "
+            f"{_k6_f32_splits(mlp_bwd, n, d, f)[0]}, f32_weight_splits "
+            f"{mlp_bwd.f32_weight_splits(d, f, n)[0]}): "
+            + ", ".join(f"{c}: {best[c]:.4f}" for c in counts) + f" ({SMI})")
+        out[label] = best
+        del x, w, g, x2, g2, dx, dw, work, dx_ref, dw_ref
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5195,7 +5304,7 @@ def phase_f16_bwd_kernels(flash, mlp_bwd, proj, paged, train_seg) -> dict:
     at ``F16_PROJ_CASES`` against their plain versions (``MM_TOL``); every
     kernel called twice gives the same bits; then the bf16 K1, K2, K3 and K5
     keep ``K1_DIGESTS``, ``K2_DIGESTS``, ``K3_DIGESTS`` and ``K5_DIGESTS``,
-    and the f32 paged kernels, K5b-f32 and K6-f32 ``F32_DIGESTS``.
+    and the f32 paged kernels, K5a-f32, K5b-f32 and K6-f32 ``F32_DIGESTS``.
     Returns the largest absolute errors."""
     import torch
 
@@ -5280,8 +5389,8 @@ def phase_f16_bwd_kernels(flash, mlp_bwd, proj, paged, train_seg) -> dict:
             log(f"[{tag}] {name} digest {key}: {value} (expected {want.get(key)})")
         require(got == want, f"the {name} kernels differ from the earlier build's bits")
     log(f"[{tag}] the bf16 K1, K2a/K2b, K3 and K5a/K5b keep their digests, and K3-f32, "
-        f"K4-f32, K3-f32-verify, K3-int8-f32 and its verify, K5b-f32 and K6-f32 theirs "
-        f"(F32_DIGESTS)")
+        f"K4-f32, K3-f32-verify, K3-int8-f32 and its verify, K5a-f32, K5b-f32 and K6-f32 "
+        f"theirs (F32_DIGESTS)")
     return worst
 
 
@@ -6523,10 +6632,15 @@ def main() -> int:
     return 0
 
 
-def rows_main(tree: str | None, sweeps: bool) -> int:
-    """``--paged-rows [--sweep] [TREE]``: the card's name and limit, then
-    ``phase_rows_timings`` on TREE's ``ditl_tpu_torch`` (default: this
-    checkout's), with the split-length sweep under ``--sweep``."""
+def tree_main(mode: str, tree: str | None, sweeps: bool) -> int:
+    """``--paged-rows [--sweep] [TREE]`` and ``--f32-mm [--sweep] [TREE]``:
+    the card's name and limit, then TREE's ``ditl_tpu_torch`` (default: this
+    checkout's). ``--paged-rows``: ``phase_rows_timings``, with the
+    split-length sweep under ``--sweep``. ``--f32-mm``: ptxas' lines of
+    ``gemm_f32.cu``, ``phase_f32_mm_timings``, then ``_f32_digests``, each
+    logged beside ``F32_DIGESTS``' value (an older tree's bits may differ
+    by design, so nothing is required of them), and under ``--sweep``
+    ``phase_f32_split_sweep``."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6534,16 +6648,35 @@ def rows_main(tree: str | None, sweeps: bool) -> int:
         return 1
     if tree:
         sys.path.insert(0, os.path.abspath(tree))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from ditl_tpu_torch.ops import paged_attention as paged
 
-    log(f"[rows-timing] ditl_tpu_torch from {os.path.dirname(paged.__file__)}")
+    if mode == "--paged-rows":
+        log(f"[rows-timing] ditl_tpu_torch from {os.path.dirname(paged.__file__)}")
+        phase_card()
+        phase_rows_timings(paged, tree or ".", sweeps)
+        return 0
+    from ditl_tpu_torch.ops import mlp_bwd
+    from ditl_tpu_torch.ops import projection as proj
+    from ditl_tpu_torch.ops.cuda_build import build_library
+
+    tag = "f32-mm-timing"
+    log(f"[{tag}] ditl_tpu_torch from {os.path.dirname(mlp_bwd.__file__)}")
     phase_card()
-    phase_rows_timings(paged, tree or ".", sweeps)
+    _log_ptxas("gemm_f32.cu", build_library("gemm_f32.cu"), tag)
+    phase_f32_mm_timings(mlp_bwd, proj)
+    for key, value in _f32_digests(None, mlp_bwd, proj).items():
+        log(f"[{tag}] {tree or '.'} digest {key}: {value} (F32_DIGESTS: "
+            f"{F32_DIGESTS.get(key)})")
+    if sweeps:
+        phase_f32_split_sweep(mlp_bwd, proj)
     return 0
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--paged-rows"]:
+    if sys.argv[1:2] in (["--paged-rows"], ["--f32-mm"]):
         rest = sys.argv[2:]
-        sys.exit(rows_main(next((a for a in rest if a != "--sweep"), None), "--sweep" in rest))
+        sys.exit(tree_main(sys.argv[1], next((a for a in rest if a != "--sweep"), None),
+                           "--sweep" in rest))
     sys.exit(main())

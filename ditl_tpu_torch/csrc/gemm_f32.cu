@@ -30,99 +30,94 @@
 // the products run on the tensor cores as 3xTF32 (below), so the ceiling is
 // 165 TFLOP/s and not FFMA's 67.
 //
-// Two cores. K6-f32 runs mm_body (3xTF32 on mma.sync, below); K5b-f32 and
-// K5a-f32 run the wgmma core (the last sections of this header), which
-// K6-f32, whose two products are K5b-f32's, can move onto.
+// One core (wg_load / wg_split / wg_tile), three kernels on it:
+// - grad_pair_f32_kernel<5> (K5b-f32) and grad_pair_f32_kernel<6> (K6-f32),
+//   one kernel body tagged by its user (so profiles tell them apart): one
+//   grid of an activation gradient's tiles and a weight gradient's tiles;
+// - mlp_dgu_f32_kernel (K5a-f32): two grids, the dinner tiles with the
+//   SwiGLU epilogue, then the d_w_down tiles.
 //
-// Products: 3xTF32 on mma.sync.m16n8k8.tf32. Each f32 operand x is split
-// into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (x - hi is exact);
-// a k-step accumulates lo.hi, then hi.lo, then hi.hi, and drops lo.lo
-// (about 2^-22 relative). Each product of two f32 values is then good to
-// about 2^-21, against f32's 2^-24. The tensor cores' own f32 accumulation
-// truncates: a chain of 3 MMAs a k-step over 8192 tokens (3,072 MMAs) drifts
-// by up to some 1e-4 of the sum (on an H100 SXM, chip_smoke.py's path-10
-// shapes: 6-7e-5 of the largest d_w_down and dh against the plain SGEMM). So
-// each stage's 12 MMAs accumulate from zero into a partial of 32 k, which is
-// added to the running f32 sum with a rounded FADD (then 1.5e-6 at most).
+// Products: 3xTF32. Each f32 operand x is split into a TF32 hi and lo = x -
+// hi (exact); a k8 step accumulates lo.hi, then hi.lo, then hi.hi, and drops
+// lo.lo (about 2^-22 relative). Each product of two f32 values is then good
+// to about 2^-21, against f32's 2^-24. The tensor cores' own f32
+// accumulation truncates: a chain of 3 products a k8 step over 8192 tokens
+// drifts by up to some 1e-4 of the sum (on an H100 SXM, chip_smoke.py's
+// path-10 shapes: 6-7e-5 of the largest d_w_down and dh against the plain
+// SGEMM). So each k-tile's 12 products accumulate from zero into a partial of
+// 32 k, which is added to the running f32 sum with a rounded FADD (then
+// 1.5e-6 at most).
 //
-// One core, two operand layouts. Every product here is C (M x N) = A . B
-// contracting over K, and each reads its operands in one of two layouts:
+// Two operand layouts. Every product here is C (M x N) = A . B contracting
+// over K, and each reads its operands in one of two layouts:
 // - K-major (the activation gradients dinner, dh, dx): A is (M, K) and B is
 //   (N, K), rows contiguous in k (A . B^T of row-major matrices);
 // - MN-major (the weight gradients d_w_down, d_w_gu, dw, contracting over
 //   the N tokens): A is (K, M) and B is (K, N), rows contiguous in m or n.
-// mma.sync fragments are loaded from shared memory by 32-bit reads, so both
-// layouts are one kernel body (a template on the layout) and no transpose
-// stage is needed (wgmma would need one for tf32 MN-major operands).
+// wgmma reads tf32 operands only K-major, so the split pass below transposes
+// the MN-major ones; both layouts are one body, a template on the layout.
 //
-// Design. Output tiles of 128 x 128, k-tiles of 32, 256 threads (8 warps as
-// 2 x 4, each warp 64 x 32 of the tile: 4 x 4 m16n8 accumulators, 64 f32
-// registers). A ring of 3 stages in shared memory, filled by cp.async 16
-// bytes a thread, rows past the matrix zero-filled by the copy itself; tiles
-// padded so a warp's fragment reads reach 32 distinct banks: K-major tiles
-// 128 rows of 32 + 4 floats (bank 4g + t), MN-major tiles 32 k-rows of 128 +
-// 8 floats (bank 8t + g). 3 x 36,864 = 110,592 bytes of dynamic shared
-// memory, one block per SM; 64 accumulator and 64 partial registers a
-// thread (ptxas for sm_90a: 207 registers, no spills, in K6-f32; the split
-// sum 32). One block per output tile (a plain, not a persistent, grid);
-// edges at both ends of M and N are masked.
-// - K6 (and K5b on its core) run their two roles in one grid: the role
-//   with the longer contraction per tile first (blocks start in index
-//   order).
-// - Split-K over the tokens for a weight gradient with few tiles (K6 at
-//   wk/wv: dw is 896 x 128, seven tiles, each over 8192 tokens): the
-//   wrapper chooses the splits (ops/mlp_bwd.py::f32_weight_splits); each
-//   split writes its partial sums into an f32 workspace, and a second
-//   kernel adds the splits in order 0, 1, ..., S-1. No atomics anywhere, so
-//   two calls give the same bits.
-//
-// K5b-f32 on the wgmma core (mlp_dh_f32_kernel, wg_tile). What held it
-// back on mm_body (PR 14: 30.7% of its bound, 1.02x the two SGEMMs):
-// issue slots, not the tensor cores. mma.sync takes its operands from the
-// threads, so compute_stage loads every fragment value with its own 32-bit
-// shared load and splits it in registers: a 128 x 128 tile over 2 x 4 warps
-// splits each A value 4 times and each B value twice. This core:
+// Design. Output tiles of 128 x 128, k-tiles of 32.
 // - Split once. Every operand element of a k-tile is split once into a
 //   TF32 hi and a lo = x - hi (the rounding of flash_f32.cu's split_tf32:
 //   hi by two integer operations, lo unrounded), into K-major tiles of 128
 //   rows by 32 floats under the 128-byte swizzle, which wgmma reads from
-//   shared memory without the threads. dh = dgu.w_gu^T has both operands
-//   K-major (split to the same offsets); d_w_gu = h^T.dgu has both
-//   MN-major, transposed by the split pass (each thread a 4 x 4 block in
-//   registers; the raw tile's chunks XOR-swizzled so its reads and the split
-//   tile's writes both reach eight bank groups).
+//   shared memory without the threads. Both operands of a K-major role are
+//   split to the same offsets; an MN-major role's are transposed by the
+//   split pass (each thread a 4 x 4 block in registers; the raw tile's
+//   chunks XOR-swizzled so its reads and the split tile's writes both reach
+//   eight bank groups). mma.sync, which takes its operands from the
+//   threads, would load and split each A value 4 times and each B value
+//   twice across a tile's warps: issue slots, not the tensor cores, bound
+//   that form.
 // - Products. Two warpgroups, 64 rows of the 128 x 128 output tile each:
 //   a k-tile is four k8 steps of three wgmma m64n128k8 (lo.hi, hi.lo,
 //   hi.hi) into a partial from zero, which a rounded FADD adds to the
-//   running sum: the reference-accuracy rule above, at the same 32-deep
-//   chunks.
+//   running sum: the accuracy rule above, at 32-deep chunks.
 // - Overlap. Three raw stages (cp.async, each thread copying the chunks it
-//   splits, so no barrier sits between a copy and its split) and two split
-//   sets: while k-tile c's wgmmas run, the threads split k-tile c + 1 into
-//   the other set and put k-tile c + 4 in flight. One barrier a k-tile.
-//   Shared memory: 3 x 32 KB raw + 2 x 64 KB split + 1 KB to align = 225 KB,
-//   one block an SM; 256 threads, no producer warp.
-// - Grid and splits as mm_body's: one block per output tile (or split),
-//   the role with the longer contraction first; d_w_gu split over the
-//   tokens by f32_weight_splits and summed in order by
-//   splitk_sum_f32_kernel, no atomics.
-// - What bounds it now: each k-tile's wait and FADDs, when the tensor
-//   cores idle until the next k-tile's products are issued.
-// ptxas -v (sm_90a): 193 registers, no spills.
+//   splits, so no barrier sits between a copy and its split; rows past the
+//   matrix zero-filled by the copy itself) and two split sets: while k-tile
+//   c's wgmmas run, the threads split k-tile c + 1 into the other set and
+//   put k-tile c + 4 in flight. One barrier a k-tile. Shared memory: 3 x
+//   32 KB raw + 2 x 64 KB split + 1 KB to align = 225 KB, one block an SM;
+//   256 threads, no producer warp.
+// - Grid. One block per output tile, or per split of one (a plain, not a
+//   persistent, grid; edges at both ends of M and N masked). The two-role
+//   kernel runs the role with the longer contraction per tile first
+//   (blocks start in index order).
+// - Split-K over the tokens for a weight gradient with few tiles: the
+//   wrapper chooses the splits (ops/mlp_bwd.py); each split writes its
+//   partial sums into an f32 workspace, and splitk_sum_f32_kernel adds the
+//   splits in order 0, 1, ..., S-1. No atomics anywhere, so two calls give
+//   the same bits.
+// - What bounds it: each k-tile's wait and FADDs, when the tensor cores
+//   idle until the next k-tile's products are issued; in a short
+//   contraction, each block's fill and epilogue.
 //
-// K5a-f32 on the wgmma core (mlp_dgu_f32_kernel, wg_tile with the SwiGLU
-// epilogue). What held it back on mm_body (22.9% of its bound, 1.23x the
-// two SGEMMs, on an H100 SXM at 700 W): K5b-f32's issue slots, and a
-// d_w_down grid of 266 tiles (path 10: F = 4864 by D = 896) in three waves
-// of 132 where 2.02 are needed.
+// K5b-f32: dh = dgu.w_gu^T (K-major over 2F) and d_w_gu = h^T.dgu (MN-major
+// over the tokens) in one grid, d_w_gu split by f32_weight_splits.
+//
+// K6-f32: dx = g.w^T (K-major over F) and dw = x^T.g (MN-major over the
+// tokens) in one grid, K5b-f32's two roles. dw's split is
+// ops/mlp_bwd.py::f32_proj_splits, which counts the dx blocks beside it:
+// the least count whose splits are no deeper than the dx blocks' work a
+// 132nd share, a dx block counted as its k-tiles plus 6 for its fill and
+// epilogue. On qwen2-0.5b's step: wq/wo (D = F = 896) has 448 dx tiles of
+// 28 k-tiles beside dw's 49, split 3 ways (2752 tokens, 86 k-tiles); wk/wv
+// (F = 128) 448 dx tiles of 4 k-tiles beside dw's 7, split 8 ways (1024
+// tokens, 32 k-tiles). A dw split count timed alone on an H100 SXM at 700 W
+// (chip_smoke.py --f32-mm --sweep, ms): wq/wo 1: 0.4283, 2: 0.3774, 3:
+// 0.3594, 4: 0.3789, 6: 0.3690; wk/wv 8: 0.0647, 12: 0.0684, 16: 0.0725
+// (16 is what fills the card with dw's blocks alone, f32_weight_splits).
+//
+// K5a-f32 (mlp_dgu_f32_kernel, wg_tile with the SwiGLU epilogue).
 // - Two grids, one after the other on the caller's stream, from its one
 //   entry point: the dinner tiles (g . w_down^T, both operands K-major over
 //   D), whose epilogue computes SwiGLU and writes dgu and inner, then the
 //   d_w_down tiles (inner^T . g, both MN-major over the tokens), which
 //   read that inner. Stream order is the dependency; the wrapper counts one
-//   launch a call. Both run wg_load / wg_split / wg_tile as K5b-f32 does
-//   (K5b-f32's instance is the same code: the epilogue is a template
-//   parameter it leaves off).
+//   launch a call. Both run wg_tile as the two-role kernel does (the
+//   epilogue is a template parameter that one leaves off).
 // - The SwiGLU epilogue in the wgmma accumulator layout, in the plain
 //   version's order (ops/mlp_bwd.py::dgu_dwdown_plain): sg = 1 / (1 +
 //   expf(-gate)), silu = gate . sg, dgate = dinner . up . (sg . (1 + gate .
@@ -135,11 +130,13 @@
 //   gate are arguments, nothing is copied.
 // - d_w_down's splits: ops/mlp_bwd.py::f32_dwdown_splits. A grid under one
 //   wave splits as f32_weight_splits does; a larger one into the count up
-//   to 4 that wastes least of its last wave (path 10: 4 splits of 2048
-//   tokens, 1064 blocks, 9 waves of a quarter the depth, 2.25 unsplit
-//   waves' time where the unsplit grid takes 3), summed in order by
-//   splitk_sum_f32_kernel.
-// ptxas -v (sm_90a): 193 registers, no spills, as K5b-f32's.
+//   to 4 that wastes least of its last wave (path 10: F = 4864 by D = 896
+//   is 266 tiles, 4 splits of 2048 tokens, 1064 blocks, 9 waves of a
+//   quarter the depth, 2.25 unsplit waves' time where the unsplit grid
+//   takes 3), summed in order by splitk_sum_f32_kernel.
+//
+// ptxas -v (sm_90a): 193 registers, no spills, in each of
+// grad_pair_f32_kernel<5>, grad_pair_f32_kernel<6> and mlp_dgu_f32_kernel.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (ditl_tpu_torch/ops/cuda_build.py). C interface, bound with ctypes.
@@ -152,19 +149,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 128;                // output tile rows
-constexpr int kBN = 128;                // output tile columns
-constexpr int kBK = 32;                 // contraction per stage
-constexpr int kStages = 3;
-constexpr int kLdK = kBK + 4;           // floats per row of a K-major tile
-constexpr int kLdMN = kBM + 8;          // floats per k-row of an MN-major tile
-constexpr int kTile = kBM * kLdK;       // floats per operand tile (the larger layout)
-constexpr int kSmemBytes = kStages * 2 * kTile * 4;
-
-static_assert(kBM == kBN, "one padded MN-major row width for both operands");
-static_assert(kBK * kLdMN <= kTile, "an MN-major tile fits the operand slot");
-static_assert(kSmemBytes <= 232448, "shared memory per block");
+constexpr int kThreads = 256;  // two warpgroups, 64 rows of the output tile each
+constexpr int kBM = 128;       // output tile rows
+constexpr int kBN = 128;       // output tile columns
+constexpr int kBK = 32;        // contraction per k-tile
 
 // One product C (M x N) = A . B over K, and where its result goes.
 struct Role {
@@ -214,101 +202,6 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// x = hi + lo + O(2^-22 |x|), hi and lo TF32 values (as mma operand bits).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-// d (16 x 8, f32) += a (16 x 8, tf32, row) . b (8 x 8, tf32, col).
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One k-tile [k0, k0 + kBK) of both operands into a stage; contraction
-// indices >= k_end and rows or columns past the matrix arrive as zeros. Each
-// of the 1024 16-byte chunks of an operand tile is one thread's copy.
-template <bool MN>
-__device__ __forceinline__ void load_tile(float* sa, float* sb, const Role& r, int m0, int n0,
-                                          int k0, int k_end) {
-#pragma unroll
-  for (int i = 0; i < kBM * kBK / 4 / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    if constexpr (!MN) {  // 128 rows of 8 chunks
-      const int row = c >> 3, kc = (c & 7) * 4;
-      const bool kin = k0 + kc < k_end;
-      const bool va = kin && m0 + row < r.m, vb = kin && n0 + row < r.n;
-      cp_async16(sa + row * kLdK + kc, va ? r.a + (long)(m0 + row) * r.lda + k0 + kc : r.a, va);
-      cp_async16(sb + row * kLdK + kc, vb ? r.b + (long)(n0 + row) * r.ldb + k0 + kc : r.b, vb);
-    } else {  // 32 k-rows of 32 chunks
-      const int kr = c >> 5, col = (c & 31) * 4;
-      const bool kin = k0 + kr < k_end;
-      const bool va = kin && m0 + col < r.m, vb = kin && n0 + col < r.n;
-      cp_async16(sa + kr * kLdMN + col, va ? r.a + (long)(k0 + kr) * r.lda + m0 + col : r.a, va);
-      cp_async16(sb + kr * kLdMN + col, vb ? r.b + (long)(k0 + kr) * r.ldb + n0 + col : r.b, vb);
-    }
-  }
-}
-
-// The four k-steps of one stage on the warp's 64 x 32 of the tile, into
-// acc. A
-// fragment: rows g and g + 8 of an m16 tile, k t and t + 4; B fragment:
-// column g of an n8 tile, k t and t + 4 (g = lane / 4, t = lane % 4).
-template <bool MN>
-__device__ __forceinline__ void compute_stage(const float* sa, const float* sb,
-                                              float (&acc)[4][4][4], int wm, int wn, int g,
-                                              int t) {
-#pragma unroll
-  for (int kk = 0; kk < kBK; kk += 8) {
-    uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r0 = wm * 64 + i * 16 + g;
-      float v[4];
-      if constexpr (!MN) {
-        v[0] = sa[r0 * kLdK + kk + t];
-        v[1] = sa[(r0 + 8) * kLdK + kk + t];
-        v[2] = sa[r0 * kLdK + kk + t + 4];
-        v[3] = sa[(r0 + 8) * kLdK + kk + t + 4];
-      } else {
-        v[0] = sa[(kk + t) * kLdMN + r0];
-        v[1] = sa[(kk + t) * kLdMN + r0 + 8];
-        v[2] = sa[(kk + t + 4) * kLdMN + r0];
-        v[3] = sa[(kk + t + 4) * kLdMN + r0 + 8];
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(v[e], ah[i][e], al[i][e]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c0 = wn * 32 + j * 8 + g;
-      float v0, v1;
-      if constexpr (!MN) {
-        v0 = sb[c0 * kLdK + kk + t];
-        v1 = sb[c0 * kLdK + kk + t + 4];
-      } else {
-        v0 = sb[(kk + t) * kLdMN + c0];
-        v1 = sb[(kk + t + 4) * kLdMN + c0];
-      }
-      split_tf32(v0, bh[j][0], bl[j][0]);
-      split_tf32(v1, bh[j][1], bl[j][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        mma_tf32(acc[i][j], al[i], bh[j]);
-        mma_tf32(acc[i][j], ah[i], bl[j]);
-        mma_tf32(acc[i][j], ah[i], bh[j]);
-      }
-    }
-  }
-}
-
 // SwiGLU's backward at one element, in the plain version's order.
 __device__ __forceinline__ void swiglu_bwd(float dinner, float gate, float up, float& dgate,
                                            float& dup, float& inner) {
@@ -320,116 +213,8 @@ __device__ __forceinline__ void swiglu_bwd(float dinner, float gate, float up, f
   inner = __fmul_rn(silu, up);
 }
 
-// The accumulators out: C, or a split's partial sums. A thread holds columns
-// 2t, 2t + 1 of rows g, g + 8 of each m16n8 tile; M and N are multiples of
-// 4, so both columns are in or out.
-template <bool MN>
-__device__ __forceinline__ void epilogue(const Role& r, const float (&acc)[4][4][4], int m0,
-                                         int n0, int split, int wm, int wn, int g, int t) {
-  float* c = r.c;
-  long ldc = r.ldc;
-  if (r.splits > 1) {
-    c += (long)split * r.m * r.n;
-    ldc = r.n;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + i * 16 + g + 8 * half;
-      if (row >= r.m) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn * 32 + j * 8 + 2 * t;
-        if (col >= r.n) continue;
-        *reinterpret_cast<float2*>(c + (long)row * ldc + col) =
-            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-      }
-    }
-  }
-}
-
-// One output tile (one split of it) of role r: the cp.async ring over its
-// contraction, then the epilogue.
-template <bool MN>
-__device__ __forceinline__ void run_tile(const Role& r, int idx, float* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, wm = warp >> 2, wn = warp & 3;
-  const int split = idx % r.splits, rest = idx / r.splits;
-  const int m0 = rest / r.tiles_n * kBM, n0 = rest % r.tiles_n * kBN;
-  const int kb = split * r.k_chunk;
-  const int ke = min(r.k, kb + r.k_chunk);
-  const int nk = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_tile<MN>(smem + 2 * s * kTile, smem + (2 * s + 1) * kTile, r, m0, n0,
-                              kb + s * kBK, ke);
-    cp_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    float part[4][4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
-    // k-tile kt has landed, and every warp is done with the stage that the
-    // next copy overwrites (read in iteration kt - 1).
-    cp_wait<kStages - 2>();
-    __syncthreads();
-    const int nx = kt + kStages - 1;
-    if (nx < nk) {
-      const int s = nx % kStages;
-      load_tile<MN>(smem + 2 * s * kTile, smem + (2 * s + 1) * kTile, r, m0, n0,
-                    kb + nx * kBK, ke);
-    }
-    cp_commit();
-    const int s = kt % kStages;
-    compute_stage<MN>(smem + 2 * s * kTile, smem + (2 * s + 1) * kTile, part, wm, wn, g, t);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
-  }
-  epilogue<MN>(r, acc, m0, n0, split, wm, wn, g, t);
-}
-
-__device__ __forceinline__ void mm_body(const Params& p, float* smem) {
-  int idx = blockIdx.x;
-  bool mn;
-  if (p.mn_first) {
-    mn = idx < p.mn.tiles;
-    if (!mn) idx -= p.mn.tiles;
-  } else {
-    mn = idx >= p.km.tiles;
-    if (mn) idx -= p.km.tiles;
-  }
-  if (mn) {
-    run_tile<true>(p.mn, idx, smem);
-  } else {
-    run_tile<false>(p.km, idx, smem);
-  }
-}
-
-// K6-f32.
-__global__ void __launch_bounds__(kThreads, 1)
-proj_bwd_f32_kernel(const __grid_constant__ Params p) {
-  extern __shared__ __align__(16) float smem[];
-  mm_body(p, smem);
-}
-
 // ---------------------------------------------------------------------------
-// K5b-f32: 3xTF32 on wgmma from operands split once into shared memory.
+// The core: 3xTF32 on wgmma from operands split once into shared memory.
 // ---------------------------------------------------------------------------
 
 // m64n128k8 on tf32 operands, A (64 x 8) and B (128 x 8) both K-major in
@@ -461,7 +246,7 @@ __device__ __forceinline__ void wgmma_tf32_n128(float* d, uint64_t a, uint64_t b
   DITL_TF32_SS_N128;
 }
 
-// The wgmma helpers K5b-f32 needs, as csrc/hopper.cuh has them (this
+// The wgmma helpers the core needs, as csrc/hopper.cuh has them (this
 // source includes no header of the repo): a shared-memory descriptor (start
 // address, leading and stride byte offsets in 16-byte units, swizzle
 // mode), fence, commit, wait, and a barrier to the compiler's moving
@@ -519,13 +304,12 @@ __device__ __forceinline__ void split4(const float4& x, float4& hi, float4& lo) 
 // k-tiles of both operands (A, then B, kOpBytes each), filled by cp.async;
 // then two split sets (A hi, A lo, B hi, B lo), each operand K-major, 128
 // rows of 32 floats (128 bytes) under the 128-byte swizzle.
-constexpr int kWgThreads = 256;  // two warpgroups, 64 rows of the output tile each
 constexpr int kRawStages = 3;
 constexpr int kOpBytes = kBM * kBK * 4;
 constexpr int kSetOff = kRawStages * 2 * kOpBytes;
-constexpr int kWgSmem = kSetOff + 2 * 4 * kOpBytes + 1024;  // + room to align the base
+constexpr int kSmem = kSetOff + 2 * 4 * kOpBytes + 1024;  // + room to align the base
 static_assert(kBM == 128 && kBN == 128 && kBK == 32, "the split layouts' tile");
-static_assert(kWgSmem <= 232448, "shared memory per block");
+static_assert(kSmem <= 232448, "shared memory per block");
 
 // Byte offset of 16-byte chunk c (0-7) of row r of a K-major tile.
 __device__ __forceinline__ int kmaj_off(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
@@ -547,8 +331,8 @@ __device__ __forceinline__ void wg_load(uint8_t* raw, const Role& r, int m0, int
   const int tid = threadIdx.x;
   if constexpr (!MN) {
 #pragma unroll
-    for (int x = 0; x < kBM * kBK / 4 / kWgThreads; ++x) {
-      const int c = tid + x * kWgThreads, row = c >> 3, kc = c & 7;
+    for (int x = 0; x < kBM * kBK / 4 / kThreads; ++x) {
+      const int c = tid + x * kThreads, row = c >> 3, kc = c & 7;
       const bool kin = k0 + 4 * kc < k_end;
       const bool va = kin && m0 + row < r.m, vb = kin && n0 + row < r.n;
       const int off = kmaj_off(row, kc);
@@ -584,8 +368,8 @@ __device__ __forceinline__ void wg_split(const uint8_t* raw, uint8_t* set) {
     uint8_t* lo = hi + kOpBytes;
     if constexpr (!MN) {
 #pragma unroll
-      for (int x = 0; x < kBM * kBK / 4 / kWgThreads; ++x) {
-        const int c = tid + x * kWgThreads, off = kmaj_off(c >> 3, c & 7);
+      for (int x = 0; x < kBM * kBK / 4 / kThreads; ++x) {
+        const int c = tid + x * kThreads, off = kmaj_off(c >> 3, c & 7);
         float4 h, l;
         split4(*reinterpret_cast<const float4*>(src + off), h, l);
         *reinterpret_cast<float4*>(hi + off) = h;
@@ -608,7 +392,7 @@ __device__ __forceinline__ void wg_split(const uint8_t* raw, uint8_t* set) {
   }
 }
 
-// One output tile (one split of it) of role r on the wgmma core: k-tile c's
+// One output tile (one split of it) of role r on the core: k-tile c's
 // twelve products a warpgroup (3xTF32, four k8 steps) from split set c % 2
 // run while the threads split k-tile c + 1 into the other set and put
 // k-tile c + 4 in flight; each k-tile's products sum from zero into part,
@@ -721,10 +505,12 @@ __device__ __forceinline__ void wg_tile(const Role& r, int idx, uint8_t* sm) {
   }
 }
 
-// K5b-f32: one block per output tile (or split of one) of both roles, the
-// role with the longer contraction per tile first (p.mn_first).
-__global__ void __launch_bounds__(kWgThreads, 1)
-mlp_dh_f32_kernel(const __grid_constant__ Params p) {
+// K5b-f32 (kTag 5) and K6-f32 (kTag 6): one block per output tile (or split
+// of one) of both roles, the role with the longer contraction per tile first
+// (p.mn_first). The tag only names the instance.
+template <int kTag>
+__global__ void __launch_bounds__(kThreads, 1)
+grad_pair_f32_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) uint8_t wg_smem[];
   uint8_t* sm = wg_smem + ((1024u - (smem_addr(wg_smem) & 1023u)) & 1023u);
   int idx = blockIdx.x;
@@ -745,7 +531,7 @@ mlp_dh_f32_kernel(const __grid_constant__ Params p) {
 
 // K5a-f32: one grid of the dinner tiles (K-major, the SwiGLU epilogue), or
 // one of the d_w_down tiles (MN-major, or splits of them), one block each.
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 mlp_dgu_f32_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) uint8_t wg_smem[];
   uint8_t* sm = wg_smem + ((1024u - (smem_addr(wg_smem) & 1023u)) & 1023u);
@@ -805,27 +591,14 @@ bool dims_ok(int m, int n, int k, int splits, int k_chunk) {
 }
 
 template <typename Kernel>
-int launch_mm(Kernel kernel, bool& configured, const Params& p, cudaStream_t stream) {
-  if (!configured) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const int blocks = p.km.tiles + p.mn.tiles;
-  kernel<<<blocks, kThreads, kSmemBytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename Kernel>
 int launch_wg(Kernel kernel, bool& configured, const Params& p, cudaStream_t stream) {
   if (!configured) {
     const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  kernel<<<p.km.tiles + p.mn.tiles, kWgThreads, kWgSmem, stream>>>(p);
+  kernel<<<p.km.tiles + p.mn.tiles, kThreads, kSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -890,7 +663,7 @@ extern "C" int ditl_mlp_bwd_dh_dwgu_f32(const void* h, const void* dgu, const vo
   p.mn = make_role(h, dgu, splits > 1 ? work : d_w_gu, ld_h, 2L * f, 2L * f, d, 2 * f, n,
                    splits, k_chunk);
   p.mn_first = mn_first(p);
-  if (const int err = launch_wg(mlp_dh_f32_kernel, configured, p, s)) return err;
+  if (const int err = launch_wg(grad_pair_f32_kernel<5>, configured, p, s)) return err;
   return finish_splits(p.mn, d_w_gu, 2L * f, s);
 }
 
@@ -908,6 +681,6 @@ extern "C" int ditl_proj_bwd_f32(const void* x, const void* w, const void* g, vo
   p.km = make_role(g, w, dx, ld_g, f, d, n, d, f, 1, 0);
   p.mn = make_role(x, g, splits > 1 ? work : dw, ld_x, ld_g, f, d, f, n, splits, k_chunk);
   p.mn_first = mn_first(p);
-  if (const int err = launch_mm(proj_bwd_f32_kernel, configured, p, s)) return err;
+  if (const int err = launch_wg(grad_pair_f32_kernel<6>, configured, p, s)) return err;
   return finish_splits(p.mn, dw, f, s);
 }

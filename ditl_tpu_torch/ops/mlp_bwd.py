@@ -27,15 +27,17 @@ alone (its card tests).
 
 float32 operands take K5a-f32 and K5b-f32 (``ditl_mlp_bwd_dgu_dwdown_f32``,
 ``ditl_mlp_bwd_dh_dwgu_f32``) in ``csrc/gemm_f32.cu``, 3xTF32 on the tensor
-cores, both on ``wgmma`` from operands split once into shared memory (the
-source's header says how); ``kernel_route`` is the one table of dtype ->
-source and entry points, and ``launches_dgu_f32`` and ``launches_dh_f32``
-count their wrapper calls (K5a-f32 runs two grids a call, the dinner tiles
-then the d_w_down tiles). ``f32_weight_splits`` is their split-K rule for a
-weight gradient with few tiles (K5b-f32's d_w_gu, K6-f32's dw), and
-``f32_dwdown_splits`` K5a-f32's for d_w_down, which also splits a grid of
-more than one wave so that its last wave is not mostly idle. The f32
-kernels take any D and F that are multiples of 4 (16-byte rows).
+cores, on the source's one ``wgmma`` core from operands split once into
+shared memory, which K6-f32 runs too (the source's header says how);
+``kernel_route`` is the one table of dtype -> source and entry points, and
+``launches_dgu_f32`` and ``launches_dh_f32`` count their wrapper calls
+(K5a-f32 runs two grids a call, the dinner tiles then the d_w_down tiles).
+``f32_weight_splits`` is their split-K rule for a weight gradient with few
+tiles (K5b-f32's d_w_gu), ``f32_dwdown_splits`` K5a-f32's for d_w_down,
+which also splits a grid of more than one wave so that its last wave is
+not mostly idle, and ``f32_proj_splits`` K6-f32's for dw, which counts the
+dx blocks that share its grid. The f32 kernels take any D and F that are
+multiples of 4 (16-byte rows).
 
 ``BlockSizes``, ``DEFAULT_BLOCKS``, ``_pick_blocks`` and ``supports`` are the
 reference's, copied: they decide which shapes take this backward
@@ -58,8 +60,9 @@ __all__ = ["fused_mlp_bwd", "fused_mlp_bwd_plain", "dgu_dwdown", "dgu_dwdown_pla
            "dh_dwgu", "dh_dwgu_plain", "supports", "BlockSizes", "DEFAULT_BLOCKS",
            "launches_dgu", "launches_dh", "launches_dgu_f16", "launches_dh_f16",
            "launches_dgu_f32", "launches_dh_f32", "reset_launches", "kernel_route", "Route",
-           "f32_weight_splits", "f32_dwdown_splits", "K5_BLOCK_M", "K5_BLOCK_N", "K5_BLOCK_K", "K5_GROUP",
-           "F32_BLOCK", "F32_BLOCK_K", "F32_MAX_SPLITS", "k5_tile_order", "gemm_core",
+           "f32_weight_splits", "f32_dwdown_splits", "f32_proj_splits", "K5_BLOCK_M",
+           "K5_BLOCK_N", "K5_BLOCK_K", "K5_GROUP", "F32_BLOCK", "F32_BLOCK_K",
+           "F32_MAX_SPLITS", "F32_BLOCK_FIXED_K", "k5_tile_order", "gemm_core",
            "gemm_core_plain"]
 
 NUM_LANES = 128
@@ -92,6 +95,10 @@ CARD_SMS = 132  # H100 SXM: a constant, so the split (and the bits) never vary
 # K5a-f32's d_w_down over a grid of at least CARD_SMS tiles: at most this
 # many splits (each writes and the sum reads an F x D f32 plane).
 F32_DWDOWN_MAX_SPLITS = 4
+# K6-f32's dw split (f32_proj_splits): a dx block's fill and epilogue,
+# counted as this many k-tiles of its products (the value that makes the
+# rule pick the fastest counts of ``chip_smoke.py --f32-mm --sweep``).
+F32_BLOCK_FIXED_K = 6
 
 # Kernel launches since the last reset_launches(); counted where each kernel
 # is launched and nowhere else: K5a, K5b on bf16, on float16, and on f32
@@ -189,6 +196,27 @@ def f32_dwdown_splits(m: int, n: int, k: int) -> tuple[int, int]:
     chunk = _cdiv(_cdiv(k, want), F32_BLOCK_K) * F32_BLOCK_K
     splits = _cdiv(k, chunk)
     return (1, k) if splits == 1 else (splits, chunk)
+
+
+def f32_proj_splits(n: int, d: int, f: int) -> tuple[int, int]:
+    """(splits, contraction per split) of K6-f32's dw (D x F, contracting
+    over N tokens), whose blocks share one grid with dx's tiles (N x D,
+    contracting over F): the least count, at most F32_MAX_SPLITS, whose
+    splits are no deeper, in k-tiles, than the dx blocks' work a CARD_SMS
+    share, each dx block counted as its k-tiles plus F32_BLOCK_FIXED_K for
+    its fill and epilogue. The dw blocks then run beside the dx blocks and
+    end about when those do, and no split more than that is made (each
+    writes and the sum reads a D x F f32 plane). Path 10: 3 splits of 2752
+    tokens at wq/wo (D = F = 896), 8 of 1024 at wk/wv (F = 128; 448 dx
+    blocks of 4 k-tiles). Each split a multiple of F32_BLOCK_K deep, the
+    last one the rest; (1, N) unsplit."""
+    dx_work = _cdiv(n, F32_BLOCK) * _cdiv(d, F32_BLOCK) * (_cdiv(f, F32_BLOCK_K)
+                                                          + F32_BLOCK_FIXED_K)
+    deepest = dx_work // CARD_SMS  # k-tiles a split may take
+    want = min(F32_MAX_SPLITS, _cdiv(n, deepest * F32_BLOCK_K)) if deepest else F32_MAX_SPLITS
+    chunk = _cdiv(_cdiv(n, want), F32_BLOCK_K) * F32_BLOCK_K
+    splits = _cdiv(n, chunk)
+    return (1, n) if splits == 1 else (splits, chunk)
 
 
 def _pick_blocks(n: int, d: int, f: int, blocks) -> BlockSizes:

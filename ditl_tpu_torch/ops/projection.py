@@ -15,10 +15,12 @@ chosen by ``bwd_impl``:
   order the kernel's scheduler hands them out. float16 operands take
   K6-f16 (``ditl_proj_bwd_f16``, the same kernel's float16 instance),
   counted in ``launches_f16``; float32 operands take
-  K6-f32 (``csrc/gemm_f32.cu``, ``ditl_proj_bwd_f32``: 3xTF32 on
-  ``mma.sync``, dw split over the tokens by ``mlp_bwd.f32_weight_splits``
-  when its tiles are few), counted in ``launches_f32``; ``kernel_route``
-  says which dtype takes which entry point.
+  K6-f32 (``csrc/gemm_f32.cu``, ``ditl_proj_bwd_f32``: 3xTF32 on the
+  ``wgmma`` core that K5a-f32 and K5b-f32 run, as K5b-f32's kernel body with
+  K5b-f32's two roles; dw split over the tokens by
+  ``mlp_bwd.f32_proj_splits``, which counts the dx blocks beside it), counted in
+  ``launches_f32``; ``kernel_route`` says which dtype takes which entry
+  point.
 - ``"xla"``, or a shape ``supports`` rejects: the einsum spelling
   (``projection.py:164-165`` of the reference).
 
@@ -36,7 +38,7 @@ import torch
 
 from ditl_tpu_torch.ops.mlp_bwd import (K5_BLOCK_K, K5_BLOCK_M, K5_BLOCK_N, _as_rows,
                                         _cdiv, _cuda_rows, _kernel, _on_card, _raster,
-                                        f32_weight_splits)
+                                        f32_proj_splits)
 
 __all__ = ["projection", "projection_bwd", "projection_bwd_plain", "supports",
            "effective_bwd_impl", "BlockSizes", "DEFAULT_BLOCKS", "launches",
@@ -191,7 +193,7 @@ def proj_bwd_rows(x2: torch.Tensor, w: torch.Tensor, g2: torch.Tensor,
     dw = torch.empty((d, f), dtype=w.dtype, device=dev)
     f32 = x2.dtype == torch.float32
     if f32:  # dx_first does not apply: the longer contraction per tile goes first
-        splits, chunk = f32_weight_splits(d, f, n)
+        splits, chunk = f32_proj_splits(n, d, f)
         # scratch: dw's split sums, when it is split
         scratch = torch.empty((splits, d, f) if splits > 1 else (0,), dtype=x2.dtype,
                               device=dev)

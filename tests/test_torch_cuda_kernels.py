@@ -1160,19 +1160,35 @@ def test_mlp_bwd_f32_kernels_match_plain(no_tf32, n, d, f):
 
 @pytest.mark.torch_port
 @pytest.mark.parametrize("n,d,f,ld", [(8192, 896, 896, 0), (8192, 896, 128, 0),
-                                      (2064, 256, 384, 512), (16, 384, 128, 0)],
-                         ids=["wq/wo", "wk/wv", "ragged, strided g", "N=16"])
+                                      (2064, 256, 384, 512), (16, 384, 128, 0),
+                                      (2000, 384, 640, 0), (2000, 384, 600, 0),
+                                      (2000, 384, 36, 0), (512, 256, 4096, 0)],
+                         ids=["wq/wo", "wk/wv", "ragged, strided g", "N=16", "N=2000",
+                              "F=600", "F=36", "dx longer"])
 def test_proj_bwd_f32_kernel_matches_plain(no_tf32, n, d, f, ld):
     """K6-f32 against its plain version at qwen2-0.5b's wq/wo (dw split in
-    3 over the tokens) and wk/wv (dw split in 16), a ragged token edge with
-    the gradient a column slice of a wider one, and the least N."""
+    3 over the tokens) and wk/wv (dw split in 8), a ragged token edge with
+    the gradient a column slice of a wider one, the least N, N = 2000 (a
+    multiple of neither the 128-row tiles nor the 32-token k-tiles), F = 600
+    (dx's contraction and dw's columns end mid-tile) and F = 36 (dx's
+    contraction one partial k-tile), both through ``proj_bwd_rows`` since
+    the reference's ``supports`` wants F a multiple of 128, and a shape
+    whose dx contracts over more than dw's split does, so dx's tiles go
+    first."""
+    from ditl_tpu_torch.ops import mlp_bwd as tmb
     from ditl_tpu_torch.ops import projection as tpr
 
+    if (n, f) == (512, 4096):
+        assert tmb.f32_proj_splits(n, d, f)[1] < f
     x = _rnd(no_tf32, 1, n, d, seed=5, dtype=F32)
     w = _rnd(no_tf32, d, f, seed=6, scale=d**-0.5, dtype=F32)
     g = _rnd(no_tf32, 1, n, ld or f, seed=7, dtype=F32)[..., :f]
     tpr.reset_launches()
-    dx, dw = tpr.projection_bwd(x, w, g, blocks=(16, 128))
+    if tpr.supports(n, d, f, (16, 128)):
+        dx, dw = tpr.projection_bwd(x, w, g, blocks=(16, 128))
+    else:
+        dx, dw = tpr.proj_bwd_rows(x.reshape(n, d), w, g.reshape(n, f))
+        dx = dx.reshape(1, n, d)
     dx_ref, dw_ref = tpr.projection_bwd_plain(x, w, g)
     torch.cuda.synchronize()
     assert (tpr.launches_f32, tpr.launches) == (1, 0)
@@ -1185,7 +1201,8 @@ def test_mlp_proj_f32_kernels_are_bitwise_repeatable(no_tf32):
     """Three calls of K5a-f32, K5b-f32 and K6-f32 give the same bits: one
     block sums each output tile (or split), the splits are added in a fixed
     order, and K5a-f32's d_w_down grid reads inner only after the dinner
-    grid wrote it (stream order)."""
+    grid wrote it (stream order). K6-f32 at qwen2-0.5b's wk/wv (dw split in
+    8) and wq/wo (dw split in 3)."""
     from ditl_tpu_torch.ops import mlp_bwd as tmb
     from ditl_tpu_torch.ops import projection as tpr
 
@@ -1193,14 +1210,19 @@ def test_mlp_proj_f32_kernels_are_bitwise_repeatable(no_tf32):
     x = _rnd(no_tf32, 1, 8192, 896, seed=31, dtype=F32)
     w = _rnd(no_tf32, 896, 128, seed=32, scale=896**-0.5, dtype=F32)
     gp = _rnd(no_tf32, 1, 8192, 128, seed=33, dtype=F32)
+    wq = _rnd(no_tf32, 896, 896, seed=34, scale=896**-0.5, dtype=F32)
+    gq = _rnd(no_tf32, 1, 8192, 896, seed=35, dtype=F32)
+    assert tmb.f32_proj_splits(8192, 896, 896)[0] > 1
     runs = []
     for _ in range(3):
         dgu, d_w_down = tmb.dgu_dwdown(g, w_down, gate, up)
         runs.append((dgu, d_w_down, *tmb.dh_dwgu(h, dgu, w_gu),
-                     *tpr.projection_bwd(x, w, gp, blocks=(16, 128))))
+                     *tpr.projection_bwd(x, w, gp, blocks=(16, 128)),
+                     *tpr.projection_bwd(x, wq, gq, blocks=(16, 128))))
     torch.cuda.synchronize()
+    names = ("dgu", "d_w_down", "dh", "d_w_gu", "dx", "dw", "dx wq/wo", "dw wq/wo")
     for run in runs[1:]:
-        for name, a, b in zip(("dgu", "d_w_down", "dh", "d_w_gu", "dx", "dw"), run, runs[0]):
+        for name, a, b in zip(names, run, runs[0]):
             assert torch.equal(a, b), name
 
 

@@ -290,10 +290,12 @@ def test_f32_mm_kernels_live_in_their_own_source():
 
 
 # (M, N, K) of weight gradients: path 10's d_w_down, d_w_gu, wq/wo's and
-# wk/wv's dw, the card tests' ragged shapes, the least N, and a K that is no
-# multiple of the stage depth.
+# wk/wv's dw, the card tests' ragged shapes (K6-f32's dw at N = 2000 with F
+# = 640, 600 and 36, and at F = 4096 over 512 tokens), the least N, and a K
+# that is no multiple of the stage depth.
 SPLIT_SHAPES = [(4864, 896, 8192), (896, 9728, 8192), (896, 896, 8192), (896, 128, 8192),
-                (384, 384, 2064), (256, 384, 2064), (384, 384, 16), (128, 128, 1000)]
+                (384, 384, 2064), (256, 384, 2064), (384, 384, 16), (128, 128, 1000),
+                (384, 640, 2000), (384, 600, 2000), (384, 36, 2000), (256, 4096, 512)]
 
 
 @pytest.mark.parametrize("m,n,k", SPLIT_SHAPES)
@@ -313,6 +315,33 @@ def test_f32_weight_splits_cover_the_tokens_once(m, n, k):
         return
     assert chunk == least and 1 < splits <= want
     assert chunk * (splits - 1) < k <= chunk * splits
+
+
+@pytest.mark.parametrize("m,n,k", SPLIT_SHAPES + [(896, 896, 4096), (896, 128, 16384)])
+def test_f32_proj_splits_cover_the_tokens_once(m, n, k):
+    """``f32_proj_splits`` (K6-f32's dw, D = M by F = N over K tokens, its
+    grid shared with dx's (K / 128) x (D / 128) tiles): the least count, at
+    most F32_MAX_SPLITS, whose splits are no deeper in k-tiles than the dx
+    blocks' work a CARD_SMS share (each dx block its F / 32 k-tiles plus
+    F32_BLOCK_FIXED_K); each split the least multiple of F32_BLOCK_K that
+    takes the tokens in that many, so the splits cover them once, in order,
+    none empty. Path 10: 3 splits at wq/wo, 8 at wk/wv, and the same at
+    half and twice its tokens (the count follows D and F, not N)."""
+    splits, chunk = tmb.f32_proj_splits(k, m, n)
+    dx_work = -(-k // 128) * -(-m // 128) * (-(-n // 32) + tmb.F32_BLOCK_FIXED_K)
+    depth = {s: -(-(-(-k // s)) // 32) for s in range(1, tmb.F32_MAX_SPLITS + 1)}
+    want = min([s for s, kt in depth.items() if kt * tmb.CARD_SMS <= dx_work]
+               or [tmb.F32_MAX_SPLITS])
+    assert splits <= want
+    if splits == 1:
+        assert chunk == k
+    else:
+        assert chunk == depth[want] * tmb.F32_BLOCK_K
+        assert chunk * (splits - 1) < k <= chunk * splits
+    assert tmb.f32_proj_splits(8192, 896, 896) == (3, 2752)
+    assert tmb.f32_proj_splits(8192, 896, 128) == (8, 1024)
+    assert [tmb.f32_proj_splits(t, 896, f)[0] for t in (4096, 16384)
+            for f in (896, 128)] == [3, 8, 3, 8]
 
 
 @pytest.mark.parametrize("m,n,k", SPLIT_SHAPES + [(1408, 1536, 512), (4864, 896, 2000)])

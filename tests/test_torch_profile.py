@@ -41,7 +41,7 @@ def test_every_source_declares_kernels():
     assert {"flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel",
             "paged_mma_f32_kernel", "paged_merge_f32_kernel",
             "mlp_dgu_f32_kernel",
-            "mlp_dh_f32_kernel", "proj_bwd_f32_kernel", "splitk_sum_f32_kernel",
+            "grad_pair_f32_kernel", "splitk_sum_f32_kernel",
             "flash_dkv_f32_sum_kernel", "paged_rows_kernel", "paged_split_kernel"} <= names
 
 
@@ -76,12 +76,23 @@ def test_f32_kernels_have_categories_of_their_own():
              ("paged_split_kernel", "paged_mma_f32_kernel"),
              ("paged_merge_kernel", "paged_merge_f32_kernel"),
              ("mlp_dgu_dwdown_kernel", "mlp_dgu_f32_kernel"),
-             ("proj_bwd_kernel<5>", "mlp_dh_f32_kernel"),
-             ("proj_bwd_kernel<6>", "proj_bwd_f32_kernel")]
+             ("proj_bwd_kernel<5>", "grad_pair_f32_kernel<5>"),
+             ("proj_bwd_kernel<6>", "grad_pair_f32_kernel<6>")]
     for bf16, f32 in pairs:
         assert profile_train._category(bf16) != profile_train._category(f32), (bf16, f32)
     cats = [profile_train._category(f32) for _, f32 in pairs]
     assert len(set(cats)) == len(cats)
+
+
+@pytest.mark.parametrize("tag,cat", [(5, "K5b-f32 mlp_dh_f32"), (6, "K6-f32 proj_bwd_f32")])
+def test_f32_grad_pair_instances_have_their_users_categories(tag, cat):
+    """K5b-f32 and K6-f32 are two instances of one kernel,
+    ``grad_pair_f32_kernel<5>`` and ``<6>`` (csrc/gemm_f32.cu): each lands in
+    its user's category, demangled or mangled."""
+    kernel = "grad_pair_f32_kernel"
+    names = (f"void (anonymous namespace)::{kernel}<{tag}>((anonymous namespace)::Params)",
+             f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi{tag}EEEvNS_6ParamsE")
+    assert {profile_train._category(x) for x in names} == {cat}
 
 
 @pytest.mark.parametrize("name,cat", [
