@@ -155,6 +155,29 @@ no result line. It imports nothing of JAX or of the JAX package.
    tick in ``/v1/stats``. Lock-step speculation: five greedy requests
    through ``--engine lockstep --speculative on`` (K1 on each prefill), held
    to path 1's Generator by the same rule, with their acceptance.
+6d. Main path 18, draft-model speculation: the continuous engine as
+   ``infer/server.py --speculative on --draft-preset`` builds it, over path
+   1's weights object, drafting with the reference bench's drafter shape
+   over the target's config (``DRAFT_WIDTHS``: hidden 512, 6 layers, 8 heads
+   on 4; seed-initialised), path 2's 12 requests over HTTP: K3-verify 32 x
+   verify rounds, the single-query K3 never, K1 on every cold prefill and
+   draft prefill that tiles, (k + 1) draft steps a round, ``drafter:
+   model`` in ``/v1/stats``; greedy tokens against path 2's by the
+   divergence rule; tokens per verify forward per row, ms per round beside
+   path 7's, tokens/s. Then the target at depth 2 (views of path 1's first
+   two layers) as its own drafter: every live round accepts all k drafts
+   but where the verify's logits are near a tie (``SPEC_TIE_TOL``).
+6e. Main path 19, chunked prefill under a token budget: path 2's engine with
+   ``prefill_chunk=512, token_budget=640`` (``CHUNK_PREFILL``,
+   ``CHUNK_BUDGET``) on path 2's 12 requests over HTTP: K1 on every first
+   chunk and cold prefill, K3 on every decode step, the 1501-, 1201- and
+   1001-token prompts in 3, 3 and 2 chunks, a slot prefilling while others
+   decode, every tick's prefill within max(512, 640 - decode_ready x 16),
+   greedy tokens against path 2's by the divergence rule, the sampled
+   requests again with the same tokens; then four decoding requests while
+   three long prompts arrive, their time per output token and worst tick
+   and the long prompts' TTFT, beside the same trace on path 2's engine
+   (``_tick_recorder``, ``_interference_trace``).
 6b. Main path 6, int8 serving: the bf16 serving state is freed, then
    ``infer/server.py --quantize int8 --kv-quant int8 --engine continuous
    --cache-mode paged`` is built in process (``llama3-8b``, full width and
@@ -484,7 +507,8 @@ KERNELS = {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ditl_tpu/ops/flash_attention.py:127",
-        "path": "both serving paths' cold prefills (and the served checkpoint's); "
+        "path": "both serving paths' cold prefills (and the served checkpoint's), path "
+                "18's draft prefills, path 19's first chunks; "
                 "training forward and remat recompute, paths 3-5; path 15 (D = 256)",
         "head_dims": [32, 64, 128, 256],
     },
@@ -506,7 +530,8 @@ KERNELS = {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235",
-        "path": "continuous paged decode ticks (and the served checkpoint's); paths 14 "
+        "path": "continuous paged decode ticks (and the served checkpoint's, path 19's "
+                "beside chunked prefills); paths 14 "
                 "(D = 32) and 15 (D = 256)",
         "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
@@ -528,7 +553,8 @@ KERNELS = {
         "route": "cuda",
         "source": "ditl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ditl_tpu/ops/paged_attention.py:235 (q_groups, :248)",
-        "path": "speculative continuous serving (path 7): every verify round of every layer",
+        "path": "speculative continuous serving (paths 7 and 18, drafts by lookup or by "
+                "a draft model): every verify round of every layer",
         "head_dims": [16, 32, 64, 80, 96, 128, 256],
     },
     "paged_verify_int8": {
@@ -2924,6 +2950,7 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
     engine = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
                               max_cache_len=2048, cache_mode="paged", page_size=256,
                               device="cuda")
+    rec = _tick_recorder(engine)  # for path 19's comparison
     threaded = _recording_engine(engine)
     server = server_mod.make_server(gen, threaded_engine=threaded, host="127.0.0.1",
                                     port=0, model_name=cfg.name)
@@ -3002,12 +3029,17 @@ def phase_serve_continuous(gen, flash, paged) -> tuple[dict, dict]:
         f"(HTTP included); pools {pool_bytes / 1e9:.3f} GB ({SMI})")
 
     _check_decode_step(engine, paged, tag, k3)
+    interference = None
+    if tag == "continuous":  # path 2 itself: path 19's yardstick
+        interference = _interference_trace(engine, rec)
+        log(f"[{tag}] four requests decoding while three long prompts arrive: "
+            f"{_interference_line(interference)} (host clock; {SMI})")
     log(f"[{tag}] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return launches, {"ms_step": tick_ms / engine.decode_chunk,
                       "tokens_s": n_tokens / wall, "pool_bytes": pool_bytes,
                       "n_pages": engine.n_pages, "hit_tokens": hit, "ttft_s": ttft_s,
-                      "outputs": threaded.outputs}
+                      "outputs": threaded.outputs, "interference": interference}
 
 
 def _check_decode_step(engine, paged, tag: str, kernel: str) -> None:
@@ -3087,7 +3119,7 @@ def _check_against(gen, cfg, pairs, tag: str) -> None:
         f"{[round(g, 4) for g in gaps]} (SPEC_TIE_TOL {SPEC_TIE_TOL})")
 
 
-def phase_serve_spec(gen, flash, paged, bf16: dict) -> dict:
+def phase_serve_spec(gen, flash, paged, bf16: dict) -> tuple[dict, dict]:
     """Main path 7, speculative continuous serving: the continuous engine
     as ``infer/server.py --engine continuous --cache-mode paged
     --speculative on`` builds it (``speculative=True``, threshold 0: every
@@ -3096,7 +3128,8 @@ def phase_serve_spec(gen, flash, paged, bf16: dict) -> dict:
     every round of every layer, never the single-query K3; greedy tokens
     against path 2's (the span prompts against the plain engine's) by the
     divergence rule; then ``--speculative auto`` over the same weights.
-    Returns the path's launch counts."""
+    Returns the path's launch counts and its ms per verify round and
+    tokens/s."""
     import torch
 
     from ditl_tpu_torch.infer import server as server_mod
@@ -3206,6 +3239,327 @@ def phase_serve_spec(gen, flash, paged, bf16: dict) -> dict:
         f"plain step), {ast['spec_ticks']} speculative of {ast['ticks']} ticks, acceptance "
         f"EMA {ast['acceptance_ema']:.3f} ({SMI})")
     log(f"[spec] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return launches, {"ms_round": ms_round, "tokens_s": n_tokens / wall}
+
+
+# Path 18's drafter: the reference bench's draft model over the target's
+# config (``bench.py``'s ``--spec-draft``: hidden 512, 6 layers, 8 heads on 4,
+# the target's vocab and head_dim), seed-initialised.
+DRAFT_WIDTHS = dict(name="bench-draft", hidden_size=512, intermediate_size=1408,
+                    num_layers=6, num_heads=8, num_kv_heads=4)
+# Path 19: path 2's engine with chunks of 512 and a budget of one decode tick
+# (8 slots x 16 steps) plus one chunk.
+CHUNK_PREFILL, CHUNK_BUDGET = 512, 8 * 16 + 512
+
+
+def _tick_recorder(engine):
+    """Wrap ``engine``'s ``submit``, ``step`` and ``_paged_prefill_chunk`` on
+    the instance (the server's engine thread calls them) to record, host
+    clock: each request's submit, first-token and finish times and token
+    count, and for each tick the requests decode-ready at its start, its
+    prefill tokens, the largest chunk, its slots still prefilling after it
+    its spend against the budget and its wall time. Returns the record."""
+    rec = {"submit": {}, "first": {}, "done": {}, "n": {}, "ticks": [], "chunks": []}
+    submit, step, chunk = engine.submit, engine.step, engine._paged_prefill_chunk
+    tick = {}
+
+    def rec_submit(prompt, **kw):
+        rid = submit(prompt, **kw)
+        rec["submit"][rid] = time.perf_counter()
+        return rid
+
+    def rec_chunk(req, slot, d, s, generator, **kw):
+        tick["prefill"] = tick.get("prefill", 0) + s
+        tick["largest"] = max(tick.get("largest", 0), s)
+        rec["chunks"].append((req.req_id, d, s))
+        return chunk(req, slot, d, s, generator, **kw)
+
+    def rec_step():
+        seen = {id(r): r for r in list(engine._queue) + engine._slots if r is not None}
+        ready = [r.req_id for r in engine._slots if r is not None and not r.prefilling]
+        tick.clear()
+        t0 = time.perf_counter()
+        step()
+        now = time.perf_counter()
+        seen.update((id(r), r) for r in engine._slots if r is not None)
+        for r in seen.values():
+            if r.tokens and r.req_id not in rec["first"]:
+                rec["first"][r.req_id] = now
+            if r.finished and r.req_id not in rec["done"]:
+                rec["done"][r.req_id], rec["n"][r.req_id] = now, len(r.tokens)
+        rec["ticks"].append({"ready": ready, "ms": (now - t0) * 1e3,
+                             "prefill": tick.get("prefill", 0),
+                             "largest": tick.get("largest", 0),
+                             "spent": engine._tick_prefill_spent,
+                             "prefilling": engine.stats()["slots_prefilling"]})
+
+    engine.submit, engine.step, engine._paged_prefill_chunk = rec_submit, rec_step, rec_chunk
+    return rec
+
+
+def _interference_trace(engine, rec) -> dict:
+    """Four greedy requests of 201 tokens decode, then three long prompts
+    (1501, 1201 and 1001 tokens, texts no earlier request used) arrive: the
+    four's time per output token and their worst tick while a long prompt
+    prefilled (host clock, harvest to harvest), and the long prompts' time
+    to first token, in ms. ``rec`` is ``engine``'s ``_tick_recorder``."""
+    tok = engine.tokenizer
+    n0 = len(rec["ticks"])
+    shorts = [engine.submit([tok.bos_id] + tok.encode(_text(80 + i, 200)), max_new_tokens=64,
+                            temperature=0.0) for i in range(4)]
+    engine.step()
+    engine.step()
+    longs = [engine.submit([tok.bos_id] + tok.encode(_text(90 + i, n)), max_new_tokens=8,
+                           temperature=0.0) for i, n in enumerate((1500, 1200, 1000))]
+    engine.run()
+    stalls = [t["ms"] for t in rec["ticks"][n0:] if t["prefill"] and set(t["ready"]) & set(shorts)]
+    tpot = [(rec["done"][r] - rec["first"][r]) * 1e3 / (rec["n"][r] - 1) for r in shorts]
+    ttft = [(rec["first"][r] - rec["submit"][r]) * 1e3 for r in longs]
+    return {"tpot_ms": sum(tpot) / len(tpot), "stall_ticks": len(stalls),
+            "worst_tick_ms": max(stalls, default=0.0), "ttft_ms": sum(ttft) / len(ttft)}
+
+
+def _interference_line(lat: dict) -> str:
+    return (f"time per output token {lat['tpot_ms']:.2f} ms, worst tick beside a prefill "
+            f"{lat['worst_tick_ms']:.1f} ms over {lat['stall_ticks']} such ticks; the long "
+            f"prompts' TTFT {lat['ttft_ms']:.1f} ms")
+
+
+def _serve_engine(gen, engine, requests):
+    """Serve ``requests`` through the HTTP server over ``engine`` (path 2's
+    traffic pattern, ``_send_continuous``); returns the results, the wall
+    seconds, /v1/stats and the recording engine's outputs."""
+    from ditl_tpu_torch.infer import server as server_mod
+
+    threaded = _recording_engine(engine)
+    server = server_mod.make_server(gen, threaded_engine=threaded, host="127.0.0.1", port=0,
+                                    model_name=gen.cfg.name)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        results, wall = _send_continuous(url, requests, engine)
+        status, stats = _http("GET", url + "/v1/stats")
+        require(status == 200, stats)
+    finally:
+        server.close(drain=True)
+        thread.join(timeout=30)
+    require(not thread.is_alive() and not threaded._thread.is_alive(), "server did not stop")
+    n_tokens = 0
+    for i, payload in enumerate(requests):
+        require(i in results, f"request {i} did not answer")
+        status, body, _ = results[i]
+        require(status == 200, (i, status, body))
+        n_tokens += body["usage"]["completion_tokens"]
+        if not payload.get("temperature"):
+            require(body["usage"]["completion_tokens"] == payload["max_tokens"], (i, body))
+    return n_tokens, wall, stats, threaded.outputs
+
+
+def _greedy_pairs(tok, requests, outputs, want: dict):
+    """(prompt ids, tokens, path 2's tokens) of each greedy request."""
+    keys = {(tuple([tok.bos_id] + tok.encode(p["prompt"])), p["max_tokens"])
+            for p in requests if not p.get("temperature")}
+    return [(list(key[0]), out, want[key][0]) for key in sorted(keys) for out in outputs[key]]
+
+
+def phase_serve_draft(gen, flash, paged, bf16: dict, spec: dict) -> dict:
+    """Main path 18, draft-model speculation: the continuous engine as
+    ``infer/server.py --engine continuous --cache-mode paged --speculative
+    on --draft-preset`` builds it, over path 1's weights object, drafting
+    with ``DRAFT_WIDTHS`` over the target's config (seed 11), serving path
+    2's 12 requests over HTTP. K3-verify on every round of every layer, the
+    single-query K3 never, K1 on every cold prefill and on each draft
+    prefill that tiles; the drafter's k + 1 steps a round; greedy tokens
+    against path 2's by the divergence rule. Then the target at depth 2 as
+    its own drafter (views of path 1's first two layers): every live row
+    of every round accepts all k drafts but at a near-tie of the verify's
+    logits. Returns the path's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+    from ditl_tpu_torch.models import llama
+
+    cfg, tok = gen.cfg, gen.tokenizer
+    dcfg = dataclasses.replace(cfg, **DRAFT_WIDTHS)
+    dparams = llama.init_params(dcfg, seed=11, device="cuda")
+    engine = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
+                              max_cache_len=2048, cache_mode="paged", page_size=256,
+                              speculative=True, spec_threshold=0.0, draft_params=dparams,
+                              draft_cfg=dcfg, device="cuda")
+    requests = _continuous_requests()[0]
+    flash.reset_launches()  # this path's counts start here
+    paged.reset_launches()
+    n_tokens, wall, stats, outputs = _serve_engine(gen, engine, requests)
+    launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail,
+                "paged_verify": paged.launches_verify,
+                "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
+                - paged.launches_tail - paged.launches_verify}  # read right after
+    st = stats["speculative"]
+    prompts = [[tok.bos_id] + tok.encode(p["prompt"]) for p in requests]
+    buckets = [min(1 << (len(p) - 1).bit_length(), engine.smax) for p in prompts]
+    draft_k1 = dcfg.num_layers * sum(flash.supports(b, b, dcfg.head_dim) for b in buckets)
+    require(st["drafter"] == "model" and st["spec_ticks"] == st["ticks"]
+            == stats["decode_ticks"] > 0, st)
+    require(launches["paged_verify"] == cfg.num_layers * st["verify_rounds"], (launches, st))
+    require(launches["paged_tail"] == 0 and launches.pop("other") == 0, launches)
+    require(st["draft_steps"] == (st["k"] + 1) * st["verify_rounds"], st)
+    require(launches["flash_fwd"] == cfg.num_layers * stats["prefills_cold"] + draft_k1,
+            (launches, stats["prefills_cold"], draft_k1))
+    ms_round = st["spec_seconds"] / st["verify_rounds"] * 1e3
+    log(f"[draft] --draft-preset ({dcfg.num_layers} layers, hidden {dcfg.hidden_size}, "
+        f"{dcfg.num_heads} heads on {dcfg.num_kv_heads}, head_dim {dcfg.head_dim}): "
+        f"K3-verify launches {launches['paged_verify']} = {cfg.num_layers} layers x "
+        f"{st['verify_rounds']} verify rounds ({st['spec_ticks']} ticks of "
+        f"{st['rounds_per_tick']} rounds, k = {st['k']}), single-query K3 launches "
+        f"{launches['paged_tail']}; draft steps {st['draft_steps']} = (k + 1) x rounds; K1 "
+        f"launches {launches['flash_fwd']} = {cfg.num_layers} x {stats['prefills_cold']} "
+        f"cold prefills + {draft_k1} in the drafter's prefills")
+    log(f"[draft] {len(requests)} concurrent requests in {wall:.3f}s wall: {n_tokens} "
+        f"generated tokens, {n_tokens / wall:.1f} tokens/s aggregate (path 2: "
+        f"{bf16['tokens_s']:.1f}, path 7: {spec['tokens_s']:.1f}); "
+        f"{st['tokens_per_row_forward']:.3f} tokens per verify forward per row "
+        f"(acceptance EMA {st['acceptance_ema']:.3f}); {ms_round:.2f} ms per verify round "
+        f"with its {st['k'] + 1} draft steps against path 7's {spec['ms_round']:.2f} ms "
+        f"(host clock, each tick ends in a device-to-host copy; {SMI})")
+    _check_against(gen, cfg, _greedy_pairs(tok, requests, outputs, bf16["outputs"]), "draft")
+    del engine, dparams
+
+    # The target at depth 2 as its own drafter: views of path 1's weights.
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params2 = {**gen.params, "layers": {g: {k: w[:2] for k, w in grp.items()}
+                                        for g, grp in gen.params["layers"].items()}}
+    perfect = ContinuousEngine(params2, cfg2, tok, n_slots=8, decode_chunk=16,
+                               max_cache_len=2048, cache_mode="paged", page_size=256,
+                               speculative=True, spec_threshold=0.0, draft_params=params2,
+                               draft_cfg=cfg2, device="cuda")
+    k = perfect.spec_k
+    accept, scan = perfect._spec_accept, perfect._draft_scan
+    rounds = {"live": 0, "full": 0, "gaps": []}
+    live_rows = []
+
+    def scan_live(cur, pos):
+        # a round's live rows: a pending token and budget left
+        live_rows[:] = torch.nonzero((cur != tok.pad_id) & (pos < perfect.limits)
+                                     ).flatten().tolist()
+        return scan(cur, pos)
+
+    def record(logits, tokens_in, gens, sampled):
+        n_acc, nxt = accept(logits, tokens_in, gens, sampled)
+        for b in live_rows:
+            rounds["live"] += 1
+            j = int(n_acc[b])
+            if j == k:
+                rounds["full"] += 1
+            else:  # the verify's argmax against the draft at the first miss
+                row = logits[b, j]
+                rounds["gaps"].append(float(row.max() - row[tokens_in[b, j + 1]]))
+        return n_acc, nxt
+
+    perfect._draft_scan = scan_live
+    perfect._spec_accept = record
+    greedy = [p for p in requests if not p.get("temperature")][:6]
+    rids = [perfect.submit([tok.bos_id] + tok.encode(p["prompt"]),
+                           max_new_tokens=p["max_tokens"], temperature=0.0) for p in greedy]
+    out = perfect.run()
+    pst = perfect.stats()["speculative"]
+    require(all(len(out[r]) == p["max_tokens"] for r, p in zip(rids, greedy)), out)
+    require(rounds["live"] > 0 and all(g < SPEC_TIE_TOL for g in rounds["gaps"]), rounds)
+    log(f"[draft] the target at depth 2 as its own drafter: {rounds['full']} of "
+        f"{rounds['live']} live rounds accept all k = {k} drafts; the rest miss at a "
+        f"near-tie of the verify's logits, gaps {[round(g, 4) for g in rounds['gaps']]} "
+        f"(SPEC_TIE_TOL {SPEC_TIE_TOL}); {pst['tokens_per_row_forward']:.3f} tokens per "
+        f"verify forward per row over {len(greedy)} greedy requests")
+    del perfect, params2
+    log(f"[draft] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return launches
+
+
+def phase_serve_chunked(gen, flash, paged, bf16: dict) -> dict:
+    """Main path 19, chunked prefill under a token budget: path 2's engine
+    with ``prefill_chunk=CHUNK_PREFILL`` and ``token_budget=CHUNK_BUDGET``
+    over path 1's weights object, path 2's 12 requests over HTTP. K1 on
+    every first chunk and cold prefill, K3 on every decode step; the long
+    prompts' chunk counts; a slot seen prefilling while others decode; each
+    tick's prefill within max(one chunk, budget - decode_ready x 16); greedy
+    tokens against path 2's by the divergence rule; the sampled requests
+    again on the engine, the same tokens. Prints the time per output token
+    of requests that decode while long prompts prefill, and those prompts'
+    TTFT, beside path 2's (``_interference_trace``). Returns the path's launch
+    counts."""
+    import torch
+
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+
+    cfg, tok = gen.cfg, gen.tokenizer
+    engine = ContinuousEngine(gen.params, cfg, tok, n_slots=8, decode_chunk=16,
+                              max_cache_len=2048, cache_mode="paged", page_size=256,
+                              prefill_chunk=CHUNK_PREFILL, token_budget=CHUNK_BUDGET,
+                              device="cuda")
+    rec = _tick_recorder(engine)
+    requests = _continuous_requests()[0]
+    flash.reset_launches()  # this path's counts start here
+    paged.reset_launches()
+    n_tokens, wall, stats, outputs = _serve_engine(gen, engine, requests)
+    launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail,
+                "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
+                - paged.launches_tail}  # read right after the run
+    require(launches["paged_tail"] == cfg.num_layers * stats["decode_steps"] > 0,
+            (launches, stats["decode_steps"]))
+    require(launches["flash_fwd"] == cfg.num_layers * stats["prefills_cold"] > 0,
+            (launches, stats["prefills_cold"]))
+    require(launches.pop("other") == 0, launches)
+    by_req: dict[int, list] = {}
+    for rid, d, s in rec["chunks"]:
+        by_req.setdefault(rid, []).append((d, s))
+    # the three long prompts (1500, 1200, 1000 characters and BOS; no shared
+    # prefix) by their prompt length: the offset of their first chunk plus
+    # the tokens prefilled
+    want_chunks = {1501: 3, 1201: 3, 1001: 2}
+    got_chunks = {}
+    for parts in by_req.values():
+        require(all(d % engine.page_size == 0 and s <= CHUNK_PREFILL for d, s in parts), parts)
+        total = parts[0][0] + sum(s for _, s in parts)
+        if total in want_chunks:
+            got_chunks[total] = len(parts)
+    require(got_chunks == want_chunks, (got_chunks, by_req))
+    both = [t for t in rec["ticks"] if t["prefilling"] > 0 and t["ready"]]
+    require(both, "no tick had a slot prefilling beside decoding ones")
+    for t in rec["ticks"]:
+        cap = max(CHUNK_PREFILL, CHUNK_BUDGET - len(t["ready"]) * engine.decode_chunk)
+        require(t["spent"] == t["prefill"] <= cap, (t, cap))
+    require(stats["max_tick_prefill_tokens"] == max(t["spent"] for t in rec["ticks"]), stats)
+    log(f"[chunked] prefill_chunk {CHUNK_PREFILL}, token_budget {CHUNK_BUDGET}: K1 launches "
+        f"{launches['flash_fwd']} = {cfg.num_layers} x {stats['prefills_cold']} first chunks "
+        f"and cold prefills ({stats['prefills_prefix_hit']} later chunks and prefix-hit "
+        f"prefills on the masked plain path); K3 launches {launches['paged_tail']} = "
+        f"{cfg.num_layers} x {stats['decode_steps']} decode steps; chunks by prompt length "
+        f"{got_chunks}; {len(both)} ticks decoded beside a prefilling slot; "
+        f"max_tick_prefill_tokens {stats['max_tick_prefill_tokens']}; prefix cache "
+        f"{stats['prefix_cache']}")
+    _check_against(gen, cfg, _greedy_pairs(tok, requests, outputs, bf16["outputs"]), "chunked")
+    # The sampled requests again, straight to the engine: the same tokens.
+    sampled = [p for p in requests if p.get("temperature")]
+    again = {}
+    for p in sampled:
+        ids = [tok.bos_id] + tok.encode(p["prompt"])
+        rid = engine.submit(ids, max_new_tokens=p["max_tokens"], temperature=p["temperature"],
+                            top_p=p.get("top_p", 1.0), seed=p["seed"])
+        again[rid] = (tuple(ids), p["max_tokens"])
+    rerun = engine.run()
+    for rid, key in again.items():
+        require(outputs[key] == [rerun[rid]], (key[1], outputs[key], rerun[rid]))
+    log(f"[chunked] {len(sampled)} sampled requests served again: the same tokens")
+    log(f"[chunked] {len(requests)} concurrent requests in {wall:.3f}s wall: {n_tokens} "
+        f"generated tokens, {n_tokens / wall:.1f} tokens/s aggregate (path 2: "
+        f"{bf16['tokens_s']:.1f}; {SMI})")
+    lat = _interference_trace(engine, rec)
+    log(f"[chunked] four requests decoding while three long prompts arrive: "
+        f"{_interference_line(lat)}; path 2: {_interference_line(bf16['interference'])} "
+        f"(host clock; {SMI})")
+    log(f"[chunked] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return launches
 
 
@@ -6440,7 +6794,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     gen, lockstep = phase_serve(flash, paged)
     continuous, bf16_summary = phase_serve_continuous(gen, flash, paged)
-    spec_serve = phase_serve_spec(gen, flash, paged, bf16_summary)
+    spec_serve, spec_summary = phase_serve_spec(gen, flash, paged, bf16_summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path18 = phase_serve_draft(gen, flash, paged, bf16_summary, spec_summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path19 = phase_serve_chunked(gen, flash, paged, bf16_summary)
     lockstep_spec = phase_lockstep_spec(gen, flash, paged)
     # Free the bf16 serving weights and pools before path 6's int8 ones.
     del gen, bf16_summary["outputs"]
@@ -6544,15 +6904,17 @@ def main() -> int:
     # on training path 4; K4 has no serving path, so its count is the
     # kernels phase's direct calls.
     launches = {"flash_fwd": lockstep["flash_fwd"] + continuous["flash_fwd"]
-                + spec_serve["flash_fwd"] + lockstep_spec["flash_fwd"]
+                + spec_serve["flash_fwd"] + path18["flash_fwd"] + path19["flash_fwd"]
+                + lockstep_spec["flash_fwd"]
                 + int8_serve["flash_fwd"] + training["flash_fwd"] + training4["flash_fwd"]
                 + recipe["flash_fwd"] + ckpt_serve["flash_fwd"],
                 "flash_dq": training["flash_dq"] + training4["flash_dq"] + recipe["flash_dq"],
                 "flash_dkv": (training["flash_dkv"] + training4["flash_dkv"]
                               + recipe["flash_dkv"]),
-                "paged_tail": continuous["paged_tail"] + ckpt_serve["paged_tail"],
+                "paged_tail": (continuous["paged_tail"] + path19["paged_tail"]
+                               + ckpt_serve["paged_tail"]),
                 "paged_tail_int8": int8_serve["paged_tail_int8"] + spec_int8["paged_tail_int8"],
-                "paged_verify": spec_serve["paged_verify"],
+                "paged_verify": spec_serve["paged_verify"] + path18["paged_verify"],
                 "paged_verify_int8": spec_int8["paged_verify_int8"],
                 "paged": errors.pop("paged_direct_launches"),
                 **{k: f32_serve.get(k, 0) + f32_int8_serve.get(k, 0) + f32_train[k]
@@ -6607,11 +6969,15 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched on its path")
         kernels.append({"name": name, **meta, "launches": launches[name],
                         "launches_paths_14_17": by_dim[name],
+                        "launches_paths_18_19": {"18": path18.get(name, 0),
+                                                 "19": path19.get(name, 0)},
                         "max_abs_err": errors[name], **timings[name],
                         "at_head_dims": hd_timings.get(name, {}),
                         "at_shapes": shape_timings.get(name, {})})
     log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}, "
-        f"speculative continuous {spec_serve}, lock-step speculative {lockstep_spec}, "
+        f"speculative continuous {spec_serve}, draft-model speculation (path 18) {path18}, "
+        f"chunked prefill under a budget (path 19) {path19}, "
+        f"lock-step speculative {lockstep_spec}, "
         f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
         f"f32 serving {f32_serve}, f32 speculative {f32_spec}, f32 over int8 pools "
         f"{f32_int8_serve}, its speculation {f32_int8_spec}, float16 serving {f16_serve}, "

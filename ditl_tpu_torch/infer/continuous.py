@@ -2,9 +2,10 @@
 
 Counterpart of the JAX package's ``infer/continuous.py``, in its paged
 configuration: ``cache_mode="paged"``, ``admission="reserve"``, whole-prompt
-prefill, plain and prompt-lookup speculative decode ticks, float or int8
-pools, one device, and automatic prefix reuse (which paged mode always
-does). Requests join and leave between decode ticks:
+or chunked prefill under an optional per-tick token budget, plain and
+speculative decode ticks (drafts by prompt lookup or by a draft model),
+float or int8 pools, one device, and automatic prefix reuse (which paged
+mode always does). Requests join and leave between decode ticks:
 
 - **Slots.** ``n_slots`` sequences decode together, each at its own
   position; every tick runs all slots, live or not (fixed shapes).
@@ -22,6 +23,19 @@ does). Requests join and leave between decode ticks:
   whose leading pages matched runs the masked cached forward over its
   gathered context pages plus the suffix. The chunk's whole pages are
   scattered into the pool.
+- **Chunked prefill** (``prefill_chunk``, a multiple of ``page_size``): a
+  prompt whose unmatched part is longer than one chunk parks its slot
+  (``cur = pad``, ``pos = 0``; decode ticks leave it out) and prefills one
+  chunk per tick at a page-aligned offset, the first over no context (K1),
+  the later ones over the gathered pages of the earlier ones. Only the last
+  chunk samples: it seeds the slot's generator from the request's seed and
+  draws the first token as an unchunked admission would, publishes the
+  prompt pages and makes the row live.
+- **Token budget** (``token_budget``): each tick's prefill spend is capped
+  at ``budget - decode_ready x decode_chunk`` tokens, the tick's first
+  prefill always passing; in-flight chunks draw the allowance before
+  admission does, then newly admitted chunked prompts (the reference's
+  order, decode > ongoing prefill > new work).
 - **Decode tick.** ``decode_chunk`` steps with ``starts = pos``; each step's
   K/V go into a small per-tick tail buffer, attention reads the pages plus
   the tail (the CUDA kernel K3, ``ops/paged_attention.py``), and after the
@@ -34,7 +48,11 @@ does). Requests join and leave between decode ticks:
   the reference's ``_build_spec_paged_decode``. Each round drafts ``spec_k``
   tokens per slot by prompt lookup over the slot's token history ``hist``
   (``infer/speculative.device_lookup_draft``; written at admission, extended
-  by plain ticks too while speculation is armed), verifies them with one
+  by plain ticks too while speculation is armed) or, with
+  ``draft_params``/``draft_cfg``, by k greedy steps of a small draft model
+  over its own contiguous per-slot cache (``_draft_scan``: k + 1 feeds, the
+  pending token first, the last output discarded; rejected drafts' KV stays
+  masked by position, so nothing rolls back; every tick speculates), verifies them with one
   (B, k+1) forward whose K/V land in the tick's tail at per-row offsets and
   whose attention is K3's multi-query verify, and emits the accepted prefix
   plus the verify's own next token (greedy rows: exact match; sampled rows:
@@ -59,11 +77,11 @@ are PyTorch's, not the reference's, so sampled tokens match it in
 distribution only; greedy tokens match exactly.
 
 Everything else of the reference engine raises ``NotImplementedError`` and
-is queued in ``ROADMAP.md``: the contiguous cache, chunked prefill, token
-budgets, optimistic admission with preemption, draft-model drafting,
-logprobs, grammar masks, multi-LoRA stacks, the host-RAM tier and KV
-handoff, ``register_prefix``, deadlines, pipelined ticks, meshes, and the
-telemetry planes.
+is queued in ``ROADMAP.md``: the contiguous cache, optimistic admission
+with preemption, logprobs, grammar masks, multi-LoRA stacks, the host-RAM
+tier and KV handoff, ``register_prefix``, deadlines, pipelined ticks,
+meshes, and the telemetry planes (of which ``stats()`` keeps
+``max_tick_prefill_tokens``).
 """
 
 from __future__ import annotations
@@ -128,8 +146,13 @@ class Request:
     top_p: float
     seed: int
     tokens: list[int] = field(default_factory=list)
+    slot: int | None = None
     finished: bool = False
     slo_class: str = "interactive"
+    # Chunked prefill: the next prompt offset to prefill; the request joins
+    # decode ticks only once the whole prompt is in the pages.
+    prefill_pos: int = 0
+    prefilling: bool = False
     # Measured speculative acceptance of this request: tokens emitted over
     # its speculative rounds, and the verify forwards it took part in.
     spec_tokens: int = 0
@@ -239,16 +262,20 @@ class ContinuousEngine:
         tick (default ``decode_chunk / 2.5``), speculating when the predicted
         acceptance (EMA ``spec_ema``, re-probed every ``spec_probe_every``
         ticks) clears ``spec_threshold`` (None: the measured verify/decode
-        cost ratio; 0.0 speculates every tick)."""
+        cost ratio; 0.0 speculates every tick). ``draft_params`` with
+        ``draft_cfg`` (same vocabulary, ``max_seq_len`` at least the context
+        cap, weights on ``device``) drafts by a small model instead, and then
+        every tick speculates.
+
+        ``prefill_chunk`` (0: whole prompts; else a multiple of
+        ``page_size``) prefills longer prompts one chunk a tick;
+        ``token_budget`` (0: none; else at least ``n_slots x decode_chunk``)
+        caps each tick's prefill tokens at what its decode steps leave."""
         check_vocab(tokenizer, model_cfg.vocab_size, "ContinuousEngine")
         llama.check_supported(model_cfg)
         unported = {
             "cache_mode='contiguous'": cache_mode == "contiguous",
-            "prefill_chunk (chunked prefill)": prefill_chunk != 0,
-            "token_budget": token_budget != 0,
             "admission='optimistic' (preemption and resume)": admission == "optimistic",
-            "draft models (draft_params/draft_cfg)": (draft_params is not None
-                                                      or draft_cfg is not None),
             "logprobs_k": logprobs_k != 0,
             "fsm_capacity (grammar-constrained decoding)": fsm_capacity != 0,
             "host_tier_mb (the host-RAM prefix tier)": host_tier_mb != 0,
@@ -272,6 +299,28 @@ class ContinuousEngine:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         if page_size < 16 or page_size & (page_size - 1):
             raise ValueError(f"page_size must be a power of two >= 16, got {page_size}")
+        if prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        if prefill_chunk % page_size:
+            raise ValueError(
+                f"prefill_chunk {prefill_chunk} must be a multiple of page_size "
+                f"{page_size} (chunk starts must be page-aligned)")
+        # The budget must cover a full decode tick, so the prefill allowance
+        # is at least decode_chunk whenever a slot is prefilling or free.
+        if token_budget < 0:
+            raise ValueError(f"token_budget must be >= 0, got {token_budget}")
+        if token_budget and token_budget < n_slots * decode_chunk:
+            raise ValueError(
+                f"token_budget {token_budget} must cover a full decode tick "
+                f"(n_slots {n_slots} x decode_chunk {decode_chunk} = "
+                f"{n_slots * decode_chunk}); smaller budgets would zero the "
+                f"prefill allowance forever and starve admission")
+        self.prefill_chunk = prefill_chunk
+        self.token_budget = token_budget
+        self._tick_prefill_left: int | None = None  # None: an unbudgeted tick
+        self._tick_prefill_spent = 0
+        # The largest prefill spend (tokens) of any one tick.
+        self.max_tick_prefill_tokens = 0
         self.device = resolve_device(device)
         self.params = params
         self.cfg = model_cfg
@@ -363,11 +412,38 @@ class ContinuousEngine:
             self.spec_row_forwards = 0
             self.spec_seconds = 0.0
             self._tick_no = 0
+        # -- model drafting (draft_params + draft_cfg) ------------------------
+        # A small draft model drafts in place of prompt lookup, over its own
+        # contiguous per-slot cache; the target's verify decides every token.
+        self.spec_draft = "lookup"
+        if draft_params is not None or draft_cfg is not None:
+            if draft_params is None or draft_cfg is None:
+                raise ValueError("draft_params and draft_cfg must be given together")
+            if not speculative:
+                raise ValueError("a draft model needs speculative=True (it drafts for "
+                                 "speculative ticks)")
+            if draft_cfg.vocab_size != model_cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} must match the target's "
+                    f"{model_cfg.vocab_size} (same token space)")
+            if draft_cfg.max_seq_len < self.smax:
+                raise ValueError(
+                    f"draft max_seq_len {draft_cfg.max_seq_len} is below the serving "
+                    f"context cap {self.smax}")
+            llama.check_supported(draft_cfg)
+            from ditl_tpu_torch.infer.cache import init_cache
+
+            self.spec_draft = "model"
+            self.draft_params = draft_params
+            self.draft_cfg = draft_cfg
+            self.draft_cache = init_cache(draft_cfg, n_slots, self.smax, dev)
+            self.draft_steps = 0  # draft-model decode forwards (k + 1 a round)
         # Per-slot token history (prompt + generated, the pending ``cur`` at
-        # column pos): the draft source of speculative ticks, written at
-        # admission and carried through every tick while speculation is
-        # armed; one column otherwise.
-        self.hist = torch.zeros((n_slots, self.smax if speculative else 1),
+        # column pos): the draft source of prompt-lookup ticks, written at
+        # admission and carried through every tick while lookup speculation
+        # is armed; one column otherwise.
+        self._track_hist = speculative and self.spec_draft == "lookup"
+        self.hist = torch.zeros((n_slots, self.smax if self._track_hist else 1),
                                 dtype=torch.long, device=dev)
         self.prefills_cold = 0
         self.prefills_prefix_hit = 0
@@ -507,21 +583,25 @@ class ContinuousEngine:
         return min(_next_pow2(need, floor=1), self.maxp)
 
     def _paged_prefill_chunk(self, req: Request, slot: int, d: int, s: int,
-                             generator: torch.Generator | None) -> torch.Tensor:
-        """Prefill ``req.prompt[d:d+s]`` into ``slot``'s pages and sample the
-        first token (a device scalar, no host sync).
+                             generator: torch.Generator | None, *,
+                             s_bucket: int | None = None,
+                             sample: bool = True) -> torch.Tensor | None:
+        """Prefill ``req.prompt[d:d+s]`` into ``slot``'s pages and, with
+        ``sample``, sample the first token (a device scalar, no host sync);
+        a chunked prompt's earlier chunks sample nothing (None).
 
-        The bucket is a power of two of at least one page. With no context
-        (``d == 0``) the prefill is causal over the bucket with pad validity
-        in segment ids (the flash kernel's path). With a context, the
-        context's pages are gathered into a transient contiguous row (a
-        power-of-two bucket of pages) and the masked cached forward runs
-        over it. Either way the chunk's whole pages are then written to
+        The bucket is ``s_bucket`` (default ``s``; the chunk size for a
+        chunk) rounded up to a power of two of at least one page. With
+        no context (``d == 0``) the prefill is causal over the bucket with
+        pad validity in segment ids (the flash kernel's path). With a
+        context, the context's pages are gathered into a transient contiguous
+        row (a power-of-two bucket of pages) and the masked cached forward
+        runs over it. Either way the chunk's whole pages are then written to
         ``write_pids`` in place; bucket columns past ``s`` hold garbage that
-        stays masked until decode overwrites it."""
+        stays masked until a later chunk or decode overwrites it."""
         cfg, dev, ps = self.cfg, self.device, self.page_size
         ctx_row, write_pids = self._table[slot], self._table[slot, d // ps:]
-        s_bucket = min(_next_pow2(s, floor=ps), self.maxp * ps)
+        s_bucket = min(_next_pow2(max(s_bucket or s, ps), floor=ps), self.maxp * ps)
         ctx = self._ctx_pages_bucket(d)
         n_wp = s_bucket // ps
         n_l, n_k, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
@@ -572,6 +652,8 @@ class ContinuousEngine:
                 chunk, scale = _quantize_pages(chunk)
                 spool[:, pid_t] = scale
             pool[:, pid_t] = chunk
+        if not sample:
+            return None
         last = llama.logits_from_hidden(self.params, hidden[:, s - 1])  # (1, V)
         # Scalar mode: the same draws as the tick's per-row mode from this
         # generator; temperature <= 0 is greedy there, so it is 0 here.
@@ -580,10 +662,20 @@ class ContinuousEngine:
 
     def _admit_paged_slot(self, slot: int) -> bool:
         """Admit the queue head into ``slot``: match its prefix, reserve its
-        worst-case pages (prompt + max_new) or leave it queued (False)."""
+        worst-case pages (prompt + max_new) or leave it queued (False). An
+        unchunked admission prefills its whole unmatched prompt now, so it
+        also waits while that would bust the tick's prefill allowance; a
+        chunked one parks the slot and costs nothing until its chunks run."""
         req = self._queue[0]
         ps = self.page_size
         matched = self.allocator.match_prefix(req.prompt, ps)  # retained
+        d0 = len(matched) * ps
+        s = len(req.prompt) - d0
+        chunked = bool(self.prefill_chunk) and s > self.prefill_chunk
+        if not self._budget_allows(0 if chunked else s):
+            for pid in matched:
+                self.allocator.release(pid)
+            return False
         worst = -(-(len(req.prompt) + req.max_new_tokens) // ps)
         try:
             fresh = self.allocator.alloc(worst - len(matched))
@@ -593,36 +685,176 @@ class ContinuousEngine:
             return False
         with self._queue_lock:  # by identity: a submit may have inserted ahead
             self._queue.remove(req)
-        d0 = len(matched) * ps
         self.prefix_hit_tokens += d0
-        self.prefix_miss_tokens += len(req.prompt) - d0
+        self.prefix_miss_tokens += s
         pages = matched + fresh
         self._slot_pages[slot] = pages
         self._table[slot, :] = 0
         self._table[slot, : len(pages)] = pages
         self._table_dirty = True
-        gen = None
-        if req.temperature > 0.0:
-            gen = torch.Generator(device=self.device).manual_seed(req.seed)
-        self._gens[slot] = gen
+        req.slot = slot
         self._slots[slot] = req
-        s = len(req.prompt) - d0
-        first = self._paged_prefill_chunk(req, slot, d0, s, gen)
-        self._publish_prompt_pages(req, slot)
-        self._set_hist(slot, req.prompt, first)
         # In-place writes of this slot's row: no copy of the slot state.
-        self.cur[slot] = first
-        self.pos[slot] = len(req.prompt)
+        if chunked:
+            # Parked until its last chunk lands: a dead row of every tick.
+            req.prefill_pos = d0
+            req.prefilling = True
+            self._gens[slot] = None
+            self.cur[slot] = self.tokenizer.pad_id
+            self.pos[slot] = 0
+        else:
+            first = self._paged_prefill_chunk(req, slot, d0, s, self._slot_generator(req))
+            self._record_prefill(s)
+            self._go_live(req, first)
         self.temps[slot] = req.temperature
         self.top_ps[slot] = req.top_p
         self.limits[slot] = len(req.prompt) + req.max_new_tokens
         return True
 
+    def _slot_generator(self, req: Request) -> torch.Generator | None:
+        """The generator of ``req``'s slot, seeded from the request's seed
+        (None for a greedy request); it draws the first token, then every
+        decode tick's."""
+        gen = None
+        if req.temperature > 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(req.seed)
+        self._gens[req.slot] = gen
+        return gen
+
+    def _go_live(self, req: Request, first: torch.Tensor) -> None:
+        """The whole prompt is in the pages: publish them and make the row
+        decode from ``first`` at position len(prompt)."""
+        slot = req.slot
+        req.prefilling = False
+        self._publish_prompt_pages(req, slot)
+        self.cur[slot] = first
+        self.pos[slot] = len(req.prompt)
+        self._set_hist(slot, req.prompt, first)
+        self._draft_prefill(req, slot)
+
+    def _chunk_bucket(self, d: int, s: int) -> int:
+        """Write-window bucket of a chunk of ``s`` tokens at offset ``d``:
+        ``prefill_chunk``, except near the cache end, where the window must
+        still fit."""
+        if d + self.prefill_chunk <= self.smax:
+            return self.prefill_chunk
+        return min(_next_pow2(s, floor=16), self.smax - d)
+
+    def _advance_prefill(self, req: Request) -> None:
+        """One chunk of a chunked prefill, at the page-aligned offset
+        ``prefill_pos``. Only the last chunk samples: the slot's generator is
+        seeded there, from the request's seed, so the first token and every
+        later draw are those of an unchunked admission whatever the number
+        of ticks the slot was parked."""
+        d = req.prefill_pos
+        s = min(self.prefill_chunk, len(req.prompt) - d)
+        last = d + s >= len(req.prompt)
+        gen = self._slot_generator(req) if last else None
+        first = self._paged_prefill_chunk(req, req.slot, d, s, gen,
+                                          s_bucket=self.prefill_chunk, sample=last)
+        req.prefill_pos += s
+        if last:
+            self._go_live(req, first)
+
+    # -- the per-tick token budget --------------------------------------------
+
+    def _budget_allows(self, cost: int) -> bool:
+        """Does this tick's prefill allowance cover ``cost`` more tokens? The
+        tick's first prefill always passes (a tight budget bounds the stall
+        and must not starve admission), so the per-tick bound is
+        ``max(one chunk, budget - decode_ready x decode_chunk)``."""
+        if self._tick_prefill_left is None or cost <= 0:
+            return True
+        return self._tick_prefill_spent == 0 or cost <= self._tick_prefill_left
+
+    def _record_prefill(self, tokens: int) -> None:
+        """Debit one prefill dispatch from the tick's allowance."""
+        self._tick_prefill_spent += tokens
+        if self._tick_prefill_left is not None:
+            self._tick_prefill_left = max(0, self._tick_prefill_left - tokens)
+        self.max_tick_prefill_tokens = max(self.max_tick_prefill_tokens,
+                                           self._tick_prefill_spent)
+
+    def _advance_prefill_chunks(self, reqs: list[Request]) -> None:
+        """One chunk for each prefilling request, in SLO order (class rank,
+        then age); a chunk that would bust the allowance waits for a later
+        tick."""
+        for req in sorted(reqs, key=lambda r: r.slo_rank):
+            if not req.prefilling:
+                continue
+            cost = min(self.prefill_chunk, len(req.prompt) - req.prefill_pos)
+            if not self._budget_allows(cost):
+                continue
+            d_before = req.prefill_pos
+            self._advance_prefill(req)
+            self._record_prefill(req.prefill_pos - d_before)
+
+    # -- the draft model -------------------------------------------------------
+
+    def _draft_prefill(self, req: Request, slot: int) -> None:
+        """Admission hook of model drafting: the prompt into ``slot``'s row
+        of the draft cache, always the whole prompt (prefix reuse and the
+        target's chunks do not apply to the drafter's private cache). No
+        sampling: the drafter's first prediction comes in the spec tick,
+        from the pending ``cur``. A prompt longer than ``prefill_chunk`` is
+        fed in chunks at their offsets under the causal mask (the bucket
+        tail past a chunk's tokens is written with garbage the draft scan
+        overwrites before it attends it)."""
+        if self.spec_draft != "model":
+            return
+        dcfg, dev, pad = self.draft_cfg, self.device, self.tokenizer.pad_id
+        ctx = req.prompt
+        # the slot's row of the draft cache, as views: the writes land in place
+        row = {name: c[:, slot:slot + 1] for name, c in self.draft_cache.items()}
+        if self.prefill_chunk and len(ctx) > self.prefill_chunk:
+            iota = torch.arange(self.smax, device=dev)
+            d = 0
+            while d < len(ctx):
+                s = min(self.prefill_chunk, len(ctx) - d)
+                s_bucket = self._chunk_bucket(d, s)
+                ids = torch.full((1, s_bucket), pad, dtype=torch.long)
+                ids[0, :s] = torch.tensor(ctx[d:d + s], dtype=torch.long)
+                q_pos = torch.arange(d, d + s_bucket, device=dev)[None]
+                llama.forward(self.draft_params, ids.to(dev), dcfg, positions=q_pos,
+                              cache=row, cache_index=d,
+                              attn_mask=iota[None, None, :] <= q_pos[:, :, None],
+                              return_hidden=True)
+                d += s
+            return
+        p_bucket = min(_next_pow2(len(ctx), floor=16), self.smax)
+        ids = torch.full((1, p_bucket), pad, dtype=torch.long)
+        ids[0, :len(ctx)] = torch.tensor(ctx, dtype=torch.long)
+        seg = (torch.arange(p_bucket, device=dev) < len(ctx)).to(torch.int32)[None]
+        llama.forward(self.draft_params, ids.to(dev), dcfg,
+                      positions=torch.arange(p_bucket, device=dev)[None], segment_ids=seg,
+                      cache=row, cache_index=0, prefill_causal=True, return_hidden=True)
+
+    def _draft_scan(self, cur: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """k greedy draft-model decode steps from the pending ``cur``: (B, k)
+        drafts. The scan feeds k + 1 tokens, ``cur`` then all k drafts, so
+        every draft's KV is written (a full-accept round would otherwise
+        leave the last draft's position a hole the next scan attends); the
+        (k + 1)-th output is discarded. Feeding ``cur`` at ``pos`` also
+        writes the KV the previous round's bonus token never got, and stale
+        KV past a row's position stays masked until it is fed again."""
+        dcfg, smax = self.draft_cfg, self.smax
+        iota = torch.arange(smax, device=self.device)
+        tok, p, drafts = cur, pos.long(), []
+        for _ in range(self.spec_k + 1):
+            logits = llama.forward(self.draft_params, tok[:, None], dcfg,
+                                   positions=p[:, None], cache=self.draft_cache,
+                                   cache_index=p, attn_mask=(iota[None, :] <= p[:, None])[:, None])
+            tok = torch.argmax(logits[:, 0], dim=-1)
+            drafts.append(tok)
+            p = torch.clamp(p + 1, max=smax - 1)
+            self.draft_steps += 1
+        return torch.stack(drafts[:-1], dim=1)
+
     def _set_hist(self, slot: int, prompt: list[int], first: torch.Tensor) -> None:
         """Seed the slot's draft history: the prompt, then the pending first
         token at column len(prompt) (``hist[pos] == cur`` between ticks).
         ``first`` stays a device scalar: no host sync at admission."""
-        if not self.speculative:
+        if not self._track_hist:
             return
         n = min(len(prompt), self.smax - 1)
         row = torch.zeros((self.smax,), dtype=torch.long)
@@ -655,7 +887,7 @@ class ContinuousEngine:
         cfg, dev = self.cfg, self.device
         n_b, chunk = self.n_slots, self.decode_chunk
         pad, eos = self.tokenizer.pad_id, self.tokenizer.eos_id
-        active = [r for r in self._slots if r is not None]
+        active = [r for r, live in zip(self._slots, occupied) if live]
         sampled = any(r.temperature > 0.0 for r in active)
         # top_p matters only when something samples.
         topp = sampled and any(r.top_p < 1.0 for r in active)
@@ -670,8 +902,8 @@ class ContinuousEngine:
                  "tv": torch.zeros(tail_shape, dtype=dtype, device=dev)}
         uniforms = None
         if sampled:
-            gens = [g if r is not None and r.temperature > 0.0 else None
-                    for g, r in zip(self._gens, self._slots)]
+            gens = [g if live and r.temperature > 0.0 else None
+                    for g, r, live in zip(self._gens, self._slots, occupied)]
             uniforms = row_uniforms(gens, (chunk, cfg.vocab_size), dev)
         cur, pos, hist = self.cur, self.pos, self.hist
         done = ~torch.tensor(occupied, device=dev)
@@ -695,7 +927,7 @@ class ContinuousEngine:
             done = done | (cur == eos)
             pos = torch.where(step_alive, pos + 1, pos)
             cur = torch.where(done, pad, nxt)
-            if self.speculative:
+            if self._track_hist:
                 hist = _emit_rows(hist, cur[:, None], pos, (~done).long())
             self.decode_steps += 1
         _flush_tail_into_pools(self.cache, cache["tk"], cache["tv"], starts, pos,
@@ -721,7 +953,7 @@ class ContinuousEngine:
                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """One speculative tick of ``spec_rounds`` rounds over every slot, the
         reference's ``_build_spec_paged_decode`` step for step: draft by
-        prompt lookup, one (B, k+1) verify forward (its K/V into the tail at
+        prompt lookup or by the draft model, one (B, k+1) verify forward (its K/V into the tail at
         ``off = pos - starts``, attention through K3's verify), accept, emit
         (capped by ``limits`` and by EOS/pad before the span), extend the
         history; then the plain tick's flush. Returns the emitted tokens
@@ -739,8 +971,8 @@ class ContinuousEngine:
         cache = {**self.cache,
                  "tk": torch.zeros(tail_shape, dtype=dtype, device=dev),
                  "tv": torch.zeros(tail_shape, dtype=dtype, device=dev)}
-        gens = [g if r is not None and r.temperature > 0.0 else None
-                for g, r in zip(self._gens, self._slots)]
+        gens = [g if live and r.temperature > 0.0 else None
+                for g, r, live in zip(self._gens, self._slots, occupied)]
         q_idx = torch.arange(k + 1, device=dev)
         out = torch.full((n_b, out_len), pad, dtype=torch.long, device=dev)
         n_out = torch.zeros((n_b,), dtype=torch.long, device=dev)
@@ -751,9 +983,13 @@ class ContinuousEngine:
         for _ in range(rounds):
             done = done | (pos >= self.limits)
             live = ~done
-            # hist[pos] holds the pending cur: the context is pos + 1 tokens.
-            draft = device_lookup_draft(hist, torch.clamp(pos + 1, max=smax), k=k,
-                                        ngram=self.spec_ngram, min_ngram=self.spec_min_ngram)
+            if self.spec_draft == "model":
+                draft = self._draft_scan(cur, pos)
+            else:
+                # hist[pos] holds the pending cur: the context is pos + 1 tokens.
+                draft = device_lookup_draft(hist, torch.clamp(pos + 1, max=smax), k=k,
+                                            ngram=self.spec_ngram,
+                                            min_ngram=self.spec_min_ngram)
             tokens_in = torch.cat([cur[:, None], draft], dim=1)
             lengths = torch.where(live, pos + 1, 0).to(torch.int32)
             logits = llama.forward(
@@ -774,7 +1010,8 @@ class ContinuousEngine:
             append_seq = torch.where(q_idx[None, :] == n_acc[:, None], nxt[:, None],
                                      torch.cat([draft, zeros], dim=1))
             grow = torch.where(hit_term, 0, e)
-            hist = _emit_rows(hist, append_seq, torch.clamp(pos + 1, max=smax), grow)
+            if self._track_hist:
+                hist = _emit_rows(hist, append_seq, torch.clamp(pos + 1, max=smax), grow)
             pos = torch.where(live, pos + e.to(pos.dtype), pos)
             done = done | hit_term
             cur = torch.where(done, pad, nxt)
@@ -794,7 +1031,8 @@ class ContinuousEngine:
         pad filler."""
         eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
         for slot, req in enumerate(list(self._slots)):
-            if req is None:
+            if req is None or req.prefilling:
+                # a parked slot's row is pad filler, not an empty generation
                 continue
             row = emitted[slot] if counts is None else emitted[slot][: counts[slot]]
             for tok in row:
@@ -814,14 +1052,29 @@ class ContinuousEngine:
                 self._free_slot_pages(slot)
 
     def step(self) -> None:
-        """One scheduler tick: admit queued requests, then decode one chunk
-        of every occupied slot (speculatively when armed and predicted to
-        win, ``_use_spec_tick``) and harvest it."""
+        """One scheduler tick: advance the chunks of prefills in flight,
+        admit queued requests, advance the newly admitted chunked prompts'
+        first chunks, then decode one chunk of every decode-ready slot
+        (speculatively when armed and predicted to win, ``_use_spec_tick``)
+        and harvest it. With a token budget, the prefills draw what the
+        decode-ready slots' ``decode_chunk`` steps leave of it."""
+        decode_ready = [r for r in self._slots if r is not None and not r.prefilling]
+        self._tick_prefill_spent = 0
+        self._tick_prefill_left = (
+            max(0, self.token_budget - len(decode_ready) * self.decode_chunk)
+            if self.token_budget else None)
+        # In-flight chunks before admission: admission must not spend each
+        # tick's first-prefill pass and park an older prefill behind it.
+        inflight = [r for r in self._slots if r is not None and r.prefilling]
+        self._advance_prefill_chunks(inflight)
         self._admit()
-        occupied = [r is not None for r in self._slots]
+        seen = {id(r) for r in inflight}
+        self._advance_prefill_chunks([r for r in self._slots if r is not None
+                                      and r.prefilling and id(r) not in seen])
+        occupied = [r is not None and not r.prefilling for r in self._slots]
         if not any(occupied):  # host-side check: no device work on idle ticks
             return
-        active = [r for r in self._slots if r is not None]
+        active = [r for r, live in zip(self._slots, occupied) if live]
         sampled = any(r.temperature > 0.0 for r in active)
         t0 = time.perf_counter()
         if self._use_spec_tick(active):
@@ -886,6 +1139,11 @@ class ContinuousEngine:
         if not self.speculative:
             return False
         self._tick_no += 1
+        if self.spec_draft == "model":
+            # Every tick: the draft cache stays in step with the target's
+            # positions only while speculative ticks run, and a drafter is
+            # configured because it pays. The acceptance EMA still reports.
+            return True
         preds = []
         for r in active:
             if r.spec_forwards > 0:
@@ -903,7 +1161,7 @@ class ContinuousEngine:
         in) and the engine's EMA of the tick's mean tokens per forward."""
         accs = []
         for slot, req in enumerate(self._slots):
-            if req is None:
+            if req is None or req.prefilling:
                 continue
             req.spec_tokens += int(counts[slot])
             req.spec_forwards += int(rr[slot])
@@ -935,10 +1193,13 @@ class ContinuousEngine:
             "cache_mode": self.cache_mode,
             "n_slots": self.n_slots,
             "slots_busy": sum(r is not None for r in self._slots),
+            "slots_prefilling": sum(r is not None and r.prefilling for r in self._slots),
             "queue_depth": len(self._queue),
             "max_queue": self.max_queue,
             "decode_chunk": self.decode_chunk,
             "max_context": self.smax,
+            "token_budget": self.token_budget,
+            "max_tick_prefill_tokens": self.max_tick_prefill_tokens,
             "queue_by_class": {cls: sum(1 for r in self._queue if r.slo_class == cls)
                                for cls in SLO_CLASSES},
             "prefix_cache": prefix,
@@ -957,8 +1218,8 @@ class ContinuousEngine:
         }
 
     def _spec_stats(self) -> dict:
-        return {
-            "drafter": "lookup",
+        out = {
+            "drafter": self.spec_draft,
             "k": self.spec_k,
             "rounds_per_tick": self.spec_rounds,
             "threshold": self.spec_threshold,
@@ -978,6 +1239,9 @@ class ContinuousEngine:
             "tokens_per_row_forward": (self.spec_emitted / self.spec_row_forwards
                                        if self.spec_row_forwards else None),
         }
+        if self.spec_draft == "model":
+            out["draft_steps"] = self.draft_steps
+        return out
 
     def run(self) -> dict[int, list[int]]:
         """Drive until all submitted requests complete; pops and returns the

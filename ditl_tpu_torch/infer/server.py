@@ -38,14 +38,23 @@ speculative ticks (``on`` every tick, ``auto`` when the measured acceptance
 clears the measured cost ratio), the lock-step engine serves greedy requests
 through ``SpeculativeGenerator`` (``on``) or ``AutoSpeculativeGenerator``
 (``auto``), falling back to the plain ``Generator`` when the speculative
-program's k + 1 slack does not fit the context. On the card unless
-``--device cpu`` is given:
+program's k + 1 slack does not fit the context. ``--draft-preset NAME``
+(continuous engine, ``--speculative on|auto``) drafts with that preset's
+model, in its own dtype, instead of prompt lookup: seed-initialised, or
+restored from ``--draft-checkpoint DIR`` (a training run's checkpoints);
+its vocabulary must be the target's. ``--prefill-chunk N`` (a multiple of
+``--page-size``) prefills longer prompts one chunk a tick, and
+``--token-budget T`` caps each tick's prefill at what its decode steps
+leave of T; ``/v1/stats`` reports ``slots_prefilling``,
+``max_tick_prefill_tokens`` and the speculative block's ``drafter``. On the
+card unless ``--device cpu`` is given:
 
     python -m ditl_tpu_torch.infer.server --preset llama3-8b \\
         --override attention_impl=flash [--checkpoint-dir DIR] [--device cuda] \\
         [--port 8300] [--engine continuous --cache-mode paged] \\
         [--override dtype=float16|float32] [--quantize int8] [--kv-quant int8] \\
-        [--speculative on|auto]
+        [--speculative on|auto [--draft-preset NAME [--draft-checkpoint DIR]]] \
+        [--prefill-chunk 512 --token-budget 640]
 """
 
 from __future__ import annotations
@@ -487,6 +496,16 @@ def _parser() -> argparse.ArgumentParser:
                    "ported (contiguous raises)")
     p.add_argument("--slots", type=int, default=8,
                    help="decode slots for --engine continuous")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="chunked prefill for --engine continuous: prompts longer than "
+                   "this prefill one chunk per tick, interleaved with in-flight "
+                   "decodes (a multiple of --page-size; 0 = whole-prompt prefill)")
+    p.add_argument("--token-budget", type=int, default=0,
+                   help="per-tick token budget for --engine continuous: each tick "
+                   "spends at most budget - decode_ready x decode_chunk tokens on "
+                   "prefill, so long prompts cannot stall decoding streams (pair with "
+                   "--prefill-chunk). Must cover one full decode tick (slots x 16); "
+                   "0 = unbudgeted")
     p.add_argument("--page-size", type=int, default=256,
                    help="tokens per KV page for --cache-mode paged")
     p.add_argument("--pages", type=int, default=0,
@@ -512,6 +531,14 @@ def _parser() -> argparse.ArgumentParser:
                    "outputs token-identical; sampled exact in distribution by "
                    "rejection sampling). Lock-step engine: greedy requests through "
                    "infer/speculative.py")
+    p.add_argument("--draft-preset", default="",
+                   help="model-based speculation (--speculative on|auto --engine "
+                   "continuous): preset of a small draft model whose greedy "
+                   "predictions draft for the target's verify forwards (same vocab); "
+                   "every tick speculates. Pair with --draft-checkpoint for trained "
+                   "weights (seed-initialised without it: smoke tests only)")
+    p.add_argument("--draft-checkpoint", default="",
+                   help="training checkpoint directory holding --draft-preset's weights")
     return p
 
 
@@ -522,7 +549,13 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
     from ditl_tpu_torch.models import llama
     from ditl_tpu_torch.models.presets import get_preset
 
-    args = _parser().parse_args(argv)
+    parser = _parser()
+    args = parser.parse_args(argv)
+    if args.draft_preset and (args.engine != "continuous" or args.speculative == "off"):
+        parser.error("--draft-preset requires --engine continuous with --speculative "
+                     "on|auto (the draft model drafts for speculative ticks)")
+    if args.draft_checkpoint and not args.draft_preset:
+        parser.error("--draft-checkpoint needs --draft-preset")
     cfg = get_preset(args.preset) if args.preset else ModelConfig()
     cfg = parse_model_overrides(cfg, args.override)
     if args.kv_quant == "int8":
@@ -549,18 +582,40 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
         logger.info("quantized weights to int8 (weight-only)")
     tokenizer = get_tokenizer("byte")
     generator = Generator(params, cfg, tokenizer, device=args.device)
+    draft_params = draft_cfg = None
+    if args.draft_preset:
+        # the draft model in its preset's own dtype
+        draft_cfg = get_preset(args.draft_preset)
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            parser.error(f"--draft-preset vocab {draft_cfg.vocab_size} must match the "
+                         f"target's {cfg.vocab_size} (same token space)")
+        if args.draft_checkpoint:
+            from ditl_tpu_torch.train.checkpoint import CheckpointManager
+
+            ckpt = CheckpointManager(args.draft_checkpoint)
+            draft_params = ckpt.restore_latest_params(
+                draft_cfg, llama.init_params(draft_cfg, device="meta"), device=args.device)
+            ckpt.close()
+            if draft_params is None:
+                parser.error(f"--draft-checkpoint: no checkpoint in {args.draft_checkpoint}")
+            logger.info("restored draft params from %s", args.draft_checkpoint)
+        else:
+            draft_params = llama.init_params(draft_cfg, seed=1, device=args.device)
     threaded = None
     if args.engine == "continuous":
         from ditl_tpu_torch.infer.continuous import ContinuousEngine
 
         threaded = ThreadedEngine(ContinuousEngine(
             params, cfg, tokenizer, n_slots=args.slots,
-            max_cache_len=args.max_cache_len or None, cache_mode=args.cache_mode,
+            max_cache_len=args.max_cache_len or None,
+            prefill_chunk=args.prefill_chunk, cache_mode=args.cache_mode,
             page_size=args.page_size, n_pages=args.pages or None,
             max_queue=args.max_queue or None, device=args.device,
             speculative=args.speculative != "off",
             # 'on' speculates every tick; 'auto' keeps the measured decision.
             spec_threshold=0.0 if args.speculative == "on" else None,
+            draft_params=draft_params, draft_cfg=draft_cfg,
+            token_budget=args.token_budget,
         ))
     spec = None
     if args.speculative != "off" and args.engine == "lockstep":

@@ -310,9 +310,7 @@ def test_queue_order_limits_and_validation(pair):
 
 
 @pytest.mark.parametrize("kw", [
-    {"cache_mode": "contiguous"}, {"prefill_chunk": 32}, {"token_budget": 64},
-    {"admission": "optimistic"}, {"speculative": True, "draft_params": {}},
-    {"logprobs_k": 2},
+    {"cache_mode": "contiguous"}, {"admission": "optimistic"}, {"logprobs_k": 2},
     {"fsm_capacity": 4}, {"host_tier_mb": 1}, {"pipeline_ticks": True},
     {"mesh": object()}, {"tracer": object()},
 ])

@@ -1907,3 +1907,96 @@ def test_paged_kernels_at_any_groups_rows_and_head_dim(no_tf32, entry, case):
     chip_smoke._close(name, dtype, o, r)
     chip_smoke._close(name, dtype, o, s_)
     assert all(bool((o[j] == 0).all()) for j, n in enumerate(lens) if n == 0)
+
+
+# Draft-model speculation and chunked prefill at tiny width on the card: the
+# continuous engine's verify goes through K3-verify and its decode steps
+# through K3, every cold prefill and first chunk through K1 (D = 64, buckets
+# of 256 and 512 tokens, where ``supports`` holds), counted launch by launch.
+TINY_CARD = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                 num_heads=4, num_kv_heads=2, head_dim=64, max_seq_len=1024,
+                 attention_impl="flash")
+DRAFT_CARD = dict(TINY_CARD, hidden_size=128, intermediate_size=256, num_layers=1,
+                  num_heads=2, num_kv_heads=1)
+CARD_PROMPTS = [[1] + [3 + (7 * i + j) % 200 for j in range(n)]
+                for i, n in enumerate([600, 300, 40])]
+
+
+def _card_engine(dtype: str, **kw):
+    from ditl_tpu_torch.config import ModelConfig
+    from ditl_tpu_torch.data.tokenizer import ByteTokenizer
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+    from ditl_tpu_torch.models import llama
+
+    cfg = ModelConfig(**TINY_CARD, dtype=dtype)
+    if kw.pop("drafter", False):
+        dcfg = ModelConfig(**DRAFT_CARD, dtype=dtype)
+        kw.update(speculative=True, draft_params=llama.init_params(dcfg, seed=5, device="cuda"),
+                  draft_cfg=dcfg)
+    return ContinuousEngine(llama.init_params(cfg, seed=4, device="cuda"), cfg,
+                            ByteTokenizer(), n_slots=2, decode_chunk=8, cache_mode="paged",
+                            page_size=256, device="cuda", **kw)
+
+
+def _card_run(eng, max_new: int = 24):
+    rids = [eng.submit(p, max_new_tokens=max_new, temperature=0.0) for p in CARD_PROMPTS]
+    seen = 0
+    while eng.pending:
+        eng.step()
+        seen = max(seen, eng.stats()["slots_prefilling"])
+    out = {rid: req.tokens for rid, req in eng._completed.items()}
+    eng._completed.clear()
+    return [out[r] for r in rids], seen
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_draft_model_speculation_runs_k3_verify_on_the_card(no_tf32, dtype):
+    """A one-layer drafter: every verify round of every layer launches
+    K3-verify once, the single-query K3 never; the drafter takes k + 1
+    steps a round; K1 runs each cold prefill. f32: the greedy tokens are
+    the plain engine's on the card."""
+    sfx = "_f32" if dtype == "float32" else ""
+    eng = _card_engine(dtype, drafter=True, spec_k=4, spec_rounds=2)
+    tfa.reset_launches()
+    tpa.reset_launches()
+    toks, _ = _card_run(eng)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    spec = st["speculative"]
+    assert spec["drafter"] == "model" and spec["spec_ticks"] == spec["ticks"] > 0
+    assert getattr(tpa, "launches_verify" + sfx) == 2 * spec["verify_rounds"] > 0
+    assert getattr(tpa, "launches_tail" + sfx) == 0
+    assert spec["draft_steps"] == 5 * spec["verify_rounds"]
+    # the drafter's one layer runs K1 on each draft prefill that tiles
+    buckets = [min(1 << (len(p) - 1).bit_length(), eng.smax) for p in CARD_PROMPTS]
+    draft_k1 = sum(tfa.supports(b, b, 64) for b in buckets)
+    assert getattr(tfa, "launches" + sfx) == 2 * st["prefills_cold"] + draft_k1 > 0
+    assert all(len(t) == 24 for t in toks)
+    if dtype == "float32":
+        assert toks == _card_run(_card_engine(dtype))[0]
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_chunked_prefill_under_a_budget_on_the_card(no_tf32, dtype):
+    """``prefill_chunk=256, token_budget=2 x 8 + 256``: the 601-token prompt
+    prefills in three chunks, the 301-token one in two; K1 runs each first
+    chunk and cold prefill, K3 every decode step; a slot is seen
+    prefilling; no tick spends more than max(256, budget - decode_ready x
+    8). f32: the unchunked engine's greedy tokens."""
+    sfx = "_f32" if dtype == "float32" else ""
+    eng = _card_engine(dtype, prefill_chunk=256, token_budget=2 * 8 + 256)
+    tfa.reset_launches()
+    tpa.reset_launches()
+    toks, seen = _card_run(eng)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    assert seen > 0 and st["slots_prefilling"] == 0
+    assert st["prefills_cold"] == 3 and st["prefills_prefix_hit"] == 3  # 2 + 1 later chunks
+    assert getattr(tfa, "launches" + sfx) == 2 * st["prefills_cold"]
+    assert getattr(tpa, "launches_tail" + sfx) == 2 * st["decode_steps"] > 0
+    assert 0 < st["max_tick_prefill_tokens"] <= 256 + 16
+    assert all(len(t) == 24 for t in toks)
+    if dtype == "float32":
+        assert toks == _card_run(_card_engine(dtype))[0]

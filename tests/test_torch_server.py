@@ -510,3 +510,148 @@ def test_cli_int8_serves_a_trained_checkpoint(tmp_path):
         else:  # never served: close the socket and stop the engine's thread
             srv.server_close()
             srv.engine.close()
+
+
+# -- chunked prefill, the token budget and draft models ---------------------------
+
+_CONT = ["--device", "cpu", "--port", "0", "--host", "127.0.0.1", "--engine", "continuous",
+         "--cache-mode", "paged", "--page-size", "16", "--slots", "2"]
+
+
+def _serve_one(srv, prompt: str, max_tokens: int):
+    """Start ``srv``, POST one greedy completion and read /v1/stats; the
+    server is closed (and its engine stopped) on the way out."""
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        status, body = _post(url + "/v1/completions",
+                             {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0})
+        assert status == 200, body
+        status, stats = _get(url + "/v1/stats")
+        assert status == 200
+    finally:
+        srv.close(drain=True)
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+    assert not srv.engine._thread.is_alive()
+    return body, stats
+
+
+def _plain_text(gen, prompt: str, max_tokens: int) -> str:
+    """The plain continuous engine's greedy text over the server's weights."""
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+
+    return ContinuousEngine(gen.params, gen.cfg, ByteTokenizer(), device="cpu", n_slots=2,
+                            cache_mode="paged", page_size=16).generate(
+        [prompt], max_new_tokens=max_tokens, temperature=0.0)[0]
+
+
+def test_cli_prefill_chunk_and_token_budget():
+    """``--prefill-chunk 32 --token-budget 64``: a 100-character prompt
+    prefills in four chunks and answers the plain engine's greedy text;
+    /v1/stats carries the budget keys."""
+    overrides = [x for k, v in TINY.items() for x in ("--override", f"{k}={v}")]
+    srv = tserver.create_server(_CONT + overrides + ["--prefill-chunk", "32",
+                                                     "--token-budget", "64"])
+    engine = srv.engine._engine
+    assert (engine.prefill_chunk, engine.token_budget) == (32, 64)
+    prompt = "a long prompt, chunk by chunk: " + "m" * 70
+    want = _plain_text(srv.RequestHandlerClass.generator, prompt, 8)
+    body, stats = _serve_one(srv, prompt, 8)
+    assert body["choices"][0]["text"] == want
+    assert stats["token_budget"] == 64
+    assert stats["slots_prefilling"] == 0
+    assert 0 < stats["max_tick_prefill_tokens"] <= 64
+    with pytest.raises(ValueError, match="multiple of page_size"):
+        tserver.create_server(_CONT + overrides + ["--prefill-chunk", "24"])
+    with pytest.raises(ValueError, match="full decode tick"):
+        tserver.create_server(_CONT + overrides + ["--token-budget", "16"])
+
+
+# a target of tiny widths over tiny-llama's vocabulary, so the preset drafts for it
+_DRAFT_TARGET = [x for k, v in dict(TINY, vocab_size=32000).items()
+                 for x in ("--override", f"{k}={v}")]
+
+
+def test_cli_draft_preset_serves_and_reports_the_drafter():
+    """``--speculative on --draft-preset tiny-llama``: the preset's model in
+    its own dtype, seed-initialised, drafts every tick; the completion is
+    the plain engine's greedy text and /v1/stats says ``drafter: model``."""
+    from ditl_tpu_torch.models import llama
+    from ditl_tpu_torch.models.presets import get_preset
+
+    srv = tserver.create_server(_CONT + _DRAFT_TARGET + [
+        "--speculative", "on", "--draft-preset", "tiny-llama", "--prefill-chunk", "32",
+        "--token-budget", "64"])
+    engine = srv.engine._engine
+    draft_cfg = get_preset("tiny-llama")
+    assert engine.spec_draft == "model" and engine.draft_cfg == draft_cfg
+    assert engine.draft_params["layers"]["attn"]["wq"].dtype == torch.bfloat16
+    seeded = llama.init_params(draft_cfg, seed=1, device="cpu")
+    assert torch.equal(engine.draft_params["layers"]["attn"]["wq"],
+                       seeded["layers"]["attn"]["wq"])
+    prompt = "drafted by a model: " + "ab" * 30
+    want = _plain_text(srv.RequestHandlerClass.generator, prompt, 10)
+    body, stats = _serve_one(srv, prompt, 10)
+    assert body["choices"][0]["text"] == want
+    spec = stats["speculative"]
+    assert spec["drafter"] == "model"
+    assert spec["spec_ticks"] == spec["ticks"] > 0
+    assert spec["draft_steps"] == (spec["k"] + 1) * spec["verify_rounds"]
+    assert stats["token_budget"] == 64 and "max_tick_prefill_tokens" in stats
+
+
+def test_cli_draft_checkpoint_restores_trained_weights(tmp_path):
+    """``--draft-checkpoint``: a training run of the draft preset saves its
+    masters through the port's ``CheckpointManager``; the server drafts with
+    them (not the seed's weights) and still answers the plain greedy text."""
+    from ditl_tpu_torch.config import Config, DataConfig, TrainConfig
+    from ditl_tpu_torch.models import llama
+    from ditl_tpu_torch.models.presets import get_preset
+    from ditl_tpu_torch.train.trainer import train
+
+    draft_cfg = get_preset("tiny-llama")
+    out = train(Config(model=draft_cfg, data=DataConfig(synthetic=True, batch_size=1,
+                                                        seq_len=32),
+                       train=TrainConfig(total_steps=1, warmup_steps=1, learning_rate=1e-2,
+                                         checkpoint_dir=str(tmp_path))), device="cpu")
+    assert out["steps"] == 1
+    masters = torch.load(tmp_path / "1" / "params.pt", weights_only=True)
+    srv = tserver.create_server(_CONT + _DRAFT_TARGET + [
+        "--speculative", "on", "--draft-preset", "tiny-llama",
+        "--draft-checkpoint", str(tmp_path)])
+    engine = srv.engine._engine
+    want = llama.serving_params(masters, draft_cfg)
+    seeded = llama.init_params(draft_cfg, seed=1, device="cpu")
+    for key, w in want["layers"]["mlp"].items():
+        assert torch.equal(engine.draft_params["layers"]["mlp"][key], w), key
+        assert not torch.equal(engine.draft_params["layers"]["mlp"][key],
+                               seeded["layers"]["mlp"][key]), key
+    prompt = "a trained drafter"
+    text = _plain_text(srv.RequestHandlerClass.generator, prompt, 6)
+    body, stats = _serve_one(srv, prompt, 6)
+    assert body["choices"][0]["text"] == text
+    assert stats["speculative"]["drafter"] == "model"
+
+
+@pytest.mark.parametrize("args,what", [
+    (["--engine", "lockstep", "--speculative", "on", "--draft-preset", "tiny-llama"],
+     "requires --engine continuous"),
+    (["--engine", "continuous", "--draft-preset", "tiny-llama"],
+     "requires --engine continuous"),
+    (["--engine", "continuous", "--speculative", "on", "--draft-checkpoint", "x"],
+     "needs --draft-preset"),
+    (["--engine", "continuous", "--cache-mode", "paged", "--speculative", "on",
+      "--draft-preset", "llama3-8b"], "must match the target"),
+    (["--engine", "continuous", "--cache-mode", "paged", "--speculative", "on",
+      "--draft-preset", "tiny-llama", "--draft-checkpoint", "EMPTY"], "no checkpoint"),
+])
+def test_cli_draft_flag_errors(args, what, tmp_path, capsys):
+    """The reference's parser errors for the draft flags, and its vocab and
+    empty-checkpoint checks: each exits 2 with its message."""
+    args = [str(tmp_path) if a == "EMPTY" else a for a in args]
+    with pytest.raises(SystemExit) as exc:
+        tserver.create_server(["--device", "cpu", "--port", "0", *_DRAFT_TARGET, *args])
+    assert exc.value.code == 2
+    assert what in capsys.readouterr().err
