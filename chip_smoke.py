@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --paged-rows [--sweep] [TREE]`` and ``--f32-mm
-[--sweep] [TREE]`` time one kernel family on TREE's ``ditl_tpu_torch``
+``python3 chip_smoke.py --path20`` runs paths 1, 2 and 20 alone (no
+kernels line). ``python3 chip_smoke.py --paged-rows [--sweep] [TREE]`` and
+``--f32-mm [--sweep] [TREE]`` time one kernel family on TREE's ``ditl_tpu_torch``
 (default: this checkout's; ``tree_main``), so that a parent commit unpacked
 beside the checkout and the checkout can be timed in turns in one run.
 
@@ -155,7 +156,7 @@ no result line. It imports nothing of JAX or of the JAX package.
    tick in ``/v1/stats``. Lock-step speculation: five greedy requests
    through ``--engine lockstep --speculative on`` (K1 on each prefill), held
    to path 1's Generator by the same rule, with their acceptance.
-6d. Main path 18, draft-model speculation: the continuous engine as
+6a.1. Main path 18, draft-model speculation: the continuous engine as
    ``infer/server.py --speculative on --draft-preset`` builds it, over path
    1's weights object, drafting with the reference bench's drafter shape
    over the target's config (``DRAFT_WIDTHS``: hidden 512, 6 layers, 8 heads
@@ -167,7 +168,7 @@ no result line. It imports nothing of JAX or of the JAX package.
    path 7's, tokens/s. Then the target at depth 2 (views of path 1's first
    two layers) as its own drafter: every live round accepts all k drafts
    but where the verify's logits are near a tie (``SPEC_TIE_TOL``).
-6e. Main path 19, chunked prefill under a token budget: path 2's engine with
+6a.2. Main path 19, chunked prefill under a token budget: path 2's engine with
    ``prefill_chunk=512, token_budget=640`` (``CHUNK_PREFILL``,
    ``CHUNK_BUDGET``) on path 2's 12 requests over HTTP: K1 on every first
    chunk and cold prefill, K3 on every decode step, the 1501-, 1201- and
@@ -178,6 +179,25 @@ no result line. It imports nothing of JAX or of the JAX package.
    three long prompts arrive, their time per output token and worst tick
    and the long prompts' TTFT, beside the same trace on path 2's engine
    (``_tick_recorder``, ``_interference_trace``).
+6a.3. Main path 20, streaming, embeddings and API eval (``phase_serve_stream``)
+   over path 1's weights with an lm head that writes printable ASCII
+   (``ASCII_HEAD_SCALE``, so that streamed text is not empty): path 2's 12
+   requests (the odd ones as chat, two sampled with pinned seeds) plus
+   one of ``STOP_PROBES`` with a stop sequence across a chunk boundary,
+   without a stream on a fresh path-2 engine, then streamed concurrently
+   over SSE on another (both pre-warmed with the shared prefix's pages):
+   texts, finish reasons and token ids equal, the role chunk, ``[DONE]``,
+   ``Connection: close``, K3 on every decode step and K1 on every cold
+   prefill; time to the first content chunk against path 2's TTFT; a client
+   gone after two chunks frees its slot within four ticks and K3 stops;
+   ``/v1/embeddings`` on four inputs padded to 1024 (K1 once a layer, unit
+   norms, cosine with the plain forward ``EMBED_COS_MIN``, ``client.embed``
+   the same vectors); ``train()`` on qwen2-0.5b (``EVAL_TRAIN_ARGS``) with
+   the API eval every 2 steps against that server: 16 client requests, no
+   retries, 16 served, K1 2 x 24 and K2a, K2b 24 a step beside the server's
+   K1 and K3. Then the streaming check at depth 2 through path 7's
+   prompt-lookup engine and path 18's drafter (K3-verify on every round),
+   and path 1's lock-step server (one content chunk, the same text).
 6b. Main path 6, int8 serving: the bf16 serving state is freed, then
    ``infer/server.py --quantize int8 --kv-quant int8 --engine continuous
    --cache-mode paged`` is built in process (``llama3-8b``, full width and
@@ -3619,6 +3639,648 @@ def phase_lockstep_spec(gen, flash, paged) -> dict:
     return {"flash_fwd": k1}
 
 
+# Path 20: streaming, embeddings and API eval over path 1's weights. The
+# byte tokenizer decodes only ids 3..258 of the 128256-way head, so the
+# seed-initialised head generates ids that decode to nothing and a stream's
+# text would be empty. Path 20's head keeps the columns of the printable
+# ASCII bytes (0x20-0x7e), scaled by ASCII_HEAD_SCALE so that they also win
+# under sampling, and zeroes every other column: each generated token is one
+# character, and a text is its token ids.
+ASCII_HEAD_SCALE = 8.0
+# Candidates for the request sent with a stop sequence across a chunk
+# boundary (a plain tick's 16 tokens): sampled at temperature 1.5, where the
+# ASCII columns still win most draws but the text varies (greedy text of a
+# seed-initialised model repeats one character, where no stop can first
+# occur across a boundary). The first candidate whose 48 tokens are all
+# printable or past the byte table (which decode to nothing) and whose text
+# holds such a stop is the probe.
+STOP_PROBES = [{"prompt": _text(48 + i, 120), "max_tokens": 48, "temperature": 1.5,
+                "seed": 5 + i} for i in range(6)]
+# Path 20's API eval: train() on qwen2-0.5b at its published size in bf16
+# (f32 masters), flash attention, full remat, adafactor, the fused loss, B=4,
+# S=2048, EVAL_STEPS steps, the API eval every 2 steps over 8 examples,
+# against the path's continuous llama3-8b server (api.api_base is added).
+EVAL_STEPS = 4
+EVAL_TRAIN_ARGS = [
+    "--preset", "qwen2-0.5b", "model.dtype=bfloat16", "model.param_dtype=float32",
+    "model.attention_impl=flash", "model.loss_impl=fused", "model.loss_block_tokens=4096",
+    "model.remat=full", "train.optimizer=adafactor", "train.warmup_steps=1",
+    f"train.total_steps={EVAL_STEPS}", "train.log_every=1", "data.synthetic=true",
+    "data.batch_size=4", "data.seq_len=2048", "train.eval_every=2", "train.eval_samples=8",
+    "api.timeout_s=300", "api.total_timeout_s=600",
+]
+# /v1/embeddings: four inputs of about 300-900 tokens, so the padded length
+# is 1024 (K1's prefill path: one launch a layer for the batch).
+EMBED_INPUTS = [_text(60 + i, n) for i, n in enumerate((300, 520, 710, 900))]
+# The cosine of each embedding against the same forward with flash rebound
+# to its plain version (bf16 attention outputs a few ulps apart, pooled over
+# up to 901 positions and 32 layers).
+EMBED_COS_MIN = 0.999
+
+
+def _ascii_params(gen) -> dict:
+    """Path 1's weights with the lm head described at ``ASCII_HEAD_SCALE``
+    (a new head tensor; the other weights are shared)."""
+    import torch
+
+    head = gen.params["lm_head"]["kernel"]
+    off = gen.tokenizer.byte_offset
+    keep = torch.zeros(head.shape[1], dtype=torch.bool, device=head.device)
+    keep[off + 0x20: off + 0x7f] = True
+    ascii_head = torch.where(keep, head * ASCII_HEAD_SCALE, torch.zeros_like(head[:1, :1]))
+    return {**gen.params, "lm_head": {"kernel": ascii_head}}
+
+
+def _req_key(prompt_tokens, kw) -> tuple:
+    """A request's identity across legs: prompt, budget and, when sampled,
+    temperature and seed (a greedy request's seed is the server's draw)."""
+    temp = kw.get("temperature") or 0.0
+    return (tuple(prompt_tokens), kw.get("max_new_tokens"), temp,
+            kw.get("seed") if temp > 0 else None)
+
+
+def _stream_recorder(engine):
+    """``engine`` behind a ``ThreadedEngine`` that keeps, by ``_req_key``,
+    the token ids each completion returned and each stream's token chunks."""
+    from ditl_tpu_torch.infer.continuous import ThreadedEngine, TokenStream
+
+    class StreamRecorder(ThreadedEngine):
+        def __init__(self, engine):
+            super().__init__(engine)
+            self.outputs: dict[tuple, list] = {}
+            self.streams: dict[tuple, list] = {}
+            self._lock = threading.Lock()
+
+        def generate_one(self, prompt_tokens, **kw):
+            out = super().generate_one(prompt_tokens, **kw)
+            with self._lock:
+                self.outputs.setdefault(_req_key(prompt_tokens, kw), []).append(list(out))
+            return out
+
+        def stream_one(self, prompt_tokens, **kw):
+            inner = super().stream_one(prompt_tokens, **kw)
+            chunks: list = []
+            with self._lock:
+                self.streams.setdefault(_req_key(prompt_tokens, kw), []).append(chunks)
+
+            def recorded():
+                for chunk in inner:
+                    chunks.append(list(chunk))
+                    yield chunk
+
+            return TokenStream(recorded(), inner.close)
+
+    return StreamRecorder(engine)
+
+
+def _paged_engine(params, cfg, tok, **kw):
+    """Path 2's engine configuration (8 slots, page 256, context 2048)."""
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+
+    return ContinuousEngine(params, cfg, tok, n_slots=8, decode_chunk=16, max_cache_len=2048,
+                            cache_mode="paged", page_size=256, device="cuda", **kw)
+
+
+class _Served:
+    """An HTTP server over ``gen`` (and ``engine`` behind a stream recorder,
+    when given) on its own thread; ``close()`` drains and stops it."""
+
+    def __init__(self, gen, engine=None):
+        from ditl_tpu_torch.infer import server as server_mod
+
+        self.rec = None if engine is None else _stream_recorder(engine)
+        self.engine = engine
+        self.server = server_mod.make_server(gen, threaded_engine=self.rec, host="127.0.0.1",
+                                             port=0, model_name=gen.cfg.name)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def stats(self) -> dict:
+        status, stats = _http("GET", self.url + "/v1/stats")
+        require(status == 200, stats)
+        return stats
+
+    def close(self) -> None:
+        self.server.close(drain=True)
+        self.thread.join(timeout=30)
+        require(not self.thread.is_alive() and (
+            self.rec is None or not self.rec._thread.is_alive()), "server did not stop")
+
+
+def _sse(url: str, route: str, payload: dict):
+    """POST ``payload`` with ``"stream": true``: (status, headers, events,
+    seconds from the send to each event), the events being the ``data:``
+    payloads, JSON-decoded but the final ``[DONE]`` (a non-200 answer's
+    events are its JSON body)."""
+    import http.client
+
+    host, port = url[len("http://"):].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", route, json.dumps({**payload, "stream": True}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        headers = {k.lower(): v for k, v in resp.getheaders()}
+        if resp.status != 200:
+            return resp.status, headers, json.loads(resp.read() or b"{}"), []
+        events, times = [], []
+        while True:
+            line = resp.fp.readline()
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                times.append(time.perf_counter() - t0)
+                data = line[len(b"data: "):].strip().decode()
+                events.append(data if data == "[DONE]" else json.loads(data))
+        return 200, headers, events, times
+    finally:
+        conn.close()
+
+
+def _sse_text(events, chat: bool):
+    """(the content events' indices, their texts, the concatenated text, the
+    finish reason) of an SSE body, whose framing is checked: a chat stream
+    opens with the role chunk, every chunk but the finish chunk has no
+    finish reason, the finish chunk carries no text, ``[DONE]`` is last."""
+    require(events and events[-1] == "[DONE]", events[-3:])
+    first = 0
+    if chat:
+        require(events[0]["choices"][0]["delta"] == {"role": "assistant", "content": ""},
+                events[0])
+        first = 1
+    body = events[first:-1]
+    texts = [e["choices"][0]["delta"].get("content", "") if chat else e["choices"][0]["text"]
+             for e in body]
+    finish = body[-1]["choices"][0]["finish_reason"]
+    require(all(e["choices"][0]["finish_reason"] is None for e in body[:-1])
+            and texts[-1] == "" and finish in ("stop", "length"), body[-1])
+    content = [i + first for i, t in enumerate(texts[:-1]) if t]
+    return content, texts[:-1], "".join(texts), finish
+
+
+def _as_routes(requests: list) -> list:
+    """(route, payload, chat) of each request: the odd ones through
+    /v1/chat/completions, their prompt as the user message."""
+    out = []
+    for i, p in enumerate(requests):
+        if i % 2:
+            payload = {k: v for k, v in p.items() if k != "prompt"}
+            payload["messages"] = [{"role": "user", "content": p["prompt"]}]
+            out.append(("/v1/chat/completions", payload, True))
+        else:
+            out.append(("/v1/completions", dict(p), False))
+    return out
+
+
+def _prewarm(url: str) -> None:
+    """Publish the shared 600-character prefix's two full pages on both
+    routes, so that each leg's four shared-prefix requests hit the same
+    pages whatever order they arrive in (a cold and a prefix-hit prefill
+    differ by bf16 rounding)."""
+    prefix = _continuous_requests()[0][0]["prompt"][:600]
+    for route, payload, _ in _as_routes([{"prompt": prefix + " warm", "max_tokens": 1}] * 2):
+        status, body = _http("POST", url + route, payload)
+        require(status == 200, body)
+
+
+def _send_all(url: str, routed: list, stream: bool) -> dict:
+    """Send every (route, payload, chat) from its own thread, all at once;
+    returns {index: (text, finish, usage or None, events, times)}."""
+    results: dict[int, tuple] = {}
+
+    def one(i):
+        route, payload, chat = routed[i]
+        if stream:
+            status, headers, events, times = _sse(url, route, payload)
+            require(status == 200 and headers.get("content-type") == "text/event-stream"
+                    and headers.get("connection") == "close", (i, status, headers, events))
+            content, _, text, finish = _sse_text(events, chat)
+            results[i] = (text, finish, None, [events[j] for j in content],
+                          [times[j] for j in content] + [times[-1]])
+        else:
+            status, body = _http("POST", url + route, payload)
+            require(status == 200, (i, status, body))
+            choice = body["choices"][0]
+            text = choice["message"]["content"] if chat else choice["text"]
+            results[i] = (text, choice["finish_reason"], body["usage"], None, None)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(routed))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    require(len(results) == len(routed), sorted(results))
+    return results
+
+
+def _stop_at_boundary(tok, ids: list[int]) -> tuple[str, int] | None:
+    """The shortest stop sequence across the text offset of token 16 or 32
+    of ``ids`` that first occurs there, with that token offset; None when
+    there is none, or when an id is neither a printable byte nor past the
+    byte table (a text offset is then not a token offset's)."""
+    off = tok.byte_offset
+    if not all(off + 0x20 <= t < off + 0x7f or t >= off + 256 for t in ids):
+        return None
+    text = tok.decode(ids)
+    for k in (16, 32):
+        j = len(tok.decode(ids[:k]))
+        for a, b in ((1, 1), (1, 2), (2, 1), (2, 2), (3, 3), (4, 4), (6, 6), (8, 8)):
+            s = text[j - a: j + b]
+            if j >= a and len(s) == a + b and text.find(s) == j - a:
+                return s, k
+    return None
+
+
+def _stream_legs(gen_s, params, cfg, tok, flash, paged, requests, tag: str, **engine_kw):
+    """``requests`` (routed by ``_as_routes``) through a fresh engine, pre-warmed,
+    without a stream, then through another, pre-warmed, streamed; every
+    streamed text and finish equals the unstreamed one, and so do the token
+    ids (each stream's chunks against the same request's tokens). Returns
+    the two legs' results, the streamed leg's launch counts (reset after its
+    pre-warm, read once the engine has settled), its stats before and after
+    and its server."""
+    import gc
+
+    from ditl_tpu_torch.infer.server import _chat_prompt
+
+    routed = _as_routes(requests)
+    plain = _Served(gen_s, _paged_engine(params, cfg, tok, **engine_kw))
+    try:
+        _prewarm(plain.url)
+        want = _send_all(plain.url, routed, stream=False)
+        want_tokens = dict(plain.rec.outputs)
+    finally:
+        plain.close()
+    del plain
+    gc.collect()
+    streamed = _Served(gen_s, _paged_engine(params, cfg, tok, **engine_kw))
+    try:
+        _prewarm(streamed.url)
+        st0 = streamed.stats()
+        flash.reset_launches()  # this leg's counts start here
+        paged.reset_launches()
+        t0 = time.perf_counter()
+        got = _send_all(streamed.url, routed, stream=True)
+        wall = time.perf_counter() - t0
+        engine = streamed.engine  # a stop's cancel lands between ticks: wait it out
+        while engine.stats()["slots_busy"] or engine.pending:
+            require(time.perf_counter() - t0 < 600, "the engine did not settle")
+            time.sleep(0.01)
+        launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail,
+                    "paged_verify": paged.launches_verify,
+                    "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
+                    - paged.launches_tail - paged.launches_verify}  # read right after
+        st1 = streamed.stats()
+    except BaseException:
+        streamed.close()
+        raise
+    for i, (route, payload, chat) in enumerate(routed):
+        require(got[i][:2] == want[i][:2], (tag, i, got[i][:2], want[i][:2]))
+        ids = [tok.bos_id] + tok.encode(payload["prompt"] if not chat else
+                                        _chat_prompt(payload["messages"]))
+        key = _req_key(ids, {"max_new_tokens": payload["max_tokens"],
+                             "temperature": payload.get("temperature"),
+                             "seed": payload.get("seed")})
+        chunks, full = streamed.rec.streams[key], want_tokens[key][0]
+        toks = sum(chunks[0], [])
+        # a stop sequence cancels the stream; unstreamed, the text is cut
+        require(len(chunks) == 1 and len(full) == want[i][2]["completion_tokens"]
+                and (toks == full if not payload.get("stop") else toks == full[:len(toks)]),
+                (tag, i, chunks, full))
+    n_chunks = [len(r[3]) for r in got.values()]
+    require(max(n_chunks) >= 2, n_chunks)
+    log(f"[{tag}] {len(routed)} requests ({sum(c for _, _, c in routed)} chat), "
+        f"{sum(1 for r in requests if r.get('temperature'))} sampled with pinned seeds, "
+        f"streamed concurrently in {wall:.3f}s: every text, finish reason and token list "
+        f"equals the same request's without a stream; content chunks a stream "
+        f"{sorted(n_chunks)}")
+    return want, got, launches, (st0, st1), streamed
+
+
+def phase_serve_stream(gen, flash, paged, bf16: dict) -> dict:
+    """Main path 20, streaming, embeddings and API eval over path 1's
+    weights (the lm head of ``ASCII_HEAD_SCALE``): (1) path 2's 12 requests,
+    the odd ones as chat, greedy and sampled with pinned seeds, without a
+    stream on a fresh path-2 engine, then streamed concurrently on another
+    (both pre-warmed, ``_prewarm``), plus one of ``STOP_PROBES`` with a stop
+    sequence across a chunk boundary: texts, finish reasons and
+    token ids equal, SSE framing, at least one stream of two or more content
+    chunks; time to the first content chunk and per output token, and one
+    streamed cold request on the idle engine against path 2's TTFT. (2) A
+    client that reads two chunks of a 1500-token stream and goes away: its
+    slot frees within a few ticks and K3 stops. (3) The same streaming
+    check through path 7's prompt-lookup engine and path 18's drafter at
+    depth 2: K3-verify on every round. (4) Path 1's lock-step server: one
+    content chunk, the same text. (5) /v1/embeddings on four inputs padded
+    to 1024: K1 once a layer, unit norms, each vector's cosine with the
+    plain forward at least ``EMBED_COS_MIN``; ``client.embed`` once. (6)
+    ``train()`` on qwen2-0.5b (``EVAL_TRAIN_ARGS``) with the API eval
+    against the path's server: finite falling losses, 16 client requests,
+    no retries exhausted, 16 served requests, K1/K2a/K2b per layer per step
+    beside the server's K1 and K3. Returns the path's launch counts."""
+    import dataclasses
+    import gc
+    import socket
+
+    import torch
+
+    from ditl_tpu_torch.client import llm as client_llm
+    from ditl_tpu_torch.config import APIConfig
+    from ditl_tpu_torch.infer.engine import Generator
+    from ditl_tpu_torch.models import llama
+
+    cfg, tok = gen.cfg, gen.tokenizer
+    params = _ascii_params(gen)
+    gen_s = Generator(params, cfg, tok, device="cuda")
+    total = {k: 0 for k in ("flash_fwd", "flash_dq", "flash_dkv", "paged_tail",
+                            "paged_verify")}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+    # (1) streaming on path 2's engine, the stop probe beside path 2's 12
+    requests = _continuous_requests()[0]
+    probe = _Served(gen_s, _paged_engine(params, cfg, tok))
+    try:
+        texts = _send_all(probe.url, [("/v1/completions", p, False) for p in STOP_PROBES],
+                          stream=False)
+        found = None
+        for i, p in enumerate(STOP_PROBES):
+            ids = probe.rec.outputs[_req_key([tok.bos_id] + tok.encode(p["prompt"]), {
+                "max_new_tokens": p["max_tokens"], "temperature": p["temperature"],
+                "seed": p["seed"]})][0]
+            at = _stop_at_boundary(tok, ids)
+            if at is not None:
+                found = (p, texts[i][0], *at)
+                break
+        require(found is not None, [t[0] for t in texts.values()])
+        p_stop, probe_text, stop, k_stop = found
+        with_stop = dict(p_stop, stop=[stop])
+        status, body = _http("POST", probe.url + "/v1/completions", with_stop)
+        cut = probe_text[: probe_text.find(stop)]
+        require(status == 200 and (body["choices"][0]["text"],
+                                   body["choices"][0]["finish_reason"]) == (cut, "stop"), body)
+    finally:
+        probe.close()
+    del probe
+    want, got, launches, (st0, st1), served = _stream_legs(
+        gen_s, params, cfg, tok, flash, paged, requests + [with_stop], "stream")
+    try:
+        steps = st1["decode_steps"] - st0["decode_steps"]
+        cold = st1["prefills_cold"] - st0["prefills_cold"]
+        require(launches["paged_tail"] == cfg.num_layers * steps
+                and launches["flash_fwd"] == cfg.num_layers * cold
+                and launches["paged_verify"] == launches.pop("other") == 0,
+                (launches, steps, cold))
+        log(f"[stream] K3 launches {launches['paged_tail']} = {cfg.num_layers} layers x "
+            f"{steps} decode steps; K1 launches {launches['flash_fwd']} = {cfg.num_layers} x "
+            f"{cold} cold prefills ({st1['prefills_prefix_hit'] - st0['prefills_prefix_hit']} "
+            f"prefix hits on the pre-warmed pages)")
+        add(launches)
+        ids = [tok.bos_id] + tok.encode(p_stop["prompt"])
+        probe_chunks = served.rec.streams[_req_key(ids, {
+            "max_new_tokens": p_stop["max_tokens"], "temperature": p_stop["temperature"],
+            "seed": p_stop["seed"]})][0]
+        p = len(requests)
+        lens = [len(c) for c in probe_chunks]
+        require(got[p][:2] == (cut, "stop") and len(lens) == k_stop // 16 + 1
+                and lens[:-1] == [16] * (k_stop // 16), (got[p][:2], lens))
+        log(f"[stream] stop sequence {stop!r} across the boundary of the probe's chunks "
+            f"{lens} at token {k_stop} (probe {STOP_PROBES.index(p_stop)}): streamed "
+            f"{got[p][0]!r}, finish 'stop', as without a stream")
+        ttfc = sorted(r[4][0] for r in got.values())
+        tpot = sorted((got[i][4][-1] - got[i][4][0])
+                      / max(1, want[i][2]["completion_tokens"] - 1)
+                      for i in range(len(requests)))
+        # one cold streamed request on the idle engine, path 2's TTFT request
+        status, _, events, times = _sse(served.url, "/v1/completions",
+                                        {"prompt": _text(47, 1000), "max_tokens": 16})
+        content, _, text, _ = _sse_text(events, False)
+        require(status == 200 and content and len(text) == 16, (status, text))
+        idle_ttfc = times[content[0]]
+        log(f"[stream] time to the first content chunk over the 13 concurrent streams: "
+            f"median {ttfc[len(ttfc) // 2] * 1e3:.1f} ms, max {ttfc[-1] * 1e3:.1f} ms; "
+            f"time per output token after it: median {tpot[len(tpot) // 2] * 1e3:.1f} ms, "
+            f"max {tpot[-1] * 1e3:.1f} ms; one cold streamed 1001-token request on the idle "
+            f"engine: first content chunk after {idle_ttfc * 1e3:.1f} ms, its whole 16 tokens "
+            f"after {times[-1] * 1e3:.1f} ms, against path 2's time to first token "
+            f"{bf16['ttft_s'] * 1e3:.1f} ms (HTTP included; a stream's first chunk is a "
+            f"tick's 16 tokens; host clock; {SMI})")
+
+        # (2) a client that goes away after two chunks
+        engine = served.engine
+        body = json.dumps({"prompt": _text(49, 100), "max_tokens": 1500, "stream": True})
+        sock = socket.create_connection(("127.0.0.1", int(served.url.rsplit(":", 1)[1])),
+                                        timeout=600)
+        sock.sendall((f"POST /v1/completions HTTP/1.1\r\nHost: x\r\nContent-Type: "
+                      f"application/json\r\nContent-Length: {len(body)}\r\n\r\n{body}").encode())
+        seen = b""
+        while seen.count(b"data: ") < 2:
+            data = sock.recv(65536)
+            require(data, "stream closed early")
+            seen += data
+        ticks0 = engine.decode_ticks
+        sock.shutdown(socket.SHUT_RDWR)
+        sock.close()
+        t0 = time.perf_counter()
+        while engine.stats()["slots_busy"] or engine.pending:
+            require(time.perf_counter() - t0 < 60, "the abandoned stream kept its slot")
+            time.sleep(0.01)
+        ticks = engine.decode_ticks - ticks0
+        k3 = paged.launches_tail
+        time.sleep(1.0)
+        st = served.stats()
+        require(ticks <= 4 and paged.launches_tail == k3 and st["slots_busy"] == 0
+                and st["queue_depth"] == 0, (ticks, k3, paged.launches_tail, st))
+        log(f"[stream] a client gone after two chunks of a 1500-token stream: its slot "
+            f"free {ticks} ticks later ({(time.perf_counter() - t0 - 1.0) * 1e3:.0f} ms), "
+            f"K3's count unmoved over the next second, /v1/stats slots_busy 0")
+
+        # (5) /v1/embeddings: K1 once a layer, against the plain forward
+        n_tok = [1 + len(tok.encode(t)) for t in EMBED_INPUTS]
+        require(512 < max(n_tok) <= 1024, n_tok)  # padded to 1024
+        flash.reset_launches()
+        paged.reset_launches()
+        t0 = time.perf_counter()
+        status, body = _http("POST", served.url + "/v1/embeddings",
+                             {"input": EMBED_INPUTS, "model": "m"})
+        embed_s = time.perf_counter() - t0
+        k1 = flash.launches
+        require(status == 200 and k1 == cfg.num_layers and body["usage"]["prompt_tokens"]
+                == sum(n_tok), (status, k1, body.get("usage")))
+        add({"flash_fwd": k1})
+        vecs = torch.tensor([d["embedding"] for d in body["data"]], dtype=torch.float32)
+        norms = vecs.norm(dim=-1)
+        require(vecs.shape == (4, cfg.hidden_size)
+                and bool(((norms - 1).abs() < 1e-4).all()), norms)
+        fwd = flash.flash_attention_fwd
+        flash.flash_attention_fwd = flash.flash_attention_plain
+        try:
+            with torch.no_grad():
+                ids = torch.full((4, 1024), tok.pad_id, dtype=torch.long, device="cuda")
+                for i, t in enumerate(EMBED_INPUTS):
+                    ids[i, : n_tok[i]] = torch.tensor([tok.bos_id] + tok.encode(t))
+                pos = torch.arange(1024, device="cuda")
+                seg = (pos[None] < torch.tensor(n_tok, device="cuda")[:, None]).to(torch.int32)
+                hidden = llama.forward(gen.params, ids, cfg, positions=pos.expand(4, 1024),
+                                       segment_ids=seg, return_hidden=True)
+                mask = seg.float()[..., None]
+                plain = ((hidden.float() * mask).sum(1) / mask.sum(1)).cpu()
+        finally:
+            flash.flash_attention_fwd = fwd
+        require(flash.launches == k1, "the plain forward launched K1")
+        cos = torch.nn.functional.cosine_similarity(vecs, plain, dim=-1)
+        require(bool((cos >= EMBED_COS_MIN).all()), cos)
+        client = client_llm.LLMClient(APIConfig(api_base=served.url + "/v1", timeout_s=300))
+        again = client.embed(EMBED_INPUTS)
+        require(again is not None and float((torch.tensor(again, dtype=torch.float32)
+                                             - vecs).abs().max()) <= 1e-6,
+                "client.embed differs")
+        add({"flash_fwd": flash.launches - k1})
+        log(f"[embed] /v1/embeddings, 4 inputs of {n_tok} tokens padded to 4 x 1024: "
+            f"{embed_s * 1e3:.1f} ms over HTTP, K1 launches {k1} = {cfg.num_layers} layers "
+            f"x 1 forward; norms {[round(float(n), 6) for n in norms]}; cosine with the "
+            f"plain forward {[round(float(c), 6) for c in cos]} (at least {EMBED_COS_MIN}); "
+            f"client.embed the same vectors ({SMI})")
+
+        # (6) API eval during training against this server
+        from ditl_tpu_torch.launch import build_config
+        from ditl_tpu_torch.train import trainer as trainer_mod
+
+        config, device = build_config(EVAL_TRAIN_ARGS + [f"api.api_base={served.url}/v1"])
+        mcfg = config.model
+        require((mcfg.name, mcfg.num_layers, mcfg.hidden_size, mcfg.dtype,
+                 mcfg.attention_impl, config.train.eval_every, config.train.eval_samples,
+                 device) == ("qwen2-0.5b", 24, 896, "bfloat16", "flash", 2, 8, "cuda"), config)
+        m = client_llm.client_metrics
+        before = {k: getattr(m, k).value for k in ("requests", "retries", "retry_exhausted",
+                                                   "deadline_exhausted")}
+        st0 = served.stats()
+        evals = []
+        real = trainer_mod.run_api_eval
+
+        def timed_eval(*args, **kw):
+            t = time.perf_counter()
+            out = real(*args, **kw)
+            evals.append((time.perf_counter() - t, out))
+            return out
+
+        trainer_mod.run_api_eval = timed_eval
+        flash.reset_launches()  # this leg's counts start here
+        paged.reset_launches()
+        try:
+            summary = trainer_mod.train(config, device=device)
+        finally:
+            trainer_mod.run_api_eval = real
+        counts = {"flash_fwd": flash.launches, "flash_dq": flash.launches_dq,
+                  "flash_dkv": flash.launches_dkv, "paged_tail": paged.launches_tail,
+                  "paged_other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
+                  - paged.launches_tail}  # read right after
+        st1 = served.stats()
+        after = {k: getattr(m, k).value - before[k] for k in before}
+        losses = summary["losses"]
+        served_k1 = cfg.num_layers * (st1["prefills_cold"] - st0["prefills_cold"])
+        train_k1 = 2 * mcfg.num_layers * EVAL_STEPS
+        require(summary["steps"] == EVAL_STEPS and all(x == x and abs(x) != float("inf")
+                                                       for x in losses)
+                and losses[-1] < losses[0], losses)
+        require(len(evals) == 2 and all(out["n"] == 8 and out["n_errors"] == 0
+                                        for _, out in evals), evals)
+        require(after == {"requests": 16, "retries": 0, "retry_exhausted": 0,
+                          "deadline_exhausted": 0}, after)
+        require(st1["requests"] - st0["requests"] == 16, (st0["requests"], st1["requests"]))
+        require(counts["flash_dq"] == counts["flash_dkv"] == mcfg.num_layers * EVAL_STEPS
+                and counts["flash_fwd"] == train_k1 + served_k1
+                and counts["paged_tail"] == cfg.num_layers * (st1["decode_steps"]
+                                                              - st0["decode_steps"]) > 0
+                and counts.pop("paged_other") == 0, (counts, served_k1, st0, st1))
+        add(counts)
+        log(f"[api-eval] train() on qwen2-0.5b (bf16, f32 masters, flash, full remat) B=4 "
+            f"S=2048, {EVAL_STEPS} steps, API eval every 2 steps against the path's "
+            f"llama3-8b server: losses {[round(x, 4) for x in losses]}; step time p50 "
+            f"{summary['step_time_p50_s']:.3f} s; eval wall {[round(s, 3) for s, _ in evals]} "
+            f"s for 8 chat requests of up to 64 tokens each; results "
+            f"{[out for _, out in evals]}; client requests +{after['requests']}, retries "
+            f"+{after['retries']}, exhausted +{after['retry_exhausted']} / "
+            f"+{after['deadline_exhausted']}; served requests +16; trainer K1 {train_k1} = "
+            f"2 x {mcfg.num_layers} layers x {EVAL_STEPS} steps, K2a {counts['flash_dq']} "
+            f"and K2b {counts['flash_dkv']} = {mcfg.num_layers} x {EVAL_STEPS}; server K1 "
+            f"{served_k1} = {cfg.num_layers} x {st1['prefills_cold'] - st0['prefills_cold']} "
+            f"cold prefills, K3 {counts['paged_tail']} = {cfg.num_layers} x "
+            f"{st1['decode_steps'] - st0['decode_steps']} decode steps; peak device memory "
+            f"{summary['peak_device_memory_gib']:.1f} GiB ({SMI})")
+    finally:
+        served.close()
+    del served, config
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) speculative streaming at depth 2: prompt lookup, then the drafter
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params2 = {**params, "layers": {g: {k: w[:2] for k, w in grp.items()}
+                                    for g, grp in params["layers"].items()}}
+    gen2 = Generator(params2, cfg2, tok, device="cuda")
+    dcfg = dataclasses.replace(cfg, **DRAFT_WIDTHS)
+    dparams = llama.init_params(dcfg, seed=11, device="cuda")
+    for tag, kw in (("stream-spec", {}),
+                    ("stream-draft", {"draft_params": dparams, "draft_cfg": dcfg})):
+        _, _, launches, (st0, st1), served = _stream_legs(
+            gen2, params2, cfg2, tok, flash, paged, requests, tag, speculative=True,
+            spec_threshold=0.0, **kw)
+        served.close()
+        sp = st1["speculative"]
+        rounds = sp["verify_rounds"] - st0["speculative"]["verify_rounds"]
+        require(launches["paged_verify"] == cfg2.num_layers * rounds > 0
+                and launches["paged_tail"] == launches.pop("other") == 0
+                and sp["spec_ticks"] == sp["ticks"] > 0, (launches, rounds, sp))
+        add(launches)
+        log(f"[{tag}] depth 2: K3-verify launches {launches['paged_verify']} = "
+            f"{cfg2.num_layers} layers x {rounds} verify rounds, single-query K3 0; "
+            f"{sp['tokens_per_row_forward']:.3f} tokens per verify forward per row")
+        del served
+    del dparams, gen2, params2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) the lock-step server: one content chunk, the same text
+    lock = _Served(gen_s)
+    try:
+        chat_msgs = [{"role": "user", "content": _text(2, 140)}]
+        cases = [("/v1/completions", {"prompt": _text(0, 100), "max_tokens": 16}, False),
+                 ("/v1/chat/completions", {"messages": chat_msgs, "max_tokens": 16}, True),
+                 ("/v1/completions", {"prompt": _text(4, 300), "max_tokens": 16,
+                                      "temperature": 0.8, "seed": 7}, False)]
+        flash.reset_launches()
+        paged.reset_launches()
+        for route, payload, chat in cases:
+            status, _, events, _ = _sse(lock.url, route, payload)
+            content, _, text, finish = _sse_text(events, chat)
+            status2, body = _http("POST", lock.url + route, payload)
+            choice = body["choices"][0]
+            want_text = choice["message"]["content"] if chat else choice["text"]
+            require(status == status2 == 200 and len(content) == 1 and text == want_text
+                    and len(text) == 16 and finish == choice["finish_reason"],
+                    (route, text, want_text, content))
+        k1 = flash.launches
+        require(k1 == cfg.num_layers * 2 * len(cases)
+                and sum(getattr(paged, n) for n in paged._COUNTERS.values()) == 0, k1)
+        add({"flash_fwd": k1})
+        log(f"[stream-lockstep] lock-step server: {len(cases)} streams of one content "
+            f"chunk each, the text of the same request without a stream; K1 launches {k1} "
+            f"= {cfg.num_layers} x {2 * len(cases)} prefills")
+    finally:
+        lock.close()
+    del lock, gen_s, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[stream] path 20 launches {total}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return total
+
+
 # Speculation at depth 2 over other pools: (server flags, the compute dtype,
 # int8 pools, the log tag, what the pools hold). The verify kernel's name in
 # the kernels line is "paged_verify" + ("_int8" with int8 pools) + the
@@ -6802,6 +7464,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     path19 = phase_serve_chunked(gen, flash, paged, bf16_summary)
     lockstep_spec = phase_lockstep_spec(gen, flash, paged)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path20 = phase_serve_stream(gen, flash, paged, bf16_summary)
     # Free the bf16 serving weights and pools before path 6's int8 ones.
     del gen, bf16_summary["outputs"]
     gc.collect()
@@ -6938,6 +7603,8 @@ def main() -> int:
                 "paged_verify_int8_f16": f16_int8_spec["paged_verify_int8_f16"],
                 **{k: training4[k] + recipe[k]
                    for k in ("mlp_dgu_dwdown", "mlp_dh_dwgu", "proj_bwd")}}
+    for name, n in path20.items():  # path 20: streaming, embeddings, API eval
+        launches[name] += n
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
             (lockstep, continuous))
     # Paths 14 (D = 32), 15 (D = 256), 16 (G = 16) and 17 (D = 96): their
@@ -6971,14 +7638,15 @@ def main() -> int:
                         "launches_paths_14_17": by_dim[name],
                         "launches_paths_18_19": {"18": path18.get(name, 0),
                                                  "19": path19.get(name, 0)},
+                        "launches_path_20": path20.get(name, 0),
                         "max_abs_err": errors[name], **timings[name],
                         "at_head_dims": hd_timings.get(name, {}),
                         "at_shapes": shape_timings.get(name, {})})
     log(f"[done] launches by path: lock-step {lockstep}, continuous {continuous}, "
         f"speculative continuous {spec_serve}, draft-model speculation (path 18) {path18}, "
         f"chunked prefill under a budget (path 19) {path19}, "
-        f"lock-step speculative {lockstep_spec}, "
-        f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
+        f"lock-step speculative {lockstep_spec}, streaming, embeddings and API eval "
+        f"(path 20) {path20}, int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
         f"f32 serving {f32_serve}, f32 speculative {f32_spec}, f32 over int8 pools "
         f"{f32_int8_serve}, its speculation {f32_int8_spec}, float16 serving {f16_serve}, "
         f"its speculation {f16_spec}, float16 over int8 pools with speculation "
@@ -7040,7 +7708,34 @@ def tree_main(mode: str, tree: str | None, sweeps: bool) -> int:
     return 0
 
 
+def path20_main() -> int:
+    """``--path20``: the card, the build, paths 1 and 2 (path 20's weights
+    and its TTFT yardstick), then path 20 alone; no kernels line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the card", file=sys.stderr)
+        return 1
+    from ditl_tpu_torch.ops import flash_attention as flash
+    from ditl_tpu_torch.ops import paged_attention as paged
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_card()
+    phase_build()
+    gen, _ = phase_serve(flash, paged)
+    _, bf16_summary = phase_serve_continuous(gen, flash, paged)
+    t0 = time.perf_counter()
+    phase_serve_stream(gen, flash, paged, bf16_summary)
+    log(f"[done] path 20 in {time.perf_counter() - t0:.1f}s, all in "
+        f"{time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--path20"]:
+        sys.exit(path20_main())
     if sys.argv[1:2] in (["--paged-rows"], ["--f32-mm"]):
         rest = sys.argv[2:]
         sys.exit(tree_main(sys.argv[1], next((a for a in rest if a != "--sweep"), None),

@@ -11,7 +11,7 @@ launcher does.
 
 Fields whose features are not ported yet are kept so that setting them
 raises where the JAX package would act on them: MoE, LoRA and int8 caches in
-the model code; API eval, multi-step calls, HF import, telemetry, profiling
+the model code; multi-step calls, HF import, the event journal, profiling
 and the fault drills here, at construction. The backward kernels
 of the MLP block and of the attention projections (``mlp_bwd_impl``,
 ``mlp_custom_vjp``, ``proj_bwd_impl`` and their block fields) are validated
@@ -22,10 +22,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field, fields, replace
 from typing import Any, Sequence
 
-__all__ = ["ModelConfig", "DataConfig", "TrainConfig", "Config",
+__all__ = ["ModelConfig", "DataConfig", "TrainConfig", "APIConfig", "Config",
            "parse_model_overrides", "parse_overrides"]
 
 # attention_impl values the port runs; the others wait for later slices.
@@ -188,7 +189,8 @@ class TrainConfig:
     steps_per_call: int = 1  # > 1 raises (multi-step calls not ported)
     log_every: int = 10
     metrics_file: str = ""  # "" => no JSONL scalar stream
-    eval_every: int = 0  # > 0 raises (API eval not ported)
+    eval_every: int = 0  # 0 => no API eval loop (client/eval_loop.py)
+    eval_samples: int = 8
     # Local validation: every N steps the eval step runs over val_batches
     # batches of the held-out split (data.eval_fraction).
     val_every: int = 0
@@ -208,7 +210,7 @@ class TrainConfig:
 
     def __post_init__(self):
         unported = {
-            "eval_every": "API eval", "init_from_hf": "HF checkpoint import",
+            "init_from_hf": "HF checkpoint import",
             "telemetry_dir": "the event journal", "profile_dir": "profiling",
             "fault_inject_step": "the fault drills",
             "fault_kill_step": "the fault drills",
@@ -228,12 +230,36 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class APIConfig:
+    """Remote-LLM (OpenAI-compatible) client config (the JAX package's
+    ``APIConfig``, every field). The API key is never stored here;
+    ``api_key()`` reads the environment at call time."""
+
+    model_name: str = "meta-llama/Meta-Llama-3.1-70B-Instruct"
+    api_base: str = "http://localhost:4000/v1"
+    api_key_env: str = "OPENAI_API_KEY"
+    timeout_s: float = 60.0
+    max_retries: int = 5
+    backoff_base_s: float = 0.5  # exponential backoff with jitter
+    backoff_max_s: float = 30.0
+    # Hard wall-clock bound over the whole retry loop of one logical call:
+    # per-attempt timeouts are clamped to the remaining budget and backoff
+    # never sleeps past the deadline. 0 = unbounded.
+    total_timeout_s: float = 0.0
+    max_concurrency: int = 8  # complete_many's fan-out
+
+    def api_key(self) -> str:
+        return os.environ.get(self.api_key_env, "")
+
+
+@dataclass(frozen=True)
 class Config:
     """The sections the training launcher reads."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    api: APIConfig = field(default_factory=APIConfig)
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
@@ -260,7 +286,7 @@ def _coerce(value: str, target_type: Any) -> Any:
 
 
 # Sections of the JAX package's Config the port has no copy of yet.
-_UNPORTED_SECTIONS = ("runtime", "mesh", "api", "gateway", "autoscale", "kvtier",
+_UNPORTED_SECTIONS = ("runtime", "mesh", "gateway", "autoscale", "kvtier",
                       "usage", "adapter", "chaos", "bulk", "telemetry")
 
 

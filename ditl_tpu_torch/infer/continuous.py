@@ -76,6 +76,13 @@ request's draws do not depend on which requests share its ticks. The draws
 are PyTorch's, not the reference's, so sampled tokens match it in
 distribution only; greedy tokens match exactly.
 
+Streaming: ``submit(stream=q)`` puts each harvest's new tokens on ``q`` as
+one list (a plain tick's chunk, a speculative tick's accepted tokens, a
+chunked prompt's first token with its tick) and ``None`` when the request
+finishes or is cancelled; ``ThreadedEngine.stream_one`` iterates them, and
+ends every open stream if its driver thread dies. The concatenated chunks
+are the tokens the request returns without a stream.
+
 Everything else of the reference engine raises ``NotImplementedError`` and
 is queued in ``ROADMAP.md``: the contiguous cache, optimistic admission
 with preemption, logprobs, grammar masks, multi-LoRA stacks, the host-RAM
@@ -87,6 +94,7 @@ meshes, and the telemetry planes (of which ``stats()`` keeps
 from __future__ import annotations
 
 import bisect
+import queue
 import threading
 import time
 from dataclasses import dataclass, field
@@ -112,7 +120,7 @@ from ditl_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 __all__ = ["BadRequestError", "ContinuousEngine", "QueueFullError", "Request",
-           "SLO_CLASSES", "ThreadedEngine"]
+           "SLO_CLASSES", "ThreadedEngine", "TokenStream"]
 
 # SLO class -> scheduling rank (lower = served first): admission orders the
 # queue by (rank, arrival).
@@ -157,6 +165,10 @@ class Request:
     # its speculative rounds, and the verify forwards it took part in.
     spec_tokens: int = 0
     spec_forwards: int = 0
+    # Streaming: a queue that gets each harvest's fresh tokens as one list,
+    # then None when the request ends (finished, cancelled, or the driver
+    # died).
+    stream: Any = None
 
     @property
     def slo_rank(self) -> tuple[int, int]:
@@ -482,9 +494,10 @@ class ContinuousEngine:
     ) -> int:
         """Queue a request; returns its id (see ``take_result``/``run``).
         ``slo_class`` (``interactive`` | ``batch`` | ``best_effort``) orders
-        admission; it never changes a request's result."""
+        admission; it never changes a request's result. ``stream`` (any
+        object with ``put``, e.g. a ``queue.Queue``) receives each harvest's
+        new tokens as one list and a terminal ``None``."""
         unported = {
-            "streaming": stream is not None,
             "logprobs": logprobs is not None,
             "multi-LoRA adapters": bool(adapter_id),
             "grammar-constrained decoding": grammar is not None,
@@ -519,6 +532,7 @@ class ContinuousEngine:
             top_p=gen.top_p if top_p is None else top_p,
             seed=(self._base_seed + self._next_id) if seed is None else int(seed),
             slo_class=slo_class,
+            stream=stream,
         )
         self._next_id += 1
         self._enqueue(req)
@@ -1028,22 +1042,29 @@ class ContinuousEngine:
         finished requests publish their pages and free their slot.
         ``counts`` (speculative ticks): each row's valid emissions, since a
         round emits 1..k+1 tokens and a live row's output need not end in
-        pad filler."""
+        pad filler. A streamed request gets its new tokens as one list, and
+        ``None`` once it finishes."""
         eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
         for slot, req in enumerate(list(self._slots)):
             if req is None or req.prefilling:
                 # a parked slot's row is pad filler, not an empty generation
                 continue
             row = emitted[slot] if counts is None else emitted[slot][: counts[slot]]
+            fresh = []
             for tok in row:
                 tok = int(tok)
                 if tok in (eos, pad) or len(req.tokens) >= req.max_new_tokens:
                     req.finished = True
                     break
                 req.tokens.append(tok)
+                fresh.append(tok)
             if len(req.tokens) >= req.max_new_tokens:
                 req.finished = True
+            if req.stream is not None and fresh:
+                req.stream.put(fresh)
             if req.finished:
+                if req.stream is not None:
+                    req.stream.put(None)
                 self._completed[req.req_id] = req
                 self._slots[slot] = None
                 # Publish before releasing: the content cache's own
@@ -1263,18 +1284,37 @@ class ContinuousEngine:
 
     def cancel(self, req_id: int) -> bool:
         """Abandon a queued or in-flight request; its slot and private pages
-        free at once. Returns True if the request was found."""
+        free at once, and a streamed request gets its terminal ``None``.
+        Returns True if the request was found."""
         with self._queue_lock:
             for req in self._queue:
                 if req.req_id == req_id:
                     self._queue.remove(req)
+                    if req.stream is not None:
+                        req.stream.put(None)
                     return True
         for slot, req in enumerate(self._slots):
             if req is not None and req.req_id == req_id:
                 self._slots[slot] = None
                 self._free_slot_pages(slot)
+                if req.stream is not None:
+                    req.stream.put(None)
                 return True
         return self._completed.pop(req_id, None) is not None
+
+    def end_streams(self) -> set[int]:
+        """Put the terminal ``None`` on the stream of every queued and
+        in-flight streamed request (the driver is going away); returns
+        their ids."""
+        with self._queue_lock:
+            live = list(self._queue)
+        live += [r for r in self._slots if r is not None]
+        ended = set()
+        for req in live:
+            if req.stream is not None:
+                req.stream.put(None)
+                ended.add(req.req_id)
+        return ended
 
     def take_result(self, req_id: int) -> list[int] | None:
         """Pop a finished request's tokens, or None if still in flight."""
@@ -1288,6 +1328,27 @@ class ContinuousEngine:
         return out
 
 
+class TokenStream:
+    """What ``ThreadedEngine.stream_one`` returns: an iterator of token-id
+    lists as they are harvested. ``close()`` cancels the request whether or
+    not iteration began (closing a generator that never started runs none
+    of its code)."""
+
+    def __init__(self, chunks, cancel):
+        self._chunks = chunks
+        self._cancel = cancel
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> list[int]:
+        return next(self._chunks)
+
+    def close(self) -> None:
+        self._chunks.close()
+        self._cancel()
+
+
 class ThreadedEngine:
     """Thread-safe front for ``ContinuousEngine``: HTTP handler threads
     submit and block on their own request while one driver thread ticks the
@@ -1298,6 +1359,8 @@ class ThreadedEngine:
         self._cond = threading.Condition()
         self._results: dict[int, Request] = {}  # guarded by _cond
         self._cancels: set[int] = set()  # guarded by _cond
+        # Streamed requests whose stream the driver ended by dying.
+        self._aborted: set[int] = set()  # guarded by _cond
         self._error: BaseException | None = None  # guarded by _cond
         self._stop = False  # guarded by _cond
         self._thread = threading.Thread(target=self._drive, daemon=True)
@@ -1338,11 +1401,16 @@ class ThreadedEngine:
                 with self._cond:
                     self._error = e
                     self._stop = True
+                    self._aborted = self._engine.end_streams()
                     self._cond.notify_all()
                 return
             with self._cond:
                 for req in self._engine.take_finished():
-                    self._results[req.req_id] = req
+                    # A streamed request delivers through its stream (its
+                    # None went out in _harvest); kept here, nobody would
+                    # pop it.
+                    if req.stream is None:
+                        self._results[req.req_id] = req
                 self._cond.notify_all()
 
     def generate_one(
@@ -1372,6 +1440,61 @@ class ThreadedEngine:
                         "continuous engine stopped mid-request") from self._error
                 self._cond.wait()
             return self._results.pop(rid).tokens
+
+    def stream_one(
+        self,
+        prompt_tokens: list[int],
+        *,
+        max_new_tokens: int | None = None,
+        temperature: float | None = None,
+        top_p: float | None = None,
+        seed: int | None = None,
+        slo_class: str | None = None,
+    ):
+        """Submit one request and return an iterator of its token-id lists
+        as they are harvested (SSE streaming). The submit is eager:
+        ``QueueFullError`` and ``BadRequestError`` raise here, while the
+        HTTP layer can still answer 429 or 400. Closing the iterator early
+        (a stop sequence, a client gone) cancels the request, which frees
+        its slot. Raises if the driver stops mid-stream."""
+        stream: queue.Queue = queue.Queue()
+        with self._cond:
+            if self._stop:
+                raise RuntimeError("continuous engine is stopped") from self._error
+            rid = self._engine.submit(
+                prompt_tokens, max_new_tokens=max_new_tokens,
+                temperature=temperature, top_p=top_p, seed=seed,
+                slo_class=slo_class, stream=stream,
+            )
+            self._cond.notify_all()
+
+        def chunks():
+            try:
+                while True:
+                    try:
+                        chunk = stream.get(timeout=1.0)
+                    except queue.Empty:
+                        # _stop and _error as one pair under the condition,
+                        # once per idle second.
+                        with self._cond:
+                            stopped, err = self._stop, self._error
+                        if stopped:
+                            raise RuntimeError(
+                                "continuous engine stopped mid-stream") from err
+                        continue
+                    if chunk is None:
+                        with self._cond:
+                            aborted, err = rid in self._aborted, self._error
+                        if aborted:
+                            raise RuntimeError(
+                                "continuous engine driver died mid-stream") from err
+                        return
+                    yield chunk
+            finally:
+                # An early stop must not decode the abandoned budget.
+                self.cancel(rid)
+
+        return TokenStream(chunks(), lambda: self.cancel(rid))
 
     def cancel(self, req_id: int) -> None:
         """Request cancellation; the driver thread applies it before its

@@ -1,9 +1,23 @@
 """OpenAI-compatible HTTP server over the port's engines.
 
 Counterpart of the JAX package's ``infer/server.py``: ``GET /health``,
-``GET /v1/models``, ``GET /v1/stats``, and non-streaming
-``POST /v1/completions`` and ``POST /v1/chat/completions`` with ``stop``,
-``max_tokens``, ``temperature``, ``top_p`` and ``seed``.
+``GET /v1/models``, ``GET /v1/stats``, ``POST /v1/completions`` and
+``POST /v1/chat/completions`` with ``stop``, ``max_tokens``,
+``temperature``, ``top_p``, ``seed`` and ``stream``, and
+``POST /v1/embeddings``.
+
+- ``"stream": true`` answers Server-Sent Events (``data: {...}`` chunks,
+  then ``data: [DONE]``, ``Connection: close``): the continuous engine
+  streams each harvest's tokens as they decode (``ThreadedEngine.stream_one``,
+  submitted before the headers go out, so a full queue still answers 429);
+  the lock-step engine generates the whole answer (speculatively when
+  eligible) and sends it as one chunk. Chat streams open with the role
+  chunk; text that could begin a stop sequence is held back across chunk
+  boundaries; a client that goes away cancels its request, freeing its
+  slot. Streamed logprobs answer 400 (the continuous engine's logprobs are
+  not ported).
+- ``/v1/embeddings``: mean-pooled, unit-length final hidden states of the
+  served model (one forward over the padded batch, under the device lock).
 
 - ``--engine lockstep`` (default): the lock-step ``Generator``; a lock
   serialises device work.
@@ -16,8 +30,7 @@ Counterpart of the JAX package's ``infer/server.py``: ``GET /health``,
   slots, queue and pages. ``--cache-mode contiguous`` raises (ROADMAP.md).
 
 ``--max-pending`` answers 429 beyond that many requests in flight.
-Streaming, adapters, telemetry and pod serving are later slices
-(ROADMAP.md). ``--checkpoint-dir`` serves the newest verified step of a
+Adapters, telemetry routes and pod serving are later slices (ROADMAP.md). ``--checkpoint-dir`` serves the newest verified step of a
 training run's checkpoints (``train/checkpoint.py``: its masters turned into
 the serving tree, checked against the preset and overrides, which must be
 the trained model's); without it, or when the directory holds no step that
@@ -70,7 +83,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ditl_tpu_torch.infer.continuous import QueueFullError, ThreadedEngine
-from ditl_tpu_torch.infer.engine import GenerateConfig, Generator
+from ditl_tpu_torch.infer.engine import GenerateConfig, Generator, _next_pow2
 from ditl_tpu_torch.utils.http11 import KeepAliveHandlerMixin
 from ditl_tpu_torch.utils.logging import get_logger
 
@@ -177,6 +190,74 @@ def _apply_stop(text: str, stops: list[str]) -> tuple[str, bool]:
     return (text, False) if cut is None else (text[:cut], True)
 
 
+class _StopTracker:
+    """Streaming stop handling (the reference's): emits increments, holding
+    back any trailing text that could be the start of a stop sequence
+    spanning a chunk boundary."""
+
+    def __init__(self, stops: list[str]):
+        self.stops = stops
+        self.acc = ""
+        self.sent = 0
+        self.hit = False
+
+    def push(self, piece: str) -> str:
+        """Add decoded text; return what is safe to emit now."""
+        if self.hit:
+            return ""
+        self.acc += piece
+        cut, self.hit = _apply_stop(self.acc, self.stops)
+        if self.hit:
+            out = cut[self.sent:]
+            self.sent = len(cut)
+            return out
+        hold = 0
+        for s in self.stops:
+            for k in range(1, len(s)):
+                if self.acc.endswith(s[:k]):
+                    hold = max(hold, k)
+        safe = len(self.acc) - hold
+        out = self.acc[self.sent: safe] if safe > self.sent else ""
+        self.sent = max(self.sent, safe)
+        return out
+
+    def flush(self) -> str:
+        """End of stream: release any held-back stop-prefix text."""
+        if self.hit:
+            return ""
+        out = self.acc[self.sent:]
+        self.sent = len(self.acc)
+        return out
+
+
+class _Detokenizer:
+    """Token chunks -> text increments whose concatenation is the decode of
+    all the tokens. Each push decodes the whole sequence so far and emits
+    what is new, holding back a trailing U+FFFD: it may be the start of a
+    UTF-8 character whose bytes arrive in the next chunk (decoding each
+    chunk alone, as the reference does, would turn such a split character
+    into replacement characters)."""
+
+    def __init__(self, tokenizer):
+        self.tokenizer = tokenizer
+        self.ids: list[int] = []
+        self.sent = 0
+
+    def push(self, chunk: list[int]) -> str:
+        self.ids.extend(chunk)
+        text = self.tokenizer.decode(self.ids)
+        safe = len(text.rstrip("\ufffd"))
+        out = text[self.sent: safe] if safe > self.sent else ""
+        self.sent = max(self.sent, safe)
+        return out
+
+    def flush(self) -> str:
+        text = self.tokenizer.decode(self.ids)
+        out = text[self.sent:]
+        self.sent = len(text)
+        return out
+
+
 def _chat_prompt(messages: list[dict]) -> str:
     """Chat messages -> prompt as plain-text role turns (the byte tokenizer's
     rendering; chat templates come with Hugging Face tokenizers)."""
@@ -266,12 +347,12 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             return
         if not isinstance(payload, dict):
             self._send_json(400, {"error": {"message": "body must be a JSON object"}})
-        elif path.endswith(("/chat/completions", "/completions")):
-            self._device_work(payload, chat=path.endswith("/chat/completions"))
+        elif path.endswith(("/chat/completions", "/completions", "/embeddings")):
+            self._device_work(payload, path)
         else:
             self._send_json(404, {"error": {"message": f"no route {self.path}"}})
 
-    def _device_work(self, payload: dict, *, chat: bool) -> None:
+    def _device_work(self, payload: dict, path: str) -> None:
         """Admission: 503 while draining, 429 beyond ``max_pending`` in flight."""
         srv = self.server
         if srv.draining:
@@ -287,15 +368,20 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                                "in flight)",
                     "type": "rate_limit_error"}}, headers={"Retry-After": "1"})
                 return
-            self._complete(payload, chat=chat)
+            if path.endswith("/embeddings"):
+                try:
+                    self._embeddings(payload)
+                except Exception as e:  # noqa: BLE001 - the server keeps serving
+                    logger.exception("embeddings failed")
+                    self._send_json(500, {"error": {"message": str(e)}})
+            else:
+                self._complete(payload, chat=path.endswith("/chat/completions"))
         finally:
             srv._exit_request()
 
     def _complete(self, payload: dict, *, chat: bool) -> None:
         tok = self.generator.tokenizer
         try:
-            if payload.get("stream"):
-                raise ValueError("streaming is not ported to PyTorch yet")
             if chat:
                 prompt = _chat_prompt(payload.get("messages") or [])
             else:
@@ -327,8 +413,33 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         except (TypeError, ValueError) as e:
             self._send_json(400, {"error": {"message": str(e)}})
             return
-        t0 = time.time()
         prompt_ids = [tok.bos_id] + tok.encode(prompt)
+        if payload.get("stream"):
+            if n_top is not None:
+                # The continuous engine's logprobs are not ported, so no
+                # engine here can carry them per chunk.
+                self._send_json(400, {"error": {"message":
+                    "streaming logprobs requires --engine continuous with "
+                    "--logprobs-k >= N, no stop sequences, and no adapter "
+                    "routing"}})
+                return
+            try:
+                self._stream_complete(payload, prompt_ids, gen, chat=chat, stops=stops)
+            except QueueFullError as e:
+                # The stream's submit is eager (before the SSE headers), so a
+                # full queue is still a real 429.
+                self._send_json(429, {"error": {"message": str(e),
+                                                "type": "rate_limit_error"}},
+                                headers={"Retry-After": "1"})
+            except ValueError as e:  # the eager submit's validation
+                self._send_json(400, {"error": {"message": str(e)}})
+            except OSError:
+                logger.info("client disconnected mid-stream")
+            except Exception:  # noqa: BLE001 - the headers may be out already:
+                # a JSON 500 would corrupt the stream; log and close.
+                logger.exception("streaming completion failed")
+            return
+        t0 = time.time()
         lp = None
         try:
             if self.threaded_engine is not None and n_top is None:
@@ -389,6 +500,173 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         })
         logger.info("served %d prompt + %d completion tokens in %.2fs",
                     len(prompt_ids), n_gen, time.time() - t0)
+
+    def _send_sse(self, events) -> None:
+        """Send JSON events as Server-Sent Events. SSE has no
+        Content-Length, so the connection closes after ``data: [DONE]``. A
+        client that vanishes mid-stream (a failed write) closes the events
+        generator, whose ``finally`` cancels the generation and frees the
+        slot instead of decoding the abandoned budget."""
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Connection", "close")  # also sets close_connection
+        self.end_headers()
+        try:
+            for event in events:
+                self.wfile.write(f"data: {json.dumps(event)}\n\n".encode())
+                self.wfile.flush()
+            self.wfile.write(b"data: [DONE]\n\n")
+            self.wfile.flush()
+        except OSError:  # BrokenPipeError and ConnectionError are subclasses
+            logger.info("client disconnected mid-stream; cancelling its generation")
+        finally:
+            events.close()
+
+    def _stream_complete(self, payload: dict, prompt_ids: list[int],
+                         gen: GenerateConfig, *, chat: bool, stops: list[str]) -> None:
+        """OpenAI streaming: incremental chunks from the continuous engine;
+        the lock-step engine generates fully, then sends one chunk. The
+        finish chunk says ``"stop"`` when a stop sequence matched (even at
+        the full token budget) or the generation ended early, else
+        ``"length"``."""
+        cmpl_id = f"cmpl-{uuid.uuid4().hex[:24]}"
+        created = int(time.time())
+        model = payload.get("model") or self.model_name
+        kind = "chat.completion.chunk" if chat else "text_completion"
+
+        def event(text, finish=None, role=None):
+            if chat:
+                delta = {}
+                if role is not None:
+                    delta = {"role": role, "content": ""}
+                elif text:
+                    delta = {"content": text}
+                choice = {"index": 0, "delta": delta, "finish_reason": finish}
+            else:
+                choice = {"index": 0, "text": text, "finish_reason": finish}
+            return {"id": cmpl_id, "object": kind, "created": created,
+                    "model": model, "choices": [choice]}
+
+        # Submit before the SSE headers: QueueFullError is still a 429 and
+        # a request the context cannot hold a 400. The lock-step engine
+        # generates whole here, for the same reason (the reference does it
+        # after the headers, where its error would corrupt the stream).
+        stream_iter = out = None
+        if self.threaded_engine is not None:
+            stream_iter = self.threaded_engine.stream_one(
+                prompt_ids, max_new_tokens=gen.max_new_tokens,
+                temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed)
+        else:
+            # Generated whole, so greedy streams take speculation as
+            # non-streamed requests do.
+            out = self._lockstep_generate(prompt_ids, gen)
+
+        def events():
+            try:
+                if chat:
+                    yield event("", role="assistant")
+                tracker = _StopTracker(stops)
+                n_gen = 0
+                if stream_iter is not None:
+                    detok = _Detokenizer(self.threaded_engine.tokenizer)
+                    for chunk in stream_iter:
+                        n_gen += len(chunk)
+                        text = tracker.push(detok.push(chunk))
+                        if text:
+                            yield event(text)
+                        if tracker.hit:
+                            break  # closing stream_iter cancels the request
+                    tail = tracker.push(detok.flush()) + tracker.flush()
+                    if tail:
+                        yield event(tail)
+                else:
+                    n_gen = len(out)
+                    text, tracker.hit = _apply_stop(
+                        self.generator.tokenizer.decode(out), stops)
+                    if text:
+                        yield event(text)
+                with self.stats_lock:
+                    self.stats["requests"] += 1
+                    self.stats["prompt_tokens"] += len(prompt_ids)
+                    self.stats["completion_tokens"] += n_gen
+                finish = "stop" if tracker.hit or n_gen < gen.max_new_tokens else "length"
+                yield event("", finish=finish)
+            finally:
+                if stream_iter is not None:
+                    stream_iter.close()
+
+        self._send_sse(events())
+
+    def _embeddings(self, payload: dict) -> None:
+        """OpenAI ``/v1/embeddings``: mean-pooled, unit-length final hidden
+        states. The batch is padded to a power of two and each input to the
+        longest's power of two (``_next_pow2``), as the reference pads for
+        its compiled programs; eager PyTorch compiles nothing, so the
+        reference's cache of programs has no counterpart. One forward under
+        the device lock."""
+        import torch
+
+        from ditl_tpu_torch.models import llama
+
+        raw = payload.get("input")
+        if isinstance(raw, str):
+            inputs = [raw]
+        elif isinstance(raw, list) and raw and all(isinstance(x, int) for x in raw):
+            inputs = [raw]  # one pre-tokenized prompt
+        elif isinstance(raw, list):
+            inputs = raw
+        else:
+            self._send_json(400, {"error": {"message":
+                "input must be a string, array of strings, or token array"}})
+            return
+        if not inputs or len(inputs) > 64:
+            self._send_json(400, {"error": {"message":
+                "input must contain 1..64 entries"}})
+            return
+        gen = self.generator
+        tok, cfg = gen.tokenizer, gen.cfg
+        token_lists = []
+        for item in inputs:
+            if isinstance(item, str):
+                ids = [tok.bos_id] + tok.encode(item)
+            elif isinstance(item, list) and all(isinstance(x, int) for x in item):
+                ids = item or [tok.bos_id]
+            else:
+                self._send_json(400, {"error": {"message":
+                    "each input must be a string or a token-id array"}})
+                return
+            token_lists.append(ids[: cfg.max_seq_len])
+        if any(not 0 <= t < cfg.vocab_size for ids in token_lists for t in ids):
+            self._send_json(400, {"error": {"message":
+                f"token ids must lie in [0, {cfg.vocab_size})"}})
+            return
+        batch = _next_pow2(len(token_lists), floor=1)
+        plen = _next_pow2(max(len(t) for t in token_lists))
+        ids = torch.full((batch, plen), tok.pad_id, dtype=torch.long)
+        lengths = torch.ones((batch,), dtype=torch.long)
+        for i, t in enumerate(token_lists):
+            ids[i, : len(t)] = torch.tensor(t, dtype=torch.long)
+            lengths[i] = len(t)
+        dev = gen.device
+        with self.device_lock:
+            ids, lengths = ids.to(dev), lengths.to(dev)
+            q_pos = torch.arange(plen, device=dev)
+            seg = (q_pos[None, :] < lengths[:, None]).to(torch.int32)
+            hidden = llama.forward(gen.params, ids, cfg, positions=q_pos.expand(batch, plen),
+                                   segment_ids=seg, return_hidden=True)
+            mask = seg.float()[..., None]
+            pooled = (hidden.float() * mask).sum(1) / mask.sum(1)
+            norm = pooled.norm(dim=-1, keepdim=True)
+            vecs = (pooled / norm.clamp_min(1e-9)).cpu()
+        n_tokens = sum(len(t) for t in token_lists)
+        self._send_json(200, {
+            "object": "list",
+            "model": payload.get("model") or self.model_name,
+            "data": [{"object": "embedding", "index": i, "embedding": vecs[i].tolist()}
+                     for i in range(len(token_lists))],
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        })
 
 
     def _lockstep_generate(self, prompt_ids: list[int], gen: GenerateConfig) -> list[int]:

@@ -4,9 +4,12 @@ Counterpart of ``ditl_tpu.train.trainer.train``, the subset that one card
 runs: tokenizer -> dataset (and its seeded held-out split) -> pipeline ->
 train state (restored from the newest checkpoint when there is one) -> step
 loop (saves on the ``checkpoint_every`` cadence and at the end, validation
-loss on the ``val_every`` cadence) -> summary. Goodput accounting, the
-anomaly plane and flight recorder, API eval, profiling and multi-step calls
-are not ported yet (ROADMAP.md); the config rejects their knobs.
+loss on the ``val_every`` cadence, API eval on the ``eval_every`` cadence:
+the first ``eval_samples`` training examples sent to the ``api`` section's
+OpenAI-compatible endpoint through ``client/eval_loop.py``) -> summary.
+Goodput accounting, the anomaly plane and flight recorder, profiling and
+multi-step calls are not ported yet (ROADMAP.md); the config rejects their
+knobs.
 
 The weights are seed-initialised (``models/llama.py::init_train_params``,
 masters in ``model.param_dtype``) from ``train.seed``; a torch generator
@@ -31,6 +34,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ditl_tpu_torch.client import LLMClient, run_api_eval
 from ditl_tpu_torch.config import Config
 from ditl_tpu_torch.data.dataset import TextDataset, load_text_dataset
 from ditl_tpu_torch.data.loader import DataPipeline
@@ -146,6 +150,7 @@ def train(config: Config, device: str | torch.device = "cuda") -> dict[str, Any]
         torch.cuda.reset_peak_memory_stats(dev)
 
     metrics = MetricsLogger(log_every=tcfg.log_every, metrics_file=tcfg.metrics_file)
+    client = LLMClient(config.api)
     total_steps = tcfg.total_steps
     step_metrics = None
     last_val_loss = None
@@ -170,6 +175,11 @@ def train(config: Config, device: str | torch.device = "cuda") -> dict[str, Any]
                 if val_batches is not None and _crossed(state.step, 1, tcfg.val_every):
                     last_val_loss = run_validation(state, val_batches, model_cfg, dev)
                     logger.info("step %d: val_loss=%.4f", state.step, last_val_loss)
+                if _crossed(state.step, 1, tcfg.eval_every):
+                    n = min(tcfg.eval_samples, len(dataset))
+                    run_api_eval(client, [dataset[i]["text"] for i in range(n)],
+                                 [dataset[i]["label"] for i in range(n)],
+                                 max_samples=tcfg.eval_samples)
             if state.step >= total_steps:
                 break
         metrics.flush()

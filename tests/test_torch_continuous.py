@@ -323,7 +323,7 @@ def test_unported_engine_features_raise(pair, kw):
 
 @pytest.mark.parametrize("kw", [
     {"logprobs": 1}, {"adapter_id": 1}, {"grammar": object()}, {"deadline_s": 1.0},
-    {"stream": object()},
+    {"tenant": "t"},
 ])
 def test_unported_request_features_raise(pair, kw):
     _, teng = _engines(pair, 8)

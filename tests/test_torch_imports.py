@@ -1,8 +1,9 @@
 """The port stands alone: ``ditl_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of the JAX package, and the copies the port keeps of
-jax-free modules (``ModelConfig``, ``DataConfig``, ``TrainConfig``, the
-presets, the byte tokenizer, the keep-alive mixin, the dataset and sampler)
-match their originals."""
+jax-free modules (``ModelConfig``, ``DataConfig``, ``TrainConfig``,
+``APIConfig``, the presets, the byte tokenizer, the keep-alive mixin, the
+dataset and sampler) match their originals; ``tests/test_torch_client.py``
+holds the client, the fault plane and the metrics registry to theirs."""
 
 import ast
 import dataclasses
@@ -66,7 +67,10 @@ def test_port_package_has_modules():
                  "train.state", "train.step", "train.metrics", "train.trainer",
                  "train.checkpoint",
                  "launch", "ops.mlp", "ops.mlp_bwd", "ops.projection",
-                 "tools.profile_train", "ops.quant", "infer.speculative"):
+                 "tools.profile_train", "ops.quant", "infer.speculative",
+                 "client", "client.llm", "client.eval_loop", "chaos", "chaos.plane",
+                 "telemetry", "telemetry.registry", "runtime", "runtime.distributed",
+                 "ops.encode"):
         assert f"ditl_tpu_torch.{name}" in mods
     for source in ("flash_fwd.cu", "paged_attention.cu", "flash_bwd.cu", "mlp_bwd.cu",
                    "projection_bwd.cu"):
@@ -117,15 +121,15 @@ def test_model_config_matches_jax_field_for_field():
 
 @pytest.mark.parametrize("name,left_out", [
     ("DataConfig", set()),
-    ("TrainConfig", {"eval_samples", "max_restarts", "fault_kill_process",
+    ("TrainConfig", {"max_restarts", "fault_kill_process",
                      "heartbeat_dir", "heartbeat_timeout_s", "straggler_lag_steps",
                      "straggler_relaunch", "profile_start_step", "profile_num_steps"}),
 ])
 def test_data_and_train_config_match_jax_field_for_field(name, left_out):
     """The port's copies keep the JAX fields of their names, types and
     defaults, in the same order, leaving out only the listed knobs of
-    features the port does not run (API eval's sample count, restarts,
-    heartbeats, profiling windows)."""
+    features the port does not run (restarts, heartbeats, profiling
+    windows)."""
     jf, tf = _fields(getattr(jconfig, name)), _fields(getattr(tconfig, name))
     assert {n: jf.get(n) for n in tf} == tf
     assert list(tf) == [n for n in jf if n in tf]
@@ -137,10 +141,14 @@ def test_config_sections_and_override_coercion_match_jax():
     sections both packages have."""
     items = ["model.num_layers=3", "model.rope_theta=10000", "model.tie_embeddings=yes",
              "data.seq_len=64", "data.synthetic=on", "train.learning_rate=1e-2",
-             "train.optimizer=adafactor", "train.metrics_file=none"]
+             "train.optimizer=adafactor", "train.metrics_file=none",
+             "train.eval_every=3", "train.eval_samples=4", "api.api_base=http://h:1/v1",
+             "api.total_timeout_s=2.5", "api.max_retries=1", "api.api_key_env=none"]
     ours = tconfig.parse_overrides(tconfig.Config(), items)
     ref = jconfig.parse_overrides(jconfig.Config(), items)
-    for section in ("model", "data", "train"):
+    assert [f.name for f in dataclasses.fields(tconfig.Config)] == [
+        "model", "data", "train", "api"]
+    for section in ("model", "data", "train", "api"):
         mine = dataclasses.asdict(getattr(ours, section))
         theirs = dataclasses.asdict(getattr(ref, section))
         assert mine == {k: theirs[k] for k in mine}, section

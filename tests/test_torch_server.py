@@ -161,7 +161,8 @@ def test_stop_sequence_and_seeded_sampling(served):
 def test_bad_requests_and_overload(served):
     url, _, srv = served
     assert _post(url + "/v1/completions", {"prompt": "x", "stop": [3]})[0] == 400
-    assert _post(url + "/v1/completions", {"prompt": "x", "stream": True})[0] == 400
+    assert _post(url + "/v1/completions",
+                 {"prompt": "x", "stream": True, "logprobs": 1})[0] == 400
     assert _post(url + "/v1/completions", {"prompt": "x", "max_tokens": 1000})[0] == 400
     assert _post(url + "/v1/nope", {})[0] == 404
     # Hold the device lock so requests pile up: beyond max_pending (4) in

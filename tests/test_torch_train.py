@@ -446,7 +446,7 @@ def test_config_overrides_and_unported_knobs():
         "dots_inputs", "/x", 5, 2, False, 2, 3, 0.1)
     with pytest.raises(ValueError, match="unknown remat policy"):
         build_config(["model.remat=everything"])
-    for bad in (["train.eval_every=2"], ["train.steps_per_call=2"], ["train.init_from_hf=/x"],
+    for bad in (["train.fault_kill_step=2"], ["train.steps_per_call=2"], ["train.init_from_hf=/x"],
                 ["train.telemetry_dir=/x"], ["train.profile_dir=/x"],
                 ["train.fault_nan_step=3"], ["mesh.fsdp=2"], ["chaos.rules=x"],
                 ["--simulate", "8"], ["--distributed"], ["--supervise"], ["--pod", "2"]):
