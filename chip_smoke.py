@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --path20`` runs paths 1, 2 and 20 alone (no
-kernels line). ``python3 chip_smoke.py --paged-rows [--sweep] [TREE]`` and
-``--f32-mm [--sweep] [TREE]`` time one kernel family on TREE's ``ditl_tpu_torch``
+``python3 chip_smoke.py --path20`` runs paths 1, 2 and 20 alone, and
+``--path21`` paths 1, 2 and 21 (no kernels line). ``python3 chip_smoke.py
+--paged-rows [--sweep] [TREE]`` and ``--f32-mm [--sweep] [TREE]`` time one
+kernel family on TREE's ``ditl_tpu_torch``
 (default: this checkout's; ``tree_main``), so that a parent commit unpacked
 beside the checkout and the checkout can be timed in turns in one run.
 
@@ -198,6 +199,30 @@ no result line. It imports nothing of JAX or of the JAX package.
    K1 and K3. Then the streaming check at depth 2 through path 7's
    prompt-lookup engine and path 18's drafter (K3-verify on every round),
    and path 1's lock-step server (one content chunk, the same text).
+6a.4. Main path 21, optimistic admission with preemption and exact resume,
+   logprobs, deadlines and n/best_of (``phase_serve_preempt``), over path
+   1's weights: eight 230-token requests with 96-token budgets (six
+   greedy, then a greedy ``logprobs: 5`` one and a seeded sampled one) over
+   HTTP to path 2's engine with ``logprobs_k=5`` on path 2's pool, then on 8
+   usable pages under reserve and optimistic admission, each held until
+   all have arrived: reserve decodes at most 4 slots together, optimistic
+   more, with at least 4 preemptions, each resumed (its re-prefill and
+   restore timed); K3 on every decode step and K1 on every cold prefill,
+   resumes' included; greedy tokens the uncontended run's or diverging
+   first at a near-tie (``RESUME_TIE_TOL``), the logprob request's logprobs
+   its within ``LP_BF16_TOL``, the sampled request its tokens up to its
+   preemption; peaks, preemptions, re-prefilled tokens, tokens/s and wall
+   of both. A decode step with ``logprobs_k=5`` against 0 (the same
+   tokens). At depth 2: speculative ticks over prompt lookup and over path
+   18's drafter, lookup over int8 pools and plain ticks over int8 pools,
+   each preempting and resuming (K3-verify, K3-int8-verify or K3-int8 on
+   every round or step; greedy tokens by the same rule). Over HTTP with
+   path 20's ASCII head, ``--admission optimistic --logprobs-k 5``: top-1
+   ids are the greedy tokens, chosen logprobs the lock-step Generator's
+   within ``LP_BF16_TOL``, streamed ones the unstreamed ones; ``deadline_s:
+   0`` 504 before any work, a queued request past a short deadline 504 with
+   the free pages back; ``n: 2, best_of: 3`` ranked by mean logprob, copy 0
+   the ``n: 1`` completion with the same seed.
 6b. Main path 6, int8 serving: the bf16 serving state is freed, then
    ``infer/server.py --quantize int8 --kv-quant int8 --engine continuous
    --cache-mode paged`` is built in process (``llama3-8b``, full width and
@@ -4281,6 +4306,532 @@ def phase_serve_stream(gen, flash, paged, bf16: dict) -> dict:
     return total
 
 
+# Path 21: optimistic admission with preemption and exact resume, logprobs,
+# deadlines and n/best_of. Pool pressure at full width: eight prompts of
+# PREEMPT_CHARS + 1 tokens with PREEMPT_MAX_NEW-token budgets, 2 pages of 256
+# at worst, 1 with a tick of headroom; PREEMPT_PAGES usable pages hold four
+# requests under reserve admission and all eight optimistically, until each
+# needs its second page after the first tick and the four youngest (the last
+# a sampled request, the one before it a logprob request) are preempted.
+PREEMPT_CHARS = 229
+PREEMPT_MAX_NEW = 96
+PREEMPT_PAGES = 8  # usable pages (page 0 is the sentinel)
+# Re-prefilled K/V against the K/V the decode steps first wrote: a batched
+# bf16 prefill rounds apart from one token a step, so a greedy token after a
+# resume may flip where two candidates are that close. As SPEC_TIE_TOL: at a
+# request's first divergence the two candidates' logits in one plain forward
+# over the common prefix must differ by less than this.
+RESUME_TIE_TOL = 0.25
+# The engine's chosen-token logprobs (K3 over pages and tail) against the
+# lock-step Generator's (plain masked attention over a contiguous cache) for
+# the same bf16 request: their logits differ by up to ~0.07 (SPEC_TIE_TOL's
+# note), and a logprob moves with its logit.
+LP_BF16_TOL = 0.15
+# Depth-2 legs (views of path 1's first two layers): four prompts of
+# DEPTH2_CHARS + 1 tokens with 96-token budgets, 2 pages each with a
+# speculative tick's headroom (63 positions) or a plain tick's, 3 at worst;
+# DEPTH2_PAGES usable pages preempt two when their third pages come due.
+DEPTH2_CHARS = 439
+DEPTH2_PAGES = 8
+
+
+def _preempt_recorder(engine):
+    """``engine`` behind a ``ThreadedEngine`` that keeps, by ``_req_key``,
+    what each completion returned: ``generate_one``'s tokens,
+    ``generate_one_with_logprobs``' (tokens, stats), ``generate_many``'s
+    finished requests (key prefixed ``"many"``) and the (tokens, stats)
+    chunks of ``stream_one_with_logprobs`` (prefixed ``"stream"``)."""
+    from ditl_tpu_torch.infer.continuous import ThreadedEngine, TokenStream
+
+    class Recorder(ThreadedEngine):
+        def __init__(self, engine):
+            super().__init__(engine)
+            self.outputs: dict[tuple, list] = {}
+            self._lock = threading.Lock()
+
+        def _keep(self, key, value):
+            with self._lock:
+                self.outputs.setdefault(key, []).append(value)
+
+        def generate_one(self, prompt_tokens, **kw):
+            out = super().generate_one(prompt_tokens, **kw)
+            self._keep(_req_key(prompt_tokens, kw), list(out))
+            return out
+
+        def generate_one_with_logprobs(self, prompt_tokens, n_top, **kw):
+            out, lp = super().generate_one_with_logprobs(prompt_tokens, n_top, **kw)
+            self._keep(_req_key(prompt_tokens, kw), (list(out), lp))
+            return out, lp
+
+        def generate_many(self, prompt_tokens, n, **kw):
+            reqs = super().generate_many(prompt_tokens, n, **kw)
+            self._keep(("many",) + _req_key(prompt_tokens, kw), reqs)
+            return reqs
+
+        def stream_one_with_logprobs(self, prompt_tokens, n_top, **kw):
+            inner = super().stream_one_with_logprobs(prompt_tokens, n_top, **kw)
+            chunks: list = []
+            self._keep(("stream",) + _req_key(prompt_tokens, kw), chunks)
+
+            def recorded():
+                for item in inner:
+                    chunks.append(item)
+                    yield item
+
+            return TokenStream(recorded(), inner.close)
+
+    return Recorder(engine)
+
+
+def _preempt_requests(tok):
+    """Path 21's eight payloads, in arrival order: six greedy, then a
+    greedy logprob request (``logprobs: 5``) and a seeded sampled one, the
+    two youngest. Returns them and each one's ``_req_key``."""
+    payloads = [{"prompt": _text(80 + i, PREEMPT_CHARS), "max_tokens": PREEMPT_MAX_NEW}
+                for i in range(8)]
+    payloads[6]["logprobs"] = 5
+    payloads[7].update(temperature=0.8, top_p=0.95, seed=21)
+    keys = [_req_key([tok.bos_id] + tok.encode(p["prompt"]),
+                     {"max_new_tokens": p["max_tokens"], "temperature": p.get("temperature"),
+                      "seed": p.get("seed")}) for p in payloads]
+    return payloads, keys
+
+
+def _preempt_leg(gen, flash, paged, payloads, tag: str, **engine_kw) -> dict:
+    """``payloads`` over HTTP to a fresh path-2 engine (``logprobs_k=5``,
+    ``engine_kw``) whose driver is held until all have arrived, in order,
+    then released at once: the recorder's outputs, the most slots one tick
+    decoded, the engine's stats, the wall seconds from the release, the
+    launches (read right after; K3 on every decode step and K1 on every
+    cold prefill, resumes' re-prefills included, required), each resume's
+    milliseconds (synchronised on both sides) with its re-prefilled tokens,
+    and the tokens each preempted request (by id: its arrival index) held at
+    its first preemption."""
+    import torch
+
+    from ditl_tpu_torch.infer import server as server_mod
+
+    cfg = gen.cfg
+    engine = _paged_engine(gen.params, cfg, gen.tokenizer, logprobs_k=5, **engine_kw)
+    gate = threading.Event()
+    step, tick = engine.step, engine._decode_tick
+    resume, preempt = engine._resume_paged_slot, engine._preempt_slot
+    peak, resumes, preempted = [0], [], {}
+
+    def held_step():
+        gate.wait(timeout=600)
+        step()
+
+    def counted_tick(occupied):
+        peak[0] = max(peak[0], sum(occupied))
+        return tick(occupied)
+
+    def timed_resume(slot, req):
+        n0 = engine.resume_prefill_tokens
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ok = resume(slot, req)
+        torch.cuda.synchronize()
+        if ok:
+            resumes.append(((time.perf_counter() - t) * 1e3, engine.resume_prefill_tokens - n0))
+        return ok
+
+    def noted_preempt(slot):
+        req = engine._slots[slot]
+        preempted.setdefault(req.req_id, len(req.tokens))  # tokens at its first
+        preempt(slot)
+
+    engine.step, engine._decode_tick = held_step, counted_tick
+    engine._resume_paged_slot, engine._preempt_slot = timed_resume, noted_preempt
+    rec = _preempt_recorder(engine)
+    server = server_mod.make_server(gen, threaded_engine=rec, host="127.0.0.1", port=0,
+                                    model_name=cfg.name)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    results: dict[int, tuple] = {}
+    try:
+        flash.reset_launches()  # this leg's counts start here
+        paged.reset_launches()
+
+        def one(i):
+            results[i] = _http("POST", url + "/v1/completions", payloads[i])
+
+        threads = []
+        for i in range(len(payloads)):
+            threads.append(threading.Thread(target=one, args=(i,)))
+            threads[-1].start()
+            t = time.perf_counter()
+            while engine._next_id < i + 1:  # arrival order is id order
+                require(time.perf_counter() - t < 60, f"request {i} did not arrive")
+                time.sleep(0.002)
+        t0 = time.perf_counter()
+        gate.set()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail,
+                    "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
+                    - paged.launches_tail}  # read right after
+        st = engine.stats()
+    finally:
+        gate.set()
+        server.close(drain=True)
+        thread.join(timeout=30)
+    require(not thread.is_alive() and not rec._thread.is_alive(), "server did not stop")
+    require(all(results[i][0] == 200 for i in range(len(payloads))), results)
+    require(launches["paged_tail"] == cfg.num_layers * st["decode_steps"]
+            and launches["flash_fwd"] == cfg.num_layers * st["prefills_cold"]
+            and launches.pop("other") == 0, (tag, launches, st["decode_steps"]))
+    require(st["pages_free"] + st["pages_cached_evictable"] == st["pages_total"]
+            and st["slots_busy"] == st["queue_depth"] == 0, st)
+    n_tokens = sum(results[i][1]["usage"]["completion_tokens"] for i in range(len(payloads)))
+    log(f"[{tag}] {len(payloads)} requests, {st['pages_total']} usable pages: peak "
+        f"{peak[0]} slots decoding together, {st['preemptions']} preemptions, "
+        f"{len(resumes)} resumes, {st.get('resume_prefill_tokens', 0)} re-prefilled tokens; "
+        f"{n_tokens} tokens in {wall:.3f}s, {n_tokens / wall:.1f} tokens/s; "
+        f"{st['decode_ticks']} ticks, {st['decode_seconds'] / st['decode_steps'] * 1e3:.2f} ms "
+        f"a decode step; K3 {launches['paged_tail']} = {cfg.num_layers} x "
+        f"{st['decode_steps']} steps, K1 {launches['flash_fwd']} = {cfg.num_layers} x "
+        f"{st['prefills_cold']} cold prefills (host clock; {SMI})")
+    return {"outputs": rec.outputs, "peak": peak[0], "stats": st, "wall": wall,
+            "tokens_s": n_tokens / wall, "launches": launches, "resumes": resumes,
+            "preempted": preempted}
+
+
+def _resume_tie_check(gen, cfg, prompt_ids, got, ref, tag: str, what: str):
+    """``got`` (a resumed request's tokens) against ``ref`` (the same
+    request uncontended): None when identical, else the first diverging
+    step, the two candidates' logit gap and the top-2 gap of one plain
+    forward over the common prefix, logged; the candidates' gap must be
+    under ``RESUME_TIE_TOL``."""
+    n = min(len(got), len(ref))
+    i = next((j for j in range(n) if got[j] != ref[j]), None)
+    if i is None and len(got) == len(ref):
+        return None
+    i = n if i is None else i
+    eos = gen.tokenizer.eos_id
+    a = ref[i] if i < len(ref) else eos
+    b = got[i] if i < len(got) else eos
+    import torch
+
+    with torch.no_grad():
+        logits = _prefill_logits(gen, cfg, prompt_ids + ref[:i]).float()
+    gap = abs(float(logits[a] - logits[b]))
+    top2 = torch.topk(logits, 2).values
+    log(f"[{tag}] {what}: first divergence at step {i} ({a} uncontended, {b} resumed), "
+        f"candidates' logit gap {gap:.4f}, top-2 gap {float(top2[0] - top2[1]):.4f} "
+        f"(RESUME_TIE_TOL {RESUME_TIE_TOL})")
+    require(gap < RESUME_TIE_TOL, (tag, what, i, a, b, gap))
+    return i
+
+
+def _depth2_preempt(gen, flash, paged, tag: str, counter: str, kv_int8: bool = False,
+                    **engine_kw) -> dict:
+    """The target at depth 2 (views of path 1's first two layers, int8 pools
+    with ``kv_int8``), four greedy requests, uncontended and then with
+    ``admission="optimistic"`` over ``DEPTH2_PAGES`` usable pages: at least
+    one preemption, each resumed; greedy tokens identical or diverging at a
+    near-tie (``_resume_tie_check``); the contended run's ``counter`` (the
+    verify or the single-query kernel of those pools) 2 x its rounds or
+    steps, no other paged kernel, K1 on every cold prefill. Returns the
+    contended run's launches."""
+    import dataclasses
+
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+    from ditl_tpu_torch.infer.engine import Generator
+
+    cfg2 = dataclasses.replace(gen.cfg, num_layers=2,
+                               kv_cache_dtype="int8" if kv_int8 else gen.cfg.kv_cache_dtype)
+    params2 = {**gen.params, "layers": {g: {k: w[:2] for k, w in grp.items()}
+                                        for g, grp in gen.params["layers"].items()}}
+    tok = gen.tokenizer
+    prompts = [[tok.bos_id] + tok.encode(_text(90 + i, DEPTH2_CHARS)) for i in range(4)]
+
+    def run(**kw):
+        eng = ContinuousEngine(params2, cfg2, tok, n_slots=8, decode_chunk=16,
+                               max_cache_len=2048, cache_mode="paged", page_size=256,
+                               device="cuda", **engine_kw, **kw)
+        flash.reset_launches()
+        paged.reset_launches()
+        rids = [eng.submit(p, max_new_tokens=96, temperature=0.0) for p in prompts]
+        out = eng.run()
+        launches = {"flash_fwd": flash.launches, counter: getattr(paged, _counter(counter)),
+                    "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
+                    - getattr(paged, _counter(counter))}  # read right after
+        return eng, [out[r] for r in rids], launches
+
+    _, ref, _ = run()
+    eng, got, launches = run(admission="optimistic", n_pages=DEPTH2_PAGES + 1)
+    st = eng.stats()
+    spec = st.get("speculative")
+    units = spec["verify_rounds"] if spec else st["decode_steps"]
+    require(eng.preemptions >= 1 and st["resume_prefill_tokens"] > 0, (tag, st))
+    require(launches[counter] == cfg2.num_layers * units > 0 and launches.pop("other") == 0
+            and launches["flash_fwd"] >= cfg2.num_layers * st["prefills_cold"],
+            (tag, launches, units, st["prefills_cold"]))
+    gen2 = Generator(params2, cfg2, tok, device="cuda")
+    diverged = [_resume_tie_check(gen2, cfg2, p, g, r, tag, f"request {i}")
+                for i, (p, g, r) in enumerate(zip(prompts, got, ref))]
+    log(f"[{tag}] depth 2: {eng.preemptions} preemptions, {st['resume_prefill_tokens']} "
+        f"re-prefilled tokens; {counter} launches {launches[counter]} = {cfg2.num_layers} x "
+        f"{units} {'verify rounds' if spec else 'decode steps'}, K1 {launches['flash_fwd']}; "
+        f"greedy tokens against the uncontended run: "
+        f"{sum(d is None for d in diverged)} of 4 identical")
+    return launches
+
+
+def phase_serve_preempt(gen, flash, paged, bf16: dict) -> dict:
+    """Main path 21, optimistic admission with preemption and exact resume,
+    logprobs, deadlines and n/best_of, over path 1's weights. (1) Pool
+    pressure at full width: ``_preempt_requests`` over HTTP to path 2's
+    engine with ``logprobs_k=5`` three times: on path 2's pool (the
+    uncontended yardstick), then on ``PREEMPT_PAGES`` usable pages under
+    ``admission="reserve"`` and ``"optimistic"`` (``_preempt_leg``): reserve
+    decodes at most half the slots at once, optimistic more, with at least 4
+    preemptions, each resumed; every greedy request (the logprob one too)
+    gives the uncontended tokens or diverges first at a near-tie
+    (``_resume_tie_check``), the logprob request's chosen logprobs the
+    uncontended ones within ``LP_BF16_TOL`` up to there, and the sampled
+    request, preempted and resumed, its tokens before the preemption. (2)
+    The ms of a decode step with ``logprobs_k=5`` against 0 on the same
+    eight requests (the same tokens), and of ``_lp_stats`` alone. (3) At
+    depth 2 (``_depth2_preempt``): speculative ticks over prompt lookup and
+    over path 18's drafter, lookup over int8 pools, and plain ticks over
+    int8 pools, each preempting and resuming. (4) Over HTTP, path 20's
+    ASCII head, ``--admission optimistic --logprobs-k 5``: a logprob
+    request's top-1 ids are its greedy tokens and its chosen logprobs the
+    lock-step Generator's within ``LP_BF16_TOL``; streamed, its logprobs
+    concatenate to the unstreamed ones; ``deadline_s: 0`` answers 504 before
+    any work, a queued request past a short deadline 504 with the free pages
+    back at their idle count; ``n: 2, best_of: 3`` two choices ranked by
+    mean logprob, copy 0 the ``n: 1`` completion with the same seed.
+    Returns the path's launch counts."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from ditl_tpu_torch.infer import server as server_mod
+    from ditl_tpu_torch.infer.continuous import _lp_stats
+    from ditl_tpu_torch.infer.engine import GenerateConfig, Generator
+    from ditl_tpu_torch.models import llama
+
+    cfg, tok = gen.cfg, gen.tokenizer
+    total = {k: 0 for k in ("flash_fwd", "paged_tail", "paged_tail_int8", "paged_verify",
+                            "paged_verify_int8")}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+    # (1) pool pressure at full width
+    payloads, keys = _preempt_requests(tok)
+    ref = _preempt_leg(gen, flash, paged, payloads, "preempt-uncontended")
+    reserve = _preempt_leg(gen, flash, paged, payloads, "preempt-reserve",
+                           n_pages=PREEMPT_PAGES + 1)
+    opt = _preempt_leg(gen, flash, paged, payloads, "preempt-optimistic",
+                       admission="optimistic", n_pages=PREEMPT_PAGES + 1)
+    for leg in (ref, reserve, opt):
+        add(leg["launches"])
+    ost = opt["stats"]
+    require(ref["stats"]["preemptions"] == reserve["stats"]["preemptions"] == 0, ref["stats"])
+    require(reserve["peak"] <= 4 < opt["peak"], (reserve["peak"], opt["peak"]))
+    require(ost["preemptions"] >= 4 and len(opt["resumes"]) == ost["preemptions"]
+            and ost["resume_prefill_tokens"] == sum(n for _, n in opt["resumes"]), ost)
+    require({6, 7} <= set(opt["preempted"]), opt["preempted"])  # the logprob and sampled ones
+    same = 0
+    for i, (payload, key) in enumerate(zip(payloads, keys)):
+        want, got = ref["outputs"][key][0], opt["outputs"][key][0]
+        if payload.get("logprobs"):
+            (want, want_lp), (got, got_lp) = want, got
+        prompt_ids = list(key[0])
+        if payload.get("temperature"):
+            # its own generator resumes where it stopped; what it draws from
+            # then on depends on logits the bf16 re-prefill rounds apart
+            cut = opt["preempted"][i]
+            require(cut > 0 and got[:cut] == want[:cut], (i, cut, got[:cut], want[:cut]))
+            k = next((j for j in range(min(len(got), len(want))) if got[j] != want[j]), None)
+            log(f"[preempt-optimistic] the sampled request (seed {payload['seed']}), preempted "
+                f"at token {cut}: " + ("the uncontended tokens" if k is None and got == want
+                                       else f"first differs at token {k} of {len(got)}"))
+            continue
+        at = _resume_tie_check(gen, cfg, prompt_ids, got, want, "preempt-optimistic",
+                               f"request {i}")
+        same += at is None
+        if payload.get("logprobs"):
+            n = len(got) if at is None else at
+            err = max(abs(a - b) for a, b in zip(got_lp["token_logprobs"][:n],
+                                                 want_lp["token_logprobs"][:n]))
+            require(err < LP_BF16_TOL and got_lp["top_ids"][:n] == want_lp["top_ids"][:n]
+                    and [ids[0] for ids in got_lp["top_ids"]] == got, (err, n))
+            log(f"[preempt-optimistic] the logprob request: top-1 ids are its tokens; chosen "
+                f"logprobs {err:.5f} from the uncontended run's over {n} tokens")
+    ms = sorted(m for m, _ in opt["resumes"])
+    log(f"[preempt] greedy tokens against the uncontended run: {same} of 7 identical; peak "
+        f"decoding slots reserve {reserve['peak']} / optimistic {opt['peak']}; preemptions "
+        f"{reserve['stats']['preemptions']} / {ost['preemptions']}; re-prefilled tokens 0 / "
+        f"{ost['resume_prefill_tokens']}; tokens/s {reserve['tokens_s']:.1f} / "
+        f"{opt['tokens_s']:.1f} (uncontended {ref['tokens_s']:.1f}, path 2 "
+        f"{bf16['tokens_s']:.1f}); wall {reserve['wall']:.3f} / {opt['wall']:.3f}s; a resume "
+        f"(re-prefill and restore, synchronised) {ms[len(ms) // 2]:.2f} ms median of "
+        f"{len(ms)}, {min(ms):.2f}-{max(ms):.2f} ms, "
+        f"{[n for _, n in opt['resumes']]} tokens each ({SMI})")
+    del ref, reserve, opt
+    gc.collect()
+
+    # (2) a decode step's cost with logprobs armed
+    prompts = [[tok.bos_id] + tok.encode(p["prompt"]) for p in payloads]
+    step_ms, outs = {}, {}
+    for k in (0, 5):
+        eng = _paged_engine(gen.params, cfg, tok, logprobs_k=k)
+        lp = {"logprobs": 5} if k else {}
+        rids = [eng.submit(p, max_new_tokens=48, temperature=0.0, **lp) for p in prompts]
+        res = eng.run()
+        outs[k] = [res[r] for r in rids]
+        st = eng.stats()
+        step_ms[k] = st["decode_seconds"] / st["decode_steps"] * 1e3
+        del eng
+    require(outs[0] == outs[5], "logprobs changed a token")
+    logits = torch.randn((8, cfg.vocab_size), device="cuda")
+    cur = torch.argmax(logits, dim=-1)
+    lp_ms = _time_ms(lambda: _lp_stats(logits, cur, 5))
+    log(f"[lp-timing] a decode step of 8 slots at full width: {step_ms[0]:.2f} ms with "
+        f"logprobs_k=0, {step_ms[5]:.2f} ms with 5 (host clock over 3 ticks, the same "
+        f"tokens); _lp_stats on (8, {cfg.vocab_size}) f32 logits {lp_ms:.4f} ms (CUDA "
+        f"events; {SMI})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) depth 2: speculative and int8 resumes
+    dcfg = dataclasses.replace(cfg, **DRAFT_WIDTHS)
+    dparams = llama.init_params(dcfg, seed=11, device="cuda")
+    spec = dict(speculative=True, spec_threshold=0.0)
+    add(_depth2_preempt(gen, flash, paged, "preempt-spec", "paged_verify", **spec))
+    add(_depth2_preempt(gen, flash, paged, "preempt-draft", "paged_verify",
+                        draft_params=dparams, draft_cfg=dcfg, **spec))
+    del dparams
+    add(_depth2_preempt(gen, flash, paged, "preempt-spec-int8", "paged_verify_int8",
+                        kv_int8=True, **spec))
+    add(_depth2_preempt(gen, flash, paged, "preempt-int8", "paged_tail_int8", kv_int8=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) over HTTP: logprobs, deadlines, n/best_of
+    params = _ascii_params(gen)
+    gen_s = Generator(params, cfg, tok, device="cuda")
+    engine = _paged_engine(params, cfg, tok, logprobs_k=5, admission="optimistic")
+    rec = _preempt_recorder(engine)
+    server = server_mod.make_server(gen_s, threaded_engine=rec, host="127.0.0.1", port=0,
+                                    model_name=cfg.name)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        flash.reset_launches()  # this leg's counts start here
+        paged.reset_launches()
+        prompt = _text(95, 300)
+        ids = [tok.bos_id] + tok.encode(prompt)
+        key = _req_key(ids, {"max_new_tokens": 40, "temperature": None, "seed": None})
+        payload = {"prompt": prompt, "max_tokens": 40, "logprobs": 5}
+        status, _ = _http("POST", url + "/v1/completions", {"prompt": prompt, "max_tokens": 1})
+        require(status == 200, status)  # its full page published: both legs hit it
+        status, body = _http("POST", url + "/v1/completions", payload)
+        require(status == 200, body)
+        toks, lp = rec.outputs[key][0]
+        require([row[0] for row in lp["top_ids"]] == toks
+                and body["choices"][0]["logprobs"]["token_logprobs"] == lp["token_logprobs"],
+                (toks, lp["top_ids"]))
+        status, _, events, _ = _sse(url, "/v1/completions", payload)
+        require(status == 200, events)
+        streamed = [v for e in events[:-1] if e["choices"][0].get("logprobs")
+                    for v in e["choices"][0]["logprobs"]["token_logprobs"]]
+        chunks = rec.outputs[("stream",) + key][0]
+        require(streamed == lp["token_logprobs"]
+                and sum((c[0] for c in chunks), []) == toks, (streamed, lp["token_logprobs"]))
+        lock_k1 = flash.launches  # the lock-step yardstick's K1 is not the path's
+        ref_out, ref_lp = gen_s.generate_tokens_with_logprobs(
+            [ids], GenerateConfig(max_new_tokens=40, logprobs=5))
+        lock_k1 = flash.launches - lock_k1
+        n = next((j for j, (a, b) in enumerate(zip(toks, ref_out[0])) if a != b), len(toks))
+        err = max(abs(a - b) for a, b in zip(lp["token_logprobs"][:n],
+                                              ref_lp[0]["token_logprobs"][:n]))
+        require(n > 0 and err < LP_BF16_TOL, (n, err))
+        log(f"[preempt-http] --logprobs-k 5: a logprob request's top-1 ids are its {len(toks)} "
+            f"greedy tokens; its chosen logprobs within {err:.5f} of the lock-step "
+            f"Generator's over {n} tokens (LP_BF16_TOL {LP_BF16_TOL}); streamed in "
+            f"{len(chunks)} chunks, the same logprobs")
+        # deadlines: expired on arrival, and queued past a short one
+        ticks0 = engine.stats()["decode_ticks"]
+        status, body = _http("POST", url + "/v1/completions",
+                             {"prompt": prompt, "max_tokens": 8, "deadline_s": 0})
+        require(status == 504 and body["error"]["message"]
+                == "deadline expired before any work began"
+                and engine.stats()["decode_ticks"] == ticks0, body)
+        idle = engine.stats()["pages_free"]
+        gate = threading.Event()
+        step = engine.step
+
+        def held_step():
+            gate.wait(timeout=600)
+            step()
+
+        engine.step = held_step
+        answer = {}
+        th = threading.Thread(target=lambda: answer.update(r=_http(
+            "POST", url + "/v1/completions",
+            {"prompt": _text(96, 200), "max_tokens": 8, "deadline_s": 0.5})))
+        th.start()
+        time.sleep(1.0)
+        gate.set()
+        th.join(timeout=60)
+        engine.step = step
+        st = engine.stats()
+        status, body = answer["r"]
+        require(status == 504 and body["error"]["type"] == "timeout_error"
+                and st["deadline_expired"] == 1 and st["pages_free"] == idle, (body, st))
+        log(f"[preempt-http] deadline_s 0: 504 before any work; a queued request past its "
+            f"0.5 s deadline: 504 ({body['error']['message']!r}), free pages back at "
+            f"{idle}")
+        # n/best_of
+        nb = {"prompt": _text(97, 150), "max_tokens": 16, "temperature": 1.5, "seed": 5}
+        status, body = _http("POST", url + "/v1/completions", {**nb, "n": 2, "best_of": 3})
+        require(status == 200 and len(body["choices"]) == 2, body)
+        nb_ids = [tok.bos_id] + tok.encode(nb["prompt"])
+        cands = rec.outputs[("many",) + _req_key(nb_ids, {
+            "max_new_tokens": 16, "temperature": 1.5, "seed": 5})][0]
+        mean = [sum(r.lp_token) / max(1, len(r.tokens)) for r in cands]
+        order = sorted(range(3), key=lambda j: mean[j], reverse=True)
+        require([c["text"] for c in body["choices"]]
+                == [tok.decode(cands[j].tokens) for j in order[:2]]
+                and body["usage"]["completion_tokens"] == sum(len(r.tokens) for r in cands),
+                (body, mean))
+        status, one = _http("POST", url + "/v1/completions", nb)
+        single = rec.outputs[_req_key(nb_ids, {"max_new_tokens": 16, "temperature": 1.5,
+                                               "seed": 5})][0]
+        require(status == 200 and single == cands[0].tokens, (single, cands[0].tokens))
+        log(f"[preempt-http] n 2, best_of 3: choices {order[:2]} of the copies by mean "
+            f"logprob {[round(m, 4) for m in mean]}; copy 0 is the n 1 completion with seed 5; "
+            f"usage {body['usage']['completion_tokens']} tokens")
+        st = engine.stats()
+        launches = {"flash_fwd": flash.launches - lock_k1, "paged_tail": paged.launches_tail,
+                    "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
+                    - paged.launches_tail}  # read right after
+    finally:
+        server.close(drain=True)
+        thread.join(timeout=30)
+    require(launches["flash_fwd"] == cfg.num_layers * st["prefills_cold"] > 0
+            and launches["paged_tail"] == cfg.num_layers * st["decode_steps"] > 0
+            and launches.pop("other") == 0, (launches, st["prefills_cold"], st["decode_steps"]))
+    add(launches)
+    del server, rec, engine, gen_s, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[preempt] path 21 launches {total}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return total
+
+
 # Speculation at depth 2 over other pools: (server flags, the compute dtype,
 # int8 pools, the log tag, what the pools hold). The verify kernel's name in
 # the kernels line is "paged_verify" + ("_int8" with int8 pools) + the
@@ -7467,6 +8018,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path20 = phase_serve_stream(gen, flash, paged, bf16_summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path21 = phase_serve_preempt(gen, flash, paged, bf16_summary)
     # Free the bf16 serving weights and pools before path 6's int8 ones.
     del gen, bf16_summary["outputs"]
     gc.collect()
@@ -7605,6 +8159,8 @@ def main() -> int:
                    for k in ("mlp_dgu_dwdown", "mlp_dh_dwgu", "proj_bwd")}}
     for name, n in path20.items():  # path 20: streaming, embeddings, API eval
         launches[name] += n
+    for name, n in path21.items():  # path 21: preemption, logprobs, deadlines
+        launches[name] += n
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
             (lockstep, continuous))
     # Paths 14 (D = 32), 15 (D = 256), 16 (G = 16) and 17 (D = 96): their
@@ -7639,6 +8195,7 @@ def main() -> int:
                         "launches_paths_18_19": {"18": path18.get(name, 0),
                                                  "19": path19.get(name, 0)},
                         "launches_path_20": path20.get(name, 0),
+                        "launches_path_21": path21.get(name, 0),
                         "max_abs_err": errors[name], **timings[name],
                         "at_head_dims": hd_timings.get(name, {}),
                         "at_shapes": shape_timings.get(name, {})})
@@ -7646,7 +8203,8 @@ def main() -> int:
         f"speculative continuous {spec_serve}, draft-model speculation (path 18) {path18}, "
         f"chunked prefill under a budget (path 19) {path19}, "
         f"lock-step speculative {lockstep_spec}, streaming, embeddings and API eval "
-        f"(path 20) {path20}, int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
+        f"(path 20) {path20}, preemption, logprobs and deadlines (path 21) {path21}, "
+        f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
         f"f32 serving {f32_serve}, f32 speculative {f32_spec}, f32 over int8 pools "
         f"{f32_int8_serve}, its speculation {f32_int8_spec}, float16 serving {f16_serve}, "
         f"its speculation {f16_spec}, float16 over int8 pools with speculation "
@@ -7733,9 +8291,36 @@ def path20_main() -> int:
     return 0
 
 
+def path21_main() -> int:
+    """``--path21``: the card, the build, paths 1 and 2 (path 21's weights
+    and its tokens/s yardstick), then path 21 alone; no kernels line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the card", file=sys.stderr)
+        return 1
+    from ditl_tpu_torch.ops import flash_attention as flash
+    from ditl_tpu_torch.ops import paged_attention as paged
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_card()
+    phase_build()
+    gen, _ = phase_serve(flash, paged)
+    _, bf16_summary = phase_serve_continuous(gen, flash, paged)
+    t0 = time.perf_counter()
+    phase_serve_preempt(gen, flash, paged, bf16_summary)
+    log(f"[done] path 21 in {time.perf_counter() - t0:.1f}s, all in "
+        f"{time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--path20"]:
         sys.exit(path20_main())
+    if sys.argv[1:2] == ["--path21"]:
+        sys.exit(path21_main())
     if sys.argv[1:2] in (["--paged-rows"], ["--f32-mm"]):
         rest = sys.argv[2:]
         sys.exit(tree_main(sys.argv[1], next((a for a in rest if a != "--sweep"), None),

@@ -1,19 +1,20 @@
 """Continuous batching over the paged KV cache.
 
 Counterpart of the JAX package's ``infer/continuous.py``, in its paged
-configuration: ``cache_mode="paged"``, ``admission="reserve"``, whole-prompt
-or chunked prefill under an optional per-tick token budget, plain and
-speculative decode ticks (drafts by prompt lookup or by a draft model),
-float or int8 pools, one device, and automatic prefix reuse (which paged
-mode always does). Requests join and leave between decode ticks:
+configuration: ``cache_mode="paged"``, reserve or optimistic admission,
+whole-prompt or chunked prefill under an optional per-tick token budget,
+plain and speculative decode ticks (drafts by prompt lookup or by a draft
+model), per-token logprobs, request deadlines, float or int8 pools, one
+device, and automatic prefix reuse (which paged mode always does).
+Requests join and leave between decode ticks:
 
 - **Slots.** ``n_slots`` sequences decode together, each at its own
   position; every tick runs all slots, live or not (fixed shapes).
 - **Page pool.** KV lives in one pool of pages per K and V, (L, P, K, ps, D);
   a per-slot page table maps logical block -> physical page
-  (``infer/paged_cache.py``). Admission reserves a request's worst-case
-  pages (prompt + max_new) or leaves it queued; every FULL prompt page is
-  published and reused by later prompts that share the prefix. With
+  (``infer/paged_cache.py``). ``admission="reserve"`` reserves a request's
+  worst-case pages (prompt + max_new) or leaves it queued; every FULL prompt
+  page is published and reused by later prompts that share the prefix. With
   ``kv_cache_dtype="int8"`` the pools hold int8 values plus f32 scales
   ``ks``/``vs`` of shape (L, P, K, 1, ps), one per (page, KV head,
   position), quantized as the contiguous cache quantizes (absmax over D);
@@ -65,6 +66,35 @@ mode always does). Requests join and leave between decode ticks:
   by default the measured ratio of a verify round's cost to a plain step's
   (a prior of 2.5 until both are timed; the first timed tick of each kind
   is left out, as the reference leaves out compile calls).
+- **Optimistic admission** (``admission="optimistic"``): admission
+  reserves the prompt plus one tick of headroom (``_tick_advance_bound``:
+  ``decode_chunk``, or a speculative tick's ``spec_rounds x (k+1) + k+1``
+  written positions); before each dispatch ``_topup_pages`` grows every
+  decoding slot's table to cover its next tick. On an empty pool it
+  preempts the slot whose (SLO class, req_id) is strictly worse than the
+  needy one's (``_pick_victim``; prefilling slots too), or the needy slot
+  itself when none is: the victim's whole pages of prompt + tokens are
+  published, its pages released, and it is requeued at its old id. A
+  resume (``_resume_paged_slot``) re-prefills prompt + tokens against the
+  published pages (in ``prefill_chunk`` pieces, the whole unmatched part
+  charged to the tick's budget) and restores the pending token, ``pos``,
+  the request's own ``torch.Generator`` in the state it had, and the
+  pending logprob stats, so the request continues as if never stopped; a
+  mid-prefill victim is requeued fresh. The anti-thrash guard counts
+  re-prefilled against generated tokens over ``thrash_window`` ticks: past
+  0.5 new admissions reserve worst-case pages, released below 0.1 with an
+  empty queue.
+- **Logprobs** (``logprobs_k``, ``submit(logprobs=N)``): every prefill and
+  decode step also scores the token it chose (``_lp_stats``: the raw
+  logits' log-softmax, the chosen token, the top ``logprobs_k``), the
+  pending token's stats riding the slot like the token; speculative rounds
+  score each draft from the verify's logits (``_spec_lp_round``). Plain
+  PyTorch: the reference computes them outside any Pallas kernel. They
+  never change a token.
+- **Deadlines** (``submit(deadline_s=...)``): each ``step()`` first evicts
+  every queued or slotted request past its deadline (``_expire_deadlines``);
+  its pages free, its stream ends, and ``ThreadedEngine`` waiters raise
+  ``DeadlineExceededError``.
 
 PyTorch runs eagerly, so the reference's compiled-program caches go away
 and its decode ``scan`` is a Python loop in the same step order. The pools,
@@ -78,23 +108,24 @@ distribution only; greedy tokens match exactly.
 
 Streaming: ``submit(stream=q)`` puts each harvest's new tokens on ``q`` as
 one list (a plain tick's chunk, a speculative tick's accepted tokens, a
-chunked prompt's first token with its tick) and ``None`` when the request
-finishes or is cancelled; ``ThreadedEngine.stream_one`` iterates them, and
-ends every open stream if its driver thread dies. The concatenated chunks
-are the tokens the request returns without a stream.
+chunked prompt's first token with its tick), or, for a logprob request, as
+a (tokens, stats) pair, and ``None`` when the request finishes, expires or
+is cancelled; ``ThreadedEngine.stream_one`` and ``stream_one_with_logprobs``
+iterate them, and end every open stream if the driver thread dies. The
+concatenated chunks are the tokens the request returns without a stream.
 
 Everything else of the reference engine raises ``NotImplementedError`` and
-is queued in ``ROADMAP.md``: the contiguous cache, optimistic admission
-with preemption, logprobs, grammar masks, multi-LoRA stacks, the host-RAM
-tier and KV handoff, ``register_prefix``, deadlines, pipelined ticks,
-meshes, and the telemetry planes (of which ``stats()`` keeps
-``max_tick_prefill_tokens``).
+is queued in ``ROADMAP.md``: the contiguous cache, grammar masks,
+multi-LoRA stacks, the host-RAM tier and KV handoff, ``register_prefix``,
+pipelined ticks, meshes, and the telemetry planes (of which ``stats()``
+keeps ``max_tick_prefill_tokens`` and ``deadline_expired``).
 """
 
 from __future__ import annotations
 
 import bisect
 import queue
+import random
 import threading
 import time
 from dataclasses import dataclass, field
@@ -119,11 +150,12 @@ from ditl_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
-__all__ = ["BadRequestError", "ContinuousEngine", "QueueFullError", "Request",
-           "SLO_CLASSES", "ThreadedEngine", "TokenStream"]
+__all__ = ["BadRequestError", "ContinuousEngine", "DeadlineExceededError",
+           "QueueFullError", "Request", "SLO_CLASSES", "ThreadedEngine", "TokenStream",
+           "derive_copy_seed"]
 
 # SLO class -> scheduling rank (lower = served first): admission orders the
-# queue by (rank, arrival).
+# queue by (rank, arrival), and preemption evicts the worst (rank, req_id).
 SLO_CLASSES: dict[str, int] = {"interactive": 0, "batch": 1, "best_effort": 2}
 
 
@@ -131,6 +163,37 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (see ROADMAP.md)"
     )
+
+
+def _lp_stats(logits: torch.Tensor, tok: torch.Tensor, k: int):
+    """The chosen token's logprob and the top-``k`` alternatives of the raw
+    (B, V) logits, before any temperature or top-p shaping (the lock-step
+    Generator's semantics): (B,) f32, (B, k) int64 ids, (B, k) f32."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    top = torch.topk(lp, k, dim=-1)
+    return lp.gather(1, tok.long()[:, None])[:, 0], top.indices, top.values
+
+
+def derive_copy_seed(base: int, i: int) -> int:
+    """Seed of copy ``i`` of an ``n``/``best_of`` fan-out: copy 0 keeps the
+    caller's seed (so ``n=2, seed=s`` reproduces ``n=1, seed=s`` as its
+    first candidate); later copies stride by a prime, wrapped into int31."""
+    return base if i == 0 else (base + 7919 * i) & 0x7FFFFFFF
+
+
+def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """Tensors whose first dim is the slot batch -> numpy arrays of the same
+    shapes and dtypes, by one device-to-host copy (packed as float64, which
+    holds token ids and f32 values exactly)."""
+    flat = torch.cat([t.reshape(t.shape[0], -1).double() for t in tensors], dim=1)
+    host = flat.cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        n = int(np.prod(t.shape[1:], dtype=np.int64))
+        dt = np.int64 if not t.is_floating_point() else np.float32
+        out.append(host[:, at:at + n].reshape(t.shape).astype(dt))
+        at += n
+    return out
 
 
 class BadRequestError(ValueError):
@@ -141,6 +204,11 @@ class BadRequestError(ValueError):
 class QueueFullError(RuntimeError):
     """``submit`` found the admission queue at its ``max_queue`` cap (the
     HTTP server answers 429)."""
+
+
+class DeadlineExceededError(RuntimeError):
+    """A request's deadline passed before it completed: the engine evicted
+    it from the queue or its slot (the HTTP server answers 504)."""
 
 
 @dataclass
@@ -165,10 +233,34 @@ class Request:
     # its speculative rounds, and the verify forwards it took part in.
     spec_tokens: int = 0
     spec_forwards: int = 0
-    # Streaming: a queue that gets each harvest's fresh tokens as one list,
-    # then None when the request ends (finished, cancelled, or the driver
-    # died).
+    # Streaming: a queue that gets each harvest's fresh tokens as one list
+    # (with logprobs, a (tokens, stats) pair), then None when the request
+    # ends (finished, expired, cancelled, or the driver died).
     stream: Any = None
+    # Logprobs: None = not asked; N >= 0 = the chosen token's logprob and
+    # the top N alternatives of every generated token.
+    logprobs: int | None = None
+    lp_token: list[float] = field(default_factory=list)
+    lp_top_ids: list[list[int]] = field(default_factory=list)
+    lp_top: list[list[float]] = field(default_factory=list)
+    # Optimistic admission: set while a preempted request waits in the
+    # queue, with what its exact resume restores: the pending token (a
+    # device scalar), its own generator in the state it had (None for a
+    # greedy request) and the pending logprob stats.
+    preempted: bool = False
+    preempt_cur: Any = None
+    preempt_gen: Any = None
+    preempt_lp: Any = None
+    preempt_count: int = 0
+    resume_tokens: int = 0  # tokens re-prefilled by its resumes
+    # Prompt tokens reused from, and missed by, the prefix cache at its
+    # first admission (a mid-prefill victim's re-admission counts nothing).
+    cache_hit_tokens: int = 0
+    cache_miss_tokens: int = 0
+    # Deadline (time.monotonic; None = none), and whether it evicted the
+    # request.
+    deadline: float | None = None
+    expired: bool = False
 
     @property
     def slo_rank(self) -> tuple[int, int]:
@@ -255,6 +347,7 @@ class ContinuousEngine:
         pipeline_ticks: bool = False,
         admission: str = "reserve",
         token_budget: int = 0,
+        thrash_window: int = 32,
         host_tier_mb: float = 0,
         metrics=None,
         tracer=None,
@@ -282,13 +375,18 @@ class ContinuousEngine:
         ``prefill_chunk`` (0: whole prompts; else a multiple of
         ``page_size``) prefills longer prompts one chunk a tick;
         ``token_budget`` (0: none; else at least ``n_slots x decode_chunk``)
-        caps each tick's prefill tokens at what its decode steps leave."""
+        caps each tick's prefill tokens at what its decode steps leave.
+
+        ``admission``: ``"reserve"`` books a request's worst-case pages at
+        admission; ``"optimistic"`` books the prompt and one tick, feeds
+        pages each tick and preempts on an empty pool (module note), with
+        the anti-thrash guard over windows of ``thrash_window`` ticks.
+        ``logprobs_k`` (0: off) arms per-token logprobs with up to that many
+        alternatives a token."""
         check_vocab(tokenizer, model_cfg.vocab_size, "ContinuousEngine")
         llama.check_supported(model_cfg)
         unported = {
             "cache_mode='contiguous'": cache_mode == "contiguous",
-            "admission='optimistic' (preemption and resume)": admission == "optimistic",
-            "logprobs_k": logprobs_k != 0,
             "fsm_capacity (grammar-constrained decoding)": fsm_capacity != 0,
             "host_tier_mb (the host-RAM prefix tier)": host_tier_mb != 0,
             "pipeline_ticks": pipeline_ticks,
@@ -302,9 +400,13 @@ class ContinuousEngine:
                 raise _not_ported(what)
         if cache_mode != "paged":
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
-        if admission != "reserve":
+        if admission not in ("reserve", "optimistic"):
             raise ValueError(f"admission must be 'reserve' or 'optimistic', "
                              f"got {admission!r}")
+        if thrash_window < 1:
+            raise ValueError(f"thrash_window must be >= 1, got {thrash_window}")
+        if logprobs_k < 0:
+            raise ValueError(f"logprobs_k must be >= 0, got {logprobs_k}")
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if decode_chunk < 1:
@@ -344,6 +446,21 @@ class ContinuousEngine:
         self.smax = min(model_cfg.max_seq_len, max_cache_len or model_cfg.max_seq_len)
         self.cache_mode = cache_mode
         self.admission = admission
+        self.preemptions = 0
+        # The anti-thrash guard (module note): per window of ticks, tokens
+        # re-prefilled by resumes against tokens generated; past the engage
+        # ratio new admissions reserve worst-case pages, released after a
+        # window under the release ratio with an empty queue.
+        self._thrash_window = int(thrash_window)
+        self._thrash_engage = 0.5
+        self._thrash_release = 0.1
+        self._win_ticks = 0
+        self._win_resume_tokens = 0
+        self._win_gen_tokens = 0
+        self._degraded = False
+        self.admission_degrades = 0  # windows that engaged the guard
+        self.resume_prefill_tokens = 0
+        self.deadline_expired = 0
         self.page_size = page_size
         self.maxp = -(-self.smax // page_size)
         self.n_pages = n_pages or (n_slots * self.maxp + 1)  # page 0: sentinel
@@ -457,6 +574,13 @@ class ContinuousEngine:
         self._track_hist = speculative and self.spec_draft == "lookup"
         self.hist = torch.zeros((n_slots, self.smax if self._track_hist else 1),
                                 dtype=torch.long, device=dev)
+        # The pending token's logprob stats per slot (chosen, top ids, top
+        # logprobs), carried between ticks like ``cur``.
+        self.logprobs_k = logprobs_k
+        if logprobs_k:
+            self.lp_chosen = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+            self.lp_ids = torch.zeros((n_slots, logprobs_k), dtype=torch.long, device=dev)
+            self.lp_top = torch.zeros((n_slots, logprobs_k), dtype=torch.float32, device=dev)
         self.prefills_cold = 0
         self.prefills_prefix_hit = 0
         self.prefix_hit_tokens = 0
@@ -494,14 +618,16 @@ class ContinuousEngine:
     ) -> int:
         """Queue a request; returns its id (see ``take_result``/``run``).
         ``slo_class`` (``interactive`` | ``batch`` | ``best_effort``) orders
-        admission; it never changes a request's result. ``stream`` (any
-        object with ``put``, e.g. a ``queue.Queue``) receives each harvest's
-        new tokens as one list and a terminal ``None``."""
+        admission and picks preemption victims; it never changes a request's
+        result. ``stream`` (any object with ``put``, e.g. a ``queue.Queue``)
+        receives each harvest's new tokens as one list (a (tokens, stats)
+        pair with ``logprobs``) and a terminal ``None``. ``logprobs``: the
+        top-N alternatives of every generated token (0: the chosen token's
+        logprob alone), N at most ``logprobs_k``. ``deadline_s``: seconds
+        from now after which the request is evicted instead of finished."""
         unported = {
-            "logprobs": logprobs is not None,
             "multi-LoRA adapters": bool(adapter_id),
             "grammar-constrained decoding": grammar is not None,
-            "request deadlines": deadline_s is not None,
             "request tracing": trace is not None,
             "per-tenant usage metering": tenant is not None,
         }
@@ -512,8 +638,18 @@ class ContinuousEngine:
             raise QueueFullError(
                 f"admission queue full ({self.max_queue} waiting requests)"
             )
+        if logprobs is not None:
+            if self.logprobs_k == 0:
+                raise BadRequestError(
+                    "logprobs requested but the engine was built with logprobs_k=0")
+            if not 0 <= logprobs <= self.logprobs_k:
+                raise BadRequestError(
+                    f"logprobs={logprobs} out of range [0, {self.logprobs_k}]")
         if seed is not None and not (-2**31 <= int(seed) < 2**31):
             raise BadRequestError("seed must fit in int32")
+        if deadline_s is not None and not (
+                isinstance(deadline_s, (int, float)) and deadline_s == deadline_s):
+            raise BadRequestError("deadline_s must be a number")  # NaN too
         if slo_class is None:
             slo_class = "interactive"
         elif slo_class not in SLO_CLASSES:
@@ -533,6 +669,8 @@ class ContinuousEngine:
             seed=(self._base_seed + self._next_id) if seed is None else int(seed),
             slo_class=slo_class,
             stream=stream,
+            logprobs=logprobs,
+            deadline=None if deadline_s is None else time.monotonic() + float(deadline_s),
         )
         self._next_id += 1
         self._enqueue(req)
@@ -540,7 +678,9 @@ class ContinuousEngine:
 
     def _enqueue(self, req: Request) -> None:
         """Insert by (class rank, req_id): FIFO within a class, classes in
-        priority order."""
+        priority order; a preempted request's old id puts it ahead of every
+        newer request of its class. Submitters and the driver's preemptions
+        both insert, under the lock."""
         with self._queue_lock:
             keys = [r.slo_rank for r in self._queue]
             self._queue.insert(bisect.bisect_right(keys, req.slo_rank), req)
@@ -599,10 +739,13 @@ class ContinuousEngine:
     def _paged_prefill_chunk(self, req: Request, slot: int, d: int, s: int,
                              generator: torch.Generator | None, *,
                              s_bucket: int | None = None,
-                             sample: bool = True) -> torch.Tensor | None:
-        """Prefill ``req.prompt[d:d+s]`` into ``slot``'s pages and, with
-        ``sample``, sample the first token (a device scalar, no host sync);
-        a chunked prompt's earlier chunks sample nothing (None).
+                             sample: bool = True,
+                             tokens: list[int] | None = None) -> torch.Tensor | None:
+        """Prefill ``tokens[d:d+s]`` (default ``req.prompt``; a resume
+        passes prompt + generated tokens) into ``slot``'s pages and, with
+        ``sample``, sample the first token (a device scalar, no host sync)
+        and, with logprobs armed, store its stats as the slot's pending
+        ones; a chunked prompt's earlier chunks sample nothing (None).
 
         The bucket is ``s_bucket`` (default ``s``; the chunk size for a
         chunk) rounded up to a power of two of at least one page. With
@@ -621,7 +764,8 @@ class ContinuousEngine:
         n_l, n_k, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
         dtype = llama.torch_dtype(cfg.dtype)
         ids = torch.full((1, s_bucket), self.tokenizer.pad_id, dtype=torch.long)
-        ids[0, :s] = torch.tensor(req.prompt[d: d + s], dtype=torch.long)
+        src = req.prompt if tokens is None else tokens
+        ids[0, :s] = torch.tensor(src[d: d + s], dtype=torch.long)
         ids = ids.to(dev)
         pids = np.zeros((n_wp,), np.int64)
         pids[: min(len(write_pids), n_wp)] = write_pids[:n_wp]
@@ -671,16 +815,56 @@ class ContinuousEngine:
         last = llama.logits_from_hidden(self.params, hidden[:, s - 1])  # (1, V)
         # Scalar mode: the same draws as the tick's per-row mode from this
         # generator; temperature <= 0 is greedy there, so it is 0 here.
-        return sample_logits(last, generator, temperature=max(req.temperature, 0.0),
-                             top_k=self.gen.top_k, top_p=req.top_p)[0]
+        first = sample_logits(last, generator, temperature=max(req.temperature, 0.0),
+                              top_k=self.gen.top_k, top_p=req.top_p)
+        if self.logprobs_k:
+            self._store_lp(slot, *(x[0] for x in _lp_stats(last, first, self.logprobs_k)))
+        return first[0]
+
+    def _store_lp(self, slot: int, chosen, ids, top) -> None:
+        """Set ``slot``'s pending logprob stats (in place)."""
+        self.lp_chosen[slot] = chosen
+        self.lp_ids[slot] = ids
+        self.lp_top[slot] = top
+
+    def _optimistic(self) -> bool:
+        """Does admission book one tick of headroom (not worst-case pages)
+        now? Optimistic admission, unless the anti-thrash guard holds."""
+        return self.admission == "optimistic" and not self._degraded
+
+    def _take_pages(self, slot: int, req: Request, matched: list[int],
+                    n_total: int) -> bool:
+        """Allocate ``n_total - len(matched)`` fresh pages and give ``slot``
+        ``matched`` + them for the queue head ``req`` (removed from the
+        queue); on an empty pool release ``matched`` and return False."""
+        try:
+            fresh = self.allocator.alloc(n_total - len(matched))
+        except MemoryError:
+            for pid in matched:
+                self.allocator.release(pid)
+            return False
+        with self._queue_lock:  # by identity: a submit may have inserted ahead
+            self._queue.remove(req)
+        pages = matched + fresh
+        self._slot_pages[slot] = pages
+        self._table[slot, :] = 0
+        self._table[slot, : len(pages)] = pages
+        self._table_dirty = True
+        req.slot = slot
+        self._slots[slot] = req
+        return True
 
     def _admit_paged_slot(self, slot: int) -> bool:
-        """Admit the queue head into ``slot``: match its prefix, reserve its
-        worst-case pages (prompt + max_new) or leave it queued (False). An
-        unchunked admission prefills its whole unmatched prompt now, so it
-        also waits while that would bust the tick's prefill allowance; a
-        chunked one parks the slot and costs nothing until its chunks run."""
+        """Admit the queue head into ``slot`` (a preempted one resumes,
+        ``_resume_paged_slot``): match its prefix, reserve its worst-case
+        pages (prompt + max_new; optimistic admission: the prompt and one
+        tick) or leave it queued (False). An unchunked admission prefills
+        its whole unmatched prompt now, so it also waits while that would
+        bust the tick's prefill allowance; a chunked one parks the slot and
+        costs nothing until its chunks run."""
         req = self._queue[0]
+        if req.preempted:
+            return self._resume_paged_slot(slot, req)
         ps = self.page_size
         matched = self.allocator.match_prefix(req.prompt, ps)  # retained
         d0 = len(matched) * ps
@@ -691,23 +875,18 @@ class ContinuousEngine:
                 self.allocator.release(pid)
             return False
         worst = -(-(len(req.prompt) + req.max_new_tokens) // ps)
-        try:
-            fresh = self.allocator.alloc(worst - len(matched))
-        except MemoryError:
-            for pid in matched:
-                self.allocator.release(pid)
+        n_total = worst
+        if self._optimistic():
+            want = -(-(len(req.prompt) + self._tick_advance_bound()) // ps)
+            n_total = min(max(want, len(matched)), worst)
+        if not self._take_pages(slot, req, matched, n_total):
             return False
-        with self._queue_lock:  # by identity: a submit may have inserted ahead
-            self._queue.remove(req)
-        self.prefix_hit_tokens += d0
-        self.prefix_miss_tokens += s
-        pages = matched + fresh
-        self._slot_pages[slot] = pages
-        self._table[slot, :] = 0
-        self._table[slot, : len(pages)] = pages
-        self._table_dirty = True
-        req.slot = slot
-        self._slots[slot] = req
+        if not (req.cache_hit_tokens or req.cache_miss_tokens):
+            # once a request: a mid-prefill victim's re-admission would
+            # count its prompt again, its own published pages as hits
+            req.cache_hit_tokens, req.cache_miss_tokens = d0, s
+            self.prefix_hit_tokens += d0
+            self.prefix_miss_tokens += s
         # In-place writes of this slot's row: no copy of the slot state.
         if chunked:
             # Parked until its last chunk lands: a dead row of every tick.
@@ -770,6 +949,184 @@ class ContinuousEngine:
         if last:
             self._go_live(req, first)
 
+    # -- optimistic admission: preemption and exact resume --------------------
+
+    def _tick_advance_bound(self) -> int:
+        """The most KV positions one decode tick of a slot writes, which the
+        per-tick page feed must cover: ``decode_chunk``, or a speculative
+        tick's ``spec_rounds x (k+1)`` emissions plus the ``k + 1`` verify
+        window that every round writes, however little it accepts."""
+        if self.speculative:
+            return self.spec_rounds * (self.spec_k + 1) + self.spec_k + 1
+        return self.decode_chunk
+
+    def _resume_paged_slot(self, slot: int, req: Request) -> bool:
+        """Re-admit the preempted queue head ``req`` into ``slot``: match
+        prompt + tokens against the published pages, book pages as
+        admission does (or leave it queued: False), re-prefill the unmatched
+        part in ``prefill_chunk`` pieces within this admission (the whole of
+        it charged to the tick's budget; nothing sampled), then restore the
+        pending token at ``pos = len(prompt + tokens)``, the request's own
+        generator, the pending logprob stats, the lookup history and the
+        drafter's cache over the whole context."""
+        ps = self.page_size
+        ctx = req.prompt + req.tokens
+        pos = len(ctx)  # the pending token's write position
+        cap = len(req.prompt) + req.max_new_tokens
+        matched = self.allocator.match_prefix(ctx, ps)  # retained
+        if not self._budget_allows(pos - len(matched) * ps):
+            for pid in matched:
+                self.allocator.release(pid)
+            return False
+        worst = -(-cap // ps)
+        n_total = worst
+        if self._optimistic():
+            n_total = min(-(-(pos + self._tick_advance_bound()) // ps), worst)
+        if not self._take_pages(slot, req, matched, max(n_total, len(matched))):
+            return False
+        d0 = len(matched) * ps
+        self._win_resume_tokens += pos - d0  # the anti-thrash guard's count
+        self.resume_prefill_tokens += pos - d0
+        req.resume_tokens += pos - d0
+        step, d = self.prefill_chunk or pos - d0, d0
+        while d < pos:
+            n = min(step, pos - d)
+            self._paged_prefill_chunk(req, slot, d, n, None, sample=False, tokens=ctx)
+            d += n
+        if pos > d0:
+            self._record_prefill(pos - d0)
+        self.cur[slot] = req.preempt_cur
+        self.pos[slot] = pos
+        self._gens[slot] = req.preempt_gen
+        if self.logprobs_k:
+            self._store_lp(slot, *req.preempt_lp)
+        self._set_hist(slot, ctx, req.preempt_cur)
+        self._draft_prefill(req, slot, ctx)
+        self.temps[slot] = req.temperature
+        self.top_ps[slot] = req.top_p
+        self.limits[slot] = cap
+        req.preempted = False
+        req.preempt_cur = req.preempt_gen = req.preempt_lp = None
+        return True
+
+    def _pick_victim(self, needy: Request) -> int | None:
+        """The slot whose request ranks worst in (SLO class, req_id) order,
+        if strictly worse than ``needy``'s (None otherwise): best-effort
+        work goes first, then batch, and within a class the youngest, so the
+        best-ranked request always progresses and a class never evicts a
+        better one. Prefilling slots are eligible victims."""
+        best: int | None = None
+        for slot, req in enumerate(self._slots):
+            if req is None or req.finished or req.slo_rank <= needy.slo_rank:
+                continue
+            if best is None or req.slo_rank > self._slots[best].slo_rank:
+                best = slot
+        return best
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Reclaim ``slot``'s pages mid-flight and requeue its request at its
+        old id. The whole pages of prompt + tokens are published first, so
+        they stay resident (evictable under pressure) and the resume is a
+        near-full prefix match. A mid-prefill victim has sampled nothing:
+        its written chunks' whole pages are published and it is requeued
+        fresh."""
+        req = self._slots[slot]
+        if req.prefilling:
+            self._publish_tokens(req.prompt[: req.prefill_pos], slot)
+            req.prefilling = False
+            req.prefill_pos = 0
+        else:
+            req.preempted = True
+            req.preempt_cur = self.cur[slot].clone()
+            req.preempt_gen = self._gens[slot]
+            if self.logprobs_k:
+                req.preempt_lp = (self.lp_chosen[slot].clone(), self.lp_ids[slot].clone(),
+                                  self.lp_top[slot].clone())
+            self._publish_tokens(req.prompt + req.tokens, slot)
+        self._slots[slot] = None
+        self._free_slot_pages(slot)
+        self._enqueue(req)
+        self.preemptions += 1
+        req.preempt_count += 1
+        logger.info("preempted request %d (%s)", req.req_id,
+                    "requeued fresh" if not req.preempted else f"{len(req.tokens)} tokens in")
+
+    def _topup_pages(self) -> None:
+        """Optimistic admission's per-tick page feed, before dispatch: every
+        decoding slot's table must cover prompt + tokens + one tick
+        (``_tick_advance_bound``, capped at its worst case). On an empty pool
+        the worse-ranked victim is preempted and the feed retried, or, with
+        none, the needy slot itself. Also closes the anti-thrash guard's
+        window every ``thrash_window`` ticks."""
+        if self.admission != "optimistic":
+            return
+        self._win_ticks += 1
+        if self._win_ticks >= self._thrash_window:
+            ratio = self._win_resume_tokens / max(1, self._win_gen_tokens)
+            # Release needs the backlog drained too: while degraded,
+            # worst-case reservations stop the preemptions the ratio counts.
+            if not self._degraded and ratio > self._thrash_engage:
+                self._degraded = True
+                self.admission_degrades += 1
+                logger.info("optimistic admission degraded to worst-case reservations "
+                            "(re-prefilled / generated = %.2f over %d ticks)",
+                            ratio, self._thrash_window)
+            elif self._degraded and ratio < self._thrash_release and not self._queue:
+                self._degraded = False
+                logger.info("optimistic admission re-engaged (ratio %.2f)", ratio)
+            self._win_ticks = self._win_resume_tokens = self._win_gen_tokens = 0
+        ps, adv = self.page_size, self._tick_advance_bound()
+        for slot in range(self.n_slots):
+            req = self._slots[slot]
+            if req is None or req.prefilling or req.finished:
+                continue
+            cap = len(req.prompt) + req.max_new_tokens
+            # the harvested frontier, not an accumulated bound: speculative
+            # ticks write more than they keep
+            need = -(-min(len(req.prompt) + len(req.tokens) + adv, cap) // ps)
+            while need > len(self._slot_pages[slot]):
+                have = len(self._slot_pages[slot])
+                try:
+                    fresh = self.allocator.alloc(need - have)
+                except MemoryError:
+                    victim = self._pick_victim(req)
+                    self._preempt_slot(slot if victim is None else victim)
+                    if victim is None:
+                        break
+                    continue
+                self._table[slot, have: have + len(fresh)] = fresh
+                self._slot_pages[slot].extend(fresh)
+                self._table_dirty = True
+
+    # -- deadlines ---------------------------------------------------------------
+
+    def _expire(self, req: Request) -> None:
+        """A deadline eviction ends ``req`` with the tokens it has: waiters
+        see ``expired``, a stream its terminal None."""
+        req.expired = req.finished = True
+        self.deadline_expired += 1
+        if req.stream is not None:
+            req.stream.put(None)
+        self._completed[req.req_id] = req
+
+    def _expire_deadlines(self) -> None:
+        """Evict every queued or slotted request past its deadline, once a
+        tick before admission and dispatch, so expired work costs no
+        further prefill or decode. A queued preempted request holds no
+        pages; a slotted one's are released."""
+        now = time.monotonic()
+        with self._queue_lock:
+            gone = [r for r in self._queue if r.deadline is not None and now >= r.deadline]
+            for req in gone:
+                self._queue.remove(req)
+        for req in gone:
+            self._expire(req)
+        for slot, req in enumerate(self._slots):
+            if req is not None and req.deadline is not None and now >= req.deadline:
+                self._slots[slot] = None
+                self._free_slot_pages(slot)
+                self._expire(req)
+
     # -- the per-tick token budget --------------------------------------------
 
     def _budget_allows(self, cost: int) -> bool:
@@ -805,9 +1162,11 @@ class ContinuousEngine:
 
     # -- the draft model -------------------------------------------------------
 
-    def _draft_prefill(self, req: Request, slot: int) -> None:
-        """Admission hook of model drafting: the prompt into ``slot``'s row
-        of the draft cache, always the whole prompt (prefix reuse and the
+    def _draft_prefill(self, req: Request, slot: int, ctx: list[int] | None = None) -> None:
+        """Admission hook of model drafting: ``ctx`` (default the prompt; a
+        resume's prompt + tokens, since the drafter's cache keeps no
+        frontier and the slot's row may hold another request's KV) into
+        ``slot``'s row of the draft cache, always whole (prefix reuse and the
         target's chunks do not apply to the drafter's private cache). No
         sampling: the drafter's first prediction comes in the spec tick,
         from the pending ``cur``. A prompt longer than ``prefill_chunk`` is
@@ -817,7 +1176,7 @@ class ContinuousEngine:
         if self.spec_draft != "model":
             return
         dcfg, dev, pad = self.draft_cfg, self.device, self.tokenizer.pad_id
-        ctx = req.prompt
+        ctx = req.prompt if ctx is None else ctx
         # the slot's row of the draft cache, as views: the writes land in place
         row = {name: c[:, slot:slot + 1] for name, c in self.draft_cache.items()}
         if self.prefill_chunk and len(ctx) > self.prefill_chunk:
@@ -893,11 +1252,14 @@ class ContinuousEngine:
             self._table_dirty = False
         return self._table_dev
 
-    def _decode_tick(self, occupied: list[bool]) -> np.ndarray:
+    def _decode_tick(self, occupied: list[bool]) -> tuple[np.ndarray, tuple | None]:
         """One decode tick of ``decode_chunk`` steps over every slot, in the
-        reference's step order; returns the emitted tokens (B, chunk). With
-        speculation armed, each step's pending token also goes into the
-        slot's history (the reference's ``track``)."""
+        reference's step order; returns the emitted tokens (B, chunk) and,
+        with logprobs armed, their stats (chosen (B, chunk), top ids and top
+        logprobs (B, chunk, k); each emitted token's are the pending ones
+        when it was fed, and the pending ones then become the stats of the
+        step's new token). With speculation armed, each step's pending token
+        also goes into the slot's history (the reference's ``track``)."""
         cfg, dev = self.cfg, self.device
         n_b, chunk = self.n_slots, self.decode_chunk
         pad, eos = self.tokenizer.pad_id, self.tokenizer.eos_id
@@ -920,8 +1282,10 @@ class ContinuousEngine:
                     for g, r, live in zip(self._gens, self._slots, occupied)]
             uniforms = row_uniforms(gens, (chunk, cfg.vocab_size), dev)
         cur, pos, hist = self.cur, self.pos, self.hist
+        n_lp = self.logprobs_k
+        lp = (self.lp_chosen, self.lp_ids, self.lp_top) if n_lp else None
         done = ~torch.tensor(occupied, device=dev)
-        emitted = []
+        emitted, lp_emitted = [], []
         for t in range(chunk):
             done = done | (pos >= self.limits)
             step_alive = ~done
@@ -938,6 +1302,9 @@ class ContinuousEngine:
             else:
                 nxt = torch.argmax(step_logits, dim=-1)
             emitted.append(torch.where(step_alive, cur, pad))
+            if n_lp:
+                lp_emitted.append(lp)
+                lp = _lp_stats(step_logits, nxt, n_lp)
             done = done | (cur == eos)
             pos = torch.where(step_alive, pos + 1, pos)
             cur = torch.where(done, pad, nxt)
@@ -947,7 +1314,12 @@ class ContinuousEngine:
         _flush_tail_into_pools(self.cache, cache["tk"], cache["tv"], starts, pos,
                                table, self.page_size)
         self.cur, self.pos, self.hist = cur, pos, hist
-        return torch.stack(emitted, dim=1).cpu().numpy()  # the tick's one copy
+        stats = ()
+        if n_lp:
+            self.lp_chosen, self.lp_ids, self.lp_top = lp
+            stats = tuple(torch.stack([e[i] for e in lp_emitted], dim=1) for i in range(3))
+        toks, *stats = _to_host(torch.stack(emitted, dim=1), *stats)  # the tick's one copy
+        return toks, tuple(stats) or None
 
     def _spec_accept(self, logits: torch.Tensor, tokens_in: torch.Tensor,
                      gens: list, sampled: bool) -> tuple[torch.Tensor, torch.Tensor]:
@@ -963,16 +1335,38 @@ class ContinuousEngine:
         n_acc = torch.cumprod(eq.long(), dim=-1).sum(-1)
         return n_acc, cand.gather(1, n_acc[:, None])[:, 0]
 
+    def _spec_lp_round(self, logits: torch.Tensor, draft: torch.Tensor,
+                       n_acc: torch.Tensor, nxt: torch.Tensor, lp: tuple, bufs: tuple,
+                       n_out: torch.Tensor, e: torch.Tensor) -> tuple[tuple, tuple]:
+        """A speculative round's logprob stats (``logprobs_k > 0``): emission
+        j's are the pending ones for j = 0 (``cur``'s, scored when it was
+        chosen) and, for j >= 1, ``draft[j-1]`` scored by the verify's logits
+        at position j - 1 (the raw distribution, as a plain step scores);
+        written into ``bufs`` at each row's ``n_out`` as the tokens are. The
+        new pending stats score ``nxt`` under the logits that chose it
+        (position ``n_acc``)."""
+        n_lp = self.logprobs_k
+        k = logits.shape[1] - 1
+        lp_all = torch.log_softmax(logits[:, :k].float(), dim=-1)
+        top = torch.topk(lp_all, n_lp, dim=-1)  # (B, k, N)
+        seqs = (torch.cat([lp[0][:, None], lp_all.gather(2, draft[..., None].long())[..., 0]], 1),
+                torch.cat([lp[1][:, None], top.indices], 1),
+                torch.cat([lp[2][:, None], top.values], 1))
+        bufs = tuple(_emit_rows(b, q, n_out, e) for b, q in zip(bufs, seqs))
+        sel = logits.gather(1, n_acc[:, None, None].expand(-1, 1, logits.shape[2]))[:, 0]
+        return _lp_stats(sel, nxt, n_lp), bufs
+
     def _spec_tick(self, occupied: list[bool], sampled: bool
-                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray, tuple | None]:
         """One speculative tick of ``spec_rounds`` rounds over every slot, the
         reference's ``_build_spec_paged_decode`` step for step: draft by
         prompt lookup or by the draft model, one (B, k+1) verify forward (its K/V into the tail at
         ``off = pos - starts``, attention through K3's verify), accept, emit
         (capped by ``limits`` and by EOS/pad before the span), extend the
         history; then the plain tick's flush. Returns the emitted tokens
-        (B, rounds * (k+1)), their per-row counts and the rounds each row
-        was live, from one device-to-host copy."""
+        (B, rounds * (k+1)), their per-row counts, the rounds each row was
+        live and, with logprobs armed, the emitted tokens' stats
+        (``_spec_lp_round``), from one device-to-host copy."""
         cfg, dev = self.cfg, self.device
         n_b, k, rounds = self.n_slots, self.spec_k, self.spec_rounds
         pad, eos, smax = self.tokenizer.pad_id, self.tokenizer.eos_id, self.smax
@@ -993,6 +1387,12 @@ class ContinuousEngine:
         rr = torch.zeros((n_b,), dtype=torch.long, device=dev)
         zeros = torch.zeros((n_b, 1), dtype=torch.long, device=dev)
         cur, pos, hist = self.cur, self.pos, self.hist
+        n_lp = self.logprobs_k
+        if n_lp:
+            lp = (self.lp_chosen, self.lp_ids, self.lp_top)
+            lp_bufs = (torch.zeros((n_b, out_len), dtype=torch.float32, device=dev),
+                    torch.zeros((n_b, out_len, n_lp), dtype=torch.long, device=dev),
+                    torch.zeros((n_b, out_len, n_lp), dtype=torch.float32, device=dev))
         done = ~torch.tensor(occupied, device=dev)
         for _ in range(rounds):
             done = done | (pos >= self.limits)
@@ -1020,6 +1420,9 @@ class ContinuousEngine:
             e = emit.long().sum(1)
             hit_term = (emit & is_term).any(1)
             out = _emit_rows(out, tokens_in, n_out, e)
+            if n_lp:
+                lp, lp_bufs = self._spec_lp_round(logits, draft, n_acc, nxt, lp, lp_bufs,
+                                                  n_out, e)
             n_out = n_out + e
             append_seq = torch.where(q_idx[None, :] == n_acc[:, None], nxt[:, None],
                                      torch.cat([draft, zeros], dim=1))
@@ -1034,34 +1437,55 @@ class ContinuousEngine:
         _flush_tail_into_pools(self.cache, cache["tk"], cache["tv"], starts, pos,
                                table, self.page_size)
         self.cur, self.pos, self.hist = cur, pos, hist
-        host = torch.cat([out, n_out[:, None], rr[:, None]], dim=1).cpu().numpy()
-        return host[:, :out_len], host[:, out_len], host[:, out_len + 1]
+        bufs = ()
+        if n_lp:
+            self.lp_chosen, self.lp_ids, self.lp_top = lp
+            bufs = lp_bufs
+        toks, n_out, rr, *stats = _to_host(out, n_out, rr, *bufs)  # the tick's one copy
+        return toks, n_out, rr, tuple(stats) or None
 
-    def _harvest(self, emitted: np.ndarray, counts: np.ndarray | None = None) -> None:
+    def _harvest(self, emitted: np.ndarray, counts: np.ndarray | None = None,
+                 lp: tuple | None = None) -> None:
         """Append each live slot's tokens up to EOS/pad or its budget;
         finished requests publish their pages and free their slot.
         ``counts`` (speculative ticks): each row's valid emissions, since a
         round emits 1..k+1 tokens and a live row's output need not end in
-        pad filler. A streamed request gets its new tokens as one list, and
-        ``None`` once it finishes."""
+        pad filler. ``lp`` (chosen, top ids, top logprobs, column-aligned
+        with ``emitted``): the stats, kept by requests that asked. A
+        streamed request gets its new tokens as one list (with logprobs, a
+        (tokens, stats) pair sliced to its N), and ``None`` once it
+        finishes."""
         eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
         for slot, req in enumerate(list(self._slots)):
             if req is None or req.prefilling:
                 # a parked slot's row is pad filler, not an empty generation
                 continue
             row = emitted[slot] if counts is None else emitted[slot][: counts[slot]]
+            keep_lp = lp is not None and req.logprobs is not None
             fresh = []
-            for tok in row:
+            for j, tok in enumerate(row):
                 tok = int(tok)
                 if tok in (eos, pad) or len(req.tokens) >= req.max_new_tokens:
                     req.finished = True
                     break
                 req.tokens.append(tok)
                 fresh.append(tok)
+                if keep_lp:
+                    req.lp_token.append(float(lp[0][slot, j]))
+                    req.lp_top_ids.append([int(x) for x in lp[1][slot, j]])
+                    req.lp_top.append([float(x) for x in lp[2][slot, j]])
             if len(req.tokens) >= req.max_new_tokens:
                 req.finished = True
+            self._win_gen_tokens += len(fresh)  # the anti-thrash guard's count
             if req.stream is not None and fresh:
-                req.stream.put(fresh)
+                if keep_lp:
+                    n, m = req.logprobs, len(fresh)
+                    req.stream.put((fresh, {
+                        "token_logprobs": req.lp_token[-m:],
+                        "top_ids": [r[:n] for r in req.lp_top_ids[-m:]],
+                        "top_logprobs": [r[:n] for r in req.lp_top[-m:]]}))
+                else:
+                    req.stream.put(fresh)
             if req.finished:
                 if req.stream is not None:
                     req.stream.put(None)
@@ -1073,12 +1497,15 @@ class ContinuousEngine:
                 self._free_slot_pages(slot)
 
     def step(self) -> None:
-        """One scheduler tick: advance the chunks of prefills in flight,
-        admit queued requests, advance the newly admitted chunked prompts'
-        first chunks, then decode one chunk of every decode-ready slot
-        (speculatively when armed and predicted to win, ``_use_spec_tick``)
-        and harvest it. With a token budget, the prefills draw what the
-        decode-ready slots' ``decode_chunk`` steps leave of it."""
+        """One scheduler tick: evict requests past their deadlines, advance
+        the chunks of prefills in flight, admit queued requests, advance the
+        newly admitted chunked prompts' first chunks, feed optimistic
+        admission's pages (which may preempt), then decode one chunk of
+        every decode-ready slot (speculatively when armed and predicted to
+        win, ``_use_spec_tick``) and harvest it. With a token budget, the
+        prefills draw what the decode-ready slots' ``decode_chunk`` steps
+        leave of it."""
+        self._expire_deadlines()
         decode_ready = [r for r in self._slots if r is not None and not r.prefilling]
         self._tick_prefill_spent = 0
         self._tick_prefill_left = (
@@ -1092,6 +1519,7 @@ class ContinuousEngine:
         seen = {id(r) for r in inflight}
         self._advance_prefill_chunks([r for r in self._slots if r is not None
                                       and r.prefilling and id(r) not in seen])
+        self._topup_pages()
         occupied = [r is not None and not r.prefilling for r in self._slots]
         if not any(occupied):  # host-side check: no device work on idle ticks
             return
@@ -1099,16 +1527,16 @@ class ContinuousEngine:
         sampled = any(r.temperature > 0.0 for r in active)
         t0 = time.perf_counter()
         if self._use_spec_tick(active):
-            emitted, counts, rr = self._spec_tick(occupied, sampled)
+            emitted, counts, rr, lp = self._spec_tick(occupied, sampled)
             dt = time.perf_counter() - t0
             self.spec_seconds += dt
             self._record_tick_time("spec", dt * 1e3)
             self._account_spec(counts, rr)
             self.spec_ticks += 1
             self.decode_ticks += 1
-            self._harvest(emitted, counts)
+            self._harvest(emitted, counts, lp)
             return
-        emitted = self._decode_tick(occupied)
+        emitted, lp = self._decode_tick(occupied)
         dt = time.perf_counter() - t0
         self.decode_seconds += dt
         self.decode_ticks += 1
@@ -1116,7 +1544,7 @@ class ContinuousEngine:
             # the plain tick's key, as the reference's compiled programs
             self._record_tick_time((sampled, sampled and any(r.top_p < 1.0 for r in active)),
                                    dt * 1e3)
-        self._harvest(emitted)
+        self._harvest(emitted, lp=lp)
 
     # -- speculation's decision ------------------------------------------------
 
@@ -1229,6 +1657,12 @@ class ContinuousEngine:
             "pages_free": self.allocator.n_free,
             "pages_cached_evictable": self.allocator.n_evictable,
             "admission": self.admission,
+            "preemptions": self.preemptions,
+            **({"admission_degraded": self._degraded,
+                "admission_degrades": self.admission_degrades,
+                "resume_prefill_tokens": self.resume_prefill_tokens}
+               if self.admission == "optimistic" else {}),
+            "deadline_expired": self.deadline_expired,
             "kv_bytes_per_token": round(self.page_bytes / self.page_size, 2),
             "decode_ticks": self.decode_ticks,
             "decode_steps": self.decode_steps,
@@ -1284,7 +1718,8 @@ class ContinuousEngine:
 
     def cancel(self, req_id: int) -> bool:
         """Abandon a queued or in-flight request; its slot and private pages
-        free at once, and a streamed request gets its terminal ``None``.
+        free at once (a queued one holds none, a preempted one's went at its
+        preemption), and a streamed request gets its terminal ``None``.
         Returns True if the request was found."""
         with self._queue_lock:
             for req in self._queue:
@@ -1330,9 +1765,10 @@ class ContinuousEngine:
 
 class TokenStream:
     """What ``ThreadedEngine.stream_one`` returns: an iterator of token-id
-    lists as they are harvested. ``close()`` cancels the request whether or
-    not iteration began (closing a generator that never started runs none
-    of its code)."""
+    lists as they are harvested (``stream_one_with_logprobs``: (token ids,
+    stats) pairs). ``close()`` cancels the request whether or not iteration
+    began (closing a generator that never started runs none of its
+    code)."""
 
     def __init__(self, chunks, cancel):
         self._chunks = chunks
@@ -1341,7 +1777,7 @@ class TokenStream:
     def __iter__(self):
         return self
 
-    def __next__(self) -> list[int]:
+    def __next__(self):
         return next(self._chunks)
 
     def close(self) -> None:
@@ -1353,6 +1789,10 @@ class ThreadedEngine:
     """Thread-safe front for ``ContinuousEngine``: HTTP handler threads
     submit and block on their own request while one driver thread ticks the
     engine, so concurrent requests share decode ticks."""
+
+    # The server asks these before passing scheduling fields through.
+    supports_deadlines = True
+    supports_slo_classes = True
 
     def __init__(self, engine: ContinuousEngine):
         self._engine = engine
@@ -1413,6 +1853,33 @@ class ThreadedEngine:
                         self._results[req.req_id] = req
                 self._cond.notify_all()
 
+    @property
+    def logprobs_k(self) -> int:
+        """The most logprob alternatives the engine serves (0: none)."""
+        return self._engine.logprobs_k
+
+    def _submit_locked(self, prompt_tokens: list[int], **kw) -> int:
+        if self._stop:
+            raise RuntimeError("continuous engine is stopped") from self._error
+        rid = self._engine.submit(prompt_tokens, **kw)
+        self._cond.notify_all()
+        return rid
+
+    def _wait_locked(self, rid: int, deadline_s: float | None = None) -> Request:
+        """Block (holding the condition) until ``rid`` completes; raises if
+        the driver stopped, ``DeadlineExceededError`` if its deadline
+        evicted it."""
+        while rid not in self._results:
+            if self._stop:
+                raise RuntimeError("continuous engine stopped mid-request") from self._error
+            self._cond.wait()
+        req = self._results.pop(rid)
+        if req.expired:
+            raise DeadlineExceededError(
+                f"request exceeded its {deadline_s}s deadline ({len(req.tokens)} tokens "
+                f"generated before eviction)")
+        return req
+
     def generate_one(
         self,
         prompt_tokens: list[int],
@@ -1422,51 +1889,83 @@ class ThreadedEngine:
         top_p: float | None = None,
         seed: int | None = None,
         slo_class: str | None = None,
+        deadline_s: float | None = None,
     ) -> list[int]:
         """Submit one request and block until it completes. Raises if the
-        driver has stopped (shutdown or device error)."""
+        driver has stopped (shutdown or device error), and
+        ``DeadlineExceededError`` when ``deadline_s`` evicted it first."""
         with self._cond:
-            if self._stop:
-                raise RuntimeError("continuous engine is stopped") from self._error
-            rid = self._engine.submit(
-                prompt_tokens, max_new_tokens=max_new_tokens,
-                temperature=temperature, top_p=top_p, seed=seed,
-                slo_class=slo_class,
-            )
-            self._cond.notify_all()
-            while rid not in self._results:
-                if self._stop:
-                    raise RuntimeError(
-                        "continuous engine stopped mid-request") from self._error
-                self._cond.wait()
-            return self._results.pop(rid).tokens
+            rid = self._submit_locked(
+                prompt_tokens, max_new_tokens=max_new_tokens, temperature=temperature,
+                top_p=top_p, seed=seed, slo_class=slo_class, deadline_s=deadline_s)
+            return self._wait_locked(rid, deadline_s).tokens
 
-    def stream_one(
+    def generate_one_with_logprobs(
         self,
         prompt_tokens: list[int],
+        n_top: int,
         *,
         max_new_tokens: int | None = None,
         temperature: float | None = None,
         top_p: float | None = None,
         seed: int | None = None,
         slo_class: str | None = None,
-    ):
-        """Submit one request and return an iterator of its token-id lists
-        as they are harvested (SSE streaming). The submit is eager:
-        ``QueueFullError`` and ``BadRequestError`` raise here, while the
-        HTTP layer can still answer 429 or 400. Closing the iterator early
-        (a stop sequence, a client gone) cancels the request, which frees
-        its slot. Raises if the driver stops mid-stream."""
+        deadline_s: float | None = None,
+    ) -> tuple[list[int], dict]:
+        """``generate_one`` plus each token's logprob stats, in the lock-step
+        Generator's layout (``token_logprobs``, ``top_ids``,
+        ``top_logprobs``, sliced to ``n_top``); the request rides the
+        ordinary decode ticks."""
+        with self._cond:
+            rid = self._submit_locked(
+                prompt_tokens, max_new_tokens=max_new_tokens, temperature=temperature,
+                top_p=top_p, seed=seed, slo_class=slo_class, deadline_s=deadline_s,
+                logprobs=n_top)
+            req = self._wait_locked(rid, deadline_s)
+        return req.tokens, {"token_logprobs": req.lp_token,
+                            "top_ids": [r[:n_top] for r in req.lp_top_ids],
+                            "top_logprobs": [r[:n_top] for r in req.lp_top]}
+
+    def generate_many(
+        self,
+        prompt_tokens: list[int],
+        n: int,
+        *,
+        max_new_tokens: int | None = None,
+        temperature: float | None = None,
+        top_p: float | None = None,
+        seed: int | None = None,
+        logprobs: int | None = None,
+        slo_class: str | None = None,
+    ) -> list[Request]:
+        """Submit ``n`` copies of one prompt, copy i seeded
+        ``derive_copy_seed(seed, i)`` (an unseeded call draws its base), and
+        block until all complete: the finished requests in submission
+        order. The copies share decode ticks. A failed submit cancels the
+        copies already queued."""
+        if seed is None:
+            seed = random.getrandbits(31)
+        with self._cond:
+            rids: list[int] = []
+            try:
+                for i in range(n):
+                    rids.append(self._submit_locked(
+                        prompt_tokens, max_new_tokens=max_new_tokens,
+                        temperature=temperature, top_p=top_p,
+                        seed=derive_copy_seed(seed, i), logprobs=logprobs,
+                        slo_class=slo_class))
+            except BaseException:
+                self._cancels.update(rids)
+                self._cond.notify_all()
+                raise
+            return [self._wait_locked(rid) for rid in rids]
+
+    def _stream(self, **submit_kw):
+        """Submit one streamed request (eagerly: ``QueueFullError`` and
+        ``BadRequestError`` raise here) and return its ``TokenStream``."""
         stream: queue.Queue = queue.Queue()
         with self._cond:
-            if self._stop:
-                raise RuntimeError("continuous engine is stopped") from self._error
-            rid = self._engine.submit(
-                prompt_tokens, max_new_tokens=max_new_tokens,
-                temperature=temperature, top_p=top_p, seed=seed,
-                slo_class=slo_class, stream=stream,
-            )
-            self._cond.notify_all()
+            rid = self._submit_locked(stream=stream, **submit_kw)
 
         def chunks():
             try:
@@ -1495,6 +1994,46 @@ class ThreadedEngine:
                 self.cancel(rid)
 
         return TokenStream(chunks(), lambda: self.cancel(rid))
+
+    def stream_one(
+        self,
+        prompt_tokens: list[int],
+        *,
+        max_new_tokens: int | None = None,
+        temperature: float | None = None,
+        top_p: float | None = None,
+        seed: int | None = None,
+        slo_class: str | None = None,
+        deadline_s: float | None = None,
+    ):
+        """Submit one request and return an iterator of its token-id lists
+        as they are harvested (SSE streaming). The submit is eager:
+        ``QueueFullError`` and ``BadRequestError`` raise here, while the
+        HTTP layer can still answer 429 or 400. Closing the iterator early
+        (a stop sequence, a client gone) cancels the request, which frees
+        its slot; a deadline eviction ends it. Raises if the driver stops
+        mid-stream."""
+        return self._stream(prompt_tokens=prompt_tokens, max_new_tokens=max_new_tokens,
+                            temperature=temperature, top_p=top_p, seed=seed,
+                            slo_class=slo_class, deadline_s=deadline_s)
+
+    def stream_one_with_logprobs(
+        self,
+        prompt_tokens: list[int],
+        n_top: int,
+        *,
+        max_new_tokens: int | None = None,
+        temperature: float | None = None,
+        top_p: float | None = None,
+        seed: int | None = None,
+        slo_class: str | None = None,
+        deadline_s: float | None = None,
+    ):
+        """``stream_one`` with each chunk's logprob stats: yields (token ids,
+        stats) pairs, the stats in ``generate_one_with_logprobs``' layout."""
+        return self._stream(prompt_tokens=prompt_tokens, max_new_tokens=max_new_tokens,
+                            temperature=temperature, top_p=top_p, seed=seed,
+                            slo_class=slo_class, deadline_s=deadline_s, logprobs=n_top)
 
     def cancel(self, req_id: int) -> None:
         """Request cancellation; the driver thread applies it before its

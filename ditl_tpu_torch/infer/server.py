@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``infer/server.py``: ``GET /health``,
 ``GET /v1/models``, ``GET /v1/stats``, ``POST /v1/completions`` and
 ``POST /v1/chat/completions`` with ``stop``, ``max_tokens``,
-``temperature``, ``top_p``, ``seed`` and ``stream``, and
+``temperature``, ``top_p``, ``seed``, ``logprobs``/``top_logprobs``,
+``stream``, ``n``/``best_of``, ``deadline_s`` and ``slo_class``, and
 ``POST /v1/embeddings``.
 
 - ``"stream": true`` answers Server-Sent Events (``data: {...}`` chunks,
@@ -14,8 +15,25 @@ Counterpart of the JAX package's ``infer/server.py``: ``GET /health``,
   eligible) and sends it as one chunk. Chat streams open with the role
   chunk; text that could begin a stop sequence is held back across chunk
   boundaries; a client that goes away cancels its request, freeing its
-  slot. Streamed logprobs answer 400 (the continuous engine's logprobs are
-  not ported).
+  slot. Streamed logprobs ride the continuous engine with ``--logprobs-k``
+  >= N and no stop sequence (each chunk carries its tokens' logprobs, in
+  the reference's layout); otherwise they answer 400.
+- ``n``/``best_of`` (``1 <= n <= best_of <= 8``; 400 with ``stream`` or
+  ``logprobs``): ``best_of`` candidates, the best ``n`` by mean token
+  logprob when ``best_of > n``; the continuous engine runs them side by side
+  (copy i seeded ``derive_copy_seed(seed, i)``; ranking needs
+  ``--logprobs-k``), the lock-step Generator as one batch; usage counts
+  every candidate.
+- ``deadline_s`` or the ``X-Request-Deadline-S`` header: at or below 0 a 504
+  before any work; the continuous engine's single-choice path evicts a
+  request past it (504). Elsewhere a payload deadline answers 400 and the
+  header's is dropped.
+- ``slo_class`` or the ``X-SLO-Class`` header (the header wins; an unknown
+  class answers 400) orders the continuous engine's admission and
+  preemption; where no class orders the work (the lock-step engine, a
+  logprob request beyond ``--logprobs-k``) a payload class other than
+  ``interactive`` answers 400 and the header's is dropped. Guided-decoding
+  fields answer 400 (not ported).
 - ``/v1/embeddings``: mean-pooled, unit-length final hidden states of the
   served model (one forward over the padded batch, under the device lock).
 
@@ -23,9 +41,11 @@ Counterpart of the JAX package's ``infer/server.py``: ``GET /health``,
   serialises device work.
 - ``--engine continuous --cache-mode paged``: the continuous engine over the
   paged KV cache (``infer/continuous.py``) behind ``ThreadedEngine``, so
-  concurrent requests share decode ticks. Logprob requests fall back to the
-  lock-step ``Generator`` over the same weights, as the JAX server does with
-  ``logprobs_k=0``. A full admission queue (``--max-queue``) answers 429, an
+  concurrent requests share decode ticks. ``--admission optimistic`` books
+  a request's pages a tick at a time and preempts on an empty pool (exact
+  resume); ``--logprobs-k K`` serves logprob requests of N <= K on the
+  engine, the others fall back to the lock-step ``Generator`` over the same
+  weights, as the JAX server does. A full admission queue (``--max-queue``) answers 429, an
   invalid request 400; ``/v1/stats`` and ``/health`` report the engine's
   slots, queue and pages. ``--cache-mode contiguous`` raises (ROADMAP.md).
 
@@ -67,7 +87,8 @@ card unless ``--device cpu`` is given:
         [--port 8300] [--engine continuous --cache-mode paged] \\
         [--override dtype=float16|float32] [--quantize int8] [--kv-quant int8] \\
         [--speculative on|auto [--draft-preset NAME [--draft-checkpoint DIR]]] \
-        [--prefill-chunk 512 --token-budget 640]
+        [--prefill-chunk 512 --token-budget 640] [--admission optimistic] \\
+        [--logprobs-k 5]
 """
 
 from __future__ import annotations
@@ -82,7 +103,12 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from ditl_tpu_torch.infer.continuous import QueueFullError, ThreadedEngine
+from ditl_tpu_torch.infer.continuous import (
+    SLO_CLASSES,
+    DeadlineExceededError,
+    QueueFullError,
+    ThreadedEngine,
+)
 from ditl_tpu_torch.infer.engine import GenerateConfig, Generator, _next_pow2
 from ditl_tpu_torch.utils.http11 import KeepAliveHandlerMixin
 from ditl_tpu_torch.utils.logging import get_logger
@@ -379,6 +405,66 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         finally:
             srv._exit_request()
 
+    def _deadline(self, payload: dict):
+        """The request's deadline: the ``deadline_s`` field, else the
+        ``X-Request-Deadline-S`` header. Returns (deadline_s or None, from
+        the header), or None after answering 400 (not a number) or 504 (at
+        or below 0: expired before any work)."""
+        deadline_s = payload.get("deadline_s")
+        from_header = False
+        if deadline_s is None:
+            deadline_s = self.headers.get("X-Request-Deadline-S")
+            from_header = deadline_s is not None
+        if deadline_s is None:
+            return None, False
+        try:
+            deadline_s = float(deadline_s)
+        except (TypeError, ValueError):
+            deadline_s = float("nan")
+        if deadline_s != deadline_s:  # NaN would never expire
+            self._send_json(400, {"error": {"message": "deadline_s must be a number (seconds)"}})
+            return None
+        if deadline_s <= 0:
+            self._send_json(504, {"error": {"message": "deadline expired before any work began",
+                                            "type": "timeout_error"}})
+            return None
+        return deadline_s, from_header
+
+    def _slo_class(self, payload: dict):
+        """The request's SLO class: the ``X-SLO-Class`` header, which wins,
+        else the ``slo_class`` field. Returns (class or None, from the
+        header), or None after answering 400 for an unknown class or one
+        this server's engine cannot honour (``_gate_slo_class``)."""
+        slo_class = self.headers.get("X-SLO-Class")
+        from_header = slo_class is not None
+        if slo_class is None:
+            slo_class = payload.get("slo_class")
+        if slo_class is None:
+            return None, False
+        if slo_class not in SLO_CLASSES:
+            self._send_json(400, {"error": {"message":
+                f"unknown slo_class {slo_class!r} (one of {sorted(SLO_CLASSES)})"}})
+            return None
+        if self.threaded_engine is None:
+            ok, slo_class = self._gate_slo_class(slo_class, from_header)
+            if not ok:
+                return None
+        return slo_class, from_header
+
+    def _gate_slo_class(self, slo_class, from_header: bool):
+        """A path that cannot order by class (the lock-step engine, or a
+        logprob request beyond ``--logprobs-k``): a header's class is
+        dropped, a payload's class other than ``interactive`` answers 400.
+        Returns (ok, the class to pass on)."""
+        if slo_class in (None, "interactive"):
+            return True, slo_class
+        if from_header:
+            return True, None
+        self._send_json(400, {"error": {"message":
+            "slo_class requires the continuous-engine serving path (no lockstep or pod "
+            "engine, adapter fallback, or logprobs beyond --logprobs-k)"}})
+        return False, None
+
     def _complete(self, payload: dict, *, chat: bool) -> None:
         tok = self.generator.tokenizer
         try:
@@ -401,7 +487,6 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             )
             if gen.max_new_tokens < 1:
                 raise ValueError("max_tokens must be >= 1")
-            stops = _stop_list(payload.get("stop"))
             # OpenAI logprobs: completions' `logprobs: N` (0 is a real
             # request, so test presence), chat's `logprobs: true` with
             # `top_logprobs: N`. N is clamped to 20.
@@ -413,18 +498,71 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         except (TypeError, ValueError) as e:
             self._send_json(400, {"error": {"message": str(e)}})
             return
+        # The reference's order of refusals: deadline, SLO class, stop,
+        # guided decoding, n/best_of.
+        deadline = self._deadline(payload)
+        slo = deadline and self._slo_class(payload)
+        if not slo:
+            return
+        (deadline_s, deadline_from_header), (slo_class, slo_from_header) = deadline, slo
+        try:
+            stops = _stop_list(payload.get("stop"))
+        except ValueError as e:
+            self._send_json(400, {"error": {"message": str(e)}})
+            return
+        rf = payload.get("response_format")
+        if (payload.get("guided_regex") is not None or payload.get("guided_json") is not None
+                or (isinstance(rf, dict) and rf.get("type") in ("json_object", "json_schema"))):
+            # grammar-constrained decoding is not ported: the reference's
+            # answer on a server not armed for it
+            self._send_json(400, {"error": {"message":
+                "guided decoding requires --engine continuous with --fsm-capacity > 0"}})
+            return
+        try:
+            n_choices = int(payload.get("n") or 1)
+            best_of = int(payload.get("best_of") or n_choices)
+        except (TypeError, ValueError):
+            self._send_json(400, {"error": {"message": "n and best_of must be integers"}})
+            return
+        engine = self.threaded_engine
+        if deadline_s is not None and not (engine is not None
+                                           and n_choices == 1 and best_of == 1):
+            # Only the continuous engine's single-choice path evicts on a
+            # deadline: elsewhere a payload deadline answers 400 and the
+            # header's (a gateway's hint) is dropped.
+            if not deadline_from_header:
+                self._send_json(400, {"error": {"message":
+                    "deadline_s requires the continuous-engine single-choice serving path "
+                    "(no lockstep/pod engine, adapter fallback, or n/best_of)"}})
+                return
+            deadline_s = None
         prompt_ids = [tok.bos_id] + tok.encode(prompt)
+        if n_choices > 1 or best_of > 1:
+            if not 1 <= n_choices <= best_of <= 8:
+                msg = "need 1 <= n <= best_of <= 8"
+            elif payload.get("stream"):
+                msg = "n/best_of do not compose with stream"
+            elif n_top is not None:
+                msg = "logprobs with n > 1 is not supported"
+            else:
+                self._multi_complete(payload, prompt_ids, gen, chat=chat, n=n_choices,
+                                     best_of=best_of, stops=stops, slo_class=slo_class,
+                                     slo_from_header=slo_from_header)
+                return
+            self._send_json(400, {"error": {"message": msg}})
+            return
+        engine_k = engine.logprobs_k if engine is not None else 0
         if payload.get("stream"):
-            if n_top is not None:
-                # The continuous engine's logprobs are not ported, so no
-                # engine here can carry them per chunk.
+            if n_top is not None and not (0 < engine_k and n_top <= engine_k and not stops):
                 self._send_json(400, {"error": {"message":
                     "streaming logprobs requires --engine continuous with "
                     "--logprobs-k >= N, no stop sequences, and no adapter "
                     "routing"}})
                 return
             try:
-                self._stream_complete(payload, prompt_ids, gen, chat=chat, stops=stops)
+                self._stream_complete(payload, prompt, prompt_ids, gen, chat=chat,
+                                      stops=stops, lp_n=n_top, deadline_s=deadline_s,
+                                      slo_class=slo_class)
             except QueueFullError as e:
                 # The stream's submit is eager (before the SSE headers), so a
                 # full queue is still a real 429.
@@ -439,67 +577,139 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 # a JSON 500 would corrupt the stream; log and close.
                 logger.exception("streaming completion failed")
             return
+        # Logprob requests ride the continuous engine up to --logprobs-k
+        # alternatives; beyond it (or without it) the lock-step Generator
+        # serves them, where no class orders the work.
+        lp_lockstep = n_top is not None and not (0 < engine_k and n_top <= engine_k)
+        if lp_lockstep:
+            ok, slo_class = self._gate_slo_class(slo_class, slo_from_header)
+            if not ok:
+                return
         t0 = time.time()
         lp = None
         try:
-            if self.threaded_engine is not None and n_top is None:
+            if engine is not None and n_top is not None and not lp_lockstep:
+                out, lp = engine.generate_one_with_logprobs(
+                    prompt_ids, n_top, max_new_tokens=gen.max_new_tokens,
+                    temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed,
+                    slo_class=slo_class, deadline_s=deadline_s)
+            elif engine is not None and n_top is None:
                 # Continuous engine: the request shares decode ticks.
-                out = self.threaded_engine.generate_one(
+                out = engine.generate_one(
                     prompt_ids, max_new_tokens=gen.max_new_tokens,
                     temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed,
-                )
+                    slo_class=slo_class, deadline_s=deadline_s)
+            elif n_top is None:
+                out = self._lockstep_generate(prompt_ids, gen)
             else:
-                # Lock-step Generator: the lock-step engine, and the
-                # continuous engine's fallback for logprob requests.
-                if n_top is None:
-                    out = self._lockstep_generate(prompt_ids, gen)
-                else:
-                    with self.device_lock:
-                        # The engine's top-k needs k >= 1; N = 0 computes one
-                        # alternative and emits none.
-                        outs, lps = self.generator.generate_tokens_with_logprobs(
-                            [prompt_ids], dataclasses.replace(gen, logprobs=max(1, n_top)))
-                    out, lp = outs[0], lps[0]
-            with self.stats_lock:
-                self.stats["requests"] += 1
-                self.stats["prompt_tokens"] += len(prompt_ids)
-                self.stats["completion_tokens"] += len(out)
-        except QueueFullError as e:
-            self._send_json(429, {"error": {"message": str(e), "type": "rate_limit_error"}},
-                            headers={"Retry-After": "1"})
-            return
-        except ValueError as e:  # BadRequestError: prompt + max_tokens beyond
-            # the context, or a pool too small for the request
-            self._send_json(400, {"error": {"message": str(e)}})
-            return
+                with self.device_lock:
+                    # The engine's top-k needs k >= 1; N = 0 computes one
+                    # alternative and emits none.
+                    outs, lps = self.generator.generate_tokens_with_logprobs(
+                        [prompt_ids], dataclasses.replace(gen, logprobs=max(1, n_top)))
+                out, lp = outs[0], lps[0]
+            self._count(len(prompt_ids), len(out))
         except Exception as e:  # noqa: BLE001 - the server keeps serving
-            logger.exception("completion failed")
-            self._send_json(500, {"error": {"message": str(e)}})
+            self._send_error(e)
             return
         n_gen = len(out)
         text, hit_stop = _apply_stop(tok.decode(out), stops)
         # "length" = the generated token count hit the budget.
         finish = "stop" if hit_stop or n_gen < gen.max_new_tokens else "length"
-        if chat:
-            choice = {"index": 0, "message": {"role": "assistant", "content": text},
-                      "finish_reason": finish}
-        else:
-            choice = {"index": 0, "text": text, "finish_reason": finish}
+        choice = self._choice(0, text, finish, chat)
         if lp is not None:
             choice["logprobs"] = _logprobs_json(tok, out, lp, text, hit_stop,
                                                 n_top, chat, len(prompt))
-        self._send_json(200, {
-            "id": f"cmpl-{uuid.uuid4().hex[:24]}",
-            "object": "chat.completion" if chat else "text_completion",
-            "created": int(t0),
-            "model": payload.get("model") or self.model_name,
-            "choices": [choice],
-            "usage": {"prompt_tokens": len(prompt_ids),
-                      "completion_tokens": n_gen,
-                      "total_tokens": len(prompt_ids) + n_gen},
-        })
+        self._send_json(200, self._body(payload, t0, chat, [choice], len(prompt_ids), n_gen))
         logger.info("served %d prompt + %d completion tokens in %.2fs",
                     len(prompt_ids), n_gen, time.time() - t0)
+
+    def _send_error(self, e: Exception) -> None:
+        """A failed generation as its status: 429 for a full queue, 504 for
+        a deadline the engine enforced, 400 for a request the engine
+        refused (``BadRequestError``: prompt + max_tokens beyond the
+        context, a pool too small), else 500."""
+        if isinstance(e, QueueFullError):
+            self._send_json(429, {"error": {"message": str(e), "type": "rate_limit_error"}},
+                            headers={"Retry-After": "1"})
+        elif isinstance(e, DeadlineExceededError):
+            self._send_json(504, {"error": {"message": str(e), "type": "timeout_error"}})
+        elif isinstance(e, ValueError):
+            self._send_json(400, {"error": {"message": str(e)}})
+        else:
+            logger.error("completion failed", exc_info=e)
+            self._send_json(500, {"error": {"message": str(e)}})
+
+    def _count(self, n_prompt: int, n_gen: int) -> None:
+        with self.stats_lock:
+            self.stats["requests"] += 1
+            self.stats["prompt_tokens"] += n_prompt
+            self.stats["completion_tokens"] += n_gen
+
+    @staticmethod
+    def _choice(i: int, text: str, finish: str, chat: bool) -> dict:
+        if chat:
+            return {"index": i, "message": {"role": "assistant", "content": text},
+                    "finish_reason": finish}
+        return {"index": i, "text": text, "finish_reason": finish}
+
+    def _body(self, payload: dict, t0: float, chat: bool, choices: list, n_prompt: int,
+              n_gen: int) -> dict:
+        return {"id": f"cmpl-{uuid.uuid4().hex[:24]}",
+                "object": "chat.completion" if chat else "text_completion",
+                "created": int(t0), "model": payload.get("model") or self.model_name,
+                "choices": choices,
+                "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_gen,
+                          "total_tokens": n_prompt + n_gen}}
+
+    def _multi_complete(self, payload: dict, prompt_ids: list[int], gen: GenerateConfig, *,
+                        chat: bool, n: int, best_of: int, stops: list[str],
+                        slo_class, slo_from_header: bool) -> None:
+        """OpenAI ``n``/``best_of``: ``best_of`` candidates, the best ``n``
+        returned, ranked by mean token logprob when ``best_of > n``. The
+        continuous engine runs the copies side by side
+        (``ThreadedEngine.generate_many``, copy i seeded
+        ``derive_copy_seed(seed, i)``; ranking needs ``--logprobs-k``); the
+        lock-step Generator takes them as one batch. Usage counts every
+        candidate's tokens."""
+        t0 = time.time()
+        rank = best_of > n
+        engine = self.threaded_engine
+        try:
+            if engine is not None and (not rank or engine.logprobs_k > 0):
+                reqs = engine.generate_many(
+                    prompt_ids, best_of, max_new_tokens=gen.max_new_tokens,
+                    temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed,
+                    slo_class=slo_class, logprobs=0 if rank else None)
+                cands = [(r.tokens, r.lp_token) for r in reqs]
+            else:
+                ok, slo_class = self._gate_slo_class(slo_class, slo_from_header)
+                if not ok:
+                    return
+                batch = [list(prompt_ids) for _ in range(best_of)]
+                with self.device_lock:
+                    if rank:
+                        outs, lps = self.generator.generate_tokens_with_logprobs(
+                            batch, dataclasses.replace(gen, logprobs=1))
+                        cands = [(o, lp["token_logprobs"]) for o, lp in zip(outs, lps)]
+                    else:
+                        cands = [(o, None) for o in self.generator.generate_tokens(batch, gen)]
+        except Exception as e:  # noqa: BLE001 - the server keeps serving
+            self._send_error(e)
+            return
+        if rank:
+            cands.sort(key=lambda c: (sum(c[1][: len(c[0])]) / max(1, len(c[0]))) if c[1]
+                       else 0.0, reverse=True)
+        total = sum(len(out) for out, _ in cands)
+        tok = self.generator.tokenizer
+        choices = []
+        for i, (out, _) in enumerate(cands[:n]):
+            text, hit_stop = _apply_stop(tok.decode(out), stops)
+            choices.append(self._choice(
+                i, text, "stop" if hit_stop or len(out) < gen.max_new_tokens else "length",
+                chat))
+        self._count(len(prompt_ids), total)
+        self._send_json(200, self._body(payload, t0, chat, choices, len(prompt_ids), total))
 
     def _send_sse(self, events) -> None:
         """Send JSON events as Server-Sent Events. SSE has no
@@ -523,19 +733,24 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         finally:
             events.close()
 
-    def _stream_complete(self, payload: dict, prompt_ids: list[int],
-                         gen: GenerateConfig, *, chat: bool, stops: list[str]) -> None:
+    def _stream_complete(self, payload: dict, prompt: str, prompt_ids: list[int],
+                         gen: GenerateConfig, *, chat: bool, stops: list[str],
+                         lp_n: int | None = None, deadline_s: float | None = None,
+                         slo_class: str | None = None) -> None:
         """OpenAI streaming: incremental chunks from the continuous engine;
         the lock-step engine generates fully, then sends one chunk. The
         finish chunk says ``"stop"`` when a stop sequence matched (even at
-        the full token budget) or the generation ended early, else
-        ``"length"``."""
+        the full token budget) or the generation ended early (a deadline's
+        eviction too), else ``"length"``. ``lp_n`` (continuous engine,
+        checked by the caller): each chunk also carries its tokens' logprobs
+        in the reference's layout, their ``text_offset`` counted through the
+        stream."""
         cmpl_id = f"cmpl-{uuid.uuid4().hex[:24]}"
         created = int(time.time())
         model = payload.get("model") or self.model_name
         kind = "chat.completion.chunk" if chat else "text_completion"
 
-        def event(text, finish=None, role=None):
+        def event(text, finish=None, role=None, logprobs=None):
             if chat:
                 delta = {}
                 if role is not None:
@@ -545,6 +760,8 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 choice = {"index": 0, "delta": delta, "finish_reason": finish}
             else:
                 choice = {"index": 0, "text": text, "finish_reason": finish}
+            if logprobs is not None:
+                choice["logprobs"] = logprobs
             return {"id": cmpl_id, "object": kind, "created": created,
                     "model": model, "choices": [choice]}
 
@@ -553,10 +770,13 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         # generates whole here, for the same reason (the reference does it
         # after the headers, where its error would corrupt the stream).
         stream_iter = out = None
-        if self.threaded_engine is not None:
-            stream_iter = self.threaded_engine.stream_one(
-                prompt_ids, max_new_tokens=gen.max_new_tokens,
-                temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed)
+        engine = self.threaded_engine
+        if engine is not None:
+            kw = dict(max_new_tokens=gen.max_new_tokens, temperature=gen.temperature,
+                      top_p=gen.top_p, seed=gen.seed, slo_class=slo_class,
+                      deadline_s=deadline_s)
+            stream_iter = (engine.stream_one(prompt_ids, **kw) if lp_n is None
+                           else engine.stream_one_with_logprobs(prompt_ids, lp_n, **kw))
         else:
             # Generated whole, so greedy streams take speculation as
             # non-streamed requests do.
@@ -569,12 +789,20 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 tracker = _StopTracker(stops)
                 n_gen = 0
                 if stream_iter is not None:
-                    detok = _Detokenizer(self.threaded_engine.tokenizer)
+                    tok = engine.tokenizer
+                    detok = _Detokenizer(tok)
+                    offset = len(prompt)
                     for chunk in stream_iter:
+                        lpj = None
+                        if lp_n is not None:  # no stops here (the caller's rule)
+                            chunk, stats = chunk
+                            lpj = _logprobs_json(tok, chunk, stats, "", False, lp_n, chat,
+                                                 offset)
+                            offset += sum(len(tok.decode([t])) for t in chunk)
                         n_gen += len(chunk)
                         text = tracker.push(detok.push(chunk))
-                        if text:
-                            yield event(text)
+                        if text or lpj is not None:
+                            yield event(text, logprobs=lpj)
                         if tracker.hit:
                             break  # closing stream_iter cancels the request
                     tail = tracker.push(detok.flush()) + tracker.flush()
@@ -586,10 +814,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                         self.generator.tokenizer.decode(out), stops)
                     if text:
                         yield event(text)
-                with self.stats_lock:
-                    self.stats["requests"] += 1
-                    self.stats["prompt_tokens"] += len(prompt_ids)
-                    self.stats["completion_tokens"] += n_gen
+                self._count(len(prompt_ids), n_gen)
                 finish = "stop" if tracker.hit or n_gen < gen.max_new_tokens else "length"
                 yield event("", finish=finish)
             finally:
@@ -795,6 +1020,16 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--max-queue", type=int, default=0,
                    help="admission-queue depth cap for --engine continuous; beyond "
                    "it requests get HTTP 429 (0 = unbounded)")
+    p.add_argument("--admission", choices=("reserve", "optimistic"), default="reserve",
+                   help="paged admission policy: 'reserve' books worst-case pages "
+                   "(prompt+max_tokens) up front; 'optimistic' books prompt + one tick, "
+                   "feeds pages per tick, and preempts the youngest request on pool "
+                   "exhaustion (exact resume): more concurrency when clients set "
+                   "pessimistic max_tokens")
+    p.add_argument("--logprobs-k", type=int, default=0,
+                   help="arm the continuous engine to serve per-token logprobs with up "
+                   "to K alternatives natively (requests ride ordinary decode ticks); "
+                   "0 = logprob requests fall back to the lock-step generator")
     p.add_argument("--quantize", choices=("none", "int8"), default="none",
                    help="weight-only int8 (halves the weights' memory; decode reads "
                    "stay bf16-sized until a fused int8 product; ops/quant.py)")
@@ -834,6 +1069,10 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
                      "on|auto (the draft model drafts for speculative ticks)")
     if args.draft_checkpoint and not args.draft_preset:
         parser.error("--draft-checkpoint needs --draft-preset")
+    if args.admission == "optimistic" and (args.engine != "continuous"
+                                           or args.cache_mode != "paged"):
+        parser.error("--admission optimistic requires --engine continuous --cache-mode "
+                     "paged (only the page pool can be reclaimed mid-flight)")
     cfg = get_preset(args.preset) if args.preset else ModelConfig()
     cfg = parse_model_overrides(cfg, args.override)
     if args.kv_quant == "int8":
@@ -893,7 +1132,8 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
             # 'on' speculates every tick; 'auto' keeps the measured decision.
             spec_threshold=0.0 if args.speculative == "on" else None,
             draft_params=draft_params, draft_cfg=draft_cfg,
-            token_budget=args.token_budget,
+            token_budget=args.token_budget, admission=args.admission,
+            logprobs_k=args.logprobs_k,
         ))
     spec = None
     if args.speculative != "off" and args.engine == "lockstep":

@@ -310,9 +310,8 @@ def test_queue_order_limits_and_validation(pair):
 
 
 @pytest.mark.parametrize("kw", [
-    {"cache_mode": "contiguous"}, {"admission": "optimistic"}, {"logprobs_k": 2},
-    {"fsm_capacity": 4}, {"host_tier_mb": 1}, {"pipeline_ticks": True},
-    {"mesh": object()}, {"tracer": object()},
+    {"cache_mode": "contiguous"}, {"fsm_capacity": 4}, {"host_tier_mb": 1},
+    {"pipeline_ticks": True}, {"mesh": object()}, {"tracer": object()},
 ])
 def test_unported_engine_features_raise(pair, kw):
     _, _, cfg, tparams = pair
@@ -322,8 +321,7 @@ def test_unported_engine_features_raise(pair, kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"logprobs": 1}, {"adapter_id": 1}, {"grammar": object()}, {"deadline_s": 1.0},
-    {"tenant": "t"},
+    {"adapter_id": 1}, {"grammar": object()}, {"tenant": "t"},
 ])
 def test_unported_request_features_raise(pair, kw):
     _, teng = _engines(pair, 8)

@@ -2000,3 +2000,111 @@ def test_chunked_prefill_under_a_budget_on_the_card(no_tf32, dtype):
     assert all(len(t) == 24 for t in toks)
     if dtype == "float32":
         assert toks == _card_run(_card_engine(dtype))[0]
+
+
+# Optimistic admission, logprobs and deadlines at tiny width on the card. Two
+# 500-token prompts with 300-token budgets: 4 pages each at worst, 2 with one
+# tick of headroom, so 4 usable pages hold both only optimistically; after
+# their first tick both need a third page and the younger is preempted,
+# then resumed once the older finishes.
+RESUME_PROMPTS = [[1] + [3 + (11 * i + j) % 200 for j in range(499)] for i in range(2)]
+
+
+def _resume_runs(dtype: str, **submit_kw):
+    """(uncontended, contended) requests of ``RESUME_PROMPTS``, and the
+    contended engine, its K3 launches counted over the run."""
+    runs = []
+    for kw in (dict(n_pages=9), dict(n_pages=5, admission="optimistic")):
+        eng = _card_engine(dtype, **kw)
+        # Zero the head's pad and EOS columns: a greedy request then never
+        # ends early (its logit 0 against the largest of 510 others), so the
+        # pool's pressure does not depend on the weights the card draws.
+        tok = eng.tokenizer
+        eng.params["lm_head"]["kernel"][:, [tok.pad_id, tok.eos_id]] = 0
+        tpa.reset_launches()
+        rids = [eng.submit(p, max_new_tokens=300, **submit_kw) for p in RESUME_PROMPTS]
+        done = {}
+        while eng.pending:
+            eng.step()
+            done.update({r.req_id: r for r in eng.take_finished()})
+        torch.cuda.synchronize()
+        runs.append([done[r] for r in rids])
+    return runs[0], runs[1], eng
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_preemption_and_exact_resume_on_the_card(no_tf32, dtype):
+    """The younger request is preempted and resumed; K3 runs every decode
+    step, the ticks after the resume included. f32: greedy and sampled
+    tokens identical to the uncontended run (the sampled leg takes the first
+    seed whose requests outlive their first tick, so that one is
+    preempted). bf16: greedy tokens identical, or diverging first at a
+    near-tie of the uncontended run's logits (``chip_smoke.SPEC_TIE_TOL``;
+    the resume's re-prefill rounds its K/V in bf16 apart from the decode
+    steps that first wrote them)."""
+    from ditl_tpu_torch.infer.engine import Generator
+
+    sfx = "_f32" if dtype == "float32" else ""
+    ref, got, eng = _resume_runs(dtype, temperature=0.0)
+    st = eng.stats()
+    assert eng.preemptions >= 1 and st["resume_prefill_tokens"] > 0
+    assert sum(r.preempt_count for r in got) == eng.preemptions
+    assert getattr(tpa, "launches_tail" + sfx) == 2 * st["decode_steps"] > 0
+    assert st["pages_free"] + st["pages_cached_evictable"] == st["pages_total"]
+    if dtype == "float32":
+        assert [r.tokens for r in got] == [r.tokens for r in ref]
+        for seed in range(3, 13):
+            ref_s, got_s, eng_s = _resume_runs(dtype, temperature=0.9, top_p=0.95, seed=seed)
+            if eng_s.preemptions:
+                break
+        assert eng_s.preemptions >= 1
+        assert [r.tokens for r in got_s] == [r.tokens for r in ref_s]
+        return
+    gen = Generator(eng.params, eng.cfg, eng.tokenizer, device="cuda")
+    for p, r, g in zip(RESUME_PROMPTS, ref, got):
+        chip_smoke._tie_check(gen, eng.cfg, p, g.tokens, r.tokens)
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("spec", [False, True])
+def test_logprobs_on_plain_and_spec_ticks_on_the_card(no_tf32, spec):
+    """f32 logprobs of the continuous engine's plain ticks and lookup
+    speculative rounds against the lock-step Generator's on the card:
+    identical greedy tokens and top ids, logprobs within 1e-4."""
+    from ditl_tpu_torch.infer.engine import GenerateConfig, Generator
+
+    kw = dict(speculative=True, spec_k=4, spec_threshold=0.0) if spec else {}
+    eng = _card_engine("float32", logprobs_k=3, **kw)
+    gen = Generator(eng.params, eng.cfg, eng.tokenizer, device="cuda")
+    for p in CARD_PROMPTS[1:]:
+        rid = eng.submit(p, max_new_tokens=24, temperature=0.0, logprobs=3)
+        while eng.pending:
+            eng.step()
+        req = eng._completed.pop(rid)
+        outs, lps = gen.generate_tokens_with_logprobs(
+            [p], GenerateConfig(max_new_tokens=24, logprobs=3))
+        assert req.tokens == outs[0] and req.lp_top_ids == lps[0]["top_ids"]
+        torch.testing.assert_close(torch.tensor(req.lp_token),
+                                   torch.tensor(lps[0]["token_logprobs"]), atol=1e-4, rtol=0)
+    if spec:
+        assert eng.stats()["speculative"]["spec_ticks"] > 0
+
+
+@pytest.mark.torch_port
+def test_deadline_eviction_frees_pages_on_the_card(no_tf32):
+    """A decoding request past its deadline is evicted at the next step:
+    its tokens so far kept, every page back to free or cached."""
+    eng = _card_engine("bfloat16")
+    rid = eng.submit(CARD_PROMPTS[0], max_new_tokens=200, temperature=0.0, deadline_s=600.0)
+    eng.step()
+    eng.step()
+    req = next(r for r in eng._slots if r is not None)
+    assert req.req_id == rid and len(req.tokens) == 16
+    req.deadline = 0.0
+    eng.step()
+    done = eng._completed.pop(rid)
+    st = eng.stats()
+    assert done.expired and len(done.tokens) == 16 and st["deadline_expired"] == 1
+    assert not eng.pending
+    assert st["pages_free"] + st["pages_cached_evictable"] == st["pages_total"]

@@ -656,3 +656,221 @@ def test_cli_draft_flag_errors(args, what, tmp_path, capsys):
         tserver.create_server(["--device", "cpu", "--port", "0", *_DRAFT_TARGET, *args])
     assert exc.value.code == 2
     assert what in capsys.readouterr().err
+
+
+# -- n/best_of, deadline_s and slo_class, against the JAX server -------------------
+
+
+@pytest.fixture(scope="module")
+def four_servers():
+    """The port's and the JAX package's lock-step and continuous servers
+    (2 slots, page 16, ``--logprobs-k 2``) over the same weights; the port's
+    continuous engine records the fields each submit passes on."""
+    from ditl_tpu.infer import server as jserver
+    from ditl_tpu.infer.continuous import ContinuousEngine as JaxEngine
+    from ditl_tpu.infer.continuous import ThreadedEngine as JaxThreadedEngine
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine, ThreadedEngine
+
+    jcfg, cfg = JaxModelConfig(**TINY), ModelConfig(**TINY)
+    params = jllama.init_params(jax.random.key(0), jcfg)
+    tparams = params_from_jax(jax.device_get(params), cfg, "cpu")
+    paged = dict(cache_mode="paged", n_slots=2, page_size=16, decode_chunk=4, logprobs_k=2)
+    engine = ContinuousEngine(tparams, cfg, ByteTokenizer(), device="cpu", **paged)
+    submitted = []
+    submit = engine.submit
+
+    def recording_submit(prompt, **kw):
+        submitted.append(kw)
+        return submit(prompt, **kw)
+
+    engine.submit = recording_submit
+    jte = JaxThreadedEngine(JaxEngine(params, jcfg, JaxByteTokenizer(), **paged))
+    built = {
+        ("port", "lockstep"): tserver.make_server(
+            Generator(tparams, cfg, ByteTokenizer(), device="cpu"), port=0,
+            default_max_tokens=6),
+        ("port", "continuous"): tserver.make_server(
+            Generator(tparams, cfg, ByteTokenizer(), device="cpu"), port=0,
+            default_max_tokens=6, threaded_engine=ThreadedEngine(engine)),
+        ("jax", "lockstep"): jserver.make_server(
+            JaxGenerator(params, jcfg, JaxByteTokenizer()), port=0, default_max_tokens=6),
+        ("jax", "continuous"): jserver.make_server(
+            JaxGenerator(params, jcfg, JaxByteTokenizer()), port=0, default_max_tokens=6,
+            threaded_engine=jte),
+    }
+    threads = {}
+    for key, srv in built.items():
+        threads[key] = threading.Thread(target=srv.serve_forever, daemon=True)
+        threads[key].start()
+    try:
+        yield ({key: f"http://127.0.0.1:{srv.server_address[1]}" for key, srv in built.items()},
+               submitted)
+    finally:
+        for key, srv in built.items():
+            srv.close(drain=False)
+            threads[key].join(timeout=30)
+        jte.close()
+
+
+def _post_h(url, payload, headers=None):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _both(urls, engine, payload, headers=None, route="/v1/completions"):
+    """(port's, JAX's) (status, body) for the same request."""
+    return tuple(_post_h(urls[(side, engine)] + route, payload, headers)
+                 for side in ("port", "jax"))
+
+
+# (engine, payload, headers): refused by both servers with one status and
+# message. ``bogus`` classes, deadlines at or below 0 (504), non-numbers,
+# n/best_of out of range or with stream/logprobs, payload deadlines and
+# classes the lock-step engine cannot honour, a payload deadline on n > 1.
+REFUSALS = [
+    ("lockstep", {"slo_class": "urgent"}, None),
+    ("continuous", {"slo_class": "urgent"}, None),
+    ("continuous", {}, {"X-SLO-Class": "urgent"}),
+    ("lockstep", {"slo_class": "batch"}, None),
+    ("lockstep", {"deadline_s": 0}, None),
+    ("continuous", {"deadline_s": -1.5}, None),
+    ("continuous", {}, {"X-Request-Deadline-S": "0"}),
+    ("lockstep", {}, {"X-Request-Deadline-S": "0"}),
+    ("continuous", {"deadline_s": "soon"}, None),
+    ("continuous", {}, {"X-Request-Deadline-S": "nan"}),
+    ("lockstep", {"deadline_s": 5}, None),
+    ("continuous", {"deadline_s": 5, "n": 2}, None),
+    ("continuous", {"n": 3, "best_of": 2}, None),
+    ("continuous", {"n": 9}, None),
+    ("lockstep", {"n": 3, "best_of": 9}, None),
+    ("continuous", {"n": "two"}, None),
+    ("continuous", {"n": 2, "stream": True}, None),
+    ("continuous", {"n": 2, "logprobs": 1}, None),
+    ("lockstep", {"best_of": 2, "stream": True}, None),
+    ("continuous", {"logprobs": 5, "slo_class": "batch"}, None),
+    ("continuous", {"guided_regex": "[ab]+"}, None),
+    ("lockstep", {"response_format": {"type": "json_object"}}, None),
+]
+
+
+@pytest.mark.parametrize("engine,payload,headers", REFUSALS)
+def test_refusals_match_the_jax_server(four_servers, engine, payload, headers):
+    urls, _ = four_servers
+    (ps, port), (js, ref) = _both(urls, engine, {"prompt": "hi", **payload}, headers)
+    assert ps == js and ps in (400, 504), (port, ref)
+    assert port["error"]["message"] == ref["error"]["message"]
+    assert port["error"].get("type") == ref["error"].get("type")
+
+
+# Served by both: a header's class or deadline the path cannot honour is
+# dropped; the header's class wins over the payload's.
+SERVED = [
+    ("lockstep", {"slo_class": "interactive"}, None),
+    ("lockstep", {}, {"X-SLO-Class": "batch"}),
+    ("lockstep", {}, {"X-Request-Deadline-S": "5"}),
+    ("continuous", {"slo_class": "urgent"}, {"X-SLO-Class": "batch"}),
+    ("continuous", {"n": 2}, {"X-Request-Deadline-S": "5"}),
+    ("continuous", {"logprobs": 5}, {"X-SLO-Class": "best_effort"}),
+]
+
+
+@pytest.mark.parametrize("engine,payload,headers", SERVED)
+def test_dropped_and_overridden_fields_match_the_jax_server(four_servers, engine, payload,
+                                                            headers):
+    urls, _ = four_servers
+    (ps, port), (js, ref) = _both(urls, engine, {"prompt": "hi", **payload}, headers)
+    assert ps == js == 200
+    assert [c["text"] for c in port["choices"]] == [c["text"] for c in ref["choices"]]
+    assert port["usage"] == ref["usage"]
+
+
+def test_slo_class_and_deadline_reach_the_engine(four_servers):
+    """The continuous engine gets the header's class over the payload's,
+    the payload's deadline over the header's; a logprob request beyond
+    ``--logprobs-k`` goes to the lock-step Generator without either."""
+    urls, submitted = four_servers
+    url = urls[("port", "continuous")] + "/v1/completions"
+    cases = [({"prompt": "a", "slo_class": "batch", "deadline_s": 30}, None,
+              {"slo_class": "batch", "deadline_s": 30.0}),
+             ({"prompt": "a", "slo_class": "batch"}, {"X-SLO-Class": "best_effort",
+                                                      "X-Request-Deadline-S": "20"},
+              {"slo_class": "best_effort", "deadline_s": 20.0}),
+             ({"prompt": "a", "logprobs": 1}, {"X-SLO-Class": "interactive"},
+              {"slo_class": "interactive", "deadline_s": None, "logprobs": 1})]
+    for payload, headers, want in cases:
+        del submitted[:]
+        status, _ = _post_h(url, payload, headers)
+        assert status == 200 and len(submitted) == 1
+        assert {k: submitted[0].get(k) for k in want} == want
+    del submitted[:]
+    assert _post_h(url, {"prompt": "a", "logprobs": 5}, {"X-SLO-Class": "batch"})[0] == 200
+    assert submitted == []  # the lock-step fallback
+
+
+@pytest.mark.parametrize("engine", ["lockstep", "continuous"])
+@pytest.mark.parametrize("chat", [False, True])
+def test_n_best_of_greedy_matches_the_jax_server(four_servers, engine, chat):
+    """Greedy ``n``/``best_of``: every candidate is the greedy completion,
+    so the choices' texts, indices and the usage counting all ``best_of``
+    candidates equal the JAX server's."""
+    urls, _ = four_servers
+    route = "/v1/chat/completions" if chat else "/v1/completions"
+    body = ({"messages": [{"role": "user", "content": "hi"}]} if chat
+            else {"prompt": "the quick"})
+    (ps, port), (js, ref) = _both(urls, engine, {**body, "n": 2, "best_of": 3}, route=route)
+    assert ps == js == 200
+    assert port["choices"] == ref["choices"] and len(port["choices"]) == 2
+    assert port["usage"] == ref["usage"]
+    assert port["usage"]["completion_tokens"] == 3 * 6
+
+
+def test_n_best_of_sampled_on_the_continuous_engine(four_servers):
+    """Sampled ``n: 2, best_of: 3``: two choices ranked by mean token
+    logprob, the copies seeded by ``derive_copy_seed``, so the ``n: 1``
+    completion with the same seed is copy 0; usage counts three."""
+    urls, submitted = four_servers
+    url = urls[("port", "continuous")] + "/v1/completions"
+    req = {"prompt": "the quick", "temperature": 1.0, "seed": 11, "max_tokens": 8}
+    del submitted[:]
+    status, body = _post_h(url, {**req, "n": 2, "best_of": 3})
+    assert status == 200 and [c["index"] for c in body["choices"]] == [0, 1]
+    assert [kw["seed"] for kw in submitted] == [11, 11 + 7919, 11 + 2 * 7919]
+    assert all(kw["logprobs"] == 0 for kw in submitted)
+    assert body["usage"]["completion_tokens"] <= 3 * 8
+    _, one = _post_h(url, req)
+    status, n3 = _post_h(url, {**req, "n": 3})
+    assert status == 200 and n3["choices"][0]["text"] == one["choices"][0]["text"]
+    assert body["choices"][0]["text"] in [c["text"] for c in n3["choices"]]
+
+
+def test_derive_copy_seed_matches_the_reference():
+    from ditl_tpu.infer.continuous import derive_copy_seed as jax_seed
+    from ditl_tpu_torch.infer.continuous import derive_copy_seed
+
+    for base in (0, 7, 2**31 - 1, 123456789):
+        for i in range(8):
+            assert derive_copy_seed(base, i) == jax_seed(base, i)
+
+
+def test_cli_admission_and_logprobs_k(capsys):
+    base = ["--device", "cpu", "--port", "0", "--host", "127.0.0.1",
+            "--override", "num_layers=1", "--override", "vocab_size=300",
+            "--override", "max_seq_len=128"]
+    srv = tserver.create_server(base + ["--engine", "continuous", "--cache-mode", "paged",
+                                        "--page-size", "16", "--admission", "optimistic",
+                                        "--logprobs-k", "3"])
+    try:
+        st = srv.RequestHandlerClass.threaded_engine.stats()
+        assert st["admission"] == "optimistic" and st["admission_degrades"] == 0
+        assert srv.RequestHandlerClass.threaded_engine.logprobs_k == 3
+    finally:
+        srv.server_close()
+        srv.engine.close()
+    with pytest.raises(SystemExit) as exc:
+        tserver.create_server(base + ["--admission", "optimistic"])
+    assert exc.value.code == 2 and "--admission optimistic requires" in capsys.readouterr().err
