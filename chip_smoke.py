@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --path20`` runs paths 1, 2 and 20 alone, and
-``--path21`` paths 1, 2 and 21 (no kernels line). ``python3 chip_smoke.py
+``python3 chip_smoke.py --path20`` runs paths 1, 2 and 20 alone,
+``--path21`` paths 1, 2 and 21, and ``--path22`` paths 1, 2 and 22 (no
+kernels line). ``python3 chip_smoke.py
 --paged-rows [--sweep] [TREE]`` and ``--f32-mm [--sweep] [TREE]`` time one
 kernel family on TREE's ``ditl_tpu_torch``
 (default: this checkout's; ``tree_main``), so that a parent commit unpacked
@@ -197,7 +198,8 @@ no result line. It imports nothing of JAX or of the JAX package.
    the API eval every 2 steps against that server: 16 client requests, no
    retries, 16 served, K1 2 x 24 and K2a, K2b 24 a step beside the server's
    K1 and K3. Then the streaming check at depth 2 through path 7's
-   prompt-lookup engine and path 18's drafter (K3-verify on every round),
+   prompt-lookup engine and path 18's drafter at depth 2 (``DEPTH2_DRAFT``;
+   K3-verify on every round),
    and path 1's lock-step server (one content chunk, the same text).
 6a.4. Main path 21, optimistic admission with preemption and exact resume,
    logprobs, deadlines and n/best_of (``phase_serve_preempt``), over path
@@ -214,7 +216,7 @@ no result line. It imports nothing of JAX or of the JAX package.
    preemption; peaks, preemptions, re-prefilled tokens, tokens/s and wall
    of both. A decode step with ``logprobs_k=5`` against 0 (the same
    tokens). At depth 2: speculative ticks over prompt lookup and over path
-   18's drafter, lookup over int8 pools and plain ticks over int8 pools,
+   18's drafter at depth 2, lookup over int8 pools and plain ticks over int8 pools,
    each preempting and resuming (K3-verify, K3-int8-verify or K3-int8 on
    every round or step; greedy tokens by the same rule). Over HTTP with
    path 20's ASCII head, ``--admission optimistic --logprobs-k 5``: top-1
@@ -223,6 +225,29 @@ no result line. It imports nothing of JAX or of the JAX package.
    0`` 504 before any work, a queued request past a short deadline 504 with
    the free pages back; ``n: 2, best_of: 3`` ranked by mean logprob, copy 0
    the ``n: 1`` completion with the same seed.
+6a.5. Main path 22, grammar-constrained decoding (``phase_serve_guided``),
+   over path 1's weights and path 2's engine shape with a table of
+   ``GUIDED_CAPACITY`` rows: the native token-table builder must build and
+   give the numpy walk's table for the JSON grammar (byte DFA, native
+   table, numpy walk, registration and upload timed, the table's MB);
+   ``GUIDED_MIXED`` (four unconstrained requests, one sampled, beside four
+   greedy guided ones over JSON, a regex, an order-free schema and an enum,
+   and a sampled guided one) on the armed engine and a guided-off one: the
+   unconstrained tokens identical, every guided completion on its
+   grammar's byte DFA (a full match when it ended at EOS), each greedy
+   guided request the tokens of a recompute oracle (``_guided_oracle``:
+   plain prefill forward, mask, argmax) or diverging first at a near-tie
+   (``RESUME_TIE_TOL``); K1 on every cold prefill, K3 on every decode step;
+   a decode step with eight guided rows against none (armed and guided-off)
+   and ``_fsm_mask`` alone at (8, 128256). At depth 2: prompt-lookup and
+   path 18's drafter's ticks (at depth 2) give the plain guided ticks' tokens by the
+   same rule (K3-verify on every round), and guided requests preempted and
+   resumed under optimistic admission their uncontended tokens over float
+   and int8 pools (K3, K3-int8). Over HTTP: ``guided_regex``,
+   ``guided_json``, ``response_format`` ``json_object`` and ``json_schema``
+   answer 200 with conforming text, a guided stream concatenates to the
+   unstreamed text, two specs 400, ``/v1/stats`` the guided block, and a
+   64-row server 503 for a JSON grammar (streamed too) with no rows taken.
 6b. Main path 6, int8 serving: the bf16 serving state is freed, then
    ``infer/server.py --quantize int8 --kv-quant int8 --engine continuous
    --cache-mode paged`` is built in process (``llama3-8b``, full width and
@@ -3292,6 +3317,10 @@ def phase_serve_spec(gen, flash, paged, bf16: dict) -> tuple[dict, dict]:
 # the target's vocab and head_dim), seed-initialised.
 DRAFT_WIDTHS = dict(name="bench-draft", hidden_size=512, intermediate_size=1408,
                     num_layers=6, num_heads=8, num_kv_heads=4)
+# The drafter of the depth-2 legs of paths 20-22: path 18's widths at depth
+# 2, a depth cut that keeps the whole script within its time limit (each
+# drafted round runs k + 1 host-bound drafter forwards).
+DEPTH2_DRAFT = dict(DRAFT_WIDTHS, num_layers=2)
 # Path 19: path 2's engine with chunks of 512 and a budget of one decode tick
 # (8 slots x 16 steps) plus one chunk.
 CHUNK_PREFILL, CHUNK_BUDGET = 512, 8 * 16 + 512
@@ -3996,8 +4025,8 @@ def phase_serve_stream(gen, flash, paged, bf16: dict) -> dict:
     streamed cold request on the idle engine against path 2's TTFT. (2) A
     client that reads two chunks of a 1500-token stream and goes away: its
     slot frees within a few ticks and K3 stops. (3) The same streaming
-    check through path 7's prompt-lookup engine and path 18's drafter at
-    depth 2: K3-verify on every round. (4) Path 1's lock-step server: one
+    check through path 7's prompt-lookup engine and ``DEPTH2_DRAFT``'s
+    drafter at depth 2: K3-verify on every round. (4) Path 1's lock-step server: one
     content chunk, the same text. (5) /v1/embeddings on four inputs padded
     to 1024: K1 once a layer, unit norms, each vector's cosine with the
     plain forward at least ``EMBED_COS_MIN``; ``client.embed`` once. (6)
@@ -4248,7 +4277,7 @@ def phase_serve_stream(gen, flash, paged, bf16: dict) -> dict:
     params2 = {**params, "layers": {g: {k: w[:2] for k, w in grp.items()}
                                     for g, grp in params["layers"].items()}}
     gen2 = Generator(params2, cfg2, tok, device="cuda")
-    dcfg = dataclasses.replace(cfg, **DRAFT_WIDTHS)
+    dcfg = dataclasses.replace(cfg, **DEPTH2_DRAFT)
     dparams = llama.init_params(dcfg, seed=11, device="cuda")
     for tag, kw in (("stream-spec", {}),
                     ("stream-draft", {"draft_params": dparams, "draft_cfg": dcfg})):
@@ -4526,25 +4555,32 @@ def _resume_tie_check(gen, cfg, prompt_ids, got, ref, tag: str, what: str):
     return i
 
 
+def _depth2_model(gen, kv_int8: bool = False):
+    """(config, weights) of the target at depth 2: views of path 1's first
+    two layers, int8 pools with ``kv_int8``."""
+    import dataclasses
+
+    cfg2 = dataclasses.replace(gen.cfg, num_layers=2,
+                               kv_cache_dtype="int8" if kv_int8 else gen.cfg.kv_cache_dtype)
+    params2 = {**gen.params, "layers": {g: {k: w[:2] for k, w in grp.items()}
+                                        for g, grp in gen.params["layers"].items()}}
+    return cfg2, params2
+
+
 def _depth2_preempt(gen, flash, paged, tag: str, counter: str, kv_int8: bool = False,
-                    **engine_kw) -> dict:
-    """The target at depth 2 (views of path 1's first two layers, int8 pools
-    with ``kv_int8``), four greedy requests, uncontended and then with
+                    grammar=None, **engine_kw) -> dict:
+    """The target at depth 2 (``_depth2_model``), four greedy requests
+    (constrained by ``grammar`` when given), uncontended and then with
     ``admission="optimistic"`` over ``DEPTH2_PAGES`` usable pages: at least
     one preemption, each resumed; greedy tokens identical or diverging at a
     near-tie (``_resume_tie_check``); the contended run's ``counter`` (the
     verify or the single-query kernel of those pools) 2 x its rounds or
     steps, no other paged kernel, K1 on every cold prefill. Returns the
     contended run's launches."""
-    import dataclasses
-
     from ditl_tpu_torch.infer.continuous import ContinuousEngine
     from ditl_tpu_torch.infer.engine import Generator
 
-    cfg2 = dataclasses.replace(gen.cfg, num_layers=2,
-                               kv_cache_dtype="int8" if kv_int8 else gen.cfg.kv_cache_dtype)
-    params2 = {**gen.params, "layers": {g: {k: w[:2] for k, w in grp.items()}
-                                        for g, grp in gen.params["layers"].items()}}
+    cfg2, params2 = _depth2_model(gen, kv_int8)
     tok = gen.tokenizer
     prompts = [[tok.bos_id] + tok.encode(_text(90 + i, DEPTH2_CHARS)) for i in range(4)]
 
@@ -4554,7 +4590,8 @@ def _depth2_preempt(gen, flash, paged, tag: str, counter: str, kv_int8: bool = F
                                device="cuda", **engine_kw, **kw)
         flash.reset_launches()
         paged.reset_launches()
-        rids = [eng.submit(p, max_new_tokens=96, temperature=0.0) for p in prompts]
+        rids = [eng.submit(p, max_new_tokens=96, temperature=0.0, grammar=grammar)
+                for p in prompts]
         out = eng.run()
         launches = {"flash_fwd": flash.launches, counter: getattr(paged, _counter(counter)),
                     "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
@@ -4597,7 +4634,7 @@ def phase_serve_preempt(gen, flash, paged, bf16: dict) -> dict:
     The ms of a decode step with ``logprobs_k=5`` against 0 on the same
     eight requests (the same tokens), and of ``_lp_stats`` alone. (3) At
     depth 2 (``_depth2_preempt``): speculative ticks over prompt lookup and
-    over path 18's drafter, lookup over int8 pools, and plain ticks over
+    over ``DEPTH2_DRAFT``'s drafter, lookup over int8 pools, and plain ticks over
     int8 pools, each preempting and resuming. (4) Over HTTP, path 20's
     ASCII head, ``--admission optimistic --logprobs-k 5``: a logprob
     request's top-1 ids are its greedy tokens and its chosen logprobs the
@@ -4704,7 +4741,7 @@ def phase_serve_preempt(gen, flash, paged, bf16: dict) -> dict:
     torch.cuda.empty_cache()
 
     # (3) depth 2: speculative and int8 resumes
-    dcfg = dataclasses.replace(cfg, **DRAFT_WIDTHS)
+    dcfg = dataclasses.replace(cfg, **DEPTH2_DRAFT)
     dparams = llama.init_params(dcfg, seed=11, device="cuda")
     spec = dict(speculative=True, spec_threshold=0.0)
     add(_depth2_preempt(gen, flash, paged, "preempt-spec", "paged_verify", **spec))
@@ -4828,6 +4865,399 @@ def phase_serve_preempt(gen, flash, paged, bf16: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[preempt] path 21 launches {total}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return total
+
+
+# Path 22: grammar-constrained decoding. GUIDED_CAPACITY table rows hold the
+# FREE and DEAD rows and every grammar of GUIDED_SPECS (1505 states, the JSON
+# grammar's 1108 at depth 5 among them); at llama3-8b's 128256 columns the
+# device table is 788 MB.
+GUIDED_CAPACITY = 1536
+GUIDED_MAX_NEW = 48
+GUIDED_SPECS = {
+    "phone": ("regex", r"[0-9]{3}-[0-9]{4}"),
+    "words": ("regex", r"[a-z ]{10,40}"),
+    "long": ("regex", r"[a-z ]{100,300}"),  # never done within a 96-token budget
+    "color": ("schema", {"enum": ["red", "green", "blue"]}),
+    "record": ("schema", {"type": "object", "properties": {
+        "n": {"type": "integer", "minimum": 0, "maximum": 99},
+        "u": {"anyOf": [{"const": "a"}, {"const": "b"}]}},
+        "required": ["n", "u"], "additionalProperties": False}),
+    "json": ("json", 5),
+}
+# The mixed batch: (prompt seed, grammar or None, submit kwargs); eight
+# requests in eight slots, four unconstrained (one sampled), four guided
+# greedy and one guided sampled beside them.
+GUIDED_MIXED = [
+    (110, None, {}), (111, "json", {}), (112, None, {"temperature": 0.8, "seed": 22}),
+    (113, "phone", {}), (114, None, {}), (115, "record", {}),
+    (116, "words", {"temperature": 0.9, "seed": 23}), (117, "color", {}),
+]
+
+
+def _guided_grammars(tok) -> dict:
+    """``GUIDED_SPECS`` compiled for ``tok`` (``infer/grammar.py``)."""
+    from ditl_tpu_torch.infer import grammar as G
+
+    out = {}
+    for name, (kind, spec) in GUIDED_SPECS.items():
+        out[name] = (G.compile_regex(spec, tok) if kind == "regex"
+                     else G.compile_json(tok, max_depth=spec) if kind == "json"
+                     else G.compile_json_schema(spec, tok))
+    return out
+
+
+def _walk_ok(g, text: str, at_eos: bool) -> bool:
+    """Every byte of ``text`` is a live edge of ``g``'s byte DFA, and a
+    completion that ended at EOS fullmatches."""
+    s = 0
+    for b in text.encode():
+        s = int(g.byte_next[s, b])
+        if s < 0:
+            return False
+    return bool(g.accept[s]) or not at_eos
+
+
+def _guided_oracle(gen, cfg, prompt_ids: list[int], g, max_new: int) -> list[int]:
+    """Greedy guided tokens by full recompute: each step one plain prefill
+    forward over the prompt and the tokens so far (``_prefill_logits``), its
+    logits masked by the grammar's row at the current state (every column
+    past the grammar's vocabulary masked), then the first maximum; EOS
+    ends."""
+    import torch
+
+    eos = gen.tokenizer.eos_id
+    table = torch.as_tensor(g.token_next, device="cuda")
+    toks, state = [], 0
+    with torch.no_grad():
+        for _ in range(max_new):
+            logits = _prefill_logits(gen, cfg, prompt_ids + toks).float()
+            row = table[state]
+            masked = torch.full_like(logits, float("-inf"))
+            masked[: row.shape[0]] = torch.where(row >= 0, logits[: row.shape[0]],
+                                                 float("-inf"))
+            t = int(masked.argmax())
+            if t == eos:
+                break
+            toks.append(t)
+            state = int(g.token_next[state, t])
+    return toks
+
+
+def _run_counted(engine, flash, paged, requests):
+    """Submit ``requests`` ((prompt ids, submit kwargs)) at once and run the
+    engine to its end: the finished requests in order and the launches of
+    K1, of every paged kernel by counter, read right after."""
+    flash.reset_launches()
+    paged.reset_launches()
+    rids = [engine.submit(p, **kw) for p, kw in requests]
+    done, steps = {}, 0
+    while engine.pending:
+        engine.step()
+        steps += 1
+        require(steps < 10000, "engine did not finish")
+        done.update({r.req_id: r for r in engine.take_finished()})
+    launches = {"flash_fwd": flash.launches,
+                **{c: getattr(paged, c) for c in paged._COUNTERS.values()}}
+    return [done[r] for r in rids], launches
+
+
+def _guided_http(gen, flash, paged, grammars: dict) -> dict:
+    """Over HTTP, a path-2 engine armed with ``GUIDED_CAPACITY`` rows and
+    ``logprobs_k=2``: ``guided_regex``, ``guided_json``, chat
+    ``response_format`` ``json_object`` and ``json_schema`` answer 200 with
+    conforming text, a guided stream concatenates to the unstreamed text,
+    two specs at once answer 400 and ``/v1/stats`` carries the guided block;
+    then a 64-row server answers a JSON grammar 503, with the restart hint
+    unstreamed and without it streamed. Returns the armed leg's launches (K1
+    on every cold prefill, K3 on every decode step, required)."""
+    import torch
+
+    import gc
+
+    cfg, tok = gen.cfg, gen.tokenizer
+    served = _Served(gen, _paged_engine(gen.params, cfg, tok, fsm_capacity=GUIDED_CAPACITY,
+                                        logprobs_k=2))
+    try:
+        flash.reset_launches()
+        paged.reset_launches()
+        phone = {"prompt": "call " + _text(130, 120), "guided_regex": GUIDED_SPECS["phone"][1],
+                 "max_tokens": 16}
+        forms = [
+            ("/v1/completions", phone, "phone"),
+            ("/v1/completions", {"prompt": "record " + _text(131, 120), "max_tokens": 40,
+                                 "guided_json": GUIDED_SPECS["record"][1]}, "record"),
+            ("/v1/chat/completions", {"messages": [{"role": "user", "content": _text(132, 90)}],
+                                      "response_format": {"type": "json_object"},
+                                      "max_tokens": 32}, "json"),
+            ("/v1/chat/completions", {"messages": [{"role": "user", "content": _text(133, 90)}],
+                                      "response_format": {"type": "json_schema", "json_schema": {
+                                          "name": "color", "schema": GUIDED_SPECS["color"][1]}},
+                                      "max_tokens": 16}, "color"),
+        ]
+        texts = []
+        for route, payload, name in forms:
+            status, body = _http("POST", served.url + route, payload)
+            require(status == 200, (route, body))
+            c = body["choices"][0]
+            text = c["message"]["content"] if "chat" in route else c["text"]
+            ended = c["finish_reason"] == "stop"
+            require(_walk_ok(grammars[name], text, ended), (name, text))
+            if ended and name in ("record", "color", "json"):
+                json.loads(text)
+            texts.append((name, text, c["finish_reason"]))
+        status, _, events, _ = _sse(served.url, "/v1/completions", phone)
+        require(status == 200, events)
+        _, _, streamed, _ = _sse_text(events, chat=False)
+        require(streamed == texts[0][1], (streamed, texts[0][1]))
+        status, body = _http("POST", served.url + "/v1/completions",
+                             {**phone, "response_format": {"type": "json_object"}})
+        require(status == 400 and body["error"]["message"].startswith("at most one of"), body)
+        st = served.engine.stats()
+        launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail,
+                    "other": sum(getattr(paged, n) for n in paged._COUNTERS.values())
+                    - paged.launches_tail}  # read right after
+        http_stats = served.stats()
+        require(http_stats["guided"] == st["guided"] and st["guided"]["grammars_registered"] == 4,
+                (http_stats.get("guided"), st["guided"]))
+    finally:
+        served.close()
+    require(launches["flash_fwd"] == cfg.num_layers * st["prefills_cold"] > 0
+            and launches["paged_tail"] == cfg.num_layers * st["decode_steps"] > 0
+            and launches.pop("other") == 0, (launches, st["prefills_cold"], st["decode_steps"]))
+    log(f"[guided-http] guided_regex, guided_json, response_format json_object and "
+        f"json_schema: 200, {[(n, t[:40], f) for n, t, f in texts]}; the guided stream "
+        f"concatenates to the unstreamed text; two specs 400; /v1/stats guided "
+        f"{st['guided']}; K1 {launches['flash_fwd']}, K3 {launches['paged_tail']}")
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = _Served(gen, _paged_engine(gen.params, cfg, tok, fsm_capacity=64))
+    try:
+        payload = {"prompt": "json " + _text(134, 60), "max_tokens": 8,
+                   "response_format": {"type": "json_object"}}
+        status, body = _http("POST", small.url + "/v1/completions", payload)
+        msg = body["error"]["message"]
+        require(status == 503 and msg.startswith("fsm_capacity exhausted: 2 rows used + 1108 "
+                                                 "needed > 64") and "restart" in msg, body)
+        status, _, body, _ = _sse(small.url, "/v1/completions", payload)
+        require(status == 503 and body["error"]["message"]
+                == "fsm_capacity exhausted: 2 rows used + 1108 needed > 64", body)
+        require(small.stats()["guided"]["fsm_rows_used"] == 2, "a refused grammar took rows")
+    finally:
+        small.close()
+    log(f"[guided-http] a 64-row server: a JSON grammar 503 ({msg!r}), streamed 503 "
+        f"without the hint; no rows taken")
+    del small
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase_serve_guided(gen, flash, paged) -> dict:
+    """Main path 22, grammar-constrained decoding, over path 1's weights
+    and path 2's engine shape, at full width. (1) ``GUIDED_MIXED`` on an
+    engine armed with ``GUIDED_CAPACITY`` rows and on a guided-off engine,
+    both driven directly: the unconstrained requests' tokens are identical;
+    every guided completion walks its grammar's byte DFA, fullmatching when
+    it ended at EOS; each greedy guided request gives the tokens of
+    ``_guided_oracle`` (full recompute, mask, argmax) or diverges first at
+    a near-tie (``_resume_tie_check``); K1 on every cold prefill, K3 on
+    every decode step. Registration of the JSON grammar timed by stage:
+    the byte DFA, the native token table (and the numpy walk beside it,
+    which must give the same table), the upload. (2) The ms of a decode
+    step with eight guided rows against the same eight prompts
+    unconstrained on the armed engine and on the guided-off one;
+    ``_fsm_mask`` alone at (8, vocab). (3) At depth 2: speculative ticks
+    over prompt lookup and over ``DEPTH2_DRAFT``'s drafter give the plain guided
+    ticks' tokens (or diverge at a near-tie; K3-verify on every round),
+    and guided requests preempted and resumed under optimistic admission
+    give their uncontended tokens (``_depth2_preempt``), over float and int8
+    pools. (4) Over HTTP (``_guided_http``). Returns the path's launch
+    counts."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from ditl_tpu_torch.infer import grammar as G
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine, _fsm_mask
+    from ditl_tpu_torch.infer.engine import Generator
+    from ditl_tpu_torch.models import llama
+    from ditl_tpu_torch.native import fsm as native_fsm
+
+    cfg, tok = gen.cfg, gen.tokenizer
+    total = {k: 0 for k in ("flash_fwd", "paged_tail", "paged_tail_int8", "paged_verify")}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+    # JSON grammar registration by stage, on the armed engine
+    require(native_fsm.available(), "the native token-table builder did not build")
+    grammars = _guided_grammars(tok)
+    t = time.perf_counter()
+    byte_next, accept = G._json_dfa(5, "object")
+    dfa_ms = (time.perf_counter() - t) * 1e3
+    toks = G.token_strings(tok)
+    t = time.perf_counter()
+    native = native_fsm.token_table_native(byte_next, toks)
+    native_ms = (time.perf_counter() - t) * 1e3
+    native_off = native_fsm.token_table_native
+    native_fsm.token_table_native = lambda byte_next, toks: None
+    try:
+        t = time.perf_counter()
+        walked = G._token_table(byte_next, accept, toks, eos_id=tok.eos_id, source="numpy")
+        numpy_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        native_fsm.token_table_native = native_off
+    via_native = G._token_table(byte_next, accept, toks, eos_id=tok.eos_id, source="native")
+    require(native is not None and (via_native.token_next == walked.token_next).all()
+            and (via_native.token_next == grammars["json"].token_next).all(),
+            "the native table differs from the numpy walk")
+    armed = _paged_engine(gen.params, cfg, tok, fsm_capacity=GUIDED_CAPACITY)
+    t = time.perf_counter()
+    base = armed.register_grammar(grammars["json"])
+    reg_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    armed._fsm_device()
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t) * 1e3
+    table_mb = armed._fsm_dev.numel() * armed._fsm_dev.element_size() / 1e6
+    n_json = grammars["json"].n_states
+    log(f"[guided] JSON grammar (depth 5, {n_json} states, {len(toks)} token columns of "
+        f"{cfg.vocab_size}): byte DFA {dfa_ms:.1f} ms, native token table {native_ms:.2f} ms "
+        f"(numpy walk {numpy_ms:.1f} ms, the same table), registration at rows [{base}, "
+        f"{base + n_json}) {reg_ms:.1f} ms, upload of its {n_json} rows "
+        f"{upload_ms:.1f} ms (host clock, synchronised); device table {GUIDED_CAPACITY} x "
+        f"{cfg.vocab_size} int32 = {table_mb:.1f} MB ({SMI})")
+
+    # (1) the mixed batch, armed and guided off
+    requests = []
+    for seed, name, kw in GUIDED_MIXED:
+        prompt = [tok.bos_id] + tok.encode(_text(seed, 160))
+        requests.append((prompt, {"max_new_tokens": GUIDED_MAX_NEW, "temperature": 0.0,
+                                  **kw, "grammar": grammars.get(name)}))
+    got, launches = _run_counted(armed, flash, paged, requests)
+    st = armed.stats()
+    other = sum(v for k, v in launches.items() if k not in ("flash_fwd", "launches_tail"))
+    require(launches["flash_fwd"] == cfg.num_layers * st["prefills_cold"]
+            and launches["launches_tail"] == cfg.num_layers * st["decode_steps"] and other == 0,
+            (launches, st))
+    add({"flash_fwd": launches["flash_fwd"], "paged_tail": launches["launches_tail"]})
+    off = _paged_engine(gen.params, cfg, tok)
+    free, _ = _run_counted(off, flash, paged,
+                           [(p, {k: v for k, v in kw.items() if k != "grammar"})
+                            for p, kw in requests])
+    same_free = [i for i, (_, name, _) in enumerate(GUIDED_MIXED)
+                 if name is None and got[i].tokens == free[i].tokens]
+    require(len(same_free) == sum(name is None for _, name, _ in GUIDED_MIXED),
+            ("unconstrained rows differ from the guided-off engine", same_free))
+    greedy_same, gaps = 0, []
+    for i, (seed, name, kw) in enumerate(GUIDED_MIXED):
+        if name is None:
+            continue
+        g, req = grammars[name], got[i]
+        text = tok.decode(req.tokens)
+        at_eos = len(req.tokens) < GUIDED_MAX_NEW
+        require(_walk_ok(g, text, at_eos), (name, text))
+        if at_eos and name in ("json", "record", "color"):
+            json.loads(text)
+        if kw.get("temperature"):
+            log(f"[guided] sampled {name} request: {text!r} ({len(req.tokens)} tokens)")
+            continue
+        want = _guided_oracle(gen, cfg, requests[i][0], g, GUIDED_MAX_NEW)
+        at = _resume_tie_check(gen, cfg, requests[i][0], req.tokens, want, "guided",
+                               f"{name} request against the recompute oracle")
+        greedy_same += at is None
+        log(f"[guided] {name}: {text[:60]!r} ({len(req.tokens)} tokens, "
+            f"{'EOS' if at_eos else 'budget'}); the oracle's tokens "
+            + ("exactly" if at is None else f"up to step {at}"))
+    log(f"[guided] mixed batch of 8 in 8 slots: the 4 unconstrained rows' tokens are the "
+        f"guided-off engine's; {greedy_same} of 4 greedy guided requests equal the oracle; "
+        f"K1 {launches['flash_fwd']} = {cfg.num_layers} x {st['prefills_cold']} cold "
+        f"prefills, K3 {launches['launches_tail']} = {cfg.num_layers} x "
+        f"{st['decode_steps']} steps; stats {st['guided']}")
+
+    # (2) what the mask costs a decode step: the legs in turns, there and back
+    prompts = [[tok.bos_id] + tok.encode(_text(140 + i, 200)) for i in range(8)]
+    legs = [("guided-off engine", off, None), ("armed, none", armed, None),
+            ("armed, 8 guided", armed, grammars["long"])]
+    step_ms = {label: [] for label, _, _ in legs}
+    for label, eng, grammar in legs + legs[::-1]:
+        s0, n0 = eng.decode_seconds, eng.decode_steps
+        _run_counted(eng, flash, paged, [(p, {"max_new_tokens": GUIDED_MAX_NEW,
+                                              "temperature": 0.0, "grammar": grammar})
+                                         for p in prompts])
+        step_ms[label].append((eng.decode_seconds - s0) / (eng.decode_steps - n0) * 1e3)
+    ftab = armed._fsm_device()
+    fst = torch.tensor([0, 1] + [base + 3 * i for i in range(6)], dtype=torch.int32,
+                       device="cuda")
+    logits = torch.randn((8, cfg.vocab_size), device="cuda")
+    mask_ms = _time_ms(lambda: _fsm_mask(ftab, fst, logits))
+    log(f"[guided-timing] a decode step of 8 slots at full width: "
+        + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} ms" for k, v in step_ms.items())
+        + f" (host clock, {GUIDED_MAX_NEW} tokens each, the legs in turns, there and "
+        f"back); _fsm_mask alone on (8, "
+        f"{cfg.vocab_size}) f32 logits {mask_ms:.4f} ms (CUDA events; {SMI})")
+    del armed, off, ftab
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) depth 2: speculative guided ticks, and preempted guided requests
+    cfg2, params2 = _depth2_model(gen)
+    gen2 = Generator(params2, cfg2, tok, device="cuda")
+    span = [[tok.bos_id] + tok.encode(r["prompt"]) for r in _span_requests()]
+    names = ["words", "json", "long", "record"]
+    d2 = [(p, {"max_new_tokens": 64, "temperature": 0.0, "grammar": grammars[n]})
+          for p, n in zip(span, names)]
+
+    def engine2(**kw):
+        return ContinuousEngine(params2, cfg2, tok, n_slots=8, decode_chunk=16,
+                                max_cache_len=2048, cache_mode="paged", page_size=256,
+                                device="cuda", fsm_capacity=GUIDED_CAPACITY, **kw)
+
+    plain, lp = _run_counted(engine2(), flash, paged, d2)
+    add({"flash_fwd": lp["flash_fwd"], "paged_tail": lp["launches_tail"]})
+    dcfg = dataclasses.replace(cfg, **DEPTH2_DRAFT)
+    dparams = llama.init_params(dcfg, seed=11, device="cuda")
+    spec = dict(speculative=True, spec_threshold=0.0)
+    for tag, kw in (("lookup", spec), ("draft", {**spec, "draft_params": dparams,
+                                                 "draft_cfg": dcfg})):
+        eng = engine2(**kw)
+        reqs, ls = _run_counted(eng, flash, paged, d2)
+        rounds = eng.stats()["speculative"]["verify_rounds"]
+        other = sum(v for k, v in ls.items() if k not in ("flash_fwd", "launches_verify"))
+        require(ls["launches_verify"] == cfg2.num_layers * rounds > 0 and other == 0,
+                (tag, ls, rounds))
+        add({"flash_fwd": ls["flash_fwd"], "paged_verify": ls["launches_verify"]})
+        same = 0
+        for (p, kw2), name, r, ref in zip(d2, names, reqs, plain):
+            require(_walk_ok(grammars[name], tok.decode(r.tokens),
+                             len(r.tokens) < 64), (tag, name))
+            same += _resume_tie_check(gen2, cfg2, p, r.tokens, ref.tokens, f"guided-{tag}",
+                                      f"{name} against plain guided ticks") is None
+        log(f"[guided-{tag}] depth 2: {same} of 4 guided requests give the plain guided "
+            f"ticks' tokens; K3-verify {ls['launches_verify']} = {cfg2.num_layers} x {rounds} "
+            f"rounds; tokens per row forward "
+            f"{eng.stats()['speculative']['tokens_per_row_forward']:.3f}")
+        del eng
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_g = grammars["long"]
+    add(_depth2_preempt(gen, flash, paged, "guided-preempt", "paged_tail", grammar=long_g,
+                        fsm_capacity=GUIDED_CAPACITY))
+    add(_depth2_preempt(gen, flash, paged, "guided-preempt-int8", "paged_tail_int8",
+                        kv_int8=True, grammar=long_g, fsm_capacity=GUIDED_CAPACITY))
+    del gen2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) over HTTP
+    add(_guided_http(gen, flash, paged, grammars))
+    log(f"[guided] path 22 launches {total}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return total
 
@@ -8021,6 +8451,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path21 = phase_serve_preempt(gen, flash, paged, bf16_summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path22 = phase_serve_guided(gen, flash, paged)
     # Free the bf16 serving weights and pools before path 6's int8 ones.
     del gen, bf16_summary["outputs"]
     gc.collect()
@@ -8161,6 +8594,9 @@ def main() -> int:
         launches[name] += n
     for name, n in path21.items():  # path 21: preemption, logprobs, deadlines
         launches[name] += n
+    for name, n in path22.items():  # path 22: grammar-constrained decoding
+        launches[name] += n
+    require(min(path22[k] for k in ("flash_fwd", "paged_tail", "paged_verify")) >= 1, path22)
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
             (lockstep, continuous))
     # Paths 14 (D = 32), 15 (D = 256), 16 (G = 16) and 17 (D = 96): their
@@ -8196,6 +8632,7 @@ def main() -> int:
                                                  "19": path19.get(name, 0)},
                         "launches_path_20": path20.get(name, 0),
                         "launches_path_21": path21.get(name, 0),
+                        "launches_path_22": path22.get(name, 0),
                         "max_abs_err": errors[name], **timings[name],
                         "at_head_dims": hd_timings.get(name, {}),
                         "at_shapes": shape_timings.get(name, {})})
@@ -8204,6 +8641,7 @@ def main() -> int:
         f"chunked prefill under a budget (path 19) {path19}, "
         f"lock-step speculative {lockstep_spec}, streaming, embeddings and API eval "
         f"(path 20) {path20}, preemption, logprobs and deadlines (path 21) {path21}, "
+        f"grammar-constrained decoding (path 22) {path22}, "
         f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
         f"f32 serving {f32_serve}, f32 speculative {f32_spec}, f32 over int8 pools "
         f"{f32_int8_serve}, its speculation {f32_int8_spec}, float16 serving {f16_serve}, "
@@ -8316,11 +8754,40 @@ def path21_main() -> int:
     return 0
 
 
+def path22_main() -> int:
+    """``--path22``: the card, the build, paths 1 and 2 (path 22's weights
+    and engine shape), then path 22 alone; no kernels line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the card", file=sys.stderr)
+        return 1
+    from ditl_tpu_torch.ops import flash_attention as flash
+    from ditl_tpu_torch.ops import paged_attention as paged
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_card()
+    phase_build()
+    gen, _ = phase_serve(flash, paged)
+    phase_serve_continuous(gen, flash, paged)
+    t0 = time.perf_counter()
+    launches = phase_serve_guided(gen, flash, paged)
+    require(min(launches[k] for k in ("flash_fwd", "paged_tail", "paged_verify")) >= 1,
+            launches)
+    log(f"[done] path 22 in {time.perf_counter() - t0:.1f}s, all in "
+        f"{time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--path20"]:
         sys.exit(path20_main())
     if sys.argv[1:2] == ["--path21"]:
         sys.exit(path21_main())
+    if sys.argv[1:2] == ["--path22"]:
+        sys.exit(path22_main())
     if sys.argv[1:2] in (["--paged-rows"], ["--f32-mm"]):
         rest = sys.argv[2:]
         sys.exit(tree_main(sys.argv[1], next((a for a in rest if a != "--sweep"), None),

@@ -95,6 +95,23 @@ Requests join and leave between decode ticks:
   every queued or slotted request past its deadline (``_expire_deadlines``);
   its pages free, its stream ends, and ``ThreadedEngine`` waiters raise
   ``DeadlineExceededError``.
+- **Grammar-constrained decoding** (``fsm_capacity``, ``submit(grammar=...)``
+  with an ``infer/grammar.CompiledGrammar`` or a start state from
+  ``register_grammar``): a (capacity, vocab) int32 transition table holds
+  every registered grammar's token-level DFA (row 0 FREE, all allowed,
+  staying in 0; row 1 DEAD, all allowed, trapping in 1; a grammar's rows
+  appended once, deduplicated by content) and each slot one int32 state in
+  ``fstates``. Every sample site masks the logits it samples from by the
+  row of the slot's state (``_fsm_mask``): a prefill's first token at the
+  request's start state, each decode step at the slot's state, and a
+  speculative verify at each position's state along the draft's path
+  (``_fsm_spec_path``; drafts stay unmasked, so an illegal draft is
+  rejected at its own position); the sampled token then moves the state
+  (``_fsm_next``, a gather clamping to DEAD). Unconstrained rows ride the
+  FREE row, whose mask is the identity. Logprobs score the raw logits. A
+  preempted request's state is restored at its resume. Plain PyTorch, as
+  the reference computes it outside any Pallas kernel; all on the
+  device.
 
 PyTorch runs eagerly, so the reference's compiled-program caches go away
 and its decode ``scan`` is a Python loop in the same step order. The pools,
@@ -115,7 +132,7 @@ iterate them, and end every open stream if the driver thread dies. The
 concatenated chunks are the tokens the request returns without a stream.
 
 Everything else of the reference engine raises ``NotImplementedError`` and
-is queued in ``ROADMAP.md``: the contiguous cache, grammar masks,
+is queued in ``ROADMAP.md``: the contiguous cache,
 multi-LoRA stacks, the host-RAM tier and KV handoff, ``register_prefix``,
 pipelined ticks, meshes, and the telemetry planes (of which ``stats()``
 keeps ``max_tick_prefill_tokens`` and ``deadline_expired``).
@@ -172,6 +189,21 @@ def _lp_stats(logits: torch.Tensor, tok: torch.Tensor, k: int):
     lp = torch.log_softmax(logits.float(), dim=-1)
     top = torch.topk(lp, k, dim=-1)
     return lp.gather(1, tok.long()[:, None])[:, 0], top.indices, top.values
+
+
+def _fsm_mask(ftab: torch.Tensor, fstate: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """Grammar mask: tokens whose table entry in the row of ``fstate`` is
+    negative go to -inf. One row gather a state; FREE and DEAD rows allow
+    everything, so unconstrained rows pass through unchanged."""
+    return torch.where(ftab[fstate.long()] >= 0, logits, float("-inf"))
+
+
+def _fsm_next(ftab: torch.Tensor, fstate: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """The state(s) after sampling ``tok`` in ``fstate``; a disallowed
+    transition (reached only on discarded speculative positions and
+    finished rows) clamps to the DEAD trap row 1."""
+    nxt = ftab[fstate.long(), tok.long()]
+    return torch.where(nxt >= 0, nxt, 1)
 
 
 def derive_copy_seed(base: int, i: int) -> int:
@@ -251,6 +283,7 @@ class Request:
     preempt_cur: Any = None
     preempt_gen: Any = None
     preempt_lp: Any = None
+    preempt_fst: Any = None  # the slot's grammar state (a device scalar)
     preempt_count: int = 0
     resume_tokens: int = 0  # tokens re-prefilled by its resumes
     # Prompt tokens reused from, and missed by, the prefix cache at its
@@ -261,6 +294,9 @@ class Request:
     # request.
     deadline: float | None = None
     expired: bool = False
+    # Grammar-constrained decoding: the start state of the request's grammar
+    # in the engine's table (0: FREE, unconstrained).
+    fsm_start: int = 0
 
     @property
     def slo_rank(self) -> tuple[int, int]:
@@ -382,12 +418,13 @@ class ContinuousEngine:
         pages each tick and preempts on an empty pool (module note), with
         the anti-thrash guard over windows of ``thrash_window`` ticks.
         ``logprobs_k`` (0: off) arms per-token logprobs with up to that many
-        alternatives a token."""
+        alternatives a token. ``fsm_capacity`` (0: off; else at least 2, the
+        FREE and DEAD rows) arms grammar-constrained decoding with a table of
+        that many rows (module note)."""
         check_vocab(tokenizer, model_cfg.vocab_size, "ContinuousEngine")
         llama.check_supported(model_cfg)
         unported = {
             "cache_mode='contiguous'": cache_mode == "contiguous",
-            "fsm_capacity (grammar-constrained decoding)": fsm_capacity != 0,
             "host_tier_mb (the host-RAM prefix tier)": host_tier_mb != 0,
             "pipeline_ticks": pipeline_ticks,
             "mesh (sharded serving)": mesh is not None,
@@ -581,6 +618,34 @@ class ContinuousEngine:
             self.lp_chosen = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
             self.lp_ids = torch.zeros((n_slots, logprobs_k), dtype=torch.long, device=dev)
             self.lp_top = torch.zeros((n_slots, logprobs_k), dtype=torch.float32, device=dev)
+        # -- grammar-constrained decoding (infer/grammar.py) ------------------
+        # Row conventions: table[s, t] >= 0 allows token t in state s and is
+        # the next state; -1 masks it. Row 0 FREE (all allowed, parks), row 1
+        # DEAD (all allowed, traps; reached only by finished rows and
+        # discarded speculative positions, and all-allowed so that a masked
+        # row is never all -inf).
+        if fsm_capacity < 0:
+            raise ValueError(f"fsm_capacity must be >= 0, got {fsm_capacity}")
+        self.fsm_capacity = fsm_capacity
+        self.guided = fsm_capacity > 0
+        if self.guided:
+            if fsm_capacity < 2:
+                raise ValueError("fsm_capacity must be >= 2 (FREE + DEAD rows)")
+            v = model_cfg.vocab_size
+            self._fsm_host = np.full((fsm_capacity, v), -1, np.int32)
+            self._fsm_host[0, :] = 0  # FREE
+            self._fsm_host[1, :] = 1  # DEAD
+            self._fsm_used = 2
+            self._grammars: dict[str, int] = {}
+            # The device table, of the full capacity; rows past
+            # _fsm_dev_rows are uploaded by _fsm_device before a tick uses
+            # them. Registrations come from HTTP threads while the driver
+            # ticks: the lock pairs each host append with the upload, so a
+            # tick never sees a half-installed grammar.
+            self._fsm_dev = torch.full((fsm_capacity, v), -1, dtype=torch.int32, device=dev)
+            self._fsm_dev_rows = 0
+            self._fsm_lock = threading.Lock()
+            self.fstates = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self.prefills_cold = 0
         self.prefills_prefix_hit = 0
         self.prefix_hit_tokens = 0
@@ -596,6 +661,58 @@ class ContinuousEngine:
 
     def import_kv(self, *args, **kwargs):
         raise _not_ported("KV handoff (import_kv)")
+
+    # -- guided decoding --------------------------------------------------------
+
+    def register_grammar(self, g) -> int:
+        """Install a compiled grammar (``infer/grammar.CompiledGrammar``) into
+        the engine's transition table; returns the grammar's start state, to
+        pass (or the CompiledGrammar itself) as ``submit``'s ``grammar=``.
+        Registration is deduplicated by the table's content, so serving
+        layers can call this per request; ``fsm_capacity`` is a hard cap:
+        registration raises when a new grammar would not fit. Columns past
+        the grammar's vocabulary stay -1 (masked)."""
+        import hashlib
+
+        if not self.guided:
+            raise ValueError(
+                "engine built with fsm_capacity=0; construct with "
+                "fsm_capacity >= grammar states + 2 to serve guided requests")
+        tn = np.ascontiguousarray(g.token_next, np.int32)
+        digest = hashlib.sha1(tn.tobytes()).hexdigest()
+        with self._fsm_lock:
+            if digest in self._grammars:
+                return self._grammars[digest]
+            s, vt = tn.shape
+            v = self._fsm_host.shape[1]
+            if vt > v:
+                raise ValueError(
+                    f"grammar table vocab {vt} exceeds the model head width {v}")
+            if self._fsm_used + s > self.fsm_capacity:
+                raise ValueError(
+                    f"fsm_capacity exhausted: {self._fsm_used} rows used + "
+                    f"{s} needed > {self.fsm_capacity}")
+            base = self._fsm_used
+            # rows past _fsm_used are all -1 already: write the grammar's
+            # columns, relocated by the row offset
+            self._fsm_host[base: base + s, :vt] = np.where(tn >= 0, tn + base, -1)
+            self._fsm_used += s
+            self._grammars[digest] = base
+        logger.info("registered grammar %s: %d states at rows [%d, %d)",
+                    getattr(g, "source", "?"), s, base, base + s)
+        return base
+
+    def _fsm_device(self) -> torch.Tensor:
+        """The device table, after uploading the rows registered since the
+        last upload (only appended rows: no slot points past ``_fsm_used``
+        before ``register_grammar`` returns), under the lock and on the
+        stream the ticks use."""
+        with self._fsm_lock:
+            a, b = self._fsm_dev_rows, self._fsm_used
+            if a < b:
+                self._fsm_dev[a:b].copy_(torch.from_numpy(self._fsm_host[a:b]))
+                self._fsm_dev_rows = b
+            return self._fsm_dev
 
     # -- scheduler ------------------------------------------------------------
 
@@ -624,10 +741,14 @@ class ContinuousEngine:
         pair with ``logprobs``) and a terminal ``None``. ``logprobs``: the
         top-N alternatives of every generated token (0: the chosen token's
         logprob alone), N at most ``logprobs_k``. ``deadline_s``: seconds
-        from now after which the request is evicted instead of finished."""
+        from now after which the request is evicted instead of finished.
+        ``grammar``: constrains the completion (not the prompt) to a
+        compiled grammar, an ``infer/grammar.CompiledGrammar`` (registered
+        here) or an int start state from ``register_grammar``; needs
+        ``fsm_capacity > 0``. Registration comes after every other check,
+        since table rows are never evicted."""
         unported = {
             "multi-LoRA adapters": bool(adapter_id),
-            "grammar-constrained decoding": grammar is not None,
             "request tracing": trace is not None,
             "per-tenant usage metering": tenant is not None,
         }
@@ -660,6 +781,21 @@ class ContinuousEngine:
         max_new = max_new_tokens if max_new_tokens is not None else gen.max_new_tokens
         prompt = prompt_tokens or [self.tokenizer.bos_id]
         self.validate_request(prompt, max_new)
+        fsm_start = 0
+        if grammar is not None:
+            if not self.guided:
+                raise BadRequestError(
+                    "grammar requested but the engine was built with fsm_capacity=0")
+            if isinstance(grammar, int):
+                with self._fsm_lock:  # register_grammar appends from HTTP threads
+                    used = self._fsm_used
+                if not 0 <= grammar < used:
+                    raise BadRequestError(
+                        f"grammar start state {grammar} not in the installed table "
+                        f"(rows [0, {used}))")
+                fsm_start = grammar
+            else:
+                fsm_start = self.register_grammar(grammar)
         req = Request(
             req_id=self._next_id,
             prompt=list(prompt),
@@ -671,6 +807,7 @@ class ContinuousEngine:
             stream=stream,
             logprobs=logprobs,
             deadline=None if deadline_s is None else time.monotonic() + float(deadline_s),
+            fsm_start=fsm_start,
         )
         self._next_id += 1
         self._enqueue(req)
@@ -813,10 +950,19 @@ class ContinuousEngine:
         if not sample:
             return None
         last = llama.logits_from_hidden(self.params, hidden[:, s - 1])  # (1, V)
+        masked = last
+        if self.guided:
+            # the first token at the request's start state; the slot's state
+            # becomes the one after it (FREE stays FREE)
+            ftab = self._fsm_device()
+            start = torch.full((1,), req.fsm_start, dtype=torch.int32, device=dev)
+            masked = _fsm_mask(ftab, start, last)
         # Scalar mode: the same draws as the tick's per-row mode from this
         # generator; temperature <= 0 is greedy there, so it is 0 here.
-        first = sample_logits(last, generator, temperature=max(req.temperature, 0.0),
+        first = sample_logits(masked, generator, temperature=max(req.temperature, 0.0),
                               top_k=self.gen.top_k, top_p=req.top_p)
+        if self.guided:
+            self.fstates[slot] = _fsm_next(ftab, start, first)[0]
         if self.logprobs_k:
             self._store_lp(slot, *(x[0] for x in _lp_stats(last, first, self.logprobs_k)))
         return first[0]
@@ -1000,13 +1146,15 @@ class ContinuousEngine:
         self._gens[slot] = req.preempt_gen
         if self.logprobs_k:
             self._store_lp(slot, *req.preempt_lp)
+        if self.guided and req.preempt_fst is not None:
+            self.fstates[slot] = req.preempt_fst
         self._set_hist(slot, ctx, req.preempt_cur)
         self._draft_prefill(req, slot, ctx)
         self.temps[slot] = req.temperature
         self.top_ps[slot] = req.top_p
         self.limits[slot] = cap
         req.preempted = False
-        req.preempt_cur = req.preempt_gen = req.preempt_lp = None
+        req.preempt_cur = req.preempt_gen = req.preempt_lp = req.preempt_fst = None
         return True
 
     def _pick_victim(self, needy: Request) -> int | None:
@@ -1042,6 +1190,8 @@ class ContinuousEngine:
             if self.logprobs_k:
                 req.preempt_lp = (self.lp_chosen[slot].clone(), self.lp_ids[slot].clone(),
                                   self.lp_top[slot].clone())
+            if self.guided:
+                req.preempt_fst = self.fstates[slot].clone()
             self._publish_tokens(req.prompt + req.tokens, slot)
         self._slots[slot] = None
         self._free_slot_pages(slot)
@@ -1284,6 +1434,9 @@ class ContinuousEngine:
         cur, pos, hist = self.cur, self.pos, self.hist
         n_lp = self.logprobs_k
         lp = (self.lp_chosen, self.lp_ids, self.lp_top) if n_lp else None
+        guided = self.guided
+        if guided:
+            ftab, fst = self._fsm_device(), self.fstates
         done = ~torch.tensor(occupied, device=dev)
         emitted, lp_emitted = [], []
         for t in range(chunk):
@@ -1294,18 +1447,21 @@ class ContinuousEngine:
                 self.params, cur[:, None], cfg, positions=pos[:, None], cache=cache,
                 paged={"table": table, "lengths": lengths, "starts": starts, "t": t},
             )[:, 0]
+            masked = _fsm_mask(ftab, fst, step_logits) if guided else step_logits
             if sampled:
                 nxt = sample_logits(
-                    step_logits, None, temperature=self.temps, top_k=self.gen.top_k,
+                    masked, None, temperature=self.temps, top_k=self.gen.top_k,
                     top_p=self.top_ps if topp else 1.0, uniforms=uniforms[:, t],
                 )
             else:
-                nxt = torch.argmax(step_logits, dim=-1)
+                nxt = torch.argmax(masked, dim=-1)
             emitted.append(torch.where(step_alive, cur, pad))
             if n_lp:
                 lp_emitted.append(lp)
                 lp = _lp_stats(step_logits, nxt, n_lp)
             done = done | (cur == eos)
+            if guided:
+                fst = torch.where(done, fst, _fsm_next(ftab, fst, nxt))
             pos = torch.where(step_alive, pos + 1, pos)
             cur = torch.where(done, pad, nxt)
             if self._track_hist:
@@ -1314,6 +1470,8 @@ class ContinuousEngine:
         _flush_tail_into_pools(self.cache, cache["tk"], cache["tv"], starts, pos,
                                table, self.page_size)
         self.cur, self.pos, self.hist = cur, pos, hist
+        if guided:
+            self.fstates = fst
         stats = ()
         if n_lp:
             self.lp_chosen, self.lp_ids, self.lp_top = lp
@@ -1334,6 +1492,18 @@ class ContinuousEngine:
         eq = tokens_in[:, 1:] == cand[:, :k]
         n_acc = torch.cumprod(eq.long(), dim=-1).sum(-1)
         return n_acc, cand.gather(1, n_acc[:, None])[:, 0]
+
+    @staticmethod
+    def _fsm_spec_path(ftab: torch.Tensor, fst: torch.Tensor, draft: torch.Tensor) -> torch.Tensor:
+        """(B, k+1) grammar states along the draft path: column 0 the row's
+        state, column j+1 the state after ``draft[:, j]``. An illegal draft
+        clamps to DEAD: its own position is masked under the state before
+        it, so acceptance rejects there and the positions after it are
+        discarded. k gathers, on the device."""
+        states = [fst]
+        for j in range(draft.shape[1]):
+            states.append(_fsm_next(ftab, states[-1], draft[:, j]))
+        return torch.stack(states, dim=1)
 
     def _spec_lp_round(self, logits: torch.Tensor, draft: torch.Tensor,
                        n_acc: torch.Tensor, nxt: torch.Tensor, lp: tuple, bufs: tuple,
@@ -1387,6 +1557,9 @@ class ContinuousEngine:
         rr = torch.zeros((n_b,), dtype=torch.long, device=dev)
         zeros = torch.zeros((n_b, 1), dtype=torch.long, device=dev)
         cur, pos, hist = self.cur, self.pos, self.hist
+        guided = self.guided
+        if guided:
+            ftab, fst = self._fsm_device(), self.fstates
         n_lp = self.logprobs_k
         if n_lp:
             lp = (self.lp_chosen, self.lp_ids, self.lp_top)
@@ -1411,7 +1584,13 @@ class ContinuousEngine:
                 cache=cache, paged={"table": table, "lengths": lengths, "starts": starts,
                                     "off": pos - starts},
             )
-            n_acc, nxt = self._spec_accept(logits, tokens_in, gens, sampled)
+            if guided:
+                # each position masked at its state along the draft's path
+                path = self._fsm_spec_path(ftab, fst, draft)
+                ver_logits = _fsm_mask(ftab, path, logits)
+            else:
+                ver_logits = logits
+            n_acc, nxt = self._spec_accept(ver_logits, tokens_in, gens, sampled)
             in_span = q_idx[None, :] <= n_acc[:, None]
             is_term = (tokens_in == eos) | (tokens_in == pad)
             term_before = (torch.cumsum(is_term.long(), dim=1) - is_term.long()) > 0
@@ -1431,12 +1610,17 @@ class ContinuousEngine:
                 hist = _emit_rows(hist, append_seq, torch.clamp(pos + 1, max=smax), grow)
             pos = torch.where(live, pos + e.to(pos.dtype), pos)
             done = done | hit_term
+            if guided:
+                s_at = path.gather(1, n_acc[:, None])[:, 0]
+                fst = torch.where(done, fst, _fsm_next(ftab, s_at, nxt))
             cur = torch.where(done, pad, nxt)
             rr = rr + live.long()
         self.spec_verify_rounds += rounds
         _flush_tail_into_pools(self.cache, cache["tk"], cache["tv"], starts, pos,
                                table, self.page_size)
         self.cur, self.pos, self.hist = cur, pos, hist
+        if guided:
+            self.fstates = fst
         bufs = ()
         if n_lp:
             self.lp_chosen, self.lp_ids, self.lp_top = lp
@@ -1669,6 +1853,10 @@ class ContinuousEngine:
             "decode_seconds": round(self.decode_seconds, 6),
             "prefills_cold": self.prefills_cold,
             "prefills_prefix_hit": self.prefills_prefix_hit,
+            **({"guided": {"fsm_capacity": self.fsm_capacity,
+                           "fsm_rows_used": self._fsm_used,
+                           "grammars_registered": len(self._grammars)}}
+               if self.guided else {}),
             **({"speculative": self._spec_stats()} if self.speculative else {}),
         }
 
@@ -1858,6 +2046,11 @@ class ThreadedEngine:
         """The most logprob alternatives the engine serves (0: none)."""
         return self._engine.logprobs_k
 
+    @property
+    def guided(self) -> bool:
+        """Can the engine serve grammar-constrained requests?"""
+        return self._engine.guided
+
     def _submit_locked(self, prompt_tokens: list[int], **kw) -> int:
         if self._stop:
             raise RuntimeError("continuous engine is stopped") from self._error
@@ -1890,14 +2083,18 @@ class ThreadedEngine:
         seed: int | None = None,
         slo_class: str | None = None,
         deadline_s: float | None = None,
+        grammar: Any = None,
     ) -> list[int]:
         """Submit one request and block until it completes. Raises if the
         driver has stopped (shutdown or device error), and
-        ``DeadlineExceededError`` when ``deadline_s`` evicted it first."""
+        ``DeadlineExceededError`` when ``deadline_s`` evicted it first.
+        ``grammar`` (``submit``'s) is registered here, in the caller's
+        thread: an exhausted table raises before the request queues."""
         with self._cond:
             rid = self._submit_locked(
                 prompt_tokens, max_new_tokens=max_new_tokens, temperature=temperature,
-                top_p=top_p, seed=seed, slo_class=slo_class, deadline_s=deadline_s)
+                top_p=top_p, seed=seed, slo_class=slo_class, deadline_s=deadline_s,
+                grammar=grammar)
             return self._wait_locked(rid, deadline_s).tokens
 
     def generate_one_with_logprobs(
@@ -1911,6 +2108,7 @@ class ThreadedEngine:
         seed: int | None = None,
         slo_class: str | None = None,
         deadline_s: float | None = None,
+        grammar: Any = None,
     ) -> tuple[list[int], dict]:
         """``generate_one`` plus each token's logprob stats, in the lock-step
         Generator's layout (``token_logprobs``, ``top_ids``,
@@ -1920,7 +2118,7 @@ class ThreadedEngine:
             rid = self._submit_locked(
                 prompt_tokens, max_new_tokens=max_new_tokens, temperature=temperature,
                 top_p=top_p, seed=seed, slo_class=slo_class, deadline_s=deadline_s,
-                logprobs=n_top)
+                logprobs=n_top, grammar=grammar)
             req = self._wait_locked(rid, deadline_s)
         return req.tokens, {"token_logprobs": req.lp_token,
                             "top_ids": [r[:n_top] for r in req.lp_top_ids],
@@ -1937,6 +2135,7 @@ class ThreadedEngine:
         seed: int | None = None,
         logprobs: int | None = None,
         slo_class: str | None = None,
+        grammar: Any = None,
     ) -> list[Request]:
         """Submit ``n`` copies of one prompt, copy i seeded
         ``derive_copy_seed(seed, i)`` (an unseeded call draws its base), and
@@ -1953,7 +2152,7 @@ class ThreadedEngine:
                         prompt_tokens, max_new_tokens=max_new_tokens,
                         temperature=temperature, top_p=top_p,
                         seed=derive_copy_seed(seed, i), logprobs=logprobs,
-                        slo_class=slo_class))
+                        slo_class=slo_class, grammar=grammar))
             except BaseException:
                 self._cancels.update(rids)
                 self._cond.notify_all()
@@ -2005,6 +2204,7 @@ class ThreadedEngine:
         seed: int | None = None,
         slo_class: str | None = None,
         deadline_s: float | None = None,
+        grammar: Any = None,
     ):
         """Submit one request and return an iterator of its token-id lists
         as they are harvested (SSE streaming). The submit is eager:
@@ -2015,7 +2215,7 @@ class ThreadedEngine:
         mid-stream."""
         return self._stream(prompt_tokens=prompt_tokens, max_new_tokens=max_new_tokens,
                             temperature=temperature, top_p=top_p, seed=seed,
-                            slo_class=slo_class, deadline_s=deadline_s)
+                            slo_class=slo_class, deadline_s=deadline_s, grammar=grammar)
 
     def stream_one_with_logprobs(
         self,
@@ -2028,12 +2228,14 @@ class ThreadedEngine:
         seed: int | None = None,
         slo_class: str | None = None,
         deadline_s: float | None = None,
+        grammar: Any = None,
     ):
         """``stream_one`` with each chunk's logprob stats: yields (token ids,
         stats) pairs, the stats in ``generate_one_with_logprobs``' layout."""
         return self._stream(prompt_tokens=prompt_tokens, max_new_tokens=max_new_tokens,
                             temperature=temperature, top_p=top_p, seed=seed,
-                            slo_class=slo_class, deadline_s=deadline_s, logprobs=n_top)
+                            slo_class=slo_class, deadline_s=deadline_s, logprobs=n_top,
+                            grammar=grammar)
 
     def cancel(self, req_id: int) -> None:
         """Request cancellation; the driver thread applies it before its

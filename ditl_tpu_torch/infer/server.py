@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``infer/server.py``: ``GET /health``,
 ``GET /v1/models``, ``GET /v1/stats``, ``POST /v1/completions`` and
 ``POST /v1/chat/completions`` with ``stop``, ``max_tokens``,
 ``temperature``, ``top_p``, ``seed``, ``logprobs``/``top_logprobs``,
-``stream``, ``n``/``best_of``, ``deadline_s`` and ``slo_class``, and
+``stream``, ``n``/``best_of``, ``deadline_s``, ``slo_class`` and guided
+decoding (``guided_regex``, ``guided_json``, ``response_format``), and
 ``POST /v1/embeddings``.
 
 - ``"stream": true`` answers Server-Sent Events (``data: {...}`` chunks,
@@ -32,8 +33,22 @@ Counterpart of the JAX package's ``infer/server.py``: ``GET /health``,
   class answers 400) orders the continuous engine's admission and
   preemption; where no class orders the work (the lock-step engine, a
   logprob request beyond ``--logprobs-k``) a payload class other than
-  ``interactive`` answers 400 and the header's is dropped. Guided-decoding
-  fields answer 400 (not ported).
+  ``interactive`` answers 400 and the header's is dropped.
+- Guided decoding (``--engine continuous --fsm-capacity N``): at most one of
+  ``guided_regex`` (a fullmatch regex), ``guided_json`` (a JSON schema,
+  object or string) and ``response_format`` (``json_object``, or
+  ``json_schema`` with its ``schema``) constrains the completion; each spec
+  compiles once (``infer/grammar.py``, a 64-entry LRU keyed by the spec) and
+  the engine registers its table once. It rides the plain, streamed,
+  ``n``/``best_of``, logprob (N <= ``--logprobs-k``), deadline and
+  ``slo_class`` paths of the continuous engine. A bad spec, a server not
+  armed, logprobs beyond ``--logprobs-k`` and ``best_of`` ranking without
+  ``--logprobs-k`` answer 400 with the reference's messages; a grammar that
+  no longer fits the table 503 (new grammars need a restart with a larger
+  ``--fsm-capacity``). The port serves no LoRA adapters, so the reference's
+  refusal of guided decoding under adapter routing has no request to
+  answer: the ``model`` field stays advisory, as on the reference's
+  adapter-less servers.
 - ``/v1/embeddings``: mean-pooled, unit-length final hidden states of the
   served model (one forward over the padded batch, under the device lock).
 
@@ -88,12 +103,13 @@ card unless ``--device cpu`` is given:
         [--override dtype=float16|float32] [--quantize int8] [--kv-quant int8] \\
         [--speculative on|auto [--draft-preset NAME [--draft-checkpoint DIR]]] \
         [--prefill-chunk 512 --token-budget 640] [--admission optimistic] \\
-        [--logprobs-k 5]
+        [--logprobs-k 5] [--fsm-capacity 1200]
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import random
@@ -301,6 +317,8 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
     max_pending: int | None = None
     stats: dict = None  # served requests and tokens, guarded by stats_lock
     stats_lock: threading.Lock = None
+    grammar_cache: collections.OrderedDict = None  # spec key -> CompiledGrammar (LRU)
+    grammar_lock: threading.Lock = None
 
     def log_message(self, *args):
         logger.debug("http: " + args[0], *args[1:])
@@ -510,13 +528,10 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         except ValueError as e:
             self._send_json(400, {"error": {"message": str(e)}})
             return
-        rf = payload.get("response_format")
-        if (payload.get("guided_regex") is not None or payload.get("guided_json") is not None
-                or (isinstance(rf, dict) and rf.get("type") in ("json_object", "json_schema"))):
-            # grammar-constrained decoding is not ported: the reference's
-            # answer on a server not armed for it
-            self._send_json(400, {"error": {"message":
-                "guided decoding requires --engine continuous with --fsm-capacity > 0"}})
+        try:
+            grammar = self._resolve_grammar(payload)
+        except ValueError as e:
+            self._send_json(400, {"error": {"message": str(e)}})
             return
         try:
             n_choices = int(payload.get("n") or 1)
@@ -547,7 +562,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             else:
                 self._multi_complete(payload, prompt_ids, gen, chat=chat, n=n_choices,
                                      best_of=best_of, stops=stops, slo_class=slo_class,
-                                     slo_from_header=slo_from_header)
+                                     slo_from_header=slo_from_header, grammar=grammar)
                 return
             self._send_json(400, {"error": {"message": msg}})
             return
@@ -562,15 +577,18 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             try:
                 self._stream_complete(payload, prompt, prompt_ids, gen, chat=chat,
                                       stops=stops, lp_n=n_top, deadline_s=deadline_s,
-                                      slo_class=slo_class)
+                                      slo_class=slo_class, grammar=grammar)
             except QueueFullError as e:
                 # The stream's submit is eager (before the SSE headers), so a
                 # full queue is still a real 429.
                 self._send_json(429, {"error": {"message": str(e),
                                                 "type": "rate_limit_error"}},
                                 headers={"Retry-After": "1"})
-            except ValueError as e:  # the eager submit's validation
-                self._send_json(400, {"error": {"message": str(e)}})
+            except ValueError as e:
+                # the eager submit's validation; a grammar table out of rows
+                # is the server's capacity, not the client's fault
+                status = 503 if "fsm_capacity" in str(e) else 400
+                self._send_json(status, {"error": {"message": str(e)}})
             except OSError:
                 logger.info("client disconnected mid-stream")
             except Exception:  # noqa: BLE001 - the headers may be out already:
@@ -581,6 +599,13 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         # alternatives; beyond it (or without it) the lock-step Generator
         # serves them, where no class orders the work.
         lp_lockstep = n_top is not None and not (0 < engine_k and n_top <= engine_k)
+        if lp_lockstep and grammar is not None:
+            # guided requests never fall back to the lock-step Generator (it
+            # has no grammar masks)
+            self._send_json(400, {"error": {"message":
+                "guided decoding with logprobs requires the continuous engine armed "
+                "with --logprobs-k >= N"}})
+            return
         if lp_lockstep:
             ok, slo_class = self._gate_slo_class(slo_class, slo_from_header)
             if not ok:
@@ -592,13 +617,13 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 out, lp = engine.generate_one_with_logprobs(
                     prompt_ids, n_top, max_new_tokens=gen.max_new_tokens,
                     temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed,
-                    slo_class=slo_class, deadline_s=deadline_s)
+                    slo_class=slo_class, deadline_s=deadline_s, grammar=grammar)
             elif engine is not None and n_top is None:
                 # Continuous engine: the request shares decode ticks.
                 out = engine.generate_one(
                     prompt_ids, max_new_tokens=gen.max_new_tokens,
                     temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed,
-                    slo_class=slo_class, deadline_s=deadline_s)
+                    slo_class=slo_class, deadline_s=deadline_s, grammar=grammar)
             elif n_top is None:
                 out = self._lockstep_generate(prompt_ids, gen)
             else:
@@ -624,16 +649,82 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         logger.info("served %d prompt + %d completion tokens in %.2fs",
                     len(prompt_ids), n_gen, time.time() - t0)
 
+    def _resolve_grammar(self, payload: dict):
+        """The request's guided-decoding spec (``guided_regex``,
+        ``guided_json``, or ``response_format`` json_object / json_schema)
+        compiled into a ``CompiledGrammar``, LRU-cached by spec (compiling is
+        host work a repeat client should not pay twice; the engine also
+        deduplicates registration by table content). None for an
+        unconstrained request; raises ValueError (the caller's 400) for more
+        than one spec, a server not armed for guided decoding or a bad
+        spec."""
+        rf = payload.get("response_format")
+        rf = rf if isinstance(rf, dict) else {}
+        specs = [payload.get("guided_regex") is not None,
+                 payload.get("guided_json") is not None,
+                 rf.get("type") in ("json_object", "json_schema")]
+        if not any(specs):
+            return None
+        if sum(specs) > 1:
+            raise ValueError("at most one of guided_regex, guided_json, response_format "
+                             "may constrain a request")
+        eng = self.threaded_engine
+        if eng is None or not eng.guided:
+            raise ValueError(
+                "guided decoding requires --engine continuous with --fsm-capacity > 0")
+        tok = eng.tokenizer
+        from ditl_tpu_torch.infer import grammar as G
+
+        if payload.get("guided_regex") is not None:
+            pattern = payload["guided_regex"]
+            if not isinstance(pattern, str):
+                raise ValueError("guided_regex must be a string")
+            key, build = ("regex", pattern), (lambda: G.compile_regex(pattern, tok))
+        elif payload.get("guided_json") is not None:
+            schema = payload["guided_json"]
+            if isinstance(schema, str):
+                schema = json.loads(schema)
+            if not isinstance(schema, dict):
+                raise ValueError("guided_json must be a JSON-schema object")
+            key = ("schema", json.dumps(schema, sort_keys=True))
+            build = lambda: G.compile_json_schema(schema, tok)  # noqa: E731
+        elif rf.get("type") == "json_schema":
+            schema = (rf.get("json_schema") or {}).get("schema")
+            if not isinstance(schema, dict):
+                raise ValueError("response_format.json_schema.schema must be an object")
+            key = ("schema", json.dumps(schema, sort_keys=True))
+            build = lambda: G.compile_json_schema(schema, tok)  # noqa: E731
+        else:  # json_object
+            key, build = ("json_object",), (lambda: G.compile_json(tok))
+        with self.grammar_lock:
+            if key in self.grammar_cache:
+                self.grammar_cache.move_to_end(key)
+                return self.grammar_cache[key]
+        g = build()  # outside the lock: a compile can take seconds
+        with self.grammar_lock:
+            self.grammar_cache[key] = g
+            while len(self.grammar_cache) > 64:
+                self.grammar_cache.popitem(last=False)
+        return g
+
     def _send_error(self, e: Exception) -> None:
         """A failed generation as its status: 429 for a full queue, 504 for
-        a deadline the engine enforced, 400 for a request the engine
-        refused (``BadRequestError``: prompt + max_tokens beyond the
-        context, a pool too small), else 500."""
+        a deadline the engine enforced, 503 for a grammar the table has no
+        rows left for, 400 for a request the engine refused
+        (``BadRequestError``: prompt + max_tokens beyond the context, a pool
+        too small), else 500."""
         if isinstance(e, QueueFullError):
             self._send_json(429, {"error": {"message": str(e), "type": "rate_limit_error"}},
                             headers={"Retry-After": "1"})
         elif isinstance(e, DeadlineExceededError):
             self._send_json(504, {"error": {"message": str(e), "type": "timeout_error"}})
+        elif isinstance(e, ValueError) and "fsm_capacity exhausted" in str(e):
+            # Rows are never evicted (live slots may point anywhere in the
+            # table): registered grammars still serve, new ones wait for a
+            # restart.
+            self._send_json(503, {"error": {"message":
+                str(e) + " (new grammars need a restart with a larger --fsm-capacity; "
+                "already-registered grammars still serve)"}})
         elif isinstance(e, ValueError):
             self._send_json(400, {"error": {"message": str(e)}})
         else:
@@ -664,14 +755,14 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
 
     def _multi_complete(self, payload: dict, prompt_ids: list[int], gen: GenerateConfig, *,
                         chat: bool, n: int, best_of: int, stops: list[str],
-                        slo_class, slo_from_header: bool) -> None:
+                        slo_class, slo_from_header: bool, grammar=None) -> None:
         """OpenAI ``n``/``best_of``: ``best_of`` candidates, the best ``n``
         returned, ranked by mean token logprob when ``best_of > n``. The
         continuous engine runs the copies side by side
         (``ThreadedEngine.generate_many``, copy i seeded
         ``derive_copy_seed(seed, i)``; ranking needs ``--logprobs-k``); the
-        lock-step Generator takes them as one batch. Usage counts every
-        candidate's tokens."""
+        lock-step Generator takes them as one batch (not a guided request:
+        400). Usage counts every candidate's tokens."""
         t0 = time.time()
         rank = best_of > n
         engine = self.threaded_engine
@@ -680,11 +771,20 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 reqs = engine.generate_many(
                     prompt_ids, best_of, max_new_tokens=gen.max_new_tokens,
                     temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed,
-                    slo_class=slo_class, logprobs=0 if rank else None)
+                    slo_class=slo_class, logprobs=0 if rank else None, grammar=grammar)
                 cands = [(r.tokens, r.lp_token) for r in reqs]
             else:
                 ok, slo_class = self._gate_slo_class(slo_class, slo_from_header)
                 if not ok:
+                    return
+                if grammar is not None:
+                    # the missing piece named: a guided request lands here on
+                    # a guided engine when ranking needs logprobs it lacks
+                    self._send_json(400, {"error": {"message":
+                        "best_of ranking with guided decoding requires the continuous "
+                        "engine armed with --logprobs-k >= 1"
+                        if engine is not None and rank and engine.logprobs_k == 0
+                        else "guided decoding requires the continuous engine"}})
                     return
                 batch = [list(prompt_ids) for _ in range(best_of)]
                 with self.device_lock:
@@ -736,7 +836,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
     def _stream_complete(self, payload: dict, prompt: str, prompt_ids: list[int],
                          gen: GenerateConfig, *, chat: bool, stops: list[str],
                          lp_n: int | None = None, deadline_s: float | None = None,
-                         slo_class: str | None = None) -> None:
+                         slo_class: str | None = None, grammar=None) -> None:
         """OpenAI streaming: incremental chunks from the continuous engine;
         the lock-step engine generates fully, then sends one chunk. The
         finish chunk says ``"stop"`` when a stop sequence matched (even at
@@ -774,7 +874,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         if engine is not None:
             kw = dict(max_new_tokens=gen.max_new_tokens, temperature=gen.temperature,
                       top_p=gen.top_p, seed=gen.seed, slo_class=slo_class,
-                      deadline_s=deadline_s)
+                      deadline_s=deadline_s, grammar=grammar)
             stream_iter = (engine.stream_one(prompt_ids, **kw) if lp_n is None
                            else engine.stream_one_with_logprobs(prompt_ids, lp_n, **kw))
         else:
@@ -971,6 +1071,8 @@ def make_server(
         "max_pending": max_pending,
         "stats": {"requests": 0, "prompt_tokens": 0, "completion_tokens": 0},
         "stats_lock": threading.Lock(),
+        "grammar_cache": collections.OrderedDict(),
+        "grammar_lock": threading.Lock(),
     })
     server = DrainableHTTPServer((host, port), handler)
     server.engine = threaded_engine
@@ -1030,6 +1132,12 @@ def _parser() -> argparse.ArgumentParser:
                    help="arm the continuous engine to serve per-token logprobs with up "
                    "to K alternatives natively (requests ride ordinary decode ticks); "
                    "0 = logprob requests fall back to the lock-step generator")
+    p.add_argument("--fsm-capacity", type=int, default=0,
+                   help="arm guided (grammar-constrained) decoding on --engine "
+                   "continuous: total DFA states servable at once (device table rows; "
+                   "a JSON grammar is ~1.1k states at depth 5, a typical regex tens). "
+                   "Requests then accept guided_regex / guided_json / response_format "
+                   "json_object. 0 = off")
     p.add_argument("--quantize", choices=("none", "int8"), default="none",
                    help="weight-only int8 (halves the weights' memory; decode reads "
                    "stay bf16-sized until a fused int8 product; ops/quant.py)")
@@ -1064,6 +1172,9 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
 
     parser = _parser()
     args = parser.parse_args(argv)
+    if args.fsm_capacity and args.engine != "continuous":
+        parser.error("--fsm-capacity (guided decoding) requires --engine continuous: "
+                     "grammar masks ride the slot scheduler's decode ticks")
     if args.draft_preset and (args.engine != "continuous" or args.speculative == "off"):
         parser.error("--draft-preset requires --engine continuous with --speculative "
                      "on|auto (the draft model drafts for speculative ticks)")
@@ -1133,7 +1244,7 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
             spec_threshold=0.0 if args.speculative == "on" else None,
             draft_params=draft_params, draft_cfg=draft_cfg,
             token_budget=args.token_budget, admission=args.admission,
-            logprobs_k=args.logprobs_k,
+            logprobs_k=args.logprobs_k, fsm_capacity=args.fsm_capacity,
         ))
     spec = None
     if args.speculative != "off" and args.engine == "lockstep":

@@ -310,7 +310,7 @@ def test_queue_order_limits_and_validation(pair):
 
 
 @pytest.mark.parametrize("kw", [
-    {"cache_mode": "contiguous"}, {"fsm_capacity": 4}, {"host_tier_mb": 1},
+    {"cache_mode": "contiguous"}, {"metrics": object()}, {"host_tier_mb": 1},
     {"pipeline_ticks": True}, {"mesh": object()}, {"tracer": object()},
 ])
 def test_unported_engine_features_raise(pair, kw):
@@ -321,7 +321,7 @@ def test_unported_engine_features_raise(pair, kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"adapter_id": 1}, {"grammar": object()}, {"tenant": "t"},
+    {"adapter_id": 1}, {"trace": object()}, {"tenant": "t"},
 ])
 def test_unported_request_features_raise(pair, kw):
     _, teng = _engines(pair, 8)

@@ -2108,3 +2108,51 @@ def test_deadline_eviction_frees_pages_on_the_card(no_tf32):
     assert done.expired and len(done.tokens) == 16 and st["deadline_expired"] == 1
     assert not eng.pending
     assert st["pages_free"] + st["pages_cached_evictable"] == st["pages_total"]
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_guided_decoding_on_the_card(no_tf32, dtype):
+    """Grammar-constrained decoding at tiny width on the card: the two
+    unconstrained requests give the guided-off engine's tokens bit for bit
+    while a guided one shares their ticks; the guided completion walks its
+    grammar's byte DFA (a full match when it ended at EOS); K3 runs every
+    decode step and K1 every cold prefill; f32: prompt-lookup speculative
+    guided ticks give the plain guided tokens (K3-verify every round)."""
+    from ditl_tpu_torch.infer import grammar as G
+
+    sfx = "_f32" if dtype == "float32" else ""
+    eng = _card_engine(dtype, fsm_capacity=256)
+    tok = eng.tokenizer
+    g = G.compile_regex(r"[a-z ]{4,40}\.", tok)
+    reqs = [(p, {"grammar": g if i == 1 else None}) for i, p in enumerate(CARD_PROMPTS)]
+
+    def run(engine, requests):
+        tfa.reset_launches()
+        tpa.reset_launches()
+        rids = [engine.submit(p, max_new_tokens=32, temperature=0.0, **kw) for p, kw in requests]
+        done = {}
+        while engine.pending:
+            engine.step()
+            done.update({r.req_id: r for r in engine.take_finished()})
+        torch.cuda.synchronize()
+        return [done[r].tokens for r in rids]
+
+    got = run(eng, reqs)
+    st = eng.stats()
+    assert getattr(tpa, "launches_tail" + sfx) == 2 * st["decode_steps"] > 0
+    assert getattr(tfa, "launches" + sfx) == 2 * st["prefills_cold"] > 0
+    assert st["guided"]["grammars_registered"] == 1
+    off = run(_card_engine(dtype), [(p, {}) for p, _ in reqs])
+    assert [got[0], got[2]] == [off[0], off[2]]
+    text = tok.decode(got[1])
+    s = 0
+    for b in text.encode():
+        s = int(g.byte_next[s, b])
+        assert s >= 0, text
+    assert g.accept[s] or len(got[1]) == 32, text
+    if dtype == "float32":
+        spec = _card_engine(dtype, fsm_capacity=256, speculative=True, spec_k=4,
+                            spec_threshold=0.0)
+        assert run(spec, reqs) == got
+        assert tpa.launches_verify_f32 == 2 * spec.stats()["speculative"]["verify_rounds"] > 0

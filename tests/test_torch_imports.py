@@ -70,10 +70,10 @@ def test_port_package_has_modules():
                  "tools.profile_train", "ops.quant", "infer.speculative",
                  "client", "client.llm", "client.eval_loop", "chaos", "chaos.plane",
                  "telemetry", "telemetry.registry", "runtime", "runtime.distributed",
-                 "ops.encode"):
+                 "ops.encode", "native", "native.build", "native.fsm", "infer.grammar"):
         assert f"ditl_tpu_torch.{name}" in mods
     for source in ("flash_fwd.cu", "paged_attention.cu", "flash_bwd.cu", "mlp_bwd.cu",
-                   "projection_bwd.cu"):
+                   "projection_bwd.cu", "fsm.cpp"):
         assert (PORT / "csrc" / source).is_file()
 
 

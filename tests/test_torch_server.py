@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from ditl_tpu.config import ModelConfig as JaxModelConfig  # noqa: E402
 from ditl_tpu.data.tokenizer import ByteTokenizer as JaxByteTokenizer  # noqa: E402
 from ditl_tpu.infer.engine import GenerateConfig as JaxGenerateConfig  # noqa: E402
+from ditl_tpu.infer import grammar as JG  # noqa: E402
 from ditl_tpu.infer.engine import Generator as JaxGenerator  # noqa: E402
 from ditl_tpu.models import llama as jllama  # noqa: E402
 from ditl_tpu_torch.config import ModelConfig  # noqa: E402
@@ -874,3 +875,211 @@ def test_cli_admission_and_logprobs_k(capsys):
     with pytest.raises(SystemExit) as exc:
         tserver.create_server(base + ["--admission", "optimistic"])
     assert exc.value.code == 2 and "--admission optimistic requires" in capsys.readouterr().err
+
+
+# -- guided decoding (--fsm-capacity), against the JAX server ----------------------
+
+
+@pytest.fixture(scope="module")
+def guided_servers():
+    """The port's and the JAX package's continuous servers armed for guided
+    decoding over the same weights: ``armed`` (a 4096-row table, ``--logprobs-k
+    2``) and ``small`` (16 rows, no logprobs: a JSON grammar does not fit)."""
+    from ditl_tpu.infer import server as jserver
+    from ditl_tpu.infer.continuous import ContinuousEngine as JaxEngine
+    from ditl_tpu.infer.continuous import ThreadedEngine as JaxThreadedEngine
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine, ThreadedEngine
+
+    jcfg, cfg = JaxModelConfig(**TINY), ModelConfig(**TINY)
+    params = jllama.init_params(jax.random.key(0), jcfg)
+    tparams = params_from_jax(jax.device_get(params), cfg, "cpu")
+    base = dict(cache_mode="paged", n_slots=2, page_size=16, decode_chunk=4)
+    kinds = {"armed": dict(fsm_capacity=4096, logprobs_k=2), "small": dict(fsm_capacity=16)}
+    built, engines = {}, []
+    for kind, kw in kinds.items():
+        te = ThreadedEngine(ContinuousEngine(tparams, cfg, ByteTokenizer(), device="cpu",
+                                             **base, **kw))
+        jte = JaxThreadedEngine(JaxEngine(params, jcfg, JaxByteTokenizer(), **base, **kw))
+        engines += [te, jte]
+        built[("port", kind)] = tserver.make_server(
+            Generator(tparams, cfg, ByteTokenizer(), device="cpu"), port=0,
+            default_max_tokens=12, threaded_engine=te)
+        built[("jax", kind)] = jserver.make_server(
+            JaxGenerator(params, jcfg, JaxByteTokenizer()), port=0, default_max_tokens=12,
+            threaded_engine=jte)
+    threads = {}
+    for key, srv in built.items():
+        threads[key] = threading.Thread(target=srv.serve_forever, daemon=True)
+        threads[key].start()
+    try:
+        yield {key: f"http://127.0.0.1:{srv.server_address[1]}" for key, srv in built.items()}
+    finally:
+        for key, srv in built.items():
+            srv.close(drain=False)
+            threads[key].join(timeout=30)
+        for eng in engines:
+            eng.close()
+
+
+RECORD = {"type": "object", "properties": {
+    "n": {"type": "integer", "minimum": 0, "maximum": 99},
+    "u": {"anyOf": [{"const": "a"}, {"const": "b"}]}},
+    "required": ["n", "u"], "additionalProperties": False}
+
+# (server, payload): refused by both servers with one status and message, in
+# the reference's order of checks.
+GUIDED_REFUSALS = [
+    ("armed", {"guided_regex": "a+", "response_format": {"type": "json_object"}}),
+    ("armed", {"guided_regex": "a+", "guided_json": {"enum": ["x"]}}),
+    ("armed", {"guided_regex": "([unclosed"}),
+    ("armed", {"guided_regex": 5}),
+    ("armed", {"guided_json": 5}),
+    ("armed", {"guided_json": "{not json"}),
+    ("armed", {"guided_json": {"type": "integer", "minimum": 0}}),
+    ("armed", {"response_format": {"type": "json_schema", "json_schema": {"name": "x"}}}),
+    ("armed", {"guided_regex": "[0-9]+", "logprobs": 5}),
+    ("armed", {"guided_regex": "[0-9]+", "logprobs": 5, "stream": True}),
+    ("armed", {"guided_regex": "[0-9]+", "n": 2, "stream": True}),
+    ("small", {"guided_regex": "[0-9]+", "n": 1, "best_of": 2}),
+    ("small", {"response_format": {"type": "json_object"}}),
+]
+
+
+@pytest.mark.parametrize("kind,payload", GUIDED_REFUSALS)
+def test_guided_refusals_match_the_jax_server(guided_servers, kind, payload):
+    """Every guided refusal: two specs, a bad regex or schema, logprobs
+    beyond ``--logprobs-k`` (plain and streamed), ``best_of`` ranking
+    without logprobs, and the 503 of a table out of rows (with the restart
+    hint)."""
+    (ps, port), (js, ref) = (
+        _post_h(guided_servers[(side, kind)] + "/v1/completions", {"prompt": "hi", **payload})
+        for side in ("port", "jax"))
+    assert ps == js and ps in (400, 503), (port, ref)
+    assert port["error"]["message"] == ref["error"]["message"]
+    if kind == "small" and "json_object" in json.dumps(payload):
+        assert ps == 503 and "fsm_capacity exhausted" in port["error"]["message"]
+
+
+def test_guided_stream_answers_503_when_the_table_is_full(guided_servers):
+    """The eager stream submit's 503 (no restart hint): the status and text
+    the reference's streaming path sets (``status = 503 if "fsm_capacity" in
+    str(e)``), the message being the JAX engine's own refusal. The JAX server
+    itself answers 500 here: its handler binds ``QueueFullError`` by an
+    import later in the same function, so the ``except QueueFullError``
+    before the 503 raises ``UnboundLocalError``."""
+    from ditl_tpu.infer.continuous import ContinuousEngine as JaxEngine
+
+    jcfg = JaxModelConfig(**TINY)
+    jeng = JaxEngine(jllama.init_params(jax.random.key(0), jcfg), jcfg, JaxByteTokenizer(),
+                     cache_mode="paged", page_size=16, fsm_capacity=16)
+    with pytest.raises(ValueError) as ref:
+        jeng.register_grammar(JG.compile_json(JaxByteTokenizer()))
+    payload = {"prompt": "hi", "response_format": {"type": "json_object"}, "stream": True}
+    status, body = _post_h(guided_servers[("port", "small")] + "/v1/completions", payload)
+    assert status == 503 and body["error"]["message"] == str(ref.value)
+    status, body = _post_h(guided_servers[("jax", "small")] + "/v1/completions", payload)
+    assert status == 500 and "QueueFullError" in body["error"]["message"]
+
+
+# (route, payload): guided completions whose greedy text the JAX server gives
+GUIDED_SERVED = [
+    ("/v1/completions", {"prompt": "pin:", "guided_regex": "[0-9]{4}"}),
+    ("/v1/completions", {"prompt": "color:", "guided_json": {"enum": ["on", "off"]}}),
+    ("/v1/completions", {"prompt": "rec:", "guided_json": json.dumps(RECORD)}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "emit json"}],
+                              "response_format": {"type": "json_object"}}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "extract"}],
+                              "response_format": {"type": "json_schema", "json_schema": {
+                                  "name": "rec", "schema": RECORD}}}),
+    ("/v1/completions", {"prompt": "year:", "guided_regex": "[0-9]{4}", "logprobs": 2}),
+    ("/v1/completions", {"prompt": "pick", "guided_regex": "(yes|no)", "n": 2, "best_of": 3}),
+    ("/v1/completions", {"prompt": "id:", "guided_regex": "[a-f]{6}", "slo_class": "batch",
+                         "deadline_s": 60}),
+]
+
+
+@pytest.mark.parametrize("route,payload", GUIDED_SERVED)
+def test_guided_completions_match_the_jax_server(guided_servers, route, payload):
+    (ps, port), (js, ref) = (_post_h(guided_servers[(side, "armed")] + route, payload)
+                             for side in ("port", "jax"))
+    assert ps == js == 200, (port, ref)
+    key = "message" if "chat" in route else "text"
+    got = [(c.get(key), c["finish_reason"]) for c in port["choices"]]
+    assert got == [(c.get(key), c["finish_reason"]) for c in ref["choices"]]
+    assert port["usage"] == ref["usage"]
+    if payload.get("logprobs"):
+        a, b = port["choices"][0]["logprobs"], ref["choices"][0]["logprobs"]
+        assert a["tokens"] == b["tokens"] and a["text_offset"] == b["text_offset"]
+        assert a["token_logprobs"] == pytest.approx(b["token_logprobs"], abs=1e-5)
+    if "guided_regex" in payload:
+        import re
+
+        for c in port["choices"]:
+            assert re.fullmatch(payload["guided_regex"], c["text"]), c
+
+
+def _sse_concat(url, payload):
+    import http.client
+
+    host, port = url[len("http://"):].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=120)
+    try:
+        conn.request("POST", "/v1/completions", json.dumps({**payload, "stream": True}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200
+        text = ""
+        for line in resp.read().decode().splitlines():
+            if line.startswith("data: ") and line != "data: [DONE]":
+                text += json.loads(line[6:])["choices"][0]["text"]
+        return text
+    finally:
+        conn.close()
+
+
+def test_guided_stream_concatenates_to_the_unstreamed_text(guided_servers):
+    """A guided SSE stream's chunks concatenate to the unstreamed completion,
+    the JAX server's stream to the same text."""
+    import re
+
+    payload = {"prompt": "id:", "guided_regex": "[a-f]{6}", "max_tokens": 10}
+    status, whole = _post_h(guided_servers[("port", "armed")] + "/v1/completions", payload)
+    assert status == 200
+    text = _sse_concat(guided_servers[("port", "armed")], payload)
+    assert text == whole["choices"][0]["text"] == _sse_concat(
+        guided_servers[("jax", "armed")], payload)
+    assert re.fullmatch(r"[a-f]{6}", text)
+
+
+def test_guided_stats_block_matches_the_jax_server(guided_servers):
+    """``/v1/stats`` carries the engine's ``guided`` block: after the same
+    grammars, the same rows used and grammars registered as the JAX
+    server's (the small table untouched by the 503s)."""
+    for kind in ("armed", "small"):
+        payload = {"prompt": "q", "guided_regex": "[ab]+", "max_tokens": 4}
+        for side in ("port", "jax"):
+            assert _post_h(guided_servers[(side, kind)] + "/v1/completions", payload)[0] == 200
+        port, ref = (_get(guided_servers[(side, kind)] + "/v1/stats")[1]["guided"]
+                     for side in ("port", "jax"))
+        assert port == ref and port["fsm_capacity"] == (4096 if kind == "armed" else 16)
+
+
+def test_cli_fsm_capacity(capsys):
+    """``--fsm-capacity`` arms the continuous engine; on the lock-step engine
+    it is the reference's parser error."""
+    base = ["--device", "cpu", "--port", "0", "--host", "127.0.0.1",
+            "--override", "num_layers=1", "--override", "vocab_size=300",
+            "--override", "max_seq_len=128"]
+    srv = tserver.create_server(base + ["--engine", "continuous", "--cache-mode", "paged",
+                                        "--page-size", "16", "--fsm-capacity", "64"])
+    try:
+        te = srv.RequestHandlerClass.threaded_engine
+        assert te.guided and te.stats()["guided"] == {
+            "fsm_capacity": 64, "fsm_rows_used": 2, "grammars_registered": 0}
+    finally:
+        srv.server_close()
+        srv.engine.close()
+    with pytest.raises(SystemExit) as exc:
+        tserver.create_server(base + ["--fsm-capacity", "64"])
+    assert exc.value.code == 2 and ("--fsm-capacity (guided decoding) requires --engine "
+                                    "continuous") in capsys.readouterr().err
