@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --path20`` runs paths 1, 2 and 20 alone,
-``--path21`` paths 1, 2 and 21, and ``--path22`` paths 1, 2 and 22 (no
-kernels line). ``python3 chip_smoke.py
+``--path21`` paths 1, 2 and 21, ``--path22`` paths 1, 2 and 22, and
+``--path23`` paths 1, 2 and 23 (no kernels line). ``python3 chip_smoke.py
 --paged-rows [--sweep] [TREE]`` and ``--f32-mm [--sweep] [TREE]`` time one
 kernel family on TREE's ``ditl_tpu_torch``
 (default: this checkout's; ``tree_main``), so that a parent commit unpacked
@@ -248,6 +248,23 @@ no result line. It imports nothing of JAX or of the JAX package.
    answer 200 with conforming text, a guided stream concatenates to the
    unstreamed text, two specs 400, ``/v1/stats`` the guided block, and a
    64-row server 503 for a JSON grammar (streamed too) with no rows taken.
+6a.6. Main path 23, the contiguous KV cache (``phase_serve_contiguous``),
+   over path 1's weights at full width and depth, 8 slots, context 2048:
+   path 2's 12 requests over HTTP to the engine as ``--engine continuous``
+   builds it with no ``--cache-mode``: greedy tokens against path 2's by the
+   ``RESUME_TIE_TOL`` rule, sampled ones repeated per seed, K1 on every
+   cold prefill whose bucket tiles, no paged kernel, no page field on
+   ``/health`` or ``/v1/stats``, the cache's 2 GiB beside its reckoning;
+   ``register_prefix`` of the 601-token shared prefix (four hits, no K1, the
+   cold tokens by the rule, the stored logits' token for a prompt equal to
+   the prefix, ``clear_prefixes`` freeing the row); the paged warm on path
+   2's engine shape (K1 on the warm, 512 hit tokens for each shared request
+   at admission, ``prefill_tok_per_s``; a no-op on a one-page pool); ms per
+   decode step contiguous against paged, ``register_prefix`` ms on both
+   modes and a prefix hit's TTFT against a cold prompt's. At depth 2:
+   chunked prefill (384-token chunks under a 640-token budget, no K1),
+   lookup speculation, a guided JSON request and logprobs give the plain
+   contiguous ticks' tokens by the rule; int8 KV the paged int8 engine's.
 6b. Main path 6, int8 serving: the bf16 serving state is freed, then
    ``infer/server.py --quantize int8 --kv-quant int8 --engine continuous
    --cache-mode paged`` is built in process (``llama3-8b``, full width and
@@ -4528,12 +4545,13 @@ def _preempt_leg(gen, flash, paged, payloads, tag: str, **engine_kw) -> dict:
             "preempted": preempted}
 
 
-def _resume_tie_check(gen, cfg, prompt_ids, got, ref, tag: str, what: str):
+def _resume_tie_check(gen, cfg, prompt_ids, got, ref, tag: str, what: str,
+                      labels: tuple = ("uncontended", "resumed")):
     """``got`` (a resumed request's tokens) against ``ref`` (the same
-    request uncontended): None when identical, else the first diverging
-    step, the two candidates' logit gap and the top-2 gap of one plain
-    forward over the common prefix, logged; the candidates' gap must be
-    under ``RESUME_TIE_TOL``."""
+    request uncontended; ``labels`` name the two in the log as (ref, got)):
+    None when identical, else the first diverging step, the two candidates'
+    logit gap and the top-2 gap of one plain forward over the common
+    prefix, logged; the candidates' gap must be under ``RESUME_TIE_TOL``."""
     n = min(len(got), len(ref))
     i = next((j for j in range(n) if got[j] != ref[j]), None)
     if i is None and len(got) == len(ref):
@@ -4548,7 +4566,7 @@ def _resume_tie_check(gen, cfg, prompt_ids, got, ref, tag: str, what: str):
         logits = _prefill_logits(gen, cfg, prompt_ids + ref[:i]).float()
     gap = abs(float(logits[a] - logits[b]))
     top2 = torch.topk(logits, 2).values
-    log(f"[{tag}] {what}: first divergence at step {i} ({a} uncontended, {b} resumed), "
+    log(f"[{tag}] {what}: first divergence at step {i} ({a} {labels[0]}, {b} {labels[1]}), "
         f"candidates' logit gap {gap:.4f}, top-2 gap {float(top2[0] - top2[1]):.4f} "
         f"(RESUME_TIE_TOL {RESUME_TIE_TOL})")
     require(gap < RESUME_TIE_TOL, (tag, what, i, a, b, gap))
@@ -5259,6 +5277,343 @@ def phase_serve_guided(gen, flash, paged) -> dict:
     add(_guided_http(gen, flash, paged, grammars))
     log(f"[guided] path 22 launches {total}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return total
+
+
+def _paged_silent(paged, launches: dict) -> bool:
+    """No paged kernel launched: every paged counter of ``launches`` (a
+    ``_run_counted`` result) is zero."""
+    return all(launches[c] == 0 for c in paged._COUNTERS.values())
+
+
+def phase_serve_contiguous(gen, flash, paged, bf16: dict) -> dict:
+    """Main path 23, the continuous engine over the contiguous KV cache
+    (the reference's default), over path 1's weights at full width and
+    depth, 8 slots, context 2048. (1) Path 2's 12 requests over HTTP to the
+    engine as ``infer/server.py --engine continuous`` builds it with no
+    ``--cache-mode`` flag: greedy tokens against path 2's paged engine by
+    the divergence rule (``_resume_tie_check``), the sampled requests
+    repeated per seed, K1 ``num_layers`` times on every cold prefill whose
+    bucket tiles, no paged kernel; ``/health`` and ``/v1/stats`` without
+    page fields; the cache's bytes beside their reckoning. (2)
+    ``register_prefix`` of the 600-character shared prefix (BOS and its
+    600 tokens): the four shared-prefix requests hit, give the cold run's
+    tokens by the rule and launch no K1; a prompt equal to the prefix takes
+    the stored logits' token; ``clear_prefixes`` returns the row's bytes;
+    TTFT of a prefix hit against a cold prompt of the same length. (3)
+    ``register_prefix`` on path 2's engine shape warms two full pages (K1
+    on the warm), after which the four requests hit 512 tokens each at
+    their first admission and ``prefill_tok_per_s`` appears; a warm on a
+    one-page pool is a logged no-op. (4) ms per decode step, contiguous
+    against paged, on the same eight requests in turns. (5) At depth 2
+    (views of path 1's first two layers) the contiguous plain ticks'
+    greedy tokens, by the rule, from chunked prefill (384-token chunks, no
+    page multiple, under a 640-token budget; no K1), prompt-lookup
+    speculative ticks, a guided JSON request beside unconstrained ones and
+    logprobs (within ``LP_BF16_TOL`` of the lock-step Generator's); int8 KV
+    on the contiguous cache against the paged int8 engine's tokens. No
+    contiguous leg launches a paged kernel. Returns the path's launch
+    counts."""
+    import gc
+
+    import torch
+
+    from ditl_tpu_torch.infer import grammar as G
+    from ditl_tpu_torch.infer import server as server_mod
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+    from ditl_tpu_torch.infer.engine import GenerateConfig, Generator, _next_pow2
+
+    t_path = time.perf_counter()
+    cfg, tok = gen.cfg, gen.tokenizer
+    n_l = cfg.num_layers
+    total = {"flash_fwd": 0, "paged_tail": 0, "paged_tail_int8": 0}
+
+    def add(launches):
+        total["flash_fwd"] += launches["flash_fwd"]
+        total["paged_tail"] += launches["launches_tail"]
+        total["paged_tail_int8"] += launches["launches_tail_int8"]
+
+    # (1) the default server configuration, over HTTP
+    args = server_mod._parser().parse_args(["--engine", "continuous", "--max-cache-len", "2048"])
+    require(args.cache_mode == "contiguous", args)
+    engine = ContinuousEngine(gen.params, cfg, tok, n_slots=args.slots,
+                              max_cache_len=args.max_cache_len, cache_mode=args.cache_mode,
+                              prefill_chunk=args.prefill_chunk, device="cuda")
+    cache_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
+    es = engine.cache["k"].element_size()
+    per_token = 2 * n_l * cfg.num_kv_heads * cfg.head_dim * es  # K and V
+    require(cache_bytes == per_token * 8 * 2048, (cache_bytes, per_token))
+    log(f"[contiguous] engine built as --engine continuous with no --cache-mode: cache "
+        f"{cache_bytes / 2**30:.3f} GiB = 2 x {n_l} layers x {cfg.num_kv_heads} KV heads x "
+        f"{cfg.head_dim} x {es} B = {per_token / 1024:g} KiB a token x 8 slots x 2048 tokens "
+        f"(path 2's pools {bf16['pool_bytes'] / 2**30:.3f} GiB, the sentinel page included)")
+    buckets = []
+    cold_prefill = engine._cold_prefill
+
+    def rec_cold(prompt, slot):
+        buckets.append(min(_next_pow2(len(prompt), floor=16), engine.smax))
+        return cold_prefill(prompt, slot)
+
+    engine._cold_prefill = rec_cold
+    threaded = _recording_engine(engine)
+    server = server_mod.make_server(gen, threaded_engine=threaded, host="127.0.0.1",
+                                    port=0, model_name=cfg.name)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    requests, _ = _continuous_requests()
+    try:
+        flash.reset_launches()
+        paged.reset_launches()
+        results, wall = _send_continuous(url, requests, engine)
+        sampled = [p for p in requests if p.get("temperature")]
+        for payload in sampled:  # each again: the same tokens per seed
+            status, body = _http("POST", url + "/v1/completions", payload)
+            require(status == 200, body)
+        k1 = flash.launches
+        others = sum(getattr(paged, c) for c in paged._COUNTERS.values())  # read right after
+        st = engine.stats()
+        health = _http("GET", url + "/health")
+        stats = _http("GET", url + "/v1/stats")
+    finally:
+        server.close(drain=True)
+        thread.join(timeout=30)
+    require(not thread.is_alive() and not threaded._thread.is_alive(), "server did not stop")
+    engine._cold_prefill = cold_prefill
+    require(health[0] == stats[0] == 200 and stats[1]["cache_mode"] == "contiguous"
+            and not any(k.startswith("page") for k in list(health[1]) + list(stats[1])),
+            (health, stats))
+    tiling = sum(flash.supports(b, b, cfg.head_dim) for b in buckets)
+    require(others == 0 and k1 == n_l * tiling == n_l * st["prefills_cold"] > 0,
+            (k1, others, buckets, st["prefills_cold"]))
+    total["flash_fwd"] += k1
+    same, n_tokens = 0, 0
+    for i, payload in enumerate(requests):
+        status, body, _ = results[i]
+        require(status == 200, (i, status, body))
+        n_tokens += body["usage"]["completion_tokens"]
+        ids = [tok.bos_id] + tok.encode(payload["prompt"])
+        key = (tuple(ids), payload["max_tokens"])
+        got = threaded.outputs[key]
+        if payload.get("temperature"):
+            require(len(got) == 2 and got[0] == got[1], (i, got))
+            continue
+        same += _resume_tie_check(gen, cfg, ids, got[0], bf16["outputs"][key][0],
+                                  "contiguous", f"request {i} against path 2's",
+                                  ("paged", "contiguous")) is None
+    tick_ms = st["decode_seconds"] / st["decode_ticks"] * 1e3
+    log(f"[contiguous] {len(requests)} concurrent requests in {wall:.3f}s wall, {n_tokens} "
+        f"tokens; greedy tokens against path 2's paged engine: {same} of "
+        f"{len(requests) - len(sampled)} identical; the {len(sampled)} sampled requests "
+        f"repeat per seed (sent again one by one); K1 {k1} = {n_l} x {tiling} cold prefills "
+        f"whose bucket tiles "
+        f"(buckets {sorted(buckets)}), no paged kernel; decode {tick_ms / engine.decode_chunk:.2f} ms a step "
+        f"(host clock); /health {sorted(health[1])}")
+
+    # (2) register_prefix on the contiguous cache
+    prefix = [tok.bos_id] + tok.encode(requests[0]["prompt"][:600])
+    shared = [([tok.bos_id] + tok.encode(p["prompt"]), {"max_new_tokens": p["max_tokens"],
+                                                         "temperature": 0.0})
+              for p in requests[:4]]
+    require(all(ids[:len(prefix)] == prefix for ids, _ in shared), "no shared prefix")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    engine.register_prefix(prefix)
+    torch.cuda.synchronize()
+    reg_ms = (time.perf_counter() - t) * 1e3
+    row, last, n_prefix = engine._prefixes[tuple(prefix)]
+    row_bytes = sum(x.numel() * x.element_size() for x in row.values())
+    want_first = int(last.argmax())
+    del row, last
+    hit0 = engine.stats()["prefix_cache"]["hit_tokens"]
+    got, launches = _run_counted(engine, flash, paged, shared)
+    hit = engine.stats()["prefix_cache"]["hit_tokens"] - hit0
+    require(hit == 4 * n_prefix and launches["flash_fwd"] == 0
+            and _paged_silent(paged, launches), (hit, launches))
+    same = sum(_resume_tie_check(gen, cfg, ids, r.tokens,
+                                 threaded.outputs[(tuple(ids), kw["max_new_tokens"])][0],
+                                 "contiguous-prefix", f"shared request {i}",
+                                 ("cold", "prefix hit")) is None
+               for i, ((ids, kw), r) in enumerate(zip(shared, got)))
+    whole, launches = _run_counted(engine, flash, paged,
+                                   [(prefix, {"max_new_tokens": 1, "temperature": 0.0})])
+    require(whole[0].tokens == [want_first] and launches["flash_fwd"] == 0,
+            (whole[0].tokens, want_first, launches))
+    ttft = {"prefix hit": [], "cold": []}
+    probes = [("prefix hit", prefix + tok.encode(" " + _text(150, 300))),
+              ("cold", [tok.bos_id] + tok.encode(_text(151, 901)))]
+    for label, ids in probes + probes[::-1]:  # in turns, there and back
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, launches = _run_counted(engine, flash, paged, [(ids, {"max_new_tokens": 1,
+                                                                  "temperature": 0.0})])
+        ttft[label].append((time.perf_counter() - t) * 1e3)
+        add(launches)
+        require(_paged_silent(paged, launches) and (launches["flash_fwd"] == 0)
+                == (label == "prefix hit"), (label, launches))
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    engine.clear_prefixes()
+    gc.collect()
+    freed = m0 - torch.cuda.memory_allocated()
+    require(engine._prefixes == {} and freed >= row_bytes, (freed, row_bytes))
+    log(f"[contiguous-prefix] register_prefix of {n_prefix} tokens (bucket "
+        f"{_next_pow2(n_prefix)}) {reg_ms:.1f} ms (host clock, synchronised); the 4 "
+        f"shared-prefix requests hit {hit} tokens = 4 x {n_prefix}, no K1, {same} of 4 "
+        f"the cold run's tokens; the prompt equal to the prefix took the stored logits' "
+        f"token {want_first}; time to the first harvested token of a 902-token prompt "
+        f"(one 16-step tick included; in turns, there and back): prefix hit "
+        f"{ttft['prefix hit'][0]:.1f} / {ttft['prefix hit'][1]:.1f} ms, cold "
+        f"{ttft['cold'][0]:.1f} / {ttft['cold'][1]:.1f} ms; clear_prefixes freed {freed / 2**20:.1f} MiB (the row "
+        f"{row_bytes / 2**20:.1f} MiB; {SMI})")
+
+    # (3) register_prefix on pages: a warm
+    peng = _paged_engine(gen.params, cfg, tok)
+    flash.reset_launches()
+    paged.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    peng.register_prefix(prefix)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t) * 1e3
+    k1 = flash.launches
+    pst = peng.stats()
+    require(k1 == n_l and peng.prefill_tokens_total == 512
+            and pst["pages_cached_evictable"] == 2 and "prefill_tok_per_s" in pst,
+            (k1, peng.prefill_tokens_total, pst))
+    total["flash_fwd"] += k1
+    got, launches = _run_counted(peng, flash, paged, shared)
+    add(launches)
+    pst = peng.stats()
+    require(pst["prefix_cache"]["hit_tokens"] == 4 * 512 and launches["flash_fwd"] == 0
+            and launches["launches_tail"] == n_l * pst["decode_steps"],
+            (pst["prefix_cache"], launches))
+    same_p = sum(_resume_tie_check(gen, cfg, ids, r.tokens,
+                                   bf16["outputs"][(tuple(ids), kw["max_new_tokens"])][0],
+                                   "paged-warm", f"shared request {i}",
+                                   ("path 2", "warmed")) is None
+                 for i, ((ids, kw), r) in enumerate(zip(shared, got)))
+    small = _paged_engine(gen.params, cfg, tok, n_pages=2)
+    free0 = small.stats()["pages_free"]
+    small.register_prefix(prefix)
+    sst = small.stats()
+    require(sst["pages_free"] == free0 == 1 and "prefill_tok_per_s" not in sst, sst)
+    del small
+    log(f"[paged-warm] register_prefix on path 2's engine: 2 full pages (512 tokens) "
+        f"prefilled and published in {warm_ms:.1f} ms (host clock, synchronised; K1 {k1} = "
+        f"{n_l} x 1), prefill_tok_per_s {pst['prefill_tok_per_s']}; the 4 shared-prefix "
+        f"requests then hit {pst['prefix_cache']['hit_tokens']} tokens at their first "
+        f"admission, no K1, {same_p} of 4 path 2's tokens; a warm on a one-page pool left "
+        f"pages_free at {sst['pages_free']}")
+
+    # (4) ms per decode step, contiguous against paged, in turns
+    prompts = [[tok.bos_id] + tok.encode(_text(160 + i, 200)) for i in range(8)]
+    reqs = [(p, {"max_new_tokens": 48, "temperature": 0.0}) for p in prompts]
+    legs = [("contiguous", engine), ("paged", peng)]
+    step_ms = {label: [] for label, _ in legs}
+    outs = {}
+    for label, eng in legs + legs[::-1]:
+        s0, n0 = eng.decode_seconds, eng.decode_steps
+        got, launches = _run_counted(eng, flash, paged, reqs)
+        add(launches)
+        if label == "contiguous":
+            require(_paged_silent(paged, launches), launches)
+        step_ms[label].append((eng.decode_seconds - s0) / (eng.decode_steps - n0) * 1e3)
+        outs.setdefault(label, [r.tokens for r in got])
+    same_t = sum(_resume_tie_check(gen, cfg, p, a, b, "contiguous-timing", f"request {i}",
+                                   ("paged", "contiguous")) is None for i, (p, a, b) in enumerate(zip(prompts, outs["contiguous"],
+                                                          outs["paged"])))
+    log(f"[contiguous-timing] a decode step of 8 slots at full width, 48 tokens each: "
+        + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} ms" for k, v in step_ms.items())
+        + f" (host clock, in turns, there and back); {same_t} of 8 the same tokens ({SMI})")
+    del engine, peng, threaded, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (5) depth 2: the other tick kinds on the contiguous cache
+    cfg2, params2 = _depth2_model(gen)
+    gen2 = Generator(params2, cfg2, tok, device="cuda")
+    span = [[tok.bos_id] + tok.encode(r["prompt"]) for r in _span_requests()]
+    reqs2 = [(p, {"max_new_tokens": 48, "temperature": 0.0}) for p in span]
+
+    def engine2(c=cfg2, w=params2, **kw):
+        return ContinuousEngine(w, c, tok, n_slots=8, decode_chunk=16, max_cache_len=2048,
+                                device="cuda", **kw)
+
+    def check(tag, g, got, ref, c=cfg2, reqs_=reqs2, labels=None):
+        return sum(_resume_tie_check(g, c, p, a.tokens, b.tokens, f"contiguous-{tag}",
+                                     f"request {i}", labels or ("plain", tag)) is None
+                   for i, ((p, _), a, b) in enumerate(zip(reqs_, got, ref)))
+
+    plain, launches = _run_counted(engine2(), flash, paged, reqs2)
+    require(_paged_silent(paged, launches), launches)
+    add(launches)
+    notes = []
+    for tag, kw in (("chunked", dict(prefill_chunk=384, token_budget=640)),
+                    ("lookup", dict(speculative=True, spec_threshold=0.0))):
+        eng = engine2(**kw)
+        got, launches = _run_counted(eng, flash, paged, reqs2)
+        est = eng.stats()
+        require(_paged_silent(paged, launches)
+                and launches["flash_fwd"] == 2 * est["prefills_cold"]
+                and (tag != "chunked" or (est["prefills_cold"] == 0
+                                          and est["max_tick_prefill_tokens"] <= 640)),
+                (tag, launches, est["prefills_cold"]))
+        add(launches)
+        extra = (f", {est['speculative']['tokens_per_row_forward']:.3f} tokens per row "
+                 f"forward" if tag == "lookup" else
+                 f", largest tick prefill {est['max_tick_prefill_tokens']} tokens, no K1")
+        notes.append(f"{tag} {check(tag, gen2, got, plain)} of 4{extra}")
+    record = G.compile_json_schema(GUIDED_SPECS["record"][1], tok)
+    greqs = [(p, {**kw, "grammar": record if i == 0 else None})
+             for i, (p, kw) in enumerate(reqs2)]
+    got, launches = _run_counted(engine2(fsm_capacity=GUIDED_CAPACITY), flash, paged, greqs)
+    require(_paged_silent(paged, launches), launches)
+    add(launches)
+    text = tok.decode(got[0].tokens)
+    at_eos = len(got[0].tokens) < 48
+    require(_walk_ok(record, text, at_eos), text)
+    if at_eos:
+        json.loads(text)
+    notes.append(f"guided JSON {text!r} beside "
+                 f"{check('guided', gen2, got[1:], plain[1:], reqs_=reqs2[1:])} of 3 "
+                 f"unconstrained the plain tokens")
+    got, launches = _run_counted(engine2(logprobs_k=5), flash, paged,
+                                 [(p, {**kw, "logprobs": 5}) for p, kw in reqs2])
+    require(_paged_silent(paged, launches), launches)
+    add(launches)
+    same = check("logprobs", gen2, got, plain)
+    errs = []
+    for (p, _), r in zip(reqs2, got):
+        ref_out, ref_lp = gen2.generate_tokens_with_logprobs(
+            [p], GenerateConfig(max_new_tokens=48, logprobs=5))
+        n = next((j for j, (a, b) in enumerate(zip(r.tokens, ref_out[0])) if a != b),
+                 min(len(r.tokens), len(ref_out[0])))
+        require(n > 0 and [ids[0] for ids in r.lp_top_ids] == r.tokens, (n, r.tokens))
+        errs.append(max(abs(a - b) for a, b in zip(r.lp_token[:n],
+                                                   ref_lp[0]["token_logprobs"][:n])))
+    require(max(errs) < LP_BF16_TOL, errs)
+    notes.append(f"logprobs {same} of 4, chosen logprobs within {max(errs):.5f} of the "
+                 f"lock-step Generator's (LP_BF16_TOL {LP_BF16_TOL})")
+    cfg8, params8 = _depth2_model(gen, kv_int8=True)
+    c8, launches = _run_counted(engine2(cfg8, params8), flash, paged, reqs2)
+    require(_paged_silent(paged, launches), launches)
+    add(launches)
+    peng8 = engine2(cfg8, params8, cache_mode="paged", page_size=256)
+    p8, launches = _run_counted(peng8, flash, paged, reqs2)
+    require(launches["launches_tail_int8"] == 2 * peng8.stats()["decode_steps"], launches)
+    add(launches)
+    gen8 = Generator(params8, cfg8, tok, device="cuda")
+    notes.append(f"int8 KV {check('int8', gen8, c8, p8, c=cfg8, labels=('paged', 'contiguous'))}"
+                 f" of 4 the paged int8 engine's")
+    log(f"[contiguous-depth2] against the plain contiguous ticks' greedy tokens: "
+        + "; ".join(notes) + "; no paged kernel on any contiguous leg")
+    del gen2, gen8, peng8
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[contiguous] path 23 launches {total} in {time.perf_counter() - t_path:.1f}s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return total
 
 
@@ -8454,6 +8809,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path22 = phase_serve_guided(gen, flash, paged)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path23 = phase_serve_contiguous(gen, flash, paged, bf16_summary)
     # Free the bf16 serving weights and pools before path 6's int8 ones.
     del gen, bf16_summary["outputs"]
     gc.collect()
@@ -8596,7 +8954,10 @@ def main() -> int:
         launches[name] += n
     for name, n in path22.items():  # path 22: grammar-constrained decoding
         launches[name] += n
+    for name, n in path23.items():  # path 23: the contiguous cache, prefixes
+        launches[name] += n
     require(min(path22[k] for k in ("flash_fwd", "paged_tail", "paged_verify")) >= 1, path22)
+    require(path23["flash_fwd"] >= 1, path23)
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
             (lockstep, continuous))
     # Paths 14 (D = 32), 15 (D = 256), 16 (G = 16) and 17 (D = 96): their
@@ -8633,6 +8994,7 @@ def main() -> int:
                         "launches_path_20": path20.get(name, 0),
                         "launches_path_21": path21.get(name, 0),
                         "launches_path_22": path22.get(name, 0),
+                        "launches_path_23": path23.get(name, 0),
                         "max_abs_err": errors[name], **timings[name],
                         "at_head_dims": hd_timings.get(name, {}),
                         "at_shapes": shape_timings.get(name, {})})
@@ -8641,7 +9003,8 @@ def main() -> int:
         f"chunked prefill under a budget (path 19) {path19}, "
         f"lock-step speculative {lockstep_spec}, streaming, embeddings and API eval "
         f"(path 20) {path20}, preemption, logprobs and deadlines (path 21) {path21}, "
-        f"grammar-constrained decoding (path 22) {path22}, "
+        f"grammar-constrained decoding (path 22) {path22}, the contiguous cache and "
+        f"registered prefixes (path 23; K3 from its paged legs only) {path23}, "
         f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
         f"f32 serving {f32_serve}, f32 speculative {f32_spec}, f32 over int8 pools "
         f"{f32_int8_serve}, its speculation {f32_int8_spec}, float16 serving {f16_serve}, "
@@ -8781,7 +9144,36 @@ def path22_main() -> int:
     return 0
 
 
+def path23_main() -> int:
+    """``--path23``: the card, the build, paths 1 and 2 (path 23's weights
+    and path 2's tokens, its yardstick), then path 23 alone; no kernels
+    line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the card", file=sys.stderr)
+        return 1
+    from ditl_tpu_torch.ops import flash_attention as flash
+    from ditl_tpu_torch.ops import paged_attention as paged
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_card()
+    phase_build()
+    gen, _ = phase_serve(flash, paged)
+    _, bf16_summary = phase_serve_continuous(gen, flash, paged)
+    t0 = time.perf_counter()
+    launches = phase_serve_contiguous(gen, flash, paged, bf16_summary)
+    require(launches["flash_fwd"] >= 1, launches)
+    log(f"[done] path 23 in {time.perf_counter() - t0:.1f}s, all in "
+        f"{time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--path23"]:
+        sys.exit(path23_main())
     if sys.argv[1:2] == ["--path20"]:
         sys.exit(path20_main())
     if sys.argv[1:2] == ["--path21"]:

@@ -9,9 +9,11 @@ together, as the reference. ``write_kv`` writes in place (the reference
 returns a new array) and quantizes on the way in; ``read_kv`` dequantizes.
 
 ``write_kv`` takes a scalar slot (every row at the same depth) or a (B,)
-tensor of per-row slots (the speculative verify, where each row sits at its
-own depth): ``_scatter_rows`` is the reference's gather-and-select
-formulation (positions past the cache are dropped), copied into the cache.
+tensor of per-row slots (the continuous engine's decode and verify, where
+each row sits at its own depth): ``_scatter_rows`` is the reference's
+gather-and-select formulation (positions past the cache are dropped),
+copied into the cache; a one-token write is an indexed write of the B
+slots instead, with the same result.
 ``scatter_tail`` does the same for the paged decode tick's tail buffer.
 """
 
@@ -94,6 +96,19 @@ def write_kv(layer_cache: dict, k: torch.Tensor, v: torch.Tensor,
         (chunks["k"], chunks["k_scale"]), (chunks["v"], chunks["v_scale"]) = (
             _quantize(k), _quantize(v))
     if isinstance(idx, torch.Tensor) and idx.dim() == 1:
+        if s == 1:
+            # one token a row (the contiguous decode step): an indexed write
+            # of the B slots; a row whose slot lies outside the cache writes
+            # back the value already at its clamped slot
+            rows = torch.arange(idx.shape[0], device=idx.device)
+            smax = layer_cache["k"].shape[1]
+            at = idx.long().clamp(0, smax - 1)
+            keep = (idx >= 0) & (idx < smax)
+            for name in names:
+                c = layer_cache[name]
+                m = keep.reshape((-1,) + (1,) * (c.dim() - 2))
+                c[rows, at] = torch.where(m, chunks[name][:, 0].to(c.dtype), c[rows, at])
+            return layer_cache
         for name in names:
             layer_cache[name].copy_(_scatter_rows(layer_cache[name], chunks[name], idx))
         return layer_cache

@@ -1,17 +1,36 @@
-"""Continuous batching over the paged KV cache.
+"""Continuous batching over the contiguous or the paged KV cache.
 
-Counterpart of the JAX package's ``infer/continuous.py``, in its paged
-configuration: ``cache_mode="paged"``, reserve or optimistic admission,
+Counterpart of the JAX package's ``infer/continuous.py`` on one device:
+both cache modes (``cache_mode="contiguous"``, the default, and
+``"paged"``), reserve or optimistic admission (pages only),
 whole-prompt or chunked prefill under an optional per-tick token budget,
 plain and speculative decode ticks (drafts by prompt lookup or by a draft
-model), per-token logprobs, request deadlines, float or int8 pools, one
-device, and automatic prefix reuse (which paged mode always does).
+model), per-token logprobs, request deadlines, float or int8 caches,
+registered prefixes (contiguous) and automatic prefix reuse (paged).
 Requests join and leave between decode ticks:
 
 - **Slots.** ``n_slots`` sequences decode together, each at its own
   position; every tick runs all slots, live or not (fixed shapes).
-- **Page pool.** KV lives in one pool of pages per K and V, (L, P, K, ps, D);
-  a per-slot page table maps logical block -> physical page
+- **Contiguous cache** (``cache_mode="contiguous"``): one (L, n_slots,
+  smax, K, D) K/V pair (``infer/cache.init_cache``; int8 adds per-position
+  scales), a row per slot. A cold prompt is prefilled causally over its
+  bucket (``next_pow2``, at least 16) into a view of its row (K1 where the
+  bucket tiles); a prompt that starts with a ``register_prefix``-ed prefix
+  (the longest wins) gets the prefix's stored row copied in and prefills
+  only the rest, by the masked plain path (a prompt equal to the prefix
+  samples the stored last logits, no forward). Chunked prompts (any
+  positive ``prefill_chunk``) park the row at ``pos = smax - 1`` and run
+  every chunk as such a suffix prefill, tail chunks near the row's end in
+  a smaller window. A decode step is a (B, 1) forward over every row at
+  its own ``pos`` (a per-row write, then attention over slots <= pos, the
+  plain masked path, as the reference computes it outside any kernel);
+  dead, free and parked rows write at their ``pos`` too, which nothing
+  attends before it is overwritten. Positions stop at ``smax - 1``. A
+  speculative round's (B, k+1) verify writes each row's window at its depth
+  the same way; rejected positions stay masked until the next window.
+  Optimistic admission and the host tier need pages and are refused.
+- **Page pool** (``cache_mode="paged"``). KV lives in one pool of pages
+  per K and V, (L, P, K, ps, D); a per-slot page table maps logical block -> physical page
   (``infer/paged_cache.py``). ``admission="reserve"`` reserves a request's
   worst-case pages (prompt + max_new) or leaves it queued; every FULL prompt
   page is published and reused by later prompts that share the prefix. With
@@ -19,12 +38,13 @@ Requests join and leave between decode ticks:
   ``ks``/``vs`` of shape (L, P, K, 1, ps), one per (page, KV head,
   position), quantized as the contiguous cache quantizes (absmax over D);
   shared prefix pages share their scales.
-- **Prefill into a slot.** A cold prompt runs the causal prefill over its
+- **Paged prefill into a slot.** A cold prompt runs the causal prefill over its
   bucket (the flash kernel, K1, with ``attention_impl="flash"``); a prompt
   whose leading pages matched runs the masked cached forward over its
   gathered context pages plus the suffix. The chunk's whole pages are
   scattered into the pool.
-- **Chunked prefill** (``prefill_chunk``, a multiple of ``page_size``): a
+- **Paged chunked prefill** (``prefill_chunk``, a multiple of
+  ``page_size``): a
   prompt whose unmatched part is longer than one chunk parks its slot
   (``cur = pad``, ``pos = 0``; decode ticks leave it out) and prefills one
   chunk per tick at a page-aligned offset, the first over no context (K1),
@@ -37,7 +57,7 @@ Requests join and leave between decode ticks:
   prefill always passing; in-flight chunks draw the allowance before
   admission does, then newly admitted chunked prompts (the reference's
   order, decode > ongoing prefill > new work).
-- **Decode tick.** ``decode_chunk`` steps with ``starts = pos``; each step's
+- **Paged decode tick.** ``decode_chunk`` steps with ``starts = pos``; each step's
   K/V go into a small per-tick tail buffer, attention reads the pages plus
   the tail (the CUDA kernel K3, ``ops/paged_attention.py``), and after the
   last step one in-place scatter flushes the valid tail columns into their
@@ -46,7 +66,8 @@ Requests join and leave between decode ticks:
   tokens per tick, which the host harvests (EOS/pad-delimited).
 - **Speculative ticks** (``speculative=True``): a tick can run as
   ``spec_rounds`` verify rounds instead of ``decode_chunk`` steps, following
-  the reference's ``_build_spec_paged_decode``. Each round drafts ``spec_k``
+  the reference's ``_build_spec_paged_decode`` (``_build_spec_decode`` on
+  the contiguous cache). Each round drafts ``spec_k``
   tokens per slot by prompt lookup over the slot's token history ``hist``
   (``infer/speculative.device_lookup_draft``; written at admission, extended
   by plain ticks too while speculation is armed) or, with
@@ -131,11 +152,15 @@ is cancelled; ``ThreadedEngine.stream_one`` and ``stream_one_with_logprobs``
 iterate them, and end every open stream if the driver thread dies. The
 concatenated chunks are the tokens the request returns without a stream.
 
+Paged ``register_prefix`` is a warm (``_warm_pages``): the prefix's full
+pages are prefilled with no slot, published, and held by the content cache
+alone; its synchronised rate is ``stats()["prefill_tok_per_s"]``.
+
 Everything else of the reference engine raises ``NotImplementedError`` and
-is queued in ``ROADMAP.md``: the contiguous cache,
-multi-LoRA stacks, the host-RAM tier and KV handoff, ``register_prefix``,
-pipelined ticks, meshes, and the telemetry planes (of which ``stats()``
-keeps ``max_tick_prefill_tokens`` and ``deadline_expired``).
+is queued in ``ROADMAP.md``: multi-LoRA stacks, the host-RAM tier and KV
+handoff (``export_kv``/``import_kv``), pipelined ticks, meshes, and the
+telemetry planes (of which ``stats()`` keeps ``max_tick_prefill_tokens``
+and ``deadline_expired``).
 """
 
 from __future__ import annotations
@@ -153,6 +178,7 @@ import torch
 
 from ditl_tpu_torch.config import ModelConfig
 from ditl_tpu_torch.data.tokenizer import Tokenizer, check_vocab
+from ditl_tpu_torch.infer.cache import init_cache
 from ditl_tpu_torch.infer.engine import GenerateConfig, _next_pow2
 from ditl_tpu_torch.infer.paged_cache import PageAllocator
 from ditl_tpu_torch.infer.sampling import row_uniforms, sample_logits
@@ -349,7 +375,8 @@ def _flush_tail_into_pools(pools: dict, tk: torch.Tensor, tv: torch.Tensor,
 
 
 class ContinuousEngine:
-    """Slot-based continuous-batching text generation over a page pool."""
+    """Slot-based continuous-batching text generation over a contiguous
+    cache or a page pool."""
 
     def __init__(
         self,
@@ -392,9 +419,10 @@ class ContinuousEngine:
         device: str | torch.device = "cuda",
     ):
         """``max_cache_len`` caps the per-slot context below the model's
-        ``max_seq_len``. ``n_pages`` sizes the pool (default: the contiguous
-        equivalent, ``n_slots x ceil(max context / page_size)`` plus the
-        sentinel page 0). ``max_queue`` caps how many requests may wait for
+        ``max_seq_len``. ``cache_mode``: ``"contiguous"`` (one row of that
+        context per slot) or ``"paged"``. ``n_pages`` sizes the pool
+        (default: the contiguous equivalent, ``n_slots x ceil(max context /
+        page_size)`` plus the sentinel page 0). ``max_queue`` caps how many requests may wait for
         a slot; ``submit`` raises ``QueueFullError`` beyond it.
 
         ``speculative=True`` arms speculative ticks (module note): ``spec_k``
@@ -408,7 +436,7 @@ class ContinuousEngine:
         cap, weights on ``device``) drafts by a small model instead, and then
         every tick speculates.
 
-        ``prefill_chunk`` (0: whole prompts; else a multiple of
+        ``prefill_chunk`` (0: whole prompts; paged: a multiple of
         ``page_size``) prefills longer prompts one chunk a tick;
         ``token_budget`` (0: none; else at least ``n_slots x decode_chunk``)
         caps each tick's prefill tokens at what its decode steps leave.
@@ -423,8 +451,18 @@ class ContinuousEngine:
         that many rows (module note)."""
         check_vocab(tokenizer, model_cfg.vocab_size, "ContinuousEngine")
         llama.check_supported(model_cfg)
+        if cache_mode not in ("contiguous", "paged"):
+            raise ValueError(f"unknown cache_mode {cache_mode!r}")
+        if cache_mode == "contiguous":
+            if admission != "reserve":
+                raise ValueError(
+                    "admission='optimistic' requires cache_mode='paged' "
+                    "(the contiguous cache has no pages to reclaim)")
+            if host_tier_mb:
+                raise ValueError(
+                    "host_tier_mb requires cache_mode='paged' (the host "
+                    "tier spills and swaps KV pages)")
         unported = {
-            "cache_mode='contiguous'": cache_mode == "contiguous",
             "host_tier_mb (the host-RAM prefix tier)": host_tier_mb != 0,
             "pipeline_ticks": pipeline_ticks,
             "mesh (sharded serving)": mesh is not None,
@@ -435,8 +473,6 @@ class ContinuousEngine:
         for what, asked in unported.items():
             if asked:
                 raise _not_ported(what)
-        if cache_mode != "paged":
-            raise ValueError(f"unknown cache_mode {cache_mode!r}")
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"admission must be 'reserve' or 'optimistic', "
                              f"got {admission!r}")
@@ -448,14 +484,15 @@ class ContinuousEngine:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
-        if page_size < 16 or page_size & (page_size - 1):
-            raise ValueError(f"page_size must be a power of two >= 16, got {page_size}")
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got {prefill_chunk}")
-        if prefill_chunk % page_size:
-            raise ValueError(
-                f"prefill_chunk {prefill_chunk} must be a multiple of page_size "
-                f"{page_size} (chunk starts must be page-aligned)")
+        if cache_mode == "paged":
+            if page_size < 16 or page_size & (page_size - 1):
+                raise ValueError(f"page_size must be a power of two >= 16, got {page_size}")
+            if prefill_chunk % page_size:
+                raise ValueError(
+                    f"prefill_chunk {prefill_chunk} must be a multiple of page_size "
+                    f"{page_size} (chunk starts must be page-aligned)")
         # The budget must cover a full decode tick, so the prefill allowance
         # is at least decode_chunk whenever a slot is prefilling or free.
         if token_budget < 0:
@@ -482,6 +519,7 @@ class ContinuousEngine:
         self.gen = gen or GenerateConfig()
         self.smax = min(model_cfg.max_seq_len, max_cache_len or model_cfg.max_seq_len)
         self.cache_mode = cache_mode
+        self._paged = cache_mode == "paged"
         self.admission = admission
         self.preemptions = 0
         # The anti-thrash guard (module note): per window of ticks, tokens
@@ -499,30 +537,41 @@ class ContinuousEngine:
         self.resume_prefill_tokens = 0
         self.deadline_expired = 0
         self.page_size = page_size
-        self.maxp = -(-self.smax // page_size)
-        self.n_pages = n_pages or (n_slots * self.maxp + 1)  # page 0: sentinel
         dev = self.device
-        dtype = llama.torch_dtype(model_cfg.dtype)
-        shape = (model_cfg.num_layers, self.n_pages, model_cfg.num_kv_heads,
-                 page_size, model_cfg.head_dim)
-        if model_cfg.kv_cache_dtype == "int8":
-            scale_shape = shape[:3] + (1, page_size)
-            self.cache = {"kp": torch.zeros(shape, dtype=torch.int8, device=dev),
-                          "vp": torch.zeros(shape, dtype=torch.int8, device=dev),
-                          "ks": torch.ones(scale_shape, dtype=torch.float32, device=dev),
-                          "vs": torch.ones(scale_shape, dtype=torch.float32, device=dev)}
+        if cache_mode == "paged":
+            self.maxp = -(-self.smax // page_size)
+            self.n_pages = n_pages or (n_slots * self.maxp + 1)  # page 0: sentinel
+            dtype = llama.torch_dtype(model_cfg.dtype)
+            shape = (model_cfg.num_layers, self.n_pages, model_cfg.num_kv_heads,
+                     page_size, model_cfg.head_dim)
+            if model_cfg.kv_cache_dtype == "int8":
+                scale_shape = shape[:3] + (1, page_size)
+                self.cache = {"kp": torch.zeros(shape, dtype=torch.int8, device=dev),
+                              "vp": torch.zeros(shape, dtype=torch.int8, device=dev),
+                              "ks": torch.ones(scale_shape, dtype=torch.float32, device=dev),
+                              "vs": torch.ones(scale_shape, dtype=torch.float32, device=dev)}
+            else:
+                self.cache = {"kp": torch.zeros(shape, dtype=dtype, device=dev),
+                              "vp": torch.zeros(shape, dtype=dtype, device=dev)}
+            # Bytes of one page across layers, K and V (int8: scales included).
+            self.page_bytes = sum(t.numel() * t.element_size()
+                                  for t in self.cache.values()) // self.n_pages
+            self.allocator = PageAllocator(self.n_pages)
+            self._table = np.zeros((n_slots, self.maxp), np.int32)
+            # Device mirror, re-uploaded only when the host table changes.
+            self._table_dirty = True
+            self._table_dev: torch.Tensor | None = None
+            self._slot_pages: list[list[int]] = [[] for _ in range(n_slots)]
         else:
-            self.cache = {"kp": torch.zeros(shape, dtype=dtype, device=dev),
-                          "vp": torch.zeros(shape, dtype=dtype, device=dev)}
-        # Bytes of one page across layers, K and V (int8: scales included).
-        self.page_bytes = sum(t.numel() * t.element_size()
-                              for t in self.cache.values()) // self.n_pages
-        self.allocator = PageAllocator(self.n_pages)
-        self._table = np.zeros((n_slots, self.maxp), np.int32)
-        # Device mirror, re-uploaded only when the host table changes.
-        self._table_dirty = True
-        self._table_dev: torch.Tensor | None = None
-        self._slot_pages: list[list[int]] = [[] for _ in range(n_slots)]
+            # One (L, n_slots, smax, K, D) row per slot (int8: plus scales).
+            self.cache = init_cache(model_cfg, n_slots, self.smax, dev)
+        # Registered prefixes (contiguous cache): prompt-prefix tokens ->
+        # (one-row KV of the prefix's bucket, last-token logits, length).
+        self._prefixes: dict[tuple[int, ...], tuple[dict, torch.Tensor, int]] = {}
+        # Page-warming prefills (register_prefix on pages), synchronised:
+        # the measured prefill rate that stats() reports.
+        self.prefill_tokens_total = 0
+        self.prefill_seconds_total = 0.0
         # Slot state on the device, written in place at admission.
         self.cur = torch.full((n_slots,), tokenizer.pad_id, dtype=torch.long, device=dev)
         self.pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
@@ -597,8 +646,6 @@ class ContinuousEngine:
                     f"draft max_seq_len {draft_cfg.max_seq_len} is below the serving "
                     f"context cap {self.smax}")
             llama.check_supported(draft_cfg)
-            from ditl_tpu_torch.infer.cache import init_cache
-
             self.spec_draft = "model"
             self.draft_params = draft_params
             self.draft_cfg = draft_cfg
@@ -646,15 +693,114 @@ class ContinuousEngine:
             self._fsm_dev_rows = 0
             self._fsm_lock = threading.Lock()
             self.fstates = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        # Prefill forwards by attention path: causal over an empty bucket
+        # (K1 where it tiles), and masked over cached context (matched or
+        # seeded prefixes, earlier chunks; paged warms count here too).
         self.prefills_cold = 0
         self.prefills_prefix_hit = 0
         self.prefix_hit_tokens = 0
         self.prefix_miss_tokens = 0
 
-    # -- left out of the port -------------------------------------------------
+    # -- prefix caching --------------------------------------------------------
 
     def register_prefix(self, prefix_tokens: list[int]) -> None:
-        raise _not_ported("register_prefix (page warming)")
+        """Prefill ``prefix_tokens`` once for every later prompt that starts
+        with them (a shared system prompt). Contiguous cache: the prefix's
+        KV row and last logits are kept on the device until
+        ``clear_prefixes``, and an admission whose prompt starts with a
+        registered prefix (the longest wins) copies the row into its slot
+        and prefills only the rest. Paged cache: prefix reuse is automatic,
+        so this only warms the page cache (``_warm_pages``)."""
+        if not prefix_tokens:
+            raise ValueError("prefix must be non-empty")
+        if len(prefix_tokens) + 1 > self.smax:
+            raise ValueError(
+                f"prefix {len(prefix_tokens)} leaves no room in cache {self.smax}")
+        if self._paged:
+            self._warm_pages(prefix_tokens)
+            return
+        key = tuple(prefix_tokens)
+        if key in self._prefixes:
+            return
+        n, cfg, dev = len(prefix_tokens), self.cfg, self.device
+        p_bucket = min(_next_pow2(n, floor=16), self.smax)
+        row = init_cache(cfg, 1, p_bucket, dev)
+        ids = torch.full((1, p_bucket), self.tokenizer.pad_id, dtype=torch.long)
+        ids[0, :n] = torch.tensor(prefix_tokens, dtype=torch.long)
+        q_pos = torch.arange(p_bucket, device=dev)
+        mask = (q_pos[None, None, :] <= q_pos[None, :, None]) & (q_pos[None, None, :] < n)
+        hidden = llama.forward(self.params, ids.to(dev), cfg, positions=q_pos[None],
+                               cache=row, cache_index=0, attn_mask=mask,
+                               return_hidden=True)
+        last = llama.logits_from_hidden(self.params, hidden[:, n - 1])[0]
+        self._prefixes[key] = (row, last, n)
+        logger.info("registered prefix of %d tokens (bucket %d)", n, p_bucket)
+
+    def _warm_pages(self, tokens: list[int]) -> None:
+        """Paged ``register_prefix``: prefill and publish the full pages of
+        ``tokens`` with no slot, so later prompts match them. Pages already
+        published are reused; the pages end up held by the content cache
+        alone (evictable). A pool that cannot hold the fresh pages makes
+        this a logged no-op: a warm is a hint and never raises or leaks."""
+        ps = self.page_size
+        n_full = len(tokens) // ps
+        if n_full == 0:
+            return
+        matched: list[int] = []
+        parent = 0
+        for i in range(n_full):
+            pid = self.allocator.lookup((parent, tuple(tokens[i * ps:(i + 1) * ps])))
+            if pid is None:
+                break
+            self.allocator.retain(pid)
+            matched.append(pid)
+            parent = pid
+        n_fresh = n_full - len(matched)
+        if n_fresh == 0:
+            for pid in matched:
+                self.allocator.release(pid)
+            return
+        try:
+            fresh = self.allocator.alloc(n_fresh)
+        except MemoryError:
+            for pid in matched:
+                self.allocator.release(pid)
+            logger.warning("register_prefix: pool cannot hold %d fresh pages; "
+                           "skipping warm-up", n_fresh)
+            return
+        pages = matched + fresh
+        row = np.zeros((self.maxp,), np.int32)
+        row[:n_full] = pages
+        d = len(matched) * ps
+        s = n_full * ps - d
+        t0 = time.monotonic()
+        self._run_paged_prefill(tokens, d, s, s, row)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prefill_tokens_total += s
+        self.prefill_seconds_total += time.monotonic() - t0
+        self.allocator.publish_chain(tokens[: n_full * ps], ps, pages)
+        for pid in pages:
+            self.allocator.release(pid)
+        logger.info("warmed %d pages (%d reused) for a %d-token prefix",
+                    n_fresh, len(matched), len(tokens))
+
+    def clear_prefixes(self) -> None:
+        """Drop every registered prefix (frees their device memory)."""
+        self._prefixes.clear()
+
+    def _match_prefix(self, prompt: list[int]):
+        """The longest registered prefix of ``prompt`` as (row, last
+        logits, length), or None."""
+        best = None
+        for key, entry in self._prefixes.items():
+            d = entry[2]
+            if d <= len(prompt) and tuple(prompt[:d]) == key and (
+                    best is None or d > best[2]):
+                best = entry
+        return best
+
+    # -- left out of the port -------------------------------------------------
 
     def export_kv(self, *args, **kwargs):
         raise _not_ported("KV handoff (export_kv)")
@@ -829,6 +975,8 @@ class ContinuousEngine:
                 f"prompt {len(prompt)} + max_new {max_new} exceeds max_seq_len "
                 f"/ cache cap {self.smax}"
             )
+        if not self._paged:
+            return
         need = -(-(len(prompt) + max_new) // self.page_size)
         if need > self.n_pages - 1:  # page 0 is the reserved sentinel
             raise BadRequestError(
@@ -840,12 +988,16 @@ class ContinuousEngine:
     # -- paged admission / prefill --------------------------------------------
 
     def _free_slot_pages(self, slot: int) -> None:
+        """Release ``slot``'s generator and, on pages, its pages (a
+        contiguous row needs no freeing: its next prefill overwrites it)."""
+        self._gens[slot] = None
+        if not self._paged:
+            return
         for pid in self._slot_pages[slot]:
             self.allocator.release(pid)
         self._slot_pages[slot] = []
         self._table[slot, :] = 0
         self._table_dirty = True
-        self._gens[slot] = None
 
     def _publish_tokens(self, tokens: list[int], slot: int) -> None:
         """Make the full pages of ``tokens`` (held by ``slot``)
@@ -879,29 +1031,42 @@ class ContinuousEngine:
                              sample: bool = True,
                              tokens: list[int] | None = None) -> torch.Tensor | None:
         """Prefill ``tokens[d:d+s]`` (default ``req.prompt``; a resume
-        passes prompt + generated tokens) into ``slot``'s pages and, with
-        ``sample``, sample the first token (a device scalar, no host sync)
-        and, with logprobs armed, store its stats as the slot's pending
-        ones; a chunked prompt's earlier chunks sample nothing (None).
+        passes prompt + generated tokens) into ``slot``'s pages
+        (``_run_paged_prefill``) and, with ``sample``, sample the first
+        token (``_sample_first``); a chunked prompt's earlier chunks sample
+        nothing (None)."""
+        src = req.prompt if tokens is None else tokens
+        hidden = self._run_paged_prefill(src, d, s, s_bucket or s, self._table[slot])
+        if not sample:
+            return None
+        last = llama.logits_from_hidden(self.params, hidden[:, s - 1])  # (1, V)
+        return self._sample_first(req, slot, last, generator)
 
-        The bucket is ``s_bucket`` (default ``s``; the chunk size for a
-        chunk) rounded up to a power of two of at least one page. With
-        no context (``d == 0``) the prefill is causal over the bucket with
-        pad validity in segment ids (the flash kernel's path). With a
-        context, the context's pages are gathered into a transient contiguous
-        row (a power-of-two bucket of pages) and the masked cached forward
-        runs over it. Either way the chunk's whole pages are then written to
-        ``write_pids`` in place; bucket columns past ``s`` hold garbage that
-        stays masked until a later chunk or decode overwrites it."""
+    def _run_paged_prefill(self, src: list[int], d: int, s: int, s_bucket: int,
+                           row_pages: np.ndarray) -> torch.Tensor:
+        """Prefill ``src[d:d+s]`` into the pages of ``row_pages`` (a page
+        table row: the context's pages first, then those the chunk writes
+        from page ``d // page_size``); returns the final-normed hidden
+        states (1, bucket, D). A slot's prefill passes its table row, page
+        warming a row of its own.
+
+        The bucket is ``s_bucket`` rounded up to a power of two of at least
+        one page. With no context (``d == 0``) the prefill is causal over
+        the bucket with pad validity in segment ids (the flash kernel's
+        path). With a context, the context's pages are gathered into a
+        transient contiguous row (a power-of-two bucket of pages) and the
+        masked cached forward runs over it. Either way the chunk's whole
+        pages are then written in place; bucket columns past ``s`` hold
+        garbage that stays masked until a later chunk or decode overwrites
+        it."""
         cfg, dev, ps = self.cfg, self.device, self.page_size
-        ctx_row, write_pids = self._table[slot], self._table[slot, d // ps:]
-        s_bucket = min(_next_pow2(max(s_bucket or s, ps), floor=ps), self.maxp * ps)
+        write_pids = row_pages[d // ps:]
+        s_bucket = min(_next_pow2(max(s_bucket, ps), floor=ps), self.maxp * ps)
         ctx = self._ctx_pages_bucket(d)
         n_wp = s_bucket // ps
         n_l, n_k, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
         dtype = llama.torch_dtype(cfg.dtype)
         ids = torch.full((1, s_bucket), self.tokenizer.pad_id, dtype=torch.long)
-        src = req.prompt if tokens is None else tokens
         ids[0, :s] = torch.tensor(src[d: d + s], dtype=torch.long)
         ids = ids.to(dev)
         pids = np.zeros((n_wp,), np.int64)
@@ -918,7 +1083,7 @@ class ContinuousEngine:
                                    prefill_causal=True, return_hidden=True)
             self.prefills_cold += 1
         else:
-            ctx_ids = torch.tensor(np.asarray(ctx_row[:ctx], np.int64), device=dev)
+            ctx_ids = torch.tensor(np.asarray(row_pages[:ctx], np.int64), device=dev)
 
             def to_row(pool, scales):
                 # (L, ctx, K, ps, D) -> (L, 1, ctx*ps + s_bucket, K, D); int8
@@ -947,13 +1112,18 @@ class ContinuousEngine:
                 chunk, scale = _quantize_pages(chunk)
                 spool[:, pid_t] = scale
             pool[:, pid_t] = chunk
-        if not sample:
-            return None
-        last = llama.logits_from_hidden(self.params, hidden[:, s - 1])  # (1, V)
+        return hidden
+
+    def _sample_first(self, req: Request, slot: int, last: torch.Tensor,
+                      generator: torch.Generator | None) -> torch.Tensor:
+        """A prefill's first token from its last prompt position's (1, V)
+        logits, a device scalar (no host sync): masked at the request's
+        grammar start state (the slot's state becomes the one after it),
+        and with logprobs armed, its stats stored as the slot's pending
+        ones."""
+        dev = self.device
         masked = last
         if self.guided:
-            # the first token at the request's start state; the slot's state
-            # becomes the one after it (FREE stays FREE)
             ftab = self._fsm_device()
             start = torch.full((1,), req.fsm_start, dtype=torch.int32, device=dev)
             masked = _fsm_mask(ftab, start, last)
@@ -1061,11 +1231,12 @@ class ContinuousEngine:
         return gen
 
     def _go_live(self, req: Request, first: torch.Tensor) -> None:
-        """The whole prompt is in the pages: publish them and make the row
-        decode from ``first`` at position len(prompt)."""
+        """The whole prompt is in the cache: publish its pages (paged) and
+        make the row decode from ``first`` at position len(prompt)."""
         slot = req.slot
         req.prefilling = False
-        self._publish_prompt_pages(req, slot)
+        if self._paged:
+            self._publish_prompt_pages(req, slot)
         self.cur[slot] = first
         self.pos[slot] = len(req.prompt)
         self._set_hist(slot, req.prompt, first)
@@ -1089,11 +1260,115 @@ class ContinuousEngine:
         s = min(self.prefill_chunk, len(req.prompt) - d)
         last = d + s >= len(req.prompt)
         gen = self._slot_generator(req) if last else None
-        first = self._paged_prefill_chunk(req, req.slot, d, s, gen,
-                                          s_bucket=self.prefill_chunk, sample=last)
+        if self._paged:
+            first = self._paged_prefill_chunk(req, req.slot, d, s, gen,
+                                              s_bucket=self.prefill_chunk, sample=last)
+        else:
+            # a chunk is a suffix continuation at its offset: the masked path
+            logits = self._suffix_prefill(req.prompt, req.slot, d, s,
+                                          self._chunk_bucket(d, s))
+            first = self._sample_first(req, req.slot, logits, gen) if last else None
         req.prefill_pos += s
         if last:
             self._go_live(req, first)
+
+    # -- contiguous admission / prefill -----------------------------------------
+
+    def _slot_row(self, slot: int) -> dict:
+        """``slot``'s row of the contiguous cache as (L, 1, smax, ...) views:
+        a forward's writes land in place."""
+        return {name: c[:, slot:slot + 1] for name, c in self.cache.items()}
+
+    def _admit_contiguous_slot(self, slot: int) -> bool:
+        """Admit the queue head into ``slot`` of the contiguous cache, or
+        leave it queued (False) while its unchunked prefill would bust the
+        tick's allowance. The longest registered prefix of its prompt is
+        matched once; the prefill charges the rest of the prompt, a chunked
+        admission nothing until its chunks run. A chunked prompt's row is
+        parked at ``pos = smax - 1`` (``cur = pad``): every decode tick
+        writes each row at its ``pos``, and the last slot is never attended
+        before it is legitimately written."""
+        req = self._queue[0]
+        prefix = self._match_prefix(req.prompt)
+        d0 = 0 if prefix is None else prefix[2]
+        s = len(req.prompt) - d0
+        chunked = bool(self.prefill_chunk) and s > self.prefill_chunk
+        if not self._budget_allows(0 if chunked else s):
+            return False
+        with self._queue_lock:  # by identity: a submit may have inserted ahead
+            self._queue.remove(req)
+        req.slot = slot
+        self._slots[slot] = req
+        req.cache_hit_tokens, req.cache_miss_tokens = d0, s
+        self.prefix_hit_tokens += d0
+        self.prefix_miss_tokens += s
+        if prefix is not None:
+            self._seed_prefix(slot, prefix[0])
+        if chunked:
+            req.prefill_pos = d0
+            req.prefilling = True
+            self._gens[slot] = None
+            self.cur[slot] = self.tokenizer.pad_id
+            self.pos[slot] = self.smax - 1
+        else:
+            gen = self._slot_generator(req)
+            if prefix is None:
+                logits = self._cold_prefill(req.prompt, slot)
+            elif s == 0:  # the prompt is the prefix: its stored logits
+                logits = prefix[1][None]
+            else:
+                logits = self._suffix_prefill(req.prompt, slot, d0, s,
+                                              min(_next_pow2(s, floor=16), self.smax - d0))
+            first = self._sample_first(req, slot, logits, gen)
+            self._record_prefill(s)
+            self._go_live(req, first)
+        self.temps[slot] = req.temperature
+        self.top_ps[slot] = req.top_p
+        self.limits[slot] = len(req.prompt) + req.max_new_tokens
+        return True
+
+    def _seed_prefix(self, slot: int, row: dict) -> None:
+        """Copy a registered prefix's KV row (int8: values and scales) into
+        the first bucket of ``slot``'s row."""
+        for name, c in self.cache.items():
+            p_bucket = row[name].shape[2]
+            c[:, slot:slot + 1, :p_bucket] = row[name].to(c.dtype)
+
+    def _cold_prefill(self, prompt: list[int], slot: int) -> torch.Tensor:
+        """A whole prompt into ``slot``'s empty row: causal over its bucket
+        (``next_pow2``, at least 16, at most ``smax``) with pad validity in
+        segment ids, the flash kernel's path (K1) where it tiles; returns
+        the last prompt position's (1, V) logits."""
+        n, dev = len(prompt), self.device
+        p_bucket = min(_next_pow2(n, floor=16), self.smax)
+        ids = torch.full((1, p_bucket), self.tokenizer.pad_id, dtype=torch.long)
+        ids[0, :n] = torch.tensor(prompt, dtype=torch.long)
+        q_pos = torch.arange(p_bucket, device=dev)
+        seg = (q_pos < n).to(torch.int32)[None]
+        hidden = llama.forward(self.params, ids.to(dev), self.cfg, positions=q_pos[None],
+                               segment_ids=seg, cache=self._slot_row(slot), cache_index=0,
+                               prefill_causal=True, return_hidden=True)
+        self.prefills_cold += 1
+        return llama.logits_from_hidden(self.params, hidden[:, n - 1])
+
+    def _suffix_prefill(self, prompt: list[int], slot: int, d: int, s: int,
+                        s_bucket: int) -> torch.Tensor:
+        """``prompt[d:d+s]`` into ``slot``'s row after the ``d`` positions
+        already there (a seeded prefix, earlier chunks), over a window of
+        ``s_bucket`` positions (at most ``smax - d``: a window is never
+        shifted); attention is the masked plain path over the whole row
+        (``slot_index <= position``). Returns the last real position's
+        (1, V) logits."""
+        dev = self.device
+        ids = torch.full((1, s_bucket), self.tokenizer.pad_id, dtype=torch.long)
+        ids[0, :s] = torch.tensor(prompt[d:d + s], dtype=torch.long)
+        q_pos = torch.arange(d, d + s_bucket, device=dev)
+        mask = torch.arange(self.smax, device=dev)[None, None, :] <= q_pos[None, :, None]
+        hidden = llama.forward(self.params, ids.to(dev), self.cfg, positions=q_pos[None],
+                               cache=self._slot_row(slot), cache_index=d, attn_mask=mask,
+                               return_hidden=True)
+        self.prefills_prefix_hit += 1
+        return llama.logits_from_hidden(self.params, hidden[:, s - 1])
 
     # -- optimistic admission: preemption and exact resume --------------------
 
@@ -1389,7 +1664,8 @@ class ContinuousEngine:
         for slot in range(self.n_slots):
             if self._slots[slot] is not None or not self._queue:
                 continue
-            if not self._admit_paged_slot(slot):
+            admit = self._admit_paged_slot if self._paged else self._admit_contiguous_slot
+            if not admit(slot):
                 # Priority FIFO: the head request does not fit the pool right
                 # now; smaller or lower-class requests must not starve it.
                 break
@@ -1402,6 +1678,16 @@ class ContinuousEngine:
             self._table_dirty = False
         return self._table_dev
 
+    def _tick_tails(self, tail_len: int) -> dict:
+        """The pools plus a fresh (L, B, K, ``tail_len``, D) K/V tail pair
+        in the compute dtype: a paged tick's cache."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, self.n_slots, cfg.num_kv_heads, tail_len, cfg.head_dim)
+        dtype = llama.torch_dtype(cfg.dtype)
+        return {**self.cache,
+                "tk": torch.zeros(shape, dtype=dtype, device=self.device),
+                "tv": torch.zeros(shape, dtype=dtype, device=self.device)}
+
     def _decode_tick(self, occupied: list[bool]) -> tuple[np.ndarray, tuple | None]:
         """One decode tick of ``decode_chunk`` steps over every slot, in the
         reference's step order; returns the emitted tokens (B, chunk) and,
@@ -1411,21 +1697,21 @@ class ContinuousEngine:
         step's new token). With speculation armed, each step's pending token
         also goes into the slot's history (the reference's ``track``)."""
         cfg, dev = self.cfg, self.device
-        n_b, chunk = self.n_slots, self.decode_chunk
+        chunk = self.decode_chunk
         pad, eos = self.tokenizer.pad_id, self.tokenizer.eos_id
         active = [r for r, live in zip(self._slots, occupied) if live]
         sampled = any(r.temperature > 0.0 for r in active)
         # top_p matters only when something samples.
         topp = sampled and any(r.top_p < 1.0 for r in active)
-        table = self._table_device()
-        # starts = pos: dead rows then have pos - starts == 0 live tail
-        # columns, so the flush writes nothing for them.
-        starts = self.pos
-        tail_shape = (cfg.num_layers, n_b, cfg.num_kv_heads, chunk, cfg.head_dim)
-        dtype = llama.torch_dtype(cfg.dtype)
-        cache = {**self.cache,
-                 "tk": torch.zeros(tail_shape, dtype=dtype, device=dev),
-                 "tv": torch.zeros(tail_shape, dtype=dtype, device=dev)}
+        paged = self._paged
+        if paged:
+            table = self._table_device()
+            # starts = pos: dead rows then have pos - starts == 0 live tail
+            # columns, so the flush writes nothing for them.
+            starts = self.pos
+            cache = self._tick_tails(chunk)
+        else:
+            iota = torch.arange(self.smax, device=dev)
         uniforms = None
         if sampled:
             gens = [g if live and r.temperature > 0.0 else None
@@ -1440,13 +1726,23 @@ class ContinuousEngine:
         done = ~torch.tensor(occupied, device=dev)
         emitted, lp_emitted = [], []
         for t in range(chunk):
-            done = done | (pos >= self.limits)
+            if paged:
+                done = done | (pos >= self.limits)
             step_alive = ~done
-            lengths = torch.where(step_alive, pos + 1, 0).to(torch.int32)
-            step_logits = llama.forward(
-                self.params, cur[:, None], cfg, positions=pos[:, None], cache=cache,
-                paged={"table": table, "lengths": lengths, "starts": starts, "t": t},
-            )[:, 0]
+            if paged:
+                lengths = torch.where(step_alive, pos + 1, 0).to(torch.int32)
+                step_logits = llama.forward(
+                    self.params, cur[:, None], cfg, positions=pos[:, None], cache=cache,
+                    paged={"table": table, "lengths": lengths, "starts": starts, "t": t},
+                )[:, 0]
+            else:
+                # every row writes at its own pos (dead and parked rows too:
+                # the write-then-unmask invariant) and attends slots <= pos
+                step_logits = llama.forward(
+                    self.params, cur[:, None], cfg, positions=pos[:, None],
+                    cache=self.cache, cache_index=pos,
+                    attn_mask=(iota[None, :] <= pos[:, None])[:, None],
+                )[:, 0]
             masked = _fsm_mask(ftab, fst, step_logits) if guided else step_logits
             if sampled:
                 nxt = sample_logits(
@@ -1462,13 +1758,16 @@ class ContinuousEngine:
             done = done | (cur == eos)
             if guided:
                 fst = torch.where(done, fst, _fsm_next(ftab, fst, nxt))
-            pos = torch.where(step_alive, pos + 1, pos)
+            # the contiguous row's last slot bounds a position
+            pos = torch.where(step_alive, pos + 1 if paged
+                              else torch.clamp(pos + 1, max=self.smax - 1), pos)
             cur = torch.where(done, pad, nxt)
             if self._track_hist:
                 hist = _emit_rows(hist, cur[:, None], pos, (~done).long())
             self.decode_steps += 1
-        _flush_tail_into_pools(self.cache, cache["tk"], cache["tv"], starts, pos,
-                               table, self.page_size)
+        if paged:
+            _flush_tail_into_pools(self.cache, cache["tk"], cache["tv"], starts, pos,
+                                   table, self.page_size)
         self.cur, self.pos, self.hist = cur, pos, hist
         if guided:
             self.fstates = fst
@@ -1541,14 +1840,13 @@ class ContinuousEngine:
         n_b, k, rounds = self.n_slots, self.spec_k, self.spec_rounds
         pad, eos, smax = self.tokenizer.pad_id, self.tokenizer.eos_id, self.smax
         out_len = rounds * (k + 1)
-        tail_len = max(rounds * (k + 1), 8)
-        table = self._table_device()
-        starts = self.pos
-        tail_shape = (cfg.num_layers, n_b, cfg.num_kv_heads, tail_len, cfg.head_dim)
-        dtype = llama.torch_dtype(cfg.dtype)
-        cache = {**self.cache,
-                 "tk": torch.zeros(tail_shape, dtype=dtype, device=dev),
-                 "tv": torch.zeros(tail_shape, dtype=dtype, device=dev)}
+        paged = self._paged
+        if paged:
+            table = self._table_device()
+            starts = self.pos
+            cache = self._tick_tails(max(rounds * (k + 1), 8))
+        else:
+            iota = torch.arange(smax, device=dev)
         gens = [g if live and r.temperature > 0.0 else None
                 for g, r, live in zip(self._gens, self._slots, occupied)]
         q_idx = torch.arange(k + 1, device=dev)
@@ -1568,7 +1866,8 @@ class ContinuousEngine:
                     torch.zeros((n_b, out_len, n_lp), dtype=torch.float32, device=dev))
         done = ~torch.tensor(occupied, device=dev)
         for _ in range(rounds):
-            done = done | (pos >= self.limits)
+            if paged:
+                done = done | (pos >= self.limits)
             live = ~done
             if self.spec_draft == "model":
                 draft = self._draft_scan(cur, pos)
@@ -1578,12 +1877,22 @@ class ContinuousEngine:
                                             ngram=self.spec_ngram,
                                             min_ngram=self.spec_min_ngram)
             tokens_in = torch.cat([cur[:, None], draft], dim=1)
-            lengths = torch.where(live, pos + 1, 0).to(torch.int32)
-            logits = llama.forward(
-                self.params, tokens_in, cfg, positions=pos[:, None] + q_idx[None, :],
-                cache=cache, paged={"table": table, "lengths": lengths, "starts": starts,
-                                    "off": pos - starts},
-            )
+            positions = pos[:, None] + q_idx[None, :]
+            if paged:
+                lengths = torch.where(live, pos + 1, 0).to(torch.int32)
+                logits = llama.forward(
+                    self.params, tokens_in, cfg, positions=positions, cache=cache,
+                    paged={"table": table, "lengths": lengths, "starts": starts,
+                           "off": pos - starts},
+                )
+            else:
+                # per-row writes at each slot's depth; stale KV past a
+                # rejected draft stays masked until the next window rewrites it
+                logits = llama.forward(
+                    self.params, tokens_in, cfg, positions=positions, cache=self.cache,
+                    cache_index=pos,
+                    attn_mask=iota[None, None, :] <= positions[:, :, None],
+                )
             if guided:
                 # each position masked at its state along the draft's path
                 path = self._fsm_spec_path(ftab, fst, draft)
@@ -1594,8 +1903,9 @@ class ContinuousEngine:
             in_span = q_idx[None, :] <= n_acc[:, None]
             is_term = (tokens_in == eos) | (tokens_in == pad)
             term_before = (torch.cumsum(is_term.long(), dim=1) - is_term.long()) > 0
-            budget_ok = (pos[:, None] + q_idx[None, :]) < self.limits[:, None]
-            emit = in_span & ~term_before & budget_ok & live[:, None]
+            emit = in_span & ~term_before & live[:, None]
+            if paged:  # a page-budget cap; the contiguous tick has none
+                emit = emit & (positions < self.limits[:, None])
             e = emit.long().sum(1)
             hit_term = (emit & is_term).any(1)
             out = _emit_rows(out, tokens_in, n_out, e)
@@ -1608,7 +1918,8 @@ class ContinuousEngine:
             grow = torch.where(hit_term, 0, e)
             if self._track_hist:
                 hist = _emit_rows(hist, append_seq, torch.clamp(pos + 1, max=smax), grow)
-            pos = torch.where(live, pos + e.to(pos.dtype), pos)
+            adv = pos + e.to(pos.dtype)
+            pos = torch.where(live, adv if paged else torch.clamp(adv, max=smax - 1), pos)
             done = done | hit_term
             if guided:
                 s_at = path.gather(1, n_acc[:, None])[:, 0]
@@ -1616,8 +1927,9 @@ class ContinuousEngine:
             cur = torch.where(done, pad, nxt)
             rr = rr + live.long()
         self.spec_verify_rounds += rounds
-        _flush_tail_into_pools(self.cache, cache["tk"], cache["tv"], starts, pos,
-                               table, self.page_size)
+        if paged:
+            _flush_tail_into_pools(self.cache, cache["tk"], cache["tv"], starts, pos,
+                                   table, self.page_size)
         self.cur, self.pos, self.hist = cur, pos, hist
         if guided:
             self.fstates = fst
@@ -1677,7 +1989,8 @@ class ContinuousEngine:
                 self._slots[slot] = None
                 # Publish before releasing: the content cache's own
                 # reference keeps the conversation's pages resident.
-                self._publish_generated_pages(req, slot)
+                if self._paged:
+                    self._publish_generated_pages(req, slot)
                 self._free_slot_pages(slot)
 
     def step(self) -> None:
@@ -1815,13 +2128,14 @@ class ContinuousEngine:
         return len(self._queue) + sum(r is not None for r in self._slots)
 
     def stats(self) -> dict:
-        """Operational snapshot, host state only (no device sync)."""
+        """Operational snapshot, host state only (no device sync); the page
+        pool's fields on pages only, as the reference."""
         hit, miss = self.prefix_hit_tokens, self.prefix_miss_tokens
         prefix = {"hit_tokens": hit, "miss_tokens": miss,
-                  "evictions": self.allocator.evictions}
+                  "evictions": self.allocator.evictions if self._paged else 0}
         if hit + miss:
             prefix["hit_ratio"] = round(hit / (hit + miss), 4)
-        return {
+        out = {
             "engine": "continuous",
             "cache_mode": self.cache_mode,
             "n_slots": self.n_slots,
@@ -1836,18 +2150,27 @@ class ContinuousEngine:
             "queue_by_class": {cls: sum(1 for r in self._queue if r.slo_class == cls)
                                for cls in SLO_CLASSES},
             "prefix_cache": prefix,
-            "page_size": self.page_size,
-            "pages_total": self.n_pages - 1,  # page 0 is the sentinel
-            "pages_free": self.allocator.n_free,
-            "pages_cached_evictable": self.allocator.n_evictable,
-            "admission": self.admission,
-            "preemptions": self.preemptions,
-            **({"admission_degraded": self._degraded,
-                "admission_degrades": self.admission_degrades,
-                "resume_prefill_tokens": self.resume_prefill_tokens}
-               if self.admission == "optimistic" else {}),
+        }
+        if self.prefill_seconds_total > 0:
+            # page-warming prefills only, synchronised (absent until one ran)
+            out["prefill_tok_per_s"] = round(
+                self.prefill_tokens_total / self.prefill_seconds_total, 1)
+        if self._paged:
+            out.update({
+                "page_size": self.page_size,
+                "pages_total": self.n_pages - 1,  # page 0 is the sentinel
+                "pages_free": self.allocator.n_free,
+                "pages_cached_evictable": self.allocator.n_evictable,
+                "admission": self.admission,
+                "preemptions": self.preemptions,
+                **({"admission_degraded": self._degraded,
+                    "admission_degrades": self.admission_degrades,
+                    "resume_prefill_tokens": self.resume_prefill_tokens}
+                   if self.admission == "optimistic" else {}),
+                "kv_bytes_per_token": round(self.page_bytes / self.page_size, 2),
+            })
+        out.update({
             "deadline_expired": self.deadline_expired,
-            "kv_bytes_per_token": round(self.page_bytes / self.page_size, 2),
             "decode_ticks": self.decode_ticks,
             "decode_steps": self.decode_steps,
             "decode_seconds": round(self.decode_seconds, 6),
@@ -1858,7 +2181,8 @@ class ContinuousEngine:
                            "grammars_registered": len(self._grammars)}}
                if self.guided else {}),
             **({"speculative": self._spec_stats()} if self.speculative else {}),
-        }
+        })
+        return out
 
     def _spec_stats(self) -> dict:
         out = {

@@ -54,15 +54,18 @@ decoding (``guided_regex``, ``guided_json``, ``response_format``), and
 
 - ``--engine lockstep`` (default): the lock-step ``Generator``; a lock
   serialises device work.
-- ``--engine continuous --cache-mode paged``: the continuous engine over the
-  paged KV cache (``infer/continuous.py``) behind ``ThreadedEngine``, so
-  concurrent requests share decode ticks. ``--admission optimistic`` books
-  a request's pages a tick at a time and preempts on an empty pool (exact
-  resume); ``--logprobs-k K`` serves logprob requests of N <= K on the
-  engine, the others fall back to the lock-step ``Generator`` over the same
-  weights, as the JAX server does. A full admission queue (``--max-queue``) answers 429, an
-  invalid request 400; ``/v1/stats`` and ``/health`` report the engine's
-  slots, queue and pages. ``--cache-mode contiguous`` raises (ROADMAP.md).
+- ``--engine continuous``: the continuous engine (``infer/continuous.py``)
+  behind ``ThreadedEngine``, so concurrent requests share decode ticks,
+  over the contiguous KV cache (``--cache-mode contiguous``, the default:
+  one max-context row per slot) or the paged one (``--cache-mode paged``:
+  a shared page pool with automatic prefix reuse). ``--admission
+  optimistic`` (paged only) books a request's pages a tick at a time and
+  preempts on an empty pool (exact resume); ``--logprobs-k K`` serves
+  logprob requests of N <= K on the engine, the others fall back to the
+  lock-step ``Generator`` over the same weights, as the JAX server does. A
+  full admission queue (``--max-queue``) answers 429, an invalid request
+  400; ``/v1/stats`` reports the engine's stats, and ``/health`` its queue,
+  slots and prefix-cache tokens, with the page pool's fields on pages.
 
 ``--max-pending`` answers 429 beyond that many requests in flight.
 Adapters, telemetry routes and pod serving are later slices (ROADMAP.md). ``--checkpoint-dir`` serves the newest verified step of a
@@ -90,8 +93,9 @@ program's k + 1 slack does not fit the context. ``--draft-preset NAME``
 (continuous engine, ``--speculative on|auto``) drafts with that preset's
 model, in its own dtype, instead of prompt lookup: seed-initialised, or
 restored from ``--draft-checkpoint DIR`` (a training run's checkpoints);
-its vocabulary must be the target's. ``--prefill-chunk N`` (a multiple of
-``--page-size``) prefills longer prompts one chunk a tick, and
+its vocabulary must be the target's. ``--prefill-chunk N`` (under
+``--cache-mode paged`` a multiple of ``--page-size``) prefills longer
+prompts one chunk a tick, and
 ``--token-budget T`` caps each tick's prefill at what its decode steps
 leave of T; ``/v1/stats`` reports ``slots_prefilling``,
 ``max_tick_prefill_tokens`` and the speculative block's ``drafter``. On the
@@ -99,7 +103,7 @@ card unless ``--device cpu`` is given:
 
     python -m ditl_tpu_torch.infer.server --preset llama3-8b \\
         --override attention_impl=flash [--checkpoint-dir DIR] [--device cuda] \\
-        [--port 8300] [--engine continuous --cache-mode paged] \\
+        [--port 8300] [--engine continuous [--cache-mode paged]] \\
         [--override dtype=float16|float32] [--quantize int8] [--kv-quant int8] \\
         [--speculative on|auto [--draft-preset NAME [--draft-checkpoint DIR]]] \
         [--prefill-chunk 512 --token-budget 640] [--admission optimistic] \\
@@ -334,12 +338,21 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def _load(self) -> dict:
+        """The load signal of ``/health``, as the reference's
+        ``_load_snapshot``: queue and slots, the prefix cache's hit and miss
+        tokens, the measured rates where the engine has them, and the page
+        pool's fields where it has pages."""
         if self.threaded_engine is not None:
             st = self.threaded_engine.stats()
-            return {"queue_depth": st["queue_depth"], "active_slots": st["slots_busy"],
-                    "n_slots": st["n_slots"], "pages_free": st["pages_free"],
-                    "pages_cached_evictable": st["pages_cached_evictable"],
-                    "pages_total": st["pages_total"]}
+            out = {"queue_depth": st["queue_depth"], "active_slots": st["slots_busy"],
+                   "n_slots": st["n_slots"],
+                   "cache_hit_tokens": st["prefix_cache"]["hit_tokens"],
+                   "cache_miss_tokens": st["prefix_cache"]["miss_tokens"]}
+            for key in ("prefill_tok_per_s", "kv_bytes_per_token", "pages_free",
+                        "pages_cached_evictable", "pages_total"):
+                if key in st:
+                    out[key] = st[key]
+            return out
         inflight = int(self.server.inflight)
         return {"queue_depth": max(0, inflight - 1),
                 "active_slots": min(1, inflight), "n_slots": 1}
@@ -1097,14 +1110,16 @@ def _parser() -> argparse.ArgumentParser:
                    help="cap on in-flight completions (429 beyond); 0 = none")
     p.add_argument("--engine", choices=("lockstep", "continuous"), default="lockstep")
     p.add_argument("--cache-mode", choices=("contiguous", "paged"), default="contiguous",
-                   help="KV cache layout for --engine continuous; only 'paged' is "
-                   "ported (contiguous raises)")
+                   help="KV cache layout for --engine continuous: 'contiguous' (one "
+                   "max-context row per slot; register_prefix keeps shared prefixes) "
+                   "or 'paged' (a shared page pool with automatic prefix reuse)")
     p.add_argument("--slots", type=int, default=8,
                    help="decode slots for --engine continuous")
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help="chunked prefill for --engine continuous: prompts longer than "
                    "this prefill one chunk per tick, interleaved with in-flight "
-                   "decodes (a multiple of --page-size; 0 = whole-prompt prefill)")
+                   "decodes (under --cache-mode paged a multiple of --page-size; "
+                   "0 = whole-prompt prefill)")
     p.add_argument("--token-budget", type=int, default=0,
                    help="per-tick token budget for --engine continuous: each tick "
                    "spends at most budget - decode_ready x decode_chunk tokens on "

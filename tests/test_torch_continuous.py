@@ -310,7 +310,7 @@ def test_queue_order_limits_and_validation(pair):
 
 
 @pytest.mark.parametrize("kw", [
-    {"cache_mode": "contiguous"}, {"metrics": object()}, {"host_tier_mb": 1},
+    {"flight": object()}, {"metrics": object()}, {"host_tier_mb": 1},
     {"pipeline_ticks": True}, {"mesh": object()}, {"tracer": object()},
 ])
 def test_unported_engine_features_raise(pair, kw):
@@ -327,7 +327,7 @@ def test_unported_request_features_raise(pair, kw):
     _, teng = _engines(pair, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.submit([1, 5, 6], **kw)
-    for call in (teng.register_prefix, teng.export_kv, teng.import_kv):
+    for call in (teng.export_kv, teng.import_kv):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call([1, 2])
 

@@ -2156,3 +2156,40 @@ def test_guided_decoding_on_the_card(no_tf32, dtype):
                             spec_threshold=0.0)
         assert run(spec, reqs) == got
         assert tpa.launches_verify_f32 == 2 * spec.stats()["speculative"]["verify_rounds"] > 0
+
+
+@pytest.mark.torch_port
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_contiguous_cache_runs_k1_on_cold_prefills_only(no_tf32, dtype):
+    """The contiguous cache (the engine's default): K1 runs every cold
+    prefill whose bucket tiles (the 601- and 301-token prompts; the 41-token
+    one's bucket of 64 takes plain attention), no paged kernel ever; a
+    registered prefix's hit launches no K1 and, in f32, gives the cold
+    tokens, which are also the paged engine's."""
+    from ditl_tpu_torch.config import ModelConfig
+    from ditl_tpu_torch.data.tokenizer import ByteTokenizer
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+    from ditl_tpu_torch.models import llama
+
+    sfx = "_f32" if dtype == "float32" else ""
+    cfg = ModelConfig(**TINY_CARD, dtype=dtype)
+    params = llama.init_params(cfg, seed=4, device="cuda")
+    eng = ContinuousEngine(params, cfg, ByteTokenizer(), n_slots=2, decode_chunk=8,
+                           device="cuda")
+    assert eng.cache_mode == "contiguous"
+    tfa.reset_launches()
+    tpa.reset_launches()
+    toks, _ = _card_run(eng)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    assert st["prefills_cold"] == 3 and getattr(tfa, "launches" + sfx) == 2 * 2
+    assert sum(getattr(tpa, c) for c in tpa._COUNTERS.values()) == 0
+    assert all(len(t) == 24 for t in toks)
+    eng.register_prefix(CARD_PROMPTS[0][:500])
+    tfa.reset_launches()
+    hit, _ = _card_run(eng)
+    torch.cuda.synchronize()
+    assert eng.stats()["prefix_cache"]["hit_tokens"] == 500
+    assert getattr(tfa, "launches" + sfx) == 2 * 1  # the 301-token prompt's cold prefill
+    if dtype == "float32":
+        assert hit == toks == _card_run(_card_engine(dtype))[0]

@@ -388,6 +388,9 @@ def test_continuous_logprobs_served_by_lockstep_fallback(served_continuous):
 
 
 def test_cli_continuous_server_and_contiguous_raises():
+    """Both cache modes build from the CLI: ``--cache-mode paged`` with its
+    pool, and the default (no ``--cache-mode``), the contiguous cache, which
+    also serves a completion (the name predates the contiguous port)."""
     base = ["--device", "cpu", "--port", "0", "--host", "127.0.0.1",
             "--override", "num_layers=1", "--override", "vocab_size=300",
             "--override", "max_seq_len=128", "--engine", "continuous"]
@@ -401,8 +404,20 @@ def test_cli_continuous_server_and_contiguous_raises():
         srv.server_close()  # never served: no serve loop to shut down
         srv.engine.close()
     assert not srv.engine._thread.is_alive()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserver.create_server(base + ["--cache-mode", "contiguous"])
+    srv = tserver.create_server(base + ["--slots", "2"])
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        st = srv.RequestHandlerClass.threaded_engine.stats()
+        assert (st["cache_mode"], st["n_slots"]) == ("contiguous", 2)
+        assert "pages_total" not in st
+        status, body = _post(url + "/v1/completions", {"prompt": "hi", "max_tokens": 3})
+        assert status == 200 and body["usage"]["completion_tokens"] == 3
+    finally:
+        srv.close(drain=True)
+        thread.join(timeout=30)
+    assert not srv.engine._thread.is_alive()
 
 
 # -- int8 serving ------------------------------------------------------------------
@@ -444,6 +459,92 @@ def _serve_int8_and_check(srv, want_text: str, want_n: int, prompt: str) -> None
 
 INT8_FLAGS = ["--quantize", "int8", "--kv-quant", "int8", "--engine", "continuous",
               "--cache-mode", "paged", "--page-size", "16", "--slots", "2"]
+
+
+@pytest.fixture(scope="module")
+def contiguous_servers():
+    """The port's and the JAX package's continuous servers with their
+    default cache mode, the contiguous cache (2 slots, decode_chunk 4), over
+    the same weights."""
+    from ditl_tpu.infer import server as jserver
+    from ditl_tpu.infer.continuous import ContinuousEngine as JaxEngine
+    from ditl_tpu.infer.continuous import ThreadedEngine as JaxThreadedEngine
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine, ThreadedEngine
+
+    jcfg, cfg = JaxModelConfig(**TINY), ModelConfig(**TINY)
+    params = jllama.init_params(jax.random.key(0), jcfg)
+    tparams = params_from_jax(jax.device_get(params), cfg, "cpu")
+    kw = dict(n_slots=2, decode_chunk=4)
+    jte = JaxThreadedEngine(JaxEngine(params, jcfg, JaxByteTokenizer(), **kw))
+    built = {
+        "port": tserver.make_server(
+            Generator(tparams, cfg, ByteTokenizer(), device="cpu"), port=0,
+            default_max_tokens=8, threaded_engine=ThreadedEngine(
+                ContinuousEngine(tparams, cfg, ByteTokenizer(), device="cpu", **kw))),
+        "jax": jserver.make_server(
+            JaxGenerator(params, jcfg, JaxByteTokenizer()), port=0, default_max_tokens=8,
+            threaded_engine=jte),
+    }
+    threads = {k: threading.Thread(target=srv.serve_forever, daemon=True)
+               for k, srv in built.items()}
+    for th in threads.values():
+        th.start()
+    try:
+        yield {k: f"http://127.0.0.1:{srv.server_address[1]}" for k, srv in built.items()}
+    finally:
+        for k, srv in built.items():
+            srv.close(drain=False)
+            threads[k].join(timeout=30)
+        jte.close()
+
+
+def _completions(url: str, payloads: list) -> list:
+    """POST ``payloads`` to /v1/completions concurrently; the bodies."""
+    out = [None] * len(payloads)
+
+    def one(i):
+        out[i] = _post(url + "/v1/completions", payloads[i])
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(payloads))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert all(o is not None and o[0] == 200 for o in out), out
+    return [o[1] for o in out]
+
+
+def test_contiguous_greedy_completions_match_the_jax_server(contiguous_servers):
+    """Four concurrent greedy completions over two contiguous slots: the
+    JAX server's text and token counts."""
+    payloads = [{"prompt": p, "max_tokens": m} for p, m in
+                [("hello world", 8), ("the quick brown fox", 6), ("abc", 8), ("x", 5)]]
+    got = {k: _completions(url, payloads) for k, url in contiguous_servers.items()}
+    for t, j in zip(got["port"], got["jax"]):
+        assert t["choices"][0]["text"] == j["choices"][0]["text"]
+        assert t["usage"] == j["usage"]
+
+
+def test_contiguous_health_and_stats_match_the_jax_server(contiguous_servers):
+    """``/health``'s load snapshot (queue, slots, prefix-cache tokens) and
+    ``/v1/stats``' scheduler fields are the reference's on a contiguous
+    engine, with no page field and no ``KeyError`` (the per-tick prefill
+    peak depends on when the HTTP threads arrive, so it is left out)."""
+    _completions(contiguous_servers["port"], [{"prompt": "stats probe", "max_tokens": 3}])
+    _completions(contiguous_servers["jax"], [{"prompt": "stats probe", "max_tokens": 3}])
+    health = {k: _get(url + "/health") for k, url in contiguous_servers.items()}
+    stats = {k: _get(url + "/v1/stats") for k, url in contiguous_servers.items()}
+    assert health["port"][0] == health["jax"][0] == 200
+    load = ("queue_depth", "active_slots", "n_slots", "cache_hit_tokens", "cache_miss_tokens")
+    for key in load:
+        assert health["port"][1][key] == health["jax"][1][key], key
+    for body in (health["port"][1], stats["port"][1]):
+        assert not any(k.startswith("page") for k in body)
+    tst, jst = stats["port"][1], stats["jax"][1]
+    for key in ("engine", "cache_mode", "n_slots", "decode_chunk", "max_context",
+                "prefix_cache", "queue_depth", "slots_busy"):
+        assert tst[key] == jst[key], key
+    assert tst["cache_mode"] == "contiguous"
 
 
 def test_cli_int8_serves_on_both_engines():
