@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --path20`` runs paths 1, 2 and 20 alone,
-``--path21`` paths 1, 2 and 21, ``--path22`` paths 1, 2 and 22, and
-``--path23`` paths 1, 2 and 23 (no kernels line). ``python3 chip_smoke.py
+``--path21`` paths 1, 2 and 21, ``--path22`` paths 1, 2 and 22,
+``--path23`` paths 1, 2 and 23, and ``--path24`` paths 1, 2 and 24 (no
+kernels line). ``python3 chip_smoke.py
 --paged-rows [--sweep] [TREE]`` and ``--f32-mm [--sweep] [TREE]`` time one
 kernel family on TREE's ``ditl_tpu_torch``
 (default: this checkout's; ``tree_main``), so that a parent commit unpacked
@@ -265,6 +266,22 @@ no result line. It imports nothing of JAX or of the JAX package.
    chunked prefill (384-token chunks under a 640-token budget, no K1),
    lookup speculation, a guided JSON request and logprobs give the plain
    contiguous ticks' tokens by the rule; int8 KV the paged int8 engine's.
+6a.7. Main path 24, serving telemetry (``phase_serve_telemetry``), over path
+   1's weights at full width and depth, 8 slots, context 2048, path 2's 12
+   requests: over HTTP to the engine as ``--engine continuous --trace-dir
+   DIR`` builds it (contiguous), half with a client ``traceparent`` and
+   every third with an ``X-Request-Id``: greedy tokens against path 23's by
+   the ``RESUME_TIE_TOL`` rule, ids echoed or generated, ``/metrics`` in
+   the Prometheus text contract counting 12 requests, admissions,
+   completions and TTFT/queue-wait/end-to-end observations and the
+   responses' tokens, ``/slo`` grading its three objectives, the journal's
+   span tree a request (``server.request`` > ``engine.request`` >
+   queue/prefill/decode, token sums equal to the usage's, the client's
+   trace id) and a tick instant a tick, the flight ring's rows; K1 on the
+   cold prefills. Then path 2's paged engine by ``step()``, unarmed and
+   armed: the same tokens, the same synchronising-op warnings a tick under
+   ``set_sync_debug_mode("warn")``, K1 and K3 in both; ms per decode step
+   armed against unarmed, the latency quantiles and span medians.
 6b. Main path 6, int8 serving: the bf16 serving state is freed, then
    ``infer/server.py --quantize int8 --kv-quant int8 --engine continuous
    --cache-mode paged`` is built in process (``llama3-8b``, full width and
@@ -441,6 +458,7 @@ import json
 import os
 import random
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -4843,8 +4861,10 @@ def phase_serve_preempt(gen, flash, paged, bf16: dict) -> dict:
         engine.step = step
         st = engine.stats()
         status, body = answer["r"]
+        # the metrics' counter: the arrival's 504 and this eviction
+        expired = int(engine.metrics.deadline_expired.value)
         require(status == 504 and body["error"]["type"] == "timeout_error"
-                and st["deadline_expired"] == 1 and st["pages_free"] == idle, (body, st))
+                and expired == 2 and st["pages_free"] == idle, (body, st, expired))
         log(f"[preempt-http] deadline_s 0: 504 before any work; a queued request past its "
             f"0.5 s deadline: 504 ({body['error']['message']!r}), free pages back at "
             f"{idle}")
@@ -5380,6 +5400,7 @@ def phase_serve_contiguous(gen, flash, paged, bf16: dict) -> dict:
         thread.join(timeout=30)
     require(not thread.is_alive() and not threaded._thread.is_alive(), "server did not stop")
     engine._cold_prefill = cold_prefill
+    bf16["contiguous_outputs"] = threaded.outputs  # path 24's yardstick
     require(health[0] == stats[0] == 200 and stats[1]["cache_mode"] == "contiguous"
             and not any(k.startswith("page") for k in list(health[1]) + list(stats[1])),
             (health, stats))
@@ -5613,6 +5634,422 @@ def phase_serve_contiguous(gen, flash, paged, bf16: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[contiguous] path 23 launches {total} in {time.perf_counter() - t_path:.1f}s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return total
+
+
+# Path 24: the requests that carry a client's traceparent (the even ones)
+# and an X-Request-Id (every third); the others get a generated req- id.
+TRACED_EVERY, ID_EVERY = 2, 3
+
+
+def _http_full(method: str, url: str, payload: dict | None = None,
+               headers: dict | None = None):
+    """(status, lower-cased response headers, body): JSON parsed when the
+    response is JSON, else text."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, hdrs, raw = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        status, hdrs, raw = e.code, e.headers, e.read()
+    hdrs = {k.lower(): v for k, v in hdrs.items()}
+    if hdrs.get("content-type", "").startswith("application/json"):
+        return status, hdrs, json.loads(raw or b"{}")
+    return status, hdrs, raw.decode()
+
+
+def _exposition_ok(body: str) -> dict:
+    """The Prometheus text contract of ``tests/test_server_api.py``'s live
+    check: every sample's family declares a TYPE, histogram buckets are
+    cumulative and end in +Inf at the family's count, counters end in
+    ``_total``. Returns the samples by name."""
+    types, samples = {}, {}
+    for line in body.strip().splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            types[name] = kind
+        elif line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            samples[name] = float(value)
+    for name in samples:
+        base = name.split("{", 1)[0]
+        fam = next((base[: -len(x)] for x in ("_bucket", "_sum", "_count")
+                    if base.endswith(x) and types.get(base[: -len(x)]) == "histogram"), base)
+        require(fam in types, f"sample {name} has no TYPE")
+    for fam, kind in types.items():
+        if kind == "histogram":
+            counts = [v for n, v in samples.items() if n.startswith(fam + "_bucket")]
+            require(counts == sorted(counts) and counts[-1] == samples[fam + "_count"]
+                    and f'{fam}_bucket{{le="+Inf"}}' in samples, fam)
+        elif kind == "counter":
+            require(fam.endswith("_total") and fam in samples, fam)
+    return samples
+
+
+# The engine's telemetry calls, timed on the host clock by ``_engine_leg``
+# (``_record_prefill`` with its token-budget debit, which is not telemetry).
+TELEMETRY_CALLS = ("_note_admitted", "_note_prefix_cache", "_record_prefill", "_note_harvest",
+                   "_attribute_interference", "_close_spans")
+
+
+class _TimedRing:
+    """A flight ring whose ``record`` adds its host seconds to ``acc[0]``."""
+
+    def __init__(self, ring, acc):
+        self._ring, self._acc = ring, acc
+
+    def record(self, **row):
+        t = time.perf_counter()
+        self._ring.record(**row)
+        self._acc[0] += time.perf_counter() - t
+
+
+def _time_telemetry(engine) -> list:
+    """Wrap ``engine``'s telemetry calls (``TELEMETRY_CALLS``, the tracer's
+    instants, the tick ring's rows) on the instance so that each adds its
+    host seconds to the returned one-element list."""
+    acc = [0.0]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[0] += time.perf_counter() - t
+        return call
+
+    for name in TELEMETRY_CALLS:
+        setattr(engine, name, timed(getattr(engine, name)))
+    if engine.tracer.armed:
+        engine.tracer.instant = timed(engine.tracer.instant)
+    ring, rings = engine.flight.ring, {}
+    engine.flight.ring = lambda name, capacity=None: rings.setdefault(
+        name, _TimedRing(ring(name, capacity), acc))
+    return acc
+
+
+def _engine_leg(gen, requests, tracer, tag: str):
+    """Path 2's paged engine, driven by ``step()`` in this thread over the
+    12 requests submitted at once in their order, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: (tokens by request,
+    synchronising-op warnings by the Python line that raised them, stats,
+    seconds between two synchronisations, K1 and K3 launches, host seconds
+    in the engine's telemetry calls)."""
+    import collections
+    import warnings
+
+    import torch
+
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+    from ditl_tpu_torch.ops import flash_attention as flash
+    from ditl_tpu_torch.ops import paged_attention as paged
+
+    tok = gen.tokenizer
+    engine = ContinuousEngine(gen.params, gen.cfg, tok, n_slots=8, decode_chunk=16,
+                              max_cache_len=2048, cache_mode="paged", page_size=256,
+                              device="cuda", tracer=tracer)
+    telemetry_s = _time_telemetry(engine)
+    rids = [engine.submit([tok.bos_id] + tok.encode(p["prompt"]),
+                          max_new_tokens=p["max_tokens"],
+                          temperature=p.get("temperature", 0.0), top_p=p.get("top_p", 1.0),
+                          seed=p.get("seed")) for p in requests]
+    flash.reset_launches()
+    paged.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            while engine.pending:
+                engine.step()
+                done.update({r.req_id: r.tokens for r in engine.take_finished()})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash.launches, "paged_tail": paged.launches_tail}
+    syncs = collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    st = engine.stats()
+    n_sync = sum(syncs.values())
+    log(f"[{tag}] {len(rids)} requests by step() in {wall:.3f}s: {st['ticks']} ticks, "
+        f"{st['decode_steps']} decode steps, {n_sync} synchronising-op warnings "
+        f"({n_sync / st['ticks']:.2f} a tick), K1 {launches['flash_fwd']}, "
+        f"K3 {launches['paged_tail']}; the telemetry calls "
+        f"{telemetry_s[0] * 1e3 / st['ticks']:.3f} ms a tick (host clock)")
+    del engine
+    return [done[r] for r in rids], syncs, st, wall, launches, telemetry_s[0]
+
+
+def phase_serve_telemetry(gen, flash, paged, bf16: dict) -> dict:
+    """Main path 24, serving telemetry, over path 1's llama3-8b weights at
+    full width and depth (bf16, 8 slots, context 2048) and path 2's 12
+    requests. (1) HTTP: the engine as ``infer/server.py --engine continuous
+    --trace-dir DIR`` builds it (the contiguous cache), half the requests
+    with a client ``traceparent`` and every third with an ``X-Request-Id``:
+    greedy tokens against path 23's contiguous run (path 2's paged one when
+    path 23 did not run) by the ``RESUME_TIE_TOL`` rule; the ids echoed or
+    generated (``req-``); ``/metrics`` keeps the Prometheus text contract
+    and counts 12 requests, admissions and completions, the responses'
+    completion tokens, 12 TTFT, queue-wait and end-to-end observations, and
+    prefix hit plus miss tokens equal to the prompts'; ``/slo`` grades its
+    three objectives over them; the journal holds one ``server.request`` a
+    request, under it an ``engine.request`` with an ``engine.queue``, its
+    ``engine.prefill``s (their tokens the uncached prompt's) and
+    ``engine.decode``s (their tokens the completion's), on the client's
+    trace where it sent one, and an ``engine.tick`` instant a tick; the
+    flight ring's rows are min(ticks, capacity), the last counting 12
+    completions; K1 on the cold prefills, no paged kernel. (2) Path 2's
+    paged engine driven by ``step()`` in this thread on the same requests,
+    unarmed then with a journal-backed tracer: the same tokens (greedy and
+    sampled), the same count of synchronising-op warnings a tick under
+    ``set_sync_debug_mode("warn")``, K1 and K3 in both. Logs ms per decode
+    step armed against unarmed, TTFT/TPOT/queue-wait quantiles from the
+    histograms, per-request span medians from the Chrome trace export and
+    the largest interference. Returns the path's launch counts."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ditl_tpu_torch.infer import server as server_mod
+    from ditl_tpu_torch.infer.continuous import ContinuousEngine
+    from ditl_tpu_torch.telemetry import TICK_RING, Tracer
+    from ditl_tpu_torch.telemetry.journal import EventJournal
+    from ditl_tpu_torch.telemetry.trace_export import load_trace_records, to_chrome_trace
+
+    t_path = time.perf_counter()
+    cfg, tok = gen.cfg, gen.tokenizer
+    n_l = cfg.num_layers
+    trace_dir = tempfile.mkdtemp(prefix="ditl-trace-")
+    requests, _ = _continuous_requests()
+    rng = random.Random(24)
+    traces = {i: (f"{rng.getrandbits(128):032x}", f"{rng.getrandbits(64):016x}")
+              for i in range(0, len(requests), TRACED_EVERY)}
+    headers = [{**({"traceparent": f"00-{traces[i][0]}-{traces[i][1]}-01"} if i in traces
+                   else {}),
+                **({"X-Request-Id": f"smoke-{i}"} if i % ID_EVERY == 0 else {})}
+               for i in range(len(requests))]
+    try:
+        # (1) the server as --engine continuous --trace-dir DIR builds it
+        args = server_mod._parser().parse_args(
+            ["--engine", "continuous", "--max-cache-len", "2048", "--trace-dir", trace_dir])
+        telemetry, tracer = server_mod.telemetry_from_args(args)
+        require(args.cache_mode == "contiguous" and tracer is not None and tracer.armed, args)
+        engine = ContinuousEngine(gen.params, cfg, tok, n_slots=args.slots,
+                                  max_cache_len=args.max_cache_len, cache_mode=args.cache_mode,
+                                  device="cuda", tracer=tracer)
+        threaded = _recording_engine(engine)
+        server = server_mod.make_server(gen, threaded_engine=threaded, host="127.0.0.1",
+                                        port=0, model_name=cfg.name, telemetry=telemetry)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        results, echoed = {}, {}
+
+        def one(i):
+            t = time.perf_counter()
+            status, hdrs, body = _http_full("POST", url + "/v1/completions", requests[i],
+                                            headers[i])
+            results[i], echoed[i] = (status, body, time.perf_counter() - t), hdrs
+
+        try:
+            flash.reset_launches()
+            paged.reset_launches()
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(requests))]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t0
+            k1 = flash.launches
+            others = sum(getattr(paged, c) for c in paged._COUNTERS.values())  # read right after
+            m_status, m_hdrs, exposition = _http_full("GET", url + "/metrics")
+            slo_status, _, slo = _http_full("GET", url + "/slo")
+            h_status, _, health = _http_full("GET", url + "/health")
+        finally:
+            server.close(drain=True)  # every server.request span is written by now
+            thread.join(timeout=30)
+            tracer.journal.close()
+        require(not thread.is_alive() and not threaded._thread.is_alive(), "server did not stop")
+        st = engine.stats()
+        want = bf16.get("contiguous_outputs")
+        versus = "path 23's contiguous run"
+        if want is None:
+            want, versus = bf16["outputs"], "path 2's paged run (path 23 did not run)"
+        same, n_greedy, completion, prompt_tokens = 0, 0, [], []
+        for i, payload in enumerate(requests):
+            require(i in results, f"request {i} did not answer")
+            status, body, _ = results[i]
+            require(status == 200, (i, status, body))
+            completion.append(body["usage"]["completion_tokens"])
+            prompt_tokens.append(body["usage"]["prompt_tokens"])
+            rid = echoed[i].get("x-request-id", "")
+            require(rid == f"smoke-{i}" if i % ID_EVERY == 0 else rid.startswith("req-"),
+                    (i, rid))
+            if payload.get("temperature"):
+                continue
+            ids = [tok.bos_id] + tok.encode(payload["prompt"])
+            key = (tuple(ids), payload["max_tokens"])
+            n_greedy += 1
+            same += _resume_tie_check(gen, cfg, ids, threaded.outputs[key][0], want[key][0],
+                                      "telemetry", f"request {i} against {versus}",
+                                      ("reference", "traced")) is None
+        require(m_status == slo_status == h_status == 200
+                and m_hdrs["content-type"].startswith("text/plain"), (m_status, slo_status))
+        samples = _exposition_ok(exposition)
+        n = len(requests)
+        for name in ("ditl_serving_requests_total", "ditl_serving_requests_admitted_total",
+                     "ditl_serving_requests_completed_total",
+                     "ditl_serving_request_ttft_seconds_count",
+                     "ditl_serving_request_queue_wait_seconds_count",
+                     "ditl_serving_request_e2e_seconds_count"):
+            require(samples[name] == n, (name, samples[name]))
+        require(samples["ditl_serving_tokens_generated_total"] == sum(completion),
+                (samples["ditl_serving_tokens_generated_total"], completion))
+        hit = samples["ditl_serving_prefix_cache_hit_tokens_total"]
+        miss = samples["ditl_serving_prefix_cache_miss_tokens_total"]
+        require(hit + miss == sum(prompt_tokens) and hit == 0, (hit, miss, prompt_tokens))
+        require(set(slo["objectives"]) == {"ttft", "tpot", "availability"}
+                and slo["objectives"]["ttft"]["total"] == n
+                and slo["objectives"]["availability"]["total"] == n
+                and slo["objectives"]["tpot"]["total"] > 0, slo)
+        require(health["ttft_p95_s"] > 0 and health["tpot_p95_s"] > 0, health)
+        tiling = st["prefills_cold"]
+        require(others == 0 and k1 == n_l * tiling > 0, (k1, others, tiling))
+
+        # the journal: one span tree a request, the ticks' instants
+        records = load_trace_records(trace_dir)
+        spans = [r for r in records if r.get("event") == "trace.span"]
+        kids: dict[str, list] = {}
+        for r in spans:
+            kids.setdefault(r["parent"], []).append(r)
+        roots = {r["request_id"]: r for r in spans if r["name"] == "server.request"}
+        require(len(roots) == n == sum(r["name"] == "engine.request" for r in spans),
+                (len(roots), [r["name"] for r in spans][:40]))
+        for i in range(n):
+            root = roots[echoed[i]["x-request-id"]]
+            if i in traces:
+                require(root["trace"] == traces[i][0] and root["parent"] == traces[i][1], root)
+            (ereq,) = [r for r in kids.get(root["span"], []) if r["name"] == "engine.request"]
+            under = kids.get(ereq["span"], [])
+            by = {name: [r for r in under if r["name"] == name]
+                  for name in ("engine.queue", "engine.prefill", "engine.decode")}
+            require(len(by["engine.queue"]) == 1 and by["engine.prefill"]
+                    and by["engine.decode"] and all(r["trace"] == root["trace"] for r in under),
+                    (i, sorted(r["name"] for r in under)))
+            require(sum(r["tokens"] for r in by["engine.decode"]) == completion[i]
+                    == ereq["tokens"], (i, completion[i]))
+            require(sum(r["tokens"] for r in by["engine.prefill"]) == prompt_tokens[i]
+                    == ereq["prompt_tokens"], (i, prompt_tokens[i]))
+        ticks = [r for r in records if r.get("event") == "trace.instant"
+                 and r.get("name") == "engine.tick"]
+        require(len(ticks) == st["ticks"] > 0, (len(ticks), st["ticks"]))
+        ring = engine.flight.ring(TICK_RING)
+        rows = ring.dump()
+        require(len(rows) == min(st["ticks"], ring.capacity) and rows[-1]["completed"] == n,
+                (len(rows), st["ticks"], rows[-1]))
+        # per request (its engine id), each kind's summed span time, in ms
+        xs = [e for e in to_chrome_trace(records)["traceEvents"] if e.get("ph") == "X"]
+        require(len(xs) == len(spans), (len(xs), len(spans)))
+        per_req: dict = {}
+        for e in xs:
+            if e["name"] in ("engine.queue", "engine.prefill", "engine.decode"):
+                key = (e["args"]["req"], e["name"])
+                per_req[key] = per_req.get(key, 0.0) + e["dur"] / 1e3
+        med = {name: statistics.median(v for (_, k), v in per_req.items() if k == name)
+               for name in ("engine.queue", "engine.prefill", "engine.decode")}
+        require(all(sum(k == name for _, k in per_req) == n for name in med), per_req)
+        m = engine.metrics
+        q = {"ttft": (m.ttft.quantile(0.5), m.ttft.quantile(0.95)),
+             "tpot": (m.decode_token.quantile(0.5), m.decode_token.quantile(0.95)),
+             "queue": m.queue_wait.quantile(0.5)}
+        log(f"[telemetry] {n} requests over HTTP in {wall:.3f}s wall, {sum(completion)} tokens; "
+            f"greedy tokens against {versus}: {same} of {n_greedy} identical (the rest by "
+            f"RESUME_TIE_TOL); X-Request-Id echoed on {len(range(0, n, ID_EVERY))}, "
+            f"generated on the rest; {len(traces)} traceparents continued; K1 {k1} = {n_l} x "
+            f"{tiling} cold prefills, no paged kernel; /metrics: {len(exposition.splitlines())} "
+            f"lines, requests/admitted/completed {n}, tokens {sum(completion)}, prefix miss "
+            f"tokens {int(miss)}; /slo ttft {slo['objectives']['ttft']['total']} / tpot "
+            f"{slo['objectives']['tpot']['total']} / availability "
+            f"{slo['objectives']['availability']['total']} observations; journal "
+            f"{len(spans)} spans and {len(ticks)} tick instants over {st['ticks']} ticks; "
+            f"flight ring {len(rows)} rows")
+        log(f"[telemetry] from the histograms (bucket-interpolated): TTFT p50 "
+            f"{q['ttft'][0] * 1e3:.1f} ms, p95 {q['ttft'][1] * 1e3:.1f} ms; TPOT p50 "
+            f"{q['tpot'][0] * 1e3:.2f} ms, p95 {q['tpot'][1] * 1e3:.2f} ms; queue wait p50 "
+            f"{q['queue'] * 1e3:.1f} ms; from the Chrome trace, per-request medians: queue "
+            f"{med['engine.queue']:.1f} ms, prefill {med['engine.prefill']:.1f} ms (host "
+            f"dispatch wall), decode {med['engine.decode']:.1f} ms; interference_max_s "
+            f"{st['interference_max_s']:.4f} ({SMI})")
+        interference = [st["interference_max_s"]]
+        total = {"flash_fwd": k1, "paged_tail": 0}
+        del engine, threaded, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (2) path 2's paged engine by step(): a warm-up leg (one-time
+        # initialisations synchronise once), then unarmed and armed in turns
+        legs = (("warm-up", False), ("unarmed", False), ("armed", True), ("armed", True),
+                ("unarmed", False))
+        outs, syncs, stats, walls, tele = [], [], [], [], []
+        for i, (leg, armed) in enumerate(legs):
+            tracer = (Tracer(EventJournal(os.path.join(trace_dir, f"events-engine-{i}.jsonl"),
+                                          source="engine")) if armed else None)
+            tag = "telemetry-engine-" + leg
+            o, s_, st2, w, launches, t_s = _engine_leg(gen, requests, tracer, tag)
+            if tracer is not None:
+                tracer.journal.close()
+            require(launches["flash_fwd"] >= n_l and launches["paged_tail"]
+                    == n_l * st2["decode_steps"] > 0, (tag, launches))
+            for k in total:
+                total[k] += launches[k]
+            outs.append(o)
+            syncs.append(s_)
+            stats.append(st2)
+            walls.append(w)
+            tele.append(t_s)
+            interference.append(st2["interference_max_s"])
+            gc.collect()
+            torch.cuda.empty_cache()
+        require(all(o == outs[0] for o in outs), "telemetry changed a token")
+        require(len({(s_["ticks"], s_["decode_steps"]) for s_ in stats}) == 1, stats)
+        if any(c != syncs[1] for c in syncs[1:]):
+            log(f"[telemetry] synchronising ops by site, each leg against the first "
+                f"unarmed: {[(dict(c - syncs[1]), dict(syncs[1] - c)) for c in syncs]}")
+        n_sync = [sum(c.values()) for c in syncs]
+        require(len(set(n_sync[1:])) == 1, ("synchronising ops a run, by leg", n_sync))
+        ticks = stats[0]["ticks"]
+        step_ms = [1e3 * s_["decode_seconds"] / s_["decode_steps"] for s_ in stats]
+        wall_ms = [1e3 * w / s_["decode_steps"] for w, s_ in zip(walls, stats)]
+        tick_ms = [1e3 * t_s / ticks for t_s in tele]
+
+        def pair(xs, armed):
+            return " / ".join(f"{x:.3f}" for x, (_, a) in zip(xs[1:], legs[1:]) if a == armed)
+
+        log(f"[telemetry] paged engine by step(), unarmed against armed in turns (unarmed, "
+            f"armed, armed, unarmed after a warm-up): the same tokens ({sum(map(len, outs[0]))}"
+            f" over {len(outs[0])} requests, greedy and sampled), the same {ticks} ticks and "
+            f"{n_sync[1]} synchronising-op warnings ({n_sync[1] / ticks:.2f} a tick) in every "
+            f"leg (the warm-up {n_sync[0]}); ms per decode step unarmed {pair(step_ms, False)}, "
+            f"armed {pair(step_ms, True)} (warm-up {step_ms[0]:.3f}; the ticks' host clock, "
+            f"each tick ending in its device-to-host copy), over the whole run unarmed "
+            f"{pair(wall_ms, False)}, armed {pair(wall_ms, True)} (synchronised at its ends, "
+            f"prefills included); the telemetry calls' own host time a tick unarmed "
+            f"{pair(tick_ms, False)} ms, armed {pair(tick_ms, True)} ms; largest "
+            f"interference_max_s {max(interference):.4f} ({SMI})")
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    log(f"[telemetry] path 24 launches {total} in {time.perf_counter() - t_path:.1f}s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return total
 
@@ -8812,6 +9249,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path23 = phase_serve_contiguous(gen, flash, paged, bf16_summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path24 = phase_serve_telemetry(gen, flash, paged, bf16_summary)
     # Free the bf16 serving weights and pools before path 6's int8 ones.
     del gen, bf16_summary["outputs"]
     gc.collect()
@@ -8956,6 +9396,9 @@ def main() -> int:
         launches[name] += n
     for name, n in path23.items():  # path 23: the contiguous cache, prefixes
         launches[name] += n
+    for name, n in path24.items():  # path 24: serving telemetry
+        launches[name] += n
+    require(path24["flash_fwd"] >= 1 and path24["paged_tail"] >= 1, path24)
     require(min(path22[k] for k in ("flash_fwd", "paged_tail", "paged_verify")) >= 1, path22)
     require(path23["flash_fwd"] >= 1, path23)
     require(lockstep["flash_fwd"] >= 1 and continuous["flash_fwd"] >= 1,
@@ -8995,6 +9438,7 @@ def main() -> int:
                         "launches_path_21": path21.get(name, 0),
                         "launches_path_22": path22.get(name, 0),
                         "launches_path_23": path23.get(name, 0),
+                        "launches_path_24": path24.get(name, 0),
                         "max_abs_err": errors[name], **timings[name],
                         "at_head_dims": hd_timings.get(name, {}),
                         "at_shapes": shape_timings.get(name, {})})
@@ -9005,6 +9449,7 @@ def main() -> int:
         f"(path 20) {path20}, preemption, logprobs and deadlines (path 21) {path21}, "
         f"grammar-constrained decoding (path 22) {path22}, the contiguous cache and "
         f"registered prefixes (path 23; K3 from its paged legs only) {path23}, "
+        f"serving telemetry (path 24; K3 from its paged engine leg) {path24}, "
         f"int8 serving {int8_serve}, speculative over int8 pools {spec_int8}, "
         f"f32 serving {f32_serve}, f32 speculative {f32_spec}, f32 over int8 pools "
         f"{f32_int8_serve}, its speculation {f32_int8_spec}, float16 serving {f16_serve}, "
@@ -9171,7 +9616,36 @@ def path23_main() -> int:
     return 0
 
 
+def path24_main() -> int:
+    """``--path24``: the card, the build, paths 1 and 2 (path 24's weights,
+    engine shape and yardstick tokens), then path 24 alone; no kernels
+    line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the card", file=sys.stderr)
+        return 1
+    from ditl_tpu_torch.ops import flash_attention as flash
+    from ditl_tpu_torch.ops import paged_attention as paged
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_card()
+    phase_build()
+    gen, _ = phase_serve(flash, paged)
+    _, bf16_summary = phase_serve_continuous(gen, flash, paged)
+    t0 = time.perf_counter()
+    launches = phase_serve_telemetry(gen, flash, paged, bf16_summary)
+    require(launches["flash_fwd"] >= 1 and launches["paged_tail"] >= 1, launches)
+    log(f"[done] path 24 in {time.perf_counter() - t0:.1f}s, all in "
+        f"{time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--path24"]:
+        sys.exit(path24_main())
     if sys.argv[1:2] == ["--path23"]:
         sys.exit(path23_main())
     if sys.argv[1:2] == ["--path20"]:

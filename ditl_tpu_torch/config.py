@@ -1,7 +1,8 @@
 """Configuration for the PyTorch port.
 
 Copies of ``ModelConfig``, ``DataConfig`` and ``TrainConfig`` from the JAX
-package's ``config.py``, cut to the fields the port reads, with the same
+package's ``config.py``, cut to the fields the port reads (``APIConfig`` and
+``TelemetryConfig`` whole, with the latter's validation and helpers), with the same
 names, types and defaults, so a preset or an override means the same run in
 both packages. The port never imports the JAX package, so it keeps its own
 copies (``tests/test_torch_imports.py`` holds them to the originals field for
@@ -11,8 +12,8 @@ launcher does.
 
 Fields whose features are not ported yet are kept so that setting them
 raises where the JAX package would act on them: MoE, LoRA and int8 caches in
-the model code; multi-step calls, HF import, the event journal, profiling
-and the fault drills here, at construction. The backward kernels
+the model code; multi-step calls, HF import, the training event journal,
+profiling, the fault drills and incident bundles here, at construction. The backward kernels
 of the MLP block and of the attention projections (``mlp_bwd_impl``,
 ``mlp_custom_vjp``, ``proj_bwd_impl`` and their block fields) are validated
 as the JAX package validates them.
@@ -26,7 +27,8 @@ import os
 from dataclasses import dataclass, field, fields, replace
 from typing import Any, Sequence
 
-__all__ = ["ModelConfig", "DataConfig", "TrainConfig", "APIConfig", "Config",
+__all__ = ["ModelConfig", "DataConfig", "TrainConfig", "APIConfig", "TelemetryConfig",
+           "Config",
            "parse_model_overrides", "parse_overrides"]
 
 # attention_impl values the port runs; the others wait for later slices.
@@ -253,13 +255,269 @@ class APIConfig:
 
 
 @dataclass(frozen=True)
+class TelemetryConfig:
+    """Observability knobs shared by the serving and training legs
+    (``telemetry/``): journal size control, and the SLO
+    objectives the ``/slo`` burn-rate endpoints grade against. Latency
+    thresholds snap DOWN to the histogram bucket ladders
+    (telemetry/registry.py) — the effective bound is reported in the
+    ``/slo`` body so nobody grades against a number that was silently
+    rounded."""
+
+    # Per-process JSONL journal rotation cap in MiB (0 = unbounded, the
+    # historical behavior). With tracing armed, span records arrive per
+    # request and tick instants per scheduler tick — a long serving run
+    # must not grow its journal without bound. Total footprint stays
+    # ~this cap (telemetry/journal.py keeps the newest segments only).
+    journal_max_mb: float = 0.0
+    # HBM accounting (telemetry/memwatch.py): sample per-device
+    # allocator stats whenever the step counter crosses a multiple of N
+    # (host-only reads, zero device syncs; with steps_per_call > 1 that is
+    # at most once per window; 0 disables sampling). Backends without
+    # memory_stats (CPU) degrade to no gauges, never a crash.
+    memory_sample_every: int = 1
+    # How many live buffers the OOM post-mortem dump records
+    # (shape/dtype/sharding/nbytes, largest first).
+    memory_topk: int = 8
+    # Server (replica) SLOs: TTFT / TPOT latency objectives over the
+    # engine's harvest-observed histograms, plus availability.
+    slo_ttft_s: float = 2.5
+    slo_ttft_target: float = 0.95
+    slo_tpot_s: float = 0.25
+    slo_tpot_target: float = 0.95
+    slo_availability_target: float = 0.999
+    # Gateway SLOs: end-to-end relay latency + fleet availability.
+    slo_gateway_e2e_s: float = 10.0
+    slo_gateway_e2e_target: float = 0.95
+    # Multi-window burn-rate evaluation: the alert fires only when BOTH
+    # windows burn the error budget faster than slo_burn_alert (fast window
+    # for responsiveness, slow window to de-flap).
+    slo_fast_window_s: float = 300.0
+    slo_slow_window_s: float = 3600.0
+    slo_burn_alert: float = 1.0
+    # -- Flight recorder + anomaly plane ---------------------------------
+    # Rows each always-on flight ring keeps (telemetry/flight.py): the
+    # black-box horizon an incident bundle dumps. Bounded memory; zero
+    # device syncs; dumped only on trigger.
+    flight_ring_size: int = 512
+    # Incident bundle directory (telemetry/incident.py); "" = anomaly
+    # detectors may still run (journaled anomaly.detected events) but no
+    # bundles are assembled.
+    incident_dir: str = ""  # set raises (the incident plane is not ported)
+    # Fingerprint cooldown: triggers for the same anomaly fingerprint
+    # within this window only bump the suppressed counter — a sustained
+    # storm is ONE bundle.
+    incident_cooldown_s: float = 300.0
+    # Bundle-dir retention (oldest-first GC, journal-rotation spirit).
+    incident_max_bundles: int = 16
+    incident_max_mb: float = 64.0
+    # Bundle contents: last-N merged journal events, and the trace-slice
+    # half-window (seconds before the trigger) exported to Chrome-trace.
+    incident_journal_tail: int = 200
+    incident_trace_window_s: float = 30.0
+    # Serving detectors (telemetry/anomaly.py): observe cadence in
+    # scheduler ticks, per-window storm threshold (deadline expiries /
+    # 429s / preemptions / gateway spills), queue-depth growth limit,
+    # latency-jump factor vs the rolling windowed-p95 baseline (with a
+    # minimum sample count), and the prefix-hit-ratio collapse floor.
+    anomaly_check_every_ticks: int = 32
+    anomaly_storm_threshold: int = 8
+    anomaly_queue_depth: int = 64
+    anomaly_latency_factor: float = 3.0
+    anomaly_min_samples: int = 16
+    anomaly_hit_ratio_floor: float = 0.5
+    # Training detectors: rolling window length, spike factor over the
+    # rolling loss median, explosion factor over the rolling grad-norm
+    # median (non-finite loss/grad always fires — not a knob).
+    anomaly_window: int = 32
+    anomaly_loss_spike_factor: float = 4.0
+    anomaly_grad_explosion_factor: float = 10.0
+    # -- Continuous profiling & stall attribution ------------------------
+    # Wall-clock sampling profiler hertz (telemetry/prof.py): 0 disarms;
+    # > 0 arms a continuous sampler across the trainer's step loop and on
+    # a profiling-armed gateway (the bench A/B leg gates its overhead
+    # inside the perf_compare noise floor, so leaving it on is priced).
+    prof_hz: float = 0.0
+    # Distinct collapsed stacks the sampler holds before oldest-first
+    # eviction — the profiler's hard memory cap.
+    prof_max_stacks: int = 2048
+    # Event-loop lag watchdog (evloop data plane only): busy heartbeat
+    # age past this threshold is a stall — burst-sampled into a
+    # convicting stack, journaled as loop.stall, and fed to the incident
+    # plane. 0 disarms the watchdog.
+    loop_stall_threshold_s: float = 0.0
+    # Burst-sampling rate while a stall is in progress (high on purpose:
+    # the burst lasts only for the stall's duration).
+    loop_stall_burst_hz: float = 200.0
+
+    def __post_init__(self):
+        if self.incident_dir:
+            raise NotImplementedError(
+                "telemetry.incident_dir (incident bundles)" + _NOT_PORTED)
+        if self.journal_max_mb < 0:
+            raise ValueError(
+                f"telemetry.journal_max_mb must be >= 0 (0 = unbounded), "
+                f"got {self.journal_max_mb}"
+            )
+        if self.memory_sample_every < 0:
+            raise ValueError(
+                f"telemetry.memory_sample_every must be >= 0 (0 = off), "
+                f"got {self.memory_sample_every}"
+            )
+        if self.memory_topk < 1:
+            raise ValueError(
+                f"telemetry.memory_topk must be >= 1, got {self.memory_topk}"
+            )
+        for name in ("slo_ttft_target", "slo_tpot_target",
+                     "slo_availability_target", "slo_gateway_e2e_target"):
+            v = getattr(self, name)
+            if not 0.0 < v < 1.0:
+                # target == 1.0 has zero error budget: burn rate divides
+                # by it — reject at config time, not at the first scrape.
+                raise ValueError(
+                    f"telemetry.{name} must be in (0, 1), got {v}"
+                )
+        for name in ("slo_ttft_s", "slo_tpot_s", "slo_gateway_e2e_s",
+                     "slo_fast_window_s", "slo_slow_window_s",
+                     "slo_burn_alert"):
+            if getattr(self, name) <= 0:
+                raise ValueError(
+                    f"telemetry.{name} must be > 0, got {getattr(self, name)}"
+                )
+        if self.slo_fast_window_s >= self.slo_slow_window_s:
+            raise ValueError(
+                "telemetry.slo_fast_window_s must be shorter than "
+                f"slo_slow_window_s, got {self.slo_fast_window_s} >= "
+                f"{self.slo_slow_window_s}"
+            )
+        for name in ("flight_ring_size", "incident_max_bundles",
+                     "anomaly_check_every_ticks", "anomaly_storm_threshold",
+                     "anomaly_queue_depth", "anomaly_min_samples",
+                     "anomaly_window"):
+            if getattr(self, name) < 1:
+                raise ValueError(
+                    f"telemetry.{name} must be >= 1, got "
+                    f"{getattr(self, name)}"
+                )
+        for name in ("incident_cooldown_s", "incident_max_mb",
+                     "incident_trace_window_s", "anomaly_latency_factor",
+                     "anomaly_loss_spike_factor",
+                     "anomaly_grad_explosion_factor"):
+            if getattr(self, name) <= 0:
+                raise ValueError(
+                    f"telemetry.{name} must be > 0, got {getattr(self, name)}"
+                )
+        if self.incident_journal_tail < 0:
+            raise ValueError(
+                f"telemetry.incident_journal_tail must be >= 0, got "
+                f"{self.incident_journal_tail}"
+            )
+        if not 0.0 < self.anomaly_hit_ratio_floor < 1.0:
+            raise ValueError(
+                "telemetry.anomaly_hit_ratio_floor must be in (0, 1), got "
+                f"{self.anomaly_hit_ratio_floor}"
+            )
+        for name in ("prof_hz", "loop_stall_threshold_s"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"telemetry.{name} must be >= 0 (0 = disarmed), got "
+                    f"{getattr(self, name)}"
+                )
+        if self.prof_max_stacks < 1:
+            raise ValueError(
+                f"telemetry.prof_max_stacks must be >= 1, got "
+                f"{self.prof_max_stacks}"
+            )
+        if self.loop_stall_burst_hz <= 0:
+            raise ValueError(
+                f"telemetry.loop_stall_burst_hz must be > 0, got "
+                f"{self.loop_stall_burst_hz}"
+            )
+
+    def journal_max_bytes(self) -> int | None:
+        """The journal rotation cap in bytes (None = unbounded) —
+        the form ``EventJournal(max_bytes=...)`` takes."""
+        return int(self.journal_max_mb * 1048576) or None
+
+    def slo_windows(self) -> tuple[float, float]:
+        return (self.slo_fast_window_s, self.slo_slow_window_s)
+
+    def serving_slo_kwargs(self) -> dict:
+        """Keyword form of the server objectives — exactly what
+        ``telemetry.slo.serving_slo`` takes."""
+        return dict(
+            ttft_s=self.slo_ttft_s,
+            ttft_target=self.slo_ttft_target,
+            tpot_s=self.slo_tpot_s,
+            tpot_target=self.slo_tpot_target,
+            availability_target=self.slo_availability_target,
+            windows=self.slo_windows(),
+            burn_alert=self.slo_burn_alert,
+        )
+
+    def gateway_slo_kwargs(self) -> dict:
+        """Keyword form of the gateway objectives — exactly what
+        ``telemetry.slo.gateway_slo`` takes."""
+        return dict(
+            e2e_s=self.slo_gateway_e2e_s,
+            e2e_target=self.slo_gateway_e2e_target,
+            availability_target=self.slo_availability_target,
+            windows=self.slo_windows(),
+            burn_alert=self.slo_burn_alert,
+        )
+
+    def incident_kwargs(self) -> dict:
+        """Keyword form of the bundle-hygiene knobs — exactly what
+        ``telemetry.incident.IncidentManager`` takes."""
+        return dict(
+            cooldown_s=self.incident_cooldown_s,
+            max_bundles=self.incident_max_bundles,
+            max_total_mb=self.incident_max_mb,
+            journal_tail=self.incident_journal_tail,
+            trace_window_s=self.incident_trace_window_s,
+        )
+
+    def watchdog_kwargs(self) -> dict:
+        """Keyword form of the loop-stall watchdog knobs — exactly what
+        ``telemetry.prof.LoopWatchdog`` takes. Callers gate on
+        ``loop_stall_threshold_s > 0`` before building one (0 =
+        disarmed, and the watchdog itself rejects it)."""
+        return dict(
+            threshold_s=self.loop_stall_threshold_s,
+            burst_hz=self.loop_stall_burst_hz,
+        )
+
+    def serving_detector_kwargs(self) -> dict:
+        """Keyword form of the serving detector thresholds
+        (``telemetry.anomaly.ServingDetector``)."""
+        return dict(
+            storm_threshold=self.anomaly_storm_threshold,
+            queue_depth_limit=self.anomaly_queue_depth,
+            latency_factor=self.anomaly_latency_factor,
+            min_samples=self.anomaly_min_samples,
+            hit_ratio_floor=self.anomaly_hit_ratio_floor,
+        )
+
+    def training_detector_kwargs(self) -> dict:
+        """Keyword form of the training detector thresholds
+        (``telemetry.anomaly.TrainingDetector``)."""
+        return dict(
+            window=self.anomaly_window,
+            loss_spike_factor=self.anomaly_loss_spike_factor,
+            grad_explosion_factor=self.anomaly_grad_explosion_factor,
+        )
+
+
+@dataclass(frozen=True)
 class Config:
-    """The sections the training launcher reads."""
+    """The sections the training launcher reads, and the server's
+    ``telemetry`` section (``--telemetry-override``)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     api: APIConfig = field(default_factory=APIConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
@@ -287,7 +545,7 @@ def _coerce(value: str, target_type: Any) -> Any:
 
 # Sections of the JAX package's Config the port has no copy of yet.
 _UNPORTED_SECTIONS = ("runtime", "mesh", "gateway", "autoscale", "kvtier",
-                      "usage", "adapter", "chaos", "bulk", "telemetry")
+                      "usage", "adapter", "chaos", "bulk")
 
 
 def parse_overrides(config: Config, overrides: Sequence[str]) -> Config:

@@ -156,16 +156,37 @@ Paged ``register_prefix`` is a warm (``_warm_pages``): the prefix's full
 pages are prefilled with no slot, published, and held by the content cache
 alone; its synchronised rate is ``stats()["prefill_tok_per_s"]``.
 
+Telemetry (``telemetry/``, copies of the reference's modules), all from host
+values the scheduler already holds, so no tick gains a device sync:
+
+- **Metrics** (``metrics``, a ``ServingMetrics`` bundle): requests,
+  admissions, completions, 429s, deadline evictions, preemptions, degrade
+  windows, prefix-cache hit/miss tokens and evictions, tokens generated and
+  grammar-masked, drafts accepted and rejected; queue-wait, TTFT (split by
+  prefix hit/miss and SLO class), per-token TPOT, end-to-end and
+  interference histograms. The clocks are ``time.monotonic()`` stamps on the
+  ``Request``; a prefill's time is its host dispatch wall, as in the
+  reference.
+- **Tracing** (``tracer``, ``submit(trace=...)``): with an armed tracer each
+  request writes ``engine.request`` (under the caller's span) with
+  ``engine.queue``, one ``engine.prefill`` a dispatch (``kind`` prompt,
+  chunk or resume) and one ``engine.decode`` a harvested chunk, and each
+  tick an ``engine.tick`` instant; every terminal path closes the spans.
+- **Interference**: the slots decode-ready before a tick's prefills absorb
+  their wall time (``stats()``' ``interference_max_s`` and its split by
+  class), each victim's next decode span naming the tick's longest prefill.
+- **Flight recorder** (``flight``): one ``TICK_RING`` row a tick.
+
 Everything else of the reference engine raises ``NotImplementedError`` and
 is queued in ``ROADMAP.md``: multi-LoRA stacks, the host-RAM tier and KV
-handoff (``export_kv``/``import_kv``), pipelined ticks, meshes, and the
-telemetry planes (of which ``stats()`` keeps ``max_tick_prefill_tokens``
-and ``deadline_expired``).
+handoff (``export_kv``/``import_kv``), pipelined ticks, meshes, the anomaly
+monitor and per-tenant usage metering.
 """
 
 from __future__ import annotations
 
 import bisect
+import collections
 import queue
 import random
 import threading
@@ -188,6 +209,9 @@ from ditl_tpu_torch.infer.speculative import (
     spec_sample_tokens,
 )
 from ditl_tpu_torch.models import llama
+from ditl_tpu_torch.telemetry.flight import TICK_RING, FlightRecorder
+from ditl_tpu_torch.telemetry.serving import ServingMetrics
+from ditl_tpu_torch.telemetry.tracing import NULL_TRACER
 from ditl_tpu_torch.utils.device import resolve_device
 from ditl_tpu_torch.utils.logging import get_logger
 
@@ -323,6 +347,30 @@ class Request:
     # Grammar-constrained decoding: the start state of the request's grammar
     # in the engine's table (0: FREE, unconstrained).
     fsm_start: int = 0
+    # Telemetry stamps (time.monotonic; 0.0 = not yet): submit, slot
+    # admission, the last prefill dispatch's end, the first and the last
+    # harvest. Host clocks only: the latency histograms come from these.
+    t_submit: float = 0.0
+    t_admitted: float = 0.0
+    t_prefill_done: float = 0.0
+    t_first: float = 0.0
+    t_last_emit: float = 0.0
+    # Request tracing: ``trace`` is the upstream span context (the server's
+    # request span) the engine's spans chain under; ``request_span`` and
+    # ``queue_span`` are the engine's own open spans (None while the tracer
+    # is unarmed).
+    trace: Any = None
+    request_span: Any = None
+    queue_span: Any = None
+    # Interference: wall seconds of other requests' prefills that shared
+    # this request's decode ticks; ``interference_pending`` holds
+    # (culprit req_id, culprit prefill tokens, seconds) per tick since the
+    # last harvest, drained into the next decode span.
+    interference_pending: list = field(default_factory=list)
+    interference_s: float = 0.0
+    # Estimated device seconds: prefill dispatch walls plus a share of each
+    # decode tick the request rode.
+    device_time_est_s: float = 0.0
 
     @property
     def slo_rank(self) -> tuple[int, int]:
@@ -412,10 +460,12 @@ class ContinuousEngine:
         token_budget: int = 0,
         thrash_window: int = 32,
         host_tier_mb: float = 0,
-        metrics=None,
+        metrics: ServingMetrics | None = None,
         tracer=None,
-        flight=None,
+        flight: FlightRecorder | None = None,
+        anomaly=None,
         usage=None,
+        usage_ledger=None,
         device: str | torch.device = "cuda",
     ):
         """``max_cache_len`` caps the per-slot context below the model's
@@ -448,7 +498,14 @@ class ContinuousEngine:
         ``logprobs_k`` (0: off) arms per-token logprobs with up to that many
         alternatives a token. ``fsm_capacity`` (0: off; else at least 2, the
         FREE and DEAD rows) arms grammar-constrained decoding with a table of
-        that many rows (module note)."""
+        that many rows (module note).
+
+        Telemetry (module note): ``metrics`` (a ``ServingMetrics`` bundle;
+        pass one to aggregate across engines, default a bundle of its own),
+        ``tracer`` (``telemetry/tracing.Tracer``; default unarmed) and
+        ``flight`` (a ``FlightRecorder``; default one of its own). The
+        anomaly monitor and usage metering (``anomaly``, ``usage``,
+        ``usage_ledger``) are not ported and raise."""
         check_vocab(tokenizer, model_cfg.vocab_size, "ContinuousEngine")
         llama.check_supported(model_cfg)
         if cache_mode not in ("contiguous", "paged"):
@@ -466,8 +523,9 @@ class ContinuousEngine:
             "host_tier_mb (the host-RAM prefix tier)": host_tier_mb != 0,
             "pipeline_ticks": pipeline_ticks,
             "mesh (sharded serving)": mesh is not None,
-            "metrics/tracer/flight/usage (serving telemetry)": any(
-                x is not None for x in (metrics, tracer, flight, usage)),
+            "anomaly (the serving anomaly monitor)": anomaly is not None,
+            "usage/usage_ledger (per-tenant usage metering)": (
+                usage is not None or usage_ledger is not None),
             "multi-LoRA adapter stacks": bool(params.get("layers", {}).get("lora")),
         }
         for what, asked in unported.items():
@@ -507,8 +565,23 @@ class ContinuousEngine:
         self.token_budget = token_budget
         self._tick_prefill_left: int | None = None  # None: an unbudgeted tick
         self._tick_prefill_spent = 0
-        # The largest prefill spend (tokens) of any one tick.
+        # The largest prefill spend (tokens) of any one tick, and the largest
+        # interference one tick's prefills caused (wall seconds), overall
+        # and by the victim's SLO class.
         self.max_tick_prefill_tokens = 0
+        self.interference_max_s = 0.0
+        self.interference_max_by_class: dict[str, float] = {}
+        # Serving telemetry, fed from host values the scheduler already
+        # holds (no device sync): the latency histograms and counters, the
+        # request spans (skipped while the tracer is unarmed) and one
+        # flight-ring row a tick.
+        self.metrics = metrics if metrics is not None else ServingMetrics()
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.flight = flight if flight is not None else FlightRecorder()
+        # This tick's prefill dispatches [(req_id, tokens, wall s)]: the
+        # interference attribution's input (step()).
+        self._tick_prefills: list[tuple[int, int, float]] = []
+        self.tick_count = 0  # scheduler ticks (step() calls)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = model_cfg
@@ -535,7 +608,6 @@ class ContinuousEngine:
         self._degraded = False
         self.admission_degrades = 0  # windows that engaged the guard
         self.resume_prefill_tokens = 0
-        self.deadline_expired = 0
         self.page_size = page_size
         dev = self.device
         if cache_mode == "paged":
@@ -556,7 +628,9 @@ class ContinuousEngine:
             # Bytes of one page across layers, K and V (int8: scales included).
             self.page_bytes = sum(t.numel() * t.element_size()
                                   for t in self.cache.values()) // self.n_pages
-            self.allocator = PageAllocator(self.n_pages)
+            # Evictions are counted, their pages never collected.
+            self.allocator = PageAllocator(self.n_pages, on_evict=self._on_pages_evicted,
+                                           group_payload=lambda: False)
             self._table = np.zeros((n_slots, self.maxp), np.int32)
             # Device mirror, re-uploaded only when the host table changes.
             self._table_dirty = True
@@ -698,8 +772,6 @@ class ContinuousEngine:
         # seeded prefixes, earlier chunks; paged warms count here too).
         self.prefills_cold = 0
         self.prefills_prefix_hit = 0
-        self.prefix_hit_tokens = 0
-        self.prefix_miss_tokens = 0
 
     # -- prefix caching --------------------------------------------------------
 
@@ -892,16 +964,19 @@ class ContinuousEngine:
         compiled grammar, an ``infer/grammar.CompiledGrammar`` (registered
         here) or an int start state from ``register_grammar``; needs
         ``fsm_capacity > 0``. Registration comes after every other check,
-        since table rows are never evicted."""
+        since table rows are never evicted. ``trace``: the upstream span or
+        ``SpanContext`` (``telemetry/tracing.py``) the request's engine
+        spans chain under while the engine's tracer is armed; ignored
+        otherwise."""
         unported = {
             "multi-LoRA adapters": bool(adapter_id),
-            "request tracing": trace is not None,
             "per-tenant usage metering": tenant is not None,
         }
         for what, asked in unported.items():
             if asked:
                 raise _not_ported(what)
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            self.metrics.queue_full.inc()
             raise QueueFullError(
                 f"admission queue full ({self.max_queue} waiting requests)"
             )
@@ -954,8 +1029,19 @@ class ContinuousEngine:
             logprobs=logprobs,
             deadline=None if deadline_s is None else time.monotonic() + float(deadline_s),
             fsm_start=fsm_start,
+            t_submit=time.monotonic(),
         )
         self._next_id += 1
+        if self.tracer.armed:
+            # The request span stays open until the request ends; the queue
+            # span closes at its admission.
+            req.trace = trace
+            req.request_span = self.tracer.start_span(
+                "engine.request", parent=trace, req=req.req_id,
+                prompt_tokens=len(req.prompt), max_new_tokens=req.max_new_tokens)
+            req.queue_span = self.tracer.start_span(
+                "engine.queue", parent=req.request_span, req=req.req_id)
+        self.metrics.requests.inc()
         self._enqueue(req)
         return req.req_id
 
@@ -1197,12 +1283,8 @@ class ContinuousEngine:
             n_total = min(max(want, len(matched)), worst)
         if not self._take_pages(slot, req, matched, n_total):
             return False
-        if not (req.cache_hit_tokens or req.cache_miss_tokens):
-            # once a request: a mid-prefill victim's re-admission would
-            # count its prompt again, its own published pages as hits
-            req.cache_hit_tokens, req.cache_miss_tokens = d0, s
-            self.prefix_hit_tokens += d0
-            self.prefix_miss_tokens += s
+        self._note_admitted(req)
+        self._note_prefix_cache(req, d0)
         # In-place writes of this slot's row: no copy of the slot state.
         if chunked:
             # Parked until its last chunk lands: a dead row of every tick.
@@ -1212,8 +1294,9 @@ class ContinuousEngine:
             self.cur[slot] = self.tokenizer.pad_id
             self.pos[slot] = 0
         else:
+            w0, m0 = time.time(), time.monotonic()
             first = self._paged_prefill_chunk(req, slot, d0, s, self._slot_generator(req))
-            self._record_prefill(s)
+            self._record_prefill(req, s, d0, w0, time.monotonic() - m0, "prompt")
             self._go_live(req, first)
         self.temps[slot] = req.temperature
         self.top_ps[slot] = req.top_p
@@ -1297,11 +1380,10 @@ class ContinuousEngine:
             return False
         with self._queue_lock:  # by identity: a submit may have inserted ahead
             self._queue.remove(req)
+        self._note_admitted(req)
         req.slot = slot
         self._slots[slot] = req
-        req.cache_hit_tokens, req.cache_miss_tokens = d0, s
-        self.prefix_hit_tokens += d0
-        self.prefix_miss_tokens += s
+        self._note_prefix_cache(req, d0)
         if prefix is not None:
             self._seed_prefix(slot, prefix[0])
         if chunked:
@@ -1311,6 +1393,7 @@ class ContinuousEngine:
             self.cur[slot] = self.tokenizer.pad_id
             self.pos[slot] = self.smax - 1
         else:
+            w0, m0 = time.time(), time.monotonic()
             gen = self._slot_generator(req)
             if prefix is None:
                 logits = self._cold_prefill(req.prompt, slot)
@@ -1320,7 +1403,7 @@ class ContinuousEngine:
                 logits = self._suffix_prefill(req.prompt, slot, d0, s,
                                               min(_next_pow2(s, floor=16), self.smax - d0))
             first = self._sample_first(req, slot, logits, gen)
-            self._record_prefill(s)
+            self._record_prefill(req, s, d0, w0, time.monotonic() - m0, "prompt")
             self._go_live(req, first)
         self.temps[slot] = req.temperature
         self.top_ps[slot] = req.top_p
@@ -1405,17 +1488,20 @@ class ContinuousEngine:
             n_total = min(-(-(pos + self._tick_advance_bound()) // ps), worst)
         if not self._take_pages(slot, req, matched, max(n_total, len(matched))):
             return False
+        self._note_admitted(req)  # a no-op: a resume is not a second admission
         d0 = len(matched) * ps
         self._win_resume_tokens += pos - d0  # the anti-thrash guard's count
         self.resume_prefill_tokens += pos - d0
         req.resume_tokens += pos - d0
         step, d = self.prefill_chunk or pos - d0, d0
+        w0, m0 = time.time(), time.monotonic()
         while d < pos:
             n = min(step, pos - d)
             self._paged_prefill_chunk(req, slot, d, n, None, sample=False, tokens=ctx)
             d += n
         if pos > d0:
-            self._record_prefill(pos - d0)
+            # a resume's prefill stalls the tick as a fresh one does
+            self._record_prefill(req, pos - d0, d0, w0, time.monotonic() - m0, "resume")
         self.cur[slot] = req.preempt_cur
         self.pos[slot] = pos
         self._gens[slot] = req.preempt_gen
@@ -1472,6 +1558,7 @@ class ContinuousEngine:
         self._free_slot_pages(slot)
         self._enqueue(req)
         self.preemptions += 1
+        self.metrics.preemptions.inc()
         req.preempt_count += 1
         logger.info("preempted request %d (%s)", req.req_id,
                     "requeued fresh" if not req.preempted else f"{len(req.tokens)} tokens in")
@@ -1493,6 +1580,7 @@ class ContinuousEngine:
             if not self._degraded and ratio > self._thrash_engage:
                 self._degraded = True
                 self.admission_degrades += 1
+                self.metrics.admission_degrades.inc()
                 logger.info("optimistic admission degraded to worst-case reservations "
                             "(re-prefilled / generated = %.2f over %d ticks)",
                             ratio, self._thrash_window)
@@ -1527,9 +1615,11 @@ class ContinuousEngine:
 
     def _expire(self, req: Request) -> None:
         """A deadline eviction ends ``req`` with the tokens it has: waiters
-        see ``expired``, a stream its terminal None."""
+        see ``expired``, a stream its terminal None; counted apart from
+        completion and cancellation."""
         req.expired = req.finished = True
-        self.deadline_expired += 1
+        self.metrics.deadline_expired.inc()
+        self._close_spans(req, expired=True)
         if req.stream is not None:
             req.stream.put(None)
         self._completed[req.req_id] = req
@@ -1563,13 +1653,71 @@ class ContinuousEngine:
             return True
         return self._tick_prefill_spent == 0 or cost <= self._tick_prefill_left
 
-    def _record_prefill(self, tokens: int) -> None:
-        """Debit one prefill dispatch from the tick's allowance."""
+    def _record_prefill(self, req: Request, tokens: int, offset: int, w0: float,
+                        dt: float, kind: str) -> None:
+        """Register one prefill dispatch of ``tokens`` at ``offset``, which
+        began at wall time ``w0`` and took ``dt`` seconds: this tick's
+        interference attribution (``step()``), a debit of the tick's
+        allowance, the request's device-time estimate and, with the tracer
+        armed, an ``engine.prefill`` span of ``kind`` (``prompt``,
+        ``chunk`` or ``resume``) under the request's span. ``dt`` is the
+        host's dispatch wall, as in the reference, whose dispatch is
+        asynchronous too: kernels may still run after it, and nothing
+        synchronises the device to measure them."""
+        self._tick_prefills.append((req.req_id, tokens, dt))
         self._tick_prefill_spent += tokens
         if self._tick_prefill_left is not None:
             self._tick_prefill_left = max(0, self._tick_prefill_left - tokens)
         self.max_tick_prefill_tokens = max(self.max_tick_prefill_tokens,
                                            self._tick_prefill_spent)
+        req.device_time_est_s += dt
+        req.t_prefill_done = time.monotonic()
+        if req.request_span is not None:
+            self.tracer.start_span(
+                "engine.prefill", parent=req.request_span, t0=w0, req=req.req_id,
+                offset=offset, tokens=tokens, kind=kind,
+            ).end(t_end=w0 + dt)
+
+    # -- telemetry -------------------------------------------------------------
+
+    def _note_admitted(self, req: Request) -> None:
+        """Queue -> slot: the admission counter, the queue wait and the
+        queue span's end, once a request (a resume is not an admission)."""
+        if req.t_admitted:
+            return
+        req.t_admitted = time.monotonic()
+        self.metrics.admitted.inc()
+        if req.t_submit:  # a Request built by hand carries no stamp
+            self.metrics.queue_wait.observe(req.t_admitted - req.t_submit)
+        if req.queue_span is not None:
+            req.queue_span.end(queue_wait_s=round(req.t_admitted - req.t_submit, 6)
+                               if req.t_submit else 0.0)
+            req.queue_span = None
+
+    def _note_prefix_cache(self, req: Request, hit_tokens: int) -> None:
+        """A first admission's prompt split into tokens reused from the
+        prefix cache and tokens prefilled, into the request and the metrics'
+        counters. Once a request: a mid-prefill victim's re-admission would
+        count its prompt again, its own published pages as hits."""
+        if req.cache_hit_tokens or req.cache_miss_tokens:
+            return
+        req.cache_hit_tokens = hit_tokens
+        req.cache_miss_tokens = len(req.prompt) - hit_tokens
+        self.metrics.note_prefix_cache(req.cache_hit_tokens, req.cache_miss_tokens)
+
+    def _on_pages_evicted(self, group) -> None:
+        """The allocator's eviction hook: count the reclaim."""
+        self.metrics.prefix_cache_evictions.inc()
+
+    def _close_spans(self, req: Request, **attrs) -> None:
+        """End the request's open spans (idempotent): completion, deadline
+        expiry and cancellation all come here, so no span stays open."""
+        if req.queue_span is not None:
+            req.queue_span.end(**attrs)
+            req.queue_span = None
+        if req.request_span is not None:
+            req.request_span.end(tokens=len(req.tokens), **attrs)
+            req.request_span = None
 
     def _advance_prefill_chunks(self, reqs: list[Request]) -> None:
         """One chunk for each prefilling request, in SLO order (class rank,
@@ -1582,8 +1730,10 @@ class ContinuousEngine:
             if not self._budget_allows(cost):
                 continue
             d_before = req.prefill_pos
+            w0, m0 = time.time(), time.monotonic()
             self._advance_prefill(req)
-            self._record_prefill(req.prefill_pos - d_before)
+            self._record_prefill(req, req.prefill_pos - d_before, d_before, w0,
+                                 time.monotonic() - m0, "chunk")
 
     # -- the draft model -------------------------------------------------------
 
@@ -1950,8 +2100,19 @@ class ContinuousEngine:
         with ``emitted``): the stats, kept by requests that asked. A
         streamed request gets its new tokens as one list (with logprobs, a
         (tokens, stats) pair sliced to its N), and ``None`` once it
-        finishes."""
+        finishes.
+
+        Telemetry, from one host clock read: tokens generated (and those
+        decoded under a grammar), the first chunk's TTFT (split by prefix
+        hit or miss and by SLO class), later chunks' per-token TPOT (the
+        chunk's interval over its tokens, one observation a token), one
+        ``engine.decode`` span a chunk carrying the interference absorbed
+        since the last harvest, and at the finish the completion count, the
+        end-to-end latency and the request's spans closed."""
         eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
+        t_now = time.monotonic()
+        # the live decode rows of this tick share its device time
+        n_share = sum(1 for r in self._slots if r is not None and not r.prefilling)
         for slot, req in enumerate(list(self._slots)):
             if req is None or req.prefilling:
                 # a parked slot's row is pad filler, not an empty generation
@@ -1973,6 +2134,8 @@ class ContinuousEngine:
             if len(req.tokens) >= req.max_new_tokens:
                 req.finished = True
             self._win_gen_tokens += len(fresh)  # the anti-thrash guard's count
+            if fresh:
+                self._note_harvest(req, fresh, t_now, n_share)
             if req.stream is not None and fresh:
                 if keep_lp:
                     n, m = req.logprobs, len(fresh)
@@ -1983,6 +2146,10 @@ class ContinuousEngine:
                 else:
                     req.stream.put(fresh)
             if req.finished:
+                self.metrics.completed.inc()
+                if req.t_submit:
+                    self.metrics.e2e.observe(t_now - req.t_submit)
+                self._close_spans(req, interference_total_s=round(req.interference_s, 6))
                 if req.stream is not None:
                     req.stream.put(None)
                 self._completed[req.req_id] = req
@@ -1993,6 +2160,48 @@ class ContinuousEngine:
                     self._publish_generated_pages(req, slot)
                 self._free_slot_pages(slot)
 
+    def _note_harvest(self, req: Request, fresh: list[int], t_now: float,
+                      n_share: int) -> None:
+        """One harvested chunk's telemetry (``_harvest``): counters,
+        TTFT or TPOT, the device-time share, and the decode span."""
+        m = self.metrics
+        m.tokens_generated.inc(len(fresh))
+        if req.fsm_start > 0:
+            m.grammar_masked.inc(len(fresh))  # every one decoded under the mask
+        first_chunk = req.t_first == 0.0
+        if first_chunk:
+            req.t_first = t_now
+            if req.t_submit:
+                ttft = t_now - req.t_submit
+                m.ttft.observe(ttft)
+                (m.ttft_cache_hit if req.cache_hit_tokens > 0
+                 else m.ttft_cache_miss).observe(ttft)
+                cls_hist = m.ttft_by_class.get(req.slo_class)
+                if cls_hist is not None:
+                    cls_hist.observe(ttft)
+        elif req.t_last_emit:
+            # the first chunk's interval is the prefill's: TTFT's, not TPOT's
+            m.decode_token.observe((t_now - req.t_last_emit) / len(fresh), n=len(fresh))
+        prev_emit = req.t_last_emit or req.t_prefill_done or req.t_admitted or req.t_submit
+        if prev_emit and n_share:
+            req.device_time_est_s += max(0.0, t_now - prev_emit) / n_share
+        if req.request_span is not None:
+            # the interval the client waited for this chunk; the largest
+            # prefill since the last harvest names the culprit
+            prev = req.t_last_emit or req.t_admitted or req.t_submit
+            dur = max(0.0, t_now - prev) if prev else 0.0
+            attrs = {"req": req.req_id, "tokens": len(fresh), "first": first_chunk}
+            if req.interference_pending:
+                cid, ctok, _ = max(req.interference_pending, key=lambda e: e[2])
+                attrs.update(
+                    interference_s=round(sum(x for *_, x in req.interference_pending), 6),
+                    interference_culprit=cid, culprit_prefill_tokens=ctok)
+            w_now = time.time()
+            self.tracer.start_span("engine.decode", parent=req.request_span,
+                                   t0=w_now - dur, **attrs).end(t_end=w_now)
+        req.interference_pending.clear()
+        req.t_last_emit = t_now
+
     def step(self) -> None:
         """One scheduler tick: evict requests past their deadlines, advance
         the chunks of prefills in flight, admit queued requests, advance the
@@ -2001,9 +2210,17 @@ class ContinuousEngine:
         every decode-ready slot (speculatively when armed and predicted to
         win, ``_use_spec_tick``) and harvest it. With a token budget, the
         prefills draw what the decode-ready slots' ``decode_chunk`` steps
-        leave of it."""
+        leave of it.
+
+        Telemetry: the slots decode-ready before the tick's prefills are
+        their victims, each observing the tick's prefill wall as
+        interference; an armed tracer records an ``engine.tick`` instant;
+        and the flight recorder's tick ring gets one row, all from host
+        state (no device sync)."""
+        self.tick_count += 1
         self._expire_deadlines()
         decode_ready = [r for r in self._slots if r is not None and not r.prefilling]
+        self._tick_prefills = []
         self._tick_prefill_spent = 0
         self._tick_prefill_left = (
             max(0, self.token_budget - len(decode_ready) * self.decode_chunk)
@@ -2016,7 +2233,58 @@ class ContinuousEngine:
         seen = {id(r) for r in inflight}
         self._advance_prefill_chunks([r for r in self._slots if r is not None
                                       and r.prefilling and id(r) not in seen])
+        prefill_s = sum(dt for _, _, dt in self._tick_prefills)
+        if self._tick_prefills and prefill_s > 0 and decode_ready:
+            self._attribute_interference(decode_ready, prefill_s)
+        if self.tracer.armed:
+            self.tracer.instant(
+                "engine.tick", tick=self.tick_count,
+                slots_busy=sum(r is not None for r in self._slots),
+                prefilling=sum(1 for r in self._slots if r is not None and r.prefilling),
+                queue_depth=len(self._queue), prefill_s=round(prefill_s, 6))
         self._topup_pages()
+        self._decode_and_harvest()
+        m = self.metrics
+        by_class = collections.Counter(r.slo_class for r in self._queue)
+        self.flight.ring(TICK_RING).record(
+            tick=self.tick_count,
+            queue_depth=len(self._queue),
+            queue_by_class={cls: by_class.get(cls, 0) for cls in SLO_CLASSES},
+            slots_busy=sum(r is not None for r in self._slots),
+            prefilling=sum(1 for r in self._slots if r is not None and r.prefilling),
+            prefill_tokens=self._tick_prefill_spent,
+            budget_left=self._tick_prefill_left,
+            preemptions=self.preemptions,
+            # the registry's counters are host numbers
+            deadline_expired=int(m.deadline_expired.value),
+            queue_full=int(m.queue_full.value),
+            completed=int(m.completed.value),
+        )
+
+    def _attribute_interference(self, victims: list[Request], prefill_s: float) -> None:
+        """This tick's prefills delayed every decode-ready request's next
+        chunk by ``prefill_s``: one ``tpot_interference`` observation a
+        victim (and its class's), the largest stalls, and a pending culprit
+        entry (the tick's longest prefill) for the victim's next decode
+        span."""
+        culprit_id, culprit_tokens, _ = max(self._tick_prefills, key=lambda e: e[2])
+        self.interference_max_s = max(self.interference_max_s, prefill_s)
+        for victim in victims:
+            if victim.finished:
+                continue
+            self.metrics.tpot_interference.observe(prefill_s)
+            cls_hist = self.metrics.interference_by_class.get(victim.slo_class)
+            if cls_hist is not None:
+                cls_hist.observe(prefill_s)
+            self.interference_max_by_class[victim.slo_class] = max(
+                self.interference_max_by_class.get(victim.slo_class, 0.0), prefill_s)
+            victim.interference_s += prefill_s
+            victim.interference_pending.append((culprit_id, culprit_tokens, prefill_s))
+
+    def _decode_and_harvest(self) -> None:
+        """One decode tick of every decode-ready slot (speculative when
+        ``_use_spec_tick`` says so), then its harvest; nothing on an idle
+        tick."""
         occupied = [r is not None and not r.prefilling for r in self._slots]
         if not any(occupied):  # host-side check: no device work on idle ticks
             return
@@ -2104,7 +2372,10 @@ class ContinuousEngine:
 
     def _account_spec(self, counts: np.ndarray, rr: np.ndarray) -> None:
         """Per-request acceptance (tokens emitted, verify forwards taken part
-        in) and the engine's EMA of the tick's mean tokens per forward."""
+        in), the drafted tokens accepted and rejected (a round emits its
+        accepted drafts plus one token of its own, so accepted = emitted -
+        rounds, clamped where a budget cut a round), and the engine's EMA of
+        the tick's mean tokens per forward."""
         accs = []
         for slot, req in enumerate(self._slots):
             if req is None or req.prefilling:
@@ -2114,6 +2385,9 @@ class ContinuousEngine:
             self.spec_emitted += int(counts[slot])
             self.spec_row_forwards += int(rr[slot])
             if rr[slot] > 0:
+                accepted = max(0, int(counts[slot]) - int(rr[slot]))
+                self.metrics.spec_accepted.inc(accepted)
+                self.metrics.spec_rejected.inc(max(0, int(rr[slot]) * self.spec_k - accepted))
                 accs.append(counts[slot] / rr[slot])
         if accs:
             mean = float(np.mean(accs))
@@ -2127,14 +2401,23 @@ class ContinuousEngine:
     def pending(self) -> int:
         return len(self._queue) + sum(r is not None for r in self._slots)
 
+    def _prefix_cache_stats(self) -> dict:
+        """Prompt tokens reused from the prefix cache and prefilled, their
+        ratio, and the pool's LRU evictions. Read from the metrics'
+        counters, so a shared bundle aggregates across engines."""
+        m = self.metrics
+        hit = int(m.prefix_cache_hit_tokens.value)
+        miss = int(m.prefix_cache_miss_tokens.value)
+        out = {"hit_tokens": hit, "miss_tokens": miss,
+               "evictions": self.allocator.evictions if self._paged else 0}
+        if hit + miss:
+            out["hit_ratio"] = round(hit / (hit + miss), 4)
+        return out
+
     def stats(self) -> dict:
         """Operational snapshot, host state only (no device sync); the page
-        pool's fields on pages only, as the reference."""
-        hit, miss = self.prefix_hit_tokens, self.prefix_miss_tokens
-        prefix = {"hit_tokens": hit, "miss_tokens": miss,
-                  "evictions": self.allocator.evictions if self._paged else 0}
-        if hit + miss:
-            prefix["hit_ratio"] = round(hit / (hit + miss), 4)
+        pool's fields on pages only, as the reference. Deadline evictions
+        are the metrics' ``deadline_expired`` counter."""
         out = {
             "engine": "continuous",
             "cache_mode": self.cache_mode,
@@ -2147,9 +2430,12 @@ class ContinuousEngine:
             "max_context": self.smax,
             "token_budget": self.token_budget,
             "max_tick_prefill_tokens": self.max_tick_prefill_tokens,
+            "interference_max_s": round(self.interference_max_s, 6),
+            "interference_max_by_class": {
+                cls: round(v, 6) for cls, v in sorted(self.interference_max_by_class.items())},
             "queue_by_class": {cls: sum(1 for r in self._queue if r.slo_class == cls)
                                for cls in SLO_CLASSES},
-            "prefix_cache": prefix,
+            "prefix_cache": self._prefix_cache_stats(),
         }
         if self.prefill_seconds_total > 0:
             # page-warming prefills only, synchronised (absent until one ran)
@@ -2170,7 +2456,7 @@ class ContinuousEngine:
                 "kv_bytes_per_token": round(self.page_bytes / self.page_size, 2),
             })
         out.update({
-            "deadline_expired": self.deadline_expired,
+            "ticks": self.tick_count,
             "decode_ticks": self.decode_ticks,
             "decode_steps": self.decode_steps,
             "decode_seconds": round(self.decode_seconds, 6),
@@ -2237,12 +2523,14 @@ class ContinuousEngine:
             for req in self._queue:
                 if req.req_id == req_id:
                     self._queue.remove(req)
+                    self._close_spans(req, cancelled=True)
                     if req.stream is not None:
                         req.stream.put(None)
                     return True
         for slot, req in enumerate(self._slots):
             if req is not None and req.req_id == req_id:
                 self._slots[slot] = None
+                self._close_spans(req, cancelled=True)
                 self._free_slot_pages(slot)
                 if req.stream is not None:
                     req.stream.put(None)
@@ -2324,6 +2612,22 @@ class ThreadedEngine:
 
     def stats(self) -> dict:
         return self._engine.stats()
+
+    @property
+    def metrics(self) -> ServingMetrics:
+        """The engine's telemetry bundle (what ``/metrics`` renders)."""
+        return self._engine.metrics
+
+    @property
+    def tracer(self):
+        """The engine's span tracer: the HTTP server takes it as its own, so
+        arming the engine arms the whole replica."""
+        return self._engine.tracer
+
+    @property
+    def flight(self) -> FlightRecorder:
+        """The engine's flight recorder (its tick ring)."""
+        return self._engine.flight
 
     @property
     def queue_full(self) -> bool:
@@ -2408,6 +2712,7 @@ class ThreadedEngine:
         slo_class: str | None = None,
         deadline_s: float | None = None,
         grammar: Any = None,
+        trace: Any = None,
     ) -> list[int]:
         """Submit one request and block until it completes. Raises if the
         driver has stopped (shutdown or device error), and
@@ -2418,7 +2723,7 @@ class ThreadedEngine:
             rid = self._submit_locked(
                 prompt_tokens, max_new_tokens=max_new_tokens, temperature=temperature,
                 top_p=top_p, seed=seed, slo_class=slo_class, deadline_s=deadline_s,
-                grammar=grammar)
+                grammar=grammar, trace=trace)
             return self._wait_locked(rid, deadline_s).tokens
 
     def generate_one_with_logprobs(
@@ -2433,6 +2738,7 @@ class ThreadedEngine:
         slo_class: str | None = None,
         deadline_s: float | None = None,
         grammar: Any = None,
+        trace: Any = None,
     ) -> tuple[list[int], dict]:
         """``generate_one`` plus each token's logprob stats, in the lock-step
         Generator's layout (``token_logprobs``, ``top_ids``,
@@ -2442,7 +2748,7 @@ class ThreadedEngine:
             rid = self._submit_locked(
                 prompt_tokens, max_new_tokens=max_new_tokens, temperature=temperature,
                 top_p=top_p, seed=seed, slo_class=slo_class, deadline_s=deadline_s,
-                logprobs=n_top, grammar=grammar)
+                logprobs=n_top, grammar=grammar, trace=trace)
             req = self._wait_locked(rid, deadline_s)
         return req.tokens, {"token_logprobs": req.lp_token,
                             "top_ids": [r[:n_top] for r in req.lp_top_ids],
@@ -2460,6 +2766,7 @@ class ThreadedEngine:
         logprobs: int | None = None,
         slo_class: str | None = None,
         grammar: Any = None,
+        trace: Any = None,
     ) -> list[Request]:
         """Submit ``n`` copies of one prompt, copy i seeded
         ``derive_copy_seed(seed, i)`` (an unseeded call draws its base), and
@@ -2476,7 +2783,7 @@ class ThreadedEngine:
                         prompt_tokens, max_new_tokens=max_new_tokens,
                         temperature=temperature, top_p=top_p,
                         seed=derive_copy_seed(seed, i), logprobs=logprobs,
-                        slo_class=slo_class, grammar=grammar))
+                        slo_class=slo_class, grammar=grammar, trace=trace))
             except BaseException:
                 self._cancels.update(rids)
                 self._cond.notify_all()
@@ -2529,6 +2836,7 @@ class ThreadedEngine:
         slo_class: str | None = None,
         deadline_s: float | None = None,
         grammar: Any = None,
+        trace: Any = None,
     ):
         """Submit one request and return an iterator of its token-id lists
         as they are harvested (SSE streaming). The submit is eager:
@@ -2539,7 +2847,8 @@ class ThreadedEngine:
         mid-stream."""
         return self._stream(prompt_tokens=prompt_tokens, max_new_tokens=max_new_tokens,
                             temperature=temperature, top_p=top_p, seed=seed,
-                            slo_class=slo_class, deadline_s=deadline_s, grammar=grammar)
+                            slo_class=slo_class, deadline_s=deadline_s, grammar=grammar,
+                            trace=trace)
 
     def stream_one_with_logprobs(
         self,
@@ -2553,13 +2862,14 @@ class ThreadedEngine:
         slo_class: str | None = None,
         deadline_s: float | None = None,
         grammar: Any = None,
+        trace: Any = None,
     ):
         """``stream_one`` with each chunk's logprob stats: yields (token ids,
         stats) pairs, the stats in ``generate_one_with_logprobs``' layout."""
         return self._stream(prompt_tokens=prompt_tokens, max_new_tokens=max_new_tokens,
                             temperature=temperature, top_p=top_p, seed=seed,
                             slo_class=slo_class, deadline_s=deadline_s, logprobs=n_top,
-                            grammar=grammar)
+                            grammar=grammar, trace=trace)
 
     def cancel(self, req_id: int) -> None:
         """Request cancellation; the driver thread applies it before its

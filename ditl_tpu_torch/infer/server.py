@@ -1,7 +1,8 @@
 """OpenAI-compatible HTTP server over the port's engines.
 
 Counterpart of the JAX package's ``infer/server.py``: ``GET /health``,
-``GET /v1/models``, ``GET /v1/stats``, ``POST /v1/completions`` and
+``GET /v1/models``, ``GET /v1/stats``, ``GET /metrics``, ``GET /slo``
+(``/v1/slo``), ``POST /v1/completions`` and
 ``POST /v1/chat/completions`` with ``stop``, ``max_tokens``,
 ``temperature``, ``top_p``, ``seed``, ``logprobs``/``top_logprobs``,
 ``stream``, ``n``/``best_of``, ``deadline_s``, ``slo_class`` and guided
@@ -51,6 +52,22 @@ decoding (``guided_regex``, ``guided_json``, ``response_format``), and
   adapter-less servers.
 - ``/v1/embeddings``: mean-pooled, unit-length final hidden states of the
   served model (one forward over the padded batch, under the device lock).
+- Telemetry (``telemetry/``): ``/metrics`` is Prometheus text, the serving
+  bundle's histograms and counters (the continuous engine's own, else the
+  lock-step paths' requests, completions, tokens and end-to-end latency),
+  the SLO gauges, the ``/v1/stats`` snapshot as ``ditl_serving_*`` gauges
+  and ``ditl_serving_up``; ``/slo`` grades the TTFT, TPOT and availability
+  objectives over burn-rate windows (``--telemetry-override
+  slo_ttft_s=0.5`` and the other ``TelemetryConfig`` fields tune them);
+  ``/health`` adds ``ttft_p95_s`` and ``tpot_p95_s`` once something has
+  been served. Every response echoes the client's ``X-Request-Id`` or a
+  generated ``req-`` one; a completion opens a ``server.request`` span
+  under the client's W3C ``traceparent``, and the continuous engine's
+  spans chain under it. ``--trace-dir DIR`` arms the tracer: the spans go
+  to ``DIR/events-server-<pid>.jsonl`` (``python -m
+  ditl_tpu_torch.telemetry.trace_export --dir DIR`` makes a Chrome trace).
+  A 429's ``Retry-After`` is the seconds the backlog takes to clear at the
+  measured completion rate, in [1, 30].
 
 - ``--engine lockstep`` (default): the lock-step ``Generator``; a lock
   serialises device work.
@@ -68,7 +85,8 @@ decoding (``guided_regex``, ``guided_json``, ``response_format``), and
   slots and prefix-cache tokens, with the page pool's fields on pages.
 
 ``--max-pending`` answers 429 beyond that many requests in flight.
-Adapters, telemetry routes and pod serving are later slices (ROADMAP.md). ``--checkpoint-dir`` serves the newest verified step of a
+Adapters, usage metering, incident bundles and pod serving are later
+slices (ROADMAP.md). ``--checkpoint-dir`` serves the newest verified step of a
 training run's checkpoints (``train/checkpoint.py``: its masters turned into
 the serving tree, checked against the preset and overrides, which must be
 the trained model's); without it, or when the directory holds no step that
@@ -107,7 +125,8 @@ card unless ``--device cpu`` is given:
         [--override dtype=float16|float32] [--quantize int8] [--kv-quant int8] \\
         [--speculative on|auto [--draft-preset NAME [--draft-checkpoint DIR]]] \
         [--prefill-chunk 512 --token-budget 640] [--admission optimistic] \\
-        [--logprobs-k 5] [--fsm-capacity 1200]
+        [--logprobs-k 5] [--fsm-capacity 1200] [--trace-dir DIR] \\
+        [--telemetry-override slo_ttft_s=0.5]
 """
 
 from __future__ import annotations
@@ -130,12 +149,24 @@ from ditl_tpu_torch.infer.continuous import (
     ThreadedEngine,
 )
 from ditl_tpu_torch.infer.engine import GenerateConfig, Generator, _next_pow2
+from ditl_tpu_torch.telemetry.serving import (
+    ServingMetrics,
+    backlog_retry_after,
+    flattened_stats_lines,
+)
+from ditl_tpu_torch.telemetry.slo import BurnRateMonitor, serving_slo
+from ditl_tpu_torch.telemetry.tracing import (
+    NULL_TRACER,
+    Tracer,
+    parse_traceparent,
+    resolve_request_id,
+)
 from ditl_tpu_torch.utils.http11 import KeepAliveHandlerMixin
 from ditl_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
-__all__ = ["DrainableHTTPServer", "make_server", "create_server", "serve"]
+__all__ = ["DrainableHTTPServer", "make_server", "create_server", "serve", "telemetry_from_args"]
 
 
 class DrainableHTTPServer(ThreadingHTTPServer):
@@ -152,6 +183,9 @@ class DrainableHTTPServer(ThreadingHTTPServer):
         self._idle = threading.Condition()
         self._parked: set = set()
         self._conn_lock = threading.Lock()
+        # (wall time, completed count) samples: the service rate behind the
+        # backlog-aware Retry-After (_Handler._retry_after_s).
+        self._rate_samples: collections.deque = collections.deque(maxlen=64)
         super().__init__(*args, **kwargs)
 
     def shutdown_request(self, request):
@@ -323,19 +357,57 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
     stats_lock: threading.Lock = None
     grammar_cache: collections.OrderedDict = None  # spec key -> CompiledGrammar (LRU)
     grammar_lock: threading.Lock = None
+    # Telemetry (bound by make_server): the serving bundle /metrics renders
+    # (the continuous engine's own, else one the lock-step paths record
+    # into), the span tracer (the engine's, so one knob arms the replica)
+    # and the SLO burn-rate monitor /slo grades.
+    serving_metrics: ServingMetrics = None
+    tracer: Tracer = NULL_TRACER
+    slo: BurnRateMonitor = None
 
     def log_message(self, *args):
         logger.debug("http: " + args[0], *args[1:])
+
+    def _request_id(self) -> str:
+        """The request's id: the client's sanitized ``X-Request-Id``, else a
+        generated ``req-`` one, echoed on every response (JSON, 4xx, 429,
+        503, 504, SSE). Reset per request: one handler serves every request
+        of a kept-alive connection."""
+        rid = getattr(self, "_rid", None)
+        if rid is None:
+            rid = self._rid = resolve_request_id(self.headers.get("X-Request-Id"))
+        return rid
 
     def _send_json(self, status: int, payload: dict, headers: dict | None = None) -> None:
         body = json.dumps(payload).encode("utf-8")
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
+        self.send_header("X-Request-Id", self._request_id())
         for key, value in (headers or {}).items():
             self.send_header(key, value)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
+
+    def _sample_service_rate(self) -> None:
+        """One (now, completed) sample for the Retry-After derivation, after
+        every completion-shaped request."""
+        self.server._rate_samples.append((time.time(), self.serving_metrics.completed.value))
+
+    def _retry_after_s(self) -> int:
+        """Seconds until the current backlog (queued plus active requests)
+        clears at the recently measured service rate, clamped to [1, 30]
+        (``telemetry/serving.backlog_retry_after``)."""
+        self._sample_service_rate()
+        load = self._load()
+        return backlog_retry_after(self.server._rate_samples,
+                                   load["queue_depth"] + load["active_slots"])
+
+    def _send_429(self, message: str) -> None:
+        """OpenAI's rate-limit answer, its ``Retry-After`` from the backlog so
+        a herd of clients does not retry at one instant."""
+        self._send_json(429, {"error": {"message": message, "type": "rate_limit_error"}},
+                        headers={"Retry-After": str(self._retry_after_s())})
 
     def _load(self) -> dict:
         """The load signal of ``/health``, as the reference's
@@ -358,23 +430,27 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 "active_slots": min(1, inflight), "n_slots": 1}
 
     def do_GET(self):
+        self._rid = None  # a fresh id per request on a kept-alive connection
         path = self.path.rstrip("/")
         draining = bool(self.server.draining)
         if path in ("/health", "/v1/health"):
-            self._send_json(200, {"status": "draining" if draining else "ok",
-                                  "model": self.model_name,
-                                  "draining": draining, **self._load()})
+            payload = {"status": "draining" if draining else "ok",
+                       "model": self.model_name, "draining": draining, **self._load()}
+            # lifetime p95s, once something has been served
+            m = self.serving_metrics
+            for key, hist in (("ttft_p95_s", m.ttft), ("tpot_p95_s", m.decode_token)):
+                q = hist.quantile(0.95) if hist.count else None
+                if q is not None:
+                    payload[key] = round(q, 6)
+            self._send_json(200, payload)
         elif path in ("/v1/stats", "/stats"):
             with self.stats_lock:
                 served = dict(self.stats)
             engine = ({"engine": "lockstep"} if self.threaded_engine is None
                       else self.threaded_engine.stats())
-            spec = self.spec_generator
-            if spec is not None:
+            if self.spec_generator is not None:
                 engine["speculative"] = True
-                acc = getattr(spec, "acceptance_ema", None)
-                if acc is None:
-                    acc = getattr(getattr(spec, "spec", spec), "last_acceptance", None)
+                acc = self._spec_acceptance()
                 if acc is not None:
                     engine["speculative_acceptance"] = round(acc, 3)
             self._send_json(200, {"model": self.model_name, **engine,
@@ -385,10 +461,64 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         elif path in ("/v1/models", "/models"):
             self._send_json(200, {"object": "list", "data": [
                 {"id": self.model_name, "object": "model"}]})
+        elif path == "/metrics":
+            self._metrics()
+        elif path in ("/slo", "/v1/slo"):
+            self._send_json(200, self.slo.report())  # the scrape is its sample tick
         else:
             self._send_json(404, {"error": {"message": f"no route {self.path}"}})
 
+    def _metrics(self) -> None:
+        """Prometheus text exposition, no device sync: the serving
+        registry's real series (histograms as ``_bucket``/``_sum``/``_count``,
+        ``_total`` counters, the SLO gauges refreshed by this scrape), then
+        the ``/v1/stats`` snapshot flattened to ``ditl_serving_<path>``
+        gauges that shadow no registry family, then ``ditl_serving_up``.
+        The reference's HBM gauges (``telemetry/memwatch.py``) are not
+        ported yet (ROADMAP.md)."""
+        stats: dict = {}
+        if self.threaded_engine is not None:
+            stats.update(self.threaded_engine.stats())
+        if self.spec_generator is not None:
+            # lock-step speculative serving: the acceptance /v1/stats reports
+            stats["lockstep_speculative"] = True
+            acc = self._spec_acceptance()
+            if acc is not None:
+                stats["lockstep_speculative_acceptance"] = round(acc, 3)
+        self.slo.report()
+        lines = self.serving_metrics.render().splitlines()
+        lines.extend(flattened_stats_lines(stats, set(self.serving_metrics.registry._metrics)))
+        lines += ["# TYPE ditl_serving_up gauge", "ditl_serving_up 1"]
+        body = ("\n".join(lines) + "\n").encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "text/plain; version=0.0.4")
+        self.send_header("X-Request-Id", self._request_id())
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _spec_acceptance(self):
+        """The lock-step speculative generator's acceptance: the auto
+        generator's EMA, else the last call's (None before any)."""
+        spec = self.spec_generator
+        acc = getattr(spec, "acceptance_ema", None)
+        if acc is None:
+            acc = getattr(getattr(spec, "spec", spec), "last_acceptance", None)
+        return acc
+
+    def _observe_lockstep(self, t0: float, n_gen: int) -> None:
+        """Telemetry of a request the lock-step Generator served (the
+        continuous engine records its own): the request, completion and
+        token counters and the end-to-end latency; queue wait, TTFT and
+        TPOT have no lock-step counterpart."""
+        m = self.serving_metrics
+        m.requests.inc()
+        m.completed.inc()
+        m.tokens_generated.inc(n_gen)
+        m.e2e.observe(time.time() - t0)
+
     def do_POST(self):
+        self._rid = None  # a fresh id per request on a kept-alive connection
         try:
             raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
         except (ValueError, OSError) as e:
@@ -420,10 +550,8 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         n = srv._enter_request()
         try:
             if self.max_pending is not None and n > self.max_pending:
-                self._send_json(429, {"error": {
-                    "message": f"server at capacity ({self.max_pending} requests "
-                               "in flight)",
-                    "type": "rate_limit_error"}}, headers={"Retry-After": "1"})
+                self.serving_metrics.queue_full.inc()
+                self._send_429(f"server at capacity ({self.max_pending} requests in flight)")
                 return
             if path.endswith("/embeddings"):
                 try:
@@ -435,6 +563,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 self._complete(payload, chat=path.endswith("/chat/completions"))
         finally:
             srv._exit_request()
+            self._sample_service_rate()
 
     def _deadline(self, payload: dict):
         """The request's deadline: the ``deadline_s`` field, else the
@@ -456,6 +585,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             self._send_json(400, {"error": {"message": "deadline_s must be a number (seconds)"}})
             return None
         if deadline_s <= 0:
+            self.serving_metrics.deadline_expired.inc()
             self._send_json(504, {"error": {"message": "deadline expired before any work began",
                                             "type": "timeout_error"}})
             return None
@@ -497,6 +627,19 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         return False, None
 
     def _complete(self, payload: dict, *, chat: bool) -> None:
+        """A completion under a ``server.request`` span that continues the
+        client's W3C ``traceparent`` (or roots a fresh trace); the engine's
+        spans chain under it through ``submit(trace=...)``, and it covers
+        the SSE writes of a stream."""
+        self._span = self.tracer.start_span(
+            "server.request", parent=parse_traceparent(self.headers.get("traceparent")),
+            request_id=self._request_id(), route="chat" if chat else "completions")
+        try:
+            self._complete_request(payload, chat=chat)
+        finally:
+            self._span.end()
+
+    def _complete_request(self, payload: dict, *, chat: bool) -> None:
         tok = self.generator.tokenizer
         try:
             if chat:
@@ -594,9 +737,8 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             except QueueFullError as e:
                 # The stream's submit is eager (before the SSE headers), so a
                 # full queue is still a real 429.
-                self._send_json(429, {"error": {"message": str(e),
-                                                "type": "rate_limit_error"}},
-                                headers={"Retry-After": "1"})
+                self._span.annotate(error=type(e).__name__)
+                self._send_429(str(e))
             except ValueError as e:
                 # the eager submit's validation; a grammar table out of rows
                 # is the server's capacity, not the client's fault
@@ -630,22 +772,27 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 out, lp = engine.generate_one_with_logprobs(
                     prompt_ids, n_top, max_new_tokens=gen.max_new_tokens,
                     temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed,
-                    slo_class=slo_class, deadline_s=deadline_s, grammar=grammar)
+                    slo_class=slo_class, deadline_s=deadline_s, grammar=grammar,
+                    trace=self._span)
             elif engine is not None and n_top is None:
                 # Continuous engine: the request shares decode ticks.
                 out = engine.generate_one(
                     prompt_ids, max_new_tokens=gen.max_new_tokens,
                     temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed,
-                    slo_class=slo_class, deadline_s=deadline_s, grammar=grammar)
-            elif n_top is None:
-                out = self._lockstep_generate(prompt_ids, gen)
+                    slo_class=slo_class, deadline_s=deadline_s, grammar=grammar,
+                    trace=self._span)
             else:
-                with self.device_lock:
-                    # The engine's top-k needs k >= 1; N = 0 computes one
-                    # alternative and emits none.
-                    outs, lps = self.generator.generate_tokens_with_logprobs(
-                        [prompt_ids], dataclasses.replace(gen, logprobs=max(1, n_top)))
-                out, lp = outs[0], lps[0]
+                if n_top is None:
+                    out = self._lockstep_generate(prompt_ids, gen)
+                else:
+                    with self.device_lock:
+                        # The engine's top-k needs k >= 1; N = 0 computes one
+                        # alternative and emits none.
+                        outs, lps = self.generator.generate_tokens_with_logprobs(
+                            [prompt_ids], dataclasses.replace(gen, logprobs=max(1, n_top)))
+                    out, lp = outs[0], lps[0]
+                # before the response write: a scrape right after it sees it
+                self._observe_lockstep(t0, len(out))
             self._count(len(prompt_ids), len(out))
         except Exception as e:  # noqa: BLE001 - the server keeps serving
             self._send_error(e)
@@ -726,9 +873,9 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         rows left for, 400 for a request the engine refused
         (``BadRequestError``: prompt + max_tokens beyond the context, a pool
         too small), else 500."""
+        self._span.annotate(error=type(e).__name__)
         if isinstance(e, QueueFullError):
-            self._send_json(429, {"error": {"message": str(e), "type": "rate_limit_error"}},
-                            headers={"Retry-After": "1"})
+            self._send_429(str(e))
         elif isinstance(e, DeadlineExceededError):
             self._send_json(504, {"error": {"message": str(e), "type": "timeout_error"}})
         elif isinstance(e, ValueError) and "fsm_capacity exhausted" in str(e):
@@ -784,7 +931,8 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                 reqs = engine.generate_many(
                     prompt_ids, best_of, max_new_tokens=gen.max_new_tokens,
                     temperature=gen.temperature, top_p=gen.top_p, seed=gen.seed,
-                    slo_class=slo_class, logprobs=0 if rank else None, grammar=grammar)
+                    slo_class=slo_class, logprobs=0 if rank else None, grammar=grammar,
+                    trace=self._span)
                 cands = [(r.tokens, r.lp_token) for r in reqs]
             else:
                 ok, slo_class = self._gate_slo_class(slo_class, slo_from_header)
@@ -807,6 +955,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
                         cands = [(o, lp["token_logprobs"]) for o, lp in zip(outs, lps)]
                     else:
                         cands = [(o, None) for o in self.generator.generate_tokens(batch, gen)]
+                self._observe_lockstep(t0, sum(len(out) for out, _ in cands))
         except Exception as e:  # noqa: BLE001 - the server keeps serving
             self._send_error(e)
             return
@@ -832,6 +981,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         slot instead of decoding the abandoned budget."""
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
+        self.send_header("X-Request-Id", self._request_id())
         self.send_header("Cache-Control", "no-cache")
         self.send_header("Connection", "close")  # also sets close_connection
         self.end_headers()
@@ -842,6 +992,7 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
             self.wfile.write(b"data: [DONE]\n\n")
             self.wfile.flush()
         except OSError:  # BrokenPipeError and ConnectionError are subclasses
+            self.serving_metrics.client_disconnects.inc()
             logger.info("client disconnected mid-stream; cancelling its generation")
         finally:
             events.close()
@@ -887,13 +1038,15 @@ class _Handler(KeepAliveHandlerMixin, BaseHTTPRequestHandler):
         if engine is not None:
             kw = dict(max_new_tokens=gen.max_new_tokens, temperature=gen.temperature,
                       top_p=gen.top_p, seed=gen.seed, slo_class=slo_class,
-                      deadline_s=deadline_s, grammar=grammar)
+                      deadline_s=deadline_s, grammar=grammar, trace=self._span)
             stream_iter = (engine.stream_one(prompt_ids, **kw) if lp_n is None
                            else engine.stream_one_with_logprobs(prompt_ids, lp_n, **kw))
         else:
             # Generated whole, so greedy streams take speculation as
             # non-streamed requests do.
+            t0 = time.time()
             out = self._lockstep_generate(prompt_ids, gen)
+            self._observe_lockstep(t0, len(out))
 
         def events():
             try:
@@ -1067,13 +1220,34 @@ def make_server(
     model_name: str = "ditl-tpu-torch",
     default_max_tokens: int = 64,
     max_pending: int | None = None,
+    serving_metrics: ServingMetrics | None = None,
+    tracer: Tracer | None = None,
+    slo: BurnRateMonitor | None = None,
+    telemetry=None,
 ) -> DrainableHTTPServer:
     """Build (not start) the HTTP server; ``port=0`` picks a free port.
     ``threaded_engine`` (already built, over ``generator``'s weights) serves
     completions through the continuous engine; ``generator`` then serves
     only logprob requests. ``spec_generator`` (a ``SpeculativeGenerator``
     or ``AutoSpeculativeGenerator``) serves the lock-step path's greedy
-    requests. Closing the server stops the engine."""
+    requests. Closing the server stops the engine.
+
+    Telemetry, with the reference's defaults: ``serving_metrics`` (default
+    the continuous engine's bundle, so ``/metrics`` renders what its
+    scheduler recorded, else a fresh one the lock-step paths record into),
+    ``tracer`` (default the engine's, else unarmed) and ``slo`` (default a
+    burn-rate monitor over the bundle, its objectives from ``telemetry``,
+    a ``config.TelemetryConfig``, else the defaults; it samples only when
+    ``/slo`` or ``/metrics`` is scraped, so the server always has one)."""
+    if serving_metrics is None:
+        serving_metrics = getattr(threaded_engine, "metrics", None)
+    if serving_metrics is None:
+        serving_metrics = ServingMetrics()
+    if tracer is None:
+        tracer = getattr(threaded_engine, "tracer", None) or NULL_TRACER
+    if slo is None:
+        kw = telemetry.serving_slo_kwargs() if telemetry is not None else {}
+        slo = serving_slo(serving_metrics, **kw)
     handler = type("BoundHandler", (_Handler,), {
         "generator": generator,
         "threaded_engine": threaded_engine,
@@ -1086,6 +1260,9 @@ def make_server(
         "stats_lock": threading.Lock(),
         "grammar_cache": collections.OrderedDict(),
         "grammar_lock": threading.Lock(),
+        "serving_metrics": serving_metrics,
+        "tracer": tracer,
+        "slo": slo,
     })
     server = DrainableHTTPServer((host, port), handler)
     server.engine = threaded_engine
@@ -1175,7 +1352,38 @@ def _parser() -> argparse.ArgumentParser:
                    "weights (seed-initialised without it: smoke tests only)")
     p.add_argument("--draft-checkpoint", default="",
                    help="training checkpoint directory holding --draft-preset's weights")
+    p.add_argument("--trace-dir", default="",
+                   help="arm end-to-end request tracing: span records (server.request "
+                   "and the continuous engine's queue/prefill/decode spans, tick "
+                   "instants) append to DIR/events-server-<pid>.jsonl; export with "
+                   "python -m ditl_tpu_torch.telemetry.trace_export --dir DIR")
+    p.add_argument("--telemetry-override", action="append", default=[],
+                   metavar="FIELD=VALUE",
+                   help="TelemetryConfig override (repeatable), e.g. slo_ttft_s=0.5 or "
+                   "journal_max_mb=64: the /slo objectives and the trace journal's "
+                   "rotation cap")
     return p
+
+
+def telemetry_from_args(args: argparse.Namespace) -> tuple:
+    """(``config.TelemetryConfig``, tracer or None) of a parsed command
+    line: the ``--telemetry-override`` fields and, with ``--trace-dir``, a
+    tracer over ``DIR/events-server-<pid>.jsonl`` whose rotation cap is the
+    config's ``journal_max_mb``."""
+    import os
+
+    from ditl_tpu_torch.config import Config, parse_overrides
+    from ditl_tpu_torch.telemetry.journal import EventJournal
+
+    telemetry = parse_overrides(
+        Config(), [f"telemetry.{o}" for o in args.telemetry_override]).telemetry
+    tracer = None
+    if args.trace_dir:
+        tag = os.getpid()  # one journal per server process
+        tracer = Tracer(EventJournal(
+            os.path.join(args.trace_dir, f"events-server-{tag}.jsonl"),
+            source=f"server-{tag}", max_bytes=telemetry.journal_max_bytes()))
+    return telemetry, tracer
 
 
 def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
@@ -1199,6 +1407,7 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
                                            or args.cache_mode != "paged"):
         parser.error("--admission optimistic requires --engine continuous --cache-mode "
                      "paged (only the page pool can be reclaimed mid-flight)")
+    telemetry_cfg, tracer = telemetry_from_args(args)
     cfg = get_preset(args.preset) if args.preset else ModelConfig()
     cfg = parse_model_overrides(cfg, args.override)
     if args.kv_quant == "int8":
@@ -1260,6 +1469,7 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
             draft_params=draft_params, draft_cfg=draft_cfg,
             token_budget=args.token_budget, admission=args.admission,
             logprobs_k=args.logprobs_k, fsm_capacity=args.fsm_capacity,
+            tracer=tracer,
         ))
     spec = None
     if args.speculative != "off" and args.engine == "lockstep":
@@ -1276,7 +1486,8 @@ def create_server(argv: list[str] | None = None) -> DrainableHTTPServer:
                          host=args.host,
                          port=args.port, model_name=cfg.name,
                          default_max_tokens=args.max_tokens,
-                         max_pending=args.max_pending or None)
+                         max_pending=args.max_pending or None,
+                         tracer=tracer, telemetry=telemetry_cfg)
     logger.info("serving %s (attention_impl=%s, engine %s) on %s:%d, device %s",
                 cfg.name, cfg.attention_impl, args.engine, args.host,
                 server.server_address[1], generator.device)

@@ -310,8 +310,8 @@ def test_queue_order_limits_and_validation(pair):
 
 
 @pytest.mark.parametrize("kw", [
-    {"flight": object()}, {"metrics": object()}, {"host_tier_mb": 1},
-    {"pipeline_ticks": True}, {"mesh": object()}, {"tracer": object()},
+    {"anomaly": object()}, {"usage": object()}, {"host_tier_mb": 1},
+    {"pipeline_ticks": True}, {"mesh": object()}, {"usage_ledger": object()},
 ])
 def test_unported_engine_features_raise(pair, kw):
     _, _, cfg, tparams = pair
@@ -321,7 +321,7 @@ def test_unported_engine_features_raise(pair, kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"adapter_id": 1}, {"trace": object()}, {"tenant": "t"},
+    {"adapter_id": 1}, {"tenant": "anonymous"}, {"tenant": "t"},
 ])
 def test_unported_request_features_raise(pair, kw):
     _, teng = _engines(pair, 8)

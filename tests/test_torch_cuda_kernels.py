@@ -2105,7 +2105,7 @@ def test_deadline_eviction_frees_pages_on_the_card(no_tf32):
     eng.step()
     done = eng._completed.pop(rid)
     st = eng.stats()
-    assert done.expired and len(done.tokens) == 16 and st["deadline_expired"] == 1
+    assert done.expired and len(done.tokens) == 16 and int(eng.metrics.deadline_expired.value) == 1
     assert not eng.pending
     assert st["pages_free"] + st["pages_cached_evictable"] == st["pages_total"]
 

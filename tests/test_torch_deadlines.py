@@ -144,7 +144,7 @@ def test_threaded_engine_raises_and_ends_streams(pair):
         assert errors and "deadline" in errors[0]
         assert list(plain) == [] and list(with_lp) == []
         assert te.generate_one(PROMPT, max_new_tokens=4, deadline_s=60.0)
-        assert eng.stats()["deadline_expired"] == 3
+        assert _expired_count(eng) == 3
     finally:
         gate.set()
         te.close()

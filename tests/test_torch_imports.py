@@ -1,9 +1,11 @@
 """The port stands alone: ``ditl_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of the JAX package, and the copies the port keeps of
 jax-free modules (``ModelConfig``, ``DataConfig``, ``TrainConfig``,
-``APIConfig``, the presets, the byte tokenizer, the keep-alive mixin, the
-dataset and sampler) match their originals; ``tests/test_torch_client.py``
-holds the client, the fault plane and the metrics registry to theirs."""
+``APIConfig``, ``TelemetryConfig``'s overrides, the presets, the byte
+tokenizer, the keep-alive mixin, the dataset and sampler) match their
+originals; ``tests/test_torch_client.py`` holds the client, the fault plane
+and the metrics registry to theirs, ``tests/test_torch_telemetry.py`` the
+other telemetry modules."""
 
 import ast
 import dataclasses
@@ -70,7 +72,10 @@ def test_port_package_has_modules():
                  "tools.profile_train", "ops.quant", "infer.speculative",
                  "client", "client.llm", "client.eval_loop", "chaos", "chaos.plane",
                  "telemetry", "telemetry.registry", "runtime", "runtime.distributed",
-                 "ops.encode", "native", "native.build", "native.fsm", "infer.grammar"):
+                 "ops.encode", "native", "native.build", "native.fsm", "infer.grammar",
+                 "annotations", "telemetry.journal", "telemetry.tracing",
+                 "telemetry.flight", "telemetry.serving", "telemetry.slo",
+                 "telemetry.trace_export"):
         assert f"ditl_tpu_torch.{name}" in mods
     for source in ("flash_fwd.cu", "paged_attention.cu", "flash_bwd.cu", "mlp_bwd.cu",
                    "projection_bwd.cu", "fsm.cpp"):
@@ -143,12 +148,14 @@ def test_config_sections_and_override_coercion_match_jax():
              "data.seq_len=64", "data.synthetic=on", "train.learning_rate=1e-2",
              "train.optimizer=adafactor", "train.metrics_file=none",
              "train.eval_every=3", "train.eval_samples=4", "api.api_base=http://h:1/v1",
-             "api.total_timeout_s=2.5", "api.max_retries=1", "api.api_key_env=none"]
+             "api.total_timeout_s=2.5", "api.max_retries=1", "api.api_key_env=none",
+             "telemetry.slo_ttft_s=0.5", "telemetry.journal_max_mb=8",
+             "telemetry.flight_ring_size=64"]
     ours = tconfig.parse_overrides(tconfig.Config(), items)
     ref = jconfig.parse_overrides(jconfig.Config(), items)
     assert [f.name for f in dataclasses.fields(tconfig.Config)] == [
-        "model", "data", "train", "api"]
-    for section in ("model", "data", "train", "api"):
+        "model", "data", "train", "api", "telemetry"]
+    for section in ("model", "data", "train", "api", "telemetry"):
         mine = dataclasses.asdict(getattr(ours, section))
         theirs = dataclasses.asdict(getattr(ref, section))
         assert mine == {k: theirs[k] for k in mine}, section

@@ -272,7 +272,11 @@ def servers():
         yield {key: (addr, srv) for key, ((addr, _), srv) in running.items()}
     finally:
         for (_, thread), srv in running.values():
-            srv.close(drain=False) if hasattr(srv, "close") else srv.shutdown()
+            srv.close(drain=False)
+            # the reference's close() leaves its engine's driver thread running
+            engine = srv.RequestHandlerClass.threaded_engine
+            if engine is not None:
+                engine.close()
             thread.join(timeout=30)
 
 
@@ -436,7 +440,7 @@ def test_sse_full_queue_answers_429_before_the_headers(servers):
     for status, headers in results:
         want = "text/event-stream" if status == 200 else "application/json"
         assert headers["content-type"] == want
-        assert status == 200 or headers["retry-after"] == "1"
+        assert status == 200 or 1 <= int(headers["retry-after"]) <= 30
 
 
 def test_sse_disconnect_mid_stream_frees_the_slot(servers):
